@@ -1,0 +1,89 @@
+"""dynamo-tpu-torch run — the port's single-command launcher.
+
+``dynamo-tpu-torch run in=http out=torch --model-path DIR [--device cpu]``
+serves a model over the OpenAI HTTP API from one process (counterpart of
+``dynamo-tpu run in=http out=jax``).  The engine runs on the CUDA card
+unless ``--device cpu`` is given.
+
+Example:
+  python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
+      --model-path tests/data/tiny-chat-model --port 8080
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import signal
+import sys
+
+from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
+
+logger = get_logger("cli.run")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(prog="dynamo-tpu-torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    run = sub.add_parser("run", help="serve a model")
+    run.add_argument("io", nargs="*", help="in=http out=torch")
+    run.add_argument("--model-path", required=True,
+                     help="local model dir (tokenizer/config/weights)")
+    run.add_argument("--model-name", help="served model name (default: dir name)")
+    run.add_argument("--host", default="0.0.0.0")
+    run.add_argument("--port", type=int, default=8080)
+    run.add_argument("--device", default=None,
+                     help="torch device (default: the CUDA card; 'cpu' to run "
+                          "on the CPU)")
+    run.add_argument("--num-blocks", type=int, default=256, help="KV cache blocks")
+    run.add_argument("--max-batch-size", type=int, default=8)
+    run.add_argument("--context-length", type=int, default=None)
+    run.add_argument("--seed", type=int, default=0,
+                     help="seed of random-initialized weights and sampling")
+    args = parser.parse_args(argv)
+
+    args.input, args.output = "http", "torch"
+    for tok in args.io:
+        if tok.startswith("in="):
+            args.input = tok[3:]
+        elif tok.startswith("out="):
+            args.output = tok[4:]
+        else:
+            parser.error(f"unrecognized positional {tok!r} (want in=... / out=...)")
+    if args.input != "http" or args.output != "torch":
+        parser.error("this launcher serves in=http out=torch")
+    return args
+
+
+async def _run(args) -> int:
+    configure_logging()
+    from dynamo_tpu_torch.serve import serve_http
+
+    overrides = dict(
+        num_blocks=args.num_blocks, max_batch_size=args.max_batch_size, seed=args.seed,
+    )
+    if args.context_length:
+        overrides["max_model_len"] = args.context_length
+    handle = await serve_http(
+        args.model_path, model_name=args.model_name, host=args.host,
+        port=args.port, device=args.device, **overrides,
+    )
+    print(f"listening on http://{args.host}:{handle.service.port}/v1", file=sys.stderr, flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    try:
+        await stop.wait()
+    finally:
+        await handle.shutdown()
+    return 0
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    return asyncio.run(_run(args))
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,764 @@
+"""TorchLlmEngine — the port's inference engine (a subset of
+dynamo_tpu/engine/engine.py's JaxLlmEngine).
+
+Architecture, as in the reference:
+- a dedicated device thread runs the scheduler/step loop, keeping the
+  asyncio event loop free for network I/O;
+- requests enter through the streaming-engine interface
+  (``generate(Context[dict]) -> ResponseStream[dict]`` speaking
+  PreprocessedRequest / Annotated[LLMEngineOutput] wire dicts);
+- each scheduler iteration that carries prefill work runs the ragged
+  unified step (mixed prefill spans + decode tokens, one forward through
+  the ragged attention kernel); a decode-only iteration runs the exact-lane
+  decode step (the paged decode kernel).  Both end in the same sampling
+  tail.
+
+This slice runs decode synchronously.  Overlapped and fused multi-step
+decode, the split prefill path, speculative and guided decoding, KV
+offload and prefetch, quantization and multi-device meshes are later
+slices; the engine refuses configurations that would need them.
+
+There is no attention fallback: on the card attention runs through the
+hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
+to build or launch raises; on the CPU the kernel wrappers take their plain
+versions (``"plain"``).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import math
+import queue as thread_queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass
+from typing import AsyncIterator
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine.kv_manager import BlockAllocator
+from dynamo_tpu_torch.engine.scheduler import Scheduler
+from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
+from dynamo_tpu_torch.llm.protocols.common import (
+    Annotated,
+    FinishReason,
+    LLMEngineOutput,
+    PreprocessedRequest,
+)
+from dynamo_tpu_torch.models.llama import LlamaConfig
+from dynamo_tpu_torch.models.registry import get_family
+from dynamo_tpu_torch.ops.kernels import build as kernel_build
+from dynamo_tpu_torch.ops.kernels import pack_page_meta
+from dynamo_tpu_torch.ops.random import fold_in, gumbel
+from dynamo_tpu_torch.ops.sampling import (
+    apply_logit_bias,
+    apply_penalties,
+    sample_tokens,
+    token_logprobs,
+    topk_logprobs,
+)
+from dynamo_tpu_torch.runtime.engine import Context, ResponseStream
+from dynamo_tpu_torch.utils.logging import get_logger
+from dynamo_tpu_torch.utils.tasks import spawn_logged
+
+logger = get_logger("engine")
+
+
+def _round_chunk_tokens(chunk_tokens: int, block_size: int) -> int:
+    """Chunk windows round UP to whole blocks."""
+    return max(1, (chunk_tokens + block_size - 1) // block_size) * block_size
+
+
+# width of the per-lane OpenAI logit_bias rows: requests with more entries
+# keep the strongest biases, as the reference's default compile width does
+LOGIT_BIAS_K = 64
+
+
+@dataclass
+class EngineConfig:
+    model: LlamaConfig                 # the family's config
+    model_family: str = "llama"        # registry key
+    num_blocks: int = 256
+    block_size: int = 16
+    max_batch_size: int = 8
+    max_model_len: int | None = None
+    prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+    seed: int = 0
+    # "auto": "kernel" on a CUDA device, "plain" on the CPU.  "kernel" builds
+    # and loads the CUDA library at construction and raises when it cannot;
+    # "plain" is refused on a CUDA device.
+    attention_impl: str = "auto"
+    # prompts longer than this prefill in chunks of this many tokens
+    # (rounded up to a block multiple).  None = the largest prefill bucket
+    # (rounded down to a block multiple): the unified step then never
+    # overflows its largest bucket, the case where the reference falls back
+    # to its split prefill path.
+    prefill_chunk_tokens: int | None = None
+
+    def resolved_max_len(self) -> int:
+        hard = self.num_blocks * self.block_size
+        soft = self.max_model_len or self.model.max_position_embeddings
+        return min(soft, self.model.max_position_embeddings, hard)
+
+
+class TorchLlmEngine:
+    def __init__(
+        self,
+        config: EngineConfig,
+        params: dict | None = None,
+        *,
+        device: str | torch.device | None = None,
+    ):
+        self.config = config
+        cfg = config.model
+        self.device = resolve_device(device)
+        self.family = get_family(config.model_family)
+        self.max_len = config.resolved_max_len()
+        self.max_blocks_per_seq = (self.max_len + config.block_size - 1) // config.block_size
+        self.buckets = sorted({min(b, self.max_len) for b in config.prefill_buckets})
+        if self.buckets[-1] < self.max_len:
+            self.buckets.append(self.max_len)
+
+        impl = config.attention_impl
+        if impl == "auto":
+            impl = "kernel" if self.device.type == "cuda" else "plain"
+        if impl == "kernel":
+            kernel_build.library()  # raises KernelBuildError: no fallback
+            if self.device.type != "cuda":
+                raise ValueError("attention_impl='kernel' needs a CUDA device")
+        elif impl == "plain":
+            if self.device.type == "cuda":
+                raise ValueError(
+                    "attention_impl='plain' on a CUDA device: on the card the "
+                    "port runs attention only through its kernels"
+                )
+        else:
+            raise ValueError(f"unknown attention_impl {impl!r} (want auto|kernel|plain)")
+        self.attention_impl = impl
+
+        dev = self.device
+        if params is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(config.seed)
+            params = self.family.init_params(cfg, gen, dev)
+        self.params = _to_device(params, dev)
+        # the cache holds the model dtype: the kernels take q and cache in
+        # one dtype (narrowed caches come with the quantized slice)
+        self.cache = self.family.init_kv_cache(
+            cfg, config.num_blocks, config.block_size, cfg.dtype, dev
+        )
+        self.cos, self.sin = self.family.make_rope_tables(cfg, dev, self.max_len)
+        lanes = config.max_batch_size
+        # per-lane sampling state: generated-token counts (presence/frequency
+        # penalties) and prompt-token counts (repetition penalty scope), on
+        # the device; per-lane raw threefry keys on the host
+        self._gen_counts = torch.zeros((lanes, cfg.vocab_size), dtype=torch.int32, device=dev)
+        self._prompt_counts = torch.zeros_like(self._gen_counts)
+        self._lane_idx = torch.arange(lanes, device=dev)
+        self._host_rng = np.random.Generator(np.random.PCG64(config.seed))
+        self._lane_keys = np.zeros((lanes, 2), np.uint32)
+
+        self.chunk_tokens = _round_chunk_tokens(
+            config.prefill_chunk_tokens, config.block_size
+        ) if config.prefill_chunk_tokens is not None else max(
+            config.block_size,
+            (self.buckets[-1] // config.block_size) * config.block_size,
+        )
+        if self.chunk_tokens < self.max_len:
+            # chunks and the steady-state mixed window (a full chunk plus
+            # one decode token per lane) get buckets of their own
+            self.buckets = sorted(set(self.buckets) | {self.chunk_tokens})
+            mixed = -(-(self.chunk_tokens + lanes) // 8) * 8
+            if mixed < self.max_len:
+                self.buckets = sorted(set(self.buckets) | {mixed})
+        # ragged kernel geometry: the flat token axis pads to whole blocks of
+        # tb tokens.  The page worklist takes the tightest width that fits
+        # each window: eager PyTorch has no compiled program per width to
+        # keep stable, as the reference's fixed width does.
+        self._unified_tb = math.gcd(config.block_size, 8) or 1
+        self._unified_windows = 0
+        self._sync_windows = 0
+        self._decode_steps_total = 0
+        self._tokens_emitted = 0
+
+        # prefix caching: completed blocks stay resident and a matching
+        # prompt prefills only its uncached tail (the unified step reads the
+        # resident prefix through the paged cache)
+        self.allocator = BlockAllocator(
+            config.num_blocks, config.block_size, enable_prefix_caching=True,
+        )
+        self.scheduler = Scheduler(
+            self.allocator, max_batch_size=lanes,
+            prefill_chunk_tokens=self.chunk_tokens,
+            bucket_cost=self._bucket_len,
+            unified_batch=True,
+        )
+        self._iterations = 0
+        # per-lane block-table host rows, rewritten only for lanes whose
+        # block list changed; the device copy is reused while all are clean
+        self._bt_host = np.zeros((lanes, self.max_blocks_per_seq), np.int32)
+        self._bt_lane_key: list = [None] * lanes
+        self._bt_dev: torch.Tensor | None = None
+
+        # thread plumbing
+        self._submit_q: thread_queue.Queue = thread_queue.Queue()
+        self._wake = threading.Event()
+        self._stop = False
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop = False
+        self._thread = threading.Thread(
+            target=self._device_loop, name="torch-engine", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    # -- async engine interface -------------------------------------------
+    async def generate(self, request: Context[dict]) -> ResponseStream[dict]:
+        if request.data.get("image") is not None or request.data.get("video") is not None:
+            raise ValueError("this model deployment does not accept image/video input")
+        pre = PreprocessedRequest.from_wire(request.data)
+        if pre.output_format is not None:
+            raise ValueError(
+                "guided decoding (output_format) is not served by this engine yet"
+            )
+        ctx = request.ctx
+        if len(pre.token_ids) >= self.max_len:
+            raise ValueError(
+                f"prompt length {len(pre.token_ids)} exceeds engine max length {self.max_len}"
+            )
+        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre)
+        return self._start_sequence(seq, ctx)
+
+    def _start_sequence(self, seq: Sequence, ctx) -> ResponseStream[dict]:
+        """Wire the emit callback, submit to the device thread, watch for
+        cancellation."""
+        loop = asyncio.get_running_loop()
+        out_q: asyncio.Queue = asyncio.Queue()
+
+        def emit(tokens: list[int], finish: FinishReason | None,
+                 error: str | None = None,
+                 logprobs: list[float] | None = None,
+                 top_logprobs: list[list[list]] | None = None) -> None:
+            out = LLMEngineOutput(
+                token_ids=tokens, finish_reason=finish, error=error,
+                logprobs=logprobs, top_logprobs=top_logprobs,
+            )
+            wire = Annotated.from_data(out).to_wire(LLMEngineOutput.to_wire)
+            loop.call_soon_threadsafe(out_q.put_nowait, wire)
+            if finish is not None:
+                loop.call_soon_threadsafe(out_q.put_nowait, None)
+
+        seq.emit = emit
+        self._submit_q.put(("add", seq))
+        self._wake.set()
+
+        cancel_task = spawn_logged(self._watch_cancel(ctx, seq))
+
+        async def gen() -> AsyncIterator[dict]:
+            try:
+                while True:
+                    item = await out_q.get()
+                    if item is None:
+                        break
+                    yield item
+            finally:
+                cancel_task.cancel()
+
+        return ResponseStream(gen(), ctx)
+
+    async def _watch_cancel(self, ctx, seq: Sequence) -> None:
+        await ctx.stopped()
+        self._submit_q.put(("abort", seq))
+        self._wake.set()
+
+    # -- stats -------------------------------------------------------------
+    def stats(self) -> dict:
+        """ForwardPassMetrics and engine counters, under the reference's key
+        names (the subset this engine has)."""
+        return {
+            "kv_active_blocks": self.allocator.used_blocks,
+            "kv_total_blocks": self.allocator.num_blocks,
+            "kv_cached_blocks": self.allocator.cached_blocks,
+            "gpu_cache_usage_perc": self.allocator.usage,
+            "num_requests_waiting": self.scheduler.num_waiting,
+            "num_requests_running": self.scheduler.num_running,
+            "request_total_slots": self.config.max_batch_size,
+            "iterations_total": self._iterations,
+            "prefix_hits_total": self.allocator.prefix_hits_total,
+            "prefix_cached_tokens_total": self.allocator.prefix_cached_tokens_total,
+            "decode_windows_sync_total": self._sync_windows,
+            "decode_windows_unified_total": self._unified_windows,
+            "decode_steps_total": self._decode_steps_total,
+            "num_preemptions_total": self.scheduler.preemptions_total,
+            "tokens_emitted_total": self._tokens_emitted,
+            "preempted_tokens_total": self.scheduler.preempted_tokens_total,
+            "attention_impl": self.attention_impl,
+            "device": str(self.device),
+        }
+
+    # -- device thread -----------------------------------------------------
+    def _device_loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        logger.info(
+            "engine loop started on %s (max_len=%d blocks=%d lanes=%d buckets=%s)",
+            self.device, self.max_len, self.config.num_blocks,
+            self.config.max_batch_size, self.buckets,
+        )
+        while not self._stop:
+            try:
+                self._drain_submissions()
+                if not self.scheduler.has_work():
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                    continue
+                decision = self.scheduler.schedule()
+                if not self._maybe_run_unified(decision):
+                    self._run_decode_step()
+                self._iterations += 1
+            except Exception:  # noqa: BLE001 — scheduler-level bug: keep the
+                # thread alive (callers would hang forever), don't hot-spin
+                logger.exception("engine step failed")
+                time.sleep(0.1)
+
+    def _run_decode_step(self) -> None:
+        """Decode-only iteration: one exact-lane decode dispatch."""
+        decodes = [s for s in self.scheduler.running if s.status == SeqStatus.RUNNING]
+        if not decodes:
+            return
+        try:
+            self._run_plain_decode(decodes)
+        except Exception as exc:  # noqa: BLE001
+            logger.exception("decode step failed")
+            for seq in decodes:
+                if seq.status == SeqStatus.RUNNING:
+                    self._fail_sequence(seq, exc)
+
+    # -- ragged unified-batch step ----------------------------------------
+    def _maybe_run_unified(self, decision) -> bool:
+        """Serve this iteration as ONE ragged dispatch mixing prefill spans
+        and decode tokens.  Returns False for a decode-only iteration, which
+        the exact-lane decode step serves."""
+        prefills = list(decision.prefills)
+        decodes = [
+            s for s in self.scheduler.running
+            if s.status == SeqStatus.RUNNING and s not in prefills
+        ]
+        spans: list[tuple[Sequence, int, int]] = []
+        for seq in prefills:
+            n = len(seq.all_token_ids)
+            start = max(seq.prefilled_tokens, seq.cached_tokens)
+            end = min(seq.chunk_target, n) if seq.chunk_target else n
+            if end <= start:
+                raise NotImplementedError(
+                    "degenerate prefill window: the reference serves it on its "
+                    "split prefill path, a later slice of the port"
+                )
+            spans.append((seq, start, end))
+        if not spans:
+            # decode-only iterations keep the exact-lane decode program (a
+            # designed route, not a fallback)
+            return False
+        # decode lanes and spans pack densely: every token costs one slot
+        total = len(decodes) + sum(end - start for _, start, end in spans)
+        bucket = max(self._bucket_len(total), total)
+        tb = self._unified_tb
+        bucket = -(-bucket // tb) * tb  # the kernel takes whole token blocks
+        try:
+            return self._run_unified(spans, decodes, bucket)
+        except Exception as exc:  # noqa: BLE001
+            logger.exception("unified step failed")
+            for seq in prefills + decodes:
+                if seq.status in (SeqStatus.PREFILLING, SeqStatus.RUNNING):
+                    self._fail_sequence(seq, exc)
+            return True  # the step was consumed (by failing its batch)
+
+    def _run_unified(
+        self,
+        spans: list[tuple[Sequence, int, int]],
+        decodes: list[Sequence],
+        bucket: int,
+    ) -> bool:
+        """Build the ragged batch, dispatch once, read back, emit."""
+        lanes = self.config.max_batch_size
+        tb = self._unified_tb
+        bs = self.config.block_size
+        oob = self.config.num_blocks * bs
+
+        # decode slot growth, preempting like the plain decode path
+        slots: dict[str, int] = {}
+        for seq in list(decodes):
+            if seq.status != SeqStatus.RUNNING:
+                continue  # preempted as a victim earlier in this loop
+            slot = self.scheduler.ensure_slots(seq, 1, max_pos=self.max_len - 1)
+            if slot is None:
+                self.scheduler.preempt(seq)
+                continue
+            slots[seq.seq_id] = slot
+        decodes = [s for s in decodes if s.status == SeqStatus.RUNNING]
+        # ensure_slots may have victimized a PREFILLING span owner
+        spans = [
+            (s, a, b) for s, a, b in spans
+            if s.status in (SeqStatus.PREFILLING, SeqStatus.RUNNING)
+        ]
+        if not decodes and not spans:
+            return True  # everything preempted: step consumed
+
+        token_ids = np.zeros((bucket,), np.int32)
+        token_pos = np.full((bucket,), -1, np.int32)
+        token_slot = np.full((bucket,), oob, np.int32)
+        token_lane = np.full((bucket,), lanes, np.int32)
+        context_lens = np.zeros((lanes,), np.int32)
+        sample_rows = np.zeros((lanes,), np.int32)
+        sample_gate = np.zeros((lanes,), np.int32)
+        seeds: list[tuple[int, np.ndarray, np.ndarray]] = []
+
+        emit_seqs: list[Sequence] = []
+        cursor = 0
+        for seq in decodes:
+            lane = seq.lane
+            token_ids[cursor] = seq.all_token_ids[-1]
+            token_pos[cursor] = seq.context_len - 1
+            token_slot[cursor] = slots[seq.seq_id]
+            token_lane[cursor] = lane
+            context_lens[lane] = seq.context_len
+            sample_rows[lane] = cursor
+            sample_gate[lane] = 1
+            emit_seqs.append(seq)
+            cursor += 1
+        for seq, start, end in spans:
+            lane = seq.lane
+            tokens = seq.all_token_ids
+            span = end - start
+            blocks = np.asarray(self.allocator.block_ids(seq.seq_id), np.int32)
+            token_ids[cursor: cursor + span] = tokens[start:end]
+            ppos = np.arange(start, end, dtype=np.int32)
+            token_pos[cursor: cursor + span] = ppos
+            token_slot[cursor: cursor + span] = blocks[ppos // bs] * bs + ppos % bs
+            token_lane[cursor: cursor + span] = lane
+            context_lens[lane] = end
+            sample_rows[lane] = cursor + span - 1
+            final = end >= len(tokens)
+            sample_gate[lane] = 1 if final else 0
+            if start == seq.cached_tokens:
+                # first window of this admission: (re)seed the lane's
+                # sampling state, as the reference's seed scatter does
+                seeds.append((
+                    lane, self._count_row(seq.request.token_ids),
+                    self._count_row(seq.output_ids),
+                ))
+                self._seed_lane_key(seq)
+                seq.sampling_seeded = True
+            if final:
+                emit_seqs.append(seq)
+            cursor += span
+
+        tables = self._decode_tables(decodes + [s for s, _, _ in spans])
+        page_meta = pack_page_meta(
+            token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
+            sliding_window=self.config.model.sliding_window,
+        )
+        dev = self.device
+        tokens, lps, top = self._unified_step(
+            torch.from_numpy(token_ids).to(dev), tables,
+            torch.from_numpy(context_lens).to(dev),
+            torch.from_numpy(token_pos).to(dev),
+            torch.from_numpy(token_slot).to(dev),
+            torch.from_numpy(token_lane).to(dev),
+            [torch.from_numpy(a).to(dev) for a in page_meta],
+            torch.from_numpy(sample_rows).to(dev),
+            torch.from_numpy(sample_gate).to(dev),
+            seeds, emit_seqs, context_lens,
+        )
+
+        for seq, start, end in spans:
+            seq.prefilled_tokens = end
+            all_tokens = seq.all_token_ids
+            if end >= len(all_tokens):
+                if seq.status == SeqStatus.PREFILLING:
+                    seq.status = SeqStatus.RUNNING
+                self.allocator.publish_stored(seq.seq_id, all_tokens)
+            else:
+                self.allocator.publish_stored(seq.seq_id, all_tokens[:end])
+        self._unified_windows += 1
+        if decodes:
+            self._decode_steps_total += 1
+        self._sync_windows += 1
+        self._emit(emit_seqs, tokens, lps, top)
+        return True
+
+    def _unified_step(self, token_ids, block_tables, context_lens, token_pos,
+                      token_slot, token_lane, page_meta, sample_rows,
+                      sample_gate, seeds, emit_seqs, context_lens_host):
+        """Forward + sampling tail of one ragged window (the reference's
+        jitted unified step): newly admitted lanes re-seed their penalty
+        counts before the penalties read them, and intermediate-chunk
+        samples are gated out of the generated counts."""
+        logits, _ = self.family.forward_unified(
+            self.params, self.config.model, token_ids, self.cache, block_tables,
+            context_lens, token_pos, token_slot, token_lane, *page_meta,
+            sample_rows, self.cos, self.sin, tb_tokens=self._unified_tb,
+        )  # [lanes, vocab]
+        for lane, prompt_row, gen_row in seeds:
+            self._prompt_counts[lane] = torch.from_numpy(prompt_row).to(self.device)
+            self._gen_counts[lane] = torch.from_numpy(gen_row).to(self.device)
+        return self._sample(logits, emit_seqs, context_lens_host, sample_gate)
+
+    def _sample(self, logits, seqs, context_lens_host, gate):
+        """The shared sampling tail: penalties, logit bias, sampling,
+        logprobs, and the generated-count update (weighted by ``gate``)."""
+        lanes = self.config.max_batch_size
+        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
+            torch.from_numpy(a).to(self.device)
+            for a in self._sampling_arrays(seqs, lanes)
+        )
+        plogits = apply_penalties(
+            logits, self._gen_counts, self._prompt_counts, pres, freq, rep
+        )
+        plogits = apply_logit_bias(plogits, bias_ids, bias_vals)
+        noise = self._step_noise(seqs, context_lens_host, plogits.shape[-1])
+        tokens = sample_tokens(plogits, noise, temp, top_k, top_p, greedy)
+        lps = token_logprobs(plogits, tokens)
+        top = None
+        want = max((s.request.sampling.top_logprobs for s in seqs), default=0)
+        if want > 0:
+            top = topk_logprobs(plogits, min(want, plogits.shape[-1]))
+        self._gen_counts[self._lane_idx, tokens.long()] += gate
+        return tokens, lps, top
+
+    def _step_noise(self, seqs, context_lens_host, vocab: int) -> torch.Tensor:
+        """[lanes, vocab] Gumbel noise: each sampled lane's key folded with
+        its context length this step, as the reference folds it
+        (``jax.random.fold_in(key, context_len)``), drawn with the port's
+        threefry stream — so a seeded request draws the same noise at the
+        same position whatever batch it rides in, and the reference's.
+        Greedy lanes draw nothing (their rows stay zero, unread)."""
+        noise = torch.zeros((self.config.max_batch_size, vocab), dtype=torch.float32,
+                            device=self.device)
+        sampled = [
+            s.lane for s in seqs
+            if not (s.request.sampling.use_greedy or s.request.sampling.temperature is None
+                    or s.request.sampling.temperature <= 1e-5)
+        ]
+        if sampled:
+            keys = torch.from_numpy(self._lane_keys[sampled].astype(np.int64))
+            ctx = torch.from_numpy(context_lens_host[sampled].astype(np.int64))
+            noise[sampled] = gumbel(fold_in(keys, ctx).to(self.device), vocab)
+        return noise
+
+    def _emit(self, seqs, tokens, lps, top) -> None:
+        tokens_h = tokens.cpu().numpy()
+        lps_h = lps.cpu().numpy()
+        tkv_h = tki_h = None
+        if top is not None:
+            tkv_h, tki_h = (t.cpu().numpy() for t in top)
+        for seq in seqs:
+            if seq.status != SeqStatus.RUNNING:
+                continue
+            lane = seq.lane
+            self._process_token(
+                seq, int(tokens_h[lane]), float(lps_h[lane]),
+                top=(tkv_h[lane], tki_h[lane]) if top is not None else None,
+            )
+
+    def _fail_sequence(self, seq: Sequence, exc: BaseException) -> None:
+        """Terminate one sequence on an engine-side error: free its
+        resources and resolve its caller with the failure."""
+        self.scheduler.finish(seq)
+        if seq.emit:
+            seq.emit([], FinishReason.ERROR, f"{type(exc).__name__}: {exc}")
+
+    def _drain_submissions(self) -> None:
+        while True:
+            try:
+                op, seq = self._submit_q.get_nowait()
+            except thread_queue.Empty:
+                return
+            if op == "add":
+                self.scheduler.add(seq)
+            elif op == "abort":
+                if seq.status != SeqStatus.FINISHED:
+                    self.scheduler.abort(seq)
+                    seq.status = SeqStatus.FINISHED
+                    if seq.emit:
+                        seq.emit([], FinishReason.CANCELLED)
+
+    def _bucket_len(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def _sampling_arrays(self, seqs: list[Sequence], lanes: int):
+        vocab = self.config.model.vocab_size
+        kb = LOGIT_BIAS_K
+        temp = np.zeros((lanes,), np.float32)
+        top_k = np.zeros((lanes,), np.int32)
+        top_p = np.ones((lanes,), np.float32)
+        greedy = np.ones((lanes,), bool)
+        pres = np.zeros((lanes,), np.float32)
+        freq = np.zeros((lanes,), np.float32)
+        rep = np.ones((lanes,), np.float32)
+        # OpenAI logit_bias: fixed-width sparse rows, pad id = vocab (dropped)
+        bias_ids = np.full((lanes, kb), vocab, np.int32)
+        bias_vals = np.zeros((lanes, kb), np.float32)
+        for seq in seqs:
+            s = seq.request.sampling
+            lane = seq.lane
+            temp[lane] = s.temperature if s.temperature is not None else 0.0
+            top_k[lane] = s.top_k or 0
+            top_p[lane] = s.top_p if s.top_p is not None else 1.0
+            greedy[lane] = bool(
+                s.use_greedy or s.temperature is None or s.temperature <= 0.0
+            )
+            pres[lane] = s.presence_penalty or 0.0
+            freq[lane] = s.frequency_penalty or 0.0
+            rep[lane] = s.repetition_penalty if s.repetition_penalty else 1.0
+            if s.logit_bias:
+                # drop out-of-vocab ids BEFORE truncating so they cannot
+                # displace valid biases; over-wide requests keep the
+                # strongest biases
+                entries = sorted(
+                    (
+                        (int(t), float(v))
+                        for t, v in s.logit_bias.items()
+                        if 0 <= int(t) < vocab
+                    ),
+                    key=lambda e: -abs(e[1]),
+                )[:kb]
+                for j, (tok, val) in enumerate(entries):
+                    bias_ids[lane, j] = tok
+                    bias_vals[lane, j] = val
+        return temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals
+
+    def _count_row(self, token_ids: list[int]) -> np.ndarray:
+        """Per-vocab token counts [vocab] int32 (penalty bookkeeping)."""
+        vocab = self.config.model.vocab_size
+        if not token_ids:
+            return np.zeros((vocab,), np.int32)
+        return np.bincount(
+            np.asarray(token_ids, np.int64) % vocab, minlength=vocab
+        ).astype(np.int32)
+
+    def _seed_lane_key(self, seq: Sequence) -> np.ndarray:
+        """Per-lane seed row: from the request seed when given (reproducible
+        sampling; packed [hi32, lo32] like the reference's keys), else from
+        the engine stream."""
+        seed = seq.request.sampling.seed
+        if seed is not None:
+            s = int(seed) & ((1 << 64) - 1)
+            row = np.array([s >> 32, s & 0xFFFFFFFF], np.uint32)
+        else:
+            row = self._host_rng.integers(0, 2**32, size=2, dtype=np.uint32)
+        self._lane_keys[seq.lane if seq.lane >= 0 else 0] = row
+        return row
+
+    def _decode_tables(self, active: list[Sequence]) -> torch.Tensor:
+        """Device block-table array.  Host rows are persistent and rewritten
+        only for lanes whose (sequence, block list) changed; stale rows of
+        vacated lanes are harmless (context 0 ⇒ nothing read or written)."""
+        dirty = self._bt_dev is None
+        for seq in active:
+            lane = seq.lane
+            blocks = self.allocator.block_ids(seq.seq_id)
+            key = self._bt_lane_key[lane]
+            if key is not None and key[0] == seq.seq_id and key[1] == blocks:
+                continue
+            row = self._bt_host[lane]
+            n = len(blocks)
+            row[:n] = blocks
+            row[n:] = 0
+            self._bt_lane_key[lane] = (seq.seq_id, list(blocks))
+            dirty = True
+        if dirty:
+            self._bt_dev = torch.from_numpy(self._bt_host.copy()).to(self.device)
+        return self._bt_dev
+
+    def _run_plain_decode(self, seqs: list[Sequence]) -> None:
+        lanes = self.config.max_batch_size
+        token_ids = np.zeros((lanes,), np.int32)
+        context_lens = np.zeros((lanes,), np.int32)
+        oob = self.config.num_blocks * self.config.block_size
+        slot_ids = np.full((lanes,), oob, np.int32)
+
+        slots: dict[str, int] = {}
+        candidates: list[Sequence] = []
+        for seq in list(seqs):
+            if seq.status != SeqStatus.RUNNING:
+                continue  # preempted as a victim earlier in this loop
+            slot = self.scheduler.ensure_slots(seq, 1, max_pos=self.max_len - 1)
+            if slot is None:
+                # could not allocate even after preemption: preempt self
+                self.scheduler.preempt(seq)
+                continue
+            slots[seq.seq_id] = slot
+            candidates.append(seq)
+        # build arrays only after all allocations settled: a victim must not
+        # keep a live lane pointing at freed (possibly re-allocated) blocks
+        active = [s for s in candidates if s.status == SeqStatus.RUNNING]
+        if not active:
+            return
+        for seq in active:
+            lane = seq.lane
+            token_ids[lane] = seq.all_token_ids[-1]
+            context_lens[lane] = seq.context_len
+            slot_ids[lane] = slots[seq.seq_id]
+        tables = self._decode_tables(active)
+        dev = self.device
+        context_dev = torch.from_numpy(context_lens).to(dev)
+        logits, _ = self.family.forward_decode(
+            self.params, self.config.model, torch.from_numpy(token_ids).to(dev),
+            self.cache, tables, context_dev, torch.from_numpy(slot_ids).to(dev),
+            self.cos, self.sin,
+        )
+        tokens, lps, top = self._sample(
+            logits, active, context_lens, (context_dev > 0).to(torch.int32)
+        )
+        self._sync_windows += 1
+        self._decode_steps_total += 1
+        self._emit(active, tokens, lps, top)
+
+    def _process_token(
+        self, seq: Sequence, token: int, logprob: float | None = None, top=None,
+    ) -> None:
+        seq.output_ids.append(token)
+        self._tokens_emitted += 1
+        finish = seq.hit_stop(token)
+        if finish is None and seq.context_len >= self.max_len:
+            finish = FinishReason.LENGTH
+        if seq.emit:
+            top_rows = None
+            want = seq.request.sampling.top_logprobs
+            if top is not None and want > 0:
+                vals, ids = top
+                k = min(want, len(ids))
+                top_rows = [[[int(ids[i]), float(vals[i])] for i in range(k)]]
+            seq.emit(
+                [token], finish,
+                logprobs=None if logprob is None else [logprob],
+                top_logprobs=top_rows,
+            )
+        if finish is not None:
+            self.scheduler.finish(seq)
+        elif seq.context_len % self.config.block_size == 0:
+            self.allocator.publish_stored(seq.seq_id, seq.all_token_ids)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

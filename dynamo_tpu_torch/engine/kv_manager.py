@@ -1,0 +1,553 @@
+"""Host-side paged KV block allocator with prefix-cache reuse.
+
+Manages the block pool that lives in device HBM: free list, per-sequence
+block tables, content hashes of full blocks, and a **reuse registry**:
+completed blocks stay resident after their sequence finishes (refcount 0,
+LRU-ordered) and incoming prompts are matched block-by-block against the
+registry so a shared prefix skips prefill compute (reference: vLLM prefix
+caching on the engine side + sequence-hash block reuse in
+lib/llm/src/block_manager/pool.rs:447-466 ``match_sequence_hashes``).
+
+Emits stored/removed KV events (the contract the KV-aware router indexes
+on — reference: vLLM KVEvents ingested via lib/llm/src/kv_router/
+publisher.rs; here the engine is native so events come straight from the
+allocator).  ``stored`` fires when a block completes; ``removed`` fires when
+a cached block is *evicted* (not when its sequence finishes — the content is
+still resident and discoverable until then).
+
+Block hashing matches the router's scheme: xxh3_64 over
+(parent_hash, block token ids) with seed 1337 (reference:
+lib/llm/src/kv_router/indexer.rs:64,122).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Callable
+
+from dynamo_tpu_torch.llm.kv_router.hashing import HASH_SEED, compute_block_hashes  # noqa: F401
+from dynamo_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("engine.kv_manager")
+
+
+@dataclass
+class KvEvent:
+    kind: str                    # "stored" | "removed" | "cleared"
+    block_hashes: list[int]
+    parent_hash: int | None = None
+    token_count: int = 0
+
+
+@dataclass
+class SequenceBlocks:
+    block_ids: list[int] = field(default_factory=list)
+    published_hashes: list[int] = field(default_factory=list)
+    cached_tokens: int = 0       # prefix tokens reused from the registry
+    # (hash, device block) pairs whose content must be restored from the
+    # host tier before this sequence prefills
+    restore_plan: list[tuple[int, int]] = field(default_factory=list)
+
+
+class BlockAllocator:
+    """Free-list allocator over ``num_blocks`` fixed-size blocks with an
+    LRU prefix-cache reuse tier.
+
+    Block states: **free** (no content) → **in use** (refcount ≥ 1, owned by
+    one or more sequences) → **cached** (refcount 0, content retained,
+    evictable LRU) → free again on eviction.  Only *complete* blocks (hash
+    registered via ``publish_stored``) enter the cached state.
+    """
+
+    def __init__(
+        self,
+        num_blocks: int,
+        block_size: int,
+        *,
+        event_sink: Callable[[KvEvent], None] | None = None,
+        watermark: float = 0.01,
+        enable_prefix_caching: bool = True,
+        # G2 host tier hooks (engine/offload.py HostOffloadTier): evicted
+        # registered blocks offload their content; prompt matching extends
+        # into the host tier with pin-until-restore semantics
+        offload_sink: Callable[[int, int], None] | None = None,
+        host_tier=None,
+    ):
+        # predictive prefetch (prefetch/pager.py): the pager is told when a
+        # prefetched block is consumed by a real sequence (hit) or leaves
+        # HBM unconsumed (miss).  None = no prefetch accounting.
+        self.prefetch_tracker = None
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # disagg's reserve/release run on the asyncio thread while the
+        # device thread allocates/frees/offloads: every compound mutation
+        # (capacity check + takes, refcount + registry updates) must be
+        # atomic across threads.  RLock because the offload sink re-enters
+        # (host-tier eviction observer calls back into the allocator).
+        self._lock = threading.RLock()
+        self.event_sink = event_sink
+        self.enable_prefix_caching = enable_prefix_caching
+        self.offload_sink = offload_sink
+        self.host_tier = host_tier
+        # evictions collected per public call, offloaded in ONE batched
+        # device read (the new owners don't write until the engine runs its
+        # step functions, strictly after the mutator returns)
+        self._pending_offload: list[tuple[int, int]] = []
+        self.watermark_blocks = max(1, int(num_blocks * watermark))
+        self._free: deque[int] = deque(range(num_blocks))
+        self._cached: OrderedDict[int, None] = OrderedDict()  # block -> None, LRU
+        self._ref: dict[int, int] = {}            # block -> refcount (in-use only)
+        self._block_hash: dict[int, int] = {}     # block -> registered hash
+        self._hash_to_block: dict[int, int] = {}  # hash -> resident block
+        self._sequences: dict[str, SequenceBlocks] = {}
+        # observability
+        self.prefix_cached_tokens_total = 0
+        self.prefix_hits_total = 0
+
+    # -- capacity ----------------------------------------------------------
+    @property
+    def free_blocks(self) -> int:
+        """Allocatable capacity: truly-free plus evictable cached blocks."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def cached_blocks(self) -> int:
+        return len(self._cached)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - self.free_blocks
+
+    @property
+    def usage(self) -> float:
+        return self.used_blocks / self.num_blocks
+
+    def blocks_needed(self, num_tokens: int) -> int:
+        return (num_tokens + self.block_size - 1) // self.block_size
+
+    def can_allocate(self, num_tokens: int) -> bool:
+        return self.free_blocks - self.blocks_needed(num_tokens) >= self.watermark_blocks
+
+    # -- block lifecycle helpers ------------------------------------------
+    def _take_block(self) -> int | None:
+        """Pop a free block, evicting the LRU cached block if needed.  The
+        evicted block's content offloads to the host tier (G2) in a batch at
+        the end of the current mutator (before the new owner can write);
+        hashes that fail to offload are announced ``removed``."""
+        if self._free:
+            return self._free.popleft()
+        if self._cached:
+            bid, _ = self._cached.popitem(last=False)
+            h = self._block_hash.pop(bid, None)
+            if h is not None and self._hash_to_block.get(h) == bid:
+                del self._hash_to_block[h]
+                self._pending_offload.append((bid, h))
+                if self.prefetch_tracker is not None:
+                    # a prefetched block leaving HBM before any sequence
+                    # matched it = wasted page-in (no-op if untracked)
+                    self.prefetch_tracker.on_block_evicted(h)
+            return bid
+        return None
+
+    def flush_offloads(self) -> None:
+        """Batched G1→G2 offload of pending evictions; any hash that is now
+        resident in NO tier emits a removed event so routers forget it.
+        MUST run on the device thread (the sink reads the device cache) and
+        before any step function writes into the evicted blocks."""
+        with self._lock:
+            if not self._pending_offload:
+                return
+            pairs, self._pending_offload = self._pending_offload, []
+            if self.offload_sink is None:
+                self._emit_removed([h for _, h in pairs])
+                return
+            try:
+                failed = list(self.offload_sink(pairs) or [])
+            except Exception:  # noqa: BLE001 — eviction must proceed
+                logger.exception("block offload failed; dropping %d blocks", len(pairs))
+                failed = [h for _, h in pairs]
+            self._emit_removed(failed)
+
+    def _incref(self, bid: int) -> None:
+        if bid in self._cached:  # cached → in use (content kept)
+            del self._cached[bid]
+        self._ref[bid] = self._ref.get(bid, 0) + 1
+
+    def _decref(self, bid: int) -> None:
+        ref = self._ref.get(bid, 0) - 1
+        if ref > 0:
+            self._ref[bid] = ref
+            return
+        self._ref.pop(bid, None)
+        if bid in self._block_hash:
+            # complete + registered: retain content for future prefix hits
+            self._cached[bid] = None
+        else:
+            self._free.append(bid)
+
+    def _emit_removed(self, hashes: list[int]) -> None:
+        if hashes and self.event_sink:
+            self.event_sink(KvEvent(kind="removed", block_hashes=hashes))
+
+    # -- allocation --------------------------------------------------------
+    def _match(
+        self, token_ids: list[int] | None, *, pin_host: bool = False
+    ) -> list[tuple[int, int | None]]:
+        """Leading (hash, block-or-None) pairs resident in the device
+        registry or the host tier (None ⇒ host hit needing a restore),
+        capped so at least one prompt token is left to prefill (the model
+        must still run to produce next-token logits).
+
+        ``pin_host=True`` pins host hits against eviction until restore;
+        the caller owns unpinning on rollback."""
+        if not self.enable_prefix_caching or not token_ids:
+            return []
+        matched: list[tuple[int, int | None]] = []
+        for h in compute_block_hashes(token_ids, self.block_size):
+            bid = self._hash_to_block.get(h)
+            if bid is None and self.host_tier is not None:
+                if pin_host:
+                    if not self.host_tier.pin(h):
+                        break
+                elif not self.host_tier.has(h):
+                    break
+            elif bid is None:
+                break
+            matched.append((h, bid))
+        while matched and len(matched) * self.block_size >= len(token_ids):
+            h, bid = matched.pop()
+            if bid is None and pin_host:
+                self.host_tier.unpin(h)
+        return matched
+
+    def match_prefix(self, token_ids: list[int]) -> int:
+        """Number of prompt tokens resident across device + host tiers."""
+        with self._lock:
+            return len(self._match(token_ids)) * self.block_size
+
+    def allocate_sequence(
+        self, seq_id: str, num_tokens: int, token_ids: list[int] | None = None
+    ) -> tuple[list[int], int] | None:
+        """Allocate the block table for a new sequence of ``num_tokens``
+        positions.  When ``token_ids`` (the known prompt) is given, leading
+        complete blocks already resident are *shared* instead of allocated:
+        returns (block_ids, cached_tokens) where the first
+        ``cached_tokens // block_size`` entries are reused blocks the caller
+        must not write.  None ⇒ OOM (nothing claimed)."""
+        with self._lock:
+            matched = self._match(token_ids, pin_host=True)
+            device_hits = [(h, bid) for h, bid in matched if bid is not None]
+            host_hits = [h for h, bid in matched if bid is None]
+            # host hits need a fresh device block each (restored before prefill)
+            needed = self.blocks_needed(num_tokens) - len(device_hits)
+            # claim matched device blocks FIRST (removes them from the evictable
+            # set), then check capacity against what is genuinely left — a
+            # matched block in the cached LRU must not be counted as allocatable
+            for _, bid in device_hits:
+                self._incref(bid)
+            if needed > self.free_blocks:
+                for _, bid in device_hits:  # roll back: nothing claimed on OOM
+                    self._decref(bid)
+                for h in host_hits:
+                    self.host_tier.unpin(h)
+                return None
+            fresh: list[int] = []
+            for _ in range(max(needed, 0)):
+                bid = self._take_block()
+                assert bid is not None  # guaranteed by the capacity check
+                self._ref[bid] = 1
+                fresh.append(bid)
+            self.flush_offloads()
+            # matched blocks keep prompt order (device and host hits can
+            # interleave); host hits take fresh blocks as restore landing zones.
+            # Landing blocks are NOT registered here: registration happens in
+            # ``register_restored`` after the content actually arrives, so a
+            # co-scheduled prompt can never device-match a block that a failed
+            # restore would leave garbage (it host-matches and restores its own
+            # copy instead).
+            restore_plan: list[tuple[int, int]] = []
+            block_ids: list[int] = []
+            fresh_iter = iter(fresh)
+            for h, bid in matched:
+                if bid is None:
+                    bid = next(fresh_iter)
+                    restore_plan.append((h, bid))
+                block_ids.append(bid)
+            block_ids.extend(fresh_iter)
+            cached_tokens = len(matched) * self.block_size
+            self._sequences[seq_id] = SequenceBlocks(
+                block_ids=block_ids,
+                published_hashes=[h for h, _ in matched],
+                cached_tokens=cached_tokens,
+                restore_plan=restore_plan,
+            )
+            if cached_tokens:
+                self.prefix_hits_total += 1
+                self.prefix_cached_tokens_total += cached_tokens
+            if self.prefetch_tracker is not None:
+                # prefetched blocks consumed by a real sequence: their
+                # page-in cost was hidden off this request's critical path
+                for h, _bid in device_hits:
+                    self.prefetch_tracker.on_block_hit(h)
+            return block_ids[:], cached_tokens
+
+    def append_slot(self, seq_id: str, context_len: int) -> int | None:
+        """Slot (flat cache index) for token at position ``context_len - 1``,
+        growing the block table if the token starts a new block.  None ⇒ OOM."""
+        return self.append_slots(seq_id, context_len, 1)
+
+    def append_slots(self, seq_id: str, context_len: int, steps: int,
+                     max_pos: int | None = None) -> int | None:
+        """Ensure the block table covers positions ``context_len - 1`` through
+        ``context_len - 2 + steps`` (multi-step decode pre-allocates the whole
+        window so the device can derive per-step slots from the block table).
+        Returns the first position's slot, or None on OOM (nothing grown
+        partially)."""
+        with self._lock:
+            seq = self._sequences[seq_id]
+            pos = context_len - 1
+            last_pos = pos + steps - 1
+            if max_pos is not None:
+                last_pos = min(last_pos, max_pos)
+            needed = last_pos // self.block_size + 1 - len(seq.block_ids)
+            if needed > self.free_blocks:
+                return None
+            for _ in range(needed):
+                bid = self._take_block()
+                assert bid is not None
+                self._ref[bid] = 1
+                seq.block_ids.append(bid)
+            self.flush_offloads()
+            return seq.block_ids[pos // self.block_size] * self.block_size + pos % self.block_size
+
+    def adopt_sequence(self, seq_id: str, block_ids: list[int]) -> None:
+        """Register blocks reserved earlier (disagg: reserved before remote
+        prefill, adopted when the sequence starts decoding)."""
+        with self._lock:
+            self._sequences[seq_id] = SequenceBlocks(block_ids=list(block_ids))
+
+    def reserve_blocks(self, num_tokens: int) -> list[int] | None:
+        """Take blocks off the free list without a sequence (disagg decode
+        side reserves the landing zone for remotely-prefilled KV).
+
+        Called from the asyncio thread — evictions are NOT flushed here
+        (the offload copy reads the device cache, which only the device
+        thread may touch); the engine loop flushes them before any write."""
+        with self._lock:
+            needed = self.blocks_needed(num_tokens)
+            if needed > self.free_blocks:
+                return None
+            out = []
+            for _ in range(needed):
+                bid = self._take_block()
+                assert bid is not None
+                self._ref[bid] = 1
+                out.append(bid)
+            return out
+
+    def release_blocks(self, block_ids: list[int]) -> None:
+        with self._lock:
+            for b in block_ids:
+                self._decref(b)
+
+    def block_ids(self, seq_id: str) -> list[int]:
+        with self._lock:
+            return list(self._sequences[seq_id].block_ids)
+
+    def cached_tokens(self, seq_id: str) -> int:
+        with self._lock:
+            seq = self._sequences.get(seq_id)
+            return seq.cached_tokens if seq else 0
+
+    def is_registered(self, seq_hash: int) -> bool:
+        """Whether a block with this content hash is resident on device."""
+        with self._lock:
+            return seq_hash in self._hash_to_block
+
+    def emit_removed(self, hashes: list[int]) -> None:
+        """Tell routers these hashes left every tier (offload-tier eviction
+        with no device copy)."""
+        self._emit_removed(hashes)
+
+    def register_restored(self, plan: list[tuple[int, int]]) -> None:
+        """The engine restored these (hash, landing block) pairs from the
+        host tier: the blocks now hold real content and may serve device
+        prefix hits.  First writer wins on duplicate hashes (two sequences
+        restoring the same prefix each keep a private, unshared copy)."""
+        with self._lock:
+            for h, bid in plan:
+                if h not in self._hash_to_block and bid not in self._block_hash:
+                    self._hash_to_block[h] = bid
+                    self._block_hash[bid] = h
+
+    # -- predictive prefetch ----------------------------------------------
+    def prefetch_reserve(
+        self, seq_hashes: list[int], headroom_blocks: int
+    ) -> tuple[list[tuple[int, int]], list[int]]:
+        """Claim landing blocks for a speculative host→HBM prefetch.
+
+        Returns ``(plan, deferred)``: ``plan`` is (hash, landing block)
+        pairs with the host copies pinned (execute with the same restore
+        machinery as demand paging), ``deferred`` the hashes that could
+        not be served *because of the headroom reservation* — the caller
+        requeues those.  Hashes already device-resident or absent from
+        every offload tier are silently dropped (nothing to page).
+
+        A prefetched block ends CACHED (refcount 0, evictable), so paging
+        it in never shrinks allocatable capacity (free + cached) — the
+        landing block comes from the free list or by evicting the LRU
+        *cached* block (which offloads, exactly like demand eviction), and
+        becomes another cached block.  Running sequences are untouchable
+        (refcount ≥ 1), so prefetch can never cause a preemption.  The
+        ``headroom_blocks`` floor additionally keeps prefetch from
+        churning evictions when capacity is nearly exhausted: below it,
+        hashes come back as deferred for a later retry."""
+        plan: list[tuple[int, int]] = []
+        deferred: list[int] = []
+        with self._lock:
+            for h in seq_hashes:
+                if h in self._hash_to_block:
+                    continue
+                if self.free_blocks <= headroom_blocks:
+                    deferred.append(h)
+                    continue
+                if self.host_tier is None or not self.host_tier.pin(h):
+                    continue  # left every tier since the hint was made
+                bid = self._take_block()
+                if bid is None:
+                    self.host_tier.unpin(h)
+                    deferred.append(h)
+                    continue
+                self._ref[bid] = 1
+                plan.append((h, bid))
+            # evictions this reservation caused must offload before the
+            # restore injects into the reclaimed blocks (device thread)
+            self.flush_offloads()
+        return plan, deferred
+
+    def finish_prefetch(self, plan: list[tuple[int, int]]) -> None:
+        """The engine restored + registered the plan (register_restored):
+        release the landing blocks into the cached LRU, where the next
+        matching prompt claims them as ordinary device prefix hits."""
+        with self._lock:
+            for _h, bid in plan:
+                self._decref(bid)
+
+    def abort_prefetch(self, plan: list[tuple[int, int]]) -> None:
+        """A prefetch restore failed mid-flight: unregister any landing
+        block that made it into the registry (its content is suspect) and
+        free the blocks.  Host pins are NOT released here: the restore's
+        ``read_pinned_many`` already released the pin of every hash it
+        consumed, and a second release would steal a ref the tier still
+        needs (e.g. a hot-prefix pin).  A failure before the read consumed
+        a hash leaks that one transient pin — strictly better than
+        corrupting refcounts on the far more common post-read failures."""
+        with self._lock:
+            for h, bid in plan:
+                if self._hash_to_block.get(h) == bid:
+                    del self._hash_to_block[h]
+                self._block_hash.pop(bid, None)
+                self._decref(bid)
+
+    def put_back_restore_plan(self, seq_id: str, plan: list[tuple[int, int]]) -> None:
+        """Re-arm a taken restore plan after a failed restore so a retry
+        re-executes it and sequence teardown cleans up the landing blocks."""
+        with self._lock:
+            seq = self._sequences.get(seq_id)
+            if seq is not None:
+                seq.restore_plan = plan + seq.restore_plan
+
+    def take_restore_plan(self, seq_id: str) -> list[tuple[int, int]]:
+        """Hand the engine the pending host→device restores for a sequence
+        (cleared so aborts after restore don't double-handle)."""
+        with self._lock:
+            seq = self._sequences.get(seq_id)
+            if seq is None:
+                return []
+            plan, seq.restore_plan = seq.restore_plan, []
+            return plan
+
+    def free_sequence(self, seq_id: str) -> None:
+        """Sequence finished: decref its blocks.  Registered (complete)
+        blocks whose refcount hits zero stay resident in the LRU cache for
+        future prefix hits; ``removed`` events fire only on eviction."""
+        with self._lock:
+            seq = self._sequences.pop(seq_id, None)
+            if seq is None:
+                return
+            for h, bid in seq.restore_plan:
+                # aborted before its restore ran: the landing block holds no
+                # content — unregister it and release the host pin
+                if self._hash_to_block.get(h) == bid:
+                    del self._hash_to_block[h]
+                self._block_hash.pop(bid, None)
+                if self.host_tier is not None:
+                    self.host_tier.unpin(h)
+            seq.restore_plan = []
+            if not self.enable_prefix_caching and seq.published_hashes:
+                # without the reuse registry the content is gone the moment
+                # the blocks free — routers must forget the stored hashes
+                # now (with reuse, removal fires on LRU eviction instead)
+                self._emit_removed(seq.published_hashes)
+            for b in seq.block_ids:
+                self._decref(b)
+
+    def clear_published(self) -> int:
+        """Admin flush (reference: http clear_kv_blocks): drop the whole
+        reuse registry — cached blocks are freed, in-use registered blocks
+        unregister — and tell routers this worker's cache is gone.  Running
+        sequences keep their blocks; their hashes simply re-publish as
+        future blocks complete."""
+        with self._lock:
+            forgotten = set(self._hash_to_block)
+            if self.prefetch_tracker is not None:
+                for h in forgotten:
+                    self.prefetch_tracker.on_block_evicted(h)
+            for seq in self._sequences.values():
+                forgotten.update(seq.published_hashes)
+                seq.published_hashes = []
+            cleared = len(forgotten)
+            self._hash_to_block.clear()
+            self._block_hash.clear()
+            while self._cached:
+                bid, _ = self._cached.popitem(last=False)
+                self._free.append(bid)
+            if self.event_sink:
+                self.event_sink(KvEvent(kind="cleared", block_hashes=[]))
+            return cleared
+
+    # -- events ------------------------------------------------------------
+    def publish_stored(self, seq_id: str, token_ids: list[int]) -> None:
+        """Emit stored events for newly-completed full blocks of ``seq_id``
+        and register them for prefix reuse."""
+        with self._lock:
+            seq = self._sequences.get(seq_id)
+            if seq is None:
+                return
+            hashes = compute_block_hashes(token_ids, self.block_size)
+            new = hashes[len(seq.published_hashes):]
+            if not new:
+                return
+            parent = seq.published_hashes[-1] if seq.published_hashes else None
+            if self.enable_prefix_caching:
+                for idx in range(len(seq.published_hashes), len(hashes)):
+                    if idx >= len(seq.block_ids):
+                        break
+                    h, bid = hashes[idx], seq.block_ids[idx]
+                    # first writer wins: a hash already resident elsewhere keeps
+                    # its mapping; this block simply stays unregistered
+                    if h not in self._hash_to_block and bid not in self._block_hash:
+                        self._hash_to_block[h] = bid
+                        self._block_hash[bid] = h
+            seq.published_hashes = hashes
+            if self.event_sink:
+                self.event_sink(
+                    KvEvent(
+                        kind="stored",
+                        block_hashes=new,
+                        parent_hash=parent,
+                        token_count=len(new) * self.block_size,
+                    )
+                )

@@ -1,0 +1,109 @@
+"""Per-request sequence state inside the engine."""
+
+from __future__ import annotations
+
+import enum
+import time
+from dataclasses import dataclass, field
+
+from dynamo_tpu_torch.llm.protocols.common import FinishReason, PreprocessedRequest
+
+
+class SeqStatus(enum.Enum):
+    WAITING = "waiting"         # queued for prefill
+    PREFILLING = "prefilling"   # chunked prefill in progress (holds a lane)
+    RUNNING = "running"         # decoding
+    PREEMPTED = "preempted"     # evicted; will re-prefill
+    FINISHED = "finished"
+
+
+@dataclass
+class Sequence:
+    seq_id: str
+    request: PreprocessedRequest
+    arrival_time: float = field(default_factory=time.monotonic)
+    # epoch twin of arrival_time: span timestamps are wall-clock so traces
+    # from different processes line up on one timeline
+    arrival_ts: float = field(default_factory=time.time)
+    status: SeqStatus = SeqStatus.WAITING
+    output_ids: list[int] = field(default_factory=list)
+    lane: int = -1            # decode batch lane while RUNNING
+    finish_reason: FinishReason | None = None
+    # disaggregation modes
+    prefill_only: bool = False       # prefill worker: stop after first token
+    remote_prefilled: bool = False   # decode worker: KV already injected
+    # prefill_only result stays as device arrays (same-process/ICI transfer)
+    extract_device: bool = False
+    # multimodal: projected vision patch embeddings [n_patches, hidden]
+    # spliced BEFORE the text tokens at prefill (None = text-only)
+    mm_embeds: object = None
+    # per-lane sampling state (penalty counts, rng key) initialized?
+    sampling_seeded: bool = False
+    # overlapped decode: tokens dispatched in not-yet-retired windows.  The
+    # device context (what the in-flight programs see) is
+    # context_len + inflight_tokens; slot pre-allocation and the next
+    # window's context_lens are computed there, not at the host's lagging
+    # context_len.
+    inflight_tokens: int = 0
+    # guided decoding: host-side automaton (llm/guided.JsonCursor) whose
+    # mode id selects the admissible-token mask row each step (None =
+    # unconstrained)
+    guided: object = None
+    # prompt tokens reused from the prefix cache at allocation (the engine
+    # prefills only the tail past this point)
+    cached_tokens: int = 0
+    # tokens whose KV is already written (cached prefix + completed chunks)
+    prefilled_tokens: int = 0
+    # end of the prefill window the scheduler planned for this step
+    # (0 = whole prompt)
+    chunk_target: int = 0
+    # tracing: the request's propagated TraceContext (observability.trace);
+    # engine spans (queue/prefill/decode) parent to it.  None = untraced.
+    trace: object = None
+    queue_span_recorded: bool = False
+    ttft_recorded: bool = False   # first-token latency attached to a span
+    # wall-clock start of the CURRENT queue wait (0.0 = arrival_ts; reset
+    # to the preemption instant on re-queue so the second engine.queue span
+    # measures only the re-admission wait, while TTFT keeps arrival_ts)
+    queue_start_ts: float = 0.0
+    decode_start_ts: float = 0.0  # wall-clock start of this seq's decode span
+    # streamed disagg extraction (prefill_only): blocks already handed to
+    # on_chunk_done.  Monotonic across preemption recompute — re-run chunks
+    # below the watermark are not re-streamed (the receiver already holds
+    # them; recompute is deterministic).
+    streamed_blocks: int = 0
+    # callbacks into the async world (set by the engine)
+    emit=None                 # Callable[[Sequence, list[int], FinishReason|None], None]
+    on_prefill_done=None      # Callable[[Sequence, int], None] for prefill_only
+    # per-completed-chunk KV extraction callback, device thread:
+    # (start_block, cache-leaves [L, count, ...], count) — None = no streaming
+    on_chunk_done=None
+
+    @property
+    def mm_len(self) -> int:
+        return 0 if self.mm_embeds is None else len(self.mm_embeds)
+
+    @property
+    def prompt_len(self) -> int:
+        return self.mm_len + len(self.request.token_ids)
+
+    @property
+    def context_len(self) -> int:
+        return self.prompt_len + len(self.output_ids)
+
+    @property
+    def all_token_ids(self) -> list[int]:
+        return self.request.token_ids + self.output_ids
+
+    def hit_stop(self, token_id: int) -> FinishReason | None:
+        stop = self.request.stop
+        # min_tokens suppresses EOS/stop-token finishes (not max_tokens)
+        # until the minimum is generated — vLLM semantics
+        min_ok = not stop.min_tokens or len(self.output_ids) >= stop.min_tokens
+        if min_ok and not stop.ignore_eos and token_id in self.request.eos_token_ids:
+            return FinishReason.STOP
+        if min_ok and token_id in stop.stop_token_ids:
+            return FinishReason.STOP
+        if stop.max_tokens is not None and len(self.output_ids) >= stop.max_tokens:
+            return FinishReason.LENGTH
+        return None

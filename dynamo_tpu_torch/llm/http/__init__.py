@@ -1,0 +1,3 @@
+from dynamo_tpu_torch.llm.http.service import HttpService, ModelManager
+
+__all__ = ["HttpService", "ModelManager"]

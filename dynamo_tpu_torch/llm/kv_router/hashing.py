@@ -1,0 +1,31 @@
+"""Chained block-content hashing.
+
+xxh3_64(parent_hash || token bytes) with seed 1337, matching the engine's
+allocator so router index lookups line up with engine cache contents
+(reference: lib/llm/src/kv_router/indexer.rs:64, compute_block_hash_for_seq
+:122).
+"""
+
+from __future__ import annotations
+
+import xxhash
+
+HASH_SEED = 1337
+
+
+def compute_block_hashes(token_ids: list[int], block_size: int) -> list[int]:
+    """Hash each FULL block; each hash chains its parent, so a hash uniquely
+    identifies the whole prefix ending at that block."""
+    hashes: list[int] = []
+    parent = 0
+    full = len(token_ids) - len(token_ids) % block_size
+    for start in range(0, full, block_size):
+        block = token_ids[start : start + block_size]
+        h = xxhash.xxh3_64(
+            parent.to_bytes(8, "little")
+            + b"".join(t.to_bytes(4, "little", signed=False) for t in block),
+            seed=HASH_SEED,
+        ).intdigest()
+        hashes.append(h)
+        parent = h
+    return hashes

@@ -1,0 +1,226 @@
+"""Internal LLM protocol types.
+
+The engine-facing request/response contract that every backend speaks after
+preprocessing, mirroring the reference's common protocol types (reference:
+lib/llm/src/protocols/common.rs: SamplingOptions / StopConditions /
+PreprocessedRequest / LLMEngineOutput) and the ``Annotated`` streaming
+envelope (lib/llm/src/protocols/annotated.rs).
+
+Everything round-trips through plain dicts (``to_wire`` / ``from_wire``) for
+msgpack transport on the data plane.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import asdict, dataclass, field
+from typing import Any, Generic, TypeVar
+
+T = TypeVar("T")
+
+
+class FinishReason(str, enum.Enum):
+    STOP = "stop"            # hit a stop condition (eos / stop sequence)
+    LENGTH = "length"        # hit max_tokens / context limit
+    CANCELLED = "cancelled"  # caller stopped generation
+    ERROR = "error"
+    CONTENT_FILTER = "content_filter"
+
+
+@dataclass
+class SamplingOptions:
+    temperature: float | None = None
+    top_p: float | None = None
+    top_k: int | None = None
+    frequency_penalty: float | None = None
+    presence_penalty: float | None = None
+    repetition_penalty: float | None = None
+    seed: int | None = None
+    n: int = 1
+    use_greedy: bool = False
+    # number of per-token alternatives to report (OpenAI top_logprobs);
+    # capped by the engine's compile-time K
+    top_logprobs: int = 0
+    # OpenAI logit_bias: {token_id: bias}.  Keys go over the wire as
+    # STRINGS (the msgpack envelope unpacks with strict string map keys;
+    # JSON does the same) — consumers must int() them.  Entries beyond the
+    # engine's compile bucket are dropped (largest-magnitude first
+    # retained).
+    logit_bias: dict | None = None
+
+    def to_wire(self) -> dict:
+        d = {k: v for k, v in asdict(self).items() if v not in (None,)}
+        if d.get("logit_bias"):
+            d["logit_bias"] = {str(k): float(v) for k, v in d["logit_bias"].items()}
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "SamplingOptions":
+        return cls(**{k: v for k, v in d.items() if k in cls.__dataclass_fields__})
+
+
+@dataclass
+class StopConditions:
+    max_tokens: int | None = None
+    stop: list[str] = field(default_factory=list)
+    stop_token_ids: list[int] = field(default_factory=list)
+    min_tokens: int | None = None
+    ignore_eos: bool = False
+
+    def to_wire(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "StopConditions":
+        return cls(**{k: v for k, v in d.items() if k in cls.__dataclass_fields__})
+
+
+@dataclass
+class PreprocessedRequest:
+    """What the frontend hands to a backend engine: token ids + options."""
+
+    token_ids: list[int]
+    sampling: SamplingOptions = field(default_factory=SamplingOptions)
+    stop: StopConditions = field(default_factory=StopConditions)
+    eos_token_ids: list[int] = field(default_factory=list)
+    model: str | None = None
+    annotations: list[str] = field(default_factory=list)
+    # router/disagg hints
+    estimated_prefix_hit_blocks: int | None = None
+    disagg_mode: str | None = None  # None | "prefill" | "decode"
+    mdc_sum: str | None = None
+    # guided decoding: "json" constrains sampling to valid-JSON prefixes
+    # (OpenAI response_format json_object; engines without the compiled
+    # mask table reject rather than silently ignore)
+    output_format: str | None = None
+
+    def to_wire(self) -> dict:
+        return {
+            "token_ids": self.token_ids,
+            "sampling": self.sampling.to_wire(),
+            "stop": self.stop.to_wire(),
+            "eos_token_ids": self.eos_token_ids,
+            "model": self.model,
+            "annotations": self.annotations,
+            "estimated_prefix_hit_blocks": self.estimated_prefix_hit_blocks,
+            "disagg_mode": self.disagg_mode,
+            "mdc_sum": self.mdc_sum,
+            "output_format": self.output_format,
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "PreprocessedRequest":
+        return cls(
+            token_ids=list(d["token_ids"]),
+            sampling=SamplingOptions.from_wire(d.get("sampling", {})),
+            stop=StopConditions.from_wire(d.get("stop", {})),
+            eos_token_ids=list(d.get("eos_token_ids", [])),
+            model=d.get("model"),
+            annotations=list(d.get("annotations", [])),
+            estimated_prefix_hit_blocks=d.get("estimated_prefix_hit_blocks"),
+            disagg_mode=d.get("disagg_mode"),
+            mdc_sum=d.get("mdc_sum"),
+            output_format=d.get("output_format"),
+        )
+
+
+@dataclass
+class LLMEngineOutput:
+    """One streamed step of engine output (usually one token)."""
+
+    token_ids: list[int] = field(default_factory=list)
+    # engines may emit text directly (echo/full engines); normally the
+    # detokenizing backend fills ``text`` from ``token_ids``
+    text: str | None = None
+    cum_log_probs: float | None = None
+    finish_reason: FinishReason | None = None
+    # kv-cache stats piggybacked for metrics annotations
+    completion_tokens: int | None = None
+    # engine-side failure detail (finish_reason == ERROR)
+    error: str | None = None
+    # per-token logprobs parallel to token_ids (engines fill when available)
+    logprobs: list[float] | None = None
+    # per-token top-k alternatives: list (parallel to token_ids) of
+    # [[token_id, logprob], ...] rows
+    top_logprobs: list[list[list]] | None = None
+
+    def to_wire(self) -> dict:
+        d: dict[str, Any] = {"token_ids": self.token_ids}
+        if self.text is not None:
+            d["text"] = self.text
+        if self.cum_log_probs is not None:
+            d["cum_log_probs"] = self.cum_log_probs
+        if self.finish_reason is not None:
+            d["finish_reason"] = self.finish_reason.value
+        if self.completion_tokens is not None:
+            d["completion_tokens"] = self.completion_tokens
+        if self.error is not None:
+            d["error"] = self.error
+        if self.logprobs is not None:
+            d["logprobs"] = self.logprobs
+        if self.top_logprobs is not None:
+            d["top_logprobs"] = self.top_logprobs
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "LLMEngineOutput":
+        fr = d.get("finish_reason")
+        return cls(
+            token_ids=list(d.get("token_ids", [])),
+            text=d.get("text"),
+            cum_log_probs=d.get("cum_log_probs"),
+            finish_reason=FinishReason(fr) if fr else None,
+            completion_tokens=d.get("completion_tokens"),
+            error=d.get("error"),
+            logprobs=d.get("logprobs"),
+            top_logprobs=d.get("top_logprobs"),
+        )
+
+
+@dataclass
+class Annotated(Generic[T]):
+    """Streaming envelope: a data item or an out-of-band annotation event
+    (``formatted_prompt``, ``token_ids``, ``llm_metrics``...; reference:
+    lib/llm/src/preprocessor.rs:61-63)."""
+
+    data: T | None = None
+    id: str | None = None
+    event: str | None = None
+    comment: list[str] = field(default_factory=list)
+
+    @classmethod
+    def from_data(cls, data: T) -> "Annotated[T]":
+        return cls(data=data)
+
+    @classmethod
+    def from_annotation(cls, event: str, value: Any) -> "Annotated[T]":
+        import json
+
+        return cls(data=None, event=event, comment=[json.dumps(value)])
+
+    def is_annotation(self) -> bool:
+        return self.event is not None
+
+    def to_wire(self, data_to_wire=None) -> dict:
+        d: dict[str, Any] = {}
+        if self.data is not None:
+            d["data"] = data_to_wire(self.data) if data_to_wire else self.data
+        if self.id is not None:
+            d["id"] = self.id
+        if self.event is not None:
+            d["event"] = self.event
+        if self.comment:
+            d["comment"] = self.comment
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict, data_from_wire=None) -> "Annotated":
+        data = d.get("data")
+        if data is not None and data_from_wire is not None:
+            data = data_from_wire(data)
+        return cls(
+            data=data,
+            id=d.get("id"),
+            event=d.get("event"),
+            comment=list(d.get("comment", [])),
+        )

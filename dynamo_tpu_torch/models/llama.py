@@ -1,0 +1,403 @@
+"""Llama-family model in PyTorch (counterpart of dynamo_tpu/models/llama.py).
+
+Parameters are a plain dict with the reference's names and layouts: layer
+weights stacked on a leading layer axis, projections stored [in, out].  A
+Python loop over layers takes the place of ``lax.scan``.  The paged KV cache
+``{"k", "v"}: [layers, num_blocks, block_size, kv_heads, head_dim]`` is
+updated in place where the reference donated its buffer.
+
+Attention goes through the kernel wrappers in ``ops.kernels``: on a CUDA
+tensor they launch the hand-written kernels, on a CPU tensor they take the
+plain PyTorch versions in ``ops.attention``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.ops.attention import live_slots, write_decode_kv
+from dynamo_tpu_torch.ops.kernels import paged_attention_decode, ragged_paged_attention
+from dynamo_tpu_torch.ops.norms import rms_norm
+from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    max_position_embeddings: int = 131072
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    # qkv projection biases (Qwen2-family geometry; llama proper has none)
+    attention_bias: bool = False
+    # per-head RMSNorm on q/k after projection, before rope (Qwen3 geometry)
+    qk_norm: bool = False
+    # HF rope_scaling dict: "linear" | "llama3" | "yarn" (ops/rope.py)
+    rope_scaling: Any = None
+    # Mistral-style sliding-window attention (None = full attention)
+    sliding_window: int | None = None
+    dtype: Any = torch.bfloat16
+
+    @classmethod
+    def from_hf_config(cls, config: dict | str | Path) -> "LlamaConfig":
+        if not isinstance(config, dict):
+            config = json.loads(Path(config).read_text())
+        heads = config["num_attention_heads"]
+        return cls(
+            vocab_size=config["vocab_size"],
+            hidden_size=config["hidden_size"],
+            intermediate_size=config["intermediate_size"],
+            num_layers=config["num_hidden_layers"],
+            num_heads=heads,
+            num_kv_heads=config.get("num_key_value_heads", heads),
+            head_dim=config.get("head_dim") or config["hidden_size"] // heads,
+            max_position_embeddings=config.get("max_position_embeddings", 4096),
+            rms_norm_eps=config.get("rms_norm_eps", 1e-5),
+            rope_theta=config.get("rope_theta", 10000.0),
+            tie_word_embeddings=config.get("tie_word_embeddings", False),
+            attention_bias=config.get("attention_bias", False),
+            qk_norm=config.get("qk_norm", config.get("model_type") == "qwen3"),
+            rope_scaling=config.get("rope_scaling"),
+            sliding_window=cls._resolve_sliding_window(config),
+        )
+
+    @staticmethod
+    def _resolve_sliding_window(config: dict) -> int | None:
+        """HF transformers' window semantics, applied to every layer: qwen2
+        configs pair ``sliding_window`` with ``use_sliding_window`` and
+        ``max_window_layers``; a genuine per-layer split is refused."""
+        window = config.get("sliding_window") or None
+        if window is None or not config.get("use_sliding_window", True):
+            return None
+        mwl = config.get("max_window_layers")
+        if mwl is None or mwl <= 0:
+            return window
+        if mwl >= config["num_hidden_layers"]:
+            return None
+        raise NotImplementedError(
+            f"per-layer sliding-window split (max_window_layers={mwl} < "
+            f"num_hidden_layers={config['num_hidden_layers']}) is not "
+            "supported: every layer shares one attention pattern"
+        )
+
+    # --- presets (geometries for serving; weights loaded or random) -------
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def llama3_70b(cls) -> "LlamaConfig":
+        return cls(hidden_size=8192, intermediate_size=28672, num_layers=80, num_heads=64)
+
+    @classmethod
+    def llama32_3b(cls) -> "LlamaConfig":
+        return cls(
+            hidden_size=3072, intermediate_size=8192, num_layers=28, num_heads=24,
+            num_kv_heads=8, head_dim=128, rope_theta=500000.0, tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def llama32_1b(cls) -> "LlamaConfig":
+        return cls(
+            hidden_size=2048, intermediate_size=8192, num_layers=16, num_heads=32,
+            num_kv_heads=8, head_dim=64, rope_theta=500000.0, tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 512) -> "LlamaConfig":
+        """Test geometry: 2 layers, 4 heads, float32."""
+        return cls(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=128, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=16, max_position_embeddings=2048,
+            rope_theta=10000.0, tie_word_embeddings=True, dtype=torch.float32,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random-init parameters on ``device`` from ``generator`` (which must
+    live on the same device): N(0, 1) / sqrt(fan_in) drawn in float32, one
+    layer at a time, then cast to the model dtype."""
+    h, i, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def normal(shape, fan_in):
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        rows = out if len(shape) == 3 else out[None]
+        for r in rows:  # one float32 layer slice at a time bounds the peak
+            tmp = torch.empty(r.shape, dtype=torch.float32, device=device)
+            tmp.normal_(generator=generator)
+            r.copy_(tmp / math.sqrt(fan_in))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    params = {
+        "embed": normal((cfg.vocab_size, h), 1.0),
+        "final_norm": ones((h,)),
+        "layers": {
+            "attn_norm": ones((n_layers, h)),
+            "wq": normal((n_layers, h, qd), h),
+            "wk": normal((n_layers, h, kvd), h),
+            "wv": normal((n_layers, h, kvd), h),
+            "wo": normal((n_layers, qd, h), qd),
+            "mlp_norm": ones((n_layers, h)),
+            "w_gate": normal((n_layers, h, i), h),
+            "w_up": normal((n_layers, h, i), h),
+            "w_down": normal((n_layers, i, h), i),
+        },
+    }
+    if cfg.attention_bias:
+        for name, width in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            params["layers"][name] = torch.zeros(
+                (n_layers, width), dtype=cfg.dtype, device=device
+            )
+    if cfg.qk_norm:
+        params["layers"]["q_norm"] = ones((n_layers, cfg.head_dim))
+        params["layers"]["k_norm"] = ones((n_layers, cfg.head_dim))
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = normal((h, cfg.vocab_size), h)
+    return params
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.array(a)  # a writable copy: torch shares numpy's memory
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree, device="cuda"):
+    """The reference's parameter pytree (its leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as port parameters: same names,
+    same layouts, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree).to(device)
+
+
+def init_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int, dtype=None,
+                  device="cuda") -> dict:
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def make_rope_tables(cfg: LlamaConfig, device="cuda", max_len: int | None = None):
+    """(cos, sin) float32 tables; ``max_len`` cuts them to the positions an
+    engine can reach."""
+    return rope_table(
+        max_len or cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta,
+        scaling=cfg.rope_scaling, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg: LlamaConfig, token_ids) -> torch.Tensor:
+    return params["embed"][token_ids].to(cfg.dtype)
+
+
+def _mlp(x, gate, up, down):
+    return (F.silu(x @ gate) * (x @ up)) @ down
+
+
+def _qkv(attn_in, w, cfg: LlamaConfig):
+    s = attn_in.shape[0]
+    q = attn_in @ w["wq"]
+    k = attn_in @ w["wk"]
+    v = attn_in @ w["wv"]
+    if cfg.attention_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.view(s, cfg.num_heads, cfg.head_dim)
+    k = k.view(s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.rms_norm_eps)
+    return q, k, v
+
+
+def _layers(params):
+    layers = params["layers"]
+    n = next(iter(layers.values())).shape[0]
+    for i in range(n):
+        yield i, {name: leaf[i] for name, leaf in layers.items()}
+
+
+def _logits(params, cfg, x):
+    if cfg.tie_word_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return x @ params["lm_head"]
+
+
+def _residual_block(x, attn, w, cfg):
+    x = x + attn.reshape(x.shape[0], -1) @ w["wo"]
+    mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
+    return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"])
+
+
+def llama_forward_decode(
+    params: dict,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,     # [batch] int — last sampled token per seq
+    kv_cache: dict,
+    block_tables: torch.Tensor,  # [batch, max_blocks] int32
+    context_lens: torch.Tensor,  # [batch] int32 length INCLUDING this token
+    slot_ids: torch.Tensor,      # [batch] int32 flat cache slot for this token
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Batched single-token decode.  Returns (logits [batch, vocab] f32,
+    cache); the cache is written in place."""
+    b = token_ids.shape[0]
+    x = _embed(params, cfg, token_ids)
+    positions = (context_lens - 1).clamp(min=0)[:, None]  # this token's position
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    live = live_slots(slot_ids, k_all.shape[1] * k_all.shape[2])
+    for i, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q[:, None], positions, cos, sin)[:, 0]
+        k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
+        write_decode_kv(k_all[i], v_all[i], k, v, slot_ids, live)
+        attn = paged_attention_decode(
+            q, k_all[i], v_all[i], block_tables, context_lens,
+            sliding_window=cfg.sliding_window,
+        )
+        x = _residual_block(x, attn.reshape(b, -1), w, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _logits(params, cfg, x).float(), kv_cache
+
+
+def llama_forward_unified(
+    params: dict,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,     # [T] int — flat ragged token batch
+    kv_cache: dict,
+    block_tables: torch.Tensor,  # [lanes, max_blocks] int32
+    context_lens: torch.Tensor,  # [lanes] int32 incl. each lane's span end
+    token_pos: torch.Tensor,     # [T] int32 absolute position (-1 = pad)
+    token_slot: torch.Tensor,    # [T] int32 flat cache slot (out of range = pad)
+    token_lane: torch.Tensor,    # [T] int32 owning lane (out of range = pad)
+    page_phys: torch.Tensor,     # [T // tb_tokens, PS] int32 (pack_page_meta)
+    page_lane: torch.Tensor,     # [T // tb_tokens, PS] int32 owning lane (-1 pad)
+    page_ord: torch.Tensor,      # [T // tb_tokens, PS] int32 page ordinal
+    page_count: torch.Tensor,    # [T // tb_tokens] int32 live worklist entries
+    sample_rows: torch.Tensor,   # [lanes] int flat index of each span's LAST token
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    tb_tokens: int = 8,
+    pages_per_step: int = 1,
+) -> tuple[torch.Tensor, dict]:
+    """Ragged unified-batch forward: chunked-prefill spans and decode tokens
+    of different sequences in one pass, each token at its own absolute
+    position.  Every token's K/V is written to its cache slot before any
+    token attends, so span tokens see their predecessors through the cache.
+    Logits are gathered at each lane's last span row: [lanes, vocab] f32
+    (junk for lanes without tokens; the caller gates them)."""
+    t = token_ids.shape[0]
+    x = _embed(params, cfg, token_ids)
+    positions = token_pos.clamp(min=0)  # pads rope at position 0
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    live = live_slots(token_slot, k_all.shape[1] * k_all.shape[2])
+    for i, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        write_decode_kv(k_all[i], v_all[i], k, v, token_slot, live)
+        attn = ragged_paged_attention(
+            q, k_all[i], v_all[i], block_tables, token_lane, token_pos,
+            page_phys, page_lane, page_ord, page_count,
+            tb_tokens=tb_tokens, pages_per_step=pages_per_step,
+            sliding_window=cfg.sliding_window,
+        )
+        x = _residual_block(x, attn.reshape(t, -1), w, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    rows = x[sample_rows]
+    return _logits(params, cfg, rows).float(), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# HF weight loading (safetensors)
+# ---------------------------------------------------------------------------
+
+_HF_LAYER_MAP = {
+    "attn_norm": "model.layers.{i}.input_layernorm.weight",
+    "wq": "model.layers.{i}.self_attn.q_proj.weight",
+    "wk": "model.layers.{i}.self_attn.k_proj.weight",
+    "wv": "model.layers.{i}.self_attn.v_proj.weight",
+    "wo": "model.layers.{i}.self_attn.o_proj.weight",
+    "mlp_norm": "model.layers.{i}.post_attention_layernorm.weight",
+    "w_gate": "model.layers.{i}.mlp.gate_proj.weight",
+    "w_up": "model.layers.{i}.mlp.up_proj.weight",
+    "w_down": "model.layers.{i}.mlp.down_proj.weight",
+}
+
+
+def load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda") -> dict:
+    """Load and stack HF llama safetensors into the layer-stacked dict on
+    ``device`` (HF stores projections [out, in]; ours are [in, out])."""
+    from dynamo_tpu_torch.models.hf_io import read_safetensors
+
+    tensors = read_safetensors(model_dir)
+
+    def get(name: str, transpose: bool = False) -> torch.Tensor:
+        t = tensors[name]
+        if transpose:
+            t = t.T
+        return t.to(device=device, dtype=cfg.dtype).contiguous()
+
+    layer_map = dict(_HF_LAYER_MAP)
+    if cfg.attention_bias:
+        layer_map.update(
+            bq="model.layers.{i}.self_attn.q_proj.bias",
+            bk="model.layers.{i}.self_attn.k_proj.bias",
+            bv="model.layers.{i}.self_attn.v_proj.bias",
+        )
+    if cfg.qk_norm:
+        layer_map.update(
+            q_norm="model.layers.{i}.self_attn.q_norm.weight",
+            k_norm="model.layers.{i}.self_attn.k_norm.weight",
+        )
+    layers = {
+        ours: torch.stack([
+            get(theirs.format(i=i), ours.startswith("w")) for i in range(cfg.num_layers)
+        ])
+        for ours, theirs in layer_map.items()
+    }
+    params = {
+        "embed": get("model.embed_tokens.weight"),
+        "final_norm": get("model.norm.weight"),
+        "layers": layers,
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in tensors:
+        params["lm_head"] = get("lm_head.weight", transpose=True)
+    return params

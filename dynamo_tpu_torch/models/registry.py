@@ -1,0 +1,81 @@
+"""Model family registry (counterpart of dynamo_tpu/models/registry.py).
+
+Binds an HF ``model_type`` to the functional pieces the engine needs.  This
+slice of the port serves the llama family and the llama-geometry variants
+that differ from it only in config flags; gemma, phi3 (checkpoint quirks),
+and the MoE and MLA families come with later slices.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Callable
+
+
+@dataclass(frozen=True)
+class ModelFamily:
+    name: str
+    config_from_hf: Callable[[Any], Any]
+    # (cfg, generator, device) -> params
+    init_params: Callable
+    # (cfg, num_blocks, block_size, dtype, device) -> {"k", "v"}
+    init_kv_cache: Callable
+    # (cfg, device, max_len) -> (cos, sin)
+    make_rope_tables: Callable
+    forward_decode: Callable
+    forward_unified: Callable
+    # HF safetensors loader: (cfg, model_dir, device) -> params
+    load_weights: Callable | None = None
+
+
+def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
+    """One ModelFamily construction for every llama-geometry variant;
+    ``config_tweak(dict)`` mutates the HF config before parsing."""
+    from dynamo_tpu_torch.models import llama
+
+    def config_from_hf(config):
+        if not isinstance(config, dict):
+            config = json.loads(Path(config).read_text())
+        config = dict(config)
+        if config_tweak is not None:
+            config_tweak(config)
+        return llama.LlamaConfig.from_hf_config(config)
+
+    return ModelFamily(
+        name=name,
+        config_from_hf=config_from_hf,
+        init_params=llama.init_params,
+        init_kv_cache=llama.init_kv_cache,
+        make_rope_tables=llama.make_rope_tables,
+        forward_decode=llama.llama_forward_decode,
+        forward_unified=llama.llama_forward_unified,
+        load_weights=llama.load_hf_weights,
+    )
+
+
+_FAMILIES: dict[str, Callable[[], ModelFamily]] = {
+    "llama": lambda: _llama_like_family("llama"),
+    # Mistral = llama geometry + sliding-window attention from config.json
+    "mistral": lambda: _llama_like_family("llama"),
+    # Qwen2/2.5 = llama geometry + attention qkv biases
+    "qwen2": lambda: _llama_like_family(
+        "qwen2", lambda c: c.setdefault("attention_bias", True)
+    ),
+    # Qwen3 = llama geometry + per-head q/k RMSNorm before rope
+    "qwen3": lambda: _llama_like_family("qwen3", lambda c: c.update(qk_norm=True)),
+}
+
+
+def known_families() -> list[str]:
+    return sorted(_FAMILIES)
+
+
+def get_family(model_type: str) -> ModelFamily:
+    factory = _FAMILIES.get(model_type)
+    if factory is None:
+        raise ValueError(
+            f"unknown model family {model_type!r}; known: {sorted(_FAMILIES)}"
+        )
+    return factory()

@@ -1,0 +1,157 @@
+"""Attention over the paged KV cache: the plain PyTorch versions
+(counterparts of the pure-JAX twins in dynamo_tpu/ops/attention.py).
+
+The KV cache is a flat pool of fixed-size blocks per layer —
+``[num_blocks, block_size, kv_heads, head_dim]`` — addressed by
+per-sequence block tables.  These functions are the port's CPU path and the
+references that the hand-written CUDA kernels in ``ops/kernels`` are held
+against; on the card the model calls the kernels instead.
+
+Numerics follow the reference: scores and softmax in float32, masked scores
+at ``NEG_INF``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def live_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """Indices of the entries of ``slot_ids`` that name a real cache slot.
+    Pad tokens carry the out-of-range slot ``num_blocks * block_size``; the
+    reference drops them in its scatter (``mode="drop"``), while a torch
+    index out of range raises and a negative one wraps — so they are masked
+    here.  On a CUDA tensor this synchronizes with the host once."""
+    valid = (slot_ids >= 0) & (slot_ids < num_slots)
+    return torch.nonzero(valid).squeeze(1)
+
+
+def write_decode_kv(
+    k_cache: torch.Tensor,   # [num_blocks, block_size, kv_heads, head_dim]
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,     # [n, kv_heads, head_dim] — one row per token
+    v_new: torch.Tensor,
+    slot_ids: torch.Tensor,  # [n] flat slot (block*block_size+offset); out
+                             # of range ⇒ dropped (pad tokens, idle lanes)
+    live: torch.Tensor | None = None,  # precomputed live_slots(slot_ids)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one K/V row per token into its cache slot.  The reference
+    returns new arrays (its cache buffer is donated); the port writes the
+    cache tensors it was given in place and returns them."""
+    num_blocks, block_size = k_cache.shape[:2]
+    n = num_blocks * block_size
+    if live is None:
+        live = live_slots(slot_ids, n)
+    slots = slot_ids.index_select(0, live).long()
+    k_cache.view(n, *k_cache.shape[2:]).index_copy_(
+        0, slots, k_new.index_select(0, live).to(k_cache.dtype)
+    )
+    v_cache.view(n, *v_cache.shape[2:]).index_copy_(
+        0, slots, v_new.index_select(0, live).to(v_cache.dtype)
+    )
+    return k_cache, v_cache
+
+
+def _scale(head_dim: int) -> float:
+    return 1.0 / math.sqrt(head_dim)
+
+
+def paged_window_attention(
+    q: torch.Tensor,             # [batch, w, heads, head_dim] — w queries per seq
+    k_cache: torch.Tensor,       # [num_blocks, block_size, kv_heads, head_dim]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [batch, max_blocks] int
+    context_lens: torch.Tensor,  # [batch] int: context INCLUDING the window's
+                                 # last token (0 ⇒ idle lane)
+    *,
+    sliding_window: int | None = None,
+) -> torch.Tensor:
+    """Paged GQA attention for ``w`` queries per sequence: query i sits at
+    absolute position ``context_lens - w + i`` and sees every cached
+    position up to its own (and, with a sliding window, the last
+    ``sliding_window`` of them).  Returns [batch, w, heads, head_dim]."""
+    b, w, h, d = q.shape
+    _, block_size, kvh, _ = k_cache.shape
+    length = block_tables.shape[1] * block_size
+    groups = h // kvh
+
+    k = k_cache[block_tables].reshape(b, length, kvh, d).float()
+    v = v_cache[block_tables].reshape(b, length, kvh, d).float()
+    qg = q.reshape(b, w, kvh, groups, d).float()
+    logits = torch.einsum("bwkgd,blkd->bkgwl", qg, k) * _scale(d)
+    q_pos = context_lens[:, None] - w + torch.arange(w, device=q.device)[None, :]
+    kv_pos = torch.arange(length, device=q.device)[None, None, :]
+    mask = kv_pos <= q_pos[:, :, None]                               # [b, w, l]
+    if sliding_window is not None:
+        mask = mask & (q_pos[:, :, None] - kv_pos < sliding_window)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgwl,blkd->bwkgd", weights, v)
+    return out.reshape(b, w, h, d).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # [batch, heads, head_dim] — one query per seq
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [batch, max_blocks]
+    context_lens: torch.Tensor,  # [batch] (0 ⇒ idle lane: junk row)
+    *,
+    sliding_window: int | None = None,
+) -> torch.Tensor:
+    """Decode-step attention: the window form at w=1 (``pos <= ctx - 1`` is
+    ``pos < ctx``).  An idle lane gets uniform weights over junk; callers
+    discard it."""
+    return paged_window_attention(
+        q[:, None], k_cache, v_cache, block_tables, context_lens,
+        sliding_window=sliding_window,
+    )[:, 0]
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,             # [T, heads, head_dim] flat ragged token batch
+    k_cache: torch.Tensor,       # [num_blocks, block_size, kv_heads, head_dim]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [lanes, max_blocks]
+    context_lens: torch.Tensor,  # [lanes] (unused by the mask: kept for
+                                 # signature parity with the reference)
+    token_lane: torch.Tensor,    # [T] owning lane per token (out of range = pad)
+    token_pos: torch.Tensor,     # [T] absolute position (-1 = pad)
+    *,
+    sliding_window: int | None = None,
+    max_gather_tokens: int = 64,
+) -> torch.Tensor:
+    """Ragged unified-batch attention: one flat token axis carries
+    chunked-prefill spans and decode tokens of different sequences; each
+    token attends its own lane's pages at positions <= its own (every
+    token's K/V is already written).  Pad tokens mask fully and give junk
+    rows the caller discards.  The per-token page view is gathered
+    ``max_gather_tokens`` tokens at a time, which bounds the working set."""
+    t, h, d = q.shape
+    _, block_size, kvh, _ = k_cache.shape
+    lanes, max_blocks = block_tables.shape
+    groups = h // kvh
+    length = max_blocks * block_size
+    lane = token_lane.clamp(0, lanes - 1)
+    kv_pos = torch.arange(length, device=q.device)[None, :]
+    out = torch.empty_like(q)
+    for c0 in range(0, t, max_gather_tokens):
+        c1 = min(t, c0 + max_gather_tokens)
+        n = c1 - c0
+        tables = block_tables[lane[c0:c1]]                       # [n, maxb]
+        k = k_cache[tables].reshape(n, length, kvh, d).float()
+        v = v_cache[tables].reshape(n, length, kvh, d).float()
+        qg = q[c0:c1].reshape(n, kvh, groups, d).float()
+        logits = torch.einsum("tkgd,tlkd->tkgl", qg, k) * _scale(d)
+        pos = token_pos[c0:c1, None]
+        mask = kv_pos <= pos  # pads at -1 mask everything
+        if sliding_window is not None:
+            mask = mask & (pos - kv_pos < sliding_window)
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        weights = torch.softmax(logits, dim=-1)
+        out[c0:c1] = torch.einsum("tkgl,tlkd->tkgd", weights, v).reshape(n, h, d).to(q.dtype)
+    return out

@@ -1,0 +1,53 @@
+"""Argument checks shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 64, 128)
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    return _DTYPES[dtype]
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the integer the C entry
+    points take."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                d: int, dk: int) -> None:
+    """Device, dtype, shape, contiguity and alignment checks for q and a
+    [N, bs, KVH, D] cache pair.  The kernels take float32 or bfloat16
+    caches with q of the same dtype, and head dims 16, 64 and 128."""
+    if k_cache.dtype not in _DTYPES:
+        raise ValueError(
+            f"cache dtype {k_cache.dtype} is not supported by the kernels "
+            "(float32, bfloat16; fp8 caches come with the quantized slice)"
+        )
+    if q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
+        raise ValueError(
+            f"q ({q.dtype}) and caches ({k_cache.dtype}, {v_cache.dtype}) "
+            "must share one dtype"
+        )
+    if d != dk or d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} (cache {dk}) not in {HEAD_DIMS}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("k and v caches differ in shape")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+
+
+def check_index(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Index and metadata arguments: contiguous int32 tensors on ``device``."""
+    for name, t in tensors.items():
+        if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {device}")

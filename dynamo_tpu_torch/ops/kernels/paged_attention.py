@@ -1,0 +1,91 @@
+"""Paged decode attention: the CUDA kernel's wrapper (csrc/paged_attention.cu).
+
+Counterpart of dynamo_tpu/ops/pallas/paged_attention.py: the window kernel
+``paged_window_attention_decode`` (W queries per sequence) and
+``paged_attention_decode``, the same kernel at W=1, which the decode step
+calls.  A CPU tensor goes to the plain PyTorch version
+(``ops.attention.paged_window_attention``); a CUDA tensor launches the
+kernel or raises.  ``launches`` counts kernel launches, ``plain_calls``
+calls routed to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dynamo_tpu_torch.ops.attention import paged_window_attention
+from dynamo_tpu_torch.ops.kernels.common import (
+    check_cache,
+    check_index,
+    dtype_code,
+    stream_ptr,
+)
+from dynamo_tpu_torch.ops.kernels import build
+
+launches = 0
+plain_calls = 0
+
+
+def paged_window_attention_decode(
+    q: torch.Tensor,             # [B, W, H, D]
+    k_cache: torch.Tensor,       # [N, bs, KVH, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, maxb] int32
+    context_lens: torch.Tensor,  # [B] int32, INCLUDING the window's last token
+    *,
+    sliding_window: int | None = None,
+    pages_per_step: int = 1,     # accepted for signature parity; the output
+                                 # does not depend on it
+) -> torch.Tensor:
+    """Paged GQA attention for W queries per sequence (query w at position
+    ``ctx - W + w``).  Idle lanes (ctx 0) come out as zeros on the kernel
+    path."""
+    global launches, plain_calls
+    if pages_per_step < 1:
+        raise ValueError(f"pages_per_step must be >= 1, got {pages_per_step}")
+    if q.device.type == "cpu":
+        plain_calls += 1
+        return paged_window_attention(
+            q, k_cache, v_cache, block_tables, context_lens,
+            sliding_window=sliding_window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention: unsupported device {q.device}")
+    q = q.contiguous()
+    b, w, h, d = q.shape
+    n, bs, kvh, dk = k_cache.shape
+    check_cache(q, k_cache, v_cache, d, dk)
+    if h % kvh:
+        raise ValueError(f"heads ({h}) must be a multiple of kv heads ({kvh})")
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables / context_lens do not match the batch")
+    check_index(q.device, block_tables=block_tables, context_lens=context_lens)
+    out = torch.empty_like(q)
+    lib = build.library()
+    code = lib.dyn_paged_window_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        b, w, h, kvh, d, bs, block_tables.shape[1],
+        sliding_window or 0, dtype_code(q.dtype), stream_ptr(q.device),
+    )
+    build.check(code, "paged_window_attention_decode")
+    launches += 1
+    return out
+
+
+def paged_attention_decode(
+    q: torch.Tensor,             # [B, H, D]
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    sliding_window: int | None = None,
+    pages_per_step: int = 1,
+) -> torch.Tensor:
+    """Plain decode: the window kernel at W=1 (``pos <= ctx - 1`` is
+    ``pos < ctx``)."""
+    return paged_window_attention_decode(
+        q[:, None], k_cache, v_cache, block_tables, context_lens,
+        sliding_window=sliding_window, pages_per_step=pages_per_step,
+    )[:, 0]
