@@ -5,10 +5,12 @@
 Phases (any failure exits non-zero, before the result line):
   1. build   — compile the CUDA kernels from dynamo_tpu_torch/csrc.
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes (Llama-3-8B attention: 32 heads,
-               8 kv heads, head dim 128, 16-token blocks, bf16), plus
-               sliding-window, head-dim-64 and head-dim-16 cases; time the kernel,
-               the plain version and one PyTorch library call
+               card at the main paths' shapes (Llama-3-8B attention: 32 heads,
+               8 kv heads, head dim 128, 16-token blocks, bf16; DeepSeek-V2-Lite
+               MLA: 16 heads, latent 512, rope 64, 16-token blocks, bf16
+               caches, float32 absorbed queries), plus sliding-window,
+               head-dim-64, head-dim-16 and tiny-MLA float32 cases; time the
+               kernel, the plain version and one PyTorch library call
                (scaled_dot_product_attention over gathered K/V, a yardstick
                the port never calls) beside the least time the card needs.
   3. tiny    — serve tests/data/tiny-chat-model with
@@ -20,6 +22,9 @@ Phases (any failure exits non-zero, before the result line):
                one ~1500-token prompt, so that unified steps with prefill and
                decode-only steps both run; the kernels' launch counters are
                zeroed just before and read just after.
+  5. mla     — the same over the DeepSeek-V2-Lite geometry (the published
+               config.json, all 27 layers, random bf16 weights from a seed):
+               the MLA ragged and decode kernels, and the MoE layers.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -31,7 +36,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
+import math
 import random
 import shutil
 import socket
@@ -42,9 +49,13 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve")
+PHASES = ("build", "kernels", "tiny", "serve", "mla")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
+# MLA kernels write float32 from the very inputs the plain version reads in
+# float32: summation order alone — 576-wide scores of |q.k| up to ~100 and
+# context sums over up to 2048 positions
+MLA_ATOL = 2e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 
@@ -162,27 +173,20 @@ def decode_case(torch, *, lens, h=32, kvh=8, d=128, bs=16, dtype=None,
     return res
 
 
-def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
-                dtype=None, window=None, seed=1, timed=True):
-    """``spans``: (lane, start, length) — a prefill span of ``length``
-    tokens at positions start.. or a decode token (length 1) at the lane's
-    last position.  Every lane's cache holds start + length positions."""
-    from torch.nn import functional as F
-
-    from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_paged_attention
-
-    dtype = dtype or torch.bfloat16
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    lanes = max(lane for lane, _, _ in spans) + 1
-    lens = [0] * lanes
+def span_lens(spans) -> list[int]:
+    """Per-lane cache length of ``spans`` (lane, start, length): a prefill
+    span of ``length`` tokens at positions start.., or a decode token
+    (length 1) at the lane's last position."""
+    lens = [0] * (max(lane for lane, _, _ in spans) + 1)
     for lane, start, n in spans:
         lens[lane] = start + n
-    max_blocks = -(-max(lens) // bs)
-    n_blocks = sum(-(-n // bs) for n in lens) + 8
-    k, v = make_cache(torch, n_blocks, bs, kvh, d, dtype, gen)
-    tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
+    return lens
+
+
+def span_tokens(torch, spans, lanes, tb, t_pad):
+    """The flat token axis of ``spans``, packed densely and padded to
+    ``t_pad`` (default: whole blocks of ``tb``): host int32 (token_lane,
+    token_pos), pads at lane ``lanes`` and position -1."""
     total = sum(n for _, _, n in spans)
     t = t_pad or -(-total // tb) * tb
     token_lane = torch.full((t,), lanes, dtype=torch.int32)
@@ -192,6 +196,28 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
         token_lane[cur: cur + n] = lane
         token_pos[cur: cur + n] = torch.arange(start, start + n, dtype=torch.int32)
         cur += n
+    return token_lane, token_pos
+
+
+def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
+                dtype=None, window=None, seed=1, timed=True):
+    """Ragged GQA attention over ``spans`` (see ``span_lens``)."""
+    from torch.nn import functional as F
+
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_paged_attention
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens = span_lens(spans)
+    lanes = len(lens)
+    max_blocks = -(-max(lens) // bs)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    k, v = make_cache(torch, n_blocks, bs, kvh, d, dtype, gen)
+    tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
+    token_lane, token_pos = span_tokens(torch, spans, lanes, tb, t_pad)
+    t = token_lane.shape[0]
     meta = pack_page_meta(
         token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
         tb_tokens=tb, block_size=bs, sliding_window=window,
@@ -254,6 +280,154 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     return res
 
 
+V2_LITE_ATTN_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+
+
+def mla_caches(torch, n_blocks, bs, r, p, dtype, gen):
+    ck = torch.randn((n_blocks, bs, r), generator=gen, device="cuda").to(dtype)
+    kr = torch.randn((n_blocks, bs, p), generator=gen, device="cuda").to(dtype)
+    return ck, kr
+
+
+def mla_bound(torch, *, pages, bs, r, p, h, dtype, q_rows, meta_bytes, visible):
+    """Bytes: each visible page's latent and rope rows once, the queries
+    (q_lat f32, q_rope), the f32 output and the metadata; flops: two-part
+    scores and the latent context, 2 (R + P) + 2 R per (row, position)."""
+    elem = torch.finfo(dtype).bits // 8
+    bytes_ = (pages * bs * (r + p) * elem + q_rows * h * (r * 4 + p * elem)
+              + q_rows * h * r * 4 + meta_bytes)
+    flops = visible * h * (2 * (r + p) + 2 * r)
+    t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def mla_decode_case(torch, *, lens, h=16, r=512, p=64, bs=16, dtype=None, seed=0,
+                    timed=True):
+    """Absorbed MLA decode at ``lens`` contexts (0 = an idle lane, which the
+    kernel must write as zeros)."""
+    from torch.nn import functional as F
+
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import mla_paged_attention_decode
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    b = len(lens)
+    max_blocks = max(1, -(-max(lens) // bs))
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    ck, kr = mla_caches(torch, n_blocks, bs, r, p, dtype, gen)
+    tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q_lat = torch.randn((b, h, r), generator=gen, device="cuda")
+    q_rope = torch.randn((b, h, p), generator=gen, device="cuda").to(dtype)
+    scale = V2_LITE_ATTN_SCALE
+
+    def kernel():
+        return mla_paged_attention_decode(q_lat, q_rope, ck, kr, tables, ctx, scale=scale)
+
+    out = kernel()
+    ref = plain.mla_paged_decode_attention(
+        q_lat, q_rope.float(), ck.float(), kr.float(), tables, ctx, scale=scale)
+    torch.cuda.synchronize()
+    live = ctx > 0
+    res = {"max_abs_err": (out[live] - ref[live]).abs().max().item(),
+           "ref_absmax": ref[live].abs().max().item(),
+           "finite": bool(torch.isfinite(out).all()),
+           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True}
+    if not timed:
+        return res
+    pages = sum(-(-n // bs) for n in lens)
+    res.update(mla_bound(torch, pages=pages, bs=bs, r=r, p=p, h=h, dtype=dtype, q_rows=b,
+                         meta_bytes=tables.numel() * 4 + b * 4, visible=sum(lens)))
+    # library yardstick: one SDPA call, q = q_lat | q_rope, K = ck | kr and
+    # V = ck gathered per sequence beforehand, all in the cache dtype
+    length = max_blocks * bs
+    # (every head shares the one latent "kv head": the heads ride the query
+    # axis of a single SDPA head)
+    kg = torch.cat([ck[tables.long()], kr[tables.long()]], dim=-1).reshape(b, 1, length, r + p)
+    vg = ck[tables.long()].reshape(b, 1, length, r)
+    q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1)[:, None]
+    mask = (torch.arange(length, device="cuda")[None, :] < ctx[:, None])[:, None, None, :]
+    res.update(
+        ms=time_ms(kernel, 20),
+        plain_ms=time_ms(lambda: plain.mla_paged_decode_attention(
+            q_lat, q_rope, ck, kr, tables, ctx, scale=scale), 5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, scale=scale), 20),
+    )
+    return res
+
+
+def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
+                    dtype=None, seed=1, timed=True):
+    """Ragged MLA attention over ``spans`` (see ``span_lens``)."""
+    from torch.nn import functional as F
+
+    from dynamo_tpu_torch.ops import attention as plain
+    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_mla_attention
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens = span_lens(spans)
+    lanes = len(lens)
+    max_blocks = -(-max(lens) // bs)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    ck, kr = mla_caches(torch, n_blocks, bs, r, p, dtype, gen)
+    tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
+    token_lane, token_pos = span_tokens(torch, spans, lanes, tb, t_pad)
+    t = token_lane.shape[0]
+    meta = pack_page_meta(token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
+                          tb_tokens=tb, block_size=bs)
+    meta_dev = [torch.from_numpy(m).cuda() for m in meta]
+    token_lane, token_pos = token_lane.cuda(), token_pos.cuda()
+    q_lat = torch.randn((t, h, r), generator=gen, device="cuda")
+    q_rope = torch.randn((t, h, p), generator=gen, device="cuda").to(dtype)
+    scale = V2_LITE_ATTN_SCALE
+
+    def kernel():
+        return ragged_mla_attention(q_lat, q_rope, ck, kr, tables, token_lane, token_pos,
+                                    *meta_dev, scale=scale, tb_tokens=tb)
+
+    out = kernel()
+    ref = plain.ragged_mla_paged_attention(q_lat, q_rope.float(), ck.float(), kr.float(),
+                                           tables, token_lane, token_pos, scale=scale)
+    torch.cuda.synchronize()
+    live = token_pos >= 0
+    res = {"max_abs_err": (out[live] - ref[live]).abs().max().item(),
+           "ref_absmax": ref[live].abs().max().item(),
+           "finite": bool(torch.isfinite(out).all()),
+           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
+           "tokens": t}
+    if not timed:
+        return res
+    pages = {(int(meta[0][tt, j])) for tt in range(meta[3].shape[0])
+             for j in range(int(meta[3][tt]))}
+    visible = sum(q + 1 for q in token_pos.cpu().tolist() if q >= 0)
+    res.update(mla_bound(torch, pages=len(pages), bs=bs, r=r, p=p, h=h, dtype=dtype,
+                         q_rows=t, meta_bytes=sum(m.size * 4 for m in meta) + 2 * t * 4,
+                         visible=visible))
+    # library yardstick: one SDPA call, K = ck | kr and V = ck gathered per
+    # token's lane, all in the cache dtype
+    length = max_blocks * bs
+    lane_c = token_lane.clamp(max=lanes - 1).long()
+    kg = torch.cat([ck[tables.long()], kr[tables.long()]], dim=-1).reshape(
+        lanes, length, r + p)[lane_c][:, None]
+    vg = ck[tables.long()].reshape(lanes, length, r)[lane_c][:, None]
+    q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1)[:, None]
+    mask = (torch.arange(length, device="cuda")[None, :] <= token_pos[:, None])[:, None, None, :]
+    res.update(
+        ms=time_ms(kernel, 10),
+        plain_ms=time_ms(lambda: plain.ragged_mla_paged_attention(
+            q_lat, q_rope, ck, kr, tables, token_lane, token_pos, scale=scale), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, scale=scale), 10),
+    )
+    return res
+
+
 def check_case(name: str, res: dict, atol: float) -> None:
     shown = {k: (float(f"{v:.6g}") if isinstance(v, float) else v) for k, v in res.items()}
     log(f"[kernels] {name} (atol {atol}): {json.dumps(shown)}")
@@ -308,11 +482,32 @@ def phase_kernels(torch) -> dict:
         f"diff vs CPU {noise_err:.3g}")
     if not noise_err <= 1e-5:
         raise AssertionError(f"gumbel noise differs from the CPU's by {noise_err}")
-    errs = {  # the largest error of each kernel over its bf16 cases
+    # MLA at DeepSeek-V2-Lite shapes: decode with one lane at 2047, one at
+    # 2048 and one idle (ctx 0), the llama ragged mix, then tiny_mla in fp32
+    for b in (1, 8, 32):
+        lens = [rng.randint(1, 2048) for _ in range(b)]
+        lens[0] = 2047
+        if b > 1:
+            lens[1], lens[2] = 2048, 0
+        cases[f"mla_decode_b{b}"] = mla_decode_case(torch, lens=lens, seed=10 + b)
+        check_case(f"mla_decode_b{b} lens<=2048 (one idle lane)", cases[f"mla_decode_b{b}"],
+                   MLA_ATOL)
+    cases["mla_ragged_mix"] = mla_ragged_case(torch, spans=mix, t_pad=352)
+    check_case("mla ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
+               cases["mla_ragged_mix"], MLA_ATOL)
+    mla_small = mla_decode_case(torch, lens=[5, 17, 0, 64], h=4, r=32, p=8,
+                                dtype=torch.float32, seed=21, timed=False)
+    check_case("mla decode tiny_mla fp32", mla_small, F32_ATOL)
+    mla_small_r = mla_ragged_case(torch, spans=[(0, 4, 1), (1, 8, 9), (2, 28, 1)], h=4,
+                                  r=32, p=8, dtype=torch.float32, t_pad=16, timed=False)
+    check_case("mla ragged tiny_mla fp32", mla_small_r, F32_ATOL)
+    errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                      win["max_abs_err"], d64["max_abs_err"]),
         "ragged": max(cases["ragged_mix"]["max_abs_err"], win_r["max_abs_err"],
                       d64_r["max_abs_err"]),
+        "mla_decode": max(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
+        "mla_ragged": cases["mla_ragged_mix"]["max_abs_err"],
     }
     return {"cases": cases, "errs": errs}
 
@@ -405,9 +600,47 @@ LLAMA3_8B = {
     "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
 }
 
+# deepseek-ai/DeepSeek-V2-Lite config.json, as published (15.7B parameters:
+# MLA with a 512-wide latent, 64 routed experts top-6 plus 2 shared)
+DEEPSEEK_V2_LITE = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_shared_experts": 2, "n_routed_experts": 64,
+    "num_experts_per_tok": 6, "first_k_dense_replace": 1, "moe_layer_freq": 1,
+    "routed_scaling_factor": 1.0, "norm_topk_prob": False, "scoring_func": "softmax",
+    "topk_method": "greedy", "n_group": 1, "topk_group": 1, "q_lora_rank": None,
+    "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "v_head_dim": 128, "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000, "rope_scaling": {
+        "type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1,
+        "mscale": 0.707, "mscale_all_dim": 0.707,
+        "original_max_position_embeddings": 4096},
+    "attention_bias": False, "hidden_act": "silu", "tie_word_embeddings": False,
+    "bos_token_id": 100000, "eos_token_id": 100001, "torch_dtype": "bfloat16",
+}
 
-async def stream_chat(session, port: int, content: str, max_tokens: int) -> dict:
-    body = {"model": "llama3-8b-smoke", "max_tokens": max_tokens, "temperature": 0,
+
+def llama_counters():
+    """(name, module, launch counter, plain-call counter) of each kernel the
+    llama path runs."""
+    from dynamo_tpu_torch.ops.kernels import paged_attention, ragged_attention
+
+    return (("ragged_paged_attention", ragged_attention, "launches", "plain_calls"),
+            ("paged_window_attention_decode", paged_attention, "launches", "plain_calls"))
+
+
+def mla_counters():
+    """The same for the kernels the DeepSeek MLA path runs."""
+    from dynamo_tpu_torch.ops.kernels import mla_attention
+
+    return (("ragged_mla_attention", mla_attention, "ragged_launches", "ragged_plain_calls"),
+            ("mla_paged_attention_decode", mla_attention, "decode_launches",
+             "decode_plain_calls"))
+
+
+async def stream_chat(session, port: int, model: str, content: str, max_tokens: int) -> dict:
+    body = {"model": model, "max_tokens": max_tokens, "temperature": 0,
             "stream": True, "stream_options": {"include_usage": True},
             "ext": {"ignore_eos": True},
             "messages": [{"role": "user", "content": content}]}
@@ -431,15 +664,14 @@ async def stream_chat(session, port: int, content: str, max_tokens: int) -> dict
             "finish": finish, "max_tokens": max_tokens}
 
 
-async def serve_8b(model_dir: Path) -> dict:
+async def serve_model(model_dir: Path, model: str, counters) -> dict:
     import aiohttp
 
-    from dynamo_tpu_torch.ops.kernels import paged_attention, ragged_attention
     from dynamo_tpu_torch.serve import serve_http
 
     t_load = time.perf_counter()
     handle = await serve_http(
-        model_dir, model_name="llama3-8b-smoke", host="127.0.0.1", port=0,
+        model_dir, model_name=model, host="127.0.0.1", port=0,
         num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0,
     )
     load_s = time.perf_counter() - t_load
@@ -447,32 +679,29 @@ async def serve_8b(model_dir: Path) -> dict:
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
             # warm the path once before the counted run
-            await stream_chat(s, port, "warm up", 4)
-            for mod in (paged_attention, ragged_attention):
-                mod.launches = 0
-                mod.plain_calls = 0
+            await stream_chat(s, port, model, "warm up", 4)
+            for _, mod, launches, plain_calls in counters:
+                setattr(mod, launches, 0)
+                setattr(mod, plain_calls, 0)
             t0 = time.perf_counter()
-            shorts = [asyncio.ensure_future(stream_chat(s, port, f"request {i}: tell me", 64))
-                      for i in range(4)]
+            shorts = [asyncio.ensure_future(
+                stream_chat(s, port, model, f"request {i}: tell me", 64)) for i in range(4)]
             await asyncio.sleep(0.5)  # the long prompt lands while they decode
             long_prompt = "".join(chr(ord("a") + i % 26) for i in range(1640))
-            long = asyncio.ensure_future(stream_chat(s, port, long_prompt, 24))
+            long = asyncio.ensure_future(stream_chat(s, port, model, long_prompt, 24))
             results = await asyncio.gather(*shorts, long)
             wall = time.perf_counter() - t0
-        counts = {
-            "ragged_paged_attention": ragged_attention.launches,
-            "paged_window_attention_decode": paged_attention.launches,
-            "plain_calls": paged_attention.plain_calls + ragged_attention.plain_calls,
-        }
+        counts = {name: getattr(mod, launches) for name, mod, launches, _ in counters}
+        counts["plain_calls"] = sum(getattr(mod, plain) for _, mod, _, plain in counters)
         stats = handle.engine.stats()
-        profile = await profile_decode(handle.engine, port)
+        profile = await profile_decode(handle.engine, port, model)
     finally:
         await handle.shutdown()
     return {"results": results, "wall_s": wall, "counts": counts, "stats": stats,
             "load_s": load_s, "profile": profile}
 
 
-async def profile_decode(engine, port: int) -> dict:
+async def profile_decode(engine, port: int, model: str) -> dict:
     """Where a decode-heavy window's time goes: eight concurrent chats
     (every lane busy) under torch.profiler.  Device time is the sum of the
     CUDA kernels' own times; the idle share is what the wall clock holds
@@ -485,7 +714,8 @@ async def profile_decode(engine, port: int) -> dict:
     async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            await asyncio.gather(*(stream_chat(s, port, f"profile {i}", 32) for i in range(8)))
+            await asyncio.gather(*(stream_chat(s, port, model, f"profile {i}", 32)
+                                   for i in range(8)))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     steps = engine.stats()["decode_steps_total"] - steps0
@@ -505,18 +735,21 @@ async def profile_decode(engine, port: int) -> dict:
     }
 
 
-def phase_serve(card: str) -> dict:
-    build_dir = ROOT / "dynamo_tpu_torch" / "_build" / "llama3-8b-smoke"
+def phase_serve(card: str, tag: str, model: str, config: dict, counters) -> dict:
+    """Serve ``config`` (random weights from seed 0, the tiny model's
+    tokenizer) over HTTP in this process, drive the counted traffic, check
+    it, print its e2e and profile lines."""
+    build_dir = ROOT / "dynamo_tpu_torch" / "_build" / model
     build_dir.mkdir(parents=True, exist_ok=True)
-    (build_dir / "config.json").write_text(json.dumps(LLAMA3_8B))
+    (build_dir / "config.json").write_text(json.dumps(config))
     tiny = ROOT / "tests" / "data" / "tiny-chat-model"
     for name in ("tokenizer.json", "tokenizer_config.json"):
         shutil.copy(tiny / name, build_dir / name)
-    out = asyncio.run(serve_8b(build_dir))
+    out = asyncio.run(serve_model(build_dir, model, counters))
     ttfts, itls, toks = [], [], 0
     for r in out["results"]:
         usage = r["usage"] or {}
-        log(f"[serve] status={r['status']} finish={r['finish']} usage={usage}")
+        log(f"[{tag}] status={r['status']} finish={r['finish']} usage={usage}")
         if r["status"] != 200:
             raise AssertionError(f"request failed with {r['status']}")
         if usage.get("completion_tokens") != r["max_tokens"] or r["finish"] != "length":
@@ -527,9 +760,9 @@ def phase_serve(card: str) -> dict:
         gaps = [b - a for a, b in zip(r["stamps"], r["stamps"][1:])]
         itls.extend(gaps)
     counts = out["counts"]
-    log(f"[serve] launches={counts} load_s={out['load_s']:.1f} stats="
+    log(f"[{tag}] launches={counts} load_s={out['load_s']:.1f} stats="
         f"{ {k: out['stats'][k] for k in ('decode_windows_unified_total', 'decode_steps_total', 'iterations_total')} }")
-    if counts["ragged_paged_attention"] <= 0 or counts["paged_window_attention_decode"] <= 0:
+    if any(counts[name] <= 0 for name, *_ in counters):
         raise AssertionError(f"a kernel did not run on the main path: {counts}")
     if counts["plain_calls"] != 0:
         raise AssertionError(f"plain attention ran on the card: {counts}")
@@ -539,10 +772,11 @@ def phase_serve(card: str) -> dict:
         "itl_ms_mean": sum(itls) / len(itls) * 1e3,
         "output_tok_s": toks / out["wall_s"],
         "requests": len(out["results"]), "wall_s": out["wall_s"],
-        "card": card,
+        "load_s": out["load_s"], "model": model, "card": card,
     }
+    print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
+          flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
-    print(json.dumps({"smoke_profile": {**out["profile"], "card": card}}), flush=True)
     return {"counts": counts, "e2e": e2e}
 
 
@@ -574,8 +808,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = None
-    serve = None
+    kinfo = serve = mla = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -587,7 +820,13 @@ def main() -> int:
         if "tiny" in phases:
             phase_tiny()
         if "serve" in phases:
-            serve = phase_serve(card)
+            serve = phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B,
+                                llama_counters())
+        if "mla" in phases:
+            gc.collect()  # the 8B engine is shut down: free its memory first
+            torch.cuda.empty_cache()
+            mla = phase_serve(card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
+                              mla_counters())
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
         import traceback
 
@@ -595,14 +834,22 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if kinfo is not None and serve is not None:
-        cases, counts = kinfo["cases"], serve["counts"]
+    if kinfo is not None and serve is not None and mla is not None:
+        cases = kinfo["cases"]
         entries = []
-        for name, src, repl, case, err in (
+        for name, src, repl, case, err, counts in (
             ("ragged_paged_attention", "dynamo_tpu_torch/csrc/ragged_attention.cu",
-             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix", "ragged"),
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix", "ragged",
+             serve["counts"]),
             ("paged_window_attention_decode", "dynamo_tpu_torch/csrc/paged_attention.cu",
-             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged"),
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged",
+             serve["counts"]),
+            ("ragged_mla_attention", "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:408", "mla_ragged_mix", "mla_ragged",
+             mla["counts"]),
+            ("mla_paged_attention_decode", "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_b32", "mla_decode",
+             mla["counts"]),
         ):
             c = cases[case]
             entries.append({

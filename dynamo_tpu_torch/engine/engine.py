@@ -9,9 +9,9 @@ Architecture, as in the reference:
   PreprocessedRequest / Annotated[LLMEngineOutput] wire dicts);
 - each scheduler iteration that carries prefill work runs the ragged
   unified step (mixed prefill spans + decode tokens, one forward through
-  the ragged attention kernel); a decode-only iteration runs the exact-lane
-  decode step (the paged decode kernel).  Both end in the same sampling
-  tail.
+  the family's ragged attention kernel); a decode-only iteration runs the
+  exact-lane decode step (the family's paged decode kernel).  Both end in
+  the same sampling tail.
 
 This slice runs decode synchronously.  Overlapped and fused multi-step
 decode, the split prefill path, speculative and guided decoding, KV
@@ -33,7 +33,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass
-from typing import AsyncIterator
+from typing import Any, AsyncIterator
 
 import numpy as np
 import torch
@@ -48,7 +48,6 @@ from dynamo_tpu_torch.llm.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
-from dynamo_tpu_torch.models.llama import LlamaConfig
 from dynamo_tpu_torch.models.registry import get_family
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
@@ -79,7 +78,10 @@ LOGIT_BIAS_K = 64
 
 @dataclass
 class EngineConfig:
-    model: LlamaConfig                 # the family's config
+    # the family's config (LlamaConfig, DeepseekConfig): the engine reads
+    # only vocab_size, max_position_embeddings, dtype and, where the family
+    # has one, sliding_window
+    model: Any
     model_family: str = "llama"        # registry key
     num_blocks: int = 256
     block_size: int = 16
@@ -470,7 +472,7 @@ class TorchLlmEngine:
         tables = self._decode_tables(decodes + [s for s, _, _ in spans])
         page_meta = pack_page_meta(
             token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
-            sliding_window=self.config.model.sliding_window,
+            sliding_window=getattr(self.config.model, "sliding_window", None),
         )
         dev = self.device
         tokens, lps, top = self._unified_step(

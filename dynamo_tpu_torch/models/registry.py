@@ -1,9 +1,11 @@
 """Model family registry (counterpart of dynamo_tpu/models/registry.py).
 
-Binds an HF ``model_type`` to the functional pieces the engine needs.  This
-slice of the port serves the llama family and the llama-geometry variants
-that differ from it only in config flags; gemma, phi3 (checkpoint quirks),
-and the MoE and MLA families come with later slices.
+Binds an HF ``model_type`` to the functional pieces the engine needs: the
+llama family and the llama-geometry variants that differ from it only in
+config flags, and the DeepSeek MLA family (``deepseek_v2``,
+``deepseek_v3``), whose hooks give the engine its latent cache and its rope
+tables.  Mixtral and qwen3_moe (on ``ops/moe.py``), then gemma and phi3
+(checkpoint quirks), come with later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ class ModelFamily:
     config_from_hf: Callable[[Any], Any]
     # (cfg, generator, device) -> params
     init_params: Callable
-    # (cfg, num_blocks, block_size, dtype, device) -> {"k", "v"}
+    # (cfg, num_blocks, block_size, dtype, device) -> {"k", "v"}; the two
+    # may differ in width (the MLA latent and rope-key caches)
     init_kv_cache: Callable
     # (cfg, device, max_len) -> (cos, sin)
     make_rope_tables: Callable
@@ -55,6 +58,21 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
     )
 
 
+def _deepseek_family() -> ModelFamily:
+    from dynamo_tpu_torch.models import deepseek
+
+    return ModelFamily(
+        name="deepseek",
+        config_from_hf=deepseek.DeepseekConfig.from_hf_config,
+        init_params=deepseek.init_params,
+        init_kv_cache=deepseek.init_kv_cache,
+        make_rope_tables=deepseek.make_rope_tables,
+        forward_decode=deepseek.deepseek_forward_decode,
+        forward_unified=deepseek.deepseek_forward_unified,
+        load_weights=deepseek.load_hf_weights,
+    )
+
+
 _FAMILIES: dict[str, Callable[[], ModelFamily]] = {
     "llama": lambda: _llama_like_family("llama"),
     # Mistral = llama geometry + sliding-window attention from config.json
@@ -65,6 +83,10 @@ _FAMILIES: dict[str, Callable[[], ModelFamily]] = {
     ),
     # Qwen3 = llama geometry + per-head q/k RMSNorm before rope
     "qwen3": lambda: _llama_like_family("qwen3", lambda c: c.update(qk_norm=True)),
+    # the MLA architectures only: classic DeepSeek-MoE ("deepseek") uses
+    # conventional attention and would need a family of its own
+    "deepseek_v2": _deepseek_family,
+    "deepseek_v3": _deepseek_family,
 }
 
 

@@ -2,8 +2,9 @@
 (counterparts of the pure-JAX twins in dynamo_tpu/ops/attention.py).
 
 The KV cache is a flat pool of fixed-size blocks per layer —
-``[num_blocks, block_size, kv_heads, head_dim]`` — addressed by
-per-sequence block tables.  These functions are the port's CPU path and the
+``[num_blocks, block_size, kv_heads, head_dim]``, or for MLA (DeepSeek) a
+latent cache ``[num_blocks, block_size, R]`` beside a rope-key cache
+``[num_blocks, block_size, P]`` — addressed by per-sequence block tables.  These functions are the port's CPU path and the
 references that the hand-written CUDA kernels in ``ops/kernels`` are held
 against; on the card the model calls the kernels instead.
 
@@ -154,4 +155,78 @@ def ragged_paged_attention(
         logits = torch.where(mask[:, None, None], logits, NEG_INF)
         weights = torch.softmax(logits, dim=-1)
         out[c0:c1] = torch.einsum("tkgl,tlkd->tkgd", weights, v).reshape(n, h, d).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek) in latent space
+# ---------------------------------------------------------------------------
+
+
+def _mla_scores(q_lat, q_rope, ck, kr, scale: float) -> torch.Tensor:
+    """Two-part absorbed scores q_lat·ck + q_rope·kr over gathered keys:
+    q [n, H, R|P], keys [n, L, R|P] -> [n, H, L] float32."""
+    return (
+        torch.einsum("thr,tlr->thl", q_lat.float(), ck.float())
+        + torch.einsum("thp,tlp->thl", q_rope.float(), kr.float())
+    ) * scale
+
+
+def mla_paged_decode_attention(
+    q_lat: torch.Tensor,         # [B, H, R] float32 absorbed latent queries
+    q_rope: torch.Tensor,        # [B, H, P] roped queries
+    ck_cache: torch.Tensor,      # [N, bs, R] latents (keys AND values)
+    kr_cache: torch.Tensor,      # [N, bs, P] rope keys
+    block_tables: torch.Tensor,  # [B, max_blocks] int
+    context_lens: torch.Tensor,  # [B] int (0 => idle lane: junk row)
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Absorbed MLA decode attention (the gather branch of the reference's
+    ``_mla_decode_attn``): positions ``pos < ctx`` of each sequence, the
+    context accumulated in latent space.  Returns float32 [B, H, R]."""
+    b = q_lat.shape[0]
+    _, block_size, r = ck_cache.shape
+    length = block_tables.shape[1] * block_size
+    ck = ck_cache[block_tables].reshape(b, length, r).float()
+    kr = kr_cache[block_tables].reshape(b, length, -1)
+    logits = _mla_scores(q_lat, q_rope, ck, kr, scale)
+    valid = torch.arange(length, device=q_lat.device)[None, :] < context_lens[:, None]
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
+    return torch.einsum("bht,btr->bhr", torch.softmax(logits, dim=-1), ck)
+
+
+def ragged_mla_paged_attention(
+    q_lat: torch.Tensor,         # [T, H, R] float32 absorbed latent queries
+    q_rope: torch.Tensor,        # [T, H, P] roped queries
+    ck_cache: torch.Tensor,      # [N, bs, R] latents (keys AND values)
+    kr_cache: torch.Tensor,      # [N, bs, P] rope keys
+    block_tables: torch.Tensor,  # [lanes, max_blocks] int
+    token_lane: torch.Tensor,    # [T] owning lane per token (out of range = pad)
+    token_pos: torch.Tensor,     # [T] absolute position (-1 = pad)
+    *,
+    scale: float,
+    max_gather_tokens: int = 64,
+) -> torch.Tensor:
+    """Ragged unified-batch MLA attention in latent space: the contract of
+    ``ragged_paged_attention`` with two-part absorbed scores, the context
+    accumulated in float32 [T, H, R] for the caller to decompress through
+    w_uv.  Pad tokens mask fully and give junk rows the caller discards;
+    token chunks of ``max_gather_tokens`` bound the gathered working set."""
+    t, h, r = q_lat.shape
+    _, block_size, _ = ck_cache.shape
+    lanes, max_blocks = block_tables.shape
+    length = max_blocks * block_size
+    lane = token_lane.clamp(0, lanes - 1)
+    kv_pos = torch.arange(length, device=q_lat.device)[None, :]
+    out = torch.empty((t, h, r), dtype=torch.float32, device=q_lat.device)
+    for c0 in range(0, t, max_gather_tokens):
+        c1 = min(t, c0 + max_gather_tokens)
+        tables = block_tables[lane[c0:c1]]                      # [n, maxb]
+        ck = ck_cache[tables].reshape(c1 - c0, length, r).float()
+        kr = kr_cache[tables].reshape(c1 - c0, length, -1)
+        logits = _mla_scores(q_lat[c0:c1], q_rope[c0:c1], ck, kr, scale)
+        mask = kv_pos <= token_pos[c0:c1, None]  # pads at -1 mask everything
+        logits = torch.where(mask[:, None, :], logits, NEG_INF)
+        out[c0:c1] = torch.einsum("thl,tlr->thr", torch.softmax(logits, dim=-1), ck)
     return out

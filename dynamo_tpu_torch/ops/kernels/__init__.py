@@ -2,6 +2,10 @@
 in dynamo_tpu/ops/pallas) and their wrappers.  Importing this package
 builds nothing: ``build.library()`` compiles on first launch."""
 
+from dynamo_tpu_torch.ops.kernels.mla_attention import (
+    mla_paged_attention_decode,
+    ragged_mla_attention,
+)
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_decode,
     paged_window_attention_decode,
@@ -12,8 +16,10 @@ from dynamo_tpu_torch.ops.kernels.ragged_attention import (
 )
 
 __all__ = [
+    "mla_paged_attention_decode",
     "pack_page_meta",
     "paged_attention_decode",
     "paged_window_attention_decode",
+    "ragged_mla_attention",
     "ragged_paged_attention",
 ]

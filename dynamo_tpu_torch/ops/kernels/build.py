@@ -26,7 +26,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("paged_attention.cu", "ragged_attention.cu")
+SOURCES = ("paged_attention.cu", "ragged_attention.cu", "mla_attention.cu")
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,11 +94,15 @@ def _compile(nvcc: str, out: Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dyn_paged_window_attention.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.dyn_paged_window_attention.restype = i
     lib.dyn_ragged_paged_attention.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.dyn_ragged_paged_attention.restype = i
+    lib.dyn_mla_paged_decode.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
+    lib.dyn_mla_paged_decode.restype = i
+    lib.dyn_ragged_mla_attention.argtypes = [p] * 11 + [i] * 7 + [f, i, p]
+    lib.dyn_ragged_mla_attention.restype = i
 
 
 def library() -> ctypes.CDLL:

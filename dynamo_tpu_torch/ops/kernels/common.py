@@ -37,9 +37,15 @@ def check_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"head dim {d} (cache {dk}) not in {HEAD_DIMS}")
     if v_cache.shape != k_cache.shape:
         raise ValueError("k and v caches differ in shape")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    check_layout(q.device, q=q, k_cache=k_cache, v_cache=v_cache)
+
+
+def check_layout(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Data arguments: on ``device``, contiguous, 16-byte aligned (the
+    kernels load 16 bytes at a time)."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:

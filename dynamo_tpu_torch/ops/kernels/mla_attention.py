@@ -1,0 +1,177 @@
+"""MLA (multi-head latent attention) kernels' wrappers (csrc/mla_attention.cu).
+
+Counterpart of dynamo_tpu/ops/pallas/mla_attention.py:
+``mla_paged_attention_decode`` (the absorbed decode step) and
+``ragged_mla_attention`` (the unified ragged step, over the page worklist
+of ``pack_page_meta`` built from the latent block tables).  Both take the
+float32 absorbed queries ``q_lat``, the roped queries ``q_rope`` and the two
+caches ``ck [N, bs, R]`` (latents: keys AND values) and ``kr [N, bs, P]``
+(rope keys) in the model dtype, and return the float32 context in latent
+space.  A CPU tensor goes to the plain PyTorch version in ``ops.attention``;
+a CUDA tensor launches the kernel or raises.  ``*_launches`` count kernel
+launches, ``*_plain_calls`` calls routed to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dynamo_tpu_torch.ops.attention import (
+    mla_paged_decode_attention,
+    ragged_mla_paged_attention,
+)
+from dynamo_tpu_torch.ops.kernels import build
+from dynamo_tpu_torch.ops.kernels.common import (
+    check_index,
+    check_layout,
+    dtype_code,
+    stream_ptr,
+)
+
+decode_launches = 0
+decode_plain_calls = 0
+ragged_launches = 0
+ragged_plain_calls = 0
+
+# (R, P) geometries the kernels are built for: DeepSeek-V2/V3 and tiny_mla
+GEOMETRIES = ((512, 64), (32, 8))
+MAX_TOKEN_BLOCK = 8  # tb_tokens the ragged kernel takes (query rows per CTA)
+
+
+def _check(q_lat, q_rope, ck_cache, kr_cache) -> None:
+    """Device, dtype, shape, contiguity and alignment of the queries and the
+    two caches: q_lat float32; q_rope and both caches in one dtype, float32
+    or bfloat16."""
+    if ck_cache.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"cache dtype {ck_cache.dtype} is not supported by the MLA kernels "
+            "(float32, bfloat16; fp8 caches come with the quantized slice)"
+        )
+    if q_lat.dtype != torch.float32:
+        raise ValueError(f"q_lat must be float32 (the absorbed einsum's), got {q_lat.dtype}")
+    if q_rope.dtype != ck_cache.dtype or kr_cache.dtype != ck_cache.dtype:
+        raise ValueError(
+            f"q_rope ({q_rope.dtype}) and caches ({ck_cache.dtype}, {kr_cache.dtype}) "
+            "must share one dtype"
+        )
+    r, p = q_lat.shape[-1], q_rope.shape[-1]
+    if (r, p) not in GEOMETRIES:
+        raise ValueError(f"MLA widths (R={r}, P={p}) not in {GEOMETRIES}")
+    if (ck_cache.dim() != 3 or kr_cache.dim() != 3 or ck_cache.shape[2] != r
+            or kr_cache.shape[2] != p or ck_cache.shape[:2] != kr_cache.shape[:2]):
+        raise ValueError(
+            f"caches must be ck [N, bs, {r}] and kr [N, bs, {p}], got "
+            f"{tuple(ck_cache.shape)} and {tuple(kr_cache.shape)}"
+        )
+    if q_rope.shape[:-1] != q_lat.shape[:-1]:
+        raise ValueError("q_lat and q_rope differ in their leading shape")
+    check_layout(q_lat.device, q_lat=q_lat, q_rope=q_rope, ck_cache=ck_cache,
+                 kr_cache=kr_cache)
+
+
+def mla_paged_attention_decode(
+    q_lat: torch.Tensor,         # [B, H, R] float32
+    q_rope: torch.Tensor,        # [B, H, P] model dtype
+    ck_cache: torch.Tensor,      # [N, bs, R]
+    kr_cache: torch.Tensor,      # [N, bs, P]
+    block_tables: torch.Tensor,  # [B, maxb] int32
+    context_lens: torch.Tensor,  # [B] int32
+    *,
+    scale: float,
+    pages_per_step: int = 1,     # accepted for signature parity; the output
+                                 # does not depend on it
+) -> torch.Tensor:
+    """Absorbed MLA decode attention: positions ``pos < ctx``.  Returns the
+    float32 latent context [B, H, R]; idle lanes (ctx 0) come out as zeros
+    on the kernel path."""
+    global decode_launches, decode_plain_calls
+    if pages_per_step < 1:
+        raise ValueError(f"pages_per_step must be >= 1, got {pages_per_step}")
+    if q_lat.device.type == "cpu":
+        decode_plain_calls += 1
+        return mla_paged_decode_attention(
+            q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale=scale,
+        )
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"MLA decode attention: unsupported device {q_lat.device}")
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    _check(q_lat, q_rope, ck_cache, kr_cache)
+    b, h, r = q_lat.shape
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables / context_lens do not match the batch")
+    check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
+    out = torch.empty_like(q_lat)
+    code = build.library().dyn_mla_paged_decode(
+        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        b, h, r, q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1],
+        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+    )
+    build.check(code, "mla_paged_attention_decode")
+    decode_launches += 1
+    return out
+
+
+def ragged_mla_attention(
+    q_lat: torch.Tensor,         # [T, H, R] float32 flat ragged token batch
+    q_rope: torch.Tensor,        # [T, H, P] model dtype
+    ck_cache: torch.Tensor,      # [N, bs, R]
+    kr_cache: torch.Tensor,      # [N, bs, P]
+    block_tables: torch.Tensor,  # [lanes, maxb] int32 (read by the plain version)
+    token_lane: torch.Tensor,    # [T] int32 owning lane (out of range = pad)
+    token_pos: torch.Tensor,     # [T] int32 absolute position (-1 = pad)
+    page_phys: torch.Tensor,     # [T // tb_tokens, PS] int32 (pack_page_meta)
+    page_lane: torch.Tensor,     # [T // tb_tokens, PS] int32
+    page_ord: torch.Tensor,      # [T // tb_tokens, PS] int32
+    page_count: torch.Tensor,    # [T // tb_tokens] int32
+    *,
+    scale: float,
+    tb_tokens: int = 8,
+    pages_per_step: int = 1,     # accepted for signature parity; the output
+                                 # does not depend on it
+) -> torch.Tensor:
+    """Ragged unified-batch MLA attention over the latent cache: every
+    token attends its own lane's positions up to its own.  Returns the
+    float32 latent context [T, H, R]; pad rows come out as zeros on the
+    kernel path (junk the caller discards on the plain path)."""
+    global ragged_launches, ragged_plain_calls
+    t, h, r = q_lat.shape
+    if t % tb_tokens:
+        raise ValueError(f"flat token axis ({t}) must pack whole token blocks of {tb_tokens}")
+    if pages_per_step < 1 or page_phys.shape[1] % pages_per_step:
+        raise ValueError(
+            f"page_slots ({page_phys.shape[1]}) must be a positive multiple "
+            f"of pages_per_step ({pages_per_step})"
+        )
+    if q_lat.device.type == "cpu":
+        ragged_plain_calls += 1
+        return ragged_mla_paged_attention(
+            q_lat, q_rope, ck_cache, kr_cache, block_tables, token_lane, token_pos,
+            scale=scale,
+        )
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"ragged MLA attention: unsupported device {q_lat.device}")
+    if tb_tokens > MAX_TOKEN_BLOCK:
+        raise ValueError(f"tb_tokens {tb_tokens} > {MAX_TOKEN_BLOCK}")
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    _check(q_lat, q_rope, ck_cache, kr_cache)
+    num_tb = t // tb_tokens
+    if (token_lane.shape != (t,) or token_pos.shape != (t,)
+            or page_phys.shape[0] != num_tb or page_count.shape != (num_tb,)
+            or page_lane.shape != page_phys.shape or page_ord.shape != page_phys.shape):
+        raise ValueError("token / page metadata shapes do not match the token axis")
+    check_index(
+        q_lat.device, token_lane=token_lane, token_pos=token_pos, page_phys=page_phys,
+        page_lane=page_lane, page_ord=page_ord, page_count=page_count,
+    )
+    out = torch.empty_like(q_lat)
+    code = build.library().dyn_ragged_mla_attention(
+        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
+        token_lane.data_ptr(), token_pos.data_ptr(), page_phys.data_ptr(),
+        page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(), out.data_ptr(),
+        t, h, r, q_rope.shape[-1], ck_cache.shape[1], tb_tokens, page_phys.shape[1],
+        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+    )
+    build.check(code, "ragged_mla_attention")
+    ragged_launches += 1
+    return out

@@ -50,18 +50,35 @@ def _yarn_scale_freqs(freqs: torch.Tensor, half: int, theta: float, scaling: dic
     return (freqs / factor) * ramp + freqs * (1.0 - ramp)
 
 
+def yarn_mscale(scaling: dict | None) -> float:
+    """YaRN attention-temperature correction: DeepSeek multiplies its
+    softmax scale by ``mscale**2``, with ``mscale = 0.1 * mscale_all_dim *
+    ln(factor) + 1`` (1 without yarn, a factor <= 1 or no
+    ``mscale_all_dim``)."""
+    if not scaling or scaling.get("rope_type", scaling.get("type")) != "yarn":
+        return 1.0
+    factor = float(scaling.get("factor", 1.0))
+    m_all = float(scaling.get("mscale_all_dim", 0.0) or 0.0)
+    if factor <= 1.0 or not m_all:
+        return 1.0
+    return 0.1 * m_all * math.log(factor) + 1.0
+
+
 def rope_table(
     max_len: int, head_dim: int, theta: float = 10000.0,
     scaling: dict | None = None,
     *,
+    yarn_apply_attention_factor: bool = True,
     device: torch.device | str = "cpu",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables, shape [max_len, head_dim//2], float32.
 
     ``scaling`` is an HF ``rope_scaling`` dict: type "linear", "llama3" or
-    "yarn" (yarn bakes HF's attention factor into both tables, as the
-    llama-family reference does).  The tables are computed on the CPU and
-    moved to ``device``."""
+    "yarn".  For yarn the llama-family convention bakes HF's attention
+    factor into both tables; DeepSeek puts the temperature on its softmax
+    scale instead (``yarn_mscale``) and passes
+    ``yarn_apply_attention_factor=False``.  The tables are computed on the
+    CPU and moved to ``device``."""
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half))
     attn_factor = 1.0
@@ -73,11 +90,12 @@ def rope_table(
             freqs = _llama3_scale_freqs(freqs, scaling)
         elif kind == "yarn":
             freqs = _yarn_scale_freqs(freqs, half, theta, scaling)
-            factor = float(scaling.get("factor", 1.0))
-            attn_factor = float(
-                scaling.get("attention_factor")
-                or (0.1 * math.log(factor) + 1.0 if factor > 1.0 else 1.0)
-            )
+            if yarn_apply_attention_factor:
+                factor = float(scaling.get("factor", 1.0))
+                attn_factor = float(
+                    scaling.get("attention_factor")
+                    or (0.1 * math.log(factor) + 1.0 if factor > 1.0 else 1.0)
+                )
         elif kind:
             raise NotImplementedError(f"rope_scaling type {kind!r}")
     angles = torch.arange(max_len, dtype=torch.float32)[:, None] * freqs[None, :]
