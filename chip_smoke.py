@@ -8,11 +8,12 @@ Phases (any failure exits non-zero, before the result line):
                card at the main paths' shapes (Llama-3-8B attention: 32 heads,
                8 kv heads, head dim 128, 16-token blocks, bf16; DeepSeek-V2-Lite
                MLA: 16 heads, latent 512, rope 64, 16-token blocks, bf16
-               caches, float32 absorbed queries), plus sliding-window,
-               head-dim-64, head-dim-16 and tiny-MLA float32 cases; time the
-               kernel, the plain version and one PyTorch library call
-               (scaled_dot_product_attention over gathered K/V, a yardstick
-               the port never calls) beside the least time the card needs.
+               caches, float32 absorbed queries; the verify windows at W=5),
+               plus sliding-window, head-dim-64, head-dim-16 and tiny-MLA
+               float32 cases; time the kernel, the plain version and one
+               PyTorch library call (scaled_dot_product_attention over
+               gathered K/V, a yardstick the port never calls) beside the
+               least time the card needs.
   3. tiny    — serve tests/data/tiny-chat-model with
                ``python -m dynamo_tpu_torch.cli.run run in=http out=torch``
                and check that greedy chat content is the token-counter
@@ -25,6 +26,14 @@ Phases (any failure exits non-zero, before the result line):
   5. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers.
+  6. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+               tests/data/tiny-chat-model with and without it (equal greedy
+               streams, drafts accepted), then the Llama-3-8B geometry and
+               the DeepSeek-V2-Lite config, all layers, over HTTP with chats
+               that repeat a phrase plus the long prompt: every prefill on
+               the split step, verify through the GQA window kernel at W=5
+               and the MLA window kernel; their launch counters must move
+               and no plain attention may run on the card.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -49,7 +58,7 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla")
+PHASES = ("build", "kernels", "tiny", "serve", "mla", "spec")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # MLA kernels write float32 from the very inputs the plain version reads in
@@ -102,68 +111,100 @@ def make_cache(torch, n_blocks, bs, kvh, d, dtype, gen):
 
 
 def block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen):
-    """Distinct random physical pages for every sequence."""
+    """Distinct random physical pages for every sequence (a context past
+    the table fills the whole row)."""
     perm = torch.randperm(n_blocks, generator=gen, device="cuda").to(torch.int32)
     tables = torch.zeros((len(lens), max_blocks), dtype=torch.int32, device="cuda")
     cur = 0
     for b, n in enumerate(lens):
-        need = -(-n // bs)
+        need = min(-(-n // bs), max_blocks)
         tables[b, :need] = perm[cur: cur + need]
         cur += need
     return tables
 
 
-def decode_case(torch, *, lens, h=32, kvh=8, d=128, bs=16, dtype=None,
-                window=None, seed=0, timed=True):
+def window_positions(lens, w, length, window=None):
+    """Per sequence of a W-query window (contexts ``lens`` include its last
+    token, 0 = idle): the visible key count of each query (positions <= its
+    own inside the ``length``-position table, the last ``window`` of them
+    with a sliding window) and the positions any query sees (its pages are
+    read).  Returns (sum of per-query counts, per-sequence union counts)."""
+    per_query, union = 0, []
+    for n in lens:
+        if n <= 0:
+            union.append(0)
+            continue
+        lo_all, hi_all = None, -1
+        for j in range(w):
+            q = n - w + j
+            hi = min(q, length - 1)
+            lo = max(0, q - window + 1) if window else 0
+            per_query += max(0, hi - lo + 1)
+            lo_all = lo if lo_all is None else min(lo_all, lo)
+            hi_all = max(hi_all, hi)
+        union.append(max(0, hi_all - lo_all + 1))
+    return per_query, union
+
+
+def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
+                window=None, seed=0, timed=True, max_blocks=None):
+    """Paged GQA attention of ``w`` queries a sequence (contexts ``lens``
+    include the window's last token): the decode wrapper at w = 1, the
+    window wrapper (speculative verify) above it."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import paged_attention_decode
+    from dynamo_tpu_torch.ops.kernels import paged_attention_decode, paged_window_attention_decode
 
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     b = len(lens)
-    max_blocks = -(-max(lens) // bs)
-    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    max_blocks = max_blocks or -(-max(lens) // bs)
+    n_blocks = sum(min(-(-n // bs), max_blocks) for n in lens) + 8
     k, v = make_cache(torch, n_blocks, bs, kvh, d, dtype, gen)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((b, w, h, d), generator=gen, device="cuda").to(dtype)
 
     def kernel():
-        return paged_attention_decode(q, k, v, tables, ctx, sliding_window=window)
+        if w == 1:
+            return paged_attention_decode(q[:, 0], k, v, tables, ctx, sliding_window=window)[:, None]
+        return paged_window_attention_decode(q, k, v, tables, ctx, sliding_window=window)
+
+    def plain_fn(qq, kk, vv):
+        return plain.paged_window_attention(qq, kk, vv, tables, ctx, sliding_window=window)
 
     out = kernel()
-    ref = plain.paged_decode_attention(
-        q.float(), k.float(), v.float(), tables, ctx, sliding_window=window
-    )
+    ref = plain_fn(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
-    err = (out.float() - ref).abs().max().item()
-    res = {"max_abs_err": err, "ref_absmax": ref.abs().max().item(),
-           "finite": bool(torch.isfinite(out).all())}
+    live = ctx > 0
+    err = (out.float()[live] - ref[live]).abs().max().item()
+    res = {"max_abs_err": err, "ref_absmax": ref[live].abs().max().item(),
+           "finite": bool(torch.isfinite(out).all()),
+           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True}
     if not timed:
         return res
-    visible = [min(n, window) if window else n for n in lens]
-    elem = torch.finfo(dtype).bits // 8
-    bytes_ = (sum(visible) * kvh * d * 2 * elem + 2 * q.numel() * elem
-              + tables.numel() * 4 + ctx.numel() * 4)
-    flops = 4 * sum(visible) * h * d
-    # library yardstick: one SDPA call over K/V gathered per sequence
     length = max_blocks * bs
+    per_query, union = window_positions(lens, w, length, window)
+    elem = torch.finfo(dtype).bits // 8
+    bytes_ = (sum(union) * kvh * d * 2 * elem + 2 * q.numel() * elem
+              + tables.numel() * 4 + ctx.numel() * 4)
+    flops = 4 * per_query * h * d
+    # library yardstick: one SDPA call over K/V gathered per sequence
     groups = h // kvh
     kg = k[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
     vg = v[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
-    pos = torch.arange(length, device="cuda")[None, :]
-    mask = pos < ctx[:, None]
+    pos = torch.arange(length, device="cuda")[None, None, :]
+    q_pos = (ctx[:, None] - w + torch.arange(w, device="cuda")[None, :])[:, :, None]
+    mask = pos <= q_pos
     if window:
-        mask &= (ctx[:, None] - 1 - pos) < window
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
+        mask &= (q_pos - pos) < window
+    mask = mask[:, None]                              # [b, 1, w, length]
+    q4 = q.transpose(1, 2)                            # [b, h, w, d]
     res.update(
         ms=time_ms(kernel, 20),
-        plain_ms=time_ms(lambda: plain.paged_decode_attention(
-            q, k, v, tables, ctx, sliding_window=window), 5),
+        plain_ms=time_ms(lambda: plain_fn(q, k, v), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), 20),
         bytes=bytes_, flops=flops,
@@ -302,34 +343,47 @@ def mla_bound(torch, *, pages, bs, r, p, h, dtype, q_rows, meta_bytes, visible):
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
-def mla_decode_case(torch, *, lens, h=16, r=512, p=64, bs=16, dtype=None, seed=0,
-                    timed=True):
-    """Absorbed MLA decode at ``lens`` contexts (0 = an idle lane, which the
-    kernel must write as zeros)."""
+def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, seed=0,
+                    timed=True, max_blocks=None):
+    """Absorbed MLA attention of ``w`` queries a sequence at contexts
+    ``lens`` (including the window's last token; 0 = an idle lane, which the
+    kernel must write as zeros): the decode kernel at w = 1, the window
+    kernel (speculative verify) above it."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import mla_paged_attention_decode
+    from dynamo_tpu_torch.ops.kernels import (
+        mla_paged_attention_decode,
+        mla_paged_window_attention_decode,
+    )
 
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     b = len(lens)
-    max_blocks = max(1, -(-max(lens) // bs))
-    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    max_blocks = max_blocks or max(1, -(-max(lens) // bs))
+    n_blocks = sum(min(-(-n // bs), max_blocks) for n in lens) + 8
     ck, kr = mla_caches(torch, n_blocks, bs, r, p, dtype, gen)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    q_lat = torch.randn((b, h, r), generator=gen, device="cuda")
-    q_rope = torch.randn((b, h, p), generator=gen, device="cuda").to(dtype)
+    q_lat = torch.randn((b, w, h, r), generator=gen, device="cuda")
+    q_rope = torch.randn((b, w, h, p), generator=gen, device="cuda").to(dtype)
     scale = V2_LITE_ATTN_SCALE
 
     def kernel():
-        return mla_paged_attention_decode(q_lat, q_rope, ck, kr, tables, ctx, scale=scale)
+        if w == 1:
+            return mla_paged_attention_decode(
+                q_lat[:, 0], q_rope[:, 0], ck, kr, tables, ctx, scale=scale)[:, None]
+        return mla_paged_window_attention_decode(q_lat, q_rope, ck, kr, tables, ctx, scale=scale)
+
+    def plain_fn(qr, ckk, krr):
+        if w == 1:
+            return plain.mla_paged_decode_attention(
+                q_lat[:, 0], qr[:, 0], ckk, krr, tables, ctx, scale=scale)[:, None]
+        return plain.mla_paged_window_attention(q_lat, qr, ckk, krr, tables, ctx, scale=scale)
 
     out = kernel()
-    ref = plain.mla_paged_decode_attention(
-        q_lat, q_rope.float(), ck.float(), kr.float(), tables, ctx, scale=scale)
+    ref = plain_fn(q_rope.float(), ck.float(), kr.float())
     torch.cuda.synchronize()
     live = ctx > 0
     res = {"max_abs_err": (out[live] - ref[live]).abs().max().item(),
@@ -338,22 +392,23 @@ def mla_decode_case(torch, *, lens, h=16, r=512, p=64, bs=16, dtype=None, seed=0
            "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True}
     if not timed:
         return res
-    pages = sum(-(-n // bs) for n in lens)
-    res.update(mla_bound(torch, pages=pages, bs=bs, r=r, p=p, h=h, dtype=dtype, q_rows=b,
-                         meta_bytes=tables.numel() * 4 + b * 4, visible=sum(lens)))
+    length = max_blocks * bs
+    visible, union = window_positions(lens, w, length)
+    pages = sum(-(-n // bs) for n in union)
+    res.update(mla_bound(torch, pages=pages, bs=bs, r=r, p=p, h=h, dtype=dtype, q_rows=b * w,
+                         meta_bytes=tables.numel() * 4 + b * 4, visible=visible))
     # library yardstick: one SDPA call, q = q_lat | q_rope, K = ck | kr and
     # V = ck gathered per sequence beforehand, all in the cache dtype
-    length = max_blocks * bs
-    # (every head shares the one latent "kv head": the heads ride the query
-    # axis of a single SDPA head)
+    # (every head shares the one latent "kv head": the w * h query rows ride
+    # the query axis of a single SDPA head, each masked to its position)
     kg = torch.cat([ck[tables.long()], kr[tables.long()]], dim=-1).reshape(b, 1, length, r + p)
     vg = ck[tables.long()].reshape(b, 1, length, r)
-    q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1)[:, None]
-    mask = (torch.arange(length, device="cuda")[None, :] < ctx[:, None])[:, None, None, :]
+    q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1).reshape(b, 1, w * h, r + p)
+    q_pos = (ctx[:, None] - w + torch.arange(w, device="cuda")[None, :]).repeat_interleave(h, 1)
+    mask = (torch.arange(length, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
     res.update(
         ms=time_ms(kernel, 20),
-        plain_ms=time_ms(lambda: plain.mla_paged_decode_attention(
-            q_lat, q_rope, ck, kr, tables, ctx, scale=scale), 5),
+        plain_ms=time_ms(lambda: plain_fn(q_rope, ck, kr), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, scale=scale), 20),
     )
@@ -501,12 +556,44 @@ def phase_kernels(torch) -> dict:
     mla_small_r = mla_ragged_case(torch, spans=[(0, 4, 1), (1, 8, 9), (2, 28, 1)], h=4,
                                   r=32, p=8, dtype=torch.float32, t_pad=16, timed=False)
     check_case("mla ragged tiny_mla fp32", mla_small_r, F32_ATOL)
+    # speculative verify windows, W = spec_tokens + 1 = 5: row 2 at Llama-3-8B
+    # widths and row 5 at DeepSeek-V2-Lite widths.  Contexts include the
+    # window's last token; the tables hold 2048 positions, and one lane's
+    # window runs past them (the engine clamps its slots at its last
+    # position: the queries keep their positions, the keys stop at the table)
+    for b in (8, 32):
+        lens = [rng.randint(5, 2048) for _ in range(b)]
+        lens[0], lens[1], lens[2] = 2047, 2048, 2050
+        cases[f"verify_w5_b{b}"] = decode_case(torch, lens=lens, w=5, seed=30 + b,
+                                               max_blocks=128)
+        check_case(f"paged window W=5 b{b} lens<=2048 (+ one past the table)",
+                   cases[f"verify_w5_b{b}"], BF16_ATOL)
+    win5 = decode_case(torch, lens=[2047, 700, 1500, 33, 2050], w=5, window=256, seed=40,
+                       timed=False, max_blocks=128)
+    check_case("paged window W=5 sliding window 256", win5, BF16_ATOL)
+    for b in (1, 8, 32):
+        lens = [rng.randint(5, 2048) for _ in range(b)]
+        lens[0] = 2047
+        if b > 1:
+            lens[1], lens[2] = 2048, 0
+        if b > 8:
+            lens[3] = 2050
+        cases[f"mla_window_b{b}"] = mla_decode_case(torch, lens=lens, w=5, seed=50 + b,
+                                                    max_blocks=128)
+        check_case(f"mla window W=5 b{b} lens<=2048 (one idle lane)",
+                   cases[f"mla_window_b{b}"], MLA_ATOL)
+    mla_window_small = mla_decode_case(torch, lens=[5, 17, 0, 64], w=3, h=4, r=32, p=8,
+                                       dtype=torch.float32, seed=61, timed=False)
+    check_case("mla window W=3 tiny_mla fp32", mla_window_small, F32_ATOL)
     errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                      win["max_abs_err"], d64["max_abs_err"]),
+        "paged_w5": max(*(cases[f"verify_w5_b{b}"]["max_abs_err"] for b in (8, 32)),
+                        win5["max_abs_err"]),
         "ragged": max(cases["ragged_mix"]["max_abs_err"], win_r["max_abs_err"],
                       d64_r["max_abs_err"]),
         "mla_decode": max(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
+        "mla_window": max(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
         "mla_ragged": cases["mla_ragged_mix"]["max_abs_err"],
     }
     return {"cases": cases, "errs": errs}
@@ -621,22 +708,41 @@ DEEPSEEK_V2_LITE = {
 }
 
 
-def llama_counters():
-    """(name, module, launch counter, plain-call counter) of each kernel the
-    llama path runs."""
-    from dynamo_tpu_torch.ops.kernels import paged_attention, ragged_attention
+def kernel_modules():
+    from dynamo_tpu_torch.ops.kernels import mla_attention, paged_attention, ragged_attention
 
-    return (("ragged_paged_attention", ragged_attention, "launches", "plain_calls"),
-            ("paged_window_attention_decode", paged_attention, "launches", "plain_calls"))
+    return (ragged_attention, paged_attention, mla_attention)
 
 
-def mla_counters():
-    """The same for the kernels the DeepSeek MLA path runs."""
-    from dynamo_tpu_torch.ops.kernels import mla_attention
+def counter_names(mod) -> list[str]:
+    """The integer launch and plain-call counters a kernel module keeps."""
+    return [n for n, v in vars(mod).items()
+            if isinstance(v, int) and (n.endswith("launches") or n.endswith("plain_calls"))]
 
-    return (("ragged_mla_attention", mla_attention, "ragged_launches", "ragged_plain_calls"),
-            ("mla_paged_attention_decode", mla_attention, "decode_launches",
-             "decode_plain_calls"))
+
+def zero_counters() -> None:
+    """Every kernel counter to 0, just before a counted run of a path."""
+    for mod in kernel_modules():
+        for name in counter_names(mod):
+            setattr(mod, name, 0)
+
+
+def read_counters() -> dict:
+    """Every kernel counter as {"module.counter": n}, and the total of the
+    plain-version calls (each one a kernel that did not run on the card)."""
+    out = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+           for mod in kernel_modules() for name in counter_names(mod)}
+    out["plain_calls"] = sum(v for k, v in out.items() if k.endswith("plain_calls"))
+    return out
+
+
+# the launch counters (read_counters() keys) each served path must see
+# above 0: the llama and DeepSeek MLA paths, and their speculative verify
+# kernels (the window kernels at W = spec_tokens + 1)
+LLAMA_PATH = ("ragged_attention.launches", "paged_attention.launches")
+MLA_PATH = ("mla_attention.ragged_launches", "mla_attention.decode_launches")
+LLAMA_SPEC_PATH = ("paged_attention.window_launches",)
+MLA_SPEC_PATH = ("mla_attention.window_launches",)
 
 
 async def stream_chat(session, port: int, model: str, content: str, max_tokens: int) -> dict:
@@ -664,7 +770,8 @@ async def stream_chat(session, port: int, model: str, content: str, max_tokens: 
             "finish": finish, "max_tokens": max_tokens}
 
 
-async def serve_model(model_dir: Path, model: str, counters) -> dict:
+async def serve_model(model_dir: Path, model: str, *, overrides=None,
+                      short_prompts=None, profile=True) -> dict:
     import aiohttp
 
     from dynamo_tpu_torch.serve import serve_http
@@ -672,33 +779,35 @@ async def serve_model(model_dir: Path, model: str, counters) -> dict:
     t_load = time.perf_counter()
     handle = await serve_http(
         model_dir, model_name=model, host="127.0.0.1", port=0,
-        num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0,
+        num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0, **(overrides or {}),
     )
     load_s = time.perf_counter() - t_load
     port = handle.service.port
+    short_prompts = short_prompts or [f"request {i}: tell me" for i in range(4)]
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
             # warm the path once before the counted run
             await stream_chat(s, port, model, "warm up", 4)
-            for _, mod, launches, plain_calls in counters:
-                setattr(mod, launches, 0)
-                setattr(mod, plain_calls, 0)
+            stats0 = handle.engine.stats()
+            zero_counters()
             t0 = time.perf_counter()
-            shorts = [asyncio.ensure_future(
-                stream_chat(s, port, model, f"request {i}: tell me", 64)) for i in range(4)]
+            shorts = [asyncio.ensure_future(stream_chat(s, port, model, text, 64))
+                      for text in short_prompts]
             await asyncio.sleep(0.5)  # the long prompt lands while they decode
             long_prompt = "".join(chr(ord("a") + i % 26) for i in range(1640))
             long = asyncio.ensure_future(stream_chat(s, port, model, long_prompt, 24))
             results = await asyncio.gather(*shorts, long)
             wall = time.perf_counter() - t0
-        counts = {name: getattr(mod, launches) for name, mod, launches, _ in counters}
-        counts["plain_calls"] = sum(getattr(mod, plain) for _, mod, _, plain in counters)
+        counts = read_counters()
         stats = handle.engine.stats()
-        profile = await profile_decode(handle.engine, port, model)
+        # the counted run's share of the cumulative engine counters
+        run = {k: stats[k] - stats0[k] for k in stats
+               if k.startswith("spec_") or k.endswith("steps_total") or k == "iterations_total"}
+        prof = await profile_decode(handle.engine, port, model) if profile else None
     finally:
         await handle.shutdown()
-    return {"results": results, "wall_s": wall, "counts": counts, "stats": stats,
-            "load_s": load_s, "profile": profile}
+    return {"results": results, "wall_s": wall, "counts": counts,
+            "stats": stats, "run": run, "load_s": load_s, "profile": prof}
 
 
 async def profile_decode(engine, port: int, model: str) -> dict:
@@ -735,17 +844,18 @@ async def profile_decode(engine, port: int, model: str) -> dict:
     }
 
 
-def phase_serve(card: str, tag: str, model: str, config: dict, counters) -> dict:
+def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw) -> dict:
     """Serve ``config`` (random weights from seed 0, the tiny model's
     tokenizer) over HTTP in this process, drive the counted traffic, check
-    it, print its e2e and profile lines."""
+    it and that every counter of ``path`` launched, print its e2e (and
+    profile) lines."""
     build_dir = ROOT / "dynamo_tpu_torch" / "_build" / model
     build_dir.mkdir(parents=True, exist_ok=True)
     (build_dir / "config.json").write_text(json.dumps(config))
     tiny = ROOT / "tests" / "data" / "tiny-chat-model"
     for name in ("tokenizer.json", "tokenizer_config.json"):
         shutil.copy(tiny / name, build_dir / name)
-    out = asyncio.run(serve_model(build_dir, model, counters))
+    out = asyncio.run(serve_model(build_dir, model, **serve_kw))
     ttfts, itls, toks = [], [], 0
     for r in out["results"]:
         usage = r["usage"] or {}
@@ -760,10 +870,11 @@ def phase_serve(card: str, tag: str, model: str, config: dict, counters) -> dict
         gaps = [b - a for a, b in zip(r["stamps"], r["stamps"][1:])]
         itls.extend(gaps)
     counts = out["counts"]
-    log(f"[{tag}] launches={counts} load_s={out['load_s']:.1f} stats="
-        f"{ {k: out['stats'][k] for k in ('decode_windows_unified_total', 'decode_steps_total', 'iterations_total')} }")
-    if any(counts[name] <= 0 for name, *_ in counters):
-        raise AssertionError(f"a kernel did not run on the main path: {counts}")
+    launched = {k: counts[k] for k in path}
+    log(f"[{tag}] launches={launched} load_s={out['load_s']:.1f} run={out['run']} "
+        f"all counters={counts}")
+    if any(n <= 0 for n in launched.values()):
+        raise AssertionError(f"a kernel did not run on the main path: {launched}")
     if counts["plain_calls"] != 0:
         raise AssertionError(f"plain attention ran on the card: {counts}")
     e2e = {
@@ -774,10 +885,109 @@ def phase_serve(card: str, tag: str, model: str, config: dict, counters) -> dict
         "requests": len(out["results"]), "wall_s": out["wall_s"],
         "load_s": out["load_s"], "model": model, "card": card,
     }
-    print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
-          flush=True)
+    if out["profile"] is not None:
+        print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
+              flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
-    return {"counts": counts, "e2e": e2e}
+    return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"]}
+
+
+# the speculative phase's chats repeat a phrase, so prompt lookup has
+# history to draft from (random weights accept what they accept)
+SPEC_PROMPTS = [f"say after me, again and again: the quick brown fox number {i}. " * 6
+                for i in range(4)]
+SPEC = dict(speculative="ngram", spec_tokens=4)
+
+
+def phase_spec_tiny(torch) -> dict:
+    """tests/data/tiny-chat-model on the card, with and without speculative
+    decoding: the greedy streams must be equal, and the speculative engine
+    must accept drafts (its prompt holds the run the counter weights take)."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols.common import (
+        Annotated,
+        LLMEngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    model = ROOT / "tests" / "data" / "tiny-chat-model"
+    mdc = ModelDeploymentCard.from_local_path(model)
+    prompts = [list(range(10, 40)) + [10, 11], list(range(100, 140)) + [100, 101],
+               [5, 9, 13, 17, 21]]
+
+    async def run(engine):
+        async def one(tokens):
+            req = PreprocessedRequest(
+                token_ids=tokens, sampling=SamplingOptions(use_greedy=True),
+                stop=StopConditions(max_tokens=24, ignore_eos=True), eos_token_ids=[1],
+            ).to_wire()
+            out = []
+            async for item in await engine.generate(Context(req)):
+                ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+                if ann.data is not None:
+                    if ann.data.error:
+                        raise RuntimeError(ann.data.error)
+                    out.extend(ann.data.token_ids)
+            return out
+
+        engine.start()
+        try:
+            return await asyncio.gather(*(one(p) for p in prompts))
+        finally:
+            engine.stop()
+
+    streams, stats = {}, {}
+    for mode, kw in (("plain", {}), ("spec", SPEC)):
+        engine = build_torch_engine(model, mdc, device="cuda", num_blocks=64, **kw)
+        zero_counters()
+        streams[mode] = asyncio.run(run(engine))
+        stats[mode] = {**engine.stats(), **read_counters()}
+        del engine
+    spec = stats["spec"]
+    log(f"[spec] tiny plain={streams['plain']} spec={streams['spec']} "
+        f"drafted={spec['spec_drafted_tokens_total']} accepted={spec['spec_accepted_tokens_total']} "
+        f"verify_steps={spec['spec_verify_steps_total']} "
+        f"W>1 launches={spec['paged_attention.window_launches']}")
+    if streams["spec"] != streams["plain"]:
+        raise AssertionError("speculative greedy stream differs from the plain one")
+    if streams["plain"][0] != list(range(12, 36)):
+        raise AssertionError(f"tiny model stream {streams['plain'][0]} is not the counter run")
+    if spec["spec_accepted_tokens_total"] <= 0 or spec["paged_attention.window_launches"] <= 0:
+        raise AssertionError(f"no draft accepted or no verify launch: {spec}")
+    if spec["plain_calls"] or stats["plain"]["plain_calls"]:
+        raise AssertionError("plain attention ran on the card")
+    return {"accepted": spec["spec_accepted_tokens_total"],
+            "drafted": spec["spec_drafted_tokens_total"]}
+
+
+def phase_spec(torch, card: str) -> dict:
+    """Speculative decoding end to end on the card: the tiny model exactly,
+    then the Llama-3-8B geometry and the published DeepSeek-V2-Lite config
+    at full width and depth over HTTP, through the verify kernels."""
+    tiny = phase_spec_tiny(torch)
+    out = {"tiny": tiny}
+    for key, model, config, path in (
+        ("llama", "llama3-8b-spec", LLAMA3_8B, LLAMA_SPEC_PATH),
+        ("mla", "deepseek-v2-lite-spec", DEEPSEEK_V2_LITE, MLA_SPEC_PATH),
+    ):
+        gc.collect()  # the previous engine is shut down: free its memory first
+        torch.cuda.empty_cache()
+        res = phase_serve(card, "spec", model, config, path, overrides=SPEC,
+                          short_prompts=SPEC_PROMPTS, profile=False)
+        run = res["run"]
+        line = {"model": model, "card": card, **SPEC,
+                **{k: run[k] for k in ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
+                                       "spec_rejected_tokens_total", "spec_verify_steps_total")},
+                "launches": res["launched"]}
+        print(json.dumps({"smoke_spec": line}), flush=True)
+        if run["spec_verify_steps_total"] <= 0:
+            raise AssertionError(f"{model}: no verify step ran: {run}")
+        out[key] = res
+    return out
 
 
 def main() -> int:
@@ -808,7 +1018,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = mla = None
+    kinfo = serve = mla = spec = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -820,13 +1030,16 @@ def main() -> int:
         if "tiny" in phases:
             phase_tiny()
         if "serve" in phases:
-            serve = phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B,
-                                llama_counters())
+            serve = phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B, LLAMA_PATH)
         if "mla" in phases:
             gc.collect()  # the 8B engine is shut down: free its memory first
             torch.cuda.empty_cache()
             mla = phase_serve(card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
-                              mla_counters())
+                              MLA_PATH)
+        if "spec" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            spec = phase_spec(torch, card)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
         import traceback
 
@@ -834,27 +1047,33 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if kinfo is not None and serve is not None and mla is not None:
+    if kinfo is not None and serve is not None and mla is not None and spec is not None:
         cases = kinfo["cases"]
         entries = []
-        for name, src, repl, case, err, counts in (
+        for name, src, repl, case, err, launches in (
             ("ragged_paged_attention", "dynamo_tpu_torch/csrc/ragged_attention.cu",
              "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix", "ragged",
-             serve["counts"]),
+             serve["counts"]["ragged_attention.launches"]),
             ("paged_window_attention_decode", "dynamo_tpu_torch/csrc/paged_attention.cu",
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged",
-             serve["counts"]),
+             serve["counts"]["paged_attention.launches"]),
             ("ragged_mla_attention", "dynamo_tpu_torch/csrc/mla_attention.cu",
              "dynamo_tpu/ops/pallas/mla_attention.py:408", "mla_ragged_mix", "mla_ragged",
-             mla["counts"]),
+             mla["counts"]["mla_attention.ragged_launches"]),
             ("mla_paged_attention_decode", "dynamo_tpu_torch/csrc/mla_attention.cu",
              "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_b32", "mla_decode",
-             mla["counts"]),
+             mla["counts"]["mla_attention.decode_launches"]),
+            ("mla_paged_window_attention_decode", "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:182", "mla_window_b8", "mla_window",
+             spec["mla"]["counts"]["mla_attention.window_launches"]),
+            ("paged_window_attention_decode (W=5)", "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_w5_b8", "paged_w5",
+             spec["llama"]["counts"]["paged_attention.window_launches"]),
         ):
             c = cases[case]
             entries.append({
                 "name": name, "route": "cuda", "source": src, "replaces": repl,
-                "launches": counts[name], "max_abs_err": kinfo["errs"][err],
+                "launches": launches, "max_abs_err": kinfo["errs"][err],
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "case": case,

@@ -3,11 +3,13 @@
 ``dynamo-tpu-torch run in=http out=torch --model-path DIR [--device cpu]``
 serves a model over the OpenAI HTTP API from one process (counterpart of
 ``dynamo-tpu run in=http out=jax``).  The engine runs on the CUDA card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  ``--speculative ngram`` turns on
+prompt-lookup speculative decoding (``--spec-tokens``, ``--spec-ngram``);
+such an engine runs every prefill through the split prefill step.
 
 Example:
   python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
-      --model-path tests/data/tiny-chat-model --port 8080
+      --model-path tests/data/tiny-chat-model --port 8080 [--speculative ngram]
 """
 
 from __future__ import annotations
@@ -40,6 +42,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     run.add_argument("--context-length", type=int, default=None)
     run.add_argument("--seed", type=int, default=0,
                      help="seed of random-initialized weights and sampling")
+    run.add_argument("--speculative", choices=["ngram"], default=None,
+                     help="speculative decoding (ngram = prompt-lookup "
+                          "self-drafting with exact greedy verification)")
+    run.add_argument("--spec-tokens", type=int, default=4,
+                     help="draft tokens verified per step")
+    run.add_argument("--spec-ngram", type=int, default=2,
+                     help="lookup n-gram width for ngram drafting")
     args = parser.parse_args(argv)
 
     args.input, args.output = "http", "torch"
@@ -55,18 +64,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-async def _run(args) -> int:
-    configure_logging()
-    from dynamo_tpu_torch.serve import serve_http
-
+def engine_overrides(args: argparse.Namespace) -> dict:
+    """The EngineConfig fields the parsed flags set."""
     overrides = dict(
         num_blocks=args.num_blocks, max_batch_size=args.max_batch_size, seed=args.seed,
     )
     if args.context_length:
         overrides["max_model_len"] = args.context_length
+    if args.speculative:
+        overrides.update(speculative=args.speculative, spec_tokens=args.spec_tokens,
+                         spec_ngram=args.spec_ngram)
+    return overrides
+
+
+async def _run(args) -> int:
+    configure_logging()
+    from dynamo_tpu_torch.serve import serve_http
+
     handle = await serve_http(
         args.model_path, model_name=args.model_name, host=args.host,
-        port=args.port, device=args.device, **overrides,
+        port=args.port, device=args.device, **engine_overrides(args),
     )
     print(f"listening on http://{args.host}:{handle.service.port}/v1", file=sys.stderr, flush=True)
     stop = asyncio.Event()

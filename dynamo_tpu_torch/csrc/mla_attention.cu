@@ -1,8 +1,10 @@
 // MLA (multi-head latent attention, DeepSeek-V2/V3) over the paged latent
-// cache: the absorbed decode step and the ragged unified step.
+// cache: the absorbed decode step, the speculative verify window and the
+// ragged unified step.
 //
 // Replaces: dynamo_tpu/ops/pallas/mla_attention.py
-//   mla_paged_attention_decode (kernel _kernel) and
+//   mla_paged_attention_decode (kernel _kernel),
+//   mla_paged_window_attention_decode (kernel _window_kernel) and
 //   ragged_mla_attention (kernel _ragged_kernel).
 //
 // Computes: for each query row (a token and a head) the two-part scores
@@ -11,6 +13,9 @@
 //   out[row] = sum_key p * ck[key] (float32, width R): the latent ck is the
 //   key's first R columns and the value as well.
 //   Decode: sequence b sees positions pos < ctx_b through its block table.
+//   Window (verify): sequence b has W queries; query w sits at position
+//   ctx_b - W + w (ctx_b includes the window's last token) and sees the
+//   positions <= its own.  The W*H rows are w-major (row = w * H + h).
 //   Ragged: token i (lane token_lane[i], position token_pos[i]; -1 = pad)
 //   sees the positions <= its own of its own lane, walked through the page
 //   worklist of its token block (pack_page_meta over the latent tables).
@@ -43,6 +48,12 @@
 //   rows, idle lanes (ctx 0) and token blocks without pages write zeros.
 //   pages_per_step of the TPU kernels has no counterpart: the output does
 //   not depend on it.
+//   The window kernel is the decode kernel with W*H rows a sequence: a CTA
+//   owns `hg` consecutive w-major rows, each with its own position limit,
+//   so the grid is (B, W*H/hg).  Its known cost: the W*H/hg CTAs of one
+//   sequence each read that sequence's latent pages (the TPU kernel folds
+//   all W*H rows into one grid step and reads each page once); a CTA that
+//   held more rows would need the tensor cores to keep its products fast.
 
 #include <climits>
 
@@ -309,6 +320,33 @@ mla_decode_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
 
 template <typename T, int R, int P>
 __global__ void __launch_bounds__(MTHREADS, 2)
+mla_window_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
+                  const T* __restrict__ ck, const T* __restrict__ kr,
+                  const int* __restrict__ block_tables,
+                  const int* __restrict__ context_lens, float* __restrict__ out,
+                  int W, int H, int hg, int bs, int max_blocks, float scale) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int b = blockIdx.x, f0 = blockIdx.y * hg;  // first w-major row of this CTA
+  MlaSmem<T, R, P> s(smem_raw, hg);
+  // a window clamped at the engine's last position can reach past the
+  // table: its queries keep their own positions, the keys stop at the
+  // table's end (the TPU kernel's grid has max_blocks pages)
+  const int ctx_in = context_lens[b];
+  const int ctx = min(ctx_in, max_blocks * bs);
+  const size_t base = (size_t)b * W * H;  // q and out are [B, W, H, .]
+  for (int r = 0; r < hg; ++r)
+    stage_row(s, r, q_lat + (base + f0 + r) * R, q_rope + (base + f0 + r) * P);
+  for (int r = threadIdx.x; r < hg; r += MTHREADS) {
+    s.row_pos[r] = ctx_in - W + (f0 + r) / H;
+    s.row_lane[r] = 0;
+  }
+  TableKeys keys{block_tables + (size_t)b * max_blocks, bs};
+  mla_attend<T, R, P>(s, hg, ck, kr, keys, ctx, scale,
+                      [&](int r) { return out + (base + f0 + r) * R; });
+}
+
+template <typename T, int R, int P>
+__global__ void __launch_bounds__(MTHREADS, 2)
 mla_ragged_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
                   const T* __restrict__ ck, const T* __restrict__ kr,
                   const int* __restrict__ token_lane, const int* __restrict__ token_pos,
@@ -377,6 +415,21 @@ int launch_decode(const void* ql, const void* qr, const void* ck, const void* kr
 }
 
 template <typename T, int R, int P>
+int launch_window(const void* ql, const void* qr, const void* ck, const void* kr,
+                  const int* tables, const int* lens, float* out, int B, int W, int H,
+                  int bs, int max_blocks, float scale, cudaStream_t stream) {
+  const int hg = pick_group(H, 1, (long)B * W);
+  const size_t smem = MlaSmem<T, R, P>::bytes(hg);
+  auto kernel = mla_window_kernel<T, R, P>;
+  cudaError_t err = dyn::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(B, W * H / hg), MTHREADS, smem, stream>>>(
+      static_cast<const float*>(ql), static_cast<const T*>(qr), static_cast<const T*>(ck),
+      static_cast<const T*>(kr), tables, lens, out, W, H, hg, bs, max_blocks, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int R, int P>
 int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr,
                   const int* tl, const int* tp, const int* pp, const int* pl,
                   const int* po, const int* pc, float* out, int T_, int H, int bs,
@@ -424,6 +477,30 @@ extern "C" int dyn_mla_paged_decode(
     return by_geometry(R, P, DYN_DECODE(__nv_bfloat16, 512, 64),
                                       DYN_DECODE(__nv_bfloat16, 32, 8));
 #undef DYN_DECODE
+  return dyn::ERR_UNSUPPORTED;
+}
+
+// The verify window: W queries a sequence, q_lat / q_rope / out [B, W, H, .].
+// Same dtypes as dyn_mla_paged_decode.  Returns 0 or an error code.
+extern "C" int dyn_mla_paged_window_decode(
+    const void* q_lat, const void* q_rope, const void* ck_cache, const void* kr_cache,
+    const void* block_tables, const void* context_lens, void* out, int B, int W, int H,
+    int R, int P, int bs, int max_blocks, float scale, int dtype, void* stream) {
+  if (B == 0) return 0;
+  if (W <= 0 || H <= 0 || (long)W * H > 65535L) return dyn::ERR_UNSUPPORTED;  // grid y
+  const int* tables = static_cast<const int*>(block_tables);
+  const int* lens = static_cast<const int*>(context_lens);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DYN_WINDOW(T, R_, P_)                                                      \
+  [&] { return launch_window<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tables, \
+                                        lens, o, B, W, H, bs, max_blocks, scale, st); }
+  if (dtype == 0)
+    return by_geometry(R, P, DYN_WINDOW(float, 512, 64), DYN_WINDOW(float, 32, 8));
+  if (dtype == 1)
+    return by_geometry(R, P, DYN_WINDOW(__nv_bfloat16, 512, 64),
+                                      DYN_WINDOW(__nv_bfloat16, 32, 8));
+#undef DYN_WINDOW
   return dyn::ERR_UNSUPPORTED;
 }
 

@@ -53,7 +53,11 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int groups = H / KVH;
   const int rows = W * groups;
   dyn::Smem<D> s(smem_raw, rows);
-  const int ctx = min(context_lens[b], max_blocks * bs);
+  // a verify window clamped at the engine's last position can reach past
+  // the table: its queries keep their own positions, the keys stop at the
+  // table's end (the TPU kernel's grid has max_blocks pages)
+  const int ctx_in = context_lens[b];
+  const int ctx = min(ctx_in, max_blocks * bs);
 
   // row r = (window query w, head group g); q/out are [B, W, H, D]
   for (int i = threadIdx.x; i < rows * D; i += dyn::THREADS) {
@@ -62,14 +66,14 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     s.q[i] = dyn::to_f32(q[(((size_t)b * W + w) * H + head * groups + g) * D + d]);
   }
   for (int r = threadIdx.x; r < rows; r += dyn::THREADS) {
-    s.row_pos[r] = ctx - W + r / groups;
+    s.row_pos[r] = ctx_in - W + r / groups;
     s.row_lane[r] = 0;
   }
 
   int begin = 0;
   if (sliding_window > 0) {
     // lowest position any window query can see, rounded down to its page
-    const int lowest = max(0, ctx - W - (sliding_window - 1));
+    const int lowest = min(max(0, ctx_in - W - (sliding_window - 1)), ctx);
     begin = (lowest / bs) * bs;
   }
   TableKeys<T> keys{k_cache, v_cache, block_tables + (size_t)b * max_blocks,

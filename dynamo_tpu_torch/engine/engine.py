@@ -7,14 +7,25 @@ Architecture, as in the reference:
 - requests enter through the streaming-engine interface
   (``generate(Context[dict]) -> ResponseStream[dict]`` speaking
   PreprocessedRequest / Annotated[LLMEngineOutput] wire dicts);
-- each scheduler iteration that carries prefill work runs the ragged
-  unified step (mixed prefill spans + decode tokens, one forward through
-  the family's ragged attention kernel); a decode-only iteration runs the
-  exact-lane decode step (the family's paged decode kernel).  Both end in
-  the same sampling tail.
+- with the unified step on (the default), each scheduler iteration that
+  carries prefill work runs the ragged unified step (mixed prefill spans +
+  decode tokens, one forward through the family's ragged attention
+  kernel); any other iteration runs the split step: one prefill forward a
+  sequence (whole prompt, or a chunk over its resident prefix, with plain
+  dense attention), then one decode dispatch for the running lanes (the
+  family's paged decode kernel).  A window the unified step cannot serve
+  falls back to the split step under a reason slug (``unified_fallbacks``
+  in ``stats()``);
+- speculative decoding (``speculative="ngram"``, prompt-lookup drafts,
+  exact greedy verification) turns the unified step off, as the reference
+  does: every prefill then runs the split step, and a decode iteration in
+  which enough lanes drafted runs the verify step, one forward over a
+  window of spec_tokens + 1 positions a lane through the family's window
+  attention kernel.
+All steps end in the same sampling tail.
 
 This slice runs decode synchronously.  Overlapped and fused multi-step
-decode, the split prefill path, speculative and guided decoding, KV
+decode, guided decoding, multimodal prompts, disaggregated prefill, KV
 offload and prefetch, quantization and multi-device meshes are later
 slices; the engine refuses configurations that would need them.
 
@@ -75,6 +86,14 @@ def _round_chunk_tokens(chunk_tokens: int, block_size: int) -> int:
 # keep the strongest biases, as the reference's default compile width does
 LOGIT_BIAS_K = 64
 
+# least fraction of running lanes with a draft for the verify step to run;
+# below it the plain decode step serves the iteration.  Decode is
+# weight-bandwidth-bound: one verify forward streams the weights once, so a
+# non-drafting lane riding in it pays only the w-wide logits and sampling;
+# the gate bounds that tax, so one self-drafting request cannot load a whole
+# mixed batch with it
+SPEC_MIN_FRACTION = 0.25
+
 
 @dataclass
 class EngineConfig:
@@ -94,11 +113,25 @@ class EngineConfig:
     # "plain" is refused on a CUDA device.
     attention_impl: str = "auto"
     # prompts longer than this prefill in chunks of this many tokens
-    # (rounded up to a block multiple).  None = the largest prefill bucket
-    # (rounded down to a block multiple): the unified step then never
-    # overflows its largest bucket, the case where the reference falls back
-    # to its split prefill path.
+    # (rounded up to a block multiple).  None with the unified step on = the
+    # largest prefill bucket (rounded down to a block multiple): the unified
+    # step then never overflows its largest bucket, the case where the
+    # reference falls back to its split prefill path.  None with the unified
+    # step off = whole-prompt prefill, as in the reference.
     prefill_chunk_tokens: int | None = None
+    # Ragged unified-batch step for iterations that carry prefill work.
+    # Speculative engines turn it off (their decode lanes keep the verify
+    # route); the split step is then the prefill path.
+    unified_batch: bool = True
+    # Speculative decoding: "ngram" = prompt-lookup self-drafting (the last
+    # spec_ngram tokens are matched against the sequence's history and the
+    # continuation proposed); one verify forward scores spec_tokens + 1
+    # positions a lane.  Exact: a lane emits beyond one token only while
+    # drafts match what greedy decode would produce (sampled and penalized
+    # lanes take one token a step).
+    speculative: str | None = None
+    spec_tokens: int = 4
+    spec_ngram: int = 2
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
@@ -163,18 +196,55 @@ class TorchLlmEngine:
         self._host_rng = np.random.Generator(np.random.PCG64(config.seed))
         self._lane_keys = np.zeros((lanes, 2), np.uint32)
 
-        self.chunk_tokens = _round_chunk_tokens(
-            config.prefill_chunk_tokens, config.block_size
-        ) if config.prefill_chunk_tokens is not None else max(
-            config.block_size,
-            (self.buckets[-1] // config.block_size) * config.block_size,
-        )
-        if self.chunk_tokens < self.max_len:
-            # chunks and the steady-state mixed window (a full chunk plus
-            # one decode token per lane) get buckets of their own
+        self.spec_enabled = bool(config.speculative)
+        if self.spec_enabled:
+            if config.speculative != "ngram":
+                raise ValueError(
+                    f"unknown speculative mode {config.speculative!r} (want 'ngram')"
+                )
+            if self.family.forward_verify is None:
+                raise ValueError(
+                    f"model family {config.model_family!r} has no verification "
+                    "forward (speculative decoding unsupported)"
+                )
+            if config.spec_tokens < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            if config.spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
+            if impl == "kernel" and self.family.check_verify_width is not None:
+                self.family.check_verify_width(cfg, config.spec_tokens + 1)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._verify_steps = 0
+
+        # unified-batch fallbacks: reason slug -> count (stats()), each
+        # reason logged once per engine
+        self._unified_fallbacks: dict[str, int] = {}
+        self._unified_fallback_logged: set[str] = set()
+        unified = config.unified_batch
+        if unified and self.spec_enabled:
+            self._unified_skip("speculative", "speculative lanes keep their verify route")
+            unified = False
+        self.unified_batch = unified
+
+        if config.prefill_chunk_tokens is not None:
+            self.chunk_tokens = _round_chunk_tokens(
+                config.prefill_chunk_tokens, config.block_size
+            )
+        elif unified:
+            self.chunk_tokens = max(
+                config.block_size,
+                (self.buckets[-1] // config.block_size) * config.block_size,
+            )
+        else:
+            self.chunk_tokens = None  # the split step prefills whole prompts
+        if self.chunk_tokens is not None and self.chunk_tokens < self.max_len:
+            # chunks get a bucket of their own, and so does the unified
+            # step's steady-state mixed window (a full chunk plus one decode
+            # token per lane)
             self.buckets = sorted(set(self.buckets) | {self.chunk_tokens})
             mixed = -(-(self.chunk_tokens + lanes) // 8) * 8
-            if mixed < self.max_len:
+            if unified and mixed < self.max_len:
                 self.buckets = sorted(set(self.buckets) | {mixed})
         # ragged kernel geometry: the flat token axis pads to whole blocks of
         # tb tokens.  The page worklist takes the tightest width that fits
@@ -196,7 +266,7 @@ class TorchLlmEngine:
             self.allocator, max_batch_size=lanes,
             prefill_chunk_tokens=self.chunk_tokens,
             bucket_cost=self._bucket_len,
-            unified_batch=True,
+            unified_batch=self.unified_batch,
         )
         self._iterations = 0
         # per-lane block-table host rows, rewritten only for lanes whose
@@ -302,8 +372,16 @@ class TorchLlmEngine:
             "iterations_total": self._iterations,
             "prefix_hits_total": self.allocator.prefix_hits_total,
             "prefix_cached_tokens_total": self.allocator.prefix_cached_tokens_total,
+            "spec_drafted_tokens_total": self._spec_drafted,
+            "spec_accepted_tokens_total": self._spec_accepted,
+            # drafted positions whose compute bought nothing a client received
+            "spec_rejected_tokens_total": max(0, self._spec_drafted - self._spec_accepted),
+            "spec_verify_steps_total": self._verify_steps,
             "decode_windows_sync_total": self._sync_windows,
             "decode_windows_unified_total": self._unified_windows,
+            # reason slug -> windows (or the engine init) that fell back
+            # from the unified step to the split step
+            "unified_fallbacks": dict(self._unified_fallbacks),
             "decode_steps_total": self._decode_steps_total,
             "num_preemptions_total": self.scheduler.preemptions_total,
             "tokens_emitted_total": self._tokens_emitted,
@@ -329,32 +407,53 @@ class TorchLlmEngine:
                     self._wake.clear()
                     continue
                 decision = self.scheduler.schedule()
-                if not self._maybe_run_unified(decision):
-                    self._run_decode_step()
+                if not (self.unified_batch and self._maybe_run_unified(decision)):
+                    self._run_split_step(decision)
                 self._iterations += 1
             except Exception:  # noqa: BLE001 — scheduler-level bug: keep the
                 # thread alive (callers would hang forever), don't hot-spin
                 logger.exception("engine step failed")
                 time.sleep(0.1)
 
-    def _run_decode_step(self) -> None:
-        """Decode-only iteration: one exact-lane decode dispatch."""
+    def _run_split_step(self, decision) -> None:
+        """The split step: one prefill forward for each sequence the
+        scheduler planned, then one decode dispatch for the running lanes
+        (verify, where enough lanes drafted).  A failed prefill fails its
+        own sequence only."""
+        for seq in decision.prefills:
+            if seq.status == SeqStatus.FINISHED:
+                continue  # failed or aborted before this step got to it
+            try:
+                self._run_prefill(seq)
+            except Exception as exc:  # noqa: BLE001
+                logger.exception("prefill failed for %s", seq.seq_id)
+                self._fail_sequence(seq, exc)
         decodes = [s for s in self.scheduler.running if s.status == SeqStatus.RUNNING]
         if not decodes:
             return
         try:
-            self._run_plain_decode(decodes)
+            self._run_decode(decodes)
         except Exception as exc:  # noqa: BLE001
             logger.exception("decode step failed")
             for seq in decodes:
                 if seq.status == SeqStatus.RUNNING:
                     self._fail_sequence(seq, exc)
 
+    def _unified_skip(self, reason: str, detail: str | None = None) -> None:
+        """Count a fallback from the unified step under a reason slug, and
+        log each reason once per engine."""
+        self._unified_fallbacks[reason] = self._unified_fallbacks.get(reason, 0) + 1
+        if reason not in self._unified_fallback_logged:
+            self._unified_fallback_logged.add(reason)
+            logger.info("unified batch fallback [%s]: %s", reason,
+                        detail or "window served by the split step")
+
     # -- ragged unified-batch step ----------------------------------------
     def _maybe_run_unified(self, decision) -> bool:
         """Serve this iteration as ONE ragged dispatch mixing prefill spans
-        and decode tokens.  Returns False for a decode-only iteration, which
-        the exact-lane decode step serves."""
+        and decode tokens.  Returns False when the split step must serve it:
+        a decode-only iteration (the exact-lane decode step, a designed
+        route) or a window the unified step cannot take (counted)."""
         prefills = list(decision.prefills)
         decodes = [
             s for s in self.scheduler.running
@@ -366,10 +465,9 @@ class TorchLlmEngine:
             start = max(seq.prefilled_tokens, seq.cached_tokens)
             end = min(seq.chunk_target, n) if seq.chunk_target else n
             if end <= start:
-                raise NotImplementedError(
-                    "degenerate prefill window: the reference serves it on its "
-                    "split prefill path, a later slice of the port"
-                )
+                # a degenerate window: the split step owns it
+                self._unified_skip("degenerate_span")
+                return False
             spans.append((seq, start, end))
         if not spans:
             # decode-only iterations keep the exact-lane decode program (a
@@ -526,13 +624,15 @@ class TorchLlmEngine:
         lanes = self.config.max_batch_size
         temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
             torch.from_numpy(a).to(self.device)
-            for a in self._sampling_arrays(seqs, lanes)
+            for a in self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
         )
         plogits = apply_penalties(
             logits, self._gen_counts, self._prompt_counts, pres, freq, rep
         )
         plogits = apply_logit_bias(plogits, bias_ids, bias_vals)
-        noise = self._step_noise(seqs, context_lens_host, plogits.shape[-1])
+        noise = self._step_noise(
+            seqs, [s.lane for s in seqs], lanes, context_lens_host, plogits.shape[-1]
+        )
         tokens = sample_tokens(plogits, noise, temp, top_k, top_p, greedy)
         lps = token_logprobs(plogits, tokens)
         top = None
@@ -542,24 +642,25 @@ class TorchLlmEngine:
         self._gen_counts[self._lane_idx, tokens.long()] += gate
         return tokens, lps, top
 
-    def _step_noise(self, seqs, context_lens_host, vocab: int) -> torch.Tensor:
-        """[lanes, vocab] Gumbel noise: each sampled lane's key folded with
-        its context length this step, as the reference folds it
-        (``jax.random.fold_in(key, context_len)``), drawn with the port's
-        threefry stream — so a seeded request draws the same noise at the
-        same position whatever batch it rides in, and the reference's.
-        Greedy lanes draw nothing (their rows stay zero, unread)."""
-        noise = torch.zeros((self.config.max_batch_size, vocab), dtype=torch.float32,
-                            device=self.device)
+    def _step_noise(self, seqs, rows: list[int], n_rows: int, fold_lens,
+                    vocab: int) -> torch.Tensor:
+        """[n_rows, vocab] Gumbel noise: sequence i's row ``rows[i]`` holds
+        its lane key folded with ``fold_lens[rows[i]]`` (the context length
+        the reference folds with, ``jax.random.fold_in(key, context_len)``),
+        drawn with the port's threefry stream — so a seeded request draws
+        the same noise at the same position whatever batch or step it rides
+        in, and the reference's.  Greedy lanes draw nothing (zero rows)."""
+        noise = torch.zeros((n_rows, vocab), dtype=torch.float32, device=self.device)
         sampled = [
-            s.lane for s in seqs
+            (row, s) for row, s in zip(rows, seqs)
             if not (s.request.sampling.use_greedy or s.request.sampling.temperature is None
                     or s.request.sampling.temperature <= 1e-5)
         ]
         if sampled:
-            keys = torch.from_numpy(self._lane_keys[sampled].astype(np.int64))
-            ctx = torch.from_numpy(context_lens_host[sampled].astype(np.int64))
-            noise[sampled] = gumbel(fold_in(keys, ctx).to(self.device), vocab)
+            row_ids = [row for row, _ in sampled]
+            keys = torch.from_numpy(self._lane_keys[[s.lane for _, s in sampled]].astype(np.int64))
+            folds = torch.from_numpy(np.asarray(fold_lens)[row_ids].astype(np.int64))
+            noise[row_ids] = gumbel(fold_in(keys, folds).to(self.device), vocab)
         return noise
 
     def _emit(self, seqs, tokens, lps, top) -> None:
@@ -605,31 +706,31 @@ class TorchLlmEngine:
                 return b
         return self.buckets[-1]
 
-    def _sampling_arrays(self, seqs: list[Sequence], lanes: int):
+    def _sampling_arrays(self, seqs: list[Sequence], rows: list[int], n_rows: int):
+        """[n_rows]-wide sampling parameters; sequence i fills row ``rows[i]``."""
         vocab = self.config.model.vocab_size
         kb = LOGIT_BIAS_K
-        temp = np.zeros((lanes,), np.float32)
-        top_k = np.zeros((lanes,), np.int32)
-        top_p = np.ones((lanes,), np.float32)
-        greedy = np.ones((lanes,), bool)
-        pres = np.zeros((lanes,), np.float32)
-        freq = np.zeros((lanes,), np.float32)
-        rep = np.ones((lanes,), np.float32)
+        temp = np.zeros((n_rows,), np.float32)
+        top_k = np.zeros((n_rows,), np.int32)
+        top_p = np.ones((n_rows,), np.float32)
+        greedy = np.ones((n_rows,), bool)
+        pres = np.zeros((n_rows,), np.float32)
+        freq = np.zeros((n_rows,), np.float32)
+        rep = np.ones((n_rows,), np.float32)
         # OpenAI logit_bias: fixed-width sparse rows, pad id = vocab (dropped)
-        bias_ids = np.full((lanes, kb), vocab, np.int32)
-        bias_vals = np.zeros((lanes, kb), np.float32)
-        for seq in seqs:
+        bias_ids = np.full((n_rows, kb), vocab, np.int32)
+        bias_vals = np.zeros((n_rows, kb), np.float32)
+        for row, seq in zip(rows, seqs):
             s = seq.request.sampling
-            lane = seq.lane
-            temp[lane] = s.temperature if s.temperature is not None else 0.0
-            top_k[lane] = s.top_k or 0
-            top_p[lane] = s.top_p if s.top_p is not None else 1.0
-            greedy[lane] = bool(
+            temp[row] = s.temperature if s.temperature is not None else 0.0
+            top_k[row] = s.top_k or 0
+            top_p[row] = s.top_p if s.top_p is not None else 1.0
+            greedy[row] = bool(
                 s.use_greedy or s.temperature is None or s.temperature <= 0.0
             )
-            pres[lane] = s.presence_penalty or 0.0
-            freq[lane] = s.frequency_penalty or 0.0
-            rep[lane] = s.repetition_penalty if s.repetition_penalty else 1.0
+            pres[row] = s.presence_penalty or 0.0
+            freq[row] = s.frequency_penalty or 0.0
+            rep[row] = s.repetition_penalty if s.repetition_penalty else 1.0
             if s.logit_bias:
                 # drop out-of-vocab ids BEFORE truncating so they cannot
                 # displace valid biases; over-wide requests keep the
@@ -643,8 +744,8 @@ class TorchLlmEngine:
                     key=lambda e: -abs(e[1]),
                 )[:kb]
                 for j, (tok, val) in enumerate(entries):
-                    bias_ids[lane, j] = tok
-                    bias_vals[lane, j] = val
+                    bias_ids[row, j] = tok
+                    bias_vals[row, j] = val
         return temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals
 
     def _count_row(self, token_ids: list[int]) -> np.ndarray:
@@ -733,6 +834,289 @@ class TorchLlmEngine:
         self._sync_windows += 1
         self._decode_steps_total += 1
         self._emit(active, tokens, lps, top)
+
+    # -- split prefill -------------------------------------------------------
+    def _run_prefill(self, seq: Sequence) -> None:
+        """One prefill forward for ``seq``: the whole prompt, or the window
+        the scheduler planned over the already-written prefix (cached blocks
+        and/or completed chunks), then the first token's sample when the
+        window reaches the prompt's end."""
+        if seq.mm_embeds is not None:
+            raise NotImplementedError(
+                "multimodal prefill comes with a later slice of the port "
+                "(ROADMAP Queue 1 item 7)"
+            )
+        if seq.prefill_only:
+            raise NotImplementedError(
+                "disaggregated prefill comes with a later slice of the port "
+                "(ROADMAP Queue 1 item 8)"
+            )
+        restore = self.allocator.take_restore_plan(seq.seq_id)
+        if restore:
+            self.allocator.put_back_restore_plan(seq.seq_id, restore)
+            raise NotImplementedError(
+                "restoring offloaded prefix blocks comes with the offload slice "
+                "of the port (ROADMAP Queue 1 item 7)"
+            )
+        cfg = self.config.model
+        bs = self.config.block_size
+        dev = self.device
+        tokens = seq.all_token_ids
+        n = len(tokens)
+        blocks = self.allocator.block_ids(seq.seq_id)
+        self._seed_lane_key(seq)
+        seq.sampling_seeded = True
+        lane = seq.lane
+        # nonzero only on preemption recompute (the tokens include generated)
+        gen_row = self._count_row(seq.output_ids)
+        start = max(seq.prefilled_tokens, seq.cached_tokens)
+        end = min(seq.chunk_target, n) if (
+            self.chunk_tokens is not None and seq.chunk_target
+        ) else n
+        final = end >= n
+        if start > 0 or not final:
+            # continued prefill over the resident prefix (none at start 0:
+            # an intermediate first chunk still needs its sample gate)
+            tail = tokens[start:end]
+            padded = np.zeros((self._bucket_len(len(tail)),), np.int32)
+            padded[: len(tail)] = tail
+            table_len = self.allocator.blocks_needed(self._bucket_len(min(n + 1, self.max_len)))
+            full_ids = np.zeros((table_len,), np.int32)
+            full_ids[: len(blocks)] = blocks
+            tail_ids = np.zeros((table_len,), np.int32)
+            tail_ids[: len(blocks) - start // bs] = blocks[start // bs:]
+            logits, _ = self.family.forward_prefill_with_prefix(
+                self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
+                torch.from_numpy(full_ids).to(dev), torch.from_numpy(tail_ids).to(dev),
+                len(tail), start, self.cos, self.sin,
+            )
+            prompt_row = self._count_row(seq.request.token_ids)
+            fold = n
+        else:
+            padded = np.zeros((self._bucket_len(end),), np.int32)
+            padded[:end] = tokens[:end]
+            block_ids = np.zeros((self.max_blocks_per_seq,), np.int32)
+            block_ids[: len(blocks)] = blocks
+            logits, _ = self.family.forward_prefill(
+                self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
+                torch.from_numpy(block_ids).to(dev), end, 0, self.cos, self.sin,
+            )
+            # the reference counts the prompt's in-vocabulary ids (the
+            # tokens include the generated ones on a recompute)
+            ids = np.asarray(tokens[:end], np.int64)
+            ids = ids[(ids >= 0) & (ids < cfg.vocab_size)]
+            prompt_row = np.bincount(ids, minlength=cfg.vocab_size).astype(np.int32) - gen_row
+            fold = end
+        token, lp, top = self._prefill_sample(
+            logits, seq, lane, prompt_row, gen_row, fold, 1 if final else 0
+        )
+        seq.prefilled_tokens = end
+        if not final:
+            # an intermediate chunk: K/V written, its sample discarded
+            self.allocator.publish_stored(seq.seq_id, tokens[:end])
+            return
+        if seq.status == SeqStatus.PREFILLING:
+            seq.status = SeqStatus.RUNNING
+        self.allocator.publish_stored(seq.seq_id, tokens)
+        self._process_token(seq, token, lp, top=top)
+
+    def _prefill_sample(self, logits, seq, lane, prompt_row, gen_row, fold, gate):
+        """The split prefill's sampling tail (one row): reseed the lane's
+        penalty counts, penalties, logit bias, the sample with the lane's
+        key folded with ``fold``, and ``gate`` added to the generated count
+        of the sampled token (0 for an intermediate chunk)."""
+        dev = self.device
+        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
+            torch.from_numpy(a).to(dev) for a in self._sampling_arrays([seq], [0], 1)
+        )
+        prompt_t = torch.from_numpy(prompt_row).to(dev)
+        gen_t = torch.from_numpy(gen_row).to(dev)
+        self._prompt_counts[lane] = prompt_t
+        self._gen_counts[lane] = gen_t
+        plogits = apply_penalties(logits[None], gen_t[None], prompt_t[None], pres, freq, rep)
+        plogits = apply_logit_bias(plogits, bias_ids, bias_vals)
+        noise = self._step_noise([seq], [0], 1, [fold], plogits.shape[-1])
+        tokens = sample_tokens(plogits, noise, temp, top_k, top_p, greedy)
+        lps = token_logprobs(plogits, tokens)
+        top = None
+        want = seq.request.sampling.top_logprobs
+        if want > 0:
+            vals, ids = topk_logprobs(plogits, min(want, plogits.shape[-1]))
+            top = (vals[0].cpu().numpy(), ids[0].cpu().numpy())
+        self._gen_counts[lane, tokens.long()] += gate
+        return int(tokens[0]), float(lps[0]), top
+
+    # -- decode: plain or speculative verify ---------------------------------
+    def _run_decode(self, seqs: list[Sequence]) -> None:
+        if self.spec_enabled:
+            # draft first: the w-wide verify step only earns its keep when
+            # enough lanes drafted (a non-drafting lane pays w positions'
+            # logits for one token)
+            running = [s for s in seqs if s.status == SeqStatus.RUNNING]
+            drafts = {
+                seq.seq_id: self._ngram_draft(seq.all_token_ids)
+                for seq in running if self._spec_ok(seq)
+            }
+            n_drafting = sum(1 for d in drafts.values() if d)
+            if n_drafting and n_drafting >= len(running) * SPEC_MIN_FRACTION:
+                return self._run_verify_decode(seqs, drafts)
+        return self._run_plain_decode(seqs)
+
+    def _ngram_draft(self, tokens: list[int]) -> list[int]:
+        """Prompt-lookup drafting: find the most recent earlier occurrence
+        of the sequence's final ``spec_ngram`` tokens and propose the
+        continuation that followed it (up to ``spec_tokens``)."""
+        g = self.config.spec_ngram
+        k = self.config.spec_tokens
+        if len(tokens) < g + 1:
+            return []
+        # a bounded host scan: matches far behind the tail rarely help
+        arr = np.asarray(tokens[-4096:], np.int64)
+        tail = arr[-g:]
+        # windows of width g ending strictly before the final position
+        windows = np.lib.stride_tricks.sliding_window_view(arr[:-1], g)
+        matches = np.flatnonzero((windows == tail).all(axis=1))
+        if len(matches) == 0:
+            return []
+        j = int(matches[-1])  # the most recent prior occurrence
+        return arr[j + g: j + g + k].tolist()
+
+    def _spec_ok(self, seq: Sequence) -> bool:
+        """Greedy verification is exact only for greedy, penalty-free
+        sampling (logit_bias is static per lane and stays exact)."""
+        s = seq.request.sampling
+        greedy = bool(s.use_greedy or s.temperature is None or s.temperature <= 0.0)
+        return (
+            greedy
+            and not s.presence_penalty
+            and not s.frequency_penalty
+            and (not s.repetition_penalty or s.repetition_penalty == 1.0)
+        )
+
+    def _run_verify_decode(self, seqs: list[Sequence], drafts: dict) -> None:
+        """Speculative decode step: one forward over each lane's window (its
+        last token, then its draft, padded to w = spec_tokens + 1), and the
+        accepted prefix emitted."""
+        lanes = self.config.max_batch_size
+        w = self.config.spec_tokens + 1
+        bs = self.config.block_size
+        oob = self.config.num_blocks * bs
+        candidates: list[Sequence] = []
+        for seq in list(seqs):
+            if seq.status != SeqStatus.RUNNING:
+                continue
+            # cover the whole window; rejected positions are rewritten later
+            if self.scheduler.ensure_slots(seq, w, max_pos=self.max_len - 1) is None:
+                self.scheduler.preempt(seq)
+                continue
+            candidates.append(seq)
+        active = [s for s in candidates if s.status == SeqStatus.RUNNING]
+        if not active:
+            return
+        token_mat = np.zeros((lanes, w), np.int32)
+        slot_mat = np.full((lanes, w), oob, np.int32)
+        context_lens = np.zeros((lanes,), np.int32)
+        base_lens = np.zeros((lanes,), np.int32)
+        spec_ok = np.zeros((lanes,), bool)
+        for seq in active:
+            lane = seq.lane
+            draft = drafts.get(seq.seq_id) or []
+            spec_ok[lane] = bool(draft)
+            row = [seq.all_token_ids[-1]] + draft
+            token_mat[lane] = (row + [row[-1]] * w)[:w]  # pads are never accepted unless equal
+            blocks = self.allocator.block_ids(seq.seq_id)
+            ctx = seq.context_len
+            context_lens[lane] = ctx + w - 1
+            # the key fold of a plain decode step at this context: a
+            # sampled lane draws the same noise here as there
+            base_lens[lane] = ctx
+            for j in range(w):
+                # positions past the engine's last clamp to it (the write
+                # keeps the last of them); the lane finishes there
+                pos = min(ctx - 1 + j, self.max_len - 1)
+                slot_mat[lane, j] = blocks[pos // bs] * bs + pos % bs
+        tables = self._decode_tables(active)
+        dev = self.device
+        token_dev = torch.from_numpy(token_mat).to(dev)
+        context_dev = torch.from_numpy(context_lens).to(dev)
+        logits, _ = self.family.forward_verify(
+            self.params, self.config.model, token_dev, self.cache, tables, context_dev,
+            torch.from_numpy(slot_mat).to(dev), self.cos, self.sin,
+        )  # [lanes, w, vocab]
+        tokens, n_accept, lps, top = self._verify_sample(
+            logits, active, token_dev, context_dev, torch.from_numpy(spec_ok).to(dev),
+            base_lens,
+        )
+        tokens_h = tokens.cpu().numpy()
+        n_h = n_accept.cpu().numpy()
+        lps_h = lps.cpu().numpy()
+        tkv_h = tki_h = None
+        if top is not None:
+            tkv_h, tki_h = (x.cpu().numpy() for x in top)
+        # attempted = the whole window of every drafting lane (pads can
+        # accept too), so accepted <= drafted
+        self._spec_drafted += int(spec_ok.sum()) * (w - 1)
+        self._verify_steps += 1
+        for seq in active:
+            lane = seq.lane
+            n = int(n_h[lane])
+            self._spec_accepted += max(0, n - 1)
+            for i in range(n):
+                if seq.status != SeqStatus.RUNNING:
+                    break
+                self._process_token(
+                    seq, int(tokens_h[lane, i]), float(lps_h[lane, i]),
+                    top=(tkv_h[lane, i], tki_h[lane, i]) if top is not None else None,
+                )
+
+    def _verify_sample(self, logits, seqs, token_mat, context_lens, spec_ok, base_lens):
+        """The verify step's sampling tail: window position 0 through the
+        full sampling machinery (the lane's key folded with its plain-decode
+        context), later positions greedy after penalties and bias; the
+        leading-match acceptance count per lane; the accepted tokens added
+        to the generated counts.  Returns (tokens [lanes, w], n_accept
+        [lanes], logprobs [lanes, w], top (vals, ids) [lanes, w, k] or
+        None)."""
+        lanes, w, vocab = logits.shape
+        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
+            torch.from_numpy(a).to(self.device)
+            for a in self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
+        )
+        noise = self._step_noise(seqs, [s.lane for s in seqs], lanes, base_lens, vocab)
+        want = max((s.request.sampling.top_logprobs for s in seqs), default=0)
+        outs, lps, tops = [], [], []
+        for i in range(w):
+            li = apply_penalties(
+                logits[:, i], self._gen_counts, self._prompt_counts, pres, freq, rep
+            )
+            li = apply_logit_bias(li, bias_ids, bias_vals)
+            if i == 0:
+                ti = sample_tokens(li, noise, temp, top_k, top_p, greedy)
+            else:
+                ti = torch.argmax(li, dim=-1).to(torch.int32)
+            outs.append(ti)
+            lps.append(token_logprobs(li, ti))
+            if want > 0:
+                tops.append(topk_logprobs(li, min(want, vocab)))
+        tokens = torch.stack(outs, dim=1)
+        # leading-match acceptance: window token i is kept iff every earlier
+        # draft matched and it equals the model's output at position i - 1
+        active = context_lens > 0
+        acc = spec_ok & active
+        n_accept = active.to(torch.int32)
+        for i in range(1, w):
+            acc = acc & (token_mat[:, i] == tokens[:, i - 1])
+            n_accept = n_accept + acc.to(torch.int32)
+        # generated counts of the accepted tokens only (a row may repeat an id)
+        take = (torch.arange(w, device=self.device)[None, :] < n_accept[:, None]) & active[:, None]
+        self._gen_counts.index_put_(
+            (self._lane_idx[:, None].expand(lanes, w), tokens.long()),
+            take.to(torch.int32), accumulate=True,
+        )
+        top = None
+        if tops:
+            top = (torch.stack([v for v, _ in tops], dim=1), torch.stack([k for _, k in tops], dim=1))
+        return tokens, n_accept, torch.stack(lps, dim=1), top
 
     def _process_token(
         self, seq: Sequence, token: int, logprob: float | None = None, top=None,

@@ -10,17 +10,20 @@ The KV cache stores only the compressed latent per token, in the engine's
 Attention runs in latent space ("absorbed" form): q_nope folds through the
 K up-projection once per step, scores are taken against the latent cache
 directly, and the float32 context is decompressed through the V
-up-projection afterwards.  Both the unified ragged step and the decode step
-go through the MLA kernel wrappers in ``ops.kernels``: on a CUDA tensor they
-launch the hand-written kernels, on a CPU tensor they take the plain
-versions in ``ops.attention``.  The trunk is ``first_k_dense`` dense layers
+up-projection afterwards.  The unified ragged step, the decode step and the
+speculative verify window go through the MLA kernel wrappers in
+``ops.kernels``: on a CUDA tensor they launch the hand-written kernels, on a
+CPU tensor they take the plain versions in ``ops.attention``.  The split
+prefill forwards decompress the chunk's own keys and values and attend
+densely in float32 (prefill is compute-bound), reading a resident prefix in
+latent space, as the reference does outside any Pallas kernel.  The verify
+window runs position-major (index = position * lanes + lane), the
+reference's order, which gives position-0 tokens expert-capacity priority
+in the MoE layers.  The trunk is ``first_k_dense`` dense layers
 then MoE layers (routed experts times ``routed_scaling_factor``, plus shared
 experts).  Parameters are a plain dict with the reference's names and
 layouts (``dense_layers`` and ``moe_layers`` stacks, projections [in, out]);
 the cache is updated in place.
-
-Not ported yet: the split-prefill forwards and the speculative-verify
-forward (``_mla_window_attn``, whose kernel is the MLA window kernel).
 """
 
 from __future__ import annotations
@@ -34,11 +37,22 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.ops.attention import live_slots, write_decode_kv
-from dynamo_tpu_torch.ops.kernels import mla_paged_attention_decode, ragged_mla_attention
+from dynamo_tpu_torch.ops.attention import (
+    NEG_INF,
+    last_writer_slots,
+    live_slots,
+    position_major_to_batch,
+    write_decode_kv,
+    write_prefill_kv,
+)
+from dynamo_tpu_torch.ops.kernels import (
+    mla_paged_attention_decode,
+    mla_paged_window_attention_decode,
+    ragged_mla_attention,
+)
 from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
-from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, yarn_mscale
+from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions, yarn_mscale
 
 
 @dataclass(frozen=True)
@@ -335,6 +349,115 @@ def _mla_unified_attn(w, x, cfg: DeepseekConfig, positions, token_pos, token_lan
     return _decompress(w, ctx, cfg)
 
 
+def _split_q(w, x, cfg: DeepseekConfig, positions, cos, sin):
+    """(q_nope, roped q_rope) of tokens [t] at ``positions``."""
+    q = _project_q(w, x, cfg)
+    q_nope, q_rope = q[..., : cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cos, sin)
+
+
+def _chunk_scores(w, cfg: DeepseekConfig, q_nope, q_rope, c_kv, k_rope, valid_len):
+    """Dense causal scores [H, s, s] of a prefill chunk against its own
+    decompressed keys (float32, masked past ``valid_len``), and the chunk's
+    decompressed values [s, H, v]."""
+    s = q_nope.shape[0]
+    H = cfg.num_heads
+    w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
+    w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
+    k_nope = torch.einsum("tr,rhn->thn", c_kv, w_uk)     # model dtype, as the reference
+    v = torch.einsum("tr,rhv->thv", c_kv, w_uv)
+    logits = (
+        torch.einsum("qhn,khn->hqk", q_nope.float(), k_nope.float())
+        + torch.einsum("qhp,kp->hqk", q_rope.float(), k_rope.float())
+    ) * cfg.attn_scale
+    pos = torch.arange(s, device=q_nope.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < int(valid_len))
+    return logits.masked_fill_(~mask[None], NEG_INF), v
+
+
+def _mla_prefill_attn(w, x, cfg: DeepseekConfig, positions, seq_len, k_layer, v_layer,
+                      block_ids, cos, sin):
+    """Dense causal MLA attention of one prefill chunk: its latents go to
+    the paged cache, its keys and values are decompressed for the dense
+    in-chunk attention.  Returns the attention output [s, hidden]."""
+    s = x.shape[0]
+    q_nope, q_rope = _split_q(w, x, cfg, positions, cos, sin)
+    c_kv, k_rope = _latent_kv(w, x, cfg)
+    k_rope = apply_rope(k_rope[:, None, :], positions, cos, sin)[:, 0]
+    write_prefill_kv(k_layer, v_layer, c_kv[:, None, :], k_rope[:, None, :], block_ids, seq_len)
+    logits, v = _chunk_scores(w, cfg, q_nope, q_rope, c_kv, k_rope, seq_len)
+    out = torch.einsum("hqk,khv->qhv", torch.softmax(logits, dim=-1), v.float())
+    return out.to(cfg.dtype).reshape(s, -1) @ w["wo"]
+
+
+def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len, start_pos,
+                                  k_layer, v_layer, full_block_ids, tail_block_ids, cos, sin):
+    """Continued MLA prefill: the tail's queries attend to the resident
+    prefix latents (absorbed: scores in latent space, the context
+    decompressed once) and to the chunk's own decompressed keys under one
+    softmax; only the tail's latents are written."""
+    s = x.shape[0]
+    H = cfg.num_heads
+    q_nope, q_rope = _split_q(w, x, cfg, positions, cos, sin)
+    c_kv, k_rope = _latent_kv(w, x, cfg)
+    k_rope = apply_rope(k_rope[:, None, :], positions, cos, sin)[:, 0]
+
+    # read the resident prefix BEFORE the tail is written
+    ids = full_block_ids.to(x.device).long()
+    t_pref = ids.shape[0] * k_layer.shape[1]
+    ck_pref = k_layer[ids].reshape(t_pref, cfg.kv_lora_rank).float()
+    kr_pref = v_layer[ids].reshape(t_pref, cfg.qk_rope_head_dim).float()
+    write_prefill_kv(k_layer, v_layer, c_kv[:, None, :], k_rope[:, None, :], tail_block_ids,
+                     tail_len)
+
+    w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
+    w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
+    q_lat = torch.einsum("qhn,rhn->qhr", q_nope.float(), w_uk.float())
+    sp = (
+        torch.einsum("qhr,tr->hqt", q_lat, ck_pref)
+        + torch.einsum("qhp,tp->hqt", q_rope.float(), kr_pref)
+    ) * cfg.attn_scale
+    pref_valid = torch.arange(t_pref, device=x.device) < int(start_pos)
+    sp.masked_fill_(~pref_valid[None, None], NEG_INF)
+    sc, v_chunk = _chunk_scores(w, cfg, q_nope, q_rope, c_kv, k_rope, tail_len)
+
+    weights = torch.softmax(torch.cat([sp, sc], dim=-1), dim=-1)   # [H, s, Tp + s]
+    wp, wc = weights[..., :t_pref], weights[..., t_pref:]
+    ctx_lat = torch.einsum("hqt,tr->qhr", wp, ck_pref)
+    out_pref = torch.einsum("qhr,rhv->qhv", ctx_lat, w_uv.float())
+    out_chunk = torch.einsum("hqk,khv->qhv", wc, v_chunk.float())
+    return (out_pref + out_chunk).to(cfg.dtype).reshape(s, -1) @ w["wo"]
+
+
+def _mla_window_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, block_tables,
+                     context_lens, flat_slots, live, cos, sin, b: int, w_len: int):
+    """Multi-query absorbed MLA attention for speculative verification:
+    ``x`` is the position-major flat window [w*b, hidden]; every window
+    token writes its latent, then the window queries attend through the MLA
+    window kernel.  Returns the attention output, position-major [w*b,
+    hidden]."""
+    H = cfg.num_heads
+    q = position_major_to_batch(_project_q(w, x, cfg), w_len, b, H, cfg.qk_head_dim)
+    q_nope, q_rope = q[..., : cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cos, sin)                  # [b, w, H, P]
+    c_kv, k_rope = _latent_kv(w, x, cfg)                             # [w*b, R], [w*b, P]
+    k_rope = apply_rope(
+        position_major_to_batch(k_rope, w_len, b, cfg.qk_rope_head_dim)[:, :, None, :],
+        positions, cos, sin,
+    )                                                                 # [b, w, 1, P]
+    write_decode_kv(k_layer, v_layer, c_kv[:, None, :],
+                    k_rope.transpose(0, 1).reshape(w_len * b, 1, -1), flat_slots, live)
+    w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
+    q_lat = torch.einsum("bwhn,rhn->bwhr", q_nope.float(), w_uk.float())
+    ck, kr = _latent_caches(k_layer, v_layer)
+    ctx = mla_paged_window_attention_decode(
+        q_lat, q_rope, ck, kr, block_tables, context_lens, scale=cfg.attn_scale,
+    )                                                                 # [b, w, H, R] f32
+    w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
+    out = torch.einsum("bwhr,rhv->bwhv", ctx, w_uv.float()).to(cfg.dtype)
+    return out.transpose(0, 1).reshape(w_len * b, -1) @ w["wo"]
+
+
 def _dense_mlp(w, x):
     return (F.silu(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
 
@@ -406,6 +529,97 @@ def deepseek_forward_decode(
 
     x = _forward(params, cfg, x, kv_cache, attn)
     return _logits(params, cfg, x).float(), kv_cache
+
+
+def deepseek_forward_prefill(
+    params: dict,
+    cfg: DeepseekConfig,
+    token_ids: torch.Tensor,  # [seq_pad] int
+    kv_cache: dict,
+    block_ids: torch.Tensor,  # [max_blocks] int
+    seq_len: int,             # valid tokens
+    start_pos: int,           # absolute position of token 0
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Single-sequence prefill (the split prefill step).  Returns (the last
+    valid token's logits [vocab] f32, cache); the cache is written in
+    place.  The MoE layers route every token of the padded chunk, as the
+    reference does."""
+    s = token_ids.shape[0]
+    x = params["embed"][token_ids].to(cfg.dtype)
+    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+
+    def attn(w, attn_in, k_layer, v_layer):
+        return _mla_prefill_attn(w, attn_in, cfg, positions, seq_len, k_layer, v_layer,
+                                 block_ids, cos, sin)
+
+    x = _forward(params, cfg, x, kv_cache, attn)
+    last = x[max(int(seq_len) - 1, 0)]
+    return _logits(params, cfg, last[None])[0].float(), kv_cache
+
+
+def deepseek_forward_prefill_with_prefix(
+    params: dict,
+    cfg: DeepseekConfig,
+    token_ids: torch.Tensor,       # [tail_pad] int — the uncached tail
+    kv_cache: dict,
+    full_block_ids: torch.Tensor,  # [table_len] int — whole table (prefix + tail)
+    tail_block_ids: torch.Tensor,  # [table_len] int — table from the first tail block
+    tail_len: int,                 # valid tail tokens
+    start_pos: int,                # resident prefix length (block-aligned)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Continued prefill over a resident prefix for the MLA family (the
+    llama contract).  Returns (last tail token's logits [vocab] f32,
+    cache)."""
+    s = token_ids.shape[0]
+    x = params["embed"][token_ids].to(cfg.dtype)
+    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+
+    def attn(w, attn_in, k_layer, v_layer):
+        return _mla_prefill_attn_with_prefix(
+            w, attn_in, cfg, positions, tail_len, start_pos, k_layer, v_layer,
+            full_block_ids, tail_block_ids, cos, sin,
+        )
+
+    x = _forward(params, cfg, x, kv_cache, attn)
+    last = x[max(int(tail_len) - 1, 0)]
+    return _logits(params, cfg, last[None])[0].float(), kv_cache
+
+
+def deepseek_forward_verify(
+    params: dict,
+    cfg: DeepseekConfig,
+    token_ids: torch.Tensor,     # [batch, w] int — the last accepted token, then drafts
+    kv_cache: dict,
+    block_tables: torch.Tensor,  # [batch, max_blocks] int32
+    context_lens: torch.Tensor,  # [batch] int32 INCLUDING the window's last token
+    slot_ids: torch.Tensor,      # [batch, w] int32 flat cache slot per position
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Speculative verification for the MLA family (the llama contract):
+    logits [batch, w, vocab] f32.  The window runs position-major through
+    the trunk, so the MoE layers give position-0 tokens expert-capacity
+    priority exactly as the reference does."""
+    b, w_len = token_ids.shape
+    x = params["embed"][token_ids.t().reshape(-1)].to(cfg.dtype)  # position-major
+    positions = table_positions(
+        context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
+    )  # [b, w]
+    flat_slots = slot_ids.t().reshape(-1)
+    k_all = kv_cache["k"]
+    live = last_writer_slots(flat_slots, k_all.shape[1] * k_all.shape[2])
+
+    def attn(w, attn_in, k_layer, v_layer):
+        return _mla_window_attn(w, attn_in, cfg, positions, k_layer, v_layer, block_tables,
+                                context_lens, flat_slots, live, cos, sin, b, w_len)
+
+    x = _forward(params, cfg, x, kv_cache, attn)
+    logits = _logits(params, cfg, x).view(w_len, b, -1).transpose(0, 1)
+    return logits.float(), kv_cache
 
 
 def deepseek_forward_unified(

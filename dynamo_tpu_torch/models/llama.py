@@ -6,9 +6,11 @@ Python loop over layers takes the place of ``lax.scan``.  The paged KV cache
 ``{"k", "v"}: [layers, num_blocks, block_size, kv_heads, head_dim]`` is
 updated in place where the reference donated its buffer.
 
-Attention goes through the kernel wrappers in ``ops.kernels``: on a CUDA
-tensor they launch the hand-written kernels, on a CPU tensor they take the
-plain PyTorch versions in ``ops.attention``.
+Attention of the unified, decode and verify forwards goes through the kernel
+wrappers in ``ops.kernels``: on a CUDA tensor they launch the hand-written
+kernels, on a CPU tensor they take the plain PyTorch versions in
+``ops.attention``.  The split prefill forwards attend with the plain dense
+causal form everywhere, as the reference does outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -23,10 +25,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.ops.attention import live_slots, write_decode_kv
-from dynamo_tpu_torch.ops.kernels import paged_attention_decode, ragged_paged_attention
+from dynamo_tpu_torch.ops.attention import (
+    dense_causal_attention,
+    gather_prefix_kv,
+    last_writer_slots,
+    live_slots,
+    prefill_attention_with_prefix,
+    write_decode_kv,
+    write_prefill_kv,
+)
+from dynamo_tpu_torch.ops.kernels import (
+    paged_attention_decode,
+    paged_window_attention_decode,
+    ragged_paged_attention,
+)
+from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
-from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
+from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
 
 
 @dataclass(frozen=True)
@@ -260,6 +275,126 @@ def _residual_block(x, attn, w, cfg):
     x = x + attn.reshape(x.shape[0], -1) @ w["wo"]
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"])
+
+
+def llama_forward_prefill(
+    params: dict,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,  # [seq_pad] int
+    kv_cache: dict,           # {"k","v"}: [L, N, bs, kvh, d]
+    block_ids: torch.Tensor,  # [max_blocks] int
+    seq_len: int,             # valid tokens
+    start_pos: int,           # absolute position of token 0
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Single-sequence prefill (the split prefill step).  Returns (the last
+    valid token's logits [vocab] f32, cache); the cache is written in
+    place.  Attention is the plain dense causal form in float32, as the
+    reference computes it outside any Pallas kernel."""
+    s = token_ids.shape[0]
+    x = _embed(params, cfg, token_ids)
+    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    lens = torch.tensor([seq_len], device=x.device)
+    for i, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
+        attn = dense_causal_attention(
+            q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
+        )[0]
+        x = _residual_block(x, attn.reshape(s, -1), w, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = x[max(int(seq_len) - 1, 0)]
+    return _logits(params, cfg, last[None])[0].float(), kv_cache
+
+
+def llama_forward_prefill_with_prefix(
+    params: dict,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,       # [tail_pad] int — the uncached tail
+    kv_cache: dict,
+    full_block_ids: torch.Tensor,  # [table_len] int — whole table (prefix + tail)
+    tail_block_ids: torch.Tensor,  # [table_len] int — table from the first tail block
+    tail_len: int,                 # valid tail tokens
+    start_pos: int,                # resident prefix length (block-aligned)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Continued prefill over a resident prefix (a prefix-cache hit or a
+    later chunk of a chunked prefill): the tail's queries attend to the
+    prefix K/V read from the paged cache plus themselves, and only the
+    tail's K/V are written.  Returns (last tail token's logits [vocab] f32,
+    cache)."""
+    s = token_ids.shape[0]
+    x = _embed(params, cfg, token_ids)
+    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    for i, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        # read the resident prefix BEFORE the tail is written
+        k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
+        write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
+        attn = prefill_attention_with_prefix(
+            q, k, v, k_prefix, v_prefix, start_pos, tail_len,
+            sliding_window=cfg.sliding_window,
+        )
+        x = _residual_block(x, attn.reshape(s, -1), w, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = x[max(int(tail_len) - 1, 0)]
+    return _logits(params, cfg, last[None])[0].float(), kv_cache
+
+
+def check_verify_width(cfg: LlamaConfig, w: int) -> None:
+    """Refuse, before any launch, a verify window wider than the paged
+    window kernel holds at this geometry."""
+    check_window(w, cfg.num_heads, cfg.num_kv_heads)
+
+
+def llama_forward_verify(
+    params: dict,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,     # [batch, w] int — the last accepted token, then drafts
+    kv_cache: dict,
+    block_tables: torch.Tensor,  # [batch, max_blocks] int32
+    context_lens: torch.Tensor,  # [batch] int32 INCLUDING the window's last token
+    slot_ids: torch.Tensor,      # [batch, w] int32 flat cache slot per position
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Speculative verification: score all w window positions in one pass
+    (logits [batch, w, vocab] f32).  The whole window's K/V is written like
+    decode (a slot named twice keeps its last position, as the reference's
+    scatter does); attention is the paged window kernel at W = w — on a
+    CPU tensor its plain version."""
+    b, w_len = token_ids.shape
+    x = _embed(params, cfg, token_ids.reshape(-1))  # [b*w, hidden], batch-major
+    positions = table_positions(
+        context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
+    )  # [b, w]
+    flat_slots = slot_ids.reshape(-1)
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    live = last_writer_slots(flat_slots, k_all.shape[1] * k_all.shape[2])
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for i, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q.view(b, w_len, h, d), positions, cos, sin)
+        k = apply_rope(k.view(b, w_len, kvh, d), positions, cos, sin)
+        write_decode_kv(k_all[i], v_all[i], k.reshape(b * w_len, kvh, d), v, flat_slots, live)
+        attn = paged_window_attention_decode(
+            q, k_all[i], v_all[i], block_tables, context_lens,
+            sliding_window=cfg.sliding_window,
+        )
+        x = _residual_block(x, attn.reshape(b * w_len, -1), w, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _logits(params, cfg, x).view(b, w_len, -1).float(), kv_cache
 
 
 def llama_forward_decode(

@@ -31,6 +31,18 @@ class ModelFamily:
     forward_unified: Callable
     # HF safetensors loader: (cfg, model_dir, device) -> params
     load_weights: Callable | None = None
+    # the split prefill step: (params, cfg, tokens, cache, block_ids,
+    # seq_len, start_pos, cos, sin) -> (last logits [vocab], cache)
+    forward_prefill: Callable | None = None
+    # continued prefill over a resident prefix: (params, cfg, tail, cache,
+    # full_block_ids, tail_block_ids, tail_len, start_pos, cos, sin)
+    forward_prefill_with_prefix: Callable | None = None
+    # speculative verification: (params, cfg, tokens [b, w], cache,
+    # block_tables, context_lens, slot_ids [b, w], cos, sin) -> logits [b, w, vocab]
+    forward_verify: Callable | None = None
+    # (cfg, w) -> None: raises ValueError when the family's verify kernel
+    # cannot take a window of w positions
+    check_verify_width: Callable | None = None
 
 
 def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
@@ -55,6 +67,10 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
         forward_decode=llama.llama_forward_decode,
         forward_unified=llama.llama_forward_unified,
         load_weights=llama.load_hf_weights,
+        forward_prefill=llama.llama_forward_prefill,
+        forward_prefill_with_prefix=llama.llama_forward_prefill_with_prefix,
+        forward_verify=llama.llama_forward_verify,
+        check_verify_width=llama.check_verify_width,
     )
 
 
@@ -70,6 +86,9 @@ def _deepseek_family() -> ModelFamily:
         forward_decode=deepseek.deepseek_forward_decode,
         forward_unified=deepseek.deepseek_forward_unified,
         load_weights=deepseek.load_hf_weights,
+        forward_prefill=deepseek.deepseek_forward_prefill,
+        forward_prefill_with_prefix=deepseek.deepseek_forward_prefill_with_prefix,
+        forward_verify=deepseek.deepseek_forward_verify,
     )
 
 

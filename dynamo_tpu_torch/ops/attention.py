@@ -31,6 +31,43 @@ def live_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
     return torch.nonzero(valid).squeeze(1)
 
 
+def last_writer_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """``live_slots`` for a write that may name one slot more than once (a
+    verify window clamped at the engine's last position): of the entries
+    naming the same slot only the LAST is kept, the order the reference's
+    scatter writes in.  ``index_copy_`` with repeated indices leaves the
+    winner unspecified on a CUDA tensor; with this list each slot is
+    written once."""
+    live = live_slots(slot_ids, num_slots)
+    slots = slot_ids.index_select(0, live)
+    uniq, inverse = torch.unique(slots, return_inverse=True)
+    if uniq.numel() == slots.numel():
+        return live
+    order = torch.arange(slots.numel(), device=slots.device)
+    last = torch.full((uniq.numel(),), -1, dtype=order.dtype, device=slots.device)
+    last = last.scatter_reduce(0, inverse, order, reduce="amax")
+    return live.index_select(0, last)
+
+
+def write_prefill_kv(
+    k_cache: torch.Tensor,   # [num_blocks, block_size, kv_heads, head_dim]
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,     # [seq_pad, kv_heads, head_dim]
+    v_new: torch.Tensor,
+    block_ids: torch.Tensor,  # [max_blocks] int, padded with any value
+    seq_len: int,             # valid tokens (the rest is padding, dropped)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a prefilled sequence's first ``seq_len`` K/V rows into its
+    blocks, in place (token i to slot ``block_ids[i // bs] * bs + i % bs``)."""
+    num_blocks, block_size = k_cache.shape[:2]
+    n = num_blocks * block_size
+    idx = torch.arange(int(seq_len), device=k_new.device)
+    slots = block_ids.to(k_new.device).long()[idx // block_size] * block_size + idx % block_size
+    k_cache.view(n, *k_cache.shape[2:]).index_copy_(0, slots, k_new[: idx.numel()].to(k_cache.dtype))
+    v_cache.view(n, *v_cache.shape[2:]).index_copy_(0, slots, v_new[: idx.numel()].to(v_cache.dtype))
+    return k_cache, v_cache
+
+
 def write_decode_kv(
     k_cache: torch.Tensor,   # [num_blocks, block_size, kv_heads, head_dim]
     v_cache: torch.Tensor,
@@ -59,6 +96,43 @@ def write_decode_kv(
 
 def _scale(head_dim: int) -> float:
     return 1.0 / math.sqrt(head_dim)
+
+
+def _window_mask(causal: torch.Tensor, pos_diff: torch.Tensor, window) -> torch.Tensor:
+    """AND a sliding-window constraint into ``causal``: an int window always
+    applies; a tensor window applies where it is > 0 (<= 0 = full)."""
+    if isinstance(window, (int, float)):
+        return causal & (pos_diff < window)
+    return causal & ((window <= 0) | (pos_diff < window))
+
+
+def dense_causal_attention(
+    q: torch.Tensor,  # [batch, seq, heads, head_dim]
+    k: torch.Tensor,  # [batch, seq, kv_heads, head_dim]
+    v: torch.Tensor,
+    seq_len: torch.Tensor | None = None,  # [batch] valid lengths (padding mask)
+    *,
+    sliding_window=None,
+) -> torch.Tensor:
+    """Causal self-attention for prefill (GQA, float32 scores and softmax);
+    with a sliding window each query sees only the last ``sliding_window``
+    positions.  Padded keys (past ``seq_len``) are masked."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * _scale(d)
+    pos = torch.arange(s, device=q.device)
+    causal = pos[None, :] <= pos[:, None]  # [q, s]
+    if sliding_window is not None:
+        causal = _window_mask(causal, pos[:, None] - pos[None, :], sliding_window)
+    mask = causal[None, None, None]
+    if seq_len is not None:
+        valid = pos[None, :] < seq_len.to(q.device)[:, None]  # [b, s]
+        mask = mask & valid[:, None, None, None, :]
+    # in place: at a 4096-token prompt the scores are 2 GB a layer
+    weights = torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
 
 
 def paged_window_attention(
@@ -196,6 +270,37 @@ def mla_paged_decode_attention(
     return torch.einsum("bht,btr->bhr", torch.softmax(logits, dim=-1), ck)
 
 
+def mla_paged_window_attention(
+    q_lat: torch.Tensor,         # [B, W, H, R] float32 absorbed latent queries
+    q_rope: torch.Tensor,        # [B, W, H, P] roped queries
+    ck_cache: torch.Tensor,      # [N, bs, R] latents (keys AND values)
+    kr_cache: torch.Tensor,      # [N, bs, P] rope keys
+    block_tables: torch.Tensor,  # [B, max_blocks] int
+    context_lens: torch.Tensor,  # [B] int: context INCLUDING the window's
+                                 # last token (0 => idle lane: junk row)
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Multi-query absorbed MLA attention for speculative verification (the
+    gather branch of the reference's ``_mla_window_attn``): query w of a
+    sequence sits at position ``ctx - W + w`` and sees the cached positions
+    up to its own.  Returns the float32 latent context [B, W, H, R]."""
+    b, w, _, r = q_lat.shape
+    _, block_size, _ = ck_cache.shape
+    length = block_tables.shape[1] * block_size
+    ck = ck_cache[block_tables].reshape(b, length, r).float()
+    kr = kr_cache[block_tables].reshape(b, length, -1).float()
+    logits = (
+        torch.einsum("bwhr,btr->bhwt", q_lat.float(), ck)
+        + torch.einsum("bwhp,btp->bhwt", q_rope.float(), kr)
+    ) * scale
+    q_pos = context_lens[:, None] - w + torch.arange(w, device=q_lat.device)[None, :]
+    kv_pos = torch.arange(length, device=q_lat.device)[None, None, :]
+    mask = kv_pos <= q_pos[:, :, None]                                 # [b, w, t]
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    return torch.einsum("bhwt,btr->bwhr", torch.softmax(logits, dim=-1), ck)
+
+
 def ragged_mla_paged_attention(
     q_lat: torch.Tensor,         # [T, H, R] float32 absorbed latent queries
     q_rope: torch.Tensor,        # [T, H, P] roped queries
@@ -230,3 +335,66 @@ def ragged_mla_paged_attention(
         logits = torch.where(mask[:, None, :], logits, NEG_INF)
         out[c0:c1] = torch.einsum("thl,tlr->thr", torch.softmax(logits, dim=-1), ck)
     return out
+
+
+# ---------------------------------------------------------------------------
+# prefill over a resident prefix, and the verify window's token order
+# ---------------------------------------------------------------------------
+
+
+def position_major_to_batch(t: torch.Tensor, w: int, b: int, *tail: int) -> torch.Tensor:
+    """A position-major flat window axis ([w*b, ...], index = position*b +
+    lane: the order that gives position-0 tokens expert-capacity priority in
+    MoE verify forwards) as [b, w, ...]."""
+    return t.reshape(w, b, *tail).transpose(0, 1)
+
+
+def gather_prefix_kv(
+    k_cache: torch.Tensor,    # [num_blocks, block_size, kv_heads, head_dim]
+    v_cache: torch.Tensor,
+    block_ids: torch.Tensor,  # [max_blocks]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A sequence's cached K/V through its block list, as
+    [max_blocks*block_size, kv_heads, head_dim] copies (chunked prefill and
+    prefix-cache hits read the resident prefix from these)."""
+    ids = block_ids.to(k_cache.device).long()
+    k, v = k_cache[ids], v_cache[ids]
+    n, bs = k.shape[0], k.shape[1]
+    return k.reshape(n * bs, *k.shape[2:]), v.reshape(n * bs, *v.shape[2:])
+
+
+def prefill_attention_with_prefix(
+    q: torch.Tensor,         # [seq_pad, heads, head_dim]
+    k_new: torch.Tensor,     # [seq_pad, kv_heads, head_dim]
+    v_new: torch.Tensor,
+    k_prefix: torch.Tensor,  # [prefix_pad, kv_heads, head_dim] (gathered pages)
+    v_prefix: torch.Tensor,
+    prefix_len: int,         # valid prefix tokens
+    seq_len: int,            # valid new tokens
+    *,
+    sliding_window=None,
+) -> torch.Tensor:
+    """Chunked / continued prefill: the new tokens' queries attend to the
+    first ``prefix_len`` prefix positions and, causally, to themselves (fp32
+    scores and softmax)."""
+    s, h, d = q.shape
+    kvh = k_new.shape[1]
+    p = k_prefix.shape[0]
+    k = torch.cat([k_prefix.float(), k_new.float()], dim=0)
+    v = torch.cat([v_prefix.float(), v_new.float()], dim=0)
+    qg = q.reshape(s, kvh, h // kvh, d).float()
+    logits = torch.einsum("qkgd,lkd->kgql", qg, k) * _scale(d)
+    dev = q.device
+    q_pos = prefix_len + torch.arange(s, device=dev)
+    kv_idx = torch.arange(p + s, device=dev)
+    kv_valid = (kv_idx < prefix_len) | ((kv_idx >= p) & (kv_idx - p < seq_len))
+    # absolute position: prefix entries sit at their own index, new entries
+    # at prefix_len + (index - p)
+    kv_abs = torch.where(kv_idx >= p, kv_idx - (p - prefix_len), kv_idx)
+    causal = kv_abs[None, :] <= q_pos[:, None]
+    if sliding_window is not None:
+        causal = _window_mask(causal, q_pos[:, None] - kv_abs[None, :], sliding_window)
+    mask = causal & kv_valid[None, :]
+    weights = torch.softmax(logits.masked_fill_(~mask[None, None], NEG_INF), dim=-1)
+    out = torch.einsum("kgql,lkd->qkgd", weights, v)
+    return out.reshape(s, h, d).to(q.dtype)

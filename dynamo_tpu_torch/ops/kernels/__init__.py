@@ -4,6 +4,7 @@ builds nothing: ``build.library()`` compiles on first launch."""
 
 from dynamo_tpu_torch.ops.kernels.mla_attention import (
     mla_paged_attention_decode,
+    mla_paged_window_attention_decode,
     ragged_mla_attention,
 )
 from dynamo_tpu_torch.ops.kernels.paged_attention import (
@@ -17,6 +18,7 @@ from dynamo_tpu_torch.ops.kernels.ragged_attention import (
 
 __all__ = [
     "mla_paged_attention_decode",
+    "mla_paged_window_attention_decode",
     "pack_page_meta",
     "paged_attention_decode",
     "paged_window_attention_decode",

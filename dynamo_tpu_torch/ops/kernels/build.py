@@ -101,6 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_ragged_paged_attention.restype = i
     lib.dyn_mla_paged_decode.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
     lib.dyn_mla_paged_decode.restype = i
+    lib.dyn_mla_paged_window_decode.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
+    lib.dyn_mla_paged_window_decode.restype = i
     lib.dyn_ragged_mla_attention.argtypes = [p] * 11 + [i] * 7 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i
 

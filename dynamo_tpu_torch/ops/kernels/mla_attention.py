@@ -1,9 +1,11 @@
 """MLA (multi-head latent attention) kernels' wrappers (csrc/mla_attention.cu).
 
 Counterpart of dynamo_tpu/ops/pallas/mla_attention.py:
-``mla_paged_attention_decode`` (the absorbed decode step) and
-``ragged_mla_attention`` (the unified ragged step, over the page worklist
-of ``pack_page_meta`` built from the latent block tables).  Both take the
+``mla_paged_attention_decode`` (the absorbed decode step),
+``mla_paged_window_attention_decode`` (speculative verify: W queries a
+sequence) and ``ragged_mla_attention`` (the unified ragged step, over the
+page worklist of ``pack_page_meta`` built from the latent block tables).
+All take the
 float32 absorbed queries ``q_lat``, the roped queries ``q_rope`` and the two
 caches ``ck [N, bs, R]`` (latents: keys AND values) and ``kr [N, bs, P]``
 (rope keys) in the model dtype, and return the float32 context in latent
@@ -18,6 +20,7 @@ import torch
 
 from dynamo_tpu_torch.ops.attention import (
     mla_paged_decode_attention,
+    mla_paged_window_attention,
     ragged_mla_paged_attention,
 )
 from dynamo_tpu_torch.ops.kernels import build
@@ -32,6 +35,8 @@ decode_launches = 0
 decode_plain_calls = 0
 ragged_launches = 0
 ragged_plain_calls = 0
+window_launches = 0
+window_plain_calls = 0
 
 # (R, P) geometries the kernels are built for: DeepSeek-V2/V3 and tiny_mla
 GEOMETRIES = ((512, 64), (32, 8))
@@ -109,6 +114,47 @@ def mla_paged_attention_decode(
     )
     build.check(code, "mla_paged_attention_decode")
     decode_launches += 1
+    return out
+
+
+def mla_paged_window_attention_decode(
+    q_lat: torch.Tensor,         # [B, W, H, R] float32
+    q_rope: torch.Tensor,        # [B, W, H, P] model dtype
+    ck_cache: torch.Tensor,      # [N, bs, R]
+    kr_cache: torch.Tensor,      # [N, bs, P]
+    block_tables: torch.Tensor,  # [B, maxb] int32
+    context_lens: torch.Tensor,  # [B] int32, INCLUDING the window's last token
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Multi-query absorbed MLA attention for speculative verification:
+    query w of a sequence sees the positions up to ``ctx - W + w``.
+    Returns the float32 latent context [B, W, H, R]; idle lanes (ctx 0)
+    come out as zeros on the kernel path (junk the caller discards on the
+    plain path)."""
+    global window_launches, window_plain_calls
+    if q_lat.device.type == "cpu":
+        window_plain_calls += 1
+        return mla_paged_window_attention(
+            q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale=scale,
+        )
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"MLA window attention: unsupported device {q_lat.device}")
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    _check(q_lat, q_rope, ck_cache, kr_cache)
+    b, w, h, r = q_lat.shape
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables / context_lens do not match the batch")
+    check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
+    out = torch.empty_like(q_lat)
+    code = build.library().dyn_mla_paged_window_decode(
+        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        b, w, h, r, q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1],
+        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+    )
+    build.check(code, "mla_paged_window_attention_decode")
+    window_launches += 1
     return out
 
 

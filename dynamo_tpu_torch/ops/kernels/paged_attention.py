@@ -3,10 +3,11 @@
 Counterpart of dynamo_tpu/ops/pallas/paged_attention.py: the window kernel
 ``paged_window_attention_decode`` (W queries per sequence) and
 ``paged_attention_decode``, the same kernel at W=1, which the decode step
-calls.  A CPU tensor goes to the plain PyTorch version
-(``ops.attention.paged_window_attention``); a CUDA tensor launches the
-kernel or raises.  ``launches`` counts kernel launches, ``plain_calls``
-calls routed to the plain version.
+calls; speculative verify calls it at W = spec_tokens + 1.  A CPU tensor
+goes to the plain PyTorch version (``ops.attention.paged_window_attention``);
+a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
+launches, ``window_launches`` those of them at W > 1, ``plain_calls`` calls
+routed to the plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +24,22 @@ from dynamo_tpu_torch.ops.kernels.common import (
 from dynamo_tpu_torch.ops.kernels import build
 
 launches = 0
+window_launches = 0
 plain_calls = 0
+
+MAX_ROWS = 64  # query rows one CTA holds (csrc/attention_common.cuh)
+
+
+def check_window(w: int, heads: int, kv_heads: int) -> None:
+    """The kernel holds the W * (heads / kv_heads) query rows of one kv head
+    in one CTA; a wider window is refused here, by name, before a launch."""
+    rows = w * (heads // kv_heads)
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"paged window attention: W={w} queries x {heads // kv_heads} heads per kv "
+            f"head = {rows} rows > the kernel's {MAX_ROWS}; lower spec_tokens "
+            f"(W = spec_tokens + 1) to at most {MAX_ROWS // (heads // kv_heads) - 1}"
+        )
 
 
 def paged_window_attention_decode(
@@ -40,7 +56,7 @@ def paged_window_attention_decode(
     """Paged GQA attention for W queries per sequence (query w at position
     ``ctx - W + w``).  Idle lanes (ctx 0) come out as zeros on the kernel
     path."""
-    global launches, plain_calls
+    global launches, window_launches, plain_calls
     if pages_per_step < 1:
         raise ValueError(f"pages_per_step must be >= 1, got {pages_per_step}")
     if q.device.type == "cpu":
@@ -57,6 +73,7 @@ def paged_window_attention_decode(
     check_cache(q, k_cache, v_cache, d, dk)
     if h % kvh:
         raise ValueError(f"heads ({h}) must be a multiple of kv heads ({kvh})")
+    check_window(w, h, kvh)
     if block_tables.shape[0] != b or context_lens.shape != (b,):
         raise ValueError("block_tables / context_lens do not match the batch")
     check_index(q.device, block_tables=block_tables, context_lens=context_lens)
@@ -70,6 +87,8 @@ def paged_window_attention_decode(
     )
     build.check(code, "paged_window_attention_decode")
     launches += 1
+    if w > 1:
+        window_launches += 1
     return out
 
 

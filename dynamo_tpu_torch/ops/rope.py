@@ -115,3 +115,10 @@ def apply_rope(
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return rotated.to(x.dtype)
+
+
+def table_positions(positions: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Positions as rows of a rope table: the reference's gather clamps an
+    index past the table to its last row (pad tokens of a prefill bucket,
+    verify positions past the engine's last), where a torch index raises."""
+    return positions.clamp(0, table.shape[0] - 1)

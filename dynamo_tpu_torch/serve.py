@@ -81,7 +81,8 @@ async def serve_http(
     **engine_overrides,
 ) -> HttpHandle:
     """Start the engine and an OpenAI HTTP frontend over it, in process.
-    Weight loading runs off the event loop."""
+    ``engine_overrides`` go to EngineConfig (e.g. ``speculative="ngram",
+    spec_tokens=4``).  Weight loading runs off the event loop."""
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     engine = await asyncio.to_thread(
         build_torch_engine, model_dir, mdc, device=device, **engine_overrides
