@@ -13,7 +13,9 @@ Phases (any failure exits non-zero, before the result line):
                float32 cases; time the kernel, the plain version and one
                PyTorch library call (scaled_dot_product_attention over
                gathered K/V, a yardstick the port never calls) beside the
-               least time the card needs.
+               least time the card needs; the block gather/scatter kernels
+               bitwise against theirs (index_select / index_copy_ as the
+               library yardsticks).
   3. tiny    — serve tests/data/tiny-chat-model with
                ``python -m dynamo_tpu_torch.cli.run run in=http out=torch``
                and check that greedy chat content is the token-counter
@@ -34,6 +36,19 @@ Phases (any failure exits non-zero, before the result line):
                the split step, verify through the GQA window kernel at W=5
                and the MLA window kernel; their launch counters must move
                and no plain attention may run on the card.
+  7. offload — the engine's KV offload tiers at the Llama-3-8B geometry (all
+               layers, random weights): 256 device blocks over a 192-block
+               host tier (G2) and a 128-block disk tier (G3).  A prompt A is
+               served, pushed down the tiers by churn and served again, once
+               restored from G2 and once through G3: the same tokens as a
+               device prefix hit, A's blocks landed bitwise equal to their
+               snapshot, every evicted block in a tier, all block copies
+               through the gather/scatter kernels.
+  8. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+               blocks (2 MiB, bf16) over host, disk and a localhost block
+               store (G4); three sequences of 256 blocks stored, cascaded,
+               and read back bitwise through G1 after onboarding from G2, G3
+               and G4, with no failed transfer.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -58,7 +73,7 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla", "spec")
+PHASES = ("build", "kernels", "tiny", "serve", "mla", "spec", "offload", "kvbm")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # MLA kernels write float32 from the very inputs the plain version reads in
@@ -483,6 +498,90 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     return res
 
 
+def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
+    """Block gather and scatter over a pool of ``shape`` with the block axis
+    at ``axis`` and ``n`` distinct random ids: each kernel bitwise equal to
+    its plain version on the same inputs, the scatter leaving every other
+    block of the pool unchanged; times of the kernels, their plain versions
+    and one library call each (``index_select`` / ``index_copy_``)."""
+    from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.kernels import gather_blocks, scatter_blocks
+
+    dtype = getattr(torch, dtype or "bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n_pool = shape[axis]
+
+    def rand(shp):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, shp, generator=gen, device="cuda", dtype=dtype)
+        return torch.randn(shp, generator=gen, device="cuda").to(dtype)
+
+    pool = rand(shape)
+    ids = torch.randperm(n_pool, generator=gen, device="cuda")[:n].tolist()
+    blk_shape = list(shape)
+    blk_shape[axis] = n
+    blocks = rand(blk_shape)
+
+    def same(a, b):  # bitwise
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    out = gather_blocks(pool, ids, axis=axis)
+    ref = plain.gather_blocks(pool, ids, axis)
+    scattered = scatter_blocks(pool.clone(), blocks, ids, axis=axis)
+    ref_pool = plain.scatter_blocks(pool.clone(), blocks, ids, axis)
+    torch.cuda.synchronize()
+    rest = torch.ones(n_pool, dtype=torch.bool, device="cuda")
+    rest[ids] = False
+    res = {
+        "gather_equal": same(out, ref), "scatter_equal": same(scattered, ref_pool),
+        "rest_unchanged": same(scattered.index_select(axis, rest.nonzero()[:, 0]),
+                               pool.index_select(axis, rest.nonzero()[:, 0])),
+        "finite": bool(torch.isfinite(out).all() and torch.isfinite(scattered).all()),
+        "gather_max_abs_err": err(out, ref), "scatter_max_abs_err": err(scattered, ref_pool),
+    }
+    del scattered, ref_pool
+    if not timed:
+        return res
+    moved = out.numel() * out.element_size()  # bytes read once, written once
+    ids_dev = torch.tensor(ids, device="cuda")
+    target = pool.clone()
+    bound_ms = 2 * moved / HBM_BYTES_PER_S * 1e3
+    res.update(
+        bytes=2 * moved, bound_ms=bound_ms, bound_by="bytes",
+        gather_ms=time_ms(lambda: gather_blocks(pool, ids, axis=axis), 20),
+        gather_plain_ms=time_ms(lambda: plain.gather_blocks(pool, ids, axis), 5),
+        gather_library_ms=time_ms(lambda: torch.index_select(pool, axis, ids_dev), 20),
+        scatter_ms=time_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis), 20),
+        scatter_plain_ms=time_ms(lambda: plain.scatter_blocks(target, blocks, ids, axis), 5),
+        scatter_library_ms=time_ms(lambda: target.index_copy_(axis, ids_dev, blocks), 20),
+    )
+    return res
+
+
+# block gather/scatter (rows 6-7): the KVBM's Llama-3-8B block, the engine's
+# Llama-3-8B and DeepSeek-V2-Lite cache leaves at A's 93 blocks (the offload
+# phase's restore), and a raw 1000-byte payload (uint8)
+COPY_CASES = {
+    "copy_kvbm": dict(shape=(512, 32, 2, 16, 8, 128), n=64, axis=0),
+    "copy_llama_leaf": dict(shape=(32, 1024, 16, 8, 128), n=93, axis=1),
+    "copy_mla_latent": dict(shape=(27, 1024, 16, 1, 512), n=93, axis=1),
+    "copy_mla_rope": dict(shape=(27, 1024, 16, 1, 64), n=93, axis=1),
+    "copy_bytes": dict(shape=(512, 1000), n=64, axis=0, dtype="uint8"),
+}
+
+
+def check_copy_case(name: str, res: dict) -> None:
+    shown = {k: (float(f"{v:.6g}") if isinstance(v, float) else v) for k, v in res.items()}
+    log(f"[kernels] {name} (bitwise): {json.dumps(shown)}")
+    if not (res["gather_equal"] and res["scatter_equal"] and res["rest_unchanged"]
+            and res["finite"]):
+        raise AssertionError(f"{name}: block copy differs from its plain version")
+
+
 def check_case(name: str, res: dict, atol: float) -> None:
     shown = {k: (float(f"{v:.6g}") if isinstance(v, float) else v) for k, v in res.items()}
     log(f"[kernels] {name} (atol {atol}): {json.dumps(shown)}")
@@ -585,6 +684,10 @@ def phase_kernels(torch) -> dict:
     mla_window_small = mla_decode_case(torch, lens=[5, 17, 0, 64], w=3, h=4, r=32, p=8,
                                        dtype=torch.float32, seed=61, timed=False)
     check_case("mla window W=3 tiny_mla fp32", mla_window_small, F32_ATOL)
+    for name, kw in COPY_CASES.items():
+        cases[name] = block_copy_case(torch, seed=70 + len(cases), **kw)
+        check_copy_case(f"{name} {kw['shape']} n={kw['n']} axis={kw['axis']}", cases[name])
+        torch.cuda.empty_cache()
     errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                      win["max_abs_err"], d64["max_abs_err"]),
@@ -595,6 +698,8 @@ def phase_kernels(torch) -> dict:
         "mla_decode": max(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
         "mla_window": max(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
         "mla_ragged": cases["mla_ragged_mix"]["max_abs_err"],
+        **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
+           for row in ("gather", "scatter")},
     }
     return {"cases": cases, "errs": errs}
 
@@ -709,9 +814,14 @@ DEEPSEEK_V2_LITE = {
 
 
 def kernel_modules():
-    from dynamo_tpu_torch.ops.kernels import mla_attention, paged_attention, ragged_attention
+    from dynamo_tpu_torch.ops.kernels import (
+        block_copy,
+        mla_attention,
+        paged_attention,
+        ragged_attention,
+    )
 
-    return (ragged_attention, paged_attention, mla_attention)
+    return (ragged_attention, paged_attention, mla_attention, block_copy)
 
 
 def counter_names(mod) -> list[str]:
@@ -844,18 +954,24 @@ async def profile_decode(engine, port: int, model: str) -> dict:
     }
 
 
-def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw) -> dict:
-    """Serve ``config`` (random weights from seed 0, the tiny model's
-    tokenizer) over HTTP in this process, drive the counted traffic, check
-    it and that every counter of ``path`` launched, print its e2e (and
-    profile) lines."""
+def model_dir(model: str, config: dict) -> Path:
+    """A model dir under the build dir: ``config`` and the tiny model's
+    tokenizer (the weights are random, from the engine seed)."""
     build_dir = ROOT / "dynamo_tpu_torch" / "_build" / model
     build_dir.mkdir(parents=True, exist_ok=True)
     (build_dir / "config.json").write_text(json.dumps(config))
     tiny = ROOT / "tests" / "data" / "tiny-chat-model"
     for name in ("tokenizer.json", "tokenizer_config.json"):
         shutil.copy(tiny / name, build_dir / name)
-    out = asyncio.run(serve_model(build_dir, model, **serve_kw))
+    return build_dir
+
+
+def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw) -> dict:
+    """Serve ``config`` (random weights from seed 0, the tiny model's
+    tokenizer) over HTTP in this process, drive the counted traffic, check
+    it and that every counter of ``path`` launched, print its e2e (and
+    profile) lines."""
+    out = asyncio.run(serve_model(model_dir(model, config), model, **serve_kw))
     ttfts, itls, toks = [], [], 0
     for r in out["results"]:
         usage = r["usage"] or {}
@@ -990,6 +1106,285 @@ def phase_spec(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the KV offload tiers
+# ---------------------------------------------------------------------------
+
+OFFLOAD_PATH = ("block_copy.gather_launches", "block_copy.scatter_launches")
+OFFLOAD = dict(num_blocks=256, max_batch_size=8, max_model_len=4096,
+               host_offload_blocks=192, disk_offload_blocks=128)
+# prompt lengths (tokens) of the offload traffic: A, the churn that evicts A
+# to G2, the churn that cascades A's copies into G3
+OFFLOAD_A, OFFLOAD_CHURN_G2, OFFLOAD_CHURN_G3 = 1500, (2400, 2400), (2400, 2400, 2400)
+
+
+async def generate_tokens(engine, tokens: list[int], max_tokens: int) -> list[int]:
+    from dynamo_tpu_torch.llm.protocols.common import (
+        Annotated,
+        LLMEngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    req = PreprocessedRequest(
+        token_ids=tokens, sampling=SamplingOptions(use_greedy=True),
+        stop=StopConditions(max_tokens=max_tokens, ignore_eos=True), eos_token_ids=[1],
+    ).to_wire()
+    out = []
+    async for item in await engine.generate(Context(req)):
+        ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+        if ann.data is not None:
+            if ann.data.error:
+                raise RuntimeError(ann.data.error)
+            out.extend(ann.data.token_ids)
+    return out
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dict:
+    """The engine's offload tiers on the card at the Llama-3-8B geometry
+    (all layers, random weights from seed 0): G1 is 256 device blocks, G2
+    192 host blocks, G3 128 disk blocks.  Prompt A twice (the second a
+    device prefix hit: tokens T), churn that evicts A's blocks to G2, A
+    again (restored from G2), churn that cascades A's copies to G3, A again
+    (restored through G3).  Each restore must give T and land A's blocks
+    bitwise equal to their snapshot; every evicted block must reach a tier."""
+    from dynamo_tpu_torch.llm.kv_router.hashing import compute_block_hashes
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    path = model_dir("llama3-8b-offload", config)
+    disk = ROOT / "dynamo_tpu_torch" / "_build" / "offload_g3.blocks"
+    engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), device=device,
+                                seed=0, disk_offload_path=str(disk), **OFFLOAD)
+    dev = engine.device
+    bs = engine.config.block_size
+    rng = random.Random(0)
+    vocab = engine.config.model.vocab_size
+
+    def prompt(n):
+        return [rng.randrange(3, vocab) for _ in range(n)]
+
+    a = prompt(OFFLOAD_A)
+    hashes = compute_block_hashes(a, bs)[: (len(a) - 1) // bs]  # what a match can cover
+    churn = [[prompt(n) for n in OFFLOAD_CHURN_G2], [prompt(n) for n in OFFLOAD_CHURN_G3]]
+    tier = engine.host_tier
+
+    # every eviction batch: count its blocks, and check that each evicted
+    # block sits in a tier once the sink returns (the engine's sink, like
+    # the reference's, would report a failed copy only as a cache miss)
+    evictions = {"blocks": 0, "lost": 0}
+    sink = engine.allocator.offload_sink
+
+    def counted_sink(pairs):
+        evictions["blocks"] += len(pairs)
+        failed = sink(pairs)
+        evictions["lost"] += sum(not tier.has(h) for _, h in pairs)
+        return failed
+
+    engine.allocator.offload_sink = counted_sink
+    restores: list[dict] = []
+    restore = engine._restore_blocks
+
+    def timed_restore(plan):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        restore(plan)
+        sync(torch, dev)
+        restores.append({"plan": list(plan), "ms": (time.perf_counter() - t0) * 1e3})
+
+    engine._restore_blocks = timed_restore
+
+    def resident_ids():
+        return [engine.allocator._hash_to_block[h] for h in hashes]
+
+    def blocks_of(ids):
+        return {k: leaf[:, ids].clone() for k, leaf in engine.cache.items()}
+
+    def same_blocks(x, y):
+        return all(torch.equal(x[k].view(torch.uint8), y[k].view(torch.uint8)) for k in x)
+
+    async def drive():
+        engine.start()
+        try:
+            await generate_tokens(engine, a, 16)
+            snapshot = blocks_of(resident_ids())
+            t_ref = await generate_tokens(engine, a, 16)  # a device prefix hit
+            checks = []
+            for label, burst in (("g2", churn[0]), ("g3", churn[1])):
+                for p in burst:
+                    await generate_tokens(engine, p, 4)
+                resident = sum(engine.allocator.is_registered(h) for h in hashes)
+                before = engine.stats()
+                n_restores = len(restores)
+                tokens = await generate_tokens(engine, a, 16)
+                after = engine.stats()
+                landed = {h: bid for plan in restores[n_restores:] for h, bid in plan["plan"]}
+                # host_restores_total counts restores from every tier
+                disk = after["disk_restores_total"] - before["disk_restores_total"]
+                total = after["host_restores_total"] - before["host_restores_total"]
+                checks.append({
+                    "tier": label, "device_resident_before": resident,
+                    "restored": {"g2": total - disk, "g3": disk},
+                    "tokens_equal": tokens == t_ref,
+                    "blocks_equal": len(landed) == len(hashes) and same_blocks(
+                        blocks_of([landed[h] for h in hashes]), snapshot),
+                    "restore_ms": [r["ms"] for r in restores[n_restores:]],
+                    # the engine's own split of these restores' time
+                    "parts_ms": {k: after[f"restore_{k}_ms_total"] - before[f"restore_{k}_ms_total"]
+                                 for k in ("stage", "copy", "scatter")},
+                })
+            counts = read_counters()  # the served traffic's launches only
+            return t_ref, checks, counts, engine.stats()
+        finally:
+            engine.stop()
+
+    zero_counters()
+    try:
+        t_ref, checks, counts, stats = asyncio.run(drive())
+    finally:
+        disk.unlink(missing_ok=True)
+    log(f"[offload] checks={checks} evictions={evictions} counts={counts} "
+        f"stats={ {k: v for k, v in stats.items() if 'restore' in k or 'offload' in k} }")
+    for c in checks:
+        if not (c["restored"][c["tier"]] == len(hashes) and c["device_resident_before"] == 0
+                and c["tokens_equal"] and c["blocks_equal"]):
+            raise AssertionError(f"restore through {c['tier']} failed its checks: {c}")
+    if evictions["lost"] or stats["host_offloads_total"] != evictions["blocks"]:
+        raise AssertionError(f"an evicted block reached no tier: {evictions}, "
+                             f"host_offloads_total {stats['host_offloads_total']}")
+    if counts["plain_calls"] != 0 or any(counts[k] <= 0 for k in OFFLOAD_PATH):
+        raise AssertionError(f"block copies did not run through the kernels: {counts}")
+    nbytes = len(hashes) * tier.block_nbytes
+    line = {
+        "model": "llama3-8b-offload", "card": card, "blocks": len(hashes),
+        "restore_bytes": nbytes, "tokens": t_ref,
+        "restores": {k: stats[k] for k in stats if k.endswith("_restores_total")},
+        "restore_ms": {c["tier"]: c["restore_ms"] for c in checks},
+        "restore_gb_s": {c["tier"]: gb_s(nbytes, sum(c["restore_ms"])) for c in checks},
+        "restore_parts_ms": {c["tier"]: c["parts_ms"] for c in checks},
+        # host-to-device bytes over the copies' time; the scatters read and write them
+        "copy_gb_s": {c["tier"]: gb_s(nbytes, c["parts_ms"]["copy"]) for c in checks},
+        "scatter_gb_s": {c["tier"]: gb_s(2 * nbytes, c["parts_ms"]["scatter"]) for c in checks},
+        "evicted_blocks": evictions["blocks"],
+        "host_offloads_total": stats["host_offloads_total"],
+        "launches": {k: counts[k] for k in OFFLOAD_PATH},
+    }
+    print(json.dumps({"smoke_offload": line}), flush=True)
+    return {"counts": counts, "line": line}
+
+
+def gb_s(nbytes: int, ms: float) -> float | None:
+    return nbytes / ms / 1e6 if ms > 0 else None
+
+
+KVBM_SHAPE = (32, 2, 16, 8, 128)  # Llama-3-8B: layers, k/v, block, kv heads, head dim
+KVBM = dict(device_blocks=512, host_blocks=256, disk_blocks=256)
+KVBM_G4_BLOCKS, KVBM_SEQ = 64, 256
+
+
+def phase_kvbm(torch, card: str, device: str = "cuda") -> dict:
+    """The KV block manager on the card: G1 512 device blocks of the
+    Llama-3-8B block (2 MiB, bf16), G2 256 host, G3 256 disk, G4 64 in a
+    block store served from a thread on localhost.  Three sequences of 256
+    random blocks, each stored and cascaded down every tier; then read
+    back through G1, onboarded from G2, G3 and G4 in turn (each copy
+    cascades, so a lower tier holds the newest blocks: the tiers above the
+    one under test forget the sequence first, as a tier invalidation
+    does).  Bitwise equal to what was stored, no failed transfer."""
+    import threading
+
+    from dynamo_tpu_torch.llm.block_manager import HostStorage, KvBlockManager, KvbmConfig, Tier
+    from dynamo_tpu_torch.llm.block_manager.remote import BlockStoreServer
+
+    loop = asyncio.new_event_loop()
+    server = BlockStoreServer(HostStorage(KVBM_G4_BLOCKS, KVBM_SHAPE, torch.bfloat16))
+    thread = threading.Thread(target=loop.run_forever, name="g4-store", daemon=True)
+    thread.start()
+    asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=60)
+    disk = ROOT / "dynamo_tpu_torch" / "_build" / "kvbm_g3.blocks"
+    layers, _, bs, kvh, hd = KVBM_SHAPE
+    mgr = KvBlockManager(KvbmConfig(
+        num_layers=layers, block_size=bs, kv_heads=kvh, head_dim=hd, dtype=torch.bfloat16,
+        device=device, disk_path=str(disk), remote_address=server.address, **KVBM))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    jobs_per_seq = KVBM_SEQ * (len(mgr.tier_order) - 1)  # one copy a block a tier
+
+    async def settle(done_before):
+        off = mgr.offload
+        deadline = time.time() + 300
+        while off.completed + off.skipped + off.failed - done_before < jobs_per_seq:
+            if time.time() > deadline:
+                raise AssertionError("the offload cascade did not settle")
+            await asyncio.sleep(0.01)
+
+    async def drive():
+        mgr.start()
+        out = []
+        try:
+            for k, (source, drop) in enumerate((
+                (Tier.G2_HOST, [Tier.G1_DEVICE]),
+                (Tier.G3_DISK, [Tier.G1_DEVICE, Tier.G2_HOST]),
+                (Tier.G4_REMOTE, [Tier.G1_DEVICE, Tier.G2_HOST, Tier.G3_DISK]),
+            )):
+                hashes = [(k + 1) << 32 | i for i in range(KVBM_SEQ)]
+                data = torch.randn((KVBM_SEQ, *KVBM_SHAPE), generator=gen, device=device,
+                                   dtype=torch.bfloat16)
+                off = mgr.offload
+                done = off.completed + off.skipped + off.failed
+                t0 = time.perf_counter()
+                ids = mgr.store_sequence(hashes, data)
+                await settle(done)
+                store_s = time.perf_counter() - t0
+                mgr.release_sequence(ids)
+                for t in drop:
+                    for h in hashes:
+                        mgr.pools[t].drop_hash(h)
+                held = [i for i, h in enumerate(hashes) if mgr.pools[source].has_hash(h)]
+                t0 = time.perf_counter()
+                hit, tier = await mgr.match_and_onboard([hashes[i] for i in held])
+                got = await asyncio.to_thread(mgr.primary.read, hit)
+                onboard_s = time.perf_counter() - t0
+                mgr.release_sequence(hit)
+                equal = len(hit) == len(held) and torch.equal(
+                    got.view(torch.int16), data[held].cpu().view(torch.int16))
+                out.append({"source": tier.value if tier else None, "expected": source.value,
+                            "blocks": len(held), "equal": equal, "store_cascade_s": store_s,
+                            "onboard_read_s": onboard_s})
+            return out
+        finally:
+            await mgr.stop()
+
+    zero_counters()
+    try:
+        seqs = asyncio.run(drive())
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+        disk.unlink(missing_ok=True)
+    counts = read_counters()
+    stats = mgr.stats()
+    line = {"card": card, "block_bytes": math.prod(KVBM_SHAPE) * 2, "sequences": seqs,
+            "offload": stats["offload"], "launches": {k: counts[k] for k in OFFLOAD_PATH}}
+    print(json.dumps({"smoke_kvbm": line}), flush=True)
+    for s in seqs:
+        if not (s["equal"] and s["source"] == s["expected"] and s["blocks"] > 0):
+            raise AssertionError(f"KVBM read-back failed: {s}")
+    if stats["offload"]["failed"] != 0:
+        raise AssertionError(f"KVBM transfers failed: {stats['offload']}")
+    if counts["plain_calls"] != 0 or any(counts[k] <= 0 for k in OFFLOAD_PATH):
+        raise AssertionError(f"G1 did not move blocks through the kernels: {counts}")
+    return {"counts": counts, "line": line}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1018,28 +1413,38 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = mla = spec = None
+    kinfo = serve = mla = spec = offload = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
         build.library()
         log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
             f"(nvcc wall {build.build_seconds}s; None = reused)")
+
+        def run(name, fn, *args):
+            gc.collect()  # the last phase's engine is shut down: free its memory first
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+            return out
+
         if "kernels" in phases:
-            kinfo = phase_kernels(torch)
+            kinfo = run("kernels", phase_kernels, torch)
         if "tiny" in phases:
-            phase_tiny()
+            run("tiny", phase_tiny)
         if "serve" in phases:
-            serve = phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B, LLAMA_PATH)
+            serve = run("serve", phase_serve, card, "serve", "llama3-8b-smoke", LLAMA3_8B,
+                        LLAMA_PATH)
         if "mla" in phases:
-            gc.collect()  # the 8B engine is shut down: free its memory first
-            torch.cuda.empty_cache()
-            mla = phase_serve(card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
-                              MLA_PATH)
+            mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
+                      DEEPSEEK_V2_LITE, MLA_PATH)
         if "spec" in phases:
-            gc.collect()
-            torch.cuda.empty_cache()
-            spec = phase_spec(torch, card)
+            spec = run("spec", phase_spec, torch, card)
+        if "offload" in phases:
+            offload = run("offload", phase_offload, torch, card)
+        if "kvbm" in phases:
+            run("kvbm", phase_kvbm, torch, card)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
         import traceback
 
@@ -1047,8 +1452,14 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if kinfo is not None and serve is not None and mla is not None and spec is not None:
+    if None not in (kinfo, serve, mla, spec, offload):
         cases = kinfo["cases"]
+        for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
+            case = cases["copy_llama_leaf"]
+            cases[f"{row}_llama_leaf"] = {
+                "ms": case[f"{row}_ms"], "plain_ms": case[f"{row}_plain_ms"],
+                "library_ms": case[f"{row}_library_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"]}
         entries = []
         for name, src, repl, case, err, launches in (
             ("ragged_paged_attention", "dynamo_tpu_torch/csrc/ragged_attention.cu",
@@ -1069,6 +1480,12 @@ def main() -> int:
             ("paged_window_attention_decode (W=5)", "dynamo_tpu_torch/csrc/paged_attention.cu",
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_w5_b8", "paged_w5",
              spec["llama"]["counts"]["paged_attention.window_launches"]),
+            ("gather_blocks", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:25", "gather_llama_leaf", "gather",
+             offload["counts"]["block_copy.gather_launches"]),
+            ("scatter_blocks", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_llama_leaf", "scatter",
+             offload["counts"]["block_copy.scatter_launches"]),
         ):
             c = cases[case]
             entries.append({

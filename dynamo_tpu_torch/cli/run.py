@@ -6,6 +6,10 @@ serves a model over the OpenAI HTTP API from one process (counterpart of
 unless ``--device cpu`` is given.  ``--speculative ngram`` turns on
 prompt-lookup speculative decoding (``--spec-tokens``, ``--spec-ngram``);
 such an engine runs every prefill through the split prefill step.
+``--host-offload-blocks N`` mounts the KV offload tiers below the device
+cache (G2 host memory, then ``--disk-offload-blocks`` on disk and
+``--remote-kv-store HOST:PORT``): evicted prefix blocks restore on a later
+prefix hit instead of being recomputed.
 
 Example:
   python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
@@ -49,6 +53,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                      help="draft tokens verified per step")
     run.add_argument("--spec-ngram", type=int, default=2,
                      help="lookup n-gram width for ngram drafting")
+    run.add_argument("--host-offload-blocks", type=int, default=0,
+                     help="G2 host-DRAM KV tier size (0 = off): device "
+                          "evictions offload here and restore on prefix hit")
+    run.add_argument("--disk-offload-blocks", type=int, default=0,
+                     help="G3 SSD KV tier size (needs --host-offload-blocks)")
+    run.add_argument("--remote-kv-store", default=None, metavar="HOST:PORT",
+                     help="G4 remote KV tier: a block-store server "
+                          "(python -m dynamo_tpu_torch.llm.block_manager.remote); "
+                          "bottom-tier evictions cascade there over TCP")
     args = parser.parse_args(argv)
 
     args.input, args.output = "http", "torch"
@@ -74,6 +87,12 @@ def engine_overrides(args: argparse.Namespace) -> dict:
     if args.speculative:
         overrides.update(speculative=args.speculative, spec_tokens=args.spec_tokens,
                          spec_ngram=args.spec_ngram)
+    if args.host_offload_blocks:
+        overrides["host_offload_blocks"] = args.host_offload_blocks
+    if args.disk_offload_blocks:
+        overrides["disk_offload_blocks"] = args.disk_offload_blocks
+    if args.remote_kv_store:
+        overrides["remote_store_addr"] = args.remote_kv_store
     return overrides
 
 

@@ -21,13 +21,20 @@ Architecture, as in the reference:
   does: every prefill then runs the split step, and a decode iteration in
   which enough lanes drafted runs the verify step, one forward over a
   window of spec_tokens + 1 positions a lane through the family's window
-  attention kernel.
+  attention kernel;
+- with an offload tier mounted (``host_offload_blocks`` > 0, then
+  optionally disk and a remote block store), registered blocks evicted from
+  the device cache offload to host memory (one block-gather kernel launch
+  a cache leaf, one copy to pinned memory), cascade down-tier, and restore
+  on a later prefix hit (one copy to the device, one block-scatter kernel
+  launch a leaf) instead of being recomputed.  Paging is on demand: the
+  reference's predictive prefetch pager is a later slice.
 All steps end in the same sampling tail.
 
 This slice runs decode synchronously.  Overlapped and fused multi-step
-decode, guided decoding, multimodal prompts, disaggregated prefill, KV
-offload and prefetch, quantization and multi-device meshes are later
-slices; the engine refuses configurations that would need them.
+decode, guided decoding, multimodal prompts, disaggregated prefill,
+prefetch, quantization and multi-device meshes are later slices; the
+engine refuses configurations that would need them.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -60,6 +67,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.models.registry import get_family
+from dynamo_tpu_torch.ops.kernels import block_copy
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.random import fold_in, gumbel
@@ -132,6 +140,25 @@ class EngineConfig:
     speculative: str | None = None
     spec_tokens: int = 4
     spec_ngram: int = 2
+    # G2 host-DRAM tier: registered blocks evicted from the device cache
+    # offload here and restore on a later prefix hit instead of recomputing
+    # (0 = off).  Reference: block manager G1→G2 offload,
+    # lib/llm/src/block_manager/offload.rs:77-80.
+    host_offload_blocks: int = 0
+    # G3 SSD tier: host-LRU evictions cascade to a memmap disk pool and
+    # restore from there (0 = off; needs host_offload_blocks > 0).  The
+    # pool's file is disk_offload_path, else a fresh file in the temp dir.
+    disk_offload_blocks: int = 0
+    disk_offload_path: str | None = None
+    # G4 remote tier: "host:port" of a BlockStoreServer
+    # (llm/block_manager/remote.py); bottom-tier evictions cascade there
+    # over TCP and prefix hits restore from it (None = off; needs
+    # host_offload_blocks > 0).
+    remote_store_addr: str | None = None
+    # Predictive prefetch over the offload tiers.  The port pages on demand
+    # only (the reference's prefetch=False); True raises until the pager is
+    # ported with the router hints it reads.
+    prefetch: bool = False
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
@@ -256,11 +283,50 @@ class TorchLlmEngine:
         self._decode_steps_total = 0
         self._tokens_emitted = 0
 
+        if config.prefetch:
+            raise NotImplementedError(
+                "predictive prefetch comes with a later slice of the port (ROADMAP "
+                "Queue 1 item 4, the router hints it reads); prefetch=False pages "
+                "offloaded blocks back on demand"
+            )
+        # the offload tiers below the device cache (G2 host → G3 disk → G4
+        # remote): one payload a block, each leaf's [L, ...] slice
+        self.host_tier = None
+        self._host_evictions: list[int] | None = None
+        # where restores spend their time: the tier reads into staging (host
+        # clock), the copies to the device and the scatter kernels (CUDA
+        # events on a card, the host clock on the CPU)
+        self._restore_ms = {"stage": 0.0, "copy": 0.0, "scatter": 0.0}
+        offload_sink = None
+        if config.host_offload_blocks:
+            from dynamo_tpu_torch.engine.offload import HostOffloadTier
+
+            self.host_tier = HostOffloadTier(
+                config.host_offload_blocks,
+                {k: (v.shape[0], *v.shape[2:]) for k, v in self.cache.items()},
+                {k: v.dtype for k, v in self.cache.items()},
+                disk_blocks=config.disk_offload_blocks,
+                disk_path=config.disk_offload_path,
+                remote_addr=config.remote_store_addr,
+            )
+            offload_sink = self._offload_blocks
+            # a hash that left EVERY tier (fell off the bottom of the
+            # G2→G3→G4 cascade) while no longer device-resident: routers
+            # must forget it
+            self.host_tier.evict_observer = self._host_evicted
+        elif config.disk_offload_blocks or config.remote_store_addr:
+            # a silently ignored tier config is worse than a loud one: the
+            # operator believes offload is on while nothing mounts
+            raise ValueError(
+                "KV offload tiers configured but unusable: disk/remote tiers "
+                "need host_offload_blocks > 0"
+            )
         # prefix caching: completed blocks stay resident and a matching
         # prompt prefills only its uncached tail (the unified step reads the
         # resident prefix through the paged cache)
         self.allocator = BlockAllocator(
             config.num_blocks, config.block_size, enable_prefix_caching=True,
+            offload_sink=offload_sink, host_tier=self.host_tier,
         )
         self.scheduler = Scheduler(
             self.allocator, max_batch_size=lanes,
@@ -297,6 +363,8 @@ class TorchLlmEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self.host_tier is not None:
+            self.host_tier.close()  # release + delete the G3 memmap
 
     # -- async engine interface -------------------------------------------
     async def generate(self, request: Context[dict]) -> ResponseStream[dict]:
@@ -361,7 +429,7 @@ class TorchLlmEngine:
     def stats(self) -> dict:
         """ForwardPassMetrics and engine counters, under the reference's key
         names (the subset this engine has)."""
-        return {
+        out = {
             "kv_active_blocks": self.allocator.used_blocks,
             "kv_total_blocks": self.allocator.num_blocks,
             "kv_cached_blocks": self.allocator.cached_blocks,
@@ -389,6 +457,11 @@ class TorchLlmEngine:
             "attention_impl": self.attention_impl,
             "device": str(self.device),
         }
+        if self.host_tier is not None:
+            out.update(self.host_tier.stats())
+            out["offload_tiers"] = self.host_tier.tiers_snapshot()
+            out.update({f"restore_{k}_ms_total": v for k, v in self._restore_ms.items()})
+        return out
 
     # -- device thread -----------------------------------------------------
     def _device_loop(self) -> None:
@@ -401,6 +474,9 @@ class TorchLlmEngine:
         )
         while not self._stop:
             try:
+                # evictions queued outside a device-thread mutator offload
+                # here, before anything can write into the evicted blocks
+                self.allocator.flush_offloads()
                 self._drain_submissions()
                 if not self.scheduler.has_work():
                     self._wake.wait(timeout=0.05)
@@ -498,6 +574,27 @@ class TorchLlmEngine:
         tb = self._unified_tb
         bs = self.config.block_size
         oob = self.config.num_blocks * bs
+
+        # prefix restores from the offload tiers run as in _run_prefill, but a
+        # failed restore fails ONLY its sequence (one bad tier read must not
+        # take down every request in the window).  The plan goes back first
+        # so free_sequence can unregister the garbage landing blocks and
+        # release the tier pins.
+        failed: list[Sequence] = []
+        for seq, _, _ in spans:
+            restore = self.allocator.take_restore_plan(seq.seq_id)
+            if restore:
+                try:
+                    self._restore_blocks(restore)
+                except Exception as exc:  # noqa: BLE001
+                    logger.exception("prefix restore failed for %s", seq.seq_id)
+                    self.allocator.put_back_restore_plan(seq.seq_id, restore)
+                    self._fail_sequence(seq, exc)
+                    failed.append(seq)
+        if failed:
+            spans = [(s, a, b) for s, a, b in spans if s not in failed]
+            if not spans:
+                return False  # decode-only now: the split step serves it
 
         # decode slot growth, preempting like the plain decode path
         slots: dict[str, int] = {}
@@ -853,11 +950,14 @@ class TorchLlmEngine:
             )
         restore = self.allocator.take_restore_plan(seq.seq_id)
         if restore:
-            self.allocator.put_back_restore_plan(seq.seq_id, restore)
-            raise NotImplementedError(
-                "restoring offloaded prefix blocks comes with the offload slice "
-                "of the port (ROADMAP Queue 1 item 7)"
-            )
+            try:
+                self._restore_blocks(restore)
+            except BaseException:
+                # the plan must survive a failed restore: _fail_sequence →
+                # free_sequence needs it to unregister the garbage landing
+                # blocks and release the tier pins
+                self.allocator.put_back_restore_plan(seq.seq_id, restore)
+                raise
         cfg = self.config.model
         bs = self.config.block_size
         dev = self.device
@@ -1117,6 +1217,110 @@ class TorchLlmEngine:
         if tops:
             top = (torch.stack([v for v, _ in tops], dim=1), torch.stack([k for _, k in tops], dim=1))
         return tokens, n_accept, torch.stack(lps, dim=1), top
+
+    # -- KV offload tiers ----------------------------------------------------
+    def _offload_blocks(self, pairs: list[tuple[int, int]]) -> list[int]:
+        """Allocator eviction hook: copy the evicted blocks' cache slices to
+        the offload tiers (device thread, before the new owners write): one
+        gather-kernel launch a cache leaf into ``[L, n, ...]``, one copy into
+        pinned host memory, a synchronize, then one ``put`` a block.  Returns
+        hashes that failed to offload (host tier full of pins) — those must
+        be announced removed."""
+        ids = [bid for bid, _ in pairs]
+        pinned = self.device.type == "cuda"
+        gathered = {}
+        for name in sorted(self.cache):
+            staged = block_copy.gather_blocks(self.cache[name], ids, axis=1)
+            if pinned:
+                host = torch.empty(staged.shape, dtype=staged.dtype, pin_memory=True)
+                host.copy_(staged, non_blocking=True)
+                staged = host
+            gathered[name] = staged
+        if pinned:
+            # the host bytes are read below: the copies must have landed
+            torch.cuda.current_stream(self.device).synchronize()
+        failed: list[int] = []
+        # host-LRU evictions triggered by these puts are judged AFTER the
+        # whole batch: a hash evicted mid-batch may be re-inserted by a
+        # later put (no event), or end up in no tier (removed event)
+        self._host_evictions = []
+        try:
+            for i, (_, h) in enumerate(pairs):
+                content = {name: leaf[:, i] for name, leaf in gathered.items()}
+                if not self.host_tier.put(h, content):
+                    failed.append(h)
+            for h in self._host_evictions:
+                if (
+                    not self.host_tier.has(h)
+                    and not self.allocator.is_registered(h)
+                    and h not in failed
+                ):
+                    failed.append(h)
+        finally:
+            self._host_evictions = None
+        return failed
+
+    def _host_evicted(self, seq_hash: int) -> None:
+        """Offload-tier eviction observer.  During an offload batch the
+        verdict is deferred to the end of the batch (a later put may
+        re-insert the hash); outside a batch it is announced at once."""
+        if self._host_evictions is not None:
+            self._host_evictions.append(seq_hash)
+            return
+        if not self.allocator.is_registered(seq_hash):
+            self.allocator.emit_removed([seq_hash])
+
+    def _stage_restore(self, plan: list[tuple[int, int]]) -> tuple[list[int], dict]:
+        """Read the plan's pinned blocks from the tiers (one batched read a
+        tier, pins released) into host staging buffers ``[L, n, ...]`` a
+        cache leaf, pinned on a card.  Returns (landing ids, buffers)."""
+        n = len(plan)
+        pinned = self.device.type == "cuda"
+        staged = {
+            name: torch.empty((leaf.shape[0], n, *leaf.shape[2:]), dtype=leaf.dtype,
+                              pin_memory=pinned)
+            for name, leaf in self.cache.items()
+        }
+        contents = self.host_tier.read_pinned_many([h for h, _ in plan])
+        for i, (h, _) in enumerate(plan):
+            content = contents.get(h)
+            if content is None:
+                raise RuntimeError(f"pinned offload block {h:#x} vanished from every tier")
+            for name, arr in content.items():
+                staged[name][:, i] = arr
+        return [bid for _, bid in plan], staged
+
+    def _restore_blocks(self, plan: list[tuple[int, int]]) -> None:
+        """Land the plan's blocks from the offload tiers in their device
+        blocks: stage on the host, one copy to the device and one
+        scatter-kernel launch a cache leaf, then register the blocks."""
+        t0 = time.perf_counter()
+        ids, staged = self._stage_restore(plan)
+        t1 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record(stream)
+        on_dev = {name: host.to(self.device, non_blocking=True) for name, host in staged.items()}
+        if cuda:
+            ev[1].record(stream)
+        t2 = time.perf_counter()
+        for name, blocks in on_dev.items():
+            block_copy.scatter_blocks(self.cache[name], blocks, ids, axis=1)
+        if cuda:
+            ev[2].record(stream)
+            # the staging buffers are released on return: their copies must
+            # have landed first
+            stream.synchronize()
+            copy_ms, scatter_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        else:
+            copy_ms, scatter_ms = (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3
+        self._restore_ms["stage"] += (t1 - t0) * 1e3
+        self._restore_ms["copy"] += copy_ms
+        self._restore_ms["scatter"] += scatter_ms
+        # content is on the device now: the landing blocks become matchable
+        self.allocator.register_restored(plan)
 
     def _process_token(
         self, seq: Sequence, token: int, logprob: float | None = None, top=None,

@@ -2,6 +2,7 @@
 in dynamo_tpu/ops/pallas) and their wrappers.  Importing this package
 builds nothing: ``build.library()`` compiles on first launch."""
 
+from dynamo_tpu_torch.ops.kernels.block_copy import gather_blocks, scatter_blocks
 from dynamo_tpu_torch.ops.kernels.mla_attention import (
     mla_paged_attention_decode,
     mla_paged_window_attention_decode,
@@ -17,6 +18,7 @@ from dynamo_tpu_torch.ops.kernels.ragged_attention import (
 )
 
 __all__ = [
+    "gather_blocks",
     "mla_paged_attention_decode",
     "mla_paged_window_attention_decode",
     "pack_page_meta",
@@ -24,4 +26,5 @@ __all__ = [
     "paged_window_attention_decode",
     "ragged_mla_attention",
     "ragged_paged_attention",
+    "scatter_blocks",
 ]

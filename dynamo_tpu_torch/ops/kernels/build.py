@@ -26,7 +26,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("paged_attention.cu", "ragged_attention.cu", "mla_attention.cu")
+SOURCES = ("paged_attention.cu", "ragged_attention.cu", "mla_attention.cu", "block_copy.cu")
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,7 +94,7 @@ def _compile(nvcc: str, out: Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.dyn_paged_window_attention.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.dyn_paged_window_attention.restype = i
     lib.dyn_ragged_paged_attention.argtypes = [p] * 10 + [i] * 9 + [p]
@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_mla_paged_window_decode.restype = i
     lib.dyn_ragged_mla_attention.argtypes = [p] * 11 + [i] * 7 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i
+    lib.dyn_gather_blocks.argtypes = [p] * 3 + [i64] * 4 + [p]
+    lib.dyn_gather_blocks.restype = i
+    lib.dyn_scatter_blocks.argtypes = [p] * 3 + [i64] * 4 + [p]
+    lib.dyn_scatter_blocks.restype = i
 
 
 def library() -> ctypes.CDLL:

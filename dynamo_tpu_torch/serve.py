@@ -82,7 +82,8 @@ async def serve_http(
 ) -> HttpHandle:
     """Start the engine and an OpenAI HTTP frontend over it, in process.
     ``engine_overrides`` go to EngineConfig (e.g. ``speculative="ngram",
-    spec_tokens=4``).  Weight loading runs off the event loop."""
+    spec_tokens=4``, ``host_offload_blocks=64``).  Weight loading, and the
+    mount of a remote KV store, run off the event loop."""
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     engine = await asyncio.to_thread(
         build_torch_engine, model_dir, mdc, device=device, **engine_overrides

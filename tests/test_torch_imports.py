@@ -35,7 +35,15 @@ def test_importing_every_module_pulls_in_no_jax():
     names = set(names.split())
     assert len(names) > 30
     assert {"dynamo_tpu_torch.models.deepseek", "dynamo_tpu_torch.ops.moe",
-            "dynamo_tpu_torch.ops.kernels.mla_attention"} <= names
+            "dynamo_tpu_torch.ops.kernels.mla_attention",
+            "dynamo_tpu_torch.ops.block_copy", "dynamo_tpu_torch.ops.kernels.block_copy",
+            "dynamo_tpu_torch.llm.block_manager.storage",
+            "dynamo_tpu_torch.llm.block_manager.pool",
+            "dynamo_tpu_torch.llm.block_manager.offload",
+            "dynamo_tpu_torch.llm.block_manager.manager",
+            "dynamo_tpu_torch.llm.block_manager.remote",
+            "dynamo_tpu_torch.runtime.codec",
+            "dynamo_tpu_torch.engine.offload"} <= names
     assert bad == "[]"
 
 
