@@ -10,7 +10,12 @@ Phases (any failure exits non-zero, before the result line):
                MLA: 16 heads, latent 512, rope 64, 16-token blocks, bf16
                caches, float32 absorbed queries; the verify windows at W=5),
                plus sliding-window, head-dim-64, head-dim-16 and tiny-MLA
-               float32 cases; time the kernel, the plain version and one
+               float32 cases, the split walks' edges (one lane at ctx 16,
+               idle lanes, a 64-row window) and eight decode lanes up to
+               4096 in one ragged MLA token block; rows 2 and 3 launched
+               twice on the same inputs must give the same bits; time
+               (CUDA events, and the device's own time under
+               torch.profiler) the kernel, the plain version and one
                PyTorch library call (scaled_dot_product_attention over
                gathered K/V, a yardstick the port never calls) beside the
                least time the card needs; the block gather/scatter kernels
@@ -53,7 +58,9 @@ Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for iterating on one phase); the result line is
-printed only when every phase ran and passed.
+printed only when every phase ran and passed.  ``--phases build,sweep``
+times rows 2 and 3 under other grid aims of their split planners (not
+part of the default run).
 """
 
 from __future__ import annotations
@@ -117,6 +124,24 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """One call's device time: the CUDA kernels' own time under
+    torch.profiler over ``iters`` calls, over ``iters``.  Beside ``ms``
+    (CUDA events around back-to-back calls), which also holds the host's
+    launch cost where the host is the slower side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages())
+    return total_us / iters / 1e3 if total_us > 0 else "not measured"
 
 
 def make_cache(torch, n_blocks, bs, kvh, d, dtype, gen):
@@ -191,13 +216,15 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
         return plain.paged_window_attention(qq, kk, vv, tables, ctx, sliding_window=window)
 
     out = kernel()
+    again = kernel()  # the same inputs must give the same bits
     ref = plain_fn(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     live = ctx > 0
     err = (out.float()[live] - ref[live]).abs().max().item()
     res = {"max_abs_err": err, "ref_absmax": ref[live].abs().max().item(),
            "finite": bool(torch.isfinite(out).all()),
-           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True}
+           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
+           "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8))}
     if not timed:
         return res
     length = max_blocks * bs
@@ -218,7 +245,7 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
     mask = mask[:, None]                              # [b, 1, w, length]
     q4 = q.transpose(1, 2)                            # [b, h, w, d]
     res.update(
-        ms=time_ms(kernel, 20),
+        ms=time_ms(kernel, 20), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: plain_fn(q, k, v), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), 20),
@@ -324,7 +351,7 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     res.update(
-        ms=time_ms(kernel, 10),
+        ms=time_ms(kernel, 10), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: plain.ragged_paged_attention(
             q, k, v, tables, None, token_lane, token_pos, sliding_window=window), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -422,7 +449,7 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
     q_pos = (ctx[:, None] - w + torch.arange(w, device="cuda")[None, :]).repeat_interleave(h, 1)
     mask = (torch.arange(length, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
     res.update(
-        ms=time_ms(kernel, 20),
+        ms=time_ms(kernel, 20), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: plain_fn(q_rope, ck, kr), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, scale=scale), 20),
@@ -462,6 +489,7 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
                                     *meta_dev, scale=scale, tb_tokens=tb)
 
     out = kernel()
+    again = kernel()  # the same inputs must give the same bits
     ref = plain.ragged_mla_paged_attention(q_lat, q_rope.float(), ck.float(), kr.float(),
                                            tables, token_lane, token_pos, scale=scale)
     torch.cuda.synchronize()
@@ -470,7 +498,8 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
            "ref_absmax": ref[live].abs().max().item(),
            "finite": bool(torch.isfinite(out).all()),
            "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
-           "tokens": t}
+           "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
+           "tokens": t, "page_slots": meta[0].shape[1]}
     if not timed:
         return res
     pages = {(int(meta[0][tt, j])) for tt in range(meta[3].shape[0])
@@ -489,7 +518,7 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1)[:, None]
     mask = (torch.arange(length, device="cuda")[None, :] <= token_pos[:, None])[:, None, None, :]
     res.update(
-        ms=time_ms(kernel, 10),
+        ms=time_ms(kernel, 10), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: plain.ragged_mla_paged_attention(
             q_lat, q_rope, ck, kr, tables, token_lane, token_pos, scale=scale), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -587,6 +616,8 @@ def check_case(name: str, res: dict, atol: float) -> None:
     log(f"[kernels] {name} (atol {atol}): {json.dumps(shown)}")
     if not res["finite"] or not res.get("pads_zero", True):
         raise AssertionError(f"{name}: non-finite output or non-zero pad rows")
+    if not res.get("deterministic", True):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
     if not res["max_abs_err"] <= atol:
         raise AssertionError(f"{name}: max_abs_err {res['max_abs_err']} > {atol}")
 
@@ -614,6 +645,20 @@ def phase_kernels(torch) -> dict:
     check_case("decode head dim 64 bf16", d64, BF16_ATOL)
     d64_r = ragged_case(torch, spans=mix, d=64, t_pad=352, timed=False)
     check_case("ragged head dim 64 bf16", d64_r, BF16_ATOL)
+    # the split walk's edges (row 2): one lane at ctx 16 in a one-page table
+    # (one split) and in a 2048-position table (one non-empty split of 32),
+    # idle lanes beside long ones, and a 64-row window (two row groups)
+    edges = {
+        "decode_b1_ctx16": decode_case(torch, lens=[16], seed=11, timed=False),
+        "decode_b1_ctx16_table2048": decode_case(torch, lens=[16], seed=12, timed=False,
+                                                 max_blocks=128),
+        "decode_idle_lanes": decode_case(torch, lens=[2047, 0, 16, 0, 700], seed=13,
+                                         timed=False),
+        "verify_w16_rows64": decode_case(torch, lens=[2047, 700, 33, 0, 2050], w=16, seed=14,
+                                         timed=False, max_blocks=128),
+    }
+    for name, res in edges.items():
+        check_case(name, res, BF16_ATOL)
     small = decode_case(torch, lens=[5, 17, 29, 64], h=4, kvh=2, d=16, bs=16,
                         dtype=torch.float32, seed=7, timed=False)
     check_case("decode head dim 16 fp32", small, F32_ATOL)
@@ -649,6 +694,14 @@ def phase_kernels(torch) -> dict:
     cases["mla_ragged_mix"] = mla_ragged_case(torch, spans=mix, t_pad=352)
     check_case("mla ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
                cases["mla_ragged_mix"], MLA_ATOL)
+    # eight decode lanes at contexts up to 4096 packed in one token block: one
+    # worklist of ~1000 pages, split across CTAs
+    dec_rng = random.Random(4096)  # its own stream: the other cases keep their contexts
+    dec_lens = [4096, 4095, *(dec_rng.randint(1, 4096) for _ in range(6))]
+    cases["mla_ragged_decode8"] = mla_ragged_case(
+        torch, spans=[(i, n - 1, 1) for i, n in enumerate(dec_lens)], t_pad=8)
+    check_case("mla ragged 8 decode lanes <= 4096 in one token block",
+               cases["mla_ragged_decode8"], MLA_ATOL)
     mla_small = mla_decode_case(torch, lens=[5, 17, 0, 64], h=4, r=32, p=8,
                                 dtype=torch.float32, seed=21, timed=False)
     check_case("mla decode tiny_mla fp32", mla_small, F32_ATOL)
@@ -690,18 +743,79 @@ def phase_kernels(torch) -> dict:
         torch.cuda.empty_cache()
     errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
-                     win["max_abs_err"], d64["max_abs_err"]),
+                     win["max_abs_err"], d64["max_abs_err"],
+                     *(edges[e]["max_abs_err"] for e in edges if e.startswith("decode"))),
         "paged_w5": max(*(cases[f"verify_w5_b{b}"]["max_abs_err"] for b in (8, 32)),
-                        win5["max_abs_err"]),
+                        win5["max_abs_err"], edges["verify_w16_rows64"]["max_abs_err"]),
         "ragged": max(cases["ragged_mix"]["max_abs_err"], win_r["max_abs_err"],
                       d64_r["max_abs_err"]),
         "mla_decode": max(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
         "mla_window": max(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
-        "mla_ragged": cases["mla_ragged_mix"]["max_abs_err"],
+        "mla_ragged": max(cases["mla_ragged_mix"]["max_abs_err"],
+                          cases["mla_ragged_decode8"]["max_abs_err"]),
         **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
            for row in ("gather", "scatter")},
     }
     return {"cases": cases, "errs": errs}
+
+
+# phase "sweep", run only when named: the split planners' grid aims
+SWEEP_PAGED = (1, 2, 4, 8)  # paged_attention.CTAS_PER_SM
+SWEEP_MLA = ((2, 16), (4, 16), (8, 16), (16, 16), (16, 8))  # (CTAS_PER_SM, MIN_CHUNK_PAGES)
+
+
+def phase_sweep(torch) -> dict:
+    """Rows 2 and 3 at the kernels phase's shapes (contexts drawn alike)
+    under other grid aims of their split planners (``plan_splits``,
+    ``plan_chunks``): event and device times, and the float32 partial
+    scratch each plan allocates.  The planners' constants are restored."""
+    from dynamo_tpu_torch.ops.kernels import mla_attention as mk
+    from dynamo_tpu_torch.ops.kernels import paged_attention as pk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = random.Random(0)
+    paged = {
+        "decode_b1": dict(lens=[2047]),
+        "decode_b8": dict(lens=[2047, 2048, *(rng.randint(1, 2048) for _ in range(6))]),
+        "decode_b32": dict(lens=[2047, 2048, *(rng.randint(1, 2048) for _ in range(30))]),
+        "verify_w5_b8": dict(lens=[2047, 2048, 2050, *(rng.randint(5, 2048) for _ in range(5))],
+                             w=5, max_blocks=128),
+    }
+    mix = [(0, 0, 300), (1, 512, 37), *((2 + i, rng.randint(100, 2047), 1) for i in range(6))]
+    dec = [4096, 4095, *(rng.randint(1, 4096) for _ in range(6))]
+    mla = {"mla_ragged_mix": dict(spans=mix, t_pad=352),
+           "mla_ragged_decode8": dict(spans=[(i, n - 1, 1) for i, n in enumerate(dec)], t_pad=8)}
+    saved = (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES)
+    rows = []
+
+    def keep(name, res, **plan):
+        rows.append({"case": name, **plan, **{k: res[k] for k in (
+            "ms", "device_ms", "library_ms", "bound_ms", "max_abs_err", "deterministic")}})
+        log(f"[sweep] {json.dumps(rows[-1])}")
+
+    try:
+        for aim in SWEEP_PAGED:
+            pk.CTAS_PER_SM = aim
+            for name, kw in paged.items():
+                b, w = len(kw["lens"]), kw.get("w", 1)
+                splits, chunk = pk.plan_splits(
+                    b, 8, w * 4, kw.get("max_blocks") or -(-max(kw["lens"]) // 16), 16, sms)
+                keep(name, decode_case(torch, seed=1, **kw), ctas_per_sm=aim, splits=splits,
+                     chunk_pages=chunk, scratch_mb=b * 8 * splits * w * 4 * 130 * 4 / 1e6
+                     if splits > 1 else 0.0)
+        for aim, floor in SWEEP_MLA:
+            mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES = aim, floor
+            for name, kw in mla.items():
+                res = mla_ragged_case(torch, **kw)
+                num_tb = res["tokens"] // 8
+                chunks, chunk = mk.plan_chunks(num_tb, 8, 16, res["page_slots"], sms)
+                keep(name, res, ctas_per_sm=aim, min_chunk_pages=floor, chunks=chunks,
+                     chunk_pages=chunk, scratch_mb=num_tb * chunks * 128 * 514 * 4 / 1e6
+                     if chunks > 1 else 0.0)
+    finally:
+        pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES = saved
+    print(json.dumps({"smoke_sweep": rows}), flush=True)
+    return {"rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1388,10 +1502,10 @@ def phase_kvbm(torch, card: str, device: str = "cuda") -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
+                    help=f"comma-separated subset of {','.join(PHASES)}, or sweep")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    bad = set(phases) - set(PHASES)
+    bad = set(phases) - set(PHASES) - {"sweep"}
     if bad:
         ap.error(f"unknown phases {sorted(bad)}")
 
@@ -1445,6 +1559,8 @@ def main() -> int:
             offload = run("offload", phase_offload, torch, card)
         if "kvbm" in phases:
             run("kvbm", phase_kvbm, torch, card)
+        if "sweep" in phases:
+            run("sweep", phase_sweep, torch)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
         import traceback
 
@@ -1493,10 +1609,10 @@ def main() -> int:
                 "launches": launches, "max_abs_err": kinfo["errs"][err],
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                "case": case,
+                "device_ms": c.get("device_ms", "not measured"), "case": case,
             })
         print(json.dumps({"kernels": entries}), flush=True)
-    if set(phases) != set(PHASES):
+    if not set(PHASES) <= set(phases):
         log("subset run: no result line")
         return 0
     print(card, flush=True)

@@ -27,7 +27,7 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("paged_attention.cu", "ragged_attention.cu", "mla_attention.cu", "block_copy.cu")
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "split_attention.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -95,7 +95,7 @@ def _compile(nvcc: str, out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.dyn_paged_window_attention.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.dyn_paged_window_attention.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.dyn_paged_window_attention.restype = i
     lib.dyn_ragged_paged_attention.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.dyn_ragged_paged_attention.restype = i
@@ -103,7 +103,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_mla_paged_decode.restype = i
     lib.dyn_mla_paged_window_decode.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
     lib.dyn_mla_paged_window_decode.restype = i
-    lib.dyn_ragged_mla_attention.argtypes = [p] * 11 + [i] * 7 + [f, i, p]
+    lib.dyn_ragged_mla_attention.argtypes = [p] * 13 + [i] * 9 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i
     lib.dyn_gather_blocks.argtypes = [p] * 3 + [i64] * 4 + [p]
     lib.dyn_gather_blocks.restype = i

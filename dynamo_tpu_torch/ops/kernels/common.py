@@ -1,6 +1,8 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and device facts shared by the kernel wrappers."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +18,21 @@ def stream_ptr(device: torch.device) -> int:
     """The current CUDA stream of ``device``, as the integer the C entry
     points take."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (the split planners
+    size their grids by it)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def check_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

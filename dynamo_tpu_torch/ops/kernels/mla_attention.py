@@ -10,8 +10,16 @@ float32 absorbed queries ``q_lat``, the roped queries ``q_rope`` and the two
 caches ``ck [N, bs, R]`` (latents: keys AND values) and ``kr [N, bs, P]``
 (rope keys) in the model dtype, and return the float32 context in latent
 space.  A CPU tensor goes to the plain PyTorch version in ``ops.attention``;
-a CUDA tensor launches the kernel or raises.  ``*_launches`` count kernel
-launches, ``*_plain_calls`` calls routed to the plain version.
+a CUDA tensor launches the kernel or raises.  ``*_launches`` count wrapper
+calls that launched the kernel (for the ragged split walk: the walk and,
+with more than one chunk, its combine), ``*_plain_calls`` calls routed to
+the plain version.
+
+The ragged step at DeepSeek widths (bf16 caches, R 512, P 64, 16-position
+pages, heads a multiple of 16) takes the split tensor-core walk:
+``plan_chunks`` cuts every token block's page worklist into chunks from
+the shapes alone (never from ``page_count``, which would cost a
+device-to-host read a layer).
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ from dynamo_tpu_torch.ops.attention import (
 )
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels.common import (
+    ceil_div,
     check_index,
     check_layout,
     dtype_code,
+    sm_count,
     stream_ptr,
 )
 
@@ -41,6 +51,35 @@ window_plain_calls = 0
 # (R, P) geometries the kernels are built for: DeepSeek-V2/V3 and tiny_mla
 GEOMETRIES = ((512, 64), (32, 8))
 MAX_TOKEN_BLOCK = 8  # tb_tokens the ragged kernel takes (query rows per CTA)
+# the ragged split walk (csrc/mla_attention.cu, rtc::): its geometry, the
+# 16-row MMA tiles a CTA holds, and the planner's aims
+SPLIT_GEOMETRY = (512, 64, 16)  # R, P, block size
+TILES_PER_CTA = 4
+CTAS_PER_SM = 4        # the grid aims at about this many CTAs an SM
+MIN_CHUNK_PAGES = 16   # a chunk holds at least this many worklist entries ...
+MAX_CHUNK_PAGES = 256  # ... and at most this many (the kernel's list)
+MAX_CHUNKS = 256       # chunks a worklist may have (the combine's)
+
+
+def plan_chunks(num_tb: int, tb_tokens: int, heads: int, page_slots: int,
+                sms: int) -> tuple[int, int]:
+    """``(chunks, chunk_pages)`` of the ragged split walk, from shapes
+    alone: chunk c of a token block walks worklist entries ``[c *
+    chunk_pages, (c + 1) * chunk_pages)``.  Enough chunks that the grid
+    (chunks x tile groups x token blocks) holds about ``CTAS_PER_SM`` CTAs
+    an SM (chunks past a block's ``page_count`` exit at once), at most
+    ``MAX_CHUNKS``, none shorter than ``MIN_CHUNK_PAGES`` or longer than
+    ``MAX_CHUNK_PAGES`` (so a worklist of more than MAX_CHUNKS *
+    MAX_CHUNK_PAGES entries is refused at launch), and ``chunks *
+    chunk_pages >= page_slots`` with no empty trailing chunk."""
+    page_slots = max(1, page_slots)
+    groups = ceil_div(ceil_div(tb_tokens * heads, 16), TILES_PER_CTA)
+    ctas = max(1, num_tb * groups)
+    chunks = min(ceil_div(CTAS_PER_SM * sms, ctas), ceil_div(page_slots, MIN_CHUNK_PAGES),
+                 MAX_CHUNKS)
+    chunks = max(1, chunks, ceil_div(page_slots, MAX_CHUNK_PAGES))
+    chunk = ceil_div(page_slots, chunks)
+    return ceil_div(page_slots, chunk), chunk
 
 
 def _check(q_lat, q_rope, ck_cache, kr_cache) -> None:
@@ -211,11 +250,21 @@ def ragged_mla_attention(
         page_lane=page_lane, page_ord=page_ord, page_count=page_count,
     )
     out = torch.empty_like(q_lat)
+    p, bs, slots = q_rope.shape[-1], ck_cache.shape[1], page_phys.shape[1]
+    chunks, chunk, part_acc, part_ml = 1, slots, None, None
+    if ck_cache.dtype == torch.bfloat16 and (r, p, bs) == SPLIT_GEOMETRY and h % 16 == 0:
+        chunks, chunk = plan_chunks(num_tb, tb_tokens, h, slots, sm_count(q_lat.device))
+        if chunks > 1:  # the partials the combine merges: acc, then m and l
+            n_rows = num_tb * chunks * tb_tokens * h
+            scratch = torch.empty(n_rows * (r + 2), dtype=torch.float32, device=q_lat.device)
+            part_acc = scratch.data_ptr()
+            part_ml = part_acc + n_rows * r * 4
     code = build.library().dyn_ragged_mla_attention(
         q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
         token_lane.data_ptr(), token_pos.data_ptr(), page_phys.data_ptr(),
         page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(), out.data_ptr(),
-        t, h, r, q_rope.shape[-1], ck_cache.shape[1], tb_tokens, page_phys.shape[1],
+        part_acc, part_ml,
+        t, h, r, p, bs, tb_tokens, slots, chunks, chunk,
         float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
     )
     build.check(code, "ragged_mla_attention")

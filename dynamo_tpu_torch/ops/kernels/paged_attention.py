@@ -5,9 +5,14 @@ Counterpart of dynamo_tpu/ops/pallas/paged_attention.py: the window kernel
 ``paged_attention_decode``, the same kernel at W=1, which the decode step
 calls; speculative verify calls it at W = spec_tokens + 1.  A CPU tensor
 goes to the plain PyTorch version (``ops.attention.paged_window_attention``);
-a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
-launches, ``window_launches`` those of them at W > 1, ``plain_calls`` calls
-routed to the plain version.
+a CUDA tensor launches the kernel or raises.  ``launches`` counts wrapper
+calls that launched the kernel (the split walk and, with more than one
+split, its combine), ``window_launches`` those of them at W > 1,
+``plain_calls`` calls routed to the plain version.
+
+bf16 caches at head dims 64 and 128 take the split walk: ``plan_splits``
+cuts each sequence's block table into chunks from the shapes alone (never
+from ``context_lens``, which would cost a device-to-host read a layer).
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ import torch
 
 from dynamo_tpu_torch.ops.attention import paged_window_attention
 from dynamo_tpu_torch.ops.kernels.common import (
+    ceil_div,
     check_cache,
     check_index,
     dtype_code,
+    sm_count,
     stream_ptr,
 )
 from dynamo_tpu_torch.ops.kernels import build
@@ -27,12 +34,35 @@ launches = 0
 window_launches = 0
 plain_calls = 0
 
-MAX_ROWS = 64  # query rows one CTA holds (csrc/attention_common.cuh)
+MAX_ROWS = 64  # query rows (W * heads / kv heads) a kv head may have
+SPLIT_HEAD_DIMS = (64, 128)  # bf16 head dims of the split tensor-core walk
+ROWS_PER_CTA = 32    # query rows a CTA of the split walk holds (more: row groups)
+CTAS_PER_SM = 2      # the split walk's grid aims at about this many CTAs an SM
+MIN_CHUNK_KEYS = 64  # a split walks at least this many positions
+MAX_SPLITS = 64      # splits a (sequence, kv head) may have (the combine's)
+
+
+def plan_splits(batch: int, kv_heads: int, rows: int, max_blocks: int,
+                block_size: int, sms: int) -> tuple[int, int]:
+    """``(splits, chunk_pages)`` of the split walk, from shapes alone:
+    split s of a (sequence, kv head, row group) walks table pages
+    ``[s * chunk_pages, (s + 1) * chunk_pages)``.  Enough splits that the
+    grid holds about ``CTAS_PER_SM`` CTAs an SM (splits past a sequence's
+    context exit at once), no more than ``MAX_SPLITS`` and none shorter
+    than ``MIN_CHUNK_KEYS`` positions, and ``splits * chunk_pages >=
+    max_blocks`` with no empty trailing split."""
+    max_blocks = max(1, max_blocks)
+    ctas = max(1, batch * kv_heads * ceil_div(rows, ROWS_PER_CTA))
+    most = min(MAX_SPLITS, ceil_div(max_blocks, ceil_div(MIN_CHUNK_KEYS, block_size)))
+    splits = max(1, min(ceil_div(CTAS_PER_SM * sms, ctas), most))
+    chunk = ceil_div(max_blocks, splits)
+    return ceil_div(max_blocks, chunk), chunk
 
 
 def check_window(w: int, heads: int, kv_heads: int) -> None:
-    """The kernel holds the W * (heads / kv_heads) query rows of one kv head
-    in one CTA; a wider window is refused here, by name, before a launch."""
+    """The kernel takes at most MAX_ROWS = W * (heads / kv_heads) query rows
+    a kv head (the CUDA-core loop holds them in one CTA); a wider window is
+    refused here, by name, before a launch."""
     rows = w * (heads // kv_heads)
     if rows > MAX_ROWS:
         raise ValueError(
@@ -78,12 +108,22 @@ def paged_window_attention_decode(
         raise ValueError("block_tables / context_lens do not match the batch")
     check_index(q.device, block_tables=block_tables, context_lens=context_lens)
     out = torch.empty_like(q)
+    max_blocks = block_tables.shape[1]
+    splits, chunk, part_acc, part_ml = 1, max_blocks, None, None
+    if q.dtype == torch.bfloat16 and d in SPLIT_HEAD_DIMS:
+        rows = w * (h // kvh)
+        splits, chunk = plan_splits(b, kvh, rows, max_blocks, bs, sm_count(q.device))
+        if splits > 1:  # the partials the combine merges: acc, then m and l
+            n_rows = b * kvh * splits * rows
+            scratch = torch.empty(n_rows * (d + 2), dtype=torch.float32, device=q.device)
+            part_acc = scratch.data_ptr()
+            part_ml = part_acc + n_rows * d * 4
     lib = build.library()
     code = lib.dyn_paged_window_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, w, h, kvh, d, bs, block_tables.shape[1],
-        sliding_window or 0, dtype_code(q.dtype), stream_ptr(q.device),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(), part_acc, part_ml,
+        b, w, h, kvh, d, bs, max_blocks, sliding_window or 0, splits, chunk,
+        dtype_code(q.dtype), stream_ptr(q.device),
     )
     build.check(code, "paged_window_attention_decode")
     launches += 1

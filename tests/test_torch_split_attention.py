@@ -1,0 +1,331 @@
+"""The split-and-combine algorithm of the redesigned CUDA attention kernels,
+emulated on the CPU in float32 at tiny widths, against the port's plain
+versions and the JAX reference on the same numpy inputs (atol 1e-5:
+summation order over up to 256 positions).
+
+- The paged GQA window kernel (csrc/paged_attention.cu): each sequence's
+  block table is cut into the chunks of ``plan_splits``; every split that
+  holds a key the window can see computes a partial (acc, m, l) in the
+  log2 domain, and the partials merge in split order.
+- The ragged MLA kernel (csrc/mla_attention.cu, rtc::): each token block's
+  page worklist is cut into the chunks of ``plan_chunks``; a token keeps the
+  entries of a chunk that it sees, and the chunks' partials merge in order.
+
+The kernels themselves run only on a card (chip_smoke.py); what they share
+with this emulation is the planner, the split bounds and the merge.  Also:
+the bf16 high/low split of float32 operands that the ragged MLA kernel
+feeds its bf16 tensor-core products, at DeepSeek widths, within 2e-4 of
+float32 (the kernel's tolerance)."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.ops import attention as jax_attn
+from dynamo_tpu.ops.pallas import paged_window_attention_decode as pallas_window
+from dynamo_tpu_torch.ops import attention as attn
+from dynamo_tpu_torch.ops.kernels import pack_page_meta
+from dynamo_tpu_torch.ops.kernels.mla_attention import (
+    MAX_CHUNK_PAGES,
+    MIN_CHUNK_PAGES,
+    plan_chunks,
+)
+from dynamo_tpu_torch.ops.kernels.paged_attention import MIN_CHUNK_KEYS, plan_splits
+
+ATOL = 1e-5
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+SMS = 132  # an H100's streaming multiprocessors
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def close(ours, ref, mask=None, atol=ATOL):
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    if mask is not None:
+        ours, ref = ours[mask], ref[mask]
+    np.testing.assert_allclose(ours, ref, atol=atol, rtol=atol)
+
+
+def partial(scores, values):
+    """One split's softmax state over its keys: scores [..., n] in the log2
+    domain (NEG_INF where masked), values [n, ...] -> (acc, m, l)."""
+    m = scores.max(-1).values
+    p = torch.where(scores == NEG_INF, torch.zeros_like(scores),
+                    torch.exp2(scores - m[..., None]))
+    return p @ values, m, p.sum(-1)
+
+
+def merge(parts):
+    """The combine kernels' fixed-order merge: weight 0 for a partial that
+    saw no key, the denominator clamped at 1e-20."""
+    big_m = torch.stack([m for _, m, _ in parts]).max(0).values
+    acc, den = 0.0, 0.0
+    for a, m, l in parts:
+        e = torch.where(m == NEG_INF, torch.zeros_like(m), torch.exp2(m - big_m))
+        acc = acc + e[..., None] * a
+        den = den + e * l
+    return acc / den.clamp_min(1e-20)[..., None]
+
+
+def split_window(q, k, v, tables, ctx, *, window, sms=SMS):
+    """csrc/paged_attention.cu's split walk: splits from plan_splits, the
+    key span [begin, end) of each sequence (keys stop at the table's end,
+    a sliding window starts at the page of its lowest visible position),
+    only the splits that hold part of the span, then the merge."""
+    b, w, h, d = q.shape
+    _, bs, kvh, _ = k.shape
+    maxb = tables.shape[1]
+    g = h // kvh
+    splits, chunk = plan_splits(b, kvh, w * g, maxb, bs, sms)
+    span = chunk * bs
+    kflat, vflat = k.reshape(-1, kvh, d), v.reshape(-1, kvh, d)
+    out = torch.zeros(b, w, h, d)
+    used_counts = []
+    for bi in range(b):
+        ctx_in = int(ctx[bi])
+        end = min(ctx_in, maxb * bs)
+        begin = 0
+        if window:
+            begin = min(max(0, ctx_in - w - (window - 1)), end) // bs * bs
+        if end <= begin:
+            used_counts.append(0)
+            continue  # an idle lane: zeros
+        qpos = ctx_in - w + torch.arange(w)
+        first, last = begin // span, (end - 1) // span
+        assert 0 <= first <= last < splits
+        used_counts.append(last - first + 1)
+        parts = []
+        for s in range(first, last + 1):
+            keys = torch.arange(max(s * span, begin), min((s + 1) * span, end))
+            rows = tables[bi, keys // bs].long() * bs + keys % bs
+            mask = keys[None, :] <= qpos[:, None]
+            if window:
+                mask &= keys[None, :] > qpos[:, None] - window
+            sc = torch.einsum("wkgd,nkd->kwgn", q[bi].reshape(w, kvh, g, d), kflat[rows])
+            sc = torch.where(mask[None, :, None, :], sc * (LOG2E / math.sqrt(d)), NEG_INF)
+            acc, m, l = [], [], []
+            for hk in range(kvh):  # one kv head a CTA
+                a_, m_, l_ = partial(sc[hk], vflat[rows, hk])
+                acc.append(a_), m.append(m_), l.append(l_)
+            parts.append((torch.stack(acc), torch.stack(m), torch.stack(l)))
+        out[bi] = merge(parts).permute(1, 0, 2, 3).reshape(w, h, d)
+    return out, splits, used_counts
+
+
+BS, KVH, D, MAXB = 4, 2, 16, 64  # 256 positions a table: four 64-key chunks
+
+
+def window_inputs(ctx, w, heads=4, seed=0):
+    rng = np.random.default_rng(seed)
+    b = len(ctx)
+    n = b * MAXB + 8
+    k = rng.standard_normal((n, BS, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((n, BS, KVH, D)).astype(np.float32)
+    tables = rng.permutation(n)[: b * MAXB].astype(np.int32).reshape(b, MAXB)
+    q = rng.standard_normal((b, w, heads, D)).astype(np.float32)
+    return q, k, v, tables, np.asarray(ctx, np.int32)
+
+
+WINDOW_CASES = {
+    # W = 1 decode: a long lane, an idle one, one inside the first chunk
+    # (the other splits hold no key of it)
+    "decode_idle_and_short": dict(ctx=[250, 0, 10], w=1),
+    "decode_sliding_window_low_chunks_invisible": dict(ctx=[250, 37, 129], w=1, window=20),
+    # W = 5 verify: one window past the table (ctx 258 on 256 positions),
+    # one at a chunk boundary, one shorter than the window
+    "verify_past_table": dict(ctx=[258, 128, 3], w=5),
+    "verify_sliding_window": dict(ctx=[258, 70, 200], w=5, window=9),
+    "verify_wide_rows": dict(ctx=[200, 64], w=9, heads=8),  # 36 rows: two row groups
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_split_window_matches_plain_and_jax(case):
+    spec = WINDOW_CASES[case]
+    window = spec.get("window")
+    q, k, v, tables, ctx = window_inputs(spec["ctx"], spec["w"], spec.get("heads", 4))
+    ours, splits, used = split_window(t(q), t(k), t(v), t(tables), t(ctx), window=window)
+    assert splits == MAXB * BS // MIN_CHUNK_KEYS  # the grid wants more: capped at 4
+    assert max(used) > 1  # some sequence merges partials
+    # a query sees a key iff its position is >= 0 (an idle lane's are all
+    # below 0): the plain versions give junk rows elsewhere, the kernel zeros
+    qpos = ctx[:, None] - spec["w"] + np.arange(spec["w"])[None, :]
+    live = qpos >= 0
+    plain = attn.paged_window_attention(t(q), t(k), t(v), t(tables), t(ctx),
+                                        sliding_window=window)
+    ref = jax_attn.paged_window_attention(*(jnp.asarray(a) for a in (q, k, v, tables, ctx)),
+                                          sliding_window=window)
+    close(ours, plain, live)
+    close(ours, ref, live)
+    assert torch.all(ours[~torch.from_numpy(live)] == 0)  # rows that see no key: zeros
+
+
+def test_split_window_matches_pallas_interpret():
+    q, k, v, tables, ctx = window_inputs([258, 128, 0], 5, seed=3)
+    ours, _, _ = split_window(t(q), t(k), t(v), t(tables), t(ctx), window=None)
+    pallas = pallas_window(*(jnp.asarray(a) for a in (q, k, v, tables, ctx)),
+                           interpret=True, pages_per_step=16)
+    close(ours, pallas, ctx > 0)
+    assert np.all(np.asarray(pallas)[ctx == 0] == 0)
+
+
+@pytest.mark.parametrize("batch,kv_heads,rows,max_blocks,bs", [
+    (1, 8, 4, 128, 16), (8, 8, 20, 128, 16), (32, 8, 4, 128, 16), (32, 8, 20, 256, 16),
+    (3, 2, 36, 7, 4), (1, 1, 1, 1, 16), (64, 8, 4, 4096, 16), (2, 4, 8, 0, 16),
+])
+def test_plan_splits_covers_the_table(batch, kv_heads, rows, max_blocks, bs):
+    splits, chunk = plan_splits(batch, kv_heads, rows, max_blocks, bs, SMS)
+    assert splits >= 1 and chunk >= 1
+    assert splits * chunk >= max_blocks > (splits - 1) * chunk or max_blocks == 0
+    # no more splits than chunks of MIN_CHUNK_KEYS positions
+    assert splits <= max(1, -(-max_blocks // -(-MIN_CHUNK_KEYS // bs)))
+    # a function of the shapes alone: the same answer every time
+    assert plan_splits(batch, kv_heads, rows, max_blocks, bs, SMS) == (splits, chunk)
+
+
+# ---------------------------------------------------------------------------
+# ragged MLA
+# ---------------------------------------------------------------------------
+
+H, R, P, MBS = 4, 32, 8, 4
+SCALE = 0.17
+
+
+def split_ragged_mla(q_lat, q_rope, ck, kr, token_lane, token_pos, meta, *, tb, sms=SMS):
+    """The ragged MLA split walk (rtc:: in csrc/mla_attention.cu): chunks
+    of each token block's worklist from plan_chunks; in each chunk a token
+    keeps the entries of its lane at or below its position (in worklist
+    order), a chunk's partial per token, then the merge over the chunks the
+    block's page_count reaches."""
+    page_phys, page_lane, page_ord, page_count = (torch.from_numpy(a) for a in meta)
+    n_tok = q_lat.shape[0]
+    num_tb, slots = page_phys.shape
+    chunks, chunk = plan_chunks(num_tb, tb, H, slots, sms)
+    out = torch.zeros(n_tok, H, R)
+    most_used = 0
+    for blk in range(num_tb):
+        count = min(int(page_count[blk]), slots)
+        n_used = -(-count // chunk)
+        most_used = max(most_used, n_used)
+        for tok in range(blk * tb, (blk + 1) * tb):
+            lane, pos = int(token_lane[tok]), int(token_pos[tok])
+            parts = []
+            for c in range(max(n_used, 1)):
+                ents = [e for e in range(c * chunk, min(count, (c + 1) * chunk))
+                        if pos >= 0 and int(page_lane[blk, e]) == lane
+                        and int(page_ord[blk, e]) * MBS <= pos]
+                if not ents:
+                    parts.append((torch.zeros(H, R), torch.full((H,), NEG_INF), torch.zeros(H)))
+                    continue
+                phys = page_phys[blk, ents].long()
+                ordp = page_ord[blk, ents].long()
+                kpos = (ordp[:, None] * MBS + torch.arange(MBS)).reshape(-1)
+                ckk = ck[phys].reshape(-1, R)
+                krr = kr[phys].reshape(-1, P)
+                sc = (q_lat[tok] @ ckk.T + q_rope[tok] @ krr.T) * (SCALE * LOG2E)
+                sc = torch.where((kpos <= pos)[None, :], sc, NEG_INF)
+                parts.append(partial(sc, ckk))
+            out[tok] = merge(parts)
+    return out, chunks, most_used
+
+
+def mla_inputs(spans, lanes, *, maxb, t_pad=None, tb=8, seed=0):
+    rng = np.random.default_rng(seed)
+    n = lanes * maxb + 8
+    ck = rng.standard_normal((n, MBS, R)).astype(np.float32)
+    kr = rng.standard_normal((n, MBS, P)).astype(np.float32)
+    tables = rng.permutation(n)[: lanes * maxb].astype(np.int32).reshape(lanes, maxb)
+    total = sum(k for _, _, k in spans)
+    t_pad = t_pad or -(-total // tb) * tb
+    token_lane = np.full((t_pad,), lanes, np.int32)
+    token_pos = np.full((t_pad,), -1, np.int32)
+    cur = 0
+    for lane, start, k in spans:
+        token_lane[cur: cur + k] = lane
+        token_pos[cur: cur + k] = np.arange(start, start + k)
+        cur += k
+    q_lat = rng.standard_normal((t_pad, H, R)).astype(np.float32)
+    q_rope = rng.standard_normal((t_pad, H, P)).astype(np.float32)
+    return q_lat, q_rope, ck, kr, tables, token_lane, token_pos
+
+
+MLA_CASES = {
+    # eight decode lanes in one token block: one long worklist, many chunks
+    "decode_only_one_block": dict(spans=[(i, 40 + 19 * i, 1) for i in range(8)], lanes=8),
+    # a span, a second lane's span and decodes that share a block; a pad
+    # block at the end
+    "mixed_lanes_and_pads": dict(spans=[(0, 0, 21), (1, 90, 5), *((2 + i, 60 + 11 * i, 1)
+                                                                  for i in range(5))],
+                                 lanes=7, t_pad=40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_split_ragged_mla_matches_plain_and_jax(case):
+    spec = MLA_CASES[case]
+    q_lat, q_rope, ck, kr, tables, token_lane, token_pos = mla_inputs(
+        spec["spans"], spec["lanes"], maxb=64, t_pad=spec.get("t_pad"))
+    meta = pack_page_meta(token_lane, token_pos, tables, tb_tokens=8, block_size=MBS)
+    ours, chunks, most_used = split_ragged_mla(
+        t(q_lat), t(q_rope), t(ck), t(kr), token_lane, token_pos, meta, tb=8)
+    assert chunks > 1 and most_used > 1  # a worklist spans several chunks
+    live = token_pos >= 0
+    args = (q_lat, q_rope, ck, kr, tables, token_lane, token_pos)
+    plain = attn.ragged_mla_paged_attention(*(t(a) for a in args), scale=SCALE)
+    ref = jax_attn.ragged_mla_paged_attention(*(jnp.asarray(a) for a in args), scale=SCALE)
+    close(ours, plain, live)
+    close(ours, ref, live)
+    assert torch.all(ours[~torch.from_numpy(live)] == 0)  # pad rows: zeros
+
+
+@pytest.mark.parametrize("num_tb,tb,heads,slots", [
+    (44, 8, 16, 420), (1, 8, 16, 2048), (1, 8, 16, 4096), (256, 8, 16, 600),
+    (2, 4, 128, 50), (3, 8, 16, 1), (5, 8, 16, 0),
+])
+def test_plan_chunks_covers_the_worklist(num_tb, tb, heads, slots):
+    chunks, chunk = plan_chunks(num_tb, tb, heads, slots, SMS)
+    assert chunks >= 1 and 1 <= chunk <= MAX_CHUNK_PAGES
+    assert chunks * chunk >= slots > (chunks - 1) * chunk or slots == 0
+    # no more chunks than MIN_CHUNK_PAGES entries each allow
+    assert chunks <= max(1, -(-slots // MIN_CHUNK_PAGES))
+    assert plan_chunks(num_tb, tb, heads, slots, SMS) == (chunks, chunk)
+
+
+def bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def test_bf16_high_low_split_holds_the_mla_tolerance():
+    """At DeepSeek widths (R 512, P 64, 16 heads), bf16 caches and q_rope,
+    float32 q_lat: scores from q_hi.ck + q_lo.ck + q_rope.kr and the context
+    from P_hi.ck + P_lo.ck (every product exact, sums in float32, as the
+    tensor cores accumulate) stay within 2e-4 of the float32 reference; a
+    single bf16 pass over q_lat and P does not."""
+    rng = np.random.default_rng(7)
+    n_keys, heads, r, p = 600, 16, 512, 64
+    scale = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2  # DeepSeek-V2-Lite's
+    q_lat = torch.from_numpy(rng.standard_normal((heads, r)).astype(np.float32))
+    q_rope = bf16(torch.from_numpy(rng.standard_normal((heads, p)).astype(np.float32)))
+    ck = bf16(torch.from_numpy(rng.standard_normal((n_keys, r)).astype(np.float32)))
+    kr = bf16(torch.from_numpy(rng.standard_normal((n_keys, p)).astype(np.float32)))
+
+    def attend(q_parts, split_p):
+        s = sum(q @ ck.T for q in q_parts) + q_rope @ kr.T
+        w = torch.softmax(s * scale, dim=-1)
+        parts = (bf16(w), bf16(w - bf16(w))) if split_p else (bf16(w),)
+        return sum(x @ ck for x in parts)
+
+    ref = torch.softmax((q_lat @ ck.T + q_rope @ kr.T) * scale, dim=-1) @ ck
+    q_hi = bf16(q_lat)
+    two = attend((q_hi, bf16(q_lat - q_hi)), split_p=True)
+    one = attend((q_hi,), split_p=False)
+    err_two = (two - ref).abs().max().item()
+    err_one = (one - ref).abs().max().item()
+    assert err_two <= 2e-4, err_two
+    assert err_one > 2e-4, err_one
