@@ -11,9 +11,10 @@ Phases (any failure exits non-zero, before the result line):
                caches, float32 absorbed queries; the verify windows at W=5),
                plus sliding-window, head-dim-64, head-dim-16 and tiny-MLA
                float32 cases, the split walks' edges (one lane at ctx 16,
-               idle lanes, a 64-row window) and eight decode lanes up to
-               4096 in one ragged MLA token block; rows 2 and 3 launched
-               twice on the same inputs must give the same bits; time
+               idle lanes, a 64-row GQA window, a 16-query MLA window) and
+               eight decode lanes up to 4096 in one ragged MLA token block;
+               the split walks (rows 2-5) launched twice on the same inputs
+               must give the same bits; time
                (CUDA events, and the device's own time under
                torch.profiler) the kernel, the plain version and one
                PyTorch library call (scaled_dot_product_attention over
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero, before the result line):
                zeroed just before and read just after.
   5. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
-               the MLA ragged and decode kernels, and the MoE layers.
+               the MLA ragged and decode kernels, and the MoE layers; every
+               MLA decode (and, in phase spec, window) launch must take the
+               split table walk.
   6. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
@@ -59,8 +62,9 @@ the result line ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for iterating on one phase); the result line is
 printed only when every phase ran and passed.  ``--phases build,sweep``
-times rows 2 and 3 under other grid aims of their split planners (not
-part of the default run).
+times rows 2-5 under other grid aims of their split planners, rows 4-5
+under other tiles a CTA and in one chunk at growing contexts (not part of
+the default run).
 """
 
 from __future__ import annotations
@@ -425,13 +429,15 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
         return plain.mla_paged_window_attention(q_lat, qr, ckk, krr, tables, ctx, scale=scale)
 
     out = kernel()
+    again = kernel()  # the same inputs must give the same bits
     ref = plain_fn(q_rope.float(), ck.float(), kr.float())
     torch.cuda.synchronize()
     live = ctx > 0
     res = {"max_abs_err": (out[live] - ref[live]).abs().max().item(),
            "ref_absmax": ref[live].abs().max().item(),
            "finite": bool(torch.isfinite(out).all()),
-           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True}
+           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
+           "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8))}
     if not timed:
         return res
     length = max_blocks * bs
@@ -582,9 +588,11 @@ def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
     res.update(
         bytes=2 * moved, bound_ms=bound_ms, bound_by="bytes",
         gather_ms=time_ms(lambda: gather_blocks(pool, ids, axis=axis), 20),
+        gather_device_ms=device_ms(lambda: gather_blocks(pool, ids, axis=axis)),
         gather_plain_ms=time_ms(lambda: plain.gather_blocks(pool, ids, axis), 5),
         gather_library_ms=time_ms(lambda: torch.index_select(pool, axis, ids_dev), 20),
         scatter_ms=time_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis), 20),
+        scatter_device_ms=device_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis)),
         scatter_plain_ms=time_ms(lambda: plain.scatter_blocks(target, blocks, ids, axis), 5),
         scatter_library_ms=time_ms(lambda: target.index_copy_(axis, ids_dev, blocks), 20),
     )
@@ -702,6 +710,21 @@ def phase_kernels(torch) -> dict:
         torch, spans=[(i, n - 1, 1) for i, n in enumerate(dec_lens)], t_pad=8)
     check_case("mla ragged 8 decode lanes <= 4096 in one token block",
                cases["mla_ragged_decode8"], MLA_ATOL)
+    # the table walk's edges (rows 4-5): one lane at ctx 16 in a one-page
+    # table (one chunk) and in a 2048-position table (one used chunk of
+    # many), idle lanes beside long ones, and a 16-query window (16 tiles in
+    # several tile groups)
+    mla_edges = {
+        "mla_decode_b1_ctx16": mla_decode_case(torch, lens=[16], seed=15, timed=False),
+        "mla_decode_b1_ctx16_table2048": mla_decode_case(torch, lens=[16], seed=16,
+                                                         timed=False, max_blocks=128),
+        "mla_decode_idle_lanes": mla_decode_case(torch, lens=[2047, 0, 16, 0, 700], seed=17,
+                                                 timed=False),
+        "mla_window_w16": mla_decode_case(torch, lens=[2047, 700, 33, 0, 2050], w=16, seed=18,
+                                          timed=False, max_blocks=128),
+    }
+    for name, res in mla_edges.items():
+        check_case(name, res, MLA_ATOL)
     mla_small = mla_decode_case(torch, lens=[5, 17, 0, 64], h=4, r=32, p=8,
                                 dtype=torch.float32, seed=21, timed=False)
     check_case("mla decode tiny_mla fp32", mla_small, F32_ATOL)
@@ -749,8 +772,11 @@ def phase_kernels(torch) -> dict:
                         win5["max_abs_err"], edges["verify_w16_rows64"]["max_abs_err"]),
         "ragged": max(cases["ragged_mix"]["max_abs_err"], win_r["max_abs_err"],
                       d64_r["max_abs_err"]),
-        "mla_decode": max(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
-        "mla_window": max(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
+        "mla_decode": max(*(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
+                          *(mla_edges[e]["max_abs_err"] for e in mla_edges
+                            if e.startswith("mla_decode"))),
+        "mla_window": max(*(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
+                          mla_edges["mla_window_w16"]["max_abs_err"]),
         "mla_ragged": max(cases["mla_ragged_mix"]["max_abs_err"],
                           cases["mla_ragged_decode8"]["max_abs_err"]),
         **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
@@ -762,13 +788,19 @@ def phase_kernels(torch) -> dict:
 # phase "sweep", run only when named: the split planners' grid aims
 SWEEP_PAGED = (1, 2, 4, 8)  # paged_attention.CTAS_PER_SM
 SWEEP_MLA = ((2, 16), (4, 16), (8, 16), (16, 16), (16, 8))  # (CTAS_PER_SM, MIN_CHUNK_PAGES)
+# the table walk (rows 4-5): (GROUP_TILES, TABLE_CTAS_PER_SM,
+# TABLE_MIN_CHUNK_KEYS) of ops/kernels/mla_attention.py
+SWEEP_TABLE = ((3, 4, 64), (2, 4, 64), (1, 4, 64), (3, 2, 64), (3, 8, 64), (3, 4, 32),
+               (3, 4, 128))
 
 
 def phase_sweep(torch) -> dict:
-    """Rows 2 and 3 at the kernels phase's shapes (contexts drawn alike)
-    under other grid aims of their split planners (``plan_splits``,
-    ``plan_chunks``): event and device times, and the float32 partial
-    scratch each plan allocates.  The planners' constants are restored."""
+    """Rows 2-5 at the kernels phase's shapes (contexts drawn alike) under
+    other grid aims of their split planners (``plan_splits``,
+    ``plan_chunks``, ``plan_table_chunks``) and, for rows 4-5, other tiles
+    a CTA, then rows 4-5 in one chunk at growing contexts: event and device
+    times, and the float32 partial scratch each plan allocates.  The
+    constants are restored."""
     from dynamo_tpu_torch.ops.kernels import mla_attention as mk
     from dynamo_tpu_torch.ops.kernels import paged_attention as pk
 
@@ -785,7 +817,18 @@ def phase_sweep(torch) -> dict:
     dec = [4096, 4095, *(rng.randint(1, 4096) for _ in range(6))]
     mla = {"mla_ragged_mix": dict(spans=mix, t_pad=352),
            "mla_ragged_decode8": dict(spans=[(i, n - 1, 1) for i, n in enumerate(dec)], t_pad=8)}
-    saved = (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES)
+    table = {
+        "mla_decode_b1": dict(lens=[2047]),
+        "mla_decode_b32": dict(lens=[2047, 2048, 0, *(rng.randint(1, 2048) for _ in range(29))]),
+        "mla_window_b8": dict(lens=[2047, 2048, 0, *(rng.randint(5, 2048) for _ in range(5))],
+                              w=5, max_blocks=128),
+        # the served decode step's shape: eight short chats in the engine's
+        # 4096-position tables
+        "mla_decode_b8_short": dict(lens=[rng.randint(30, 100) for _ in range(8)],
+                                    max_blocks=256),
+    }
+    saved = (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES, mk.GROUP_TILES,
+             mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS)
     rows = []
 
     def keep(name, res, **plan):
@@ -812,8 +855,24 @@ def phase_sweep(torch) -> dict:
                 keep(name, res, ctas_per_sm=aim, min_chunk_pages=floor, chunks=chunks,
                      chunk_pages=chunk, scratch_mb=num_tb * chunks * 128 * 514 * 4 / 1e6
                      if chunks > 1 else 0.0)
+        for group, aim, floor in SWEEP_TABLE:
+            mk.GROUP_TILES, mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS = group, aim, floor
+            for name, kw in table.items():
+                b, w = len(kw["lens"]), kw.get("w", 1)
+                chunks, chunk = mk.plan_table_chunks(
+                    b, w * 16, kw.get("max_blocks") or -(-max(kw["lens"]) // 16), 16, sms)
+                keep(name, mla_decode_case(torch, seed=2, **kw), group_tiles=group,
+                     ctas_per_sm=aim, min_chunk_keys=floor, chunks=chunks, chunk_pages=chunk,
+                     scratch_mb=b * chunks * w * 16 * 514 * 4 / 1e6 if chunks > 1 else 0.0)
+        # one chunk (a grid aim of 0) at growing contexts: the walk's time a
+        # page (the slope) and a CTA's fixed cost (the intercept)
+        mk.GROUP_TILES, mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS = saved[3], 0, saved[5]
+        for n in (16, 64, 256, 1024):
+            keep(f"mla_walk_b1_ctx{n}", mla_decode_case(torch, lens=[n], seed=3), chunks=1,
+                 chunk_pages=-(-n // 16))
     finally:
-        pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES = saved
+        (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES, mk.GROUP_TILES,
+         mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS) = saved
     print(json.dumps({"smoke_sweep": rows}), flush=True)
     return {"rows": rows}
 
@@ -1034,6 +1093,17 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
             "stats": stats, "run": run, "load_s": load_s, "profile": prof}
 
 
+def port_kernel_names() -> list[str]:
+    """The __global__ functions of the port's CUDA sources."""
+    import re
+
+    names = set()
+    for src in (ROOT / "dynamo_tpu_torch" / "csrc").glob("*.cu"):
+        names.update(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)",
+                                src.read_text()))
+    return sorted(names)
+
+
 async def profile_decode(engine, port: int, model: str) -> dict:
     """Where a decode-heavy window's time goes: eight concurrent chats
     (every lane busy) under torch.profiler.  Device time is the sum of the
@@ -1059,12 +1129,23 @@ async def profile_decode(engine, port: int, model: str) -> dict:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
     device_s = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    port: dict[str, float] = {}  # the port's own kernels (csrc/*.cu: anonymous namespaces)
+    names = port_kernel_names()
+    for key, us in kernels.items():
+        tail = key.removeprefix("void ")  # templates' demangled names carry it
+        if not tail.startswith("(anonymous namespace)::"):
+            continue
+        tail = tail.removeprefix("(anonymous namespace)::").removeprefix("rtc::")
+        name = next((n for n in names if tail.startswith((f"{n}(", f"{n}<"))), None)
+        if name:
+            port[name] = port.get(name, 0.0) + us / 1e3 / max(steps, 1)
     return {
         "wall_s": wall, "decode_steps": steps,
         "wall_ms_per_step": wall / max(steps, 1) * 1e3,
         "device_ms_per_step": device_s / max(steps, 1) * 1e3 if device_s else "not measured",
         "device_idle_share": 1 - device_s / wall if device_s else "not measured",
         "top_kernels_ms_per_step": {k[:60]: v / 1e3 / max(steps, 1) for k, v in top},
+        "port_kernels_ms_per_step": port,
     }
 
 
@@ -1107,6 +1188,9 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
         raise AssertionError(f"a kernel did not run on the main path: {launched}")
     if counts["plain_calls"] != 0:
         raise AssertionError(f"plain attention ran on the card: {counts}")
+    table = counts["mla_attention.decode_launches"] + counts["mla_attention.window_launches"]
+    if counts["mla_attention.table_walk_launches"] != table:
+        raise AssertionError(f"an MLA decode or window call missed the split table walk: {counts}")
     e2e = {
         "ttft_ms_mean": sum(ttfts) / len(ttfts) * 1e3,
         "ttft_ms_max": max(ttfts) * 1e3,
@@ -1573,7 +1657,8 @@ def main() -> int:
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
             cases[f"{row}_llama_leaf"] = {
-                "ms": case[f"{row}_ms"], "plain_ms": case[f"{row}_plain_ms"],
+                "ms": case[f"{row}_ms"], "device_ms": case[f"{row}_device_ms"],
+                "plain_ms": case[f"{row}_plain_ms"],
                 "library_ms": case[f"{row}_library_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"]}
         entries = []

@@ -12,10 +12,11 @@
 //   see, a float32 softmax, and the context in latent space,
 //   out[row] = sum_key p * ck[key] (float32, width R): the latent ck is the
 //   key's first R columns and the value as well.
-//   Decode: sequence b sees positions pos < ctx_b through its block table.
-//   Window (verify): sequence b has W queries; query w sits at position
-//   ctx_b - W + w (ctx_b includes the window's last token) and sees the
-//   positions <= its own.  The W*H rows are w-major (row = w * H + h).
+//   Window (verify, and decode at W = 1): sequence b has W queries; query
+//   w sits at position ctx_b - W + w (ctx_b includes the window's last
+//   token) and sees the positions <= its own through the block table.
+//   The W*H rows are w-major (row = w * H + h).  Decode is the window at
+//   W = 1: positions pos < ctx_b.
 //   Ragged: token i (lane token_lane[i], position token_pos[i]; -1 = pad)
 //   sees the positions <= its own of its own lane, walked through the page
 //   worklist of its token block (pack_page_meta over the latent tables).
@@ -26,33 +27,31 @@
 //   512) weigh as much as the pages.  Operations: 2 (R + P) + 2 R flops
 //   per visible (row, position), far below the tensor cores' rate.
 //
-// Ragged design (bf16 caches, R 512, P 64, 16-position pages, H a
-//   multiple of 16; rtc:: below): a split walk on the tensor cores.
-//   - Rows are token-major (row = token * H + head), so a 16-row MMA tile
-//     is one token's 16 heads (H = 16).  A CTA holds 4 tiles (4 tokens,
-//     half a token block of 8) and walks their token block's worklist once
-//     for all 16 heads of each: a page crosses HBM at most twice per token
-//     block (once per half), not once per head as in the CUDA-core loop.
-//     The 4 x 16 x 512 float32 accumulator does not fit one CTA's
-//     registers with the queries beside it, so R is split across warps:
-//     warps 2i and 2i + 1 own tile i, each for 256 of the R context
-//     columns (128 accumulator registers a thread).  The pair splits the
-//     tile's score reduction instead: each scores half of K and they swap
-//     the halves through shared memory.
-//   - The worklist is split across CTAs in fixed chunks of entries; the
-//     chunk count comes from page_slots and the grid's shape (plan_chunks in
-//     ops/kernels/mla_attention.py: about 4 CTAs an SM, 16 to 256 entries
-//     a chunk; 6 chunks of 60 for 44 token blocks over 360 slots, 128 of
-//     16 for one block over 2048), never from page_count's values, so a
-//     step needs no device-to-host read, and the decode-heavy token block
-//     no longer sets the kernel's time alone.  A CTA first keeps, in order,
-//     the entries of its chunk that one of its tokens sees (its lane, not
-//     above its position), and walks only those: work follows the visible
-//     (token, page) pairs.  A tile skips a page of another lane.
-//   - A token block whose worklist fits one chunk is written by that CTA;
-//     otherwise each chunk writes float32 partials (acc, m, l per row) and
-//     mla_ragged_combine_kernel merges them in chunk order: no atomics, the
-//     same bits on every launch.
+// Routes, chosen by shape (neither is a fallback of the other):
+//   - bf16 caches at R 512, P 64, 16-position pages and H a multiple of 16
+//     (DeepSeek widths): the split tensor-core walks of rtc:: below, the
+//     ragged walk over a token block's worklist (row 3) and the table walk
+//     over a sequence's block table for decode and verify (rows 4 and 5);
+//   - float32 caches and other geometries (the tiny_mla test geometry, R
+//     32, P 8): the CUDA-core loop mla_attend (mla_window_kernel for
+//     decode and verify, mla_ragged_kernel).
+//
+// Tensor-core design (rtc::), shared by both walks.
+//   - A CTA holds a group of 16-row MMA tiles and walks its pages once for
+//     all of them: a page crosses HBM once per tile group, not once per
+//     few rows.  Each tile is one position limit's rows: a token's 16
+//     heads (ragged; H = 16) or 16 heads of one query of the window.
+//   - WPT warps own a tile (a template parameter: 2 in the ragged walk, 4
+//     in the table walk, where 4 ran faster than 2 and 8 in
+//     chip_smoke.py's sweep).  The
+//     16 x 512 float32 accumulator does not fit one warp's registers with
+//     the queries beside it, so R is split across them: warp wq of a tile
+//     accumulates context columns [wq, wq + 1) * R / WPT (R / WPT / 4
+//     accumulator registers a thread).  They split the tile's score
+//     reduction instead: each scores 1/WPT of the q_lat columns and of
+//     q_rope's K steps, and they swap the partial scores through shared
+//     memory, adding them in warp order, so every warp holds the same
+//     bits (page_step).
 //   - Pages arrive in a ring of 3 cp.async stages (ck rows, then kr rows,
 //     bf16) while the previous page computes.  Both products run on
 //     mma.sync m16n8k16 bf16 with fp32 accumulation.  q_lat and P are
@@ -60,44 +59,65 @@
 //     more than 2e-4, so each is split into a bf16 high part plus a bf16
 //     low part (x = hi + lo to 2^-17 |x|) and runs two passes; the bf16
 //     cache operand is exact.  Scores: q_hi.ck + q_lo.ck + q_rope.kr over
-//     K = 576, in four accumulator chains summed in a fixed order, the
-//     pair's halves added low K first in both warps (the same bits).
-//     Context: (P_hi + P_lo).ck over the page's 16 keys into the warp's 256
-//     columns, ck through ldmatrix.trans.  The softmax is float32, the
-//     reference's contract: masked scores NEG_INF, their exponentials 0,
-//     the denominator clamped at 1e-20, so pad rows and token blocks
-//     without pages write zeros.
+//     K = 576, in four accumulator chains summed in a fixed order.
+//     Context: (P_hi + P_lo).ck over the page's 16 keys, ck through
+//     ldmatrix.trans.  The softmax is float32 in the log2 domain (the scale
+//     folded into log2 e), the reference's contract: masked scores
+//     NEG_INF, their exponentials 0, the denominator clamped at 1e-20, so
+//     pad rows, idle lanes (ctx 0) and token blocks without pages write
+//     zeros.
+//   - The walk is split across CTAs in fixed chunks, planned by the wrapper
+//     from shapes alone (plan_chunks, plan_table_chunks in
+//     ops/kernels/mla_attention.py), never from page_count or
+//     context_lens, so a step needs no device-to-host read and stays
+//     capturable by a CUDA graph.  Chunks past a unit's (a token block's,
+//     or a sequence's) walk exit at once.  A unit whose walk fits one
+//     chunk is written by that CTA; otherwise each chunk writes float32
+//     partials (acc, m, l per row) and mla_combine_kernel merges them in
+//     chunk order: no atomics, the same bits on every launch.
 //
-// CUDA-core design (decode, window, and the ragged step at other widths or
-//   float32 caches): every head reads the same single latent "kv head", so
-//   the head axis is the only sharing there is.  One CTA owns `hg` heads of
-//   one sequence (decode) or of one token block (ragged): hg grows only
-//   while the grid would overflow two CTAs per SM, so small batches still
-//   spread over the card, and a CTA never holds more than MAX_ROWS query
-//   rows.  These products run on the fp32 CUDA cores, far from either
-//   bound; the decode and window kernels' redesign is later work.
-//   Shared memory holds the float32 queries [rows, R+P] and accumulator
-//   [rows, R], and two tiles of MKEYS latent rows [MKEYS, R+P] in the
-//   cache type: tile t+1 copies in with cp.async while tile t computes,
-//   so the HBM latency of a tile hides behind the previous one.  No V tile
-//   exists: the values are the staged latents.  That keeps a CTA under
-//   111 KB at R 512, P 64 and 8 rows (two CTAs per SM), where the GQA tile
-//   loop of attention_common.cuh (q, K, V and the accumulator in float32)
-//   would not fit.  Scores: one warp per key, lanes across the R+P
-//   columns, a shuffle reduction per visible (row, key).  Softmax: one
-//   warp per row, one lane per key.  Context: one thread per (row,
-//   column), only for rows that see a key of the tile (a ragged token
-//   block mixes lanes, and each tile belongs to one lane).  Masked scores are
-//   NEG_INF and contribute 0, the denominator is clamped at 1e-20, so pad
-//   rows, idle lanes (ctx 0) and token blocks without pages write zeros.
+// Ragged walk (mla_ragged_tc_kernel; row 3): rows token-major (row = token
+//   * H + head), 4 tiles (4 tokens, half a token block of 8) of two warps a
+//   CTA, so a page crosses HBM at most twice per token block.  The chunks
+//   cut the token block's worklist (about 4 CTAs an SM, 16 to 256 entries
+//   a chunk); a CTA first keeps, in order, the entries of its chunk that
+//   one of its tokens sees (its lane, not above its position), and walks
+//   only those.  A tile skips a page of another lane.
+//
+// Table walk (mla_table_tc_kernel; rows 4 and 5): grid (chunk, tile group,
+//   sequence).  A sequence's W*H w-major rows make W*H/16 tiles, each one
+//   query's 16 heads at H = 16; they split into balanced groups of at most
+//   three (shared memory and registers; W = 5 at H = 16 is 3 + 2 tiles),
+//   so a page crosses HBM once per group.  Chunk c walks table
+//   slots [c * chunk_pages, ...) up to the sequence's last page; a tile's
+//   limit is its query's position ctx - W + w.  Keys stop at max_blocks *
+//   bs, so a window clamped past the table keeps its queries' positions
+//   (the TPU kernel's grid has max_blocks pages).  At W = 1 a CTA holds
+//   one tile (128 threads) and the planner aims the grid at about 4 CTAs
+//   an SM, so a small batch still spreads over the card; a chunk walks at
+//   least 64 positions a tile of its group, so a wide window's partials
+//   (2 KB a row) stay a fixed share of the pages it reads.
+//
+// CUDA-core design (float32 caches, the tiny_mla geometry): every head
+//   reads the same single latent "kv head", so the head axis is the only
+//   sharing there is.  One CTA owns `hg` rows of one sequence (window) or
+//   of one token block (ragged): hg grows only while the grid would
+//   overflow two CTAs per SM, so small batches still spread over the card,
+//   and a CTA never holds more than MAX_ROWS query rows.  These products
+//   run on the fp32 CUDA cores.  Shared memory holds the float32 queries
+//   [rows, R+P] and accumulator [rows, R], and two tiles of MKEYS latent
+//   rows [MKEYS, R+P] in the cache type: tile t+1 copies in with cp.async
+//   while tile t computes.  No V tile exists: the values are the staged
+//   latents.  Scores: one warp per key, lanes across the R+P columns, a
+//   shuffle reduction per visible (row, key).  Softmax: one warp per row,
+//   one lane per key.  Context: one thread per (row, column), only for
+//   rows that see a key of the tile (a ragged token block mixes lanes, and
+//   each tile belongs to one lane).  Masked scores are NEG_INF and
+//   contribute 0, the denominator is clamped at 1e-20.  The window kernel
+//   gives each of a CTA's consecutive w-major rows its own position limit,
+//   so the grid is (B, W*H/hg).
 //   pages_per_step of the TPU kernels has no counterpart: the output does
 //   not depend on it.
-//   The window kernel is the decode kernel with W*H rows a sequence: a CTA
-//   owns `hg` consecutive w-major rows, each with its own position limit,
-//   so the grid is (B, W*H/hg).  Its known cost: the W*H/hg CTAs of one
-//   sequence each read that sequence's latent pages (the TPU kernel folds
-//   all W*H rows into one grid step and reads each page once); a CTA that
-//   held more rows would need the tensor cores to keep its products fast.
 
 #include <climits>
 
@@ -340,31 +360,6 @@ struct WorklistKeys {  // ragged: keys are the pages of a token block's worklist
 
 template <typename T, int R, int P>
 __global__ void __launch_bounds__(MTHREADS, 2)
-mla_decode_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
-                  const T* __restrict__ ck, const T* __restrict__ kr,
-                  const int* __restrict__ block_tables,
-                  const int* __restrict__ context_lens, float* __restrict__ out,
-                  int H, int hg, int bs, int max_blocks, float scale) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const int b = blockIdx.x, h0 = blockIdx.y * hg;
-  MlaSmem<T, R, P> s(smem_raw, hg);
-  const int ctx = min(context_lens[b], max_blocks * bs);
-  for (int r = 0; r < hg; ++r) {
-    const size_t qh = (size_t)b * H + h0 + r;
-    stage_row(s, r, q_lat + qh * R, q_rope + qh * P);
-  }
-  for (int r = threadIdx.x; r < hg; r += MTHREADS) {
-    s.row_pos[r] = ctx - 1;
-    s.row_lane[r] = 0;
-  }
-  TableKeys keys{block_tables + (size_t)b * max_blocks, bs};
-  mla_attend<T, R, P>(s, hg, ck, kr, keys, ctx, scale, [&](int r) {
-    return out + ((size_t)b * H + h0 + r) * R;
-  });
-}
-
-template <typename T, int R, int P>
-__global__ void __launch_bounds__(MTHREADS, 2)
 mla_window_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
                   const T* __restrict__ ck, const T* __restrict__ kr,
                   const int* __restrict__ block_tables,
@@ -422,47 +417,290 @@ mla_ragged_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
 }
 
 // ---------------------------------------------------------------------------
-// Ragged MLA at DeepSeek widths (bf16 caches, R 512, P 64, 16-token pages,
-// H a multiple of 16): the split tensor-core walk.  See the note at the top.
+// MLA at DeepSeek widths (bf16 caches, R 512, P 64, 16-token pages, H a
+// multiple of 16): the split tensor-core walks.  See the note at the top.
 // ---------------------------------------------------------------------------
 
 namespace rtc {
 using bf16 = __nv_bfloat16;
 namespace tc = dyn::tc;
 constexpr int R = 512, P = 64, KEYS = 16;  // KEYS: positions a page, one MMA K step of P.ck
-constexpr int TILES = 4;                   // 16-row MMA tiles a CTA: 4 tokens at H = 16
-constexpr int WARPS = 2 * TILES;           // two a tile: the two halves of the R columns
-constexpr int THREADS = WARPS * 32;
-constexpr int HALF = R / 2;
 constexpr int STAGES = 3;                  // pages in flight
-constexpr int MAX_CHUNK = 256;             // worklist entries a CTA walks at most
-constexpr int MAX_CHUNKS = 256;            // chunks a worklist may have (the combine's)
+constexpr int MAX_CHUNK = 256;             // worklist entries a ragged CTA walks at most
+constexpr int MAX_CHUNKS = 256;            // chunks a unit's walk may have (the combine's)
 constexpr int QS = R + 8, RS = P + 8;      // bf16 row strides: 16-byte rows, ldmatrix without conflicts
-constexpr int LAT_STEPS = R / 16;          // MMA K steps of q_lat.ck; each warp of a pair takes half
+constexpr int LAT_STEPS = R / 16;          // MMA K steps of q_lat.ck
+constexpr int ROPE_STEPS = P / 16;         // ... and of q_rope.kr
 
-struct Layout {
-  static constexpr size_t Q_LAT = (size_t)TILES * 16 * QS * sizeof(bf16);  // q_hi, and q_lo
-  static constexpr size_t Q_ROPE = (size_t)TILES * 16 * RS * sizeof(bf16);
-  static constexpr size_t PAGE = (size_t)KEYS * (QS + RS) * sizeof(bf16);  // ck rows, then kr rows
-  static constexpr size_t RING = 2 * Q_LAT + Q_ROPE;                       // offset of the ring
-  static constexpr size_t SWAP = RING + STAGES * PAGE;  // partial scores a warp pair swaps
-  static constexpr size_t LIST = SWAP + (size_t)WARPS * 32 * 8 * sizeof(float);
-  static constexpr size_t BYTES = LIST + (3 * MAX_CHUNK + 2 * TILES + 1) * sizeof(int);
+// The most 16-row tiles a CTA holds with `wpt` warps a tile: four at two
+// (256 threads), three at four (384 threads, so at most 170 registers a
+// thread; the accumulator takes 64 of them).
+__host__ __device__ constexpr int max_tiles(int wpt) { return wpt == 2 ? 4 : 3; }
+
+// Shared memory of a CTA of `tiles` tiles and `warps` warps, in order:
+// q_hi and q_lo [tiles * 16, QS], q_rope [tiles * 16, RS], the ring of
+// STAGES pages (ck rows, then kr rows) and the warps' swap areas [warps]
+// [32 lanes][8 partial scores].
+struct Smem {
+  static constexpr size_t PAGE = (size_t)KEYS * (QS + RS) * sizeof(bf16);
+  __host__ __device__ static constexpr size_t q_lat(int tiles) {
+    return (size_t)tiles * 16 * QS * sizeof(bf16);
+  }
+  __host__ __device__ static constexpr size_t ring(int tiles) {
+    return 2 * q_lat(tiles) + (size_t)tiles * 16 * RS * sizeof(bf16);
+  }
+  __host__ __device__ static constexpr size_t swap(int tiles) {
+    return ring(tiles) + STAGES * PAGE;
+  }
+  __host__ __device__ static constexpr size_t bytes(int tiles, int warps) {
+    return swap(tiles) + (size_t)warps * 32 * 8 * sizeof(float);
+  }
 };
 
-// The named barrier of the two warps of tile `rt` (barrier 0 is __syncthreads).
-__device__ inline void pair_sync(int rt) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rt) : "memory");
+// The named barrier of the WPT warps of tile `rt` (barrier 0 is __syncthreads).
+template <int WPT>
+__device__ inline void tile_sync(int rt) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rt), "r"(WPT * 32) : "memory");
 }
 
+// The number of chunks of `chunk_pages` a unit's walk uses: its worklist
+// entries (ragged: count = page_count, cap = page_slots, div = 1) or its
+// table pages (count = ctx, cap = max_blocks * KEYS, div = KEYS).  The
+// walks and the combine derive it alike, on the device.
+__device__ inline int used_chunks(int count, int cap, int div, int chunk_pages) {
+  return tc::ceil_div(tc::ceil_div(min(max(count, 0), cap), div), chunk_pages);
+}
+
+// Page `page` of the caches into ring stage `stage` (ck rows, then kr
+// rows), 16 bytes a copy, by `threads` threads (this one is `tid`).
+__device__ inline void load_page(char* stage, const bf16* __restrict__ ck,
+                                 const bf16* __restrict__ kr, size_t page, int tid, int threads) {
+  bf16* dc = reinterpret_cast<bf16*>(stage);
+  bf16* dr = dc + KEYS * QS;
+  const bf16* sc = ck + page * KEYS * R;
+  const bf16* sr = kr + page * KEYS * P;
+  constexpr int CC = R / 8, CR = P / 8;
+  for (int i = tid; i < KEYS * (CC + CR); i += threads) {
+    if (i < KEYS * CC) {
+      const int j = i / CC, k = i % CC;
+      tc::cp_async16(dc + j * QS + k * 8, sc + j * R + k * 8, true);
+    } else {
+      const int j = (i - KEYS * CC) / CR, k = (i - KEYS * CC) % CR;
+      tc::cp_async16(dr + j * RS + k * 8, sr + j * P + k * 8, true);
+    }
+  }
+}
+
+// The queries of one tile into shared memory, by the tile's own WPT warps
+// (thread wt of them): q_lat (float32, 16 consecutive rows from ql) as bf16
+// high and low parts (q_lat = hi + lo to 2^-17), q_rope (from qr) as it
+// is; zeros when ql is null (a tile with no rows).  Eight loads in flight
+// a thread at a time.
+template <int WPT>
+__device__ __forceinline__ void stage_tile(bf16* sh, bf16* sl, bf16* sr,
+                                           const float* __restrict__ ql,
+                                           const bf16* __restrict__ qr, int wt) {
+  constexpr int T = WPT * 32;
+  constexpr int QV = 16 * (R / 4) / T;  // float4s a thread
+  static_assert(QV % 8 == 0, "whole batches of eight loads");
+#pragma unroll
+  for (int k0 = 0; k0 < QV; k0 += 8) {
+    float4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = wt + (k0 + u) * T, r = i / (R / 4), k = i % (R / 4);
+      x[u] = ql == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
+                           : *reinterpret_cast<const float4*>(ql + (size_t)r * R + k * 4);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = wt + (k0 + u) * T, r = i / (R / 4), k = i % (R / 4);
+      uint2 hi, lo;
+      tc::split_bf16(x[u].x, x[u].y, hi.x, lo.x);
+      tc::split_bf16(x[u].z, x[u].w, hi.y, lo.y);
+      *reinterpret_cast<uint2*>(sh + r * QS + k * 4) = hi;
+      *reinterpret_cast<uint2*>(sl + r * QS + k * 4) = lo;
+    }
+  }
+  for (int i = wt; i < 16 * (P / 8); i += T) {  // 16-byte q_rope pieces
+    const int r = i / (P / 8), k = i % (P / 8);
+    *reinterpret_cast<uint4*>(sr + r * RS + k * 8) =
+        ql == nullptr ? make_uint4(0u, 0u, 0u, 0u)
+                      : *reinterpret_cast<const uint4*>(qr + (size_t)r * P + k * 8);
+  }
+}
+
+// A tile's softmax state in each of its warps: the warp's R / WPT context
+// columns of rows gq and gq + 8 (C fragments, gq = lane / 4), their running
+// max m (log2 domain) and thread-partial denominators l.
+template <int WPT>
+struct TileState {
+  static constexpr int COLS = R / WPT;
+  float acc[COLS / 8][4];
+  float m[2], l[2];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    m[0] = m[1] = dyn::NEG_INF;
+    l[0] = l[1] = 0.f;
+  }
+};
+
+// One page of a walk for one tile, run by the tile's WPT warps (this is
+// warp wq of them, rt the tile's index in the CTA), only for a page the
+// tile sees.  qh, ql, qr: the tile's staged queries; pc, pr: the page's ck
+// and kr rows; sw: the tile's swap area [WPT][32][8].  Keys sit at
+// positions kpos0 + j; the tile sees those <= limit.
+template <int WPT>
+__device__ __forceinline__ void page_step(TileState<WPT>& st, const bf16* qh, const bf16* ql,
+                                          const bf16* qr, const bf16* pc, const bf16* pr,
+                                          float* sw, int wq, int rt, int kpos0, int limit,
+                                          float scale_log2) {
+  constexpr int COLS = TileState<WPT>::COLS, KL = LAT_STEPS / WPT;
+  static_assert(LAT_STEPS % WPT == 0 && ROPE_STEPS % WPT == 0, "K splits evenly");
+  const int lane = threadIdx.x % 32, tq = lane % 4;
+
+  // scores [16 rows, 16 keys] over this warp's share of K: q_lat columns
+  // [wq * KL, (wq + 1) * KL) * 16 (hi and lo parts) and q_rope K steps wq,
+  // wq + WPT, ..., in four independent accumulator chains per N tile
+  // (summed in a fixed order)
+  float sc[2][4][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][k][e] = 0.f;
+#pragma unroll
+  for (int k2 = 0; k2 < KL; ++k2) {
+    const int kk = wq * KL + k2;
+    uint32_t kf[4], ah[4], al[4];
+    tc::ldmatrix_x4(kf, pc + tc::b_row(lane) * QS + kk * 16 + tc::b_col(lane));
+    tc::ldmatrix_x4(ah, qh + tc::a_row(lane) * QS + kk * 16 + tc::a_col(lane));
+    tc::ldmatrix_x4(al, ql + tc::a_row(lane) * QS + kk * 16 + tc::a_col(lane));
+    const int par = k2 & 1;
+    tc::mma_bf16(sc[0][par], ah, kf[0], kf[1]);
+    tc::mma_bf16(sc[1][par], ah, kf[2], kf[3]);
+    tc::mma_bf16(sc[0][2 + par], al, kf[0], kf[1]);
+    tc::mma_bf16(sc[1][2 + par], al, kf[2], kf[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < ROPE_STEPS / WPT; ++i) {
+    const int kk = i * WPT + wq;
+    uint32_t kf[4], ar[4];
+    tc::ldmatrix_x4(kf, pr + tc::b_row(lane) * RS + kk * 16 + tc::b_col(lane));
+    tc::ldmatrix_x4(ar, qr + tc::a_row(lane) * RS + kk * 16 + tc::a_col(lane));
+    tc::mma_bf16(sc[0][i & 1], ar, kf[0], kf[1]);
+    tc::mma_bf16(sc[1][i & 1], ar, kf[2], kf[3]);
+  }
+  float part[8];  // [N tile][fragment element]
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[j * 4 + e] = (sc[j][0][e] + sc[j][1][e]) + (sc[j][2][e] + sc[j][3][e]);
+  float4* mine = reinterpret_cast<float4*>(sw + (wq * 32 + lane) * 8);
+  mine[0] = make_float4(part[0], part[1], part[2], part[3]);
+  mine[1] = make_float4(part[4], part[5], part[6], part[7]);
+  tile_sync<WPT>(rt);
+  float sfull[8];  // the warps' shares added in warp order in every warp: the same bits
+#pragma unroll
+  for (int w = 0; w < WPT; ++w) {
+    const float4* o = reinterpret_cast<const float4*>(sw + (w * 32 + lane) * 8);
+    const float4 o0 = o[0], o1 = o[1];
+    const float x[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sfull[i] = w == 0 ? x[i] : sfull[i] + x[i];
+  }
+
+  // mask (positions <= limit), online softmax per row, P as bf16 high and
+  // low A fragments
+  uint32_t ph[4], pl[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // row gq (h = 0) or gq + 8 (h = 1)
+    float row_s[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = i / 2, e = 2 * h + i % 2;
+      const int kp = kpos0 + j * 8 + 2 * tq + i % 2;
+      row_s[i] = kp <= limit ? sfull[j * 4 + e] * scale_log2 : dyn::NEG_INF;
+    }
+    const float alpha = tc::softmax_step(row_s, st.m[h], st.l[h]);
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) {
+      st.acc[j][2 * h] *= alpha;
+      st.acc[j][2 * h + 1] *= alpha;
+    }
+    tc::split_bf16(row_s[0], row_s[1], ph[h], pl[h]);          // keys 2t, 2t+1
+    tc::split_bf16(row_s[2], row_s[3], ph[2 + h], pl[2 + h]);  // keys 8+2t, 9+2t
+  }
+
+  // acc += P ck over this warp's columns (ck through ldmatrix.trans, two N
+  // tiles a load), the high and low parts of P
+#pragma unroll
+  for (int dp = 0; dp < COLS / 16; ++dp) {
+    uint32_t vf[4];
+    tc::ldmatrix_x4_trans(vf, pc + tc::a_row(lane) * QS + wq * COLS + dp * 16 + tc::a_col(lane));
+    tc::mma_bf16(st.acc[2 * dp], ph, vf[0], vf[1]);
+    tc::mma_bf16(st.acc[2 * dp + 1], ph, vf[2], vf[3]);
+    tc::mma_bf16(st.acc[2 * dp], pl, vf[0], vf[1]);
+    tc::mma_bf16(st.acc[2 * dp + 1], pl, vf[2], vf[3]);
+  }
+}
+
+// A tile's 16 rows after its walk.  direct: output rows out_row.. (width
+// R) = acc / max(l, 1e-20), zeros for a row that saw no key.  Otherwise
+// the float32 partial at rows part_row..: m and l always (m at
+// part_ml[row], l at part_ml[row + l_off]), acc where the row saw a key.
+template <int WPT>
+__device__ __forceinline__ void finish_tile(const TileState<WPT>& st, int wq, bool direct,
+                                            float* __restrict__ out, size_t out_row,
+                                            float* __restrict__ part_acc,
+                                            float* __restrict__ part_ml, size_t part_row,
+                                            size_t l_off) {
+  constexpr int COLS = TileState<WPT>::COLS;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int cols = wq * COLS + 2 * tq;
+  const float lr[2] = {tc::quad_sum(st.l[0]), tc::quad_sum(st.l[1])};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = gq + 8 * h;
+    if (direct) {
+      float* o = out + (out_row + r) * R + cols;
+      const float d = fmaxf(lr[h], 1e-20f);
+#pragma unroll
+      for (int j = 0; j < COLS / 8; ++j)
+        *reinterpret_cast<float2*>(o + j * 8) =
+            make_float2(st.acc[j][2 * h] / d, st.acc[j][2 * h + 1] / d);
+      continue;
+    }
+    const size_t pr = part_row + r;
+    if (wq == 0 && tq == 0) {
+      part_ml[pr] = st.m[h];
+      part_ml[pr + l_off] = lr[h];
+    }
+    if (st.m[h] == dyn::NEG_INF) continue;
+    float* pa = part_acc + pr * R + cols;
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j)
+      *reinterpret_cast<float2*>(pa + j * 8) = make_float2(st.acc[j][2 * h], st.acc[j][2 * h + 1]);
+  }
+}
+
+// The ragged walk: two warps a tile, four tiles a CTA, the filtered
+// worklist after the swap areas.
+constexpr int RAG_WPT = 2;
+constexpr int RAG_TILES = max_tiles(RAG_WPT);
+constexpr int RAG_THREADS = RAG_TILES * RAG_WPT * 32;
+constexpr size_t RAG_LIST = Smem::bytes(RAG_TILES, RAG_TILES * RAG_WPT);
+constexpr size_t RAG_BYTES = RAG_LIST + (3 * MAX_CHUNK + 2 * RAG_TILES + 1) * sizeof(int);
+
 // Grid (chunk, tile group, token block).  Rows are token-major (row = token
-// * H + head); a CTA holds TILES 16-row tiles of its token block, each tile
-// one token's 16 heads (H = 16) or 16 of its heads.  Warps 2i and 2i + 1
-// own tile i: each scores half of the K = 576 reduction (q_lat columns
-// [0, 256), then [256, 512) and q_rope) and they swap the partial scores
-// through shared memory, adding them in one order, so both hold the same
-// bits; then each accumulates one half of the R context columns.
-__global__ void __launch_bounds__(THREADS, 1)
+// * H + head); a CTA holds RAG_TILES 16-row tiles of its token block, each
+// tile one token's 16 heads (H = 16) or 16 of its heads.
+__global__ void __launch_bounds__(RAG_THREADS, 1)
 mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_rope,
                      const bf16* __restrict__ ck, const bf16* __restrict__ kr,
                      const int* __restrict__ token_lane, const int* __restrict__ token_pos,
@@ -473,29 +711,28 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
                      int chunk_pages, float scale_log2) {
   extern __shared__ __align__(16) char smem[];
   bf16* q_hi = reinterpret_cast<bf16*>(smem);
-  bf16* q_lo = reinterpret_cast<bf16*>(smem + Layout::Q_LAT);
-  bf16* q_rp = reinterpret_cast<bf16*>(smem + 2 * Layout::Q_LAT);
-  char* ring = smem + Layout::RING;
-  float* swap = reinterpret_cast<float*>(smem + Layout::SWAP);  // [warps][32 lanes][8]
-  int* l_phys = reinterpret_cast<int*>(smem + Layout::LIST);
+  bf16* q_lo = reinterpret_cast<bf16*>(smem + Smem::q_lat(RAG_TILES));
+  bf16* q_rp = reinterpret_cast<bf16*>(smem + 2 * Smem::q_lat(RAG_TILES));
+  char* ring = smem + Smem::ring(RAG_TILES);
+  float* swap = reinterpret_cast<float*>(smem + Smem::swap(RAG_TILES));
+  int* l_phys = reinterpret_cast<int*>(smem + RAG_LIST);
   int* l_ord = l_phys + MAX_CHUNK;
   int* l_lane = l_ord + MAX_CHUNK;
-  int* t_lane = l_lane + MAX_CHUNK;  // [TILES] the lane and position of each tile's token
-  int* t_pos = t_lane + TILES;       //         (-1: a pad token or no tile)
-  int* n_list_s = t_pos + TILES;
+  int* t_lane = l_lane + MAX_CHUNK;  // [RAG_TILES] the lane and position of each tile's token
+  int* t_pos = t_lane + RAG_TILES;   //            (-1: a pad token or no tile)
+  int* n_list_s = t_pos + RAG_TILES;
 
   const int c = blockIdx.x, grp = blockIdx.y, t = blockIdx.z;
   const int chunks = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;  // fragment row group and column pair
-  const int count = min(page_count[t], page_slots);
-  const int n_used = tc::ceil_div(count, chunk_pages);
+  const int count = min(max(page_count[t], 0), page_slots);
+  const int n_used = used_chunks(page_count[t], page_slots, 1, chunk_pages);
   if (c >= max(n_used, 1)) return;  // past the worklist: nothing to do
   const bool direct = n_used <= 1;  // the only chunk writes the output itself
   const int rows_tb = tb * H, tiles_tb = rows_tb / 16;
 
-  if (tid < TILES) {
-    const int tile = grp * TILES + tid;
+  if (tid < RAG_TILES) {
+    const int tile = grp * RAG_TILES + tid;
     int ln = -1, ps = -1;
     if (tile < tiles_tb) {
       const int tok = t * tb + tile * 16 / H;
@@ -522,7 +759,7 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
         od = page_ord[wl + e];
         ln = page_lane[wl + e];
 #pragma unroll
-        for (int i = 0; i < TILES; ++i)
+        for (int i = 0; i < RAG_TILES; ++i)
           seen = seen || (t_pos[i] >= 0 && t_lane[i] == ln && od * KEYS <= t_pos[i]);
       }
       const unsigned mask = __ballot_sync(tc::FULL, seen);
@@ -539,78 +776,27 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
   __syncthreads();
   const int n_list = *n_list_s;
 
-  auto issue = [&](int n) {  // page n of the list into its stage, 16 bytes a copy
-    if (n < n_list) {
-      bf16* dc = reinterpret_cast<bf16*>(ring + (n % STAGES) * Layout::PAGE);
-      bf16* dr = dc + KEYS * QS;
-      const bf16* sc_ = ck + (size_t)l_phys[n] * KEYS * R;
-      const bf16* sr = kr + (size_t)l_phys[n] * KEYS * P;
-      constexpr int CC = R / 8, CR = P / 8;
-      for (int i = tid; i < KEYS * (CC + CR); i += THREADS) {
-        if (i < KEYS * CC) {
-          const int j = i / CC, k = i % CC;
-          tc::cp_async16(dc + j * QS + k * 8, sc_ + j * R + k * 8, true);
-        } else {
-          const int j = (i - KEYS * CC) / CR, k = (i - KEYS * CC) % CR;
-          tc::cp_async16(dr + j * RS + k * 8, sr + j * P + k * 8, true);
-        }
-      }
-    }
+  auto issue = [&](int n) {  // page n of the list into its stage
+    if (n < n_list)
+      load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)l_phys[n], tid, RAG_THREADS);
     tc::cp_async_commit();  // one group a page, empty past the last
   };
 #pragma unroll
   for (int n = 0; n < STAGES - 1; ++n) issue(n);
 
-  // the queries of the tiles that see a page: q_lat as bf16 high and low
-  // parts (q_lat = hi + lo to 2^-17), q_rope as it is; eight loads in
-  // flight a thread at a time
-  if (n_list > 0) {
-    auto q_row = [&](int r) {  // row r of the CTA's tiles in q [T, H, .]
-      const int tile = grp * TILES + r / 16;
-      return (size_t)(t * tb + tile * 16 / H) * H + (tile * 16) % H + r % 16;
-    };
-    constexpr int QV = TILES * 16 * (R / 4) / THREADS;  // float4s a thread
-#pragma unroll
-    for (int k0 = 0; k0 < QV; k0 += 8) {
-      float4 x[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = tid + (k0 + u) * THREADS, r = i / (R / 4), k = i % (R / 4);
-        x[u] = t_pos[r / 16] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                 : *reinterpret_cast<const float4*>(q_lat + q_row(r) * R + k * 4);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = tid + (k0 + u) * THREADS, r = i / (R / 4), k = i % (R / 4);
-        uint2 hi, lo;
-        tc::split_bf16(x[u].x, x[u].y, hi.x, lo.x);
-        tc::split_bf16(x[u].z, x[u].w, hi.y, lo.y);
-        *reinterpret_cast<uint2*>(q_hi + r * QS + k * 4) = hi;
-        *reinterpret_cast<uint2*>(q_lo + r * QS + k * 4) = lo;
-      }
-    }
-    constexpr int RV = TILES * 16 * (P / 8) / THREADS;  // 16-byte q_rope pieces a thread
-#pragma unroll
-    for (int u = 0; u < RV; ++u) {
-      const int i = tid + u * THREADS, r = i / (P / 8), k = i % (P / 8);
-      *reinterpret_cast<uint4*>(q_rp + r * RS + k * 8) =
-          t_pos[r / 16] < 0 ? make_uint4(0u, 0u, 0u, 0u)
-                            : *reinterpret_cast<const uint4*>(q_rope + q_row(r) * P + k * 8);
-    }
-  }
-
-  const int rt = warp / 2, ch = warp % 2;  // this warp's tile and column half
-  const int tile = grp * TILES + rt;
+  const int rt = warp / RAG_WPT, wq = warp % RAG_WPT;  // this warp's tile and share
+  const int tile = grp * RAG_TILES + rt;
   const int my_lane = t_lane[rt], my_pos = t_pos[rt];
-  const bf16* qh = q_hi + rt * 16 * QS;
-  const bf16* ql = q_lo + rt * 16 * QS;
-  const bf16* qr = q_rp + rt * 16 * RS;
-  float acc[HALF / 8][4];
-#pragma unroll
-  for (int j = 0; j < HALF / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {dyn::NEG_INF, dyn::NEG_INF}, l[2] = {0.f, 0.f};  // rows gq, gq + 8
+  const int tok_local = tile * 16 / H, head0 = (tile * 16) % H;
+  const size_t q0 = ((size_t)t * tb + tok_local) * H + head0;  // the tile's first row in q and out
+  bf16* qh = q_hi + rt * 16 * QS;
+  bf16* ql = q_lo + rt * 16 * QS;
+  bf16* qr = q_rp + rt * 16 * RS;
+  if (n_list > 0)
+    stage_tile<RAG_WPT>(qh, ql, qr, my_pos < 0 ? nullptr : q_lat + q0 * R,
+                        my_pos < 0 ? nullptr : q_rope + q0 * P, tid % (RAG_WPT * 32));
+  TileState<RAG_WPT> st;
+  st.init();
 
   for (int n = 0; n < n_list; ++n) {
     tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
@@ -618,142 +804,116 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
     issue(n + STAGES - 1);            // into the stage page n - 1 left
     const int ord = l_ord[n];
     if (my_pos < 0 || l_lane[n] != my_lane || ord * KEYS > my_pos) continue;
-    const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Layout::PAGE);
-    const bf16* pr = pc + KEYS * QS;
-
-    // scores [16 rows, 16 keys]: q_hi.ck + q_lo.ck (+ q_rope.kr) over this
-    // warp's half of K, in four independent accumulator chains per N tile
-    // (summed in a fixed order), then the pair's halves swapped and added
-    float sc[2][4][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][k][e] = 0.f;
-#pragma unroll
-    for (int k2 = 0; k2 < LAT_STEPS / 2; ++k2) {
-      const int kk = ch * (LAT_STEPS / 2) + k2;
-      uint32_t kf[4], ah[4], al[4];
-      tc::ldmatrix_x4(kf, pc + tc::b_row(lane) * QS + kk * 16 + tc::b_col(lane));
-      tc::ldmatrix_x4(ah, qh + tc::a_row(lane) * QS + kk * 16 + tc::a_col(lane));
-      tc::ldmatrix_x4(al, ql + tc::a_row(lane) * QS + kk * 16 + tc::a_col(lane));
-      const int par = k2 & 1;
-      tc::mma_bf16(sc[0][par], ah, kf[0], kf[1]);
-      tc::mma_bf16(sc[1][par], ah, kf[2], kf[3]);
-      tc::mma_bf16(sc[0][2 + par], al, kf[0], kf[1]);
-      tc::mma_bf16(sc[1][2 + par], al, kf[2], kf[3]);
-    }
-    if (ch == 1) {
-#pragma unroll
-      for (int kk = 0; kk < P / 16; ++kk) {
-        uint32_t kf[4], ar[4];
-        tc::ldmatrix_x4(kf, pr + tc::b_row(lane) * RS + kk * 16 + tc::b_col(lane));
-        tc::ldmatrix_x4(ar, qr + tc::a_row(lane) * RS + kk * 16 + tc::a_col(lane));
-        tc::mma_bf16(sc[0][kk & 1], ar, kf[0], kf[1]);
-        tc::mma_bf16(sc[1][kk & 1], ar, kf[2], kf[3]);
-      }
-    }
-    float part[8];  // [N tile][fragment element]
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        part[j * 4 + e] = (sc[j][0][e] + sc[j][1][e]) + (sc[j][2][e] + sc[j][3][e]);
-    float4* mine_sw = reinterpret_cast<float4*>(swap + (warp * 32 + lane) * 8);
-    mine_sw[0] = make_float4(part[0], part[1], part[2], part[3]);
-    mine_sw[1] = make_float4(part[4], part[5], part[6], part[7]);
-    pair_sync(rt);
-    const float4* other_sw = reinterpret_cast<const float4*>(swap + ((warp ^ 1) * 32 + lane) * 8);
-    const float4 o0 = other_sw[0], o1 = other_sw[1];
-    const float other[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-    float sfull[8];  // the low-K half first in both warps: the same bits
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sfull[i] = ch == 0 ? part[i] + other[i] : other[i] + part[i];
-
-    // mask (every key is this token's lane: keep positions <= its own),
-    // online softmax per row, P as bf16 high and low A fragments
-    uint32_t ph[4], pl[4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // row gq (h = 0) or gq + 8 (h = 1)
-      float row_s[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = i / 2, e = 2 * h + i % 2;
-        const int kp = ord * KEYS + j * 8 + 2 * tq + i % 2;
-        row_s[i] = kp <= my_pos ? sfull[j * 4 + e] * scale_log2 : dyn::NEG_INF;
-      }
-      const float alpha = tc::softmax_step(row_s, m[h], l[h]);
-#pragma unroll
-      for (int j = 0; j < HALF / 8; ++j) {
-        acc[j][2 * h] *= alpha;
-        acc[j][2 * h + 1] *= alpha;
-      }
-      tc::split_bf16(row_s[0], row_s[1], ph[h], pl[h]);          // keys 2t, 2t+1
-      tc::split_bf16(row_s[2], row_s[3], ph[2 + h], pl[2 + h]);  // keys 8+2t, 9+2t
-    }
-
-    // acc += P ck over this warp's half of the columns (ck through
-    // ldmatrix.trans, two N tiles a load), the high and low parts of P
-#pragma unroll
-    for (int dp = 0; dp < HALF / 16; ++dp) {
-      uint32_t vf[4];
-      tc::ldmatrix_x4_trans(vf, pc + tc::a_row(lane) * QS + ch * HALF + dp * 16 + tc::a_col(lane));
-      tc::mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
-      tc::mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
-      tc::mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
-      tc::mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
-    }
+    const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
+    page_step<RAG_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * RAG_WPT * 32 * 8, wq, rt,
+                       ord * KEYS, my_pos, scale_log2);
   }
   tc::cp_async_wait<0>();
   if (tile >= tiles_tb) return;
-
-  const int tok_local = tile * 16 / H, head0 = (tile * 16) % H;
-  const size_t tok = (size_t)t * tb + tok_local;
-  const int cols = ch * HALF + 2 * tq;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int head = head0 + gq + 8 * h;
-    const float lr = tc::quad_sum(l[h]);
-    if (direct) {  // the output: zeros for a pad token or a token with no page here
-      float* o = out + (tok * H + head) * R + cols;
-      const float d = fmaxf(lr, 1e-20f);
-#pragma unroll
-      for (int j = 0; j < HALF / 8; ++j)
-        *reinterpret_cast<float2*>(o + j * 8) = make_float2(acc[j][2 * h] / d, acc[j][2 * h + 1] / d);
-      continue;
-    }
-    // a partial: m and l always, acc where the row saw a key
-    const size_t pr = ((size_t)t * chunks + c) * rows_tb + tok_local * H + head;
-    if (ch == 0 && tq == 0) {
-      part_ml[pr] = m[h];
-      part_ml[pr + (size_t)gridDim.z * chunks * rows_tb] = lr;
-    }
-    if (m[h] == dyn::NEG_INF) continue;
-    float* pa = part_acc + pr * R + cols;
-#pragma unroll
-    for (int j = 0; j < HALF / 8; ++j)
-      *reinterpret_cast<float2*>(pa + j * 8) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
+  // zeros for a pad token or a token with no page here
+  finish_tile<RAG_WPT>(st, wq, direct, out, q0, part_acc, part_ml,
+                       ((size_t)t * chunks + c) * rows_tb + tok_local * H + head0,
+                       (size_t)gridDim.z * chunks * rows_tb);
 }
 
-// Merge the partials of every token block whose worklist spans more than
-// one chunk, in chunk order.  One CTA per (head, token, token block), a
-// thread four columns.
+// The table walk: four warps a tile (128 context columns and a quarter of
+// the score reduction each), at most three tiles a CTA.
+constexpr int TAB_WPT = 4;
+constexpr int TAB_TILES = max_tiles(TAB_WPT);
+
+// Grid (chunk, tile group, sequence).  A sequence's W * H w-major rows
+// make W * H / 16 tiles in gridDim.y balanced groups; this CTA holds group
+// blockIdx.y (blockDim.x / (TAB_WPT * 32) tiles of room) and walks table
+// slots [c * chunk_pages, (c + 1) * chunk_pages) of its sequence, up to its
+// last page.  Tile i's rows are query w = 16 i / H's heads, at position
+// ctx - W + w.
+__global__ void __launch_bounds__(TAB_TILES * TAB_WPT * 32, 1)
+mla_table_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_rope,
+                    const bf16* __restrict__ ck, const bf16* __restrict__ kr,
+                    const int* __restrict__ block_tables, const int* __restrict__ context_lens,
+                    float* __restrict__ out, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int W, int H, int max_blocks,
+                    int chunk_pages, float scale_log2) {
+  extern __shared__ __align__(16) char smem[];
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int chunks = gridDim.x, groups = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int ctx = context_lens[b];
+  const int n_used = used_chunks(ctx, max_blocks * KEYS, KEYS, chunk_pages);
+  if (c >= max(n_used, 1)) return;  // past the context: nothing to do
+  const bool direct = n_used <= 1;  // the only chunk writes the output itself
+  const int n_pages = tc::ceil_div(min(max(ctx, 0), max_blocks * KEYS), KEYS);
+  const int p0 = c * chunk_pages;
+  const int n_list = max(0, min(chunk_pages, n_pages - p0));
+
+  const int room = blockDim.x / (TAB_WPT * 32);
+  bf16* q_hi = reinterpret_cast<bf16*>(smem);
+  bf16* q_lo = reinterpret_cast<bf16*>(smem + Smem::q_lat(room));
+  bf16* q_rp = reinterpret_cast<bf16*>(smem + 2 * Smem::q_lat(room));
+  char* ring = smem + Smem::ring(room);
+  float* swap = reinterpret_cast<float*>(smem + Smem::swap(room));
+  const int* pages = block_tables + (size_t)b * max_blocks + p0;
+
+  auto issue = [&](int n) {  // table slot p0 + n into its stage
+    if (n < n_list)
+      load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)pages[n], tid, blockDim.x);
+    tc::cp_async_commit();  // one group a page, empty past the last
+  };
+#pragma unroll
+  for (int n = 0; n < STAGES - 1; ++n) issue(n);
+
+  const int tiles = W * H / 16;
+  const int t0 = grp * tiles / groups, nt = (grp + 1) * tiles / groups - t0;
+  const int rt = warp / TAB_WPT, wq = warp % TAB_WPT;  // this warp's tile and share
+  const bool live = rt < nt;
+  const int row0 = (t0 + rt) * 16;             // the tile's first w-major row
+  const int limit = ctx - W + row0 / H;        // its query's position
+  const size_t q0 = (size_t)b * W * H + row0;  // ... and row in q and out [B, W, H, .]
+  bf16* qh = q_hi + rt * 16 * QS;
+  bf16* ql = q_lo + rt * 16 * QS;
+  bf16* qr = q_rp + rt * 16 * RS;
+  if (n_list > 0)
+    stage_tile<TAB_WPT>(qh, ql, qr, live ? q_lat + q0 * R : nullptr,
+                        live ? q_rope + q0 * P : nullptr, tid % (TAB_WPT * 32));
+  TileState<TAB_WPT> st;
+  st.init();
+
+  for (int n = 0; n < n_list; ++n) {
+    tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
+    __syncthreads();                  // ... everyone's; page n - 1 consumed
+    issue(n + STAGES - 1);            // into the stage page n - 1 left
+    const int kpos0 = (p0 + n) * KEYS;
+    if (!live || kpos0 > limit) continue;
+    const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
+    page_step<TAB_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * TAB_WPT * 32 * 8, wq, rt,
+                       kpos0, limit, scale_log2);
+  }
+  tc::cp_async_wait<0>();
+  if (!live) return;
+  // zeros for an idle lane (ctx 0) or a query below position 0
+  finish_tile<TAB_WPT>(st, wq, direct, out, q0, part_acc, part_ml,
+                       ((size_t)b * chunks + c) * W * H + row0,
+                       (size_t)gridDim.z * chunks * W * H);
+}
+
+// Merge the partials of every unit (a token block of the ragged walk, a
+// sequence of the table walk) whose walk used more than one chunk, in
+// chunk order: partial row (u * chunks + c) * rows + row, output row
+// u * rows + row; used_chunks(counts[u], cap, div, chunk_pages) of them.
+// One CTA per (row, unit), a thread four columns.
 __global__ void __launch_bounds__(R / 4)
-mla_ragged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          const int* __restrict__ page_count, float* __restrict__ out, int H,
-                          int tb, int page_slots, int chunks, int chunk_pages) {
+mla_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                   const int* __restrict__ counts, float* __restrict__ out, int rows,
+                   int chunks, int chunk_pages, int cap, int div) {
   __shared__ float sm[MAX_CHUNKS], sl[MAX_CHUNKS], red[2];
-  const int h = blockIdx.x, tl = blockIdx.y, t = blockIdx.z, tid = threadIdx.x;
-  const int n = tc::ceil_div(min(page_count[t], page_slots), chunk_pages);
+  const int row = blockIdx.x, u = blockIdx.y, tid = threadIdx.x;
+  const int n = used_chunks(counts[u], cap, div, chunk_pages);
   if (n <= 1) return;  // written by the walk itself
-  const int rows_tb = tb * H;
-  const size_t row0 = (size_t)t * chunks * rows_tb + tl * H + h;  // chunk 0's row
-  const size_t l_off = (size_t)gridDim.z * chunks * rows_tb;
+  const size_t row0 = (size_t)u * chunks * rows + row;  // chunk 0's partial row
+  const size_t l_off = (size_t)gridDim.y * chunks * rows;
   for (int c = tid; c < n; c += blockDim.x) {
-    sm[c] = part_ml[row0 + (size_t)c * rows_tb];
-    sl[c] = part_ml[row0 + (size_t)c * rows_tb + l_off];
+    sm[c] = part_ml[row0 + (size_t)c * rows];
+    sl[c] = part_ml[row0 + (size_t)c * rows + l_off];
   }
   const float d = fmaxf(tc::merge_weights(sm, sl, n, red), 1e-20f);
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -761,32 +921,54 @@ mla_ragged_combine_kernel(const float* __restrict__ part_acc, const float* __res
   for (int c = 0; c < n; ++c) {
     const float w = sm[c];
     if (w == 0.f) continue;  // no key in this chunk: its acc was not written
-    const float4 x = *reinterpret_cast<const float4*>(part_acc + (row0 + (size_t)c * rows_tb) * R + tid * 4);
+    const float4 x =
+        *reinterpret_cast<const float4*>(part_acc + (row0 + (size_t)c * rows) * R + tid * 4);
     a.x += w * x.x;
     a.y += w * x.y;
     a.z += w * x.z;
     a.w += w * x.w;
   }
-  *reinterpret_cast<float4*>(out + ((size_t)(t * tb + tl) * H + h) * R + tid * 4) =
+  *reinterpret_cast<float4*>(out + ((size_t)u * rows + row) * R + tid * 4) =
       make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
 }
 
-int launch(const void* ql, const void* qr, const void* ck, const void* kr, const int* tl,
-           const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
-           float* out, float* part_acc, float* part_ml, int T_, int H, int tb, int page_slots,
-           int chunks, int chunk_pages, float scale, cudaStream_t stream) {
+int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr, const int* tl,
+                  const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
+                  float* out, float* part_acc, float* part_ml, int T_, int H, int tb,
+                  int page_slots, int chunks, int chunk_pages, float scale, cudaStream_t stream) {
   const int num_tb = T_ / tb;
-  const int groups = tc::ceil_div(tb * H / 16, TILES);
-  cudaError_t err = dyn::allow_smem(mla_ragged_tc_kernel, Layout::BYTES);
+  const int groups = tc::ceil_div(tb * H / 16, RAG_TILES);
+  cudaError_t err = dyn::allow_smem(mla_ragged_tc_kernel, RAG_BYTES);
   if (err != cudaSuccess) return (int)err;
-  mla_ragged_tc_kernel<<<dim3(chunks, groups, num_tb), THREADS, Layout::BYTES, stream>>>(
+  mla_ragged_tc_kernel<<<dim3(chunks, groups, num_tb), RAG_THREADS, RAG_BYTES, stream>>>(
       static_cast<const float*>(ql), static_cast<const bf16*>(qr), static_cast<const bf16*>(ck),
       static_cast<const bf16*>(kr), tl, tp, pp, pl, po, pc, out, part_acc, part_ml, H, tb,
       page_slots, chunk_pages, scale * tc::LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  mla_ragged_combine_kernel<<<dim3(H, tb, num_tb), R / 4, 0, stream>>>(
-      part_acc, part_ml, pc, out, H, tb, page_slots, chunks, chunk_pages);
+  mla_combine_kernel<<<dim3(tb * H, num_tb), R / 4, 0, stream>>>(
+      part_acc, part_ml, pc, out, tb * H, chunks, chunk_pages, page_slots, 1);
+  return (int)cudaGetLastError();
+}
+
+int launch_table(const void* ql, const void* qr, const void* ck, const void* kr,
+                 const int* tables, const int* lens, float* out, float* part_acc,
+                 float* part_ml, int B, int W, int H, int max_blocks, int group_tiles,
+                 int chunks, int chunk_pages, float scale, cudaStream_t stream) {
+  const int tiles = W * H / 16;
+  const int groups = tc::ceil_div(tiles, group_tiles);
+  const int room = tc::ceil_div(tiles, groups);  // the largest balanced group
+  const size_t bytes = Smem::bytes(room, room * TAB_WPT);
+  cudaError_t err = dyn::allow_smem(mla_table_tc_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  mla_table_tc_kernel<<<dim3(chunks, groups, B), room * TAB_WPT * 32, bytes, stream>>>(
+      static_cast<const float*>(ql), static_cast<const bf16*>(qr), static_cast<const bf16*>(ck),
+      static_cast<const bf16*>(kr), tables, lens, out, part_acc, part_ml, W, H, max_blocks,
+      chunk_pages, scale * tc::LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  mla_combine_kernel<<<dim3(W * H, B), R / 4, 0, stream>>>(
+      part_acc, part_ml, lens, out, W * H, chunks, chunk_pages, max_blocks * KEYS, KEYS);
   return (int)cudaGetLastError();
 }
 
@@ -813,21 +995,6 @@ int pick_group(int H, int rows_per_head, long ctas_per_head_group) {
          ctas_per_head_group * (H / hg) > slots)
     hg *= 2;
   return hg;
-}
-
-template <typename T, int R, int P>
-int launch_decode(const void* ql, const void* qr, const void* ck, const void* kr,
-                  const int* tables, const int* lens, float* out, int B, int H,
-                  int bs, int max_blocks, float scale, cudaStream_t stream) {
-  const int hg = pick_group(H, 1, B);
-  const size_t smem = MlaSmem<T, R, P>::bytes(hg);
-  auto kernel = mla_decode_kernel<T, R, P>;
-  cudaError_t err = dyn::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(B, H / hg), MTHREADS, smem, stream>>>(
-      static_cast<const float*>(ql), static_cast<const T*>(qr), static_cast<const T*>(ck),
-      static_cast<const T*>(kr), tables, lens, out, H, hg, bs, max_blocks, scale);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int R, int P>
@@ -873,41 +1040,38 @@ int by_geometry(int R, int P, Fn512 f512, Fn32 f32) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q_rope and both caches share it; q_lat
-// and out are float32).  Returns 0 or an error code.
-extern "C" int dyn_mla_paged_decode(
-    const void* q_lat, const void* q_rope, const void* ck_cache, const void* kr_cache,
-    const void* block_tables, const void* context_lens, void* out, int B, int H,
-    int R, int P, int bs, int max_blocks, float scale, int dtype, void* stream) {
-  if (B == 0) return 0;
-  const int* tables = static_cast<const int*>(block_tables);
-  const int* lens = static_cast<const int*>(context_lens);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DYN_DECODE(T, R_, P_)                                                      \
-  [&] { return launch_decode<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tables, \
-                                        lens, o, B, H, bs, max_blocks, scale, st); }
-  if (dtype == 0)
-    return by_geometry(R, P, DYN_DECODE(float, 512, 64), DYN_DECODE(float, 32, 8));
-  if (dtype == 1)
-    return by_geometry(R, P, DYN_DECODE(__nv_bfloat16, 512, 64),
-                                      DYN_DECODE(__nv_bfloat16, 32, 8));
-#undef DYN_DECODE
-  return dyn::ERR_UNSUPPORTED;
-}
-
-// The verify window: W queries a sequence, q_lat / q_rope / out [B, W, H, .].
-// Same dtypes as dyn_mla_paged_decode.  Returns 0 or an error code.
+// The verify window, and decode at W = 1: W queries a sequence, q_lat
+// (float32) / q_rope / out (float32) [B, W, H, .]; dtype 0 = float32,
+// 1 = bfloat16 (q_rope and both caches share it).  bf16 caches at R 512,
+// P 64, bs 16 and H a multiple of 16 take the split tensor-core table walk
+// and must come with group_tiles (1 to 3: the most tiles a CTA holds) and
+// the plan: `chunks` chunks of
+// `chunk_pages` table slots (chunks * chunk_pages >= max_blocks, chunks
+// <= 256); with chunks > 1, part_acc [B, chunks, W*H, R] and part_ml [2, B,
+// chunks, W*H] are float32 scratch.  Other cases take the CUDA-core loop
+// and must come with group_tiles 0.  Returns 0 or an error code.
 extern "C" int dyn_mla_paged_window_decode(
     const void* q_lat, const void* q_rope, const void* ck_cache, const void* kr_cache,
-    const void* block_tables, const void* context_lens, void* out, int B, int W, int H,
-    int R, int P, int bs, int max_blocks, float scale, int dtype, void* stream) {
+    const void* block_tables, const void* context_lens, void* out, void* part_acc,
+    void* part_ml, int B, int W, int H, int R, int P, int bs, int max_blocks, int group_tiles,
+    int chunks, int chunk_pages, float scale, int dtype, void* stream) {
   if (B == 0) return 0;
   if (W <= 0 || H <= 0 || (long)W * H > 65535L) return dyn::ERR_UNSUPPORTED;  // grid y
   const int* tables = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(context_lens);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool walk = dtype == 1 && R == rtc::R && P == rtc::P && bs == rtc::KEYS && H % 16 == 0;
+  if (walk != (group_tiles != 0)) return dyn::ERR_UNSUPPORTED;  // the route the wrapper planned
+  if (walk) {
+    if (group_tiles < 1 || group_tiles > rtc::TAB_TILES || B > 65535 || chunks < 1 ||
+        chunk_pages < 1 || chunks > rtc::MAX_CHUNKS || (long)chunks * chunk_pages < max_blocks ||
+        (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      return dyn::ERR_UNSUPPORTED;
+    return rtc::launch_table(q_lat, q_rope, ck_cache, kr_cache, tables, lens, o,
+                             static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, W, H,
+                             max_blocks, group_tiles, chunks, chunk_pages, scale, st);
+  }
 #define DYN_WINDOW(T, R_, P_)                                                      \
   [&] { return launch_window<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tables, \
                                         lens, o, B, W, H, bs, max_blocks, scale, st); }
@@ -947,9 +1111,9 @@ extern "C" int dyn_ragged_mla_attention(
         (long)chunks * chunk_pages < page_slots ||
         (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
       return dyn::ERR_UNSUPPORTED;
-    return rtc::launch(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, pl, po, pc, o,
-                       static_cast<float*>(part_acc), static_cast<float*>(part_ml), T_, H, tb,
-                       page_slots, chunks, chunk_pages, scale, st);
+    return rtc::launch_ragged(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, pl, po, pc, o,
+                              static_cast<float*>(part_acc), static_cast<float*>(part_ml), T_, H,
+                              tb, page_slots, chunks, chunk_pages, scale, st);
   }
 #define DYN_RAGGED(T, R_, P_)                                                        \
   [&] { return launch_ragged<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, \

@@ -99,9 +99,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_paged_window_attention.restype = i
     lib.dyn_ragged_paged_attention.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.dyn_ragged_paged_attention.restype = i
-    lib.dyn_mla_paged_decode.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
-    lib.dyn_mla_paged_decode.restype = i
-    lib.dyn_mla_paged_window_decode.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
+    lib.dyn_mla_paged_window_decode.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
     lib.dyn_mla_paged_window_decode.restype = i
     lib.dyn_ragged_mla_attention.argtypes = [p] * 13 + [i] * 9 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i

@@ -11,15 +11,18 @@ caches ``ck [N, bs, R]`` (latents: keys AND values) and ``kr [N, bs, P]``
 (rope keys) in the model dtype, and return the float32 context in latent
 space.  A CPU tensor goes to the plain PyTorch version in ``ops.attention``;
 a CUDA tensor launches the kernel or raises.  ``*_launches`` count wrapper
-calls that launched the kernel (for the ragged split walk: the walk and,
-with more than one chunk, its combine), ``*_plain_calls`` calls routed to
-the plain version.
+calls that launched the kernel (for a split walk: the walk and, with more
+than one chunk, its combine), ``*_plain_calls`` calls routed to the plain
+version; ``table_walk_launches`` counts the decode and window calls that
+took the split table walk.
 
-The ragged step at DeepSeek widths (bf16 caches, R 512, P 64, 16-position
-pages, heads a multiple of 16) takes the split tensor-core walk:
-``plan_chunks`` cuts every token block's page worklist into chunks from
-the shapes alone (never from ``page_count``, which would cost a
-device-to-host read a layer).
+At DeepSeek widths (bf16 caches, R 512, P 64, 16-position pages, heads a
+multiple of 16) all three take a split tensor-core walk, planned from the
+shapes alone (never from ``page_count`` or ``context_lens``, which would
+cost a device-to-host read a layer): ``plan_chunks`` cuts every token
+block's page worklist into chunks, ``plan_table_chunks`` every sequence's
+block table.  Decode is the window at W = 1 on the card, as in row 2.
+Float32 caches and the tiny_mla geometry take the CUDA-core loop.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ ragged_launches = 0
 ragged_plain_calls = 0
 window_launches = 0
 window_plain_calls = 0
+table_walk_launches = 0
 
 # (R, P) geometries the kernels are built for: DeepSeek-V2/V3 and tiny_mla
 GEOMETRIES = ((512, 64), (32, 8))
@@ -58,7 +62,14 @@ TILES_PER_CTA = 4
 CTAS_PER_SM = 4        # the grid aims at about this many CTAs an SM
 MIN_CHUNK_PAGES = 16   # a chunk holds at least this many worklist entries ...
 MAX_CHUNK_PAGES = 256  # ... and at most this many (the kernel's list)
-MAX_CHUNKS = 256       # chunks a worklist may have (the combine's)
+MAX_CHUNKS = 256       # chunks a worklist or table may have (the combine's)
+# the table walk (rows 4-5, decode and verify window; rtc:: too): the
+# 16-row tiles a CTA holds at most (the kernel's cap, MAX_GROUP_TILES, comes
+# from shared memory and registers), and the planner's aims
+MAX_GROUP_TILES = 3
+GROUP_TILES = 3
+TABLE_CTAS_PER_SM = 4      # the grid aims at about this many CTAs an SM
+TABLE_MIN_CHUNK_KEYS = 64  # a chunk walks at least this many table positions
 
 
 def plan_chunks(num_tb: int, tb_tokens: int, heads: int, page_slots: int,
@@ -80,6 +91,42 @@ def plan_chunks(num_tb: int, tb_tokens: int, heads: int, page_slots: int,
     chunks = max(1, chunks, ceil_div(page_slots, MAX_CHUNK_PAGES))
     chunk = ceil_div(page_slots, chunks)
     return ceil_div(page_slots, chunk), chunk
+
+
+def split_route(dtype: torch.dtype, r: int, p: int, block_size: int, heads: int) -> bool:
+    """Whether the split tensor-core walks take these widths (the kernels
+    test the same)."""
+    return dtype == torch.bfloat16 and (r, p, block_size) == SPLIT_GEOMETRY and heads % 16 == 0
+
+
+def table_groups(rows: int) -> int:
+    """Tile groups (CTAs a chunk) of a sequence's ``rows`` w-major query
+    rows: ``ceil(rows / 16)`` tiles in balanced groups of at most
+    ``GROUP_TILES`` (W = 5 at 16 heads: 3 + 2)."""
+    return ceil_div(ceil_div(rows, 16), GROUP_TILES)
+
+
+def plan_table_chunks(batch: int, rows: int, max_blocks: int, block_size: int,
+                      sms: int) -> tuple[int, int]:
+    """``(chunks, chunk_pages)`` of the table walk, from shapes alone:
+    chunk c of a sequence walks table slots ``[c * chunk_pages, (c + 1) *
+    chunk_pages)`` for each of the ``table_groups(rows)`` tile groups.
+    Enough chunks that the grid (chunks x groups x sequences) holds about
+    ``TABLE_CTAS_PER_SM`` CTAs an SM (chunks past a sequence's context exit
+    at once), at most ``MAX_CHUNKS``, and ``chunks * chunk_pages >=
+    max_blocks`` with no empty trailing chunk.  A chunk walks at least
+    ``TABLE_MIN_CHUNK_KEYS`` positions for each tile of the largest group:
+    its partial (2 KB a row) then stays a fixed share of the pages it
+    reads."""
+    max_blocks = max(1, max_blocks)
+    groups = table_groups(rows)
+    room = ceil_div(ceil_div(rows, 16), groups)
+    ctas = max(1, batch * groups)
+    floor = ceil_div(TABLE_MIN_CHUNK_KEYS * room, block_size)
+    most = min(MAX_CHUNKS, ceil_div(max_blocks, floor))
+    chunks = max(1, min(ceil_div(TABLE_CTAS_PER_SM * sms, ctas), most))
+    chunk = ceil_div(max_blocks, chunks)
+    return ceil_div(max_blocks, chunk), chunk
 
 
 def _check(q_lat, q_rope, ck_cache, kr_cache) -> None:
@@ -113,6 +160,44 @@ def _check(q_lat, q_rope, ck_cache, kr_cache) -> None:
                  kr_cache=kr_cache)
 
 
+def _window(q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale,
+            name: str) -> torch.Tensor:
+    """Launch the window kernel on CUDA tensors q_lat [B, W, H, R], q_rope
+    [B, W, H, P]: the split table walk at DeepSeek widths, the CUDA-core
+    loop otherwise."""
+    global table_walk_launches
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    _check(q_lat, q_rope, ck_cache, kr_cache)
+    b, w, h, r = q_lat.shape
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables / context_lens do not match the batch")
+    check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
+    p, bs, max_blocks = q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1]
+    group_tiles, chunks, chunk, part_acc, part_ml = 0, 1, max(1, max_blocks), None, None
+    walk = split_route(ck_cache.dtype, r, p, bs, h)
+    if walk:
+        group_tiles = GROUP_TILES
+        chunks, chunk = plan_table_chunks(b, w * h, max_blocks, bs, sm_count(q_lat.device))
+    # the output, then (with more than one chunk) the partials the combine
+    # merges: acc, then m and l; one allocation
+    n_out, n_rows = q_lat.numel(), b * chunks * w * h if chunks > 1 else 0
+    buf = torch.empty(n_out + n_rows * (r + 2), dtype=torch.float32, device=q_lat.device)
+    out = buf[:n_out].view(q_lat.shape)
+    if n_rows:
+        part_acc = buf.data_ptr() + n_out * 4
+        part_ml = part_acc + n_rows * r * 4
+    code = build.library().dyn_mla_paged_window_decode(
+        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(), part_acc, part_ml,
+        b, w, h, r, p, bs, max_blocks, group_tiles, chunks, chunk,
+        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+    )
+    build.check(code, name)
+    if walk:
+        table_walk_launches += 1
+    return out
+
+
 def mla_paged_attention_decode(
     q_lat: torch.Tensor,         # [B, H, R] float32
     q_rope: torch.Tensor,        # [B, H, P] model dtype
@@ -127,7 +212,7 @@ def mla_paged_attention_decode(
 ) -> torch.Tensor:
     """Absorbed MLA decode attention: positions ``pos < ctx``.  Returns the
     float32 latent context [B, H, R]; idle lanes (ctx 0) come out as zeros
-    on the kernel path."""
+    on the kernel path (the window kernel at W = 1)."""
     global decode_launches, decode_plain_calls
     if pages_per_step < 1:
         raise ValueError(f"pages_per_step must be >= 1, got {pages_per_step}")
@@ -138,22 +223,10 @@ def mla_paged_attention_decode(
         )
     if q_lat.device.type != "cuda":
         raise ValueError(f"MLA decode attention: unsupported device {q_lat.device}")
-    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
-    _check(q_lat, q_rope, ck_cache, kr_cache)
-    b, h, r = q_lat.shape
-    if block_tables.shape[0] != b or context_lens.shape != (b,):
-        raise ValueError("block_tables / context_lens do not match the batch")
-    check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
-    out = torch.empty_like(q_lat)
-    code = build.library().dyn_mla_paged_decode(
-        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, h, r, q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1],
-        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
-    )
-    build.check(code, "mla_paged_attention_decode")
+    out = _window(q_lat[:, None], q_rope[:, None], ck_cache, kr_cache, block_tables,
+                  context_lens, scale, "mla_paged_attention_decode")
     decode_launches += 1
-    return out
+    return out[:, 0]
 
 
 def mla_paged_window_attention_decode(
@@ -179,20 +252,8 @@ def mla_paged_window_attention_decode(
         )
     if q_lat.device.type != "cuda":
         raise ValueError(f"MLA window attention: unsupported device {q_lat.device}")
-    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
-    _check(q_lat, q_rope, ck_cache, kr_cache)
-    b, w, h, r = q_lat.shape
-    if block_tables.shape[0] != b or context_lens.shape != (b,):
-        raise ValueError("block_tables / context_lens do not match the batch")
-    check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
-    out = torch.empty_like(q_lat)
-    code = build.library().dyn_mla_paged_window_decode(
-        q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, w, h, r, q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1],
-        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
-    )
-    build.check(code, "mla_paged_window_attention_decode")
+    out = _window(q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale,
+                  "mla_paged_window_attention_decode")
     window_launches += 1
     return out
 
@@ -252,7 +313,7 @@ def ragged_mla_attention(
     out = torch.empty_like(q_lat)
     p, bs, slots = q_rope.shape[-1], ck_cache.shape[1], page_phys.shape[1]
     chunks, chunk, part_acc, part_ml = 1, slots, None, None
-    if ck_cache.dtype == torch.bfloat16 and (r, p, bs) == SPLIT_GEOMETRY and h % 16 == 0:
+    if split_route(ck_cache.dtype, r, p, bs, h):
         chunks, chunk = plan_chunks(num_tb, tb_tokens, h, slots, sm_count(q_lat.device))
         if chunks > 1:  # the partials the combine merges: acc, then m and l
             n_rows = num_tb * chunks * tb_tokens * h

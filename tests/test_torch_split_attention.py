@@ -1,7 +1,7 @@
 """The split-and-combine algorithm of the redesigned CUDA attention kernels,
 emulated on the CPU in float32 at tiny widths, against the port's plain
 versions and the JAX reference on the same numpy inputs (atol 1e-5:
-summation order over up to 256 positions).
+summation order over up to 1024 positions).
 
 - The paged GQA window kernel (csrc/paged_attention.cu): each sequence's
   block table is cut into the chunks of ``plan_splits``; every split that
@@ -10,6 +10,12 @@ summation order over up to 256 positions).
 - The ragged MLA kernel (csrc/mla_attention.cu, rtc::): each token block's
   page worklist is cut into the chunks of ``plan_chunks``; a token keeps the
   entries of a chunk that it sees, and the chunks' partials merge in order.
+- The MLA decode and verify window kernel (the table walk, rtc:: in
+  csrc/mla_attention.cu): each sequence's block table is cut into the
+  chunks of ``plan_table_chunks``, its w-major query rows into the tile
+  groups of ``table_groups``; every chunk up to the sequence's last page
+  computes a partial per row, and the partials merge in chunk order (one
+  used chunk writes the output itself).
 
 The kernels themselves run only on a card (chip_smoke.py); what they share
 with this emulation is the planner, the split bounds and the merge.  Also:
@@ -26,12 +32,23 @@ import torch
 
 from dynamo_tpu.ops import attention as jax_attn
 from dynamo_tpu.ops.pallas import paged_window_attention_decode as pallas_window
+from dynamo_tpu.ops.pallas.mla_attention import mla_paged_attention_decode as pallas_mla_decode
+from dynamo_tpu.ops.pallas.mla_attention import (
+    mla_paged_window_attention_decode as pallas_mla_window,
+)
 from dynamo_tpu_torch.ops import attention as attn
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.kernels.mla_attention import (
+    GROUP_TILES,
     MAX_CHUNK_PAGES,
+    MAX_CHUNKS,
+    MAX_GROUP_TILES,
     MIN_CHUNK_PAGES,
+    TABLE_MIN_CHUNK_KEYS,
     plan_chunks,
+    plan_table_chunks,
+    split_route,
+    table_groups,
 )
 from dynamo_tpu_torch.ops.kernels.paged_attention import MIN_CHUNK_KEYS, plan_splits
 
@@ -295,6 +312,156 @@ def test_plan_chunks_covers_the_worklist(num_tb, tb, heads, slots):
     # no more chunks than MIN_CHUNK_PAGES entries each allow
     assert chunks <= max(1, -(-slots // MIN_CHUNK_PAGES))
     assert plan_chunks(num_tb, tb, heads, slots, SMS) == (chunks, chunk)
+
+
+# ---------------------------------------------------------------------------
+# MLA decode and verify window: the table walk
+# ---------------------------------------------------------------------------
+
+TH, TR, TP, TBS = 16, 32, 8, 16  # heads (one 16-row tile a query), latent, rope, page
+
+
+def split_table_mla(q_lat, q_rope, ck, kr, tables, ctx, *, scale=SCALE, sms=SMS):
+    """The table walk (rtc:: in csrc/mla_attention.cu) for q [B, W, H, .]:
+    chunks of each block table from plan_table_chunks, the W*H w-major rows
+    in balanced groups of 16-row tiles (each group walks every chunk; a
+    tile's rows see positions <= ctx - W + w, keys stop at the table's
+    end), a partial per (chunk, row) up to the sequence's last page, then
+    the merge in chunk order, or the direct write when one chunk is used."""
+    b, w, h, r = q_lat.shape
+    bs, maxb = ck.shape[1], tables.shape[1]
+    tiles = w * h // 16
+    groups = table_groups(w * h)
+    chunks, chunk = plan_table_chunks(b, w * h, maxb, bs, sms)
+    assert chunks <= MAX_CHUNKS and chunks * chunk >= maxb
+    bounds = [g * tiles // groups for g in range(groups + 1)]  # the kernel's balanced split
+    assert max(y - x for x, y in zip(bounds, bounds[1:])) <= GROUP_TILES
+    out = torch.zeros(b, w * h, r)
+    used = []
+    for bi in range(b):
+        c_in = int(ctx[bi])
+        n_pages = -(-min(max(c_in, 0), maxb * bs) // bs)
+        n_used = -(-n_pages // chunk)
+        used.append(n_used)
+        for g in range(groups):
+            rows = torch.arange(bounds[g] * 16, bounds[g + 1] * 16)
+            limit = c_in - w + rows // h  # each row's query position
+            ql = q_lat[bi].reshape(w * h, r)[rows]
+            qr = q_rope[bi].reshape(w * h, -1)[rows]
+            parts = []
+            for c in range(max(n_used, 1)):
+                pages = torch.arange(c * chunk, min((c + 1) * chunk, n_pages))
+                kpos = (pages[:, None] * bs + torch.arange(bs)).reshape(-1)
+                phys = tables[bi, pages].long()
+                ckk, krr = ck[phys].reshape(-1, r), kr[phys].reshape(-1, kr.shape[-1])
+                sc = (ql @ ckk.T + qr @ krr.T) * (scale * LOG2E)
+                sc = torch.where(kpos[None, :] <= limit[:, None], sc, NEG_INF)
+                if kpos.numel() == 0:
+                    sc = torch.full((rows.numel(), 1), NEG_INF)
+                    ckk = torch.zeros(1, r)
+                parts.append(partial(sc, ckk))
+            if n_used <= 1:
+                acc, _, l = parts[0]
+                out[bi, rows] = acc / l.clamp_min(1e-20)[:, None]
+            else:
+                out[bi, rows] = merge(parts)
+    return out.reshape(b, w, h, r), chunks, used
+
+
+def table_inputs(ctx, w, *, maxb, seed=0):
+    rng = np.random.default_rng(seed)
+    b = len(ctx)
+    n = b * maxb + 4
+    ck = rng.standard_normal((n, TBS, TR)).astype(np.float32)
+    kr = rng.standard_normal((n, TBS, TP)).astype(np.float32)
+    tables = rng.permutation(n)[: b * maxb].astype(np.int32).reshape(b, maxb)
+    q_lat = rng.standard_normal((b, w, TH, TR)).astype(np.float32)
+    q_rope = rng.standard_normal((b, w, TH, TP)).astype(np.float32)
+    return q_lat, q_rope, ck, kr, tables, np.asarray(ctx, np.int32)
+
+
+TABLE_CASES = {
+    # W = 1 decode: an idle lane beside long ones, several chunks used
+    "decode_idle_lane": dict(ctx=[1000, 0, 37, 700], w=1, maxb=64, multi=True),
+    # W = 5 verify: a lane shorter than the window (two rows see nothing)
+    "window_w5": dict(ctx=[1000, 5, 300, 3], w=5, maxb=64, multi=True),
+    # W = 16: 16 tiles, several tile groups
+    "window_w16_groups": dict(ctx=[600, 17], w=16, maxb=48, multi=True),
+    # a window clamped past the table: its queries keep their positions
+    "window_past_table": dict(ctx=[64 * TBS + 2, 100], w=5, maxb=64, multi=True),
+    # B = 1: a long context in a wide table (many chunks, all used) ...
+    "b1_long_wide_table": dict(ctx=[64 * TBS - 1], w=1, maxb=64, multi=True),
+    # ... and a short one in the same table (many chunks, one used)
+    "b1_short_wide_table": dict(ctx=[TBS], w=1, maxb=64, multi=False),
+    # a one-page table: one chunk
+    "one_page_table": dict(ctx=[TBS, 9, 0], w=5, maxb=1, multi=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_split_table_mla_matches_plain_and_pallas(case):
+    spec = TABLE_CASES[case]
+    w, maxb = spec["w"], spec["maxb"]
+    args = table_inputs(spec["ctx"], w, maxb=maxb)
+    q_lat, q_rope, ck, kr, tables, ctx = args
+    ours, chunks, used = split_table_mla(*(t(a) for a in args))
+    assert (max(used) > 1) == spec["multi"]
+    if case.startswith("b1_"):
+        assert chunks > 1  # a wide table at B = 1 cuts into many chunks
+    if maxb == 1:
+        assert chunks == 1
+    # rows whose query position is >= 0 see a key; elsewhere the plain
+    # versions and the Pallas kernel (but for an idle lane) give junk rows,
+    # the port's kernel zeros
+    live = (ctx[:, None] - w + np.arange(w)[None, :]) >= 0
+    jargs = [jnp.asarray(a) for a in args]
+    if w == 1:
+        plain = attn.mla_paged_decode_attention(
+            *(t(a[:, 0]) for a in args[:2]), *(t(a) for a in args[2:]), scale=SCALE)[:, None]
+        pallas = pallas_mla_decode(jargs[0][:, 0], jargs[1][:, 0], *jargs[2:], scale=SCALE,
+                                   interpret=True)[:, None]
+    else:
+        plain = attn.mla_paged_window_attention(*(t(a) for a in args), scale=SCALE)
+        pallas = pallas_mla_window(*jargs, scale=SCALE, interpret=True)
+    close(ours, plain, live)
+    close(ours, pallas, live)
+    assert torch.all(ours[~torch.from_numpy(live)] == 0)
+    assert np.all(np.asarray(pallas)[ctx == 0] == 0)  # idle lanes: zeros in both kernels
+
+
+@pytest.mark.parametrize("batch,rows,max_blocks,bs", [
+    (1, 16, 128, 16), (32, 16, 128, 16), (8, 80, 128, 16), (32, 80, 128, 16),
+    (2, 256, 128, 16), (1, 16, 1, 16), (1, 16, 8192, 16), (64, 16, 4096, 16),
+    (64, 80, 32768, 16), (3, 80, 7, 4), (5, 16, 0, 16),
+])
+def test_plan_table_chunks_covers_the_table(batch, rows, max_blocks, bs):
+    groups = table_groups(rows)
+    tiles = -(-rows // 16)
+    assert groups * GROUP_TILES >= tiles > (groups - 1) * GROUP_TILES
+    chunks, chunk = plan_table_chunks(batch, rows, max_blocks, bs, SMS)
+    assert chunks >= 1 and chunk >= 1
+    # the table covered, no empty trailing chunk, within the combine's cap
+    assert chunks * chunk >= max_blocks > (chunks - 1) * chunk or max_blocks == 0
+    assert chunks <= MAX_CHUNKS
+    # no chunk shorter than the floor (positions for each tile of the
+    # largest group), unless the table is
+    room = -(-tiles // groups)
+    assert chunks <= max(1, -(-max_blocks // -(-TABLE_MIN_CHUNK_KEYS * room // bs)))
+    assert plan_table_chunks(batch, rows, max_blocks, bs, SMS) == (chunks, chunk)
+
+
+def test_table_walk_route_and_group_cap():
+    """The walk takes DeepSeek widths in bf16 with heads a multiple of 16;
+    float32 caches and the tiny_mla geometry take the CUDA-core loop.  A
+    group stays within the kernel's cap."""
+    assert split_route(torch.bfloat16, 512, 64, 16, 16)
+    assert split_route(torch.bfloat16, 512, 64, 16, 128)
+    assert not split_route(torch.float32, 512, 64, 16, 16)
+    assert not split_route(torch.bfloat16, 32, 8, 16, 16)
+    assert not split_route(torch.bfloat16, 512, 64, 16, 8)
+    assert not split_route(torch.bfloat16, 512, 64, 8, 16)
+    assert 1 <= GROUP_TILES <= MAX_GROUP_TILES
+    assert table_groups(5 * 16) == 2 and table_groups(16) == 1  # W = 5: 3 + 2 tiles
 
 
 def bf16(x):
