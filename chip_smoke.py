@@ -11,10 +11,14 @@ Phases (any failure exits non-zero, before the result line):
                caches, float32 absorbed queries; the verify windows at W=5),
                plus sliding-window, head-dim-64, head-dim-16 and tiny-MLA
                float32 cases, the split walks' edges (one lane at ctx 16,
-               idle lanes, a 64-row GQA window, a 16-query MLA window) and
-               eight decode lanes up to 4096 in one ragged MLA token block;
-               the split walks (rows 2-5) launched twice on the same inputs
-               must give the same bits; time
+               idle lanes, a 64-row GQA window, a 16-query MLA window, a
+               56-row ragged GQA block), eight decode lanes up to 4096 in
+               one ragged token block (GQA and MLA) and one 1504-token
+               ragged prefill span; row 1 with the engine's work plan and
+               without, each bf16 case also held per element against the
+               output's size (RAGGED_REL), a limit that a plan which drops
+               one partial must fail; the split walks (rows 1-5) launched
+               twice on the same inputs must give the same bits; time
                (CUDA events, and the device's own time under
                torch.profiler) the kernel, the plain version and one
                PyTorch library call (scaled_dot_product_attention over
@@ -62,7 +66,7 @@ the result line ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for iterating on one phase); the result line is
 printed only when every phase ran and passed.  ``--phases build,sweep``
-times rows 2-5 under other grid aims of their split planners, rows 4-5
+times rows 1-5 under other grid aims of their split planners, rows 4-5
 under other tiles a CTA and in one chunk at growing contexts (not part of
 the default run).
 """
@@ -71,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import copy
 import gc
 import json
 import math
@@ -87,6 +92,11 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "mla", "spec", "offload", "kvbm")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
+# row 1's bf16 cases are also held per element against the output's own size:
+# max |out - ref| / (|ref| + rms(ref)) (bf16 rounding of the output and of P
+# is 2^-9 of it each); on an H100 it reads 0.007-0.018 on those cases and
+# 0.7-7.5 for a plan that drops one partial, which must exceed it
+RAGGED_REL = 0.05
 # MLA kernels write float32 from the very inputs the plain version reads in
 # float32: summation order alone — 576-wide scores of |q.k| up to ~100 and
 # context sums over up to 2048 positions
@@ -287,12 +297,19 @@ def span_tokens(torch, spans, lanes, tb, t_pad):
 
 
 def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
-                dtype=None, window=None, seed=1, timed=True):
-    """Ragged GQA attention over ``spans`` (see ``span_lens``)."""
+                dtype=None, window=None, seed=1, timed=True, library="gathered"):
+    """Ragged GQA attention over ``spans`` (see ``span_lens``), through the
+    step's work plan (``plan_ragged_work``, as the engine makes it) and
+    without one (one item a token block); launched twice with the plan (the
+    same bits) and held against the float32 plain version.  Library
+    yardstick: one SDPA call over K/V gathered per token (``gathered``), or
+    one causal SDPA over the only lane's contiguous K/V (``causal``, for a
+    single span from position 0, where the per-token gather would not fit).
+    A package without the planner (a parent checkout) runs unplanned."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_paged_attention
+    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_attention, ragged_paged_attention
 
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda")
@@ -309,27 +326,60 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
         token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
         tb_tokens=tb, block_size=bs, sliding_window=window,
     )
+    planner = getattr(ragged_attention, "plan_ragged_work", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = planner(meta[3], kv_heads=kvh, sms=sms) if planner else None
     meta_dev = [torch.from_numpy(m).cuda() for m in meta]
     token_lane, token_pos = token_lane.cuda(), token_pos.cuda()
     q = torch.randn((t, h, d), generator=gen, device="cuda").to(dtype)
 
-    def kernel():
+    def call(p):
         return ragged_paged_attention(
             q, k, v, tables, token_lane, token_pos, *meta_dev, tb_tokens=tb,
-            sliding_window=window,
+            sliding_window=window, **({"plan": p} if planner else {}),
         )
 
+    def kernel():
+        return call(plan)
+
+    def unsplit():
+        return call(None)
+
+    split0 = getattr(ragged_attention, "split_launches", 0)
     out = kernel()
+    route = "tensor-core walk" if getattr(ragged_attention, "split_launches", 0) > split0 \
+        else "CUDA-core loop"
+    again = kernel()  # the same inputs must give the same bits
+    whole = unsplit()
     ref = plain.ragged_paged_attention(
         q.float(), k.float(), v.float(), tables, None, token_lane, token_pos,
         sliding_window=window,
     )
     torch.cuda.synchronize()
     live = token_pos >= 0
-    err = (out.float()[live] - ref[live]).abs().max().item()
-    pad_zero = bool((out[~live] == 0).all()) if (~live).any() else True
-    res = {"max_abs_err": err, "ref_absmax": ref[live].abs().max().item(),
-           "finite": bool(torch.isfinite(out).all()), "pads_zero": pad_zero, "tokens": t}
+    ref_rms = ref[live].pow(2).mean().sqrt().item()
+
+    def rel_err(o):  # per element, against the output's size and the case's RMS
+        return ((o.float()[live] - ref[live]).abs() / (ref[live].abs() + ref_rms)).max().item()
+
+    err = max((o.float()[live] - ref[live]).abs().max().item() for o in (out, whole))
+    pad_zero = all(bool((o[~live] == 0).all()) for o in (out, whole)) if (~live).any() else True
+    res = {"max_abs_err": err, "ref_absmax": ref[live].abs().max().item(), "ref_rms": ref_rms,
+           "max_rel_err": max(rel_err(out), rel_err(whole)),
+           "finite": bool(torch.isfinite(out).all() and torch.isfinite(whole).all()),
+           "pads_zero": pad_zero, "tokens": t, "route": route,
+           "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
+           "items": len(plan.items) if plan else None,
+           "partials": plan.n_partials if plan else None,
+           "worklist_entries": int(meta[3].sum())}
+    if plan is not None and len(plan.combines):
+        # a planted fault: the first split block's combine leaves out its
+        # last partial (the constructor would refuse such a plan)
+        bad = copy.copy(plan)
+        bad.combines = plan.combines.copy()
+        bad.combines[0, 2] -= 1
+        bad._work = {}
+        res["dropped_partial_rel_err"] = rel_err(call(bad))
     if not timed:
         return res
     elem = torch.finfo(dtype).bits // 8
@@ -340,26 +390,45 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     bytes_ = (len(pages) * bs * kvh * d * 2 * elem + 2 * q.numel() * elem
               + sum(m.size * 4 for m in meta) + 2 * t * 4)
     flops = 4 * sum(vis) * h * d
-    # library yardstick: one SDPA call, K/V gathered per token's lane
-    length = max_blocks * bs
-    lane_c = token_lane.clamp(max=lanes - 1).long()
     groups = h // kvh
-    kg = (k[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
-          .transpose(1, 2).repeat_interleave(groups, 1))
-    vg = (v[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
-          .transpose(1, 2).repeat_interleave(groups, 1))
-    kvp = torch.arange(length, device="cuda")[None, :]
-    mask = kvp <= token_pos[:, None]
-    if window:
-        mask &= (token_pos[:, None] - kvp) < window
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
+    length = max_blocks * bs
+    if library == "causal":  # one lane, one span from position 0
+        kc = k[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
+        vc = v[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
+        kc = kc.repeat_interleave(groups, 0)[None]
+        vc = vc.repeat_interleave(groups, 0)[None]
+        q4 = q.transpose(0, 1)[None]                  # [1, h, t, d]
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, kc, vc, is_causal=True)
+    else:  # one SDPA call, K/V gathered per token's lane
+        lane_c = token_lane.clamp(max=lanes - 1).long()
+        kg = (k[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
+              .transpose(1, 2).repeat_interleave(groups, 1))
+        vg = (v[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
+              .transpose(1, 2).repeat_interleave(groups, 1))
+        kvp = torch.arange(length, device="cuda")[None, :]
+        mask = kvp <= token_pos[:, None]
+        if window:
+            mask &= (token_pos[:, None] - kvp) < window
+        mask = mask[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+    if planner:  # the host's cost of a step's plan (the engine's, once a step)
+        stamps = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            planner(meta[3], kv_heads=kvh, sms=sms)
+            stamps.append(time.perf_counter() - t0)
+        res["plan_host_ms"] = sorted(stamps)[len(stamps) // 2] * 1e3
     res.update(
         ms=time_ms(kernel, 10), device_ms=device_ms(kernel),
+        unsplit_ms=time_ms(unsplit, 10), unsplit_device_ms=device_ms(unsplit),
         plain_ms=time_ms(lambda: plain.ragged_paged_attention(
             q, k, v, tables, None, token_lane, token_pos, sliding_window=window), 3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask), 10),
+        library_ms=time_ms(lib, 10),
         bytes=bytes_, flops=flops,
         bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
@@ -630,6 +699,17 @@ def check_case(name: str, res: dict, atol: float) -> None:
         raise AssertionError(f"{name}: max_abs_err {res['max_abs_err']} > {atol}")
 
 
+def check_ragged(name: str, res: dict) -> None:
+    """Row 1's bf16 cases: within BF16_ATOL and RAGGED_REL of the float32
+    plain version, and RAGGED_REL catches a plan that drops a partial."""
+    check_case(name, res, BF16_ATOL)
+    if not res["max_rel_err"] <= RAGGED_REL:
+        raise AssertionError(f"{name}: max_rel_err {res['max_rel_err']} > {RAGGED_REL}")
+    if not res.get("dropped_partial_rel_err", math.inf) > RAGGED_REL:
+        raise AssertionError(f"{name}: a plan that drops a partial passes RAGGED_REL "
+                             f"({res['dropped_partial_rel_err']})")
+
+
 def phase_kernels(torch) -> dict:
     rng = random.Random(0)
     cases: dict[str, dict] = {}
@@ -643,16 +723,31 @@ def phase_kernels(torch) -> dict:
     decodes = [(2 + i, rng.randint(100, 2047), 1) for i in range(6)]
     mix = [(0, 0, 300), (1, 512, 37), *decodes]
     cases["ragged_mix"] = ragged_case(torch, spans=mix, t_pad=352)
-    check_case("ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
-               cases["ragged_mix"], BF16_ATOL)
+    check_ragged("ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
+                 cases["ragged_mix"])
+    # the engine's heavy first token block: eight decode lanes at contexts up
+    # to 4096 in one block (one worklist of up to 2048 entries); and the
+    # serve phase's long prompt as one 1504-token span (188 blocks)
+    dec_rng = random.Random(4096)  # its own stream: the other cases keep their contexts
+    dec_lens = [4096, 4095, *(dec_rng.randint(1, 4096) for _ in range(6))]
+    dec8 = [(i, n - 1, 1) for i, n in enumerate(dec_lens)]
+    cases["ragged_decode8_one_block"] = ragged_case(torch, spans=dec8, t_pad=8)
+    check_ragged("ragged 8 decode lanes <= 4096 in one token block",
+                 cases["ragged_decode8_one_block"])
+    cases["ragged_prefill_span"] = ragged_case(torch, spans=[(0, 0, 1504)], library="causal")
+    check_ragged("ragged one 1504-token prefill span (188 blocks)",
+                 cases["ragged_prefill_span"])
     win = decode_case(torch, lens=[2047, 700, 1500, 33], window=256, seed=5, timed=False)
     check_case("decode sliding window 256", win, BF16_ATOL)
     win_r = ragged_case(torch, spans=mix, t_pad=352, window=256, timed=False)
-    check_case("ragged sliding window 256", win_r, BF16_ATOL)
+    check_ragged("ragged sliding window 256", win_r)
     d64 = decode_case(torch, lens=[2047, 300, 17], d=64, seed=8, timed=False)
     check_case("decode head dim 64 bf16", d64, BF16_ATOL)
     d64_r = ragged_case(torch, spans=mix, d=64, t_pad=352, timed=False)
-    check_case("ragged head dim 64 bf16", d64_r, BF16_ATOL)
+    check_ragged("ragged head dim 64 bf16", d64_r)
+    rows56_r = ragged_case(torch, spans=mix, h=28, kvh=4, t_pad=352, timed=False)
+    check_ragged("ragged 28 heads / 4 kv heads (qwen2-7B-like: 56 rows, four tiles)",
+                 rows56_r)
     # the split walk's edges (row 2): one lane at ctx 16 in a one-page table
     # (one split) and in a 2048-position table (one non-empty split of 32),
     # idle lanes beside long ones, and a 64-row window (two row groups)
@@ -673,6 +768,23 @@ def phase_kernels(torch) -> dict:
     small_r = ragged_case(torch, spans=[(0, 4, 1), (1, 8, 9), (2, 28, 1)], h=4,
                           kvh=2, d=16, bs=16, dtype=torch.float32, t_pad=16, timed=False)
     check_case("ragged head dim 16 fp32", small_r, F32_ATOL)
+    from dynamo_tpu_torch.ops.kernels import ragged_attention as rk
+
+    ragged_bf16 = {k: cases[k] for k in ("ragged_mix", "ragged_decode8_one_block",
+                                         "ragged_prefill_span")}
+    ragged_bf16.update(window_256=win_r, head_dim_64=d64_r, rows_56=rows56_r)
+    if hasattr(rk, "split_launches"):  # a parent checkout has the CUDA-core loop only
+        routes = {**{k: r["route"] for k, r in ragged_bf16.items()}, "fp32_d16": small_r["route"]}
+        want = {k: "CUDA-core loop" if k == "fp32_d16" else "tensor-core walk" for k in routes}
+        if routes != want:
+            raise AssertionError(f"row 1 took the wrong route: {routes}")
+    print(json.dumps({"smoke_ragged": {
+        name: {key: r.get(key) for key in (
+            "route", "items", "partials", "worklist_entries", "plan_host_ms", "max_abs_err",
+            "max_rel_err", "dropped_partial_rel_err", "ref_rms", "ms",
+            "device_ms", "unsplit_ms", "unsplit_device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")}
+        for name, r in ragged_bf16.items()}}), flush=True)
     # the sampling noise stream (threefry in int64 tensor ops) on the card
     # must give the CPU's bits
     from dynamo_tpu_torch.ops import random as threefry
@@ -704,10 +816,7 @@ def phase_kernels(torch) -> dict:
                cases["mla_ragged_mix"], MLA_ATOL)
     # eight decode lanes at contexts up to 4096 packed in one token block: one
     # worklist of ~1000 pages, split across CTAs
-    dec_rng = random.Random(4096)  # its own stream: the other cases keep their contexts
-    dec_lens = [4096, 4095, *(dec_rng.randint(1, 4096) for _ in range(6))]
-    cases["mla_ragged_decode8"] = mla_ragged_case(
-        torch, spans=[(i, n - 1, 1) for i, n in enumerate(dec_lens)], t_pad=8)
+    cases["mla_ragged_decode8"] = mla_ragged_case(torch, spans=dec8, t_pad=8)
     check_case("mla ragged 8 decode lanes <= 4096 in one token block",
                cases["mla_ragged_decode8"], MLA_ATOL)
     # the table walk's edges (rows 4-5): one lane at ctx 16 in a one-page
@@ -770,8 +879,7 @@ def phase_kernels(torch) -> dict:
                      *(edges[e]["max_abs_err"] for e in edges if e.startswith("decode"))),
         "paged_w5": max(*(cases[f"verify_w5_b{b}"]["max_abs_err"] for b in (8, 32)),
                         win5["max_abs_err"], edges["verify_w16_rows64"]["max_abs_err"]),
-        "ragged": max(cases["ragged_mix"]["max_abs_err"], win_r["max_abs_err"],
-                      d64_r["max_abs_err"]),
+        "ragged": max(r["max_abs_err"] for r in ragged_bf16.values()),
         "mla_decode": max(*(cases[f"mla_decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                           *(mla_edges[e]["max_abs_err"] for e in mla_edges
                             if e.startswith("mla_decode"))),
@@ -786,6 +894,7 @@ def phase_kernels(torch) -> dict:
 
 
 # phase "sweep", run only when named: the split planners' grid aims
+SWEEP_RAGGED = ((2, 16), (3, 16), (4, 16), (2, 8), (2, 32))  # (CTAS_PER_SM, MIN_ITEM_PAGES)
 SWEEP_PAGED = (1, 2, 4, 8)  # paged_attention.CTAS_PER_SM
 SWEEP_MLA = ((2, 16), (4, 16), (8, 16), (16, 16), (16, 8))  # (CTAS_PER_SM, MIN_CHUNK_PAGES)
 # the table walk (rows 4-5): (GROUP_TILES, TABLE_CTAS_PER_SM,
@@ -795,14 +904,15 @@ SWEEP_TABLE = ((3, 4, 64), (2, 4, 64), (1, 4, 64), (3, 2, 64), (3, 8, 64), (3, 4
 
 
 def phase_sweep(torch) -> dict:
-    """Rows 2-5 at the kernels phase's shapes (contexts drawn alike) under
-    other grid aims of their split planners (``plan_splits``,
-    ``plan_chunks``, ``plan_table_chunks``) and, for rows 4-5, other tiles
-    a CTA, then rows 4-5 in one chunk at growing contexts: event and device
-    times, and the float32 partial scratch each plan allocates.  The
-    constants are restored."""
+    """Rows 1-5 at the kernels phase's shapes (contexts drawn alike) under
+    other grid aims of their split planners (``plan_ragged_work``,
+    ``plan_splits``, ``plan_chunks``, ``plan_table_chunks``) and, for rows
+    4-5, other tiles a CTA, then rows 4-5 in one chunk at growing contexts:
+    event and device times, and the float32 partial scratch each plan
+    allocates.  The constants are restored."""
     from dynamo_tpu_torch.ops.kernels import mla_attention as mk
     from dynamo_tpu_torch.ops.kernels import paged_attention as pk
+    from dynamo_tpu_torch.ops.kernels import ragged_attention as rk
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = random.Random(0)
@@ -828,7 +938,7 @@ def phase_sweep(torch) -> dict:
                                     max_blocks=256),
     }
     saved = (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES, mk.GROUP_TILES,
-             mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS)
+             mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS, rk.CTAS_PER_SM, rk.MIN_ITEM_PAGES)
     rows = []
 
     def keep(name, res, **plan):
@@ -837,6 +947,13 @@ def phase_sweep(torch) -> dict:
         log(f"[sweep] {json.dumps(rows[-1])}")
 
     try:
+        for aim, floor in SWEEP_RAGGED:
+            rk.CTAS_PER_SM, rk.MIN_ITEM_PAGES = aim, floor
+            for name, kw in mla.items():  # the same spans at Llama-3-8B widths
+                res = ragged_case(torch, **kw)
+                keep(name.replace("mla_", ""), res, ctas_per_sm=aim, min_item_pages=floor,
+                     items=res["items"], partials=res["partials"],
+                     scratch_mb=res["partials"] * 8 * 32 * 130 * 4 / 1e6)
         for aim in SWEEP_PAGED:
             pk.CTAS_PER_SM = aim
             for name, kw in paged.items():
@@ -872,7 +989,7 @@ def phase_sweep(torch) -> dict:
                  chunk_pages=-(-n // 16))
     finally:
         (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES, mk.GROUP_TILES,
-         mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS) = saved
+         mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS, rk.CTAS_PER_SM, rk.MIN_ITEM_PAGES) = saved
     print(json.dumps({"smoke_sweep": rows}), flush=True)
     return {"rows": rows}
 
@@ -1026,6 +1143,14 @@ LLAMA_PATH = ("ragged_attention.launches", "paged_attention.launches")
 MLA_PATH = ("mla_attention.ragged_launches", "mla_attention.decode_launches")
 LLAMA_SPEC_PATH = ("paged_attention.window_launches",)
 MLA_SPEC_PATH = ("mla_attention.window_launches",)
+
+
+def check_ragged_route(counts: dict) -> None:
+    """Every ragged GQA call of a served Llama-3-8B path took the tensor-core
+    walk (bf16, head dim 128), and no plain attention ran on the card."""
+    if (counts["ragged_attention.split_launches"] != counts["ragged_attention.launches"]
+            or counts["plain_calls"] != 0):
+        raise AssertionError(f"a ragged GQA call missed the tensor-core walk: {counts}")
 
 
 async def stream_chat(session, port: int, model: str, content: str, max_tokens: int) -> dict:
@@ -1188,6 +1313,7 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
         raise AssertionError(f"a kernel did not run on the main path: {launched}")
     if counts["plain_calls"] != 0:
         raise AssertionError(f"plain attention ran on the card: {counts}")
+    check_ragged_route(counts)
     table = counts["mla_attention.decode_launches"] + counts["mla_attention.window_launches"]
     if counts["mla_attention.table_walk_launches"] != table:
         raise AssertionError(f"an MLA decode or window call missed the split table walk: {counts}")
@@ -1459,6 +1585,7 @@ def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cud
                              f"host_offloads_total {stats['host_offloads_total']}")
     if counts["plain_calls"] != 0 or any(counts[k] <= 0 for k in OFFLOAD_PATH):
         raise AssertionError(f"block copies did not run through the kernels: {counts}")
+    check_ragged_route(counts)
     nbytes = len(hashes) * tier.block_nbytes
     line = {
         "model": "llama3-8b-offload", "card": card, "blocks": len(hashes),

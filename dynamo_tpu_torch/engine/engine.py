@@ -669,6 +669,14 @@ class TorchLlmEngine:
             token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
             sliding_window=getattr(self.config.model, "sliding_window", None),
         )
+        # a family whose kernel balances its walk by a host plan makes it
+        # here, once a step, for every layer
+        plan_kw = {}
+        if self.family.plan_unified is not None:
+            plan_kw["plan"] = self.family.plan_unified(
+                self.config.model, page_meta[3], block_size=bs, tb_tokens=tb,
+                device=self.device,
+            )
         dev = self.device
         tokens, lps, top = self._unified_step(
             torch.from_numpy(token_ids).to(dev), tables,
@@ -679,7 +687,7 @@ class TorchLlmEngine:
             [torch.from_numpy(a).to(dev) for a in page_meta],
             torch.from_numpy(sample_rows).to(dev),
             torch.from_numpy(sample_gate).to(dev),
-            seeds, emit_seqs, context_lens,
+            seeds, emit_seqs, context_lens, plan_kw,
         )
 
         for seq, start, end in spans:
@@ -700,7 +708,7 @@ class TorchLlmEngine:
 
     def _unified_step(self, token_ids, block_tables, context_lens, token_pos,
                       token_slot, token_lane, page_meta, sample_rows,
-                      sample_gate, seeds, emit_seqs, context_lens_host):
+                      sample_gate, seeds, emit_seqs, context_lens_host, plan_kw):
         """Forward + sampling tail of one ragged window (the reference's
         jitted unified step): newly admitted lanes re-seed their penalty
         counts before the penalties read them, and intermediate-chunk
@@ -708,7 +716,7 @@ class TorchLlmEngine:
         logits, _ = self.family.forward_unified(
             self.params, self.config.model, token_ids, self.cache, block_tables,
             context_lens, token_pos, token_slot, token_lane, *page_meta,
-            sample_rows, self.cos, self.sin, tb_tokens=self._unified_tb,
+            sample_rows, self.cos, self.sin, tb_tokens=self._unified_tb, **plan_kw,
         )  # [lanes, vocab]
         for lane, prompt_row, gen_row in seeds:
             self._prompt_counts[lane] = torch.from_numpy(prompt_row).to(self.device)

@@ -37,8 +37,10 @@ from dynamo_tpu_torch.ops.attention import (
 from dynamo_tpu_torch.ops.kernels import (
     paged_attention_decode,
     paged_window_attention_decode,
+    ragged_attention,
     ragged_paged_attention,
 )
+from dynamo_tpu_torch.ops.kernels.common import sm_count
 from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
@@ -430,6 +432,19 @@ def llama_forward_decode(
     return _logits(params, cfg, x).float(), kv_cache
 
 
+def plan_unified(cfg: LlamaConfig, page_count, *, block_size: int, tb_tokens: int,
+                 device: torch.device):
+    """The ragged GQA walk's work plan for one unified step
+    (``plan_ragged_work`` over the host ``page_count``), or None where the
+    kernel reads none: off the card, and on the CUDA-core loop's shapes."""
+    rows = tb_tokens * (cfg.num_heads // cfg.num_kv_heads)
+    if device.type != "cuda" or not ragged_attention.split_route(
+            cfg.dtype, cfg.head_dim, block_size, rows):
+        return None
+    return ragged_attention.plan_ragged_work(
+        page_count, kv_heads=cfg.num_kv_heads, sms=sm_count(device))
+
+
 def llama_forward_unified(
     params: dict,
     cfg: LlamaConfig,
@@ -450,13 +465,16 @@ def llama_forward_unified(
     *,
     tb_tokens: int = 8,
     pages_per_step: int = 1,
+    plan=None,
 ) -> tuple[torch.Tensor, dict]:
     """Ragged unified-batch forward: chunked-prefill spans and decode tokens
     of different sequences in one pass, each token at its own absolute
     position.  Every token's K/V is written to its cache slot before any
     token attends, so span tokens see their predecessors through the cache.
-    Logits are gathered at each lane's last span row: [lanes, vocab] f32
-    (junk for lanes without tokens; the caller gates them)."""
+    ``plan`` (``plan_ragged_work`` over ``page_count``, made once a step)
+    balances every layer's ragged kernel on the card.  Logits are gathered
+    at each lane's last span row: [lanes, vocab] f32 (junk for lanes
+    without tokens; the caller gates them)."""
     t = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = token_pos.clamp(min=0)  # pads rope at position 0
@@ -472,7 +490,7 @@ def llama_forward_unified(
             q, k_all[i], v_all[i], block_tables, token_lane, token_pos,
             page_phys, page_lane, page_ord, page_count,
             tb_tokens=tb_tokens, pages_per_step=pages_per_step,
-            sliding_window=cfg.sliding_window,
+            sliding_window=cfg.sliding_window, plan=plan,
         )
         x = _residual_block(x, attn.reshape(t, -1), w, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

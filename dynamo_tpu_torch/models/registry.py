@@ -43,6 +43,10 @@ class ModelFamily:
     # (cfg, w) -> None: raises ValueError when the family's verify kernel
     # cannot take a window of w positions
     check_verify_width: Callable | None = None
+    # a unified step's work plan from the host page_count: (cfg, page_count,
+    # *, block_size, tb_tokens, device) -> forward_unified's ``plan``, or
+    # None where its kernel takes none
+    plan_unified: Callable | None = None
 
 
 def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
@@ -71,6 +75,7 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
         forward_prefill_with_prefix=llama.llama_forward_prefill_with_prefix,
         forward_verify=llama.llama_forward_verify,
         check_verify_width=llama.check_verify_width,
+        plan_unified=llama.plan_unified,
     )
 
 

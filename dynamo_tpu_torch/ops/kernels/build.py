@@ -97,7 +97,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.dyn_paged_window_attention.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.dyn_paged_window_attention.restype = i
-    lib.dyn_ragged_paged_attention.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.dyn_ragged_paged_attention.argtypes = [p] * 13 + [i] * 12 + [p]
     lib.dyn_ragged_paged_attention.restype = i
     lib.dyn_mla_paged_window_decode.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
     lib.dyn_mla_paged_window_decode.restype = i
