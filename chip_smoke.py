@@ -24,8 +24,13 @@ Phases (any failure exits non-zero, before the result line):
                PyTorch library call (scaled_dot_product_attention over
                gathered K/V, a yardstick the port never calls) beside the
                least time the card needs; the block gather/scatter kernels
-               bitwise against theirs (index_select / index_copy_ as the
-               library yardsticks).
+               bitwise against theirs on ten pools (a KVBM block at 64 and
+               256 ids, cache leaves at 93 ids and one, rows of 1000 and
+               1002 bytes, 9000 staged ids, a 4 GiB leaf past the 2 GiB
+               offset; index_select / index_copy_ as the library
+               yardsticks, with the ids on the card and uploaded in the
+               call), and a call of each behind queued device work must
+               return to the host within NO_SYNC_MS.
   3. tiny    — serve tests/data/tiny-chat-model with
                ``python -m dynamo_tpu_torch.cli.run run in=http out=torch``
                and check that greedy chat content is the token-counter
@@ -48,8 +53,9 @@ Phases (any failure exits non-zero, before the result line):
                the split step, verify through the GQA window kernel at W=5
                and the MLA window kernel; their launch counters must move
                and no plain attention may run on the card.
-  7. offload — the engine's KV offload tiers at the Llama-3-8B geometry (all
-               layers, random weights): 256 device blocks over a 192-block
+  7. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+               then at the DeepSeek-V2-Lite config (all layers, random
+               weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
                served, pushed down the tiers by churn and served again, once
                restored from G2 and once through G3: the same tokens as a
@@ -67,8 +73,9 @@ the result line ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (for iterating on one phase); the result line is
 printed only when every phase ran and passed.  ``--phases build,sweep``
 times rows 1-5 under other grid aims of their split planners, rows 4-5
-under other tiles a CTA and in one chunk at growing contexts (not part of
-the default run).
+under other tiles a CTA and in one chunk at growing contexts, and rows 6-7
+under other piece sizes and CTAs an SM, and their launch cost at each
+by-value ids capacity (not part of the default run).
 """
 
 from __future__ import annotations
@@ -602,13 +609,17 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     return res
 
 
-def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
+def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True, id_range=None):
     """Block gather and scatter over a pool of ``shape`` with the block axis
-    at ``axis`` and ``n`` distinct random ids: each kernel bitwise equal to
-    its plain version on the same inputs, the scatter leaving every other
-    block of the pool unchanged; times of the kernels, their plain versions
-    and one library call each (``index_select`` / ``index_copy_``)."""
+    at ``axis`` and ``n`` distinct random ids (from ``id_range`` when
+    given): each kernel bitwise equal to its plain version on the same
+    inputs, the scatter leaving every other block of the pool unchanged;
+    times of the kernels, their plain versions and one library call each
+    (``index_select`` / ``index_copy_``: ``library_ms`` with the ids on the
+    card beforehand, ``library_ids_ms`` uploading them from the Python list
+    inside the timed call, as the port's callers hold them)."""
     from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.kernels import block_copy as bk
     from dynamo_tpu_torch.ops.kernels import gather_blocks, scatter_blocks
 
     dtype = getattr(torch, dtype or "bfloat16")
@@ -622,7 +633,8 @@ def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
         return torch.randn(shp, generator=gen, device="cuda").to(dtype)
 
     pool = rand(shape)
-    ids = torch.randperm(n_pool, generator=gen, device="cuda")[:n].tolist()
+    lo, hi = id_range or (0, n_pool)
+    ids = (lo + torch.randperm(hi - lo, generator=gen, device="cuda")[:n]).tolist()
     blk_shape = list(shape)
     blk_shape[axis] = n
     blocks = rand(blk_shape)
@@ -640,14 +652,20 @@ def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
     torch.cuda.synchronize()
     rest = torch.ones(n_pool, dtype=torch.bool, device="cuda")
     rest[ids] = False
+    outer, _, row_bytes = bk._geometry(pool, axis)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = bk.plan_copy(outer, n, row_bytes, sms,
+                        align=bk.base_align(pool.data_ptr(), out.data_ptr()))
     res = {
         "gather_equal": same(out, ref), "scatter_equal": same(scattered, ref_pool),
         "rest_unchanged": same(scattered.index_select(axis, rest.nonzero()[:, 0]),
                                pool.index_select(axis, rest.nonzero()[:, 0])),
         "finite": bool(torch.isfinite(out).all() and torch.isfinite(scattered).all()),
         "gather_max_abs_err": err(out, ref), "scatter_max_abs_err": err(scattered, ref_pool),
+        "row_bytes": row_bytes, "ids": [min(ids), max(ids)],
+        "plan": {k: v for k, v in vars(plan).items()},
     }
-    del scattered, ref_pool
+    del scattered, ref_pool, ref
     if not timed:
         return res
     moved = out.numel() * out.element_size()  # bytes read once, written once
@@ -660,24 +678,177 @@ def block_copy_case(torch, *, shape, n, axis, dtype=None, seed=0, timed=True):
         gather_device_ms=device_ms(lambda: gather_blocks(pool, ids, axis=axis)),
         gather_plain_ms=time_ms(lambda: plain.gather_blocks(pool, ids, axis), 5),
         gather_library_ms=time_ms(lambda: torch.index_select(pool, axis, ids_dev), 20),
+        gather_library_ids_ms=time_ms(lambda: torch.index_select(
+            pool, axis, torch.tensor(ids, device="cuda")), 20),
+        gather_library_device_ms=device_ms(lambda: torch.index_select(pool, axis, ids_dev)),
         scatter_ms=time_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis), 20),
         scatter_device_ms=device_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis)),
         scatter_plain_ms=time_ms(lambda: plain.scatter_blocks(target, blocks, ids, axis), 5),
         scatter_library_ms=time_ms(lambda: target.index_copy_(axis, ids_dev, blocks), 20),
+        scatter_library_ids_ms=time_ms(lambda: target.index_copy_(
+            axis, torch.tensor(ids, device="cuda"), blocks), 20),
+        scatter_library_device_ms=device_ms(lambda: target.index_copy_(axis, ids_dev, blocks)),
     )
     return res
 
 
-# block gather/scatter (rows 6-7): the KVBM's Llama-3-8B block, the engine's
-# Llama-3-8B and DeepSeek-V2-Lite cache leaves at A's 93 blocks (the offload
-# phase's restore), and a raw 1000-byte payload (uint8)
+# block gather/scatter (rows 6-7): the KVBM's Llama-3-8B block (a 2 MiB
+# row) at 64 and 256 blocks, the engine's Llama-3-8B and DeepSeek-V2-Lite
+# cache leaves at A's 93 blocks (the offload phase's restore) and one block,
+# raw payloads of 1000 (8-byte aligned) and 1002 (2-byte aligned) bytes,
+# 9000 ids of 2 KiB rows (above the by-value capacity: staged ids), and,
+# untimed, a 4 GiB Llama leaf whose ids lie in the upper half, so that
+# every row from layer 16 on sits past the 2 GiB offset
 COPY_CASES = {
     "copy_kvbm": dict(shape=(512, 32, 2, 16, 8, 128), n=64, axis=0),
+    "copy_kvbm_n256": dict(shape=(512, 32, 2, 16, 8, 128), n=256, axis=0),
     "copy_llama_leaf": dict(shape=(32, 1024, 16, 8, 128), n=93, axis=1),
+    "copy_llama_leaf_n1": dict(shape=(32, 1024, 16, 8, 128), n=1, axis=1),
     "copy_mla_latent": dict(shape=(27, 1024, 16, 1, 512), n=93, axis=1),
     "copy_mla_rope": dict(shape=(27, 1024, 16, 1, 64), n=93, axis=1),
     "copy_bytes": dict(shape=(512, 1000), n=64, axis=0, dtype="uint8"),
+    "copy_bytes_1002": dict(shape=(512, 1002), n=64, axis=0, dtype="uint8"),
+    "copy_staged_ids": dict(shape=(16384, 16, 1, 64), n=9000, axis=0),
+    "copy_leaf_4gib": dict(shape=(32, 4096, 16, 8, 128), n=93, axis=1, id_range=(2048, 4096),
+                           timed=False),
 }
+
+
+def sleep_cycles(torch, ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the card busy about ``ms``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    torch.cuda.synchronize()
+    return int(10**7 * ms / start.elapsed_time(end))
+
+
+def queued_ms(torch, fn, cycles: int, iters: int = 50) -> float:
+    """A call's device time with the host out of the way: ``iters`` calls
+    queued behind ``cycles`` of device sleep, so the events time the card's
+    back-to-back run of them (valid only for a wrapper that never waits for
+    the stream, as rows 6-7's no-sync check holds)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+NO_SYNC_MS = 1.0  # a wrapper call's host time behind queued device work
+
+
+def host_ms(fn) -> float:
+    """The host's wall time of one call of ``fn``, ms."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def no_sync_route(torch, fn, list_fn, cycles: int) -> dict:
+    """One route of ``no_sync_check``: five warm calls on an idle card,
+    five from a Python list, then five queued behind ``cycles`` of sleep."""
+    idle = []
+    for _ in range(5):  # warm: the library, the pinned and device allocators
+        torch.cuda.synchronize()
+        idle.append(host_ms(fn))
+    idle_list = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        idle_list.append(host_ms(list_fn))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    queued = [host_ms(fn) for _ in range(5)]
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return {"host_ms": sorted(queued)[2], "host_ms_max": max(queued), "host_ms_each": queued,
+            "idle_host_ms": sorted(idle)[2],
+            "idle_host_ms_from_list": sorted(idle_list)[2],
+            "sleep_still_running": busy}
+
+
+def no_sync_check(torch) -> dict:
+    """Rows 6-7 never wait for the stream: wrapper calls made behind ~20 ms
+    of queued device sleep (93 ids by value; 9000 ids, above the by-value
+    capacity, staged through pinned host memory) return to the host within
+    NO_SYNC_MS each (five calls of each, every one held to it), with the
+    sleep still running, and their copies are right.  The staged ids are a numpy array, so the
+    host time is the wrapper's: the same calls from a Python list (the
+    list's conversion to an array added) are timed on an idle card
+    beside them."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.kernels import gather_blocks, scatter_blocks
+
+    pool = torch.randn((16384, 16, 1, 64), device="cuda").to(torch.bfloat16)
+    ids = {"by_value": list(range(0, 186, 2)), "staged": list(range(16383, 7383, -1))}
+    arrays = {"by_value": ids["by_value"], "staged": np.array(ids["staged"], dtype=np.int32)}
+    blocks = {k: torch.randn((len(v), 16, 1, 64), device="cuda").to(torch.bfloat16)
+              for k, v in ids.items()}
+    calls, list_calls = {}, {}
+    for route in ids:
+        for form, table in ((arrays, calls), (ids, list_calls)):
+            i, b = form[route], blocks[route]
+            table[f"gather_{route}"] = lambda i=i: gather_blocks(pool, i)
+            table[f"scatter_{route}"] = lambda i=i, b=b: scatter_blocks(pool, b, i)
+    cycles = sleep_cycles(torch, 20.0)
+
+    res = {}
+    gc.collect()
+    gc.disable()  # as timeit does: a collection's pause is not the wrapper's
+    try:
+        for name, fn in calls.items():
+            res[name] = no_sync_route(torch, fn, list_calls[name], cycles)
+    finally:
+        gc.enable()
+    # the calls queued behind the sleeps still did their work
+    ok = {route: torch.equal(gather_blocks(pool, id_list).view(torch.uint8),
+                             plain.gather_blocks(pool, id_list).view(torch.uint8))
+          for route, id_list in ids.items()}
+    log(f"[kernels] no-sync check (limit {NO_SYNC_MS} ms host time): {json.dumps(res)} "
+        f"bitwise after: {ok}")
+    if not all(ok.values()) or any(r["host_ms_max"] > NO_SYNC_MS or not r["sleep_still_running"]
+                                   for r in res.values()):
+        raise AssertionError(f"a block copy call waited for the stream: {res}, bitwise {ok}")
+    return res
+
+
+def moe_determinism_check(torch) -> dict:
+    """The routed MoE FFN at DeepSeek-V2-Lite widths (2048 hidden, 64
+    experts, top 6, 1408 intermediate; 512 tokens, bf16, random weights from
+    a seed) gives bitwise equal outputs on two runs: its combine sums each
+    token's k expert rows in one fixed order, where atomics (an
+    ``index_add_``) would round differently from run to run."""
+    from dynamo_tpu_torch.ops.moe import moe_ffn
+
+    cfg = DEEPSEEK_V2_LITE
+    t, h = 512, cfg["hidden_size"]
+    e, inter, k = cfg["n_routed_experts"], cfg["moe_intermediate_size"], cfg["num_experts_per_tok"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(90)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    x = rand(t, h)
+    weights = (rand(h, e, scale=h ** -0.5), rand(e, h, inter, scale=h ** -0.5),
+               rand(e, h, inter, scale=h ** -0.5), rand(e, inter, h, scale=inter ** -0.5))
+    outs = [moe_ffn(x, *weights, top_k=k, norm_topk_prob=cfg["norm_topk_prob"])
+            for _ in range(2)]
+    res = {"equal": torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16)),
+           "finite": bool(torch.isfinite(outs[0]).all()), "shape": list(outs[0].shape)}
+    log(f"[kernels] moe_ffn at DeepSeek-V2-Lite widths, two runs bitwise: {json.dumps(res)}")
+    if not (res["equal"] and res["finite"] and res["shape"] == [t, h]):
+        raise AssertionError(f"moe_ffn is not deterministic or not finite: {res}")
+    return res
 
 
 def check_copy_case(name: str, res: dict) -> None:
@@ -873,6 +1044,8 @@ def phase_kernels(torch) -> dict:
         cases[name] = block_copy_case(torch, seed=70 + len(cases), **kw)
         check_copy_case(f"{name} {kw['shape']} n={kw['n']} axis={kw['axis']}", cases[name])
         torch.cuda.empty_cache()
+    cases["copy_no_sync"] = no_sync_check(torch)
+    cases["moe_deterministic"] = moe_determinism_check(torch)
     errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                      win["max_abs_err"], d64["max_abs_err"],
@@ -901,6 +1074,147 @@ SWEEP_MLA = ((2, 16), (4, 16), (8, 16), (16, 16), (16, 8))  # (CTAS_PER_SM, MIN_
 # TABLE_MIN_CHUNK_KEYS) of ops/kernels/mla_attention.py
 SWEEP_TABLE = ((3, 4, 64), (2, 4, 64), (1, 4, 64), (3, 2, 64), (3, 8, 64), (3, 4, 32),
                (3, 4, 128))
+
+
+# rows 6-7 under other plans: (PIECE_BYTES, CTAS_PER_SM) of
+# ops/kernels/block_copy.py
+SWEEP_COPY = tuple((p * 1024, c) for p in (2, 4, 8, 16, 32) for c in (2, 4, 8))
+SWEEP_COPY_CASES = ("copy_kvbm", "copy_llama_leaf", "copy_mla_latent", "copy_mla_rope",
+                    "copy_bytes")
+
+
+def sweep_copies(torch) -> list[dict]:
+    """Rows 6-7 on the kernels phase's copy cases (random bytes) under the
+    plans of SWEEP_COPY: each plan bitwise equal to the plain version, and
+    its device time a call by ``queued_ms``.  The constants are restored."""
+    from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.kernels import block_copy as bk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cycles = sleep_cycles(torch, 20.0)
+    saved = (bk.PIECE_BYTES, bk.CTAS_PER_SM)
+    rows = []
+
+    def same(a, b):
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    try:
+        for name in SWEEP_COPY_CASES:
+            kw = COPY_CASES[name]
+            shape, axis, n = kw["shape"], kw["axis"], kw["n"]
+            dtype = getattr(torch, kw.get("dtype") or "bfloat16")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1)
+
+            def rand(shp):  # random bits of the case's dtype
+                size = dtype.itemsize
+                raw = torch.randint(0, 256, (*shp[:-1], shp[-1] * size), generator=gen,
+                                    device="cuda", dtype=torch.uint8)
+                return raw.view(dtype)
+
+            pool = rand(shape)
+            ids = torch.randperm(shape[axis], generator=gen, device="cuda")[:n].tolist()
+            blocks = rand((*shape[:axis], n, *shape[axis + 1:]))
+            ref_gather = plain.gather_blocks(pool, ids, axis)
+            ref_scatter = plain.scatter_blocks(pool.clone(), blocks, ids, axis)
+            outer, _, row_bytes = bk._geometry(pool, axis)
+            bound_ms = 2 * ref_gather.numel() * ref_gather.element_size() / HBM_BYTES_PER_S * 1e3
+            for piece, ctas in SWEEP_COPY:
+                bk.PIECE_BYTES, bk.CTAS_PER_SM = piece, ctas
+                target = pool.clone()
+                equal = (same(bk.gather_blocks(pool, ids, axis=axis), ref_gather)
+                         and same(bk.scatter_blocks(target, blocks, ids, axis=axis), ref_scatter))
+                plan = bk.plan_copy(outer, n, row_bytes, sms)
+                rows.append({
+                    "case": name, "piece_max": piece, "ctas_per_sm": ctas,
+                    "piece_bytes": plan.piece_bytes, "grid": plan.grid,
+                    "pieces": plan.pieces, "equal": equal, "bound_ms": bound_ms,
+                    "gather_queued_ms": queued_ms(
+                        torch, lambda: bk.gather_blocks(pool, ids, axis=axis), cycles),
+                    "scatter_queued_ms": queued_ms(
+                        torch, lambda: bk.scatter_blocks(target, blocks, ids, axis=axis), cycles),
+                })
+                log(f"[sweep] {json.dumps(rows[-1])}")
+                del target
+                if not equal:
+                    raise AssertionError(f"{name}: the plan {plan} differs from the plain version")
+            del pool, blocks, ref_gather, ref_scatter
+            torch.cuda.empty_cache()
+    finally:
+        bk.PIECE_BYTES, bk.CTAS_PER_SM = saved
+    return rows
+
+
+def sweep_id_caps(torch) -> list[dict]:
+    """The launch cost of each by-value ids capacity (a parameter struct of
+    64 + 4 * cap bytes) and of the staged route (ids copied through pinned
+    host memory), at n = 1 (a Llama-3-8B leaf) and n = 93 (a DeepSeek rope
+    leaf): the gather entry called with the same plan but the capacity, each
+    result bitwise equal to the plain version.  ``host_us``: a call's host
+    time over 200 calls issued back to back (the card keeps up), the median
+    of seven rounds that take the capacities in turn; ``ms``: CUDA
+    events around back-to-back calls; ``queued_ms``: calls queued behind a
+    device sleep (the card's time a call)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.kernels import block_copy as bk
+    from dynamo_tpu_torch.ops.kernels import build
+    from dynamo_tpu_torch.ops.kernels.common import stream_ptr
+
+    lib = build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cycles = sleep_cycles(torch, 20.0)
+    rows = []
+    for name in ("copy_llama_leaf_n1", "copy_mla_rope"):
+        kw = COPY_CASES[name]
+        shape, axis, n = kw["shape"], kw["axis"], kw["n"]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        pool = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        ids = bk._check_ids(torch.randperm(shape[axis], generator=gen, device="cuda")[:n].tolist(),
+                            shape[axis], unique=False)
+        out = bk.gather_blocks(pool, ids, axis=axis)
+        ref = plain.gather_blocks(pool, ids.tolist(), axis)
+        outer, n_pool, row_bytes = bk._geometry(pool, axis)
+        plan = bk.plan_copy(outer, n, row_bytes, sms,
+                            align=bk.base_align(pool.data_ptr(), out.data_ptr()))
+        stream = stream_ptr(pool.device)
+        calls = {}
+        for cap in (*(c for c in bk.ID_CAPS if c >= n), 0):
+            def call(cap=cap):
+                staged = bk._stage_ids(ids, pool.device) if cap == 0 else None
+                build.check(lib.dyn_gather_blocks(
+                    pool.data_ptr(), out.data_ptr(), ids.ctypes.data,
+                    None if staged is None else staged.data_ptr(), outer, n_pool, n,
+                    row_bytes, plan.piece_bytes, plan.grid, plan.vec, cap, stream),
+                    "gather_blocks")
+
+            out.zero_()
+            call()
+            if not torch.equal(out.view(torch.uint8), ref.view(torch.uint8)):
+                raise AssertionError(f"{name}: ids capacity {cap} differs from the plain version")
+            calls[cap] = call
+        host_us = {cap: [] for cap in calls}
+        for _ in range(7):
+            for cap, call in calls.items():
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    call()
+                host_us[cap].append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
+        for cap, call in calls.items():
+            rows.append({"case": name, "n": n, "ids_cap": cap,
+                         "param_bytes": 64 + 4 * cap if cap else 72, "equal": True,
+                         "host_us": sorted(host_us[cap])[3], "host_us_runs": sorted(host_us[cap]),
+                         "ms": time_ms(call, 50), "queued_ms": queued_ms(torch, call, cycles)})
+            log(f"[sweep] {json.dumps(rows[-1])}")
+        del pool, out, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_sweep(torch) -> dict:
@@ -990,6 +1304,8 @@ def phase_sweep(torch) -> dict:
     finally:
         (pk.CTAS_PER_SM, mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES, mk.GROUP_TILES,
          mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS, rk.CTAS_PER_SM, rk.MIN_ITEM_PAGES) = saved
+    rows.extend(sweep_copies(torch))
+    rows.extend(sweep_id_caps(torch))
     print(json.dumps({"smoke_sweep": rows}), flush=True)
     return {"rows": rows}
 
@@ -1471,10 +1787,13 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dict:
-    """The engine's offload tiers on the card at the Llama-3-8B geometry
-    (all layers, random weights from seed 0): G1 is 256 device blocks, G2
-    192 host blocks, G3 128 disk blocks.  Prompt A twice (the second a
+def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda",
+                  model: str = "llama3-8b-offload") -> dict:
+    """The engine's offload tiers on the card at ``config``'s geometry (the
+    Llama-3-8B geometry or the published DeepSeek-V2-Lite config, all
+    layers, random weights from seed 0): G1 is 256 device blocks, G2 192
+    host blocks, G3 128 disk blocks.  The traffic is counted in tokens, so
+    the same prompts evict and cascade A's blocks at either model.  Prompt A twice (the second a
     device prefix hit: tokens T), churn that evicts A's blocks to G2, A
     again (restored from G2), churn that cascades A's copies to G3, A again
     (restored through G3).  Each restore must give T and land A's blocks
@@ -1483,7 +1802,7 @@ def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cud
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.serve import build_torch_engine
 
-    path = model_dir("llama3-8b-offload", config)
+    path = model_dir(model, config)
     disk = ROOT / "dynamo_tpu_torch" / "_build" / "offload_g3.blocks"
     engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), device=device,
                                 seed=0, disk_offload_path=str(disk), **OFFLOAD)
@@ -1588,7 +1907,7 @@ def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cud
     check_ragged_route(counts)
     nbytes = len(hashes) * tier.block_nbytes
     line = {
-        "model": "llama3-8b-offload", "card": card, "blocks": len(hashes),
+        "model": model, "card": card, "blocks": len(hashes),
         "restore_bytes": nbytes, "tokens": t_ref,
         "restores": {k: stats[k] for k in stats if k.endswith("_restores_total")},
         "restore_ms": {c["tier"]: c["restore_ms"] for c in checks},
@@ -1768,6 +2087,8 @@ def main() -> int:
             spec = run("spec", phase_spec, torch, card)
         if "offload" in phases:
             offload = run("offload", phase_offload, torch, card)
+            run("offload", phase_offload, torch, card, DEEPSEEK_V2_LITE, "cuda",
+                "deepseek-v2-lite-offload")
         if "kvbm" in phases:
             run("kvbm", phase_kvbm, torch, card)
         if "sweep" in phases:

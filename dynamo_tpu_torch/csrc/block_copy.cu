@@ -17,94 +17,191 @@
 //
 // Bound: bytes.  Each copied byte is read once and written once, nothing is
 // computed, so the least time is 2 * outer * n * row_bytes over the card's
-// memory rate.  Design, simple first: one CTA per (block, outer) row (grid
-// n x outer), 16-byte vector loads and stores, four in flight a thread,
-// when both row pointers are 16-byte aligned, a byte loop otherwise and for
-// the tail.  Offsets are 64-bit: an 8B model's leaf passes 2 GiB at 2048
-// blocks.  The wrapper checks ids on the host (in range; no duplicate
-// scatter target, whose last writer neither the Pallas grid order nor
-// XLA's scatter would fix the same way), so the kernel trusts them.
+// memory rate.  The design follows a plan made on the host from the shapes,
+// the SM count and the pointers' alignment only (`plan_copy` in
+// ops/kernels/block_copy.py), never from the id values:
+// - Pieces, not rows.  Each row is cut into pieces of equal size (at most
+//   the plan's piece_bytes; one piece for a small row), numbered over
+//   (outer, i, piece) with the piece fastest.  The grid is about k CTAs an
+//   SM whatever n and outer are; warp w of the grid copies pieces w, w + W,
+//   w + 2W, ... (W warps in all).  So a 2 MiB KVBM block spreads over every
+//   SM, and eight small rows share one CTA, a warp each.
+// - The widest vector the rows allow: 16, 8, 4 or 2 bytes, the largest
+//   that divides both base pointers and row_bytes (so every row and piece
+//   start), and a byte loop only for odd sizes; eight vectors in flight a
+//   lane, the ragged last round of a piece too.  (TMA bulk copies through
+//   shared memory were timed against this on an H100 and were no faster on
+//   a KVBM block or a Llama leaf: PERF.md.)
+// - Ids reach the card without a copy of their own: up to the largest of
+//   ID_CAPS they travel by value in the kernel's parameters (a
+//   __grid_constant__ struct, which CUDA >= 12.1 allows up to 32,764 bytes
+//   of), filled here from the caller's host array; a longer list is staged
+//   by the wrapper in device memory (one non-blocking copy ordered on the
+//   stream) and read from there.  So a call never waits for the stream.
+// Offsets are 64-bit: an 8B model's leaf passes 2 GiB at 4096 blocks.  The
+// wrapper checks ids on the host (in range; no duplicate scatter target,
+// whose last writer neither the Pallas grid order nor XLA's scatter would
+// fix the same way) and this entry checks the plan, so the kernels trust
+// both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int UNROLL = 4;
+constexpr int THREADS = 256;  // eight warps, a piece each at a time
+constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = 8;  // vectors in flight a lane
 constexpr int ERR_UNSUPPORTED = 10000;  // as dyn::ERR_UNSUPPORTED
-constexpr long long MAX_OUTER = 65535;  // gridDim.y
+// By-value capacities, as ops/kernels/block_copy.py ID_CAPS: 64 bytes of
+// header and 8160 ids fill 32,704 of the 32,764 bytes a launch may pass.
+// The smaller ones keep a short list's launch cheap: on an H100 the full
+// struct costs about 5 us more host time a launch (PERF.md).
+constexpr int ID_CAPS[] = {64, 1024, 8160};
 
-__device__ __forceinline__ void copy_row(const uint8_t* __restrict__ src,
-                                         uint8_t* __restrict__ dst,
-                                         int64_t row_bytes) {
-  int64_t done = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
-    const int64_t vecs = row_bytes >> 4;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    int64_t i = threadIdx.x;
-    for (; i + (UNROLL - 1) * THREADS < vecs; i += UNROLL * THREADS) {
-      uint4 v[UNROLL];
+template <int CAP> struct ValueIds {
+  int32_t v[CAP];
+  __device__ __forceinline__ int32_t operator[](int64_t i) const { return v[i]; }
+};
+
+struct DeviceIds {
+  const int32_t* p;
+  __device__ __forceinline__ int32_t operator[](int64_t i) const { return __ldg(p + i); }
+};
+
+struct Header {
+  const uint8_t* src;  // gather: the pool; scatter: the batch
+  uint8_t* dst;        // gather: the batch; scatter: the pool
+  int64_t n_pool, n, row_bytes, piece_bytes, pieces_per_row, pieces;
+};
+
+template <class Ids> struct Copy {
+  Header h;
+  Ids ids;
+};
+
+struct Piece {
+  const uint8_t* src;
+  uint8_t* dst;
+  int64_t bytes;
+};
+
+// Piece t of the (outer, i, piece) numbering: where it is read and written,
+// and its length (a row's last piece may be shorter).
+template <bool GATHER, class Ids>
+__device__ __forceinline__ Piece locate(const Copy<Ids>& c, int64_t t) {
+  const Header& h = c.h;
+  const int64_t row = t / h.pieces_per_row;  // o * n + i: the batch row
+  const int64_t off = (t - row * h.pieces_per_row) * h.piece_bytes;
+  const int64_t o = row / h.n;
+  const int64_t block = o * h.n_pool + c.ids[row - o * h.n];  // the pool row
+  const int64_t src_row = GATHER ? block : row;
+  const int64_t dst_row = GATHER ? row : block;
+  const int64_t left = h.row_bytes - off;
+  return {h.src + src_row * h.row_bytes + off, h.dst + dst_row * h.row_bytes + off,
+          left < h.piece_bytes ? left : h.piece_bytes};
+}
+
+template <typename V, bool GATHER, class Ids>
+__global__ void __launch_bounds__(THREADS) copy_kernel(const __grid_constant__ Copy<Ids> c) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
+       t < c.h.pieces; t += stride) {
+    const Piece pc = locate<GATHER>(c, t);
+    const V* s = reinterpret_cast<const V*>(pc.src);
+    V* d = reinterpret_cast<V*>(pc.dst);
+    const int64_t vecs = pc.bytes / static_cast<int64_t>(sizeof(V));
+    // every load of a round in flight before its stores, the ragged last
+    // round too (predicated)
+    for (int64_t i = lane; i < vecs; i += UNROLL * 32) {
+      V v[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) v[u] = s[i + u * THREADS];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * 32 < vecs) v[u] = s[i + u * 32];
+      }
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) d[i + u * THREADS] = v[u];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * 32 < vecs) d[i + u * 32] = v[u];
+      }
     }
-    for (; i < vecs; i += THREADS) d[i] = s[i];
-    done = vecs << 4;
   }
-  for (int64_t i = done + threadIdx.x; i < row_bytes; i += THREADS) dst[i] = src[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const uint8_t* __restrict__ pool, const int32_t* __restrict__ ids,
-              uint8_t* __restrict__ out, int64_t n_pool, int64_t n, int64_t row_bytes) {
-  const int64_t i = blockIdx.x;
-  const int64_t o = blockIdx.y;
-  const int64_t src = o * n_pool + ids[i];
-  const int64_t dst = o * n + i;
-  copy_row(pool + src * row_bytes, out + dst * row_bytes, row_bytes);
+template <bool GATHER, class Ids>
+int launch(const Copy<Ids>& c, int vec, long long grid, cudaStream_t stream) {
+  const unsigned g = static_cast<unsigned>(grid);
+  switch (vec) {
+    case 16: copy_kernel<uint4, GATHER, Ids><<<g, THREADS, 0, stream>>>(c); break;
+    case 8: copy_kernel<uint2, GATHER, Ids><<<g, THREADS, 0, stream>>>(c); break;
+    case 4: copy_kernel<uint32_t, GATHER, Ids><<<g, THREADS, 0, stream>>>(c); break;
+    case 2: copy_kernel<uint16_t, GATHER, Ids><<<g, THREADS, 0, stream>>>(c); break;
+    case 1: copy_kernel<uint8_t, GATHER, Ids><<<g, THREADS, 0, stream>>>(c); break;
+    default: return ERR_UNSUPPORTED;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(THREADS)
-scatter_kernel(uint8_t* __restrict__ pool, const int32_t* __restrict__ ids,
-               const uint8_t* __restrict__ blocks, int64_t n_pool, int64_t n,
-               int64_t row_bytes) {
-  const int64_t i = blockIdx.x;
-  const int64_t o = blockIdx.y;
-  const int64_t src = o * n + i;
-  const int64_t dst = o * n_pool + ids[i];
-  copy_row(blocks + src * row_bytes, pool + dst * row_bytes, row_bytes);
+template <bool GATHER, int CAP>
+int launch_by_value(const Header& h, const void* host_ids, int vec, long long grid,
+                    cudaStream_t stream) {
+  Copy<ValueIds<CAP>> c;
+  c.h = h;
+  memcpy(c.ids.v, host_ids, static_cast<size_t>(h.n) * sizeof(int32_t));
+  return launch<GATHER>(c, vec, grid, stream);
 }
 
-bool shape_ok(long long outer, long long n_pool, long long n, long long row_bytes) {
-  return outer >= 0 && outer <= MAX_OUTER && n_pool >= 0 && n >= 0 && n <= INT32_MAX &&
-         row_bytes >= 0;
+bool aligned(const void* p, long long a) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(a) == 0;
 }
+
+// The plan's checks, then one launch.  ids_cap 0: the ids are in device
+// memory at dev_ids; else by value, n of them at host_ids.
+template <bool GATHER>
+int copy_blocks(const void* src, void* dst, const void* host_ids, const void* dev_ids,
+                long long outer, long long n_pool, long long n, long long row_bytes,
+                long long piece_bytes, long long grid, int vec, int ids_cap, void* stream) {
+  const bool vec_ok = vec == 1 || vec == 2 || vec == 4 || vec == 8 || vec == 16;
+  if (outer < 1 || n_pool < 1 || n < 1 || n > INT32_MAX || row_bytes < 1 || !vec_ok ||
+      row_bytes % vec || piece_bytes < 1 || piece_bytes > row_bytes || piece_bytes % vec ||
+      grid < 1 || grid > INT32_MAX || !aligned(src, vec) || !aligned(dst, vec)) {
+    return ERR_UNSUPPORTED;
+  }
+  Header h{static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), n_pool, n, row_bytes,
+           piece_bytes, (row_bytes + piece_bytes - 1) / piece_bytes, 0};
+  h.pieces = outer * n * h.pieces_per_row;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ids_cap == 0) {
+    if (dev_ids == nullptr) return ERR_UNSUPPORTED;
+    Copy<DeviceIds> c{h, {static_cast<const int32_t*>(dev_ids)}};
+    return launch<GATHER>(c, vec, grid, s);
+  }
+  if (host_ids == nullptr || n > ids_cap) return ERR_UNSUPPORTED;
+  switch (ids_cap) {
+    case ID_CAPS[0]: return launch_by_value<GATHER, ID_CAPS[0]>(h, host_ids, vec, grid, s);
+    case ID_CAPS[1]: return launch_by_value<GATHER, ID_CAPS[1]>(h, host_ids, vec, grid, s);
+    case ID_CAPS[2]: return launch_by_value<GATHER, ID_CAPS[2]>(h, host_ids, vec, grid, s);
+    default: return ERR_UNSUPPORTED;
+  }
+}
+
+static_assert(sizeof(Copy<ValueIds<ID_CAPS[2]>>) <= 32764, "kernel parameters over 32,764 bytes");
 
 }  // namespace
 
-extern "C" int dyn_gather_blocks(const void* pool, const void* ids, void* out,
-                                 long long outer, long long n_pool, long long n,
-                                 long long row_bytes, void* stream) {
-  if (!shape_ok(outer, n_pool, n, row_bytes)) return ERR_UNSUPPORTED;
-  if (outer == 0 || n == 0 || row_bytes == 0) return 0;
-  dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(outer));
-  gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pool), static_cast<const int32_t*>(ids),
-      static_cast<uint8_t*>(out), n_pool, n, row_bytes);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int dyn_gather_blocks(const void* pool, void* out, const void* host_ids,
+                                 const void* dev_ids, long long outer, long long n_pool,
+                                 long long n, long long row_bytes, long long piece_bytes,
+                                 long long grid, int vec, int ids_cap, void* stream) {
+  return copy_blocks<true>(pool, out, host_ids, dev_ids, outer, n_pool, n, row_bytes,
+                           piece_bytes, grid, vec, ids_cap, stream);
 }
 
-extern "C" int dyn_scatter_blocks(void* pool, const void* ids, const void* blocks,
-                                  long long outer, long long n_pool, long long n,
-                                  long long row_bytes, void* stream) {
-  if (!shape_ok(outer, n_pool, n, row_bytes)) return ERR_UNSUPPORTED;
-  if (outer == 0 || n == 0 || row_bytes == 0) return 0;
-  dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(outer));
-  scatter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(pool), static_cast<const int32_t*>(ids),
-      static_cast<const uint8_t*>(blocks), n_pool, n, row_bytes);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int dyn_scatter_blocks(void* pool, const void* blocks, const void* host_ids,
+                                  const void* dev_ids, long long outer, long long n_pool,
+                                  long long n, long long row_bytes, long long piece_bytes,
+                                  long long grid, int vec, int ids_cap, void* stream) {
+  return copy_blocks<false>(blocks, pool, host_ids, dev_ids, outer, n_pool, n, row_bytes,
+                            piece_bytes, grid, vec, ids_cap, stream);
 }

@@ -103,9 +103,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_mla_paged_window_decode.restype = i
     lib.dyn_ragged_mla_attention.argtypes = [p] * 13 + [i] * 9 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i
-    lib.dyn_gather_blocks.argtypes = [p] * 3 + [i64] * 4 + [p]
+    lib.dyn_gather_blocks.argtypes = [p] * 4 + [i64] * 6 + [i] * 2 + [p]
     lib.dyn_gather_blocks.restype = i
-    lib.dyn_scatter_blocks.argtypes = [p] * 3 + [i64] * 4 + [p]
+    lib.dyn_scatter_blocks.argtypes = [p] * 4 + [i64] * 6 + [i] * 2 + [p]
     lib.dyn_scatter_blocks.restype = i
 
 

@@ -105,9 +105,11 @@ def moe_dispatch_combine(
 
     gathered = out[row.clamp(max=dump - 1)]                    # [T*k, H]
     weights = torch.where(within, probs.reshape(-1).float(), 0.0)
-    combined = torch.zeros((t, h), dtype=torch.float32, device=x.device)
-    combined.index_add_(0, token_idx, gathered.float() * weights[:, None])
-    return combined.to(x.dtype)
+    # a token's k pairs are adjacent rows: sum them in one fixed order (an
+    # index_add_ on a card adds with atomics, whose order, so whose
+    # rounding, changes from run to run)
+    weighted = gathered.float() * weights[:, None]
+    return weighted.view(t, k, h).sum(dim=1).to(x.dtype)
 
 
 def moe_ffn(
