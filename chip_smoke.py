@@ -36,16 +36,27 @@ Phases (any failure exits non-zero, before the result line):
                and check that greedy chat content is the token-counter
                continuation its crafted weights produce.
   4. serve   — serve the Llama-3-8B geometry (random weights from a seed, on
-               the card) over HTTP in this process: four concurrent chats and
-               one ~1500-token prompt, so that unified steps with prefill and
-               decode-only steps both run; the kernels' launch counters are
-               zeroed just before and read just after.
+               the card) over HTTP in this process with the default engine
+               (decode overlapped, every decode window a CUDA graph replay):
+               four concurrent chats and one ~1500-token prompt, so that
+               unified steps with prefill and decode-only steps both run; the
+               kernels' launch counters are zeroed just before and read just
+               after (a graph replay adds the launches its capture held).
   5. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  6. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+  6. overlap — both configurations in process, all layers: a burst of five
+               requests (one of 1500 tokens) on the default engine, whose
+               decode attention must have launched once a layer in every
+               replayed window; one window by graph replay against the same
+               step run eagerly on the same buffers (tokens, logprobs, the
+               K/V rows written, and the forward's logits bitwise); the
+               burst's greedy streams equal with overlap off and, on
+               Llama-3-8B, with decode_steps=4 against decode_steps=1; the
+               engine's phase accounting of the host time a window.
+  7. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
@@ -53,7 +64,7 @@ Phases (any failure exits non-zero, before the result line):
                the split step, verify through the GQA window kernel at W=5
                and the MLA window kernel; their launch counters must move
                and no plain attention may run on the card.
-  7. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+  8. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -62,7 +73,7 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
-  8. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+  9. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
@@ -96,7 +107,7 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla", "spec", "offload", "kvbm")
+PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "offload", "kvbm")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -851,6 +862,50 @@ def moe_determinism_check(torch) -> dict:
     return res
 
 
+def stale_page_check(torch) -> dict:
+    """Rows 2 and 4 at the main paths' widths ignore what a lane's last page
+    holds past its context: with every such position set to 1e4 the
+    outputs stay bitwise equal.  (A block the allocator hands out again
+    keeps its last owner's rows there.)"""
+    from dynamo_tpu_torch.ops.kernels import mla_attention, paged_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(91)
+    b, bs, n = 8, 16, 256
+    lens = torch.tensor([305, 21, 1, 17, 300, 33, 0, 129], dtype=torch.int32, device="cuda")
+    tables = (torch.arange(b * 32, dtype=torch.int32, device="cuda") % n).view(b, 32)
+    live = lens > 0
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def staled(*caches):
+        out = [c.clone() for c in caches]
+        for lane, ctx in enumerate(lens.tolist()):
+            if ctx:
+                page, off = int(tables[lane, (ctx - 1) // bs]), (ctx - 1) % bs + 1
+                for c in out:
+                    c[page, off:] = 1e4
+        return out
+
+    def run(fn, *caches):
+        clean, stale = fn(*caches)[live], fn(*staled(*caches))[live]
+        return torch.equal(clean.view(torch.uint8), stale.view(torch.uint8))
+
+    q = rand(b, 32, 128)
+    gqa = run(lambda k, v: paged_attention.paged_attention_decode(q, k, v, tables, lens),
+              rand(n, bs, 8, 128), rand(n, bs, 8, 128))
+    q_lat = torch.randn((b, 16, 512), generator=gen, device="cuda")
+    q_rope = rand(b, 16, 64)
+    mla = run(lambda ck, kr: mla_attention.mla_paged_attention_decode(
+        q_lat, q_rope, ck, kr, tables, lens, scale=0.1), rand(n, bs, 512), rand(n, bs, 64))
+    res = {"gqa_decode_equal": gqa, "mla_decode_equal": mla}
+    log(f"[kernels] stale rows past the context, bitwise: {json.dumps(res)}")
+    if not (gqa and mla):
+        raise AssertionError(f"a decode kernel read past a lane's context: {res}")
+    return res
+
+
 def check_copy_case(name: str, res: dict) -> None:
     shown = {k: (float(f"{v:.6g}") if isinstance(v, float) else v) for k, v in res.items()}
     log(f"[kernels] {name} (bitwise): {json.dumps(shown)}")
@@ -1046,6 +1101,7 @@ def phase_kernels(torch) -> dict:
         torch.cuda.empty_cache()
     cases["copy_no_sync"] = no_sync_check(torch)
     cases["moe_deterministic"] = moe_determinism_check(torch)
+    cases["stale_pages"] = stale_page_check(torch)
     errs = {  # the largest error of each kernel over its cases at the main path's widths
         "paged": max(*(cases[f"decode_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                      win["max_abs_err"], d64["max_abs_err"],
@@ -1419,35 +1475,21 @@ DEEPSEEK_V2_LITE = {
 }
 
 
-def kernel_modules():
-    from dynamo_tpu_torch.ops.kernels import (
-        block_copy,
-        mla_attention,
-        paged_attention,
-        ragged_attention,
-    )
-
-    return (ragged_attention, paged_attention, mla_attention, block_copy)
-
-
-def counter_names(mod) -> list[str]:
-    """The integer launch and plain-call counters a kernel module keeps."""
-    return [n for n, v in vars(mod).items()
-            if isinstance(v, int) and (n.endswith("launches") or n.endswith("plain_calls"))]
-
-
 def zero_counters() -> None:
     """Every kernel counter to 0, just before a counted run of a path."""
-    for mod in kernel_modules():
-        for name in counter_names(mod):
-            setattr(mod, name, 0)
+    from dynamo_tpu_torch.engine.graphs import launch_counters
+
+    for mod, name in launch_counters():
+        setattr(mod, name, 0)
 
 
 def read_counters() -> dict:
     """Every kernel counter as {"module.counter": n}, and the total of the
     plain-version calls (each one a kernel that did not run on the card)."""
-    out = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
-           for mod in kernel_modules() for name in counter_names(mod)}
+    from dynamo_tpu_torch.engine.graphs import launch_counters
+
+    out = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
+           for (mod, name), n in launch_counters().items()}
     out["plain_calls"] = sum(v for k, v in out.items() if k.endswith("plain_calls"))
     return out
 
@@ -1526,8 +1568,15 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
         stats = handle.engine.stats()
         # the counted run's share of the cumulative engine counters
         run = {k: stats[k] - stats0[k] for k in stats
-               if k.startswith("spec_") or k.endswith("steps_total") or k == "iterations_total"}
-        prof = await profile_decode(handle.engine, port, model) if profile else None
+               if k.startswith(("spec_", "decode_windows_", "decode_graph_replays"))
+               or k.endswith("steps_total") or k in ("iterations_total", "admission_drains_total")}
+        prof = None
+        if profile:  # the same window without the profiler, then under it
+            quiet = await profile_decode(handle.engine, port, model, profiler=False)
+            prof = await profile_decode(handle.engine, port, model)
+            prof["wall_ms_per_step_profiler_off"] = quiet["wall_ms_per_step"]
+            prof["graph"] = {k: v for k, v in handle.engine.stats().items()
+                             if k.startswith("decode_graph")}
     finally:
         await handle.shutdown()
     return {"results": results, "wall_s": wall, "counts": counts,
@@ -1545,24 +1594,33 @@ def port_kernel_names() -> list[str]:
     return sorted(names)
 
 
-async def profile_decode(engine, port: int, model: str) -> dict:
+async def profile_decode(engine, port: int, model: str, profiler: bool = True) -> dict:
     """Where a decode-heavy window's time goes: eight concurrent chats
     (every lane busy) under torch.profiler.  Device time is the sum of the
-    CUDA kernels' own times; the idle share is what the wall clock holds
-    beyond it.  A profiler that records no device time reports that."""
+    CUDA kernels' own times (the kernels of a graph replay included, where
+    the profiler attributes them); the idle share is what the wall clock
+    holds beyond it.  A profiler that records no device time reports that.
+    ``profiler=False`` times the same window's wall clock alone."""
+    import contextlib
+
     import aiohttp
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     steps0 = engine.stats()["decode_steps_total"]
+    tracer = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiler
+              else contextlib.nullcontext())
     async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tracer as prof:
             t0 = time.perf_counter()
             await asyncio.gather(*(stream_chat(s, port, model, f"profile {i}", 32)
                                    for i in range(8)))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     steps = engine.stats()["decode_steps_total"] - steps0
+    if not profiler:
+        return {"wall_s": wall, "decode_steps": steps,
+                "wall_ms_per_step": wall / max(steps, 1) * 1e3}
     kernels: dict[str, float] = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0)
@@ -1646,6 +1704,338 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
               flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
     return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"]}
+
+
+# ---------------------------------------------------------------------------
+# phase overlap: the overlapped decode pipeline and the graphed decode window
+# ---------------------------------------------------------------------------
+
+OVERLAP_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0)
+# the burst: four short prompts and one of 1500 tokens, all queued before the
+# engine starts, so every engine runs the same windows.  One prefill is
+# admitted a step, so each asks one token fewer than the last and all finish
+# in one window: a lane that finished while others decode would route its
+# lagged token through DeepSeek's MoE, whose expert capacity (one pair an
+# expert at eight lanes) ties the lanes of a step together.
+OVERLAP_PROMPTS = (20, 24, 28, 32, 1500)
+OVERLAP_FINISH = 40
+REPLAY_ITERS = 20
+
+
+async def run_burst(engine, prompts, max_tokens) -> list[list[int]]:
+    tasks = [asyncio.ensure_future(generate_tokens(engine, p, n))
+             for p, n in zip(prompts, max_tokens)]
+    await asyncio.sleep(0.05)  # every request queued
+    engine.start()
+    try:
+        return await asyncio.gather(*tasks)
+    finally:
+        engine.stop()
+
+
+def sibling_engine(base, **mode):
+    """An engine over ``base``'s weights with other EngineConfig fields."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import TorchLlmEngine
+
+    return TorchLlmEngine(dataclasses.replace(base.config, **mode), params=base.params,
+                          device=base.device)
+
+
+def replay_vs_eager(torch, engine) -> dict:
+    """One decode window on eight lanes at growing contexts, by graph replay
+    and by the same step run eagerly on the same buffers: sampled tokens,
+    logprobs, the K/V rows written and the generated counts bitwise equal,
+    greedy and sampled (both graphs).  Leaves the window's inputs in the
+    buffers; returns the checks and the first iteration's slots."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.sequence import Sequence
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.ops.attention import cache_rows
+
+    d = engine._decode
+    dev = engine.device
+    lanes, bs, steps = engine.config.max_batch_size, engine.config.block_size, d.steps
+    n_slots = engine.config.num_blocks * bs
+    ctx = np.array([33 + 61 * i for i in range(lanes)], np.int32)
+    tables = np.zeros((lanes, engine.max_blocks_per_seq), np.int32)
+    stride = engine.config.num_blocks // lanes  # each lane's blocks its own
+    for i, c in enumerate(ctx):
+        n = -(-(int(c) + steps) // bs)
+        tables[i, :n] = np.arange(i * stride, i * stride + n)
+    gen = np.random.default_rng(0)
+    tokens = gen.integers(3, engine.config.model.vocab_size, lanes).astype(np.int32)
+    d.tables.upload({"tables": tables})
+    engine._bt_clean = False  # the engine's own rows no longer match the buffer
+    d.window.upload({"tokens": tokens, "use_fb": np.zeros(lanes, bool), "lens": ctx})
+    pos = ctx[:, None] - 1 + np.arange(steps)[None, :]
+    slots = tables[np.arange(lanes)[:, None], pos // bs] * bs + pos % bs
+    layers = engine.cache["k"].shape[0]
+    rows = torch.from_numpy((np.arange(layers)[:, None] * n_slots + slots.reshape(-1)[None, :])
+                            .reshape(-1)).to(dev)
+    views = {k: cache_rows(leaf) for k, leaf in engine.cache.items()}
+
+    def written():
+        return {k: v[rows].clone() for k, v in views.items()}
+
+    out = {}
+    for noise in (False, True):
+        seqs = []
+        for lane in range(lanes):
+            sampling = (SamplingOptions(temperature=0.8, seed=lane) if noise
+                        else SamplingOptions(use_greedy=True))
+            seq = Sequence(seq_id=f"replay{lane}", request=PreprocessedRequest(
+                token_ids=[1], sampling=sampling, stop=StopConditions(max_tokens=1)))
+            seq.lane = lane
+            engine._seed_lane_key(seq)
+            seqs.append(seq)
+        engine._device_sampling_tail(seqs)
+        counts0, feedback0 = engine._gen_counts.clone(), d.feedback.clone()
+        d.run(noise)
+        torch.cuda.synchronize()
+        graph = (d.out_tokens.clone(), d.out_lps.clone(), written(), engine._gen_counts.clone())
+        engine._gen_counts.copy_(counts0)
+        d.feedback.copy_(feedback0)
+        d.step(noise)
+        torch.cuda.synchronize()
+        eager = (d.out_tokens.clone(), d.out_lps.clone(), written(), engine._gen_counts.clone())
+        out["sampled" if noise else "greedy"] = {
+            "tokens_equal": torch.equal(graph[0], eager[0]),
+            "logprobs_bitwise": torch.equal(graph[1].view(torch.int32), eager[1].view(torch.int32)),
+            "kv_rows_bitwise": all(torch.equal(graph[2][k].view(torch.uint8),
+                                               eager[2][k].view(torch.uint8)) for k in views),
+            "gen_counts_equal": torch.equal(graph[3], eager[3]),
+        }
+    return out, torch.from_numpy(slots[:, 0].astype(np.int32)).to(dev)
+
+
+def forward_replay_vs_eager(torch, engine, step_slots) -> dict:
+    """The decode forward alone on the window's buffers, captured here and
+    replayed, against its eager run: logits bitwise, else the first
+    differing one and the largest difference."""
+    d = engine._decode
+    dev = engine.device
+
+    def forward():
+        return engine.family.forward_decode(
+            engine.params, engine.config.model, d.window["tokens"], engine.cache,
+            d.tables["tables"], d.window["lens"], step_slots, engine.cos, engine.sin)[0]
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        forward()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        static = forward()
+    graph.replay()
+    replayed = static.clone()
+    eager = forward()
+    torch.cuda.synchronize()
+    diff = (replayed - eager).abs()
+    differ = torch.nonzero(diff.view(-1)).view(-1)
+    return {
+        "bitwise": torch.equal(replayed.view(torch.int32), eager.view(torch.int32)),
+        "max_abs_diff": float(diff.max()),
+        "first_differing": int(differ[0]) if differ.numel() else None,
+        "max_abs_logit": float(eager.abs().max()),
+    }
+
+
+def window_ms(torch, d) -> dict:
+    """The decode window's time on the buffers' inputs: CUDA events around
+    back-to-back replays, then eager steps, and the host's time a call."""
+    def timed(fn, iters):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / iters, host
+
+    def launch_ms():  # one replay's host time from an idle card (median of 5)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.run(False)
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return sorted(times)[2]
+
+    out = {"window_steps": d.steps}
+    # back to back, the host's time a replay is bounded by the card's once
+    # the launch queue fills (a window of a few thousand kernels)
+    out["replay_ms"], out["replay_host_ms"] = timed(lambda: d.run(False), REPLAY_ITERS)
+    out["replay_launch_ms"] = launch_ms()
+    out["eager_ms"], out["eager_host_ms"] = timed(lambda: d.step(False), 5)
+    return out
+
+
+def window_mates(base, vocab: int) -> dict:
+    """A 300-token request's greedy tokens alone and behind a one-token
+    request admitted one step before it, with decode overlap off and on:
+    the index of the first token that differs, or None.  Under overlap the
+    one-token request, finished but not yet read back, rides the 300-token
+    request's prefill window, and its lane is released a window late."""
+    rng = random.Random(2)
+    a = [rng.randrange(3, vocab) for _ in range(300)]
+    d = [rng.randrange(3, vocab) for _ in range(20)]
+    out = {}
+    for overlap in (False, True):
+        alone = asyncio.run(run_burst(sibling_engine(base, decode_overlap=overlap), [a], [16]))
+        behind = asyncio.run(run_burst(sibling_engine(base, decode_overlap=overlap), [d, a],
+                                       [1, 16]))
+        out[f"overlap_{'on' if overlap else 'off'}_first_diff"] = next(
+            (i for i, (x, y) in enumerate(zip(alone[0], behind[1])) if x != y), None)
+    return out
+
+
+def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
+                  decode_key: str, path, check_fused: bool) -> dict:
+    """The default engine (overlap on, every decode window a graph replay) on
+    the burst, its launches counted through the replays; one window by
+    replay against the same step run eagerly on the same buffers; the
+    burst's greedy streams equal with overlap off and, where
+    ``check_fused``, with decode_steps=4 against decode_steps=1 (both on
+    the split prefill, like for like: decode_steps > 1 turns the unified
+    step off).  The engine's phase accounting splits the host time a
+    window."""
+    import os
+
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    path_dir = model_dir(model, config)
+    rng = random.Random(1)
+    vocab = config["vocab_size"]
+    prompts = [[rng.randrange(3, vocab) for _ in range(n)] for n in OVERLAP_PROMPTS]
+    max_tokens = [OVERLAP_FINISH - i for i in range(len(prompts))]
+    os.environ["DYN_ENGINE_PHASE_TIMING"] = "1"
+    try:
+        base = build_torch_engine(path_dir, ModelDeploymentCard.from_local_path(path_dir),
+                                  device="cuda", **OVERLAP_ENGINE)
+    finally:
+        os.environ.pop("DYN_ENGINE_PHASE_TIMING", None)
+
+    # the unified windows' share of the phase accounting, kept apart from
+    # the decode windows' (the reference names both decode.*)
+    unified_phases: dict[str, list[float]] = {}
+    run_unified = base._run_unified
+
+    def split_phases(*args, **kw):
+        before = {n: list(v) for n, v in base.phase_stats.items()}
+        try:
+            return run_unified(*args, **kw)
+        finally:
+            for n, (tot, cnt) in base.phase_stats.items():
+                t_b, n_b = before.get(n, (0.0, 0))
+                acc = unified_phases.setdefault(n, [0.0, 0])
+                acc[0] += tot - t_b
+                acc[1] += cnt - n_b
+
+    base._run_unified = split_phases
+    zero_counters()
+    t0 = time.perf_counter()
+    streams = asyncio.run(run_burst(base, prompts, max_tokens))
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    stats = base.stats()
+    layers = base.config.model.num_layers
+    windows = stats["decode_graph_replays_total"] + stats["decode_graphs_captured"]
+    launched = {k: counts[k] for k in path}
+    log(f"[overlap:{tag}] launches={launched} stats={ {k: v for k, v in stats.items() if 'decode' in k or 'drain' in k} }")
+    if [len(s) for s in streams] != max_tokens:
+        raise AssertionError(f"{tag}: streams of {[len(s) for s in streams]} tokens, "
+                             f"not {max_tokens}")
+    if stats["decode_windows_overlapped_total"] <= 0 or stats["decode_graph_replays_total"] <= 0:
+        raise AssertionError(f"{tag}: no overlapped or replayed decode window: {stats}")
+    if any(n <= 0 for n in launched.values()) or counts["plain_calls"] != 0:
+        raise AssertionError(f"{tag}: a kernel of the path did not run: {counts}")
+    # every decode window's attention ran inside a replay (or the capture's
+    # warm-up), one launch a layer, counted through the replays
+    if counts[decode_key] != layers * windows:
+        raise AssertionError(f"{tag}: {decode_key} = {counts[decode_key]}, not {layers} layers "
+                             f"x {windows} windows: {counts}")
+    check_ragged_route(counts)
+    table = counts["mla_attention.decode_launches"] + counts["mla_attention.window_launches"]
+    if counts["mla_attention.table_walk_launches"] != table:
+        raise AssertionError(f"{tag}: an MLA decode call missed the split table walk: {counts}")
+
+    replay, step_slots = replay_vs_eager(torch, base)
+    replay["logits"] = forward_replay_vs_eager(torch, base, step_slots)
+    replay.update(window_ms(torch, base._decode))
+    log(f"[overlap:{tag}] replay vs eager: {replay}")
+    for mode in ("greedy", "sampled"):
+        if not all(replay[mode].values()):
+            raise AssertionError(f"{tag}: replay and eager differ ({mode}): {replay[mode]}")
+    if not replay["logits"]["bitwise"]:
+        raise AssertionError(f"{tag}: replayed forward's logits differ: {replay['logits']}")
+    line = {
+        "model": model, "card": card, "burst_wall_s": wall,
+        "burst_tokens": sum(max_tokens), "decode_windows": stats["decode_steps_total"],
+        "ms_per_decode_window": wall * 1e3 / max(stats["decode_steps_total"], 1),
+        "phase_ms": stats.get("phase_ms"),
+        "phase_ms_unified_windows": {n: {"total_ms": t * 1e3, "n": c}
+                                     for n, (t, c) in unified_phases.items()},
+        "replay": replay,
+        "graph": {k: v for k, v in stats.items() if k.startswith("decode_graph")},
+        "windows": {k: stats[k] for k in ("decode_windows_overlapped_total",
+                                           "decode_windows_sync_total",
+                                           "decode_windows_unified_total",
+                                           "admission_drains_total", "offload_drains_total")},
+        "launches": launched,
+    }
+
+    def burst_of(**mode):
+        engine = sibling_engine(base, **mode)
+        try:
+            return asyncio.run(run_burst(engine, prompts, max_tokens)), engine.stats()
+        finally:
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    sync_streams, sync_stats = burst_of(decode_overlap=False)
+    line["sync_equal"] = sync_streams == streams
+    line["sync_windows"] = sync_stats["decode_windows_sync_total"]
+    if not line["sync_equal"]:
+        raise AssertionError(f"{tag}: greedy streams differ with overlap off")
+    if check_fused:
+        one, _ = burst_of(unified_batch=False)
+        four, four_stats = burst_of(decode_steps=4)
+        line["fused_equal"] = one == four
+        line["fused_windows"] = four_stats["decode_windows_overlapped_total"]
+        if not line["fused_equal"]:
+            raise AssertionError(f"{tag}: decode_steps=4 streams differ from decode_steps=1")
+    line["window_mates"] = window_mates(base, vocab)
+    log(f"[overlap:{tag}] window mates: {line['window_mates']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"smoke_overlap": line}), flush=True)
+    base.stop()
+    return {"counts": counts, "line": line}
+
+
+def phase_overlap_both(torch, card: str) -> dict:
+    return {
+        "llama": phase_overlap(torch, card, "llama", "llama3-8b-smoke", LLAMA3_8B,
+                               "paged_attention.launches", LLAMA_PATH, True),
+        "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
+                             "mla_attention.decode_launches", MLA_PATH, False),
+    }
 
 
 # the speculative phase's chats repeat a phrase, so prompt lookup has
@@ -1782,6 +2172,21 @@ async def generate_tokens(engine, tokens: list[int], max_tokens: int) -> list[in
     return out
 
 
+async def settled(engine, timeout_s: float = 30.0) -> None:
+    """Wait until the engine holds no sequence.  With decode overlapped a
+    finished request releases its lane one window late, so a request sent
+    at once may land on another lane; DeepSeek's MoE, whose expert
+    capacity (one pair an expert at eight lanes) is filled in lane order,
+    gives a request other tokens on another lane.  Requests compared for
+    equal tokens start from the same free lanes."""
+    t0 = time.perf_counter()
+    while engine.scheduler.num_running:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"engine still holds {engine.scheduler.num_running} "
+                                 f"sequences after {timeout_s} s")
+        await asyncio.sleep(0.005)
+
+
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1857,16 +2262,20 @@ def phase_offload(torch, card: str, config: dict = LLAMA3_8B, device: str = "cud
         engine.start()
         try:
             await generate_tokens(engine, a, 16)
+            await settled(engine)
             snapshot = blocks_of(resident_ids())
             t_ref = await generate_tokens(engine, a, 16)  # a device prefix hit
+            await settled(engine)
             checks = []
             for label, burst in (("g2", churn[0]), ("g3", churn[1])):
                 for p in burst:
                     await generate_tokens(engine, p, 4)
+                    await settled(engine)
                 resident = sum(engine.allocator.is_registered(h) for h in hashes)
                 before = engine.stats()
                 n_restores = len(restores)
                 tokens = await generate_tokens(engine, a, 16)
+                await settled(engine)
                 after = engine.stats()
                 landed = {h: bid for plan in restores[n_restores:] for h, bid in plan["plan"]}
                 # host_restores_total counts restores from every tier
@@ -2057,7 +2466,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = mla = spec = offload = None
+    kinfo = serve = mla = overlap = spec = offload = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -2083,6 +2492,8 @@ def main() -> int:
         if "mla" in phases:
             mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
                       DEEPSEEK_V2_LITE, MLA_PATH)
+        if "overlap" in phases:
+            overlap = run("overlap", phase_overlap_both, torch, card)
         if "spec" in phases:
             spec = run("spec", phase_spec, torch, card)
         if "offload" in phases:
@@ -2100,7 +2511,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, spec, offload):
+    if None not in (kinfo, serve, mla, overlap, spec, offload):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]

@@ -31,10 +31,20 @@ Architecture, as in the reference:
   reference's predictive prefetch pager is a later slice.
 All steps end in the same sampling tail.
 
-This slice runs decode synchronously.  Overlapped and fused multi-step
-decode, guided decoding, multimodal prompts, disaggregated prefill,
-prefetch, quantization and multi-device meshes are later slices; the
-engine refuses configurations that would need them.
+Decode overlaps by default (``decode_overlap``), as in the reference: a
+decode-only window is dispatched with its input tokens fed back on the
+device from the previous window's output, and the previous window is
+retired (its tokens read back from pinned memory behind a CUDA event, and
+emitted) while the new one runs; finishes found meanwhile release their
+lane and blocks only when the window holding them retires.  Unified
+windows take part in the pipeline the same way.  ``decode_steps = k`` fuses
+k decode iterations into one window.  On a CUDA device every decode window
+without a ``top_logprobs`` lane is one CUDA graph replay
+(``engine/graphs.py``); the unified and verify steps stay eager.
+
+Guided decoding, multimodal prompts, disaggregated prefill, prefetch,
+quantization and multi-device meshes are later slices; the engine refuses
+configurations that would need them.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -46,17 +56,19 @@ from __future__ import annotations
 
 import asyncio
 import math
+import os
 import queue as thread_queue
 import threading
 import time
 import uuid
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine.graphs import DecodeGraph
 from dynamo_tpu_torch.engine.kv_manager import BlockAllocator
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
@@ -83,6 +95,28 @@ from dynamo_tpu_torch.utils.logging import get_logger
 from dynamo_tpu_torch.utils.tasks import spawn_logged
 
 logger = get_logger("engine")
+
+
+@dataclass
+class _InflightWindow:
+    """One dispatched but unretired window (the overlap pipeline's
+    in-flight slot): its tokens and logprobs on their way to pinned host
+    memory behind ``event``.  The next window's input tokens come from
+    ``DecodeGraph.feedback`` on the device."""
+    tokens: torch.Tensor      # [steps, lanes] int32, host (pinned on a card)
+    lps: torch.Tensor         # [steps, lanes] float32, host
+    event: Any                # torch.cuda.Event after the copies, or None
+    active: list              # sequences RUNNING at dispatch, lane order
+    lane_ids: list            # their lanes
+    steps: int
+    # sequences whose finish was found while THIS window was in flight:
+    # emitted already, but their lane and blocks are released only when
+    # this window retires (its lagged steps may still write into them)
+    deferred: list = field(default_factory=list)
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes", "on")
 
 
 def _round_chunk_tokens(chunk_tokens: int, block_size: int) -> int:
@@ -159,6 +193,18 @@ class EngineConfig:
     # only (the reference's prefetch=False); True raises until the pager is
     # ported with the router hints it reads.
     prefetch: bool = False
+    # Overlapped decode pipeline: dispatch the next decode window with its
+    # input tokens fed back on the device and retire the previous window
+    # (readback, emission) while the new one runs (in-flight depth 1).  The
+    # pipeline drains wherever host state gates the device: a lane the
+    # feedback does not cover, preemption, aborts, verify; windows with a
+    # top_logprobs lane run synchronously.  Speculative engines turn it off
+    # (drafts come from host token history, which lags a window).
+    decode_overlap: bool = True
+    # Fused multi-step decode: one window runs this many decode iterations
+    # (slots from the pre-extended block tables, tokens fed back on the
+    # device).  > 1 turns the unified step off.
+    decode_steps: int = 1
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
@@ -248,11 +294,35 @@ class TorchLlmEngine:
         # reason logged once per engine
         self._unified_fallbacks: dict[str, int] = {}
         self._unified_fallback_logged: set[str] = set()
+        if config.decode_steps < 1:
+            raise ValueError("decode_steps must be >= 1")
         unified = config.unified_batch
         if unified and self.spec_enabled:
             self._unified_skip("speculative", "speculative lanes keep their verify route")
             unified = False
+        elif unified and config.decode_steps > 1:
+            self._unified_skip("multi_step_decode",
+                               "fused multi-step decode windows cannot carry chunks")
+            unified = False
         self.unified_batch = unified
+        # the overlapped decode pipeline (EngineConfig.decode_overlap) and
+        # its single in-flight window
+        self.decode_overlap = bool(config.decode_overlap)
+        if self.decode_overlap and self.spec_enabled:
+            logger.info("decode overlap disabled: speculative decoding drafts from "
+                        "host token history")
+            self.decode_overlap = False
+        self._inflight: _InflightWindow | None = None
+        self._overlap_windows = 0     # windows dispatched with token feedback
+        self._admission_drains = 0    # pipeline drains forced by a new lane
+        self._offload_drains = 0      # windows in flight at an offload/restore sync
+        # the host values behind the sampling tail's device buffers: a
+        # window uploads them only when they changed
+        self._tail_cache: tuple | None = None
+        # decode hot-loop phase accounting (DYN_ENGINE_PHASE_TIMING=1): wall
+        # seconds and counts a phase, in stats()["phase_ms"]
+        self._phase_timing = _env_flag("DYN_ENGINE_PHASE_TIMING")
+        self.phase_stats: dict[str, list[float]] = {}
 
         if config.prefill_chunk_tokens is not None:
             self.chunk_tokens = _round_chunk_tokens(
@@ -336,10 +406,13 @@ class TorchLlmEngine:
         )
         self._iterations = 0
         # per-lane block-table host rows, rewritten only for lanes whose
-        # block list changed; the device copy is reused while all are clean
+        # block list changed; the device copy is uploaded only then
         self._bt_host = np.zeros((lanes, self.max_blocks_per_seq), np.int32)
         self._bt_lane_key: list = [None] * lanes
-        self._bt_dev: torch.Tensor | None = None
+        self._bt_clean = False
+        # the decode window's persistent inputs and its graphs; the unified
+        # step reads its block tables, sampling tail and feedback too
+        self._decode = DecodeGraph(self, LOGIT_BIAS_K)
 
         # thread plumbing
         self._submit_q: thread_queue.Queue = thread_queue.Queue()
@@ -445,8 +518,13 @@ class TorchLlmEngine:
             # drafted positions whose compute bought nothing a client received
             "spec_rejected_tokens_total": max(0, self._spec_drafted - self._spec_accepted),
             "spec_verify_steps_total": self._verify_steps,
+            "decode_windows_overlapped_total": self._overlap_windows,
             "decode_windows_sync_total": self._sync_windows,
             "decode_windows_unified_total": self._unified_windows,
+            "admission_drains_total": self._admission_drains,
+            # syncs of the stream by an offload or a restore while a window
+            # was in flight (each one drains it)
+            "offload_drains_total": self._offload_drains,
             # reason slug -> windows (or the engine init) that fell back
             # from the unified step to the split step
             "unified_fallbacks": dict(self._unified_fallbacks),
@@ -456,11 +534,19 @@ class TorchLlmEngine:
             "preempted_tokens_total": self.scheduler.preempted_tokens_total,
             "attention_impl": self.attention_impl,
             "device": str(self.device),
+            **self._decode.stats(),
         }
         if self.host_tier is not None:
             out.update(self.host_tier.stats())
             out["offload_tiers"] = self.host_tier.tiers_snapshot()
             out.update({f"restore_{k}_ms_total": v for k, v in self._restore_ms.items()})
+        if self.phase_stats:
+            # snapshot: the device thread inserts keys concurrently
+            out["phase_ms"] = {
+                name: {"total_ms": round(tot * 1e3, 2), "n": n,
+                       "mean_ms": round(tot / n * 1e3, 3)}
+                for name, (tot, n) in list(self.phase_stats.items())
+            }
         return out
 
     # -- device thread -----------------------------------------------------
@@ -490,6 +576,12 @@ class TorchLlmEngine:
                 # thread alive (callers would hang forever), don't hot-spin
                 logger.exception("engine step failed")
                 time.sleep(0.1)
+        # shutdown with a window in flight: retire it so its tokens reach
+        # their streams
+        try:
+            self._sync_pipeline()
+        except Exception:  # noqa: BLE001
+            logger.exception("pipeline drain at shutdown failed")
 
     def _run_split_step(self, decision) -> None:
         """The split step: one prefill forward for each sequence the
@@ -506,11 +598,17 @@ class TorchLlmEngine:
                 self._fail_sequence(seq, exc)
         decodes = [s for s in self.scheduler.running if s.status == SeqStatus.RUNNING]
         if not decodes:
+            if self._inflight is not None:
+                # nothing to decode while a window is in flight: retire it
+                # so its tokens emit and deferred finishes release
+                self._sync_pipeline()
             return
         try:
             self._run_decode(decodes)
         except Exception as exc:  # noqa: BLE001
             logger.exception("decode step failed")
+            # a poisoned in-flight window must not feed the next dispatch
+            self._abandon_pipeline(decodes)
             for seq in decodes:
                 if seq.status == SeqStatus.RUNNING:
                     self._fail_sequence(seq, exc)
@@ -554,10 +652,16 @@ class TorchLlmEngine:
         bucket = max(self._bucket_len(total), total)
         tb = self._unified_tb
         bucket = -(-bucket // tb) * tb  # the kernel takes whole token blocks
+        # the per-window overlap gate, as _overlap_ok: top_logprobs lanes
+        # ship K-wide rows whose readback belongs on the synchronous path
+        overlap = self.decode_overlap and not any(
+            s.request.sampling.top_logprobs > 0 for s in prefills + decodes
+        )
         try:
-            return self._run_unified(spans, decodes, bucket)
+            return self._run_unified(spans, decodes, bucket, overlap)
         except Exception as exc:  # noqa: BLE001
             logger.exception("unified step failed")
+            self._abandon_pipeline(prefills + decodes)
             for seq in prefills + decodes:
                 if seq.status in (SeqStatus.PREFILLING, SeqStatus.RUNNING):
                     self._fail_sequence(seq, exc)
@@ -568,12 +672,20 @@ class TorchLlmEngine:
         spans: list[tuple[Sequence, int, int]],
         decodes: list[Sequence],
         bucket: int,
+        overlap: bool,
     ) -> bool:
-        """Build the ragged batch, dispatch once, read back, emit."""
+        """Build the ragged batch, dispatch once, then read back at once or
+        put the window in flight (overlap).  A newly admitted sequence needs
+        no pipeline drain here: its prefill tokens come from the host while
+        resident decode lanes read the previous window's feedback on the
+        device."""
+        timing = self._phase_timing
+        t = time.perf_counter() if timing else 0.0
         lanes = self.config.max_batch_size
         tb = self._unified_tb
         bs = self.config.block_size
         oob = self.config.num_blocks * bs
+        prev = self._inflight
 
         # prefix restores from the offload tiers run as in _run_prefill, but a
         # failed restore fails ONLY its sequence (one bad tier read must not
@@ -596,26 +708,42 @@ class TorchLlmEngine:
             if not spans:
                 return False  # decode-only now: the split step serves it
 
-        # decode slot growth, preempting like the plain decode path
+        # decode slot growth: overlap allocates at the DEVICE context and
+        # never preempts (a lagged window may still write into a victim's
+        # blocks): on OOM the pipeline drains and the preempting split step
+        # serves this iteration.  Sync mode drains first and preempts like
+        # the plain decode path.
         slots: dict[str, int] = {}
-        for seq in list(decodes):
-            if seq.status != SeqStatus.RUNNING:
-                continue  # preempted as a victim earlier in this loop
-            slot = self.scheduler.ensure_slots(seq, 1, max_pos=self.max_len - 1)
-            if slot is None:
-                self.scheduler.preempt(seq)
-                continue
-            slots[seq.seq_id] = slot
-        decodes = [s for s in decodes if s.status == SeqStatus.RUNNING]
-        # ensure_slots may have victimized a PREFILLING span owner
-        spans = [
-            (s, a, b) for s, a, b in spans
-            if s.status in (SeqStatus.PREFILLING, SeqStatus.RUNNING)
-        ]
-        if not decodes and not spans:
-            return True  # everything preempted: step consumed
+        if overlap:
+            for seq in decodes:
+                dev_ctx = min(seq.context_len + seq.inflight_tokens, self.max_len)
+                slot = self.scheduler.try_slots_at(seq, dev_ctx, 1, max_pos=self.max_len - 1)
+                if slot is None:
+                    self._unified_skip("slot_oom")
+                    self._sync_pipeline()
+                    return False
+                slots[seq.seq_id] = slot
+        else:
+            self._sync_pipeline()
+            for seq in list(decodes):
+                if seq.status != SeqStatus.RUNNING:
+                    continue  # preempted as a victim earlier in this loop
+                slot = self.scheduler.ensure_slots(seq, 1, max_pos=self.max_len - 1)
+                if slot is None:
+                    self.scheduler.preempt(seq)
+                    continue
+                slots[seq.seq_id] = slot
+            decodes = [s for s in decodes if s.status == SeqStatus.RUNNING]
+            # ensure_slots may have victimized a PREFILLING span owner
+            spans = [
+                (s, a, b) for s, a, b in spans
+                if s.status in (SeqStatus.PREFILLING, SeqStatus.RUNNING)
+            ]
+            if not decodes and not spans:
+                return True  # everything preempted: step consumed
 
         token_ids = np.zeros((bucket,), np.int32)
+        use_fb = np.zeros((bucket,), bool)
         token_pos = np.full((bucket,), -1, np.int32)
         token_slot = np.full((bucket,), oob, np.int32)
         token_lane = np.full((bucket,), lanes, np.int32)
@@ -628,11 +756,16 @@ class TorchLlmEngine:
         cursor = 0
         for seq in decodes:
             lane = seq.lane
+            dev_ctx = min(seq.context_len + (seq.inflight_tokens if overlap else 0),
+                          self.max_len)
             token_ids[cursor] = seq.all_token_ids[-1]
-            token_pos[cursor] = seq.context_len - 1
+            # the host's last token lags the device while a window holding
+            # this lane is in flight: the step reads the feedback instead
+            use_fb[cursor] = overlap and seq.inflight_tokens > 0
+            token_pos[cursor] = dev_ctx - 1
             token_slot[cursor] = slots[seq.seq_id]
             token_lane[cursor] = lane
-            context_lens[lane] = seq.context_len
+            context_lens[lane] = dev_ctx
             sample_rows[lane] = cursor
             sample_gate[lane] = 1
             emit_seqs.append(seq)
@@ -677,18 +810,23 @@ class TorchLlmEngine:
                 self.config.model, page_meta[3], block_size=bs, tb_tokens=tb,
                 device=self.device,
             )
-        dev = self.device
-        tokens, lps, top = self._unified_step(
-            torch.from_numpy(token_ids).to(dev), tables,
-            torch.from_numpy(context_lens).to(dev),
-            torch.from_numpy(token_pos).to(dev),
-            torch.from_numpy(token_slot).to(dev),
-            torch.from_numpy(token_lane).to(dev),
-            [torch.from_numpy(a).to(dev) for a in page_meta],
-            torch.from_numpy(sample_rows).to(dev),
-            torch.from_numpy(sample_gate).to(dev),
-            seeds, emit_seqs, context_lens, plan_kw,
+        self._device_sampling_tail(emit_seqs)
+        noise = any(self._sampled(s) for s in emit_seqs)
+        want = max((s.request.sampling.top_logprobs for s in emit_seqs), default=0)
+        if timing:
+            t = self._phase("decode.schedule", t)
+        up = self._upload
+        args = (
+            up(token_ids), up(use_fb), tables, up(context_lens), up(token_pos),
+            up(token_slot), up(token_lane), [up(a) for a in page_meta],
+            up(sample_rows), up(sample_gate),
+            [(lane, up(p), up(g)) for lane, p, g in seeds],
         )
+        if timing:
+            t = self._phase("decode.upload", t)
+        tokens, lps, top = self._unified_step(*args, plan_kw, noise, want)
+        if timing:
+            t = self._phase("decode.dispatch", t)
 
         for seq, start, end in spans:
             seq.prefilled_tokens = end
@@ -702,65 +840,74 @@ class TorchLlmEngine:
         self._unified_windows += 1
         if decodes:
             self._decode_steps_total += 1
-        self._sync_windows += 1
-        self._emit(emit_seqs, tokens, lps, top)
+
+        if not overlap:
+            self._sync_windows += 1
+            self._emit(emit_seqs, tokens, lps, top)
+            if timing:
+                self._phase("decode.post", t)
+            return True
+        # overlap: the window retires one iteration from now, while the NEXT
+        # window (possibly carrying a fresh admission) computes
+        host_tokens, host_lps, event = self._readback(tokens[None], lps[None])
+        for seq in emit_seqs:
+            seq.inflight_tokens += 1
+        if emit_seqs:
+            self._inflight = _InflightWindow(
+                tokens=host_tokens, lps=host_lps, event=event, active=emit_seqs,
+                lane_ids=[s.lane for s in emit_seqs], steps=1,
+            )
+        else:
+            # a chunk-only window samples nothing worth retiring
+            self._inflight = None
+        if prev is not None:
+            self._retire_window(prev)
         return True
 
-    def _unified_step(self, token_ids, block_tables, context_lens, token_pos,
-                      token_slot, token_lane, page_meta, sample_rows,
-                      sample_gate, seeds, emit_seqs, context_lens_host, plan_kw):
+    def _unified_step(self, token_ids, use_fb, block_tables, context_lens, token_pos,
+                      token_slot, token_lane, page_meta, sample_rows, sample_gate,
+                      seeds, plan_kw, noise, top):
         """Forward + sampling tail of one ragged window (the reference's
-        jitted unified step): newly admitted lanes re-seed their penalty
-        counts before the penalties read them, and intermediate-chunk
-        samples are gated out of the generated counts."""
+        jitted unified step): decode lanes marked ``use_fb`` take their
+        input token from the feedback, newly admitted lanes re-seed their
+        penalty counts before the penalties read them, intermediate-chunk
+        samples are gated out of the generated counts, and the emitting
+        lanes' tokens become the feedback."""
+        d = self._decode
+        lanes = self.config.max_batch_size
+        fed = d.feedback[token_lane.clamp(max=lanes - 1).long()]
+        token_ids = torch.where(use_fb, fed, token_ids)
         logits, _ = self.family.forward_unified(
             self.params, self.config.model, token_ids, self.cache, block_tables,
             context_lens, token_pos, token_slot, token_lane, *page_meta,
             sample_rows, self.cos, self.sin, tb_tokens=self._unified_tb, **plan_kw,
         )  # [lanes, vocab]
         for lane, prompt_row, gen_row in seeds:
-            self._prompt_counts[lane] = torch.from_numpy(prompt_row).to(self.device)
-            self._gen_counts[lane] = torch.from_numpy(gen_row).to(self.device)
-        return self._sample(logits, emit_seqs, context_lens_host, sample_gate)
+            self._prompt_counts[lane] = prompt_row
+            self._gen_counts[lane] = gen_row
+        tokens, lps, best = d.sample(logits, context_lens, sample_gate, noise, top)
+        d.feedback.copy_(torch.where(sample_gate > 0, tokens, d.feedback))
+        return tokens, lps, best
 
-    def _sample(self, logits, seqs, context_lens_host, gate):
-        """The shared sampling tail: penalties, logit bias, sampling,
-        logprobs, and the generated-count update (weighted by ``gate``)."""
-        lanes = self.config.max_batch_size
-        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
-            torch.from_numpy(a).to(self.device)
-            for a in self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
-        )
-        plogits = apply_penalties(
-            logits, self._gen_counts, self._prompt_counts, pres, freq, rep
-        )
-        plogits = apply_logit_bias(plogits, bias_ids, bias_vals)
-        noise = self._step_noise(
-            seqs, [s.lane for s in seqs], lanes, context_lens_host, plogits.shape[-1]
-        )
-        tokens = sample_tokens(plogits, noise, temp, top_k, top_p, greedy)
-        lps = token_logprobs(plogits, tokens)
-        top = None
-        want = max((s.request.sampling.top_logprobs for s in seqs), default=0)
-        if want > 0:
-            top = topk_logprobs(plogits, min(want, plogits.shape[-1]))
-        self._gen_counts[self._lane_idx, tokens.long()] += gate
-        return tokens, lps, top
+    @staticmethod
+    def _sampled(seq: Sequence) -> bool:
+        """Whether a lane draws noise (temperature sampling) or is greedy."""
+        s = seq.request.sampling
+        return not (s.use_greedy or s.temperature is None or s.temperature <= 1e-5)
 
     def _step_noise(self, seqs, rows: list[int], n_rows: int, fold_lens,
                     vocab: int) -> torch.Tensor:
-        """[n_rows, vocab] Gumbel noise: sequence i's row ``rows[i]`` holds
+        """[n_rows, vocab] Gumbel noise on the host's side of a synchronous
+        step (split prefill, verify): sequence i's row ``rows[i]`` holds
         its lane key folded with ``fold_lens[rows[i]]`` (the context length
         the reference folds with, ``jax.random.fold_in(key, context_len)``),
         drawn with the port's threefry stream — so a seeded request draws
         the same noise at the same position whatever batch or step it rides
-        in, and the reference's.  Greedy lanes draw nothing (zero rows)."""
+        in, and the reference's.  Greedy lanes draw nothing (zero rows).
+        Decode and unified windows draw on the device
+        (``DecodeGraph.sample``)."""
         noise = torch.zeros((n_rows, vocab), dtype=torch.float32, device=self.device)
-        sampled = [
-            (row, s) for row, s in zip(rows, seqs)
-            if not (s.request.sampling.use_greedy or s.request.sampling.temperature is None
-                    or s.request.sampling.temperature <= 1e-5)
-        ]
+        sampled = [(row, s) for row, s in zip(rows, seqs) if self._sampled(s)]
         if sampled:
             row_ids = [row for row, _ in sampled]
             keys = torch.from_numpy(self._lane_keys[[s.lane for _, s in sampled]].astype(np.int64))
@@ -769,6 +916,7 @@ class TorchLlmEngine:
         return noise
 
     def _emit(self, seqs, tokens, lps, top) -> None:
+        """Synchronous readback and emission of a one-step window."""
         tokens_h = tokens.cpu().numpy()
         lps_h = lps.cpu().numpy()
         tkv_h = tki_h = None
@@ -782,6 +930,31 @@ class TorchLlmEngine:
                 seq, int(tokens_h[lane]), float(lps_h[lane]),
                 top=(tkv_h[lane], tki_h[lane]) if top is not None else None,
             )
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A window's host array on the engine's device.  On a card the copy
+        goes through pinned memory without waiting for the stream (a
+        pageable copy waits, which would drain a window in flight);
+        PyTorch's pinned allocator keeps the staging until its copy ran."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _readback(self, tokens: torch.Tensor, lps: torch.Tensor):
+        """Start the copies of a window's tokens and logprobs to host
+        memory: pinned and non-blocking behind a CUDA event on a card (the
+        reference's ``copy_to_host_async``).  Returns (tokens, logprobs,
+        event or None)."""
+        if self.device.type != "cuda":
+            return tokens.clone(), lps.clone(), None
+        host_tokens = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+        host_lps = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
+        host_tokens.copy_(tokens, non_blocking=True)
+        host_lps.copy_(lps, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host_tokens, host_lps, event
 
     def _fail_sequence(self, seq: Sequence, exc: BaseException) -> None:
         """Terminate one sequence on an engine-side error: free its
@@ -799,6 +972,11 @@ class TorchLlmEngine:
             if op == "add":
                 self.scheduler.add(seq)
             elif op == "abort":
+                if seq.status == SeqStatus.RUNNING:
+                    # abort frees the lane's blocks: drain the pipeline first
+                    # so no lagged window writes into storage the allocator
+                    # is about to reclaim (only RUNNING lanes ride a window)
+                    self._sync_pipeline()
                 if seq.status != SeqStatus.FINISHED:
                     self.scheduler.abort(seq)
                     seq.status = SeqStatus.FINISHED
@@ -876,10 +1054,12 @@ class TorchLlmEngine:
         return row
 
     def _decode_tables(self, active: list[Sequence]) -> torch.Tensor:
-        """Device block-table array.  Host rows are persistent and rewritten
-        only for lanes whose (sequence, block list) changed; stale rows of
-        vacated lanes are harmless (context 0 ⇒ nothing read or written)."""
-        dirty = self._bt_dev is None
+        """The device block-table buffer (``DecodeGraph.tables``, which the
+        decode graphs read).  Host rows are persistent and rewritten only
+        for lanes whose (sequence, block list) changed; the buffer is
+        uploaded only then.  Stale rows of vacated lanes are harmless
+        (context 0 ⇒ nothing read or written)."""
+        dirty = not self._bt_clean
         for seq in active:
             lane = seq.lane
             blocks = self.allocator.block_ids(seq.seq_id)
@@ -893,27 +1073,61 @@ class TorchLlmEngine:
             self._bt_lane_key[lane] = (seq.seq_id, list(blocks))
             dirty = True
         if dirty:
-            self._bt_dev = torch.from_numpy(self._bt_host.copy()).to(self.device)
-        return self._bt_dev
+            self._decode.tables.upload({"tables": self._bt_host})
+            self._bt_clean = True
+        return self._decode.tables["tables"]
+
+    def _device_sampling_tail(self, seqs: list[Sequence]) -> None:
+        """Write the sampling tail's device buffers (lane keys, the sampled
+        mask, the sampling arrays) for ``seqs``, skipping the upload while
+        the host values are unchanged: at steady-state decode the batch
+        composition changes rarely."""
+        lanes = self.config.max_batch_size
+        arrays = self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
+        sampled = np.zeros((lanes,), np.float32)
+        for seq in seqs:
+            if self._sampled(seq):
+                sampled[seq.lane] = 1.0
+        host = dict(zip(
+            ("temp", "top_k", "top_p", "greedy", "pres", "freq", "rep", "bias_ids",
+             "bias_vals"), arrays,
+        ), keys=self._lane_keys.astype(np.int64), sampled=sampled)
+        cached = self._tail_cache
+        if cached is not None and all(np.array_equal(cached[k], v) for k, v in host.items()):
+            return
+        self._decode.tail.upload(host)
+        self._tail_cache = {k: np.copy(v) for k, v in host.items()}
+
+    def _phase(self, name: str, t0: float) -> float:
+        """Add the wall time since ``t0`` to ``phase_stats[name]`` and
+        return a fresh timestamp (phase-timing mode only)."""
+        t1 = time.perf_counter()
+        s = self.phase_stats.setdefault(name, [0.0, 0])
+        s[0] += t1 - t0
+        s[1] += 1
+        return t1
 
     def _run_plain_decode(self, seqs: list[Sequence]) -> None:
+        """The synchronous decode window: ``decode_steps`` iterations, read
+        back at once.  A window with a top_logprobs lane runs the step
+        eagerly for its K-wide rows; any other is the graph replay."""
+        timing = self._phase_timing
+        t = time.perf_counter() if timing else 0.0
         lanes = self.config.max_batch_size
+        steps = self.config.decode_steps
         token_ids = np.zeros((lanes,), np.int32)
         context_lens = np.zeros((lanes,), np.int32)
-        oob = self.config.num_blocks * self.config.block_size
-        slot_ids = np.full((lanes,), oob, np.int32)
 
-        slots: dict[str, int] = {}
         candidates: list[Sequence] = []
         for seq in list(seqs):
             if seq.status != SeqStatus.RUNNING:
                 continue  # preempted as a victim earlier in this loop
-            slot = self.scheduler.ensure_slots(seq, 1, max_pos=self.max_len - 1)
-            if slot is None:
+            # pre-extend the block table over the whole window (the device
+            # derives each iteration's slot from it)
+            if self.scheduler.ensure_slots(seq, steps, max_pos=self.max_len - 1) is None:
                 # could not allocate even after preemption: preempt self
                 self.scheduler.preempt(seq)
                 continue
-            slots[seq.seq_id] = slot
             candidates.append(seq)
         # build arrays only after all allocations settled: a victim must not
         # keep a live lane pointing at freed (possibly re-allocated) blocks
@@ -921,24 +1135,202 @@ class TorchLlmEngine:
         if not active:
             return
         for seq in active:
-            lane = seq.lane
-            token_ids[lane] = seq.all_token_ids[-1]
-            context_lens[lane] = seq.context_len
-            slot_ids[lane] = slots[seq.seq_id]
-        tables = self._decode_tables(active)
-        dev = self.device
-        context_dev = torch.from_numpy(context_lens).to(dev)
-        logits, _ = self.family.forward_decode(
-            self.params, self.config.model, torch.from_numpy(token_ids).to(dev),
-            self.cache, tables, context_dev, torch.from_numpy(slot_ids).to(dev),
-            self.cos, self.sin,
-        )
-        tokens, lps, top = self._sample(
-            logits, active, context_lens, (context_dev > 0).to(torch.int32)
-        )
+            token_ids[seq.lane] = seq.all_token_ids[-1]
+            context_lens[seq.lane] = seq.context_len
+        self._decode_tables(active)
+        want = max((s.request.sampling.top_logprobs for s in active), default=0)
+        if timing:
+            t = self._phase("decode.schedule", t)
+        self._device_sampling_tail(active)
+        d = self._decode
+        d.window.upload({"tokens": token_ids, "use_fb": np.zeros((lanes,), bool),
+                         "lens": context_lens})
+        if timing:
+            t = self._phase("decode.upload", t)
+        noise = any(self._sampled(s) for s in active)
+        top = None
+        if want:
+            top = d.step(noise, top=want)
+        else:
+            d.run(noise)
+        if timing:
+            t = self._phase("decode.dispatch", t)
+        tokens_h = d.out_tokens.cpu().numpy()
+        lps_h = d.out_lps.cpu().numpy()
+        tkv_h = tki_h = None
+        if top is not None:
+            tkv_h, tki_h = (x.cpu().numpy() for x in top)
+        if timing:
+            t = self._phase("decode.readback", t)
         self._sync_windows += 1
-        self._decode_steps_total += 1
-        self._emit(active, tokens, lps, top)
+        self._decode_steps_total += steps
+        for s in range(steps):
+            for seq in active:
+                if seq.status != SeqStatus.RUNNING:
+                    continue  # finished at an earlier step in this window
+                lane = seq.lane
+                self._process_token(
+                    seq, int(tokens_h[s, lane]), float(lps_h[s, lane]),
+                    top=(tkv_h[s, lane], tki_h[s, lane]) if top is not None else None,
+                )
+        if timing:
+            self._phase("decode.post", t)
+
+    # -- the overlapped decode pipeline --------------------------------------
+    def _overlap_ok(self, seqs: list[Sequence]) -> bool:
+        """Overlap serves a window only when no lane needs per-token host
+        state: top_logprobs lanes ship K-wide rows whose readback belongs on
+        the synchronous path.  A mixed batch falls back whole."""
+        if not self.decode_overlap:
+            return False
+        return not any(
+            s.status == SeqStatus.RUNNING and s.request.sampling.top_logprobs > 0
+            for s in seqs
+        )
+
+    def _sync_pipeline(self) -> None:
+        """Retire the in-flight window (if any): host state catches up with
+        the device before anything that needs it — preemption, aborts,
+        verify, the synchronous decode path."""
+        w = self._inflight
+        if w is None:
+            return
+        self._inflight = None
+        self._retire_window(w)
+
+    def _abandon_pipeline(self, seqs: list[Sequence]) -> None:
+        """Step-failure cleanup: drop the in-flight window without retiring
+        it (its results may be poisoned) and zero the in-flight token
+        counts, so a recovered loop rebuilds from host state.  The window's
+        deferred finishes still release their lanes and blocks, after its
+        work ended (completion, not success, gates the release)."""
+        w = self._inflight
+        self._inflight = None
+        if w is not None:
+            if w.event is not None:
+                try:
+                    w.event.synchronize()
+                except Exception:  # noqa: BLE001 — a failed window still ended
+                    pass
+            for seq in w.deferred:
+                self.scheduler.finish(seq)
+            for seq in w.active:
+                seq.inflight_tokens = 0
+        for seq in seqs:
+            seq.inflight_tokens = 0
+
+    def _retire_window(self, w: _InflightWindow) -> None:
+        """Readback and emission of a dispatched window, normally after the
+        next window was dispatched: the card computes while the host waits
+        here (phase ``decode.retire``)."""
+        timing = self._phase_timing
+        t = time.perf_counter() if timing else 0.0
+        try:
+            if w.event is not None:
+                w.event.synchronize()
+            tokens_h, lps_h = w.tokens.numpy(), w.lps.numpy()
+            if timing:
+                t = self._phase("decode.retire", t)
+            for seq in w.active:
+                seq.inflight_tokens = max(0, seq.inflight_tokens - w.steps)
+            for s in range(tokens_h.shape[0]):
+                for seq in w.active:
+                    if seq.status != SeqStatus.RUNNING:
+                        continue  # finished at an earlier step in this window
+                    self._process_token(seq, int(tokens_h[s, seq.lane]),
+                                        float(lps_h[s, seq.lane]))
+        finally:
+            # sequences that finished while THIS window was in flight: its
+            # lagged steps have run, so lane and blocks go back to the pools
+            # (even when the emission above raised: the window is no longer
+            # reachable, and a skipped release would leak them)
+            for seq in w.deferred:
+                self.scheduler.finish(seq)
+        if timing:
+            self._phase("decode.post", t)
+
+    def _finish_decoded(self, seq: Sequence) -> None:
+        """Finish a sequence from a decode path.  While the in-flight window
+        holds its lane the release is deferred: freed blocks could be handed
+        to (or prefix-matched by) another sequence while the lagged window
+        still writes into them.  Emission already happened."""
+        w = self._inflight
+        if w is not None and seq.lane in w.lane_ids:
+            seq.status = SeqStatus.FINISHED
+            w.deferred.append(seq)
+        else:
+            self.scheduler.finish(seq)
+
+    def _run_overlap_decode(self, seqs: list[Sequence]) -> None:
+        """Dispatch a decode window with its tokens fed back on the device,
+        then retire the previous window while this one runs."""
+        timing = self._phase_timing
+        t = time.perf_counter() if timing else 0.0
+        lanes = self.config.max_batch_size
+        steps = self.config.decode_steps
+        prev = self._inflight
+
+        active = [s for s in seqs if s.status == SeqStatus.RUNNING]
+        if prev is not None:
+            # the feedback only carries tokens for sequences in the previous
+            # window: a NEW sequence (a fresh prefill, a lane reused after a
+            # deferred release) forces a drain and a host rebuild.  A
+            # shrinking batch keeps the pipeline hot: vacated lanes get
+            # context 0, so they write only the dump row.
+            members = set(map(id, prev.active))
+            if any(id(s) not in members for s in active):
+                self._admission_drains += 1
+                self._sync_pipeline()
+                prev = None
+                active = [s for s in active if s.status == SeqStatus.RUNNING]
+        if not active:
+            self._sync_pipeline()
+            return
+
+        # pre-extend every block table over the window at the DEVICE context
+        # (host context + dispatched, unretired tokens).  No preemption: it
+        # would free blocks a lagged window still writes; on OOM the pipeline
+        # drains and the preempting synchronous path serves this iteration.
+        for seq in active:
+            # clamp at max_len: a lane the host is about to LENGTH-finish can
+            # have windows in flight past the end, whose tokens are dropped
+            dev_ctx = min(seq.context_len + seq.inflight_tokens, self.max_len)
+            if self.scheduler.try_slots_at(seq, dev_ctx, steps,
+                                           max_pos=self.max_len - 1) is None:
+                self._sync_pipeline()
+                return self._run_plain_decode(seqs)
+
+        token_ids = np.zeros((lanes,), np.int32)
+        use_fb = np.zeros((lanes,), bool)  # idle lanes read token 0, as synchronous ones
+        context_lens = np.zeros((lanes,), np.int32)
+        for seq in active:
+            context_lens[seq.lane] = min(seq.context_len + seq.inflight_tokens, self.max_len)
+            token_ids[seq.lane] = seq.all_token_ids[-1]
+            use_fb[seq.lane] = prev is not None
+        self._decode_tables(active)
+        if timing:
+            t = self._phase("decode.schedule", t)
+        self._device_sampling_tail(active)
+        d = self._decode
+        # token feedback: this window's input IS the last window's output
+        # on the device; the host never waits for the tokens it dispatches
+        d.window.upload({"tokens": token_ids, "use_fb": use_fb, "lens": context_lens})
+        if timing:
+            t = self._phase("decode.upload", t)
+        d.run(any(self._sampled(s) for s in active))
+        if timing:
+            t = self._phase("decode.dispatch", t)
+        host_tokens, host_lps, event = self._readback(d.out_tokens, d.out_lps)
+        for seq in active:
+            seq.inflight_tokens += steps
+        self._inflight = _InflightWindow(
+            tokens=host_tokens, lps=host_lps, event=event, active=list(active),
+            lane_ids=[s.lane for s in active], steps=steps,
+        )
+        self._overlap_windows += 1
+        self._decode_steps_total += steps
+        if prev is not None:
+            self._retire_window(prev)
 
     # -- split prefill -------------------------------------------------------
     def _run_prefill(self, seq: Sequence) -> None:
@@ -1067,7 +1459,13 @@ class TorchLlmEngine:
             }
             n_drafting = sum(1 for d in drafts.values() if d)
             if n_drafting and n_drafting >= len(running) * SPEC_MIN_FRACTION:
+                # verify consumes host drafts and gates emission by its
+                # acceptance count: synchronous
+                self._sync_pipeline()
                 return self._run_verify_decode(seqs, drafts)
+        if self._overlap_ok(seqs):
+            return self._run_overlap_decode(seqs)
+        self._sync_pipeline()
         return self._run_plain_decode(seqs)
 
     def _ngram_draft(self, tokens: list[int]) -> list[int]:
@@ -1246,6 +1644,8 @@ class TorchLlmEngine:
             gathered[name] = staged
         if pinned:
             # the host bytes are read below: the copies must have landed
+            # (which drains a window in flight: counted)
+            self._offload_drains += self._inflight is not None
             torch.cuda.current_stream(self.device).synchronize()
         failed: list[int] = []
         # host-LRU evictions triggered by these puts are judged AFTER the
@@ -1319,7 +1719,8 @@ class TorchLlmEngine:
         if cuda:
             ev[2].record(stream)
             # the staging buffers are released on return: their copies must
-            # have landed first
+            # have landed first (which drains a window in flight: counted)
+            self._offload_drains += self._inflight is not None
             stream.synchronize()
             copy_ms, scatter_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
         else:
@@ -1351,7 +1752,7 @@ class TorchLlmEngine:
                 top_logprobs=top_rows,
             )
         if finish is not None:
-            self.scheduler.finish(seq)
+            self._finish_decoded(seq)
         elif seq.context_len % self.config.block_size == 0:
             self.allocator.publish_stored(seq.seq_id, seq.all_token_ids)
 

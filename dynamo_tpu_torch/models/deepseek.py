@@ -39,11 +39,14 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops.attention import (
     NEG_INF,
+    alloc_cache_leaf,
+    cache_rows,
     last_writer_slots,
-    live_slots,
     position_major_to_batch,
+    slot_rows,
     write_decode_kv,
     write_prefill_kv,
+    write_rows,
 )
 from dynamo_tpu_torch.ops.kernels import (
     mla_paged_attention_decode,
@@ -253,8 +256,8 @@ def init_kv_cache(cfg: DeepseekConfig, num_blocks: int, block_size: int, dtype=N
     dtype = dtype or cfg.dtype
     shape = (cfg.num_layers, num_blocks, block_size, 1)
     return {
-        "k": torch.zeros((*shape, cfg.kv_lora_rank), dtype=dtype, device=device),
-        "v": torch.zeros((*shape, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+        "k": alloc_cache_leaf((*shape, cfg.kv_lora_rank), dtype, device),
+        "v": alloc_cache_leaf((*shape, cfg.qk_rope_head_dim), dtype, device),
     }
 
 
@@ -301,12 +304,12 @@ def _absorbed_q(w, x, cfg: DeepseekConfig, positions, cos, sin):
     return q_lat, q_rope
 
 
-def _write_latents(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, slots, live,
-                   cos, sin) -> None:
-    """Every token's latent and roped key into its cache slot, in place."""
+def _write_latents(w, x, cfg: DeepseekConfig, positions, cache_views, rows, cos, sin) -> None:
+    """Every token's latent and roped key into its cache row (``rows`` of
+    the leaves' ``cache_views``, ``cache_rows``), in place."""
     c_kv, k_rope = _latent_kv(w, x, cfg)
     k_rope = apply_rope(k_rope[:, None, :], positions, cos, sin)   # [t, 1, P]
-    write_decode_kv(k_layer, v_layer, c_kv[:, None, :], k_rope, slots, live)
+    write_rows(*cache_views, rows, c_kv[:, None, :], k_rope)
 
 
 def _decompress(w, ctx, cfg: DeepseekConfig) -> torch.Tensor:
@@ -322,9 +325,9 @@ def _latent_caches(k_layer, v_layer):
 
 
 def _mla_decode_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer,
-                     block_tables, context_lens, slot_ids, live, cos, sin):
+                     block_tables, context_lens, cache_views, rows, cos, sin):
     """Absorbed-form batched decode attention against the latent cache."""
-    _write_latents(w, x, cfg, positions, k_layer, v_layer, slot_ids, live, cos, sin)
+    _write_latents(w, x, cfg, positions, cache_views, rows, cos, sin)
     q_lat, q_rope = _absorbed_q(w, x, cfg, positions, cos, sin)
     ck, kr = _latent_caches(k_layer, v_layer)
     ctx = mla_paged_attention_decode(
@@ -334,12 +337,12 @@ def _mla_decode_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer,
 
 
 def _mla_unified_attn(w, x, cfg: DeepseekConfig, positions, token_pos, token_lane,
-                      token_slot, live, k_layer, v_layer, block_tables, page_meta,
+                      cache_views, rows, k_layer, v_layer, block_tables, page_meta,
                       cos, sin, tb_tokens: int, pages_per_step: int):
     """Absorbed-form ragged unified-batch attention: every token writes its
     latent before any token reads, so span tokens see their in-window
     predecessors through the cache."""
-    _write_latents(w, x, cfg, positions, k_layer, v_layer, token_slot, live, cos, sin)
+    _write_latents(w, x, cfg, positions, cache_views, rows, cos, sin)
     q_lat, q_rope = _absorbed_q(w, x, cfg, positions, cos, sin)
     ck, kr = _latent_caches(k_layer, v_layer)
     ctx = ragged_mla_attention(
@@ -479,7 +482,8 @@ def _moe_mlp(w, x, cfg: DeepseekConfig):
 
 def _forward(params, cfg: DeepseekConfig, x, kv_cache, attn_fn):
     """The trunk: the dense stack, then the MoE stack, each layer reading
-    and writing its own slice of the cache; then the final norm."""
+    and writing its own slice of the cache (``attn_fn`` gets the layer's
+    caches and its index); then the final norm."""
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     layer = 0
     for stack, mlp in (("dense_layers", _dense_mlp),
@@ -490,7 +494,7 @@ def _forward(params, cfg: DeepseekConfig, x, kv_cache, attn_fn):
         for i in range(next(iter(leaves.values())).shape[0]):
             w = {name: leaf[i] for name, leaf in leaves.items()}
             attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
-            x = x + attn_fn(w, attn_in, k_all[layer], v_all[layer])
+            x = x + attn_fn(w, attn_in, k_all[layer], v_all[layer], layer)
             x = x + mlp(w, rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps))
             layer += 1
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -518,13 +522,13 @@ def deepseek_forward_decode(
     place."""
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = (context_lens - 1).clamp(min=0)
-    k_all = kv_cache["k"]
-    live = live_slots(slot_ids, k_all.shape[1] * k_all.shape[2])
+    views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
+    rows = slot_rows(slot_ids, kv_cache["k"])  # idle lanes write the dump row
 
-    def attn(w, attn_in, k_layer, v_layer):
+    def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_decode_attn(
             w, attn_in, cfg, positions, k_layer, v_layer, block_tables, context_lens,
-            slot_ids, live, cos, sin,
+            views, rows[layer], cos, sin,
         )
 
     x = _forward(params, cfg, x, kv_cache, attn)
@@ -550,7 +554,7 @@ def deepseek_forward_prefill(
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
 
-    def attn(w, attn_in, k_layer, v_layer):
+    def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_prefill_attn(w, attn_in, cfg, positions, seq_len, k_layer, v_layer,
                                  block_ids, cos, sin)
 
@@ -578,7 +582,7 @@ def deepseek_forward_prefill_with_prefix(
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
 
-    def attn(w, attn_in, k_layer, v_layer):
+    def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_prefill_attn_with_prefix(
             w, attn_in, cfg, positions, tail_len, start_pos, k_layer, v_layer,
             full_block_ids, tail_block_ids, cos, sin,
@@ -613,7 +617,7 @@ def deepseek_forward_verify(
     k_all = kv_cache["k"]
     live = last_writer_slots(flat_slots, k_all.shape[1] * k_all.shape[2])
 
-    def attn(w, attn_in, k_layer, v_layer):
+    def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_window_attn(w, attn_in, cfg, positions, k_layer, v_layer, block_tables,
                                 context_lens, flat_slots, live, cos, sin, b, w_len)
 
@@ -650,13 +654,13 @@ def deepseek_forward_unified(
     vocab] f32 (junk for lanes without tokens; the caller gates them)."""
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = token_pos.clamp(min=0)  # pads rope at position 0
-    k_all = kv_cache["k"]
-    live = live_slots(token_slot, k_all.shape[1] * k_all.shape[2])
+    views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
+    rows = slot_rows(token_slot, kv_cache["k"])  # pad tokens write the dump row
     page_meta = (page_phys, page_lane, page_ord, page_count)
 
-    def attn(w, attn_in, k_layer, v_layer):
+    def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_unified_attn(
-            w, attn_in, cfg, positions, token_pos, token_lane, token_slot, live,
+            w, attn_in, cfg, positions, token_pos, token_lane, views, rows[layer],
             k_layer, v_layer, block_tables, page_meta, cos, sin, tb_tokens,
             pages_per_step,
         )

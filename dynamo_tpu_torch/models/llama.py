@@ -26,13 +26,16 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops.attention import (
+    alloc_cache_leaf,
+    cache_rows,
     dense_causal_attention,
     gather_prefix_kv,
     last_writer_slots,
-    live_slots,
     prefill_attention_with_prefix,
+    slot_rows,
     write_decode_kv,
     write_prefill_kv,
+    write_rows,
 )
 from dynamo_tpu_torch.ops.kernels import (
     paged_attention_decode,
@@ -217,8 +220,8 @@ def init_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int, dtype=None
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.dtype
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": alloc_cache_leaf(shape, dtype, device),
+        "v": alloc_cache_leaf(shape, dtype, device),
     }
 
 
@@ -416,13 +419,14 @@ def llama_forward_decode(
     x = _embed(params, cfg, token_ids)
     positions = (context_lens - 1).clamp(min=0)[:, None]  # this token's position
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    live = live_slots(slot_ids, k_all.shape[1] * k_all.shape[2])
+    k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
+    rows = slot_rows(slot_ids, k_all)  # idle lanes write the dump row
     for i, w in _layers(params):
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(attn_in, w, cfg)
         q = apply_rope(q[:, None], positions, cos, sin)[:, 0]
         k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
-        write_decode_kv(k_all[i], v_all[i], k, v, slot_ids, live)
+        write_rows(k_rows, v_rows, rows[i], k, v)
         attn = paged_attention_decode(
             q, k_all[i], v_all[i], block_tables, context_lens,
             sliding_window=cfg.sliding_window,
@@ -479,13 +483,14 @@ def llama_forward_unified(
     x = _embed(params, cfg, token_ids)
     positions = token_pos.clamp(min=0)  # pads rope at position 0
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    live = live_slots(token_slot, k_all.shape[1] * k_all.shape[2])
+    k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
+    rows = slot_rows(token_slot, k_all)  # pad tokens write the dump row
     for i, w in _layers(params):
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(attn_in, w, cfg)
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
-        write_decode_kv(k_all[i], v_all[i], k, v, token_slot, live)
+        write_rows(k_rows, v_rows, rows[i], k, v)
         attn = ragged_paged_attention(
             q, k_all[i], v_all[i], block_tables, token_lane, token_pos,
             page_phys, page_lane, page_ord, page_count,

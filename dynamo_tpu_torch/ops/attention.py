@@ -26,9 +26,62 @@ def live_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
     Pad tokens carry the out-of-range slot ``num_blocks * block_size``; the
     reference drops them in its scatter (``mode="drop"``), while a torch
     index out of range raises and a negative one wraps — so they are masked
-    here.  On a CUDA tensor this synchronizes with the host once."""
+    here.  On a CUDA tensor this synchronizes with the host once: the
+    decode and unified forwards write through ``slot_rows`` instead, and
+    only the synchronous verify step (``last_writer_slots``) keeps it."""
     valid = (slot_ids >= 0) & (slot_ids < num_slots)
     return torch.nonzero(valid).squeeze(1)
+
+
+def alloc_cache_leaf(shape, dtype, device) -> torch.Tensor:
+    """A zeroed cache leaf ``[L, N, bs, *row]`` whose storage holds one row
+    more past its last slot: the dump row that pad tokens and idle lanes
+    write into (``cache_rows``).  The leaf itself keeps its shape and
+    strides, so the kernels, the block copies and the offload tiers see
+    ``N`` blocks as before."""
+    row = math.prod(shape[3:])
+    flat = torch.zeros(math.prod(shape) + row, dtype=dtype, device=device)
+    return flat[: math.prod(shape)].view(shape)
+
+
+def cache_rows(leaf: torch.Tensor) -> torch.Tensor:
+    """Every slot of a cache leaf ``[L, N, bs, *row]`` as one row of
+    ``[L * N * bs + 1, *row]``; the last row is the dump row past the leaf
+    (``alloc_cache_leaf``).  Raises for a leaf made without one."""
+    slots = leaf.shape[0] * leaf.shape[1] * leaf.shape[2]
+    row_shape = tuple(leaf.shape[3:])
+    row = math.prod(row_shape)
+    need = (leaf.storage_offset() + (slots + 1) * row) * leaf.element_size()
+    if not leaf.is_contiguous() or leaf.untyped_storage().nbytes() < need:
+        raise ValueError(
+            "cache leaf has no dump row past its last slot: make it with "
+            "alloc_cache_leaf (the families' init_kv_cache do)"
+        )
+    return leaf.as_strided((slots + 1, *row_shape), (row, *leaf.stride()[3:]),
+                           leaf.storage_offset())
+
+
+def slot_rows(slot_ids: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``[L, n]`` int64 rows of ``cache_rows(leaf)`` that layer l writes
+    token i to: ``l * N * bs + slot`` for a slot in range, the dump row
+    ``L * N * bs`` for a pad token or an idle lane (out-of-range slot).
+    Chosen on the device: no host sync, and no pad ever lands on a live
+    slot (``index_copy_`` leaves the winner among repeated rows unspecified
+    on a card, so pads share the dump row only)."""
+    layers, n = leaf.shape[0], leaf.shape[1] * leaf.shape[2]
+    slots = slot_ids.long()
+    valid = (slots >= 0) & (slots < n)
+    base = torch.arange(layers, device=slots.device)[:, None] * n
+    return torch.where(valid[None, :], slots[None, :] + base, layers * n)
+
+
+def write_rows(k_rows: torch.Tensor, v_rows: torch.Tensor, rows: torch.Tensor,
+               k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """One layer's sync-free decode write: token i's K/V row into row
+    ``rows[i]`` of the leaves' ``cache_rows`` views (``slot_rows(...)[l]``),
+    in place."""
+    k_rows.index_copy_(0, rows, k_new.to(k_rows.dtype))
+    v_rows.index_copy_(0, rows, v_new.to(v_rows.dtype))
 
 
 def last_writer_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:

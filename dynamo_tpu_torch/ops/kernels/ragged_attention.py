@@ -172,10 +172,14 @@ class RaggedWorkPlan:
 
     def work(self, device: torch.device) -> torch.Tensor:
         """Items then combines as one int32 tensor on ``device``, copied
-        once a plan (every layer of the step reads the same copy)."""
+        once a plan (every layer of the step reads the same copy), from
+        pinned memory: a pageable copy would wait for the stream, so for a
+        decode window still in flight."""
         if device not in self._work:
-            both = np.concatenate([self.items, self.combines])
-            self._work[device] = torch.from_numpy(both).to(device)
+            both = torch.from_numpy(np.concatenate([self.items, self.combines]))
+            if device.type == "cuda":
+                both = both.pin_memory()
+            self._work[device] = both.to(device, non_blocking=True)
         return self._work[device]
 
 

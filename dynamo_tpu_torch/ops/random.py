@@ -61,7 +61,9 @@ def gumbel(keys: torch.Tensor, size: int) -> torch.Tensor:
     # 23 random mantissa bits under exponent 0: a float in [1, 2), minus 1
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
-                        device=keys.device)
-    u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
+    # a Python scalar, not a tensor made from one: that would be a host copy
+    # on a card, which a captured decode step cannot hold (float32 1 - tiny
+    # rounds to 1, as the reference's does)
+    tiny = torch.finfo(torch.float32).tiny
+    u = (floats + tiny).clamp_min(tiny)
     return -torch.log(-torch.log(u))

@@ -6,7 +6,7 @@ against the JAX reference, in float32 on the CPU:
   latent caches within 1e-4, at tiny_mla and a q_lora_rank=0 variant with
   yarn rope scaling;
 - load_hf_weights on a synthetic safetensors checkpoint;
-- TorchLlmEngine against JaxLlmEngine (unified on, overlap off): identical
+- TorchLlmEngine against JaxLlmEngine (unified on, overlap off in both): identical
   greedy and seeded streams over staggered admission, chunked prefill, a
   prefix-cache hit and preemption, through both of the port's routes — a
   family with no sliding window, which the engine must not assume;
@@ -282,7 +282,8 @@ async def run_both(models, batches, **overrides):
         (JaxLlmEngine(JaxEngineConfig(model=jcfg, model_family="deepseek_v2",
                                       unified_batch=True, decode_overlap=False, **kw),
                       params=jparams), JaxContext),
-        (TorchLlmEngine(EngineConfig(model=cfg, model_family="deepseek_v2", **kw),
+        (TorchLlmEngine(EngineConfig(model=cfg, model_family="deepseek_v2",
+                                     decode_overlap=False, **kw),
                         params=params, device="cpu"), Context),
     )
     out = []

@@ -1,5 +1,5 @@
 """TorchLlmEngine (device="cpu") against JaxLlmEngine (unified batching on,
-overlap off) on tests/data/tiny-chat-model in float32: greedy token
+overlap off in both) on tests/data/tiny-chat-model in float32: greedy token
 streams must be identical over staggered admission, chunked prefill, stop
 tokens, penalties and preemption at a small block pool, and both of the
 port's routes (the unified ragged step and the decode-only step) must run.
@@ -71,7 +71,10 @@ async def run_both(reqs, stagger_s=0.0, **overrides):
         JaxEngineConfig(model=JCFG, unified_batch=True, decode_overlap=False, **cfg),
         params=JPARAMS,
     )
-    ours_engine = TorchLlmEngine(EngineConfig(model=CFG, **cfg), params=PARAMS, device="cpu")
+    # like for like: the reference runs synchronously here, and so does
+    # the port (tests/test_torch_overlap.py holds the overlapped pipeline)
+    ours_engine = TorchLlmEngine(EngineConfig(model=CFG, decode_overlap=False, **cfg),
+                                 params=PARAMS, device="cpu")
     out = []
     for engine, ctx_cls in ((jax_engine, JaxContext), (ours_engine, Context)):
         engine.start()
