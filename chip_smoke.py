@@ -14,8 +14,13 @@ Phases (any failure exits non-zero, before the result line):
                idle lanes, a 64-row GQA window, a 16-query MLA window, a
                56-row ragged GQA block), eight decode lanes up to 4096 in
                one ragged token block (GQA and MLA) and one 1504-token
-               ragged prefill span; row 1 with the engine's work plan and
-               without, each bf16 case also held per element against the
+               ragged prefill span; rows 1 and 3 as the unified graph
+               runs them (the worklist at the engine's fixed width, the
+               work plan at its token bucket's capacity, junk past its
+               live counts) against the same plan at its tightest
+               (bitwise) and without a plan, a window with no split block
+               at a capacity with room for partials, each bf16 case of row
+               1 also held per element against the
                output's size (RAGGED_REL), a limit that a plan which drops
                one partial must fail; the split walks (rows 1-5) launched
                twice on the same inputs must give the same bits; time
@@ -47,15 +52,23 @@ Phases (any failure exits non-zero, before the result line):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  6. overlap — both configurations in process, all layers: a burst of five
-               requests (one of 1500 tokens) on the default engine, whose
-               decode attention must have launched once a layer in every
-               replayed window; one window by graph replay against the same
-               step run eagerly on the same buffers (tokens, logprobs, the
-               K/V rows written, and the forward's logits bitwise); the
-               burst's greedy streams equal with overlap off and, on
-               Llama-3-8B, with decode_steps=4 against decode_steps=1; the
-               engine's phase accounting of the host time a window.
+  6. overlap — both configurations in process, all layers: the default
+               engine warmed by ``warmup()`` (every reachable token
+               bucket's unified graph, greedy and sampled, and the decode
+               graphs, captured: 16 + 2), then a burst of five requests
+               (one of 1500 tokens) that must capture no graph, whose
+               decode and ragged attention must have launched once a layer
+               in every replayed window, every unified window a replay; its
+               TTFT and ITL; one decode window, and a unified window (six
+               decode lanes beside a span) at buckets 32, 256 and 2048, by
+               graph replay against the same step run eagerly on the same
+               buffers (tokens, logprobs, the K/V rows written, the counts,
+               the feedback, and the forward's logits bitwise); a unified
+               window's device ms by replay and eagerly; the burst's greedy
+               streams equal with overlap off and, on Llama-3-8B, with
+               decode_steps=4 against decode_steps=1; the engine's phase
+               accounting of the host time a window, the capture ms a
+               bucket, warmup seconds and the graphs' pool.
   7. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
@@ -314,16 +327,42 @@ def span_tokens(torch, spans, lanes, tb, t_pad):
     return token_lane, token_pos
 
 
+# the engine's worklist width at max_model_len 4096 and 16-position blocks:
+# tb x 256 entries a token block (EngineConfig of the served phases)
+ENGINE_MAX_BLOCKS = 256
+
+
+def fixed_work(torch, planner, counts, t, tb, seed=0):
+    """A step's plan as the unified graph holds it: packed at the capacity of
+    a ``t``-token bucket, random junk in every row past its live counts (the
+    kernels must never read them).  Returns (DeviceWork, plan, capacity)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.kernels.work_plan import DeviceWork
+
+    caps = planner.caps(t // tb)
+    plan = planner.plan(counts)
+    buf = plan.pack(caps)
+    n_items, n_combines = int(buf[0, 0]), int(buf[0, 1])
+    dead = np.r_[np.arange(1 + n_items, 1 + caps.items),
+                 np.arange(1 + caps.items + n_combines, caps.rows)]
+    buf[dead] = np.random.default_rng(seed).integers(-7, 99999, (dead.size, 4))
+    return DeviceWork(t // tb, caps, torch.from_numpy(buf).cuda()), plan, caps
+
+
 def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
                 dtype=None, window=None, seed=1, timed=True, library="gathered"):
-    """Ragged GQA attention over ``spans`` (see ``span_lens``), through the
-    step's work plan (``plan_ragged_work``, as the engine makes it) and
-    without one (one item a token block); launched twice with the plan (the
-    same bits) and held against the float32 plain version.  Library
-    yardstick: one SDPA call over K/V gathered per token (``gathered``), or
-    one causal SDPA over the only lane's contiguous K/V (``causal``, for a
-    single span from position 0, where the per-token gather would not fit).
-    A package without the planner (a parent checkout) runs unplanned."""
+    """Ragged GQA attention over ``spans`` (see ``span_lens``) as the unified
+    graph runs it: the worklist at the engine's fixed width (tb x
+    ENGINE_MAX_BLOCKS), the step's work plan (``ragged_planner``, as the
+    engine makes it) at its token bucket's capacity with junk past the live
+    counts; launched twice (the same bits), against the same plan at its
+    tightest capacity over the tightest worklist (the same bits), without a
+    plan (one item a token block), and held against the float32 plain
+    version.  Library yardstick: one SDPA call over K/V gathered per token
+    (``gathered``), or one causal SDPA over the only lane's contiguous K/V
+    (``causal``, for a single span from position 0, where the per-token
+    gather would not fit)."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
@@ -344,30 +383,39 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
         token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
         tb_tokens=tb, block_size=bs, sliding_window=window,
     )
-    planner = getattr(ragged_attention, "plan_ragged_work", None)
+    fixed = pack_page_meta(
+        token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
+        tb_tokens=tb, block_size=bs, sliding_window=window,
+        page_slots=tb * max(ENGINE_MAX_BLOCKS, max_blocks),
+    )
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = planner(meta[3], kv_heads=kvh, sms=sms) if planner else None
+    planner = ragged_attention.ragged_planner(kvh, sms, tb * h // kvh, d)
+    work, plan, caps = fixed_work(torch, planner, fixed[3], t, tb, seed)
     meta_dev = [torch.from_numpy(m).cuda() for m in meta]
+    fixed_dev = [torch.from_numpy(m).cuda() for m in fixed]
     token_lane, token_pos = token_lane.cuda(), token_pos.cuda()
     q = torch.randn((t, h, d), generator=gen, device="cuda").to(dtype)
 
-    def call(p):
+    def call(p, m=meta_dev):
         return ragged_paged_attention(
-            q, k, v, tables, token_lane, token_pos, *meta_dev, tb_tokens=tb,
-            sliding_window=window, **({"plan": p} if planner else {}),
+            q, k, v, tables, token_lane, token_pos, *m, tb_tokens=tb,
+            sliding_window=window, plan=p,
         )
 
-    def kernel():
+    def kernel():  # the unified graph's call
+        return call(work, fixed_dev)
+
+    def tight():
         return call(plan)
 
     def unsplit():
         return call(None)
 
-    split0 = getattr(ragged_attention, "split_launches", 0)
+    split0 = ragged_attention.split_launches
     out = kernel()
-    route = "tensor-core walk" if getattr(ragged_attention, "split_launches", 0) > split0 \
-        else "CUDA-core loop"
+    route = "tensor-core walk" if ragged_attention.split_launches > split0 else "CUDA-core loop"
     again = kernel()  # the same inputs must give the same bits
+    at_tight = tight()
     whole = unsplit()
     ref = plain.ragged_paged_attention(
         q.float(), k.float(), v.float(), tables, None, token_lane, token_pos,
@@ -387,16 +435,17 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
            "finite": bool(torch.isfinite(out).all() and torch.isfinite(whole).all()),
            "pads_zero": pad_zero, "tokens": t, "route": route,
            "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
-           "items": len(plan.items) if plan else None,
-           "partials": plan.n_partials if plan else None,
-           "worklist_entries": int(meta[3].sum())}
-    if plan is not None and len(plan.combines):
+           "fixed_equals_tight": torch.equal(out.view(torch.uint8), at_tight.view(torch.uint8)),
+           "items": len(plan.items), "partials": plan.n_partials,
+           "caps": [caps.items, caps.combines, caps.partials],
+           "worklist_entries": int(meta[3].sum()), "page_slots": fixed[0].shape[1]}
+    if len(plan.combines):
         # a planted fault: the first split block's combine leaves out its
         # last partial (the constructor would refuse such a plan)
         bad = copy.copy(plan)
         bad.combines = plan.combines.copy()
         bad.combines[0, 2] -= 1
-        bad._work = {}
+        bad._device = {}
         res["dropped_partial_rel_err"] = rel_err(call(bad))
     if not timed:
         return res
@@ -434,15 +483,15 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
 
         def lib():
             return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    if planner:  # the host's cost of a step's plan (the engine's, once a step)
-        stamps = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            planner(meta[3], kv_heads=kvh, sms=sms)
-            stamps.append(time.perf_counter() - t0)
-        res["plan_host_ms"] = sorted(stamps)[len(stamps) // 2] * 1e3
+    stamps = []  # the host's cost of a step's plan (the engine's, once a step)
+    for _ in range(20):
+        t0 = time.perf_counter()
+        planner.plan(fixed[3]).pack(caps)
+        stamps.append(time.perf_counter() - t0)
+    res["plan_host_ms"] = sorted(stamps)[len(stamps) // 2] * 1e3
     res.update(
         ms=time_ms(kernel, 10), device_ms=device_ms(kernel),
+        tight_ms=time_ms(tight, 10), tight_device_ms=device_ms(tight),
         unsplit_ms=time_ms(unsplit, 10), unsplit_device_ms=device_ms(unsplit),
         plain_ms=time_ms(lambda: plain.ragged_paged_attention(
             q, k, v, tables, None, token_lane, token_pos, sliding_window=window), 3),
@@ -552,11 +601,16 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
 
 def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
                     dtype=None, seed=1, timed=True):
-    """Ragged MLA attention over ``spans`` (see ``span_lens``)."""
+    """Ragged MLA attention over ``spans`` (see ``span_lens``) as the unified
+    graph runs it: the worklist at the engine's fixed width, the step's work
+    plan (``mla_planner``) at its token bucket's capacity with junk past the
+    live counts; launched twice (the same bits), against the same plan at
+    its tightest capacity over the tightest worklist (the same bits) and
+    without a plan (one item a token block)."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
-    from dynamo_tpu_torch.ops.kernels import pack_page_meta, ragged_mla_attention
+    from dynamo_tpu_torch.ops.kernels import mla_attention, pack_page_meta, ragged_mla_attention
 
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda")
@@ -571,28 +625,52 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     t = token_lane.shape[0]
     meta = pack_page_meta(token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
                           tb_tokens=tb, block_size=bs)
+    fixed = pack_page_meta(token_lane.numpy(), token_pos.numpy(), tables.cpu().numpy(),
+                           tb_tokens=tb, block_size=bs,
+                           page_slots=tb * max(ENGINE_MAX_BLOCKS, max_blocks))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planner = mla_attention.mla_planner(tb, h, sms, r)
+    work, plan, caps = fixed_work(torch, planner, fixed[3], t, tb, seed)
     meta_dev = [torch.from_numpy(m).cuda() for m in meta]
+    fixed_dev = [torch.from_numpy(m).cuda() for m in fixed]
     token_lane, token_pos = token_lane.cuda(), token_pos.cuda()
     q_lat = torch.randn((t, h, r), generator=gen, device="cuda")
     q_rope = torch.randn((t, h, p), generator=gen, device="cuda").to(dtype)
     scale = V2_LITE_ATTN_SCALE
 
-    def kernel():
+    def call(pl, m=meta_dev):
         return ragged_mla_attention(q_lat, q_rope, ck, kr, tables, token_lane, token_pos,
-                                    *meta_dev, scale=scale, tb_tokens=tb)
+                                    *m, scale=scale, tb_tokens=tb, plan=pl)
+
+    def kernel():  # the unified graph's call
+        return call(work, fixed_dev)
+
+    def tight():
+        return call(plan)
+
+    def unsplit():
+        return call(None)
 
     out = kernel()
     again = kernel()  # the same inputs must give the same bits
+    at_tight = tight()
+    whole = unsplit()
     ref = plain.ragged_mla_paged_attention(q_lat, q_rope.float(), ck.float(), kr.float(),
                                            tables, token_lane, token_pos, scale=scale)
     torch.cuda.synchronize()
     live = token_pos >= 0
-    res = {"max_abs_err": (out[live] - ref[live]).abs().max().item(),
+    res = {"max_abs_err": max((o[live] - ref[live]).abs().max().item() for o in (out, whole)),
            "ref_absmax": ref[live].abs().max().item(),
-           "finite": bool(torch.isfinite(out).all()),
-           "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
+           "finite": bool(torch.isfinite(out).all() and torch.isfinite(whole).all()),
+           "pads_zero": (all(bool((o[~live] == 0).all()) for o in (out, whole))
+                         if (~live).any() else True),
            "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8)),
-           "tokens": t, "page_slots": meta[0].shape[1]}
+           "fixed_equals_tight": torch.equal(out.view(torch.uint8), at_tight.view(torch.uint8)),
+           "items": len(plan.items), "partials": plan.n_partials,
+           "caps": [caps.items, caps.combines, caps.partials],
+           "scratch_mb": planner.scratch_floats(caps) * 4 / 1e6,
+           "tokens": t, "page_slots": fixed[0].shape[1],
+           "worklist_entries": int(meta[3].sum())}
     if not timed:
         return res
     pages = {(int(meta[0][tt, j])) for tt in range(meta[3].shape[0])
@@ -612,6 +690,8 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     mask = (torch.arange(length, device="cuda")[None, :] <= token_pos[:, None])[:, None, None, :]
     res.update(
         ms=time_ms(kernel, 10), device_ms=device_ms(kernel),
+        tight_ms=time_ms(tight, 10), tight_device_ms=device_ms(tight),
+        unsplit_ms=time_ms(unsplit, 10), unsplit_device_ms=device_ms(unsplit),
         plain_ms=time_ms(lambda: plain.ragged_mla_paged_attention(
             q_lat, q_rope, ck, kr, tables, token_lane, token_pos, scale=scale), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -921,6 +1001,9 @@ def check_case(name: str, res: dict, atol: float) -> None:
         raise AssertionError(f"{name}: non-finite output or non-zero pad rows")
     if not res.get("deterministic", True):
         raise AssertionError(f"{name}: two launches on the same inputs differ")
+    if not res.get("fixed_equals_tight", True):
+        raise AssertionError(f"{name}: the plan at its bucket's capacity over the fixed-width "
+                             f"worklist differs from the same plan at its tightest")
     if not res["max_abs_err"] <= atol:
         raise AssertionError(f"{name}: max_abs_err {res['max_abs_err']} > {atol}")
 
@@ -988,6 +1071,14 @@ def phase_kernels(torch) -> dict:
     }
     for name, res in edges.items():
         check_case(name, res, BF16_ATOL)
+    # a window with no block long enough to cut, at a bucket's capacity with
+    # room for partials and combines: the walk and the combine launch, every
+    # combine past the live count (0) exits
+    no_split = ragged_case(torch, spans=[(0, 0, 40), (1, 100, 1), (2, 7, 1)], t_pad=48,
+                           timed=False)
+    check_ragged("ragged window with no split block at capacity", no_split)
+    if no_split["partials"] != 0 or min(no_split["caps"][1:]) <= 0:
+        raise AssertionError(f"the no-split case split or had no room: {no_split}")
     small = decode_case(torch, lens=[5, 17, 29, 64], h=4, kvh=2, d=16, bs=16,
                         dtype=torch.float32, seed=7, timed=False)
     check_case("decode head dim 16 fp32", small, F32_ATOL)
@@ -998,7 +1089,8 @@ def phase_kernels(torch) -> dict:
 
     ragged_bf16 = {k: cases[k] for k in ("ragged_mix", "ragged_decode8_one_block",
                                          "ragged_prefill_span")}
-    ragged_bf16.update(window_256=win_r, head_dim_64=d64_r, rows_56=rows56_r)
+    ragged_bf16.update(window_256=win_r, head_dim_64=d64_r, rows_56=rows56_r,
+                       no_split=no_split)
     if hasattr(rk, "split_launches"):  # a parent checkout has the CUDA-core loop only
         routes = {**{k: r["route"] for k, r in ragged_bf16.items()}, "fp32_d16": small_r["route"]}
         want = {k: "CUDA-core loop" if k == "fp32_d16" else "tensor-core walk" for k in routes}
@@ -1006,10 +1098,11 @@ def phase_kernels(torch) -> dict:
             raise AssertionError(f"row 1 took the wrong route: {routes}")
     print(json.dumps({"smoke_ragged": {
         name: {key: r.get(key) for key in (
-            "route", "items", "partials", "worklist_entries", "plan_host_ms", "max_abs_err",
-            "max_rel_err", "dropped_partial_rel_err", "ref_rms", "ms",
-            "device_ms", "unsplit_ms", "unsplit_device_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")}
+            "route", "items", "partials", "caps", "worklist_entries", "page_slots",
+            "plan_host_ms", "max_abs_err", "max_rel_err", "dropped_partial_rel_err", "ref_rms",
+            "fixed_equals_tight", "ms", "device_ms", "tight_ms", "tight_device_ms",
+            "unsplit_ms", "unsplit_device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
         for name, r in ragged_bf16.items()}}), flush=True)
     # the sampling noise stream (threefry in int64 tensor ops) on the card
     # must give the CPU's bits
@@ -1045,6 +1138,27 @@ def phase_kernels(torch) -> dict:
     cases["mla_ragged_decode8"] = mla_ragged_case(torch, spans=dec8, t_pad=8)
     check_case("mla ragged 8 decode lanes <= 4096 in one token block",
                cases["mla_ragged_decode8"], MLA_ATOL)
+    # the serve phase's long prompt as one span, and a window with no block
+    # long enough to cut at a bucket's capacity (the combine launches, every
+    # combine past the live count exits)
+    cases["mla_ragged_prefill_span"] = mla_ragged_case(torch, spans=[(0, 0, 1504)])
+    check_case("mla ragged one 1504-token prefill span (188 blocks)",
+               cases["mla_ragged_prefill_span"], MLA_ATOL)
+    mla_no_split = mla_ragged_case(torch, spans=[(0, 0, 40), (1, 100, 1), (2, 7, 1)],
+                                   t_pad=48, timed=False)
+    check_case("mla ragged window with no split block at capacity", mla_no_split, MLA_ATOL)
+    if mla_no_split["partials"] != 0 or min(mla_no_split["caps"][1:]) <= 0:
+        raise AssertionError(f"the no-split case split or had no room: {mla_no_split}")
+    mla_bf16 = {k: cases[k] for k in ("mla_ragged_mix", "mla_ragged_decode8",
+                                      "mla_ragged_prefill_span")}
+    mla_bf16["no_split"] = mla_no_split
+    print(json.dumps({"smoke_mla_ragged": {
+        name: {key: r.get(key) for key in (
+            "items", "partials", "caps", "scratch_mb", "worklist_entries", "page_slots",
+            "max_abs_err", "fixed_equals_tight", "ms", "device_ms", "tight_ms",
+            "tight_device_ms", "unsplit_ms", "unsplit_device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")}
+        for name, r in mla_bf16.items()}}), flush=True)
     # the table walk's edges (rows 4-5): one lane at ctx 16 in a one-page
     # table (one chunk) and in a 2048-position table (one used chunk of
     # many), idle lanes beside long ones, and a 16-query window (16 tiles in
@@ -1114,8 +1228,7 @@ def phase_kernels(torch) -> dict:
                             if e.startswith("mla_decode"))),
         "mla_window": max(*(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                           mla_edges["mla_window_w16"]["max_abs_err"]),
-        "mla_ragged": max(cases["mla_ragged_mix"]["max_abs_err"],
-                          cases["mla_ragged_decode8"]["max_abs_err"]),
+        "mla_ragged": max(r["max_abs_err"] for r in mla_bf16.values()),
         **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
            for row in ("gather", "scatter")},
     }
@@ -1123,9 +1236,9 @@ def phase_kernels(torch) -> dict:
 
 
 # phase "sweep", run only when named: the split planners' grid aims
-SWEEP_RAGGED = ((2, 16), (3, 16), (4, 16), (2, 8), (2, 32))  # (CTAS_PER_SM, MIN_ITEM_PAGES)
+SWEEP_RAGGED = ((2, 16), (3, 16), (2, 8), (2, 4), (2, 32))  # (CTAS_PER_SM, MIN_ITEM_PAGES)
 SWEEP_PAGED = (1, 2, 4, 8)  # paged_attention.CTAS_PER_SM
-SWEEP_MLA = ((2, 16), (4, 16), (8, 16), (16, 16), (16, 8))  # (CTAS_PER_SM, MIN_CHUNK_PAGES)
+SWEEP_MLA = ((2, 16), (2, 8), (2, 4), (1, 8), (4, 8))  # (CTAS_PER_SM, MIN_CHUNK_PAGES)
 # the table walk (rows 4-5): (GROUP_TILES, TABLE_CTAS_PER_SM,
 # TABLE_MIN_CHUNK_KEYS) of ops/kernels/mla_attention.py
 SWEEP_TABLE = ((3, 4, 64), (2, 4, 64), (1, 4, 64), (3, 2, 64), (3, 8, 64), (3, 4, 32),
@@ -1275,8 +1388,8 @@ def sweep_id_caps(torch) -> list[dict]:
 
 def phase_sweep(torch) -> dict:
     """Rows 1-5 at the kernels phase's shapes (contexts drawn alike) under
-    other grid aims of their split planners (``plan_ragged_work``,
-    ``plan_splits``, ``plan_chunks``, ``plan_table_chunks``) and, for rows
+    other grid aims of their split planners (``ragged_planner``,
+    ``plan_splits``, ``mla_planner``, ``plan_table_chunks``) and, for rows
     4-5, other tiles a CTA, then rows 4-5 in one chunk at growing contexts:
     event and device times, and the float32 partial scratch each plan
     allocates.  The constants are restored."""
@@ -1295,8 +1408,12 @@ def phase_sweep(torch) -> dict:
     }
     mix = [(0, 0, 300), (1, 512, 37), *((2 + i, rng.randint(100, 2047), 1) for i in range(6))]
     dec = [4096, 4095, *(rng.randint(1, 4096) for _ in range(6))]
+    # a window of the served profile: one short prompt beside seven short
+    # decode lanes (one token block lists every decode lane's pages)
+    short = [(0, 0, 40), *((1 + i, 40 + 7 * i, 1) for i in range(7))]
     mla = {"mla_ragged_mix": dict(spans=mix, t_pad=352),
-           "mla_ragged_decode8": dict(spans=[(i, n - 1, 1) for i, n in enumerate(dec)], t_pad=8)}
+           "mla_ragged_decode8": dict(spans=[(i, n - 1, 1) for i, n in enumerate(dec)], t_pad=8),
+           "mla_ragged_short": dict(spans=short, t_pad=48)}
     table = {
         "mla_decode_b1": dict(lens=[2047]),
         "mla_decode_b32": dict(lens=[2047, 2048, 0, *(rng.randint(1, 2048) for _ in range(29))]),
@@ -1337,11 +1454,8 @@ def phase_sweep(torch) -> dict:
             mk.CTAS_PER_SM, mk.MIN_CHUNK_PAGES = aim, floor
             for name, kw in mla.items():
                 res = mla_ragged_case(torch, **kw)
-                num_tb = res["tokens"] // 8
-                chunks, chunk = mk.plan_chunks(num_tb, 8, 16, res["page_slots"], sms)
-                keep(name, res, ctas_per_sm=aim, min_chunk_pages=floor, chunks=chunks,
-                     chunk_pages=chunk, scratch_mb=num_tb * chunks * 128 * 514 * 4 / 1e6
-                     if chunks > 1 else 0.0)
+                keep(name, res, ctas_per_sm=aim, min_chunk_pages=floor, items=res["items"],
+                     partials=res["partials"], scratch_mb=res["scratch_mb"])
         for group, aim, floor in SWEEP_TABLE:
             mk.GROUP_TILES, mk.TABLE_CTAS_PER_SM, mk.TABLE_MIN_CHUNK_KEYS = group, aim, floor
             for name, kw in table.items():
@@ -1722,15 +1836,32 @@ OVERLAP_FINISH = 40
 REPLAY_ITERS = 20
 
 
-async def run_burst(engine, prompts, max_tokens) -> list[list[int]]:
-    tasks = [asyncio.ensure_future(generate_tokens(engine, p, n))
-             for p, n in zip(prompts, max_tokens)]
+async def run_burst(engine, prompts, max_tokens, stamps=None) -> list[list[int]]:
+    """Every request queued, then the engine started; ``stamps`` (a list)
+    gets the engine's start time and each request's token arrival times."""
+    marks = [[] for _ in prompts]
+    tasks = [asyncio.ensure_future(generate_tokens(engine, p, n, m))
+             for p, n, m in zip(prompts, max_tokens, marks)]
     await asyncio.sleep(0.05)  # every request queued
+    t0 = time.perf_counter()
     engine.start()
     try:
-        return await asyncio.gather(*tasks)
+        out = await asyncio.gather(*tasks)
     finally:
         engine.stop()
+    if stamps is not None:
+        stamps.extend([t0, marks])
+    return out
+
+
+def ttft_itl(stamps) -> dict:
+    """TTFT (from the engine's start, every request queued) and ITL of a
+    burst's ``run_burst`` stamps, ms."""
+    t0, marks = stamps
+    ttft = [m[0] - t0 for m in marks if m]
+    itl = [b - a for m in marks for a, b in zip(m, m[1:])]
+    return {"ttft_ms": [x * 1e3 for x in ttft], "ttft_ms_mean": sum(ttft) / len(ttft) * 1e3,
+            "ttft_ms_max": max(ttft) * 1e3, "itl_ms_mean": sum(itl) / max(len(itl), 1) * 1e3}
 
 
 def sibling_engine(base, **mode):
@@ -1884,6 +2015,210 @@ def window_ms(torch, d) -> dict:
     return out
 
 
+# the buckets at which a unified window is held by replay against eager
+UNIFIED_CHECK_BUCKETS = (32, 256, 2048)
+
+
+def unified_window(torch, engine, bucket: int, noise: bool) -> dict:
+    """Write one unified window of ``bucket`` tokens into the unified
+    graph's buffers: six decode lanes at contexts 33-338 and a span of
+    prefill tokens on lane 6 from position 100 (its first window: it seeds
+    the lane's penalty counts), all lanes sampled (``noise``) or greedy.
+    Returns the cache slots its tokens write."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.sequence import Sequence
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.ops.kernels import pack_page_meta
+
+    ug, d = engine._unified, engine._decode
+    lanes, bs = engine.config.max_batch_size, engine.config.block_size
+    vocab = engine.config.model.vocab_size
+    oob = engine.config.num_blocks * bs
+    ctx = [33 + 61 * i for i in range(6)]
+    start, n_span = 100, bucket - 6 - 3  # three pad tokens at the end
+    ends = [*ctx, start + n_span]
+    tables = np.zeros((lanes, engine.max_blocks_per_seq), np.int32)
+    nxt = 0
+    for lane, end in enumerate(ends):  # each lane's blocks its own
+        n = -(-end // bs)
+        tables[lane, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    gen = np.random.default_rng(bucket)
+    token_ids = np.zeros((bucket,), np.int32)
+    token_pos = np.full((bucket,), -1, np.int32)
+    token_lane = np.full((bucket,), lanes, np.int32)
+    lane_of = np.r_[np.arange(6), np.full(n_span, 6)]
+    pos = np.r_[np.asarray(ctx) - 1, np.arange(start, start + n_span)]
+    n_tok = lane_of.size
+    token_ids[:n_tok] = gen.integers(3, vocab, n_tok)
+    token_pos[:n_tok], token_lane[:n_tok] = pos, lane_of
+    slots = tables[lane_of, pos // bs] * bs + pos % bs
+    token_slot = np.full((bucket,), oob, np.int32)
+    token_slot[:n_tok] = slots
+    context_lens = np.zeros((lanes,), np.int32)
+    context_lens[:7] = ends
+    sample_rows = np.zeros((lanes,), np.int32)
+    sample_rows[:7] = [*range(6), n_tok - 1]
+    sample_gate = np.zeros((lanes,), np.int32)
+    sample_gate[:7] = 1
+    meta = pack_page_meta(token_lane, token_pos, tables, tb_tokens=ug.tb, block_size=bs,
+                          page_slots=ug.page_slots)
+    plan = ug.planner.plan(meta[3]) if ug.planner else None
+    d.tables.upload({"tables": tables})
+    engine._bt_clean = False  # the engine's own rows no longer match the buffer
+    seqs = []
+    for lane in range(7):
+        sampling = (SamplingOptions(temperature=0.8, seed=lane, presence_penalty=0.3)
+                    if noise else SamplingOptions(use_greedy=True))
+        seq = Sequence(seq_id=f"unified{lane}", request=PreprocessedRequest(
+            token_ids=[1], sampling=sampling, stop=StopConditions(max_tokens=1)))
+        seq.lane = lane
+        engine._seed_lane_key(seq)
+        seqs.append(seq)
+    engine._device_sampling_tail(seqs)
+    prompt_row = np.bincount(gen.integers(0, vocab, 50), minlength=vocab).astype(np.int32)
+    ug.upload(bucket, {
+        "token_ids": token_ids, "use_fb": np.zeros((bucket,), bool), "token_pos": token_pos,
+        "token_slot": token_slot, "token_lane": token_lane, "context_lens": context_lens,
+        "sample_rows": sample_rows, "sample_gate": sample_gate, "page_count": meta[3],
+        "page_phys": meta[0], "page_lane": meta[1], "page_ord": meta[2],
+    }, plan, [(6, prompt_row, np.zeros((vocab,), np.int32))])
+    return {"slots": slots, "plan_items": None if plan is None else len(plan.items),
+            "plan_partials": None if plan is None else plan.n_partials,
+            "worklist_entries": int(meta[3].sum())}
+
+
+def unified_replay_vs_eager(torch, engine) -> dict:
+    """At each of UNIFIED_CHECK_BUCKETS: a unified window (``unified_window``)
+    by its graph's replay (captured by ``warmup()``) and by the same step run
+    eagerly on the same buffers, greedy and sampled: tokens, logprobs, the
+    K/V rows written, the generated and prompt counts and the feedback
+    bitwise equal; then the forward alone captured and replayed against its
+    eager run, logits bitwise.  Replays before the check must add no
+    capture."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.attention import cache_rows
+
+    ug, d = engine._unified, engine._decode
+    dev = engine.device
+    n_slots = engine.config.num_blocks * engine.config.block_size
+    layers = engine.cache["k"].shape[0]
+    views = {k: cache_rows(leaf) for k, leaf in engine.cache.items()}
+    out = {}
+    for bucket in UNIFIED_CHECK_BUCKETS:
+        captured = len(ug._graphs)
+        for noise in (False, True):
+            info = unified_window(torch, engine, bucket, noise)
+            rows = torch.from_numpy(
+                (np.arange(layers)[:, None] * n_slots + info["slots"][None, :])
+                .reshape(-1)).to(dev)
+
+            def state():
+                return (ug.out_tokens.clone(), ug.out_lps.clone(),
+                        {k: v[rows].clone() for k, v in views.items()},
+                        engine._gen_counts.clone(), engine._prompt_counts.clone(),
+                        d.feedback.clone())
+
+            saved = (engine._gen_counts.clone(), engine._prompt_counts.clone(),
+                     d.feedback.clone())
+            ug.run(bucket, noise)
+            torch.cuda.synchronize()
+            graph = state()
+            engine._gen_counts.copy_(saved[0])
+            engine._prompt_counts.copy_(saved[1])
+            d.feedback.copy_(saved[2])
+            ug.step(bucket, noise)
+            torch.cuda.synchronize()
+            eager = state()
+            out[f"b{bucket}_{'sampled' if noise else 'greedy'}"] = {
+                "tokens_equal": torch.equal(graph[0], eager[0]),
+                "logprobs_bitwise": torch.equal(graph[1].view(torch.int32),
+                                                eager[1].view(torch.int32)),
+                "kv_rows_bitwise": all(torch.equal(graph[2][k].view(torch.uint8),
+                                                   eager[2][k].view(torch.uint8)) for k in views),
+                "gen_counts_equal": torch.equal(graph[3], eager[3]),
+                "prompt_counts_equal": torch.equal(graph[4], eager[4]),
+                "feedback_equal": torch.equal(graph[5], eager[5]),
+                "no_new_capture": len(ug._graphs) == captured,
+            }
+        out[f"b{bucket}_window"] = info | {"slots": None}
+        out[f"b{bucket}_logits"] = unified_forward_replay_vs_eager(torch, engine, bucket)
+    return out
+
+
+def unified_forward_replay_vs_eager(torch, engine, bucket: int) -> dict:
+    """The unified forward alone on ``bucket``'s buffers, captured here and
+    replayed, against its eager run: logits bitwise, else the largest
+    difference."""
+    ug, d = engine._unified, engine._decode
+    dev = engine.device
+    v = ug.inputs.view(bucket)
+    kw = {"plan": ug.work[bucket]} if bucket in ug.work else {}
+
+    def forward():
+        return engine.family.forward_unified(
+            engine.params, engine.config.model, v["token_ids"], engine.cache,
+            d.tables["tables"], v["context_lens"], v["token_pos"], v["token_slot"],
+            v["token_lane"], v["page_phys"], v["page_lane"], v["page_ord"], v["page_count"],
+            v["sample_rows"], engine.cos, engine.sin, tb_tokens=ug.tb, **kw)[0]
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        forward()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        static = forward()
+    graph.replay()
+    replayed = static.clone()
+    eager = forward()
+    torch.cuda.synchronize()
+    del graph
+    return {"bitwise": torch.equal(replayed.view(torch.int32), eager.view(torch.int32)),
+            "max_abs_diff": float((replayed - eager).abs().max())}
+
+
+def unified_window_ms(torch, engine) -> dict:
+    """A unified window's device time at each of UNIFIED_CHECK_BUCKETS
+    (CUDA events around back-to-back replays of its greedy graph) against
+    the same step run eagerly, and one replay's launch ms from an idle
+    card (median of 5)."""
+    ug = engine._unified
+    out = {}
+    for bucket in UNIFIED_CHECK_BUCKETS:
+        unified_window(torch, engine, bucket, False)
+
+        def timed(fn, iters):
+            fn()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for _ in range(iters):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return ev[0].elapsed_time(ev[1]) / iters
+
+        launch = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ug.run(bucket, False)
+            launch.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out[bucket] = {"replay_ms": timed(lambda: ug.run(bucket, False), 5),
+                       "eager_ms": timed(lambda: ug.step(bucket, False), 3),
+                       "replay_launch_ms": sorted(launch)[2]}
+    return out
+
+
 def window_mates(base, vocab: int) -> dict:
     """A 300-token request's greedy tokens alone and behind a one-token
     request admitted one step before it, with decode overlap off and on:
@@ -1904,15 +2239,18 @@ def window_mates(base, vocab: int) -> dict:
 
 
 def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
-                  decode_key: str, path, check_fused: bool) -> dict:
-    """The default engine (overlap on, every decode window a graph replay) on
-    the burst, its launches counted through the replays; one window by
-    replay against the same step run eagerly on the same buffers; the
-    burst's greedy streams equal with overlap off and, where
-    ``check_fused``, with decode_steps=4 against decode_steps=1 (both on
-    the split prefill, like for like: decode_steps > 1 turns the unified
-    step off).  The engine's phase accounting splits the host time a
-    window."""
+                  decode_key: str, ragged_key: str, path, check_fused: bool) -> dict:
+    """The default engine (overlap on, every decode and unified window a
+    graph replay), warmed by ``warmup()`` (every reachable token bucket's
+    unified graphs and the decode graphs captured), on the burst: no
+    capture in it, its launches counted through the replays (decode and
+    ragged attention once a layer a replayed window), its TTFT and ITL;
+    one decode window and unified windows at three buckets by replay
+    against the same step run eagerly on the same buffers; the burst's
+    greedy streams equal with overlap off and, where ``check_fused``, with
+    decode_steps=4 against decode_steps=1 (both on the split prefill, like
+    for like: decode_steps > 1 turns the unified step off).  The engine's
+    phase accounting splits the host time a window."""
     import os
 
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -1947,14 +2285,40 @@ def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
                 acc[1] += cnt - n_b
 
     base._run_unified = split_phases
+    ug = base._unified
+    asyncio.run(base.warmup())
+    warm = base.stats()
+    want_graphs = (2 * len(ug.buckets), 2)
+    if (warm["unified_graphs_captured"], warm["decode_graphs_captured"]) != want_graphs:
+        raise AssertionError(f"{tag}: warmup captured {warm['unified_graphs_captured']} unified "
+                             f"and {warm['decode_graphs_captured']} decode graphs, not "
+                             f"{want_graphs} (buckets {ug.buckets})")
+    if warm["kv_cached_blocks"] or warm["kv_active_blocks"]:
+        raise AssertionError(f"{tag}: warmup left blocks behind: {warm}")
     zero_counters()
+    stamps = []
     t0 = time.perf_counter()
-    streams = asyncio.run(run_burst(base, prompts, max_tokens))
+    streams = asyncio.run(run_burst(base, prompts, max_tokens, stamps))
     wall = time.perf_counter() - t0
     counts = read_counters()
     stats = base.stats()
+    burst = ttft_itl(stamps)
     layers = base.config.model.num_layers
-    windows = stats["decode_graph_replays_total"] + stats["decode_graphs_captured"]
+    delta = {k: stats[k] - warm[k] for k in (
+        "decode_graph_replays_total", "decode_graphs_captured", "unified_graph_replays_total",
+        "unified_graphs_captured", "decode_windows_unified_total")}
+    windows = delta["decode_graph_replays_total"] + delta["decode_graphs_captured"]
+    unified = delta["unified_graph_replays_total"] + delta["unified_graphs_captured"]
+    if (delta["unified_graphs_captured"] or delta["decode_graphs_captured"]
+            or stats["unified_graphs_captured_after_warmup"]
+            or stats["decode_graphs_captured_after_warmup"]):
+        raise AssertionError(f"{tag}: the burst after warmup captured a graph: {delta}")
+    # every unified window of the burst (no top_logprobs lane) a replay
+    if not 0 < delta["unified_graph_replays_total"] == delta["decode_windows_unified_total"]:
+        raise AssertionError(f"{tag}: a unified window was not a graph replay: {delta}")
+    if counts[ragged_key] != layers * unified:
+        raise AssertionError(f"{tag}: {ragged_key} = {counts[ragged_key]}, not {layers} layers "
+                             f"x {unified} replayed unified windows: {counts}")
     launched = {k: counts[k] for k in path}
     log(f"[overlap:{tag}] launches={launched} stats={ {k: v for k, v in stats.items() if 'decode' in k or 'drain' in k} }")
     if [len(s) for s in streams] != max_tokens:
@@ -1983,20 +2347,41 @@ def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
             raise AssertionError(f"{tag}: replay and eager differ ({mode}): {replay[mode]}")
     if not replay["logits"]["bitwise"]:
         raise AssertionError(f"{tag}: replayed forward's logits differ: {replay['logits']}")
+    u_replay = unified_replay_vs_eager(torch, base)
+    log(f"[overlap:{tag}] unified replay vs eager: {u_replay}")
+    for key, res in u_replay.items():
+        if key.endswith(("_greedy", "_sampled")) and not all(res.values()):
+            raise AssertionError(f"{tag}: unified replay and eager differ ({key}): {res}")
+        if key.endswith("_logits") and not res["bitwise"]:
+            raise AssertionError(f"{tag}: replayed unified forward's logits differ ({key}): "
+                                 f"{res}")
+    u_ms = unified_window_ms(torch, base)
+    log(f"[overlap:{tag}] unified window ms: {u_ms}")
+    u_phase = {n: {"total_ms": t * 1e3, "n": c, "mean_ms": t * 1e3 / max(c, 1)}
+               for n, (t, c) in unified_phases.items()}
     line = {
         "model": model, "card": card, "burst_wall_s": wall,
         "burst_tokens": sum(max_tokens), "decode_windows": stats["decode_steps_total"],
         "ms_per_decode_window": wall * 1e3 / max(stats["decode_steps_total"], 1),
+        "burst": burst,
         "phase_ms": stats.get("phase_ms"),
-        "phase_ms_unified_windows": {n: {"total_ms": t * 1e3, "n": c}
-                                     for n, (t, c) in unified_phases.items()},
+        "phase_ms_unified_windows": u_phase,
+        "unified_dispatch_ms": u_phase.get("decode.dispatch", {}).get("mean_ms"),
+        "unified_upload_ms": u_phase.get("decode.upload", {}).get("mean_ms"),
         "replay": replay,
-        "graph": {k: v for k, v in stats.items() if k.startswith("decode_graph")},
+        "unified_replay": u_replay,
+        "unified_window_ms": u_ms,
+        "warmup_s": warm["warmup_s"],
+        "unified_buckets": ug.buckets,
+        "unified_capture_ms_per_bucket": ug.capture_ms,
+        "row_scratch_mb": ug.scratch_mb,
+        "pool_mb_total": stats["unified_graph_pool_mb"] + stats["decode_graph_pool_mb"],
+        "graph": {k: v for k, v in stats.items() if k.startswith(("decode_graph", "unified_graph"))},
         "windows": {k: stats[k] for k in ("decode_windows_overlapped_total",
                                            "decode_windows_sync_total",
                                            "decode_windows_unified_total",
                                            "admission_drains_total", "offload_drains_total")},
-        "launches": launched,
+        "launches": launched, "unified_launches": counts[ragged_key],
     }
 
     def burst_of(**mode):
@@ -2032,9 +2417,11 @@ def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
 def phase_overlap_both(torch, card: str) -> dict:
     return {
         "llama": phase_overlap(torch, card, "llama", "llama3-8b-smoke", LLAMA3_8B,
-                               "paged_attention.launches", LLAMA_PATH, True),
+                               "paged_attention.launches", "ragged_attention.launches",
+                               LLAMA_PATH, True),
         "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
-                             "mla_attention.decode_launches", MLA_PATH, False),
+                             "mla_attention.decode_launches", "mla_attention.ragged_launches",
+                             MLA_PATH, False),
     }
 
 
@@ -2148,7 +2535,8 @@ OFFLOAD = dict(num_blocks=256, max_batch_size=8, max_model_len=4096,
 OFFLOAD_A, OFFLOAD_CHURN_G2, OFFLOAD_CHURN_G3 = 1500, (2400, 2400), (2400, 2400, 2400)
 
 
-async def generate_tokens(engine, tokens: list[int], max_tokens: int) -> list[int]:
+async def generate_tokens(engine, tokens: list[int], max_tokens: int,
+                          stamps: list | None = None) -> list[int]:
     from dynamo_tpu_torch.llm.protocols.common import (
         Annotated,
         LLMEngineOutput,
@@ -2169,6 +2557,8 @@ async def generate_tokens(engine, tokens: list[int], max_tokens: int) -> list[in
             if ann.data.error:
                 raise RuntimeError(ann.data.error)
             out.extend(ann.data.token_ids)
+            if stamps is not None and ann.data.token_ids:
+                stamps.extend([time.perf_counter()] * len(ann.data.token_ids))
     return out
 
 

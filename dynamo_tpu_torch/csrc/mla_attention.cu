@@ -66,23 +66,34 @@
 //     NEG_INF, their exponentials 0, the denominator clamped at 1e-20, so
 //     pad rows, idle lanes (ctx 0) and token blocks without pages write
 //     zeros.
-//   - The walk is split across CTAs in fixed chunks, planned by the wrapper
-//     from shapes alone (plan_chunks, plan_table_chunks in
-//     ops/kernels/mla_attention.py), never from page_count or
-//     context_lens, so a step needs no device-to-host read and stays
-//     capturable by a CUDA graph.  Chunks past a unit's (a token block's,
-//     or a sequence's) walk exit at once.  A unit whose walk fits one
-//     chunk is written by that CTA; otherwise each chunk writes float32
-//     partials (acc, m, l per row) and mla_combine_kernel merges them in
-//     chunk order: no atomics, the same bits on every launch.
+//   - The walk is split across CTAs, with no device-to-host read, so a
+//     step stays capturable by a CUDA graph.  A unit (a token block, or a
+//     sequence) whose walk is one piece is written by that CTA; otherwise
+//     each piece writes float32 partials (acc, m, l per row) and a combine
+//     merges them in piece order: no atomics, the same bits on every
+//     launch.
 //
 // Ragged walk (mla_ragged_tc_kernel; row 3): rows token-major (row = token
 //   * H + head), 4 tiles (4 tokens, half a token block of 8) of two warps a
-//   CTA, so a page crosses HBM at most twice per token block.  The chunks
-//   cut the token block's worklist (about 4 CTAs an SM, 16 to 256 entries
-//   a chunk); a CTA first keeps, in order, the entries of its chunk that
+//   CTA, so a page crosses HBM at most twice per item.  The pieces are the
+//   work items of a host plan made from the host copy of page_count
+//   (mla_planner in ops/kernels/mla_attention.py, ops/kernels/
+//   work_plan.py): items of about equal length, about 1 CTA an SM in
+//   all, partial slots only for the token blocks it splits, in a plan
+//   buffer of fixed capacity whose live counts the kernels read on the
+//   device (so one CUDA graph of a token bucket serves every plan of it,
+//   and the partials scratch is bounded by the plan's capacity, not by
+//   the worklist's width).  A CTA walks its item's entries in lists of at
+//   most MAX_CHUNK: it first keeps, in order, the entries of the list that
 //   one of its tokens sees (its lane, not above its position), and walks
 //   only those.  A tile skips a page of another lane.
+//   mla_ragged_combine_kernel merges a split block's partials in slot
+//   order.
+//
+// Table walk pieces: fixed chunks of a sequence's block table, planned by
+//   the wrapper from shapes alone (plan_table_chunks); chunks past a
+//   sequence's context exit at once, and mla_combine_kernel merges them in
+//   chunk order.
 //
 // Table walk (mla_table_tc_kernel; rows 4 and 5): grid (chunk, tile group,
 //   sequence).  A sequence's W*H w-major rows make W*H/16 tiles, each one
@@ -426,8 +437,8 @@ using bf16 = __nv_bfloat16;
 namespace tc = dyn::tc;
 constexpr int R = 512, P = 64, KEYS = 16;  // KEYS: positions a page, one MMA K step of P.ck
 constexpr int STAGES = 3;                  // pages in flight
-constexpr int MAX_CHUNK = 256;             // worklist entries a ragged CTA walks at most
-constexpr int MAX_CHUNKS = 256;            // chunks a unit's walk may have (the combine's)
+constexpr int MAX_CHUNK = 256;             // worklist entries a ragged CTA lists at a time
+constexpr int MAX_CHUNKS = 256;            // pieces a unit's walk may have (the combines')
 constexpr int QS = R + 8, RS = P + 8;      // bf16 row strides: 16-byte rows, ldmatrix without conflicts
 constexpr int LAT_STEPS = R / 16;          // MMA K steps of q_lat.ck
 constexpr int ROPE_STEPS = P / 16;         // ... and of q_rope.kr
@@ -463,10 +474,9 @@ __device__ inline void tile_sync(int rt) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rt), "r"(WPT * 32) : "memory");
 }
 
-// The number of chunks of `chunk_pages` a unit's walk uses: its worklist
-// entries (ragged: count = page_count, cap = page_slots, div = 1) or its
+// The number of chunks of `chunk_pages` a sequence's table walk uses: its
 // table pages (count = ctx, cap = max_blocks * KEYS, div = KEYS).  The
-// walks and the combine derive it alike, on the device.
+// walk and the combine derive it alike, on the device.
 __device__ inline int used_chunks(int count, int cap, int div, int chunk_pages) {
   return tc::ceil_div(tc::ceil_div(min(max(count, 0), cap), div), chunk_pages);
 }
@@ -695,20 +705,25 @@ constexpr int RAG_WPT = 2;
 constexpr int RAG_TILES = max_tiles(RAG_WPT);
 constexpr int RAG_THREADS = RAG_TILES * RAG_WPT * 32;
 constexpr size_t RAG_LIST = Smem::bytes(RAG_TILES, RAG_TILES * RAG_WPT);
-constexpr size_t RAG_BYTES = RAG_LIST + (3 * MAX_CHUNK + 2 * RAG_TILES + 1) * sizeof(int);
+constexpr size_t RAG_BYTES = RAG_LIST + (3 * MAX_CHUNK + 2 * RAG_TILES + 6) * sizeof(int);
 
-// Grid (chunk, tile group, token block).  Rows are token-major (row = token
-// * H + head); a CTA holds RAG_TILES 16-row tiles of its token block, each
-// tile one token's 16 heads (H = 16) or 16 of its heads.
+// Grid (tile group, item of the capacity).  Rows are token-major (row =
+// token * H + head); a CTA holds RAG_TILES 16-row tiles of its item's token
+// block, each tile one token's 16 heads (H = 16) or 16 of its heads, and
+// walks the item's entries [first, end) of the block's worklist in lists of
+// at most MAX_CHUNK: it keeps, in order, the entries one of its tiles sees,
+// then walks them.  An item past the live count (work[0].x) exits at once;
+// without a plan (work null) item blockIdx.y is token block blockIdx.y over
+// its whole worklist.
 __global__ void __launch_bounds__(RAG_THREADS, 1)
 mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_rope,
                      const bf16* __restrict__ ck, const bf16* __restrict__ kr,
                      const int* __restrict__ token_lane, const int* __restrict__ token_pos,
                      const int* __restrict__ page_phys, const int* __restrict__ page_lane,
                      const int* __restrict__ page_ord, const int* __restrict__ page_count,
-                     float* __restrict__ out, float* __restrict__ part_acc,
-                     float* __restrict__ part_ml, int H, int tb, int page_slots,
-                     int chunk_pages, float scale_log2) {
+                     const int4* __restrict__ work, float* __restrict__ out,
+                     float* __restrict__ part_acc, float* __restrict__ part_ml,
+                     int cap_partials, int H, int tb, int page_slots, float scale_log2) {
   extern __shared__ __align__(16) char smem[];
   bf16* q_hi = reinterpret_cast<bf16*>(smem);
   bf16* q_lo = reinterpret_cast<bf16*>(smem + Smem::q_lat(RAG_TILES));
@@ -721,18 +736,20 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
   int* t_lane = l_lane + MAX_CHUNK;  // [RAG_TILES] the lane and position of each tile's token
   int* t_pos = t_lane + RAG_TILES;   //            (-1: a pad token or no tile)
   int* n_list_s = t_pos + RAG_TILES;
+  // the item, its entries clamped to page_count: (token block, first
+  // entry, end entry, partial slot or -1), and whether the queries are
+  // staged.  Held here, not in registers: the walk's accumulators take
+  // nearly all of them
+  int* s_item = n_list_s + 1;
 
-  const int c = blockIdx.x, grp = blockIdx.y, t = blockIdx.z;
-  const int chunks = gridDim.x;
+  if (work && (int)blockIdx.y >= work[0].x) return;  // past the live items
+  const int grp = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int count = min(max(page_count[t], 0), page_slots);
-  const int n_used = used_chunks(page_count[t], page_slots, 1, chunk_pages);
-  if (c >= max(n_used, 1)) return;  // past the worklist: nothing to do
-  const bool direct = n_used <= 1;  // the only chunk writes the output itself
   const int rows_tb = tb * H, tiles_tb = rows_tb / 16;
 
   if (tid < RAG_TILES) {
-    const int tile = grp * RAG_TILES + tid;
+    const int4 item = work ? work[1 + blockIdx.y] : make_int4(blockIdx.y, 0, page_slots, -1);
+    const int t = item.x, tile = grp * RAG_TILES + tid;
     int ln = -1, ps = -1;
     if (tile < tiles_tb) {
       const int tok = t * tb + tile * 16 / H;
@@ -741,79 +758,133 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
     }
     t_lane[tid] = ln;
     t_pos[tid] = ps;
-  }
-  __syncthreads();
-  // the chunk's worklist entries that some tile of this CTA sees, in
-  // worklist order: a page of another lane, or above every token of its
-  // lane here, costs nothing more
-  if (warp == 0) {
-    const int e0 = c * chunk_pages, e1 = min(count, e0 + chunk_pages);
-    const size_t wl = (size_t)t * page_slots;
-    int n = 0;
-    for (int base = e0; base < e1; base += 32) {
-      const int e = base + lane;
-      int ph = 0, od = 0, ln = -1;
-      bool seen = false;
-      if (e < e1) {
-        ph = page_phys[wl + e];
-        od = page_ord[wl + e];
-        ln = page_lane[wl + e];
-#pragma unroll
-        for (int i = 0; i < RAG_TILES; ++i)
-          seen = seen || (t_pos[i] >= 0 && t_lane[i] == ln && od * KEYS <= t_pos[i]);
-      }
-      const unsigned mask = __ballot_sync(tc::FULL, seen);
-      if (seen) {
-        const int at = n + __popc(mask & ((1u << lane) - 1u));
-        l_phys[at] = ph;
-        l_ord[at] = od;
-        l_lane[at] = ln;
-      }
-      n += __popc(mask);
+    if (tid == 0) {
+      const int count = min(max(page_count[t], 0), page_slots);
+      s_item[0] = t;
+      s_item[1] = min(item.y, count);
+      s_item[2] = min(item.z, count);
+      s_item[3] = item.w;
+      s_item[4] = 0;
     }
-    if (lane == 0) *n_list_s = n;
   }
   __syncthreads();
-  const int n_list = *n_list_s;
-
-  auto issue = [&](int n) {  // page n of the list into its stage
-    if (n < n_list)
-      load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)l_phys[n], tid, RAG_THREADS);
-    tc::cp_async_commit();  // one group a page, empty past the last
-  };
-#pragma unroll
-  for (int n = 0; n < STAGES - 1; ++n) issue(n);
 
   const int rt = warp / RAG_WPT, wq = warp % RAG_WPT;  // this warp's tile and share
-  const int tile = grp * RAG_TILES + rt;
   const int my_lane = t_lane[rt], my_pos = t_pos[rt];
-  const int tok_local = tile * 16 / H, head0 = (tile * 16) % H;
-  const size_t q0 = ((size_t)t * tb + tok_local) * H + head0;  // the tile's first row in q and out
   bf16* qh = q_hi + rt * 16 * QS;
   bf16* ql = q_lo + rt * 16 * QS;
   bf16* qr = q_rp + rt * 16 * RS;
-  if (n_list > 0)
-    stage_tile<RAG_WPT>(qh, ql, qr, my_pos < 0 ? nullptr : q_lat + q0 * R,
-                        my_pos < 0 ? nullptr : q_rope + q0 * P, tid % (RAG_WPT * 32));
+  // the tile's first row in q and out
+  auto first_row = [&](int tile) {
+    return ((size_t)s_item[0] * tb + tile * 16 / H) * H + (tile * 16) % H;
+  };
   TileState<RAG_WPT> st;
   st.init();
 
-  for (int n = 0; n < n_list; ++n) {
-    tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
-    __syncthreads();                  // ... everyone's; page n - 1 consumed
-    issue(n + STAGES - 1);            // into the stage page n - 1 left
-    const int ord = l_ord[n];
-    if (my_pos < 0 || l_lane[n] != my_lane || ord * KEYS > my_pos) continue;
-    const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
-    page_step<RAG_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * RAG_WPT * 32 * 8, wq, rt,
-                       ord * KEYS, my_pos, scale_log2);
+  for (int base = s_item[1]; base < s_item[2]; base += MAX_CHUNK) {
+    // the list's entries that some tile of this CTA sees, in worklist
+    // order: a page of another lane, or above every token of its lane
+    // here, costs nothing more
+    if (warp == 0) {
+      const int e1 = min(s_item[2], base + MAX_CHUNK);
+      const size_t wl = (size_t)s_item[0] * page_slots;
+      int n = 0;
+      for (int b = base; b < e1; b += 32) {
+        const int e = b + lane;
+        int ph = 0, od = 0, ln = -1;
+        bool seen = false;
+        if (e < e1) {
+          ph = page_phys[wl + e];
+          od = page_ord[wl + e];
+          ln = page_lane[wl + e];
+#pragma unroll
+          for (int i = 0; i < RAG_TILES; ++i)
+            seen = seen || (t_pos[i] >= 0 && t_lane[i] == ln && od * KEYS <= t_pos[i]);
+        }
+        const unsigned mask = __ballot_sync(tc::FULL, seen);
+        if (seen) {
+          const int at = n + __popc(mask & ((1u << lane) - 1u));
+          l_phys[at] = ph;
+          l_ord[at] = od;
+          l_lane[at] = ln;
+        }
+        n += __popc(mask);
+      }
+      if (lane == 0) *n_list_s = n;
+    }
+    __syncthreads();
+    const int n_list = *n_list_s;
+
+    auto issue = [&](int n) {  // page n of the list into its stage
+      if (n < n_list)
+        load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)l_phys[n], tid, RAG_THREADS);
+      tc::cp_async_commit();  // one group a page, empty past the last
+    };
+#pragma unroll
+    for (int n = 0; n < STAGES - 1; ++n) issue(n);
+    if (n_list > 0 && !s_item[4]) {  // the queries, once, behind the first pages seen
+      const size_t q0 = first_row(grp * RAG_TILES + rt);
+      stage_tile<RAG_WPT>(qh, ql, qr, my_pos < 0 ? nullptr : q_lat + q0 * R,
+                          my_pos < 0 ? nullptr : q_rope + q0 * P, tid % (RAG_WPT * 32));
+    }
+
+    for (int n = 0; n < n_list; ++n) {
+      tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
+      __syncthreads();                  // ... everyone's; page n - 1 consumed
+      issue(n + STAGES - 1);            // into the stage page n - 1 left
+      const int ord = l_ord[n];
+      if (my_pos < 0 || l_lane[n] != my_lane || ord * KEYS > my_pos) continue;
+      const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
+      page_step<RAG_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * RAG_WPT * 32 * 8, wq,
+                         rt, ord * KEYS, my_pos, scale_log2);
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();  // the ring and the list are free for the next list
+    if (tid == 0 && n_list > 0) s_item[4] = 1;  // read after the next list's barrier
   }
-  tc::cp_async_wait<0>();
+  const int tile = grp * RAG_TILES + rt;
   if (tile >= tiles_tb) return;
   // zeros for a pad token or a token with no page here
-  finish_tile<RAG_WPT>(st, wq, direct, out, q0, part_acc, part_ml,
-                       ((size_t)t * chunks + c) * rows_tb + tok_local * H + head0,
-                       (size_t)gridDim.z * chunks * rows_tb);
+  const int slot = s_item[3];
+  const size_t q0 = first_row(tile);
+  finish_tile<RAG_WPT>(st, wq, slot < 0, out, q0, part_acc, part_ml,
+                       (size_t)max(slot, 0) * rows_tb + (tile * 16 / H) * H + (tile * 16) % H,
+                       (size_t)cap_partials * rows_tb);
+}
+
+// Merge each split token block's partials (slots [first, first + n) of its
+// combine, rows_tb rows each) in slot order into its output rows.  One CTA
+// per (row, combine of the capacity), a thread four columns; the combines
+// past the live count (work[0].y) exit.
+__global__ void __launch_bounds__(R / 4)
+mla_ragged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                          const int4* __restrict__ work, float* __restrict__ out, int rows,
+                          int cap_items, int cap_partials) {
+  __shared__ float sm[MAX_CHUNKS], sl[MAX_CHUNKS], red[2];
+  if ((int)blockIdx.y >= work[0].y) return;
+  const int4 c = work[1 + cap_items + blockIdx.y];
+  const int row = blockIdx.x, tid = threadIdx.x, n = c.z;
+  const size_t row0 = (size_t)c.y * rows + row;  // the first slot's partial row
+  const size_t l_off = (size_t)cap_partials * rows;
+  for (int j = tid; j < n; j += blockDim.x) {
+    sm[j] = part_ml[row0 + (size_t)j * rows];
+    sl[j] = part_ml[row0 + (size_t)j * rows + l_off];
+  }
+  const float d = fmaxf(tc::merge_weights(sm, sl, n, red), 1e-20f);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const float w = sm[j];
+    if (w == 0.f) continue;  // no key in this item: its acc was not written
+    const float4 x =
+        *reinterpret_cast<const float4*>(part_acc + (row0 + (size_t)j * rows) * R + tid * 4);
+    a.x += w * x.x;
+    a.y += w * x.y;
+    a.z += w * x.z;
+    a.w += w * x.w;
+  }
+  *reinterpret_cast<float4*>(out + ((size_t)c.x * rows + row) * R + tid * 4) =
+      make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
 }
 
 // The table walk: four warps a tile (128 context columns and a quarter of
@@ -896,8 +967,8 @@ mla_table_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_
                        (size_t)gridDim.z * chunks * W * H);
 }
 
-// Merge the partials of every unit (a token block of the ragged walk, a
-// sequence of the table walk) whose walk used more than one chunk, in
+// Merge the partials of every unit (a sequence of the table walk) whose
+// walk used more than one chunk, in
 // chunk order: partial row (u * chunks + c) * rows + row, output row
 // u * rows + row; used_chunks(counts[u], cap, div, chunk_pages) of them.
 // One CTA per (row, unit), a thread four columns.
@@ -934,20 +1005,21 @@ mla_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__
 
 int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr, const int* tl,
                   const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
-                  float* out, float* part_acc, float* part_ml, int T_, int H, int tb,
-                  int page_slots, int chunks, int chunk_pages, float scale, cudaStream_t stream) {
-  const int num_tb = T_ / tb;
+                  float* out, const int4* work, float* part_acc, float* part_ml, int T_, int H,
+                  int tb, int page_slots, int cap_items, int cap_combines, int cap_partials,
+                  float scale, cudaStream_t stream) {
   const int groups = tc::ceil_div(tb * H / 16, RAG_TILES);
   cudaError_t err = dyn::allow_smem(mla_ragged_tc_kernel, RAG_BYTES);
   if (err != cudaSuccess) return (int)err;
-  mla_ragged_tc_kernel<<<dim3(chunks, groups, num_tb), RAG_THREADS, RAG_BYTES, stream>>>(
+  mla_ragged_tc_kernel<<<dim3(groups, work ? cap_items : T_ / tb), RAG_THREADS, RAG_BYTES,
+                         stream>>>(
       static_cast<const float*>(ql), static_cast<const bf16*>(qr), static_cast<const bf16*>(ck),
-      static_cast<const bf16*>(kr), tl, tp, pp, pl, po, pc, out, part_acc, part_ml, H, tb,
-      page_slots, chunk_pages, scale * tc::LOG2E);
+      static_cast<const bf16*>(kr), tl, tp, pp, pl, po, pc, work, out, part_acc, part_ml,
+      cap_partials, H, tb, page_slots, scale * tc::LOG2E);
   err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return (int)err;
-  mla_combine_kernel<<<dim3(tb * H, num_tb), R / 4, 0, stream>>>(
-      part_acc, part_ml, pc, out, tb * H, chunks, chunk_pages, page_slots, 1);
+  if (err != cudaSuccess || cap_combines == 0) return (int)err;
+  mla_ragged_combine_kernel<<<dim3(tb * H, cap_combines), R / 4, 0, stream>>>(
+      part_acc, part_ml, work, out, tb * H, cap_items, cap_partials);
   return (int)cudaGetLastError();
 }
 
@@ -1085,17 +1157,21 @@ extern "C" int dyn_mla_paged_window_decode(
 }
 
 // T_ is a multiple of tb and tb <= 8.  bf16 caches at R 512, P 64, bs 16
-// and H a multiple of 16 take the split tensor-core walk over `chunks`
-// chunks of `chunk_pages` worklist entries (chunks * chunk_pages >=
-// page_slots, chunk_pages <= 256); with chunks > 1, part_acc [T_/tb,
-// chunks, tb*H, R] and part_ml [2, T_/tb, chunks, tb*H] are float32
-// scratch.  Other cases ignore the four.  Returns 0 or an error code.
+// and H a multiple of 16 take the split tensor-core walk over `work`: the
+// plan buffer (int4 rows: live items, live combines, live partials; then
+// cap_items items (token block, first entry, end entry, partial slot or
+// -1); then cap_combines combines (token block, first slot, slots)), or,
+// with work null, one item a token block over its whole worklist.  With
+// cap_partials > 0, part_acc [cap_partials, tb*H, R] and part_ml [2,
+// cap_partials, tb*H] are float32 scratch.  Other cases ignore the plan
+// and the scratch.  Returns 0 or an error code.
 extern "C" int dyn_ragged_mla_attention(
     const void* q_lat, const void* q_rope, const void* ck_cache, const void* kr_cache,
     const void* token_lane, const void* token_pos, const void* page_phys,
     const void* page_lane, const void* page_ord, const void* page_count, void* out,
-    void* part_acc, void* part_ml, int T_, int H, int R, int P, int bs, int tb,
-    int page_slots, int chunks, int chunk_pages, float scale, int dtype, void* stream) {
+    const void* work, void* part_acc, void* part_ml, int T_, int H, int R, int P, int bs,
+    int tb, int page_slots, int cap_items, int cap_combines, int cap_partials, float scale,
+    int dtype, void* stream) {
   if (T_ == 0) return 0;
   if (tb <= 0 || T_ % tb || tb > MAX_ROWS) return dyn::ERR_UNSUPPORTED;
   const int* tl = static_cast<const int*>(token_lane);
@@ -1107,13 +1183,18 @@ extern "C" int dyn_ragged_mla_attention(
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && R == rtc::R && P == rtc::P && bs == rtc::KEYS && H % 16 == 0) {
-    if (chunks < 1 || chunk_pages < 1 || chunk_pages > rtc::MAX_CHUNK || chunks > rtc::MAX_CHUNKS ||
-        (long)chunks * chunk_pages < page_slots ||
-        (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    const int4* plan = static_cast<const int4*>(work);
+    if (plan == nullptr) {
+      cap_items = T_ / tb;
+      cap_combines = cap_partials = 0;
+    }
+    if (cap_items <= 0 || cap_items > 65535 || cap_combines < 0 || cap_combines > 65535 ||
+        cap_partials < 0 || (cap_partials > 0 && (part_acc == nullptr || part_ml == nullptr)) ||
+        (cap_combines > 0 && cap_partials == 0))
       return dyn::ERR_UNSUPPORTED;
-    return rtc::launch_ragged(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, pl, po, pc, o,
+    return rtc::launch_ragged(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, pl, po, pc, o, plan,
                               static_cast<float*>(part_acc), static_cast<float*>(part_ml), T_, H,
-                              tb, page_slots, chunks, chunk_pages, scale, st);
+                              tb, page_slots, cap_items, cap_combines, cap_partials, scale, st);
   }
 #define DYN_RAGGED(T, R_, P_)                                                        \
   [&] { return launch_ragged<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, \

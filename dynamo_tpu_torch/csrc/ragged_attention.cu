@@ -33,7 +33,12 @@
 //     KVH fill the card, so the heavy decode block spreads over many CTAs.
 //     The plan lists the items longest first and the grid is (kv head,
 //     item), so the longest start first on every head and the short ones
-//     fill the tail.  An item that is its block's only one writes the
+//     fill the tail.  The plan sits in a buffer of fixed capacity
+//     (ops/kernels/work_plan.py): a header of live counts, then the items
+//     and the combines.  The grids are the capacities and the CTAs past the
+//     live counts, read here on the device, exit at once, so one launch
+//     (and one captured CUDA graph) serves every plan of a token bucket,
+//     a plan with no split block included.  An item that is its block's only one writes the
 //     output; otherwise it writes a float32 partial (acc [rows, D], m and l
 //     per row) to its slot and ragged_combine_kernel merges a block's
 //     partials in entry order: no atomics, the same bits on every launch.
@@ -171,9 +176,11 @@ constexpr int SUB = 16;     // keys of a sub-tile: one MMA K step of P.V
 constexpr int STAGES = 3;   // ring stages in flight
 constexpr int MAX_ITEMS_PER_BLOCK = 64;  // items a token block may have (the combine's)
 
-// Work items and combines, int4 each (ops/kernels/ragged_attention.py):
-//   item    (token block, first entry, end entry, partial slot or -1);
-//   combine (token block, first slot, slots, unused).
+// The plan buffer, int4 rows (ops/kernels/work_plan.py): work[0] = (live
+// items, live combines, live partials, unused), then cap_items items
+//   (token block, first entry, end entry, partial slot or -1),
+// then the combines
+//   (token block, first slot, slots, unused).
 
 template <int D, int MT>
 struct RaggedLayout {
@@ -204,14 +211,15 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
                  const bf16* __restrict__ v_cache, const int* __restrict__ token_lane,
                  const int* __restrict__ token_pos, const int* __restrict__ page_phys,
                  const int* __restrict__ page_lane, const int* __restrict__ page_ord,
-                 const int* __restrict__ page_count, const int4* __restrict__ items,
+                 const int* __restrict__ page_count, const int4* __restrict__ work,
                  bf16* __restrict__ out, float* __restrict__ part_acc,
-                 float* __restrict__ part_ml, int n_partials, int H, int KVH, int bs,
+                 float* __restrict__ part_ml, int cap_partials, int H, int KVH, int bs,
                  int tb, int page_slots, int sliding_window, float scale_log2) {
   using L = RaggedLayout<D, MT>;
   constexpr int STR = L::STR, KS = D / 16;
   extern __shared__ __align__(16) char smem[];
-  const int4 item = items ? items[blockIdx.y] : make_int4(blockIdx.y, 0, page_slots, -1);
+  if (work && (int)blockIdx.y >= work[0].x) return;  // past the live items
+  const int4 item = work ? work[1 + blockIdx.y] : make_int4(blockIdx.y, 0, page_slots, -1);
   const int t = item.x;
   const int head = blockIdx.x;
   const int G = H / KVH, rows = tb * G;
@@ -392,7 +400,7 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
   __syncthreads();
   // row r's tile is walked by warps r / 16 + MT * p, p < WPT: merge in p order
   const int slot = item.w;
-  const size_t l_off = (size_t)n_partials * KVH * rows;
+  const size_t l_off = (size_t)cap_partials * KVH * rows;
   for (int i = tid; i < rows * D; i += TC_THREADS) {
     const int r = i / D, d = i % D, rr = r % 16, w0 = r / 16;
     float M = NEG_INF;
@@ -422,17 +430,19 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
 }
 
 // Merge each split token block's partials in entry (slot) order.  One CTA
-// per (row, kv head, combine), a thread a column.
+// per (row, kv head, combine of the capacity), a thread a column; the
+// combines past the live count exit.
 template <int D>
 __global__ void __launch_bounds__(D)
 ragged_combine_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
-                      const int4* __restrict__ combines, bf16* __restrict__ out,
-                      int n_partials, int H, int KVH, int tb) {
+                      const int4* __restrict__ work, bf16* __restrict__ out, int cap_items,
+                      int cap_partials, int H, int KVH, int tb) {
   __shared__ float sm[MAX_ITEMS_PER_BLOCK], sl[MAX_ITEMS_PER_BLOCK], red[2];
-  const int4 c = combines[blockIdx.z];
+  if ((int)blockIdx.z >= work[0].y) return;  // past the live combines
+  const int4 c = work[1 + cap_items + blockIdx.z];
   const int r = blockIdx.x, head = blockIdx.y, tid = threadIdx.x;
   const int G = H / KVH, rows = tb * G, n = c.z;
-  const size_t l_off = (size_t)n_partials * KVH * rows;
+  const size_t l_off = (size_t)cap_partials * KVH * rows;
   auto prow = [&](int j) { return ((size_t)(c.y + j) * KVH + head) * rows + r; };
   for (int j = tid; j < n; j += D) {
     sm[j] = ml[prow(j)];
@@ -451,8 +461,8 @@ ragged_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
 template <int D, int MT>
 int launch_tc(const void* q, const void* k, const void* v, const int* tl, const int* tp,
               const int* pp, const int* pl, const int* po, const int* pc, void* out,
-              const int4* items, int n_items, int n_combines, float* part_acc,
-              float* part_ml, int n_partials, int H, int KVH, int bs, int tb,
+              const int4* work, int cap_items, int cap_combines, float* part_acc,
+              float* part_ml, int cap_partials, int H, int KVH, int bs, int tb,
               int page_slots, int sliding_window, cudaStream_t stream) {
   using L = RaggedLayout<D, MT>;
   auto kernel = ragged_tc_kernel<D, MT>;
@@ -460,27 +470,27 @@ int launch_tc(const void* q, const void* k, const void* v, const int* tl, const 
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = tc::LOG2E / sqrtf((float)D);
   bf16* o = static_cast<bf16*>(out);
-  kernel<<<dim3(KVH, n_items), TC_THREADS, L::BYTES, stream>>>(
+  kernel<<<dim3(KVH, cap_items), TC_THREADS, L::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      tl, tp, pp, pl, po, pc, items, o, part_acc, part_ml, n_partials, H, KVH, bs, tb,
+      tl, tp, pp, pl, po, pc, work, o, part_acc, part_ml, cap_partials, H, KVH, bs, tb,
       page_slots, sliding_window, scale_log2);
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_combines == 0) return (int)err;
-  ragged_combine_kernel<D><<<dim3(tb * (H / KVH), KVH, n_combines), D, 0, stream>>>(
-      part_acc, part_ml, items + n_items, o, n_partials, H, KVH, tb);
+  if (err != cudaSuccess || cap_combines == 0) return (int)err;
+  ragged_combine_kernel<D><<<dim3(tb * (H / KVH), KVH, cap_combines), D, 0, stream>>>(
+      part_acc, part_ml, work, o, cap_items, cap_partials, H, KVH, tb);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch_tc(int MT, const void* q, const void* k, const void* v, const int* tl,
                 const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
-                void* out, const int4* items, int n_items, int n_combines, float* pa,
-                float* pm, int n_partials, int H, int KVH, int bs, int tb, int page_slots,
+                void* out, const int4* work, int cap_items, int cap_combines, float* pa,
+                float* pm, int cap_partials, int H, int KVH, int bs, int tb, int page_slots,
                 int sliding_window, cudaStream_t st) {
   switch (MT) {
-    case 1: return launch_tc<D, 1>(q, k, v, tl, tp, pp, pl, po, pc, out, items, n_items, n_combines, pa, pm, n_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
-    case 2: return launch_tc<D, 2>(q, k, v, tl, tp, pp, pl, po, pc, out, items, n_items, n_combines, pa, pm, n_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
-    default: return launch_tc<D, 4>(q, k, v, tl, tp, pp, pl, po, pc, out, items, n_items, n_combines, pa, pm, n_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    case 1: return launch_tc<D, 1>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    case 2: return launch_tc<D, 2>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    default: return launch_tc<D, 4>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
   }
 }
 
@@ -488,20 +498,20 @@ int dispatch_tc(int MT, const void* q, const void* k, const void* v, const int* 
 
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
 // T_ is a multiple of tb; sliding_window <= 0 means full attention.
-// bf16 at head dims 64 and 128 takes the tensor-core walk over `work`:
-// n_items int4 items then n_combines int4 combines (see above), or, with
-// work null, one item per token block over its whole worklist (n_items,
-// n_combines and the scratch are then ignored).  With n_partials > 0,
-// part_acc [n_partials, KVH, tb*H/KVH, D] and part_ml [2, n_partials, KVH,
-// tb*H/KVH] are float32 scratch.  Other cases ignore work and the scratch.
-// Returns 0 or an error code.
+// bf16 at head dims 64 and 128 takes the tensor-core walk over `work`: the
+// plan buffer of cap_items items and cap_combines combines (see above), or,
+// with work null, one item per token block over its whole worklist (the
+// capacities and the scratch are then ignored).  With cap_partials > 0,
+// part_acc [cap_partials, KVH, tb*H/KVH, D] and part_ml [2, cap_partials,
+// KVH, tb*H/KVH] are float32 scratch.  Other cases ignore work and the
+// scratch.  Returns 0 or an error code.
 extern "C" int dyn_ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* token_lane, const void* token_pos, const void* page_phys,
     const void* page_lane, const void* page_ord, const void* page_count,
     void* out, const void* work, void* part_acc, void* part_ml, int T_, int H,
-    int KVH, int D, int bs, int tb, int page_slots, int sliding_window, int n_items,
-    int n_combines, int n_partials, int dtype, void* stream) {
+    int KVH, int D, int bs, int tb, int page_slots, int sliding_window, int cap_items,
+    int cap_combines, int cap_partials, int dtype, void* stream) {
   if (T_ == 0) return 0;
   if (KVH <= 0 || H % KVH || tb <= 0 || T_ % tb ||
       tb * (H / KVH) > dyn::MAX_ROWS)
@@ -521,24 +531,24 @@ extern "C" int dyn_ragged_paged_attention(
     return launch<bf16, 16>(q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, T_, H, KVH,
                             bs, tb, page_slots, sliding_window, st);
   if ((D != 64 && D != 128) || bs % SUB) return dyn::ERR_UNSUPPORTED;
-  const int4* items = static_cast<const int4*>(work);
-  if (items == nullptr) {
-    n_items = T_ / tb;
-    n_combines = n_partials = 0;
+  const int4* plan = static_cast<const int4*>(work);
+  if (plan == nullptr) {
+    cap_items = T_ / tb;
+    cap_combines = cap_partials = 0;
   }
-  if (n_items <= 0 || n_items > 65535 || n_combines < 0 || n_combines > 65535 || n_partials < 0 ||
-      (n_partials > 0 && (part_acc == nullptr || part_ml == nullptr)) ||
-      (n_combines > 0 && n_partials == 0))
+  if (cap_items <= 0 || cap_items > 65535 || cap_combines < 0 || cap_combines > 65535 ||
+      cap_partials < 0 || (cap_partials > 0 && (part_acc == nullptr || part_ml == nullptr)) ||
+      (cap_combines > 0 && cap_partials == 0))
     return dyn::ERR_UNSUPPORTED;
   const int rows = tb * (H / KVH);
   const int MT = rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   if (D == 64)
-    return dispatch_tc<64>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, items,
-                           n_items, n_combines, pa, pm, n_partials, H, KVH, bs, tb,
+    return dispatch_tc<64>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, plan,
+                           cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
                            page_slots, sliding_window, st);
-  return dispatch_tc<128>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, items,
-                          n_items, n_combines, pa, pm, n_partials, H, KVH, bs, tb,
+  return dispatch_tc<128>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, plan,
+                          cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
                           page_slots, sliding_window, st);
 }

@@ -39,8 +39,14 @@ emitted) while the new one runs; finishes found meanwhile release their
 lane and blocks only when the window holding them retires.  Unified
 windows take part in the pipeline the same way.  ``decode_steps = k`` fuses
 k decode iterations into one window.  On a CUDA device every decode window
-without a ``top_logprobs`` lane is one CUDA graph replay
-(``engine/graphs.py``); the unified and verify steps stay eager.
+and every unified window without a ``top_logprobs`` lane is one CUDA graph
+replay (``engine/graphs.py``): the unified step has one graph per token
+bucket, every input at its bucket's fixed shape, as the reference compiles
+one program per bucket; ``warmup()`` captures them all before serving.  A
+unified window the graphs cannot take (more admissions than seed slots,
+more tokens than the largest bucket) is skipped by name to the split step,
+as the reference skips it.  The split prefill and verify steps stay
+eager.
 
 Guided decoding, multimodal prompts, disaggregated prefill, prefetch,
 quantization and multi-device meshes are later slices; the engine refuses
@@ -68,7 +74,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
-from dynamo_tpu_torch.engine.graphs import DecodeGraph
+from dynamo_tpu_torch.engine.graphs import DecodeGraph, UnifiedGraph
 from dynamo_tpu_torch.engine.kv_manager import BlockAllocator
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
@@ -344,9 +350,7 @@ class TorchLlmEngine:
             if unified and mixed < self.max_len:
                 self.buckets = sorted(set(self.buckets) | {mixed})
         # ragged kernel geometry: the flat token axis pads to whole blocks of
-        # tb tokens.  The page worklist takes the tightest width that fits
-        # each window: eager PyTorch has no compiled program per width to
-        # keep stable, as the reference's fixed width does.
+        # tb tokens (the page worklist's one width is UnifiedGraph's)
         self._unified_tb = math.gcd(config.block_size, 8) or 1
         self._unified_windows = 0
         self._sync_windows = 0
@@ -405,14 +409,37 @@ class TorchLlmEngine:
             unified_batch=self.unified_batch,
         )
         self._iterations = 0
+        self.warmup_s: float | None = None  # warmup()'s wall seconds
         # per-lane block-table host rows, rewritten only for lanes whose
         # block list changed; the device copy is uploaded only then
         self._bt_host = np.zeros((lanes, self.max_blocks_per_seq), np.int32)
         self._bt_lane_key: list = [None] * lanes
         self._bt_clean = False
         # the decode window's persistent inputs and its graphs; the unified
-        # step reads its block tables, sampling tail and feedback too
-        self._decode = DecodeGraph(self, LOGIT_BIAS_K)
+        # step reads its block tables, sampling tail and feedback too.  All
+        # graphs share one memory pool (UnifiedGraph says why that is safe)
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._decode = DecodeGraph(self, LOGIT_BIAS_K, pool)
+        # the unified window's graphs, one a reachable token bucket (the
+        # reference's ucap: one chunk window plus a full complement of
+        # decode lanes), and its seed slots: only newly admitted prefills
+        # re-seed their penalty counts, and admission is bounded by the
+        # scheduler's per-step cap
+        self._unified_seed_slots = max(1, self.scheduler.max_prefills_per_step)
+        self._unified: UnifiedGraph | None = None
+        if self.unified_batch:
+            if self.chunk_tokens is not None:
+                ucap = self._bucket_len(min(self.chunk_tokens + lanes, self.max_len))
+            else:
+                ucap = self.buckets[-1]
+            tb = self._unified_tb
+            planner = None
+            if self.family.unified_planner is not None:
+                planner = self.family.unified_planner(
+                    cfg, block_size=config.block_size, tb_tokens=tb, device=dev)
+            self._unified = UnifiedGraph(
+                self, self._decode, sorted({-(-b // tb) * tb for b in self.buckets if b <= ucap}),
+                self._unified_seed_slots, planner, pool)
 
         # thread plumbing
         self._submit_q: thread_queue.Queue = thread_queue.Queue()
@@ -440,6 +467,51 @@ class TorchLlmEngine:
             self.host_tier.close()  # release + delete the G3 memmap
 
     # -- async engine interface -------------------------------------------
+    async def warmup(self) -> None:
+        """Capture every serving graph before the first request, as the
+        reference's ``warmup`` / ``aot_precompile`` compile every serving
+        program: the unified step's graph of every reachable token bucket
+        (noise drawn and not) and the decode window's two graphs.  On the
+        CPU each step runs once with nothing live.  The captures write
+        nothing live; the prefix registry is flushed after all the same, as
+        the reference flushes after its warmup requests, so no warmup state
+        reaches serving.  Runs on the device thread once the engine is
+        started, else in the caller's.  A capture that fails raises."""
+        if self._thread is None:
+            self._warm_graphs()
+            return
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+
+        def done(exc: BaseException | None) -> None:
+            def resolve() -> None:
+                if fut.done():
+                    return
+                if exc is not None:
+                    fut.set_exception(exc)
+                else:
+                    fut.set_result(None)
+
+            loop.call_soon_threadsafe(resolve)
+
+        self._submit_q.put(("warmup", done))
+        self._wake.set()
+        await fut
+
+    def _warm_graphs(self) -> None:
+        t0 = time.perf_counter()
+        self._sync_pipeline()
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if self._unified is not None:
+            self._unified.warm()
+        self._decode.warm()
+        self.allocator.clear_published()
+        self.warmup_s = time.perf_counter() - t0
+        logger.info("warmup: %d unified and %d decode graphs in %.1f s",
+                    self.stats()["unified_graphs_captured"],
+                    self.stats()["decode_graphs_captured"], self.warmup_s)
+
     async def generate(self, request: Context[dict]) -> ResponseStream[dict]:
         if request.data.get("image") is not None or request.data.get("video") is not None:
             raise ValueError("this model deployment does not accept image/video input")
@@ -533,8 +605,13 @@ class TorchLlmEngine:
             "tokens_emitted_total": self._tokens_emitted,
             "preempted_tokens_total": self.scheduler.preempted_tokens_total,
             "attention_impl": self.attention_impl,
+            "warmup_s": self.warmup_s,
             "device": str(self.device),
             **self._decode.stats(),
+            **(self._unified.stats() if self._unified is not None else {
+                "unified_graph_replays_total": 0, "unified_graphs_captured": 0,
+                "unified_graph_capture_ms": 0.0, "unified_graph_pool_mb": 0.0,
+                "unified_graphs_captured_after_warmup": 0}),
         }
         if self.host_tier is not None:
             out.update(self.host_tier.stats())
@@ -649,9 +726,18 @@ class TorchLlmEngine:
             return False
         # decode lanes and spans pack densely: every token costs one slot
         total = len(decodes) + sum(end - start for _, start, end in spans)
-        bucket = max(self._bucket_len(total), total)
         tb = self._unified_tb
-        bucket = -(-bucket // tb) * tb  # the kernel takes whole token blocks
+        bucket = -(-self._bucket_len(total) // tb) * tb  # whole token blocks
+        if total > bucket or bucket not in self._unified.buckets:
+            # past the largest graph bucket (the scheduler's chunk budget
+            # keeps every window inside it)
+            self._unified_skip("bucket_overflow")
+            return False
+        unseeded = sum(1 for seq, start, _ in spans if start == seq.cached_tokens)
+        if unseeded > self._unified_seed_slots:
+            # more admissions than the step's fixed seed scatter holds
+            self._unified_skip("seed_overflow")
+            return False
         # the per-window overlap gate, as _overlap_ok: top_logprobs lanes
         # ship K-wide rows whose readback belongs on the synchronous path
         overlap = self.decode_overlap and not any(
@@ -797,34 +883,34 @@ class TorchLlmEngine:
                 emit_seqs.append(seq)
             cursor += span
 
-        tables = self._decode_tables(decodes + [s for s, _, _ in spans])
-        page_meta = pack_page_meta(
+        self._decode_tables(decodes + [s for s, _, _ in spans])
+        page_phys, page_lane, page_ord, page_count = pack_page_meta(
             token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
+            page_slots=self._unified.page_slots,
             sliding_window=getattr(self.config.model, "sliding_window", None),
         )
         # a family whose kernel balances its walk by a host plan makes it
         # here, once a step, for every layer
-        plan_kw = {}
-        if self.family.plan_unified is not None:
-            plan_kw["plan"] = self.family.plan_unified(
-                self.config.model, page_meta[3], block_size=bs, tb_tokens=tb,
-                device=self.device,
-            )
+        ug = self._unified
+        plan = ug.planner.plan(page_count) if ug.planner else None
         self._device_sampling_tail(emit_seqs)
         noise = any(self._sampled(s) for s in emit_seqs)
         want = max((s.request.sampling.top_logprobs for s in emit_seqs), default=0)
         if timing:
             t = self._phase("decode.schedule", t)
-        up = self._upload
-        args = (
-            up(token_ids), up(use_fb), tables, up(context_lens), up(token_pos),
-            up(token_slot), up(token_lane), [up(a) for a in page_meta],
-            up(sample_rows), up(sample_gate),
-            [(lane, up(p), up(g)) for lane, p, g in seeds],
-        )
+        ug.upload(bucket, {
+            "token_ids": token_ids, "use_fb": use_fb, "token_pos": token_pos,
+            "token_slot": token_slot, "token_lane": token_lane,
+            "context_lens": context_lens, "sample_rows": sample_rows,
+            "sample_gate": sample_gate, "page_count": page_count, "page_phys": page_phys,
+            "page_lane": page_lane, "page_ord": page_ord,
+        }, plan, seeds)
         if timing:
             t = self._phase("decode.upload", t)
-        tokens, lps, top = self._unified_step(*args, plan_kw, noise, want)
+        # a window with a top_logprobs lane runs the step eagerly for its
+        # K-wide rows; any other is its bucket's graph replay
+        top = ug.step(bucket, noise, top=want) if want else ug.run(bucket, noise)
+        tokens, lps = ug.out_tokens, ug.out_lps
         if timing:
             t = self._phase("decode.dispatch", t)
 
@@ -863,31 +949,6 @@ class TorchLlmEngine:
         if prev is not None:
             self._retire_window(prev)
         return True
-
-    def _unified_step(self, token_ids, use_fb, block_tables, context_lens, token_pos,
-                      token_slot, token_lane, page_meta, sample_rows, sample_gate,
-                      seeds, plan_kw, noise, top):
-        """Forward + sampling tail of one ragged window (the reference's
-        jitted unified step): decode lanes marked ``use_fb`` take their
-        input token from the feedback, newly admitted lanes re-seed their
-        penalty counts before the penalties read them, intermediate-chunk
-        samples are gated out of the generated counts, and the emitting
-        lanes' tokens become the feedback."""
-        d = self._decode
-        lanes = self.config.max_batch_size
-        fed = d.feedback[token_lane.clamp(max=lanes - 1).long()]
-        token_ids = torch.where(use_fb, fed, token_ids)
-        logits, _ = self.family.forward_unified(
-            self.params, self.config.model, token_ids, self.cache, block_tables,
-            context_lens, token_pos, token_slot, token_lane, *page_meta,
-            sample_rows, self.cos, self.sin, tb_tokens=self._unified_tb, **plan_kw,
-        )  # [lanes, vocab]
-        for lane, prompt_row, gen_row in seeds:
-            self._prompt_counts[lane] = prompt_row
-            self._gen_counts[lane] = gen_row
-        tokens, lps, best = d.sample(logits, context_lens, sample_gate, noise, top)
-        d.feedback.copy_(torch.where(sample_gate > 0, tokens, d.feedback))
-        return tokens, lps, best
 
     @staticmethod
     def _sampled(seq: Sequence) -> bool:
@@ -931,16 +992,6 @@ class TorchLlmEngine:
                 top=(tkv_h[lane], tki_h[lane]) if top is not None else None,
             )
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A window's host array on the engine's device.  On a card the copy
-        goes through pinned memory without waiting for the stream (a
-        pageable copy waits, which would drain a window in flight);
-        PyTorch's pinned allocator keeps the staging until its copy ran."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _readback(self, tokens: torch.Tensor, lps: torch.Tensor):
         """Start the copies of a window's tokens and logprobs to host
         memory: pinned and non-blocking behind a CUDA event on a card (the
@@ -969,7 +1020,14 @@ class TorchLlmEngine:
                 op, seq = self._submit_q.get_nowait()
             except thread_queue.Empty:
                 return
-            if op == "add":
+            if op == "warmup":  # seq is the caller's completion callback
+                try:
+                    self._warm_graphs()
+                except Exception as exc:  # noqa: BLE001 — the caller raises it
+                    seq(exc)
+                else:
+                    seq(None)
+            elif op == "add":
                 self.scheduler.add(seq)
             elif op == "abort":
                 if seq.status == SeqStatus.RUNNING:

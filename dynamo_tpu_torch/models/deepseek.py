@@ -49,10 +49,12 @@ from dynamo_tpu_torch.ops.attention import (
     write_rows,
 )
 from dynamo_tpu_torch.ops.kernels import (
+    mla_attention,
     mla_paged_attention_decode,
     mla_paged_window_attention_decode,
     ragged_mla_attention,
 )
+from dynamo_tpu_torch.ops.kernels.common import sm_count
 from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions, yarn_mscale
@@ -338,7 +340,7 @@ def _mla_decode_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer,
 
 def _mla_unified_attn(w, x, cfg: DeepseekConfig, positions, token_pos, token_lane,
                       cache_views, rows, k_layer, v_layer, block_tables, page_meta,
-                      cos, sin, tb_tokens: int, pages_per_step: int):
+                      cos, sin, tb_tokens: int, pages_per_step: int, plan=None):
     """Absorbed-form ragged unified-batch attention: every token writes its
     latent before any token reads, so span tokens see their in-window
     predecessors through the cache."""
@@ -347,7 +349,7 @@ def _mla_unified_attn(w, x, cfg: DeepseekConfig, positions, token_pos, token_lan
     ck, kr = _latent_caches(k_layer, v_layer)
     ctx = ragged_mla_attention(
         q_lat, q_rope, ck, kr, block_tables, token_lane, token_pos, *page_meta,
-        scale=cfg.attn_scale, tb_tokens=tb_tokens, pages_per_step=pages_per_step,
+        scale=cfg.attn_scale, tb_tokens=tb_tokens, pages_per_step=pages_per_step, plan=plan,
     )
     return _decompress(w, ctx, cfg)
 
@@ -626,6 +628,19 @@ def deepseek_forward_verify(
     return logits.float(), kv_cache
 
 
+def unified_planner(cfg: DeepseekConfig, *, block_size: int, tb_tokens: int,
+                    device: torch.device):
+    """The ragged MLA walk's planner (``mla_planner``: a unified step's work
+    plan from its host ``page_count``, and the fixed capacity of a token
+    bucket's plans), or None where the kernel reads no plan: off the card,
+    and on the CUDA-core loop's widths."""
+    if device.type != "cuda" or not mla_attention.split_route(
+            cfg.dtype, cfg.kv_lora_rank, cfg.qk_rope_head_dim, block_size, cfg.num_heads):
+        return None
+    return mla_attention.mla_planner(tb_tokens, cfg.num_heads, sm_count(device),
+                                     cfg.kv_lora_rank)
+
+
 def deepseek_forward_unified(
     params: dict,
     cfg: DeepseekConfig,
@@ -646,12 +661,16 @@ def deepseek_forward_unified(
     *,
     tb_tokens: int = 8,
     pages_per_step: int = 1,
+    plan=None,
 ) -> tuple[torch.Tensor, dict]:
     """Ragged unified-batch forward for the MLA family: chunked-prefill
     spans and decode tokens in one pass against the latent cache (the llama
     unified contract); the MoE stack routes every token of the padded
-    batch.  Logits are gathered at each lane's last span row: [lanes,
-    vocab] f32 (junk for lanes without tokens; the caller gates them)."""
+    batch.  ``plan`` (``mla_planner(...).plan`` over ``page_count``, made once a
+    step, or the ``DeviceWork`` it was written into) balances every
+    layer's ragged MLA kernel on the card.  Logits are gathered at each
+    lane's last span row: [lanes, vocab] f32 (junk for lanes without
+    tokens; the caller gates them)."""
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = token_pos.clamp(min=0)  # pads rope at position 0
     views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
@@ -662,7 +681,7 @@ def deepseek_forward_unified(
         return _mla_unified_attn(
             w, attn_in, cfg, positions, token_pos, token_lane, views, rows[layer],
             k_layer, v_layer, block_tables, page_meta, cos, sin, tb_tokens,
-            pages_per_step,
+            pages_per_step, plan,
         )
 
     x = _forward(params, cfg, x, kv_cache, attn)

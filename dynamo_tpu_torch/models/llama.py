@@ -436,17 +436,18 @@ def llama_forward_decode(
     return _logits(params, cfg, x).float(), kv_cache
 
 
-def plan_unified(cfg: LlamaConfig, page_count, *, block_size: int, tb_tokens: int,
-                 device: torch.device):
-    """The ragged GQA walk's work plan for one unified step
-    (``plan_ragged_work`` over the host ``page_count``), or None where the
-    kernel reads none: off the card, and on the CUDA-core loop's shapes."""
+def unified_planner(cfg: LlamaConfig, *, block_size: int, tb_tokens: int,
+                    device: torch.device):
+    """The ragged GQA walk's planner (``ragged_planner``: a unified step's
+    work plan from its host ``page_count``, and the fixed capacity of a
+    token bucket's plans), or None where the kernel reads no plan: off the
+    card, and on the CUDA-core loop's shapes."""
     rows = tb_tokens * (cfg.num_heads // cfg.num_kv_heads)
     if device.type != "cuda" or not ragged_attention.split_route(
             cfg.dtype, cfg.head_dim, block_size, rows):
         return None
-    return ragged_attention.plan_ragged_work(
-        page_count, kv_heads=cfg.num_kv_heads, sms=sm_count(device))
+    return ragged_attention.ragged_planner(cfg.num_kv_heads, sm_count(device), rows,
+                                           cfg.head_dim)
 
 
 def llama_forward_unified(
@@ -475,8 +476,9 @@ def llama_forward_unified(
     of different sequences in one pass, each token at its own absolute
     position.  Every token's K/V is written to its cache slot before any
     token attends, so span tokens see their predecessors through the cache.
-    ``plan`` (``plan_ragged_work`` over ``page_count``, made once a step)
-    balances every layer's ragged kernel on the card.  Logits are gathered
+    ``plan`` (``plan_ragged_work`` over ``page_count``, made once a step,
+    or the ``DeviceWork`` it was written into) balances every layer's
+    ragged kernel on the card.  Logits are gathered
     at each lane's last span row: [lanes, vocab] f32 (junk for lanes
     without tokens; the caller gates them)."""
     t = token_ids.shape[0]

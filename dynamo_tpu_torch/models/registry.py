@@ -43,10 +43,11 @@ class ModelFamily:
     # (cfg, w) -> None: raises ValueError when the family's verify kernel
     # cannot take a window of w positions
     check_verify_width: Callable | None = None
-    # a unified step's work plan from the host page_count: (cfg, page_count,
-    # *, block_size, tb_tokens, device) -> forward_unified's ``plan``, or
-    # None where its kernel takes none
-    plan_unified: Callable | None = None
+    # the unified step's planner: (cfg, *, block_size, tb_tokens, device) ->
+    # a work_plan.Planner (``plan(page_count)`` -> forward_unified's
+    # ``plan``, ``caps(num_tb)`` the fixed capacity of a token bucket's
+    # plans), or None where its kernel takes no plan
+    unified_planner: Callable | None = None
 
 
 def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
@@ -75,7 +76,7 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
         forward_prefill_with_prefix=llama.llama_forward_prefill_with_prefix,
         forward_verify=llama.llama_forward_verify,
         check_verify_width=llama.check_verify_width,
-        plan_unified=llama.plan_unified,
+        unified_planner=llama.unified_planner,
     )
 
 
@@ -94,6 +95,7 @@ def _deepseek_family() -> ModelFamily:
         forward_prefill=deepseek.deepseek_forward_prefill,
         forward_prefill_with_prefix=deepseek.deepseek_forward_prefill_with_prefix,
         forward_verify=deepseek.deepseek_forward_verify,
+        unified_planner=deepseek.unified_planner,
     )
 
 

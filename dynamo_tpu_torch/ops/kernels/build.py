@@ -101,7 +101,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_ragged_paged_attention.restype = i
     lib.dyn_mla_paged_window_decode.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
     lib.dyn_mla_paged_window_decode.restype = i
-    lib.dyn_ragged_mla_attention.argtypes = [p] * 13 + [i] * 9 + [f, i, p]
+    lib.dyn_ragged_mla_attention.argtypes = [p] * 14 + [i] * 10 + [f, i, p]
     lib.dyn_ragged_mla_attention.restype = i
     lib.dyn_gather_blocks.argtypes = [p] * 4 + [i64] * 6 + [i] * 2 + [p]
     lib.dyn_gather_blocks.restype = i

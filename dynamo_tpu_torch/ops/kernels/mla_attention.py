@@ -17,12 +17,20 @@ version; ``table_walk_launches`` counts the decode and window calls that
 took the split table walk.
 
 At DeepSeek widths (bf16 caches, R 512, P 64, 16-position pages, heads a
-multiple of 16) all three take a split tensor-core walk, planned from the
-shapes alone (never from ``page_count`` or ``context_lens``, which would
-cost a device-to-host read a layer): ``plan_chunks`` cuts every token
-block's page worklist into chunks, ``plan_table_chunks`` every sequence's
-block table.  Decode is the window at W = 1 on the card, as in row 2.
-Float32 caches and the tiny_mla geometry take the CUDA-core loop.
+multiple of 16) all three take a split tensor-core walk with no
+device-to-host read.  The ragged walk (row 3) follows the host work plan
+of ``mla_planner`` (a ``work_plan.Planner``), made once a unified step
+from the host copy of ``page_count`` that ``pack_page_meta`` returns, as
+row 1's: partial slots only for the token blocks it splits, in a plan
+buffer of fixed capacity (``mla_planner(...).caps(num_tb)``), so the
+scratch is bounded by the capacity and not by the worklist's width, and one
+CUDA graph of a token bucket serves every plan of it.  Without a plan it
+takes one item a token block.  The decode and verify windows' table walk
+(rows 4-5) is planned from shapes alone (``plan_table_chunks`` cuts every
+sequence's block table; never from ``context_lens``, which would cost a
+device-to-host read a layer).  Decode is the window at W = 1 on the card,
+as in row 2.  Float32 caches and the tiny_mla geometry take the CUDA-core
+loop.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from dynamo_tpu_torch.ops.kernels.common import (
     sm_count,
     stream_ptr,
 )
+from dynamo_tpu_torch.ops.kernels.work_plan import DeviceWork, Planner, WorkPlan, launch_args
 
 decode_launches = 0
 decode_plain_calls = 0
@@ -56,13 +65,17 @@ table_walk_launches = 0
 GEOMETRIES = ((512, 64), (32, 8))
 MAX_TOKEN_BLOCK = 8  # tb_tokens the ragged kernel takes (query rows per CTA)
 # the ragged split walk (csrc/mla_attention.cu, rtc::): its geometry, the
-# 16-row MMA tiles a CTA holds, and the planner's aims
+# 16-row MMA tiles a CTA holds, and the planner's aims: items x tile groups
+# about CTAS_PER_SM CTAs an SM (the walk holds one CTA an SM, so one wave),
+# items of at least MIN_CHUNK_PAGES entries (chip_smoke.py's sweep: (1, 8)
+# against (2, 16) the same on the smoke's mix and eight decode lanes, 1.8x
+# as fast on a short window, and half the partials)
 SPLIT_GEOMETRY = (512, 64, 16)  # R, P, block size
 TILES_PER_CTA = 4
-CTAS_PER_SM = 4        # the grid aims at about this many CTAs an SM
-MIN_CHUNK_PAGES = 16   # a chunk holds at least this many worklist entries ...
-MAX_CHUNK_PAGES = 256  # ... and at most this many (the kernel's list)
-MAX_CHUNKS = 256       # chunks a worklist or table may have (the combine's)
+CTAS_PER_SM = 1
+MIN_CHUNK_PAGES = 8
+MAX_CHUNK_PAGES = 256  # entries a CTA lists at a time (the kernel's list)
+MAX_CHUNKS = 256       # pieces a worklist or table may have (the combines')
 # the table walk (rows 4-5, decode and verify window; rtc:: too): the
 # 16-row tiles a CTA holds at most (the kernel's cap, MAX_GROUP_TILES, comes
 # from shared memory and registers), and the planner's aims
@@ -72,25 +85,27 @@ TABLE_CTAS_PER_SM = 4      # the grid aims at about this many CTAs an SM
 TABLE_MIN_CHUNK_KEYS = 64  # a chunk walks at least this many table positions
 
 
-def plan_chunks(num_tb: int, tb_tokens: int, heads: int, page_slots: int,
-                sms: int) -> tuple[int, int]:
-    """``(chunks, chunk_pages)`` of the ragged split walk, from shapes
-    alone: chunk c of a token block walks worklist entries ``[c *
-    chunk_pages, (c + 1) * chunk_pages)``.  Enough chunks that the grid
-    (chunks x tile groups x token blocks) holds about ``CTAS_PER_SM`` CTAs
-    an SM (chunks past a block's ``page_count`` exit at once), at most
-    ``MAX_CHUNKS``, none shorter than ``MIN_CHUNK_PAGES`` or longer than
-    ``MAX_CHUNK_PAGES`` (so a worklist of more than MAX_CHUNKS *
-    MAX_CHUNK_PAGES entries is refused at launch), and ``chunks *
-    chunk_pages >= page_slots`` with no empty trailing chunk."""
-    page_slots = max(1, page_slots)
-    groups = ceil_div(ceil_div(tb_tokens * heads, 16), TILES_PER_CTA)
-    ctas = max(1, num_tb * groups)
-    chunks = min(ceil_div(CTAS_PER_SM * sms, ctas), ceil_div(page_slots, MIN_CHUNK_PAGES),
-                 MAX_CHUNKS)
-    chunks = max(1, chunks, ceil_div(page_slots, MAX_CHUNK_PAGES))
-    chunk = ceil_div(page_slots, chunks)
-    return ceil_div(page_slots, chunk), chunk
+class MlaWorkPlan(WorkPlan):
+    """The ragged MLA walk's work items for one unified step (``WorkPlan``
+    with at most MAX_CHUNKS items a token block, the combine's)."""
+
+    NAME = "ragged MLA work plan"
+    MAX_PER_BLOCK = MAX_CHUNKS
+
+
+def tile_groups(tb_tokens: int, heads: int) -> int:
+    """CTAs (groups of TILES_PER_CTA 16-row tiles) a token block's
+    ``tb_tokens * heads`` rows take."""
+    return ceil_div(ceil_div(tb_tokens * heads, 16), TILES_PER_CTA)
+
+
+def mla_planner(tb_tokens: int, heads: int, sms: int, r: int = 0) -> Planner:
+    """Row 3's planner: ``CTAS_PER_SM * sms // groups`` items a step (items
+    x tile groups about CTAS_PER_SM CTAs an SM), items of at least
+    MIN_CHUNK_PAGES entries; a partial slot holds a token block's
+    ``tb_tokens * heads`` rows of ``r`` accumulators, m and l."""
+    return Planner(MlaWorkPlan, max(1, CTAS_PER_SM * sms // tile_groups(tb_tokens, heads)),
+                   MIN_CHUNK_PAGES, tb_tokens * heads * (r + 2))
 
 
 def split_route(dtype: torch.dtype, r: int, p: int, block_size: int, heads: int) -> bool:
@@ -275,11 +290,17 @@ def ragged_mla_attention(
     tb_tokens: int = 8,
     pages_per_step: int = 1,     # accepted for signature parity; the output
                                  # does not depend on it
+    plan: WorkPlan | DeviceWork | None = None,
 ) -> torch.Tensor:
     """Ragged unified-batch MLA attention over the latent cache: every
-    token attends its own lane's positions up to its own.  Returns the
-    float32 latent context [T, H, R]; pad rows come out as zeros on the
-    kernel path (junk the caller discards on the plain path)."""
+    token attends its own lane's positions up to its own.  ``plan``
+    balances the split walk: a host ``MlaWorkPlan`` (``mla_planner(...).plan``
+    over this step's ``page_count``; copied to the card at its tightest
+    capacity), or a ``DeviceWork`` such a plan was written into at a fixed
+    capacity (the unified graphs'); the CUDA-core loop and the plain
+    version do not read it.  Returns the float32 latent context [T, H, R];
+    pad rows come out as zeros on the kernel path (junk the caller discards
+    on the plain path)."""
     global ragged_launches, ragged_plain_calls
     t, h, r = q_lat.shape
     if t % tb_tokens:
@@ -289,6 +310,9 @@ def ragged_mla_attention(
             f"page_slots ({page_phys.shape[1]}) must be a positive multiple "
             f"of pages_per_step ({pages_per_step})"
         )
+    if plan is not None and plan.num_tb != t // tb_tokens:
+        raise ValueError(f"ragged MLA work plan: made for {plan.num_tb} token blocks, "
+                         f"the call has {t // tb_tokens}")
     if q_lat.device.type == "cpu":
         ragged_plain_calls += 1
         return ragged_mla_paged_attention(
@@ -312,20 +336,16 @@ def ragged_mla_attention(
     )
     out = torch.empty_like(q_lat)
     p, bs, slots = q_rope.shape[-1], ck_cache.shape[1], page_phys.shape[1]
-    chunks, chunk, part_acc, part_ml = 1, slots, None, None
-    if split_route(ck_cache.dtype, r, p, bs, h):
-        chunks, chunk = plan_chunks(num_tb, tb_tokens, h, slots, sm_count(q_lat.device))
-        if chunks > 1:  # the partials the combine merges: acc, then m and l
-            n_rows = num_tb * chunks * tb_tokens * h
-            scratch = torch.empty(n_rows * (r + 2), dtype=torch.float32, device=q_lat.device)
-            part_acc = scratch.data_ptr()
-            part_ml = part_acc + n_rows * r * 4
+    (work, part_acc, part_ml, caps), scratch = (None, None, None, (0, 0, 0)), None
+    if split_route(ck_cache.dtype, r, p, bs, h) and plan is not None:
+        # scratch: the call's partials, held here until the launch
+        (work, part_acc, part_ml, caps), scratch = launch_args(
+            plan, q_lat.device, tb_tokens * h, r, "ragged MLA work plan")
     code = build.library().dyn_ragged_mla_attention(
         q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
         token_lane.data_ptr(), token_pos.data_ptr(), page_phys.data_ptr(),
         page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(), out.data_ptr(),
-        part_acc, part_ml,
-        t, h, r, p, bs, tb_tokens, slots, chunks, chunk,
+        work, part_acc, part_ml, t, h, r, p, bs, tb_tokens, slots, *caps,
         float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
     )
     build.check(code, "ragged_mla_attention")

@@ -24,7 +24,11 @@ block's worklist into work items from the host copy of ``page_count``
 card, so nothing is read back).  The engine packs decode tokens first, so
 one block can list every decode lane's pages; a plan made from shapes
 alone could not see which.  The plan is made once a step and serves every
-layer.  Without a plan the walk takes one item per token block.
+layer.  Without a plan the walk takes one item per token block.  The
+kernels read a plan from a buffer of fixed capacity (``work_plan``): the
+grid is the capacity, the live counts are in the buffer, so the unified
+step's CUDA graph of a token bucket serves every plan of that bucket
+(``ragged_planner(...).caps(num_tb)`` bounds them all).
 """
 
 from __future__ import annotations
@@ -35,12 +39,12 @@ import torch
 from dynamo_tpu_torch.ops.attention import ragged_paged_attention as ragged_plain
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels.common import (
-    ceil_div,
     check_cache,
     check_index,
     dtype_code,
     stream_ptr,
 )
+from dynamo_tpu_torch.ops.kernels.work_plan import DeviceWork, Planner, WorkPlan, launch_args
 
 launches = 0
 split_launches = 0
@@ -57,7 +61,6 @@ SUB_KEYS = 16                # the walk's sub-tile: block sizes are a multiple
 CTAS_PER_SM = 2
 MIN_ITEM_PAGES = 16
 MAX_ITEMS_PER_BLOCK = 64
-MAX_GRID_ITEMS = 65535  # items a launch may have (the grid's y extent)
 
 
 def pack_page_meta(
@@ -80,8 +83,8 @@ def pack_page_meta(
     width ``page_slots`` (default: the tightest width that fits).  Pad
     entries repeat the last live physical page; blocks with no live tokens
     point at page 0 with count 0."""
-    token_lane = np.asarray(token_lane)
-    token_pos = np.asarray(token_pos)
+    token_lane = np.asarray(token_lane, np.int64)
+    token_pos = np.asarray(token_pos, np.int64)
     bt = np.asarray(block_tables)
     lanes = bt.shape[0]
     t_pad = token_lane.shape[0]
@@ -91,39 +94,48 @@ def pack_page_meta(
             f"{tb_tokens}"
         )
     num_tb = t_pad // tb_tokens
-    per_block: list[list[tuple[int, int, int]]] = []
-    for t in range(num_tb):
-        span: dict[int, tuple[int, int]] = {}
-        for i in range(t * tb_tokens, (t + 1) * tb_tokens):
-            lane, pos = int(token_lane[i]), int(token_pos[i])
-            if pos < 0 or not 0 <= lane < lanes:
-                continue
-            lo, hi = span.get(lane, (pos, pos))
-            span[lane] = (min(lo, pos), max(hi, pos))
-        entries: list[tuple[int, int, int]] = []
-        for lane, (lo, hi) in span.items():
-            first = 0
-            if sliding_window is not None:
-                first = max(0, lo - (sliding_window - 1)) // block_size
-            for ord_ in range(first, hi // block_size + 1):
-                entries.append((int(bt[lane, ord_]), lane, ord_))
-        per_block.append(entries)
-    need = max((len(e) for e in per_block), default=0)
+    # the (block, lane) spans of the live tokens, in first-appearance order
+    # within each block
+    live = np.flatnonzero((token_pos >= 0) & (token_lane >= 0) & (token_lane < lanes))
+    key = (live // tb_tokens) * lanes + token_lane[live]
+    uniq, first_at, inv = np.unique(key, return_index=True, return_inverse=True)
+    lo = np.full(uniq.size, np.iinfo(np.int64).max)
+    hi = np.full(uniq.size, -1)
+    np.minimum.at(lo, inv, token_pos[live])
+    np.maximum.at(hi, inv, token_pos[live])
+    order = np.argsort(live[first_at], kind="stable")  # block-major, then appearance
+    blk, lane = uniq[order] // lanes, uniq[order] % lanes
+    lo, hi = lo[order], hi[order]
+    first = np.zeros_like(lo)
+    if sliding_window is not None:
+        first = np.maximum(0, lo - (sliding_window - 1)) // block_size
+    n_ent = hi // block_size + 1 - first
+    page_count = np.bincount(blk, weights=n_ent, minlength=num_tb).astype(np.int32)
+    need = int(page_count.max(initial=0))
     ps = page_slots if page_slots is not None else max(1, need)
     if need > ps:
         raise ValueError(f"page worklist needs {need} slots but page_slots={ps}")
-    page_phys = np.zeros((num_tb, ps), np.int32)
+    # entry j of span s: ordinal first[s] + j, at column (entries of the
+    # block's earlier spans) + j
+    e_span = np.repeat(np.arange(blk.size), n_ent)
+    span_start = np.cumsum(n_ent) - n_ent
+    j = np.arange(e_span.size) - span_start[e_span]
+    blk_start = np.cumsum(page_count) - page_count
+    col = span_start[e_span] - blk_start[blk[e_span]] + j
+    e_blk, e_lane, e_ord = blk[e_span], lane[e_span], first[e_span] + j
+    e_phys = bt[e_lane, e_ord]
+    # pad entries repeat each block's last live physical page (page 0 in a
+    # block with none)
+    last = np.zeros((num_tb,), np.int32)
+    ends = np.cumsum(page_count)
+    has = page_count > 0
+    last[has] = e_phys[ends[has] - 1]
+    page_phys = np.repeat(last[:, None], ps, axis=1)
     page_lane = np.full((num_tb, ps), -1, np.int32)
     page_ord = np.zeros((num_tb, ps), np.int32)
-    page_count = np.zeros((num_tb,), np.int32)
-    for t, entries in enumerate(per_block):
-        page_count[t] = len(entries)
-        for j, (phys, lane, ord_) in enumerate(entries):
-            page_phys[t, j] = phys
-            page_lane[t, j] = lane
-            page_ord[t, j] = ord_
-        if entries:
-            page_phys[t, len(entries):] = entries[-1][0]
+    page_phys[e_blk, col] = e_phys
+    page_lane[e_blk, col] = e_lane
+    page_ord[e_blk, col] = e_ord
     return page_phys, page_lane, page_ord, page_count
 
 
@@ -135,116 +147,28 @@ def split_route(dtype: torch.dtype, head_dim: int, block_size: int, rows: int) -
             and block_size % SUB_KEYS == 0 and rows <= MAX_ROWS)
 
 
-class RaggedWorkPlan:
-    """The tensor-core walk's work items for one unified step.
+class RaggedWorkPlan(WorkPlan):
+    """The tensor-core walk's work items for one unified step (``WorkPlan``
+    with at most MAX_ITEMS_PER_BLOCK items a token block, the combine's)."""
 
-    ``items`` [n, 4] int32: (token block, first entry, end entry, partial
-    slot or -1), in any order (the planner lists the longest first, the
-    order the grid starts them).  A token block's items tile its worklist
-    ``[0, page_count[t])``; a block with one item has slot -1 (the walk
-    writes its output), a block with several gives each a partial slot,
-    numbered in entry order across the blocks in block order.
-    ``combines`` [m, 4] int32: (token block, first slot, slots, 0) for
-    every block with several items; the combine kernel merges those slots
-    in order.
-
-    The constructor refuses, by name, items that do not cover every
-    block's ``[0, page_count)`` exactly once, or whose slots do not follow
-    that numbering."""
-
-    def __init__(self, items, page_count):
-        items = np.asarray(items, np.int32).reshape(-1, 4)
-        counts = np.asarray(page_count, np.int64).reshape(-1)
-        if len(items) > MAX_GRID_ITEMS:
-            raise ValueError(f"ragged work plan: {len(items)} items exceed the grid's "
-                             f"{MAX_GRID_ITEMS}")
-        ordered = items[np.lexsort((items[:, 1], items[:, 0]))]
-        split = _check_items(ordered, counts)
-        first = np.r_[True, ordered[1:, 0] != ordered[:-1, 0]] & split
-        n_of = np.bincount(ordered[:, 0], minlength=counts.size)
-        combines = np.stack([ordered[first, 0], ordered[first, 3], n_of[ordered[first, 0]],
-                             np.zeros(int(first.sum()), np.int64)], 1)
-        self.items = items
-        self.combines = combines.astype(np.int32).reshape(-1, 4)
-        self.n_partials = int(split.sum())
-        self.num_tb = int(counts.size)
-        self._work: dict[torch.device, torch.Tensor] = {}
-
-    def work(self, device: torch.device) -> torch.Tensor:
-        """Items then combines as one int32 tensor on ``device``, copied
-        once a plan (every layer of the step reads the same copy), from
-        pinned memory: a pageable copy would wait for the stream, so for a
-        decode window still in flight."""
-        if device not in self._work:
-            both = torch.from_numpy(np.concatenate([self.items, self.combines]))
-            if device.type == "cuda":
-                both = both.pin_memory()
-            self._work[device] = both.to(device, non_blocking=True)
-        return self._work[device]
+    NAME = "ragged work plan"
+    MAX_PER_BLOCK = MAX_ITEMS_PER_BLOCK
 
 
-def _check_items(items: np.ndarray, counts: np.ndarray) -> np.ndarray:
-    """Refuse ``items`` (sorted by block, then first entry) that do not
-    tile every block's ``[0, page_count)`` exactly once, or whose slots are
-    not the numbering of ``RaggedWorkPlan``; return which items are
-    partials."""
-    block, first, end, slot = (items[:, i].astype(np.int64) for i in range(4))
-    num_tb = counts.size
-    if block.size == 0:
-        if num_tb:
-            raise ValueError("ragged work plan: token block 0 has no item")
-        return np.zeros(0, bool)
-    if ((block < 0) | (block >= num_tb)).any():
-        raise ValueError(f"ragged work plan: a token block outside [0, {num_tb})")
-    n_of = np.bincount(block, minlength=num_tb)
-    if (n_of == 0).any():
-        raise ValueError(f"ragged work plan: token block {int(np.argmin(n_of))} has no item")
-    if n_of.max(initial=0) > MAX_ITEMS_PER_BLOCK:
-        raise ValueError(f"ragged work plan: a token block has {n_of.max()} items, "
-                         f"more than {MAX_ITEMS_PER_BLOCK}")
-    starts = np.r_[True, block[1:] != block[:-1]]
-    lasts = np.r_[block[1:] != block[:-1], True]
-    prev_end = np.r_[0, end[:-1]]
-    tiles = (np.where(starts, first == 0, first == prev_end)
-             & np.where(lasts, end == counts[block], True)
-             & ((end > first) | ((end == first) & (counts[block] == 0))))
-    if not tiles.all():
-        bad = int(block[np.argmin(tiles)])
-        raise ValueError(f"ragged work plan: the items of token block {bad} do not "
-                         f"cover its entries [0, {int(counts[bad])}) exactly once")
-    split = n_of[block] > 1
-    if not (slot == np.where(split, np.cumsum(split) - 1, -1)).all():
-        raise ValueError("ragged work plan: partial slots must number the items of "
-                         "split token blocks in order, and be -1 elsewhere")
-    return split
+def ragged_planner(kv_heads: int, sms: int, rows: int = 0, head_dim: int = 0) -> Planner:
+    """Row 1's planner: ``CTAS_PER_SM * sms // kv_heads`` items a step (items
+    x kv heads about CTAS_PER_SM CTAs an SM), items of at least
+    MIN_ITEM_PAGES entries; a partial slot holds ``kv_heads x rows`` rows of
+    ``head_dim`` accumulators, m and l."""
+    return Planner(RaggedWorkPlan, max(1, CTAS_PER_SM * sms // max(1, kv_heads)),
+                   MIN_ITEM_PAGES, kv_heads * rows * (head_dim + 2))
 
 
 def plan_ragged_work(page_count, *, kv_heads: int, sms: int) -> RaggedWorkPlan:
     """The tensor-core walk's work plan for one step, in numpy, from the
-    host copy of ``page_count`` [T // tb] that ``pack_page_meta`` returns.
-
-    Items are about ``length = total entries / target`` long, target =
-    ``CTAS_PER_SM * sms // kv_heads`` items, and never shorter than
-    MIN_ITEM_PAGES: each block of ``c`` entries is cut into ``round(c /
-    length)`` items of equal length (within one), at least one, at most
-    ``c // MIN_ITEM_PAGES`` and MAX_ITEMS_PER_BLOCK, so no item is longer
-    than 1.5 ``length`` unless its block is capped.  The items are listed
-    longest first (a stable sort: ties keep block order)."""
-    counts = np.asarray(page_count, np.int64).reshape(-1)
-    num_tb = counts.size
-    target = max(1, CTAS_PER_SM * sms // max(1, kv_heads))
-    length = max(MIN_ITEM_PAGES, ceil_div(int(counts.sum()), target))
-    n = np.clip(np.minimum((2 * counts + length) // (2 * length), counts // MIN_ITEM_PAGES),
-                1, MAX_ITEMS_PER_BLOCK)
-    block = np.repeat(np.arange(num_tb), n)
-    k = np.arange(block.size) - np.repeat(np.cumsum(n) - n, n)
-    c, nb = counts[block], n[block]
-    first, end = k * c // nb, (k + 1) * c // nb
-    split = nb > 1
-    slot = np.where(split, np.cumsum(split) - 1, -1)
-    items = np.stack([block, first, end, slot], 1)
-    items = items[np.argsort(first - end, kind="stable")]
-    return RaggedWorkPlan(items, counts)
+    host copy of ``page_count`` [T // tb] that ``pack_page_meta`` returns
+    (``Planner.plan`` at row 1's aims)."""
+    return ragged_planner(kv_heads, sms).plan(page_count)
 
 
 def ragged_paged_attention(
@@ -263,14 +187,17 @@ def ragged_paged_attention(
     pages_per_step: int = 1,     # accepted for signature parity; the output
                                  # does not depend on it
     sliding_window: int | None = None,
-    plan: RaggedWorkPlan | None = None,
+    plan: WorkPlan | DeviceWork | None = None,
 ) -> torch.Tensor:
     """Causally masked paged attention over one mixed prefill+decode token
-    batch, several lanes per token block.  ``plan`` (``plan_ragged_work``
-    over this step's ``page_count``) balances the tensor-core walk; the
-    CUDA-core loop and the plain version do not read it.  Pad rows come out
-    as zeros on the kernel path (junk the caller discards on the plain
-    path)."""
+    batch, several lanes per token block.  ``plan`` balances the
+    tensor-core walk: a host ``RaggedWorkPlan`` (``plan_ragged_work`` over
+    this step's ``page_count``; copied to the card at its tightest
+    capacity), or a ``DeviceWork`` that such a plan was written into at a
+    fixed capacity (the unified graphs': the grid and the partials are the
+    capacity's, the live counts the buffer's); the CUDA-core loop and the
+    plain version do not read it.  Pad rows come out as zeros on the kernel
+    path (junk the caller discards on the plain path)."""
     global launches, split_launches, plain_calls
     t, h, d = q.shape
     if t % tb_tokens:
@@ -317,21 +244,17 @@ def ragged_paged_attention(
                          f"walk, which needs a block size that is a multiple of "
                          f"{SUB_KEYS} (got {bs})")
     out = torch.empty_like(q)
-    work, part_acc, part_ml, n_items, n_combines, n_partials = None, None, None, 0, 0, 0
+    (work, part_acc, part_ml, caps), scratch = (None, None, None, (0, 0, 0)), None
     if split and plan is not None:
-        work = plan.work(q.device).data_ptr()
-        n_items, n_combines, n_partials = len(plan.items), len(plan.combines), plan.n_partials
-        if n_partials:  # the partials the combine merges: acc, then m and l
-            n_rows = n_partials * kvh * rows
-            scratch = torch.empty(n_rows * (d + 2), dtype=torch.float32, device=q.device)
-            part_acc = scratch.data_ptr()
-            part_ml = part_acc + n_rows * d * 4
+        # scratch: the call's partials, held here until the launch
+        (work, part_acc, part_ml, caps), scratch = launch_args(
+            plan, q.device, kvh * rows, d, "ragged work plan")
     code = build.library().dyn_ragged_paged_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         token_lane.data_ptr(), token_pos.data_ptr(), page_phys.data_ptr(),
         page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(),
         out.data_ptr(), work, part_acc, part_ml, t, h, kvh, d, bs, tb_tokens,
-        page_phys.shape[1], sliding_window or 0, n_items, n_combines, n_partials,
+        page_phys.shape[1], sliding_window or 0, *caps,
         dtype_code(q.dtype), stream_ptr(q.device),
     )
     build.check(code, "ragged_paged_attention")

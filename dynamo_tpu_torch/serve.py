@@ -83,12 +83,20 @@ async def serve_http(
     """Start the engine and an OpenAI HTTP frontend over it, in process.
     ``engine_overrides`` go to EngineConfig (e.g. ``speculative="ngram",
     spec_tokens=4``, ``host_offload_blocks=64``).  Weight loading, and the
-    mount of a remote KV store, run off the event loop."""
+    mount of a remote KV store, run off the event loop.  Every serving
+    graph is captured (``TorchLlmEngine.warmup``) before the frontend takes
+    a request, as the reference warms before its model registers: the first
+    request pays no capture."""
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     engine = await asyncio.to_thread(
         build_torch_engine, model_dir, mdc, device=device, **engine_overrides
     )
     engine.start()
+    try:
+        await engine.warmup()
+    except BaseException:
+        engine.stop()
+        raise
     tokenizer = HfTokenizer.from_model_dir(model_dir)
     backend = Backend(tokenizer)
     manager = ModelManager()

@@ -12,9 +12,15 @@ the phases' softmax states merge in phase order, a block's only item writes
 the output, and the items of a split block write partials that the combine
 merges in slot order.  The kernel runs only on a card (chip_smoke.py); what
 it shares with this emulation is the plan, the item bounds, the deal of
-sub-tiles and both merges.  Also: the planner's properties, the refusal of
-a plan that does not cover the worklist, and the plan's plumbing through
-``llama_forward_unified``."""
+sub-tiles and both merges.  The kernel reads the plan from a buffer of
+fixed capacity (a header of live counts, the items, the combines; the grid
+is the capacity): the emulation of that buffer at a token bucket's
+capacity, with junk in the rows past the live counts, gives the tight
+plan's bits, and a window with no split block walks cleanly at a capacity
+with room for partials.  Also: the planner's properties, its capacity
+bound over every page count a bucket allows (hypothesis), the refusal of a
+plan that does not cover the worklist or fit its capacity, and the plan's
+plumbing through ``llama_forward_unified``."""
 
 import dataclasses
 import math
@@ -23,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dynamo_tpu.ops import attention as jax_attn
 from dynamo_tpu.ops.pallas import ragged_paged_attention as pallas_ragged
@@ -34,8 +42,10 @@ from dynamo_tpu_torch.ops.kernels.ragged_attention import (
     MIN_ITEM_PAGES,
     RaggedWorkPlan,
     plan_ragged_work,
+    ragged_planner,
     split_route,
 )
+from dynamo_tpu_torch.ops.kernels.work_plan import WorkCaps
 
 ATOL = 1e-5
 NEG_INF = -1e30
@@ -89,10 +99,21 @@ def walk_tiles(rows):
     return mt, 4 // mt
 
 
-def split_walk(q, k, v, token_lane, token_pos, meta, plan, *, window=None):
+def from_buffer(buffer, caps):
+    """What the kernels read of a plan buffer: the live items (the grid's
+    CTAs below the header's count), the live combines and the partial
+    slots of the capacity."""
+    n_items, n_combines, _ = buffer[0, :3]
+    assert n_items <= caps.items and n_combines <= caps.combines
+    return (buffer[1: 1 + n_items].tolist(),
+            buffer[1 + caps.items: 1 + caps.items + n_combines].tolist(), caps.partials)
+
+
+def split_walk(q, k, v, token_lane, token_pos, meta, plan, *, window=None, work=None):
     """csrc/ragged_attention.cu's tensor-core walk in float32: every item
     (or, without a plan, one item per token block over its whole worklist)
-    for every kv head, then the combine.  Unwritten rows stay NaN."""
+    for every kv head, then the combine; ``work`` = (plan buffer, capacity)
+    reads the plan as the kernels do.  Unwritten rows stay NaN."""
     page_phys, page_lane, page_ord, page_count = (np.asarray(a) for a in meta)
     n_tok, h, d = q.shape
     kvh = k.shape[2]
@@ -100,7 +121,9 @@ def split_walk(q, k, v, token_lane, token_pos, meta, plan, *, window=None):
     rows = TB * g
     _, wpt = walk_tiles(rows)
     num_tb, slots = page_phys.shape
-    if plan is None:
+    if work is not None:
+        items, combines, n_partials = from_buffer(*work)
+    elif plan is None:
         items = [(blk, 0, slots, -1) for blk in range(num_tb)]
         combines, n_partials = [], 0
     else:
@@ -111,6 +134,7 @@ def split_walk(q, k, v, token_lane, token_pos, meta, plan, *, window=None):
     tok = np.arange(rows) // g  # token of each row within its block (token-major)
     grp = torch.from_numpy(np.arange(rows) % g)
     for blk, first, end, slot in items:
+        assert slot < n_partials
         count = min(int(page_count[blk]), slots)
         first, end = min(first, count), min(end, count)
         ents = np.arange(first, end)
@@ -289,7 +313,10 @@ def test_plan_without_a_split_block_has_no_combines():
     assert plan.n_partials == 0 and plan.combines.shape == (0, 4)
     np.testing.assert_array_equal(np.sort(plan.items[:, 0]), np.arange(counts.size))
     assert (plan.items[:, 3] == -1).all()
-    assert plan.work(torch.device("cpu")).shape == (counts.size, 4)
+    work = plan.device_work(torch.device("cpu"))
+    assert work.caps == WorkCaps(counts.size, 0, 0)
+    assert work.buffer.shape == (1 + counts.size, 4)  # the header, then the items
+    np.testing.assert_array_equal(work.buffer[0].numpy(), [counts.size, 0, 0, 0])
 
 
 def by_first(items):
@@ -362,13 +389,16 @@ def test_llama_plans_only_for_the_tensor_core_walk(case, monkeypatch):
                               head_dim=128, dtype=dtype)
     device = torch.device("cpu" if case == "cpu" else "cuda")
     counts = np.array([700, 5, 40, 0], np.int32)
-    plan = llama.plan_unified(cfg, counts, block_size=BS, tb_tokens=TB, device=device)
+    planner = llama.unified_planner(cfg, block_size=BS, tb_tokens=TB, device=device)
     if case != "bf16_head_dim_128":
-        assert plan is None
+        assert planner is None
         return
+    plan = planner.plan(counts)
     want = plan_ragged_work(counts, kv_heads=2, sms=SMS)
     np.testing.assert_array_equal(plan.items, want.items)
     assert plan.n_partials > 0
+    # a partial slot holds every kv head's TB x groups rows of head_dim + 2
+    assert planner.partial_floats == 2 * TB * 4 * (128 + 2)
 
 
 def test_llama_unified_forward_with_and_without_a_plan():
@@ -416,3 +446,114 @@ def test_llama_unified_forward_with_and_without_a_plan():
             params, cfg, t(token_ids), llama.init_kv_cache(cfg, num_blocks, BS, device="cpu"),
             t(tables), t(ctx), t(token_pos), t(token_slot), t(token_lane),
             *(t(a) for a in meta), t(rows), cos, sin, tb_tokens=TB, plan=bad)
+
+
+# ---------------------------------------------------------------------------
+# the plan at a token bucket's fixed capacity
+# ---------------------------------------------------------------------------
+
+def junk_dead_rows(buffer, caps, rng):
+    """Random rows past the live items and combines (the kernels never read
+    them)."""
+    out = buffer.copy()
+    n_items, n_combines = out[0, 0], out[0, 1]
+    dead = np.r_[np.arange(1 + n_items, 1 + caps.items),
+                 np.arange(1 + caps.items + n_combines, caps.rows)]
+    out[dead] = rng.integers(-5, 1000, (dead.size, 4))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fixed_capacity_plan_matches_plain_jax_and_pallas(case):
+    """The engine's shapes: the worklist at the fixed width tb x max blocks
+    and the plan in a buffer at its bucket's capacity, junk past the live
+    counts.  The walk gives the tight plan's bits, and the plain version's,
+    the JAX function's and the Pallas kernel's outputs."""
+    spec = CASES[case]
+    window = spec.get("window")
+    q, k, v, tables, token_lane, token_pos, ctx = ragged_inputs(
+        spec["spans"], spec["lanes"], heads=spec.get("heads", 8), t_pad=spec.get("t_pad"),
+        hole=spec.get("hole"))
+    fixed = pack_page_meta(token_lane, token_pos, tables, tb_tokens=TB, block_size=BS,
+                           page_slots=TB * tables.shape[1], sliding_window=window)
+    tight = pack_page_meta(token_lane, token_pos, tables, tb_tokens=TB, block_size=BS,
+                           sliding_window=window)
+    planner = ragged_planner(2, SMS)
+    plan = planner.plan(fixed[3])
+    caps = planner.caps(fixed[3].size)
+    assert plan.fits(caps) and plan.caps.items < caps.items  # live counts below capacity
+    buffer = junk_dead_rows(plan.pack(caps), caps, np.random.default_rng(5))
+    ours = split_walk(t(q), t(k), t(v), token_lane, token_pos, fixed, None, window=window,
+                      work=(buffer, caps))
+    want = split_walk(t(q), t(k), t(v), token_lane, token_pos, tight, plan, window=window)
+    assert torch.equal(ours, want)
+    live = token_pos >= 0
+    plain = attn.ragged_paged_attention(t(q), t(k), t(v), t(tables), t(ctx), t(token_lane),
+                                        t(token_pos), sliding_window=window)
+    ref = jax_attn.ragged_paged_attention(
+        *(jnp.asarray(a) for a in (q, k, v, tables, ctx, token_lane, token_pos)),
+        sliding_window=window)
+    pallas = pallas_ragged(*(jnp.asarray(a) for a in (q, k, v, token_lane, token_pos)),
+                           *(jnp.asarray(a) for a in fixed), tb_tokens=TB, interpret=True,
+                           sliding_window=window)
+    for other in (plain, ref, pallas):
+        close(ours, other, live)
+    assert torch.all(ours[~torch.from_numpy(live)] == 0)
+
+
+def test_window_without_a_split_block_walks_at_capacity():
+    """A window whose blocks are all too short to cut, at a bucket's
+    capacity with room for partials and combines (the case a padded plan
+    once failed on: combines past a plan with no partials): the header
+    counts no combine, every block is written by its one item."""
+    spans = [(0, 30, 12), (1, 200, 1), (2, 90, 3)]
+    q, k, v, tables, token_lane, token_pos, ctx = ragged_inputs(spans, 3, t_pad=32)
+    meta = pack_page_meta(token_lane, token_pos, tables, tb_tokens=TB, block_size=BS,
+                          page_slots=TB * tables.shape[1])
+    planner = ragged_planner(2, SMS)
+    caps = planner.caps(meta[3].size)
+    plan = planner.plan(meta[3])
+    assert plan.n_partials == 0 and caps.combines > 0 and caps.partials > 0
+    buffer = plan.pack(caps)
+    np.testing.assert_array_equal(buffer[0], [meta[3].size, 0, 0, 0])
+    ours = split_walk(t(q), t(k), t(v), token_lane, token_pos, meta, None,
+                      work=(junk_dead_rows(buffer, caps, np.random.default_rng(1)), caps))
+    assert not torch.isnan(ours).any()
+    plain = attn.ragged_paged_attention(t(q), t(k), t(v), t(tables), t(ctx), t(token_lane),
+                                        t(token_pos))
+    close(ours, plain, token_pos >= 0)
+
+
+def page_counts(max_blocks=64, max_slots=2048):
+    """Page counts a bucket allows: random, all equal (the split edges), or
+    zeros with one heavy block."""
+    n = st.integers(1, max_blocks)
+    c = st.integers(0, max_slots)
+    return st.one_of(
+        n.flatmap(lambda k: st.lists(c, min_size=k, max_size=k)),
+        st.tuples(n, c).map(lambda kc: [kc[1]] * kc[0]),
+        st.tuples(n, c).map(lambda kc: [kc[1]] + [0] * (kc[0] - 1)),
+    )
+
+
+@settings(max_examples=300, deadline=None)
+@given(counts=page_counts(), kv_heads=st.sampled_from([1, 2, 4, 8]),
+       sms=st.sampled_from([1, 4, 16, 132]))
+def test_planner_never_exceeds_its_capacity(counts, kv_heads, sms):
+    """caps(num_tb) bounds every plan of num_tb blocks: items, combines and
+    partials, whatever their page counts."""
+    planner = ragged_planner(kv_heads, sms)
+    counts = np.asarray(counts, np.int32)
+    caps = planner.caps(counts.size)
+    plan = planner.plan(counts)
+    assert plan.fits(caps), (plan.caps, caps)
+    assert plan.pack(caps).shape == (caps.rows, 4)
+    # the bound does not grow with the worklist's width
+    assert caps.partials <= 4 * planner.target // 3
+
+
+def test_pack_refuses_a_plan_past_its_capacity():
+    plan = plan_ragged_work(np.array([2048], np.int32), kv_heads=1, sms=SMS)
+    assert plan.n_partials > 1
+    with pytest.raises(ValueError, match="ragged work plan: .* does not fit"):
+        plan.pack(WorkCaps(len(plan.items), 1, plan.n_partials - 1))

@@ -8,8 +8,14 @@ summation order over up to 1024 positions).
   holds a key the window can see computes a partial (acc, m, l) in the
   log2 domain, and the partials merge in split order.
 - The ragged MLA kernel (csrc/mla_attention.cu, rtc::): each token block's
-  page worklist is cut into the chunks of ``plan_chunks``; a token keeps the
-  entries of a chunk that it sees, and the chunks' partials merge in order.
+  page worklist is cut into the work items of the host plan
+  (``mla_planner``, read from a buffer of fixed capacity as the kernel
+  reads it, junk past its live counts); an item's entries are walked in
+  lists of at most MAX_CHUNK_PAGES, a token keeping the entries it sees,
+  and a split block's partials merge in slot order.  The planner never
+  exceeds its capacity for any page count a bucket allows (hypothesis),
+  and the partials scratch at every token bucket of a 4096-position
+  engine is that capacity's, far below dense per-chunk partials.
 - The MLA decode and verify window kernel (the table walk, rtc:: in
   csrc/mla_attention.cu): each sequence's block table is cut into the
   chunks of ``plan_table_chunks``, its w-major query rows into the tile
@@ -29,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dynamo_tpu.ops import attention as jax_attn
 from dynamo_tpu.ops.pallas import paged_window_attention_decode as pallas_window
@@ -36,6 +44,7 @@ from dynamo_tpu.ops.pallas.mla_attention import mla_paged_attention_decode as pa
 from dynamo_tpu.ops.pallas.mla_attention import (
     mla_paged_window_attention_decode as pallas_mla_window,
 )
+from dynamo_tpu.ops.pallas.mla_attention import ragged_mla_attention as pallas_ragged_mla
 from dynamo_tpu_torch.ops import attention as attn
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.kernels.mla_attention import (
@@ -45,7 +54,7 @@ from dynamo_tpu_torch.ops.kernels.mla_attention import (
     MAX_GROUP_TILES,
     MIN_CHUNK_PAGES,
     TABLE_MIN_CHUNK_KEYS,
-    plan_chunks,
+    mla_planner,
     plan_table_chunks,
     split_route,
     table_groups,
@@ -214,32 +223,38 @@ H, R, P, MBS = 4, 32, 8, 4
 SCALE = 0.17
 
 
-def split_ragged_mla(q_lat, q_rope, ck, kr, token_lane, token_pos, meta, *, tb, sms=SMS):
-    """The ragged MLA split walk (rtc:: in csrc/mla_attention.cu): chunks
-    of each token block's worklist from plan_chunks; in each chunk a token
-    keeps the entries of its lane at or below its position (in worklist
-    order), a chunk's partial per token, then the merge over the chunks the
-    block's page_count reaches."""
+def split_ragged_mla(q_lat, q_rope, ck, kr, token_lane, token_pos, meta, work, *, tb,
+                     list_len=MAX_CHUNK_PAGES):
+    """The ragged MLA split walk (rtc:: in csrc/mla_attention.cu) over the
+    plan buffer ``work`` = (buffer, capacity), read as the kernels read
+    it: each live item walks its block's entries [first, end), clipped to
+    page_count, in lists of ``list_len`` entries, a token keeping the
+    entries of its lane at or below its position (in worklist order) into
+    one softmax state; a block's only item writes its rows, the items of a
+    split block write partials that its combine merges in slot order.
+    Unwritten rows stay NaN."""
+    buffer, caps = work
     page_phys, page_lane, page_ord, page_count = (torch.from_numpy(a) for a in meta)
     n_tok = q_lat.shape[0]
-    num_tb, slots = page_phys.shape
-    chunks, chunk = plan_chunks(num_tb, tb, H, slots, sms)
-    out = torch.zeros(n_tok, H, R)
-    most_used = 0
-    for blk in range(num_tb):
+    slots = page_phys.shape[1]
+    n_items, n_combines = int(buffer[0, 0]), int(buffer[0, 1])
+    items = buffer[1: 1 + n_items].tolist()
+    combines = buffer[1 + caps.items: 1 + caps.items + n_combines].tolist()
+    out = torch.full((n_tok, H, R), float("nan"))
+    part = {}
+    for blk, first, end, slot in items:
+        assert slot < caps.partials
         count = min(int(page_count[blk]), slots)
-        n_used = -(-count // chunk)
-        most_used = max(most_used, n_used)
+        first, end = min(first, count), min(end, count)
         for tok in range(blk * tb, (blk + 1) * tb):
             lane, pos = int(token_lane[tok]), int(token_pos[tok])
-            parts = []
-            for c in range(max(n_used, 1)):
-                ents = [e for e in range(c * chunk, min(count, (c + 1) * chunk))
-                        if pos >= 0 and int(page_lane[blk, e]) == lane
-                        and int(page_ord[blk, e]) * MBS <= pos]
-                if not ents:
-                    parts.append((torch.zeros(H, R), torch.full((H,), NEG_INF), torch.zeros(H)))
-                    continue
+            ents = [e for base in range(first, end, list_len)
+                    for e in range(base, min(end, base + list_len))
+                    if pos >= 0 and int(page_lane[blk, e]) == lane
+                    and int(page_ord[blk, e]) * MBS <= pos]
+            if not ents:
+                state = (torch.zeros(H, R), torch.full((H,), NEG_INF), torch.zeros(H))
+            else:
                 phys = page_phys[blk, ents].long()
                 ordp = page_ord[blk, ents].long()
                 kpos = (ordp[:, None] * MBS + torch.arange(MBS)).reshape(-1)
@@ -247,9 +262,26 @@ def split_ragged_mla(q_lat, q_rope, ck, kr, token_lane, token_pos, meta, *, tb, 
                 krr = kr[phys].reshape(-1, P)
                 sc = (q_lat[tok] @ ckk.T + q_rope[tok] @ krr.T) * (SCALE * LOG2E)
                 sc = torch.where((kpos <= pos)[None, :], sc, NEG_INF)
-                parts.append(partial(sc, ckk))
-            out[tok] = merge(parts)
-    return out, chunks, most_used
+                state = partial(sc, ckk)
+            if slot < 0:
+                out[tok] = merge([state])
+            else:
+                part[slot, tok] = state
+    for blk, first_slot, n, _ in combines:
+        for tok in range(blk * tb, (blk + 1) * tb):
+            out[tok] = merge([part[s, tok] for s in range(first_slot, first_slot + n)])
+    return out
+
+
+def junk_dead_rows(buffer, caps, rng):
+    """Random rows past the live items and combines (the kernels never read
+    them)."""
+    out = buffer.copy()
+    n_items, n_combines = out[0, 0], out[0, 1]
+    dead = np.r_[np.arange(1 + n_items, 1 + caps.items),
+                 np.arange(1 + caps.items + n_combines, caps.rows)]
+    out[dead] = rng.integers(-5, 1000, (dead.size, 4))
+    return out
 
 
 def mla_inputs(spans, lanes, *, maxb, t_pad=None, tb=8, seed=0):
@@ -273,45 +305,111 @@ def mla_inputs(spans, lanes, *, maxb, t_pad=None, tb=8, seed=0):
 
 
 MLA_CASES = {
-    # eight decode lanes in one token block: one long worklist, many chunks
+    # eight decode lanes in one token block: one long worklist, many items
     "decode_only_one_block": dict(spans=[(i, 40 + 19 * i, 1) for i in range(8)], lanes=8),
     # a span, a second lane's span and decodes that share a block; a pad
     # block at the end
     "mixed_lanes_and_pads": dict(spans=[(0, 0, 21), (1, 90, 5), *((2 + i, 60 + 11 * i, 1)
                                                                   for i in range(5))],
                                  lanes=7, t_pad=40),
+    # one block too short to cut: no partial, no combine, at a capacity with
+    # room for both
+    "no_split_block": dict(spans=[(0, 3, 5), (1, 0, 2)], lanes=2, t_pad=16),
 }
+# a tiny card's SMs, so the tiny worklists split (two tile groups a block)
+MLA_SMS = 8
 
 
+@pytest.mark.parametrize("list_len", [MAX_CHUNK_PAGES, 7])
 @pytest.mark.parametrize("case", sorted(MLA_CASES))
-def test_split_ragged_mla_matches_plain_and_jax(case):
+def test_split_ragged_mla_matches_plain_and_jax(case, list_len):
+    """At the engine's fixed worklist width (tb x max blocks) and the plan's
+    bucket capacity (junk past its live counts): the walk, in lists of
+    ``list_len`` entries, against the plain version, the JAX function and
+    the Pallas kernel in interpret mode, and bitwise against the same plan
+    at its tightest capacity over the tight worklist."""
     spec = MLA_CASES[case]
+    maxb = 64
     q_lat, q_rope, ck, kr, tables, token_lane, token_pos = mla_inputs(
-        spec["spans"], spec["lanes"], maxb=64, t_pad=spec.get("t_pad"))
-    meta = pack_page_meta(token_lane, token_pos, tables, tb_tokens=8, block_size=MBS)
-    ours, chunks, most_used = split_ragged_mla(
-        t(q_lat), t(q_rope), t(ck), t(kr), token_lane, token_pos, meta, tb=8)
-    assert chunks > 1 and most_used > 1  # a worklist spans several chunks
+        spec["spans"], spec["lanes"], maxb=maxb, t_pad=spec.get("t_pad"))
+    fixed = pack_page_meta(token_lane, token_pos, tables, tb_tokens=8, block_size=MBS,
+                           page_slots=8 * maxb)
+    tight = pack_page_meta(token_lane, token_pos, tables, tb_tokens=8, block_size=MBS)
+    planner = mla_planner(8, H, MLA_SMS)
+    plan = planner.plan(fixed[3])
+    caps = planner.caps(fixed[3].size)
+    assert plan.fits(caps) and caps.partials > plan.n_partials and caps.combines > 0
+    work = (junk_dead_rows(plan.pack(caps), caps, np.random.default_rng(3)), caps)
+    args = (t(q_lat), t(q_rope), t(ck), t(kr), token_lane, token_pos)
+    ours = split_ragged_mla(*args, fixed, work, tb=8, list_len=list_len)
+    assert torch.equal(ours, split_ragged_mla(*args, tight, (plan.pack(), plan.caps), tb=8))
+    if case == "no_split_block":
+        assert plan.n_partials == 0 and len(plan.items) == fixed[3].size
+    else:
+        assert len(plan.combines) >= 1 and plan.n_partials > 1  # a worklist cut into items
     live = token_pos >= 0
-    args = (q_lat, q_rope, ck, kr, tables, token_lane, token_pos)
-    plain = attn.ragged_mla_paged_attention(*(t(a) for a in args), scale=SCALE)
-    ref = jax_attn.ragged_mla_paged_attention(*(jnp.asarray(a) for a in args), scale=SCALE)
-    close(ours, plain, live)
-    close(ours, ref, live)
+    mla_args = (q_lat, q_rope, ck, kr, tables, token_lane, token_pos)
+    plain = attn.ragged_mla_paged_attention(*(t(a) for a in mla_args), scale=SCALE)
+    ref = jax_attn.ragged_mla_paged_attention(*(jnp.asarray(a) for a in mla_args), scale=SCALE)
+    pallas = pallas_ragged_mla(
+        *(jnp.asarray(a) for a in (q_lat, q_rope, ck, kr, token_lane, token_pos)),
+        *(jnp.asarray(a) for a in fixed), scale=SCALE, tb_tokens=8, interpret=True)
+    for other in (plain, ref, pallas):
+        close(ours, other, live)
     assert torch.all(ours[~torch.from_numpy(live)] == 0)  # pad rows: zeros
 
 
-@pytest.mark.parametrize("num_tb,tb,heads,slots", [
-    (44, 8, 16, 420), (1, 8, 16, 2048), (1, 8, 16, 4096), (256, 8, 16, 600),
-    (2, 4, 128, 50), (3, 8, 16, 1), (5, 8, 16, 0),
-])
-def test_plan_chunks_covers_the_worklist(num_tb, tb, heads, slots):
-    chunks, chunk = plan_chunks(num_tb, tb, heads, slots, SMS)
-    assert chunks >= 1 and 1 <= chunk <= MAX_CHUNK_PAGES
-    assert chunks * chunk >= slots > (chunks - 1) * chunk or slots == 0
-    # no more chunks than MIN_CHUNK_PAGES entries each allow
-    assert chunks <= max(1, -(-slots // MIN_CHUNK_PAGES))
-    assert plan_chunks(num_tb, tb, heads, slots, SMS) == (chunks, chunk)
+def mla_page_counts(max_blocks=64, max_slots=2048):
+    """Page counts a bucket allows: random, all equal (the split edges), or
+    zeros with one heavy block."""
+    n = st.integers(1, max_blocks)
+    c = st.integers(0, max_slots)
+    return st.one_of(
+        n.flatmap(lambda k: st.lists(c, min_size=k, max_size=k)),
+        st.tuples(n, c).map(lambda kc: [kc[1]] * kc[0]),
+        st.tuples(n, c).map(lambda kc: [kc[1]] + [0] * (kc[0] - 1)),
+    )
+
+
+@settings(max_examples=300, deadline=None)
+@given(counts=mla_page_counts(), heads=st.sampled_from([16, 32, 128]),
+       sms=st.sampled_from([1, 8, 132]))
+def test_mla_planner_never_exceeds_its_capacity(counts, heads, sms):
+    """caps(num_tb) bounds every plan of num_tb blocks (items, combines,
+    partials), whatever their page counts; no block has more items than
+    the combine merges."""
+    planner = mla_planner(8, heads, sms)
+    counts = np.asarray(counts, np.int32)
+    caps = planner.caps(counts.size)
+    plan = planner.plan(counts)
+    assert plan.fits(caps), (plan.caps, caps)
+    assert plan.pack(caps).shape == (caps.rows, 4)
+    assert np.bincount(plan.items[:, 0]).max() <= MAX_CHUNKS
+    assert caps.partials <= 4 * planner.target // 3
+
+
+# the token buckets of a 4096-position DeepSeek-V2-Lite engine on an H100
+# (16 heads, latent 512, 16-position pages, tb 8, 132 SMs) and row 3's
+# partials scratch there: the plan's capacity, 88 slots of 128 rows of 514
+# floats, against dense partials (every chunk of every token block at the
+# fixed worklist width of 8 x 256 entries, chunks of 256 entries)
+DS_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+DS_SCRATCH_BYTES = 88 * 8 * 16 * (512 + 2) * 4  # 23,158,784
+
+
+@pytest.mark.parametrize("bucket", DS_BUCKETS)
+def test_mla_scratch_at_every_bucket(bucket):
+    planner = mla_planner(8, 16, 132, 512)
+    num_tb = bucket // 8
+    caps = planner.caps(num_tb)
+    scratch = planner.scratch_floats(caps) * 4
+    assert scratch == DS_SCRATCH_BYTES
+    # dense partials: at least 8 chunks a token block at the fixed width
+    dense = num_tb * (8 * 256 // MAX_CHUNK_PAGES) * 8 * 16 * (512 + 2) * 4
+    if bucket >= 1024:
+        assert scratch * 10 < dense
+    if bucket == 4096:
+        assert dense == 1_077_936_128 and scratch * 46 < dense
 
 
 # ---------------------------------------------------------------------------
