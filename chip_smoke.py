@@ -91,6 +91,20 @@ Phases (any failure exits non-zero, before the result line):
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
+ 10. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+               at the main paths' shapes (beside the same cases on bf16
+               caches), each within the bf16 tolerances of its plain
+               version and bitwise the same kernel on the cache's bf16
+               values, the split walks' edges on fp8, fp8 under float32
+               queries and a float16 cache (the CUDA-core loops); rows 6-7
+               on one-byte pools byte-exact (a cast scatter of bf16 blocks
+               included); the card's fp8 cast byte-equal to the CPU's; then
+               the Llama-3-8B geometry with int8 weights and an fp8 cache
+               and DeepSeek-V2-Lite with an fp8 cache served over HTTP
+               after warmup() (phase serve's traffic and profile), decode
+               and unified replays bitwise equal to eager, no capture after
+               warmup, stats()'s MFU and bandwidth share; then each with
+               n-gram speculation (the verify kernels on fp8).
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -120,7 +134,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "offload", "kvbm")
+PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "offload", "kvbm",
+          "quant")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -195,6 +210,18 @@ def make_cache(torch, n_blocks, bs, kvh, d, dtype, gen):
     return k, v
 
 
+def narrow(torch, caches, cache_dtype):
+    """``caches`` cast to ``cache_dtype`` as the engine's cache writes cast
+    (``to_cache_dtype``), and the same values in the queries' dtype (exact:
+    every fp8 value is a bf16 value); ``caches`` twice when None."""
+    from dynamo_tpu_torch.ops.attention import to_cache_dtype
+
+    if cache_dtype is None:
+        return caches, caches
+    low = tuple(to_cache_dtype(c, cache_dtype) for c in caches)
+    return low, tuple(c.to(caches[0].dtype) for c in low)
+
+
 def block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen):
     """Distinct random physical pages for every sequence (a context past
     the table fills the whole row)."""
@@ -232,10 +259,13 @@ def window_positions(lens, w, length, window=None):
 
 
 def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
-                window=None, seed=0, timed=True, max_blocks=None):
+                window=None, seed=0, timed=True, max_blocks=None, cache_dtype=None):
     """Paged GQA attention of ``w`` queries a sequence (contexts ``lens``
     include the window's last token): the decode wrapper at w = 1, the
-    window wrapper (speculative verify) above it."""
+    window wrapper (speculative verify) above it.  With ``cache_dtype``
+    (fp8) the cache is narrowed to it, and the kernel on it must give the
+    bits of the same kernel on its values in the queries' dtype
+    (``equals_wide_cache``)."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
@@ -247,12 +277,13 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
     b = len(lens)
     max_blocks = max_blocks or -(-max(lens) // bs)
     n_blocks = sum(min(-(-n // bs), max_blocks) for n in lens) + 8
-    k, v = make_cache(torch, n_blocks, bs, kvh, d, dtype, gen)
+    (k, v), (k16, v16) = narrow(torch, make_cache(torch, n_blocks, bs, kvh, d, dtype, gen),
+                                cache_dtype)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn((b, w, h, d), generator=gen, device="cuda").to(dtype)
 
-    def kernel():
+    def kernel(k=k, v=v):
         if w == 1:
             return paged_attention_decode(q[:, 0], k, v, tables, ctx, sliding_window=window)[:, None]
         return paged_window_attention_decode(q, k, v, tables, ctx, sliding_window=window)
@@ -270,18 +301,21 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
            "finite": bool(torch.isfinite(out).all()),
            "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
            "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8))}
+    if cache_dtype is not None:
+        res["equals_wide_cache"] = torch.equal(out.view(torch.uint8),
+                                               kernel(k16, v16).view(torch.uint8))
     if not timed:
         return res
     length = max_blocks * bs
     per_query, union = window_positions(lens, w, length, window)
     elem = torch.finfo(dtype).bits // 8
-    bytes_ = (sum(union) * kvh * d * 2 * elem + 2 * q.numel() * elem
+    bytes_ = (sum(union) * kvh * d * 2 * k.element_size() + 2 * q.numel() * elem
               + tables.numel() * 4 + ctx.numel() * 4)
     flops = 4 * per_query * h * d
     # library yardstick: one SDPA call over K/V gathered per sequence
     groups = h // kvh
-    kg = k[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
-    vg = v[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
+    kg = k16[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
+    vg = v16[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
     pos = torch.arange(length, device="cuda")[None, None, :]
     q_pos = (ctx[:, None] - w + torch.arange(w, device="cuda")[None, :])[:, :, None]
     mask = pos <= q_pos
@@ -351,7 +385,8 @@ def fixed_work(torch, planner, counts, t, tb, seed=0):
 
 
 def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
-                dtype=None, window=None, seed=1, timed=True, library="gathered"):
+                dtype=None, window=None, seed=1, timed=True, library="gathered",
+                cache_dtype=None):
     """Ragged GQA attention over ``spans`` (see ``span_lens``) as the unified
     graph runs it: the worklist at the engine's fixed width (tb x
     ENGINE_MAX_BLOCKS), the step's work plan (``ragged_planner``, as the
@@ -362,7 +397,7 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     version.  Library yardstick: one SDPA call over K/V gathered per token
     (``gathered``), or one causal SDPA over the only lane's contiguous K/V
     (``causal``, for a single span from position 0, where the per-token
-    gather would not fit)."""
+    gather would not fit).  ``cache_dtype`` as in ``decode_case``."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
@@ -375,7 +410,8 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     lanes = len(lens)
     max_blocks = -(-max(lens) // bs)
     n_blocks = sum(-(-n // bs) for n in lens) + 8
-    k, v = make_cache(torch, n_blocks, bs, kvh, d, dtype, gen)
+    (k, v), (k16, v16) = narrow(torch, make_cache(torch, n_blocks, bs, kvh, d, dtype, gen),
+                                cache_dtype)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     token_lane, token_pos = span_tokens(torch, spans, lanes, tb, t_pad)
     t = token_lane.shape[0]
@@ -396,7 +432,7 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     token_lane, token_pos = token_lane.cuda(), token_pos.cuda()
     q = torch.randn((t, h, d), generator=gen, device="cuda").to(dtype)
 
-    def call(p, m=meta_dev):
+    def call(p, m=meta_dev, k=k, v=v):
         return ragged_paged_attention(
             q, k, v, tables, token_lane, token_pos, *m, tb_tokens=tb,
             sliding_window=window, plan=p,
@@ -439,6 +475,9 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
            "items": len(plan.items), "partials": plan.n_partials,
            "caps": [caps.items, caps.combines, caps.partials],
            "worklist_entries": int(meta[3].sum()), "page_slots": fixed[0].shape[1]}
+    if cache_dtype is not None:
+        res["equals_wide_cache"] = torch.equal(
+            out.view(torch.uint8), call(work, fixed_dev, k16, v16).view(torch.uint8))
     if len(plan.combines):
         # a planted fault: the first split block's combine leaves out its
         # last partial (the constructor would refuse such a plan)
@@ -454,14 +493,14 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     vis = [min(p + 1, window) if window else p + 1 for p in pos_h if p >= 0]
     pages = {(int(meta[0][tt, j])) for tt in range(meta[3].shape[0])
              for j in range(int(meta[3][tt]))}
-    bytes_ = (len(pages) * bs * kvh * d * 2 * elem + 2 * q.numel() * elem
+    bytes_ = (len(pages) * bs * kvh * d * 2 * k.element_size() + 2 * q.numel() * elem
               + sum(m.size * 4 for m in meta) + 2 * t * 4)
     flops = 4 * sum(vis) * h * d
     groups = h // kvh
     length = max_blocks * bs
     if library == "causal":  # one lane, one span from position 0
-        kc = k[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
-        vc = v[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
+        kc = k16[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
+        vc = v16[tables[0].long()].reshape(length, kvh, d)[:t].transpose(0, 1)
         kc = kc.repeat_interleave(groups, 0)[None]
         vc = vc.repeat_interleave(groups, 0)[None]
         q4 = q.transpose(0, 1)[None]                  # [1, h, t, d]
@@ -470,9 +509,9 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
             return F.scaled_dot_product_attention(q4, kc, vc, is_causal=True)
     else:  # one SDPA call, K/V gathered per token's lane
         lane_c = token_lane.clamp(max=lanes - 1).long()
-        kg = (k[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
+        kg = (k16[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
               .transpose(1, 2).repeat_interleave(groups, 1))
-        vg = (v[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
+        vg = (v16[tables.long()].reshape(lanes, length, kvh, d)[lane_c]
               .transpose(1, 2).repeat_interleave(groups, 1))
         kvp = torch.arange(length, device="cuda")[None, :]
         mask = kvp <= token_pos[:, None]
@@ -512,12 +551,14 @@ def mla_caches(torch, n_blocks, bs, r, p, dtype, gen):
     return ck, kr
 
 
-def mla_bound(torch, *, pages, bs, r, p, h, dtype, q_rows, meta_bytes, visible):
-    """Bytes: each visible page's latent and rope rows once, the queries
-    (q_lat f32, q_rope), the f32 output and the metadata; flops: two-part
-    scores and the latent context, 2 (R + P) + 2 R per (row, position)."""
+def mla_bound(torch, *, pages, bs, r, p, h, dtype, q_rows, meta_bytes, visible,
+              cache_elem=None):
+    """Bytes: each visible page's latent and rope rows once (``cache_elem``
+    bytes an element, default the queries'), the queries (q_lat f32,
+    q_rope), the f32 output and the metadata; flops: two-part scores and
+    the latent context, 2 (R + P) + 2 R per (row, position)."""
     elem = torch.finfo(dtype).bits // 8
-    bytes_ = (pages * bs * (r + p) * elem + q_rows * h * (r * 4 + p * elem)
+    bytes_ = (pages * bs * (r + p) * (cache_elem or elem) + q_rows * h * (r * 4 + p * elem)
               + q_rows * h * r * 4 + meta_bytes)
     flops = visible * h * (2 * (r + p) + 2 * r)
     t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -526,11 +567,12 @@ def mla_bound(torch, *, pages, bs, r, p, h, dtype, q_rows, meta_bytes, visible):
 
 
 def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, seed=0,
-                    timed=True, max_blocks=None):
+                    timed=True, max_blocks=None, cache_dtype=None):
     """Absorbed MLA attention of ``w`` queries a sequence at contexts
     ``lens`` (including the window's last token; 0 = an idle lane, which the
     kernel must write as zeros): the decode kernel at w = 1, the window
-    kernel (speculative verify) above it."""
+    kernel (speculative verify) above it.  ``cache_dtype`` as in
+    ``decode_case``."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
@@ -545,14 +587,15 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
     b = len(lens)
     max_blocks = max_blocks or max(1, -(-max(lens) // bs))
     n_blocks = sum(min(-(-n // bs), max_blocks) for n in lens) + 8
-    ck, kr = mla_caches(torch, n_blocks, bs, r, p, dtype, gen)
+    (ck, kr), (ck16, kr16) = narrow(torch, mla_caches(torch, n_blocks, bs, r, p, dtype, gen),
+                                    cache_dtype)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q_lat = torch.randn((b, w, h, r), generator=gen, device="cuda")
     q_rope = torch.randn((b, w, h, p), generator=gen, device="cuda").to(dtype)
     scale = V2_LITE_ATTN_SCALE
 
-    def kernel():
+    def kernel(ck=ck, kr=kr):
         if w == 1:
             return mla_paged_attention_decode(
                 q_lat[:, 0], q_rope[:, 0], ck, kr, tables, ctx, scale=scale)[:, None]
@@ -574,19 +617,24 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
            "finite": bool(torch.isfinite(out).all()),
            "pads_zero": bool((out[~live] == 0).all()) if (~live).any() else True,
            "deterministic": torch.equal(out.view(torch.uint8), again.view(torch.uint8))}
+    if cache_dtype is not None:
+        res["equals_wide_cache"] = torch.equal(out.view(torch.uint8),
+                                               kernel(ck16, kr16).view(torch.uint8))
     if not timed:
         return res
     length = max_blocks * bs
     visible, union = window_positions(lens, w, length)
     pages = sum(-(-n // bs) for n in union)
     res.update(mla_bound(torch, pages=pages, bs=bs, r=r, p=p, h=h, dtype=dtype, q_rows=b * w,
-                         meta_bytes=tables.numel() * 4 + b * 4, visible=visible))
+                         meta_bytes=tables.numel() * 4 + b * 4, visible=visible,
+                         cache_elem=ck.element_size()))
     # library yardstick: one SDPA call, q = q_lat | q_rope, K = ck | kr and
     # V = ck gathered per sequence beforehand, all in the cache dtype
     # (every head shares the one latent "kv head": the w * h query rows ride
     # the query axis of a single SDPA head, each masked to its position)
-    kg = torch.cat([ck[tables.long()], kr[tables.long()]], dim=-1).reshape(b, 1, length, r + p)
-    vg = ck[tables.long()].reshape(b, 1, length, r)
+    kg = torch.cat([ck16[tables.long()], kr16[tables.long()]], dim=-1).reshape(
+        b, 1, length, r + p)
+    vg = ck16[tables.long()].reshape(b, 1, length, r)
     q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1).reshape(b, 1, w * h, r + p)
     q_pos = (ctx[:, None] - w + torch.arange(w, device="cuda")[None, :]).repeat_interleave(h, 1)
     mask = (torch.arange(length, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
@@ -600,13 +648,14 @@ def mla_decode_case(torch, *, lens, w=1, h=16, r=512, p=64, bs=16, dtype=None, s
 
 
 def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
-                    dtype=None, seed=1, timed=True):
+                    dtype=None, seed=1, timed=True, cache_dtype=None):
     """Ragged MLA attention over ``spans`` (see ``span_lens``) as the unified
     graph runs it: the worklist at the engine's fixed width, the step's work
     plan (``mla_planner``) at its token bucket's capacity with junk past the
     live counts; launched twice (the same bits), against the same plan at
     its tightest capacity over the tightest worklist (the same bits) and
-    without a plan (one item a token block)."""
+    without a plan (one item a token block).  ``cache_dtype`` as in
+    ``decode_case``."""
     from torch.nn import functional as F
 
     from dynamo_tpu_torch.ops import attention as plain
@@ -619,7 +668,8 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     lanes = len(lens)
     max_blocks = -(-max(lens) // bs)
     n_blocks = sum(-(-n // bs) for n in lens) + 8
-    ck, kr = mla_caches(torch, n_blocks, bs, r, p, dtype, gen)
+    (ck, kr), (ck16, kr16) = narrow(torch, mla_caches(torch, n_blocks, bs, r, p, dtype, gen),
+                                    cache_dtype)
     tables = block_tables_for(torch, lens, bs, max_blocks, n_blocks, gen)
     token_lane, token_pos = span_tokens(torch, spans, lanes, tb, t_pad)
     t = token_lane.shape[0]
@@ -638,7 +688,7 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     q_rope = torch.randn((t, h, p), generator=gen, device="cuda").to(dtype)
     scale = V2_LITE_ATTN_SCALE
 
-    def call(pl, m=meta_dev):
+    def call(pl, m=meta_dev, ck=ck, kr=kr):
         return ragged_mla_attention(q_lat, q_rope, ck, kr, tables, token_lane, token_pos,
                                     *m, scale=scale, tb_tokens=tb, plan=pl)
 
@@ -671,6 +721,9 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
            "scratch_mb": planner.scratch_floats(caps) * 4 / 1e6,
            "tokens": t, "page_slots": fixed[0].shape[1],
            "worklist_entries": int(meta[3].sum())}
+    if cache_dtype is not None:
+        res["equals_wide_cache"] = torch.equal(
+            out.view(torch.uint8), call(work, fixed_dev, ck16, kr16).view(torch.uint8))
     if not timed:
         return res
     pages = {(int(meta[0][tt, j])) for tt in range(meta[3].shape[0])
@@ -678,14 +731,14 @@ def mla_ragged_case(torch, *, spans, h=16, r=512, p=64, bs=16, tb=8, t_pad=None,
     visible = sum(q + 1 for q in token_pos.cpu().tolist() if q >= 0)
     res.update(mla_bound(torch, pages=len(pages), bs=bs, r=r, p=p, h=h, dtype=dtype,
                          q_rows=t, meta_bytes=sum(m.size * 4 for m in meta) + 2 * t * 4,
-                         visible=visible))
+                         visible=visible, cache_elem=ck.element_size()))
     # library yardstick: one SDPA call, K = ck | kr and V = ck gathered per
     # token's lane, all in the cache dtype
     length = max_blocks * bs
     lane_c = token_lane.clamp(max=lanes - 1).long()
-    kg = torch.cat([ck[tables.long()], kr[tables.long()]], dim=-1).reshape(
+    kg = torch.cat([ck16[tables.long()], kr16[tables.long()]], dim=-1).reshape(
         lanes, length, r + p)[lane_c][:, None]
-    vg = ck[tables.long()].reshape(lanes, length, r)[lane_c][:, None]
+    vg = ck16[tables.long()].reshape(lanes, length, r)[lane_c][:, None]
     q4 = torch.cat([q_lat.to(dtype), q_rope], dim=-1)[:, None]
     mask = (torch.arange(length, device="cuda")[None, :] <= token_pos[:, None])[:, None, None, :]
     res.update(
@@ -1651,7 +1704,7 @@ async def stream_chat(session, port: int, model: str, content: str, max_tokens: 
 
 
 async def serve_model(model_dir: Path, model: str, *, overrides=None,
-                      short_prompts=None, profile=True) -> dict:
+                      short_prompts=None, profile=True, inspect=None) -> dict:
     import aiohttp
 
     from dynamo_tpu_torch.serve import serve_http
@@ -1691,10 +1744,15 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
             prof["wall_ms_per_step_profiler_off"] = quiet["wall_ms_per_step"]
             prof["graph"] = {k: v for k, v in handle.engine.stats().items()
                              if k.startswith("decode_graph")}
+        checked = None
+        if inspect is not None:  # on the served engine, its thread stopped
+            handle.engine.stop()
+            checked = inspect(handle.engine)
     finally:
         await handle.shutdown()
     return {"results": results, "wall_s": wall, "counts": counts,
-            "stats": stats, "run": run, "load_s": load_s, "profile": prof}
+            "stats": stats, "run": run, "load_s": load_s, "profile": prof,
+            "inspect": checked}
 
 
 def port_kernel_names() -> list[str]:
@@ -1817,7 +1875,8 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
         print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
               flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
-    return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"]}
+    return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"],
+            "stats": out["stats"], "profile": out["profile"], "inspect": out["inspect"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1912,8 +1971,8 @@ def replay_vs_eager(torch, engine) -> dict:
                             .reshape(-1)).to(dev)
     views = {k: cache_rows(leaf) for k, leaf in engine.cache.items()}
 
-    def written():
-        return {k: v[rows].clone() for k, v in views.items()}
+    def written():  # one-byte caches are indexed through their uint8 views
+        return {k: v.view(torch.uint8)[rows].clone() for k, v in views.items()}
 
     out = {}
     for noise in (False, True):
@@ -2121,7 +2180,7 @@ def unified_replay_vs_eager(torch, engine) -> dict:
 
             def state():
                 return (ug.out_tokens.clone(), ug.out_lps.clone(),
-                        {k: v[rows].clone() for k, v in views.items()},
+                        {k: v.view(torch.uint8)[rows].clone() for k, v in views.items()},
                         engine._gen_counts.clone(), engine._prompt_counts.clone(),
                         d.feedback.clone())
 
@@ -2524,6 +2583,296 @@ def phase_spec(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase quant: fp8 KV caches and int8 weight-only projections
+# ---------------------------------------------------------------------------
+
+QUANT_CACHES = ("float8_e4m3fn", "float8_e5m2")
+QUANT_LLAMA = dict(kv_cache_dtype="fp8", quantize="int8")
+QUANT_MLA = dict(kv_cache_dtype="fp8")
+
+
+def check_wide(name: str, res: dict) -> None:
+    """A kernel on an fp8 cache gives the bits of the same kernel on the
+    cache's values in bf16."""
+    if not res["equals_wide_cache"]:
+        raise AssertionError(f"{name}: the kernel on the fp8 cache differs from the same "
+                             f"kernel on its bf16 values")
+
+
+def fp8_copy_case(torch, *, shape, n, axis, cache_dtype, seed=0) -> dict:
+    """Rows 6-7 on a one-byte pool (an fp8 cache leaf): gather and scatter
+    byte-exact against their plain versions, the rest of the pool
+    unchanged, and the scatter of bf16 blocks cast to the pool's dtype as
+    the plain version casts them; times beside the same leaf in bf16."""
+    from dynamo_tpu_torch.ops import block_copy as plain
+    from dynamo_tpu_torch.ops.attention import to_cache_dtype
+    from dynamo_tpu_torch.ops.kernels import gather_blocks, scatter_blocks
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n_pool = shape[axis]
+    pool = to_cache_dtype(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16),
+                          cache_dtype)
+    ids = torch.randperm(n_pool, generator=gen, device="cuda")[:n].tolist()
+    blk_shape = list(shape)
+    blk_shape[axis] = n
+    wide = torch.randn(blk_shape, generator=gen, device="cuda").to(torch.bfloat16) * 300
+    blocks = to_cache_dtype(wide, cache_dtype)
+
+    def raw(t):
+        return t.view(torch.uint8)
+
+    out = gather_blocks(pool, ids, axis=axis)
+    ref = plain.gather_blocks(pool, ids, axis)
+    res = {"gather_equal": torch.equal(raw(out), raw(ref))}
+    for name, src in (("scatter", blocks), ("scatter_cast", wide)):
+        got = scatter_blocks(pool.clone(), src, ids, axis=axis)
+        want = plain.scatter_blocks(pool.clone(), src, ids, axis)
+        rest = torch.ones(n_pool, dtype=torch.bool, device="cuda")
+        rest[ids] = False
+        keep = rest.nonzero()[:, 0]
+        res[f"{name}_equal"] = torch.equal(raw(got), raw(want))
+        res[f"{name}_rest_unchanged"] = torch.equal(raw(got).index_select(axis, keep),
+                                                    raw(pool).index_select(axis, keep))
+    torch.cuda.synchronize()
+    moved = out.numel() * out.element_size()
+    ids_dev = torch.tensor(ids, device="cuda")
+    target = pool.clone()
+    res.update(
+        row_bytes=moved // n, bytes=2 * moved, bound_ms=2 * moved / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        gather_ms=time_ms(lambda: gather_blocks(pool, ids, axis=axis), 20),
+        gather_device_ms=device_ms(lambda: gather_blocks(pool, ids, axis=axis)),
+        gather_plain_ms=time_ms(lambda: plain.gather_blocks(pool, ids, axis), 5),
+        gather_library_ms=time_ms(lambda: torch.index_select(raw(pool), axis, ids_dev), 20),
+        scatter_ms=time_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis), 20),
+        scatter_device_ms=device_ms(lambda: scatter_blocks(target, blocks, ids, axis=axis)),
+        scatter_plain_ms=time_ms(lambda: plain.scatter_blocks(target, blocks, ids, axis), 5),
+        scatter_library_ms=time_ms(lambda: raw(target).index_copy_(axis, ids_dev, raw(blocks)),
+                                   20),
+    )
+    return res
+
+
+def fp8_cast_check(torch) -> dict:
+    """The cache writes' cast (``to_cache_dtype``) on the card gives the
+    CPU's bytes: every bf16 value and a float32 sweep (subnormals, 448-480,
+    large values, infinities, NaN), to both fp8 formats."""
+    from dynamo_tpu_torch.ops.attention import to_cache_dtype
+
+    every_bf16 = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    special = torch.tensor([0.0, -0.0, 2.0**-10, 2.0**-9, 2.0**-17, 1.0, 448.0, 449.0, 464.0,
+                            465.0, 480.0, -480.0, 57344.0, 65536.0, 1e30, math.inf, -math.inf,
+                            math.nan])
+    gen = torch.Generator().manual_seed(0)
+    rand = torch.randint(-2**31, 2**31, (1 << 20,), generator=gen, dtype=torch.int32)
+    sweep = torch.cat([special, rand.view(torch.float32)])
+    out = {}
+    for name in QUANT_CACHES:
+        dt = getattr(torch, name)
+        for src_name, src in (("bf16", every_bf16), ("f32", sweep)):
+            cpu = to_cache_dtype(src, dt).view(torch.uint8)
+            card = to_cache_dtype(src.cuda(), dt).cpu().view(torch.uint8)
+            out[f"{name}_{src_name}"] = {
+                "values": src.numel(), "bytes_equal": torch.equal(cpu, card),
+                # torch's own cast on the card, beside the CPU's (no check)
+                "torch_cast_differs": int((src.to(dt).view(torch.uint8)
+                                           != src.cuda().to(dt).cpu().view(torch.uint8)).sum()),
+            }
+    return out
+
+
+def quant_kernels(torch) -> dict:
+    """Rows 1-5 on fp8 e4m3fn and e5m2 caches at the main paths' shapes
+    (each case beside the same case on a bf16 cache): within the bf16
+    tolerances of the float32 plain version, bitwise the same kernel on the
+    cache's bf16 values, two launches the same bits; rows 6-7 on one-byte
+    pools byte-exact; the card's fp8 cast the CPU's."""
+    rng = random.Random(88)
+    dec32 = [rng.randint(1, 2048) for _ in range(32)]
+    dec32[:2] = [2047, 2048]
+    ver8 = [rng.randint(5, 2048) for _ in range(8)]
+    ver8[:3] = [2047, 2048, 2050]
+    mla32 = [rng.randint(1, 2048) for _ in range(32)]
+    mla32[:3] = [2047, 2048, 0]
+    mla8 = [rng.randint(5, 2048) for _ in range(8)]
+    mla8[:3] = [2047, 2048, 0]
+    mix = [(0, 0, 300), (1, 512, 37), *((2 + i, rng.randint(100, 2047), 1) for i in range(6))]
+    builders = {
+        "decode_b32": (lambda c: decode_case(torch, lens=dec32, seed=32, cache_dtype=c),
+                       BF16_ATOL, False),
+        "verify_w5_b8": (lambda c: decode_case(torch, lens=ver8, w=5, seed=38, max_blocks=128,
+                                               cache_dtype=c), BF16_ATOL, False),
+        "ragged_mix": (lambda c: ragged_case(torch, spans=mix, t_pad=352, cache_dtype=c),
+                       BF16_ATOL, True),
+        "mla_decode_b32": (lambda c: mla_decode_case(torch, lens=mla32, seed=42, cache_dtype=c),
+                           MLA_ATOL, False),
+        "mla_window_b8": (lambda c: mla_decode_case(torch, lens=mla8, w=5, seed=58,
+                                                    max_blocks=128, cache_dtype=c),
+                          MLA_ATOL, False),
+        "mla_ragged_mix": (lambda c: mla_ragged_case(torch, spans=mix, t_pad=352, cache_dtype=c),
+                           MLA_ATOL, False),
+    }
+    cases: dict[str, dict] = {}
+    for name, (build, atol, ragged) in builders.items():
+        for cache in (None, *QUANT_CACHES):
+            key = f"{name}_{cache or 'bfloat16'}"
+            cases[key] = res = build(getattr(torch, cache) if cache else None)
+            if ragged:
+                check_ragged(f"quant {key}", res)
+            else:
+                check_case(f"quant {key}", res, atol)
+            if cache:
+                check_wide(f"quant {key}", res)
+    # the split walks' edges on fp8: one lane at ctx 16 in a 2048-position
+    # table, idle lanes, a 64-row GQA window, a 16-query MLA window, a head
+    # dim of 64, eight decode lanes up to 4096 in one ragged block
+    dec8 = [(i, n - 1, 1) for i, n in enumerate([4096, 4095, 3000, 17, 1, 2048, 700, 64])]
+    for cache in QUANT_CACHES:
+        dt = getattr(torch, cache)
+        for key, res, atol in (
+            ("decode_ctx16_table2048", decode_case(torch, lens=[16], seed=12, timed=False,
+                                                   max_blocks=128, cache_dtype=dt), BF16_ATOL),
+            ("decode_idle_lanes", decode_case(torch, lens=[2047, 0, 16, 0, 700], seed=13,
+                                              timed=False, cache_dtype=dt), BF16_ATOL),
+            ("verify_w16_rows64", decode_case(torch, lens=[2047, 700, 33, 0, 2050], w=16,
+                                              seed=14, timed=False, max_blocks=128,
+                                              cache_dtype=dt), BF16_ATOL),
+            ("decode_head_dim_64", decode_case(torch, lens=[2047, 300, 17], d=64, seed=8,
+                                               timed=False, cache_dtype=dt), BF16_ATOL),
+            ("mla_window_w16", mla_decode_case(torch, lens=[2047, 700, 33, 0, 2050], w=16,
+                                               seed=18, timed=False, max_blocks=128,
+                                               cache_dtype=dt), MLA_ATOL),
+            ("mla_ragged_decode8", mla_ragged_case(torch, spans=dec8, t_pad=8, timed=False,
+                                                   cache_dtype=dt), MLA_ATOL),
+        ):
+            check_case(f"quant {key}_{cache}", res, atol)
+            check_wide(f"quant {key}_{cache}", res)
+            cases[f"{key}_{cache}"] = res
+        for key, spans, d in (("ragged_decode8", dec8, 128), ("ragged_head_dim_64", mix, 64)):
+            res = ragged_case(torch, spans=spans, d=d, t_pad=8 if spans is dec8 else 352,
+                              timed=False, cache_dtype=dt)
+            check_ragged(f"quant {key}_{cache}", res)
+            check_wide(f"quant {key}_{cache}", res)
+            cases[f"{key}_{cache}"] = res
+        # the CUDA-core loops convert an fp8 cache on load: float32 queries
+        # at head dim 16 and the tiny_mla widths
+        small = decode_case(torch, lens=[5, 17, 29, 64], h=4, kvh=2, d=16, dtype=torch.float32,
+                            seed=7, timed=False, cache_dtype=dt)
+        check_case(f"quant decode head dim 16 fp32 queries, {cache} cache", small, F32_ATOL)
+        small_m = mla_ragged_case(torch, spans=[(0, 4, 1), (1, 8, 9), (2, 28, 1)], h=4, r=32,
+                                  p=8, dtype=torch.float32, t_pad=16, timed=False, cache_dtype=dt)
+        check_case(f"quant mla ragged tiny_mla fp32 queries, {cache} cache", small_m, F32_ATOL)
+    # a float16 cache under bf16 queries takes the CUDA-core loop
+    f16 = decode_case(torch, lens=[2047, 300, 17], seed=9, timed=False,
+                      cache_dtype=torch.float16)
+    check_case("quant decode bf16 queries, float16 cache (CUDA-core loop)", f16, BF16_ATOL)
+    copies = {}
+    for name, shape in (("copy_llama_leaf", (32, 1024, 16, 8, 128)),
+                        ("copy_mla_latent", (27, 1024, 16, 1, 512))):
+        for cache in QUANT_CACHES:
+            res = fp8_copy_case(torch, shape=shape, n=93, axis=1,
+                                cache_dtype=getattr(torch, cache), seed=len(copies))
+            shown = {k: (float(f"{v:.6g}") if isinstance(v, float) else v) for k, v in res.items()}
+            log(f"[quant] {name} {cache} (bytes): {json.dumps(shown)}")
+            if not all(v for k, v in res.items() if k.endswith(("_equal", "_unchanged"))):
+                raise AssertionError(f"{name} {cache}: a block copy differs from its plain "
+                                     f"version: {res}")
+            copies[f"{name}_{cache}"] = res
+    casts = fp8_cast_check(torch)
+    log(f"[quant] fp8 casts, card against CPU: {json.dumps(casts)}")
+    if not all(c["bytes_equal"] for c in casts.values()):
+        raise AssertionError(f"the card's fp8 cache cast differs from the CPU's: {casts}")
+    timed = [k for k, v in cases.items() if "ms" in v]
+    print(json.dumps({"smoke_quant_kernels": {
+        k: {key: cases[k].get(key) for key in (
+            "max_abs_err", "max_rel_err", "equals_wide_cache", "ms", "device_ms", "plain_ms",
+            "library_ms", "bytes", "bound_ms", "bound_by")} for k in timed},
+        "copies": copies}), flush=True)
+    return {"cases": cases, "copies": copies, "casts": casts}
+
+
+def quant_replay_checks(torch, engine) -> dict:
+    """On a served quantized engine (its thread stopped): a decode window
+    and unified windows at UNIFIED_CHECK_BUCKETS by graph replay bitwise
+    equal to the same steps run eagerly (tokens, logprobs, the fp8 K/V rows,
+    the counts, logits), with no graph captured after warmup."""
+    replay, step_slots = replay_vs_eager(torch, engine)
+    replay["logits"] = forward_replay_vs_eager(torch, engine, step_slots)
+    unified = unified_replay_vs_eager(torch, engine)
+    stats = engine.stats()
+    return {"decode": replay, "unified": unified,
+            "captured_after_warmup": stats["unified_graphs_captured_after_warmup"]
+            + stats["decode_graphs_captured_after_warmup"],
+            "pool_mb": stats["unified_graph_pool_mb"] + stats["decode_graph_pool_mb"]}
+
+
+def check_replays(tag: str, checked: dict) -> None:
+    for mode in ("greedy", "sampled"):
+        if not all(checked["decode"][mode].values()):
+            raise AssertionError(f"{tag}: decode replay and eager differ ({mode}): "
+                                 f"{checked['decode'][mode]}")
+    if not checked["decode"]["logits"]["bitwise"]:
+        raise AssertionError(f"{tag}: replayed decode logits differ: {checked['decode']}")
+    for key, res in checked["unified"].items():
+        if key.endswith(("_greedy", "_sampled")) and not all(res.values()):
+            raise AssertionError(f"{tag}: unified replay and eager differ ({key}): {res}")
+        if key.endswith("_logits") and not res["bitwise"]:
+            raise AssertionError(f"{tag}: replayed unified logits differ ({key}): {res}")
+    if checked["captured_after_warmup"]:
+        raise AssertionError(f"{tag}: graphs captured after warmup: {checked}")
+
+
+def phase_quant(torch, card: str) -> dict:
+    """The quantized paths on the card: the kernels over fp8 caches
+    (``quant_kernels``), then the Llama-3-8B geometry with int8 weights and
+    an fp8 cache and the DeepSeek-V2-Lite config with an fp8 cache, each
+    served over HTTP after ``warmup()`` (the counted traffic of phase serve,
+    the decode profile, the replays against eager, MFU and bandwidth share
+    from ``stats()``), then each again with n-gram speculation (the verify
+    kernels on the fp8 cache)."""
+    out = {"kernels": quant_kernels(torch)}
+    for key, model, config, overrides, path, spec_path in (
+        ("llama", "llama3-8b-quant", LLAMA3_8B, QUANT_LLAMA, LLAMA_PATH, LLAMA_SPEC_PATH),
+        ("mla", "deepseek-v2-lite-quant", DEEPSEEK_V2_LITE, QUANT_MLA, MLA_PATH, MLA_SPEC_PATH),
+    ):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = phase_serve(card, f"quant:{key}", model, config, path, overrides=overrides,
+                          inspect=lambda engine: quant_replay_checks(torch, engine))
+        check_replays(f"quant:{key}", res["inspect"])
+        stats = res["stats"]
+        if stats["kv_cache_dtype"] != "float8_e4m3fn" or stats["quantize"] != overrides.get(
+                "quantize"):
+            raise AssertionError(f"quant:{key}: served {stats['kv_cache_dtype']} / "
+                                 f"{stats['quantize']}, not {overrides}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = phase_serve(card, f"quant:{key}:spec", f"{model}-spec", config, spec_path,
+                           overrides={**overrides, **SPEC}, short_prompts=SPEC_PROMPTS,
+                           profile=False)
+        if spec["run"]["spec_verify_steps_total"] <= 0:
+            raise AssertionError(f"quant:{key}: no verify step ran: {spec['run']}")
+        line = {
+            "model": model, "card": card, **overrides, "e2e": res["e2e"],
+            "profile": {k: res["profile"].get(k) for k in (
+                "wall_ms_per_step", "wall_ms_per_step_profiler_off", "device_ms_per_step",
+                "device_idle_share", "port_kernels_ms_per_step", "top_kernels_ms_per_step")},
+            "mfu_perc": stats["mfu_perc"], "bandwidth_util_perc": stats["bandwidth_util_perc"],
+            "goodput_tokens_per_second": stats["goodput_tokens_per_second"],
+            "model_flops_total": stats["model_flops_total"],
+            "model_bytes_total": stats["model_bytes_total"],
+            "graph_pool_mb": res["inspect"]["pool_mb"], "warmup_s": stats["warmup_s"],
+            "launches": res["launched"], "spec_launches": spec["launched"],
+            "replays_bitwise": True,
+        }
+        print(json.dumps({"smoke_quant": line}), flush=True)
+        out[key] = res
+        out[f"{key}_spec"] = spec
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 7-8: the KV offload tiers
 # ---------------------------------------------------------------------------
 
@@ -2856,7 +3205,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = mla = overlap = spec = offload = None
+    kinfo = serve = mla = overlap = spec = offload = quant = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -2892,6 +3241,8 @@ def main() -> int:
                 "deepseek-v2-lite-offload")
         if "kvbm" in phases:
             run("kvbm", phase_kvbm, torch, card)
+        if "quant" in phases:
+            quant = run("quant", phase_quant, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
@@ -2901,7 +3252,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, overlap, spec, offload):
+    if None not in (kinfo, serve, mla, overlap, spec, offload, quant):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -2944,6 +3295,41 @@ def main() -> int:
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "device_ms": c.get("device_ms", "not measured"), "case": case,
+            })
+        # rows 1-5 on the fp8 e4m3fn cache of phase quant's served paths
+        qcases = quant["kernels"]["cases"]
+        fp8 = "float8_e4m3fn"
+        for name, src, repl, case, counts, key in (
+            ("ragged_paged_attention (fp8 cache)", "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix",
+             quant["llama"]["counts"], "ragged_attention.launches"),
+            ("paged_window_attention_decode (fp8 cache)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32",
+             quant["llama"]["counts"], "paged_attention.launches"),
+            ("ragged_mla_attention (fp8 cache)", "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:408", "mla_ragged_mix",
+             quant["mla"]["counts"], "mla_attention.ragged_launches"),
+            ("mla_paged_attention_decode (fp8 cache)", "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_b32",
+             quant["mla"]["counts"], "mla_attention.decode_launches"),
+            ("mla_paged_window_attention_decode (fp8 cache)",
+             "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:182", "mla_window_b8",
+             quant["mla_spec"]["counts"], "mla_attention.window_launches"),
+            ("paged_window_attention_decode (W=5, fp8 cache)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_w5_b8",
+             quant["llama_spec"]["counts"], "paged_attention.window_launches"),
+        ):
+            c = qcases[f"{case}_{fp8}"]
+            entries.append({
+                "name": name, "route": "cuda", "source": src, "replaces": repl,
+                "launches": counts[key],
+                "max_abs_err": max(qcases[f"{case}_{dt}"]["max_abs_err"] for dt in QUANT_CACHES),
+                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "device_ms": c.get("device_ms", "not measured"), "case": f"{case}_{fp8}",
             })
         print(json.dumps({"kernels": entries}), flush=True)
     if not set(PHASES) <= set(phases):

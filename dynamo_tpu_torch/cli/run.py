@@ -9,7 +9,9 @@ such an engine runs every prefill through the split prefill step.
 ``--host-offload-blocks N`` mounts the KV offload tiers below the device
 cache (G2 host memory, then ``--disk-offload-blocks`` on disk and
 ``--remote-kv-store HOST:PORT``): evicted prefix blocks restore on a later
-prefix hit instead of being recomputed.
+prefix hit instead of being recomputed.  ``--kv-cache-dtype fp8`` stores
+the KV cache in fp8 e4m3fn (the kernels upcast it at load) and
+``--quantize int8`` serves int8 weight-only projections.
 
 Example:
   python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
@@ -53,6 +55,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                      help="draft tokens verified per step")
     run.add_argument("--spec-ngram", type=int, default=2,
                      help="lookup n-gram width for ngram drafting")
+    run.add_argument("--kv-cache-dtype", choices=["fp8", "bf16", "f32"],
+                     default=None,
+                     help="KV cache storage dtype (fp8 halves KV bytes; "
+                          "default: model dtype)")
+    run.add_argument("--quantize", choices=["int8"], default=None,
+                     help="weight-only quantization (int8 projections, "
+                          "dequantized at use)")
     run.add_argument("--host-offload-blocks", type=int, default=0,
                      help="G2 host-DRAM KV tier size (0 = off): device "
                           "evictions offload here and restore on prefix hit")
@@ -87,6 +96,10 @@ def engine_overrides(args: argparse.Namespace) -> dict:
     if args.speculative:
         overrides.update(speculative=args.speculative, spec_tokens=args.spec_tokens,
                          spec_ngram=args.spec_ngram)
+    if args.kv_cache_dtype:
+        overrides["kv_cache_dtype"] = args.kv_cache_dtype
+    if args.quantize:
+        overrides["quantize"] = args.quantize
     if args.host_offload_blocks:
         overrides["host_offload_blocks"] = args.host_offload_blocks
     if args.disk_offload_blocks:

@@ -1,23 +1,34 @@
 // Shared tile loop of the paged attention kernels (paged_attention.cu,
-// ragged_attention.cu).
+// ragged_attention.cu), and the cache dtypes every attention kernel reads.
 //
 // One CTA owns a set of query rows that share one kv head: the `groups`
 // query heads of that kv head for one or more query tokens.  It walks a
 // list of keys in tiles of KEYS keys.  For each tile it stages that kv
-// head's K and V rows in shared memory (as float32), scores every (row,
-// key) pair, and folds the tile into an online softmax with a float32
-// [rows, D] accumulator, flash-attention style.  What differs between the
-// kernels is only where a key lives and what position and lane it carries:
-// each kernel passes a KeySource functor that answers that for a key index.
+// head's K and V rows in shared memory (as float32, converted from the
+// cache's dtype on load), scores every (row, key) pair, and folds the tile
+// into an online softmax with a float32 [rows, D] accumulator,
+// flash-attention style.  What differs between the kernels is only where a
+// key lives and what position and lane it carries: each kernel passes a
+// KeySource functor that answers that for a key index.
 //
 // Numerics are the reference's (dynamo_tpu/ops/pallas/*_attention.py):
 // masked scores are NEG_INF, exponentials of masked scores are taken as 0,
 // the denominator is clamped at 1e-20, so a row that sees no key (a pad
 // token, an idle lane, a token block with no pages) comes out as zeros.
+//
+// Cache dtypes (the engine's kv_cache_dtype; the TPU kernels upcast their
+// cache at load, e.g. dynamo_tpu/ops/pallas/paged_attention.py:96-98):
+// float32, bfloat16, float16, fp8 e4m3fn and fp8 e5m2, named by the codes
+// of CacheType (ops/kernels/common.py keeps the same numbers).  Every value
+// of every one of them is exact in float32, and every fp8 value is exact
+// in bf16 (through half), so a tensor-core walk that reads bf16 keys reads
+// an fp8 cache converted to bf16 with the same products and numerics.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,27 +42,91 @@ constexpr int MAX_ROWS = 64;  // query rows one CTA can hold
 // Error codes returned to the Python wrapper besides cudaError_t values.
 constexpr int ERR_UNSUPPORTED = 10000;
 
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;  // 16 bytes
-  __device__ static void load(const float* src, float* dst) {
-    float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;  // 16 bytes
-  __device__ static void load(const __nv_bfloat16* src, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// Element types of q, out and the caches (ops/kernels/common.py's codes).
+enum CacheType : int { F32 = 0, BF16 = 1, F16 = 2, E4M3 = 3, E5M2 = 4 };
+__host__ __device__ inline int type_bytes(int code) {
+  return code == F32 ? 4 : code == BF16 || code == F16 ? 2 : 1;
+}
+__host__ __device__ inline bool is_fp8(int code) { return code == E4M3 || code == E5M2; }
+
+// Two fp8 values (the low byte first) as floats, exactly.
+__device__ inline float2 fp8x2_to_float2(uint16_t x, bool e5m2) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(x), e5m2 ? __NV_E5M2 : __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// Sixteen fp8 values (16 bytes, the first in the low byte) as sixteen
+// bf16 values (32 bytes), exactly.
+__device__ inline void fp8x16_to_bf16(const uint4& raw, bool e5m2, uint4 (&out)[2]) {
+  const uint16_t* p = reinterpret_cast<const uint16_t*>(&raw);
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = fp8x2_to_float2(p[i], e5m2);
+    __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    o[i] = *reinterpret_cast<uint32_t*>(&b);
+  }
+}
+
+// Eight consecutive cache elements from element offset `off` (a multiple
+// of 8) of a cache of type `code`, as floats.
+__device__ inline void load8(const void* base, size_t off, int code, float* dst) {
+  switch (code) {
+    case F32: {
+      const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
+      const float4 a = p[0], b = p[1];
+      dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+      dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+      return;
+    }
+    case BF16: {
+      const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + off);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        dst[2 * i] = f.x;
+        dst[2 * i + 1] = f.y;
+      }
+      return;
+    }
+    case F16: {
+      const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const __half*>(base) + off);
+      const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __half22float2(h[i]);
+        dst[2 * i] = f.x;
+        dst[2 * i + 1] = f.y;
+      }
+      return;
+    }
+    default: {  // E4M3, E5M2
+      const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(base) + off);
+      const uint16_t* p = reinterpret_cast<const uint16_t*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = fp8x2_to_float2(p[i], code == E5M2);
+        dst[2 * i] = f.x;
+        dst[2 * i + 1] = f.y;
+      }
     }
   }
-};
+}
+
+// Element `idx` of a cache (or a staged copy of one) of type `code`.
+__device__ inline float load1(const void* base, size_t idx, int code) {
+  switch (code) {
+    case F32: return static_cast<const float*>(base)[idx];
+    case BF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[idx]);
+    case F16: return __half2float(static_cast<const __half*>(base)[idx]);
+    default: {
+      const uint8_t b = static_cast<const uint8_t*>(base)[idx];
+      return fp8x2_to_float2(b, code == E5M2).x;
+    }
+  }
+}
 
 __device__ inline float to_f32(float x) { return x; }
 __device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -101,18 +176,18 @@ struct Smem {
 
 // Walk keys [begin, end) of `src` for the rows already staged in `s`
 // (q, row_pos, row_lane), then write out[r] = acc[r] / max(l[r], 1e-20)
-// through `out_row(r)`.  KeySource provides the cache pointers k_cache and
-// v_cache and, for a key index:
+// through `out_row(r)`.  The caches k_cache and v_cache hold elements of
+// type `code` (CacheType).  KeySource gives, for a key index:
 //   __device__ size_t row(int key) const;  // element offset of its K/V row
 //   __device__ int pos(int key) const;     // its absolute position
 //   __device__ int lane(int key) const;    // the lane that owns it
-template <typename T, int D, class KeySource, class OutRow>
-__device__ void attend(Smem<D>& s, int rows, const KeySource& src, int begin,
-                       int end, int sliding_window, float scale,
-                       OutRow out_row) {
+template <int D, class KeySource, class OutRow>
+__device__ void attend(Smem<D>& s, int rows, const void* k_cache, const void* v_cache,
+                       int code, const KeySource& src, int begin, int end,
+                       int sliding_window, float scale, OutRow out_row) {
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane_id = tid % 32;
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = 8;  // elements a load
   constexpr int CHUNKS = D / VN;
 
   for (int i = tid; i < rows * D; i += THREADS) s.acc[i] = 0.f;
@@ -130,8 +205,8 @@ __device__ void attend(Smem<D>& s, int rows, const KeySource& src, int begin,
       float kf[VN], vf[VN];
       if (key < end) {
         const size_t off = src.row(key) + (size_t)c * VN;
-        Vec<T>::load(src.k_cache + off, kf);
-        Vec<T>::load(src.v_cache + off, vf);
+        load8(k_cache, off, code, kf);
+        load8(v_cache, off, code, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < VN; ++e) kf[e] = vf[e] = 0.f;

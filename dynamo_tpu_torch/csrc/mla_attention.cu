@@ -27,14 +27,24 @@
 //   512) weigh as much as the pages.  Operations: 2 (R + P) + 2 R flops
 //   per visible (row, position), far below the tensor cores' rate.
 //
-// Routes, chosen by shape (neither is a fallback of the other):
-//   - bf16 caches at R 512, P 64, 16-position pages and H a multiple of 16
-//     (DeepSeek widths): the split tensor-core walks of rtc:: below, the
-//     ragged walk over a token block's worklist (row 3) and the table walk
-//     over a sequence's block table for decode and verify (rows 4 and 5);
-//   - float32 caches and other geometries (the tiny_mla test geometry, R
-//     32, P 8): the CUDA-core loop mla_attend (mla_window_kernel for
-//     decode and verify, mla_ragged_kernel).
+// Cache dtypes: q_rope is float32 or bf16 (the model's), the caches any
+//   of attention_common.cuh's CacheType (the TPU kernels upcast their cache
+//   at load, e.g. mla_attention.py's .astype(jnp.float32)).
+//
+// Routes, chosen by shape and dtype (neither is a fallback of the other):
+//   - bf16 queries over bf16 or fp8 (e4m3fn, e5m2) caches at R 512, P 64,
+//     16-position pages and H a multiple of 16 (DeepSeek widths): the split
+//     tensor-core walks of rtc:: below, the ragged walk over a token
+//     block's worklist (row 3) and the table walk over a sequence's block
+//     table for decode and verify (rows 4 and 5).  An fp8 page arrives raw
+//     in the ring (R + P bytes a position, half of bf16's), and every
+//     thread converts the 16-byte chunks it copied into one bf16 page beside
+//     the ring (exact) behind a CTA barrier: the products are the bf16
+//     walk's;
+//   - float32 queries or caches, float16 caches and other geometries (the
+//     tiny_mla test geometry, R 32, P 8): the CUDA-core loop mla_attend
+//     (mla_window_kernel for decode and verify, mla_ragged_kernel), which
+//     stages the cache's own bytes and converts each element at use.
 //
 // Tensor-core design (rtc::), shared by both walks.
 //   - A CTA holds a group of 16-row MMA tiles and walks its pages once for
@@ -109,7 +119,7 @@
 //   least 64 positions a tile of its group, so a wide window's partials
 //   (2 KB a row) stay a fixed share of the pages it reads.
 //
-// CUDA-core design (float32 caches, the tiny_mla geometry): every head
+// CUDA-core design (the other dtypes, the tiny_mla geometry): every head
 //   reads the same single latent "kv head", so the head axis is the only
 //   sharing there is.  One CTA owns `hg` rows of one sequence (window) or
 //   of one token block (ragged): hg grows only while the grid would
@@ -117,8 +127,9 @@
 //   and a CTA never holds more than MAX_ROWS query rows.  These products
 //   run on the fp32 CUDA cores.  Shared memory holds the float32 queries
 //   [rows, R+P] and accumulator [rows, R], and two tiles of MKEYS latent
-//   rows [MKEYS, R+P] in the cache type: tile t+1 copies in with cp.async
-//   while tile t computes.  No V tile exists: the values are the staged
+//   rows [MKEYS, R+P] in the cache type (16-byte copies, 8-byte ones where
+//   a row is not whole 16-byte chunks: fp8 at P 8): tile t+1 copies in
+//   with cp.async while tile t computes.  No V tile exists: the values are the staged
 //   latents.  Scores: one warp per key, lanes across the R+P columns, a
 //   shuffle reduction per visible (row, key).  Softmax: one warp per row,
 //   one lane per key.  Context: one thread per (row, column), only for
@@ -131,6 +142,7 @@
 //   not depend on it.
 
 #include <climits>
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "split_attention.cuh"
@@ -142,11 +154,10 @@ constexpr int NWARPS = MTHREADS / 32;
 constexpr int MKEYS = 32;      // keys per tile: one per lane in the softmax step
 constexpr int MAX_ROWS = 8;    // query rows one CTA holds
 
-template <typename T, int R, int P>
+template <int R, int P>
 struct MlaSmem {
   static constexpr int D = R + P;
-  static_assert((R * sizeof(T)) % 16 == 0 && (P * sizeof(T)) % 16 == 0,
-                "latent and rope rows must be whole 16-byte chunks");
+  static_assert(R % 8 == 0 && P % 8 == 0, "latent and rope rows are whole 8-byte chunks");
   float* q;       // [rows, D]   q_lat | q_rope
   float* acc;     // [rows, R]
   float* p;       // [rows, MKEYS] scores, then probabilities
@@ -159,15 +170,15 @@ struct MlaSmem {
   int* key_row;   // [2][MKEYS] cache row (page * bs + offset), per tile buffer
   int* key_pos;   // [2][MKEYS] (INT_MAX past the end of the key list)
   int* key_lane;  // [2][MKEYS]
-  T* kt;          // [2][MKEYS, D]  ck | kr rows in the cache type, double-buffered
+  char* kt;       // [2][MKEYS, D]  ck | kr rows in the cache type, double-buffered
 
   __host__ __device__ static size_t head_bytes(int rows) {
     const size_t floats = (size_t)rows * (D + R + MKEYS + 3);
     const size_t ints = 3 * (size_t)rows + 6 * (size_t)MKEYS;
     return ((floats + ints) * 4 + 15) / 16 * 16;  // the tiles start 16-byte aligned
   }
-  __host__ __device__ static size_t bytes(int rows) {
-    return head_bytes(rows) + 2 * (size_t)MKEYS * D * sizeof(T);
+  __host__ __device__ static size_t bytes(int rows, int elem_bytes) {
+    return head_bytes(rows) + 2 * (size_t)MKEYS * D * elem_bytes;
   }
 
   __device__ MlaSmem(char* base, int rows) {
@@ -183,7 +194,7 @@ struct MlaSmem {
     key_row = row_live + rows;
     key_pos = key_row + 2 * MKEYS;
     key_lane = key_pos + 2 * MKEYS;
-    kt = reinterpret_cast<T*>(base + head_bytes(rows));
+    kt = base + head_bytes(rows);
   }
 };
 
@@ -191,21 +202,29 @@ __device__ inline void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
+__device__ inline void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ inline void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // Walk keys [0, end) of `src` for the rows already staged in `s` (q,
 // row_pos, row_lane), then write out_row(r)[0..R) = acc[r] / max(l[r], 1e-20).
+// The caches hold elements of type `code` (CacheType).
 // KeySource gives, for a key index: row(key), the cache row (page * bs +
 // offset) of its latent and rope key; pos(key); lane(key).  Tiles are
 // double-buffered: tile t+1's rows copy in (cp.async) while tile t computes,
 // and tile t+2's metadata is read while tile t accumulates.
-template <typename T, int R, int P, class KeySource, class OutRow>
-__device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ ck,
-                           const T* __restrict__ kr, const KeySource& src, int end,
-                           float scale, OutRow out_row) {
+template <int R, int P, class KeySource, class OutRow>
+__device__ void mla_attend(MlaSmem<R, P>& s, int rows, const void* __restrict__ ck,
+                           const void* __restrict__ kr, int code, const KeySource& src,
+                           int end, float scale, OutRow out_row) {
   constexpr int D = R + P;
-  constexpr int CR = R * sizeof(T) / 16, CP = P * sizeof(T) / 16, C = CR + CP;
+  const int esz = dyn::type_bytes(code);
+  const int rb = R * esz, pb = P * esz;  // row bytes
+  const int cb = rb % 16 == 0 && pb % 16 == 0 ? 16 : 8;  // bytes a copy
+  const int CR = rb / cb, C = CR + pb / cb;
   constexpr int DI = (D + 31) / 32;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane_id = tid % 32;
@@ -226,22 +245,27 @@ __device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ 
       s.key_lane[at] = ok ? src.lane(key) : -1;
     }
   };
-  auto stage_tile = [&](int tile) {  // its metadata is staged; 16 bytes a copy
+  auto stage_tile = [&](int tile) {  // its metadata is staged; cb bytes a copy
     if (tile < tiles) {
       const int buf = tile & 1;
-      T* kt = s.kt + (size_t)buf * MKEYS * D;
+      char* kt = s.kt + (size_t)buf * MKEYS * D * esz;
       for (int i = tid; i < MKEYS * C; i += MTHREADS) {
         const int j = i / C, c = i % C;
-        uint4* dst = reinterpret_cast<uint4*>(kt + (size_t)j * D) + c;
-        if (s.key_pos[buf * MKEYS + j] == INT_MAX) {
-          *dst = make_uint4(0u, 0u, 0u, 0u);  // past the end: p is 0, keep 0 * junk out
+        char* dst = kt + (size_t)j * D * esz + (size_t)c * cb;
+        if (s.key_pos[buf * MKEYS + j] == INT_MAX) {  // past the end: p is 0, keep 0 * junk out
+          if (cb == 16)
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          else
+            *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
           continue;
         }
         const size_t row = (size_t)s.key_row[buf * MKEYS + j];
-        cp_async16(dst, c < CR ? static_cast<const void*>(
-                                     reinterpret_cast<const uint4*>(ck + row * R) + c)
-                               : static_cast<const void*>(
-                                     reinterpret_cast<const uint4*>(kr + row * P) + (c - CR)));
+        const char* from = c < CR ? static_cast<const char*>(ck) + row * rb + (size_t)c * cb
+                                  : static_cast<const char*>(kr) + row * pb + (size_t)(c - CR) * cb;
+        if (cb == 16)
+          cp_async16(dst, from);
+        else
+          cp_async8(dst, from);
       }
     }
     cp_async_commit();  // one group a tile, empty past the last
@@ -257,7 +281,7 @@ __device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ 
     stage_tile(tile + 1);  // in flight while this tile computes
     cp_async_wait_one();   // this thread's copies of this tile landed
     __syncthreads();       // ... and every thread's
-    const T* kt = s.kt + (size_t)buf * MKEYS * D;
+    const char* kt = s.kt + (size_t)buf * MKEYS * D * esz;
     const int* kpos = s.key_pos + buf * MKEYS;
     const int* klane = s.key_lane + buf * MKEYS;
 
@@ -272,7 +296,7 @@ __device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ 
 #pragma unroll
       for (int i = 0; i < DI; ++i) {
         const int d = lane_id + 32 * i;
-        kreg[i] = d < D ? dyn::to_f32(kt[(size_t)j * D + d]) : 0.f;
+        kreg[i] = d < D ? dyn::load1(kt, (size_t)j * D + d, code) : 0.f;
       }
       for (int r = 0; r < rows; ++r) {
         const bool ok = kl == s.row_lane[r] && kp <= s.row_pos[r];  // warp-uniform
@@ -330,8 +354,8 @@ __device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ 
       float a0 = s.acc[i] * s.alpha[r], a1 = 0.f;
 #pragma unroll
       for (int j = 0; j < MKEYS; j += 2) {
-        a0 = fmaf(pr[j], dyn::to_f32(kt[(size_t)j * D + d]), a0);
-        a1 = fmaf(pr[j + 1], dyn::to_f32(kt[(size_t)(j + 1) * D + d]), a1);
+        a0 = fmaf(pr[j], dyn::load1(kt, (size_t)j * D + d, code), a0);
+        a1 = fmaf(pr[j + 1], dyn::load1(kt, (size_t)(j + 1) * D + d, code), a1);
       }
       s.acc[i] = a0 + a1;
     }
@@ -343,9 +367,9 @@ __device__ void mla_attend(MlaSmem<T, R, P>& s, int rows, const T* __restrict__ 
   }
 }
 
-// Stage q_lat (float32) and q_rope (cache type) of one row into s.q.
+// Stage q_lat (float32) and q_rope (the model's type T) of one row into s.q.
 template <typename T, int R, int P>
-__device__ void stage_row(MlaSmem<T, R, P>& s, int r, const float* ql, const T* qr) {
+__device__ void stage_row(MlaSmem<R, P>& s, int r, const float* ql, const T* qr) {
   constexpr int D = R + P;
   for (int d = threadIdx.x; d < D; d += MTHREADS)
     s.q[r * D + d] = d < R ? ql[d] : dyn::to_f32(qr[d - R]);
@@ -372,13 +396,13 @@ struct WorklistKeys {  // ragged: keys are the pages of a token block's worklist
 template <typename T, int R, int P>
 __global__ void __launch_bounds__(MTHREADS, 2)
 mla_window_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
-                  const T* __restrict__ ck, const T* __restrict__ kr,
+                  const void* __restrict__ ck, const void* __restrict__ kr, int code,
                   const int* __restrict__ block_tables,
                   const int* __restrict__ context_lens, float* __restrict__ out,
                   int W, int H, int hg, int bs, int max_blocks, float scale) {
   extern __shared__ __align__(16) char smem_raw[];
   const int b = blockIdx.x, f0 = blockIdx.y * hg;  // first w-major row of this CTA
-  MlaSmem<T, R, P> s(smem_raw, hg);
+  MlaSmem<R, P> s(smem_raw, hg);
   // a window clamped at the engine's last position can reach past the
   // table: its queries keep their own positions, the keys stop at the
   // table's end (the TPU kernel's grid has max_blocks pages)
@@ -392,14 +416,14 @@ mla_window_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
     s.row_lane[r] = 0;
   }
   TableKeys keys{block_tables + (size_t)b * max_blocks, bs};
-  mla_attend<T, R, P>(s, hg, ck, kr, keys, ctx, scale,
+  mla_attend<R, P>(s, hg, ck, kr, code, keys, ctx, scale,
                       [&](int r) { return out + (base + f0 + r) * R; });
 }
 
 template <typename T, int R, int P>
 __global__ void __launch_bounds__(MTHREADS, 2)
 mla_ragged_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
-                  const T* __restrict__ ck, const T* __restrict__ kr,
+                  const void* __restrict__ ck, const void* __restrict__ kr, int code,
                   const int* __restrict__ token_lane, const int* __restrict__ token_pos,
                   const int* __restrict__ page_phys, const int* __restrict__ page_lane,
                   const int* __restrict__ page_ord, const int* __restrict__ page_count,
@@ -408,7 +432,7 @@ mla_ragged_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
   extern __shared__ __align__(16) char smem_raw[];
   const int t = blockIdx.x, h0 = blockIdx.y * hg;
   const int rows = tb * hg;
-  MlaSmem<T, R, P> s(smem_raw, rows);
+  MlaSmem<R, P> s(smem_raw, rows);
   // row r = (token t * tb + r / hg, head h0 + r % hg); q and out are [T, H, .]
   for (int r = 0; r < rows; ++r) {
     const size_t qh = (size_t)(t * tb + r / hg) * H + h0 + r % hg;
@@ -422,14 +446,15 @@ mla_ragged_kernel(const float* __restrict__ q_lat, const T* __restrict__ q_rope,
   const size_t wl = (size_t)t * page_slots;
   const int count = min(page_count[t], page_slots);
   WorklistKeys keys{page_phys + wl, page_lane + wl, page_ord + wl, bs};
-  mla_attend<T, R, P>(s, rows, ck, kr, keys, count * bs, scale, [&](int r) {
+  mla_attend<R, P>(s, rows, ck, kr, code, keys, count * bs, scale, [&](int r) {
     return out + ((size_t)(t * tb + r / hg) * H + h0 + r % hg) * R;
   });
 }
 
 // ---------------------------------------------------------------------------
-// MLA at DeepSeek widths (bf16 caches, R 512, P 64, 16-token pages, H a
-// multiple of 16): the split tensor-core walks.  See the note at the top.
+// MLA at DeepSeek widths (bf16 queries, bf16 or fp8 caches, R 512, P 64,
+// 16-token pages, H a multiple of 16): the split tensor-core walks.  See
+// the note at the top.
 // ---------------------------------------------------------------------------
 
 namespace rtc {
@@ -450,21 +475,24 @@ __host__ __device__ constexpr int max_tiles(int wpt) { return wpt == 2 ? 4 : 3; 
 
 // Shared memory of a CTA of `tiles` tiles and `warps` warps, in order:
 // q_hi and q_lo [tiles * 16, QS], q_rope [tiles * 16, RS], the ring of
-// STAGES pages (ck rows, then kr rows) and the warps' swap areas [warps]
-// [32 lanes][8 partial scores].
+// STAGES pages (ck rows, then kr rows: bf16 PAGEs; over an fp8 cache raw
+// RAW_PAGEs, then the one bf16 PAGE they convert into) and the warps' swap
+// areas [warps][32 lanes][8 partial scores].
 struct Smem {
   static constexpr size_t PAGE = (size_t)KEYS * (QS + RS) * sizeof(bf16);
+  static constexpr size_t RAW_PAGE = (size_t)KEYS * (R + P);
   __host__ __device__ static constexpr size_t q_lat(int tiles) {
     return (size_t)tiles * 16 * QS * sizeof(bf16);
   }
   __host__ __device__ static constexpr size_t ring(int tiles) {
     return 2 * q_lat(tiles) + (size_t)tiles * 16 * RS * sizeof(bf16);
   }
-  __host__ __device__ static constexpr size_t swap(int tiles) {
-    return ring(tiles) + STAGES * PAGE;
+  __host__ __device__ static constexpr size_t stage(bool fp8) { return fp8 ? RAW_PAGE : PAGE; }
+  __host__ __device__ static constexpr size_t swap(int tiles, bool fp8) {
+    return ring(tiles) + STAGES * stage(fp8) + (fp8 ? PAGE : 0);
   }
-  __host__ __device__ static constexpr size_t bytes(int tiles, int warps) {
-    return swap(tiles) + (size_t)warps * 32 * 8 * sizeof(float);
+  __host__ __device__ static constexpr size_t bytes(int tiles, int warps, bool fp8) {
+    return swap(tiles, fp8) + (size_t)warps * 32 * 8 * sizeof(float);
   }
 };
 
@@ -482,22 +510,54 @@ __device__ inline int used_chunks(int count, int cap, int div, int chunk_pages) 
 }
 
 // Page `page` of the caches into ring stage `stage` (ck rows, then kr
-// rows), 16 bytes a copy, by `threads` threads (this one is `tid`).
-__device__ inline void load_page(char* stage, const bf16* __restrict__ ck,
-                                 const bf16* __restrict__ kr, size_t page, int tid, int threads) {
-  bf16* dc = reinterpret_cast<bf16*>(stage);
-  bf16* dr = dc + KEYS * QS;
-  const bf16* sc = ck + page * KEYS * R;
-  const bf16* sr = kr + page * KEYS * P;
-  constexpr int CC = R / 8, CR = P / 8;
+// rows), 16 bytes a copy, by `threads` threads (this one is `tid`): bf16
+// rows at the strides QS and RS, or (FP8) the raw rows, R and P bytes.
+template <bool FP8>
+__device__ inline void load_page(char* stage, const void* __restrict__ ck,
+                                 const void* __restrict__ kr, size_t page, int tid, int threads) {
+  constexpr int EL = FP8 ? 16 : 8;  // elements a copy
+  constexpr int CC = R / EL, CR = P / EL;
+  constexpr int SC = FP8 ? R : QS, SR = FP8 ? P : RS;  // row strides in elements
+  using E = typename std::conditional<FP8, uint8_t, bf16>::type;
+  E* dc = reinterpret_cast<E*>(stage);
+  E* dr = dc + KEYS * SC;
+  const E* sc = static_cast<const E*>(ck) + page * KEYS * R;
+  const E* sr = static_cast<const E*>(kr) + page * KEYS * P;
   for (int i = tid; i < KEYS * (CC + CR); i += threads) {
     if (i < KEYS * CC) {
       const int j = i / CC, k = i % CC;
-      tc::cp_async16(dc + j * QS + k * 8, sc + j * R + k * 8, true);
+      tc::cp_async16(dc + j * SC + k * EL, sc + j * R + k * EL, true);
     } else {
       const int j = (i - KEYS * CC) / CR, k = (i - KEYS * CC) % CR;
-      tc::cp_async16(dr + j * RS + k * 8, sr + j * P + k * 8, true);
+      tc::cp_async16(dr + j * SR + k * EL, sr + j * P + k * EL, true);
     }
+  }
+}
+
+// The chunks of a raw fp8 page that this thread copied (load_page<true>'s
+// mapping), converted into the bf16 page `conv` (ck rows at QS, kr rows at
+// RS); a barrier must follow before any thread reads `conv`.
+__device__ inline void convert_page(bf16* conv, const char* raw, bool e5m2, int tid,
+                                    int threads) {
+  constexpr int CC = R / 16, CR = P / 16;
+  const uint8_t* rc = reinterpret_cast<const uint8_t*>(raw);
+  const uint8_t* rr = rc + KEYS * R;
+  for (int i = tid; i < KEYS * (CC + CR); i += threads) {
+    const uint8_t* from;
+    bf16* to;
+    if (i < KEYS * CC) {
+      const int j = i / CC, k = i % CC;
+      from = rc + j * R + k * 16;
+      to = conv + j * QS + k * 16;
+    } else {
+      const int j = (i - KEYS * CC) / CR, k = (i - KEYS * CC) % CR;
+      from = rr + j * P + k * 16;
+      to = conv + KEYS * QS + j * RS + k * 16;
+    }
+    uint4 o[2];
+    dyn::fp8x16_to_bf16(*reinterpret_cast<const uint4*>(from), e5m2, o);
+    reinterpret_cast<uint4*>(to)[0] = o[0];
+    reinterpret_cast<uint4*>(to)[1] = o[1];
   }
 }
 
@@ -704,8 +764,12 @@ __device__ __forceinline__ void finish_tile(const TileState<WPT>& st, int wq, bo
 constexpr int RAG_WPT = 2;
 constexpr int RAG_TILES = max_tiles(RAG_WPT);
 constexpr int RAG_THREADS = RAG_TILES * RAG_WPT * 32;
-constexpr size_t RAG_LIST = Smem::bytes(RAG_TILES, RAG_TILES * RAG_WPT);
-constexpr size_t RAG_BYTES = RAG_LIST + (3 * MAX_CHUNK + 2 * RAG_TILES + 6) * sizeof(int);
+__host__ __device__ constexpr size_t rag_list(bool fp8) {
+  return Smem::bytes(RAG_TILES, RAG_TILES * RAG_WPT, fp8);
+}
+__host__ __device__ constexpr size_t rag_bytes(bool fp8) {
+  return rag_list(fp8) + (3 * MAX_CHUNK + 2 * RAG_TILES + 6) * sizeof(int);
+}
 
 // Grid (tile group, item of the capacity).  Rows are token-major (row =
 // token * H + head); a CTA holds RAG_TILES 16-row tiles of its item's token
@@ -714,10 +778,11 @@ constexpr size_t RAG_BYTES = RAG_LIST + (3 * MAX_CHUNK + 2 * RAG_TILES + 6) * si
 // at most MAX_CHUNK: it keeps, in order, the entries one of its tiles sees,
 // then walks them.  An item past the live count (work[0].x) exits at once;
 // without a plan (work null) item blockIdx.y is token block blockIdx.y over
-// its whole worklist.
+// its whole worklist.  FP8: the caches are fp8 (e5m2 when `e5m2`), else bf16.
+template <bool FP8>
 __global__ void __launch_bounds__(RAG_THREADS, 1)
 mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_rope,
-                     const bf16* __restrict__ ck, const bf16* __restrict__ kr,
+                     const void* __restrict__ ck, const void* __restrict__ kr, bool e5m2,
                      const int* __restrict__ token_lane, const int* __restrict__ token_pos,
                      const int* __restrict__ page_phys, const int* __restrict__ page_lane,
                      const int* __restrict__ page_ord, const int* __restrict__ page_count,
@@ -729,8 +794,9 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
   bf16* q_lo = reinterpret_cast<bf16*>(smem + Smem::q_lat(RAG_TILES));
   bf16* q_rp = reinterpret_cast<bf16*>(smem + 2 * Smem::q_lat(RAG_TILES));
   char* ring = smem + Smem::ring(RAG_TILES);
-  float* swap = reinterpret_cast<float*>(smem + Smem::swap(RAG_TILES));
-  int* l_phys = reinterpret_cast<int*>(smem + RAG_LIST);
+  bf16* conv = reinterpret_cast<bf16*>(ring + STAGES * Smem::stage(FP8));  // fp8
+  float* swap = reinterpret_cast<float*>(smem + Smem::swap(RAG_TILES, FP8));
+  int* l_phys = reinterpret_cast<int*>(smem + rag_list(FP8));
   int* l_ord = l_phys + MAX_CHUNK;
   int* l_lane = l_ord + MAX_CHUNK;
   int* t_lane = l_lane + MAX_CHUNK;  // [RAG_TILES] the lane and position of each tile's token
@@ -817,7 +883,8 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
 
     auto issue = [&](int n) {  // page n of the list into its stage
       if (n < n_list)
-        load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)l_phys[n], tid, RAG_THREADS);
+        load_page<FP8>(ring + (n % STAGES) * Smem::stage(FP8), ck, kr, (size_t)l_phys[n], tid,
+                       RAG_THREADS);
       tc::cp_async_commit();  // one group a page, empty past the last
     };
 #pragma unroll
@@ -832,9 +899,14 @@ mla_ragged_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q
       tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
       __syncthreads();                  // ... everyone's; page n - 1 consumed
       issue(n + STAGES - 1);            // into the stage page n - 1 left
+      if (FP8) {  // page n's raw chunks this thread copied, to the bf16 page
+        convert_page(conv, ring + (n % STAGES) * Smem::RAW_PAGE, e5m2, tid, RAG_THREADS);
+        __syncthreads();
+      }
       const int ord = l_ord[n];
       if (my_pos < 0 || l_lane[n] != my_lane || ord * KEYS > my_pos) continue;
-      const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
+      const bf16* pc =
+          FP8 ? conv : reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
       page_step<RAG_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * RAG_WPT * 32 * 8, wq,
                          rt, ord * KEYS, my_pos, scale_log2);
     }
@@ -897,10 +969,11 @@ constexpr int TAB_TILES = max_tiles(TAB_WPT);
 // blockIdx.y (blockDim.x / (TAB_WPT * 32) tiles of room) and walks table
 // slots [c * chunk_pages, (c + 1) * chunk_pages) of its sequence, up to its
 // last page.  Tile i's rows are query w = 16 i / H's heads, at position
-// ctx - W + w.
+// ctx - W + w.  FP8: the caches are fp8 (e5m2 when `e5m2`), else bf16.
+template <bool FP8>
 __global__ void __launch_bounds__(TAB_TILES * TAB_WPT * 32, 1)
 mla_table_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_rope,
-                    const bf16* __restrict__ ck, const bf16* __restrict__ kr,
+                    const void* __restrict__ ck, const void* __restrict__ kr, bool e5m2,
                     const int* __restrict__ block_tables, const int* __restrict__ context_lens,
                     float* __restrict__ out, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int W, int H, int max_blocks,
@@ -922,12 +995,14 @@ mla_table_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_
   bf16* q_lo = reinterpret_cast<bf16*>(smem + Smem::q_lat(room));
   bf16* q_rp = reinterpret_cast<bf16*>(smem + 2 * Smem::q_lat(room));
   char* ring = smem + Smem::ring(room);
-  float* swap = reinterpret_cast<float*>(smem + Smem::swap(room));
+  bf16* conv = reinterpret_cast<bf16*>(ring + STAGES * Smem::stage(FP8));  // fp8
+  float* swap = reinterpret_cast<float*>(smem + Smem::swap(room, FP8));
   const int* pages = block_tables + (size_t)b * max_blocks + p0;
 
   auto issue = [&](int n) {  // table slot p0 + n into its stage
     if (n < n_list)
-      load_page(ring + (n % STAGES) * Smem::PAGE, ck, kr, (size_t)pages[n], tid, blockDim.x);
+      load_page<FP8>(ring + (n % STAGES) * Smem::stage(FP8), ck, kr, (size_t)pages[n], tid,
+                     blockDim.x);
     tc::cp_async_commit();  // one group a page, empty past the last
   };
 #pragma unroll
@@ -953,9 +1028,14 @@ mla_table_tc_kernel(const float* __restrict__ q_lat, const bf16* __restrict__ q_
     tc::cp_async_wait<STAGES - 2>();  // page n landed (this thread's copies)
     __syncthreads();                  // ... everyone's; page n - 1 consumed
     issue(n + STAGES - 1);            // into the stage page n - 1 left
+    if (FP8) {  // page n's raw chunks this thread copied, to the bf16 page
+      convert_page(conv, ring + (n % STAGES) * Smem::RAW_PAGE, e5m2, tid, blockDim.x);
+      __syncthreads();
+    }
     const int kpos0 = (p0 + n) * KEYS;
     if (!live || kpos0 > limit) continue;
-    const bf16* pc = reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
+    const bf16* pc =
+        FP8 ? conv : reinterpret_cast<const bf16*>(ring + (n % STAGES) * Smem::PAGE);
     page_step<TAB_WPT>(st, qh, ql, qr, pc, pc + KEYS * QS, swap + rt * TAB_WPT * 32 * 8, wq, rt,
                        kpos0, limit, scale_log2);
   }
@@ -1003,19 +1083,20 @@ mla_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__
       make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
 }
 
-int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr, const int* tl,
-                  const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
-                  float* out, const int4* work, float* part_acc, float* part_ml, int T_, int H,
-                  int tb, int page_slots, int cap_items, int cap_combines, int cap_partials,
-                  float scale, cudaStream_t stream) {
+template <bool FP8>
+int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr, bool e5m2,
+                  const int* tl, const int* tp, const int* pp, const int* pl, const int* po,
+                  const int* pc, float* out, const int4* work, float* part_acc, float* part_ml,
+                  int T_, int H, int tb, int page_slots, int cap_items, int cap_combines,
+                  int cap_partials, float scale, cudaStream_t stream) {
   const int groups = tc::ceil_div(tb * H / 16, RAG_TILES);
-  cudaError_t err = dyn::allow_smem(mla_ragged_tc_kernel, RAG_BYTES);
+  auto kernel = mla_ragged_tc_kernel<FP8>;
+  cudaError_t err = dyn::allow_smem(kernel, rag_bytes(FP8));
   if (err != cudaSuccess) return (int)err;
-  mla_ragged_tc_kernel<<<dim3(groups, work ? cap_items : T_ / tb), RAG_THREADS, RAG_BYTES,
-                         stream>>>(
-      static_cast<const float*>(ql), static_cast<const bf16*>(qr), static_cast<const bf16*>(ck),
-      static_cast<const bf16*>(kr), tl, tp, pp, pl, po, pc, work, out, part_acc, part_ml,
-      cap_partials, H, tb, page_slots, scale * tc::LOG2E);
+  kernel<<<dim3(groups, work ? cap_items : T_ / tb), RAG_THREADS, rag_bytes(FP8), stream>>>(
+      static_cast<const float*>(ql), static_cast<const bf16*>(qr), ck, kr, e5m2, tl, tp, pp, pl,
+      po, pc, work, out, part_acc, part_ml, cap_partials, H, tb, page_slots,
+      scale * tc::LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess || cap_combines == 0) return (int)err;
   mla_ragged_combine_kernel<<<dim3(tb * H, cap_combines), R / 4, 0, stream>>>(
@@ -1023,20 +1104,21 @@ int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr
   return (int)cudaGetLastError();
 }
 
-int launch_table(const void* ql, const void* qr, const void* ck, const void* kr,
+template <bool FP8>
+int launch_table(const void* ql, const void* qr, const void* ck, const void* kr, bool e5m2,
                  const int* tables, const int* lens, float* out, float* part_acc,
                  float* part_ml, int B, int W, int H, int max_blocks, int group_tiles,
                  int chunks, int chunk_pages, float scale, cudaStream_t stream) {
   const int tiles = W * H / 16;
   const int groups = tc::ceil_div(tiles, group_tiles);
   const int room = tc::ceil_div(tiles, groups);  // the largest balanced group
-  const size_t bytes = Smem::bytes(room, room * TAB_WPT);
-  cudaError_t err = dyn::allow_smem(mla_table_tc_kernel, bytes);
+  const size_t bytes = Smem::bytes(room, room * TAB_WPT, FP8);
+  auto kernel = mla_table_tc_kernel<FP8>;
+  cudaError_t err = dyn::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  mla_table_tc_kernel<<<dim3(chunks, groups, B), room * TAB_WPT * 32, bytes, stream>>>(
-      static_cast<const float*>(ql), static_cast<const bf16*>(qr), static_cast<const bf16*>(ck),
-      static_cast<const bf16*>(kr), tables, lens, out, part_acc, part_ml, W, H, max_blocks,
-      chunk_pages, scale * tc::LOG2E);
+  kernel<<<dim3(chunks, groups, B), room * TAB_WPT * 32, bytes, stream>>>(
+      static_cast<const float*>(ql), static_cast<const bf16*>(qr), ck, kr, e5m2, tables, lens,
+      out, part_acc, part_ml, W, H, max_blocks, chunk_pages, scale * tc::LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
   mla_combine_kernel<<<dim3(W * H, B), R / 4, 0, stream>>>(
@@ -1070,34 +1152,33 @@ int pick_group(int H, int rows_per_head, long ctas_per_head_group) {
 }
 
 template <typename T, int R, int P>
-int launch_window(const void* ql, const void* qr, const void* ck, const void* kr,
+int launch_window(const void* ql, const void* qr, const void* ck, const void* kr, int code,
                   const int* tables, const int* lens, float* out, int B, int W, int H,
                   int bs, int max_blocks, float scale, cudaStream_t stream) {
   const int hg = pick_group(H, 1, (long)B * W);
-  const size_t smem = MlaSmem<T, R, P>::bytes(hg);
+  const size_t smem = MlaSmem<R, P>::bytes(hg, dyn::type_bytes(code));
   auto kernel = mla_window_kernel<T, R, P>;
   cudaError_t err = dyn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(B, W * H / hg), MTHREADS, smem, stream>>>(
-      static_cast<const float*>(ql), static_cast<const T*>(qr), static_cast<const T*>(ck),
-      static_cast<const T*>(kr), tables, lens, out, W, H, hg, bs, max_blocks, scale);
+      static_cast<const float*>(ql), static_cast<const T*>(qr), ck, kr, code, tables, lens, out,
+      W, H, hg, bs, max_blocks, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int R, int P>
-int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr,
+int launch_ragged(const void* ql, const void* qr, const void* ck, const void* kr, int code,
                   const int* tl, const int* tp, const int* pp, const int* pl,
                   const int* po, const int* pc, float* out, int T_, int H, int bs,
                   int tb, int page_slots, float scale, cudaStream_t stream) {
   const int hg = pick_group(H, tb, T_ / tb);
-  const size_t smem = MlaSmem<T, R, P>::bytes(tb * hg);
+  const size_t smem = MlaSmem<R, P>::bytes(tb * hg, dyn::type_bytes(code));
   auto kernel = mla_ragged_kernel<T, R, P>;
   cudaError_t err = dyn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(T_ / tb, H / hg), MTHREADS, smem, stream>>>(
-      static_cast<const float*>(ql), static_cast<const T*>(qr), static_cast<const T*>(ck),
-      static_cast<const T*>(kr), tl, tp, pp, pl, po, pc, out, H, hg, bs, tb, page_slots,
-      scale);
+      static_cast<const float*>(ql), static_cast<const T*>(qr), ck, kr, code, tl, tp, pp, pl,
+      po, pc, out, H, hg, bs, tb, page_slots, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1113,9 +1194,10 @@ int by_geometry(int R, int P, Fn512 f512, Fn32 f32) {
 }  // namespace
 
 // The verify window, and decode at W = 1: W queries a sequence, q_lat
-// (float32) / q_rope / out (float32) [B, W, H, .]; dtype 0 = float32,
-// 1 = bfloat16 (q_rope and both caches share it).  bf16 caches at R 512,
-// P 64, bs 16 and H a multiple of 16 take the split tensor-core table walk
+// (float32) / q_rope / out (float32) [B, W, H, .]; dtype: q_rope's, 0 =
+// float32, 1 = bfloat16; cache_dtype: both caches', a CacheType code.
+// bf16 queries over bf16 or fp8 caches at R 512, P 64, bs 16 and H a
+// multiple of 16 take the split tensor-core table walk
 // and must come with group_tiles (1 to 3: the most tiles a CTA holds) and
 // the plan: `chunks` chunks of
 // `chunk_pages` table slots (chunks * chunk_pages >= max_blocks, chunks
@@ -1126,27 +1208,36 @@ extern "C" int dyn_mla_paged_window_decode(
     const void* q_lat, const void* q_rope, const void* ck_cache, const void* kr_cache,
     const void* block_tables, const void* context_lens, void* out, void* part_acc,
     void* part_ml, int B, int W, int H, int R, int P, int bs, int max_blocks, int group_tiles,
-    int chunks, int chunk_pages, float scale, int dtype, void* stream) {
+    int chunks, int chunk_pages, float scale, int dtype, int cache_dtype, void* stream) {
   if (B == 0) return 0;
   if (W <= 0 || H <= 0 || (long)W * H > 65535L) return dyn::ERR_UNSUPPORTED;  // grid y
+  if (cache_dtype < dyn::F32 || cache_dtype > dyn::E5M2) return dyn::ERR_UNSUPPORTED;
+  const bool tc_cache = cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype);
   const int* tables = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(context_lens);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool walk = dtype == 1 && R == rtc::R && P == rtc::P && bs == rtc::KEYS && H % 16 == 0;
+  const bool walk = dtype == dyn::BF16 && tc_cache && R == rtc::R && P == rtc::P &&
+                    bs == rtc::KEYS && H % 16 == 0;
   if (walk != (group_tiles != 0)) return dyn::ERR_UNSUPPORTED;  // the route the wrapper planned
   if (walk) {
     if (group_tiles < 1 || group_tiles > rtc::TAB_TILES || B > 65535 || chunks < 1 ||
         chunk_pages < 1 || chunks > rtc::MAX_CHUNKS || (long)chunks * chunk_pages < max_blocks ||
         (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
       return dyn::ERR_UNSUPPORTED;
-    return rtc::launch_table(q_lat, q_rope, ck_cache, kr_cache, tables, lens, o,
-                             static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, W, H,
-                             max_blocks, group_tiles, chunks, chunk_pages, scale, st);
+    float* pa = static_cast<float*>(part_acc);
+    float* pm = static_cast<float*>(part_ml);
+    if (dyn::is_fp8(cache_dtype))
+      return rtc::launch_table<true>(q_lat, q_rope, ck_cache, kr_cache,
+                                     cache_dtype == dyn::E5M2, tables, lens, o, pa, pm, B, W, H,
+                                     max_blocks, group_tiles, chunks, chunk_pages, scale, st);
+    return rtc::launch_table<false>(q_lat, q_rope, ck_cache, kr_cache, false, tables, lens, o,
+                                    pa, pm, B, W, H, max_blocks, group_tiles, chunks,
+                                    chunk_pages, scale, st);
   }
-#define DYN_WINDOW(T, R_, P_)                                                      \
-  [&] { return launch_window<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tables, \
-                                        lens, o, B, W, H, bs, max_blocks, scale, st); }
+#define DYN_WINDOW(T, R_, P_)                                                             \
+  [&] { return launch_window<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, cache_dtype,   \
+                                        tables, lens, o, B, W, H, bs, max_blocks, scale, st); }
   if (dtype == 0)
     return by_geometry(R, P, DYN_WINDOW(float, 512, 64), DYN_WINDOW(float, 32, 8));
   if (dtype == 1)
@@ -1156,8 +1247,10 @@ extern "C" int dyn_mla_paged_window_decode(
   return dyn::ERR_UNSUPPORTED;
 }
 
-// T_ is a multiple of tb and tb <= 8.  bf16 caches at R 512, P 64, bs 16
-// and H a multiple of 16 take the split tensor-core walk over `work`: the
+// T_ is a multiple of tb and tb <= 8; dtype and cache_dtype as in
+// dyn_mla_paged_window_decode.  bf16 queries over bf16 or fp8 caches at R
+// 512, P 64, bs 16 and H a multiple of 16 take the split tensor-core walk
+// over `work`: the
 // plan buffer (int4 rows: live items, live combines, live partials; then
 // cap_items items (token block, first entry, end entry, partial slot or
 // -1); then cap_combines combines (token block, first slot, slots)), or,
@@ -1171,8 +1264,10 @@ extern "C" int dyn_ragged_mla_attention(
     const void* page_lane, const void* page_ord, const void* page_count, void* out,
     const void* work, void* part_acc, void* part_ml, int T_, int H, int R, int P, int bs,
     int tb, int page_slots, int cap_items, int cap_combines, int cap_partials, float scale,
-    int dtype, void* stream) {
+    int dtype, int cache_dtype, void* stream) {
   if (T_ == 0) return 0;
+  if (cache_dtype < dyn::F32 || cache_dtype > dyn::E5M2) return dyn::ERR_UNSUPPORTED;
+  const bool tc_cache = cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype);
   if (tb <= 0 || T_ % tb || tb > MAX_ROWS) return dyn::ERR_UNSUPPORTED;
   const int* tl = static_cast<const int*>(token_lane);
   const int* tp = static_cast<const int*>(token_pos);
@@ -1182,7 +1277,8 @@ extern "C" int dyn_ragged_mla_attention(
   const int* pc = static_cast<const int*>(page_count);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && R == rtc::R && P == rtc::P && bs == rtc::KEYS && H % 16 == 0) {
+  if (dtype == dyn::BF16 && tc_cache && R == rtc::R && P == rtc::P && bs == rtc::KEYS &&
+      H % 16 == 0) {
     const int4* plan = static_cast<const int4*>(work);
     if (plan == nullptr) {
       cap_items = T_ / tb;
@@ -1192,14 +1288,20 @@ extern "C" int dyn_ragged_mla_attention(
         cap_partials < 0 || (cap_partials > 0 && (part_acc == nullptr || part_ml == nullptr)) ||
         (cap_combines > 0 && cap_partials == 0))
       return dyn::ERR_UNSUPPORTED;
-    return rtc::launch_ragged(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, pl, po, pc, o, plan,
-                              static_cast<float*>(part_acc), static_cast<float*>(part_ml), T_, H,
-                              tb, page_slots, cap_items, cap_combines, cap_partials, scale, st);
+    float* pa = static_cast<float*>(part_acc);
+    float* pm = static_cast<float*>(part_ml);
+    if (dyn::is_fp8(cache_dtype))
+      return rtc::launch_ragged<true>(q_lat, q_rope, ck_cache, kr_cache, cache_dtype == dyn::E5M2,
+                                      tl, tp, pp, pl, po, pc, o, plan, pa, pm, T_, H, tb,
+                                      page_slots, cap_items, cap_combines, cap_partials, scale, st);
+    return rtc::launch_ragged<false>(q_lat, q_rope, ck_cache, kr_cache, false, tl, tp, pp, pl, po,
+                                     pc, o, plan, pa, pm, T_, H, tb, page_slots, cap_items,
+                                     cap_combines, cap_partials, scale, st);
   }
-#define DYN_RAGGED(T, R_, P_)                                                        \
-  [&] { return launch_ragged<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, tl, tp, pp, \
-                                        pl, po, pc, o, T_, H, bs, tb, page_slots,      \
-                                        scale, st); }
+#define DYN_RAGGED(T, R_, P_)                                                             \
+  [&] { return launch_ragged<T, R_, P_>(q_lat, q_rope, ck_cache, kr_cache, cache_dtype,   \
+                                        tl, tp, pp, pl, po, pc, o, T_, H, bs, tb,         \
+                                        page_slots, scale, st); }
   if (dtype == 0)
     return by_geometry(R, P, DYN_RAGGED(float, 512, 64), DYN_RAGGED(float, 32, 8));
   if (dtype == 1)

@@ -10,6 +10,15 @@
 //   window, pos > that - window) of q.k / sqrt(D), times V, read through the
 //   sequence's block table from the [N, bs, KVH, D] cache.
 //
+// Cache dtypes: q and out are float32 or bf16, the cache any of
+//   attention_common.cuh's CacheType (the TPU kernel upcasts its cache at
+//   load).  An fp8 cache (e4m3fn, e5m2) under bf16 queries takes the split
+//   walk below: each warp's ring holds the raw fp8 sub-tiles (16 elements a
+//   16-byte copy, half the bytes of bf16), and each lane converts the
+//   chunks it copied to bf16 in a tile beside the ring (exact) before the
+//   same ldmatrix and mma.sync products.  A float16 cache takes the
+//   CUDA-core loop, converting on load.
+//
 // Bound: HBM bytes.  A step reads every visible K and V row once
 //   (sum_b ctx_b * KVH * D * 2 * sizeof) and does 4 flops per cached
 //   element per query head, far below the card's flop-to-byte ratio.  So
@@ -43,8 +52,9 @@
 //     with the reference's contract: masked scores NEG_INF, their
 //     exponentials 0, the denominator clamped at 1e-20.  The warps' states
 //     merge through shared memory at the end.
-//   Float32 caches and head dim 16 (the test geometry) keep the CUDA-core
-//   tile loop of attention_common.cuh: one CTA per (sequence, kv head).
+//   Float32 queries, float32 and float16 caches and head dim 16 (the test
+//   geometry) keep the CUDA-core tile loop of attention_common.cuh: one
+//   CTA per (sequence, kv head).
 //   The TPU kernel's pages_per_step has no counterpart: the output does not
 //   depend on it.
 
@@ -58,13 +68,11 @@ using dyn::NEG_INF;
 namespace tc = dyn::tc;
 
 // ---------------------------------------------------------------------------
-// float32 caches and head dim 16: the CUDA-core tile loop
+// float32 queries or caches, float16 caches and head dim 16: the CUDA-core
+// tile loop
 // ---------------------------------------------------------------------------
 
-template <typename T>
 struct TableKeys {
-  const T* k_cache;
-  const T* v_cache;
   const int* table;  // this sequence's block-table row
   int bs, kvh, head, D;
   __device__ size_t row(int key) const {
@@ -96,8 +104,9 @@ __device__ inline KeySpan window_keys(int ctx_in, int W, int bs, int max_blocks,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(dyn::THREADS)
-window_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-              const T* __restrict__ v_cache, const int* __restrict__ block_tables,
+window_kernel(const T* __restrict__ q, const void* __restrict__ k_cache,
+              const void* __restrict__ v_cache, int code,
+              const int* __restrict__ block_tables,
               const int* __restrict__ context_lens, T* __restrict__ out, int W,
               int H, int KVH, int bs, int max_blocks, int sliding_window) {
   extern __shared__ float smem_raw[];
@@ -118,10 +127,10 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     s.row_pos[r] = ctx_in - W + r / groups;
     s.row_lane[r] = 0;
   }
-  TableKeys<T> keys{k_cache, v_cache, block_tables + (size_t)b * max_blocks,
-                    bs, KVH, head, D};
+  TableKeys keys{block_tables + (size_t)b * max_blocks, bs, KVH, head, D};
   const float scale = 1.0f / sqrtf((float)D);
-  dyn::attend<T, D>(s, rows, keys, span.begin, span.end, sliding_window, scale,
+  dyn::attend<D>(s, rows, k_cache, v_cache, code, keys, span.begin, span.end,
+                 sliding_window, scale,
                     [&](int r) {
                       const int w = r / groups, g = r % groups;
                       return out + (((size_t)b * W + w) * H + head * groups + g) * D;
@@ -129,7 +138,7 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* tables,
+int launch(const void* q, const void* k, const void* v, int code, const int* tables,
            const int* lens, void* out, int B, int W, int H, int KVH, int bs,
            int max_blocks, int sliding_window, cudaStream_t stream) {
   const int rows = W * (H / KVH);
@@ -139,20 +148,20 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, KVH);
   kernel<<<grid, dyn::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      tables, lens, static_cast<T*>(out), W, H, KVH, bs, max_blocks, sliding_window);
+      static_cast<const T*>(q), k, v, code, tables, lens, static_cast<T*>(out), W, H, KVH,
+      bs, max_blocks, sliding_window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v,
+int dispatch_d(int D, const void* q, const void* k, const void* v, int code,
                const int* tables, const int* lens, void* out, int B, int W,
                int H, int KVH, int bs, int max_blocks, int sliding_window,
                cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
-    case 64: return launch<T, 64>(q, k, v, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
-    case 128: return launch<T, 128>(q, k, v, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
+    case 16: return launch<T, 16>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
+    case 64: return launch<T, 64>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
+    case 128: return launch<T, 128>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
     default: return dyn::ERR_UNSUPPORTED;
   }
 }
@@ -169,14 +178,19 @@ constexpr int ROWS_CTA = 32;  // query rows one CTA holds: two 16-row MMA tiles
 constexpr int MAX_SPLITS = 64;  // splits a (sequence, kv head) may have (the combine's)
 
 // Shared memory: the CTA's query rows, then each warp's ring of K/V
-// sub-tiles, which the warps' final states overwrite for their merge.
-template <int D>
+// sub-tiles, which the warps' final states overwrite for their merge.  An
+// fp8 cache's ring holds raw sub-tiles (RAW bytes a stage: K then V rows
+// of D bytes) followed by one bf16 K/V tile the warp converts them into.
+template <int D, bool FP8>
 struct TcLayout {
   static constexpr int STR = D + 8;  // bf16 row stride: 16-byte rows, ldmatrix without conflicts
   static constexpr int SUB_ELEMS = SUB * STR;
   static constexpr int MSTR = D + 4;  // float row stride of a warp's acc in the merge
+  static constexpr int RAW = 2 * SUB * D;  // bytes of a raw fp8 stage
+  static constexpr size_t WARP_RING = FP8 ? (size_t)STAGES * RAW + 2 * SUB_ELEMS * sizeof(bf16)
+                                          : (size_t)STAGES * 2 * SUB_ELEMS * sizeof(bf16);
   static constexpr size_t Q_BYTES = (size_t)ROWS_CTA * STR * sizeof(bf16);
-  static constexpr size_t RING_BYTES = (size_t)TC_WARPS * STAGES * 2 * SUB_ELEMS * sizeof(bf16);
+  static constexpr size_t RING_BYTES = (size_t)TC_WARPS * WARP_RING;
   // acc [warps][rows][MSTR], m and l [warps][rows], merge weights [rows][warps], L [rows]
   static constexpr size_t MERGE_BYTES =
       ((size_t)TC_WARPS * ROWS_CTA * (MSTR + 2) + ROWS_CTA * (TC_WARPS + 1)) * sizeof(float);
@@ -204,14 +218,16 @@ __device__ inline SplitRange used_splits(const KeySpan& span, int chunk_keys) {
   return {span.begin / chunk_keys, (span.end - 1) / chunk_keys};
 }
 
-template <int D, int MT>
+// FP8: the cache is fp8 (e5m2 when `e5m2`, else e4m3fn), otherwise bf16.
+template <int D, int MT, bool FP8>
 __global__ void __launch_bounds__(TC_THREADS, 2)
-window_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
-                 const bf16* __restrict__ v_cache, const int* __restrict__ block_tables,
+window_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k_cache,
+                 const void* __restrict__ v_cache, bool e5m2,
+                 const int* __restrict__ block_tables,
                  const int* __restrict__ context_lens, bf16* __restrict__ out,
                  Partials part, int W, int H, int KVH, int bs, int max_blocks,
                  int sliding_window, int chunk_pages, float scale_log2) {
-  using L = TcLayout<D>;
+  using L = TcLayout<D, FP8>;
   constexpr int STR = L::STR;
   constexpr int KS = D / 16;  // MMA K steps of the scores; pairs of N tiles of P.V
   extern __shared__ __align__(16) char smem[];
@@ -241,7 +257,10 @@ window_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
   const int kb = max(s * chunk_keys, span.begin), ke = min((s + 1) * chunk_keys, span.end);
 
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L::Q_BYTES) + (size_t)warp * STAGES * 2 * L::SUB_ELEMS;
+  char* wring = smem + L::Q_BYTES + (size_t)warp * L::WARP_RING;
+  bf16* ring = reinterpret_cast<bf16*>(wring);
+  // fp8: the bf16 tile the warp converts each raw sub-tile into
+  bf16* conv = reinterpret_cast<bf16*>(wring + (size_t)STAGES * L::RAW);
   const int* table = block_tables + (size_t)b * max_blocks;
   const int n_sub = tc::ceil_div(ke - kb, SUB);
   const int mine = n_sub > warp ? tc::ceil_div(n_sub - warp, TC_WARPS) : 0;
@@ -252,18 +271,26 @@ window_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
     const int key = kb + (warp + n * TC_WARPS) * SUB + (lane & 15);
     return n < mine && key < ke ? table[key / bs] * bs + key % bs : -1;
   };
+  constexpr int EL = FP8 ? 16 : 8;  // elements a 16-byte chunk
+  constexpr int CH = D / EL;          // 16-byte chunks a row
   auto issue = [&](int n, int my_row) {
     if (n < mine) {
-      bf16* kd = ring + (n % STAGES) * 2 * L::SUB_ELEMS;
-      bf16* vd = kd + L::SUB_ELEMS;
-      constexpr int CH = D / 8;  // 16-byte chunks a row
 #pragma unroll
       for (int i = lane; i < SUB * CH; i += 32) {
         const int j = i / CH, c = i % CH;
         const int row = __shfl_sync(tc::FULL, my_row, j);
-        const size_t off = row >= 0 ? ((size_t)row * KVH + head) * D + c * 8 : 0;
-        tc::cp_async16(kd + j * STR + c * 8, k_cache + off, row >= 0);
-        tc::cp_async16(vd + j * STR + c * 8, v_cache + off, row >= 0);
+        const size_t off = row >= 0 ? ((size_t)row * KVH + head) * D + c * EL : 0;
+        if (FP8) {
+          uint8_t* kd = reinterpret_cast<uint8_t*>(wring) + (n % STAGES) * L::RAW;
+          tc::cp_async16(kd + j * D + c * 16, static_cast<const uint8_t*>(k_cache) + off, row >= 0);
+          tc::cp_async16(kd + (SUB + j) * D + c * 16, static_cast<const uint8_t*>(v_cache) + off,
+                         row >= 0);
+        } else {
+          bf16* kd = ring + (n % STAGES) * 2 * L::SUB_ELEMS;
+          tc::cp_async16(kd + j * STR + c * 8, static_cast<const bf16*>(k_cache) + off, row >= 0);
+          tc::cp_async16(kd + L::SUB_ELEMS + j * STR + c * 8,
+                         static_cast<const bf16*>(v_cache) + off, row >= 0);
+        }
       }
     }
     tc::cp_async_commit();  // one group a sub-tile, empty past the last
@@ -308,8 +335,22 @@ window_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
     issue(n + STAGES - 1, row_ahead);
     row_ahead = lookup(n + STAGES);
     tc::cp_async_wait<STAGES - 1>();
+    if (FP8) {  // this lane's own chunks of the raw sub-tile, to bf16
+      const uint8_t* raw = reinterpret_cast<const uint8_t*>(wring) + (n % STAGES) * L::RAW;
+#pragma unroll
+      for (int i = lane; i < SUB * CH; i += 32) {
+        const int j = i / CH, c = i % CH;
+        uint4 o[2];
+        dyn::fp8x16_to_bf16(*reinterpret_cast<const uint4*>(raw + j * D + c * 16), e5m2, o);
+        *reinterpret_cast<uint4*>(conv + j * STR + c * 16) = o[0];
+        *reinterpret_cast<uint4*>(conv + j * STR + c * 16 + 8) = o[1];
+        dyn::fp8x16_to_bf16(*reinterpret_cast<const uint4*>(raw + (SUB + j) * D + c * 16), e5m2, o);
+        *reinterpret_cast<uint4*>(conv + L::SUB_ELEMS + j * STR + c * 16) = o[0];
+        *reinterpret_cast<uint4*>(conv + L::SUB_ELEMS + j * STR + c * 16 + 8) = o[1];
+      }
+    }
     __syncwarp();
-    const bf16* ks = ring + (n % STAGES) * 2 * L::SUB_ELEMS;
+    const bf16* ks = FP8 ? conv : ring + (n % STAGES) * 2 * L::SUB_ELEMS;
     const bf16* vs = ks + L::SUB_ELEMS;
     const int key0 = kb + (warp + n * TC_WARPS) * SUB;
 
@@ -465,22 +506,22 @@ window_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
   out[(((size_t)b * W + w) * H + head * G + g) * D + tid] = __float2bfloat16(a / fmaxf(Ls, 1e-20f));
 }
 
-template <int D, int MT>
-int launch_tc(const void* q, const void* k, const void* v, const int* tables, const int* lens,
-              void* out, float* part_acc, float* part_ml, int B, int W, int H, int KVH,
-              int bs, int max_blocks, int sliding_window, int splits, int chunk_pages,
+template <int D, int MT, bool FP8>
+int launch_tc(const void* q, const void* k, const void* v, bool e5m2, const int* tables,
+              const int* lens, void* out, float* part_acc, float* part_ml, int B, int W, int H,
+              int KVH, int bs, int max_blocks, int sliding_window, int splits, int chunk_pages,
               cudaStream_t stream) {
-  using L = TcLayout<D>;
-  auto kernel = window_tc_kernel<D, MT>;
+  using L = TcLayout<D, FP8>;
+  auto kernel = window_tc_kernel<D, MT, FP8>;
   cudaError_t err = dyn::allow_smem(kernel, L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const int rows = W * (H / KVH);
   const int row_groups = (rows + ROWS_CTA - 1) / ROWS_CTA;
   const float scale_log2 = tc::LOG2E / sqrtf((float)D);
   kernel<<<dim3(splits, KVH * row_groups, B), TC_THREADS, L::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      tables, lens, static_cast<bf16*>(out), Partials{part_acc, part_ml}, W, H, KVH, bs,
-      max_blocks, sliding_window, chunk_pages, scale_log2);
+      static_cast<const bf16*>(q), k, v, e5m2, tables, lens, static_cast<bf16*>(out),
+      Partials{part_acc, part_ml}, W, H, KVH, bs, max_blocks, sliding_window, chunk_pages,
+      scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   window_combine_kernel<D><<<dim3(rows, KVH, B), D, 0, stream>>>(
@@ -489,55 +530,71 @@ int launch_tc(const void* q, const void* k, const void* v, const int* tables, co
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch_tc(const void* q, const void* k, const void* v, const int* tables,
+template <int D, bool FP8>
+int dispatch_mt(const void* q, const void* k, const void* v, bool e5m2, const int* tables,
                 const int* lens, void* out, float* part_acc, float* part_ml, int B, int W,
                 int H, int KVH, int bs, int max_blocks, int sliding_window, int splits,
                 int chunk_pages, cudaStream_t stream) {
   // rows a CTA holds: min(W * H/KVH, 32), in one or two 16-row MMA tiles
   if (W * (H / KVH) <= 16)
-    return launch_tc<D, 1>(q, k, v, tables, lens, out, part_acc, part_ml, B, W, H, KVH, bs,
-                           max_blocks, sliding_window, splits, chunk_pages, stream);
-  return launch_tc<D, 2>(q, k, v, tables, lens, out, part_acc, part_ml, B, W, H, KVH, bs,
-                         max_blocks, sliding_window, splits, chunk_pages, stream);
+    return launch_tc<D, 1, FP8>(q, k, v, e5m2, tables, lens, out, part_acc, part_ml, B, W, H,
+                                KVH, bs, max_blocks, sliding_window, splits, chunk_pages, stream);
+  return launch_tc<D, 2, FP8>(q, k, v, e5m2, tables, lens, out, part_acc, part_ml, B, W, H, KVH,
+                              bs, max_blocks, sliding_window, splits, chunk_pages, stream);
+}
+
+template <int D>
+int dispatch_tc(const void* q, const void* k, const void* v, int code, const int* tables,
+                const int* lens, void* out, float* part_acc, float* part_ml, int B, int W,
+                int H, int KVH, int bs, int max_blocks, int sliding_window, int splits,
+                int chunk_pages, cudaStream_t stream) {
+  if (dyn::is_fp8(code))
+    return dispatch_mt<D, true>(q, k, v, code == dyn::E5M2, tables, lens, out, part_acc,
+                                part_ml, B, W, H, KVH, bs, max_blocks, sliding_window, splits,
+                                chunk_pages, stream);
+  return dispatch_mt<D, false>(q, k, v, false, tables, lens, out, part_acc, part_ml, B, W, H,
+                               KVH, bs, max_blocks, sliding_window, splits, chunk_pages, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
-// sliding_window <= 0 means full attention.  bf16 at head dims 64 and 128
-// takes the split walk: `splits` CTAs a (sequence, kv head) over chunks of
+// dtype: q and out, 0 = float32, 1 = bfloat16; cache_dtype: the caches, a
+// CacheType code (attention_common.cuh).  sliding_window <= 0 means full
+// attention.  bf16 queries at head dims 64 and 128 over a bf16 or fp8 cache
+// take the split walk: `splits` CTAs a (sequence, kv head) over chunks of
 // `chunk_pages` pages (splits * chunk_pages >= max_blocks); with splits > 1,
 // part_acc [B, KVH, splits, W*H/KVH, D] and part_ml [2, B, KVH, splits,
-// W*H/KVH] are float32 scratch.  Other cases ignore the three.  Returns 0
-// or an error code.
+// W*H/KVH] are float32 scratch.  Other cases take the CUDA-core loop and
+// ignore the three.  Returns 0 or an error code.
 extern "C" int dyn_paged_window_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* block_tables, const void* context_lens, void* out, void* part_acc,
     void* part_ml, int B, int W, int H, int KVH, int D, int bs, int max_blocks,
-    int sliding_window, int splits, int chunk_pages, int dtype, void* stream) {
+    int sliding_window, int splits, int chunk_pages, int dtype, int cache_dtype,
+    void* stream) {
   if (B == 0) return 0;
   if (KVH <= 0 || H % KVH || W * (H / KVH) > dyn::MAX_ROWS) return dyn::ERR_UNSUPPORTED;
+  if (cache_dtype < dyn::F32 || cache_dtype > dyn::E5M2) return dyn::ERR_UNSUPPORTED;
   const int* tables = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(context_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k_cache, v_cache, tables, lens, out, B, W, H,
+  const bool walk = dtype == dyn::BF16 && (D == 64 || D == 128) &&
+                    (cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype));
+  if (dtype == dyn::F32)
+    return dispatch_d<float>(D, q, k_cache, v_cache, cache_dtype, tables, lens, out, B, W, H,
                              KVH, bs, max_blocks, sliding_window, st);
-  if (dtype != 1) return dyn::ERR_UNSUPPORTED;
-  if (D == 16)
-    return launch<__nv_bfloat16, 16>(q, k_cache, v_cache, tables, lens, out, B, W, H, KVH,
-                                     bs, max_blocks, sliding_window, st);
+  if (dtype != dyn::BF16) return dyn::ERR_UNSUPPORTED;
+  if (!walk)
+    return dispatch_d<bf16>(D, q, k_cache, v_cache, cache_dtype, tables, lens, out, B, W, H,
+                            KVH, bs, max_blocks, sliding_window, st);
   if (splits < 1 || chunk_pages < 1 || (long)splits * chunk_pages < max_blocks ||
       splits > MAX_SPLITS || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return dyn::ERR_UNSUPPORTED;
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   if (D == 64)
-    return dispatch_tc<64>(q, k_cache, v_cache, tables, lens, out, pa, pm, B, W, H, KVH, bs,
-                           max_blocks, sliding_window, splits, chunk_pages, st);
-  if (D == 128)
-    return dispatch_tc<128>(q, k_cache, v_cache, tables, lens, out, pa, pm, B, W, H, KVH, bs,
-                            max_blocks, sliding_window, splits, chunk_pages, st);
-  return dyn::ERR_UNSUPPORTED;
+    return dispatch_tc<64>(q, k_cache, v_cache, cache_dtype, tables, lens, out, pa, pm, B, W, H,
+                           KVH, bs, max_blocks, sliding_window, splits, chunk_pages, st);
+  return dispatch_tc<128>(q, k_cache, v_cache, cache_dtype, tables, lens, out, pa, pm, B, W, H,
+                          KVH, bs, max_blocks, sliding_window, splits, chunk_pages, st);
 }

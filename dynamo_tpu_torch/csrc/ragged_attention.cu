@@ -18,11 +18,16 @@
 //   in the flat axis, so the first token block of a unified step lists every
 //   decode lane's pages: one block can hold most of a step's bytes.
 //
-// Routes, chosen by shape (neither is a fallback of the other):
-//   - bf16 caches at head dims 64 and 128, block sizes a multiple of 16 and
-//     tb * H/KVH <= 64 query rows: the balanced tensor-core walk below;
-//   - float32 caches and head dim 16 (the tiny test geometry): the CUDA-core
-//     tile loop of attention_common.cuh, one CTA per (token block, kv head).
+// Routes, chosen by shape and dtype (neither is a fallback of the other):
+//   - bf16 queries over a bf16 or fp8 (e4m3fn, e5m2) cache at head dims 64
+//     and 128, block sizes a multiple of 16 and tb * H/KVH <= 64 query
+//     rows: the balanced tensor-core walk below.  An fp8 cache's stages
+//     arrive raw (16 elements a 16-byte copy, half the bytes), and each
+//     thread converts the chunks it copied to bf16 into one stage beside
+//     the ring (exact) behind a CTA barrier, before the same products;
+//   - float32 queries, float32 and float16 caches and head dim 16 (the tiny
+//     test geometry): the CUDA-core tile loop of attention_common.cuh,
+//     converting the cache on load, one CTA per (token block, kv head).
 //   Any other shape is refused (dyn::ERR_UNSUPPORTED).
 //
 // Tensor-core walk (ragged_tc_kernel):
@@ -75,13 +80,11 @@ using dyn::NEG_INF;
 namespace tc = dyn::tc;
 
 // ---------------------------------------------------------------------------
-// float32 caches and head dim 16: the CUDA-core tile loop
+// float32 queries or caches, float16 caches and head dim 16: the CUDA-core
+// tile loop
 // ---------------------------------------------------------------------------
 
-template <typename T>
 struct WorklistKeys {
-  const T* k_cache;
-  const T* v_cache;
   const int* phys;  // this token block's worklist rows
   const int* lanes;
   const int* ords;
@@ -99,8 +102,8 @@ struct WorklistKeys {
 // masks each (row, key) by the row's own lane and position.
 template <typename T, int D>
 __global__ void __launch_bounds__(dyn::THREADS)
-ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-              const T* __restrict__ v_cache, const int* __restrict__ token_lane,
+ragged_kernel(const T* __restrict__ q, const void* __restrict__ k_cache,
+              const void* __restrict__ v_cache, int code, const int* __restrict__ token_lane,
               const int* __restrict__ token_pos, const int* __restrict__ page_phys,
               const int* __restrict__ page_lane, const int* __restrict__ page_ord,
               const int* __restrict__ page_count, T* __restrict__ out, int H,
@@ -125,10 +128,9 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 
   const size_t wl = (size_t)t * page_slots;
   const int count = min(page_count[t], page_slots);
-  WorklistKeys<T> keys{k_cache, v_cache, page_phys + wl, page_lane + wl,
-                       page_ord + wl, bs, KVH, head, D};
+  WorklistKeys keys{page_phys + wl, page_lane + wl, page_ord + wl, bs, KVH, head, D};
   const float scale = 1.0f / sqrtf((float)D);
-  dyn::attend<T, D>(s, rows, keys, 0, count * bs, sliding_window, scale,
+  dyn::attend<D>(s, rows, k_cache, v_cache, code, keys, 0, count * bs, sliding_window, scale,
                     [&](int r) {
                       const int tok = t * tb + r / groups, g = r % groups;
                       return out + ((size_t)tok * H + head * groups + g) * D;
@@ -136,7 +138,7 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* tl,
+int launch(const void* q, const void* k, const void* v, int code, const int* tl,
            const int* tp, const int* pp, const int* pl, const int* po,
            const int* pc, void* out, int T_, int H, int KVH, int bs, int tb,
            int page_slots, int sliding_window, cudaStream_t stream) {
@@ -147,21 +149,20 @@ int launch(const void* q, const void* k, const void* v, const int* tl,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T_ / tb, KVH);
   kernel<<<grid, dyn::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      tl, tp, pp, pl, po, pc, static_cast<T*>(out), H, KVH, bs, tb, page_slots,
-      sliding_window);
+      static_cast<const T*>(q), k, v, code, tl, tp, pp, pl, po, pc, static_cast<T*>(out), H,
+      KVH, bs, tb, page_slots, sliding_window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, const int* tl,
+int dispatch_d(int D, const void* q, const void* k, const void* v, int code, const int* tl,
                const int* tp, const int* pp, const int* pl, const int* po,
                const int* pc, void* out, int T_, int H, int KVH, int bs, int tb,
                int page_slots, int sliding_window, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
-    case 64: return launch<T, 64>(q, k, v, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
-    case 128: return launch<T, 128>(q, k, v, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
+    case 16: return launch<T, 16>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
+    case 64: return launch<T, 64>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
+    case 128: return launch<T, 128>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
     default: return dyn::ERR_UNSUPPORTED;
   }
 }
@@ -182,40 +183,52 @@ constexpr int MAX_ITEMS_PER_BLOCK = 64;  // items a token block may have (the co
 // then the combines
 //   (token block, first slot, slots, unused).
 
-template <int D, int MT>
+// FP8: the ring holds raw fp8 stages (RAW bytes: K then V rows of D
+// bytes) and, after them, the one bf16 stage (K then V) they convert into.
+template <int D, int MT, bool FP8>
 struct RaggedLayout {
   static constexpr int WPT = TC_WARPS / MT;     // warps a tile = sub-tiles a stage
   static constexpr int STAGE_KEYS = SUB * WPT;
   static constexpr int STR = D + 8;             // bf16 row stride: ldmatrix without conflicts
-  static constexpr int CH = D / 8;              // 16-byte chunks a row
+  static constexpr int QCH = D / 8;             // 16-byte chunks a bf16 query row
+  static constexpr int EL = FP8 ? 16 : 8;       // cache elements a 16-byte chunk
+  static constexpr int CH = D / EL;             // 16-byte chunks a cache row
   static constexpr int ROW_STEP = TC_THREADS / CH;
-  static constexpr int LOADS = STAGE_KEYS / ROW_STEP;  // K (and V) rows a thread copies a stage
+  // K (and V) rows a thread copies a stage: row tid / CH + i * ROW_STEP,
+  // column tid % CH; a row past the stage is no copy (an fp8 stage of 16
+  // keys at D 64 has 64 chunks for 128 threads)
+  static constexpr int LOADS = (STAGE_KEYS + ROW_STEP - 1) / ROW_STEP;
   static constexpr int MSTR = D + 4;            // float row stride of a warp's acc in the merge
   static constexpr int ROWS = MT * 16;
+  static constexpr int RAW = 2 * STAGE_KEYS * D;  // bytes of a raw fp8 stage
+  static constexpr size_t BF16_STAGE = (size_t)2 * STAGE_KEYS * STR * sizeof(bf16);
   static constexpr size_t Q_BYTES = (size_t)ROWS * STR * sizeof(bf16);
-  static constexpr size_t RING_BYTES = (size_t)STAGES * 2 * STAGE_KEYS * STR * sizeof(bf16);
+  static constexpr size_t RING_BYTES = FP8 ? (size_t)STAGES * RAW + BF16_STAGE
+                                           : (size_t)STAGES * BF16_STAGE;
   // acc [warps][16][MSTR], then m and l [warps][16]
   static constexpr size_t MERGE_BYTES = (size_t)TC_WARPS * 16 * (MSTR + 2) * sizeof(float);
   static constexpr size_t BODY_BYTES = RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES;
   static constexpr size_t META_BYTES = (size_t)STAGES * WPT * sizeof(int2);
   static constexpr size_t BYTES = Q_BYTES + BODY_BYTES + META_BYTES;
-  static_assert(LOADS >= 1 && STAGE_KEYS % ROW_STEP == 0, "a stage's rows spread over the threads");
+  static_assert(TC_THREADS % CH == 0 && (STAGE_KEYS % ROW_STEP == 0 || LOADS == 1),
+                "a stage's rows spread over the threads");
 };
 
 // Three CTAs an SM (registers capped at 170 a thread; shared memory allows
 // three at MT 2): a long prefill span, one item a token block, is bound by
 // the walk's issue and latency, and the third CTA hides more of both.
-template <int D, int MT>
+// FP8: the cache is fp8 (e5m2 when `e5m2`, else e4m3fn), otherwise bf16.
+template <int D, int MT, bool FP8>
 __global__ void __launch_bounds__(TC_THREADS, 3)
-ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
-                 const bf16* __restrict__ v_cache, const int* __restrict__ token_lane,
+ragged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k_cache,
+                 const void* __restrict__ v_cache, bool e5m2, const int* __restrict__ token_lane,
                  const int* __restrict__ token_pos, const int* __restrict__ page_phys,
                  const int* __restrict__ page_lane, const int* __restrict__ page_ord,
                  const int* __restrict__ page_count, const int4* __restrict__ work,
                  bf16* __restrict__ out, float* __restrict__ part_acc,
                  float* __restrict__ part_ml, int cap_partials, int H, int KVH, int bs,
                  int tb, int page_slots, int sliding_window, float scale_log2) {
-  using L = RaggedLayout<D, MT>;
+  using L = RaggedLayout<D, MT, FP8>;
   constexpr int STR = L::STR, KS = D / 16;
   extern __shared__ __align__(16) char smem[];
   if (work && (int)blockIdx.y >= work[0].x) return;  // past the live items
@@ -234,18 +247,23 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
 
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ring = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
+  uint8_t* raw_ring = reinterpret_cast<uint8_t*>(smem + L::Q_BYTES);  // fp8
+  bf16* conv = reinterpret_cast<bf16*>(smem + L::Q_BYTES + (size_t)STAGES * L::RAW);  // fp8
   int2* meta = reinterpret_cast<int2*>(smem + L::Q_BYTES + L::BODY_BYTES);
   auto row_off = [&](int r) {  // q and out are [T, H, D]
     return ((size_t)(t * tb + r / G) * H + head * G + r % G) * D;
   };
 
   // this thread's K/V rows of stage n (key row j = tid / CH + i * ROW_STEP
-  // of the stage): cache row page * bs + offset, -1 past the walk
+  // of the stage, if below STAGE_KEYS): cache row page * bs + offset, -1
+  // past the walk
+  auto my_row = [&](int i) { return tid / L::CH + i * L::ROW_STEP; };
   auto lookup = [&](int n, int (&rid)[L::LOADS]) {
 #pragma unroll
     for (int i = 0; i < L::LOADS; ++i) {
-      const int key = kb + n * L::STAGE_KEYS + tid / L::CH + i * L::ROW_STEP;
-      rid[i] = n < n_stages && key < ke ? page_phys[wl + key / bs] * bs + key % bs : -1;
+      const int key = kb + n * L::STAGE_KEYS + my_row(i);
+      rid[i] = n < n_stages && key < ke && my_row(i) < L::STAGE_KEYS
+                   ? page_phys[wl + key / bs] * bs + key % bs : -1;
     }
   };
   // sub-tile tid's (lane, position of its first key) of stage n, for tid <
@@ -258,15 +276,25 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
   };
   auto issue = [&](int n, const int (&rid)[L::LOADS], int2 sub_meta) {
     if (n < n_stages) {
-      bf16* kd = ring + (size_t)(n % STAGES) * 2 * L::STAGE_KEYS * STR;
-      bf16* vd = kd + L::STAGE_KEYS * STR;
       const int c = tid % L::CH;
 #pragma unroll
       for (int i = 0; i < L::LOADS; ++i) {
-        const int j = tid / L::CH + i * L::ROW_STEP;
-        const size_t off = rid[i] >= 0 ? ((size_t)rid[i] * KVH + head) * D + c * 8 : 0;
-        tc::cp_async16(kd + j * STR + c * 8, k_cache + off, rid[i] >= 0);
-        tc::cp_async16(vd + j * STR + c * 8, v_cache + off, rid[i] >= 0);
+        const int j = my_row(i);
+        if (j >= L::STAGE_KEYS) break;
+        const size_t off = rid[i] >= 0 ? ((size_t)rid[i] * KVH + head) * D + c * L::EL : 0;
+        if (FP8) {
+          uint8_t* kd = raw_ring + (size_t)(n % STAGES) * L::RAW;
+          tc::cp_async16(kd + j * D + c * 16, static_cast<const uint8_t*>(k_cache) + off,
+                         rid[i] >= 0);
+          tc::cp_async16(kd + (L::STAGE_KEYS + j) * D + c * 16,
+                         static_cast<const uint8_t*>(v_cache) + off, rid[i] >= 0);
+        } else {
+          bf16* kd = ring + (size_t)(n % STAGES) * 2 * L::STAGE_KEYS * STR;
+          tc::cp_async16(kd + j * STR + c * 8, static_cast<const bf16*>(k_cache) + off,
+                         rid[i] >= 0);
+          tc::cp_async16(kd + (L::STAGE_KEYS + j) * STR + c * 8,
+                         static_cast<const bf16*>(v_cache) + off, rid[i] >= 0);
+        }
       }
       if (tid < L::WPT) meta[(n % STAGES) * L::WPT + tid] = sub_meta;
     }
@@ -283,8 +311,8 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
   int2 meta_ahead = lookup_meta(STAGES - 1);
 
   // the CTA's query rows, bf16, zero rows past the block's
-  for (int i = tid; i < L::ROWS * L::CH; i += TC_THREADS) {
-    const int r = i / L::CH, c = i % L::CH;
+  for (int i = tid; i < L::ROWS * L::QCH; i += TC_THREADS) {
+    const int r = i / L::QCH, c = i % L::QCH;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows) v = *reinterpret_cast<const uint4*>(q + row_off(r) + c * 8);
     *reinterpret_cast<uint4*>(qs + r * STR + c * 8) = v;
@@ -318,6 +346,24 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
     issue(n + STAGES - 1, rid, meta_ahead);
     lookup(n + STAGES, rid);
     meta_ahead = lookup_meta(n + STAGES);
+    if (FP8) {  // this thread's own chunks of raw stage n to the bf16 stage
+      const uint8_t* raw = raw_ring + (size_t)(n % STAGES) * L::RAW;
+      const int c = tid % L::CH;
+#pragma unroll
+      for (int i = 0; i < L::LOADS; ++i) {
+        const int j = my_row(i);
+        if (j >= L::STAGE_KEYS) break;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const int row = kv * L::STAGE_KEYS + j;
+          uint4 o[2];
+          dyn::fp8x16_to_bf16(*reinterpret_cast<const uint4*>(raw + row * D + c * 16), e5m2, o);
+          *reinterpret_cast<uint4*>(conv + row * STR + c * 16) = o[0];
+          *reinterpret_cast<uint4*>(conv + row * STR + c * 16 + 8) = o[1];
+        }
+      }
+      __syncthreads();  // the bf16 stage is whole
+    }
 
     const int2 sub = meta[(n % STAGES) * L::WPT + phase];
     const int key_lane = sub.x, pos0 = sub.y;
@@ -330,7 +376,8 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
     }
     if (!__any_sync(tc::FULL, sees)) continue;  // no row of this tile sees the sub-tile
 
-    const bf16* ks = ring + (size_t)(n % STAGES) * 2 * L::STAGE_KEYS * STR + phase * SUB * STR;
+    const bf16* ks = (FP8 ? conv : ring + (size_t)(n % STAGES) * 2 * L::STAGE_KEYS * STR) +
+                     phase * SUB * STR;
     const bf16* vs = ks + L::STAGE_KEYS * STR;
     // S = Q K^T: [16 rows, 16 keys] as two N tiles of 8 keys
     float sc[2][4];
@@ -458,22 +505,21 @@ ragged_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
   out[o] = __float2bfloat16(a / fmaxf(Ls, 1e-20f));
 }
 
-template <int D, int MT>
-int launch_tc(const void* q, const void* k, const void* v, const int* tl, const int* tp,
-              const int* pp, const int* pl, const int* po, const int* pc, void* out,
-              const int4* work, int cap_items, int cap_combines, float* part_acc,
+template <int D, int MT, bool FP8>
+int launch_tc(const void* q, const void* k, const void* v, bool e5m2, const int* tl,
+              const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
+              void* out, const int4* work, int cap_items, int cap_combines, float* part_acc,
               float* part_ml, int cap_partials, int H, int KVH, int bs, int tb,
               int page_slots, int sliding_window, cudaStream_t stream) {
-  using L = RaggedLayout<D, MT>;
-  auto kernel = ragged_tc_kernel<D, MT>;
+  using L = RaggedLayout<D, MT, FP8>;
+  auto kernel = ragged_tc_kernel<D, MT, FP8>;
   cudaError_t err = dyn::allow_smem(kernel, L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = tc::LOG2E / sqrtf((float)D);
   bf16* o = static_cast<bf16*>(out);
   kernel<<<dim3(KVH, cap_items), TC_THREADS, L::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      tl, tp, pp, pl, po, pc, work, o, part_acc, part_ml, cap_partials, H, KVH, bs, tb,
-      page_slots, sliding_window, scale_log2);
+      static_cast<const bf16*>(q), k, v, e5m2, tl, tp, pp, pl, po, pc, work, o, part_acc,
+      part_ml, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || cap_combines == 0) return (int)err;
   ragged_combine_kernel<D><<<dim3(tb * (H / KVH), KVH, cap_combines), D, 0, stream>>>(
@@ -481,37 +527,53 @@ int launch_tc(const void* q, const void* k, const void* v, const int* tl, const 
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch_tc(int MT, const void* q, const void* k, const void* v, const int* tl,
+template <int D, bool FP8>
+int dispatch_mt(int MT, const void* q, const void* k, const void* v, bool e5m2, const int* tl,
                 const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
                 void* out, const int4* work, int cap_items, int cap_combines, float* pa,
                 float* pm, int cap_partials, int H, int KVH, int bs, int tb, int page_slots,
                 int sliding_window, cudaStream_t st) {
   switch (MT) {
-    case 1: return launch_tc<D, 1>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
-    case 2: return launch_tc<D, 2>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
-    default: return launch_tc<D, 4>(q, k, v, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    case 1: return launch_tc<D, 1, FP8>(q, k, v, e5m2, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    case 2: return launch_tc<D, 2, FP8>(q, k, v, e5m2, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
+    default: return launch_tc<D, 4, FP8>(q, k, v, e5m2, tl, tp, pp, pl, po, pc, out, work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots, sliding_window, st);
   }
+}
+
+template <int D>
+int dispatch_tc(int MT, const void* q, const void* k, const void* v, int code, const int* tl,
+                const int* tp, const int* pp, const int* pl, const int* po, const int* pc,
+                void* out, const int4* work, int cap_items, int cap_combines, float* pa,
+                float* pm, int cap_partials, int H, int KVH, int bs, int tb, int page_slots,
+                int sliding_window, cudaStream_t st) {
+  if (dyn::is_fp8(code))
+    return dispatch_mt<D, true>(MT, q, k, v, code == dyn::E5M2, tl, tp, pp, pl, po, pc, out,
+                                work, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs,
+                                tb, page_slots, sliding_window, st);
+  return dispatch_mt<D, false>(MT, q, k, v, false, tl, tp, pp, pl, po, pc, out, work, cap_items,
+                               cap_combines, pa, pm, cap_partials, H, KVH, bs, tb, page_slots,
+                               sliding_window, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
-// T_ is a multiple of tb; sliding_window <= 0 means full attention.
-// bf16 at head dims 64 and 128 takes the tensor-core walk over `work`: the
-// plan buffer of cap_items items and cap_combines combines (see above), or,
-// with work null, one item per token block over its whole worklist (the
+// dtype: q and out, 0 = float32, 1 = bfloat16; cache_dtype: the caches, a
+// CacheType code (attention_common.cuh).  T_ is a multiple of tb;
+// sliding_window <= 0 means full attention.  bf16 queries at head dims 64
+// and 128 over a bf16 or fp8 cache take the tensor-core walk over `work`:
+// the plan buffer of cap_items items and cap_combines combines (see above),
+// or, with work null, one item per token block over its whole worklist (the
 // capacities and the scratch are then ignored).  With cap_partials > 0,
 // part_acc [cap_partials, KVH, tb*H/KVH, D] and part_ml [2, cap_partials,
-// KVH, tb*H/KVH] are float32 scratch.  Other cases ignore work and the
-// scratch.  Returns 0 or an error code.
+// KVH, tb*H/KVH] are float32 scratch.  Other cases take the CUDA-core loop
+// and ignore work and the scratch.  Returns 0 or an error code.
 extern "C" int dyn_ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* token_lane, const void* token_pos, const void* page_phys,
     const void* page_lane, const void* page_ord, const void* page_count,
     void* out, const void* work, void* part_acc, void* part_ml, int T_, int H,
     int KVH, int D, int bs, int tb, int page_slots, int sliding_window, int cap_items,
-    int cap_combines, int cap_partials, int dtype, void* stream) {
+    int cap_combines, int cap_partials, int dtype, int cache_dtype, void* stream) {
   if (T_ == 0) return 0;
   if (KVH <= 0 || H % KVH || tb <= 0 || T_ % tb ||
       tb * (H / KVH) > dyn::MAX_ROWS)
@@ -523,13 +585,14 @@ extern "C" int dyn_ragged_paged_attention(
   const int* po = static_cast<const int*>(page_ord);
   const int* pc = static_cast<const int*>(page_count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out,
+  if (cache_dtype < dyn::F32 || cache_dtype > dyn::E5M2) return dyn::ERR_UNSUPPORTED;
+  if (dtype == dyn::F32)
+    return dispatch_d<float>(D, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
                              T_, H, KVH, bs, tb, page_slots, sliding_window, st);
-  if (dtype != 1) return dyn::ERR_UNSUPPORTED;
-  if (D == 16)
-    return launch<bf16, 16>(q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, T_, H, KVH,
-                            bs, tb, page_slots, sliding_window, st);
+  if (dtype != dyn::BF16) return dyn::ERR_UNSUPPORTED;
+  if (D == 16 || !(cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype)))
+    return dispatch_d<bf16>(D, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
+                            T_, H, KVH, bs, tb, page_slots, sliding_window, st);
   if ((D != 64 && D != 128) || bs % SUB) return dyn::ERR_UNSUPPORTED;
   const int4* plan = static_cast<const int4*>(work);
   if (plan == nullptr) {
@@ -545,10 +608,10 @@ extern "C" int dyn_ragged_paged_attention(
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   if (D == 64)
-    return dispatch_tc<64>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, plan,
-                           cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
+    return dispatch_tc<64>(MT, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
+                           plan, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
                            page_slots, sliding_window, st);
-  return dispatch_tc<128>(MT, q, k_cache, v_cache, tl, tp, pp, pl, po, pc, out, plan,
-                          cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
+  return dispatch_tc<128>(MT, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
+                          plan, cap_items, cap_combines, pa, pm, cap_partials, H, KVH, bs, tb,
                           page_slots, sliding_window, st);
 }

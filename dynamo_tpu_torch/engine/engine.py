@@ -48,9 +48,17 @@ more tokens than the largest bucket) is skipped by name to the split step,
 as the reference skips it.  The split prefill and verify steps stay
 eager.
 
-Guided decoding, multimodal prompts, disaggregated prefill, prefetch,
-quantization and multi-device meshes are later slices; the engine refuses
-configurations that would need them.
+The cache may hold a narrower float dtype than the model
+(``kv_cache_dtype``: fp8 e4m3fn or e5m2, float16, ...; every write casts to
+it, every kernel upcasts at load) and the projections may be int8
+weight-only (``quantize="int8"``, ``ops/quant.py``); both keep the unified
+step and its graphs.  Every scheduler iteration feeds the reference's
+utilization accounting (``observability/``: tokens, attended context,
+weight streams, emitted tokens) into ``stats()``'s MFU and bandwidth share.
+
+Guided decoding, multimodal prompts, disaggregated prefill, prefetch and
+multi-device meshes are later slices; the engine refuses configurations
+that would need them.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -85,9 +93,11 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.models.registry import get_family
+from dynamo_tpu_torch.observability import StepTelemetry, UtilizationTracker, model_cost
 from dynamo_tpu_torch.ops.kernels import block_copy
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
+from dynamo_tpu_torch.ops.quant import is_quantized, quantize_params
 from dynamo_tpu_torch.ops.random import fold_in, gumbel
 from dynamo_tpu_torch.ops.sampling import (
     apply_logit_bias,
@@ -156,6 +166,12 @@ class EngineConfig:
     max_model_len: int | None = None
     prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048, 4096)
     seed: int = 0
+    # KV cache storage dtype: None = the model's; a torch dtype, or a name
+    # (resolve_kv_cache_dtype: "fp8" = float8_e4m3fn, "float8_e5m2", "bf16",
+    # "f16", "f32", ...).  fp8 halves the bytes of a bf16 cache; every write
+    # casts to it as the reference's .astype does, and the kernels and plain
+    # versions upcast every read.
+    kv_cache_dtype: object = None
     # "auto": "kernel" on a CUDA device, "plain" on the CPU.  "kernel" builds
     # and loads the CUDA library at construction and raises when it cannot;
     # "plain" is refused on a CUDA device.
@@ -211,11 +227,41 @@ class EngineConfig:
     # (slots from the pre-extended block tables, tokens fed back on the
     # device).  > 1 turns the unified step off.
     decode_steps: int = 1
+    # Weight-only quantization ("int8" | None): the family's quant_leaves
+    # become int8 + per-channel scale (ops/quant.py), dequantized at use.
+    quantize: str | None = None
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
         soft = self.max_model_len or self.model.max_position_embeddings
         return min(soft, self.model.max_position_embeddings, hard)
+
+
+_KV_DTYPE_NAMES = {
+    "fp8": "float8_e4m3fn",
+    "float8": "float8_e4m3fn",
+    "float8_e4m3fn": "float8_e4m3fn",
+    "float8_e5m2": "float8_e5m2",
+    "bf16": "bfloat16",
+    "bfloat16": "bfloat16",
+    "f32": "float32",
+    "float32": "float32",
+    "f16": "float16",
+    "float16": "float16",
+}
+
+
+def resolve_kv_cache_dtype(spec):
+    """None | torch dtype | name -> the dtype the cache is made in (None:
+    the model's)."""
+    if spec is None or not isinstance(spec, str):
+        return spec
+    name = _KV_DTYPE_NAMES.get(spec.lower())
+    if name is None:
+        raise ValueError(
+            f"unknown kv_cache_dtype {spec!r} (want one of {sorted(set(_KV_DTYPE_NAMES))})"
+        )
+    return getattr(torch, name)
 
 
 class TorchLlmEngine:
@@ -258,11 +304,10 @@ class TorchLlmEngine:
             gen = torch.Generator(device=dev)
             gen.manual_seed(config.seed)
             params = self.family.init_params(cfg, gen, dev)
-        self.params = _to_device(params, dev)
-        # the cache holds the model dtype: the kernels take q and cache in
-        # one dtype (narrowed caches come with the quantized slice)
+        self.params = self._maybe_quantize(_to_device(params, dev))
+        self.kv_cache_dtype = resolve_kv_cache_dtype(config.kv_cache_dtype) or cfg.dtype
         self.cache = self.family.init_kv_cache(
-            cfg, config.num_blocks, config.block_size, cfg.dtype, dev
+            cfg, config.num_blocks, config.block_size, self.kv_cache_dtype, dev
         )
         self.cos, self.sin = self.family.make_rope_tables(cfg, dev, self.max_len)
         lanes = config.max_batch_size
@@ -310,6 +355,14 @@ class TorchLlmEngine:
             self._unified_skip("multi_step_decode",
                                "fused multi-step decode windows cannot carry chunks")
             unified = False
+        elif unified and not self.kv_cache_dtype.is_floating_point:
+            # float narrowings (fp8, f16, bf16) keep the unified step: every
+            # kernel and plain version upcasts cache reads and the writes
+            # cast.  A non-float cache has no kernel read path.
+            self._unified_skip(
+                "unsupported_kv_dtype",
+                f"kv_cache_dtype {config.kv_cache_dtype!r} has no unified kernel read path")
+            unified = False
         self.unified_batch = unified
         # the overlapped decode pipeline (EngineConfig.decode_overlap) and
         # its single in-flight window
@@ -356,6 +409,19 @@ class TorchLlmEngine:
         self._sync_windows = 0
         self._decode_steps_total = 0
         self._tokens_emitted = 0
+        # the reference's accounting (engine.py:660-682): the latest step's
+        # snapshot, and the rolling MFU / bandwidth share / goodput from the
+        # cost model of this geometry, quantization and cache dtype; the
+        # step's facts below are reset every scheduler iteration
+        self.step_telemetry = StepTelemetry(lanes)
+        self.utilization = UtilizationTracker(
+            model_cost(cfg, quantize=config.quantize, kv_cache_dtype=config.kv_cache_dtype),
+            device=dev,
+        )
+        self._step_prefill_tokens = 0
+        self._step_decode_tokens = 0
+        self._step_attn_ctx = 0          # attended context positions
+        self._step_weight_streams = 0.0  # full weight passes dispatched
 
         if config.prefetch:
             raise NotImplementedError(
@@ -436,7 +502,8 @@ class TorchLlmEngine:
             planner = None
             if self.family.unified_planner is not None:
                 planner = self.family.unified_planner(
-                    cfg, block_size=config.block_size, tb_tokens=tb, device=dev)
+                    cfg, block_size=config.block_size, tb_tokens=tb, device=dev,
+                    cache_dtype=self.kv_cache_dtype)
             self._unified = UnifiedGraph(
                 self, self._decode, sorted({-(-b // tb) * tb for b in self.buckets if b <= ucap}),
                 self._unified_seed_slots, planner, pool)
@@ -446,6 +513,24 @@ class TorchLlmEngine:
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
+
+    def _maybe_quantize(self, params: dict) -> dict:
+        """``EngineConfig.quantize`` applied to the parameter tree; a tree
+        that already holds quantized leaves (the reference's int8 weights,
+        carried by ``params_from_jax``) passes through."""
+        mode = self.config.quantize
+        if not mode:
+            return params
+        if mode != "int8":
+            raise ValueError(f"unknown quantize mode {mode!r} (want 'int8')")
+        if not self.family.quant_leaves:
+            raise ValueError(
+                f"model family {self.config.model_family!r} does not support "
+                "weight-only quantization (no quant_leaves)"
+            )
+        if is_quantized(params):
+            return params
+        return quantize_params(params, self.family.quant_leaves)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -575,6 +660,12 @@ class TorchLlmEngine:
         """ForwardPassMetrics and engine counters, under the reference's key
         names (the subset this engine has)."""
         out = {
+            # the latest step's snapshot and the utilization accounting
+            # (rolling MFU / bandwidth share / goodput, token, FLOP and byte
+            # totals); the engine's own keys below win (its emitted count
+            # is current mid-step, the tracker's at the step's end)
+            **self.step_telemetry.stats(),
+            **self.utilization.stats(),
             "kv_active_blocks": self.allocator.used_blocks,
             "kv_total_blocks": self.allocator.num_blocks,
             "kv_cached_blocks": self.allocator.cached_blocks,
@@ -605,6 +696,8 @@ class TorchLlmEngine:
             "tokens_emitted_total": self._tokens_emitted,
             "preempted_tokens_total": self.scheduler.preempted_tokens_total,
             "attention_impl": self.attention_impl,
+            "kv_cache_dtype": str(self.kv_cache_dtype).removeprefix("torch."),
+            "quantize": self.config.quantize,
             "warmup_s": self.warmup_s,
             "device": str(self.device),
             **self._decode.stats(),
@@ -645,10 +738,17 @@ class TorchLlmEngine:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
+                t_step = time.perf_counter()
+                emitted_before = self._tokens_emitted
+                self._step_prefill_tokens = self._step_decode_tokens = 0
+                self._step_attn_ctx = 0
+                self._step_weight_streams = 0.0
                 decision = self.scheduler.schedule()
                 if not (self.unified_batch and self._maybe_run_unified(decision)):
                     self._run_split_step(decision)
                 self._iterations += 1
+                self._observe_step(time.perf_counter() - t_step,
+                                   self._tokens_emitted - emitted_before)
             except Exception:  # noqa: BLE001 — scheduler-level bug: keep the
                 # thread alive (callers would hang forever), don't hot-spin
                 logger.exception("engine step failed")
@@ -659,6 +759,41 @@ class TorchLlmEngine:
             self._sync_pipeline()
         except Exception:  # noqa: BLE001
             logger.exception("pipeline drain at shutdown failed")
+
+    def _observe_step(self, duration_s: float, emitted: int) -> None:
+        """Feed the iteration's facts to the step telemetry and the
+        utilization tracker (the reference's engine.py:2352-2369)."""
+        self.step_telemetry.observe_step(
+            iteration=self._iterations,
+            num_running=self.scheduler.num_running,
+            num_waiting=self.scheduler.num_waiting,
+            kv_active_blocks=self.allocator.used_blocks,
+            kv_total_blocks=self.allocator.num_blocks,
+            step_duration_s=duration_s,
+            prefill_tokens=self._step_prefill_tokens,
+            decode_tokens=self._step_decode_tokens,
+        )
+        self.utilization.observe_step(
+            duration_s=duration_s,
+            prefill_tokens=self._step_prefill_tokens,
+            decode_tokens=self._step_decode_tokens,
+            attn_ctx_tokens=self._step_attn_ctx,
+            weight_streams=self._step_weight_streams,
+            emitted_tokens=emitted,
+        )
+
+    def _count_window(self, decode_tokens: int, attn_ctx: int, streams: float) -> None:
+        """The utilization facts of one dispatched window: decode positions,
+        the context positions they attended, weight passes."""
+        self._step_decode_tokens += decode_tokens
+        self._step_attn_ctx += attn_ctx
+        self._step_weight_streams += streams
+
+    def _count_prefill(self, start: int, end: int) -> None:
+        """Prompt positions [start, end) computed: each position p attends
+        p + 1 context positions (causal)."""
+        self._step_prefill_tokens += end - start
+        self._step_attn_ctx += (end * (end + 1) - start * (start + 1)) // 2
 
     def _run_split_step(self, decision) -> None:
         """The split step: one prefill forward for each sequence the
@@ -916,6 +1051,7 @@ class TorchLlmEngine:
 
         for seq, start, end in spans:
             seq.prefilled_tokens = end
+            self._count_prefill(start, end)
             all_tokens = seq.all_token_ids
             if end >= len(all_tokens):
                 if seq.status == SeqStatus.PREFILLING:
@@ -923,6 +1059,7 @@ class TorchLlmEngine:
                 self.allocator.publish_stored(seq.seq_id, all_tokens)
             else:
                 self.allocator.publish_stored(seq.seq_id, all_tokens[:end])
+        self._count_window(len(decodes), int(sum(context_lens[s.lane] for s in decodes)), 1)
         self._unified_windows += 1
         if decodes:
             self._decode_steps_total += 1
@@ -1222,6 +1359,7 @@ class TorchLlmEngine:
             t = self._phase("decode.readback", t)
         self._sync_windows += 1
         self._decode_steps_total += steps
+        self._count_window(len(active) * steps, int(context_lens.sum()) * steps, steps)
         for s in range(steps):
             for seq in active:
                 if seq.status != SeqStatus.RUNNING:
@@ -1387,6 +1525,7 @@ class TorchLlmEngine:
         )
         self._overlap_windows += 1
         self._decode_steps_total += steps
+        self._count_window(len(active) * steps, int(context_lens.sum()) * steps, steps)
         if prev is not None:
             self._retire_window(prev)
 
@@ -1469,6 +1608,8 @@ class TorchLlmEngine:
             logits, seq, lane, prompt_row, gen_row, fold, 1 if final else 0
         )
         seq.prefilled_tokens = end
+        self._count_prefill(start, end)
+        self._step_weight_streams += 1
         if not final:
             # an intermediate chunk: K/V written, its sample discarded
             self.allocator.publish_stored(seq.seq_id, tokens[:end])
@@ -1621,6 +1762,9 @@ class TorchLlmEngine:
         # accept too), so accepted <= drafted
         self._spec_drafted += int(spec_ok.sum()) * (w - 1)
         self._verify_steps += 1
+        # one verify forward streams the weights once and computes w
+        # positions a lane, each attending the lane's whole context
+        self._count_window(len(active) * w, int(context_lens.sum()) * w, 1)
         for seq in active:
             lane = seq.lane
             n = int(n_h[lane])
@@ -1816,6 +1960,8 @@ class TorchLlmEngine:
 
 
 def _to_device(tree, device):
+    """A parameter tree on ``device`` (tensors and ``QuantizedMatrix``
+    leaves)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)

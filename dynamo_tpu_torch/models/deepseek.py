@@ -23,7 +23,9 @@ in the MoE layers.  The trunk is ``first_k_dense`` dense layers
 then MoE layers (routed experts times ``routed_scaling_factor``, plus shared
 experts).  Parameters are a plain dict with the reference's names and
 layouts (``dense_layers`` and ``moe_layers`` stacks, projections [in, out]);
-the cache is updated in place.
+the leaves of ``QUANT_LEAVES`` may be int8 ``QuantizedMatrix`` weights
+(``ops.quant``); the cache, which may hold a narrower float dtype than the
+model's, is updated in place.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from dynamo_tpu_torch.ops.attention import (
     NEG_INF,
     alloc_cache_leaf,
     cache_rows,
+    cache_take,
     last_writer_slots,
     position_major_to_batch,
     slot_rows,
@@ -57,6 +60,16 @@ from dynamo_tpu_torch.ops.kernels import (
 from dynamo_tpu_torch.ops.kernels.common import sm_count
 from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
+from dynamo_tpu_torch.ops.quant import mm
+
+# the projections and expert banks the engine's quantize="int8" stores as
+# int8 (dynamo_tpu/models/registry.py:285-288); the absorbed up-projections
+# w_uk and w_uv stay full precision (they are reshaped into float32 einsums),
+# and so do the router, the norms and the embedding
+QUANT_LEAVES = (
+    "w_dq", "w_uq", "wq", "w_dkv", "wo", "w_gate", "w_up", "w_down",
+    "ws_gate", "ws_up", "ws_down", "lm_head",
+)
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions, yarn_mscale
 
 
@@ -282,15 +295,15 @@ def _project_q(w, x, cfg: DeepseekConfig) -> torch.Tensor:
     """x [t, h] -> q [t, heads, qk_head_dim], through the q-lora bottleneck
     when the config has one."""
     if cfg.q_lora_rank:
-        q = rms_norm(x @ w["w_dq"], w["q_norm"], cfg.rms_norm_eps) @ w["w_uq"]
+        q = mm(rms_norm(mm(x, w["w_dq"]), w["q_norm"], cfg.rms_norm_eps), w["w_uq"])
     else:
-        q = x @ w["wq"]
+        q = mm(x, w["wq"])
     return q.view(x.shape[0], cfg.num_heads, cfg.qk_head_dim)
 
 
 def _latent_kv(w, x, cfg: DeepseekConfig):
     """x [t, h] -> (c_kv [t, r] normalized, k_rope [t, rope_dim] not roped)."""
-    dkv = x @ w["w_dkv"]
+    dkv = mm(x, w["w_dkv"])
     c_kv = rms_norm(dkv[:, : cfg.kv_lora_rank], w["kv_norm"], cfg.rms_norm_eps)
     return c_kv, dkv[:, cfg.kv_lora_rank:]
 
@@ -318,7 +331,7 @@ def _decompress(w, ctx, cfg: DeepseekConfig) -> torch.Tensor:
     """Latent context [t, H, R] f32 -> attention output [t, hidden]."""
     w_uv = w["w_uv"].view(cfg.kv_lora_rank, cfg.num_heads, cfg.v_head_dim)
     out = torch.einsum("thr,rhv->thv", ctx, w_uv.float()).to(cfg.dtype)
-    return out.reshape(ctx.shape[0], -1) @ w["wo"]
+    return mm(out.reshape(ctx.shape[0], -1), w["wo"])
 
 
 def _latent_caches(k_layer, v_layer):
@@ -392,7 +405,7 @@ def _mla_prefill_attn(w, x, cfg: DeepseekConfig, positions, seq_len, k_layer, v_
     write_prefill_kv(k_layer, v_layer, c_kv[:, None, :], k_rope[:, None, :], block_ids, seq_len)
     logits, v = _chunk_scores(w, cfg, q_nope, q_rope, c_kv, k_rope, seq_len)
     out = torch.einsum("hqk,khv->qhv", torch.softmax(logits, dim=-1), v.float())
-    return out.to(cfg.dtype).reshape(s, -1) @ w["wo"]
+    return mm(out.to(cfg.dtype).reshape(s, -1), w["wo"])
 
 
 def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len, start_pos,
@@ -410,8 +423,8 @@ def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len
     # read the resident prefix BEFORE the tail is written
     ids = full_block_ids.to(x.device).long()
     t_pref = ids.shape[0] * k_layer.shape[1]
-    ck_pref = k_layer[ids].reshape(t_pref, cfg.kv_lora_rank).float()
-    kr_pref = v_layer[ids].reshape(t_pref, cfg.qk_rope_head_dim).float()
+    ck_pref = cache_take(k_layer, ids).reshape(t_pref, cfg.kv_lora_rank).float()
+    kr_pref = cache_take(v_layer, ids).reshape(t_pref, cfg.qk_rope_head_dim).float()
     write_prefill_kv(k_layer, v_layer, c_kv[:, None, :], k_rope[:, None, :], tail_block_ids,
                      tail_len)
 
@@ -431,7 +444,7 @@ def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len
     ctx_lat = torch.einsum("hqt,tr->qhr", wp, ck_pref)
     out_pref = torch.einsum("qhr,rhv->qhv", ctx_lat, w_uv.float())
     out_chunk = torch.einsum("hqk,khv->qhv", wc, v_chunk.float())
-    return (out_pref + out_chunk).to(cfg.dtype).reshape(s, -1) @ w["wo"]
+    return mm((out_pref + out_chunk).to(cfg.dtype).reshape(s, -1), w["wo"])
 
 
 def _mla_window_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, block_tables,
@@ -460,11 +473,11 @@ def _mla_window_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, blo
     )                                                                 # [b, w, H, R] f32
     w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
     out = torch.einsum("bwhr,rhv->bwhv", ctx, w_uv.float()).to(cfg.dtype)
-    return out.transpose(0, 1).reshape(w_len * b, -1) @ w["wo"]
+    return mm(out.transpose(0, 1).reshape(w_len * b, -1), w["wo"])
 
 
 def _dense_mlp(w, x):
-    return (F.silu(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
+    return mm(F.silu(mm(x, w["w_gate"])) * mm(x, w["w_up"]), w["w_down"])
 
 
 def _moe_mlp(w, x, cfg: DeepseekConfig):
@@ -478,7 +491,7 @@ def _moe_mlp(w, x, cfg: DeepseekConfig):
     )
     out = routed * cfg.routed_scaling_factor
     if cfg.n_shared_experts:
-        out = out + (F.silu(x @ w["ws_gate"]) * (x @ w["ws_up"])) @ w["ws_down"]
+        out = out + mm(F.silu(mm(x, w["ws_gate"])) * mm(x, w["ws_up"]), w["ws_down"])
     return out
 
 
@@ -505,7 +518,7 @@ def _forward(params, cfg: DeepseekConfig, x, kv_cache, attn_fn):
 def _logits(params, cfg, x):
     if cfg.tie_word_embeddings:
         return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"]
+    return mm(x, params["lm_head"])
 
 
 def deepseek_forward_decode(
@@ -629,13 +642,14 @@ def deepseek_forward_verify(
 
 
 def unified_planner(cfg: DeepseekConfig, *, block_size: int, tb_tokens: int,
-                    device: torch.device):
+                    device: torch.device, cache_dtype: torch.dtype | None = None):
     """The ragged MLA walk's planner (``mla_planner``: a unified step's work
     plan from its host ``page_count``, and the fixed capacity of a token
     bucket's plans), or None where the kernel reads no plan: off the card,
     and on the CUDA-core loop's widths."""
     if device.type != "cuda" or not mla_attention.split_route(
-            cfg.dtype, cfg.kv_lora_rank, cfg.qk_rope_head_dim, block_size, cfg.num_heads):
+            cfg.dtype, cfg.kv_lora_rank, cfg.qk_rope_head_dim, block_size, cfg.num_heads,
+            cache_dtype):
         return None
     return mla_attention.mla_planner(tb_tokens, cfg.num_heads, sm_count(device),
                                      cfg.kv_lora_rank)

@@ -6,6 +6,12 @@ Python loop over layers takes the place of ``lax.scan``.  The paged KV cache
 ``{"k", "v"}: [layers, num_blocks, block_size, kv_heads, head_dim]`` is
 updated in place where the reference donated its buffer.
 
+Every projection goes through ``ops.quant.mm``, so the named leaves of
+``QUANT_LEAVES`` may be int8 ``QuantizedMatrix`` weights (the engine's
+``quantize="int8"``) as well as plain tensors.  The cache may hold a
+narrower float dtype than the model's (``init_kv_cache``'s ``dtype``):
+every write casts to it, every read upcasts.
+
 Attention of the unified, decode and verify forwards goes through the kernel
 wrappers in ``ops.kernels``: on a CUDA tensor they launch the hand-written
 kernels, on a CPU tensor they take the plain PyTorch versions in
@@ -46,7 +52,13 @@ from dynamo_tpu_torch.ops.kernels import (
 from dynamo_tpu_torch.ops.kernels.common import sm_count
 from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
+from dynamo_tpu_torch.ops.quant import QuantizedMatrix, mm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
+
+# the projections the engine's quantize="int8" stores as int8 (the
+# reference's _PROJ_QUANT_LEAVES, dynamo_tpu/models/registry.py:92-94):
+# attention, FFN and the output head; embeddings, norms and biases stay
+QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
 
 
 @dataclass(frozen=True)
@@ -200,18 +212,28 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> 
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array as a tensor with the same bits, ml_dtypes' bfloat16 and
+    fp8 arrays included (through an integer view of the same width)."""
     a = np.array(a)  # a writable copy: torch shares numpy's memory
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):  # ml_dtypes' fp8: torch's bits
+        return torch.from_numpy(a.view(np.uint8)).view(getattr(torch, a.dtype.name))
     return torch.from_numpy(a)
 
 
 def params_from_jax(tree, device="cuda"):
     """The reference's parameter pytree (its leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as port parameters: same names,
-    same layouts, on ``device``."""
+    same layouts, on ``device``.  A quantized leaf (the reference's
+    ``QuantizedMatrix``, a node with int8 ``q`` and scale ``s``) becomes
+    the port's ``QuantizedMatrix``, so both engines serve the same int8
+    weights."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "s"):
+        return QuantizedMatrix(_tensor_from_numpy(tree.q).to(device),
+                               _tensor_from_numpy(tree.s).to(device))
     return _tensor_from_numpy(tree).to(device)
 
 
@@ -244,14 +266,14 @@ def _embed(params, cfg: LlamaConfig, token_ids) -> torch.Tensor:
 
 
 def _mlp(x, gate, up, down):
-    return (F.silu(x @ gate) * (x @ up)) @ down
+    return mm(F.silu(mm(x, gate)) * mm(x, up), down)
 
 
 def _qkv(attn_in, w, cfg: LlamaConfig):
     s = attn_in.shape[0]
-    q = attn_in @ w["wq"]
-    k = attn_in @ w["wk"]
-    v = attn_in @ w["wv"]
+    q = mm(attn_in, w["wq"])
+    k = mm(attn_in, w["wk"])
+    v = mm(attn_in, w["wv"])
     if cfg.attention_bias:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     q = q.view(s, cfg.num_heads, cfg.head_dim)
@@ -273,11 +295,11 @@ def _layers(params):
 def _logits(params, cfg, x):
     if cfg.tie_word_embeddings:
         return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"]
+    return mm(x, params["lm_head"])
 
 
 def _residual_block(x, attn, w, cfg):
-    x = x + attn.reshape(x.shape[0], -1) @ w["wo"]
+    x = x + mm(attn.reshape(x.shape[0], -1), w["wo"])
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"])
 
@@ -437,14 +459,15 @@ def llama_forward_decode(
 
 
 def unified_planner(cfg: LlamaConfig, *, block_size: int, tb_tokens: int,
-                    device: torch.device):
+                    device: torch.device, cache_dtype: torch.dtype | None = None):
     """The ragged GQA walk's planner (``ragged_planner``: a unified step's
     work plan from its host ``page_count``, and the fixed capacity of a
     token bucket's plans), or None where the kernel reads no plan: off the
-    card, and on the CUDA-core loop's shapes."""
+    card, and on the CUDA-core loop's shapes and dtypes (``cache_dtype``:
+    the cache's, default the model's)."""
     rows = tb_tokens * (cfg.num_heads // cfg.num_kv_heads)
     if device.type != "cuda" or not ragged_attention.split_route(
-            cfg.dtype, cfg.head_dim, block_size, rows):
+            cfg.dtype, cfg.head_dim, block_size, rows, cache_dtype):
         return None
     return ragged_attention.ragged_planner(cfg.num_kv_heads, sm_count(device), rows,
                                            cfg.head_dim)

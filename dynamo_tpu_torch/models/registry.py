@@ -43,11 +43,15 @@ class ModelFamily:
     # (cfg, w) -> None: raises ValueError when the family's verify kernel
     # cannot take a window of w positions
     check_verify_width: Callable | None = None
-    # the unified step's planner: (cfg, *, block_size, tb_tokens, device) ->
+    # the unified step's planner: (cfg, *, block_size, tb_tokens, device,
+    # cache_dtype) ->
     # a work_plan.Planner (``plan(page_count)`` -> forward_unified's
     # ``plan``, ``caps(num_tb)`` the fixed capacity of a token bucket's
     # plans), or None where its kernel takes no plan
     unified_planner: Callable | None = None
+    # parameter names (dict keys anywhere in the tree) that the engine's
+    # quantize="int8" stores as int8 QuantizedMatrix weights
+    quant_leaves: tuple[str, ...] = ()
 
 
 def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
@@ -77,6 +81,7 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
         forward_verify=llama.llama_forward_verify,
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
+        quant_leaves=llama.QUANT_LEAVES,
     )
 
 
@@ -96,6 +101,7 @@ def _deepseek_family() -> ModelFamily:
         forward_prefill_with_prefix=deepseek.deepseek_forward_prefill_with_prefix,
         forward_verify=deepseek.deepseek_forward_verify,
         unified_planner=deepseek.unified_planner,
+        quant_leaves=deepseek.QUANT_LEAVES,
     )
 
 

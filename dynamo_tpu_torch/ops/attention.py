@@ -9,7 +9,11 @@ references that the hand-written CUDA kernels in ``ops/kernels`` are held
 against; on the card the model calls the kernels instead.
 
 Numerics follow the reference: scores and softmax in float32, masked scores
-at ``NEG_INF``.
+at ``NEG_INF``.  A cache may hold another float dtype than the model's (the
+engine's ``kv_cache_dtype``: fp8 e4m3fn or e5m2, float16, bfloat16,
+float32): every write casts to it as the reference's ``.astype`` does
+(``to_cache_dtype``), every read upcasts to float32.  One-byte caches move
+as ``uint8`` views (``cache_take``, the writes), which every device indexes.
 """
 
 from __future__ import annotations
@@ -19,6 +23,51 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+# e4m3fn has no infinity: past 448 the reference's conversion (XLA's, as
+# ml_dtypes') rounds to 448 up to 464 and gives NaN above; torch's cast
+# saturates at 448 instead
+_E4M3_ROUNDS_TO_MAX = 464.0
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in a cache dtype, bit for bit as the reference's
+    ``x.astype(dtype)``.  Finite values round to nearest even in both
+    frameworks; they differ only where a value has no fp8 counterpart:
+    - e4m3fn: a magnitude past 464 (infinity included) becomes NaN with its
+      sign, where torch saturates at 448;
+    - e5m2 keeps infinity; a NaN becomes 0x7e with the NaN's sign from a
+      float32 value and 0x7f from a 16-bit one, where torch keeps 0x7f and
+      the sign."""
+    if x.dtype == dtype:
+        return x
+    if dtype not in FP8_DTYPES:
+        return x.to(dtype)
+    bits = x.to(dtype).view(torch.uint8)
+    sign = torch.signbit(x).to(torch.uint8) << 7
+    if dtype == torch.float8_e4m3fn:
+        special, nan_bits = x.abs() > _E4M3_ROUNDS_TO_MAX, sign | 0x7F
+    else:
+        special = torch.isnan(x)
+        nan_bits = sign | 0x7E if x.dtype == torch.float32 else torch.full_like(bits, 0x7F)
+    return torch.where(special, nan_bits, bits).view(dtype)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte float tensor as its ``uint8`` view (what every index op
+    takes on every device); any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
+
+
+def cache_take(leaf: torch.Tensor, index) -> torch.Tensor:
+    """``leaf[index]`` for a cache leaf of any dtype."""
+    return _raw(leaf)[index].view(leaf.dtype)
+
+
+def _put_rows(dst: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> None:
+    """``dst[rows[i]] = new[i]`` cast to ``dst``'s dtype, in place."""
+    _raw(dst).index_copy_(0, rows, _raw(to_cache_dtype(new, dst.dtype)))
 
 
 def live_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -40,8 +89,9 @@ def alloc_cache_leaf(shape, dtype, device) -> torch.Tensor:
     strides, so the kernels, the block copies and the offload tiers see
     ``N`` blocks as before."""
     row = math.prod(shape[3:])
-    flat = torch.zeros(math.prod(shape) + row, dtype=dtype, device=device)
-    return flat[: math.prod(shape)].view(shape)
+    raw = torch.uint8 if dtype in FP8_DTYPES else dtype
+    flat = torch.zeros(math.prod(shape) + row, dtype=raw, device=device)
+    return flat[: math.prod(shape)].view(dtype).view(shape)
 
 
 def cache_rows(leaf: torch.Tensor) -> torch.Tensor:
@@ -80,8 +130,8 @@ def write_rows(k_rows: torch.Tensor, v_rows: torch.Tensor, rows: torch.Tensor,
     """One layer's sync-free decode write: token i's K/V row into row
     ``rows[i]`` of the leaves' ``cache_rows`` views (``slot_rows(...)[l]``),
     in place."""
-    k_rows.index_copy_(0, rows, k_new.to(k_rows.dtype))
-    v_rows.index_copy_(0, rows, v_new.to(v_rows.dtype))
+    _put_rows(k_rows, rows, k_new)
+    _put_rows(v_rows, rows, v_new)
 
 
 def last_writer_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -116,8 +166,8 @@ def write_prefill_kv(
     n = num_blocks * block_size
     idx = torch.arange(int(seq_len), device=k_new.device)
     slots = block_ids.to(k_new.device).long()[idx // block_size] * block_size + idx % block_size
-    k_cache.view(n, *k_cache.shape[2:]).index_copy_(0, slots, k_new[: idx.numel()].to(k_cache.dtype))
-    v_cache.view(n, *v_cache.shape[2:]).index_copy_(0, slots, v_new[: idx.numel()].to(v_cache.dtype))
+    _put_rows(k_cache.view(n, *k_cache.shape[2:]), slots, k_new[: idx.numel()])
+    _put_rows(v_cache.view(n, *v_cache.shape[2:]), slots, v_new[: idx.numel()])
     return k_cache, v_cache
 
 
@@ -138,12 +188,8 @@ def write_decode_kv(
     if live is None:
         live = live_slots(slot_ids, n)
     slots = slot_ids.index_select(0, live).long()
-    k_cache.view(n, *k_cache.shape[2:]).index_copy_(
-        0, slots, k_new.index_select(0, live).to(k_cache.dtype)
-    )
-    v_cache.view(n, *v_cache.shape[2:]).index_copy_(
-        0, slots, v_new.index_select(0, live).to(v_cache.dtype)
-    )
+    _put_rows(k_cache.view(n, *k_cache.shape[2:]), slots, k_new.index_select(0, live))
+    _put_rows(v_cache.view(n, *v_cache.shape[2:]), slots, v_new.index_select(0, live))
     return k_cache, v_cache
 
 
@@ -207,8 +253,8 @@ def paged_window_attention(
     length = block_tables.shape[1] * block_size
     groups = h // kvh
 
-    k = k_cache[block_tables].reshape(b, length, kvh, d).float()
-    v = v_cache[block_tables].reshape(b, length, kvh, d).float()
+    k = cache_take(k_cache, block_tables).reshape(b, length, kvh, d).float()
+    v = cache_take(v_cache, block_tables).reshape(b, length, kvh, d).float()
     qg = q.reshape(b, w, kvh, groups, d).float()
     logits = torch.einsum("bwkgd,blkd->bkgwl", qg, k) * _scale(d)
     q_pos = context_lens[:, None] - w + torch.arange(w, device=q.device)[None, :]
@@ -271,8 +317,8 @@ def ragged_paged_attention(
         c1 = min(t, c0 + max_gather_tokens)
         n = c1 - c0
         tables = block_tables[lane[c0:c1]]                       # [n, maxb]
-        k = k_cache[tables].reshape(n, length, kvh, d).float()
-        v = v_cache[tables].reshape(n, length, kvh, d).float()
+        k = cache_take(k_cache, tables).reshape(n, length, kvh, d).float()
+        v = cache_take(v_cache, tables).reshape(n, length, kvh, d).float()
         qg = q[c0:c1].reshape(n, kvh, groups, d).float()
         logits = torch.einsum("tkgd,tlkd->tkgl", qg, k) * _scale(d)
         pos = token_pos[c0:c1, None]
@@ -315,8 +361,8 @@ def mla_paged_decode_attention(
     b = q_lat.shape[0]
     _, block_size, r = ck_cache.shape
     length = block_tables.shape[1] * block_size
-    ck = ck_cache[block_tables].reshape(b, length, r).float()
-    kr = kr_cache[block_tables].reshape(b, length, -1)
+    ck = cache_take(ck_cache, block_tables).reshape(b, length, r).float()
+    kr = cache_take(kr_cache, block_tables).reshape(b, length, -1)
     logits = _mla_scores(q_lat, q_rope, ck, kr, scale)
     valid = torch.arange(length, device=q_lat.device)[None, :] < context_lens[:, None]
     logits = torch.where(valid[:, None, :], logits, NEG_INF)
@@ -341,8 +387,8 @@ def mla_paged_window_attention(
     b, w, _, r = q_lat.shape
     _, block_size, _ = ck_cache.shape
     length = block_tables.shape[1] * block_size
-    ck = ck_cache[block_tables].reshape(b, length, r).float()
-    kr = kr_cache[block_tables].reshape(b, length, -1).float()
+    ck = cache_take(ck_cache, block_tables).reshape(b, length, r).float()
+    kr = cache_take(kr_cache, block_tables).reshape(b, length, -1).float()
     logits = (
         torch.einsum("bwhr,btr->bhwt", q_lat.float(), ck)
         + torch.einsum("bwhp,btp->bhwt", q_rope.float(), kr)
@@ -381,8 +427,8 @@ def ragged_mla_paged_attention(
     for c0 in range(0, t, max_gather_tokens):
         c1 = min(t, c0 + max_gather_tokens)
         tables = block_tables[lane[c0:c1]]                      # [n, maxb]
-        ck = ck_cache[tables].reshape(c1 - c0, length, r).float()
-        kr = kr_cache[tables].reshape(c1 - c0, length, -1)
+        ck = cache_take(ck_cache, tables).reshape(c1 - c0, length, r).float()
+        kr = cache_take(kr_cache, tables).reshape(c1 - c0, length, -1)
         logits = _mla_scores(q_lat[c0:c1], q_rope[c0:c1], ck, kr, scale)
         mask = kv_pos <= token_pos[c0:c1, None]  # pads at -1 mask everything
         logits = torch.where(mask[:, None, :], logits, NEG_INF)
@@ -411,7 +457,7 @@ def gather_prefix_kv(
     [max_blocks*block_size, kv_heads, head_dim] copies (chunked prefill and
     prefix-cache hits read the resident prefix from these)."""
     ids = block_ids.to(k_cache.device).long()
-    k, v = k_cache[ids], v_cache[ids]
+    k, v = cache_take(k_cache, ids), cache_take(v_cache, ids)
     n, bs = k.shape[0], k.shape[1]
     return k.reshape(n * bs, *k.shape[2:]), v.reshape(n * bs, *v.shape[2:])
 

@@ -20,6 +20,8 @@ from collections.abc import Sequence
 
 import torch
 
+from dynamo_tpu_torch.ops.attention import to_cache_dtype
+
 
 def gather_blocks(pool: torch.Tensor, ids: Sequence[int], axis: int = 0) -> torch.Tensor:
     """``out.select(axis, i) = pool.select(axis, ids[i])``."""
@@ -34,8 +36,9 @@ def gather_blocks(pool: torch.Tensor, ids: Sequence[int], axis: int = 0) -> torc
 def scatter_blocks(pool: torch.Tensor, blocks: torch.Tensor, ids: Sequence[int],
                    axis: int = 0) -> torch.Tensor:
     """``pool.select(axis, ids[i]) = blocks.select(axis, i)``, cast to the
-    pool's dtype, in place; returns ``pool``."""
-    blocks = blocks.to(pool.dtype)
+    pool's dtype as the reference's ``.astype`` casts (``to_cache_dtype``),
+    in place; returns ``pool``."""
+    blocks = to_cache_dtype(blocks, pool.dtype)
     for i, b in enumerate(ids):
         pool.select(axis, b).copy_(blocks.select(axis, i))
     return pool

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.ops import block_copy as plain
+from dynamo_tpu_torch.ops.attention import to_cache_dtype
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels.common import ceil_div, sm_count, stream_ptr
 
@@ -174,8 +175,10 @@ def gather_blocks(pool: torch.Tensor, ids: Sequence[int], *, axis: int = 0) -> t
 def scatter_blocks(pool: torch.Tensor, blocks: torch.Tensor, ids: Sequence[int], *,
                    axis: int = 0) -> torch.Tensor:
     """``pool.select(axis, ids[i]) = blocks.select(axis, i)``, cast to the
-    pool's dtype, in place — block injection for restore and the KVBM's G1
-    writes.  Returns ``pool``."""
+    pool's dtype as the reference's ``.astype`` casts (``to_cache_dtype``:
+    an fp8 pool's NaN and overflow bytes are the reference's), in place —
+    block injection for restore and the KVBM's G1 writes.  Returns
+    ``pool``."""
     global scatter_launches, plain_calls
     outer, n_pool, row_bytes = _geometry(pool, axis)
     ids = _check_ids(ids, n_pool, unique=True)
@@ -190,7 +193,7 @@ def scatter_blocks(pool: torch.Tensor, blocks: torch.Tensor, ids: Sequence[int],
     _device_check(pool, "scatter_blocks")
     if blocks.numel() == 0:
         return pool
-    blocks = blocks.to(device=pool.device, dtype=pool.dtype).contiguous()
+    blocks = to_cache_dtype(blocks.to(pool.device), pool.dtype).contiguous()
     _launch(build.library().dyn_scatter_blocks, "scatter_blocks", pool, blocks, ids,
             outer, n_pool, row_bytes)
     scatter_launches += 1

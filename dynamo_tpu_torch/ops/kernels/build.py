@@ -95,13 +95,13 @@ def _compile(nvcc: str, out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.dyn_paged_window_attention.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.dyn_paged_window_attention.argtypes = [p] * 8 + [i] * 12 + [p]
     lib.dyn_paged_window_attention.restype = i
-    lib.dyn_ragged_paged_attention.argtypes = [p] * 13 + [i] * 12 + [p]
+    lib.dyn_ragged_paged_attention.argtypes = [p] * 13 + [i] * 13 + [p]
     lib.dyn_ragged_paged_attention.restype = i
-    lib.dyn_mla_paged_window_decode.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
+    lib.dyn_mla_paged_window_decode.argtypes = [p] * 9 + [i] * 10 + [f, i, i, p]
     lib.dyn_mla_paged_window_decode.restype = i
-    lib.dyn_ragged_mla_attention.argtypes = [p] * 14 + [i] * 10 + [f, i, p]
+    lib.dyn_ragged_mla_attention.argtypes = [p] * 14 + [i] * 10 + [f, i, i, p]
     lib.dyn_ragged_mla_attention.restype = i
     lib.dyn_gather_blocks.argtypes = [p] * 4 + [i64] * 6 + [i] * 2 + [p]
     lib.dyn_gather_blocks.restype = i

@@ -6,12 +6,24 @@ import functools
 
 import torch
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the element types the kernels read, by the codes of csrc/attention_common.cuh's
+# CacheType: queries and outputs float32 or bf16, caches any of the five
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+           torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+Q_DTYPES = (torch.float32, torch.bfloat16)
+# caches the tensor-core walks read under bf16 queries (an fp8 value is
+# exact in bf16); the others take the CUDA-core loops
+WALK_CACHE_DTYPES = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
 HEAD_DIMS = (16, 64, 128)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPES[dtype]
+
+
+def walk_cache(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
+    """Whether a tensor-core walk takes these dtypes (shapes aside)."""
+    return q_dtype == torch.bfloat16 and cache_dtype in WALK_CACHE_DTYPES
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -39,17 +51,18 @@ def check_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 d: int, dk: int) -> None:
     """Device, dtype, shape, contiguity and alignment checks for q and a
     [N, bs, KVH, D] cache pair.  The kernels take float32 or bfloat16
-    caches with q of the same dtype, and head dims 16, 64 and 128."""
+    queries, caches of any dtype in ``_DTYPES`` (both of one dtype, the
+    queries' or another), and head dims 16, 64 and 128."""
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"query dtype {q.dtype} is not supported by the kernels "
+                         "(float32, bfloat16)")
     if k_cache.dtype not in _DTYPES:
         raise ValueError(
             f"cache dtype {k_cache.dtype} is not supported by the kernels "
-            "(float32, bfloat16; fp8 caches come with the quantized slice)"
+            f"({', '.join(str(t).removeprefix('torch.') for t in _DTYPES)})"
         )
-    if q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
-        raise ValueError(
-            f"q ({q.dtype}) and caches ({k_cache.dtype}, {v_cache.dtype}) "
-            "must share one dtype"
-        )
+    if v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"k ({k_cache.dtype}) and v ({v_cache.dtype}) caches differ in dtype")
     if d != dk or d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} (cache {dk}) not in {HEAD_DIMS}")
     if v_cache.shape != k_cache.shape:

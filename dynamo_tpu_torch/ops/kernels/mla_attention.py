@@ -6,18 +6,20 @@ Counterpart of dynamo_tpu/ops/pallas/mla_attention.py:
 sequence) and ``ragged_mla_attention`` (the unified ragged step, over the
 page worklist of ``pack_page_meta`` built from the latent block tables).
 All take the
-float32 absorbed queries ``q_lat``, the roped queries ``q_rope`` and the two
-caches ``ck [N, bs, R]`` (latents: keys AND values) and ``kr [N, bs, P]``
-(rope keys) in the model dtype, and return the float32 context in latent
-space.  A CPU tensor goes to the plain PyTorch version in ``ops.attention``;
+float32 absorbed queries ``q_lat``, the roped queries ``q_rope`` in the
+model dtype and the two caches ``ck [N, bs, R]`` (latents: keys AND values)
+and ``kr [N, bs, P]`` (rope keys) in the cache's dtype (the model's, or a
+narrower float: fp8 e4m3fn or e5m2, float16), and return the float32
+context in latent space.  A CPU tensor goes to the plain PyTorch version in ``ops.attention``;
 a CUDA tensor launches the kernel or raises.  ``*_launches`` count wrapper
 calls that launched the kernel (for a split walk: the walk and, with more
 than one chunk, its combine), ``*_plain_calls`` calls routed to the plain
 version; ``table_walk_launches`` counts the decode and window calls that
 took the split table walk.
 
-At DeepSeek widths (bf16 caches, R 512, P 64, 16-position pages, heads a
-multiple of 16) all three take a split tensor-core walk with no
+At DeepSeek widths (bf16 queries over bf16 or fp8 caches, R 512, P 64,
+16-position pages, heads a multiple of 16) all three take a split
+tensor-core walk with no
 device-to-host read.  The ragged walk (row 3) follows the host work plan
 of ``mla_planner`` (a ``work_plan.Planner``), made once a unified step
 from the host copy of ``page_count`` that ``pack_page_meta`` returns, as
@@ -29,8 +31,8 @@ takes one item a token block.  The decode and verify windows' table walk
 (rows 4-5) is planned from shapes alone (``plan_table_chunks`` cuts every
 sequence's block table; never from ``context_lens``, which would cost a
 device-to-host read a layer).  Decode is the window at W = 1 on the card,
-as in row 2.  Float32 caches and the tiny_mla geometry take the CUDA-core
-loop.
+as in row 2.  Float32 queries, float32 and float16 caches and the tiny_mla
+geometry take the CUDA-core loop, which converts the cache at use.
 """
 
 from __future__ import annotations
@@ -45,11 +47,14 @@ from dynamo_tpu_torch.ops.attention import (
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels.common import (
     ceil_div,
+    Q_DTYPES,
+    _DTYPES,
     check_index,
     check_layout,
     dtype_code,
     sm_count,
     stream_ptr,
+    walk_cache,
 )
 from dynamo_tpu_torch.ops.kernels.work_plan import DeviceWork, Planner, WorkPlan, launch_args
 
@@ -108,10 +113,13 @@ def mla_planner(tb_tokens: int, heads: int, sms: int, r: int = 0) -> Planner:
                    MIN_CHUNK_PAGES, tb_tokens * heads * (r + 2))
 
 
-def split_route(dtype: torch.dtype, r: int, p: int, block_size: int, heads: int) -> bool:
-    """Whether the split tensor-core walks take these widths (the kernels
-    test the same)."""
-    return dtype == torch.bfloat16 and (r, p, block_size) == SPLIT_GEOMETRY and heads % 16 == 0
+def split_route(dtype: torch.dtype, r: int, p: int, block_size: int, heads: int,
+                cache_dtype: torch.dtype | None = None) -> bool:
+    """Whether the split tensor-core walks take these widths and dtypes:
+    bf16 queries (``dtype``) over a bf16 or fp8 cache (``cache_dtype``,
+    default the queries'); the kernels test the same."""
+    return (walk_cache(dtype, cache_dtype or dtype) and (r, p, block_size) == SPLIT_GEOMETRY
+            and heads % 16 == 0)
 
 
 def table_groups(rows: int) -> int:
@@ -146,20 +154,17 @@ def plan_table_chunks(batch: int, rows: int, max_blocks: int, block_size: int,
 
 def _check(q_lat, q_rope, ck_cache, kr_cache) -> None:
     """Device, dtype, shape, contiguity and alignment of the queries and the
-    two caches: q_lat float32; q_rope and both caches in one dtype, float32
-    or bfloat16."""
-    if ck_cache.dtype not in (torch.float32, torch.bfloat16):
+    two caches: q_lat float32; q_rope float32 or bfloat16; both caches of
+    one dtype in ``_DTYPES``."""
+    if ck_cache.dtype not in _DTYPES or kr_cache.dtype != ck_cache.dtype:
         raise ValueError(
-            f"cache dtype {ck_cache.dtype} is not supported by the MLA kernels "
-            "(float32, bfloat16; fp8 caches come with the quantized slice)"
+            f"caches ({ck_cache.dtype}, {kr_cache.dtype}) must share one dtype of "
+            f"{', '.join(str(t).removeprefix('torch.') for t in _DTYPES)}"
         )
     if q_lat.dtype != torch.float32:
         raise ValueError(f"q_lat must be float32 (the absorbed einsum's), got {q_lat.dtype}")
-    if q_rope.dtype != ck_cache.dtype or kr_cache.dtype != ck_cache.dtype:
-        raise ValueError(
-            f"q_rope ({q_rope.dtype}) and caches ({ck_cache.dtype}, {kr_cache.dtype}) "
-            "must share one dtype"
-        )
+    if q_rope.dtype not in Q_DTYPES:
+        raise ValueError(f"q_rope must be float32 or bfloat16, got {q_rope.dtype}")
     r, p = q_lat.shape[-1], q_rope.shape[-1]
     if (r, p) not in GEOMETRIES:
         raise ValueError(f"MLA widths (R={r}, P={p}) not in {GEOMETRIES}")
@@ -189,7 +194,7 @@ def _window(q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale
     check_index(q_lat.device, block_tables=block_tables, context_lens=context_lens)
     p, bs, max_blocks = q_rope.shape[-1], ck_cache.shape[1], block_tables.shape[1]
     group_tiles, chunks, chunk, part_acc, part_ml = 0, 1, max(1, max_blocks), None, None
-    walk = split_route(ck_cache.dtype, r, p, bs, h)
+    walk = split_route(q_rope.dtype, r, p, bs, h, ck_cache.dtype)
     if walk:
         group_tiles = GROUP_TILES
         chunks, chunk = plan_table_chunks(b, w * h, max_blocks, bs, sm_count(q_lat.device))
@@ -205,7 +210,8 @@ def _window(q_lat, q_rope, ck_cache, kr_cache, block_tables, context_lens, scale
         q_lat.data_ptr(), q_rope.data_ptr(), ck_cache.data_ptr(), kr_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(), part_acc, part_ml,
         b, w, h, r, p, bs, max_blocks, group_tiles, chunks, chunk,
-        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+        float(scale), dtype_code(q_rope.dtype), dtype_code(ck_cache.dtype),
+        stream_ptr(q_lat.device),
     )
     build.check(code, name)
     if walk:
@@ -337,7 +343,7 @@ def ragged_mla_attention(
     out = torch.empty_like(q_lat)
     p, bs, slots = q_rope.shape[-1], ck_cache.shape[1], page_phys.shape[1]
     (work, part_acc, part_ml, caps), scratch = (None, None, None, (0, 0, 0)), None
-    if split_route(ck_cache.dtype, r, p, bs, h) and plan is not None:
+    if split_route(q_rope.dtype, r, p, bs, h, ck_cache.dtype) and plan is not None:
         # scratch: the call's partials, held here until the launch
         (work, part_acc, part_ml, caps), scratch = launch_args(
             plan, q_lat.device, tb_tokens * h, r, "ragged MLA work plan")
@@ -346,7 +352,8 @@ def ragged_mla_attention(
         token_lane.data_ptr(), token_pos.data_ptr(), page_phys.data_ptr(),
         page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(), out.data_ptr(),
         work, part_acc, part_ml, t, h, r, p, bs, tb_tokens, slots, *caps,
-        float(scale), dtype_code(ck_cache.dtype), stream_ptr(q_lat.device),
+        float(scale), dtype_code(q_rope.dtype), dtype_code(ck_cache.dtype),
+        stream_ptr(q_lat.device),
     )
     build.check(code, "ragged_mla_attention")
     ragged_launches += 1

@@ -10,7 +10,9 @@ calls that launched the kernel (the split walk and, with more than one
 split, its combine), ``window_launches`` those of them at W > 1,
 ``plain_calls`` calls routed to the plain version.
 
-bf16 caches at head dims 64 and 128 take the split walk: ``plan_splits``
+bf16 queries over a bf16 or fp8 (e4m3fn, e5m2) cache at head dims 64 and
+128 take the split walk (other dtypes, and head dim 16, the CUDA-core
+loop, converting the cache on load): ``plan_splits``
 cuts each sequence's block table into chunks from the shapes alone (never
 from ``context_lens``, which would cost a device-to-host read a layer).
 """
@@ -27,6 +29,7 @@ from dynamo_tpu_torch.ops.kernels.common import (
     dtype_code,
     sm_count,
     stream_ptr,
+    walk_cache,
 )
 from dynamo_tpu_torch.ops.kernels import build
 
@@ -35,7 +38,7 @@ window_launches = 0
 plain_calls = 0
 
 MAX_ROWS = 64  # query rows (W * heads / kv heads) a kv head may have
-SPLIT_HEAD_DIMS = (64, 128)  # bf16 head dims of the split tensor-core walk
+SPLIT_HEAD_DIMS = (64, 128)  # head dims of the split tensor-core walk
 ROWS_PER_CTA = 32    # query rows a CTA of the split walk holds (more: row groups)
 CTAS_PER_SM = 2      # the split walk's grid aims at about this many CTAs an SM
 MIN_CHUNK_KEYS = 64  # a split walks at least this many positions
@@ -110,7 +113,7 @@ def paged_window_attention_decode(
     out = torch.empty_like(q)
     max_blocks = block_tables.shape[1]
     splits, chunk, part_acc, part_ml = 1, max_blocks, None, None
-    if q.dtype == torch.bfloat16 and d in SPLIT_HEAD_DIMS:
+    if walk_cache(q.dtype, k_cache.dtype) and d in SPLIT_HEAD_DIMS:
         rows = w * (h // kvh)
         splits, chunk = plan_splits(b, kvh, rows, max_blocks, bs, sm_count(q.device))
         if splits > 1:  # the partials the combine merges: acc, then m and l
@@ -123,7 +126,7 @@ def paged_window_attention_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(), part_acc, part_ml,
         b, w, h, kvh, d, bs, max_blocks, sliding_window or 0, splits, chunk,
-        dtype_code(q.dtype), stream_ptr(q.device),
+        dtype_code(q.dtype), dtype_code(k_cache.dtype), stream_ptr(q.device),
     )
     build.check(code, "paged_window_attention_decode")
     launches += 1

@@ -13,10 +13,11 @@ raises.  ``launches`` counts wrapper calls that launched a kernel,
 ``split_launches`` those of them that took the tensor-core walk,
 ``plain_calls`` calls routed to the plain version.
 
-Routes on the card (``split_route``): bf16 caches at head dims 64 and 128,
-block sizes a multiple of 16 and ``tb * H/KVH <= 64`` query rows take the
-tensor-core walk; float32 caches and head dim 16 the CUDA-core loop.  Any
-other shape raises.
+Routes on the card (``split_route``): bf16 queries over a bf16 or fp8
+(e4m3fn, e5m2) cache at head dims 64 and 128, block sizes a multiple of 16
+and ``tb * H/KVH <= 64`` query rows take the tensor-core walk; float32
+queries, float32 and float16 caches and head dim 16 the CUDA-core loop,
+which converts the cache on load.  Any other shape raises.
 
 The walk's balance comes from ``plan_ragged_work``: it cuts each token
 block's worklist into work items from the host copy of ``page_count``
@@ -43,6 +44,7 @@ from dynamo_tpu_torch.ops.kernels.common import (
     check_index,
     dtype_code,
     stream_ptr,
+    walk_cache,
 )
 from dynamo_tpu_torch.ops.kernels.work_plan import DeviceWork, Planner, WorkPlan, launch_args
 
@@ -51,7 +53,7 @@ split_launches = 0
 plain_calls = 0
 
 MAX_ROWS = 64                # query rows (tb * heads / kv heads) a CTA holds
-SPLIT_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core walk
+SPLIT_HEAD_DIMS = (64, 128)  # head dims of the tensor-core walk
 SUB_KEYS = 16                # the walk's sub-tile: block sizes are a multiple
 # the work plan's aims: items x kv heads about CTAS_PER_SM CTAs an SM (one
 # wave: the walk holds three at Llama-3-8B widths; chip_smoke.py's sweep
@@ -139,11 +141,13 @@ def pack_page_meta(
     return page_phys, page_lane, page_ord, page_count
 
 
-def split_route(dtype: torch.dtype, head_dim: int, block_size: int, rows: int) -> bool:
-    """Whether the tensor-core walk takes this shape on the card: bf16 at
-    head dims 64 and 128, block sizes a multiple of its 16-key sub-tile, at
-    most MAX_ROWS query rows a kv head."""
-    return (dtype == torch.bfloat16 and head_dim in SPLIT_HEAD_DIMS
+def split_route(dtype: torch.dtype, head_dim: int, block_size: int, rows: int,
+                cache_dtype: torch.dtype | None = None) -> bool:
+    """Whether the tensor-core walk takes this shape on the card: bf16
+    queries (``dtype``) over a bf16 or fp8 cache (``cache_dtype``, default
+    the queries') at head dims 64 and 128, block sizes a multiple of its
+    16-key sub-tile, at most MAX_ROWS query rows a kv head."""
+    return (walk_cache(dtype, cache_dtype or dtype) and head_dim in SPLIT_HEAD_DIMS
             and block_size % SUB_KEYS == 0 and rows <= MAX_ROWS)
 
 
@@ -238,8 +242,8 @@ def ragged_paged_attention(
         q.device, token_lane=token_lane, token_pos=token_pos, page_phys=page_phys,
         page_lane=page_lane, page_ord=page_ord, page_count=page_count,
     )
-    split = split_route(q.dtype, d, bs, rows)
-    if q.dtype == torch.bfloat16 and d in SPLIT_HEAD_DIMS and not split:
+    split = split_route(q.dtype, d, bs, rows, k_cache.dtype)
+    if walk_cache(q.dtype, k_cache.dtype) and d in SPLIT_HEAD_DIMS and not split:
         raise ValueError(f"ragged attention: bf16 at head dim {d} takes the tensor-core "
                          f"walk, which needs a block size that is a multiple of "
                          f"{SUB_KEYS} (got {bs})")
@@ -255,7 +259,7 @@ def ragged_paged_attention(
         page_lane.data_ptr(), page_ord.data_ptr(), page_count.data_ptr(),
         out.data_ptr(), work, part_acc, part_ml, t, h, kvh, d, bs, tb_tokens,
         page_phys.shape[1], sliding_window or 0, *caps,
-        dtype_code(q.dtype), stream_ptr(q.device),
+        dtype_code(q.dtype), dtype_code(k_cache.dtype), stream_ptr(q.device),
     )
     build.check(code, "ragged_paged_attention")
     launches += 1

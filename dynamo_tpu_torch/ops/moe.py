@@ -3,7 +3,9 @@
 Capacity-based top-k routing with fixed shapes, as the reference:
 
     dispatch  [T, H] -> [E, C, H]   (scatter by expert slot)
-    experts   batched matrix products over the expert axis (torch.bmm)
+    experts   batched matrix products over the expert axis (``qeinsum``:
+              a bank may be an int8 ``QuantizedMatrix``, quantized per
+              (layer, expert, out-channel))
     combine   [E, C, H] -> [T, H]   weighted by router probabilities, f32
 
 Every expert's bank is multiplied whatever its load, so a decode step reads
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dynamo_tpu_torch.ops.quant import qeinsum
 
 
 def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,9 +81,9 @@ def moe_dispatch_combine(
     x: torch.Tensor,           # [T, H]
     expert_ids: torch.Tensor,  # [T, k]
     probs: torch.Tensor,       # [T, k] f32
-    w_gate: torch.Tensor,      # [E, H, I]
-    w_up: torch.Tensor,        # [E, H, I]
-    w_down: torch.Tensor,      # [E, I, H]
+    w_gate,                    # [E, H, I] tensor or QuantizedMatrix
+    w_up,                      # [E, H, I]
+    w_down,                    # [E, I, H]
     *,
     capacity: int,
 ) -> torch.Tensor:
@@ -100,8 +104,9 @@ def moe_dispatch_combine(
     buffers.index_copy_(0, row, x[token_idx])
     buffers = buffers[:dump].view(e, capacity, h)
 
-    hidden = F.silu(torch.bmm(buffers, w_gate)) * torch.bmm(buffers, w_up)
-    out = torch.bmm(hidden, w_down).reshape(dump, h)           # [E*C, H]
+    hidden = F.silu(qeinsum("ech,ehi->eci", buffers, w_gate)) * qeinsum(
+        "ech,ehi->eci", buffers, w_up)
+    out = qeinsum("eci,eih->ech", hidden, w_down).reshape(dump, h)  # [E*C, H]
 
     gathered = out[row.clamp(max=dump - 1)]                    # [T*k, H]
     weights = torch.where(within, probs.reshape(-1).float(), 0.0)
@@ -115,9 +120,9 @@ def moe_dispatch_combine(
 def moe_ffn(
     x: torch.Tensor,
     w_router: torch.Tensor,
-    w_gate: torch.Tensor,
-    w_up: torch.Tensor,
-    w_down: torch.Tensor,
+    w_gate,
+    w_up,
+    w_down,
     *,
     top_k: int,
     capacity_factor: float = 2.0,

@@ -381,6 +381,46 @@ def test_host_and_disk_storage_hold_bf16(tmp_path):
         storage.close()
 
 
+def test_host_and_disk_storage_hold_fp8(tmp_path):
+    """One-byte float pools: G2 host memory and the G3 uint8 memmap keep
+    fp8 e4m3fn blocks byte for byte."""
+    data = torch.from_numpy(randn(9, 2)).to(torch.float8_e4m3fn)
+    for storage in (kvbm.HostStorage(4, SHAPE, torch.float8_e4m3fn),
+                    kvbm.DiskStorage(4, SHAPE, torch.float8_e4m3fn, path=tmp_path / "g3.bin")):
+        storage.write_batch([3, 1], data)
+        got = storage.read_batch([1, 3])
+        assert got.dtype == torch.float8_e4m3fn
+        assert torch.equal(got.view(torch.uint8), data[[1, 0]].view(torch.uint8))
+        storage.close()
+
+
+@pytest.mark.parametrize("server_side,client_side", [(JAX, PORT), (PORT, JAX)],
+                         ids=["port-client-jax-store", "jax-client-port-store"])
+def test_g4_wire_carries_fp8_blocks_both_ways(server_side, client_side):
+    """An fp8 e4m3fn pool over the G4 wire between the two packages: the
+    dtype by its name (numpy's through ml_dtypes, torch's), the bytes
+    equal both ways."""
+    import ml_dtypes
+
+    dtypes = {id(JAX): ml_dtypes.float8_e4m3fn, id(PORT): torch.float8_e4m3fn}
+    server_side = dataclasses.replace(server_side, dtype=dtypes[id(server_side)])
+    data = randn(10, 3).astype(ml_dtypes.float8_e4m3fn)
+    payload = data if client_side is JAX else torch.from_numpy(
+        data.view(np.uint8)).view(torch.float8_e4m3fn)
+
+    async def body(server):
+        store = await asyncio.to_thread(client_side.remote.RemoteStorage, server.address)
+        await asyncio.to_thread(store.write_batch, [4, 1, 6], payload)
+        got = await asyncio.to_thread(store.read_batch, [6, 4])
+        store.close()
+        return str(store.dtype).removeprefix("torch."), got
+
+    name, got = asyncio.run(with_server(server_side, body, 8))
+    assert name == "float8_e4m3fn"
+    got = got.view(torch.uint8).numpy() if isinstance(got, torch.Tensor) else got.view(np.uint8)
+    np.testing.assert_array_equal(got, data[[2, 0]].view(np.uint8))
+
+
 @pytest.mark.parametrize("server_side,client_side", [(JAX, PORT), (PORT, JAX)],
                          ids=["port-client-jax-store", "jax-client-port-store"])
 def test_g4_wire_interoperates_with_the_reference(server_side, client_side):

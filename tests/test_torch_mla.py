@@ -165,12 +165,18 @@ def test_mla_wrappers_refuse_fp8_mixed_dtypes_other_widths_and_devices():
     kr = torch.zeros((4, 16, 8), dtype=torch.bfloat16)
     mla_kernels._check(q_lat, q_rope, ck, kr)
     fp8 = torch.float8_e4m3fn
-    with pytest.raises(ValueError, match="quantized slice"):
+    # fp8 caches are read (and upcast) under bf16 or float32 queries; an fp8
+    # query is refused
+    mla_kernels._check(q_lat, q_rope, ck.to(fp8), kr.to(fp8))
+    mla_kernels._check(q_lat, q_rope.float(), ck.to(torch.float8_e5m2), kr.to(torch.float8_e5m2))
+    with pytest.raises(ValueError, match="q_rope must be float32 or bfloat16"):
         mla_kernels._check(q_lat, q_rope.to(fp8), ck.to(fp8), kr.to(fp8))
     with pytest.raises(ValueError, match="q_lat must be float32"):
         mla_kernels._check(q_lat.bfloat16(), q_rope, ck, kr)
     with pytest.raises(ValueError, match="share one dtype"):
-        mla_kernels._check(q_lat, q_rope.float(), ck, kr)
+        mla_kernels._check(q_lat, q_rope, ck, kr.float())
+    with pytest.raises(ValueError, match="share one dtype"):
+        mla_kernels._check(q_lat, q_rope, ck.to(torch.int8), kr.to(torch.int8))
     with pytest.raises(ValueError, match="widths"):
         mla_kernels._check(q_lat[..., :16].contiguous(), q_rope, ck[..., :16].contiguous(), kr)
     meta = lambda x: x.to("meta")  # noqa: E731

@@ -264,17 +264,17 @@ async def remote_store(server_cls, storage_cls, nbytes: int, dtype):
     return server
 
 
-@pytest.mark.parametrize("unified", [True, False], ids=["unified", "split"])
-@pytest.mark.parametrize("tier", sorted(TIERS))
-@pytest.mark.parametrize("family", ["llama", "tiny_mla"])
-async def test_engine_offload_and_restore_match_reference(family, tier, unified, tmp_path):
+async def offload_pair(family, tier, unified, tmp_path, **engine_kw):
+    """Both engines through ``drive`` on one tier configuration: (ours,
+    our stats, our G2 payloads), then the reference's."""
     name, cfg, jcfg, params, jparams = family_models(family)
-    tier_kw, restore_counter = TIERS[tier]
-    kw = {**GEOMETRY, **tier_kw, "model_family": name, "unified_batch": unified}
+    tier_kw, _ = TIERS[tier]
+    kw = {**GEOMETRY, **tier_kw, "model_family": name, "unified_batch": unified, **engine_kw}
     servers = []
     if tier == "remote":
         probe = TorchLlmEngine(EngineConfig(model=cfg, **GEOMETRY, model_family=name,
-                                            host_offload_blocks=1), params=params, device="cpu")
+                                            host_offload_blocks=1, **engine_kw),
+                               params=params, device="cpu")
         nbytes = probe.host_tier.block_nbytes
         probe.stop()
         servers = [await remote_store(JaxStoreServer, JaxHostStorage, nbytes, np.uint8),
@@ -300,6 +300,15 @@ async def test_engine_offload_and_restore_match_reference(family, tier, unified,
     finally:
         for server in servers:
             await server.stop()
+    return ours, stats, g2, ref, ref_stats, ref_g2
+
+
+@pytest.mark.parametrize("unified", [True, False], ids=["unified", "split"])
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("family", ["llama", "tiny_mla"])
+async def test_engine_offload_and_restore_match_reference(family, tier, unified, tmp_path):
+    restore_counter = TIERS[tier][1]
+    ours, stats, g2, ref, ref_stats, ref_g2 = await offload_pair(family, tier, unified, tmp_path)
     assert ours == ref
     assert ours[-1] == ours[0]  # the restored prefix gives A's tokens again
     for key in COUNTERS:
@@ -310,6 +319,26 @@ async def test_engine_offload_and_restore_match_reference(family, tier, unified,
     for h, leaves in g2.items():
         for leaf, arr in leaves.items():
             np.testing.assert_allclose(arr, ref_g2[h][leaf], rtol=0, atol=PAYLOAD_ATOL)
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+async def test_engine_offload_and_restore_of_an_fp8_cache(tier, tmp_path):
+    """An fp8 e4m3fn cache through G2 pinned host memory, the G3 uint8
+    memmap and the G4 wire (a store of the reference's and one of the
+    port's): the same greedy streams as the reference, the restored prefix
+    gives the tokens A gave with no eviction, and the blocks the host tier
+    holds are the reference's bytes."""
+    restore_counter = TIERS[tier][1]
+    ours, stats, g2, ref, ref_stats, ref_g2 = await offload_pair(
+        "llama", tier, True, tmp_path, kv_cache_dtype="fp8")
+    assert ours == ref
+    assert ours[-1] == ours[0]
+    assert stats[restore_counter] > 0, stats
+    assert stats["kv_cache_dtype"] == "float8_e4m3fn"
+    assert sorted(g2) == sorted(ref_g2) and g2
+    for h, leaves in g2.items():
+        for leaf, arr in leaves.items():
+            np.testing.assert_array_equal(arr, ref_g2[h][leaf])
 
 
 async def test_engine_offload_runs_the_block_copy_wrappers():

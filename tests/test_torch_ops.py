@@ -206,11 +206,17 @@ def test_kernel_checks_refuse_fp8_caches_and_mixed_dtypes():
 
     q = torch.zeros((2, 4, 16), dtype=torch.bfloat16)
     fp8 = torch.zeros((4, 8, 2, 16), dtype=torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="quantized slice"):
-        check_cache(q, fp8, fp8, 16, 16)
+    # an fp8 (or any float) cache is read under bf16 or float32 queries; an
+    # fp8 query, a non-float cache and a k/v pair of two dtypes are refused
+    check_cache(q, fp8, fp8, 16, 16)
+    check_cache(q.float(), fp8, fp8, 16, 16)
+    with pytest.raises(ValueError, match="query dtype"):
+        check_cache(q.to(torch.float8_e4m3fn), fp8, fp8, 16, 16)
+    with pytest.raises(ValueError, match="not supported by the kernels"):
+        check_cache(q, fp8.view(torch.int8), fp8.view(torch.int8), 16, 16)
     f32 = torch.zeros((4, 8, 2, 16), dtype=torch.float32)
-    with pytest.raises(ValueError, match="share one dtype"):
-        check_cache(q, f32, f32, 16, 16)
+    with pytest.raises(ValueError, match="differ in dtype"):
+        check_cache(q, f32, fp8, 16, 16)
     with pytest.raises(ValueError, match="head dim"):
         check_cache(q.float()[..., :8].contiguous(), f32[..., :8].contiguous(),
                     f32[..., :8].contiguous(), 8, 8)

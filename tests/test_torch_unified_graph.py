@@ -131,7 +131,7 @@ def cpu_planner(monkeypatch):
     the engine packs every window's plan at its bucket's capacity."""
     from dynamo_tpu_torch.engine import engine as engine_mod
 
-    def planner(cfg, *, block_size, tb_tokens, device):
+    def planner(cfg, *, block_size, tb_tokens, device, cache_dtype=None):
         rows = tb_tokens * (cfg.num_heads // cfg.num_kv_heads)
         return ragged_attention.ragged_planner(cfg.num_kv_heads, SMS, rows, cfg.head_dim)
 
