@@ -105,6 +105,16 @@ Phases (any failure exits non-zero, before the result line):
                and unified replays bitwise equal to eager, no capture after
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8).
+ 11. bench   — the headline benchmark (``python -m
+               dynamo_tpu_torch.bench.headline``) through its own
+               functions at its full traffic (32 requests of ISL 3000 and
+               OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
+               configuration A (int8 weights, fp8 cache, decode_steps 8,
+               512-token chunks on the eager split step) and C (bf16,
+               decode_steps 1, every chunk in a unified graph); each rung
+               must stream requests x OSL tokens and the cache hold no NaN,
+               no graph may be captured after warmup, MFU must lie in (0, 1], the prefix cache must
+               cut TTFT, and the path's kernels must run on the card.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -135,7 +145,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "offload", "kvbm",
-          "quant")
+          "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -3177,6 +3187,75 @@ def phase_kvbm(torch, card: str, device: str = "cuda") -> dict:
     return {"counts": counts, "line": line}
 
 
+# ---------------------------------------------------------------------------
+# phase bench: the headline benchmark's configurations
+# ---------------------------------------------------------------------------
+
+# configurations of ``python -m dynamo_tpu_torch.bench.headline`` at its full
+# traffic (32 requests, ISL 3000, OSL 150, 16 lanes, 512-token chunks, the
+# Llama-3-8B geometry, all 32 layers): A is the reference's headline (int8
+# weights, fp8 cache, decode_steps 8: every prompt on the eager split step,
+# the decode windows graphed); C bf16 at decode_steps 1 (every chunk in a
+# unified graph, rows 1-2)
+BENCH_CONFIGS = (
+    ("A", {}, ("paged_attention.launches",)),
+    ("C", {"DYN_BENCH_QUANT": "none", "DYN_BENCH_KV_DTYPE": "model",
+           "DYN_BENCH_DECODE_STEPS": "1"}, LLAMA_PATH),
+)
+
+
+def phase_bench(torch) -> dict:
+    """Each configuration through the headline bench's own functions
+    (``settings_from_env``, ``run_bench``: warmup, the burst, the pipeline
+    and prefix rungs), the launch counters zeroed just before and read just
+    after; one ``smoke_bench`` line each.  Fails when a rung streams fewer
+    than requests x OSL tokens, a graph is captured after warmup, MFU is
+    outside (0, 1], the prefix cache does not cut TTFT, or a kernel of the
+    path did not run (or a plain version ran on the card)."""
+    from dynamo_tpu_torch.bench import headline
+
+    out = {}
+    for name, env, path in BENCH_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        settings = headline.settings_from_env(env)
+        zero_counters()
+        t0 = time.perf_counter()
+        result = asyncio.run(headline.run_bench(settings))
+        counts = read_counters()
+        d = result["detail"]
+        line = {"config": name, "env": env, "seconds": round(time.perf_counter() - t0, 1),
+                "tok_s": result["value"],
+                **{k: d[k] for k in (
+                    "decode_phase_tok_s", "vs_baseline_decode_phase", "ttft_p50_ms",
+                    "ttft_p99_ms", "ttft_samples", "itl_p50_ms", "itl_p99_ms", "itl_samples",
+                    "mfu", "mfu_basis", "engine_mfu_perc_rolling",
+                    "engine_bandwidth_util_perc_rolling", "engine_mfu_burst",
+                    "engine_bandwidth_util_burst", "prefix_ttft_miss_ms", "prefix_ttft_hit_ms",
+                    "prefix_ttft_speedup", "pipeline_tok_s", "pipeline_overhead_pct",
+                    "graphs_captured", "graphs_captured_after_warmup", "tokens_expected",
+                    "tokens_direct", "pipeline_tokens", "cache_finite", "device_kind",
+                    "power_limit_w")},
+                "launches": {k: counts[k] for k in (*LLAMA_PATH, "plain_calls")}}
+        print(json.dumps({"smoke_bench": line}), flush=True)
+        failures = []
+        if not d["outputs_ok"]:
+            failures.append("outputs wrong: a rung streamed other than requests x OSL "
+                            "tokens, or the cache holds a NaN or inf")
+        if d["graphs_captured_after_warmup"] != 0:
+            failures.append("a graph was captured after warmup")
+        if not 0 < d["mfu"] <= 1:
+            failures.append(f"mfu {d['mfu']} outside (0, 1]")
+        if not d["prefix_ttft_speedup"] > 1:
+            failures.append(f"prefix speedup {d['prefix_ttft_speedup']} <= 1")
+        if counts["plain_calls"] != 0 or any(counts[k] <= 0 for k in path):
+            failures.append(f"the path's kernels did not all run on the card: {counts}")
+        if failures:
+            raise AssertionError(f"bench {name}: " + "; ".join(failures))
+        out[name] = line
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3243,6 +3322,8 @@ def main() -> int:
             run("kvbm", phase_kvbm, torch, card)
         if "quant" in phases:
             quant = run("quant", phase_quant, torch, card)
+        if "bench" in phases:
+            run("bench", phase_bench, torch)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run

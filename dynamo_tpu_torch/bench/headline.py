@@ -1,0 +1,675 @@
+"""The port's headline serving benchmark: offline throughput of
+``TorchLlmEngine`` on one card, with MFU (the counterpart of the
+repository's bench.py, which drives ``JaxLlmEngine``).
+
+    python -m dynamo_tpu_torch.bench.headline
+
+Geometry and traffic are bench.py's: the Llama-3-8B geometry, int8
+weight-only projections and an fp8 KV cache, 32 requests of ISL 3000 and OSL
+150 over 16 lanes, ``decode_steps`` 8 and 512-token prefill chunks
+(reference: examples/llm/benchmarks/README.md:309-319).  Weights are the
+reference's constant fill (``DYN_BENCH_INIT=const``; ``random`` takes the
+engine's seeded init), prompts random token ids from a seed.  Reports
+generated tokens/s/card, TTFT and per-request ITL percentiles, decode-phase
+tok/s against the reference's 145 tok/s/GPU H100 figure, MFU against the
+card's peak, the engine's own utilization accounting, and two more rungs:
+the prefix cache's TTFT (the same prompt again) and the same burst through
+the HTTP serving stack.  Prints exactly one JSON line on stdout.
+
+Environment (bench.py's names and defaults): ``DYN_BENCH_MODEL``
+(a ``LlamaConfig`` preset), ``_QUANT`` (``int8|none``), ``_KV_DTYPE``
+(``fp8``; ``model`` or ``none`` for the model's dtype), ``_REQUESTS``,
+``_ISL``, ``_OSL``, ``_BATCH``, ``_DECODE_STEPS``, ``_CHUNK`` (0: whole
+prompts), ``_BLOCKS``, ``_INIT``.  ``DYN_BENCH_DEVICE=cpu`` asks for the
+CPU and takes bench.py's small CPU defaults (the ``tiny`` model, 8 requests
+of ISL 64 and OSL 32, 4 lanes, ``decode_steps`` 4, no chunking, the model's
+dtype in the cache).  Without a card, and without that setting, the bench
+exits non-zero: it never moves to the CPU or to a smaller model by itself.
+``DYN_PROFILER_TRACE_DIR`` writes a device trace of the engine's serve
+window (``utils/profiling.py``; the burst and the rungs are annotated
+``bench.burst``, ``bench.pipeline``, ``bench.prefix``).
+
+Correctness the bench checks itself: a request that finishes with an error
+raises, and every request of the direct and the pipeline rungs must stream
+exactly OSL tokens, and the KV cache must hold no NaN or inf after the run
+(``cache_finite``); the line says whether both held (``outputs_ok``), and a
+failure exits non-zero after printing it.
+
+Beside bench.py:
+- ``engine.warmup()`` takes the place of ``aot_precompile``: every graph is
+  captured before the measured burst, and the line reports any capture
+  after it (``graphs_captured_after_warmup``, which must be 0).
+- There is no ``top_logprobs_k``: the port computes top-k logprobs only for
+  a window with a lane that asks, so the measured loop pays no top-k tax.
+  ``logit_bias_k`` is 0, as in bench.py.
+- The pipeline rung runs HTTP -> ``CompletionPreprocessor`` -> ``Backend``
+  -> engine in process (``pipeline_path``); the reference's push router and
+  distributed runtime come with a later slice.
+- Not ported: the KV transfer rung (``_measure_kv_xfer``) and the KV
+  routing rung (``_measure_kv_routing``), named in ``rungs_not_ported``;
+  bench.py's TPU bring-up machinery (relay and device probes, the retrying
+  parent process, its watchdog, the model ladder's step-down and the CPU
+  fallback's re-headline), by rule: the port fails where that code fell
+  back.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
+from dynamo_tpu_torch.engine.engine import resolve_kv_cache_dtype
+from dynamo_tpu_torch.llm.protocols.common import (
+    Annotated,
+    FinishReason,
+    LLMEngineOutput,
+    PreprocessedRequest,
+    SamplingOptions,
+    StopConditions,
+)
+from dynamo_tpu_torch.models.llama import LlamaConfig
+from dynamo_tpu_torch.models.registry import get_family
+from dynamo_tpu_torch.observability.perf import NOMINAL_PEAKS
+from dynamo_tpu_torch.ops.quant import QuantizedMatrix, quantize_params
+from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.utils import profiling
+
+# the reference's disaggregated H100 decode figure (BASELINE.md, bench.py:30)
+BASELINE_TOK_S_PER_GPU = 145.0
+BLOCK_SIZE = 16
+MODEL_PRESETS = ("llama3_8b", "llama3_70b", "llama32_3b", "llama32_1b", "tiny")
+PREFIX_PAIRS = 3  # the prefix rung's measured (miss, hit) pairs, after a warm pair
+# what the pre-flight keeps free beside parameters and cache: activations of
+# a chunked (2 GB) or whole-prompt (4.5 GB) prefill, as bench.py:187, plus
+# the graphs' memory pool with int8's dequantized copies (1.7-3.1 GB at the
+# Llama-3-8B geometry, PERF.md section 5)
+GRAPH_POOL_MARGIN = 3.5e9
+
+RUNGS_NOT_PORTED = {
+    "kv_xfer": "the KV transfer rung waits for the transfer plane (ROADMAP Queue 1 item 8)",
+    "kv_routing": "the KV routing rung waits for the runtime and router (ROADMAP Queue 1 item 4)",
+}
+PIPELINE_PATH = "http -> CompletionPreprocessor -> Backend -> engine (in process, no router hop)"
+
+
+class DoesNotFit(Exception):
+    """Pre-flight estimate: parameters, cache and margin exceed the card's
+    free memory."""
+
+
+@dataclass(frozen=True)
+class BenchSettings:
+    model: str              # a LlamaConfig preset
+    quant: str | None       # "int8" | None
+    kv_dtype: str | None    # a kv_cache_dtype name, None = the model's
+    requests: int
+    isl: int
+    osl: int
+    batch: int
+    decode_steps: int
+    chunk: int | None       # prefill chunk tokens, None = whole prompts
+    blocks: int
+    init: str               # "const" | "random"
+    device: str             # "cuda" | "cpu"
+
+
+def settings_from_env(env=None) -> BenchSettings:
+    """The bench's settings from ``DYN_BENCH_*`` (bench.py's contract).
+    An unknown value raises here, before any engine is built."""
+    env = os.environ if env is None else env
+    device = env.get("DYN_BENCH_DEVICE", "cuda").strip() or "cuda"
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"DYN_BENCH_DEVICE={device!r} not understood (want cuda|cpu)")
+    cpu = device == "cpu"
+    quant = env.get("DYN_BENCH_QUANT")
+    if quant not in (None, "", "int8", "none", "0"):
+        raise ValueError(f"DYN_BENCH_QUANT={quant!r} not understood (want int8|none)")
+    if not quant:
+        quant = None if cpu else "int8"  # bench.py: int8 on the chip, none on the CPU
+    quant = None if quant in ("none", "0") else quant
+    init = env.get("DYN_BENCH_INIT", "const")
+    if init not in ("const", "random"):
+        raise ValueError(f"DYN_BENCH_INIT={init!r} not understood (want const|random)")
+    model = env.get("DYN_BENCH_MODEL") or ("tiny" if cpu else "llama3_8b")
+    if model not in MODEL_PRESETS:
+        raise ValueError(f"DYN_BENCH_MODEL={model!r} not understood (want one of {MODEL_PRESETS})")
+
+    def num(name: str, card: int, host: int) -> int:
+        raw = env.get(name, str(host if cpu else card))
+        try:
+            return int(raw)
+        except ValueError:
+            raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+    requests = num("DYN_BENCH_REQUESTS", 32, 8)
+    isl = num("DYN_BENCH_ISL", 3000, 64)
+    osl = num("DYN_BENCH_OSL", 150, 32)
+    batch = num("DYN_BENCH_BATCH", 16, 4)
+    decode_steps = num("DYN_BENCH_DECODE_STEPS", 8, 4)
+    kv_dtype = env.get("DYN_BENCH_KV_DTYPE", "" if cpu else "fp8")
+    kv_dtype = None if kv_dtype in ("", "none", "model") else kv_dtype
+    try:
+        resolve_kv_cache_dtype(kv_dtype)
+    except ValueError as exc:
+        raise ValueError(f"DYN_BENCH_KV_DTYPE={kv_dtype!r}: {exc}") from None
+    chunk = num("DYN_BENCH_CHUNK", 512, 0) or None
+    per_seq_blocks = -(-(isl + osl + 16) // BLOCK_SIZE)
+    blocks = num("DYN_BENCH_BLOCKS", per_seq_blocks * batch + 32, per_seq_blocks * batch + 32)
+    return BenchSettings(model=model, quant=quant, kv_dtype=kv_dtype, requests=requests,
+                         isl=isl, osl=osl, batch=batch, decode_steps=decode_steps,
+                         chunk=chunk, blocks=blocks, init=init, device=device)
+
+
+def engine_config(s: BenchSettings) -> EngineConfig:
+    """The engine bench.py:213-227 builds, from the settings alone."""
+    return EngineConfig(
+        model=getattr(LlamaConfig, s.model)(),
+        num_blocks=s.blocks,
+        block_size=BLOCK_SIZE,
+        max_batch_size=s.batch,
+        max_model_len=s.isl + s.osl + 16,
+        prefill_buckets=(s.chunk,) if s.chunk else (s.isl,),
+        decode_steps=s.decode_steps,
+        prefill_chunk_tokens=s.chunk,
+        logit_bias_k=0,  # no bias scatter in the measured loop
+        quantize=s.quant,
+        kv_cache_dtype=s.kv_dtype,
+    )
+
+
+def param_shapes(cfg: LlamaConfig, quant: str | None) -> dict:
+    """The parameter tree on the meta device: shapes and dtypes, no data."""
+    family = get_family("llama")
+    params = family.init_params(cfg, None, "meta")
+    return quantize_params(params, family.quant_leaves) if quant else params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def count_params(tree) -> int:
+    """Parameters of a tree, an int8 matrix counted by its values
+    (bench.py:363-369)."""
+    return sum((x.q if isinstance(x, QuantizedMatrix) else x).numel() for x in _leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    total = 0
+    for x in _leaves(tree):
+        for t in ((x.q, x.s) if isinstance(x, QuantizedMatrix) else (x,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def const_params(cfg: LlamaConfig, quant: str | None, device) -> dict:
+    """bench.py's constant fill: 0.01 for every float leaf, 1 for integer
+    (int8) leaves, so a quantized tree passes the engine's quantize step
+    untouched.  Throughput and MFU do not depend on the weights."""
+
+    def fill(x):
+        if isinstance(x, dict):
+            return {k: fill(v) for k, v in x.items()}
+        if isinstance(x, QuantizedMatrix):
+            return QuantizedMatrix(fill(x.q), fill(x.s))
+        value = 0.01 if x.dtype.is_floating_point else 1
+        return torch.full(x.shape, value, dtype=x.dtype, device=device)
+
+    return fill(param_shapes(cfg, quant))
+
+
+def preflight(s: BenchSettings, config: EngineConfig, device: torch.device) -> None:
+    """Refuse a configuration the card cannot hold before spending minutes
+    building it (bench.py:178-195, on ``torch.cuda.mem_get_info``)."""
+    if device.type != "cuda":
+        return
+    cfg = config.model
+    cache = get_family("llama").init_kv_cache(
+        cfg, config.num_blocks, config.block_size,
+        resolve_kv_cache_dtype(config.kv_cache_dtype) or cfg.dtype, "meta")
+    need = tree_bytes(param_shapes(cfg, s.quant)) + tree_bytes(cache)
+    margin = (2.0e9 if s.chunk else 4.5e9) + GRAPH_POOL_MARGIN
+    free, _ = torch.cuda.mem_get_info(device)
+    if need + margin > free:
+        raise DoesNotFit(
+            f"{s.model}: params+cache {need / 1e9:.1f} GB + ~{margin / 1e9:.1f} GB "
+            f"activations and graph pools > {free / 1e9:.1f} GB free on the card")
+
+
+def build_engine(s: BenchSettings, params: dict | None = None) -> TorchLlmEngine:
+    """The bench's engine: on the card unless the settings ask for the CPU
+    (no card raises), weights per ``DYN_BENCH_INIT`` unless given."""
+    device = resolve_device(s.device)
+    config = engine_config(s)
+    preflight(s, config, device)
+    if params is None and s.init == "const":
+        params = const_params(config.model, s.quant, device)
+    return TorchLlmEngine(config, params=params, device=device)
+
+
+def model_flops(cfg: LlamaConfig, n_params: int, isl: int, osl: int) -> float:
+    """One request's model FLOPs (bench.py:383-387): 2 P a position for the
+    matmuls, and 4 L H D a causal context position for QK^T and AV, over
+    every position of the prompt and the output."""
+    total_len = isl + osl
+    attn_coeff = 4.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+    return 2.0 * n_params * total_len + attn_coeff * total_len * (total_len - 1) / 2.0
+
+
+def prompts(seed: int, n: int, isl: int, vocab: int) -> list[list[int]]:
+    """The reference's draws: ``default_rng(seed).integers(10, vocab - 10,
+    size=isl)``, one prompt at a time."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(10, vocab - 10, size=isl).tolist() for _ in range(n)]
+
+
+def pctile(xs, q):
+    """bench.py's percentile (:373): the sample at ``int(n * q)``, so p99 of
+    fewer than 100 samples is the maximum."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def spec_peak_flops(device: torch.device) -> float | None:
+    """The card's dense bf16 peak from the port's table
+    (``observability/perf.py``), None for a card the table lacks or the
+    CPU."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device).lower()
+    for needle, flops, _ in NOMINAL_PEAKS:
+        if needle != "cpu" and needle in name:
+            return flops
+    return None
+
+
+def measured_peak_flops(dtype, device: torch.device) -> float:
+    """Achievable dense-matmul FLOP/s on ``device``, timed (bench.py:81):
+    the MFU denominator where no data sheet applies."""
+    n = 4096 if device.type == "cuda" else 1024
+    x = torch.full((n, n), 0.5, dtype=dtype, device=device)
+    y = x @ x  # first call outside the clock
+    iters = 4
+    _sync(device)
+    t0 = time.monotonic()
+    for _ in range(iters):
+        y = y @ x
+    _sync(device)
+    return 2.0 * n ** 3 * iters / (time.monotonic() - t0)
+
+
+def card_info(device: torch.device) -> dict:
+    if device.type != "cuda":
+        return {"platform": "cpu", "device_kind": "cpu", "device_count": 0,
+                "power_limit_w": None}
+    power = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader,nounits",
+             f"--id={device.index or 0}"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+        power = float(out.strip().splitlines()[0].rsplit(",", 1)[1])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as exc:
+        print(f"bench: nvidia-smi read no power limit ({exc!r:.120})", file=sys.stderr)
+    return {"platform": "gpu", "device_kind": torch.cuda.get_device_name(device),
+            "device_count": torch.cuda.device_count(), "power_limit_w": power}
+
+
+def _request(tokens: list[int], max_tokens: int) -> dict:
+    return PreprocessedRequest(
+        token_ids=tokens,
+        sampling=SamplingOptions(use_greedy=True),
+        stop=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+        eos_token_ids=[],
+    ).to_wire()
+
+
+class _Client:
+    """Streams requests through the engine and keeps bench.py's per-request
+    records: TTFT, the mean inter-token latency, the decode span."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.itls: list[float] = []
+        self.decode_spans: list[tuple[float, float, int]] = []  # (t_first, t_last, n)
+
+    def clear(self) -> None:
+        self.itls.clear()
+        self.decode_spans.clear()
+
+    async def drive(self, req: dict) -> tuple[int, float]:
+        t0 = time.monotonic()
+        ttft = None
+        count = 0
+        stream = await self.engine.generate(Context(req))
+        async for item in stream:
+            ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+            if ann.data is None:
+                continue
+            if ann.data.finish_reason is FinishReason.ERROR:
+                raise RuntimeError(ann.data.error or "sequence failed in engine")
+            if ann.data.token_ids:
+                t_last = time.monotonic()
+                if ttft is None:
+                    ttft = t_last - t0
+                count += len(ann.data.token_ids)
+        if ttft is not None and count > 1:
+            self.itls.append((t_last - t0 - ttft) / (count - 1))
+            self.decode_spans.append((t0 + ttft, t_last, count))
+        return count, ttft or 0.0
+
+
+async def run_bench(s: BenchSettings, params: dict | None = None) -> dict:
+    """Build the engine, warm it, and run the burst and the rungs.  Returns
+    bench.py's result dict with the port's additions."""
+    t_init = time.monotonic()
+    engine = build_engine(s, params)
+    try:
+        return await _measure(engine, s, t_init)
+    finally:
+        engine.stop()
+
+
+async def _measure(engine: TorchLlmEngine, s: BenchSettings, t_init: float) -> dict:
+    cfg = engine.config.model
+    device = engine.device
+    engine.start()
+    await engine.warmup()
+    warm = engine.stats()
+    print(f"bench: engine up and warm in {time.monotonic() - t_init:.1f}s "
+          f"({warm['unified_graphs_captured']} unified + {warm['decode_graphs_captured']} "
+          "decode graphs)", file=sys.stderr)
+    draws = iter(prompts(0, s.requests + 2 + PREFIX_PAIRS, s.isl, cfg.vocab_size))
+    client = _Client(engine)
+
+    await client.drive(_request(next(draws), s.osl))  # first eager launches
+    client.clear()
+    burst = [_request(next(draws), s.osl) for _ in range(s.requests)]
+    before = engine.stats()
+    _sync(device)
+    t0 = time.monotonic()
+    with profiling.annotate("bench.burst"):
+        results = await asyncio.gather(*[client.drive(r) for r in burst])
+        _sync(device)
+    wall = time.monotonic() - t0
+    # snapshot NOW: the rungs below replay prompts
+    run_stats = engine.stats()
+    run_itls = list(client.itls)
+    decode_phase_tok_s = None
+    if client.decode_spans:
+        span_t0 = min(sp[0] for sp in client.decode_spans)
+        span_t1 = max(sp[1] for sp in client.decode_spans)
+        decode_tokens = sum(sp[2] - 1 for sp in client.decode_spans)
+        if span_t1 > span_t0:
+            decode_phase_tok_s = decode_tokens / (span_t1 - span_t0)
+    print(f"bench: burst done in {wall:.1f}s", file=sys.stderr)
+
+    with profiling.annotate("bench.pipeline"):
+        pipeline = await _measure_pipeline(engine, s)
+    prefix = {}
+    if s.isl >= 512:  # below it the prefix machinery's fixed cost is noise
+        with profiling.annotate("bench.prefix"):
+            prefix = await _measure_prefix_ttft(client, [next(draws) for _ in range(1 + PREFIX_PAIRS)])
+    end_stats = engine.stats()
+    # no NaN or inf written to the cache (an fp8 e4m3 cast past 448 gives NaN)
+    cache_finite = all(bool(torch.isfinite(leaf[i].float()).all())
+                       for leaf in engine.cache.values() for i in range(leaf.shape[0]))
+
+    n_params = count_params(engine.params)
+    total_tokens = sum(c for c, _ in results)
+    tok_s = total_tokens / wall
+    ttfts = [t for _, t in results]
+    p50, p99 = pctile(ttfts, 0.5), pctile(ttfts, 0.99)
+    total_flops = model_flops(cfg, n_params, s.isl, s.osl) * s.requests
+    peak, mfu_basis = spec_peak_flops(device), "spec_peak"
+    if peak is None:
+        peak, mfu_basis = measured_peak_flops(cfg.dtype, device), "measured_matmul_peak"
+    mfu = total_flops / wall / peak
+    expected = s.requests * s.osl
+    outputs_ok = (all(c == s.osl for c, _ in results)
+                  and pipeline["pipeline_tokens"] == expected and cache_finite)
+    util = engine.utilization
+    card = card_info(device)
+    print(f"bench: {s.requests} reqs isl={s.isl} osl={s.osl} wall={wall:.2f}s "
+          f"tokens={total_tokens} tok/s={tok_s:.1f} mfu={mfu:.4f} "
+          f"ttft p50={p50 * 1000:.0f}ms p99={p99 * 1000:.0f}ms {card['device_kind']}",
+          file=sys.stderr)
+    return {
+        "metric": "decode_tok_s_per_chip",
+        "value": round(tok_s, 2),
+        "unit": "tok/s/chip",
+        "vs_baseline": round(tok_s / BASELINE_TOK_S_PER_GPU, 3),
+        "detail": {
+            "model": s.model,
+            "quantize": s.quant,
+            "kv_cache_dtype": run_stats["kv_cache_dtype"],
+            "init": s.init,
+            "n_params": n_params,
+            "num_requests": s.requests,
+            "isl": s.isl,
+            "osl": s.osl,
+            "wall_s": round(wall, 2),
+            "mfu": round(mfu, 4),
+            "mfu_basis": mfu_basis,
+            "peak_flops": round(peak / 1e12, 2),
+            "achieved_tflops_per_s": round(total_flops / wall / 1e12, 3),
+            "total_tflops": round(total_flops / 1e12, 1),
+            "ttft_p50_ms": round(p50 * 1000, 1),
+            "ttft_p99_ms": round(p99 * 1000, 1),
+            "ttft_samples": len(ttfts),
+            # per-request mean ITL percentiles (decode_steps > 1 emits in
+            # bursts; the request-level mean amortizes that)
+            "itl_p50_ms": round(pctile(run_itls, 0.5) * 1000, 2) if run_itls else None,
+            "itl_p99_ms": round(pctile(run_itls, 0.99) * 1000, 2) if run_itls else None,
+            "itl_samples": len(run_itls),
+            "decode_phase_tok_s": (
+                None if decode_phase_tok_s is None else round(decode_phase_tok_s, 2)),
+            # the decode-worker score against the reference's 145 tok/s,
+            # only on the card: a toy CPU ratio would mislead
+            "vs_baseline_decode_phase": (
+                None if decode_phase_tok_s is None or device.type != "cuda"
+                else round(decode_phase_tok_s / BASELINE_TOK_S_PER_GPU, 3)),
+            "prefix_hits_total": run_stats.get("prefix_hits_total"),
+            "spec_accepted_tokens_total": run_stats.get("spec_accepted_tokens_total"),
+            "req_s": round(s.requests / wall, 3),
+            "decode_steps": s.decode_steps,
+            "batch": s.batch,
+            "chunk": s.chunk,
+            **card,
+            # the engine's own accounting (observability/perf.py): its
+            # rolling window at the burst's end, and its FLOP and byte
+            # totals over the burst, each against the tracker's peaks
+            "engine_mfu_perc_rolling": round(run_stats["mfu_perc"], 4),
+            "engine_bandwidth_util_perc_rolling": round(run_stats["bandwidth_util_perc"], 4),
+            "engine_util_window_s": util.window_s,
+            "engine_mfu_burst": round(
+                (run_stats["model_flops_total"] - before["model_flops_total"])
+                / wall / util.peak_flops, 4),
+            "engine_bandwidth_util_burst": round(
+                (run_stats["model_bytes_total"] - before["model_bytes_total"])
+                / wall / util.peak_bytes_per_s, 4),
+            "graphs_captured": warm["unified_graphs_captured"] + warm["decode_graphs_captured"],
+            "graphs_captured_after_warmup": (
+                end_stats["unified_graphs_captured_after_warmup"]
+                + end_stats["decode_graphs_captured_after_warmup"]),
+            "warmup_s": round(warm["warmup_s"], 2),
+            "unified_windows": run_stats["decode_windows_unified_total"],
+            "unified_fallbacks": run_stats["unified_fallbacks"],
+            "tokens_expected": expected,
+            "tokens_direct": total_tokens,
+            "cache_finite": cache_finite,
+            "outputs_ok": outputs_ok,
+            **prefix,
+            **pipeline,
+            # serving-stack tax: the same burst direct and through HTTP/SSE
+            "pipeline_overhead_pct": round(
+                (1.0 - pipeline["pipeline_tok_s"] / tok_s) * 100.0, 1),
+            "rungs_not_ported": RUNGS_NOT_PORTED,
+        },
+    }
+
+
+def synth_tokenizer(vocab_size: int):
+    """In-memory word-level tokenizer over the model's whole vocabulary
+    (``t0`` .. ``t{vocab-1}``), so the detokenizer does real lookups for the
+    ids a synthetic-geometry model samples (bench.py:477)."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import WhitespaceSplit
+
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+
+    tk = Tokenizer(WordLevel({f"t{i}": i for i in range(vocab_size)}, unk_token="t0"))
+    tk.pre_tokenizer = WhitespaceSplit()
+    return HfTokenizer(tk)
+
+
+async def _measure_pipeline(engine: TorchLlmEngine, s: BenchSettings) -> dict:
+    """The burst through the serving stack: HTTP -> preprocessor -> backend
+    -> engine -> detokenizer -> SSE, so the per-token Python, codec and SSE
+    cost is in the measured number (bench.py:493).  The client is a raw
+    socket reader on purpose: an HTTP client library in this process would
+    bill its own parsing to the server."""
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.http import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import CompletionPreprocessor
+
+    vocab = engine.config.model.vocab_size
+    tokenizer = synth_tokenizer(vocab)
+    mdc = ModelDeploymentCard(name="bench", context_length=engine.max_len,
+                              kv_block_size=engine.config.block_size).finalize()
+    manager = ModelManager()
+    manager.add_completion_model(
+        "bench", CompletionPreprocessor(mdc, tokenizer).wrap(Backend(tokenizer).wrap(engine)))
+    service = HttpService(manager, host="127.0.0.1", port=0)
+    await service.start()
+    usage_re = re.compile(rb'"completion_tokens":\s*(\d+)')
+    draws = iter(prompts(1, s.requests + 1, s.isl, vocab))
+
+    async def drive() -> int:
+        body = json.dumps({
+            "model": "bench", "prompt": next(draws), "stream": True,
+            "max_tokens": s.osl, "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True, "greed_sampling": True},
+        }).encode()
+        reader, writer = await asyncio.open_connection("127.0.0.1", service.port)
+        try:
+            # Connection: close, so an error or a stream that never sends
+            # [DONE] ends in EOF; the wait_for is the backstop
+            writer.write(
+                b"POST /v1/completions HTTP/1.1\r\nHost: bench\r\n"
+                b"Content-Type: application/json\r\nConnection: close\r\n"
+                + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            await writer.drain()
+            buf = b""
+
+            async def read_all() -> None:
+                nonlocal buf
+                while True:
+                    chunk = await reader.read(65536)
+                    if not chunk:
+                        break
+                    buf += chunk
+                    if b"[DONE]" in buf:
+                        break
+
+            await asyncio.wait_for(read_all(), timeout=600)
+            if b" 200 " not in buf.split(b"\r\n", 1)[0]:
+                raise RuntimeError(f"pipeline bench HTTP error: {buf[:200]!r}")
+            match = usage_re.search(buf)
+            if match is None:
+                raise RuntimeError(f"pipeline bench: no usage in the stream: {buf[-200:]!r}")
+            return int(match.group(1))
+        finally:
+            writer.close()
+
+    try:
+        await drive()  # the serving path's first request
+        _sync(engine.device)
+        t0 = time.monotonic()
+        counts = await asyncio.gather(*[drive() for _ in range(s.requests)])
+        _sync(engine.device)
+        wall = time.monotonic() - t0
+    finally:
+        await service.stop()
+    total = sum(counts)
+    return {
+        "pipeline_tok_s": round(total / wall, 2),
+        "pipeline_wall_s": round(wall, 2),
+        "pipeline_requests": s.requests,
+        "pipeline_tokens": total,
+        "pipeline_path": PIPELINE_PATH,
+    }
+
+
+async def _measure_prefix_ttft(client: _Client, draws: list[list[int]]) -> dict:
+    """The prefix cache's TTFT benefit (bench.py:606): a fresh long prompt
+    against the SAME prompt again (its block-aligned prefix resident, the
+    tail prefilled), one token each; a warm pair first, then the median of
+    ``PREFIX_PAIRS`` pairs.  The port's engine always caches prefixes."""
+    reqs = iter(draws)
+    warm = _request(next(reqs), 1)
+    await client.drive(dict(warm))
+    await client.drive(dict(warm))
+    misses, hits = [], []
+    for req in reqs:
+        req = _request(req, 1)
+        _, miss = await client.drive(dict(req))
+        _, hit = await client.drive(dict(req))
+        misses.append(miss)
+        hits.append(hit)
+    miss = sorted(misses)[len(misses) // 2]
+    hit = sorted(hits)[len(hits) // 2]
+    return {
+        "prefix_ttft_miss_ms": round(miss * 1000, 1),
+        "prefix_ttft_hit_ms": round(hit * 1000, 1),
+        "prefix_ttft_speedup": round(miss / hit, 2),
+        "prefix_tokens": len(draws[0]),
+    }
+
+
+def main() -> int:
+    try:
+        s = settings_from_env()
+    except ValueError as exc:
+        print(f"bench: error: {exc}", file=sys.stderr)
+        return 2
+    if s.device == "cuda" and not torch.cuda.is_available():
+        print("bench: error: no CUDA card (torch.cuda.is_available() is false); the bench "
+              "runs on the card, or on the CPU when DYN_BENCH_DEVICE=cpu asks for it",
+              file=sys.stderr)
+        return 2
+    result = asyncio.run(run_bench(s))
+    print(json.dumps(result), flush=True)
+    d = result["detail"]
+    if not d["outputs_ok"]:
+        print(f"bench: error: outputs wrong: {d['tokens_direct']} direct and "
+              f"{d['pipeline_tokens']} pipeline tokens of {d['tokens_expected']} "
+              f"({s.osl} a request), cache finite: {d['cache_finite']}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

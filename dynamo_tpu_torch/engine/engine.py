@@ -107,6 +107,7 @@ from dynamo_tpu_torch.ops.sampling import (
     topk_logprobs,
 )
 from dynamo_tpu_torch.runtime.engine import Context, ResponseStream
+from dynamo_tpu_torch.utils import profiling
 from dynamo_tpu_torch.utils.logging import get_logger
 from dynamo_tpu_torch.utils.tasks import spawn_logged
 
@@ -139,10 +140,6 @@ def _round_chunk_tokens(chunk_tokens: int, block_size: int) -> int:
     """Chunk windows round UP to whole blocks."""
     return max(1, (chunk_tokens + block_size - 1) // block_size) * block_size
 
-
-# width of the per-lane OpenAI logit_bias rows: requests with more entries
-# keep the strongest biases, as the reference's default compile width does
-LOGIT_BIAS_K = 64
 
 # least fraction of running lanes with a draft for the verify step to run;
 # below it the plain decode step serves the iteration.  Decode is
@@ -230,6 +227,11 @@ class EngineConfig:
     # Weight-only quantization ("int8" | None): the family's quant_leaves
     # become int8 + per-channel scale (ops/quant.py), dequantized at use.
     quantize: str | None = None
+    # Width of the per-lane OpenAI logit_bias rows (sparse {token: bias}
+    # scattered onto the logits each step), fixed in every graph.  Requests
+    # with more entries keep the largest-magnitude ones; 0 disables the
+    # scatter (a request's logit_bias is then ignored), as in the reference.
+    logit_bias_k: int = 64
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
@@ -347,6 +349,8 @@ class TorchLlmEngine:
         self._unified_fallback_logged: set[str] = set()
         if config.decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
+        if config.logit_bias_k < 0:
+            raise ValueError("logit_bias_k must be >= 0")
         unified = config.unified_batch
         if unified and self.spec_enabled:
             self._unified_skip("speculative", "speculative lanes keep their verify route")
@@ -485,7 +489,7 @@ class TorchLlmEngine:
         # step reads its block tables, sampling tail and feedback too.  All
         # graphs share one memory pool (UnifiedGraph says why that is safe)
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        self._decode = DecodeGraph(self, LOGIT_BIAS_K, pool)
+        self._decode = DecodeGraph(self, config.logit_bias_k, pool)
         # the unified window's graphs, one a reachable token bucket (the
         # reference's ucap: one chunk window plus a full complement of
         # decode lanes), and its seed slots: only newly admitted prefills
@@ -509,6 +513,7 @@ class TorchLlmEngine:
                 self._unified_seed_slots, planner, pool)
 
         # thread plumbing
+        self._profiler_trace_dir: str | None = None
         self._submit_q: thread_queue.Queue = thread_queue.Queue()
         self._wake = threading.Event()
         self._stop = False
@@ -536,6 +541,9 @@ class TorchLlmEngine:
     def start(self) -> None:
         if self._thread is not None:
             return
+        # DYN_PROFILER_TRACE_DIR: a trace of the whole serve window, written
+        # in stop() by whichever engine started it
+        self._profiler_trace_dir = profiling.maybe_start_trace_from_env()
         self._stop = False
         self._thread = threading.Thread(
             target=self._device_loop, name="torch-engine", daemon=True
@@ -548,6 +556,9 @@ class TorchLlmEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._profiler_trace_dir is not None:
+            profiling.maybe_stop_trace()
+            self._profiler_trace_dir = None
         if self.host_tier is not None:
             self.host_tier.close()  # release + delete the G3 memmap
 
@@ -1044,7 +1055,8 @@ class TorchLlmEngine:
             t = self._phase("decode.upload", t)
         # a window with a top_logprobs lane runs the step eagerly for its
         # K-wide rows; any other is its bucket's graph replay
-        top = ug.step(bucket, noise, top=want) if want else ug.run(bucket, noise)
+        with profiling.annotate("unified_window"):
+            top = ug.step(bucket, noise, top=want) if want else ug.run(bucket, noise)
         tokens, lps = ug.out_tokens, ug.out_lps
         if timing:
             t = self._phase("decode.dispatch", t)
@@ -1187,7 +1199,7 @@ class TorchLlmEngine:
     def _sampling_arrays(self, seqs: list[Sequence], rows: list[int], n_rows: int):
         """[n_rows]-wide sampling parameters; sequence i fills row ``rows[i]``."""
         vocab = self.config.model.vocab_size
-        kb = LOGIT_BIAS_K
+        kb = self.config.logit_bias_k
         temp = np.zeros((n_rows,), np.float32)
         top_k = np.zeros((n_rows,), np.int32)
         top_p = np.ones((n_rows,), np.float32)
@@ -1582,11 +1594,12 @@ class TorchLlmEngine:
             full_ids[: len(blocks)] = blocks
             tail_ids = np.zeros((table_len,), np.int32)
             tail_ids[: len(blocks) - start // bs] = blocks[start // bs:]
-            logits, _ = self.family.forward_prefill_with_prefix(
-                self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
-                torch.from_numpy(full_ids).to(dev), torch.from_numpy(tail_ids).to(dev),
-                len(tail), start, self.cos, self.sin,
-            )
+            with profiling.annotate("split_prefill"):
+                logits, _ = self.family.forward_prefill_with_prefix(
+                    self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
+                    torch.from_numpy(full_ids).to(dev), torch.from_numpy(tail_ids).to(dev),
+                    len(tail), start, self.cos, self.sin,
+                )
             prompt_row = self._count_row(seq.request.token_ids)
             fold = n
         else:
@@ -1594,10 +1607,11 @@ class TorchLlmEngine:
             padded[:end] = tokens[:end]
             block_ids = np.zeros((self.max_blocks_per_seq,), np.int32)
             block_ids[: len(blocks)] = blocks
-            logits, _ = self.family.forward_prefill(
-                self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
-                torch.from_numpy(block_ids).to(dev), end, 0, self.cos, self.sin,
-            )
+            with profiling.annotate("split_prefill"):
+                logits, _ = self.family.forward_prefill(
+                    self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
+                    torch.from_numpy(block_ids).to(dev), end, 0, self.cos, self.sin,
+                )
             # the reference counts the prompt's in-vocabulary ids (the
             # tokens include the generated ones on a recompute)
             ids = np.asarray(tokens[:end], np.int64)

@@ -54,6 +54,7 @@ from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import QuantizedMatrix, mm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
+from dynamo_tpu_torch.utils import profiling
 
 # the projections the engine's quantize="int8" stores as int8 (the
 # reference's _PROJ_QUANT_LEAVES, dynamo_tpu/models/registry.py:92-94):
@@ -330,9 +331,10 @@ def llama_forward_prefill(
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
         write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
-        attn = dense_causal_attention(
-            q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
-        )[0]
+        with profiling.annotate("split_prefill_attention"):
+            attn = dense_causal_attention(
+                q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
+            )[0]
         x = _residual_block(x, attn.reshape(s, -1), w, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = x[max(int(seq_len) - 1, 0)]
@@ -368,10 +370,11 @@ def llama_forward_prefill_with_prefix(
         # read the resident prefix BEFORE the tail is written
         k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
         write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
-        attn = prefill_attention_with_prefix(
-            q, k, v, k_prefix, v_prefix, start_pos, tail_len,
-            sliding_window=cfg.sliding_window,
-        )
+        with profiling.annotate("split_prefill_attention"):
+            attn = prefill_attention_with_prefix(
+                q, k, v, k_prefix, v_prefix, start_pos, tail_len,
+                sliding_window=cfg.sliding_window,
+            )
         x = _residual_block(x, attn.reshape(s, -1), w, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = x[max(int(tail_len) - 1, 0)]

@@ -196,8 +196,25 @@ def eager_window(engine, seqs, tokens_in, lens, tables, steps):
 
 @pytest.mark.parametrize("steps", [1, 3])
 def test_captured_step_driven_like_a_replay_matches_the_eager_window(steps):
-    ours_engine = torch_engine(decode_steps=steps, **GRAPH)
-    ref_engine = torch_engine(decode_steps=steps, **GRAPH)
+    drive_like_a_replay(steps)
+
+
+def test_zero_bias_width_window_matches_the_eager_window():
+    """logit_bias_k=0: the tail's bias rows are [lanes, 0] views of the
+    staged buffer, the window adds no bias (lane 1's logit_bias is dropped,
+    as the reference's zero-width scatter drops it) and still equals the
+    eager window."""
+    engine = drive_like_a_replay(2, logit_bias_k=0)
+    assert engine._decode.tail["bias_ids"].shape == (4, 0)
+    assert engine._decode.tail["bias_vals"].shape == (4, 0)
+
+
+def drive_like_a_replay(steps: int, **overrides):
+    """Two decode windows from the graph's buffers, written in place as
+    before a replay (the second fed back from the first), against the eager
+    window from fresh tensors."""
+    ours_engine = torch_engine(decode_steps=steps, **GRAPH, **overrides)
+    ref_engine = torch_engine(decode_steps=steps, **GRAPH, **overrides)
     gen = torch.Generator().manual_seed(3)
     for name, leaf in ours_engine.cache.items():
         leaf.copy_(torch.randn(leaf.shape, generator=gen))
@@ -236,6 +253,7 @@ def test_captured_step_driven_like_a_replay_matches_the_eager_window(steps):
         assert torch.equal(d.feedback[active], torch.from_numpy(last[active]))
         feedback = np.where(active, last, feedback).astype(np.int32)
         lens = np.where(active, lens + steps, lens).astype(np.int32)
+    return ours_engine
 
 
 # ---------------------------------------------------------------------------

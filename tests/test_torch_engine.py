@@ -171,6 +171,40 @@ async def test_logprobs_and_logit_bias_match_reference():
         [v for row in ref_tops for _, v in row], abs=1e-4)
 
 
+@pytest.mark.parametrize("width", [0, 1, 64])
+async def test_logit_bias_width_matches_reference(width):
+    """EngineConfig.logit_bias_k as the reference's field: 64 (its default)
+    applies both biases, 1 keeps the stronger, 0 drops the scatter and the
+    request's logit_bias with it; every width streams what JaxLlmEngine
+    streams with the same field (the port's decode overlap on, its
+    default)."""
+    sampling = SamplingOptions(use_greedy=True, logit_bias={"40": 40.0, "19": -100.0})
+    reqs = [request(range(10, 18), max_tokens=6, sampling=sampling, ignore_eos=True),
+            request(range(60, 63), max_tokens=6, sampling=sampling, ignore_eos=True)]
+    out = []
+    for engine, ctx_cls in (
+        (JaxLlmEngine(JaxEngineConfig(model=JCFG, unified_batch=True, logit_bias_k=width,
+                                      **BASE), params=JPARAMS), JaxContext),
+        (TorchLlmEngine(EngineConfig(model=CFG, logit_bias_k=width, **BASE), params=PARAMS,
+                        device="cpu"), Context),
+    ):
+        engine.start()
+        try:
+            out.append(await asyncio.gather(*[collect(engine, r, ctx_cls) for r in reqs]))
+        finally:
+            engine.stop()
+    ref, ours = out
+    assert ours == ref
+    steered = ours[0][0]
+    if width == 0:
+        assert steered == list(range(18, 24))  # the token counter, unbiased
+    elif width == 1:  # the stronger bias only: 19 held back, 40 not pulled
+        assert 19 not in steered and 40 not in steered
+    else:
+        assert steered[:2] == [18, 40]
+    assert ours[1][0] == list(range(63, 69))
+
+
 async def test_preemption_matches_reference():
     reqs = [request(range(3 + i, 10 + i), max_tokens=8, ignore_eos=True) for i in range(3)]
     ours, ref, stats = await run_both(

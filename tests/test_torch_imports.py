@@ -43,7 +43,12 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.llm.block_manager.manager",
             "dynamo_tpu_torch.llm.block_manager.remote",
             "dynamo_tpu_torch.runtime.codec",
-            "dynamo_tpu_torch.engine.offload"} <= names
+            "dynamo_tpu_torch.engine.offload",
+            "dynamo_tpu_torch.planner.perf_interpolation",
+            "dynamo_tpu_torch.bench.data_generator", "dynamo_tpu_torch.bench.sweep",
+            "dynamo_tpu_torch.bench.profile_sla", "dynamo_tpu_torch.bench.headline",
+            "dynamo_tpu_torch.bench.trace_summary",
+            "dynamo_tpu_torch.utils.profiling"} <= names
     assert bad == "[]"
 
 
