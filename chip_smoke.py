@@ -68,16 +68,40 @@ Phases (any failure exits non-zero, before the result line):
                streams equal with overlap off and, on Llama-3-8B, with
                decode_steps=4 against decode_steps=1; the engine's phase
                accounting of the host time a window, the capture ms a
-               bucket, warmup seconds and the graphs' pool.
+               bucket, warmup seconds and the graphs' pool; then a window
+               the unified step skips (two admissions against one seed
+               slot): its split prefill key captured once at first use,
+               replayed the next time, the capture's ms and the pool.
   7. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
-               that repeat a phrase plus the long prompt: every prefill on
-               the split step, verify through the GQA window kernel at W=5
-               and the MLA window kernel; their launch counters must move
-               and no plain attention may run on the card.
-  8. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+               that repeat a phrase plus the long prompt, warmed by
+               ``warmup()`` (every split prefill key of the 4096-token
+               engine and the verify window, captured): every prefill a
+               split prefill graph replay, every verify window a verify
+               graph replay through the GQA window kernel at W=5 and the
+               MLA window kernel (launched a layer a replay; no plain
+               attention on the card), as many prefill graph replays as
+               split prefills, no capture after warmup; tok/s,
+               TTFT, ITL, each split prefill and verify call's wall ms and
+               (traced, the traffic again) device ms; verify replays
+               (greedy and sampled) and prefill replays at windows of 32
+               and 512 tokens over a resident prefix and a whole 2048-token
+               prompt bitwise equal to the same steps run eagerly on the
+               same buffers (tokens, logprobs, acceptance counts, K/V rows,
+               counts, the forward's logits); the verify window's and a
+               512-token chunk's ms by replay and eagerly, and the window
+               kernels' device ms a layer inside the graph beside their
+               bound.
+  8. longctx — a speculative server of the Llama-3-8B geometry at its own
+               context length (8192 positions, default warmup),
+               all layers: warmup's captures, seconds and pool, a
+               7000-token prompt and three short ones served with no
+               capture after warmup, and the warmup budget's estimate
+               (``PrefillGraph.key_bytes``) held above two keys' measured
+               eager peaks.
+  9. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -86,12 +110,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
-  9. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 10. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 10. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 11. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -104,14 +128,16 @@ Phases (any failure exits non-zero, before the result line):
                after warmup() (phase serve's traffic and profile), decode
                and unified replays bitwise equal to eager, no capture after
                warmup, stats()'s MFU and bandwidth share; then each with
-               n-gram speculation (the verify kernels on fp8).
- 11. bench   — the headline benchmark (``python -m
+               n-gram speculation (the verify kernels on fp8) at phase
+               spec's geometry.
+ 12. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
                configuration A (int8 weights, fp8 cache, decode_steps 8,
-               512-token chunks on the eager split step) and C (bf16,
-               decode_steps 1, every chunk in a unified graph); each rung
+               512-token chunks on the split prefill graphs, warmed at the
+               ISL's keys) and C (bf16, decode_steps 1, every chunk in a
+               unified graph); each split prefill call's wall ms; each rung
                must stream requests x OSL tokens and the cache hold no NaN,
                no graph may be captured after warmup, MFU must lie in (0, 1], the prefix cache must
                cut TTFT, and the path's kernels must run on the card.
@@ -119,7 +145,11 @@ Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for iterating on one phase); the result line is
-printed only when every phase ran and passed.  ``--phases build,sweep``
+printed only when every phase ran and passed.  ``--phases build,split``
+(not part of the default run) measures the split step: phase spec's
+traffic on both large configurations (``spec_traffic``) and the headline's
+A and B, each split prefill and verify call clocked; it runs on a tree
+without the split step's graphs too.  ``--phases build,sweep``
 times rows 1-5 under other grid aims of their split planners, rows 4-5
 under other tiles a CTA and in one chunk at growing contexts, and rows 6-7
 under other piece sizes and CTAs an SM, and their launch cost at each
@@ -130,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import copy
 import gc
 import json
@@ -144,8 +175,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "offload", "kvbm",
-          "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "longctx", "offload",
+          "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -202,16 +233,9 @@ def device_ms(fn, iters: int = 20):
     (CUDA events around back-to-back calls), which also holds the host's
     launch cost where the host is the slower side."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else "not measured"
+    total = profiled_ms(torch, fn, iters, ())[0]
+    return total if total > 0 else "not measured"
 
 
 def make_cache(torch, n_blocks, bs, kvh, d, dtype, gen):
@@ -317,11 +341,8 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
     if not timed:
         return res
     length = max_blocks * bs
-    per_query, union = window_positions(lens, w, length, window)
-    elem = torch.finfo(dtype).bits // 8
-    bytes_ = (sum(union) * kvh * d * 2 * k.element_size() + 2 * q.numel() * elem
-              + tables.numel() * 4 + ctx.numel() * 4)
-    flops = 4 * per_query * h * d
+    bound = gqa_bound(lens, w, h, kvh, d, length, k.element_size(),
+                      torch.finfo(dtype).bits // 8, tables.numel() * 4 + ctx.numel() * 4, window)
     # library yardstick: one SDPA call over K/V gathered per sequence
     groups = h // kvh
     kg = k16[tables.long()].reshape(b, length, kvh, d).transpose(1, 2).repeat_interleave(groups, 1)
@@ -338,11 +359,23 @@ def decode_case(torch, *, lens, w=1, h=32, kvh=8, d=128, bs=16, dtype=None,
         plain_ms=time_ms(lambda: plain_fn(q, k, v), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), 20),
-        bytes=bytes_, flops=flops,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        **bound,
     )
     return res
+
+
+def gqa_bound(lens, w, h, kvh, d, length, cache_elem, elem, meta_bytes, window=None) -> dict:
+    """Bytes: the K/V rows of the positions any query of a sequence sees
+    (``window_positions``, ``cache_elem`` bytes an element), the queries and
+    the output (``elem``), the metadata; flops: scores and context, 4 D a
+    (query head, visible position)."""
+    per_query, union = window_positions(lens, w, length, window)
+    bytes_ = (sum(union) * kvh * d * 2 * cache_elem + 2 * len(lens) * w * h * d * elem
+              + meta_bytes)
+    flops = 4 * per_query * h * d
+    t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
 def span_lens(spans) -> list[int]:
@@ -1713,16 +1746,92 @@ async def stream_chat(session, port: int, model: str, content: str, max_tokens: 
             "finish": finish, "max_tokens": max_tokens}
 
 
+LONG_PROMPT = "".join(chr(ord("a") + i % 26) for i in range(1640))
+# the served engines' geometry (``overrides`` may change any of it)
+SERVE_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0)
+
+
+def pctile(xs, q):
+    """The headline bench's percentile: the sample at ``int(n * q)``, so p99
+    of fewer than 100 samples is the maximum."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+@contextlib.contextmanager
+def split_step_clock(engine_cls):
+    """Wrap every engine's split prefill and verify steps (``_run_prefill``,
+    ``_run_verify_decode``): each call's wall ms (a call ends in its
+    readback, so its device work is done), and a range
+    ``smoke.split_prefill`` / ``smoke.verify_window`` in a running trace.
+    Yields {"split_prefill": [ms, ...], "verify_window": [...]}."""
+    from dynamo_tpu_torch.utils import profiling
+
+    walls = {"split_prefill": [], "verify_window": []}
+    saved = {}
+    for name, attr in (("split_prefill", "_run_prefill"), ("verify_window", "_run_verify_decode")):
+        real = saved[attr] = getattr(engine_cls, attr)
+
+        def timed(self, *args, _real=real, _name=name, **kw):
+            t0 = time.perf_counter()
+            with profiling.annotate(f"smoke.{_name}"):
+                out = _real(self, *args, **kw)
+            walls[_name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(engine_cls, attr, timed)
+    try:
+        yield walls
+    finally:
+        for attr, real in saved.items():
+            setattr(engine_cls, attr, real)
+
+
+def clock_summary(walls: dict) -> dict:
+    return {f"{name}_wall_ms": {"calls": len(ms), "mean": sum(ms) / len(ms) if ms else None,
+                                "p50": pctile(ms, 0.5), "p99": pctile(ms, 0.99)}
+            for name, ms in walls.items()}
+
+
+async def traced_pass(torch, session, port: int, model: str, short_prompts, trace_dir: str) -> dict:
+    """The counted traffic again, its texts marked (no prefix of the first
+    pass but the chat template's is hit), under a trace of every thread:
+    the device ms of the kernels launched inside each ``smoke.*`` range of
+    ``split_step_clock`` (a graph replay's kernels belong to its launch),
+    and the device's idle share over the pass."""
+    from dynamo_tpu_torch.bench.trace_summary import load_events, summarize
+    from dynamo_tpu_torch.utils import profiling
+
+    with profiling.trace(trace_dir):
+        with profiling.annotate("smoke.traced"):
+            shorts = [asyncio.ensure_future(stream_chat(session, port, model, f"traced: {t}", 64))
+                      for t in short_prompts]
+            await asyncio.sleep(0.5)
+            long = asyncio.ensure_future(stream_chat(session, port, model, LONG_PROMPT[7:], 24))
+            await asyncio.gather(*shorts, long)
+            torch.cuda.synchronize()
+    summary = summarize(load_events(trace_dir), "smoke.traced",
+                        annotations=("smoke.split_prefill", "smoke.verify_window"))
+    return {k: summary[k] for k in ("window_ms", "device_busy_ms", "device_idle_share",
+                                    "annotations")}
+
+
 async def serve_model(model_dir: Path, model: str, *, overrides=None,
-                      short_prompts=None, profile=True, inspect=None) -> dict:
+                      short_prompts=None, profile=True, inspect=None, clock=None,
+                      traced: str | None = None) -> dict:
+    """Serve ``model_dir`` over HTTP in process and drive the counted
+    traffic.  ``clock`` (``split_step_clock``'s lists) is emptied just before
+    the counted run and read just after; ``traced`` (a directory) runs the
+    traffic once more under a trace (``traced_pass``)."""
     import aiohttp
+    import torch
 
     from dynamo_tpu_torch.serve import serve_http
 
     t_load = time.perf_counter()
     handle = await serve_http(
         model_dir, model_name=model, host="127.0.0.1", port=0,
-        num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0, **(overrides or {}),
+        **{**SERVE_ENGINE, **(overrides or {})},
     )
     load_s = time.perf_counter() - t_load
     port = handle.service.port
@@ -1732,20 +1841,25 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
             # warm the path once before the counted run
             await stream_chat(s, port, model, "warm up", 4)
             stats0 = handle.engine.stats()
+            for ms in (clock or {}).values():
+                ms.clear()
             zero_counters()
             t0 = time.perf_counter()
             shorts = [asyncio.ensure_future(stream_chat(s, port, model, text, 64))
                       for text in short_prompts]
             await asyncio.sleep(0.5)  # the long prompt lands while they decode
-            long_prompt = "".join(chr(ord("a") + i % 26) for i in range(1640))
-            long = asyncio.ensure_future(stream_chat(s, port, model, long_prompt, 24))
+            long = asyncio.ensure_future(stream_chat(s, port, model, LONG_PROMPT, 24))
             results = await asyncio.gather(*shorts, long)
             wall = time.perf_counter() - t0
-        counts = read_counters()
-        stats = handle.engine.stats()
+            counts = read_counters()
+            stats = handle.engine.stats()
+            walls = clock_summary(clock) if clock is not None else None
+            trace = (await traced_pass(torch, s, port, model, short_prompts, traced)
+                     if traced is not None else None)
         # the counted run's share of the cumulative engine counters
         run = {k: stats[k] - stats0[k] for k in stats
-               if k.startswith(("spec_", "decode_windows_", "decode_graph_replays"))
+               if k.startswith(("spec_", "decode_windows_", "decode_graph_replays",
+                                "prefill_graph_replays", "verify_graph_replays"))
                or k.endswith("steps_total") or k in ("iterations_total", "admission_drains_total")}
         prof = None
         if profile:  # the same window without the profiler, then under it
@@ -1762,7 +1876,7 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
         await handle.shutdown()
     return {"results": results, "wall_s": wall, "counts": counts,
             "stats": stats, "run": run, "load_s": load_s, "profile": prof,
-            "inspect": checked}
+            "inspect": checked, "walls": walls, "trace": trace}
 
 
 def port_kernel_names() -> list[str]:
@@ -1783,8 +1897,6 @@ async def profile_decode(engine, port: int, model: str, profiler: bool = True) -
     the profiler attributes them); the idle share is what the wall clock
     holds beyond it.  A profiler that records no device time reports that.
     ``profiler=False`` times the same window's wall clock alone."""
-    import contextlib
-
     import aiohttp
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1876,7 +1988,9 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
     e2e = {
         "ttft_ms_mean": sum(ttfts) / len(ttfts) * 1e3,
         "ttft_ms_max": max(ttfts) * 1e3,
+        "ttft_ms_p50": pctile(ttfts, 0.5) * 1e3, "ttft_ms_p99": pctile(ttfts, 0.99) * 1e3,
         "itl_ms_mean": sum(itls) / len(itls) * 1e3,
+        "itl_ms_p50": pctile(itls, 0.5) * 1e3, "itl_ms_p99": pctile(itls, 0.99) * 1e3,
         "output_tok_s": toks / out["wall_s"],
         "requests": len(out["results"]), "wall_s": out["wall_s"],
         "load_s": out["load_s"], "model": model, "card": card,
@@ -1886,14 +2000,15 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
               flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
     return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"],
-            "stats": out["stats"], "profile": out["profile"], "inspect": out["inspect"]}
+            "stats": out["stats"], "profile": out["profile"], "inspect": out["inspect"],
+            "walls": out["walls"], "trace": out["trace"]}
 
 
 # ---------------------------------------------------------------------------
 # phase overlap: the overlapped decode pipeline and the graphed decode window
 # ---------------------------------------------------------------------------
 
-OVERLAP_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0)
+OVERLAP_ENGINE = SERVE_ENGINE
 # the burst: four short prompts and one of 1500 tokens, all queued before the
 # engine starts, so every engine runs the same windows.  One prefill is
 # admitted a step, so each asks one token fewer than the last and all finish
@@ -2226,7 +2341,6 @@ def unified_forward_replay_vs_eager(torch, engine, bucket: int) -> dict:
     replayed, against its eager run: logits bitwise, else the largest
     difference."""
     ug, d = engine._unified, engine._decode
-    dev = engine.device
     v = ug.inputs.view(bucket)
     kw = {"plan": ug.work[bucket]} if bucket in ug.work else {}
 
@@ -2237,6 +2351,13 @@ def unified_forward_replay_vs_eager(torch, engine, bucket: int) -> dict:
             v["token_lane"], v["page_phys"], v["page_lane"], v["page_ord"], v["page_count"],
             v["sample_rows"], engine.cos, engine.sin, tb_tokens=ug.tb, **kw)[0]
 
+    return captured_vs_eager(torch, engine.device, forward)
+
+
+def captured_vs_eager(torch, dev, forward) -> dict:
+    """``forward`` (a forward on a graph's buffers, returning logits)
+    captured here and replayed, against its eager run: logits bitwise, else
+    the largest difference."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
@@ -2442,7 +2563,7 @@ def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
         "unified_window_ms": u_ms,
         "warmup_s": warm["warmup_s"],
         "unified_buckets": ug.buckets,
-        "unified_capture_ms_per_bucket": ug.capture_ms,
+        "unified_capture_ms_per_bucket": ug.bucket_capture_ms,
         "row_scratch_mb": ug.scratch_mb,
         "pool_mb_total": stats["unified_graph_pool_mb"] + stats["decode_graph_pool_mb"],
         "graph": {k: v for k, v in stats.items() if k.startswith(("decode_graph", "unified_graph"))},
@@ -2476,11 +2597,54 @@ def phase_overlap(torch, card: str, tag: str, model: str, config: dict,
             raise AssertionError(f"{tag}: decode_steps=4 streams differ from decode_steps=1")
     line["window_mates"] = window_mates(base, vocab)
     log(f"[overlap:{tag}] window mates: {line['window_mates']}")
+    line["unified_skip"] = unified_skip_check(torch, base, vocab)
+    log(f"[overlap:{tag}] a skipped unified window: {line['unified_skip']}")
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"smoke_overlap": line}), flush=True)
     base.stop()
     return {"counts": counts, "line": line}
+
+
+def unified_skip_check(torch, engine, vocab: int) -> dict:
+    """A window the unified step skips, on a warmed unified engine: two
+    admissions in one step against its one seed slot (``seed_overflow``)
+    send both prompts to the split prefill (a whole prompt and a first
+    chunk), whose keys the engine captures at their first use (counted
+    after warmup); the same window again replays them.  Returns each
+    pass's wall ms, captures, capture ms and the pools after it."""
+    rng = random.Random(5)
+    slots = engine.scheduler.max_prefills_per_step
+    engine.scheduler.max_prefills_per_step = 2
+    out = {}
+    try:
+        for name in ("first_use", "again"):
+            before = engine.stats()
+            prompts = [[rng.randrange(3, vocab) for _ in range(300)] for _ in range(2)]
+            t0 = time.perf_counter()
+            streams = asyncio.run(run_burst(engine, prompts, [4, 4]))
+            wall = (time.perf_counter() - t0) * 1e3
+            after = engine.stats()
+            out[name] = {
+                "wall_ms": wall, "tokens": [len(t) for t in streams],
+                "seed_overflow": after["unified_fallbacks"].get("seed_overflow", 0)
+                - before["unified_fallbacks"].get("seed_overflow", 0),
+                **{k: after[k] - before[k] for k in (
+                    "prefill_graphs_captured_after_warmup", "prefill_graph_replays_total",
+                    "prefill_graph_capture_ms")},
+                "prefill_graph_pool_mb": after["prefill_graph_pool_mb"],
+                "pool_mb_total": sum(after[f"{k}_graph_pool_mb"]
+                                     for k in ("unified", "decode", "prefill")),
+            }
+    finally:
+        engine.scheduler.max_prefills_per_step = slots
+    first, again = out["first_use"], out["again"]
+    if not (first["seed_overflow"] > 0 and first["prefill_graphs_captured_after_warmup"] > 0
+            and again["seed_overflow"] > 0 and again["prefill_graphs_captured_after_warmup"] == 0
+            and again["prefill_graph_replays_total"] > 0):
+        raise AssertionError(f"a skipped unified window did not capture its split prefill keys "
+                             f"at first use and replay them after: {out}")
+    return out
 
 
 def phase_overlap_both(torch, card: str) -> dict:
@@ -2566,30 +2730,499 @@ def phase_spec_tiny(torch) -> dict:
             "drafted": spec["spec_drafted_tokens_total"]}
 
 
+def verify_window(torch, engine, noise: bool):
+    """Write one verify window into the verify graph's buffers: every lane
+    at its own context (2043 down by 250, as the kernels' verify cases
+    reach 2048), its own blocks, random window tokens, every other lane
+    drafting; all lanes sampled (``noise``) or greedy.  Returns the
+    window's cache slots [lanes, w] and its context lengths (including the
+    window's last token)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import SamplingOptions
+
+    vg, d = engine._verify, engine._decode
+    lanes, bs, w = engine.config.max_batch_size, engine.config.block_size, vg.w
+    ctx = np.array([2048 - w - 250 * i for i in range(lanes)], np.int32)
+    tables = np.zeros((lanes, engine.max_blocks_per_seq), np.int32)
+    stride = engine.config.num_blocks // lanes  # each lane's blocks its own
+    for i, c in enumerate(ctx):
+        n = -(-(int(c) + w) // bs)
+        tables[i, :n] = np.arange(i * stride, i * stride + n)
+    gen = np.random.default_rng(7 + noise)
+    pos = ctx[:, None] - 1 + np.arange(w)[None, :]
+    slots = (tables[np.arange(lanes)[:, None], pos // bs] * bs + pos % bs).astype(np.int32)
+    d.tables.upload({"tables": tables})
+    engine._bt_clean = False  # the engine's own rows no longer match the buffer
+    engine._device_sampling_tail([
+        lane_seq(engine, lane, SamplingOptions(temperature=0.8, seed=lane, presence_penalty=0.3)
+                 if noise else SamplingOptions(use_greedy=True))
+        for lane in range(lanes)])
+    vg.inputs.upload({
+        "tokens": gen.integers(3, engine.config.model.vocab_size, (lanes, w)).astype(np.int32),
+        "slots": slots, "context_lens": ctx + w - 1, "base_lens": ctx,
+        "spec_ok": np.arange(lanes) % 2 == 0})
+    return slots, (ctx + w - 1).tolist()
+
+
+def lane_seq(engine, lane: int, sampling):
+    """A sequence on ``lane`` with ``sampling``, its key seeded."""
+    from dynamo_tpu_torch.engine.sequence import Sequence
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest, StopConditions
+
+    seq = Sequence(seq_id=f"check{lane}", request=PreprocessedRequest(
+        token_ids=[1], sampling=sampling, stop=StopConditions(max_tokens=1)))
+    seq.lane = lane
+    engine._seed_lane_key(seq)
+    return seq
+
+
+def written_rows(torch, engine, slots):
+    """A function giving the cache bytes at ``slots`` (every layer)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.attention import cache_rows
+
+    n_slots = engine.config.num_blocks * engine.config.block_size
+    layers = engine.cache["k"].shape[0]
+    rows = torch.from_numpy((np.arange(layers)[:, None] * n_slots
+                             + np.asarray(slots).reshape(-1)[None, :]).reshape(-1)).to(engine.device)
+    views = {k: cache_rows(leaf) for k, leaf in engine.cache.items()}
+    return lambda: {k: v.view(torch.uint8)[rows].clone() for k, v in views.items()}
+
+
+def replay_vs_eager_state(torch, engine, out, run, step, written) -> dict:
+    """``run`` (a graph replay) and ``step`` (the same step eagerly on the
+    same buffers), the penalty counts restored between: the ``out`` buffer,
+    the cache rows written and the counts bitwise equal."""
+    counts = (engine._gen_counts, engine._prompt_counts)
+    saved = [c.clone() for c in counts]
+    states = []
+    for fn in (run, step):
+        for c, s in zip(counts, saved):
+            c.copy_(s)
+        fn()
+        torch.cuda.synchronize()
+        states.append((out.clone(), written(), [c.clone() for c in counts]))
+    (g_out, g_kv, g_counts), (e_out, e_kv, e_counts) = states
+    return {"out_bitwise": torch.equal(g_out, e_out),
+            "kv_rows_bitwise": all(torch.equal(g_kv[k], e_kv[k]) for k in g_kv),
+            "counts_equal": all(torch.equal(a, b) for a, b in zip(g_counts, e_counts))}
+
+
+def verify_replay_vs_eager(torch, engine) -> dict:
+    """A verify window (``verify_window``) by the graph's replay (captured by
+    ``warmup()``) and by the same step run eagerly on the same buffers,
+    greedy and sampled: tokens, acceptance counts, logprobs, the cache rows
+    written and the counts bitwise equal; then the verify forward alone
+    captured and replayed against its eager run, logits bitwise.  No replay
+    may add a capture."""
+    vg, d = engine._verify, engine._decode
+    out = {}
+    for noise in (False, True):
+        captured = len(vg._graphs)
+        slots, _ = verify_window(torch, engine, noise)
+        res = replay_vs_eager_state(
+            torch, engine, vg.out, lambda: vg.run(noise), lambda: vg.step(noise),
+            written_rows(torch, engine, slots))
+        out["sampled" if noise else "greedy"] = res | {"no_new_capture": len(vg._graphs) == captured}
+    v = vg.inputs.views
+    out["logits"] = captured_vs_eager(torch, engine.device, lambda: engine.family.forward_verify(
+        engine.params, engine.config.model, v["tokens"], engine.cache, d.tables["tables"],
+        v["context_lens"], v["slots"], engine.cos, engine.sin)[0])
+    return out
+
+
+# the split prefill keys held by replay against eager in phase spec: windows
+# of 32 and 512 tokens over a resident prefix, and a whole 2048-token prompt
+SPEC_PREFILL_KEYS = (("prefix", 32, 8), ("prefix", 512, 64), ("prefill", 2048))
+
+
+def prefill_window(torch, engine, key: tuple, noise: bool):
+    """Write one split prefill of ``key`` into the prefill graph's buffers
+    (lane 3, its own blocks, a few pad tokens; a continued window over a
+    block-aligned resident prefix), sampled (``noise``) or greedy.  Returns
+    the cache slots its valid tokens write."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import SamplingOptions
+
+    pg = engine._prefill
+    bs, vocab, lane = engine.config.block_size, engine.config.model.vocab_size, 3
+    gen = np.random.default_rng(key[1] + noise)
+    b = key[1]
+    if key[0] == "prefix":
+        table_len = key[2]
+        n_tail = b - 5
+        start = (table_len * bs - b - bs) // bs * bs
+        n = start + n_tail
+    else:
+        table_len, n_tail, start = engine.max_blocks_per_seq, b - 5, 0
+        n = n_tail
+    blocks = np.zeros((table_len,), np.int32)
+    used = -(-n // bs)
+    blocks[:used] = 100 + np.arange(used)
+    token_ids = np.zeros((b,), np.int32)
+    token_ids[:n_tail] = gen.integers(3, vocab, n_tail)
+    seq = lane_seq(engine, lane, SamplingOptions(temperature=0.8, seed=5, presence_penalty=0.3)
+                   if noise else SamplingOptions(use_greedy=True))
+    arrays = dict(zip(("temp", "top_k", "top_p", "greedy", "pres", "freq", "rep", "bias_ids",
+                       "bias_vals"), engine._sampling_arrays([seq], [0], 1)))
+    arrays.update(token_ids=token_ids, seq_len=n_tail, start_pos=start, fold=n, lane=lane,
+                  gate=1, key=engine._lane_keys[[lane]].astype(np.int64),
+                  prompt=np.bincount(gen.integers(0, vocab, 64), minlength=vocab).astype(np.int32),
+                  gen=np.bincount(gen.integers(0, vocab, 4), minlength=vocab).astype(np.int32))
+    if key[0] == "prefix":
+        tail_ids = np.zeros_like(blocks)
+        tail_ids[: used - start // bs] = blocks[start // bs: used]
+        arrays.update(full_ids=blocks, tail_ids=tail_ids)
+    else:
+        arrays["block_ids"] = blocks
+    pg.upload(key, arrays)
+    pos = start + np.arange(n_tail)
+    return blocks[pos // bs] * bs + pos % bs
+
+
+def prefill_replay_vs_eager(torch, engine) -> dict:
+    """At each of SPEC_PREFILL_KEYS: a split prefill (``prefill_window``) by
+    its key's graph replay (captured by ``warmup()``) and by the same step
+    run eagerly on the same buffers, a greedy lane and a sampled one:
+    token, logprob, the cache rows written and the counts bitwise equal;
+    then the forward alone captured and replayed against its eager run,
+    logits bitwise."""
+    pg = engine._prefill
+    out = {}
+    for key in SPEC_PREFILL_KEYS:
+        name = "_".join(map(str, key))
+        for noise in (False, True):
+            captured = len(pg._graphs)
+            slots = prefill_window(torch, engine, key, noise)
+            res = replay_vs_eager_state(
+                torch, engine, pg.out, lambda: pg.run(key), lambda: pg.step(key),
+                written_rows(torch, engine, slots))
+            out[f"{name}_{'sampled' if noise else 'greedy'}"] = res | {
+                "no_new_capture": len(pg._graphs) == captured}
+        v = pg.inputs.view(key)
+        fam, e = engine.family, engine
+        if key[0] == "prefill":
+            forward = lambda: fam.forward_prefill(  # noqa: E731
+                e.params, e.config.model, v["token_ids"], e.cache, v["block_ids"], v["seq_len"],
+                0, e.cos, e.sin)[0]
+        else:
+            forward = lambda: fam.forward_prefill_with_prefix(  # noqa: E731
+                e.params, e.config.model, v["token_ids"], e.cache, v["full_ids"], v["tail_ids"],
+                v["seq_len"], v["start_pos"], e.cos, e.sin)[0]
+        out[f"{name}_logits"] = captured_vs_eager(torch, engine.device, forward)
+    return out
+
+
+def walk_kernel_names(source: str) -> list[str]:
+    """The __global__ functions of one of the port's CUDA sources."""
+    import re
+
+    text = (ROOT / "dynamo_tpu_torch" / "csrc" / source).read_text()
+    return re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)", text)
+
+
+def profiled_ms(torch, fn, iters: int, names) -> tuple[float, float, int]:
+    """``fn`` run ``iters`` times under torch.profiler: (device ms of all
+    kernels, device ms of the kernels named in ``names``, their launches),
+    each over ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = walk = 0.0
+    launches = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        total += us
+        tail = ev.key.removeprefix("void ").removeprefix("(anonymous namespace)::")
+        tail = tail.removeprefix("rtc::")
+        if any(tail.startswith((f"{n}(", f"{n}<")) for n in names):
+            walk += us
+            launches += ev.count
+    return total / iters / 1e3, walk / iters / 1e3, launches // iters
+
+
+def window_bound(torch, engine, lens, w: int, mla: bool) -> dict:
+    """The least time of one layer's window attention call of a verify
+    window at contexts ``lens``: phase kernels' bound (``decode_case``,
+    ``mla_bound``) at the engine's shapes and table width."""
+    cfg, bs = engine.config.model, engine.config.block_size
+    lanes, width = len(lens), engine.max_blocks_per_seq
+    cache_elem = engine.cache["k"].element_size()
+    meta = lanes * width * 4 + lanes * 4
+    if mla:
+        per_query, union = window_positions(lens, w, width * bs)
+        return mla_bound(torch, pages=sum(-(-n // bs) for n in union), bs=bs,
+                         r=cfg.kv_lora_rank, p=cfg.qk_rope_head_dim, h=cfg.num_heads,
+                         dtype=torch.bfloat16, q_rows=lanes * w, meta_bytes=meta,
+                         visible=per_query, cache_elem=cache_elem)
+    return gqa_bound(lens, w, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, width * bs,
+                     cache_elem, 2, meta)
+
+
+def split_step_ms(torch, engine, walk: str) -> dict:
+    """The greedy verify window's and a 512-token continued prefill's time,
+    by graph replay and eagerly on the same buffers: CUDA events around
+    back-to-back calls, the device's own time under torch.profiler, and the
+    window attention's (``walk``, a csrc file: its walk and combine) device
+    ms a layer's call inside the graph and eagerly, beside its bound."""
+    names = walk_kernel_names(walk)
+    vg, pg = engine._verify, engine._prefill
+    layers = engine.config.model.num_layers
+
+    def timed(fn, iters):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(iters):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / iters
+
+    _, lens = verify_window(torch, engine, False)
+    out = {"window_bound": window_bound(torch, engine, lens, vg.w, walk == "mla_attention.cu"),
+           "window_lens": lens}
+    for mode, fn, iters in (("replay", lambda: vg.run(False), REPLAY_ITERS),
+                            ("eager", lambda: vg.step(False), 5)):
+        dev_ms, walk_ms, launches = profiled_ms(torch, fn, 5, names)
+        out[f"verify_{mode}"] = {
+            "ms": timed(fn, iters), "device_ms": dev_ms,
+            "window_kernel_device_ms": walk_ms / layers,
+            "window_kernels_per_window": launches, "layers": layers,
+            "share_of_bound": out["window_bound"]["bound_ms"] / (walk_ms / layers)}
+    key = SPEC_PREFILL_KEYS[1]
+    prefill_window(torch, engine, key, False)
+    for mode, fn in (("replay", lambda: pg.run(key)), ("eager", lambda: pg.step(key))):
+        dev_ms, _, _ = profiled_ms(torch, fn, 3, names)
+        out[f"prefill_{mode}"] = {"key": list(key), "ms": timed(fn, 3), "device_ms": dev_ms}
+    return out
+
+
+def spec_graph_checks(torch, engine, walk: str) -> dict:
+    """Phase spec's checks on the served engine (its thread stopped): the
+    verify and prefill replays against eager, and their times."""
+    return {"verify": verify_replay_vs_eager(torch, engine),
+            "prefill": prefill_replay_vs_eager(torch, engine),
+            "ms": split_step_ms(torch, engine, walk), "pool_bound_mb": pool_bound_mb(engine)}
+
+
+def spec_traffic(torch, card: str, model: str, config: dict, path, inspect=None) -> dict:
+    """Phase serve's traffic on a speculative engine (its chats repeat a
+    phrase): served and counted as in phase serve, each split prefill and
+    verify call clocked (``split_step_clock``), then the traffic once more
+    under a trace for their device ms.  Returns phase_serve's result and
+    ``line``, the numbers of the ``smoke_spec`` line."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import TorchLlmEngine
+
+    with tempfile.TemporaryDirectory() as trace_dir, split_step_clock(TorchLlmEngine) as walls:
+        res = phase_serve(card, "spec", model, config, path, overrides=SPEC,
+                          short_prompts=SPEC_PROMPTS, profile=False, inspect=inspect,
+                          clock=walls, traced=trace_dir)
+    run, e2e, trace = res["run"], res["e2e"], res["trace"]
+    res["line"] = {
+        "model": model, "card": card, **SPEC,
+        **{k: run[k] for k in ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
+                               "spec_rejected_tokens_total", "spec_verify_steps_total")},
+        **{k: e2e[k] for k in ("output_tok_s", "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50",
+                               "itl_ms_p99", "wall_s")},
+        **res["walls"],
+        "device_ms_per_call": {name.removeprefix("smoke."): a["device_ms_per_range"]
+                               for name, a in trace["annotations"].items()},
+        "traced_calls": {name.removeprefix("smoke."): a["ranges"]
+                         for name, a in trace["annotations"].items()},
+        "traced_device_idle_share": trace["device_idle_share"],
+        "launches": res["launched"],
+    }
+    return res
+
+
 def phase_spec(torch, card: str) -> dict:
     """Speculative decoding end to end on the card: the tiny model exactly,
     then the Llama-3-8B geometry and the published DeepSeek-V2-Lite config
-    at full width and depth over HTTP, through the verify kernels."""
+    at full width and depth over HTTP (``spec_traffic``), every split
+    prefill and verify window a graph replay captured by ``warmup()``:
+    no capture after it, the verify kernels launched a layer a replayed
+    window, replays bitwise equal to eager (``spec_graph_checks``)."""
     tiny = phase_spec_tiny(torch)
     out = {"tiny": tiny}
-    for key, model, config, path in (
-        ("llama", "llama3-8b-spec", LLAMA3_8B, LLAMA_SPEC_PATH),
-        ("mla", "deepseek-v2-lite-spec", DEEPSEEK_V2_LITE, MLA_SPEC_PATH),
+    for key, model, config, path, walk in (
+        ("llama", "llama3-8b-spec", LLAMA3_8B, LLAMA_SPEC_PATH, "paged_attention.cu"),
+        ("mla", "deepseek-v2-lite-spec", DEEPSEEK_V2_LITE, MLA_SPEC_PATH, "mla_attention.cu"),
     ):
         gc.collect()  # the previous engine is shut down: free its memory first
         torch.cuda.empty_cache()
-        res = phase_serve(card, "spec", model, config, path, overrides=SPEC,
-                          short_prompts=SPEC_PROMPTS, profile=False)
-        run = res["run"]
-        line = {"model": model, "card": card, **SPEC,
-                **{k: run[k] for k in ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
-                                       "spec_rejected_tokens_total", "spec_verify_steps_total")},
-                "launches": res["launched"]}
+        res = spec_traffic(torch, card, model, config, path,
+                           inspect=lambda e, walk=walk: spec_graph_checks(torch, e, walk))
+        run, stats, checks = res["run"], res["stats"], res["inspect"]
+        layers = config["num_hidden_layers"]
+        kinds = ("unified", "decode", "prefill", "verify")
+        line = res["line"] | {
+            "graphs_captured": {k: stats[f"{k}_graphs_captured"] for k in kinds},
+            "graphs_captured_after_warmup": {
+                k: stats[f"{k}_graphs_captured_after_warmup"] for k in kinds},
+            "graph_pool_mb": {k: stats[f"{k}_graph_pool_mb"] for k in kinds},
+            "prefill_capture_ms": stats["prefill_graph_capture_ms"],
+            "prefill_pool_bound_mb": checks["pool_bound_mb"],
+            "warmup_s": stats["warmup_s"],
+            "replays": {k: run[k] for k in ("prefill_graph_replays_total",
+                                            "verify_graph_replays_total")},
+            "split_step_ms": checks["ms"],
+            "verify_replay": checks["verify"], "prefill_replay": checks["prefill"],
+        }
         print(json.dumps({"smoke_spec": line}), flush=True)
+        failures = []
         if run["spec_verify_steps_total"] <= 0:
-            raise AssertionError(f"{model}: no verify step ran: {run}")
+            failures.append(f"no verify step ran: {run}")
+        if any(line["graphs_captured_after_warmup"].values()):
+            failures.append(f"a graph was captured after warmup: {line['graphs_captured_after_warmup']}")
+        if line["graph_pool_mb"]["prefill"] > line["prefill_pool_bound_mb"]:
+            failures.append(f"the prefill pool {line['graph_pool_mb']['prefill']} MB passed "
+                            f"key_bytes of its largest key, {line['prefill_pool_bound_mb']} MB")
+        if run["verify_graph_replays_total"] != run["spec_verify_steps_total"]:
+            failures.append(f"a verify window was not a graph replay: {run}")
+        prefills = res["walls"]["split_prefill_wall_ms"]["calls"]
+        if not 0 < run["prefill_graph_replays_total"] == prefills:
+            failures.append(f"{run['prefill_graph_replays_total']} prefill graph replays for "
+                            f"{prefills} split prefills")
+        window = res["counts"][path[0]]
+        if window != layers * run["verify_graph_replays_total"]:
+            failures.append(f"{path[0]} = {window}, not {layers} layers x "
+                            f"{run['verify_graph_replays_total']} verify replays")
+        for name, res_ in (*checks["verify"].items(), *checks["prefill"].items()):
+            if (not res_["bitwise"]) if name.endswith("logits") else not all(res_.values()):
+                failures.append(f"replay and eager differ ({name}): {res_}")
+        if failures:
+            raise AssertionError(f"{model}: " + "; ".join(failures))
         out[key] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase longctx: a speculative server at the model's own context length
+# ---------------------------------------------------------------------------
+
+# the geometry's own context length (the tiny tokenizer's model card says
+# 2048, which serve_http would take by default)
+LONGCTX_ENGINE = dict(num_blocks=1024, max_batch_size=8, seed=0,
+                      max_model_len=LLAMA3_8B["max_position_embeddings"], **SPEC)
+LONGCTX_PROMPTS = (7000, 40, 300, 900)  # tokens: a whole prompt at the 8192 bucket, and three
+
+
+def peak_vs_key_bytes(torch, engine, key: tuple) -> dict:
+    """``key``'s step run eagerly with nothing valid: its peak allocation
+    beside ``PrefillGraph.key_bytes``, the estimate warmup budgets by."""
+    pg = engine._prefill
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pg.step(key, idle=True)
+    torch.cuda.synchronize()
+    cfg = engine.config
+    scores = cfg.model.num_heads * key[1] * (
+        key[1] + (key[2] * cfg.block_size if key[0] == "prefix" else 0)) * 4
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"key": list(key), "peak_mb": peak / 2**20, "key_bytes_mb": pg.key_bytes(key) / 2**20,
+            "scores_mb": scores / 2**20, "peak_over_scores": peak / scores}
+
+
+def pool_bound_mb(engine) -> float:
+    """``key_bytes`` of the largest split prefill key warmup captured, MB:
+    the pool its captures add must stay under it (the pool holds the
+    largest step, not the sum)."""
+    pg = engine._prefill
+    return max((pg.key_bytes(k) for k in pg.keys if k not in pg.deferred), default=0) / 2**20
+
+
+def phase_longctx(torch, card: str) -> dict:
+    """A speculative server at the Llama-3-8B geometry's own context length
+    (8192 positions), full width and depth.  First, on an engine that
+    captured nothing, the largest split prefill keys run eagerly: their
+    measured peak beside ``PrefillGraph.key_bytes``, the estimate warmup
+    budgets by, which must not be under it.  Then the server, warmed by
+    default (no prompt lengths): ``warmup()`` captures every key whose
+    activations fit the free memory (the rest left to first use), and a
+    7000-token prompt beside three short ones is served with no capture
+    after warmup.  Logs the warmup seconds, the captures, the keys left to
+    first use and the pool."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.serve import build_torch_engine, serve_http
+
+    path = model_dir("llama3-8b-longctx", LLAMA3_8B)
+    engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path),
+                                **LONGCTX_ENGINE)
+    peaks = [peak_vs_key_bytes(torch, engine, key) for key in sorted(
+        engine._prefill.keys, key=engine._prefill.key_bytes, reverse=True)[:3]]
+    log(f"[longctx] eager peaks: {peaks}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    async def drive():
+        t0 = time.perf_counter()
+        handle = await serve_http(path, model_name="llama3-8b-longctx", host="127.0.0.1",
+                                  port=0, **LONGCTX_ENGINE)
+        load_s = time.perf_counter() - t0
+        engine = handle.engine
+        try:
+            warm = engine.stats()
+            rng = random.Random(8)
+            prompts = [[rng.randrange(3, LLAMA3_8B["vocab_size"]) for _ in range(n)]
+                       for n in LONGCTX_PROMPTS]
+            t0 = time.perf_counter()
+            streams = await asyncio.gather(*(generate_tokens(engine, p, 8) for p in prompts))
+            wall = time.perf_counter() - t0
+            stats = engine.stats()
+            reserved = torch.cuda.memory_reserved() / 2**20
+        finally:
+            await handle.shutdown()
+        return engine, warm, stats, streams, wall, load_s, reserved
+
+    engine, warm, stats, streams, wall, load_s, reserved = asyncio.run(drive())
+    kinds = ("unified", "decode", "prefill", "verify")
+    line = {
+        "model": "llama3-8b-longctx", "card": card, "max_model_len": engine.max_len,
+        **LONGCTX_ENGINE, "load_s": load_s, "warmup_s": warm["warmup_s"],
+        "prefill_keys": len(engine._prefill.keys),
+        "keys_left_to_first_use": warm["prefill_graph_keys_deferred"],
+        "graphs_captured": {k: warm[f"{k}_graphs_captured"] for k in kinds},
+        "graph_pool_mb": {k: warm[f"{k}_graph_pool_mb"] for k in kinds},
+        "device_reserved_mb_serving": reserved,
+        "graphs_captured_after_warmup": {k: stats[f"{k}_graphs_captured_after_warmup"]
+                                         for k in kinds},
+        "served_wall_s": wall, "tokens": [len(t) for t in streams],
+        "prefill_graph_replays": stats["prefill_graph_replays_total"], "eager_peaks": peaks,
+        "prefill_pool_bound_mb": pool_bound_mb(engine),
+    }
+    print(json.dumps({"smoke_longctx": line}), flush=True)
+    del engine
+    failures = []
+    if line["max_model_len"] != LLAMA3_8B["max_position_embeddings"]:
+        failures.append(f"max length {line['max_model_len']}, not the model's own")
+    if any(line["graphs_captured_after_warmup"].values()):
+        failures.append("a graph was captured after warmup")
+    if line["tokens"] != [8] * len(LONGCTX_PROMPTS):
+        failures.append(f"streams of {line['tokens']} tokens")
+    if not warm["prefill_graphs_captured"] or stats["prefill_graph_replays_total"] < 4:
+        failures.append("the split prefills were not graph replays")
+    for peak in peaks:
+        if peak["peak_mb"] > peak["key_bytes_mb"]:
+            failures.append(f"key_bytes under the measured peak: {peak}")
+    if line["graph_pool_mb"]["prefill"] > line["prefill_pool_bound_mb"]:
+        failures.append(f"the prefill pool passed key_bytes of its largest key: {line}")
+    if failures:
+        raise AssertionError("longctx: " + "; ".join(failures))
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -2858,9 +3491,10 @@ def phase_quant(torch, card: str) -> dict:
                                  f"{stats['quantize']}, not {overrides}")
         gc.collect()
         torch.cuda.empty_cache()
+        # the speculative engine at phase spec's geometry
         spec = phase_serve(card, f"quant:{key}:spec", f"{model}-spec", config, spec_path,
-                           overrides={**overrides, **SPEC}, short_prompts=SPEC_PROMPTS,
-                           profile=False)
+                           overrides={**overrides, **SPEC},
+                           short_prompts=SPEC_PROMPTS, profile=False)
         if spec["run"]["spec_verify_steps_total"] <= 0:
             raise AssertionError(f"quant:{key}: no verify step ran: {spec['run']}")
         line = {
@@ -3204,7 +3838,7 @@ BENCH_CONFIGS = (
 )
 
 
-def phase_bench(torch) -> dict:
+def phase_bench(torch, configs=BENCH_CONFIGS) -> dict:
     """Each configuration through the headline bench's own functions
     (``settings_from_env``, ``run_bench``: warmup, the burst, the pipeline
     and prefix rungs), the launch counters zeroed just before and read just
@@ -3213,27 +3847,30 @@ def phase_bench(torch) -> dict:
     outside (0, 1], the prefix cache does not cut TTFT, or a kernel of the
     path did not run (or a plain version ran on the card)."""
     from dynamo_tpu_torch.bench import headline
+    from dynamo_tpu_torch.engine import TorchLlmEngine
 
     out = {}
-    for name, env, path in BENCH_CONFIGS:
+    for name, env, path in configs:
         gc.collect()
         torch.cuda.empty_cache()
         settings = headline.settings_from_env(env)
         zero_counters()
         t0 = time.perf_counter()
-        result = asyncio.run(headline.run_bench(settings))
+        with split_step_clock(TorchLlmEngine) as walls:
+            result = asyncio.run(headline.run_bench(settings))
         counts = read_counters()
         d = result["detail"]
         line = {"config": name, "env": env, "seconds": round(time.perf_counter() - t0, 1),
-                "tok_s": result["value"],
-                **{k: d[k] for k in (
+                "tok_s": result["value"], **clock_summary(walls),
+                **{k: d.get(k) for k in (
                     "decode_phase_tok_s", "vs_baseline_decode_phase", "ttft_p50_ms",
                     "ttft_p99_ms", "ttft_samples", "itl_p50_ms", "itl_p99_ms", "itl_samples",
                     "mfu", "mfu_basis", "engine_mfu_perc_rolling",
                     "engine_bandwidth_util_perc_rolling", "engine_mfu_burst",
                     "engine_bandwidth_util_burst", "prefix_ttft_miss_ms", "prefix_ttft_hit_ms",
                     "prefix_ttft_speedup", "pipeline_tok_s", "pipeline_overhead_pct",
-                    "graphs_captured", "graphs_captured_after_warmup", "tokens_expected",
+                    "graphs_captured", "graphs_captured_by_kind", "graph_pool_mb",
+                    "warmup_s", "graphs_captured_after_warmup", "tokens_expected",
                     "tokens_direct", "pipeline_tokens", "cache_finite", "device_kind",
                     "power_limit_w")},
                 "launches": {k: counts[k] for k in (*LLAMA_PATH, "plain_calls")}}
@@ -3256,13 +3893,39 @@ def phase_bench(torch) -> dict:
     return out
 
 
+# the split step's measurement (``--phases build,split``): the speculative
+# traffic of phase spec on both large configurations, and the headline's A
+# and B, both on the split prefill step
+SPLIT_BENCH = (BENCH_CONFIGS[0],
+               ("B", {"DYN_BENCH_QUANT": "none", "DYN_BENCH_KV_DTYPE": "model"},
+                ("paged_attention.launches",)))
+
+
+def phase_split(torch, card: str) -> dict:
+    """Phase spec's traffic (``spec_traffic``: tok/s, TTFT, ITL, the wall
+    and device ms of each split prefill and verify call) on Llama-3-8B and
+    DeepSeek-V2-Lite, then the headline's configurations A and B (every
+    chunk on the split prefill step, each call's wall ms)."""
+    out = {}
+    for key, model, config, path in (
+        ("llama", "llama3-8b-spec", LLAMA3_8B, LLAMA_SPEC_PATH),
+        ("mla", "deepseek-v2-lite-spec", DEEPSEEK_V2_LITE, MLA_SPEC_PATH),
+    ):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = spec_traffic(torch, card, model, config, path)["line"]
+        print(json.dumps({"smoke_split": out[key]}), flush=True)
+    out["bench"] = phase_bench(torch, SPLIT_BENCH)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}, or sweep")
+                    help=f"comma-separated subset of {','.join(PHASES)}, or sweep, split")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    bad = set(phases) - set(PHASES) - {"sweep"}
+    bad = set(phases) - set(PHASES) - {"sweep", "split"}
     if bad:
         ap.error(f"unknown phases {sorted(bad)}")
 
@@ -3314,6 +3977,8 @@ def main() -> int:
             overlap = run("overlap", phase_overlap_both, torch, card)
         if "spec" in phases:
             spec = run("spec", phase_spec, torch, card)
+        if "longctx" in phases:
+            run("longctx", phase_longctx, torch, card)
         if "offload" in phases:
             offload = run("offload", phase_offload, torch, card)
             run("offload", phase_offload, torch, card, DEEPSEEK_V2_LITE, "cuda",
@@ -3326,6 +3991,8 @@ def main() -> int:
             run("bench", phase_bench, torch)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
+        if "split" in phases:
+            run("split", phase_split, torch, card)
     except Exception as exc:  # noqa: BLE001 — a failed phase fails the run
         import traceback
 
@@ -3377,6 +4044,18 @@ def main() -> int:
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "device_ms": c.get("device_ms", "not measured"), "case": case,
             })
+        # rows 2 (W = 5) and 5 run inside the verify graph: their device ms
+        # a launch there and in the eager step on the same buffers
+        for entry in entries:
+            spec_key = {"mla_paged_window_attention_decode": "mla",
+                        "paged_window_attention_decode (W=5)": "llama"}.get(entry["name"])
+            if spec_key:
+                ms = spec[spec_key]["inspect"]["ms"]
+                entry.update(path="inside the verify graph",
+                             graph_device_ms=ms["verify_replay"]["window_kernel_device_ms"],
+                             eager_step_device_ms=ms["verify_eager"]["window_kernel_device_ms"],
+                             graph_bound_ms=ms["window_bound"]["bound_ms"],
+                             graph_lens=ms["window_lens"])
         # rows 1-5 on the fp8 e4m3fn cache of phase quant's served paths
         qcases = quant["kernels"]["cases"]
         fp8 = "float8_e4m3fn"

@@ -36,9 +36,11 @@ exactly OSL tokens, and the KV cache must hold no NaN or inf after the run
 failure exits non-zero after printing it.
 
 Beside bench.py:
-- ``engine.warmup()`` takes the place of ``aot_precompile``: every graph is
-  captured before the measured burst, and the line reports any capture
-  after it (``graphs_captured_after_warmup``, which must be 0).
+- ``engine.warmup([isl])`` takes the place of ``aot_precompile([isl])``:
+  every graph the traffic reaches (the split prefill's at the keys of an
+  ISL-token prompt) is captured before the measured burst, and the line
+  reports any capture after it (``graphs_captured_after_warmup``, which
+  must be 0).
 - There is no ``top_logprobs_k``: the port computes top-k logprobs only for
   a window with a lane that asks, so the measured loop pays no top-k tax.
   ``logit_bias_k`` is 0, as in bench.py.
@@ -93,8 +95,11 @@ PREFIX_PAIRS = 3  # the prefix rung's measured (miss, hit) pairs, after a warm p
 # what the pre-flight keeps free beside parameters and cache: activations of
 # a chunked (2 GB) or whole-prompt (4.5 GB) prefill, as bench.py:187, plus
 # the graphs' memory pool with int8's dequantized copies (1.7-3.1 GB at the
-# Llama-3-8B geometry, PERF.md section 5)
+# Llama-3-8B geometry; with the split prefill's graphs at the ISL's keys,
+# 0.86-1.16 GB in configurations A and B: PERF.md sections 5-6)
 GRAPH_POOL_MARGIN = 3.5e9
+# the engine's graphs, by the prefix of their stats() keys
+GRAPH_KINDS = ("unified", "decode", "prefill", "verify")
 
 RUNGS_NOT_PORTED = {
     "kv_xfer": "the KV transfer rung waits for the transfer plane (ROADMAP Queue 1 item 8)",
@@ -394,11 +399,11 @@ async def _measure(engine: TorchLlmEngine, s: BenchSettings, t_init: float) -> d
     cfg = engine.config.model
     device = engine.device
     engine.start()
-    await engine.warmup()
+    await engine.warmup([s.isl])
     warm = engine.stats()
     print(f"bench: engine up and warm in {time.monotonic() - t_init:.1f}s "
-          f"({warm['unified_graphs_captured']} unified + {warm['decode_graphs_captured']} "
-          "decode graphs)", file=sys.stderr)
+          "(" + " + ".join(f"{warm[f'{k}_graphs_captured']} {k}" for k in GRAPH_KINDS)
+          + " graphs)", file=sys.stderr)
     draws = iter(prompts(0, s.requests + 2 + PREFIX_PAIRS, s.isl, cfg.vocab_size))
     client = _Client(engine)
 
@@ -508,10 +513,11 @@ async def _measure(engine: TorchLlmEngine, s: BenchSettings, t_init: float) -> d
             "engine_bandwidth_util_burst": round(
                 (run_stats["model_bytes_total"] - before["model_bytes_total"])
                 / wall / util.peak_bytes_per_s, 4),
-            "graphs_captured": warm["unified_graphs_captured"] + warm["decode_graphs_captured"],
-            "graphs_captured_after_warmup": (
-                end_stats["unified_graphs_captured_after_warmup"]
-                + end_stats["decode_graphs_captured_after_warmup"]),
+            "graphs_captured": sum(warm[f"{k}_graphs_captured"] for k in GRAPH_KINDS),
+            "graphs_captured_by_kind": {k: warm[f"{k}_graphs_captured"] for k in GRAPH_KINDS},
+            "graphs_captured_after_warmup": sum(
+                end_stats[f"{k}_graphs_captured_after_warmup"] for k in GRAPH_KINDS),
+            "graph_pool_mb": sum(end_stats[f"{k}_graph_pool_mb"] for k in GRAPH_KINDS),
             "warmup_s": round(warm["warmup_s"], 2),
             "unified_windows": run_stats["decode_windows_unified_total"],
             "unified_fallbacks": run_stats["unified_fallbacks"],

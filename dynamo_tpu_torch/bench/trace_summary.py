@@ -13,8 +13,9 @@ Prints one JSON object:
   copies, sets) inside it;
 - ``kernels_top``: device ms and launches by kernel name inside the window;
 - ``annotations``: for each annotation the engine or the model makes
-  (``split_prefill``, ``split_prefill_attention``, ``unified_window``), its
-  ranges inside the window and the device ms of the kernels launched within
+  (``split_prefill``, ``split_prefill_attention``, ``unified_window``,
+  ``verify_window``; ``annotations=`` names others), its ranges inside the
+  window and the device ms of the kernels launched within
   them (on the launching thread; a graph replay's kernels belong to its
   launch);
 - ``matches``: device ms and launches of the kernels whose name holds each
@@ -35,7 +36,8 @@ from collections import defaultdict
 from pathlib import Path
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-ENGINE_ANNOTATIONS = ("split_prefill", "split_prefill_attention", "unified_window")
+ENGINE_ANNOTATIONS = ("split_prefill", "split_prefill_attention", "unified_window",
+                      "verify_window")
 
 
 def load_events(path: str | Path) -> list[dict]:
@@ -60,8 +62,10 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
     return total / 1e3
 
 
-def summarize(events: list[dict], window: str = "bench.burst", match=(), top: int = 25) -> dict:
+def summarize(events: list[dict], window: str = "bench.burst", match=(), top: int = 25,
+              annotations=ENGINE_ANNOTATIONS) -> dict:
     spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    names = annotations
     annotations = [e for e in spans if e.get("cat") == "user_annotation"]
     win = [e for e in annotations if e["name"] == window]
     if not win:
@@ -94,7 +98,7 @@ def summarize(events: list[dict], window: str = "bench.burst", match=(), top: in
     ranges: dict[tuple, tuple[list, list]] = {}
     counts: dict[str, int] = defaultdict(int)
     for e in sorted(annotations, key=lambda e: e["ts"]):
-        if e["name"] in ENGINE_ANNOTATIONS and w0 <= e["ts"] < w1:
+        if e["name"] in names and w0 <= e["ts"] < w1:
             starts, ends = ranges.setdefault((e["pid"], e["tid"], e["name"]), ([], []))
             starts.append(e["ts"])
             ends.append(e["ts"] + e["dur"])

@@ -71,6 +71,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                      help="G4 remote KV tier: a block-store server "
                           "(python -m dynamo_tpu_torch.llm.block_manager.remote); "
                           "bottom-tier evictions cascade there over TCP")
+    run.add_argument("--warmup-prompt-lens", type=int, nargs="+", default=None,
+                     metavar="N",
+                     help="warm the split prefill graphs of these prompt "
+                          "lengths alone (default: every length whose "
+                          "activations fit the free device memory)")
     args = parser.parse_args(argv)
 
     args.input, args.output = "http", "torch"
@@ -115,7 +120,8 @@ async def _run(args) -> int:
 
     handle = await serve_http(
         args.model_path, model_name=args.model_name, host=args.host,
-        port=args.port, device=args.device, **engine_overrides(args),
+        port=args.port, device=args.device, warmup_prompt_lens=args.warmup_prompt_lens,
+        **engine_overrides(args),
     )
     print(f"listening on http://{args.host}:{handle.service.port}/v1", file=sys.stderr, flush=True)
     stop = asyncio.Event()

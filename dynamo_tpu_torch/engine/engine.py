@@ -38,15 +38,16 @@ retired (its tokens read back from pinned memory behind a CUDA event, and
 emitted) while the new one runs; finishes found meanwhile release their
 lane and blocks only when the window holding them retires.  Unified
 windows take part in the pipeline the same way.  ``decode_steps = k`` fuses
-k decode iterations into one window.  On a CUDA device every decode window
-and every unified window without a ``top_logprobs`` lane is one CUDA graph
-replay (``engine/graphs.py``): the unified step has one graph per token
-bucket, every input at its bucket's fixed shape, as the reference compiles
-one program per bucket; ``warmup()`` captures them all before serving.  A
-unified window the graphs cannot take (more admissions than seed slots,
-more tokens than the largest bucket) is skipped by name to the split step,
-as the reference skips it.  The split prefill and verify steps stay
-eager.
+k decode iterations into one window.  On a CUDA device every step without
+a ``top_logprobs`` lane is one CUDA graph replay (``engine/graphs.py``):
+the decode window; the unified step, one graph per token bucket, every
+input at its bucket's fixed shape, as the reference compiles one program
+per bucket; the split prefill, one graph per prefill key (whole prompt or
+continued window, by bucket and table width); the verify window.
+``warmup()`` captures them before serving (the split prefill's keys where
+the split step is the engine's prefill path).  A unified window the graphs
+cannot take (more admissions than seed slots, more tokens than the largest
+bucket) is skipped by name to the split step, as the reference skips it.
 
 The cache may hold a narrower float dtype than the model
 (``kv_cache_dtype``: fp8 e4m3fn or e5m2, float16, ...; every write casts to
@@ -82,7 +83,13 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
-from dynamo_tpu_torch.engine.graphs import DecodeGraph, UnifiedGraph
+from dynamo_tpu_torch.engine.graphs import (
+    DecodeGraph,
+    PrefillGraph,
+    StepGraphs,
+    UnifiedGraph,
+    VerifyGraph,
+)
 from dynamo_tpu_torch.engine.kv_manager import BlockAllocator
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
@@ -98,14 +105,6 @@ from dynamo_tpu_torch.ops.kernels import block_copy
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.quant import is_quantized, quantize_params
-from dynamo_tpu_torch.ops.random import fold_in, gumbel
-from dynamo_tpu_torch.ops.sampling import (
-    apply_logit_bias,
-    apply_penalties,
-    sample_tokens,
-    token_logprobs,
-    topk_logprobs,
-)
 from dynamo_tpu_torch.runtime.engine import Context, ResponseStream
 from dynamo_tpu_torch.utils import profiling
 from dynamo_tpu_torch.utils.logging import get_logger
@@ -487,8 +486,9 @@ class TorchLlmEngine:
         self._bt_clean = False
         # the decode window's persistent inputs and its graphs; the unified
         # step reads its block tables, sampling tail and feedback too.  All
-        # graphs share one memory pool (UnifiedGraph says why that is safe)
-        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        # graphs share one memory pool (UnifiedGraph says why that is safe;
+        # graphs.capture how it holds the largest step, not the sum)
+        pool = torch.cuda.MemPool() if self.device.type == "cuda" else None
         self._decode = DecodeGraph(self, config.logit_bias_k, pool)
         # the unified window's graphs, one a reachable token bucket (the
         # reference's ucap: one chunk window plus a full complement of
@@ -511,6 +511,10 @@ class TorchLlmEngine:
             self._unified = UnifiedGraph(
                 self, self._decode, sorted({-(-b // tb) * tb for b in self.buckets if b <= ucap}),
                 self._unified_seed_slots, planner, pool)
+        # the split prefill's graphs, one a key it can take, and the verify
+        # window's
+        self._prefill = PrefillGraph(self, self._prefill_keys(), pool)
+        self._verify = VerifyGraph(self, self._decode, pool) if self.spec_enabled else None
 
         # thread plumbing
         self._profiler_trace_dir: str | None = None
@@ -563,18 +567,31 @@ class TorchLlmEngine:
             self.host_tier.close()  # release + delete the G3 memmap
 
     # -- async engine interface -------------------------------------------
-    async def warmup(self) -> None:
+    async def warmup(self, prompt_lens=None) -> None:
         """Capture every serving graph before the first request, as the
         reference's ``warmup`` / ``aot_precompile`` compile every serving
         program: the unified step's graph of every reachable token bucket
-        (noise drawn and not) and the decode window's two graphs.  On the
-        CPU each step runs once with nothing live.  The captures write
-        nothing live; the prefix registry is flushed after all the same, as
-        the reference flushes after its warmup requests, so no warmup state
-        reaches serving.  Runs on the device thread once the engine is
-        started, else in the caller's.  A capture that fails raises."""
+        (noise drawn and not), the decode window's two graphs, the verify
+        window's two on a speculative engine and, where the split step is
+        the engine's prefill path (the unified step off), the split
+        prefill's graph of every key it can take (``_prefill_keys``), or
+        of every key ``prompt_lens`` reach, as the reference's
+        ``aot_precompile(prompt_lens)``.  Unlike a compiled program, a
+        graph keeps its step's memory: by default a key whose activations
+        (``PrefillGraph.key_bytes``) exceed the device memory free at
+        warmup (with the pool's free blocks) is left to its first use
+        (``prefill_graph_keys_deferred``); ``prompt_lens`` warms every key
+        it reaches.  With the unified step on the split prefill serves
+        only the windows the unified step skips; its keys are captured at
+        first use.  A capture at first use is counted
+        (``prefill_graphs_captured_after_warmup``).  On the CPU each step
+        runs once with nothing live.  The captures write nothing live; the
+        prefix registry is flushed after all the same, as the reference
+        flushes after its warmup requests, so no warmup state reaches
+        serving.  Runs on the device thread once the engine is started,
+        else in the caller's.  A capture that fails raises."""
         if self._thread is None:
-            self._warm_graphs()
+            self._warm_graphs(prompt_lens)
             return
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -590,11 +607,11 @@ class TorchLlmEngine:
 
             loop.call_soon_threadsafe(resolve)
 
-        self._submit_q.put(("warmup", done))
+        self._submit_q.put(("warmup", (prompt_lens, done)))
         self._wake.set()
         await fut
 
-    def _warm_graphs(self) -> None:
+    def _warm_graphs(self, prompt_lens=None) -> None:
         t0 = time.perf_counter()
         self._sync_pipeline()
         if self.device.type == "cuda":
@@ -602,11 +619,48 @@ class TorchLlmEngine:
         if self._unified is not None:
             self._unified.warm()
         self._decode.warm()
+        budget = None
+        if prompt_lens is None and self.device.type == "cuda":
+            torch.cuda.empty_cache()
+            budget = (torch.cuda.mem_get_info(self.device)[0]
+                      + torch.cuda.memory_reserved(self.device)
+                      - torch.cuda.memory_allocated(self.device))
+        self._prefill.warm([] if self.unified_batch else self._prefill_keys(prompt_lens),
+                           budget)
+        if self._verify is not None:
+            self._verify.warm()
         self.allocator.clear_published()
         self.warmup_s = time.perf_counter() - t0
-        logger.info("warmup: %d unified and %d decode graphs in %.1f s",
-                    self.stats()["unified_graphs_captured"],
-                    self.stats()["decode_graphs_captured"], self.warmup_s)
+        stats = self.stats()
+        logger.info("warmup: %d unified, %d decode, %d prefill (%d keys left to first use) "
+                    "and %d verify graphs in %.1f s",
+                    stats["unified_graphs_captured"], stats["decode_graphs_captured"],
+                    stats["prefill_graphs_captured"], stats["prefill_graph_keys_deferred"],
+                    stats["verify_graphs_captured"], self.warmup_s)
+
+    def _prefill_keys(self, prompt_lens=None) -> list[tuple]:
+        """Every key ``_run_prefill`` can take for ``prompt_lens`` (default:
+        every length the engine holds), by the reference's
+        ``aot_precompile`` rule (dynamo_tpu/engine/engine.py:2095-2135): a
+        whole prompt at its bucket (within the chunk budget when chunking),
+        a continued window at every bucket up to the longest window (a
+        chunk, or with chunking off a prefix hit's tail past one cached
+        block) at the prompt's table width.  The reference compiles a
+        prefix hit of an unchunked engine at first use; prefix caching is
+        always on here, so it is warmed."""
+        bs, chunk = self.config.block_size, self.chunk_tokens
+        keys = set()
+        lens = range(1, self.max_len) if prompt_lens is None else (
+            min(int(n), self.max_len - 1) for n in prompt_lens)
+        for n in lens:
+            table_len = self.allocator.blocks_needed(self._bucket_len(min(n + 1, self.max_len)))
+            longest = min(n, chunk) if chunk is not None else n - bs
+            if longest >= 1:
+                cap = self._bucket_len(longest)
+                keys.update(("prefix", b, table_len) for b in self.buckets if b <= cap)
+            if chunk is None or n <= chunk:
+                keys.add(("prefill", self._bucket_len(n)))
+        return sorted(keys)
 
     async def generate(self, request: Context[dict]) -> ResponseStream[dict]:
         if request.data.get("image") is not None or request.data.get("video") is not None:
@@ -712,10 +766,11 @@ class TorchLlmEngine:
             "warmup_s": self.warmup_s,
             "device": str(self.device),
             **self._decode.stats(),
-            **(self._unified.stats() if self._unified is not None else {
-                "unified_graph_replays_total": 0, "unified_graphs_captured": 0,
-                "unified_graph_capture_ms": 0.0, "unified_graph_pool_mb": 0.0,
-                "unified_graphs_captured_after_warmup": 0}),
+            **(self._unified.stats() if self._unified is not None
+               else StepGraphs.zero_stats("unified")),
+            **self._prefill.stats(),
+            **(self._verify.stats() if self._verify is not None
+               else StepGraphs.zero_stats("verify")),
         }
         if self.host_tier is not None:
             out.update(self.host_tier.stats())
@@ -1105,26 +1160,6 @@ class TorchLlmEngine:
         s = seq.request.sampling
         return not (s.use_greedy or s.temperature is None or s.temperature <= 1e-5)
 
-    def _step_noise(self, seqs, rows: list[int], n_rows: int, fold_lens,
-                    vocab: int) -> torch.Tensor:
-        """[n_rows, vocab] Gumbel noise on the host's side of a synchronous
-        step (split prefill, verify): sequence i's row ``rows[i]`` holds
-        its lane key folded with ``fold_lens[rows[i]]`` (the context length
-        the reference folds with, ``jax.random.fold_in(key, context_len)``),
-        drawn with the port's threefry stream — so a seeded request draws
-        the same noise at the same position whatever batch or step it rides
-        in, and the reference's.  Greedy lanes draw nothing (zero rows).
-        Decode and unified windows draw on the device
-        (``DecodeGraph.sample``)."""
-        noise = torch.zeros((n_rows, vocab), dtype=torch.float32, device=self.device)
-        sampled = [(row, s) for row, s in zip(rows, seqs) if self._sampled(s)]
-        if sampled:
-            row_ids = [row for row, _ in sampled]
-            keys = torch.from_numpy(self._lane_keys[[s.lane for _, s in sampled]].astype(np.int64))
-            folds = torch.from_numpy(np.asarray(fold_lens)[row_ids].astype(np.int64))
-            noise[row_ids] = gumbel(fold_in(keys, folds).to(self.device), vocab)
-        return noise
-
     def _emit(self, seqs, tokens, lps, top) -> None:
         """Synchronous readback and emission of a one-step window."""
         tokens_h = tokens.cpu().numpy()
@@ -1169,13 +1204,14 @@ class TorchLlmEngine:
                 op, seq = self._submit_q.get_nowait()
             except thread_queue.Empty:
                 return
-            if op == "warmup":  # seq is the caller's completion callback
+            if op == "warmup":  # seq: the prompt lengths and the caller's callback
+                prompt_lens, done = seq
                 try:
-                    self._warm_graphs()
+                    self._warm_graphs(prompt_lens)
                 except Exception as exc:  # noqa: BLE001 — the caller raises it
-                    seq(exc)
+                    done(exc)
                 else:
-                    seq(None)
+                    done(None)
             elif op == "add":
                 self.scheduler.add(seq)
             elif op == "abort":
@@ -1569,13 +1605,11 @@ class TorchLlmEngine:
                 raise
         cfg = self.config.model
         bs = self.config.block_size
-        dev = self.device
         tokens = seq.all_token_ids
         n = len(tokens)
         blocks = self.allocator.block_ids(seq.seq_id)
         self._seed_lane_key(seq)
         seq.sampling_seeded = True
-        lane = seq.lane
         # nonzero only on preemption recompute (the tokens include generated)
         gen_row = self._count_row(seq.output_ids)
         start = max(seq.prefilled_tokens, seq.cached_tokens)
@@ -1594,33 +1628,36 @@ class TorchLlmEngine:
             full_ids[: len(blocks)] = blocks
             tail_ids = np.zeros((table_len,), np.int32)
             tail_ids[: len(blocks) - start // bs] = blocks[start // bs:]
-            with profiling.annotate("split_prefill"):
-                logits, _ = self.family.forward_prefill_with_prefix(
-                    self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
-                    torch.from_numpy(full_ids).to(dev), torch.from_numpy(tail_ids).to(dev),
-                    len(tail), start, self.cos, self.sin,
-                )
-            prompt_row = self._count_row(seq.request.token_ids)
-            fold = n
+            key = ("prefix", len(padded), table_len)
+            arrays = {"full_ids": full_ids, "tail_ids": tail_ids, "seq_len": len(tail),
+                      "start_pos": start, "fold": n,
+                      "prompt": self._count_row(seq.request.token_ids)}
         else:
             padded = np.zeros((self._bucket_len(end),), np.int32)
             padded[:end] = tokens[:end]
             block_ids = np.zeros((self.max_blocks_per_seq,), np.int32)
             block_ids[: len(blocks)] = blocks
-            with profiling.annotate("split_prefill"):
-                logits, _ = self.family.forward_prefill(
-                    self.params, cfg, torch.from_numpy(padded).to(dev), self.cache,
-                    torch.from_numpy(block_ids).to(dev), end, 0, self.cos, self.sin,
-                )
             # the reference counts the prompt's in-vocabulary ids (the
             # tokens include the generated ones on a recompute)
             ids = np.asarray(tokens[:end], np.int64)
             ids = ids[(ids >= 0) & (ids < cfg.vocab_size)]
-            prompt_row = np.bincount(ids, minlength=cfg.vocab_size).astype(np.int32) - gen_row
-            fold = end
-        token, lp, top = self._prefill_sample(
-            logits, seq, lane, prompt_row, gen_row, fold, 1 if final else 0
-        )
+            key = ("prefill", len(padded))
+            arrays = {"block_ids": block_ids, "seq_len": end, "start_pos": 0, "fold": end,
+                      "prompt": np.bincount(ids, minlength=cfg.vocab_size).astype(np.int32)
+                      - gen_row}
+        sampling = dict(zip(
+            ("temp", "top_k", "top_p", "greedy", "pres", "freq", "rep", "bias_ids", "bias_vals"),
+            self._sampling_arrays([seq], [0], 1)))
+        pg = self._prefill
+        pg.upload(key, {**arrays, **sampling, "token_ids": padded, "lane": seq.lane,
+                        "gate": 1 if final else 0, "gen": gen_row,
+                        "key": self._lane_keys[[seq.lane]].astype(np.int64)})
+        # a lane that wants top logprobs runs the step eagerly for its K-wide
+        # row; any other is its key's graph replay
+        want = seq.request.sampling.top_logprobs
+        with profiling.annotate("split_prefill"):
+            best = pg.step(key, top=want) if want else pg.run(key)
+        token, lp = pg.result()
         seq.prefilled_tokens = end
         self._count_prefill(start, end)
         self._step_weight_streams += 1
@@ -1631,33 +1668,8 @@ class TorchLlmEngine:
         if seq.status == SeqStatus.PREFILLING:
             seq.status = SeqStatus.RUNNING
         self.allocator.publish_stored(seq.seq_id, tokens)
+        top = None if best is None else tuple(x[0].cpu().numpy() for x in best)
         self._process_token(seq, token, lp, top=top)
-
-    def _prefill_sample(self, logits, seq, lane, prompt_row, gen_row, fold, gate):
-        """The split prefill's sampling tail (one row): reseed the lane's
-        penalty counts, penalties, logit bias, the sample with the lane's
-        key folded with ``fold``, and ``gate`` added to the generated count
-        of the sampled token (0 for an intermediate chunk)."""
-        dev = self.device
-        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
-            torch.from_numpy(a).to(dev) for a in self._sampling_arrays([seq], [0], 1)
-        )
-        prompt_t = torch.from_numpy(prompt_row).to(dev)
-        gen_t = torch.from_numpy(gen_row).to(dev)
-        self._prompt_counts[lane] = prompt_t
-        self._gen_counts[lane] = gen_t
-        plogits = apply_penalties(logits[None], gen_t[None], prompt_t[None], pres, freq, rep)
-        plogits = apply_logit_bias(plogits, bias_ids, bias_vals)
-        noise = self._step_noise([seq], [0], 1, [fold], plogits.shape[-1])
-        tokens = sample_tokens(plogits, noise, temp, top_k, top_p, greedy)
-        lps = token_logprobs(plogits, tokens)
-        top = None
-        want = seq.request.sampling.top_logprobs
-        if want > 0:
-            vals, ids = topk_logprobs(plogits, min(want, plogits.shape[-1]))
-            top = (vals[0].cpu().numpy(), ids[0].cpu().numpy())
-        self._gen_counts[lane, tokens.long()] += gate
-        return int(tokens[0]), float(lps[0]), top
 
     # -- decode: plain or speculative verify ---------------------------------
     def _run_decode(self, seqs: list[Sequence]) -> None:
@@ -1754,21 +1766,18 @@ class TorchLlmEngine:
                 # keeps the last of them); the lane finishes there
                 pos = min(ctx - 1 + j, self.max_len - 1)
                 slot_mat[lane, j] = blocks[pos // bs] * bs + pos % bs
-        tables = self._decode_tables(active)
-        dev = self.device
-        token_dev = torch.from_numpy(token_mat).to(dev)
-        context_dev = torch.from_numpy(context_lens).to(dev)
-        logits, _ = self.family.forward_verify(
-            self.params, self.config.model, token_dev, self.cache, tables, context_dev,
-            torch.from_numpy(slot_mat).to(dev), self.cos, self.sin,
-        )  # [lanes, w, vocab]
-        tokens, n_accept, lps, top = self._verify_sample(
-            logits, active, token_dev, context_dev, torch.from_numpy(spec_ok).to(dev),
-            base_lens,
-        )
-        tokens_h = tokens.cpu().numpy()
-        n_h = n_accept.cpu().numpy()
-        lps_h = lps.cpu().numpy()
+        self._decode_tables(active)
+        self._device_sampling_tail(active)
+        vg = self._verify
+        vg.inputs.upload({"tokens": token_mat, "slots": slot_mat, "context_lens": context_lens,
+                          "base_lens": base_lens, "spec_ok": spec_ok})
+        # a window with a top_logprobs lane runs the step eagerly for its
+        # K-wide rows; any other is the verify graph's replay
+        want = max((s.request.sampling.top_logprobs for s in active), default=0)
+        noise = any(self._sampled(s) for s in active)
+        with profiling.annotate("verify_window"):
+            top = vg.step(noise, top=want) if want else vg.run(noise)
+        tokens_h, n_h, lps_h = vg.result()
         tkv_h = tki_h = None
         if top is not None:
             tkv_h, tki_h = (x.cpu().numpy() for x in top)
@@ -1790,55 +1799,6 @@ class TorchLlmEngine:
                     seq, int(tokens_h[lane, i]), float(lps_h[lane, i]),
                     top=(tkv_h[lane, i], tki_h[lane, i]) if top is not None else None,
                 )
-
-    def _verify_sample(self, logits, seqs, token_mat, context_lens, spec_ok, base_lens):
-        """The verify step's sampling tail: window position 0 through the
-        full sampling machinery (the lane's key folded with its plain-decode
-        context), later positions greedy after penalties and bias; the
-        leading-match acceptance count per lane; the accepted tokens added
-        to the generated counts.  Returns (tokens [lanes, w], n_accept
-        [lanes], logprobs [lanes, w], top (vals, ids) [lanes, w, k] or
-        None)."""
-        lanes, w, vocab = logits.shape
-        temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
-            torch.from_numpy(a).to(self.device)
-            for a in self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
-        )
-        noise = self._step_noise(seqs, [s.lane for s in seqs], lanes, base_lens, vocab)
-        want = max((s.request.sampling.top_logprobs for s in seqs), default=0)
-        outs, lps, tops = [], [], []
-        for i in range(w):
-            li = apply_penalties(
-                logits[:, i], self._gen_counts, self._prompt_counts, pres, freq, rep
-            )
-            li = apply_logit_bias(li, bias_ids, bias_vals)
-            if i == 0:
-                ti = sample_tokens(li, noise, temp, top_k, top_p, greedy)
-            else:
-                ti = torch.argmax(li, dim=-1).to(torch.int32)
-            outs.append(ti)
-            lps.append(token_logprobs(li, ti))
-            if want > 0:
-                tops.append(topk_logprobs(li, min(want, vocab)))
-        tokens = torch.stack(outs, dim=1)
-        # leading-match acceptance: window token i is kept iff every earlier
-        # draft matched and it equals the model's output at position i - 1
-        active = context_lens > 0
-        acc = spec_ok & active
-        n_accept = active.to(torch.int32)
-        for i in range(1, w):
-            acc = acc & (token_mat[:, i] == tokens[:, i - 1])
-            n_accept = n_accept + acc.to(torch.int32)
-        # generated counts of the accepted tokens only (a row may repeat an id)
-        take = (torch.arange(w, device=self.device)[None, :] < n_accept[:, None]) & active[:, None]
-        self._gen_counts.index_put_(
-            (self._lane_idx[:, None].expand(lanes, w), tokens.long()),
-            take.to(torch.int32), accumulate=True,
-        )
-        top = None
-        if tops:
-            top = (torch.stack([v for v, _ in tops], dim=1), torch.stack([k for _, k in tops], dim=1))
-        return tokens, n_accept, torch.stack(lps, dim=1), top
 
     # -- KV offload tiers ----------------------------------------------------
     def _offload_blocks(self, pairs: list[tuple[int, int]]) -> list[int]:

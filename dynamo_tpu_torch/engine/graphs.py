@@ -26,8 +26,12 @@ the graph holds and adds them on every replay.
 
 ``UnifiedGraph`` does the same for the unified (mixed prefill + decode)
 window: one graph per (token bucket, noise), every input at its bucket's
-fixed shape (see its docstring).  ``TorchLlmEngine.warmup`` captures every
-reachable bucket's graphs and the decode graphs before serving.
+fixed shape (see its docstring).  ``PrefillGraph`` holds the split prefill
+step, one graph per prefill key, as the reference compiles one
+program per key; ``VerifyGraph`` the speculative verify step, one graph per
+noise.  ``TorchLlmEngine.warmup`` captures every reachable bucket's graphs,
+the decode graphs, and the split step's graphs where the split step is the
+engine's prefill path, before serving.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.bool_): torch.bool,
 }
+_NUMPY_DTYPES = {t: n for n, t in _TORCH_DTYPES.items()}
 
 
 class Staged:
@@ -151,7 +156,64 @@ def _add_counts(counts: dict, sign: int = 1) -> None:
         setattr(mod, name, getattr(mod, name) + sign * n)
 
 
-class DecodeGraph:
+class StepGraphs:
+    """One step's CUDA graphs by key, over the graphs' shared memory pool:
+    each captured at first use or by its owner's ``warm`` (a capture after
+    ``warm`` ran is counted apart, as the reference counts a program
+    compiled at its first dispatch), each replay adding the launches its
+    capture held.  ``stats()`` reports them under ``<name>_graph...``."""
+
+    name = ""
+
+    def __init__(self, device: torch.device, pool=None):
+        self.device = device
+        self.pool = pool
+        # key -> (graph, launches a replay holds)
+        self._graphs: dict[Any, tuple[torch.cuda.CUDAGraph, dict]] = {}
+        self.replays = 0
+        self.capture_ms = 0.0
+        self.pool_mb = 0.0
+        self.warmed = False      # warm() ran: a later capture is counted apart
+        self.late_captures = 0
+
+    def _capture(self, key, idle, live) -> None:
+        """Capture ``live`` under ``key`` (``capture``: ``idle`` runs first)."""
+        graph, launches, ms, mb = capture(self.device, self.pool, idle, live)
+        self._graphs[key] = (graph, launches)
+        self.capture_ms += ms
+        self.pool_mb += mb
+
+    def _launch(self, key) -> None:
+        graph, launches = self._graphs[key]
+        graph.replay()
+        _add_counts(launches)
+
+    def _replay(self, key, idle, live) -> None:
+        """A serving replay of ``key``, captured first where it is new."""
+        if key not in self._graphs:
+            self._capture(key, idle, live)
+            self.late_captures += self.warmed
+        self._launch(key)
+        self.replays += 1
+
+    def stats(self) -> dict:
+        return {
+            f"{self.name}_graph_replays_total": self.replays,
+            f"{self.name}_graphs_captured": len(self._graphs),
+            f"{self.name}_graph_capture_ms": self.capture_ms,
+            f"{self.name}_graph_pool_mb": self.pool_mb,
+            f"{self.name}_graphs_captured_after_warmup": self.late_captures,
+        }
+
+    @staticmethod
+    def zero_stats(name: str) -> dict:
+        """The stats of a step an engine does not have."""
+        return {f"{name}_graph_replays_total": 0, f"{name}_graphs_captured": 0,
+                f"{name}_graph_capture_ms": 0.0, f"{name}_graph_pool_mb": 0.0,
+                f"{name}_graphs_captured_after_warmup": 0}
+
+
+class DecodeGraph(StepGraphs):
     """The persistent inputs of a decode window and the window itself:
     ``tokens`` / ``use_fb`` / ``lens`` (``window``), the block ``tables``
     and the sampling ``tail`` (lane keys, the sampled mask, temperature,
@@ -161,11 +223,13 @@ class DecodeGraph:
     decode and unified window on the device and read by the next one where
     ``use_fb`` says so."""
 
+    name = "decode"
+
     def __init__(self, engine, bias_width: int, pool=None):
+        super().__init__(engine.device, pool)
         self.engine = engine
         cfg = engine.config
-        self.device = dev = engine.device
-        self.pool = pool  # the graphs' memory pool (shared with the unified graphs)
+        dev = self.device
         lanes = cfg.max_batch_size
         self.steps = cfg.decode_steps
         self.block_size = cfg.block_size
@@ -194,13 +258,6 @@ class DecodeGraph:
         self.out_tokens = torch.zeros((self.steps, lanes), dtype=torch.int32, device=dev)
         self.out_lps = torch.zeros((self.steps, lanes), dtype=torch.float32, device=dev)
         self._idle_lens = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-        # noise drawn? -> (graph, launches a replay holds)
-        self._graphs: dict[bool, tuple[torch.cuda.CUDAGraph, dict]] = {}
-        self.replays = 0
-        self.capture_ms = 0.0
-        self.pool_mb = 0.0
-        self.warmed = False      # warm() ran: a later capture is counted apart
-        self.late_captures = 0
 
     # -- the window --------------------------------------------------------
     def sample(self, logits, fold_lens, gate, noise: bool, top: int = 0):
@@ -271,13 +328,7 @@ class DecodeGraph:
         if self.device.type != "cuda":
             self.step(noise)
             return
-        if noise not in self._graphs:
-            self._graphs[noise] = self._capture(noise)
-            self.late_captures += self.warmed
-        graph, launches = self._graphs[noise]
-        graph.replay()
-        _add_counts(launches)
-        self.replays += 1
+        self._replay(noise, *self._steps(noise))
 
     def warm(self) -> None:
         """Capture both graphs (noise drawn and not) before serving, and
@@ -291,55 +342,48 @@ class DecodeGraph:
                 self.step(noise, lens=self._idle_lens)
                 continue
             if noise not in self._graphs:
-                self._graphs[noise] = self._capture(noise)
+                self._capture(noise, *self._steps(noise))
             self.window.upload({"tokens": np.zeros((lanes,), np.int32),
                                 "use_fb": np.zeros((lanes,), np.bool_),
                                 "lens": np.zeros((lanes,), np.int32)})
-            graph, launches = self._graphs[noise]
-            graph.replay()
-            _add_counts(launches)
+            self._launch(noise)
         self.warmed = True
 
-    def _capture(self, noise: bool) -> tuple[torch.cuda.CUDAGraph, dict]:
-        """Warm the step once on a side stream with every lane idle (so it
-        changes no cache slot, count or feedback), then capture it."""
-        graph, launches, ms, mb = capture(self.device, self.pool,
-                                          lambda: self.step(noise, lens=self._idle_lens),
-                                          lambda: self.step(noise))
-        self.capture_ms += ms
-        self.pool_mb += mb
-        return graph, launches
+    def _steps(self, noise: bool):
+        """The capture's warm-up (every lane idle: it changes no cache slot,
+        count or feedback) and the step it captures."""
+        return (lambda: self.step(noise, lens=self._idle_lens)), (lambda: self.step(noise))
 
-    def stats(self) -> dict:
-        return {
-            "decode_graph_replays_total": self.replays,
-            "decode_graphs_captured": len(self._graphs),
-            "decode_graph_capture_ms": self.capture_ms,
-            "decode_graph_pool_mb": self.pool_mb,
-            "decode_graphs_captured_after_warmup": self.late_captures,
-        }
+
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 def capture(dev: torch.device, pool, idle, live) -> tuple[torch.cuda.CUDAGraph, dict, float, float]:
     """Run ``idle`` (the step with nothing live: it changes no cache slot,
-    count or feedback) once on a side stream, then capture ``live`` into a
-    graph over the memory ``pool``.  The capture launched nothing: the
-    counters it moved are taken back and kept as what each replay
-    launches.  Returns (graph, launches a replay holds, ms taken, MB the
-    pool grew by).  A capture that fails raises."""
+    count or feedback) once, then capture ``live`` into a graph over the
+    memory ``pool`` (a ``torch.cuda.MemPool``).  Both run on the device's
+    one capture stream and allocate from the pool, so the capture reuses
+    the blocks the warm-up freed, and the pool holds the largest step's
+    memory, not the sum of the steps' (one stream also keeps one cuBLAS
+    workspace, where a stream a capture would add one each).  The capture
+    launched nothing: the counters it moved are taken back and kept as what
+    each replay launches.  Returns (graph, launches a replay holds, ms
+    taken, MB the memory reserved grew by).  A capture that fails raises."""
     t0 = time.perf_counter()
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
     # the capture empties the allocator's cache on entry: empty it first too,
     # so the reserved bytes it adds are the graphs' pool's
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream), torch.cuda.use_mem_pool(pool, dev):
         idle()
-    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.current_stream(dev).wait_stream(stream)
     before = launch_counters()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+    with torch.cuda.graph(graph, pool=pool.id, stream=stream, capture_error_mode="thread_local"):
         live()
     after = launch_counters()
     launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -348,7 +392,7 @@ def capture(dev: torch.device, pool, idle, live) -> tuple[torch.cuda.CUDAGraph, 
             (torch.cuda.memory_reserved(dev) - reserved) / 2**20)
 
 
-class UnifiedGraph:
+class UnifiedGraph(StepGraphs):
     """The unified (mixed prefill + decode) window as one CUDA graph per
     (token bucket, noise), as the reference compiles one program per token
     bucket (dynamo_tpu/engine/engine.py ``_build_unified``, warmed by
@@ -376,13 +420,15 @@ class UnifiedGraph:
     ends, and windows replay one at a time on one stream, so no graph's
     live output sits in memory another reuses."""
 
+    name = "unified"
+
     def __init__(self, engine, decode: DecodeGraph, buckets: list[int], seed_slots: int,
                  planner=None, pool=None):
+        super().__init__(engine.device, pool)
         self.engine = engine
         self.decode = decode
         cfg = engine.config
-        self.device = dev = engine.device
-        self.pool = pool
+        dev = self.device
         self.tb = tb = engine._unified_tb
         self.lanes = lanes = cfg.max_batch_size
         self.page_slots = ps = tb * engine.max_blocks_per_seq
@@ -442,13 +488,7 @@ class UnifiedGraph:
             "token_pos", "token_lane", "token_slot", "page_count", "sample_gate")}
         self._idle["seed_lanes"] = torch.full((seed_slots,), lanes, dtype=torch.int32,
                                               device=dev)
-        # (bucket, noise drawn?) -> (graph, launches a replay holds)
-        self._graphs: dict[tuple[int, bool], tuple[torch.cuda.CUDAGraph, dict]] = {}
-        self.replays = 0
-        self.capture_ms: dict[int, float] = {}
-        self.pool_mb = 0.0
-        self.warmed = False
-        self.late_captures = 0
+        self.bucket_capture_ms: dict[int, float] = {}
 
     # -- inputs ------------------------------------------------------------
     def upload(self, bucket: int, arrays: dict[str, np.ndarray], plan=None,
@@ -528,14 +568,7 @@ class UnifiedGraph:
         if self.device.type != "cuda":
             self.step(bucket, noise)
             return
-        key = (bucket, noise)
-        if key not in self._graphs:
-            self._graphs[key] = self._capture(bucket, noise)
-            self.late_captures += self.warmed
-        graph, launches = self._graphs[key]
-        graph.replay()
-        _add_counts(launches)
-        self.replays += 1
+        self._replay((bucket, noise), *self._steps(bucket, noise))
 
     def warm(self) -> None:
         """Capture every bucket's graphs (noise drawn and not) before
@@ -543,21 +576,22 @@ class UnifiedGraph:
         graph's first launch uploads it to the card, which a serving window
         should not wait for (its launches are counted, as every replay's).
         On the CPU run each bucket's step once with nothing live."""
-        for bucket in self.buckets:
-            for noise in (False, True):
-                if self.device.type != "cuda":
-                    self.step(bucket, noise, idle=True)
-                elif (bucket, noise) not in self._graphs:
-                    self._graphs[bucket, noise] = self._capture(bucket, noise)
-            if self.device.type != "cuda":
-                continue
+        for bucket in reversed(self.buckets):  # the largest first, as PrefillGraph.warm
+            # the buffers hold the last bucket's window in its own layout:
+            # this bucket's window with nothing live goes in first, so the
+            # capture's warm-up and the replay read it in this one's
             self.upload(bucket, self._idle_arrays(bucket),
                         self.planner.plan(np.zeros((bucket // self.tb,), np.int32))
                         if self.planner else None)
             for noise in (False, True):
-                graph, launches = self._graphs[bucket, noise]
-                graph.replay()
-                _add_counts(launches)
+                if self.device.type != "cuda":
+                    self.step(bucket, noise, idle=True)
+                elif (bucket, noise) not in self._graphs:
+                    self._capture((bucket, noise), *self._steps(bucket, noise))
+            if self.device.type != "cuda":
+                continue
+            for noise in (False, True):
+                self._launch((bucket, noise))
         self.warmed = True
 
     def _idle_arrays(self, bucket: int) -> dict[str, np.ndarray]:
@@ -579,19 +613,307 @@ class UnifiedGraph:
             "page_ord": np.zeros((ntb, self.page_slots), np.int32),
         }
 
-    def _capture(self, bucket: int, noise: bool) -> tuple[torch.cuda.CUDAGraph, dict]:
-        graph, launches, ms, mb = capture(
-            self.device, self.pool, lambda: self.step(bucket, noise, idle=True),
-            lambda: self.step(bucket, noise))
-        self.capture_ms[bucket] = self.capture_ms.get(bucket, 0.0) + ms
-        self.pool_mb += mb
-        return graph, launches
+    def _steps(self, bucket: int, noise: bool):
+        return (lambda: self.step(bucket, noise, idle=True)), (lambda: self.step(bucket, noise))
+
+    def _capture(self, key, idle, live) -> None:
+        before = self.capture_ms
+        super()._capture(key, idle, live)
+        bucket = key[0]
+        self.bucket_capture_ms[bucket] = (self.bucket_capture_ms.get(bucket, 0.0)
+                                          + self.capture_ms - before)
+
+
+class PrefillGraph(StepGraphs):
+    """The split prefill step as one CUDA graph per key, as the reference
+    compiles one program per key (dynamo_tpu/engine/engine.py
+    ``_build_prefill``, ``_build_prefill_prefix``, warmed by
+    ``aot_precompile``): ``("prefill", b)``, a whole prompt padded to the
+    bucket ``b`` over a block table ``max_blocks_per_seq`` wide, and
+    ``("prefix", b, table_len)``, a window of ``b`` tokens over a resident
+    prefix, its full and tail block tables ``table_len`` wide.
+
+    A key's inputs sit in one ``Staged`` buffer laid out per key: the
+    window's token ids, its block ids, the valid length, the prefix length,
+    the key fold, the lane, the sample gate, the lane's prompt and generated
+    count rows, its raw key, sampling parameters and logit-bias row.  The
+    step is the family's forward (lengths as 0-d tensors: nothing is read
+    on the host) and the sampling tail: the lane's counts reseeded, the
+    penalties, the bias, the sample with the key folded on the device, the
+    gated count add.  The step always draws the lane's noise (one row: a
+    greedy lane's sample ignores it), so a key has one graph, not one a
+    noise variant as the many-lane windows do.  Token and logprob land in
+    one persistent buffer, read back once.  Replayed on a CUDA device
+    (captured at first use, or by ``warm``), run eagerly from the same
+    buffers on the CPU and, on the card, where the lane wants top
+    logprobs.  The graphs share the decode graphs' memory pool
+    (``UnifiedGraph`` says why that is safe)."""
+
+    name = "prefill"
+
+    def __init__(self, engine, keys: list[tuple], pool=None):
+        super().__init__(engine.device, pool)
+        self.engine = engine
+        cfg = engine.config
+        dev = self.device
+        self.lanes = cfg.max_batch_size
+        self.keys = list(keys)
+        vocab, kb = cfg.model.vocab_size, cfg.logit_bias_k
+
+        def fields(key: tuple) -> dict:
+            out = {"token_ids": ((key[1],), np.int32)}
+            if key[0] == "prefill":
+                out["block_ids"] = ((engine.max_blocks_per_seq,), np.int32)
+            else:
+                out["full_ids"] = out["tail_ids"] = ((key[2],), np.int32)
+            return {**out, "seq_len": ((), np.int32), "start_pos": ((), np.int32),
+                    "fold": ((), np.int32), "lane": ((), np.int32), "gate": ((), np.int32),
+                    "prompt": ((vocab,), np.int32), "gen": ((vocab,), np.int32),
+                    "key": ((1, 2), np.int64), "temp": ((1,), np.float32),
+                    "top_k": ((1,), np.int32), "top_p": ((1,), np.float32),
+                    "greedy": ((1,), np.bool_), "pres": ((1,), np.float32),
+                    "freq": ((1,), np.float32), "rep": ((1,), np.float32),
+                    "bias_ids": ((1, kb), np.int32), "bias_vals": ((1, kb), np.float32)}
+
+        self.inputs = Staged(dev, variants={key: fields(key) for key in self.keys})
+        # the sampled token and its logprob's bits: one readback
+        self.out = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.deferred: set[tuple] = set()  # keys warm() left to their first use
+        # a window with nothing valid and no lane, for the capture's warm-up
+        self._idle_len = torch.zeros((), dtype=torch.int32, device=dev)
+        self._idle_lane = torch.full((), self.lanes, dtype=torch.int32, device=dev)
+
+    def upload(self, key: tuple, arrays: dict[str, np.ndarray]) -> None:
+        self.inputs.upload(arrays, key)
+
+    def step(self, key: tuple, top: int = 0, idle: bool = False):
+        """One split prefill of ``key``, eagerly, from the buffers; ``idle``:
+        no valid token and no lane (the capture's warm-up: it changes no
+        cache slot or count).  Returns the ``top`` best logprobs ([1, k]
+        values and ids) or None."""
+        e = self.engine
+        v = self.inputs.view(key)
+        seq_len, lane, gate = v["seq_len"], v["lane"], v["gate"]
+        if idle:
+            seq_len, lane, gate = self._idle_len, self._idle_lane, self._idle_len
+        if key[0] == "prefill":
+            logits, _ = e.family.forward_prefill(
+                e.params, e.config.model, v["token_ids"], e.cache, v["block_ids"], seq_len, 0,
+                e.cos, e.sin)
+        else:
+            logits, _ = e.family.forward_prefill_with_prefix(
+                e.params, e.config.model, v["token_ids"], e.cache, v["full_ids"],
+                v["tail_ids"], seq_len, v["start_pos"], e.cos, e.sin)
+        # reseed the lane's penalty counts, then sample its one row
+        hit = (e._lane_idx == lane)[:, None]
+        e._prompt_counts.copy_(torch.where(hit, v["prompt"], e._prompt_counts))
+        e._gen_counts.copy_(torch.where(hit, v["gen"], e._gen_counts))
+        logits = apply_penalties(logits[None], v["gen"][None], v["prompt"][None],
+                                 v["pres"], v["freq"], v["rep"])
+        logits = apply_logit_bias(logits, v["bias_ids"], v["bias_vals"])
+        vocab = logits.shape[-1]
+        draw = gumbel(fold_in(v["key"], v["fold"].long().reshape(1)), vocab)
+        tokens = sample_tokens(logits, draw, v["temp"], v["top_k"], v["top_p"], v["greedy"])
+        lps = token_logprobs(logits, tokens)
+        best = topk_logprobs(logits, min(top, vocab)) if top else None
+        # a 0-d index would be read on the host: the lane goes in as [1]
+        e._gen_counts.index_put_((lane.clamp(max=self.lanes - 1).long().reshape(1), tokens.long()),
+                                 gate.reshape(1), accumulate=True)
+        self.out[0].copy_(tokens[0])
+        self.out[1].copy_(lps.view(torch.int32)[0])
+        return best
+
+    def result(self) -> tuple[int, float]:
+        """The last step's (token, logprob), read back."""
+        out = self.out.cpu().numpy()
+        return int(out[0]), float(out[1:].view(np.float32)[0])
+
+    def run(self, key: tuple) -> None:
+        """The step on this key's inputs: a graph replay on a CUDA device
+        (captured at first use), the eager step on the CPU."""
+        if self.device.type != "cuda":
+            self.step(key)
+            return
+        self._replay(key, *self._steps(key))
+
+    def warm(self, keys: list[tuple], budget: int | None = None) -> None:
+        """Capture each of ``keys``' graphs and replay each once on a window
+        with nothing valid, so a serving step neither captures nor uploads
+        one; on the CPU run each key's step once with nothing valid.  The
+        largest windows go first: the pool then holds the largest step's
+        memory and every later capture reuses it.  A key whose activations
+        (``key_bytes``) exceed ``budget`` bytes is left to its first use
+        (``deferred``); a later capture is counted apart."""
+        for key in sorted(keys, key=self.key_bytes, reverse=True):
+            if budget is not None and self.key_bytes(key) > budget:
+                self.deferred.add(key)
+                continue
+            # as UnifiedGraph.warm: the key's own idle window first
+            self.upload(key, self._idle_arrays(key))
+            if self.device.type != "cuda":
+                self.step(key, idle=True)
+                continue
+            if key not in self._graphs:
+                self._capture(key, *self._steps(key))
+            self._launch(key)
+        self.warmed = True
+
+    def key_bytes(self, key: tuple) -> int:
+        """An upper bound of what capturing ``key`` adds to the pool, by
+        the step's largest activation: four times the window's float32
+        attention scores (``heads x b x (b + prefix positions)``).  On the
+        card (``chip_smoke.py`` phases ``spec`` and ``longctx``) an eager
+        Llama-3-8B step peaks at 2.1 of them, a capture's pool holds 2.1
+        at 4096 positions and 3.1 at 8192 (blocks split off the first
+        step's segments), DeepSeek-V2-Lite's 3.6 (its scores are
+        concatenated before the softmax)."""
+        cfg = self.engine.config
+        keys = key[1] + (key[2] * cfg.block_size if key[0] == "prefix" else 0)
+        return 4 * cfg.model.num_heads * key[1] * keys * 4
 
     def stats(self) -> dict:
-        return {
-            "unified_graph_replays_total": self.replays,
-            "unified_graphs_captured": len(self._graphs),
-            "unified_graph_capture_ms": sum(self.capture_ms.values()),
-            "unified_graph_pool_mb": self.pool_mb,
-            "unified_graphs_captured_after_warmup": self.late_captures,
-        }
+        return super().stats() | {"prefill_graph_keys_deferred": len(self.deferred)}
+
+    def _idle_arrays(self, key: tuple) -> dict[str, np.ndarray]:
+        """Every input of ``key`` zero, but the lane out of range."""
+        arrays = {name: np.zeros(t.shape, np.dtype(_NUMPY_DTYPES[t.dtype]))
+                  for name, t in self.inputs.view(key).items()}
+        arrays["lane"] = np.asarray(self.lanes, np.int32)
+        return arrays
+
+    def _steps(self, key: tuple):
+        return (lambda: self.step(key, idle=True)), (lambda: self.step(key))
+
+
+class VerifyGraph(StepGraphs):
+    """The speculative verify step as one CUDA graph per noise, as the
+    reference compiles one verify program (``_build_verify``): the
+    ``[lanes, w]`` window token and cache slot matrices, the context and
+    base lengths and ``spec_ok`` in one ``Staged`` buffer; the block tables
+    and the sampling tail are ``DecodeGraph``'s.  The step is the family's
+    verify forward (its cache write sync-free: ``last_writer_rows``) and the
+    verify sampling tail: window position 0 through the full sampling
+    machinery with the noise of a plain decode step at the same context,
+    later positions greedy after penalties and bias, the leading-match
+    acceptance count, the accepted tokens' generated counts.  Tokens, the
+    acceptance counts and logprobs land in one persistent buffer, read
+    back once: the drafts and the emission need them, so the step stays
+    synchronous.  Replayed on a CUDA device, run eagerly on the CPU and,
+    on the card, where a lane wants top logprobs."""
+
+    name = "verify"
+
+    def __init__(self, engine, decode: DecodeGraph, pool=None):
+        super().__init__(engine.device, pool)
+        self.engine = engine
+        self.decode = decode
+        cfg = engine.config
+        dev = self.device
+        self.lanes = lanes = cfg.max_batch_size
+        self.w = w = cfg.spec_tokens + 1
+        self.inputs = Staged(dev, {
+            "tokens": ((lanes, w), np.int32),
+            "slots": ((lanes, w), np.int32),
+            "context_lens": ((lanes,), np.int32),
+            "base_lens": ((lanes,), np.int32),
+            "spec_ok": ((lanes,), np.bool_),
+        })
+        # per lane: w tokens, the acceptance count, w logprobs' bits
+        self.out = torch.zeros((lanes, 2 * w + 1), dtype=torch.int32, device=dev)
+        # every lane idle, every slot out of range: the capture's warm-up
+        oob = cfg.num_blocks * cfg.block_size
+        self._idle_lens = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        self._idle_slots = torch.full((lanes, w), oob, dtype=torch.int32, device=dev)
+
+    def step(self, noise: bool, top: int = 0, idle: bool = False):
+        """One verify window, eagerly, from the buffers; ``idle``: every
+        lane idle (it changes no cache slot or count).  Returns the ``top``
+        best logprobs ([lanes, w, k] values and ids) or None."""
+        e, d = self.engine, self.decode
+        v = self.inputs.views
+        ctx, slots = v["context_lens"], v["slots"]
+        if idle:
+            ctx, slots = self._idle_lens, self._idle_slots
+        token_mat = v["tokens"]
+        logits, _ = e.family.forward_verify(
+            e.params, e.config.model, token_mat, e.cache, d.tables["tables"], ctx, slots,
+            e.cos, e.sin)  # [lanes, w, vocab]
+        lanes, w, vocab = logits.shape
+        t = d.tail.views
+        if noise:  # a plain decode step's draw at the same context
+            draw = gumbel(fold_in(t["keys"], v["base_lens"].long()), vocab) * t["sampled"][:, None]
+        else:
+            draw = logits.new_zeros(())
+        outs, lps, tops = [], [], []
+        for i in range(w):
+            li = apply_penalties(logits[:, i], e._gen_counts, e._prompt_counts,
+                                 t["pres"], t["freq"], t["rep"])
+            li = apply_logit_bias(li, t["bias_ids"], t["bias_vals"])
+            if i == 0:
+                ti = sample_tokens(li, draw, t["temp"], t["top_k"], t["top_p"], t["greedy"])
+            else:
+                ti = torch.argmax(li, dim=-1).to(torch.int32)
+            outs.append(ti)
+            lps.append(token_logprobs(li, ti))
+            if top:
+                tops.append(topk_logprobs(li, min(top, vocab)))
+        tokens = torch.stack(outs, dim=1)
+        # leading-match acceptance: window token i is kept iff every earlier
+        # draft matched and it equals the model's output at position i - 1
+        active = ctx > 0
+        acc = v["spec_ok"] & active
+        n_accept = active.to(torch.int32)
+        for i in range(1, w):
+            acc = acc & (token_mat[:, i] == tokens[:, i - 1])
+            n_accept = n_accept + acc.to(torch.int32)
+        # generated counts of the accepted tokens only (a row may repeat an id)
+        take = (torch.arange(w, device=ctx.device)[None, :] < n_accept[:, None]) & active[:, None]
+        e._gen_counts.index_put_(
+            (e._lane_idx[:, None].expand(lanes, w), tokens.long()),
+            take.to(torch.int32), accumulate=True,
+        )
+        self.out[:, :w].copy_(tokens)
+        self.out[:, w].copy_(n_accept)
+        self.out[:, w + 1:].copy_(torch.stack(lps, dim=1).view(torch.int32))
+        if not tops:
+            return None
+        return (torch.stack([vals for vals, _ in tops], dim=1),
+                torch.stack([ids for _, ids in tops], dim=1))
+
+    def result(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The last window's (tokens [lanes, w], acceptance counts [lanes],
+        logprobs [lanes, w]), read back."""
+        out = self.out.cpu().numpy()
+        w = self.w
+        return out[:, :w], out[:, w], np.ascontiguousarray(out[:, w + 1:]).view(np.float32)
+
+    def run(self, noise: bool) -> None:
+        """The window on this window's inputs: a graph replay on a CUDA
+        device (captured at first use), the eager step on the CPU."""
+        if self.device.type != "cuda":
+            self.step(noise)
+            return
+        self._replay(noise, *self._steps(noise))
+
+    def warm(self) -> None:
+        """Capture both graphs and replay each once with every lane idle;
+        on the CPU run the step once each with every lane idle."""
+        lanes, w = self.lanes, self.w
+        self.inputs.upload({
+            "tokens": np.zeros((lanes, w), np.int32),
+            "slots": self._idle_slots.cpu().numpy(),
+            "context_lens": np.zeros((lanes,), np.int32),
+            "base_lens": np.zeros((lanes,), np.int32),
+            "spec_ok": np.zeros((lanes,), np.bool_),
+        })
+        for noise in (False, True):
+            if self.device.type != "cuda":
+                self.step(noise, idle=True)
+                continue
+            if noise not in self._graphs:
+                self._capture(noise, *self._steps(noise))
+            self._launch(noise)
+        self.warmed = True
+
+    def _steps(self, noise: bool):
+        return (lambda: self.step(noise, idle=True)), (lambda: self.step(noise))

@@ -44,10 +44,10 @@ from dynamo_tpu_torch.ops.attention import (
     alloc_cache_leaf,
     cache_rows,
     cache_take,
-    last_writer_slots,
+    last_valid_row,
+    last_writer_rows,
     position_major_to_batch,
     slot_rows,
-    write_decode_kv,
     write_prefill_kv,
     write_rows,
 )
@@ -376,20 +376,20 @@ def _split_q(w, x, cfg: DeepseekConfig, positions, cos, sin):
 
 def _chunk_scores(w, cfg: DeepseekConfig, q_nope, q_rope, c_kv, k_rope, valid_len):
     """Dense causal scores [H, s, s] of a prefill chunk against its own
-    decompressed keys (float32, masked past ``valid_len``), and the chunk's
-    decompressed values [s, H, v]."""
+    decompressed keys (float32, masked past ``valid_len``, a 0-d tensor or
+    an int), and the chunk's decompressed values [s, H, v]."""
     s = q_nope.shape[0]
     H = cfg.num_heads
     w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
     w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
     k_nope = torch.einsum("tr,rhn->thn", c_kv, w_uk)     # model dtype, as the reference
     v = torch.einsum("tr,rhv->thv", c_kv, w_uv)
-    logits = (
-        torch.einsum("qhn,khn->hqk", q_nope.float(), k_nope.float())
-        + torch.einsum("qhp,kp->hqk", q_rope.float(), k_rope.float())
-    ) * cfg.attn_scale
+    # the sum and the scale in place: the same values, one [H, s, s] fewer
+    logits = torch.einsum("qhn,khn->hqk", q_nope.float(), k_nope.float())
+    logits.add_(torch.einsum("qhp,kp->hqk", q_rope.float(), k_rope.float()))
+    logits.mul_(cfg.attn_scale)
     pos = torch.arange(s, device=q_nope.device)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < int(valid_len))
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < valid_len)
     return logits.masked_fill_(~mask[None], NEG_INF), v
 
 
@@ -431,15 +431,16 @@ def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len
     w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
     w_uv = w["w_uv"].view(cfg.kv_lora_rank, H, cfg.v_head_dim)
     q_lat = torch.einsum("qhn,rhn->qhr", q_nope.float(), w_uk.float())
-    sp = (
-        torch.einsum("qhr,tr->hqt", q_lat, ck_pref)
-        + torch.einsum("qhp,tp->hqt", q_rope.float(), kr_pref)
-    ) * cfg.attn_scale
-    pref_valid = torch.arange(t_pref, device=x.device) < int(start_pos)
+    sp = torch.einsum("qhr,tr->hqt", q_lat, ck_pref)
+    sp.add_(torch.einsum("qhp,tp->hqt", q_rope.float(), kr_pref))
+    sp.mul_(cfg.attn_scale)
+    pref_valid = torch.arange(t_pref, device=x.device) < start_pos
     sp.masked_fill_(~pref_valid[None, None], NEG_INF)
     sc, v_chunk = _chunk_scores(w, cfg, q_nope, q_rope, c_kv, k_rope, tail_len)
-
-    weights = torch.softmax(torch.cat([sp, sc], dim=-1), dim=-1)   # [H, s, Tp + s]
+    scores = torch.cat([sp, sc], dim=-1)                           # [H, s, Tp + s]
+    del sp, sc
+    weights = torch.softmax(scores, dim=-1)
+    del scores
     wp, wc = weights[..., :t_pref], weights[..., t_pref:]
     ctx_lat = torch.einsum("hqt,tr->qhr", wp, ck_pref)
     out_pref = torch.einsum("qhr,rhv->qhv", ctx_lat, w_uv.float())
@@ -448,12 +449,12 @@ def _mla_prefill_attn_with_prefix(w, x, cfg: DeepseekConfig, positions, tail_len
 
 
 def _mla_window_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, block_tables,
-                     context_lens, flat_slots, live, cos, sin, b: int, w_len: int):
+                     context_lens, cache_views, rows, cos, sin, b: int, w_len: int):
     """Multi-query absorbed MLA attention for speculative verification:
     ``x`` is the position-major flat window [w*b, hidden]; every window
-    token writes its latent, then the window queries attend through the MLA
-    window kernel.  Returns the attention output, position-major [w*b,
-    hidden]."""
+    token writes its latent (into ``rows`` of the leaves' ``cache_views``),
+    then the window queries attend through the MLA window kernel.  Returns
+    the attention output, position-major [w*b, hidden]."""
     H = cfg.num_heads
     q = position_major_to_batch(_project_q(w, x, cfg), w_len, b, H, cfg.qk_head_dim)
     q_nope, q_rope = q[..., : cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
@@ -463,8 +464,8 @@ def _mla_window_attn(w, x, cfg: DeepseekConfig, positions, k_layer, v_layer, blo
         position_major_to_batch(k_rope, w_len, b, cfg.qk_rope_head_dim)[:, :, None, :],
         positions, cos, sin,
     )                                                                 # [b, w, 1, P]
-    write_decode_kv(k_layer, v_layer, c_kv[:, None, :],
-                    k_rope.transpose(0, 1).reshape(w_len * b, 1, -1), flat_slots, live)
+    write_rows(*cache_views, rows, c_kv[:, None, :],
+               k_rope.transpose(0, 1).reshape(w_len * b, 1, -1))
     w_uk = w["w_uk"].view(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
     q_lat = torch.einsum("bwhn,rhn->bwhr", q_nope.float(), w_uk.float())
     ck, kr = _latent_caches(k_layer, v_layer)
@@ -556,15 +557,16 @@ def deepseek_forward_prefill(
     token_ids: torch.Tensor,  # [seq_pad] int
     kv_cache: dict,
     block_ids: torch.Tensor,  # [max_blocks] int
-    seq_len: int,             # valid tokens
-    start_pos: int,           # absolute position of token 0
+    seq_len,                  # valid tokens
+    start_pos,                # absolute position of token 0
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> tuple[torch.Tensor, dict]:
     """Single-sequence prefill (the split prefill step).  Returns (the last
     valid token's logits [vocab] f32, cache); the cache is written in
     place.  The MoE layers route every token of the padded chunk, as the
-    reference does."""
+    reference does.  Lengths as in ``llama_forward_prefill``: 0-d int
+    tensors on the device (or ints), read nowhere on the host."""
     s = token_ids.shape[0]
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -574,8 +576,7 @@ def deepseek_forward_prefill(
                                  block_ids, cos, sin)
 
     x = _forward(params, cfg, x, kv_cache, attn)
-    last = x[max(int(seq_len) - 1, 0)]
-    return _logits(params, cfg, last[None])[0].float(), kv_cache
+    return _logits(params, cfg, last_valid_row(x, seq_len))[0].float(), kv_cache
 
 
 def deepseek_forward_prefill_with_prefix(
@@ -585,8 +586,8 @@ def deepseek_forward_prefill_with_prefix(
     kv_cache: dict,
     full_block_ids: torch.Tensor,  # [table_len] int — whole table (prefix + tail)
     tail_block_ids: torch.Tensor,  # [table_len] int — table from the first tail block
-    tail_len: int,                 # valid tail tokens
-    start_pos: int,                # resident prefix length (block-aligned)
+    tail_len,                      # valid tail tokens
+    start_pos,                     # resident prefix length (block-aligned)
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> tuple[torch.Tensor, dict]:
@@ -604,8 +605,7 @@ def deepseek_forward_prefill_with_prefix(
         )
 
     x = _forward(params, cfg, x, kv_cache, attn)
-    last = x[max(int(tail_len) - 1, 0)]
-    return _logits(params, cfg, last[None])[0].float(), kv_cache
+    return _logits(params, cfg, last_valid_row(x, tail_len))[0].float(), kv_cache
 
 
 def deepseek_forward_verify(
@@ -628,13 +628,12 @@ def deepseek_forward_verify(
     positions = table_positions(
         context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
     )  # [b, w]
-    flat_slots = slot_ids.t().reshape(-1)
-    k_all = kv_cache["k"]
-    live = last_writer_slots(flat_slots, k_all.shape[1] * k_all.shape[2])
+    views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
+    rows = last_writer_rows(slot_ids.t().reshape(-1), kv_cache["k"])
 
     def attn(w, attn_in, k_layer, v_layer, layer):
         return _mla_window_attn(w, attn_in, cfg, positions, k_layer, v_layer, block_tables,
-                                context_lens, flat_slots, live, cos, sin, b, w_len)
+                                context_lens, views, rows[layer], cos, sin, b, w_len)
 
     x = _forward(params, cfg, x, kv_cache, attn)
     logits = _logits(params, cfg, x).view(w_len, b, -1).transpose(0, 1)

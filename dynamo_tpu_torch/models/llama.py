@@ -17,6 +17,8 @@ wrappers in ``ops.kernels``: on a CUDA tensor they launch the hand-written
 kernels, on a CPU tensor they take the plain PyTorch versions in
 ``ops.attention``.  The split prefill forwards attend with the plain dense
 causal form everywhere, as the reference does outside any Pallas kernel.
+No forward reads a length on the host, so the engine captures each as a
+CUDA graph (``engine/graphs.py``).
 """
 
 from __future__ import annotations
@@ -36,10 +38,10 @@ from dynamo_tpu_torch.ops.attention import (
     cache_rows,
     dense_causal_attention,
     gather_prefix_kv,
-    last_writer_slots,
+    last_valid_row,
+    last_writer_rows,
     prefill_attention_with_prefix,
     slot_rows,
-    write_decode_kv,
     write_prefill_kv,
     write_rows,
 )
@@ -311,20 +313,23 @@ def llama_forward_prefill(
     token_ids: torch.Tensor,  # [seq_pad] int
     kv_cache: dict,           # {"k","v"}: [L, N, bs, kvh, d]
     block_ids: torch.Tensor,  # [max_blocks] int
-    seq_len: int,             # valid tokens
-    start_pos: int,           # absolute position of token 0
+    seq_len,                  # valid tokens
+    start_pos,                # absolute position of token 0
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> tuple[torch.Tensor, dict]:
     """Single-sequence prefill (the split prefill step).  Returns (the last
     valid token's logits [vocab] f32, cache); the cache is written in
     place.  Attention is the plain dense causal form in float32, as the
-    reference computes it outside any Pallas kernel."""
+    reference computes it outside any Pallas kernel.  ``seq_len`` and
+    ``start_pos`` are 0-d int tensors on the device (or ints): no length is
+    read on the host (a captured step), and the pad rows write the dump row
+    past the cache leaf."""
     s = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    lens = torch.tensor([seq_len], device=x.device)
+    lens = torch.as_tensor(seq_len, device=x.device).reshape(1)
     for i, w in _layers(params):
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(attn_in, w, cfg)
@@ -337,8 +342,7 @@ def llama_forward_prefill(
             )[0]
         x = _residual_block(x, attn.reshape(s, -1), w, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    last = x[max(int(seq_len) - 1, 0)]
-    return _logits(params, cfg, last[None])[0].float(), kv_cache
+    return _logits(params, cfg, last_valid_row(x, seq_len))[0].float(), kv_cache
 
 
 def llama_forward_prefill_with_prefix(
@@ -348,8 +352,8 @@ def llama_forward_prefill_with_prefix(
     kv_cache: dict,
     full_block_ids: torch.Tensor,  # [table_len] int — whole table (prefix + tail)
     tail_block_ids: torch.Tensor,  # [table_len] int — table from the first tail block
-    tail_len: int,                 # valid tail tokens
-    start_pos: int,                # resident prefix length (block-aligned)
+    tail_len,                      # valid tail tokens
+    start_pos,                     # resident prefix length (block-aligned)
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> tuple[torch.Tensor, dict]:
@@ -357,7 +361,7 @@ def llama_forward_prefill_with_prefix(
     later chunk of a chunked prefill): the tail's queries attend to the
     prefix K/V read from the paged cache plus themselves, and only the
     tail's K/V are written.  Returns (last tail token's logits [vocab] f32,
-    cache)."""
+    cache).  Lengths as in ``llama_forward_prefill``."""
     s = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -377,8 +381,7 @@ def llama_forward_prefill_with_prefix(
             )
         x = _residual_block(x, attn.reshape(s, -1), w, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    last = x[max(int(tail_len) - 1, 0)]
-    return _logits(params, cfg, last[None])[0].float(), kv_cache
+    return _logits(params, cfg, last_valid_row(x, tail_len))[0].float(), kv_cache
 
 
 def check_verify_width(cfg: LlamaConfig, w: int) -> None:
@@ -400,24 +403,25 @@ def llama_forward_verify(
 ) -> tuple[torch.Tensor, dict]:
     """Speculative verification: score all w window positions in one pass
     (logits [batch, w, vocab] f32).  The whole window's K/V is written like
-    decode (a slot named twice keeps its last position, as the reference's
-    scatter does); attention is the paged window kernel at W = w — on a
-    CPU tensor its plain version."""
+    decode, sync-free (a slot named twice keeps its last position, as the
+    reference's scatter does; pads and idle lanes write the dump row);
+    attention is the paged window kernel at W = w — on a CPU tensor its
+    plain version."""
     b, w_len = token_ids.shape
     x = _embed(params, cfg, token_ids.reshape(-1))  # [b*w, hidden], batch-major
     positions = table_positions(
         context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
     )  # [b, w]
-    flat_slots = slot_ids.reshape(-1)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    live = last_writer_slots(flat_slots, k_all.shape[1] * k_all.shape[2])
+    k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
+    rows = last_writer_rows(slot_ids.reshape(-1), k_all)
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for i, w in _layers(params):
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(attn_in, w, cfg)
         q = apply_rope(q.view(b, w_len, h, d), positions, cos, sin)
         k = apply_rope(k.view(b, w_len, kvh, d), positions, cos, sin)
-        write_decode_kv(k_all[i], v_all[i], k.reshape(b * w_len, kvh, d), v, flat_slots, live)
+        write_rows(k_rows, v_rows, rows[i], k.reshape(b * w_len, kvh, d), v)
         attn = paged_window_attention_decode(
             q, k_all[i], v_all[i], block_tables, context_lens,
             sliding_window=cfg.sliding_window,

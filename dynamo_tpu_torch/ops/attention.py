@@ -76,8 +76,8 @@ def live_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
     reference drops them in its scatter (``mode="drop"``), while a torch
     index out of range raises and a negative one wraps — so they are masked
     here.  On a CUDA tensor this synchronizes with the host once: the
-    decode and unified forwards write through ``slot_rows`` instead, and
-    only the synchronous verify step (``last_writer_slots``) keeps it."""
+    engine's forwards write through ``slot_rows`` and ``last_writer_rows``
+    instead."""
     valid = (slot_ids >= 0) & (slot_ids < num_slots)
     return torch.nonzero(valid).squeeze(1)
 
@@ -134,22 +134,41 @@ def write_rows(k_rows: torch.Tensor, v_rows: torch.Tensor, rows: torch.Tensor,
     _put_rows(v_rows, rows, v_new)
 
 
-def last_writer_slots(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """``live_slots`` for a write that may name one slot more than once (a
+def last_writer_rows(slot_ids: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``slot_rows`` for a write that may name one slot more than once (a
     verify window clamped at the engine's last position): of the entries
-    naming the same slot only the LAST is kept, the order the reference's
-    scatter writes in.  ``index_copy_`` with repeated indices leaves the
-    winner unspecified on a CUDA tensor; with this list each slot is
-    written once."""
-    live = live_slots(slot_ids, num_slots)
-    slots = slot_ids.index_select(0, live)
-    uniq, inverse = torch.unique(slots, return_inverse=True)
-    if uniq.numel() == slots.numel():
-        return live
-    order = torch.arange(slots.numel(), device=slots.device)
-    last = torch.full((uniq.numel(),), -1, dtype=order.dtype, device=slots.device)
-    last = last.scatter_reduce(0, inverse, order, reduce="amax")
-    return live.index_select(0, last)
+    naming the same slot only the LAST writes it, the order the reference's
+    scatter writes in; the others write the dump row.  ``index_copy_`` with
+    repeated live rows leaves the winner unspecified on a CUDA tensor.
+    Chosen on the device (an ``n x n`` comparison of the window's slots), so
+    a captured verify step holds it."""
+    rows = slot_rows(slot_ids, leaf)
+    slots = slot_ids.long()
+    n = slots.numel()
+    later = torch.ones((n, n), dtype=torch.bool, device=slots.device).triu(1)
+    shadowed = ((slots[:, None] == slots[None, :]) & later).any(dim=1)
+    dump = leaf.shape[0] * leaf.shape[1] * leaf.shape[2]
+    return torch.where(shadowed[None, :], dump, rows)
+
+
+def layer_rows(layer: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """One layer ``[N, bs, *row]`` of a cache leaf made by
+    ``alloc_cache_leaf`` as rows from its first slot to the dump row past
+    the leaf: ``((L - l) * N * bs + 1, *row)``, and the dump row's index.
+    Raises for a layer whose storage does not end one row past a whole
+    number of layers (a leaf made without the dump row)."""
+    row_shape = tuple(layer.shape[2:])
+    row = math.prod(row_shape)
+    per_layer = layer.shape[0] * layer.shape[1] * row
+    past = layer.untyped_storage().nbytes() // layer.element_size() - layer.storage_offset()
+    if not layer.is_contiguous() or past < per_layer + row or (past - row) % per_layer:
+        raise ValueError(
+            "cache layer has no dump row past its leaf: make the leaf with "
+            "alloc_cache_leaf (the families' init_kv_cache do)"
+        )
+    n = past // row
+    return (layer.as_strided((n, *row_shape), (row, *layer.stride()[2:]),
+                             layer.storage_offset()), n - 1)
 
 
 def write_prefill_kv(
@@ -158,17 +177,31 @@ def write_prefill_kv(
     k_new: torch.Tensor,     # [seq_pad, kv_heads, head_dim]
     v_new: torch.Tensor,
     block_ids: torch.Tensor,  # [max_blocks] int, padded with any value
-    seq_len: int,             # valid tokens (the rest is padding, dropped)
+    seq_len,                  # valid tokens (the rest is padding, dropped):
+                              # a 0-d int tensor on the device, or an int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter a prefilled sequence's first ``seq_len`` K/V rows into its
-    blocks, in place (token i to slot ``block_ids[i // bs] * bs + i % bs``)."""
-    num_blocks, block_size = k_cache.shape[:2]
-    n = num_blocks * block_size
-    idx = torch.arange(int(seq_len), device=k_new.device)
-    slots = block_ids.to(k_new.device).long()[idx // block_size] * block_size + idx % block_size
-    _put_rows(k_cache.view(n, *k_cache.shape[2:]), slots, k_new[: idx.numel()])
-    _put_rows(v_cache.view(n, *v_cache.shape[2:]), slots, v_new[: idx.numel()])
+    blocks, in place (token i to slot ``block_ids[i // bs] * bs + i % bs``).
+    Every row is written, so no length is read on the host (a captured
+    step): the pad rows go to the dump row past the leaf (``layer_rows``),
+    as the reference's ``mode="drop"`` scatter drops them, never into a
+    live slot."""
+    block_size = k_cache.shape[1]
+    idx = torch.arange(k_new.shape[0], device=k_new.device)
+    ids = block_ids.to(k_new.device).long()
+    slots = ids[(idx // block_size).clamp(max=ids.numel() - 1)] * block_size + idx % block_size
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        rows, dump = layer_rows(cache)
+        _put_rows(rows, torch.where(idx < seq_len, slots, dump), new)
     return k_cache, v_cache
+
+
+def last_valid_row(x: torch.Tensor, n) -> torch.Tensor:
+    """Row ``max(n - 1, 0)`` of ``x`` as ``[1, ...]``: the last valid token
+    of a padded prefill window, picked on the device (``n`` a 0-d int
+    tensor, or an int)."""
+    n = torch.as_tensor(n, device=x.device)
+    return x.index_select(0, (n - 1).clamp(min=0).reshape(1).long())
 
 
 def write_decode_kv(
@@ -219,18 +252,22 @@ def dense_causal_attention(
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d).float()
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * _scale(d)
+    # scores [b, kvh, q, g, s]: the layout both products read without a
+    # copy.  At a 4096-token prompt they are 2 GiB a layer, so the scale and
+    # the mask go in place and the scores die before the second product:
+    # two such tensors at the peak, not three
+    logits = torch.einsum("bqkgd,bskd->bkqgs", qg, k.float()).mul_(_scale(d))
     pos = torch.arange(s, device=q.device)
     causal = pos[None, :] <= pos[:, None]  # [q, s]
     if sliding_window is not None:
         causal = _window_mask(causal, pos[:, None] - pos[None, :], sliding_window)
-    mask = causal[None, None, None]
+    mask = causal[None, None, :, None]
     if seq_len is not None:
         valid = pos[None, :] < seq_len.to(q.device)[:, None]  # [b, s]
         mask = mask & valid[:, None, None, None, :]
-    # in place: at a 4096-token prompt the scores are 2 GB a layer
     weights = torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v.float())
+    del logits
+    out = torch.einsum("bkqgs,bskd->bqkgd", weights, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
@@ -468,8 +505,8 @@ def prefill_attention_with_prefix(
     v_new: torch.Tensor,
     k_prefix: torch.Tensor,  # [prefix_pad, kv_heads, head_dim] (gathered pages)
     v_prefix: torch.Tensor,
-    prefix_len: int,         # valid prefix tokens
-    seq_len: int,            # valid new tokens
+    prefix_len,              # valid prefix tokens (int or 0-d tensor)
+    seq_len,                 # valid new tokens (int or 0-d tensor)
     *,
     sliding_window=None,
 ) -> torch.Tensor:
@@ -482,7 +519,9 @@ def prefill_attention_with_prefix(
     k = torch.cat([k_prefix.float(), k_new.float()], dim=0)
     v = torch.cat([v_prefix.float(), v_new.float()], dim=0)
     qg = q.reshape(s, kvh, h // kvh, d).float()
-    logits = torch.einsum("qkgd,lkd->kgql", qg, k) * _scale(d)
+    # scores [kvh, q, g, p + s], scaled and masked in place, dead before the
+    # second product (as in dense_causal_attention)
+    logits = torch.einsum("qkgd,lkd->kqgl", qg, k).mul_(_scale(d))
     dev = q.device
     q_pos = prefix_len + torch.arange(s, device=dev)
     kv_idx = torch.arange(p + s, device=dev)
@@ -494,6 +533,7 @@ def prefill_attention_with_prefix(
     if sliding_window is not None:
         causal = _window_mask(causal, q_pos[:, None] - kv_abs[None, :], sliding_window)
     mask = causal & kv_valid[None, :]
-    weights = torch.softmax(logits.masked_fill_(~mask[None, None], NEG_INF), dim=-1)
-    out = torch.einsum("kgql,lkd->qkgd", weights, v)
+    weights = torch.softmax(logits.masked_fill_(~mask[None, :, None], NEG_INF), dim=-1)
+    del logits
+    out = torch.einsum("kqgl,lkd->qkgd", weights, v)
     return out.reshape(s, h, d).to(q.dtype)

@@ -78,6 +78,7 @@ async def serve_http(
     host: str = "0.0.0.0",
     port: int = 8080,
     device=None,
+    warmup_prompt_lens=None,
     **engine_overrides,
 ) -> HttpHandle:
     """Start the engine and an OpenAI HTTP frontend over it, in process.
@@ -86,14 +87,17 @@ async def serve_http(
     mount of a remote KV store, run off the event loop.  Every serving
     graph is captured (``TorchLlmEngine.warmup``) before the frontend takes
     a request, as the reference warms before its model registers: the first
-    request pays no capture."""
+    request pays no capture.  ``warmup_prompt_lens`` (the prompt lengths the
+    traffic brings) warms the split prefill's keys of those lengths alone,
+    as the reference's ``aot_precompile(prompt_lens)``; by default every
+    key whose activations fit the free device memory is warmed."""
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     engine = await asyncio.to_thread(
         build_torch_engine, model_dir, mdc, device=device, **engine_overrides
     )
     engine.start()
     try:
-        await engine.warmup()
+        await engine.warmup(warmup_prompt_lens)
     except BaseException:
         engine.stop()
         raise

@@ -4,9 +4,9 @@ the CPU in float32:
   leaf) against the old ``live_slots`` write: the same cache on every live
   slot, no live slot written by a pad, a live write at slot 0 among pads;
 - the sampling tail on the device (``DecodeGraph.sample``: the threefry
-  fold and Gumbel draw inside the step, greedy lanes masked) against the
-  host draw of the synchronous steps: equal noise bits, tokens, logprobs
-  and generated counts;
+  fold and Gumbel draw inside the step, greedy lanes masked) against a
+  draw on the host from the engine's host keys: equal noise bits, tokens,
+  logprobs and generated counts;
 - the step ``DecodeGraph`` captures on a card, driven the way a replay
   drives it (inputs written into its persistent buffers in place, then
   run; twice, the second window fed back from the first), against the
@@ -124,15 +124,27 @@ def seeded_tail(engine, rng) -> list[Sequence]:
     return seqs
 
 
+def host_noise(engine, seqs, fold_lens, vocab: int) -> torch.Tensor:
+    """[lanes, vocab] Gumbel noise drawn on the host: each sampled lane's
+    key (the engine's host copy) folded with its ``fold_lens`` entry, zero
+    rows for greedy and idle lanes."""
+    noise = torch.zeros((engine.config.max_batch_size, vocab), dtype=torch.float32)
+    lanes = [s.lane for s in seqs if engine._sampled(s)]
+    if lanes:
+        keys = torch.from_numpy(engine._lane_keys[lanes].astype(np.int64))
+        folds = torch.from_numpy(np.asarray(fold_lens)[lanes].astype(np.int64))
+        noise[lanes] = gumbel(fold_in(keys, folds), vocab)
+    return noise
+
+
 def host_tail(engine, seqs, logits, lens, gate):
-    """The synchronous steps' sampling tail: host arrays, host noise."""
+    """The sampling tail on host arrays with host noise."""
     lanes = engine.config.max_batch_size
     temp, top_k, top_p, greedy, pres, freq, rep, bias_ids, bias_vals = (
         torch.from_numpy(a) for a in engine._sampling_arrays(seqs, [s.lane for s in seqs], lanes))
     logits = apply_penalties(logits, engine._gen_counts, engine._prompt_counts, pres, freq, rep)
     logits = apply_logit_bias(logits, bias_ids, bias_vals)
-    noise = engine._step_noise(seqs, [s.lane for s in seqs], lanes, lens.numpy(),
-                               logits.shape[-1])
+    noise = host_noise(engine, seqs, lens.numpy(), logits.shape[-1])
     tokens = sample_tokens(logits, noise, temp, top_k, top_p, greedy)
     lps = token_logprobs(logits, tokens)
     engine._gen_counts[engine._lane_idx, tokens.long()] += gate

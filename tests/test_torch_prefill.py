@@ -63,7 +63,9 @@ def test_write_prefill_kv_and_gather_prefix_match_reference():
     block_ids = np.array([5, 2, 9, 0, 0], np.int32)  # padded table
     ref_k, ref_v = jax_attn.write_prefill_kv(
         *(jnp.asarray(a) for a in (k_cache, v_cache, k_new, v_new, block_ids)), jnp.int32(9))
-    ours_k, ours_v = t(k_cache), t(v_cache)
+    # the port's leaves carry the dump row its pad rows write
+    ours_k, ours_v = (attn.alloc_cache_leaf((1, *a.shape), torch.float32, "cpu")[0].copy_(t(a))
+                      for a in (k_cache, v_cache))
     out = attn.write_prefill_kv(ours_k, ours_v, t(k_new), t(v_new), t(block_ids), 9)
     assert out[0] is ours_k  # in place
     np.testing.assert_array_equal(ours_k.numpy(), np.asarray(ref_k))

@@ -3,7 +3,7 @@ in float32 on the CPU:
 - the plain MLA window op against the reference's gather branch of
   _mla_window_attn and the Pallas window kernel in interpret mode (atol
   2e-5), with an idle lane, and at W=1 equal to the decode op;
-- last_writer_slots, the W cap of the GQA window kernel, the drafter;
+- last_writer_rows, the W cap of the GQA window kernel, the drafter;
 - the llama and DeepSeek verify forwards (logits and caches within 1e-4),
   including a window clamped at the engine's last position (one slot named
   twice) and, for DeepSeek, position-major MoE dispatch under a capacity
@@ -122,17 +122,23 @@ def test_mla_window_matches_reference_and_pallas(w, ctx):
 
 
 def test_last_writer_slots_keep_the_last_of_repeated_slots():
+    """``last_writer_rows``: of the entries naming one slot only the last
+    writes it, the rest and the pads write the dump row (64 here), chosen
+    on the device."""
     slots = torch.tensor([5, 9, 64, 9, 9, 2, 70, 5], dtype=torch.int32)
-    live = attn.last_writer_slots(slots, 64)
-    assert sorted(live.tolist()) == [4, 5, 7]  # 9 last at 4, 2 at 5, 5 last at 7
-    assert attn.last_writer_slots(torch.tensor([3, 1, 70], dtype=torch.int32), 64).tolist() == [0, 1]
+    leaf = attn.alloc_cache_leaf((1, 16, 4, 1, 2), torch.float32, "cpu")
+    rows = attn.last_writer_rows(slots, leaf)
+    # 9 last at 4, 2 at 5, 5 last at 7
+    assert rows.tolist() == [[64, 64, 64, 64, 9, 2, 64, 5]]
+    assert attn.last_writer_rows(torch.tensor([3, 1, 70], dtype=torch.int32),
+                                 leaf).tolist() == [[3, 1, 64]]
     # the write then gives the reference's scatter result
-    rows = torch.arange(8, dtype=torch.float32)[:, None, None].expand(8, 1, 2).contiguous()
-    cache = torch.zeros((16, 4, 1, 2))
-    attn.write_decode_kv(cache, cache.clone(), rows, rows, slots, live)
+    vals = torch.arange(8, dtype=torch.float32)[:, None, None].expand(8, 1, 2).contiguous()
+    other = attn.alloc_cache_leaf((1, 16, 4, 1, 2), torch.float32, "cpu")
+    attn.write_rows(attn.cache_rows(leaf), attn.cache_rows(other), rows[0], vals, vals)
     ref = jnp.zeros((64, 1, 2)).at[jnp.asarray(slots.numpy())].set(
-        jnp.asarray(rows.numpy()), mode="drop")
-    np.testing.assert_array_equal(cache.view(64, 1, 2).numpy(), np.asarray(ref))
+        jnp.asarray(vals.numpy()), mode="drop")
+    np.testing.assert_array_equal(leaf.view(64, 1, 2).numpy(), np.asarray(ref))
 
 
 def test_gqa_window_cap_names_spec_tokens():
