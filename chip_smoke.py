@@ -37,9 +37,10 @@ Phases (any failure exits non-zero, before the result line):
                call), and a call of each behind queued device work must
                return to the host within NO_SYNC_MS.
   3. tiny    — serve tests/data/tiny-chat-model with
-               ``python -m dynamo_tpu_torch.cli.run run in=http out=torch``
-               and check that greedy chat content is the token-counter
-               continuation its crafted weights produce.
+               ``python -m dynamo_tpu_torch.cli.run run in=http out=torch
+               --warmup`` (a worker and a frontend over the memory control
+               plane in one process) and check that greedy chat content is
+               the token-counter continuation its crafted weights produce.
   4. serve   — serve the Llama-3-8B geometry (random weights from a seed, on
                the card) over HTTP in this process with the default engine
                (decode overlapped, every decode window a CUDA graph replay):
@@ -47,12 +48,28 @@ Phases (any failure exits non-zero, before the result line):
                unified steps with prefill and decode-only steps both run; the
                kernels' launch counters are zeroed just before and read just
                after (a graph replay adds the launches its capture held).
-  5. mla     — the same over the DeepSeek-V2-Lite geometry (the published
+  5. dist    — the distributed path: the port's control-plane server in
+               this process, two worker processes (``python -m
+               dynamo_tpu_torch.cli.run run in=none out=torch --warmup
+               --control-plane ...``) at phase serve's geometry and seed,
+               the frontends (``serve_frontend``) in this process.  Phase
+               serve's traffic through one worker over TCP; each worker's
+               greedy ids for one prompt by direct routing (equal, and
+               equal to phase serve's engine's); 24 four-turn sessions
+               (768-token system prefixes, 64 user tokens a turn, 24
+               output tokens) through a KV-routed frontend, then a random
+               one, the caches flushed (``POST /clear_kv_blocks``) before
+               each: follow-up TTFT, the share of follow-ups on their
+               session's previous worker, each worker's prefix hits and
+               cached tokens (KV routing's must exceed random's); no graph
+               captured after warmup in either worker, both replaying
+               unified and decode graphs, the worker's kernels launched.
+  6. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  6. overlap — both configurations in process, all layers: the default
+  7. overlap — both configurations in process, all layers: the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -72,7 +89,7 @@ Phases (any failure exits non-zero, before the result line):
                the unified step skips (two admissions against one seed
                slot): its split prefill key captured once at first use,
                replayed the next time, the capture's ms and the pool.
-  7. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+  8. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
@@ -94,14 +111,14 @@ Phases (any failure exits non-zero, before the result line):
                512-token chunk's ms by replay and eagerly, and the window
                kernels' device ms a layer inside the graph beside their
                bound.
-  8. longctx — a speculative server of the Llama-3-8B geometry at its own
+  9. longctx — a speculative server of the Llama-3-8B geometry at its own
                context length (8192 positions, default warmup),
                all layers: warmup's captures, seconds and pool, a
                7000-token prompt and three short ones served with no
                capture after warmup, and the warmup budget's estimate
                (``PrefillGraph.key_bytes``) held above two keys' measured
                eager peaks.
-  9. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+ 10. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -110,12 +127,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
- 10. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 11. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 11. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 12. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -130,7 +147,7 @@ Phases (any failure exits non-zero, before the result line):
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8) at phase
                spec's geometry.
- 12. bench   — the headline benchmark (``python -m
+ 13. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
@@ -175,8 +192,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "mla", "overlap", "spec", "longctx", "offload",
-          "kvbm", "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "dist", "mla", "overlap", "spec", "longctx",
+          "offload", "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -1612,7 +1629,7 @@ def phase_tiny() -> dict:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "run", "in=http",
              "out=torch", "--model-path", str(model), "--port", str(port),
-             "--host", "127.0.0.1"],
+             "--host", "127.0.0.1", "--warmup"],
             cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log_file,
         )
     try:
@@ -1620,13 +1637,15 @@ def phase_tiny() -> dict:
         while True:
             if proc.poll() is not None:
                 raise RuntimeError(f"server exited: {server_log.read_text()[-2000:]}")
-            try:
-                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5):
-                    break
+            try:  # the frontend answers once the worker's model registered
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                    if json.loads(r.read())["models"]:
+                        break
             except OSError:
-                if time.time() > deadline:
-                    raise
-                time.sleep(0.5)
+                pass
+            if time.time() > deadline:
+                raise TimeoutError("the tiny model never registered")
+            time.sleep(0.5)
         body = {"model": "tiny-chat-model", "max_tokens": 12, "temperature": 0,
                 "messages": [{"role": "user", "content": "count on from here: abc"}]}
         status, resp = post(port, "/v1/chat/completions", body)
@@ -1816,13 +1835,38 @@ async def traced_pass(torch, session, port: int, model: str, short_prompts, trac
                                     "annotations")}
 
 
+async def serve_traffic(session, port: int, model: str, short_prompts) -> tuple[list, float]:
+    """The counted traffic: the short chats (64 tokens each), and the long
+    prompt (24 tokens) landing while they decode; (results, wall s)."""
+    t0 = time.perf_counter()
+    shorts = [asyncio.ensure_future(stream_chat(session, port, model, text, 64))
+              for text in short_prompts]
+    await asyncio.sleep(0.5)  # the long prompt lands while they decode
+    long = asyncio.ensure_future(stream_chat(session, port, model, LONG_PROMPT, 24))
+    results = await asyncio.gather(*shorts, long)
+    return results, time.perf_counter() - t0
+
+
+async def lone_chats(session, port: int, model: str, n: int = 5) -> dict:
+    """``n`` chats of 32 tokens one after another, each alone on the
+    engine: TTFT and ITL without queueing behind other requests."""
+    results = [await stream_chat(session, port, model, f"alone {i}: tell me", 32)
+               for i in range(n)]
+    ttft = [r["stamps"][0] - r["t0"] for r in results]
+    itl = [b - a for r in results for a, b in zip(r["stamps"], r["stamps"][1:])]
+    return {"ttft_ms": [x * 1e3 for x in ttft], "ttft_ms_p50": pctile(ttft, 0.5) * 1e3,
+            "itl_ms_p50": pctile(itl, 0.5) * 1e3, "itl_ms_p99": pctile(itl, 0.99) * 1e3}
+
+
 async def serve_model(model_dir: Path, model: str, *, overrides=None,
                       short_prompts=None, profile=True, inspect=None, clock=None,
-                      traced: str | None = None) -> dict:
+                      traced: str | None = None, probe: list[int] | None = None) -> dict:
     """Serve ``model_dir`` over HTTP in process and drive the counted
     traffic.  ``clock`` (``split_step_clock``'s lists) is emptied just before
     the counted run and read just after; ``traced`` (a directory) runs the
-    traffic once more under a trace (``traced_pass``)."""
+    traffic once more under a trace (``traced_pass``); ``probe`` (token ids)
+    is then sent alone to the engine, its greedy ids returned, and
+    ``lone_chats`` run."""
     import aiohttp
     import torch
 
@@ -1844,16 +1888,16 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
             for ms in (clock or {}).values():
                 ms.clear()
             zero_counters()
-            t0 = time.perf_counter()
-            shorts = [asyncio.ensure_future(stream_chat(s, port, model, text, 64))
-                      for text in short_prompts]
-            await asyncio.sleep(0.5)  # the long prompt lands while they decode
-            long = asyncio.ensure_future(stream_chat(s, port, model, LONG_PROMPT, 24))
-            results = await asyncio.gather(*shorts, long)
-            wall = time.perf_counter() - t0
+            results, wall = await serve_traffic(s, port, model, short_prompts)
             counts = read_counters()
             stats = handle.engine.stats()
             walls = clock_summary(clock) if clock is not None else None
+            probe_ids = lone = None
+            if probe is not None:  # alone on the engine, every lane free
+                await settled(handle.engine)
+                probe_ids = await generate_tokens(handle.engine, probe, PROBE_TOKENS)
+                await settled(handle.engine)
+                lone = await lone_chats(s, port, model)
             trace = (await traced_pass(torch, s, port, model, short_prompts, traced)
                      if traced is not None else None)
         # the counted run's share of the cumulative engine counters
@@ -1876,7 +1920,8 @@ async def serve_model(model_dir: Path, model: str, *, overrides=None,
         await handle.shutdown()
     return {"results": results, "wall_s": wall, "counts": counts,
             "stats": stats, "run": run, "load_s": load_s, "profile": prof,
-            "inspect": checked, "walls": walls, "trace": trace}
+            "inspect": checked, "walls": walls, "trace": trace, "probe_ids": probe_ids,
+            "lone": lone}
 
 
 def port_kernel_names() -> list[str]:
@@ -1954,14 +1999,11 @@ def model_dir(model: str, config: dict) -> Path:
     return build_dir
 
 
-def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw) -> dict:
-    """Serve ``config`` (random weights from seed 0, the tiny model's
-    tokenizer) over HTTP in this process, drive the counted traffic, check
-    it and that every counter of ``path`` launched, print its e2e (and
-    profile) lines."""
-    out = asyncio.run(serve_model(model_dir(model, config), model, **serve_kw))
+def traffic_e2e(tag: str, results: list[dict], wall_s: float) -> dict:
+    """Check that every streamed request of a counted run was a 200 with
+    the completion tokens it asked for; its TTFT, ITL and tok/s."""
     ttfts, itls, toks = [], [], 0
-    for r in out["results"]:
+    for r in results:
         usage = r["usage"] or {}
         log(f"[{tag}] status={r['status']} finish={r['finish']} usage={usage}")
         if r["status"] != 200:
@@ -1971,8 +2013,24 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
                                  f"!= {r['max_tokens']} / length")
         toks += usage["completion_tokens"]
         ttfts.append(r["stamps"][0] - r["t0"])
-        gaps = [b - a for a, b in zip(r["stamps"], r["stamps"][1:])]
-        itls.extend(gaps)
+        itls.extend(b - a for a, b in zip(r["stamps"], r["stamps"][1:]))
+    return {
+        "ttft_ms_mean": sum(ttfts) / len(ttfts) * 1e3,
+        "ttft_ms_max": max(ttfts) * 1e3,
+        "ttft_ms_p50": pctile(ttfts, 0.5) * 1e3, "ttft_ms_p99": pctile(ttfts, 0.99) * 1e3,
+        "itl_ms_mean": sum(itls) / len(itls) * 1e3,
+        "itl_ms_p50": pctile(itls, 0.5) * 1e3, "itl_ms_p99": pctile(itls, 0.99) * 1e3,
+        "output_tok_s": toks / wall_s, "requests": len(results), "wall_s": wall_s,
+    }
+
+
+def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw) -> dict:
+    """Serve ``config`` (random weights from seed 0, the tiny model's
+    tokenizer) over HTTP in this process, drive the counted traffic, check
+    it and that every counter of ``path`` launched, print its e2e (and
+    profile) lines."""
+    out = asyncio.run(serve_model(model_dir(model, config), model, **serve_kw))
+    e2e = traffic_e2e(tag, out["results"], out["wall_s"])
     counts = out["counts"]
     launched = {k: counts[k] for k in path}
     log(f"[{tag}] launches={launched} load_s={out['load_s']:.1f} run={out['run']} "
@@ -1985,23 +2043,367 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
     table = counts["mla_attention.decode_launches"] + counts["mla_attention.window_launches"]
     if counts["mla_attention.table_walk_launches"] != table:
         raise AssertionError(f"an MLA decode or window call missed the split table walk: {counts}")
-    e2e = {
-        "ttft_ms_mean": sum(ttfts) / len(ttfts) * 1e3,
-        "ttft_ms_max": max(ttfts) * 1e3,
-        "ttft_ms_p50": pctile(ttfts, 0.5) * 1e3, "ttft_ms_p99": pctile(ttfts, 0.99) * 1e3,
-        "itl_ms_mean": sum(itls) / len(itls) * 1e3,
-        "itl_ms_p50": pctile(itls, 0.5) * 1e3, "itl_ms_p99": pctile(itls, 0.99) * 1e3,
-        "output_tok_s": toks / out["wall_s"],
-        "requests": len(out["results"]), "wall_s": out["wall_s"],
-        "load_s": out["load_s"], "model": model, "card": card,
-    }
+    e2e.update(load_s=out["load_s"], model=model, card=card, lone=out["lone"])
     if out["profile"] is not None:
         print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
               flush=True)
     print(json.dumps({"smoke_e2e": e2e}), flush=True)
     return {"counts": counts, "launched": launched, "e2e": e2e, "run": out["run"],
             "stats": out["stats"], "profile": out["profile"], "inspect": out["inspect"],
-            "walls": out["walls"], "trace": out["trace"]}
+            "walls": out["walls"], "trace": out["trace"], "probe_ids": out["probe_ids"]}
+
+
+# ---------------------------------------------------------------------------
+# phase dist: the distributed serving path (control plane, workers, router)
+# ---------------------------------------------------------------------------
+
+# the greedy probe sent alone to phase serve's engine and to each worker
+PROBE_PROMPT = list(range(1000, 1100))
+PROBE_TOKENS = 16
+# multi-turn sessions for KV-aware against random routing (the reference's
+# bench.py _measure_kv_routing traffic): sessions start at the generator's
+# rate (3 a second), their think time compressed DIST_THINK_SPEEDUP x
+DIST_SESSIONS = dict(num_sessions=24, turns_per_session=4, system_tokens=768,
+                     user_tokens_per_turn=64, osl=24, seed=0)
+DIST_THINK_SPEEDUP = 10.0
+DIST_LAUNCH_S = 600
+
+
+def dist_worker_bytes(config: dict, engine: dict) -> int:
+    """What one Llama-geometry worker holds on the card: bf16 weights, the
+    paged cache, the unified graphs' pool (1.7 GB at Llama-3-8B on an H100) and
+    a CUDA context with its workspaces (about 1 GB)."""
+    h, layers, inter = config["hidden_size"], config["num_hidden_layers"], config["intermediate_size"]
+    heads, kv, d = config["num_attention_heads"], config["num_key_value_heads"], config["head_dim"]
+    per_layer = h * (heads * d) * 2 + h * (kv * d) * 2 + 3 * h * inter + 2 * h
+    weights = 2 * (layers * per_layer + 2 * config["vocab_size"] * h + h)
+    cache = 2 * 2 * layers * engine["num_blocks"] * 16 * kv * d
+    return weights + cache + int(1.7e9) + int(1e9)
+
+
+async def worker_stats(runtime, instance) -> dict:
+    """A worker's ingress stats and its engine's ``stats()`` (under
+    ``custom``), scraped over the bus."""
+    from dynamo_tpu_torch.runtime.component import stats_subject
+
+    raw = await runtime.plane.bus.request(stats_subject(instance.subject), b"", timeout=60)
+    return json.loads(raw)
+
+
+async def stream_completion(session, port: int, model: str, prompt: list[int],
+                            max_tokens: int) -> dict:
+    """A token-id completion, streamed; its status, usage and arrival
+    times, as ``stream_chat``."""
+    body = {"model": model, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True}}
+    t0 = time.perf_counter()
+    stamps, usage, finish = [], None, None
+    async with session.post(f"http://127.0.0.1:{port}/v1/completions", json=body) as r:
+        status = r.status
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                raise RuntimeError(chunk["error"])
+            usage = chunk.get("usage") or usage
+            for choice in chunk.get("choices", []):
+                stamps.append(time.perf_counter())
+                finish = choice.get("finish_reason") or finish
+    return {"status": status, "t0": t0, "stamps": stamps, "usage": usage,
+            "finish": finish, "max_tokens": max_tokens}
+
+
+async def run_sessions(session, port: int, model: str, sessions, served: list) -> dict:
+    """Replay the multi-turn sessions through one frontend.  A turn's prompt
+    is the session's history: its system tokens, every user turn, and after
+    each turn a stand-in for the assistant's reply (its ``osl`` ids, drawn
+    from the session's seed; the HTTP API returns text, and random weights'
+    text does not round-trip to ids).  ``served`` (filled by the dispatch
+    spy) says which worker took each request."""
+    served.clear()
+    t_start = time.perf_counter()
+    results = []
+
+    async def one(sess) -> None:
+        delay = sess.start_s - (time.perf_counter() - t_start)
+        if delay > 0:
+            await asyncio.sleep(delay)
+        rng = random.Random(1000 + sess.session_id)
+        history = list(sess.system_tokens)
+        for i, turn in enumerate(sess.turns):
+            if turn.arrival_gap_s:
+                await asyncio.sleep(turn.arrival_gap_s / DIST_THINK_SPEEDUP)
+            history.extend(turn.user_tokens)
+            r = await stream_completion(session, port, model, list(history), turn.osl)
+            results.append({**r, "session": sess.session_id, "turn": i,
+                            "key": (tuple(history[:16]), len(history))})
+            history.extend(rng.randrange(10, 200) for _ in range(turn.osl))
+
+    await asyncio.gather(*(one(s) for s in sessions))
+    wall = time.perf_counter() - t_start
+    e2e = traffic_e2e("dist", results, wall)
+    by_key = {key: inst for key, inst in served}
+    worker = {(r["session"], r["turn"]): by_key[r["key"]] for r in results}
+    follow = [r for r in results if r["turn"] > 0]
+    ttft = [r["stamps"][0] - r["t0"] for r in follow]
+    same = sum(worker[(r["session"], r["turn"])] == worker[(r["session"], r["turn"] - 1)]
+               for r in follow)
+    return {"followup_ttft_ms_p50": pctile(ttft, 0.5) * 1e3,
+            "followup_ttft_ms_p99": pctile(ttft, 0.99) * 1e3,
+            "followup_same_worker_share": same / len(follow),
+            "output_tok_s": e2e["output_tok_s"], "ttft_ms_p50": e2e["ttft_ms_p50"],
+            "requests": len(results), "wall_s": wall,
+            "requests_by_worker": {f"{w:x}": list(worker.values()).count(w)
+                                   for w in sorted(set(worker.values()))}}
+
+
+async def dist_async(card: str, config: dict, device: str) -> dict:
+    import aiohttp
+    import torch
+
+    from dynamo_tpu_torch.bench.data_generator import SessionConfig, generate_sessions
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.runtime.client import PushRouter, RouterMode
+    from dynamo_tpu_torch.runtime.controlplane.server import ControlPlaneServer
+    from dynamo_tpu_torch.serve import serve_frontend
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    on_card = device == "cuda"
+    model = "llama3-8b-smoke"
+    mdir = model_dir(model, config)
+    if on_card:
+        need = 2 * dist_worker_bytes(config, SERVE_ENGINE)
+        free = torch.cuda.mem_get_info()[0]
+        log(f"[dist] card memory free {free / 1e9:.1f} GB, two workers need "
+            f"{need / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(f"phase dist: {free / 1e9:.1f} GB free on the card, the "
+                                 f"two workers need {need / 1e9:.1f} GB")
+    server = ControlPlaneServer(port=0)
+    await server.start()
+    address = f"127.0.0.1:{server.port}"
+    procs, logs, frontends = [], [], []
+    runtime = None
+    real_rendezvous = PushRouter._rendezvous
+    served: list = []
+
+    async def spy(self, request, instance_id, tried):
+        pending, inst = await real_rendezvous(self, request, instance_id, tried)
+        ids = request.data.get("token_ids") or []
+        served.append(((tuple(ids[:16]), len(ids)), inst))
+        return pending, inst
+
+    def launch(i: int):
+        path = ROOT / "dynamo_tpu_torch" / "_build" / f"dist_worker{i}.log"
+        logs.append(path)
+        with open(path, "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "run", "in=none",
+                 "out=torch", "--warmup", "--control-plane", address, "--model-path",
+                 str(mdir), "--model-name", model,
+                 "--num-blocks", str(SERVE_ENGINE["num_blocks"]),
+                 "--max-batch-size", str(SERVE_ENGINE["max_batch_size"]),
+                 "--context-length", str(SERVE_ENGINE["max_model_len"]),
+                 "--seed", str(SERVE_ENGINE["seed"]), "--device", device],
+                cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log_file))
+
+    async def instances(n: int, push, t0: float) -> list:
+        while len(push.client.instances) < n:
+            for proc, path in zip(procs, logs):
+                if proc.poll() is not None:
+                    raise RuntimeError(f"worker exited: {path.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > DIST_LAUNCH_S:
+                raise TimeoutError(f"{n} worker(s) not registered in {DIST_LAUNCH_S} s")
+            await asyncio.sleep(0.2)
+        return list(push.client.instances)
+
+    async def flush(session, port: int, insts) -> None:
+        async with session.post(f"http://127.0.0.1:{port}/clear_kv_blocks") as r:
+            if r.status != 200:
+                raise AssertionError(f"/clear_kv_blocks answered {r.status}: {await r.text()}")
+        t0 = time.perf_counter()
+        while True:
+            cached = [(await worker_stats(runtime, i))["custom"]["kv_cached_blocks"]
+                      for i in insts]
+            if not any(cached):
+                return
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"/clear_kv_blocks left cached blocks: {cached}")
+            await asyncio.sleep(0.1)
+
+    async def custom(insts) -> list[dict]:
+        return [(await worker_stats(runtime, i))["custom"] for i in insts]
+
+    out: dict = {"card": card}
+    try:
+        runtime = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
+
+        async def frontend(mode):
+            service, watcher = await serve_frontend(runtime, host="127.0.0.1", port=0,
+                                                    router_mode=mode)
+            frontends.append((service, watcher))
+            return service.port, watcher
+
+        # one worker behind a round-robin frontend: phase serve's traffic
+        t0 = time.perf_counter()
+        launch(0)
+        rr_port, rr_watcher = await frontend(RouterMode.ROUND_ROBIN)
+        while model not in rr_watcher._pipelines:
+            if procs[0].poll() is not None:
+                raise RuntimeError(f"worker exited: {logs[0].read_text()[-3000:]}")
+            if time.perf_counter() - t0 > DIST_LAUNCH_S:
+                raise TimeoutError(f"worker 0 not registered in {DIST_LAUNCH_S} s")
+            await asyncio.sleep(0.2)
+        push = rr_watcher._pipelines[model]["router"]
+        (first,) = await instances(1, push, t0)
+        out["worker_launch_s"] = time.perf_counter() - t0
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            await stream_chat(s, rr_port, model, "warm up", 4)
+            before = (await custom([first]))[0]
+            results, wall = await serve_traffic(
+                s, rr_port, model, [f"request {i}: tell me" for i in range(4)])
+            after = (await custom([first]))[0]
+            lone = await lone_chats(s, rr_port, model)
+        one = {**traffic_e2e("dist", results, wall), "lone": lone}
+        launches = {k: after["kernel_launches"][k] - before["kernel_launches"].get(k, 0)
+                    for k in after["kernel_launches"]}
+        path = {k: launches[k] for k in LLAMA_PATH}
+        log(f"[dist] one worker over TCP: {one}; launches {path}")
+        plain = sum(n for k, n in launches.items() if k.endswith("plain_calls"))
+        if on_card and (any(n <= 0 for n in path.values()) or plain):
+            raise AssertionError(f"a kernel did not run on the worker's path: {launches}")
+        out["one_worker"] = {**one, "launches": path}
+
+        # the second worker, then each one's greedy probe by direct routing
+        t0 = time.perf_counter()
+        launch(1)
+        insts = await instances(2, push, t0)
+        out["second_worker_launch_s"] = time.perf_counter() - t0
+        direct = await PushRouter.from_endpoint(
+            runtime.namespace("dynamo").component("backend").endpoint("generate"),
+            RouterMode.DIRECT)
+        await direct.client.wait_for_instances(2, timeout=60)
+        from dynamo_tpu_torch.llm.protocols.common import (
+            Annotated,
+            LLMEngineOutput,
+            PreprocessedRequest,
+            SamplingOptions,
+            StopConditions,
+        )
+        from dynamo_tpu_torch.runtime.engine import Context
+
+        probes = []
+        for inst in insts:
+            wire = PreprocessedRequest(
+                token_ids=PROBE_PROMPT, sampling=SamplingOptions(use_greedy=True),
+                stop=StopConditions(max_tokens=PROBE_TOKENS, ignore_eos=True),
+                eos_token_ids=[1]).to_wire()
+            ids = []
+            async for item in await direct.generate_direct(Context(wire), inst.instance_id):
+                ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+                if ann.data is not None:
+                    if ann.data.error:
+                        raise RuntimeError(ann.data.error)
+                    ids.extend(ann.data.token_ids)
+            probes.append(ids)
+        log(f"[dist] greedy probe ids by worker: {probes}")
+        if probes[0] != probes[1] or len(probes[0]) != PROBE_TOKENS:
+            raise AssertionError(f"the workers' greedy ids differ: {probes}")
+        out["probe_ids"] = probes[0]
+
+        # KV-aware against random routing on the multi-turn sessions
+        vocab = HfTokenizer.from_model_dir(mdir).vocab_size
+        sessions = generate_sessions(SessionConfig(**DIST_SESSIONS, vocab_size=vocab))
+        kv_port, _ = await frontend(RouterMode.KV)
+        rand_port, _ = await frontend(RouterMode.RANDOM)
+        PushRouter._rendezvous = spy
+        modes = {}
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            for name, port in (("kv", kv_port), ("random", rand_port)):
+                await flush(s, port, insts)
+                before = await custom(insts)
+                modes[name] = await run_sessions(s, port, model, sessions, served)
+                after = await custom(insts)
+                modes[name]["workers"] = {
+                    f"{i.instance_id:x}": {k: a[k] - b[k] for k in (
+                        "prefix_hits_total", "prefix_cached_tokens_total")}
+                    for i, a, b in zip(insts, after, before)}
+                modes[name]["prefix_cached_tokens_total"] = sum(
+                    a["prefix_cached_tokens_total"] - b["prefix_cached_tokens_total"]
+                    for a, b in zip(after, before))
+                log(f"[dist] {name}: {modes[name]}")
+            await flush(s, rand_port, insts)
+        PushRouter._rendezvous = real_rendezvous
+        out.update(modes)
+        if modes["kv"]["prefix_cached_tokens_total"] <= modes["random"]["prefix_cached_tokens_total"]:
+            raise AssertionError("KV routing cached no more prefix tokens than random: "
+                                 f"{modes['kv']['prefix_cached_tokens_total']} <= "
+                                 f"{modes['random']['prefix_cached_tokens_total']}")
+
+        final = []
+        for inst in insts:
+            st = await worker_stats(runtime, inst)
+            c = st["custom"]
+            final.append({
+                "handled_total": st["handled_total"],
+                **{k: c[k] for k in ("unified_graphs_captured_after_warmup",
+                                     "decode_graphs_captured_after_warmup",
+                                     "prefill_graphs_captured_after_warmup",
+                                     "unified_graph_replays_total",
+                                     "decode_graph_replays_total", "warmup_s")}})
+        out["workers"] = final
+        log(f"[dist] workers: {final}")
+        for name in ("kv", "random"):
+            if len(modes[name]["requests_by_worker"]) != 2:
+                raise AssertionError(f"a worker served no request under {name} routing: "
+                                     f"{modes[name]['requests_by_worker']}")
+        for w in final:
+            if w["handled_total"] <= 0:
+                raise AssertionError(f"a worker served no request: {final}")
+            if w["unified_graphs_captured_after_warmup"] or w["decode_graphs_captured_after_warmup"]:
+                raise AssertionError(f"a worker captured a graph after warmup: {final}")
+            if on_card and (w["unified_graph_replays_total"] <= 0
+                            or w["decode_graph_replays_total"] <= 0):
+                raise AssertionError(f"a worker replayed no unified or decode graph: {final}")
+    finally:
+        PushRouter._rendezvous = real_rendezvous
+        for service, watcher in frontends:
+            await watcher.stop()
+            await service.stop()
+        # the control-plane server runs on this loop: wait off it, so the
+        # workers' shutdown (deregistration, lease revocation) reaches it
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                await asyncio.to_thread(proc.wait, 60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                await asyncio.to_thread(proc.wait)
+        if runtime is not None:
+            await runtime.close()
+        await server.stop()
+    out["worker_exit_codes"] = [proc.returncode for proc in procs]
+    if any(out["worker_exit_codes"]):
+        raise AssertionError(f"a worker did not stop cleanly on SIGTERM: "
+                             f"{out['worker_exit_codes']} ({[str(p) for p in logs]})")
+    return out
+
+
+def phase_dist(card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dict:
+    """Two worker processes (``run in=none out=torch --warmup``) at the
+    Llama-3-8B geometry behind the port's control-plane server, the
+    frontends in this process: phase serve's traffic through one worker,
+    the workers' greedy ids, KV-aware against random routing.  ``device``
+    "cpu" (with a small ``config``) rehearses it on the CPU, where no kernel
+    launches and no graph is captured."""
+    out = asyncio.run(dist_async(card, config, device))
+    print(json.dumps({"smoke_dist": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3947,7 +4349,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = mla = overlap = spec = offload = quant = None
+    kinfo = serve = dist = mla = overlap = spec = offload = quant = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -3968,8 +4370,15 @@ def main() -> int:
         if "tiny" in phases:
             run("tiny", phase_tiny)
         if "serve" in phases:
-            serve = run("serve", phase_serve, card, "serve", "llama3-8b-smoke", LLAMA3_8B,
-                        LLAMA_PATH)
+            serve = run("serve", lambda: phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B,
+                                                     LLAMA_PATH, probe=PROBE_PROMPT))
+        if "dist" in phases:
+            dist = run("dist", phase_dist, card)
+            if serve is not None:
+                if serve["probe_ids"] != dist["probe_ids"]:
+                    raise AssertionError(f"the workers' greedy ids {dist['probe_ids']} differ "
+                                         f"from phase serve's {serve['probe_ids']}")
+                log("[dist] the workers' greedy ids equal phase serve's")
         if "mla" in phases:
             mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
                       DEEPSEEK_V2_LITE, MLA_PATH)

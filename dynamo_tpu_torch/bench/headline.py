@@ -103,7 +103,7 @@ GRAPH_KINDS = ("unified", "decode", "prefill", "verify")
 
 RUNGS_NOT_PORTED = {
     "kv_xfer": "the KV transfer rung waits for the transfer plane (ROADMAP Queue 1 item 8)",
-    "kv_routing": "the KV routing rung waits for the runtime and router (ROADMAP Queue 1 item 4)",
+    "kv_routing": "the KV routing rung waits for the mocker and the routed fleet bench (ROADMAP Queue 1 item 4b)",
 }
 PIPELINE_PATH = "http -> CompletionPreprocessor -> Backend -> engine (in process, no router hop)"
 

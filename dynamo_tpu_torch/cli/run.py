@@ -1,21 +1,35 @@
-"""dynamo-tpu-torch run — the port's single-command launcher.
+"""dynamo-tpu-torch run — the port's single-command launcher (counterpart of
+``dynamo-tpu run``).
 
-``dynamo-tpu-torch run in=http out=torch --model-path DIR [--device cpu]``
-serves a model over the OpenAI HTTP API from one process (counterpart of
-``dynamo-tpu run in=http out=jax``).  The engine runs on the CUDA card
-unless ``--device cpu`` is given.  ``--speculative ngram`` turns on
-prompt-lookup speculative decoding (``--spec-tokens``, ``--spec-ngram``);
-such an engine runs every prefill through the split prefill step.
-``--host-offload-blocks N`` mounts the KV offload tiers below the device
-cache (G2 host memory, then ``--disk-offload-blocks`` on disk and
-``--remote-kv-store HOST:PORT``): evicted prefix blocks restore on a later
-prefix hit instead of being recomputed.  ``--kv-cache-dtype fp8`` stores
-the KV cache in fp8 e4m3fn (the kernels upcast it at load) and
+``run in=<http|none> out=<torch|echo|dyn>``:
+
+- ``out=torch|echo`` serves an engine on an endpoint and registers its model
+  (``serve_worker``); with ``in=http`` a frontend runs in the same process
+  over the memory control plane (``serve_frontend``), as the reference's
+  single-command mode does.
+- ``in=none out=torch --control-plane HOST:PORT`` is a worker alone, which
+  registers with a ``dynctl serve`` control plane.
+- ``in=http out=dyn --control-plane HOST:PORT`` is a frontend alone: it
+  discovers the workers' models there and routes each request
+  (``--router-mode round_robin|random|kv``).
+
+The engine runs on the CUDA card unless ``--device cpu`` is given.
+``--warmup`` captures every serving graph before the model registers.
+``--speculative ngram`` turns on prompt-lookup speculative decoding
+(``--spec-tokens``, ``--spec-ngram``).  ``--host-offload-blocks N`` mounts the
+KV offload tiers below the device cache (G2 host memory, then
+``--disk-offload-blocks`` on disk and ``--remote-kv-store HOST:PORT``).
+``--kv-cache-dtype fp8`` stores the KV cache in fp8 e4m3fn and
 ``--quantize int8`` serves int8 weight-only projections.
 
-Example:
+Examples:
   python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
-      --model-path tests/data/tiny-chat-model --port 8080 [--speculative ngram]
+      --model-path tests/data/tiny-chat-model --port 8080 --warmup
+  python -m dynamo_tpu_torch.cli.dynctl serve --port 2379
+  python -m dynamo_tpu_torch.cli.run run in=none out=torch \\
+      --model-path tests/data/tiny-chat-model --control-plane 127.0.0.1:2379
+  python -m dynamo_tpu_torch.cli.run run in=http out=dyn \\
+      --control-plane 127.0.0.1:2379 --router-mode kv --port 8080
 """
 
 from __future__ import annotations
@@ -25,21 +39,33 @@ import asyncio
 import signal
 import sys
 
+from dynamo_tpu_torch.runtime.client import RouterMode
 from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
 
 logger = get_logger("cli.run")
+
+INPUTS = ("http", "none")
+OUTPUTS = ("torch", "echo", "dyn")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="dynamo-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="serve a model")
-    run.add_argument("io", nargs="*", help="in=http out=torch")
-    run.add_argument("--model-path", required=True,
-                     help="local model dir (tokenizer/config/weights)")
+    run.add_argument("io", nargs="*", help="in=<http|none> out=<torch|echo|dyn>")
+    run.add_argument("--model-path", help="local model dir (tokenizer/config/weights)")
     run.add_argument("--model-name", help="served model name (default: dir name)")
     run.add_argument("--host", default="0.0.0.0")
     run.add_argument("--port", type=int, default=8080)
+    run.add_argument("--control-plane", default=None, metavar="HOST:PORT",
+                     help="dynctl control plane (default: in-process memory)")
+    run.add_argument("--namespace", default="dynamo")
+    run.add_argument("--component", default="backend")
+    run.add_argument("--endpoint", default="generate")
+    run.add_argument("--router-mode", choices=[m.value for m in RouterMode],
+                     default="round_robin")
+    run.add_argument("--request-template", default=None,
+                     help="JSON file with default model/temperature/max_tokens")
     run.add_argument("--device", default=None,
                      help="torch device (default: the CUDA card; 'cpu' to run "
                           "on the CPU)")
@@ -48,6 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     run.add_argument("--context-length", type=int, default=None)
     run.add_argument("--seed", type=int, default=0,
                      help="seed of random-initialized weights and sampling")
+    run.add_argument("--warmup", action="store_true",
+                     help="capture every serving graph before registering")
     run.add_argument("--speculative", choices=["ngram"], default=None,
                      help="speculative decoding (ngram = prompt-lookup "
                           "self-drafting with exact greedy verification)")
@@ -73,9 +101,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                           "bottom-tier evictions cascade there over TCP")
     run.add_argument("--warmup-prompt-lens", type=int, nargs="+", default=None,
                      metavar="N",
-                     help="warm the split prefill graphs of these prompt "
-                          "lengths alone (default: every length whose "
-                          "activations fit the free device memory)")
+                     help="with --warmup, warm the split prefill graphs of "
+                          "these prompt lengths alone (default: every length "
+                          "whose activations fit the free device memory)")
     args = parser.parse_args(argv)
 
     args.input, args.output = "http", "torch"
@@ -86,8 +114,23 @@ def parse_args(argv=None) -> argparse.Namespace:
             args.output = tok[4:]
         else:
             parser.error(f"unrecognized positional {tok!r} (want in=... / out=...)")
-    if args.input != "http" or args.output != "torch":
-        parser.error("this launcher serves in=http out=torch")
+    if args.input not in INPUTS:
+        parser.error(f"in={args.input}: this launcher takes in=http or in=none "
+                     "(the reference's in=text and in=batch come with a later "
+                     "slice of the port)")
+    if args.output not in OUTPUTS:
+        parser.error(f"out={args.output}: this launcher takes out=torch, out=echo "
+                     "or out=dyn")
+    if args.output == "dyn" and args.input != "http":
+        parser.error("out=dyn is a frontend alone: it needs in=http")
+    if args.output == "dyn" and not args.control_plane:
+        parser.error("out=dyn discovers workers on a control plane: give "
+                     "--control-plane HOST:PORT")
+    if args.input == "none" and not args.control_plane:
+        parser.error("in=none is a worker alone: give --control-plane HOST:PORT "
+                     "for a frontend to find it")
+    if args.output != "dyn" and not args.model_path:
+        parser.error("--model-path is required for a local engine")
     return args
 
 
@@ -116,22 +159,49 @@ def engine_overrides(args: argparse.Namespace) -> dict:
 
 async def _run(args) -> int:
     configure_logging()
-    from dynamo_tpu_torch.serve import serve_http
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.serve import serve_frontend, serve_worker
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
 
-    handle = await serve_http(
-        args.model_path, model_name=args.model_name, host=args.host,
-        port=args.port, device=args.device, warmup_prompt_lens=args.warmup_prompt_lens,
-        **engine_overrides(args),
+    runtime = await DistributedRuntime.create(
+        RuntimeConfig(control_plane=args.control_plane or "memory",
+                      namespace=args.namespace)
     )
-    print(f"listening on http://{args.host}:{handle.service.port}/v1", file=sys.stderr, flush=True)
-    stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
+        loop.add_signal_handler(sig, runtime.shutdown)
+    worker = service = watcher = None
     try:
-        await stop.wait()
+        if args.output in ("torch", "echo"):
+            overrides = {}
+            if args.output == "torch":
+                overrides = dict(engine_overrides(args), device=args.device,
+                                 warmup=args.warmup,
+                                 warmup_prompt_lens=args.warmup_prompt_lens)
+            worker = await serve_worker(
+                runtime, args.model_path, model_name=args.model_name,
+                namespace=args.namespace, component=args.component,
+                endpoint=args.endpoint, engine_kind=args.output, **overrides,
+            )
+        if args.input == "http":
+            service, watcher = await serve_frontend(
+                runtime, host=args.host, port=args.port,
+                router_mode=RouterMode(args.router_mode),
+                request_template=args.request_template,
+            )
+            print(f"listening on http://{args.host}:{service.port}/v1",
+                  file=sys.stderr, flush=True)
+        else:
+            print("worker running; ctrl-c to stop", file=sys.stderr, flush=True)
+        await runtime.wait_for_shutdown()
     finally:
-        await handle.shutdown()
+        if watcher is not None:
+            await watcher.stop()
+        if service is not None:
+            await service.stop()
+        if worker is not None:
+            await worker.shutdown()
+        await runtime.close()
     return 0
 
 

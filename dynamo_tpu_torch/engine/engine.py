@@ -77,7 +77,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Callable
 
 import numpy as np
 import torch
@@ -89,8 +89,9 @@ from dynamo_tpu_torch.engine.graphs import (
     StepGraphs,
     UnifiedGraph,
     VerifyGraph,
+    launch_counters,
 )
-from dynamo_tpu_torch.engine.kv_manager import BlockAllocator
+from dynamo_tpu_torch.engine.kv_manager import BlockAllocator, KvEvent
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -272,10 +273,14 @@ class TorchLlmEngine:
         params: dict | None = None,
         *,
         device: str | torch.device | None = None,
+        event_sink: Callable[[KvEvent], None] | None = None,
     ):
         self.config = config
         cfg = config.model
         self.device = resolve_device(device)
+        # the allocator's stored/removed/cleared events go to this sink (the
+        # worker's KvEventPublisher); settable until start()
+        self._event_sink = event_sink
         self.family = get_family(config.model_family)
         self.max_len = config.resolved_max_len()
         self.max_blocks_per_seq = (self.max_len + config.block_size - 1) // config.block_size
@@ -429,7 +434,7 @@ class TorchLlmEngine:
         if config.prefetch:
             raise NotImplementedError(
                 "predictive prefetch comes with a later slice of the port (ROADMAP "
-                "Queue 1 item 4, the router hints it reads); prefetch=False pages "
+                "Queue 1 item 4b, the router hints it reads); prefetch=False pages "
                 "offloaded blocks back on demand"
             )
         # the offload tiers below the device cache (G2 host → G3 disk → G4
@@ -470,6 +475,7 @@ class TorchLlmEngine:
         self.allocator = BlockAllocator(
             config.num_blocks, config.block_size, enable_prefix_caching=True,
             offload_sink=offload_sink, host_tier=self.host_tier,
+            event_sink=self._sink_event,
         )
         self.scheduler = Scheduler(
             self.allocator, max_batch_size=lanes,
@@ -720,6 +726,24 @@ class TorchLlmEngine:
         self._submit_q.put(("abort", seq))
         self._wake.set()
 
+    async def clear_kv_blocks(self) -> None:
+        """Admin flush: drop published prefix-cache state and the offload
+        tiers' blocks (runs on the device thread to serialize with the
+        allocator)."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+
+        def done() -> None:
+            loop.call_soon_threadsafe(lambda: fut.set_result(None) if not fut.done() else None)
+
+        self._submit_q.put(("clear_kv", done))
+        self._wake.set()
+        await fut
+
+    def _sink_event(self, event: KvEvent) -> None:
+        if self._event_sink is not None:
+            self._event_sink(event)
+
     # -- stats -------------------------------------------------------------
     def stats(self) -> dict:
         """ForwardPassMetrics and engine counters, under the reference's key
@@ -760,11 +784,20 @@ class TorchLlmEngine:
             "num_preemptions_total": self.scheduler.preemptions_total,
             "tokens_emitted_total": self._tokens_emitted,
             "preempted_tokens_total": self.scheduler.preempted_tokens_total,
+            # recomputed after preemption or drafted and rejected: compute
+            # that bought no token a client received
+            "wasted_tokens_total": (self.scheduler.preempted_tokens_total
+                                    + max(0, self._spec_drafted - self._spec_accepted)),
             "attention_impl": self.attention_impl,
             "kv_cache_dtype": str(self.kv_cache_dtype).removeprefix("torch."),
             "quantize": self.config.quantize,
             "warmup_s": self.warmup_s,
             "device": str(self.device),
+            # the kernel wrappers' launch and plain-call counters (process
+            # wide: a worker serves one engine), so a caller in another
+            # process reads what the path launched
+            "kernel_launches": {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
+                                for (mod, name), n in launch_counters().items()},
             **self._decode.stats(),
             **(self._unified.stats() if self._unified is not None
                else StepGraphs.zero_stats("unified")),
@@ -1212,6 +1245,16 @@ class TorchLlmEngine:
                     done(exc)
                 else:
                     done(None)
+            elif op == "clear_kv":  # seq: the caller's callback
+                # retire the window in flight first: its deferred finishes
+                # release their blocks before the published state is cleared,
+                # not into a cleared pool after it
+                self._sync_pipeline()
+                cleared = self.allocator.clear_published()
+                if self.host_tier is not None:
+                    self.host_tier.clear()
+                logger.info("cleared %d published kv block hashes", cleared)
+                seq()
             elif op == "add":
                 self.scheduler.add(seq)
             elif op == "abort":

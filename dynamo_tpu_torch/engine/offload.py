@@ -179,6 +179,17 @@ class HostOffloadTier:
             offset += size
         return out
 
+    def clear(self) -> None:
+        """Admin flush: forget everything except blocks pinned for an
+        in-flight restore (clear_kv_blocks keeps running sequences' state,
+        mirroring the allocator's clear_published).  The port has no
+        hot-prefix pins to drop first (they come with the pager)."""
+        for p in self.tiers:
+            for h in p.registered_hashes():
+                if p.ref_count(h) > 0:
+                    continue
+                p.drop_hash(h)
+
     def close(self) -> None:
         """Release every tier's backing (disk memmap deleted, remote
         connections closed)."""

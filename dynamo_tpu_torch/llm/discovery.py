@@ -1,0 +1,247 @@
+"""Frontend-side model discovery.
+
+Workers register their models under ``dynamo://models/`` with their liveness
+lease; the frontend's ModelWatcher builds/tears down the per-model client
+pipeline (preprocessor → backend → remote push router) as entries come and go
+(reference: lib/llm/src/discovery/{model_entry.rs,watcher.rs},
+model_manager.rs; registration lib/bindings register_llm).
+
+The port's watcher has no topology plane and no prefetch hinter yet: it runs
+as the reference's does at ``DYN_TOPO=0`` and ``DYN_PREFETCH=0`` (the KV
+router's cost model on its knob-only link model, no arrival hints).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+
+from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.http.service import ModelManager
+from dynamo_tpu_torch.llm.kv_router.router import KvPushRouter, KvRouter
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.preprocessor import ChatPreprocessor, CompletionPreprocessor
+from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+from dynamo_tpu_torch.runtime.client import PushRouter, RemoteEngine, RouterMode
+from dynamo_tpu_torch.runtime.component import ROOT_PATH
+from dynamo_tpu_torch.runtime.controlplane.interface import WatchEventType
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.utils.logging import get_logger
+from dynamo_tpu_torch.utils.tasks import spawn_logged
+
+logger = get_logger("llm.discovery")
+
+MODELS_PREFIX = f"{ROOT_PATH}models/"
+
+
+@dataclass
+class ModelEntry:
+    name: str
+    namespace: str
+    component: str
+    endpoint: str
+    instance_id: int
+    model_types: list[str] = field(default_factory=lambda: ["chat", "completions"])
+    mdc: dict | None = None
+
+    def key(self) -> str:
+        return (
+            f"{MODELS_PREFIX}{self.name}/"
+            f"{self.namespace}.{self.component}.{self.endpoint}/{self.instance_id:016x}"
+        )
+
+    def endpoint_path(self) -> str:
+        return f"{self.namespace}.{self.component}.{self.endpoint}"
+
+    def to_json(self) -> bytes:
+        return json.dumps(self.__dict__).encode()
+
+    @classmethod
+    def from_json(cls, data: bytes) -> "ModelEntry":
+        return cls(**json.loads(data))
+
+
+async def register_llm(
+    service,  # EndpointService returned by Endpoint.serve
+    mdc: ModelDeploymentCard,
+    *,
+    model_types: list[str] | None = None,
+) -> ModelEntry:
+    """Register a served endpoint as an LLM model (worker side)."""
+    instance = service.instance
+    entry = ModelEntry(
+        name=mdc.name,
+        namespace=instance.namespace,
+        component=instance.component,
+        endpoint=instance.endpoint,
+        instance_id=instance.instance_id,
+        model_types=model_types or ["chat", "completions"],
+        mdc=json.loads(mdc.to_json()),
+    )
+    # artifacts first, registration second: a frontend that sees the entry
+    # can always complete the fetch (reference: transports/nats.rs:123-211)
+    try:
+        n = await mdc.publish_artifacts(service.runtime.plane.bus)
+        logger.info("published %d artifact(s) for %s", n, mdc.name)
+    except Exception:  # noqa: BLE001 — same-filesystem serving still works
+        logger.exception("artifact publish failed for %s", mdc.name)
+    # registered under the instance's lease: model entries vanish with the worker
+    await service.runtime.plane.kv.put(entry.key(), entry.to_json(), service._lease.id)
+    logger.info("registered model %s on %s", mdc.name, instance.subject)
+    return entry
+
+
+class ModelWatcher:
+    """Watches model registrations and maintains the ModelManager."""
+
+    def __init__(
+        self,
+        runtime: DistributedRuntime,
+        manager: ModelManager,
+        *,
+        router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+        prefetch_hinter=None,
+    ):
+        if prefetch_hinter is not None:
+            raise NotImplementedError(
+                "prefetch hints come with a later slice of the port (ROADMAP "
+                "Queue 1 item 4b, the pager and its frontend hinter)"
+            )
+        self.runtime = runtime
+        self.manager = manager
+        self.router_mode = router_mode
+        self._watch = None
+        self._task: asyncio.Task | None = None
+        # model name -> set of entry keys backing it
+        self._backing: dict[str, set[str]] = {}
+        self._entries: dict[str, ModelEntry] = {}  # entry key -> entry
+        self._pipelines: dict[str, dict] = {}  # model name -> {"router": ..., "kv": ...}
+
+    async def start(self) -> None:
+        self._watch = self.runtime.plane.kv.watch_prefix(MODELS_PREFIX)
+        self._task = spawn_logged(self._loop())
+
+    async def stop(self) -> None:
+        if self._watch is not None:
+            self._watch.cancel()
+        if self._task is not None:
+            self._task.cancel()
+        for state in self._pipelines.values():
+            kv_router = state.get("kv")
+            if kv_router is not None:
+                await kv_router.stop()
+            router = state.get("router")
+            if router is not None and router.migrations is not None:
+                await router.migrations.stop()
+
+    async def _loop(self) -> None:
+        try:
+            async for event in self._watch:
+                try:
+                    entry = ModelEntry.from_json(event.entry.value)
+                except Exception:  # noqa: BLE001
+                    continue
+                if event.type == WatchEventType.PUT:
+                    await self._handle_put(event.entry.key, entry)
+                else:
+                    await self._handle_delete(event.entry.key, entry)
+        except ConnectionError as exc:
+            # keep serving the pipelines we already built on a lost watch
+            logger.warning("model discovery watch lost: %s", exc)
+
+    async def clear_kv_blocks(self) -> list[str]:
+        """Broadcast a KV-cache flush to every worker component backing a
+        registered model; each worker's ClearKvListener flushes its engine
+        and re-announces the cleared state to the indexers (reference:
+        lib/llm/src/http/service/clear_kv_blocks.rs)."""
+        from dynamo_tpu_torch.llm.kv_router.protocols import CLEAR_KV_SUBJECT
+
+        subjects = sorted(
+            {
+                self.runtime.namespace(e.namespace)
+                .component(e.component)
+                .event_subject(CLEAR_KV_SUBJECT)
+                for e in self._entries.values()
+            }
+        )
+        bus = self.runtime.plane.bus
+        for subject in subjects:
+            await bus.publish(subject, b"{}")
+        return subjects
+
+    async def _handle_put(self, key: str, entry: ModelEntry) -> None:
+        backing = self._backing.setdefault(entry.name, set())
+        backing.add(key)
+        self._entries[key] = entry
+        if entry.name in self._pipelines:
+            return
+        try:
+            await self._build_pipeline(entry)
+        except Exception:  # noqa: BLE001
+            logger.exception("failed to build pipeline for model %s", entry.name)
+            backing.discard(key)
+
+    async def _handle_delete(self, key: str, entry: ModelEntry) -> None:
+        self._entries.pop(key, None)
+        backing = self._backing.get(entry.name)
+        if backing is None:
+            return
+        backing.discard(key)
+        if backing:
+            return
+        # last instance gone: tear down
+        self._backing.pop(entry.name, None)
+        state = self._pipelines.pop(entry.name, None)
+        if state is not None and state.get("kv") is not None:
+            await state["kv"].stop()
+        if state is not None and state.get("router") is not None:
+            router = state["router"]
+            if router.migrations is not None:
+                await router.migrations.stop()
+        self.manager.remove_model(entry.name)
+        logger.info("model %s removed (no instances left)", entry.name)
+
+    async def _build_pipeline(self, entry: ModelEntry) -> None:
+        mdc = ModelDeploymentCard(**entry.mdc)
+        if not mdc.path or not (
+            Path(mdc.path, "tokenizer.json").exists()
+            or Path(mdc.path, "tokenizer.model").exists()
+        ):
+            # no shared filesystem with the worker: pull the tokenizer/config
+            # artifacts the worker published to the object store
+            fetched = await mdc.fetch_artifacts(self.runtime.plane.bus)
+            if fetched is None:
+                raise FileNotFoundError(f"model artifacts not found at {mdc.path}")
+            logger.info("fetched artifacts for %s into %s", entry.name, fetched)
+        tokenizer = HfTokenizer.from_model_dir(mdc.path)
+
+        ns = self.runtime.namespace(entry.namespace)
+        endpoint = ns.component(entry.component).endpoint(entry.endpoint)
+        push_router = await PushRouter.from_endpoint(endpoint, self.router_mode)
+        if push_router.migrations is not None:
+            # live-migration control verb (dynctl migrate)
+            await push_router.migrations.serve_ctl(self.runtime.plane.bus)
+
+        kv_router = None
+        if self.router_mode == RouterMode.KV:
+            kv_router = KvRouter(endpoint.component, block_size=mdc.kv_block_size)
+            await kv_router.start()
+            engine: object = KvPushRouter(push_router, kv_router)
+        else:
+            engine = RemoteEngine(push_router)
+
+        backend = Backend(tokenizer)
+        if "chat" in entry.model_types:
+            self.manager.add_chat_model(
+                entry.name, ChatPreprocessor(mdc, tokenizer).wrap(backend.wrap(engine))
+            )
+        if "completions" in entry.model_types:
+            self.manager.add_completion_model(
+                entry.name, CompletionPreprocessor(mdc, tokenizer).wrap(backend.wrap(engine))
+            )
+        self._pipelines[entry.name] = {"router": push_router, "kv": kv_router}
+        logger.info(
+            "model %s wired to %s (mode=%s)", entry.name, entry.endpoint_path(), self.router_mode.value
+        )

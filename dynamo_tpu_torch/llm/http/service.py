@@ -6,9 +6,11 @@ Routes:
 - ``POST /v1/completions``       (streaming SSE + unary)
 - ``GET  /v1/models``
 - ``GET  /health``
+- ``POST /clear_kv_blocks``      (admin: flush every worker's KV cache)
 
-Request ids, admission control, metrics, tracing, embeddings and ``n > 1``
-fan-out come with a later slice of the port.
+``ModelManager`` holds per-model typed engines, added/removed live by the
+discovery watcher.  Request ids, admission control, metrics, tracing,
+embeddings and ``n > 1`` fan-out come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ logger = get_logger("llm.http")
 
 
 class ModelManager:
-    """Per-model engine registry."""
+    """Per-model engine registry, mutated live by discovery."""
 
     def __init__(self) -> None:
         self.chat_engines: dict[str, Any] = {}
@@ -48,6 +50,10 @@ class ModelManager:
 
     def add_completion_model(self, name: str, engine: Any) -> None:
         self.completion_engines[name] = engine
+
+    def remove_model(self, name: str) -> None:
+        self.chat_engines.pop(name, None)
+        self.completion_engines.pop(name, None)
 
     def model_names(self) -> list[str]:
         return sorted(set(self.chat_engines) | set(self.completion_engines))
@@ -87,15 +93,22 @@ class HttpService:
         *,
         host: str = "0.0.0.0",
         port: int = 8080,
+        request_template=None,
+        clear_kv=None,
     ):
         self.manager = manager or ModelManager()
         self.host = host
         self.port = port
+        self.request_template = request_template
+        # async () -> list[str]: broadcast a cache flush to every backing
+        # worker component (reference: lib/llm/src/http/service/clear_kv_blocks.rs)
+        self.clear_kv = clear_kv
         self.app = web.Application(client_max_size=64 * 1024 * 1024)
         self.app.router.add_post("/v1/chat/completions", self.handle_chat)
         self.app.router.add_post("/v1/completions", self.handle_completions)
         self.app.router.add_get("/v1/models", self.handle_models)
         self.app.router.add_get("/health", self.handle_health)
+        self.app.router.add_post("/clear_kv_blocks", self.handle_clear_kv_blocks)
         self._runner: web.AppRunner | None = None
 
     # -- lifecycle ---------------------------------------------------------
@@ -118,6 +131,18 @@ class HttpService:
     async def handle_health(self, request: web.Request) -> web.Response:
         return web.json_response({"status": "healthy", "models": self.manager.model_names()})
 
+    async def handle_clear_kv_blocks(self, request: web.Request) -> web.Response:
+        """Admin: flush every worker's published KV-cache state (reference:
+        lib/llm/src/http/service/clear_kv_blocks.rs — frontend route that
+        fans the flush out to all workers)."""
+        if self.clear_kv is None:
+            return _error(501, "clear_kv_blocks not wired on this frontend")
+        try:
+            cleared = await self.clear_kv()
+        except Exception as exc:  # noqa: BLE001
+            return _error(500, f"clear_kv_blocks failed: {exc}", "internal_error")
+        return web.json_response({"status": "ok", "cleared": cleared})
+
     async def handle_models(self, request: web.Request) -> web.Response:
         models = ModelList(data=[ModelInfo(id=name) for name in self.manager.model_names()])
         return web.json_response(models.model_dump())
@@ -125,6 +150,8 @@ class HttpService:
     async def handle_chat(self, request: web.Request) -> web.StreamResponse:
         try:
             body = await request.json()
+            if self.request_template is not None:
+                body = self.request_template.apply(body)
         except Exception as exc:  # noqa: BLE001
             return _error(400, f"invalid request body: {exc}", code="invalid_json")
         try:
@@ -153,6 +180,8 @@ class HttpService:
     async def handle_completions(self, request: web.Request) -> web.StreamResponse:
         try:
             body = await request.json()
+            if self.request_template is not None:
+                body = self.request_template.apply(body)
         except Exception as exc:  # noqa: BLE001
             return _error(400, f"invalid request body: {exc}", code="invalid_json")
         try:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import uuid
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -92,3 +94,60 @@ class ModelDeploymentCard:
     def from_json(cls, data: bytes) -> "ModelDeploymentCard":
         d = json.loads(data)
         return cls(**d)
+
+    # -- artifact distribution (reference: lib/runtime/src/transports/nats.rs:
+    # 123-211 — NATS object store carries MDC artifacts so frontends on other
+    # machines can build tokenizer pipelines without a shared filesystem) ----
+
+    async def publish_artifacts(self, store) -> int:
+        """Upload this model's small artifacts (tokenizer/config/template
+        files — never weights) to the object store under this card's
+        checksum.  Returns the number of files uploaded."""
+        if not self.path:
+            return 0
+        src = Path(self.path)
+        uploaded = 0
+        for fname in ARTIFACT_FILES:
+            f = src / fname
+            if f.exists():
+                await store.object_put(ARTIFACT_BUCKET, f"{self.checksum}/{fname}", f.read_bytes())
+                uploaded += 1
+        return uploaded
+
+    async def fetch_artifacts(self, store, cache_dir: str | Path | None = None) -> Path | None:
+        """Download this card's artifacts into a local cache dir and point
+        ``self.path`` at it.  Returns the dir, or None if the store holds
+        nothing for this checksum (e.g. a worker that never published)."""
+        from dynamo_tpu_torch.llm.hub import cache_base
+
+        dest = cache_base(cache_dir) / "mdc" / self.checksum
+        fetched = 0
+        for fname in ARTIFACT_FILES:
+            if (dest / fname).exists():
+                fetched += 1
+                continue
+            data = await store.object_get(ARTIFACT_BUCKET, f"{self.checksum}/{fname}")
+            if data is None:
+                continue
+            dest.mkdir(parents=True, exist_ok=True)
+            # per-process-unique temp name: concurrent fetchers sharing a
+            # cache dir must never truncate each other's in-flight write
+            tmp = dest / f".{fname}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp"
+            tmp.write_bytes(data)
+            tmp.rename(dest / fname)  # atomic publish
+            fetched += 1
+        if fetched == 0:
+            return None
+        self.path = str(dest)
+        return dest
+
+
+ARTIFACT_BUCKET = "mdc-artifacts"
+ARTIFACT_FILES = (
+    "tokenizer.json",
+    "tokenizer.model",
+    "tokenizer_config.json",
+    "config.json",
+    "special_tokens_map.json",
+    "generation_config.json",
+)

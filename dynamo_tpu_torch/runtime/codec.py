@@ -1,5 +1,4 @@
-"""Two-part frame codec (a copy of dynamo_tpu/runtime/codec.py, without the
-trace-context re-export: the port carries no tracing yet).
+"""Two-part frame codec.
 
 Length-prefixed (header, payload) frames used on data-plane TCP streams
 (reference: lib/runtime/src/pipeline/network/codec/two_part.rs).  The header
@@ -19,6 +18,15 @@ import msgpack
 _PREFIX = struct.Struct("!II")
 MAX_HEADER = 1 << 20          # 1 MiB
 MAX_PAYLOAD = 1 << 31         # 2 GiB
+
+# Frame headers carry a TraceContext wire dict under the shared reserved
+# key (observability.trace.TRACE_WIRE_KEY) so data-plane streams stay
+# correlatable with the request that opened them.  One canonical
+# stamp/decode pair serves every transport.
+from dynamo_tpu_torch.observability.trace import (  # noqa: E402 (re-export)
+    read_trace as extract_trace,
+    stamp_trace as attach_trace,
+)
 
 
 @dataclass

@@ -1,27 +1,92 @@
-"""Serving assembly for the port: engine construction and the in-process
-HTTP stack (counterpart of dynamo_tpu/serve.py).
+"""Serving assembly for the port (counterpart of dynamo_tpu/serve.py).
 
-``serve_http`` wires HTTP → preprocessor → backend → engine in one process.
-The reference's distributed runtime, discovery and KV router come with a
-later slice of the port.
+``serve_worker`` = engine + endpoint + model registration + KV/metrics
+publishers (what the reference's engine subprocesses do on startup);
+``serve_frontend`` = HTTP service + model watcher (the ``in=http`` frontend).
+Both run over a ``DistributedRuntime``: the memory control plane in one
+process, or a ``dynctl serve`` control-plane server across processes.
+
+``serve_http`` wires HTTP → preprocessor → backend → engine in one process,
+with no runtime between them.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import signal
 from dataclasses import dataclass
 from pathlib import Path
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.discovery import ModelWatcher, register_llm
+from dynamo_tpu_torch.llm.engines import EchoEngineCore
 from dynamo_tpu_torch.llm.http import HttpService, ModelManager
+from dynamo_tpu_torch.llm.kv_router.publisher import (
+    ClearKvListener,
+    KvEventPublisher,
+    WorkerMetricsPublisher,
+)
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.preprocessor import ChatPreprocessor, CompletionPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+from dynamo_tpu_torch.runtime.client import RouterMode
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.utils.logging import get_logger
+from dynamo_tpu_torch.utils.tasks import spawn_logged
 
 logger = get_logger("serve")
+
+
+@dataclass
+class WorkerHandle:
+    service: object
+    engine: object
+    publishers: list
+    _closed: bool = False
+
+    async def shutdown(self) -> None:
+        await self.service.shutdown()
+        await self._close()
+
+    async def drain(self, timeout_s: float | None = None) -> dict:
+        """Gracefully empty this worker: admissions stop at once, in-flight
+        requests finish or hand off (resume-redispatch), the lease is
+        revoked — then the engine stops."""
+        result = await self.service.drain(timeout_s)
+        await self._close()
+        return result
+
+    async def _close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for pub in self.publishers:
+            await pub.stop()
+        if hasattr(self.engine, "stop"):
+            self.engine.stop()
+
+
+def install_drain_on_sigterm(handle: WorkerHandle, *, timeout_s: float | None = None):
+    """Opt-in SIGTERM → graceful drain for CLI launch paths.  Must run on
+    the main thread of a live event loop (``loop.add_signal_handler``
+    constraint), so library/test embedders call ``handle.drain()``
+    directly instead.  Returns the scheduled drain task holder (a
+    one-element list filled when the signal fires)."""
+    loop = asyncio.get_running_loop()
+    fired: list = []
+
+    def _on_term() -> None:
+        if not fired:
+            logger.info("SIGTERM: draining worker before exit")
+            fired.append(spawn_logged(handle.drain(timeout_s), name="sigterm-drain"))
+
+    try:
+        loop.add_signal_handler(signal.SIGTERM, _on_term)
+    except (NotImplementedError, RuntimeError) as exc:
+        logger.warning("SIGTERM drain handler unavailable: %r", exc)
+    return fired
 
 
 def build_torch_engine(
@@ -29,8 +94,11 @@ def build_torch_engine(
 ):
     """A TorchLlmEngine from a local model dir: ``config.json``, weights
     from safetensors when present, random-initialized on the device from
-    the engine seed otherwise.  ``overrides`` go to EngineConfig.  Runs on
-    the CUDA card unless ``device="cpu"``."""
+    the engine seed otherwise.  ``overrides`` go to EngineConfig, but for
+    ``warmup``, a launch-time behaviour that callers read back as
+    ``engine.wants_warmup`` after ``start()`` (as the reference's
+    ``build_jax_engine`` pops it).  Runs on the CUDA card unless
+    ``device="cpu"``."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
     from dynamo_tpu_torch.models.registry import get_family, known_families
 
@@ -49,6 +117,7 @@ def build_torch_engine(
         max_batch_size=overrides.pop("max_batch_size", 8),
         max_model_len=overrides.pop("max_model_len", mdc.context_length),
     )
+    wants_warmup = bool(overrides.pop("warmup", False))
     defaults.update(overrides)
     config = EngineConfig(**defaults)
     params = None
@@ -58,7 +127,111 @@ def build_torch_engine(
             logger.info("loaded weights from %s", model_dir)
         except FileNotFoundError:
             logger.warning("no safetensors in %s — random-initializing weights", model_dir)
-    return TorchLlmEngine(config, params=params, device=dev)
+    engine = TorchLlmEngine(config, params=params, device=dev)
+    engine.wants_warmup = wants_warmup
+    return engine
+
+
+async def serve_worker(
+    runtime: DistributedRuntime,
+    model_dir: str | Path,
+    *,
+    model_name: str | None = None,
+    namespace: str | None = None,
+    component: str = "backend",
+    endpoint: str = "generate",
+    engine_kind: str = "torch",
+    model_types: list[str] | None = None,
+    device=None,
+    warmup_prompt_lens=None,
+    **engine_overrides,
+) -> WorkerHandle:
+    """Serve a model on an endpoint and register it (worker side).
+
+    ``engine_kind="torch"`` builds a TorchLlmEngine (on the card unless
+    ``device="cpu"``; ``engine_overrides`` go to EngineConfig, ``warmup=True``
+    captures every serving graph before the model registers, and
+    ``warmup_prompt_lens`` narrows the split prefill's keys as in
+    ``serve_http``); ``"echo"`` the token echo engine.  The KV event,
+    load-metrics and cache-flush publishers are wired before the engine
+    starts, so no early event is lost; the model registers last, so a
+    frontend's pipeline appears only once the engine is warm."""
+    model_dir = Path(model_dir)
+    mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
+    ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
+
+    publishers: list = []
+    if engine_kind == "echo":
+        engine = EchoEngineCore()
+        service = await ep.serve(engine)
+    elif engine_kind == "mocker":
+        raise NotImplementedError(
+            "the mocker engine comes with a later slice of the port (ROADMAP "
+            "Queue 1 item 4b)"
+        )
+    elif engine_kind == "torch":
+        # built off the event loop: weight loading takes seconds and a G4
+        # remote tier's mount does blocking TCP — heartbeats and endpoints
+        # on this loop must keep running meanwhile
+        engine = await asyncio.to_thread(
+            build_torch_engine, model_dir, mdc, device=device, **engine_overrides
+        )
+        service = await ep.serve(engine, stats_handler=engine.stats)
+        kv_pub = KvEventPublisher(ep.component, worker_id=service.instance.instance_id)
+        kv_pub.start()
+        engine._event_sink = kv_pub.sink
+        metrics_pub = WorkerMetricsPublisher(
+            ep.component, service.instance.instance_id, engine.stats
+        )
+        metrics_pub.start()
+        clear_listener = ClearKvListener(ep.component, engine)
+        clear_listener.start()
+        publishers = [kv_pub, metrics_pub, clear_listener]
+        engine.start()
+        if engine.wants_warmup:
+            # capture every serving graph before the model registers: the
+            # first user request must not pay a capture
+            try:
+                await engine.warmup(warmup_prompt_lens)
+            except BaseException:
+                await WorkerHandle(service, engine, publishers).shutdown()
+                raise
+    else:
+        raise ValueError(f"unknown engine kind {engine_kind!r} (want torch|echo)")
+
+    await register_llm(service, mdc, model_types=model_types)
+    return WorkerHandle(service=service, engine=engine, publishers=publishers)
+
+
+async def serve_frontend(
+    runtime: DistributedRuntime,
+    *,
+    host: str = "0.0.0.0",
+    port: int = 8080,
+    router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+    request_template: str | Path | None = None,
+    admission=None,
+) -> tuple[HttpService, ModelWatcher]:
+    """HTTP service + model watcher: a pipeline (preprocessor → backend →
+    router) for every model a worker registers, removed with its last
+    instance."""
+    from dynamo_tpu_torch.llm.request_template import RequestTemplate
+
+    if admission is not None:
+        raise NotImplementedError(
+            "frontend admission control comes with a later slice of the port "
+            "(ROADMAP Queue 1 item 4b, the full HTTP service)"
+        )
+    template = RequestTemplate.load(request_template) if request_template else None
+    manager = ModelManager()
+    watcher = ModelWatcher(runtime, manager, router_mode=router_mode)
+    service = HttpService(
+        manager, host=host, port=port, request_template=template,
+        clear_kv=watcher.clear_kv_blocks,
+    )
+    await watcher.start()
+    await service.start()
+    return service, watcher
 
 
 @dataclass

@@ -1,0 +1,170 @@
+"""Typed registry and the single read path for the port's ``DYN_*`` knobs
+(counterpart of dynamo_tpu/utils/knobs.py).
+
+The port registers only the knobs its own modules read, under the
+reference's names, types and defaults, and reads them through :func:`get`.
+
+Semantics (as the reference's):
+
+- ``bool`` knobs parse ``1/true/yes/on`` as True and ``0/false/off/no`` (or
+  empty) as False; any other token falls back to the default.
+- ``int``/``float`` knobs return the default when unset, empty, or
+  unparseable.
+- ``get(name, env=...)`` accepts an explicit mapping (tests).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+_TRUTHY = ("1", "true", "yes", "on")
+_FALSY = ("0", "false", "off", "no", "")
+
+
+@dataclass(frozen=True)
+class Knob:
+    name: str
+    type: str  # "str" | "int" | "float" | "bool"
+    default: Any
+    doc: str
+
+
+_REGISTRY: dict[str, Knob] = {}
+
+
+def register(name: str, *, type: str = "str", default: Any = None, doc: str = "") -> str:
+    """Declare one knob; returns the name so modules can bind constants."""
+    if name in _REGISTRY:
+        raise ValueError(f"knob {name} registered twice")
+    if type not in ("str", "int", "float", "bool"):
+        raise ValueError(f"knob {name}: unknown type {type!r}")
+    if not doc:
+        raise ValueError(f"knob {name}: doc string is required")
+    _REGISTRY[name] = Knob(name=name, type=type, default=default, doc=doc)
+    return name
+
+
+def parse_bool(raw: str | None, default: Any = False) -> Any:
+    if raw is None:
+        return default
+    lowered = raw.strip().lower()
+    if lowered in _TRUTHY:
+        return True
+    if lowered in _FALSY:
+        return False
+    return default
+
+
+def get_raw(name: str, *, env: Mapping[str, str] | None = None) -> str | None:
+    """The raw string value (or None when unset) of a *registered* knob."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unregistered knob {name}; declare it in utils/knobs.py")
+    source = os.environ if env is None else env
+    return source.get(name)
+
+
+def get(name: str, *, env: Mapping[str, str] | None = None) -> Any:
+    """The typed value of a registered knob (default when unset/malformed)."""
+    knob = _REGISTRY.get(name)
+    if knob is None:
+        raise KeyError(f"unregistered knob {name}; declare it in utils/knobs.py")
+    source = os.environ if env is None else env
+    raw = source.get(name)
+    if knob.type == "bool":
+        return parse_bool(raw, knob.default)
+    if raw is None:
+        return knob.default
+    if knob.type == "str":
+        return raw
+    try:
+        return int(raw) if knob.type == "int" else float(raw)
+    except ValueError:
+        return knob.default
+
+
+def is_set(name: str, *, env: Mapping[str, str] | None = None) -> bool:
+    return get_raw(name, env=env) is not None
+
+
+def all_knobs() -> tuple[Knob, ...]:
+    return tuple(_REGISTRY[k] for k in sorted(_REGISTRY))
+
+
+# -- tracing (observability/recorder.py) -------------------------------------
+K_TRACE_BUFFER = register(
+    "DYN_TRACE_BUFFER", type="int", default=4096, doc="span ring-buffer size")
+K_TRACE_JSONL = register(
+    "DYN_TRACE_JSONL", type="str", default=None, doc="live JSONL span export path")
+K_TRACE_MAX_BYTES = register(
+    "DYN_TRACE_MAX_BYTES", type="int", default=0,
+    doc="rotate the JSONL span export at this size (0 = unbounded)")
+
+# -- perf flight recorder (observability/flight.py) ---------------------------
+K_FLIGHT = register(
+    "DYN_FLIGHT", type="bool", default=True,
+    doc="always-on perf flight recorder; `0` is bookkeeping-free")
+K_FLIGHT_BUFFER_BYTES = register(
+    "DYN_FLIGHT_BUFFER_BYTES", type="int", default=262144,
+    doc="byte budget of the flight-recorder ring")
+K_FLIGHT_DIR = register(
+    "DYN_FLIGHT_DIR", type="str", default=None,
+    doc="directory flight dumps are written to (default "
+        "`$DYN_CACHE_DIR/flight` or `~/.cache/dynamo_tpu_torch/flight`)")
+K_FLIGHT_BURN = register(
+    "DYN_FLIGHT_BURN", type="float", default=10.0,
+    doc="worst-window SLO burn rate above which the recorder auto-dumps")
+
+# -- robustness / routing (robustness/, runtime/) -----------------------------
+K_FAULTS = register(
+    "DYN_FAULTS", type="str", default="",
+    doc="chaos fault-injection schedule spec")
+K_CP_RECONNECT = register(
+    "DYN_CP_RECONNECT", type="bool", default=True,
+    doc="self-healing control-plane client; `0` restores fail-fast")
+K_RETRY_MAX = register(
+    "DYN_RETRY_MAX", type="int", default=1,
+    doc="pre-first-token re-dispatch attempts for a failed stream")
+K_CONNECT_TIMEOUT_S = register(
+    "DYN_CONNECT_TIMEOUT_S", type="float", default=30.0,
+    doc="data-plane rendezvous (connect-back) timeout per attempt")
+K_DARK_WORKER_TTL_S = register(
+    "DYN_DARK_WORKER_TTL_S", type="float", default=30.0,
+    doc="quarantine TTL for an instance that failed a rendezvous")
+K_DARK_PROBE_TIMEOUT_S = register(
+    "DYN_DARK_PROBE_TIMEOUT_S", type="float", default=5.0,
+    doc="short probe window for quarantined instances (and for waiting out "
+        "an empty instance view)")
+K_RENDEZVOUS_BUDGET_S = register(
+    "DYN_RENDEZVOUS_BUDGET_S", type="float", default=0.0,
+    doc="hard cap on total rendezvous time across failovers (0 = 3x the "
+        "connect timeout)")
+K_RESUME = register(
+    "DYN_RESUME", type="bool", default=True,
+    doc="mid-stream resume: re-dispatch a failed stream with a `resume_from` "
+        "journal instead of truncating")
+K_RESUME_JOURNAL_MAX_ITEMS = register(
+    "DYN_RESUME_JOURNAL_MAX_ITEMS", type="int", default=4096,
+    doc="max accepted tokens a GenerationJournal retains per request "
+        "(0 = unbounded)")
+K_MIGRATE = register(
+    "DYN_MIGRATE", type="bool", default=True,
+    doc="live session migration: the dispatcher may move an in-flight decode "
+        "to another worker; `0` disables the coordinator entirely")
+K_MIGRATE_FLIP_TIMEOUT_S = register(
+    "DYN_MIGRATE_FLIP_TIMEOUT_S", type="float", default=10.0,
+    doc="max seconds a migration waits for the consumer loop to commit the "
+        "stream flip before aborting back to the source")
+K_DRAIN_TIMEOUT_S = register(
+    "DYN_DRAIN_TIMEOUT_S", type="float", default=30.0,
+    doc="graceful drain budget: in-flight work gets this long to finish or "
+        "hand off before cancellation")
+
+# -- runtime plumbing (utils/config.py, llm/hub.py) ---------------------------
+K_CONTROL_PLANE = register(
+    "DYN_CONTROL_PLANE", type="str", default="memory",
+    doc="control-plane backend (`memory` or `host:port` of a dynctl server)")
+K_CACHE_DIR = register(
+    "DYN_CACHE_DIR", type="str", default=None,
+    doc="artifact/cache directory (default `~/.cache/dynamo_tpu_torch`)")

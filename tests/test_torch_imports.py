@@ -23,7 +23,8 @@ def test_importing_every_module_pulls_in_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'dynamo_tpu' or k.startswith('dynamo_tpu.'))\n"
+        "             or k == 'dynamo_tpu' or k.startswith('dynamo_tpu.')\n"
+        "             or k == 'yaml' or k.startswith('yaml.'))\n"
         "print(' '.join(names))\n"
         "print(bad)\n"
     )
@@ -48,7 +49,37 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.bench.data_generator", "dynamo_tpu_torch.bench.sweep",
             "dynamo_tpu_torch.bench.profile_sla", "dynamo_tpu_torch.bench.headline",
             "dynamo_tpu_torch.bench.trace_summary",
-            "dynamo_tpu_torch.utils.profiling"} <= names
+            "dynamo_tpu_torch.utils.profiling",
+            # the distributed runtime and the orchestration plane above the
+            # engine: importing them leaves PyYAML out too (a YAML config is
+            # read only where one is given)
+            "dynamo_tpu_torch.runtime.controlplane.interface",
+            "dynamo_tpu_torch.runtime.controlplane.wire",
+            "dynamo_tpu_torch.runtime.controlplane.memory",
+            "dynamo_tpu_torch.runtime.controlplane.kv_cache",
+            "dynamo_tpu_torch.runtime.controlplane.server",
+            "dynamo_tpu_torch.runtime.controlplane.client",
+            "dynamo_tpu_torch.runtime.controlplane.connect",
+            "dynamo_tpu_torch.runtime.dataplane", "dynamo_tpu_torch.runtime.component",
+            "dynamo_tpu_torch.runtime.ingress", "dynamo_tpu_torch.runtime.resume",
+            "dynamo_tpu_torch.runtime.migration", "dynamo_tpu_torch.runtime.client",
+            "dynamo_tpu_torch.runtime.distributed", "dynamo_tpu_torch.runtime.pipeline",
+            "dynamo_tpu_torch.runtime.barrier",
+            "dynamo_tpu_torch.llm.kv_router.protocols",
+            "dynamo_tpu_torch.llm.kv_router.indexer",
+            "dynamo_tpu_torch.llm.kv_router.scheduler",
+            "dynamo_tpu_torch.llm.kv_router.cost", "dynamo_tpu_torch.llm.kv_router.router",
+            "dynamo_tpu_torch.llm.kv_router.publisher",
+            "dynamo_tpu_torch.llm.kv_router.metrics_aggregator",
+            "dynamo_tpu_torch.llm.discovery", "dynamo_tpu_torch.llm.engines",
+            "dynamo_tpu_torch.llm.hub", "dynamo_tpu_torch.llm.request_template",
+            "dynamo_tpu_torch.robustness.counters", "dynamo_tpu_torch.robustness.faults",
+            "dynamo_tpu_torch.robustness.retry",
+            "dynamo_tpu_torch.observability.trace", "dynamo_tpu_torch.observability.recorder",
+            "dynamo_tpu_torch.observability.flight",
+            "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.utils.knobs",
+            "dynamo_tpu_torch.serve", "dynamo_tpu_torch.cli.run",
+            "dynamo_tpu_torch.cli.dynctl"} <= names
     assert bad == "[]"
 
 
