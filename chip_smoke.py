@@ -64,12 +64,31 @@ Phases (any failure exits non-zero, before the result line):
                cached tokens (KV routing's must exceed random's); no graph
                captured after warmup in either worker, both replaying
                unified and decode graphs, the worker's kernels launched.
-  6. mla     — the same over the DeepSeek-V2-Lite geometry (the published
+  6. prefetch — demand against predictive paging, the hints on the real
+               path (FrontendHinter → PrefetchForwarder → PrefetchListener →
+               the engine's pager → row 7): one worker at the Llama-3-8B
+               geometry (random weights from seed 0, phase serve's lanes and
+               max length, G1 256 blocks of 16, G2 1536 blocks, warmed)
+               behind a KV-routed frontend over a memory control plane in
+               this process; 12 sessions x 4 turns (each its own 1024-token
+               context, 64 user tokens a turn, 32 output tokens, 3 s think
+               time, sessions 0.5 s apart; text completions) once with
+               DYN_PREFETCH=0 and once with it on, a fresh worker each;
+               returning-turn TTFT, restores, the pager's hits, misses,
+               restores, pins, the overlap drains, ITL and tok/s, rows 6-7's
+               device ms a call; a probe prefix computed alone, pushed out of
+               G1, restored by a hint (pager) or on demand, must give the
+               same greedy ids; the pager must hit, restore through row 7
+               and drain no more than demand paging; no graph captured after
+               warmup; then /metrics, /slo, an n = 2 request and a burst
+               through a frontend whose admission gate is below it (429 and
+               503 with Retry-After).
+  7. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  7. overlap — both configurations in process, all layers: the default
+  8. overlap — both configurations in process, all layers: the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -89,7 +108,7 @@ Phases (any failure exits non-zero, before the result line):
                the unified step skips (two admissions against one seed
                slot): its split prefill key captured once at first use,
                replayed the next time, the capture's ms and the pool.
-  8. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+  9. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
@@ -111,14 +130,14 @@ Phases (any failure exits non-zero, before the result line):
                512-token chunk's ms by replay and eagerly, and the window
                kernels' device ms a layer inside the graph beside their
                bound.
-  9. longctx — a speculative server of the Llama-3-8B geometry at its own
+ 10. longctx — a speculative server of the Llama-3-8B geometry at its own
                context length (8192 positions, default warmup),
                all layers: warmup's captures, seconds and pool, a
                7000-token prompt and three short ones served with no
                capture after warmup, and the warmup budget's estimate
                (``PrefillGraph.key_bytes``) held above two keys' measured
                eager peaks.
- 10. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+ 11. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -127,12 +146,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
- 11. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 12. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 12. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 13. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -147,7 +166,7 @@ Phases (any failure exits non-zero, before the result line):
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8) at phase
                spec's geometry.
- 13. bench   — the headline benchmark (``python -m
+ 14. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
@@ -182,6 +201,7 @@ import copy
 import gc
 import json
 import math
+import os
 import random
 import shutil
 import socket
@@ -192,8 +212,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "dist", "mla", "overlap", "spec", "longctx",
-          "offload", "kvbm", "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "dist", "prefetch", "mla", "overlap", "spec",
+          "longctx", "offload", "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -2043,7 +2063,9 @@ def phase_serve(card: str, tag: str, model: str, config: dict, path, **serve_kw)
     table = counts["mla_attention.decode_launches"] + counts["mla_attention.window_launches"]
     if counts["mla_attention.table_walk_launches"] != table:
         raise AssertionError(f"an MLA decode or window call missed the split table walk: {counts}")
-    e2e.update(load_s=out["load_s"], model=model, card=card, lone=out["lone"])
+    e2e.update(load_s=out["load_s"], model=model, card=card, lone=out["lone"],
+               flight_buffer_bytes=out["stats"]["flight_buffer_bytes"],
+               flight_records_total=out["stats"]["flight_records_total"])
     if out["profile"] is not None:
         print(json.dumps({"smoke_profile": {**out["profile"], "model": model, "card": card}}),
               flush=True)
@@ -2404,6 +2426,336 @@ def phase_dist(card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dic
     out = asyncio.run(dist_async(card, config, device))
     print(json.dumps({"smoke_dist": out}), flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase prefetch: demand against predictive paging through the hint path
+# ---------------------------------------------------------------------------
+
+# one worker at the Llama-3-8B geometry: a device cache (G1) of about three
+# sessions' contexts over a host tier (G2, 3 GiB pinned at 2 MiB a block)
+# that holds every session's blocks
+PREFETCH_ENGINE = dict(SERVE_ENGINE, num_blocks=256, host_offload_blocks=1536)
+# multi-turn sessions, each its own context; a turn's prompt is the session's
+# history: the context, every user turn and, after each turn, a stand-in for
+# the reply (random weights' text does not round-trip); a fixed think time
+# after a turn's last token; sessions start STAGGER_S apart
+PREFETCH_SESSIONS = dict(sessions=12, turns=4, context_tokens=1024, user_tokens=64, osl=32,
+                         think_s=3.0, stagger_s=0.5)
+PREFETCH_CHURN = (1400, 1400, 1400)  # prompts sent alone to push the probe out of G1
+PREFETCH_PROBE = (1200, 24)          # the probe's prefix and its new tail, in tokens
+PREFETCH_COUNTS = ("prefetch_hints_total", "prefetch_hits_total", "prefetch_misses_total",
+                   "prefetch_stale_total", "prefetch_blocks_restored_total",
+                   "prefetch_blocks_onboarded_total", "prefetch_deferred_total",
+                   "prefetch_restore_failures_total", "prefetch_hidden_seconds_total",
+                   "host_blocks_pinned", "host_restores_total", "host_offloads_total",
+                   "offload_drains_total", "admission_drains_total", "prefix_hits_total",
+                   "restore_stage_ms_total", "restore_copy_ms_total",
+                   "restore_scatter_ms_total", "offload_gather_ms_total",
+                   "num_preemptions_total")
+PREFETCH_LAUNCH_S = 600
+
+
+def words_after(tokenizer, rng, head: str, n_tokens: int) -> str:
+    """``head`` and random lowercase words after it, each after a space, until
+    the text encodes to at least ``n_tokens`` more tokens (a space before every
+    word keeps the tokens of ``head`` as they were)."""
+    base = len(tokenizer.encode(head)) if head else 0
+    text = head
+    while len(tokenizer.encode(text)) - base < n_tokens:
+        text += "".join(" " + "".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                                      for _ in range(rng.randint(2, 7))) for _ in range(6))
+    return text
+
+
+def prefetch_texts(tokenizer, sessions: dict) -> list[list[str]]:
+    """Every session's turn prompts, from seed 0."""
+    out = []
+    for i in range(sessions["sessions"]):
+        rng = random.Random(7000 + i)
+        history = words_after(tokenizer, rng, f"session {i}:", sessions["context_tokens"])
+        turns = []
+        for _ in range(sessions["turns"]):
+            history = words_after(tokenizer, rng, history, sessions["user_tokens"])
+            turns.append(history)
+            history = words_after(tokenizer, rng, history, sessions["osl"])
+        out.append(turns)
+    return out
+
+
+async def run_prefetch_sessions(session, port: int, model: str, texts, sessions: dict) -> dict:
+    """Replay the sessions through the frontend (text completions, streamed,
+    greedy): every request's e2e, and the returning turns' TTFT."""
+    t_start = time.perf_counter()
+    results = []
+
+    async def one(i: int, turns: list[str]) -> None:
+        await asyncio.sleep(i * sessions["stagger_s"])
+        for t, prompt in enumerate(turns):
+            if t:
+                await asyncio.sleep(sessions["think_s"])
+            r = await stream_completion(session, port, model, prompt, sessions["osl"])
+            results.append({**r, "session": i, "turn": t})
+
+    await asyncio.gather(*(one(i, turns) for i, turns in enumerate(texts)))
+    wall = time.perf_counter() - t_start
+    e2e = traffic_e2e("prefetch", results, wall)
+    back = [r["stamps"][0] - r["t0"] for r in results if r["turn"] > 0]
+    return {"returning_ttft_ms_p50": pctile(back, 0.5) * 1e3,
+            "returning_ttft_ms_p99": pctile(back, 0.99) * 1e3,
+            **{k: e2e[k] for k in ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99",
+                                   "output_tok_s", "requests", "wall_s")}}
+
+
+async def http_json(session, method: str, url: str, body: dict | None = None):
+    async with session.request(method, url, json=body) as r:
+        text = await r.text()
+        return r.status, r.headers, text
+
+
+async def prefetch_frontend_checks(session, runtime, model: str, base: str, before: str) -> dict:
+    """The frontend's surfaces after the pager run: /metrics against its
+    scrape before the traffic, /slo, one n = 2 request, then a burst through
+    a second frontend whose admission gate is smaller than the burst."""
+    from dynamo_tpu_torch.robustness.admission import AdmissionConfig
+    from dynamo_tpu_torch.runtime.client import RouterMode
+    from dynamo_tpu_torch.serve import serve_frontend
+
+    def requests_ok(text: str) -> float:
+        return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                   if line.startswith("dyn_llm_http_service_requests_total{")
+                   and 'status="success"' in line)
+
+    _, _, after = await http_json(session, "GET", f"{base}/metrics")
+    status, _, slo = await http_json(session, "GET", f"{base}/slo")
+    slo = json.loads(slo)
+    if status != 200 or set(slo["objectives"]) != {"ttft", "itl", "error_rate"}:
+        raise AssertionError(f"/slo answered {status}: {slo}")
+    status, _, text = await http_json(session, "POST", f"{base}/v1/completions", {
+        "model": model, "prompt": "two choices, please", "max_tokens": 8, "n": 2,
+        "temperature": 0, "ext": {"ignore_eos": True}})
+    body = json.loads(text)
+    if status != 200 or [c["index"] for c in body["choices"]] != [0, 1] \
+            or body["usage"]["completion_tokens"] != 16:
+        raise AssertionError(f"n = 2 answered {status}: {text[:500]}")
+    gate = AdmissionConfig(max_inflight=2, max_queue_depth=2, queue_timeout_s=0.2,
+                           retry_after_s=1.0)
+    service, watcher = await serve_frontend(runtime, host="127.0.0.1", port=0,
+                                            router_mode=RouterMode.KV, admission=gate)
+    try:
+        gated = f"http://127.0.0.1:{service.port}"
+        t0 = time.perf_counter()
+        while model not in (await http_json(session, "GET", f"{gated}/v1/models"))[2]:
+            if time.perf_counter() - t0 > 60:
+                raise TimeoutError("the gated frontend found no model")
+            await asyncio.sleep(0.1)
+        burst = await asyncio.gather(*[http_json(session, "POST", f"{gated}/v1/completions", {
+            "model": model, "prompt": f"burst {i}: go on", "max_tokens": 64, "temperature": 0,
+            "ext": {"ignore_eos": True}}) for i in range(10)])
+        codes = [s for s, _, _ in burst]
+        retry = sorted({h.get("Retry-After") for s, h, _ in burst if s != 200})
+        _, _, gated_metrics = await http_json(session, "GET", f"{gated}/metrics")
+        _, _, gated_slo = await http_json(session, "GET", f"{gated}/slo")
+    finally:
+        await watcher.stop()
+        await service.stop()
+    shed = [line for line in gated_metrics.splitlines() if line.startswith("dyn_shed_total")]
+    out = {"requests_ok_before": requests_ok(before), "requests_ok_after": requests_ok(after),
+           "slo_worst_burn_rate": slo["worst_burn_rate"],
+           "slo_objectives": {k: {n: v for n, v in o.items() if n.endswith("_total")}
+                              for k, o in slo["objectives"].items()},
+           "burst_codes": {str(c): codes.count(c) for c in sorted(set(codes))},
+           "burst_retry_after": retry, "dyn_shed_total": shed,
+           "gated_slo_objectives": sorted(json.loads(gated_slo)["objectives"])}
+    if set(codes) - {200, 429, 503} or 429 not in codes or 200 not in codes \
+            or retry != ["1"]:
+        raise AssertionError(f"the admission burst: {out}")
+    return out
+
+
+async def prefetch_mode(mode: str, model: str, mdir: Path, device: str, texts,
+                        sessions: dict, probe: tuple, engine_kw: dict, churn: tuple) -> dict:
+    """One run of the sessions through a fresh worker and KV-routed frontend
+    over a memory control plane in this process: ``DYN_PREFETCH`` 0
+    (demand) or 1 (pager).  Then the probe: its prefix computed alone and
+    pushed out of G1 by churn sent alone, restored by a hint through the
+    frontend's hinter (pager) or on demand, and its greedy ids."""
+    import aiohttp
+
+    from dynamo_tpu_torch.llm.kv_router.hashing import compute_block_hashes
+    from dynamo_tpu_torch.llm.protocols.openai import CompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.runtime.client import RouterMode
+    from dynamo_tpu_torch.serve import serve_frontend, serve_worker
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    os.environ["DYN_PREFETCH"] = "1" if mode == "pager" else "0"
+    runtime = await DistributedRuntime.create(RuntimeConfig(
+        control_plane=f"memory://smoke-prefetch-{mode}"))
+    worker = service = watcher = None
+    out: dict = {"mode": mode}
+    try:
+        t0 = time.perf_counter()
+        worker = await serve_worker(runtime, mdir, model_name=model, engine_kind="torch",
+                                    device=device, warmup=True, **engine_kw)
+        out["worker_launch_s"] = time.perf_counter() - t0
+        engine = worker.engine
+        if (engine.prefetch_pager is None) != (mode == "demand"):
+            raise AssertionError(f"{mode}: the worker's pager is {engine.prefetch_pager}")
+        service, watcher = await serve_frontend(runtime, host="127.0.0.1", port=0,
+                                                router_mode=RouterMode.KV)
+        if (service.prefetch_hinter is None) != (mode == "demand"):
+            raise AssertionError(f"{mode}: the frontend's hinter is {service.prefetch_hinter}")
+        base = f"http://127.0.0.1:{service.port}"
+        tok = HfTokenizer.from_model_dir(mdir)
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            while model not in (await http_json(s, "GET", f"{base}/v1/models"))[2]:
+                if time.perf_counter() - t0 > PREFETCH_LAUNCH_S:
+                    raise TimeoutError(f"{mode}: no model registered")
+                await asyncio.sleep(0.1)
+            status, _, text = await http_json(s, "POST", f"{base}/clear_kv_blocks")
+            if status != 200:
+                raise AssertionError(f"/clear_kv_blocks answered {status}: {text}")
+            _, _, before = await http_json(s, "GET", f"{base}/metrics")
+            stats0 = engine.stats()
+            zero_counters()
+            out["traffic"] = await run_prefetch_sessions(s, service.port, model, texts, sessions)
+            counts = read_counters()
+            stats1 = engine.stats()
+            out["counts"] = counts
+            out["run"] = {k: stats1[k] - stats0.get(k, 0) for k in PREFETCH_COUNTS if k in stats1}
+            out["flight_buffer_bytes"] = stats1["flight_buffer_bytes"]
+            out["flight_records_total"] = stats1["flight_records_total"]
+            leaves = len(engine.cache)
+            for row, key, ms in (("gather", "block_copy.gather_launches", "offload_gather_ms_total"),
+                                 ("scatter", "block_copy.scatter_launches",
+                                  "restore_scatter_ms_total")):
+                calls = counts[key] / leaves
+                out[f"{row}_calls"] = calls
+                out[f"{row}_device_ms_per_call"] = (out["run"][ms] / calls if calls and ms in
+                                                    out["run"] else "not measured")
+
+            # the probe, alone on the engine
+            await settled(engine)
+            rng = random.Random(99)
+            prefix = words_after(tok, rng, "probe:", probe[0])
+            probe_text = words_after(tok, rng, prefix, probe[1])
+            alone = [prefix] + [words_after(tok, random.Random(500 + i), "churn:", n)
+                                for i, n in enumerate(churn)]
+            for text in alone:
+                await settled(engine)
+                r = await stream_completion(s, service.port, model, text, 1)
+                if r["status"] != 200:
+                    raise AssertionError(f"a probe-setup request answered {r['status']}")
+            await settled(engine)
+            probe_ids = tok.encode(probe_text)
+            hashes = compute_block_hashes(probe_ids, engine.config.block_size)
+            on_device = sum(engine.allocator.is_registered(h) for h in hashes)
+            # the prefix's blocks in the tiers: what a hint can restore
+            held = []
+            for h in hashes:
+                if engine.host_tier.locate(h) is None:
+                    break
+                held.append(h)
+            before_probe = engine.stats()
+            if mode == "pager":
+                # the probe's arrival hint, through the frontend's hinter, the
+                # router's forwarder and the worker's listener to the pager
+                service.prefetch_hinter.on_request(model, CompletionRequest(
+                    model=model, prompt=probe_text, max_tokens=PROBE_TOKENS))
+                t1 = time.perf_counter()
+                while not all(engine.allocator.is_registered(h) for h in held):
+                    if time.perf_counter() - t1 > 60:
+                        raise AssertionError("the probe's hint restored nothing: "
+                                             f"{engine.stats()}")
+                    await asyncio.sleep(0.01)
+            out["probe_ids"] = await generate_tokens(engine, probe_ids, PROBE_TOKENS)
+            after_probe = engine.stats()
+            out["probe"] = {"blocks": len(hashes), "on_device_before": on_device,
+                            "in_tiers_before": len(held), **{
+                k: after_probe[k] - before_probe.get(k, 0)
+                for k in ("host_restores_total", "prefetch_hits_total",
+                          "prefetch_blocks_restored_total", "prefix_hits_total")
+                if k in after_probe}}
+            if mode == "pager":
+                out["frontend"] = await prefetch_frontend_checks(s, runtime, model, base, before)
+        final = engine.stats()
+        out["captured_after_warmup"] = {k: final[k] for k in final
+                                        if k.endswith("captured_after_warmup")}
+        out["warmup_s"] = final["warmup_s"]
+    finally:
+        os.environ.pop("DYN_PREFETCH", None)
+        if watcher is not None:
+            await watcher.stop()
+        if service is not None:
+            await service.stop()
+        if worker is not None:
+            await worker.shutdown()
+        await runtime.close()
+    return out
+
+
+def phase_prefetch(card: str, config: dict = LLAMA3_8B, device: str = "cuda",
+                   sessions: dict = PREFETCH_SESSIONS, probe: tuple = PREFETCH_PROBE,
+                   engine_kw: dict = PREFETCH_ENGINE, churn: tuple = PREFETCH_CHURN) -> dict:
+    """Demand against predictive paging, the hints crossing the real path
+    (FrontendHinter → PrefetchForwarder → PrefetchListener → pager → row 7):
+    the same sessions through a fresh worker with ``DYN_PREFETCH=0``, then
+    with it on.  Fails when a request is not a 200 with its tokens, the pager
+    run shows no prefetch hit or no pager restore, the probe's greedy ids
+    differ between the runs, the pager drained the overlap more often than
+    demand paging, or a graph was captured after warmup.  ``device`` "cpu"
+    (with a small ``config``, ``sessions``, ``engine_kw`` and ``churn``)
+    rehearses it on the CPU."""
+    model = "llama3-8b-prefetch"
+    mdir = model_dir(model, config)
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+
+    texts = prefetch_texts(HfTokenizer.from_model_dir(mdir), sessions)
+    runs = {}
+    for mode in ("demand", "pager"):
+        runs[mode] = asyncio.run(prefetch_mode(mode, model, mdir, device, texts, sessions, probe,
+                                               engine_kw, churn))
+        log(f"[prefetch] {mode}: {runs[mode]}")
+        gc.collect()
+        if device == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()
+    demand, pager = runs["demand"], runs["pager"]
+    line = {"card": card, **{m: {k: r[k] for k in ("traffic", "run", "probe", "worker_launch_s",
+                                                    "warmup_s", "gather_calls", "scatter_calls",
+                                                    "gather_device_ms_per_call",
+                                                    "scatter_device_ms_per_call",
+                                                    "flight_buffer_bytes")}
+                               for m, r in runs.items()},
+            "frontend": pager["frontend"], "probe_ids_equal": demand["probe_ids"] == pager["probe_ids"]}
+    print(json.dumps({"smoke_prefetch": line}), flush=True)
+    run = pager["run"]
+    if run.get("prefetch_hits_total", 0) <= 0 or run.get("prefetch_blocks_restored_total", 0) <= 0:
+        raise AssertionError(f"the pager run shows no prefetch hit or restore: {run}")
+    if device == "cuda" and pager["counts"]["block_copy.scatter_launches"] <= 0:
+        raise AssertionError(f"no restore ran through row 7 under the pager: {pager['counts']}")
+    if pager["probe"].get("prefetch_hits_total", 0) <= 0 or demand["probe"]["host_restores_total"] <= 0:
+        raise AssertionError(f"the probe was not restored by hint and on demand: "
+                             f"{pager['probe']} / {demand['probe']}")
+    if demand["probe_ids"] != pager["probe_ids"]:
+        raise AssertionError(f"the probe's greedy ids differ: demand {demand['probe_ids']}, "
+                             f"pager {pager['probe_ids']}")
+    front = pager["frontend"]
+    if front["requests_ok_after"] - front["requests_ok_before"] < len(texts) * sessions["turns"]:
+        raise AssertionError(f"/metrics counted too few successful requests: {front}")
+    if run["offload_drains_total"] > demand["run"]["offload_drains_total"]:
+        raise AssertionError(f"the pager drained the overlap {run['offload_drains_total']} "
+                             f"times, demand paging {demand['run']['offload_drains_total']}")
+    for r in runs.values():
+        if any(r["captured_after_warmup"].values()):
+            raise AssertionError(f"a graph was captured after warmup: {r['captured_after_warmup']}")
+        if device == "cuda" and (r["counts"]["plain_calls"] or any(
+                r["counts"][k] <= 0 for k in LLAMA_PATH + OFFLOAD_PATH)):
+            raise AssertionError(f"a kernel of the path did not run on the card: {r['counts']}")
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -3050,14 +3402,15 @@ def unified_skip_check(torch, engine, vocab: int) -> dict:
 
 
 def phase_overlap_both(torch, card: str) -> dict:
-    return {
-        "llama": phase_overlap(torch, card, "llama", "llama3-8b-smoke", LLAMA3_8B,
-                               "paged_attention.launches", "ragged_attention.launches",
-                               LLAMA_PATH, True),
-        "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
-                             "mla_attention.decode_launches", "mla_attention.ragged_launches",
-                             MLA_PATH, False),
-    }
+    llama = phase_overlap(torch, card, "llama", "llama3-8b-smoke", LLAMA3_8B,
+                          "paged_attention.launches", "ragged_attention.launches",
+                          LLAMA_PATH, True)
+    gc.collect()  # the Llama engines are stopped: free them before DeepSeek's
+    torch.cuda.empty_cache()
+    return {"llama": llama,
+            "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
+                                 "mla_attention.decode_launches", "mla_attention.ragged_launches",
+                                 MLA_PATH, False)}
 
 
 # the speculative phase's chats repeat a phrase, so prompt lookup has
@@ -3923,8 +4276,9 @@ def phase_quant(torch, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 OFFLOAD_PATH = ("block_copy.gather_launches", "block_copy.scatter_launches")
+# demand paging (no prefetch pager), so its restores compare with earlier runs
 OFFLOAD = dict(num_blocks=256, max_batch_size=8, max_model_len=4096,
-               host_offload_blocks=192, disk_offload_blocks=128)
+               host_offload_blocks=192, disk_offload_blocks=128, prefetch=False)
 # prompt lengths (tokens) of the offload traffic: A, the churn that evicts A
 # to G2, the churn that cascades A's copies into G3
 OFFLOAD_A, OFFLOAD_CHURN_G2, OFFLOAD_CHURN_G3 = 1500, (2400, 2400), (2400, 2400, 2400)
@@ -3958,14 +4312,17 @@ async def generate_tokens(engine, tokens: list[int], max_tokens: int,
 
 
 async def settled(engine, timeout_s: float = 30.0) -> None:
-    """Wait until the engine holds no sequence.  With decode overlapped a
-    finished request releases its lane one window late, so a request sent
-    at once may land on another lane; DeepSeek's MoE, whose expert
-    capacity (one pair an expert at eight lanes) is filled in lane order,
-    gives a request other tokens on another lane.  Requests compared for
-    equal tokens start from the same free lanes."""
+    """Wait until the engine holds no sequence and no queued offload or
+    restore (their copies land, and their times are counted, at a loop
+    top).  With decode overlapped a finished request releases its lane one
+    window late, so a request sent at once may land on another lane;
+    DeepSeek's MoE, whose expert capacity (one pair an expert at eight
+    lanes) is filled in lane order, gives a request other tokens on another
+    lane.  Requests compared for equal tokens start from the same free
+    lanes."""
     t0 = time.perf_counter()
-    while engine.scheduler.num_running:
+    while (engine.scheduler.num_running or getattr(engine, "_queued_restores", None)
+           or getattr(engine, "_queued_offloads", None)):
         if time.perf_counter() - t0 > timeout_s:
             raise AssertionError(f"engine still holds {engine.scheduler.num_running} "
                                  f"sequences after {timeout_s} s")
@@ -4362,7 +4719,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out = fn(*args)
-            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+            gc.collect()
+            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s; "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
             return out
 
         if "kernels" in phases:
@@ -4379,6 +4738,8 @@ def main() -> int:
                     raise AssertionError(f"the workers' greedy ids {dist['probe_ids']} differ "
                                          f"from phase serve's {serve['probe_ids']}")
                 log("[dist] the workers' greedy ids equal phase serve's")
+        if "prefetch" in phases:
+            run("prefetch", phase_prefetch, card)
         if "mla" in phases:
             mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
                       DEEPSEEK_V2_LITE, MLA_PATH)

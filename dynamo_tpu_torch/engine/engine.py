@@ -27,8 +27,11 @@ Architecture, as in the reference:
   the device cache offload to host memory (one block-gather kernel launch
   a cache leaf, one copy to pinned memory), cascade down-tier, and restore
   on a later prefix hit (one copy to the device, one block-scatter kernel
-  launch a leaf) instead of being recomputed.  Paging is on demand: the
-  reference's predictive prefetch pager is a later slice.
+  launch a leaf) instead of being recomputed; on a card the offloads and
+  restores are queued behind the window in flight, never waited for.
+  With a tier mounted the predictive prefetch pager (``prefetch``, on by
+  default through ``DYN_PREFETCH``) pages hinted prefixes back between
+  steps;
 All steps end in the same sampling tail.
 
 Decode overlaps by default (``decode_overlap``), as in the reference: a
@@ -57,7 +60,12 @@ step and its graphs.  Every scheduler iteration feeds the reference's
 utilization accounting (``observability/``: tokens, attended context,
 weight streams, emitted tokens) into ``stats()``'s MFU and bandwidth share.
 
-Guided decoding, multimodal prompts, disaggregated prefill, prefetch and
+Every loop iteration checks the ``engine.step`` fault seam and writes a
+step record to the engine's flight recorder (preemptions, step errors and
+unified-step fallbacks as events); a traced request gets ``engine.queue``,
+``engine.prefill`` and ``engine.decode`` spans under its trace.
+
+Guided decoding, multimodal prompts, disaggregated prefill and
 multi-device meshes are later slices; the engine refuses configurations
 that would need them.
 
@@ -91,7 +99,7 @@ from dynamo_tpu_torch.engine.graphs import (
     VerifyGraph,
     launch_counters,
 )
-from dynamo_tpu_torch.engine.kv_manager import BlockAllocator, KvEvent
+from dynamo_tpu_torch.engine.kv_manager import BlockAllocator, KvEvent, compute_block_hashes
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -101,13 +109,21 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.models.registry import get_family
-from dynamo_tpu_torch.observability import StepTelemetry, UtilizationTracker, model_cost
+from dynamo_tpu_torch.observability import (
+    FlightRecorder,
+    StepTelemetry,
+    TraceContext,
+    UtilizationTracker,
+    get_recorder,
+    model_cost,
+)
 from dynamo_tpu_torch.ops.kernels import block_copy
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.quant import is_quantized, quantize_params
+from dynamo_tpu_torch.robustness.faults import ENGINE_STEP, FAULTS
 from dynamo_tpu_torch.runtime.engine import Context, ResponseStream
-from dynamo_tpu_torch.utils import profiling
+from dynamo_tpu_torch.utils import knobs, profiling
 from dynamo_tpu_torch.utils.logging import get_logger
 from dynamo_tpu_torch.utils.tasks import spawn_logged
 
@@ -208,10 +224,13 @@ class EngineConfig:
     # over TCP and prefix hits restore from it (None = off; needs
     # host_offload_blocks > 0).
     remote_store_addr: str | None = None
-    # Predictive prefetch over the offload tiers.  The port pages on demand
-    # only (the reference's prefetch=False); True raises until the pager is
-    # ported with the router hints it reads.
-    prefetch: bool = False
+    # Predictive prefetch over the offload tiers (prefetch/): hinted
+    # prefixes page disk→host→device between engine steps, bounded by a
+    # device headroom reservation so prefetch can never preempt running
+    # work, and hot prefixes pin host-resident.  None = DYN_PREFETCH env
+    # (default on); only effective when an offload tier is mounted.
+    # DYN_PREFETCH=0 (or False) restores fully demand-driven paging.
+    prefetch: bool | None = None
     # Overlapped decode pipeline: dispatch the next decode window with its
     # input tokens fed back on the device and retire the previous window
     # (readback, emission) while the new one runs (in-flight depth 1).  The
@@ -347,6 +366,12 @@ class TorchLlmEngine:
         self._spec_accepted = 0
         self._verify_steps = 0
 
+        # the perf flight recorder (observability/flight.py): a bounded ring
+        # of step records and events (preemption, step_error,
+        # unified_fallback), dumped on demand or on a step error;
+        # DYN_FLIGHT=0 makes every hook a no-op
+        self.flight = FlightRecorder(source="engine")
+        self._flight_preemptions = 0  # the last preemption total recorded
         # unified-batch fallbacks: reason slug -> count (stats()), each
         # reason logged once per engine
         self._unified_fallbacks: dict[str, int] = {}
@@ -382,7 +407,7 @@ class TorchLlmEngine:
         self._inflight: _InflightWindow | None = None
         self._overlap_windows = 0     # windows dispatched with token feedback
         self._admission_drains = 0    # pipeline drains forced by a new lane
-        self._offload_drains = 0      # windows in flight at an offload/restore sync
+        self._offload_drains = 0      # windows in flight at a wait for a queued offload
         # the host values behind the sampling tail's device buffers: a
         # window uploads them only when they changed
         self._tail_cache: tuple | None = None
@@ -431,12 +456,6 @@ class TorchLlmEngine:
         self._step_attn_ctx = 0          # attended context positions
         self._step_weight_streams = 0.0  # full weight passes dispatched
 
-        if config.prefetch:
-            raise NotImplementedError(
-                "predictive prefetch comes with a later slice of the port (ROADMAP "
-                "Queue 1 item 4b, the router hints it reads); prefetch=False pages "
-                "offloaded blocks back on demand"
-            )
         # the offload tiers below the device cache (G2 host → G3 disk → G4
         # remote): one payload a block, each leaf's [L, ...] slice
         self.host_tier = None
@@ -445,6 +464,14 @@ class TorchLlmEngine:
         # clock), the copies to the device and the scatter kernels (CUDA
         # events on a card, the host clock on the CPU)
         self._restore_ms = {"stage": 0.0, "copy": 0.0, "scatter": 0.0}
+        # the pager's restores, queued behind the window in flight on a card:
+        # (events, staging buffers) each, kept until its scatters have run
+        self._queued_restores: list[tuple[list, tuple]] = []
+        # evictions offloading on a card: (pairs, host buffers, events) each,
+        # put into the tiers once the last event has completed
+        self._queued_offloads: list[tuple[list, dict, list]] = []
+        self._offload_gather_ms = 0.0  # the offloads' gathers (CUDA events)
+        self._landing = False         # _land_offloads is putting
         offload_sink = None
         if config.host_offload_blocks:
             from dynamo_tpu_torch.engine.offload import HostOffloadTier
@@ -462,6 +489,9 @@ class TorchLlmEngine:
             # G2→G3→G4 cascade) while no longer device-resident: routers
             # must forget it
             self.host_tier.evict_observer = self._host_evicted
+            # a tier read of a hash whose offload is still queued lands the
+            # queued offloads first
+            self.host_tier.settle = self._settle_offloads
         elif config.disk_offload_blocks or config.remote_store_addr:
             # a silently ignored tier config is worse than a loud one: the
             # operator believes offload is on while nothing mounts
@@ -477,12 +507,38 @@ class TorchLlmEngine:
             offload_sink=offload_sink, host_tier=self.host_tier,
             event_sink=self._sink_event,
         )
+        # predictive prefetch: the pager and its device headroom (only with
+        # an offload tier mounted: with nothing below the device cache there
+        # is nothing to page in ahead of time)
+        self.prefetch_pager = None
+        self._prefetch_headroom_blocks = 0
+        self._prefetch_failures = 0  # speculative restores that raised
+        if self.host_tier is not None:
+            from dynamo_tpu_torch.prefetch.hints import prefetch_enabled
+            from dynamo_tpu_torch.prefetch.pager import PrefetchPager
+
+            enabled = config.prefetch if config.prefetch is not None else prefetch_enabled()
+            if enabled:
+                self.prefetch_pager = PrefetchPager(
+                    ttl_s=knobs.get("DYN_PREFETCH_TTL"),
+                    blocks_per_step=knobs.get("DYN_PREFETCH_BLOCKS"),
+                )
+                self._prefetch_trace = TraceContext.new_root()
+                self.allocator.prefetch_tracker = self.prefetch_pager
+                self._prefetch_headroom_blocks = max(
+                    self.allocator.watermark_blocks,
+                    int(config.num_blocks * knobs.get("DYN_PREFETCH_HEADROOM")),
+                )
+            # nothing drains pin candidates without the pager, and
+            # DYN_PREFETCH=0 must be bookkeeping-free demand paging
+            self.host_tier.pin_enabled = self.prefetch_pager is not None
         self.scheduler = Scheduler(
             self.allocator, max_batch_size=lanes,
             prefill_chunk_tokens=self.chunk_tokens,
             bucket_cost=self._bucket_len,
             unified_batch=self.unified_batch,
         )
+        self.scheduler.on_preempt = self._on_preempt
         self._iterations = 0
         self.warmup_s: float | None = None  # warmup()'s wall seconds
         # per-lane block-table host rows, rewritten only for lanes whose
@@ -682,6 +738,7 @@ class TorchLlmEngine:
                 f"prompt length {len(pre.token_ids)} exceeds engine max length {self.max_len}"
             )
         seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre)
+        seq.trace = getattr(ctx, "trace", None)
         return self._start_sequence(seq, ctx)
 
     def _start_sequence(self, seq: Sequence, ctx) -> ResponseStream[dict]:
@@ -740,6 +797,20 @@ class TorchLlmEngine:
         self._wake.set()
         await fut
 
+    # -- predictive prefetch ------------------------------------------------
+    def prefetch_hint(self, block_hashes: list[int], *, source: str = "arrival") -> bool:
+        """Announce a prefix expected to be requested soon (thread-safe;
+        called by the worker's PrefetchListener from the asyncio thread).
+        The device loop pages the hinted blocks disk→host→device between
+        steps.  Returns False when prefetch is off or there is nothing new
+        to queue."""
+        if self.prefetch_pager is None:
+            return False
+        queued = self.prefetch_pager.submit(block_hashes, source=source)
+        if queued:
+            self._wake.set()
+        return queued
+
     def _sink_event(self, event: KvEvent) -> None:
         if self._event_sink is not None:
             self._event_sink(event)
@@ -755,6 +826,8 @@ class TorchLlmEngine:
             # is current mid-step, the tracker's at the step's end)
             **self.step_telemetry.stats(),
             **self.utilization.stats(),
+            # flight-recorder summary (ring occupancy and dump bookkeeping)
+            **self.flight.stats(),
             "kv_active_blocks": self.allocator.used_blocks,
             "kv_total_blocks": self.allocator.num_blocks,
             "kv_cached_blocks": self.allocator.cached_blocks,
@@ -774,8 +847,9 @@ class TorchLlmEngine:
             "decode_windows_sync_total": self._sync_windows,
             "decode_windows_unified_total": self._unified_windows,
             "admission_drains_total": self._admission_drains,
-            # syncs of the stream by an offload or a restore while a window
-            # was in flight (each one drains it)
+            # waits for the device while a window was in flight (each one
+            # drains it): a tier read of a block whose queued offload had
+            # not landed
             "offload_drains_total": self._offload_drains,
             # reason slug -> windows (or the engine init) that fell back
             # from the unified step to the split step
@@ -809,6 +883,13 @@ class TorchLlmEngine:
             out.update(self.host_tier.stats())
             out["offload_tiers"] = self.host_tier.tiers_snapshot()
             out.update({f"restore_{k}_ms_total": v for k, v in self._restore_ms.items()})
+            if self.device.type == "cuda":  # CUDA events: measured on a card only
+                out["offload_gather_ms_total"] = self._offload_gather_ms
+        if self.prefetch_pager is not None:
+            out.update(self.prefetch_pager.stats())
+            # speculative restores that raised and were aborted (best-effort,
+            # as the reference's)
+            out["prefetch_restore_failures_total"] = self._prefetch_failures
         if self.phase_stats:
             # snapshot: the device thread inserts keys concurrently
             out["phase_ms"] = {
@@ -829,10 +910,24 @@ class TorchLlmEngine:
         )
         while not self._stop:
             try:
+                # chaos seam: an injected step failure exercises the loop's
+                # keep-alive catch below (the thread survives, requests go on)
+                FAULTS.check(ENGINE_STEP)
+                # queued offloads and restores whose copies have landed: the
+                # offloads enter the tiers, the restores' staging buffers go
+                self._reap_queued()
                 # evictions queued outside a device-thread mutator offload
                 # here, before anything can write into the evicted blocks
                 self.allocator.flush_offloads()
                 self._drain_submissions()
+                if self.prefetch_pager is not None and self.prefetch_pager.has_work():
+                    # page hinted blocks up-tier between steps: a bounded
+                    # slice when serving, full throttle when idle.  Progress
+                    # while idle loops again at once: an idle engine's job
+                    # is to page.
+                    progress = self._run_prefetch(idle=not self.scheduler.has_work())
+                    if progress and not self.scheduler.has_work():
+                        continue
                 if not self.scheduler.has_work():
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
@@ -848,20 +943,25 @@ class TorchLlmEngine:
                 self._iterations += 1
                 self._observe_step(time.perf_counter() - t_step,
                                    self._tokens_emitted - emitted_before)
-            except Exception:  # noqa: BLE001 — scheduler-level bug: keep the
-                # thread alive (callers would hang forever), don't hot-spin
+            except Exception as exc:  # noqa: BLE001 — scheduler-level bug: keep
+                # the thread alive (callers would hang forever), don't hot-spin
                 logger.exception("engine step failed")
+                if self.flight.enabled:
+                    self.flight.record_event("step_error", error=f"{type(exc).__name__}: {exc}")
+                    self.flight.maybe_dump("step_error")
                 time.sleep(0.1)
         # shutdown with a window in flight: retire it so its tokens reach
-        # their streams
+        # their streams; queued copies land before their buffers go
         try:
             self._sync_pipeline()
+            self._reap_queued(wait=True)
         except Exception:  # noqa: BLE001
             logger.exception("pipeline drain at shutdown failed")
 
     def _observe_step(self, duration_s: float, emitted: int) -> None:
-        """Feed the iteration's facts to the step telemetry and the
-        utilization tracker (the reference's engine.py:2352-2369)."""
+        """Feed the iteration's facts to the step telemetry, the
+        utilization tracker and the flight recorder (the reference's
+        engine.py:2352-2393)."""
         self.step_telemetry.observe_step(
             iteration=self._iterations,
             num_running=self.scheduler.num_running,
@@ -879,6 +979,26 @@ class TorchLlmEngine:
             attn_ctx_tokens=self._step_attn_ctx,
             weight_streams=self._step_weight_streams,
             emitted_tokens=emitted,
+        )
+        if not self.flight.enabled:
+            return
+        preempted = self.scheduler.preemptions_total
+        if preempted > self._flight_preemptions:
+            self.flight.record_event("preemption", count=preempted - self._flight_preemptions,
+                                     total=preempted)
+            self._flight_preemptions = preempted
+        rates = self.utilization.rates()
+        self.flight.record_step(
+            iteration=self._iterations,
+            num_running=self.scheduler.num_running,
+            num_waiting=self.scheduler.num_waiting,
+            kv_usage=self.allocator.usage,
+            prefill_tokens=self._step_prefill_tokens,
+            decode_tokens=self._step_decode_tokens,
+            emitted_tokens=emitted,
+            step_duration_s=duration_s,
+            mfu=rates["mfu_perc"],
+            goodput_tok_s=rates["goodput_tokens_per_second"],
         )
 
     def _count_window(self, decode_tokens: int, attn_ctx: int, streams: float) -> None:
@@ -902,11 +1022,16 @@ class TorchLlmEngine:
         for seq in decision.prefills:
             if seq.status == SeqStatus.FINISHED:
                 continue  # failed or aborted before this step got to it
+            self._maybe_record_queue_span(seq)
+            t_prefill = time.time()
             try:
                 self._run_prefill(seq)
             except Exception as exc:  # noqa: BLE001
                 logger.exception("prefill failed for %s", seq.seq_id)
+                self._record_prefill_span(seq, t_prefill, status="error")
                 self._fail_sequence(seq, exc)
+            else:
+                self._record_prefill_span(seq, t_prefill)
         decodes = [s for s in self.scheduler.running if s.status == SeqStatus.RUNNING]
         if not decodes:
             if self._inflight is not None:
@@ -928,6 +1053,8 @@ class TorchLlmEngine:
         """Count a fallback from the unified step under a reason slug, and
         log each reason once per engine."""
         self._unified_fallbacks[reason] = self._unified_fallbacks.get(reason, 0) + 1
+        if self.flight.enabled:
+            self.flight.record_event("unified_fallback", reason=reason)
         if reason not in self._unified_fallback_logged:
             self._unified_fallback_logged.add(reason)
             logger.info("unified batch fallback [%s]: %s", reason,
@@ -1075,6 +1202,7 @@ class TorchLlmEngine:
         emit_seqs: list[Sequence] = []
         cursor = 0
         for seq in decodes:
+            self._decode_started(seq)
             lane = seq.lane
             dev_ctx = min(seq.context_len + (seq.inflight_tokens if overlap else 0),
                           self.max_len)
@@ -1091,6 +1219,7 @@ class TorchLlmEngine:
             emit_seqs.append(seq)
             cursor += 1
         for seq, start, end in spans:
+            self._maybe_record_queue_span(seq)
             lane = seq.lane
             tokens = seq.all_token_ids
             span = end - start
@@ -1149,6 +1278,7 @@ class TorchLlmEngine:
         if timing:
             t = self._phase("decode.dispatch", t)
 
+        t_prefill = time.time()
         for seq, start, end in spans:
             seq.prefilled_tokens = end
             self._count_prefill(start, end)
@@ -1159,6 +1289,7 @@ class TorchLlmEngine:
                 self.allocator.publish_stored(seq.seq_id, all_tokens)
             else:
                 self.allocator.publish_stored(seq.seq_id, all_tokens[:end])
+            self._record_prefill_span(seq, t_prefill)
         self._count_window(len(decodes), int(sum(context_lens[s.lane] for s in decodes)), 1)
         self._unified_windows += 1
         if decodes:
@@ -1224,9 +1355,67 @@ class TorchLlmEngine:
         event.record(torch.cuda.current_stream(self.device))
         return host_tokens, host_lps, event
 
+    # -- request spans (engine.queue / engine.prefill / engine.decode) ------
+    def _record_prefill_span(self, seq: Sequence, start_ts: float,
+                             status: str = "ok") -> None:
+        """One span per prefill window (a chunked prefill shows every
+        chunk).  The window that sampled the first token carries the
+        engine-side TTFT (arrival → first sample), once a request: a
+        preemption's recompute is not a first-token event."""
+        if seq.trace is None:
+            return
+        # intermediate chunks leave the sequence PREFILLING
+        final = seq.status is not SeqStatus.PREFILLING
+        attrs = {"prefilled_tokens": seq.prefilled_tokens, "cached_tokens": seq.cached_tokens}
+        if final and status == "ok" and not seq.ttft_recorded:
+            seq.ttft_recorded = True
+            attrs["ttft_s"] = max(0.0, time.time() - seq.arrival_ts)
+        get_recorder().record("engine.prefill", seq.trace, start_ts, time.time(),
+                              component="engine", status=status, attrs=attrs)
+
+    def _on_preempt(self, seq: Sequence) -> None:
+        """Scheduler preemption hook: close the victim's decode span and
+        re-arm its queue span, which then measures the re-admission wait
+        from the preemption instant (TTFT keeps ``arrival_ts``)."""
+        self._record_decode_span(seq, status="preempted")
+        if seq.trace is not None:
+            seq.queue_span_recorded = False
+            seq.queue_start_ts = time.time()
+
+    def _maybe_record_queue_span(self, seq: Sequence) -> None:
+        """One engine.queue span an admission: submission (or preemption)
+        → the first step that put the sequence on the device."""
+        if seq.trace is None or seq.queue_span_recorded:
+            return
+        seq.queue_span_recorded = True
+        get_recorder().record(
+            "engine.queue", seq.trace, seq.queue_start_ts or seq.arrival_ts, time.time(),
+            component="engine",
+            attrs={"prompt_tokens": seq.prompt_len, "cached_tokens": seq.cached_tokens},
+        )
+
+    def _decode_started(self, seq: Sequence) -> None:
+        """At every decode dispatch: open the sequence's decode span at its
+        first decode step."""
+        if seq.decode_start_ts == 0.0:
+            self._maybe_record_queue_span(seq)
+            seq.decode_start_ts = time.time()
+
+    def _record_decode_span(self, seq: Sequence, status: str = "ok") -> None:
+        """Close the sequence's decode span (first decode step → finish; under
+        the overlap the finish is found when its window retires)."""
+        if seq.trace is None or seq.decode_start_ts == 0.0:
+            return
+        get_recorder().record(
+            "engine.decode", seq.trace, seq.decode_start_ts, time.time(),
+            component="engine", status=status, attrs={"tokens_out": len(seq.output_ids)},
+        )
+        seq.decode_start_ts = 0.0
+
     def _fail_sequence(self, seq: Sequence, exc: BaseException) -> None:
         """Terminate one sequence on an engine-side error: free its
         resources and resolve its caller with the failure."""
+        self._record_decode_span(seq, status="error")
         self.scheduler.finish(seq)
         if seq.emit:
             seq.emit([], FinishReason.ERROR, f"{type(exc).__name__}: {exc}")
@@ -1248,15 +1437,31 @@ class TorchLlmEngine:
             elif op == "clear_kv":  # seq: the caller's callback
                 # retire the window in flight first: its deferred finishes
                 # release their blocks before the published state is cleared,
-                # not into a cleared pool after it
+                # not into a cleared pool after it; queued offloads land
+                # before the tiers are cleared
                 self._sync_pipeline()
+                self._reap_queued(wait=True)
                 cleared = self.allocator.clear_published()
                 if self.host_tier is not None:
                     self.host_tier.clear()
                 logger.info("cleared %d published kv block hashes", cleared)
                 seq()
             elif op == "add":
+                # read BEFORE add: after add the new sequence itself makes
+                # the scheduler busy
+                backlog = self.scheduler.has_work()
                 self.scheduler.add(seq)
+                if self.prefetch_pager is not None and (
+                    backlog or not self.allocator.can_allocate(len(seq.request.token_ids))
+                ):
+                    # queue-hint: while this sequence waits for admission its
+                    # offloaded prefix pages in behind the current batch.  An
+                    # idle engine with room admits it this same iteration, so
+                    # hashing the prompt here would be duplicate work.
+                    hashes = compute_block_hashes(seq.request.token_ids,
+                                                  self.config.block_size)
+                    if hashes:
+                        self.prefetch_pager.submit(hashes, source="queued")
             elif op == "abort":
                 if seq.status == SeqStatus.RUNNING:
                     # abort frees the lane's blocks: drain the pipeline first
@@ -1264,6 +1469,7 @@ class TorchLlmEngine:
                     # is about to reclaim (only RUNNING lanes ride a window)
                     self._sync_pipeline()
                 if seq.status != SeqStatus.FINISHED:
+                    self._record_decode_span(seq, status="cancelled")
                     self.scheduler.abort(seq)
                     seq.status = SeqStatus.FINISHED
                     if seq.emit:
@@ -1421,6 +1627,7 @@ class TorchLlmEngine:
         if not active:
             return
         for seq in active:
+            self._decode_started(seq)
             token_ids[seq.lane] = seq.all_token_ids[-1]
             context_lens[seq.lane] = seq.context_len
         self._decode_tables(active)
@@ -1591,6 +1798,7 @@ class TorchLlmEngine:
         use_fb = np.zeros((lanes,), bool)  # idle lanes read token 0, as synchronous ones
         context_lens = np.zeros((lanes,), np.int32)
         for seq in active:
+            self._decode_started(seq)
             context_lens[seq.lane] = min(seq.context_len + seq.inflight_tokens, self.max_len)
             token_ids[seq.lane] = seq.all_token_ids[-1]
             use_fb[seq.lane] = prev is not None
@@ -1793,6 +2001,7 @@ class TorchLlmEngine:
         base_lens = np.zeros((lanes,), np.int32)
         spec_ok = np.zeros((lanes,), bool)
         for seq in active:
+            self._decode_started(seq)
             lane = seq.lane
             draft = drafts.get(seq.seq_id) or []
             spec_ok[lane] = bool(draft)
@@ -1847,25 +2056,48 @@ class TorchLlmEngine:
     def _offload_blocks(self, pairs: list[tuple[int, int]]) -> list[int]:
         """Allocator eviction hook: copy the evicted blocks' cache slices to
         the offload tiers (device thread, before the new owners write): one
-        gather-kernel launch a cache leaf into ``[L, n, ...]``, one copy into
-        pinned host memory, a synchronize, then one ``put`` a block.  Returns
-        hashes that failed to offload (host tier full of pins) — those must
-        be announced removed."""
+        gather-kernel launch a cache leaf into ``[L, n, ...]``, then one
+        ``put`` a block.  Returns hashes that failed to offload (host tier
+        full of pins) — those must be announced removed.  On a card the
+        gathers and their copies into pinned host memory are queued behind
+        the work in flight, never waited for: the blocks enter the tiers
+        once the copies have landed (``_land_offloads``, which announces the
+        failed hashes), and a tier read of a hash still on its way lands the
+        queued offloads first (``HostOffloadTier.settle``: a wait while a
+        window is in flight drains it, counted in ``offload_drains_total``)."""
+        # a block the host tier already holds needs no copy (its put would
+        # keep the held one), as long as no put of this batch, or of the
+        # offloads still queued, can evict it: the host pool has a free
+        # block for every one of them
+        pool = self.host_tier.pool
+        held = sum(pool.has_hash(h) for _, h in pairs)
+        if held and pool.free_count >= len(pairs) - held + len(self.host_tier.pending):
+            pairs = [(bid, h) for bid, h in pairs if not pool.has_hash(h)]
+            if not pairs:
+                return []
         ids = [bid for bid, _ in pairs]
-        pinned = self.device.type == "cuda"
-        gathered = {}
-        for name in sorted(self.cache):
-            staged = block_copy.gather_blocks(self.cache[name], ids, axis=1)
-            if pinned:
-                host = torch.empty(staged.shape, dtype=staged.dtype, pin_memory=True)
-                host.copy_(staged, non_blocking=True)
-                staged = host
-            gathered[name] = staged
-        if pinned:
-            # the host bytes are read below: the copies must have landed
-            # (which drains a window in flight: counted)
-            self._offload_drains += self._inflight is not None
-            torch.cuda.current_stream(self.device).synchronize()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record(stream)
+        gathered = {name: block_copy.gather_blocks(self.cache[name], ids, axis=1)
+                    for name in sorted(self.cache)}
+        if not cuda:
+            return self._put_offloaded(pairs, gathered)
+        ev[1].record(stream)  # the gathers' device time: ev[0] → ev[1]
+        for name, staged in gathered.items():
+            host = torch.empty(staged.shape, dtype=staged.dtype, pin_memory=True)
+            host.copy_(staged, non_blocking=True)
+            gathered[name] = host
+        ev[2].record(stream)
+        self._queued_offloads.append((pairs, gathered, ev))
+        self.host_tier.pending.update(h for _, h in pairs)
+        return []
+
+    def _put_offloaded(self, pairs: list[tuple[int, int]], gathered: dict) -> list[int]:
+        """``put`` each offloaded block's host slices into the tiers;
+        returns the hashes that ended in no tier."""
         failed: list[int] = []
         # host-LRU evictions triggered by these puts are judged AFTER the
         # whole batch: a hash evicted mid-batch may be re-inserted by a
@@ -1886,6 +2118,52 @@ class TorchLlmEngine:
         finally:
             self._host_evictions = None
         return failed
+
+    def _land_offloads(self, wait: bool) -> None:
+        """Put the queued offloads whose copies have landed into the tiers,
+        in the order they were queued; ``wait`` lands every one (a wait
+        while a window is in flight drains it: counted).  A hash that
+        ended in no tier and is not back on the device is announced
+        removed.  Not re-entered from its own puts' tier reads."""
+        queued = self._queued_offloads
+        if self._landing:
+            return
+        self._landing = True
+        try:
+            while queued:
+                pairs, gathered, ev = queued[0]
+                if not ev[2].query():
+                    if not wait:
+                        return
+                    self._offload_drains += self._inflight is not None
+                    ev[2].synchronize()
+                queued.pop(0)
+                self._offload_gather_ms += ev[0].elapsed_time(ev[1])
+                self.host_tier.pending.difference_update(h for _, h in pairs)
+                failed = self._put_offloaded(pairs, gathered)
+                self.allocator.emit_removed(
+                    [h for h in failed if not self.allocator.is_registered(h)])
+        finally:
+            self._landing = False
+
+    def _settle_offloads(self) -> None:
+        """The tier's hook: a read of a hash whose offload is queued."""
+        self._land_offloads(wait=True)
+
+    def _reap_queued(self, wait: bool = False) -> None:
+        """Land the queued offloads and release the queued restores' staging
+        buffers whose device work has run (every one with ``wait``)."""
+        self._land_offloads(wait)
+        queued = self._queued_restores
+        while queued:
+            ev, _buffers = queued[0]
+            if not ev[2].query():
+                if not wait:
+                    return
+                ev[2].synchronize()
+            queued.pop(0)
+            self._restore_ms["copy"] += ev[0].elapsed_time(ev[1])
+            self._restore_ms["scatter"] += ev[1].elapsed_time(ev[2])
 
     def _host_evicted(self, seq_hash: int) -> None:
         """Offload-tier eviction observer.  During an offload batch the
@@ -1920,7 +2198,12 @@ class TorchLlmEngine:
     def _restore_blocks(self, plan: list[tuple[int, int]]) -> None:
         """Land the plan's blocks from the offload tiers in their device
         blocks: stage on the host, one copy to the device and one
-        scatter-kernel launch a cache leaf, then register the blocks."""
+        scatter-kernel launch a cache leaf, then register the blocks.  On a
+        card the copy and the scatters are queued behind the window in
+        flight, never waited for: the staging buffers are kept until a CUDA
+        event after the scatters has completed (``_reap_queued``), and the
+        blocks are matchable at once, since every later step is queued on
+        the same stream behind the scatters."""
         t0 = time.perf_counter()
         ids, staged = self._stage_restore(plan)
         t1 = time.perf_counter()
@@ -1935,20 +2218,113 @@ class TorchLlmEngine:
         t2 = time.perf_counter()
         for name, blocks in on_dev.items():
             block_copy.scatter_blocks(self.cache[name], blocks, ids, axis=1)
-        if cuda:
-            ev[2].record(stream)
-            # the staging buffers are released on return: their copies must
-            # have landed first (which drains a window in flight: counted)
-            self._offload_drains += self._inflight is not None
-            stream.synchronize()
-            copy_ms, scatter_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-        else:
-            copy_ms, scatter_ms = (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3
         self._restore_ms["stage"] += (t1 - t0) * 1e3
-        self._restore_ms["copy"] += copy_ms
-        self._restore_ms["scatter"] += scatter_ms
-        # content is on the device now: the landing blocks become matchable
+        if not cuda:
+            self._restore_ms["copy"] += (t2 - t1) * 1e3
+            self._restore_ms["scatter"] += (time.perf_counter() - t2) * 1e3
+        else:
+            ev[2].record(stream)
+            self._queued_restores.append((ev, (staged, on_dev)))
+        # the content is on the device, or queued ahead of every later step
+        # on its stream: the landing blocks become matchable
         self.allocator.register_restored(plan)
+
+    # -- predictive prefetch execution (device thread) ---------------------
+    def _run_prefetch(self, idle: bool) -> bool:
+        """Drain the pager within this iteration's block budget.  Returns
+        True when any block actually moved (the idle loop uses it to keep
+        paging without sleeping; headroom-deferred work must not spin)."""
+        pager = self.prefetch_pager
+        budget = pager.effective_blocks_per_step() * (pager.idle_boost if idle else 1)
+        progress = False
+        moved = 0
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        while budget > 0:
+            job = pager.next_job()
+            if job is None:
+                break
+            touched, leftover = self._execute_prefetch(job.hashes, budget)
+            budget -= max(touched, 1)  # an all-resident job still costs a walk
+            moved += touched
+            progress = progress or touched > 0
+            if leftover:
+                # device headroom exhausted or the block budget cut the
+                # chain: retry the rest next round (with the original
+                # enqueue time, so a hint that keeps deferring still goes
+                # stale), and stop this round
+                pager.requeue(leftover, enqueued=job.enqueued)
+                break
+        # hot-prefix pinning rides the prefetch loop (never the demand path)
+        pinned = self.host_tier.pin_hot()
+        if self._phase_timing:
+            self._phase("prefetch.page", t0)
+        if moved:
+            # prefetch work is tied to no request: its spans hang off the
+            # engine's own prefetch trace
+            get_recorder().record(
+                "engine.prefetch", self._prefetch_trace, wall0, time.time(),
+                component="engine", attrs={"blocks": moved, "idle": idle, "pinned": pinned},
+            )
+        return progress or pinned > 0
+
+    def _execute_prefetch(self, hashes: list[int], budget: int) -> tuple[int, list[int]]:
+        """Page one hinted prefix toward the device: walk the hash chain,
+        promote disk/remote-resident blocks into the host tier, then
+        pre-restore host-resident blocks into device landing blocks under
+        the headroom reservation.  Returns (blocks touched, leftover hashes
+        the caller requeues: headroom-deferred plus any chain tail the
+        block budget cut off, or a block whose offload is still on its way).
+        Nothing here waits for the device."""
+        pager = self.prefetch_pager
+        touched = 0
+        restore: list[int] = []
+        promote: list[int] = []
+        overflow: list[int] = []
+        for i, h in enumerate(hashes):
+            if len(restore) >= budget:
+                overflow = [x for x in hashes[i:] if not self.allocator.is_registered(x)]
+                break
+            if self.allocator.is_registered(h):
+                continue  # already on the device
+            if h in self.host_tier.pending:
+                # its offload is still on its way: page it, and the rest of
+                # the chain, next round rather than wait for the copy
+                overflow = [x for x in hashes[i:] if not self.allocator.is_registered(x)]
+                break
+            tier = self.host_tier.locate(h)
+            if tier is None:
+                break  # chain broken: content gone, deeper blocks useless
+            if tier > 0:
+                promote.append(h)
+            restore.append(h)
+        if promote:
+            moved = self.host_tier.promote_to_host(promote)
+            pager.record_onboarded(moved)
+            touched += moved
+        if not restore:
+            return touched, overflow
+        plan, deferred = self.allocator.prefetch_reserve(restore, self._prefetch_headroom_blocks)
+        if plan:
+            t0 = time.perf_counter()
+            try:
+                self._restore_blocks(plan)
+            except kernel_build.KernelBuildError:
+                # a kernel that does not build is no speculative miss
+                self.allocator.abort_prefetch(plan)
+                raise
+            except Exception:  # noqa: BLE001 — prefetch is best-effort: a
+                # failed speculative restore must not poison serving
+                logger.exception("prefetch restore failed")
+                self._prefetch_failures += 1
+                self.allocator.abort_prefetch(plan)
+                return touched, []
+            cost = (time.perf_counter() - t0) / len(plan)
+            self.allocator.finish_prefetch(plan)
+            for h, _bid in plan:
+                pager.record_restored(h, cost)
+            touched += len(plan)
+        return touched, deferred + overflow
 
     def _process_token(
         self, seq: Sequence, token: int, logprob: float | None = None, top=None,
@@ -1971,6 +2347,7 @@ class TorchLlmEngine:
                 top_logprobs=top_rows,
             )
         if finish is not None:
+            self._record_decode_span(seq)
             self._finish_decoded(seq)
         elif seq.context_len % self.config.block_size == 0:
             self.allocator.publish_stored(seq.seq_id, seq.all_token_ids)

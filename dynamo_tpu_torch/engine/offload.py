@@ -25,8 +25,8 @@ Payload layout: per block, the concatenated raw bytes of each cache leaf
 slice ``leaf[:, block_id]`` in sorted leaf-name order (the reference's, so
 payloads compare byte for byte).
 
-The reference's hot-prefix pinning and up-tier promotion serve its
-prefetch pager; the port pages on demand only, so they come with the pager.
+Hot-prefix pinning and up-tier promotion (``locate``, ``promote_to_host``,
+``note_restored``, ``pin_hot``) serve the engine's prefetch pager.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import uuid
 import torch
 
 from dynamo_tpu_torch.llm.block_manager.manager import KvbmConfig, KvBlockManager
+from dynamo_tpu_torch.utils import knobs
 from dynamo_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("engine.offload")
@@ -91,6 +92,27 @@ class HostOffloadTier:
         self.offloads = 0
         self.restores = 0
         self._tier_restores = [0] * len(self.tiers)
+        # hot-prefix pinning (prefetch subsystem): hashes restored at least
+        # ``pin_hits`` times are pinned host-resident — a permanent ref in
+        # the host pool keeps them out of the LRU, so a hot shared prefix
+        # (system prompt) can never cascade to disk.  Budgeted to a
+        # fraction of the host pool so pins cannot starve offloads (put()
+        # fails when the tier is full of pins).
+        self.pin_hits = knobs.get("DYN_PREFETCH_PIN_HITS")
+        pin_max = knobs.get("DYN_PREFETCH_PIN_MAX")
+        self.pin_max = pin_max if pin_max is not None else max(1, num_blocks // 4)
+        # the engine clears this when the prefetch pager is off: nothing
+        # would ever drain _hot_pending, and DYN_PREFETCH=0 must be
+        # bookkeeping-free demand paging
+        self.pin_enabled = True
+        self._pins: dict[int, int] = {}       # hash -> pinned host block id
+        self._hit_counts: dict[int, int] = {}  # hash -> restore count
+        self._hot_pending: list[int] = []      # crossed the threshold, unpinned
+        # hashes whose offload the engine queued behind device work and has
+        # not put yet; a read of one calls ``settle`` (the engine's hook,
+        # which puts every queued offload) first
+        self.pending: set[int] = set()
+        self.settle = None
 
     # convenience views (existing tests/benchmarks address the host pool)
     @property
@@ -129,12 +151,19 @@ class HostOffloadTier:
             self.evict_observer(seq_hash)
 
     # -- restore (any tier → device) -----------------------------------------
+    def _landed(self, seq_hash: int) -> None:
+        """A queued offload of ``seq_hash`` enters the tiers before it is read."""
+        if seq_hash in self.pending and self.settle is not None:
+            self.settle()
+
     def has(self, seq_hash: int) -> bool:
+        self._landed(seq_hash)
         return any(p.has_hash(seq_hash) for p in self.tiers)
 
     def pin(self, seq_hash: int) -> bool:
         """Claim a block for an upcoming restore so interleaved offloads
         can't evict it between match and prefill (whichever tier holds it)."""
+        self._landed(seq_hash)
         return any(p.match_hash(seq_hash) is not None for p in self.tiers)
 
     def unpin(self, seq_hash: int) -> None:
@@ -143,6 +172,119 @@ class HostOffloadTier:
             if bid is not None:
                 p.release(bid)
                 return
+
+    def locate(self, seq_hash: int) -> int | None:
+        """Index of the highest (fastest) tier holding the hash, or None."""
+        self._landed(seq_hash)
+        for i, p in enumerate(self.tiers):
+            if p.has_hash(seq_hash):
+                return i
+        return None
+
+    # -- predictive prefetch: up-tier promotion + hot-prefix pinning ---------
+    def promote_to_host(self, seq_hashes: list[int]) -> int:
+        """Bring lower-tier (disk/remote) blocks up into the host tier via
+        the block manager's onboard path, so a restore that follows — the
+        demand page-in at admission, or the pager's host→device pre-restore
+        — is a DRAM read instead of disk/network IO.  Returns blocks moved.
+
+        Runs on the engine's device thread (blocking IO by design, same as
+        every other call here); ``asyncio.run`` hosts the async onboard's
+        ``to_thread`` copies.  Host-LRU evictions the promotion causes
+        cascade down-tier exactly like ``put`` (read-before-overwrite), so
+        promotion never destroys content."""
+        moved = 0
+        host_key = self.kvbm.tier_order[0]
+        for tier_idx in range(1, len(self.tiers)):
+            pool = self.tiers[tier_idx]
+            held = [
+                h for h in seq_hashes
+                if pool.has_hash(h) and not self.tiers[0].has_hash(h)
+            ]
+            if not held:
+                continue
+            import asyncio
+
+            try:
+                ids = asyncio.run(
+                    self.kvbm.offload.onboard(
+                        held, host_key, self.kvbm.tier_order[tier_idx],
+                        on_fully_evicted=self._on_fully_evicted,
+                    )
+                )
+            except Exception:  # noqa: BLE001 — promotion is best-effort
+                logger.exception("tier promotion failed (%s)", self.tier_names[tier_idx])
+                continue
+            if ids is not None:
+                moved += len(held)
+        return moved
+
+    def note_restored(self, seq_hash: int) -> None:
+        """Restore-frequency bookkeeping: a hash that keeps paging back to
+        the device is hot; past ``pin_hits`` restores it becomes a pin
+        candidate (picked up by ``pin_hot``)."""
+        if not self.pin_enabled:
+            return
+        n = self._hit_counts.get(seq_hash, 0) + 1
+        self._hit_counts[seq_hash] = n
+        if (
+            n >= self.pin_hits
+            and seq_hash not in self._pins
+            and len(self._hot_pending) < self.pin_max  # bounded: pin budget
+            and seq_hash not in self._hot_pending
+        ):
+            self._hot_pending.append(seq_hash)
+        if len(self._hit_counts) > 4 * max(self.pin_max, 1):
+            # bounded: forget the coldest half (insertion order approximates
+            # age; hot hashes re-accumulate quickly)
+            for h in list(self._hit_counts)[: len(self._hit_counts) // 2]:
+                if h not in self._pins:
+                    del self._hit_counts[h]
+
+    def pin_hot(self) -> int:
+        """Pin pending hot prefixes host-resident (a permanent pool ref
+        keeps them out of the host LRU, so they can never cascade to
+        disk).  Called from the engine's prefetch loop — never on the
+        demand path.  Returns newly pinned blocks."""
+        if not self._hot_pending:
+            return 0
+        budget = self.pin_max - len(self._pins)
+        # hot but currently below the host tier: one batched promotion for
+        # the whole pending set (promote_to_host pays an event loop per
+        # tier — per hash would put that inside the engine hot loop)
+        below = [
+            h for h in self._hot_pending[:budget]
+            if h not in self._pins and not self.tiers[0].has_hash(h)
+        ]
+        if below:
+            self.promote_to_host(below)
+        pinned = 0
+        while self._hot_pending and len(self._pins) < self.pin_max:
+            h = self._hot_pending.pop(0)
+            if h in self._pins:
+                continue
+            bid = self.tiers[0].match_hash(h)  # permanent ref = the pin
+            if bid is None:
+                continue
+            self._pins[h] = bid
+            pinned += 1
+        if len(self._pins) >= self.pin_max:
+            self._hot_pending.clear()
+        return pinned
+
+    def unpin_all(self) -> None:
+        for h, bid in list(self._pins.items()):
+            self.tiers[0].release(bid)
+        self._pins.clear()
+        self._hit_counts.clear()
+        self._hot_pending.clear()
+
+    def read_pinned(self, seq_hash: int) -> dict | None:
+        """Deserialize a pinned block's leaves and release the pin, from
+        whichever tier holds it (host, disk memmap, or the remote store
+        over TCP — RemoteStorage reads are blocking by design)."""
+        out = self.read_pinned_many([seq_hash])
+        return out.get(seq_hash)
 
     def read_pinned_many(self, seq_hashes: list[int]) -> dict[int, dict]:
         """Batched restore: ONE storage read per tier for all the hashes it
@@ -161,6 +303,7 @@ class HostOffloadTier:
             for (h, bid), buf in zip(held, bufs):
                 p.release(bid)
                 out[h] = self._deserialize(buf)
+                self.note_restored(h)
             self._tier_restores[i] += len(held)
             self.restores += len(held)
             got = {h for h, _ in held}
@@ -182,8 +325,9 @@ class HostOffloadTier:
     def clear(self) -> None:
         """Admin flush: forget everything except blocks pinned for an
         in-flight restore (clear_kv_blocks keeps running sequences' state,
-        mirroring the allocator's clear_published).  The port has no
-        hot-prefix pins to drop first (they come with the pager)."""
+        mirroring the allocator's clear_published).  Hot-prefix pins are
+        dropped first — they are cache, and an admin flush means forget."""
+        self.unpin_all()
         for p in self.tiers:
             for h in p.registered_hashes():
                 if p.ref_count(h) > 0:
@@ -209,6 +353,7 @@ class HostOffloadTier:
             "host_offloads_total": self.offloads,
             "host_restores_total": self.restores,
             "host_evictions": host.evictions,
+            "host_blocks_pinned": len(self._pins),
         }
         inserts = self.kvbm.offload.tier_inserts
         for name, p, restores in zip(
@@ -230,6 +375,9 @@ class HostOffloadTier:
         """Structured per-tier occupancy for the observability plane
         (ForwardPassMetrics.offload_tiers → dyn_worker_offload_blocks*)."""
         out = {}
-        for name, p in zip(self.tier_names, self.tiers):
-            out[name] = {"blocks": p.num_blocks, "used": p.num_blocks - p.free_count}
+        for i, (name, p) in enumerate(zip(self.tier_names, self.tiers)):
+            row = {"blocks": p.num_blocks, "used": p.num_blocks - p.free_count}
+            if i == 0:
+                row["pinned"] = len(self._pins)
+            out[name] = row
         return out

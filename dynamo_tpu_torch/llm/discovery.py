@@ -6,9 +6,10 @@ pipeline (preprocessor → backend → remote push router) as entries come and g
 (reference: lib/llm/src/discovery/{model_entry.rs,watcher.rs},
 model_manager.rs; registration lib/bindings register_llm).
 
-The port's watcher has no topology plane and no prefetch hinter yet: it runs
-as the reference's does at ``DYN_TOPO=0`` and ``DYN_PREFETCH=0`` (the KV
-router's cost model on its knob-only link model, no arrival hints).
+The port's watcher has no topology plane: it runs as the reference's does at
+``DYN_TOPO=0`` (the KV router's cost model on its knob-only link model).  A
+frontend's prefetch hinter gets each model's tokenizer as its pipeline is
+built.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from dynamo_tpu_torch.runtime.client import PushRouter, RemoteEngine, RouterMode
 from dynamo_tpu_torch.runtime.component import ROOT_PATH
 from dynamo_tpu_torch.runtime.controlplane.interface import WatchEventType
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.utils import knobs
 from dynamo_tpu_torch.utils.logging import get_logger
 from dynamo_tpu_torch.utils.tasks import spawn_logged
 
@@ -104,11 +106,6 @@ class ModelWatcher:
         router_mode: RouterMode = RouterMode.ROUND_ROBIN,
         prefetch_hinter=None,
     ):
-        if prefetch_hinter is not None:
-            raise NotImplementedError(
-                "prefetch hints come with a later slice of the port (ROADMAP "
-                "Queue 1 item 4b, the pager and its frontend hinter)"
-            )
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
@@ -118,6 +115,10 @@ class ModelWatcher:
         self._backing: dict[str, set[str]] = {}
         self._entries: dict[str, ModelEntry] = {}  # entry key -> entry
         self._pipelines: dict[str, dict] = {}  # model name -> {"router": ..., "kv": ...}
+        # prefetch/frontend.py FrontendHinter: each model pipeline registers
+        # its tokenizer + chat template here so arrival hints hash exactly
+        # the token stream the preprocessor will produce
+        self.prefetch_hinter = prefetch_hinter
 
     async def start(self) -> None:
         self._watch = self.runtime.plane.kv.watch_prefix(MODELS_PREFIX)
@@ -201,6 +202,8 @@ class ModelWatcher:
             if router.migrations is not None:
                 await router.migrations.stop()
         self.manager.remove_model(entry.name)
+        if self.prefetch_hinter is not None:
+            self.prefetch_hinter.remove_model(entry.name)
         logger.info("model %s removed (no instances left)", entry.name)
 
     async def _build_pipeline(self, entry: ModelEntry) -> None:
@@ -242,6 +245,41 @@ class ModelWatcher:
                 entry.name, CompletionPreprocessor(mdc, tokenizer).wrap(backend.wrap(engine))
             )
         self._pipelines[entry.name] = {"router": push_router, "kv": kv_router}
+        if self.prefetch_hinter is not None:
+            self._register_hinter(entry, mdc, tokenizer, endpoint)
         logger.info(
             "model %s wired to %s (mode=%s)", entry.name, entry.endpoint_path(), self.router_mode.value
         )
+
+    def _register_hinter(self, entry: ModelEntry, mdc, tokenizer, endpoint) -> None:
+        """Wire this model into the frontend's prefetch hinter: tokenize a
+        validated request the same way the preprocessor will (chat template
+        for chat, raw prompt for completions) and publish the hash chain on
+        the component's hint subject."""
+        from dynamo_tpu_torch.llm.preprocessor import PromptFormatter
+        from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+        from dynamo_tpu_torch.prefetch.hints import PREFETCH_HINT_SUBJECT
+
+        formatter = PromptFormatter(mdc.chat_template)
+        bus = self.runtime.plane.bus
+        subject = endpoint.component.event_subject(PREFETCH_HINT_SUBJECT)
+        # hint tokenization runs synchronously on the frontend event loop
+        # (it must leave before dispatch starts): cap the rendered text so a
+        # long-context prompt costs bounded work.  The hint then covers the
+        # prompt's leading blocks, and truncation can at worst invalidate
+        # the final partial block's hash
+        max_chars = knobs.get("DYN_PREFETCH_HINT_CHARS")
+
+        def tokenize(request_model) -> list[int] | None:
+            if isinstance(request_model, ChatCompletionRequest):
+                text = formatter.render(request_model)
+            elif isinstance(getattr(request_model, "prompt", None), str):
+                text = request_model.prompt
+            else:
+                return None
+            return tokenizer.encode(text[:max_chars])
+
+        async def publish(payload: bytes) -> None:
+            await bus.publish(subject, payload)
+
+        self.prefetch_hinter.register_model(entry.name, tokenize, mdc.kv_block_size, publish)

@@ -52,16 +52,18 @@ class KvRouter:
         self.topology = None  # TopologyMap, via attach_topology()
         self._subs = []
         self._tasks: list[asyncio.Task] = []
-        # predictive prefetch (the reference's prefetch/forwarder.py) comes
-        # with the pager, a later slice of the port: None runs as the
-        # reference does at DYN_PREFETCH=0, and True is refused by name
-        if enable_prefetch:
-            raise NotImplementedError(
-                "predictive prefetch comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 4b, the pager and its hints); the KV "
-                "router runs without a prefetch forwarder"
-            )
+        # predictive prefetch (prefetch/forwarder.py): hints forwarded to
+        # the worker whose radix index holds the offloaded prefix, plus
+        # session next-turn prediction.  None = DYN_PREFETCH env gate.
+        from dynamo_tpu_torch.prefetch.hints import prefetch_enabled
+
+        if enable_prefetch is None:
+            enable_prefetch = prefetch_enabled()
         self.prefetch_forwarder = None
+        if enable_prefetch:
+            from dynamo_tpu_torch.prefetch.forwarder import PrefetchForwarder
+
+            self.prefetch_forwarder = PrefetchForwarder(component, self.indexer)
 
     async def start(self) -> None:
         bus = self.component.runtime.plane.bus

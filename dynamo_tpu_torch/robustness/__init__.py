@@ -5,19 +5,25 @@ dynamo_tpu/robustness/).
   via ``DYN_FAULTS`` with deterministic triggers.
 - :mod:`retry`    — capped exponential backoff with jitter.
 - :mod:`counters` — process-global recovery counters.
-
-The frontend's admission control (``admission``) comes with the HTTP
-service's slice.
+- :mod:`admission` — the frontend's load shedding (429/503 + Retry-After).
 """
 
 from dynamo_tpu_torch.robustness import counters
+from dynamo_tpu_torch.robustness.admission import (
+    AdmissionConfig,
+    AdmissionController,
+    Overloaded,
+)
 from dynamo_tpu_torch.robustness.faults import FAULTS, FaultRegistry, get_faults
 from dynamo_tpu_torch.robustness.retry import Backoff
 
 __all__ = [
+    "AdmissionConfig",
+    "AdmissionController",
     "FAULTS",
     "Backoff",
     "FaultRegistry",
+    "Overloaded",
     "counters",
     "get_faults",
 ]

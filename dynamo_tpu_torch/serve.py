@@ -187,6 +187,15 @@ async def serve_worker(
         clear_listener = ClearKvListener(ep.component, engine)
         clear_listener.start()
         publishers = [kv_pub, metrics_pub, clear_listener]
+        if engine.prefetch_pager is not None:
+            # the router's targeted hints reach this engine's pager
+            from dynamo_tpu_torch.prefetch.worker import PrefetchListener
+
+            prefetch_listener = PrefetchListener(
+                ep.component, engine, service.instance.instance_id
+            )
+            prefetch_listener.start()
+            publishers.append(prefetch_listener)
         engine.start()
         if engine.wants_warmup:
             # capture every serving graph before the model registers: the
@@ -214,20 +223,28 @@ async def serve_frontend(
 ) -> tuple[HttpService, ModelWatcher]:
     """HTTP service + model watcher: a pipeline (preprocessor → backend →
     router) for every model a worker registers, removed with its last
-    instance."""
+    instance.  ``admission`` (an ``AdmissionConfig``; default: the
+    ``DYN_ADMISSION_*`` knobs) gates the inference routes.  Under KV
+    routing with ``DYN_PREFETCH`` on, every request's prefix is hinted to
+    the worker that holds it before dispatch (``FrontendHinter``)."""
     from dynamo_tpu_torch.llm.request_template import RequestTemplate
 
-    if admission is not None:
-        raise NotImplementedError(
-            "frontend admission control comes with a later slice of the port "
-            "(ROADMAP Queue 1 item 4b, the full HTTP service)"
-        )
     template = RequestTemplate.load(request_template) if request_template else None
     manager = ModelManager()
-    watcher = ModelWatcher(runtime, manager, router_mode=router_mode)
+    # arrival-hint source for predictive prefetch: only meaningful when a
+    # KV router is in the path (it owns the radix index that targets the
+    # hint), gated by DYN_PREFETCH like the rest of the subsystem
+    hinter = None
+    if router_mode == RouterMode.KV:
+        from dynamo_tpu_torch.prefetch.frontend import FrontendHinter
+        from dynamo_tpu_torch.prefetch.hints import prefetch_enabled
+
+        if prefetch_enabled():
+            hinter = FrontendHinter()
+    watcher = ModelWatcher(runtime, manager, router_mode=router_mode, prefetch_hinter=hinter)
     service = HttpService(
         manager, host=host, port=port, request_template=template,
-        clear_kv=watcher.clear_kv_blocks,
+        clear_kv=watcher.clear_kv_blocks, admission=admission, prefetch_hinter=hinter,
     )
     await watcher.start()
     await service.start()
@@ -252,6 +269,7 @@ async def serve_http(
     port: int = 8080,
     device=None,
     warmup_prompt_lens=None,
+    admission=None,
     **engine_overrides,
 ) -> HttpHandle:
     """Start the engine and an OpenAI HTTP frontend over it, in process.
@@ -263,7 +281,9 @@ async def serve_http(
     request pays no capture.  ``warmup_prompt_lens`` (the prompt lengths the
     traffic brings) warms the split prefill's keys of those lengths alone,
     as the reference's ``aot_precompile(prompt_lens)``; by default every
-    key whose activations fit the free device memory is warmed."""
+    key whose activations fit the free device memory is warmed.
+    ``admission`` (an ``AdmissionConfig``) gates the inference routes, as
+    in ``serve_frontend``."""
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     engine = await asyncio.to_thread(
         build_torch_engine, model_dir, mdc, device=device, **engine_overrides
@@ -281,7 +301,7 @@ async def serve_http(
     manager.add_completion_model(
         mdc.name, CompletionPreprocessor(mdc, tokenizer).wrap(backend.wrap(engine))
     )
-    service = HttpService(manager, host=host, port=port)
+    service = HttpService(manager, host=host, port=port, admission=admission)
     try:
         await service.start()
     except BaseException:

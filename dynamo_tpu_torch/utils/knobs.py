@@ -161,6 +161,66 @@ K_DRAIN_TIMEOUT_S = register(
     doc="graceful drain budget: in-flight work gets this long to finish or "
         "hand off before cancellation")
 
+# -- SLO tracking (observability/slo.py) --------------------------------------
+K_SLO_TTFT_S = register(
+    "DYN_SLO_TTFT_S", type="float", default=2.0,
+    doc="TTFT objective threshold (seconds)")
+K_SLO_TTFT_TARGET = register(
+    "DYN_SLO_TTFT_TARGET", type="float", default=0.99,
+    doc="good fraction required for TTFT")
+K_SLO_ITL_S = register(
+    "DYN_SLO_ITL_S", type="float", default=0.2,
+    doc="inter-token-latency objective threshold (seconds)")
+K_SLO_ITL_TARGET = register(
+    "DYN_SLO_ITL_TARGET", type="float", default=0.99,
+    doc="good fraction required for ITL")
+K_SLO_ERROR_TARGET = register(
+    "DYN_SLO_ERROR_TARGET", type="float", default=0.999,
+    doc="request success-rate objective")
+K_SLO_WINDOWS = register(
+    "DYN_SLO_WINDOWS", type="str", default="",
+    doc="comma-separated burn-rate windows in seconds (default `300,3600`)")
+K_SLO_SHED_BURN = register(
+    "DYN_SLO_SHED_BURN", type="float", default=0.0,
+    doc="burn rate above which a saturated admission gate sheds (0 = off)")
+
+# -- frontend admission control (robustness/admission.py) ---------------------
+K_ADMISSION_MAX_INFLIGHT = register(
+    "DYN_ADMISSION_MAX_INFLIGHT", type="int", default=0,
+    doc="frontend admission gate: max in-flight requests (0 = off)")
+K_ADMISSION_QUEUE = register(
+    "DYN_ADMISSION_QUEUE", type="int", default=None,
+    doc="admission queue depth (default: 2x max in-flight)")
+K_ADMISSION_QUEUE_TIMEOUT_S = register(
+    "DYN_ADMISSION_QUEUE_TIMEOUT_S", type="float", default=2.0,
+    doc="max seconds a request may wait in the admission queue")
+K_ADMISSION_RETRY_AFTER_S = register(
+    "DYN_ADMISSION_RETRY_AFTER_S", type="float", default=1.0,
+    doc="Retry-After hint attached to shed (429) responses")
+
+# -- predictive prefetch (prefetch/, engine/offload.py) -----------------------
+K_PREFETCH = register(
+    "DYN_PREFETCH", type="bool", default=True,
+    doc="master prefetch gate; `0` restores demand-driven paging everywhere")
+K_PREFETCH_TTL = register(
+    "DYN_PREFETCH_TTL", type="float", default=30.0,
+    doc="seconds before an unexecuted prefetch hint goes stale")
+K_PREFETCH_BLOCKS = register(
+    "DYN_PREFETCH_BLOCKS", type="int", default=64,
+    doc="max blocks paged per engine-loop iteration while serving")
+K_PREFETCH_HEADROOM = register(
+    "DYN_PREFETCH_HEADROOM", type="float", default=0.05,
+    doc="fraction of device cache blocks reserved from prefetch")
+K_PREFETCH_HINT_CHARS = register(
+    "DYN_PREFETCH_HINT_CHARS", type="int", default=16384,
+    doc="frontend arrival hints tokenize at most this much rendered text")
+K_PREFETCH_PIN_HITS = register(
+    "DYN_PREFETCH_PIN_HITS", type="int", default=3,
+    doc="restores before a block hash becomes a pin candidate")
+K_PREFETCH_PIN_MAX = register(
+    "DYN_PREFETCH_PIN_MAX", type="int", default=None,
+    doc="max pinned host blocks (default: host blocks / 4)")
+
 # -- runtime plumbing (utils/config.py, llm/hub.py) ---------------------------
 K_CONTROL_PLANE = register(
     "DYN_CONTROL_PLANE", type="str", default="memory",

@@ -1,5 +1,7 @@
 """Import hygiene and the no-fallback rules of the port: dynamo_tpu_torch and
-chip_smoke.py import neither JAX nor the JAX package; the default device is
+chip_smoke.py import neither JAX nor the JAX package (and importing the port
+leaves prometheus_client out: the frontend's /metrics imports it where it
+renders); the default device is
 the CUDA card and its absence raises; the chip smoke refuses to report a
 result without a card or without the package beside it."""
 
@@ -24,7 +26,8 @@ def test_importing_every_module_pulls_in_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'dynamo_tpu' or k.startswith('dynamo_tpu.')\n"
-        "             or k == 'yaml' or k.startswith('yaml.'))\n"
+        "             or k == 'yaml' or k.startswith('yaml.')\n"
+        "             or k == 'prometheus_client' or k.startswith('prometheus_client.'))\n"
         "print(' '.join(names))\n"
         "print(bad)\n"
     )
@@ -74,7 +77,14 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.llm.discovery", "dynamo_tpu_torch.llm.engines",
             "dynamo_tpu_torch.llm.hub", "dynamo_tpu_torch.llm.request_template",
             "dynamo_tpu_torch.robustness.counters", "dynamo_tpu_torch.robustness.faults",
-            "dynamo_tpu_torch.robustness.retry",
+            "dynamo_tpu_torch.robustness.retry", "dynamo_tpu_torch.robustness.admission",
+            # the full HTTP service and the prefetch pager
+            "dynamo_tpu_torch.llm.http.metrics", "dynamo_tpu_torch.llm.http.service",
+            "dynamo_tpu_torch.observability.slo",
+            "dynamo_tpu_torch.prefetch", "dynamo_tpu_torch.prefetch.hints",
+            "dynamo_tpu_torch.prefetch.session", "dynamo_tpu_torch.prefetch.pager",
+            "dynamo_tpu_torch.prefetch.frontend", "dynamo_tpu_torch.prefetch.forwarder",
+            "dynamo_tpu_torch.prefetch.worker",
             "dynamo_tpu_torch.observability.trace", "dynamo_tpu_torch.observability.recorder",
             "dynamo_tpu_torch.observability.flight",
             "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.utils.knobs",

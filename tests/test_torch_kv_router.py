@@ -163,11 +163,24 @@ def test_transfer_cost_model_equals_the_reference():
     assert ours.costs([1, 2, 3], {1: 4, 2: 4, 3: 4}) == ref.costs([1, 2, 3], {1: 4, 2: 4, 3: 4})
 
 
-def test_refused_subsystems_are_named():
+def test_refused_subsystems_are_named(monkeypatch):
+    """The native radix index is still refused by name; the prefetch
+    forwarder is served: ``enable_prefetch=True`` builds one over the
+    router's own index, ``False`` none, and ``None`` reads ``DYN_PREFETCH``
+    as the reference's router does."""
     with pytest.raises(NotImplementedError, match="native radix"):
         kv_router.KvIndexer(native=True)
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        kv_router.KvRouter(component=None, enable_prefetch=True)
+    from dynamo_tpu_torch.prefetch.forwarder import PrefetchForwarder
+
+    router = kv_router.KvRouter(component=None, enable_prefetch=True)
+    assert isinstance(router.prefetch_forwarder, PrefetchForwarder)
+    assert router.prefetch_forwarder.indexer is router.indexer
+    assert kv_router.KvRouter(component=None, enable_prefetch=False).prefetch_forwarder is None
+    for gate, want in (("0", False), ("1", True)):
+        monkeypatch.setenv("DYN_PREFETCH", gate)
+        ours = kv_router.KvRouter(component=None).prefetch_forwarder is not None
+        ref = ref_router.KvRouter(component=None).prefetch_forwarder is not None
+        assert ours == ref == want
 
 
 # ---------------------------------------------------------------------------
@@ -379,9 +392,10 @@ async def test_clear_with_a_window_in_flight_frees_every_block():
 
 def test_engine_stats_carry_every_load_metric_the_publisher_reads():
     """Every key ``ForwardPassMetrics.from_stats`` reads that the
-    reference's engine reports, the port's does too, but the subsystems
-    later slices bring (the prefetch pager, disaggregation, the flight
-    recorder, disagg roles)."""
+    reference's engine reports, the port's does too (both with a host tier
+    and the prefetch pager, so its and the flight recorder's keys are
+    read), but the subsystems later slices bring (disaggregation, disagg
+    roles)."""
     class Recorder(dict):
         def __init__(self):
             super().__init__()
@@ -393,12 +407,15 @@ def test_engine_stats_carry_every_load_metric_the_publisher_reads():
 
     rec = Recorder()
     protocols.ForwardPassMetrics.from_stats(1, rec)
-    ours = TorchLlmEngine(EngineConfig(model=CFG, **BASE), params=PARAMS, device="cpu").stats()
-    ref = JaxLlmEngine(JaxEngineConfig(model=JCFG, **BASE), params=JPARAMS).stats()
-    later = {k for k in rec.read if k.startswith(("prefetch_", "disagg_", "flight_"))}
+    tier = dict(host_offload_blocks=8, prefetch=True)
+    ours = TorchLlmEngine(EngineConfig(model=CFG, **BASE, **tier), params=PARAMS,
+                          device="cpu").stats()
+    ref = JaxLlmEngine(JaxEngineConfig(model=JCFG, **BASE, **tier), params=JPARAMS).stats()
+    later = {k for k in rec.read if k.startswith("disagg_")}
     later |= {"role", "transfer_hop", "kv_transfer_bandwidth_bps"}
     wanted = (rec.read & set(ref)) - later
     assert wanted and wanted <= set(ours), wanted - set(ours)
+    assert {k for k in wanted if k.startswith(("prefetch_", "flight_"))}
     metrics = protocols.ForwardPassMetrics.from_stats(7, ours)
     assert (metrics.worker_id, metrics.kv_total_blocks, metrics.request_total_slots) == (
         7, BASE["num_blocks"], BASE["max_batch_size"])

@@ -2,14 +2,15 @@
 engine's offload/restore) against the JAX reference, on the CPU:
 - HostOffloadTier unit cases of tests/engine/test_host_offload.py, each run
   on both tiers: same hashes held, same payload bytes, same stats;
-- TorchLlmEngine against JaxLlmEngine(prefetch=False) on the same traffic
+- TorchLlmEngine(prefetch=False) against JaxLlmEngine(prefetch=False) on
+  the same traffic
   (prompt A, churn that evicts it, A again), through the host tier, the
   disk tier (a small host pool) and the remote tier (a BlockStoreServer of
   each package), with the unified step on and off, for the tiny llama and
   tiny_mla (asymmetric cache leaves): identical greedy streams, identical
   offload/restore/prefix-hit counters, and G2 payloads equal within 1e-5;
 - config rules: no tier without config, disk without host refused,
-  prefetch=True not served yet."""
+  prefetch=True builds a pager only over a tier."""
 
 import asyncio
 import dataclasses
@@ -87,22 +88,8 @@ def assert_tiers_agree(ours, ref):
             got = p_ours.read([p_ours.peek_hash(h)])[0].numpy()
             want = np.asarray(p_ref.read([p_ref.peek_hash(h)])[0])
             np.testing.assert_array_equal(got, want)
-    assert ours.stats() == without_pins(ref.stats())
-    assert ours.tiers_snapshot() == snapshot_without_pins(ref.tiers_snapshot())
-
-
-def without_pins(ref_stats: dict) -> dict:
-    """The reference's stats less its hot-prefix pin count, which only its
-    prefetch pager raises (the port pages on demand and has no such pins)."""
-    out = dict(ref_stats)
-    assert out.pop("host_blocks_pinned") == 0
-    return out
-
-
-def snapshot_without_pins(ref_snapshot: dict) -> dict:
-    out = {name: dict(row) for name, row in ref_snapshot.items()}
-    assert out["g2"].pop("pinned") == 0
-    return out
+    assert ours.stats() == ref.stats()
+    assert ours.tiers_snapshot() == ref.tiers_snapshot()
 
 
 def read_one(tier, h):
@@ -285,7 +272,7 @@ async def offload_pair(family, tier, unified, tmp_path, **engine_kw):
             lambda extra: JaxLlmEngine(
                 JaxEngineConfig(model=jcfg, decode_overlap=False, prefetch=False, **kw, **extra),
                 params=jparams),
-            lambda extra: TorchLlmEngine(EngineConfig(model=cfg, **kw, **extra),
+            lambda extra: TorchLlmEngine(EngineConfig(model=cfg, prefetch=False, **kw, **extra),
                                          params=params, device="cpu"),
         )):
             extra = {}
@@ -314,7 +301,7 @@ async def test_engine_offload_and_restore_match_reference(family, tier, unified,
     for key in COUNTERS:
         assert stats.get(key) == ref_stats.get(key), key
     assert stats[restore_counter] > 0, stats
-    assert stats["offload_tiers"] == snapshot_without_pins(ref_stats["offload_tiers"])
+    assert stats["offload_tiers"] == ref_stats["offload_tiers"]
     assert sorted(g2) == sorted(ref_g2) and g2
     for h, leaves in g2.items():
         for leaf, arr in leaves.items():
@@ -390,10 +377,19 @@ def test_lower_tiers_without_a_host_tier_are_refused(tiers):
 
 
 def test_prefetch_is_not_served_yet():
+    """The pager is served now: prefetch=True over a host tier builds one
+    (pins enabled), prefetch=True with no tier builds none, and
+    prefetch=False pages on demand with no pin bookkeeping."""
     _, cfg, _, params, _ = family_models("llama")
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        TorchLlmEngine(EngineConfig(model=cfg, **GEOMETRY, host_offload_blocks=8,
-                                    prefetch=True), params=params, device="cpu")
     engine = TorchLlmEngine(EngineConfig(model=cfg, **GEOMETRY, host_offload_blocks=8,
+                                         prefetch=True), params=params, device="cpu")
+    assert engine.prefetch_pager is not None and engine.host_tier.pin_enabled
+    assert engine.allocator.prefetch_tracker is engine.prefetch_pager
+    bare = TorchLlmEngine(EngineConfig(model=cfg, **GEOMETRY, prefetch=True), params=params,
+                          device="cpu")
+    assert bare.host_tier is None and bare.prefetch_pager is None
+    assert bare.prefetch_hint([1]) is False
+    demand = TorchLlmEngine(EngineConfig(model=cfg, **GEOMETRY, host_offload_blocks=8,
                                          prefetch=False), params=params, device="cpu")
-    assert engine.host_tier is not None
+    assert demand.host_tier is not None and demand.prefetch_pager is None
+    assert not demand.host_tier.pin_enabled

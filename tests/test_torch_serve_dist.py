@@ -5,7 +5,8 @@ engine, and a worker in its own process behind a TCP control plane.
 
 The JAX side runs with ``DYN_TOPO=0``, ``DYN_PREFETCH=0`` and
 ``DYN_DISABLE_NATIVE=1``, so both sides route with the same algorithm (the
-port has no topology plane, prefetch hints or native codecs yet).  The
+port has no topology plane or native codecs yet; its prefetch hints are
+held in tests/test_torch_prefetch.py and test_torch_http_full.py).  The
 two-worker test puts two ``TorchLlmEngine``s in one process on the CPU,
 where they capture no graph; on the card each worker is its own process.
 """
@@ -393,24 +394,45 @@ def test_cli_modes_and_refusals():
             parse_args(bad)
 
 
-async def test_later_subsystems_are_refused_by_name():
+async def test_later_subsystems_are_refused_by_name(monkeypatch):
+    """The mocker is still refused by name; admission control and the
+    prefetch hinter are served: ``serve_frontend(admission=...)`` gates its
+    inference routes with the given config, a KV frontend builds a
+    ``FrontendHinter`` under ``DYN_PREFETCH`` and hands it to its watcher."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
+    from dynamo_tpu_torch.prefetch.frontend import FrontendHinter
+    from dynamo_tpu_torch.robustness.admission import AdmissionConfig
     from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.runtime.client import RouterMode
     from dynamo_tpu_torch.serve import serve_frontend, serve_worker
     from dynamo_tpu_torch.utils.config import RuntimeConfig
 
     rt = await DistributedRuntime.create(RuntimeConfig(
         control_plane=f"memory://serve-dist-refuse-{next(_names)}"))
+    frontends = []
     try:
         with pytest.raises(NotImplementedError, match="mocker"):
             await serve_worker(rt, MODEL_DIR, engine_kind="mocker")
         with pytest.raises(ValueError, match="unknown engine kind"):
             await serve_worker(rt, MODEL_DIR, engine_kind="jax")
-        with pytest.raises(NotImplementedError, match="admission"):
-            await serve_frontend(rt, port=0, admission=object())
-        with pytest.raises(NotImplementedError, match="prefetch hints"):
-            ModelWatcher(rt, None, prefetch_hinter=object())
+        gate = AdmissionConfig(max_inflight=2, max_queue_depth=1)
+        frontends.append(await serve_frontend(rt, host="127.0.0.1", port=0, admission=gate,
+                                              router_mode=RouterMode.KV))
+        service, watcher = frontends[-1]
+        assert service.admission.config is gate and service.admission.enabled
+        assert isinstance(watcher.prefetch_hinter, FrontendHinter)
+        assert service.prefetch_hinter is watcher.prefetch_hinter
+        monkeypatch.setenv("DYN_PREFETCH", "0")
+        frontends.append(await serve_frontend(rt, host="127.0.0.1", port=0,
+                                              router_mode=RouterMode.KV))
+        assert frontends[-1][1].prefetch_hinter is None
+        assert not frontends[-1][0].admission.enabled
+        hinter = FrontendHinter()
+        assert ModelWatcher(rt, None, prefetch_hinter=hinter).prefetch_hinter is hinter
     finally:
+        for service, watcher in frontends:
+            await watcher.stop()
+            await service.stop()
         await rt.close()
 
 
