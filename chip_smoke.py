@@ -63,8 +63,26 @@ Phases (any failure exits non-zero, before the result line):
                session's previous worker, each worker's prefix hits and
                cached tokens (KV routing's must exceed random's); no graph
                captured after warmup in either worker, both replaying
-               unified and decode graphs, the worker's kernels launched.
-  6. prefetch — demand against predictive paging, the hints on the real
+               unified and decode graphs, the worker's kernels launched;
+               the native host codecs in use (the KV frontend's index a
+               NativeRadixTree, every data-plane stream of this process
+               and of each worker read by NativeFrameDecoder, none by the
+               Python codec).
+  6. fleet   — the routed-fleet bench: the headline's kv_routing rung (a
+               mocker fleet, 24 sessions x 4 turns, the median of three
+               kv/random repeats), then ``routed_fleet.compare_policies``
+               on two TorchLlmEngine workers at the Llama-3-8B geometry in
+               this process, on one card (one set of random weights from a
+               seed, each engine warmed before its replay), 12 sessions x 3
+               turns of ``generate_sessions`` in real time under random and
+               KV routing: TTFT p50 / p99, follow-up TTFT, prefix hits,
+               every turn streamed in full, rows 1-2 launched on the card in
+               each replay (counters zeroed after the warmups), no graph
+               captured after warmup, and each engine's idle share (its
+               loop's step time against the replay's wall: the two engines
+               share the card's SMs, so the kv/random ratio reads
+               contention as well as routing).
+  7. prefetch — demand against predictive paging, the hints on the real
                path (FrontendHinter → PrefetchForwarder → PrefetchListener →
                the engine's pager → row 7): one worker at the Llama-3-8B
                geometry (random weights from seed 0, phase serve's lanes and
@@ -83,12 +101,12 @@ Phases (any failure exits non-zero, before the result line):
                warmup; then /metrics, /slo, an n = 2 request and a burst
                through a frontend whose admission gate is below it (429 and
                503 with Retry-After).
-  7. mla     — the same over the DeepSeek-V2-Lite geometry (the published
+  8. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  8. overlap — both configurations in process, all layers: the default
+  9. overlap — both configurations in process, all layers: the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -108,7 +126,7 @@ Phases (any failure exits non-zero, before the result line):
                the unified step skips (two admissions against one seed
                slot): its split prefill key captured once at first use,
                replayed the next time, the capture's ms and the pool.
-  9. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+ 10. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
@@ -130,14 +148,14 @@ Phases (any failure exits non-zero, before the result line):
                512-token chunk's ms by replay and eagerly, and the window
                kernels' device ms a layer inside the graph beside their
                bound.
- 10. longctx — a speculative server of the Llama-3-8B geometry at its own
+ 11. longctx — a speculative server of the Llama-3-8B geometry at its own
                context length (8192 positions, default warmup),
                all layers: warmup's captures, seconds and pool, a
                7000-token prompt and three short ones served with no
                capture after warmup, and the warmup budget's estimate
                (``PrefillGraph.key_bytes``) held above two keys' measured
                eager peaks.
- 11. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+ 12. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -146,12 +164,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
- 12. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 13. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 13. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 14. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -166,7 +184,7 @@ Phases (any failure exits non-zero, before the result line):
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8) at phase
                spec's geometry.
- 14. bench   — the headline benchmark (``python -m
+ 15. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
@@ -212,8 +230,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "dist", "prefetch", "mla", "overlap", "spec",
-          "longctx", "offload", "kvbm", "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "mla", "overlap",
+          "spec", "longctx", "offload", "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -2182,9 +2200,39 @@ async def run_sessions(session, port: int, model: str, sessions, served: list) -
                                    for w in sorted(set(worker.values()))}}
 
 
+def native_checks(kv_watcher, model: str, before: dict, workers: list[dict]) -> dict:
+    """Phase dist ran on the native host codecs: the KV frontend's index is
+    the native radix tree, and every data-plane stream of this process (the
+    frontends' response frames) and of each worker (its control frames)
+    was read by the native decoder, none by the Python codec, so a broken
+    g++ build cannot hide behind the Python fallback."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.native.radix import NativeRadixTree
+
+    tree = type(kv_watcher._pipelines[model]["kv"].indexer.tree).__name__
+    frontend = {k: native.counters[k] - before[k] for k in native.counters}
+    out = {"frontend_index": tree, "frontend": frontend,
+           "frontend_libraries": native.stats()["libraries"],
+           "workers": [{k: w[k] for k in ("libraries", "native_streams", "python_streams")}
+                       for w in workers]}
+    if not isinstance(kv_watcher._pipelines[model]["kv"].indexer.tree, NativeRadixTree):
+        raise AssertionError(f"the KV frontend's index is not the native radix tree: {tree}")
+    if frontend["native_streams"] <= 0 or frontend["native_frames"] <= 0 \
+            or frontend["python_streams"]:
+        raise AssertionError(f"the frontend's frames did not all take the native decoder: "
+                             f"{frontend}")
+    for w in workers:
+        if not w["libraries"].get("dataplane") or w["native_streams"] <= 0 \
+                or w["python_streams"]:
+            raise AssertionError(f"a worker's frames did not all take the native decoder: {w}")
+    return out
+
+
 async def dist_async(card: str, config: dict, device: str) -> dict:
     import aiohttp
     import torch
+
+    from dynamo_tpu_torch import native
 
     from dynamo_tpu_torch.bench.data_generator import SessionConfig, generate_sessions
     from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
@@ -2261,6 +2309,7 @@ async def dist_async(card: str, config: dict, device: str) -> dict:
         return [(await worker_stats(runtime, i))["custom"] for i in insts]
 
     out: dict = {"card": card}
+    codecs_before = dict(native.counters)
     try:
         runtime = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
 
@@ -2340,8 +2389,15 @@ async def dist_async(card: str, config: dict, device: str) -> dict:
         # KV-aware against random routing on the multi-turn sessions
         vocab = HfTokenizer.from_model_dir(mdir).vocab_size
         sessions = generate_sessions(SessionConfig(**DIST_SESSIONS, vocab_size=vocab))
-        kv_port, _ = await frontend(RouterMode.KV)
-        rand_port, _ = await frontend(RouterMode.RANDOM)
+        kv_port, kv_watcher = await frontend(RouterMode.KV)
+        rand_port, rand_watcher = await frontend(RouterMode.RANDOM)
+        t0 = time.perf_counter()
+        while not all(model in w._pipelines for w in (kv_watcher, rand_watcher)):
+            # a pipeline is built off serve_frontend's return (a KV one
+            # also builds the native radix library on its first use)
+            if time.perf_counter() - t0 > 60:
+                raise TimeoutError("the KV and random frontends did not list the model in 60 s")
+            await asyncio.sleep(0.05)
         PushRouter._rendezvous = spy
         modes = {}
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
@@ -2379,6 +2435,10 @@ async def dist_async(card: str, config: dict, device: str) -> dict:
                                      "decode_graph_replays_total", "warmup_s")}})
         out["workers"] = final
         log(f"[dist] workers: {final}")
+        out["native"] = native_checks(kv_watcher, model, codecs_before,
+                                      [(await worker_stats(runtime, i))["custom"]["native_codecs"]
+                                       for i in insts])
+        log(f"[dist] native codecs: {out['native']}")
         for name in ("kv", "random"):
             if len(modes[name]["requests_by_worker"]) != 2:
                 raise AssertionError(f"a worker served no request under {name} routing: "
@@ -2425,6 +2485,136 @@ def phase_dist(card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dic
     launches and no graph is captured."""
     out = asyncio.run(dist_async(card, config, device))
     print(json.dumps({"smoke_dist": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase fleet: the routed-fleet bench, mockers and TorchLlmEngine workers
+# ---------------------------------------------------------------------------
+
+# bench.py's _measure_kv_routing traffic for the torch fleet, cut to 12
+# sessions x 3 turns (generate_sessions' other defaults: 768-token system
+# prefixes, 64 user tokens and 24 output tokens a turn, 3 s think time, three
+# sessions a second), replayed in real time on two workers on one card
+FLEET_SESSIONS = dict(num_sessions=12, turns_per_session=3, seed=0)
+FLEET_WORKERS = 2
+
+
+async def fleet_async(card: str, device: str, model_config, sessions: dict,
+                      engine_kw: dict, rung=None) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.bench import headline, routed_fleet
+    from dynamo_tpu_torch.bench.data_generator import SessionConfig
+    from dynamo_tpu_torch.engine import TorchLlmEngine
+    from dynamo_tpu_torch.models.llama import LlamaConfig, init_params
+
+    on_card = device == "cuda"
+    out: dict = {"card": card}
+    # (a) the headline's KV routing rung: four mockers, no device work
+    t0 = time.perf_counter()
+    out["kv_routing_rung"] = await headline.measure_kv_routing(*(rung or ()))
+    out["kv_routing_rung_s"] = time.perf_counter() - t0
+    log(f"[fleet] kv_routing rung (mocker fleet): {out['kv_routing_rung']}")
+    r = out["kv_routing_rung"]
+    if r["kv_prefix_hits"] <= r["random_prefix_hits"]:
+        raise AssertionError(f"the mocker fleet's KV routing hit no more prefixes than random: {r}")
+
+    # (b) compare_policies on TorchLlmEngine workers sharing one set of weights
+    scfg = SessionConfig(**sessions)
+    longest = (scfg.system_tokens
+               + scfg.turns_per_session * (scfg.user_tokens_per_turn + scfg.osl) + 32)
+    dev = torch.device(device)
+    mcfg = model_config or (LlamaConfig.llama3_8b() if on_card else LlamaConfig.tiny())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(mcfg, gen, device=dev)
+    fcfg = routed_fleet.FleetConfig(
+        engine="torch", num_workers=FLEET_WORKERS, speedup=1.0, device=device,
+        model_config=mcfg, params=params, max_model_len=(longest + 127) // 128 * 128,
+        **engine_kw)
+    # the launch counters are zeroed after each engine's warmup, so a run's
+    # counts are its replay's; each engine's step time is read when its
+    # warmup ends and again at the fleet's teardown
+    marks, runs = {}, []
+    real_warmup, real_teardown = TorchLlmEngine.warmup, routed_fleet._teardown_fleet
+
+    async def warmup(self, *args, **kwargs):
+        await real_warmup(self, *args, **kwargs)
+        zero_counters()
+        marks[id(self)] = (time.perf_counter(), self.stats()["engine_step_time_total_s"])
+
+    async def teardown(handles):
+        t_end = time.perf_counter()
+        engines = [h[0] for h in handles]
+        if engines and all(id(e) in marks for e in engines):
+            t_start = max(marks[id(e)][0] for e in engines)
+            stats = [e.stats() for e in engines]
+            runs.append({
+                "counts": read_counters(),
+                "replay_s": t_end - t_start,
+                "engine_idle_share": [
+                    1.0 - (st["engine_step_time_total_s"] - marks[id(e)][1]) / (t_end - t_start)
+                    for e, st in zip(engines, stats)],
+                "warmup_s": [st["warmup_s"] for st in stats],
+                "graphs_captured_after_warmup": sum(
+                    st[f"{k}_graphs_captured_after_warmup"] for st in stats
+                    for k in ("unified", "decode", "prefill", "verify")),
+            })
+        await real_teardown(handles)
+
+    TorchLlmEngine.warmup, routed_fleet._teardown_fleet = warmup, teardown
+    t0 = time.perf_counter()
+    try:
+        result = await routed_fleet.compare_policies(scfg, fcfg)
+    finally:
+        TorchLlmEngine.warmup, routed_fleet._teardown_fleet = real_warmup, real_teardown
+        del params
+    out["torch_fleet_s"] = time.perf_counter() - t0
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "followup_ttft_p50_ms", "followup_ttft_p99_ms",
+            "prefix_hits_total", "num_turns", "tokens_streamed_total", "turns_short", "wall_s")
+    for policy, run in zip(("random", "kv"), runs):
+        out[policy] = {**{k: result[policy][k] for k in keys}, **run,
+                       "launches": {k: run["counts"][k] for k in LLAMA_PATH},
+                       "plain_calls": run["counts"]["plain_calls"]}
+        del out[policy]["counts"]
+    for k in ("ttft_p50_speedup", "ttft_p99_speedup", "followup_ttft_p50_speedup"):
+        out[k] = result[k]
+    out["model"] = {"hidden": mcfg.hidden_size, "layers": mcfg.num_layers,
+                    "workers": FLEET_WORKERS, "max_model_len": fcfg.max_model_len}
+    log(f"[fleet] torch fleet: {json.dumps(out, default=str)}")
+    if len(runs) != 2:
+        raise AssertionError(f"phase fleet: {len(runs)} measured fleet runs, want 2")
+    expected = scfg.num_sessions * scfg.turns_per_session
+    for policy in ("random", "kv"):
+        o = out[policy]
+        if o["num_turns"] != expected or o["turns_short"] or \
+                o["tokens_streamed_total"] != expected * scfg.osl:
+            raise AssertionError(f"phase fleet: {policy} routing did not finish every turn "
+                                 f"with its {scfg.osl} tokens: {o}")
+        if o["graphs_captured_after_warmup"]:
+            raise AssertionError(f"phase fleet: a graph was captured after warmup: {o}")
+        if on_card and (any(n <= 0 for n in o["launches"].values()) or o["plain_calls"]):
+            raise AssertionError(f"phase fleet: rows 1-2 did not launch on the card under "
+                                 f"{policy} routing: {o}")
+    if out["kv"]["prefix_hits_total"] <= out["random"]["prefix_hits_total"]:
+        raise AssertionError("phase fleet: KV routing hit no more prefixes than random")
+    return out
+
+
+def phase_fleet(card: str, device: str = "cuda", model_config=None,
+                sessions: dict = FLEET_SESSIONS, engine_kw: dict | None = None,
+                rung=None) -> dict:
+    """(a) the headline's kv_routing rung (a mocker fleet, 24 sessions x 4
+    turns, the median of three kv/random repeats); (b) ``routed_fleet.
+    compare_policies`` on two TorchLlmEngine workers at the Llama-3-8B
+    geometry in this process (one set of random weights on the card, each
+    engine warmed), 12 sessions x 3 turns: TTFT, follow-up TTFT and prefix
+    hits under both policies, every turn complete, rows 1-2 launched, each
+    engine's idle share.  ``device`` "cpu" (the tiny config; ``rung`` a
+    smaller session and fleet config for the mocker rung) rehearses it."""
+    out = asyncio.run(fleet_async(card, device, model_config, sessions, engine_kw or {}, rung))
+    print(json.dumps({"smoke_fleet": out}, default=str), flush=True)
     return out
 
 
@@ -4738,6 +4928,8 @@ def main() -> int:
                     raise AssertionError(f"the workers' greedy ids {dist['probe_ids']} differ "
                                          f"from phase serve's {serve['probe_ids']}")
                 log("[dist] the workers' greedy ids equal phase serve's")
+        if "fleet" in phases:
+            run("fleet", phase_fleet, card)
         if "prefetch" in phases:
             run("prefetch", phase_prefetch, card)
         if "mla" in phases:

@@ -12,9 +12,11 @@ reference's constant fill (``DYN_BENCH_INIT=const``; ``random`` takes the
 engine's seeded init), prompts random token ids from a seed.  Reports
 generated tokens/s/card, TTFT and per-request ITL percentiles, decode-phase
 tok/s against the reference's 145 tok/s/GPU H100 figure, MFU against the
-card's peak, the engine's own utilization accounting, and two more rungs:
-the prefix cache's TTFT (the same prompt again) and the same burst through
-the HTTP serving stack.  Prints exactly one JSON line on stdout.
+card's peak, the engine's own utilization accounting, and three more rungs:
+the prefix cache's TTFT (the same prompt again), the same burst through
+the HTTP serving stack, and (``main`` only, in ``detail["kv_routing"]``)
+KV-aware against random routing over a mocker fleet (bench.py's
+``_measure_kv_routing``).  Prints exactly one JSON line on stdout.
 
 Environment (bench.py's names and defaults): ``DYN_BENCH_MODEL``
 (a ``LlamaConfig`` preset), ``_QUANT`` (``int8|none``), ``_KV_DTYPE``
@@ -47,12 +49,14 @@ Beside bench.py:
 - The pipeline rung runs HTTP -> ``CompletionPreprocessor`` -> ``Backend``
   -> engine in process (``pipeline_path``); the reference's push router and
   distributed runtime come with a later slice.
-- Not ported: the KV transfer rung (``_measure_kv_xfer``) and the KV
-  routing rung (``_measure_kv_routing``), named in ``rungs_not_ported``;
-  bench.py's TPU bring-up machinery (relay and device probes, the retrying
-  parent process, its watchdog, the model ladder's step-down and the CPU
-  fallback's re-headline), by rule: the port fails where that code fell
-  back.
+- The KV routing rung runs the mocker fleet (no device), as bench.py's
+  does, into the detail only: the port has no CPU fallback for it to
+  re-headline.  A failure of the rung fails the bench.
+- Not ported: the KV transfer rung (``_measure_kv_xfer``), named in
+  ``rungs_not_ported``; bench.py's TPU bring-up machinery (relay and device
+  probes, the retrying parent process, its watchdog, the model ladder's
+  step-down and the CPU fallback's re-headline), by rule: the port fails
+  where that code fell back.
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ from dynamo_tpu_torch.utils import profiling
 
 # the reference's disaggregated H100 decode figure (BASELINE.md, bench.py:30)
 BASELINE_TOK_S_PER_GPU = 145.0
+# the reference's KV-aware routing TTFT claim (bench.py:33)
+BASELINE_ROUTING_SPEEDUP = 3.0
 BLOCK_SIZE = 16
 MODEL_PRESETS = ("llama3_8b", "llama3_70b", "llama32_3b", "llama32_1b", "tiny")
 PREFIX_PAIRS = 3  # the prefix rung's measured (miss, hit) pairs, after a warm pair
@@ -103,7 +109,6 @@ GRAPH_KINDS = ("unified", "decode", "prefill", "verify")
 
 RUNGS_NOT_PORTED = {
     "kv_xfer": "the KV transfer rung waits for the transfer plane (ROADMAP Queue 1 item 8)",
-    "kv_routing": "the KV routing rung waits for the mocker and the routed fleet bench (ROADMAP Queue 1 item 4b)",
 }
 PIPELINE_PATH = "http -> CompletionPreprocessor -> Backend -> engine (in process, no router hop)"
 
@@ -655,6 +660,42 @@ async def _measure_prefix_ttft(client: _Client, draws: list[list[int]]) -> dict:
     }
 
 
+async def measure_kv_routing(session_cfg=None, fleet=None) -> dict:
+    """KV-aware vs random routing TTFT on multi-turn traffic — the
+    reference's 3x-TTFT routing claim, measured through the port's real
+    router/indexer/dispatch stack over a mocker fleet (no device work): by
+    default 24 sessions x 4 turns on four mockers, the median of three
+    random/kv repeats (a copy of bench.py's ``_measure_kv_routing``;
+    ``session_cfg`` and ``fleet`` replace its traffic and fleet)."""
+    from dynamo_tpu_torch.bench import routed_fleet
+    from dynamo_tpu_torch.bench.data_generator import SessionConfig, generate_sessions
+
+    cfg = session_cfg or SessionConfig(num_sessions=24, turns_per_session=4)
+    fleet = fleet or routed_fleet.FleetConfig()
+    run_fleet = routed_fleet.run_fleet
+    sessions = generate_sessions(cfg)
+    # median of 3 repeats: the compressed-sleep sim is sensitive to host
+    # load spikes, and one spike must not become the recorded number
+    speedups, followups, last = [], [], None
+    for _ in range(3):
+        rnd = await run_fleet("random", sessions, fleet)
+        kv = await run_fleet("kv", sessions, fleet)
+        speedups.append(rnd["ttft_p50_ms"] / kv["ttft_p50_ms"])
+        followups.append(rnd["followup_ttft_p50_ms"] / kv["followup_ttft_p50_ms"])
+        last = (rnd, kv)
+    rnd, kv = last
+    speedup = round(sorted(speedups)[1], 2)
+    return {
+        "ttft_p50_speedup": speedup,
+        "ttft_p50_speedup_runs": [round(x, 2) for x in speedups],
+        "followup_ttft_p50_speedup": round(sorted(followups)[1], 2),
+        # scored against the reference's 3x routing claim (device-independent)
+        "vs_baseline": round(speedup / BASELINE_ROUTING_SPEEDUP, 3),
+        "kv_prefix_hits": kv["prefix_hits_total"],
+        "random_prefix_hits": rnd["prefix_hits_total"],
+    }
+
+
 def main() -> int:
     try:
         s = settings_from_env()
@@ -667,6 +708,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     result = asyncio.run(run_bench(s))
+    result["detail"]["kv_routing"] = asyncio.run(measure_kv_routing())
     print(json.dumps(result), flush=True)
     d = result["detail"]
     if not d["outputs_ok"]:

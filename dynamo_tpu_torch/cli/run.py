@@ -1,12 +1,18 @@
 """dynamo-tpu-torch run — the port's single-command launcher (counterpart of
 ``dynamo-tpu run``).
 
-``run in=<http|none> out=<torch|echo|dyn>``:
+``run in=<http|text|batch:FILE|none> out=<torch|echo|mocker|dyn>``:
 
-- ``out=torch|echo`` serves an engine on an endpoint and registers its model
-  (``serve_worker``); with ``in=http`` a frontend runs in the same process
+- ``out=torch|echo|mocker`` serves an engine on an endpoint and registers
+  its model (``serve_worker``; ``mocker`` is the simulated engine of
+  ``llm/mocker.py``); with ``in=http`` a frontend runs in the same process
   over the memory control plane (``serve_frontend``), as the reference's
   single-command mode does.
+- ``in=text`` reads one prompt a line from stdin and prints each answer (an
+  empty line ends it); ``in=batch:FILE`` answers every line of FILE (plain
+  text, or JSON objects with a ``prompt``) with one JSON line
+  ``{"prompt", "response"}``.  Both go through the whole pipeline
+  (discovery, preprocessor, router, backend, engine) as chat requests.
 - ``in=none out=torch --control-plane HOST:PORT`` is a worker alone, which
   registers with a ``dynctl serve`` control plane.
 - ``in=http out=dyn --control-plane HOST:PORT`` is a frontend alone: it
@@ -25,6 +31,8 @@ KV offload tiers below the device cache (G2 host memory, then
 Examples:
   python -m dynamo_tpu_torch.cli.run run in=http out=torch \\
       --model-path tests/data/tiny-chat-model --port 8080 --warmup
+  python -m dynamo_tpu_torch.cli.run run in=batch:prompts.jsonl out=torch \
+      --model-path tests/data/tiny-chat-model --device cpu
   python -m dynamo_tpu_torch.cli.dynctl serve --port 2379
   python -m dynamo_tpu_torch.cli.run run in=none out=torch \\
       --model-path tests/data/tiny-chat-model --control-plane 127.0.0.1:2379
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import signal
 import sys
 
@@ -44,15 +53,17 @@ from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
 
 logger = get_logger("cli.run")
 
-INPUTS = ("http", "none")
-OUTPUTS = ("torch", "echo", "dyn")
+INPUTS = ("http", "text", "none")  # and batch:FILE
+OUTPUTS = ("torch", "echo", "mocker", "dyn")
+LOCAL_ENGINES = ("torch", "echo", "mocker")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="dynamo-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="serve a model")
-    run.add_argument("io", nargs="*", help="in=<http|none> out=<torch|echo|dyn>")
+    run.add_argument("io", nargs="*",
+                     help="in=<http|text|batch:FILE|none> out=<torch|echo|mocker|dyn>")
     run.add_argument("--model-path", help="local model dir (tokenizer/config/weights)")
     run.add_argument("--model-name", help="served model name (default: dir name)")
     run.add_argument("--host", default="0.0.0.0")
@@ -114,15 +125,15 @@ def parse_args(argv=None) -> argparse.Namespace:
             args.output = tok[4:]
         else:
             parser.error(f"unrecognized positional {tok!r} (want in=... / out=...)")
-    if args.input not in INPUTS:
-        parser.error(f"in={args.input}: this launcher takes in=http or in=none "
-                     "(the reference's in=text and in=batch come with a later "
-                     "slice of the port)")
+    if args.input not in INPUTS and not args.input.startswith("batch:"):
+        parser.error(f"in={args.input}: this launcher takes in=http, in=text, "
+                     "in=batch:FILE or in=none")
     if args.output not in OUTPUTS:
-        parser.error(f"out={args.output}: this launcher takes out=torch, out=echo "
-                     "or out=dyn")
-    if args.output == "dyn" and args.input != "http":
-        parser.error("out=dyn is a frontend alone: it needs in=http")
+        parser.error(f"out={args.output}: this launcher takes out=torch, out=echo, "
+                     "out=mocker or out=dyn")
+    if args.output == "dyn" and args.input == "none":
+        parser.error("out=dyn is a frontend alone: it needs in=http, in=text or "
+                     "in=batch:FILE")
     if args.output == "dyn" and not args.control_plane:
         parser.error("out=dyn discovers workers on a control plane: give "
                      "--control-plane HOST:PORT")
@@ -172,7 +183,7 @@ async def _run(args) -> int:
         loop.add_signal_handler(sig, runtime.shutdown)
     worker = service = watcher = None
     try:
-        if args.output in ("torch", "echo"):
+        if args.output in LOCAL_ENGINES:
             overrides = {}
             if args.output == "torch":
                 overrides = dict(engine_overrides(args), device=args.device,
@@ -191,8 +202,11 @@ async def _run(args) -> int:
             )
             print(f"listening on http://{args.host}:{service.port}/v1",
                   file=sys.stderr, flush=True)
-        else:
+        elif args.input == "none":
             print("worker running; ctrl-c to stop", file=sys.stderr, flush=True)
+        else:
+            await _run_local_io(runtime, args)
+            return 0
         await runtime.wait_for_shutdown()
     finally:
         if watcher is not None:
@@ -203,6 +217,65 @@ async def _run(args) -> int:
             await worker.shutdown()
         await runtime.close()
     return 0
+
+
+async def _run_local_io(runtime, args) -> None:
+    """in=text REPL / in=batch:FILE one-shot, through the full pipeline (a
+    copy of the reference's ``_run_local_io``)."""
+    from dynamo_tpu_torch.llm.discovery import ModelWatcher
+    from dynamo_tpu_torch.llm.http.service import ModelManager
+    from dynamo_tpu_torch.llm.protocols.aggregator import aggregate_chat_stream
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    manager = ModelManager()
+    watcher = ModelWatcher(runtime, manager, router_mode=RouterMode(args.router_mode))
+    await watcher.start()
+    for _ in range(100):
+        if manager.model_names():
+            break
+        await asyncio.sleep(0.05)
+    names = manager.model_names()
+    if not names:
+        print("no models registered", file=sys.stderr)
+        await watcher.stop()
+        return
+    model = names[0]
+    engine = manager.chat_engines[model]
+
+    async def ask(prompt: str) -> str:
+        req = ChatCompletionRequest.model_validate(
+            {"model": model, "messages": [{"role": "user", "content": prompt}]}
+        )
+        stream = await engine.generate(Context(req))
+
+        async def data_only():
+            async for ann in stream:
+                if not ann.is_annotation() and ann.data is not None:
+                    yield ann.data
+
+        response = await aggregate_chat_stream(data_only())
+        return response.choices[0].message.content if response.choices else ""
+
+    try:
+        if args.input == "text":
+            print(f"interactive mode, model={model}; empty line exits", file=sys.stderr)
+            loop = asyncio.get_running_loop()
+            while True:
+                line = await loop.run_in_executor(None, sys.stdin.readline)
+                line = line.strip()
+                if not line:
+                    break
+                print(await ask(line), flush=True)
+        else:
+            path = args.input[len("batch:"):]
+            with open(path) as f:
+                prompts = [json.loads(l)["prompt"] if l.strip().startswith("{") else l.strip()
+                           for l in f if l.strip()]
+            for prompt in prompts:
+                print(json.dumps({"prompt": prompt, "response": await ask(prompt)}), flush=True)
+    finally:
+        await watcher.stop()
 
 
 def main(argv=None) -> int:

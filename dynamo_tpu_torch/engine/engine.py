@@ -90,6 +90,7 @@ from typing import Any, AsyncIterator, Callable
 import numpy as np
 import torch
 
+from dynamo_tpu_torch import native
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.graphs import (
     DecodeGraph,
@@ -872,6 +873,9 @@ class TorchLlmEngine:
             # process reads what the path launched
             "kernel_launches": {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
                                 for (mod, name), n in launch_counters().items()},
+            # the native host codecs this process loaded and the data plane's
+            # frame streams by decoder (process wide, as kernel_launches)
+            "native_codecs": native.stats(),
             **self._decode.stats(),
             **(self._unified.stats() if self._unified is not None
                else StepGraphs.zero_stats("unified")),

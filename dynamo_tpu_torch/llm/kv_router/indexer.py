@@ -8,9 +8,9 @@ the first miss and counts per-worker holdings.
 
 The indexer applies events from a single consumer task — same
 single-writer-by-construction design as the reference's event loop
-(indexer.rs:36-44).  The reference's C++ twin (csrc/radix_index.cpp)
-comes with a later slice of the port; this Python implementation is the
-reference's behavioral spec and its ``DYN_DISABLE_NATIVE=1`` path.
+(indexer.rs:36-44).  A C++ twin (csrc/radix_index.cpp) accelerates
+find_matches for large trees; this Python implementation is the always-
+available fallback and the behavioral spec.
 """
 
 from __future__ import annotations
@@ -118,12 +118,16 @@ class KvIndexer:
     application and matching interleave cooperatively."""
 
     def __init__(self, *, native: bool | None = None) -> None:
-        if native:
-            raise NotImplementedError(
-                "the native radix index comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 4b); native=None runs the Python tree"
-            )
-        self.tree = RadixTree()
+        tree = None
+        if native is not False:
+            try:
+                from dynamo_tpu_torch.native.radix import NativeRadixTree
+
+                tree = NativeRadixTree()
+            except Exception:  # noqa: BLE001 — fall back to the Python spec
+                if native is True:
+                    raise
+        self.tree = tree if tree is not None else RadixTree()
         self._queue: asyncio.Queue[RouterEvent | None] = asyncio.Queue()
         self._task: asyncio.Task | None = None
         self.events_applied = 0

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import msgpack
 
+from dynamo_tpu_torch import native
 from dynamo_tpu_torch.robustness.faults import DP_CONNECT, DP_SEND, FAULTS
 from dynamo_tpu_torch.runtime.codec import (
     TwoPartMessage,
@@ -38,17 +39,48 @@ from dynamo_tpu_torch.utils.tasks import spawn_logged
 logger = get_logger("runtime.dataplane")
 
 STREAM_TIMEOUT = 600.0  # max seconds a registered stream waits for connect-back
+READ_CHUNK = 1 << 16
 
 
 async def iter_frames(reader: asyncio.StreamReader):
-    """Yield two-part frames until EOF, through the pure-Python codec (the
-    reference's ``DYN_DISABLE_NATIVE=1`` path: its C++ incremental decoder
-    comes with a later slice of the port)."""
-    while True:
-        frame = await read_two_part(reader)
-        if frame is None:
-            return
-        yield frame
+    """Yield two-part frames until EOF.
+
+    Uses the native incremental decoder when available — one socket read per
+    chunk with frame splitting in C++, instead of three awaits per frame —
+    which matters on the per-token response hot path.  Falls back to the
+    pure-Python codec.  Each stream and frame is counted by route in
+    ``dynamo_tpu_torch.native.counters``."""
+    decoder = None
+    try:
+        # imported here: native/dataplane.py imports the runtime's codec
+        from dynamo_tpu_torch.native.dataplane import NativeFrameDecoder
+
+        decoder = NativeFrameDecoder()
+    except RuntimeError:
+        pass
+    counters = native.counters
+    if decoder is None:
+        counters["python_streams"] += 1
+        while True:
+            frame = await read_two_part(reader)
+            if frame is None:
+                return
+            counters["python_frames"] += 1
+            yield frame
+    else:
+        counters["native_streams"] += 1
+        while True:
+            try:
+                chunk = await reader.read(READ_CHUNK)
+            except ConnectionResetError:
+                return  # same "connection lost" semantics as read_two_part
+            if not chunk:
+                return
+            decoder.feed(chunk)
+            msgs = decoder.drain()  # one C call per chunk
+            counters["native_frames"] += len(msgs)
+            for msg in msgs:
+                yield msg
 
 
 @dataclass
@@ -115,6 +147,9 @@ class ResponseStreamServer:
     async def start(self) -> None:
         if self._server is not None:
             return
+        # warm the native codec off-loop: first use otherwise triggers a
+        # synchronous g++ compile inside a connection handler
+        await native.warm_native("dataplane")
         # backlog: asyncio's default (100) overflows under request bursts —
         # a few hundred concurrent generates all dial connect-backs at
         # once, the kernel RSTs the overflow, and those requests die
@@ -235,18 +270,19 @@ class ResponseStreamSender:
     async def _control_loop(self) -> None:
         """Surface caller stop/kill on the worker-side context."""
         assert self._reader is not None
-        while True:
-            frame = await read_two_part(self._reader)
-            if frame is None:
-                # caller went away: treat as kill so the engine stops work
-                self.ctx.kill()
-                return
+        await native.warm_native("dataplane")  # a worker's first build runs off the loop
+        # read through iter_frames, so a worker's control frames take the
+        # native decoder as the caller's response frames do (the reference
+        # reads them with read_two_part: the same frames, the same EOF)
+        async for frame in iter_frames(self._reader):
             kind = frame.header.get("t")
             if kind == "stop":
                 self.ctx.stop_generating()
             elif kind == "kill":
                 self.ctx.kill()
                 return
+        # caller went away: treat as kill so the engine stops work
+        self.ctx.kill()
 
     async def send(self, item: dict) -> None:
         # chaos seam: a mid-stream write failure (worker killed while

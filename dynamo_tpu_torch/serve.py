@@ -152,7 +152,10 @@ async def serve_worker(
     ``device="cpu"``; ``engine_overrides`` go to EngineConfig, ``warmup=True``
     captures every serving graph before the model registers, and
     ``warmup_prompt_lens`` narrows the split prefill's keys as in
-    ``serve_http``); ``"echo"`` the token echo engine.  The KV event,
+    ``serve_http``); ``"echo"`` the token echo engine; ``"mocker"`` the
+    simulated engine (``llm/mocker.py``: the real allocator and scheduler, a
+    cost model in place of the device), publishing KV events and load
+    metrics as a torch worker does.  The KV event,
     load-metrics and cache-flush publishers are wired before the engine
     starts, so no early event is lost; the model registers last, so a
     frontend's pipeline appears only once the engine is warm."""
@@ -165,10 +168,25 @@ async def serve_worker(
         engine = EchoEngineCore()
         service = await ep.serve(engine)
     elif engine_kind == "mocker":
-        raise NotImplementedError(
-            "the mocker engine comes with a later slice of the port (ROADMAP "
-            "Queue 1 item 4b)"
+        from dynamo_tpu_torch.llm.mocker import MockerConfig, MockerEngine
+
+        engine = MockerEngine(MockerConfig(block_size=mdc.kv_block_size))
+        service = await ep.serve(engine, stats_handler=engine.stats)
+        # mockers exist to exercise routers at scale, so they publish the
+        # same KV events + load metrics as the real engine (the mocker's
+        # allocator is the real BlockAllocator — its stored/removed events
+        # feed the KV router's radix index exactly like serving traffic).
+        # Same wiring order as the torch branch: sink attached BEFORE the
+        # engine loop starts, so no early request's events are dropped.
+        kv_pub = KvEventPublisher(ep.component, worker_id=service.instance.instance_id)
+        kv_pub.start()
+        engine._event_sink = kv_pub.sink
+        metrics_pub = WorkerMetricsPublisher(
+            ep.component, service.instance.instance_id, engine.stats
         )
+        metrics_pub.start()
+        publishers = [kv_pub, metrics_pub]
+        engine.start()
     elif engine_kind == "torch":
         # built off the event loop: weight loading takes seconds and a G4
         # remote tier's mount does blocking TCP — heartbeats and endpoints
@@ -206,7 +224,7 @@ async def serve_worker(
                 await WorkerHandle(service, engine, publishers).shutdown()
                 raise
     else:
-        raise ValueError(f"unknown engine kind {engine_kind!r} (want torch|echo)")
+        raise ValueError(f"unknown engine kind {engine_kind!r} (want torch|echo|mocker)")
 
     await register_llm(service, mdc, model_types=model_types)
     return WorkerHandle(service=service, engine=engine, publishers=publishers)

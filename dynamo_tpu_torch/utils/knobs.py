@@ -228,3 +228,6 @@ K_CONTROL_PLANE = register(
 K_CACHE_DIR = register(
     "DYN_CACHE_DIR", type="str", default=None,
     doc="artifact/cache directory (default `~/.cache/dynamo_tpu_torch`)")
+K_DISABLE_NATIVE = register(
+    "DYN_DISABLE_NATIVE", type="bool", default=False,
+    doc="skip the native (C++) data-plane codec and use pure Python")

@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # the keys of bench.py's result line (:405-474) that the port keeps: all
 # but the KV transfer rung's (rungs_not_ported) and cpu_fallback (the port
-# never falls back)
+# never falls back); the KV routing rung's are in detail["kv_routing"]
 REFERENCE_KEYS = {"metric", "value", "unit", "vs_baseline"}
 REFERENCE_DETAIL_KEYS = {
     "model", "quantize", "kv_cache_dtype", "n_params", "num_requests", "isl", "osl",
@@ -295,7 +295,12 @@ def test_headline_cpu_run_prints_one_json_line():
     assert detail["ttft_samples"] == detail["itl_samples"] == 2
     assert detail["prefix_tokens"] == 512 and detail["prefix_ttft_speedup"] > 0
     assert detail["graphs_captured_after_warmup"] == 0
-    assert detail["rungs_not_ported"].keys() == {"kv_xfer", "kv_routing"}
+    assert detail["rungs_not_ported"].keys() == {"kv_xfer"}
+    # bench.py's KV routing rung (a mocker fleet) in the detail
+    assert detail["kv_routing"].keys() == {
+        "ttft_p50_speedup", "ttft_p50_speedup_runs", "followup_ttft_p50_speedup",
+        "vs_baseline", "kv_prefix_hits", "random_prefix_hits"}
+    assert detail["kv_routing"]["kv_prefix_hits"] > detail["kv_routing"]["random_prefix_hits"]
     assert "Backend" in detail["pipeline_path"]
 
 

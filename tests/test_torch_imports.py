@@ -85,6 +85,15 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.prefetch.session", "dynamo_tpu_torch.prefetch.pager",
             "dynamo_tpu_torch.prefetch.frontend", "dynamo_tpu_torch.prefetch.forwarder",
             "dynamo_tpu_torch.prefetch.worker",
+            # the native host codecs, the mocker and the routed fleet, the
+            # services (the metrics service imports prometheus_client where
+            # it builds its registry) and the planner and topology copies
+            "dynamo_tpu_torch.native", "dynamo_tpu_torch.native.dataplane",
+            "dynamo_tpu_torch.native.radix", "dynamo_tpu_torch.llm.mocker",
+            "dynamo_tpu_torch.bench.routed_fleet",
+            "dynamo_tpu_torch.components.metrics_service",
+            "dynamo_tpu_torch.components.router_service",
+            "dynamo_tpu_torch.planner.state", "dynamo_tpu_torch.topology.metrics",
             "dynamo_tpu_torch.observability.trace", "dynamo_tpu_torch.observability.recorder",
             "dynamo_tpu_torch.observability.flight",
             "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.utils.knobs",

@@ -2,8 +2,9 @@
 scheduler on the same event streams, the engine's KV events against
 ``JaxLlmEngine``'s, the event plumbing over the bus, and the cost model.
 
-Both indexers run their pure-Python tree (the reference's
-``DYN_DISABLE_NATIVE=1`` path, ``KvIndexer(native=False)`` there).  Event
+The port's indexer runs its default tree (the native radix index where
+``g++`` builds it), the reference's its pure-Python tree
+(``KvIndexer(native=False)``).  Event
 streams are drawn from a seed: stored chains (from the root and continued
 from a parent), removals, clears and worker deaths; the overlap scores must
 be equal after every event.
@@ -164,12 +165,23 @@ def test_transfer_cost_model_equals_the_reference():
 
 
 def test_refused_subsystems_are_named(monkeypatch):
-    """The native radix index is still refused by name; the prefetch
-    forwarder is served: ``enable_prefetch=True`` builds one over the
-    router's own index, ``False`` none, and ``None`` reads ``DYN_PREFETCH``
-    as the reference's router does."""
-    with pytest.raises(NotImplementedError, match="native radix"):
-        kv_router.KvIndexer(native=True)
+    """Nothing of the router is refused any more: ``KvIndexer(native=True)``
+    serves the native radix index (its scores equal the reference's native
+    tree's), and the prefetch forwarder is served: ``enable_prefetch=True``
+    builds one over the router's own index, ``False`` none, and ``None``
+    reads ``DYN_PREFETCH`` as the reference's router does."""
+    from dynamo_tpu.native.radix import NativeRadixTree as RefNativeRadixTree
+    from dynamo_tpu_torch.native.radix import NativeRadixTree
+
+    ours, ref = kv_router.KvIndexer(native=True), ref_router.KvIndexer(native=True)
+    assert isinstance(ours.tree, NativeRadixTree) and isinstance(ref.tree, RefNativeRadixTree)
+    events, chains = draw_stream(0)
+    for event in events:
+        apply(ours, protocols, event)
+        apply(ref, ref_protocols, event)
+    for chain in chains:
+        a, b = ours.find_matches(chain), ref.find_matches(chain)
+        assert (a.scores, a.total_blocks) == (b.scores, b.total_blocks)
     from dynamo_tpu_torch.prefetch.forwarder import PrefetchForwarder
 
     router = kv_router.KvRouter(component=None, enable_prefetch=True)

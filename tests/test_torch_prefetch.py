@@ -294,16 +294,20 @@ class FakeComponent:
         return f"ns.backend.{name}"
 
 
-async def test_forwarder_targets_like_the_reference():
-    """Two routers' indexes (the port's and the reference's) fed the same
-    stored / removed events of three workers: the same hints (arrival, and
-    the predictor's next-turn hints under an injected clock) reach the same
-    worker, unroutable ones are dropped alike."""
+@pytest.mark.parametrize("native", [False, True])
+async def test_forwarder_targets_like_the_reference(native):
+    """Two routers' indexes (the port's and the reference's, both on their
+    Python trees or both on their native ones: the two trees list tied
+    workers in different orders, and the forwarder's pick among ties
+    follows that order in both packages) fed the same stored / removed
+    events of three workers: the same hints (arrival, and the predictor's
+    next-turn hints under an injected clock) reach the same worker,
+    unroutable ones are dropped alike."""
     rng = random.Random(11)
     sides = []
     for fw_mod, index_cls, kv_event, router_event in (
-        (forwarder, KvIndexer, KvCacheEvent, RouterEvent),
-        (jax_forwarder, lambda: JaxKvIndexer(native=False), JaxKvCacheEvent, JaxRouterEvent),
+        (forwarder, lambda: KvIndexer(native=native), KvCacheEvent, RouterEvent),
+        (jax_forwarder, lambda: JaxKvIndexer(native=native), JaxKvCacheEvent, JaxRouterEvent),
     ):
         clock = Clock(50.0)
         comp = FakeComponent()

@@ -384,9 +384,13 @@ def test_cli_modes_and_refusals():
     assert (frontend.output, frontend.router_mode, frontend.model_path) == ("dyn", "kv", None)
     local = parse_args(["run", "in=http", "out=echo", "--model-path", "m"])
     assert (local.control_plane, local.warmup) == (None, False)
+    text = parse_args(["run", "in=text", "out=torch", "--model-path", "m"])
+    batch = parse_args(["run", "in=batch:p.jsonl", "out=mocker", "--model-path", "m"])
+    assert (text.input, batch.input, batch.output) == ("text", "batch:p.jsonl", "mocker")
     for bad in (["run", "in=http", "out=dyn"],                     # no control plane
                 ["run", "in=none", "out=torch", "--model-path", "m"],
-                ["run", "in=text", "out=torch", "--model-path", "m"],
+                ["run", "in=none", "out=dyn", "--control-plane", "h:1"],
+                ["run", "in=file", "out=torch", "--model-path", "m"],
                 ["run", "in=http", "out=jax", "--model-path", "m"],
                 ["run", "in=http", "out=torch"],                    # no model
                 ["run", "--model-path", "m", "--router-mode", "nearest"]):
@@ -395,10 +399,13 @@ def test_cli_modes_and_refusals():
 
 
 async def test_later_subsystems_are_refused_by_name(monkeypatch):
-    """The mocker is still refused by name; admission control and the
-    prefetch hinter are served: ``serve_frontend(admission=...)`` gates its
-    inference routes with the given config, a KV frontend builds a
-    ``FrontendHinter`` under ``DYN_PREFETCH`` and hands it to its watcher."""
+    """Nothing of these is refused any more: ``engine_kind="mocker"`` serves
+    the mocker (it registers its model with the KV event and load
+    publishers wired to it), an unknown kind raises; admission
+    control and the prefetch hinter are served: ``serve_frontend(admission=
+    ...)`` gates its inference routes with the given config, a KV frontend
+    builds a ``FrontendHinter`` under ``DYN_PREFETCH`` and hands it to its
+    watcher."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
     from dynamo_tpu_torch.prefetch.frontend import FrontendHinter
     from dynamo_tpu_torch.robustness.admission import AdmissionConfig
@@ -411,8 +418,22 @@ async def test_later_subsystems_are_refused_by_name(monkeypatch):
         control_plane=f"memory://serve-dist-refuse-{next(_names)}"))
     frontends = []
     try:
-        with pytest.raises(NotImplementedError, match="mocker"):
-            await serve_worker(rt, MODEL_DIR, engine_kind="mocker")
+        from dynamo_tpu_torch.llm.mocker import MockerEngine
+
+        mocker = await serve_worker(rt, MODEL_DIR, engine_kind="mocker",
+                                    component="mocker")
+        try:
+            assert isinstance(mocker.engine, MockerEngine)
+            assert [type(p).__name__ for p in mocker.publishers] == [
+                "KvEventPublisher", "WorkerMetricsPublisher"]
+            assert mocker.engine._event_sink is not None
+            from dynamo_tpu_torch.llm.discovery import MODELS_PREFIX, ModelEntry
+
+            entries = [ModelEntry.from_json(e.value)
+                       for e in await rt.plane.kv.get_prefix(MODELS_PREFIX)]
+            assert [e.component for e in entries] == ["mocker"]
+        finally:
+            await mocker.shutdown()
         with pytest.raises(ValueError, match="unknown engine kind"):
             await serve_worker(rt, MODEL_DIR, engine_kind="jax")
         gate = AdmissionConfig(max_inflight=2, max_queue_depth=1)
