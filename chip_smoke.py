@@ -106,7 +106,26 @@ Phases (any failure exits non-zero, before the result line):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  9. overlap — both configurations in process, all layers: the default
+  9. families — the other model families at their published widths, each
+               served as in phase serve (over HTTP in process, the default
+               engine, max length 2048, random weights from seed 0, the
+               tiny model's tokenizer, four chats and the long prompt, the
+               counters zeroed just before and read just after):
+               Mixtral-8x7B (8 of 32 layers) and Qwen3-30B-A3B (8 of 48
+               layers) on the MoE FFN with rows 1-2 at head dim 128 (the
+               tensor-core walks), Gemma-2B (MQA, head dim 256) and
+               Phi-3-mini-4k (MHA, head dim 96, a 2047-position window)
+               with rows 1-2 on the CUDA-core loops, Gemma-2 2B and Gemma-3
+               4B text on the split step with plain attention (the
+               reference's attention there is XLA: no kernel) and no
+               attention kernel launched; every request a 200 with its
+               tokens, a greedy probe equal with overlap on and off, and a
+               speculative Mixtral engine (spec_tokens 4) whose greedy ids
+               equal a plain engine's, row 2 launched at W = 5 inside the
+               verify graph; one ``smoke_families`` line a model.  Phase
+               kernels holds rows 1-2 at head dims 96 and 256 (Phi-3's and
+               Gemma-2B's heads, a window, W = 5, an fp8 cache).
+ 10. overlap — both configurations in process, all layers: the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -126,7 +145,7 @@ Phases (any failure exits non-zero, before the result line):
                the unified step skips (two admissions against one seed
                slot): its split prefill key captured once at first use,
                replayed the next time, the capture's ms and the pool.
- 10. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+ 11. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
                the DeepSeek-V2-Lite config, all layers, over HTTP with chats
@@ -148,14 +167,14 @@ Phases (any failure exits non-zero, before the result line):
                512-token chunk's ms by replay and eagerly, and the window
                kernels' device ms a layer inside the graph beside their
                bound.
- 11. longctx — a speculative server of the Llama-3-8B geometry at its own
+ 12. longctx — a speculative server of the Llama-3-8B geometry at its own
                context length (8192 positions, default warmup),
                all layers: warmup's captures, seconds and pool, a
                7000-token prompt and three short ones served with no
                capture after warmup, and the warmup budget's estimate
                (``PrefillGraph.key_bytes``) held above two keys' measured
                eager peaks.
- 12. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+ 13. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -164,12 +183,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
- 13. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 14. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 14. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 15. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -184,7 +203,7 @@ Phases (any failure exits non-zero, before the result line):
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8) at phase
                spec's geometry.
- 15. bench   — the headline benchmark (``python -m
+ 16. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
@@ -230,8 +249,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "mla", "overlap",
-          "spec", "longctx", "offload", "kvbm", "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "mla", "families",
+          "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -576,9 +595,10 @@ def ragged_case(torch, *, spans, h=32, kvh=8, d=128, bs=16, tb=8, t_pad=None,
     if cache_dtype is not None:
         res["equals_wide_cache"] = torch.equal(
             out.view(torch.uint8), call(work, fixed_dev, k16, v16).view(torch.uint8))
-    if len(plan.combines):
+    if len(plan.combines) and route == "tensor-core walk":
         # a planted fault: the first split block's combine leaves out its
-        # last partial (the constructor would refuse such a plan)
+        # last partial (the constructor would refuse such a plan; the
+        # CUDA-core loop reads no plan)
         bad = copy.copy(plan)
         bad.combines = plan.combines.copy()
         bad.combines[0, 2] -= 1
@@ -1236,6 +1256,8 @@ def phase_kernels(torch) -> dict:
     small_r = ragged_case(torch, spans=[(0, 4, 1), (1, 8, 9), (2, 28, 1)], h=4,
                           kvh=2, d=16, bs=16, dtype=torch.float32, t_pad=16, timed=False)
     check_case("ragged head dim 16 fp32", small_r, F32_ATOL)
+    other = other_head_dim_cases(torch, mix)
+    cases.update(other)
     from dynamo_tpu_torch.ops.kernels import ragged_attention as rk
 
     ragged_bf16 = {k: cases[k] for k in ("ragged_mix", "ragged_decode8_one_block",
@@ -1243,8 +1265,10 @@ def phase_kernels(torch) -> dict:
     ragged_bf16.update(window_256=win_r, head_dim_64=d64_r, rows_56=rows56_r,
                        no_split=no_split)
     if hasattr(rk, "split_launches"):  # a parent checkout has the CUDA-core loop only
-        routes = {**{k: r["route"] for k, r in ragged_bf16.items()}, "fp32_d16": small_r["route"]}
-        want = {k: "CUDA-core loop" if k == "fp32_d16" else "tensor-core walk" for k in routes}
+        routes = {**{k: r["route"] for k, r in ragged_bf16.items()}, "fp32_d16": small_r["route"],
+                  **{k: r["route"] for k, r in other.items() if k.startswith("ragged")}}
+        want = {k: "CUDA-core loop" if k == "fp32_d16" or k in other else "tensor-core walk"
+                for k in routes}
         if routes != want:
             raise AssertionError(f"row 1 took the wrong route: {routes}")
     print(json.dumps({"smoke_ragged": {
@@ -1380,10 +1404,72 @@ def phase_kernels(torch) -> dict:
         "mla_window": max(*(cases[f"mla_window_b{b}"]["max_abs_err"] for b in (1, 8, 32)),
                           mla_edges["mla_window_w16"]["max_abs_err"]),
         "mla_ragged": max(r["max_abs_err"] for r in mla_bf16.values()),
+        **{f"{row}_{tag}": max(r["max_abs_err"] for k, r in other.items()
+                               if k.startswith(row) and tag in k)
+           for row in ("ragged", "paged") for tag in ("d96", "d256")},
         **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
            for row in ("gather", "scatter")},
     }
     return {"cases": cases, "errs": errs}
+
+
+# rows 1 and 2 at the other families' head dims, on the CUDA-core loops:
+# Phi-3-mini (32 heads, as many kv heads, head dim 96) and Gemma-2B (8 heads
+# over one kv head, head dim 256: 64 query rows a token block of 8, and
+# 8 W a sequence)
+OTHER_HEADS = {"d96": dict(h=32, kvh=32, d=96), "d256": dict(h=8, kvh=1, d=256)}
+
+
+def other_head_dim_cases(torch, mix) -> dict:
+    """Rows 1 and 2 at head dims 96 and 256 (``OTHER_HEADS``): decode at 8
+    lanes, the verify window at W = 5, the ragged mix of phase kernels,
+    Gemma-2B's 1504-token prompt as one span, a sliding window of 256 and
+    an fp8 e4m3fn cache (which must give the bits of the same kernel on the
+    cache's bf16 values), each held against its plain version at
+    BF16_ATOL (row 1 also at RAGGED_REL) and launched twice for the same
+    bits; the timed ones beside their bound and one SDPA call."""
+    rng = random.Random(96256)  # its own stream: the other cases keep their contexts
+    lens = [rng.randint(1, 2048) for _ in range(8)]
+    lens[0], lens[1] = 2047, 2048
+    w5 = [rng.randint(5, 2048) for _ in range(8)]
+    w5[0], w5[1], w5[2] = 2047, 2048, 2050
+    fp8 = torch.float8_e4m3fn
+    out = {}
+    for tag, geo in OTHER_HEADS.items():
+        runs = {
+            f"paged_decode_{tag}_b8": lambda: decode_case(torch, lens=lens, seed=80, **geo),
+            f"paged_verify_w5_{tag}_b8": lambda: decode_case(
+                torch, lens=w5, w=5, seed=81, max_blocks=128, **geo),
+            f"paged_window256_{tag}": lambda: decode_case(
+                torch, lens=[2047, 700, 1500, 33], window=256, seed=82, timed=False, **geo),
+            f"paged_fp8_{tag}": lambda: decode_case(
+                torch, lens=lens, seed=83, timed=False, cache_dtype=fp8, **geo),
+            f"ragged_mix_{tag}": lambda: ragged_case(torch, spans=mix, t_pad=352, **geo),
+            f"ragged_window256_{tag}": lambda: ragged_case(
+                torch, spans=mix, t_pad=352, window=256, timed=False, **geo),
+            f"ragged_fp8_{tag}": lambda: ragged_case(
+                torch, spans=mix, t_pad=352, timed=False, cache_dtype=fp8, **geo),
+        }
+        if tag == "d256":  # Gemma-2B's long prompt, one span of 188 token blocks
+            runs[f"ragged_prefill_span_{tag}"] = lambda: ragged_case(
+                torch, spans=[(0, 0, 1504)], library="causal", **geo)
+        for name, run in runs.items():
+            res = out[name] = run()
+            label = f"{name} (h {geo['h']}, kvh {geo['kvh']}, d {geo['d']})"
+            if name.startswith("ragged"):
+                check_ragged(label, res)
+            else:
+                check_case(label, res, BF16_ATOL)
+            if not res.get("equals_wide_cache", True):
+                raise AssertionError(f"{name}: the kernel on the fp8 cache differs from "
+                                     f"itself on the cache's bf16 values")
+            torch.cuda.empty_cache()
+    print(json.dumps({"smoke_other_head_dims": {
+        name: {key: r.get(key) for key in (
+            "route", "max_abs_err", "max_rel_err", "deterministic", "equals_wide_cache",
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for name, r in out.items()}}), flush=True)
+    return out
 
 
 # phase "sweep", run only when named: the split planners' grid aims
@@ -4774,6 +4860,289 @@ def phase_kvbm(torch, card: str, device: str = "cuda") -> dict:
 # phase bench: the headline benchmark's configurations
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase families: the other model families, at their published widths
+# ---------------------------------------------------------------------------
+
+# the published config.json of each family (the text_config for Gemma-3),
+# the token ids of the tiny model's tokenizer that serves them (bos 0, eos
+# 1), the depth cut where bf16 weights would not leave the card room:
+# mistralai/Mixtral-8x7B-v0.1 (32 layers are 93 GB)
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 8, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "sliding_window": None, "tie_word_embeddings": False, "hidden_act": "silu",
+    "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
+}
+# Qwen/Qwen3-30B-A3B (48 layers are 61 GB, too little room left for the graphs)
+QWEN3_30B_A3B = {
+    "model_type": "qwen3_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 6144, "moe_intermediate_size": 768, "num_hidden_layers": 8,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "max_position_embeddings": 40960, "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+    "rope_scaling": None, "sliding_window": None, "use_sliding_window": False,
+    "max_window_layers": 48, "tie_word_embeddings": False, "attention_bias": False,
+    "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
+}
+# google/gemma-2b (Gemma 1)
+GEMMA_2B = {
+    "model_type": "gemma", "vocab_size": 256000, "hidden_size": 2048,
+    "intermediate_size": 16384, "num_hidden_layers": 18, "num_attention_heads": 8,
+    "num_key_value_heads": 1, "head_dim": 256, "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "rope_scaling": None,
+    "hidden_act": "gelu", "hidden_activation": "gelu_pytorch_tanh",
+    "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
+}
+# microsoft/Phi-3-mini-4k-instruct
+PHI3_MINI_4K = {
+    "model_type": "phi3", "vocab_size": 32064, "hidden_size": 3072,
+    "intermediate_size": 8192, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 4096,
+    "original_max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "rope_scaling": None, "sliding_window": 2047, "tie_word_embeddings": False,
+    "hidden_act": "silu", "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
+}
+# google/gemma-2-2b
+GEMMA2_2B = {
+    "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 2304,
+    "intermediate_size": 9216, "num_hidden_layers": 26, "num_attention_heads": 8,
+    "num_key_value_heads": 4, "head_dim": 256, "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "sliding_window": 4096,
+    "query_pre_attn_scalar": 256, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "hidden_activation": "gelu_pytorch_tanh",
+    "bos_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16",
+}
+# google/gemma-3-4b-it's text_config
+GEMMA3_4B_TEXT = {
+    "model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 2560,
+    "intermediate_size": 10240, "num_hidden_layers": 34, "num_attention_heads": 8,
+    "num_key_value_heads": 4, "head_dim": 256, "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+    "rope_scaling": {"factor": 8.0, "rope_type": "linear"}, "sliding_window": 1024,
+    "sliding_window_pattern": 6, "query_pre_attn_scalar": 256,
+    "hidden_activation": "gelu_pytorch_tanh", "bos_token_id": 0, "eos_token_id": 1,
+    "torch_dtype": "bfloat16",
+}
+# (family, served name, config, depth cut, the counters its path must
+# launch, the route row 1 must take): rows 1-2 at head dim 128 on the
+# tensor-core walks, at 256 and 96 on the CUDA-core loops; Gemma-2 and
+# Gemma-3 attend plainly, as the reference's XLA path does
+FAMILIES = (
+    ("mixtral", "mixtral-8x7b-smoke", MIXTRAL_8X7B, "8 of 32 layers", LLAMA_PATH, "walk"),
+    ("qwen3_moe", "qwen3-30b-a3b-smoke", QWEN3_30B_A3B, "8 of 48 layers", LLAMA_PATH, "walk"),
+    ("gemma", "gemma-2b-smoke", GEMMA_2B, None, LLAMA_PATH, "loop"),
+    ("phi3", "phi3-mini-4k-smoke", PHI3_MINI_4K, None, LLAMA_PATH, "loop"),
+    ("gemma2", "gemma2-2b-smoke", GEMMA2_2B, None, (), None),
+    ("gemma3", "gemma3-4b-text-smoke", GEMMA3_4B_TEXT, None, (), None),
+)
+FAMILIES_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=2048, seed=0)
+ATTENTION_COUNTERS = ("ragged_attention.launches", "paged_attention.launches",
+                      "mla_attention.ragged_launches", "mla_attention.decode_launches",
+                      "mla_attention.window_launches")
+# the speculative probe: a repeated phrase, so that drafts are proposed
+SPEC_PROBE = list(range(1000, 1010)) * 6
+SPEC_PROBE_TOKENS = 96
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+async def probe_on(engine, prompt, n: int, warm: bool = False) -> list[int]:
+    """``prompt``'s greedy ids on ``engine`` alone, started here and stopped
+    after; ``warm`` captures its graphs first (``warmup`` at the probe's
+    length)."""
+    engine.start()
+    try:
+        if warm:
+            await engine.warmup([len(prompt)])
+        return await generate_tokens(engine, prompt, n)
+    finally:
+        engine.stop()
+
+
+# the speculative check's engines: the served Mixtral in float32 (see
+# spec_check), drafting from one-token matches so that a random model's
+# recurring tokens give drafts
+SPEC_NGRAM = 1
+
+
+async def spec_check(torch, config: dict) -> dict:
+    """Row 2 at W = 5 inside the verify graph: a speculative engine (n-gram
+    drafts, spec_tokens 4) against a plain one over the same weights, the
+    same greedy ids for SPEC_PROBE.  The plain engine prefills on the split
+    step, as the speculative one does.  A greedy id is compared, so the
+    engines run ``config`` (its widths and depth) in float32, random
+    weights from seed 0: in bf16 a random model's top two logits lie
+    within a rounding of each other often enough that the verify window's
+    products (40 rows a step) and decode's (8) pick other ids within a few
+    tokens (10 of 48 equal on an H100).  Both hold every routed
+    token (capacity_factor = experts /
+    top-k): the verify window's position-major dispatch may drop a draft's
+    expert pair where a decode step would not
+    (dynamo_tpu/models/mixtral.py:478-490), and what is compared here is
+    the verify path, not the capacity rule."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
+    from dynamo_tpu_torch.models.mixtral import MixtralConfig
+
+    cfg = dataclasses.replace(MixtralConfig.from_hf_config(config), dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    plain = TorchLlmEngine(EngineConfig(
+        model=cfg, model_family="mixtral", num_blocks=64, max_batch_size=8,
+        max_model_len=FAMILIES_ENGINE["max_model_len"], seed=0, decode_overlap=False,
+        unified_batch=False), device="cuda")
+    spec = sibling_engine(plain, speculative="ngram", spec_tokens=4, spec_ngram=SPEC_NGRAM)
+    plain_ids = await probe_on(plain, SPEC_PROBE, SPEC_PROBE_TOKENS, warm=True)
+    spec.start()
+    try:
+        await spec.warmup([len(SPEC_PROBE)])
+        before = spec.stats()
+        zero_counters()
+        spec_ids = await generate_tokens(spec, SPEC_PROBE, SPEC_PROBE_TOKENS)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        after = spec.stats()
+    finally:
+        spec.stop()
+    run = {k: after[k] - before[k] for k in ("spec_verify_steps_total",
+                                             "verify_graph_replays_total",
+                                             "spec_drafted_tokens_total",
+                                             "spec_accepted_tokens_total")}
+    window = counts["paged_attention.window_launches"]
+    out = {"equal": spec_ids == plain_ids, "window_launches": window, **run,
+           "layers": cfg.num_layers, "dtype": "float32",
+           "capacity_factor": cfg.capacity_factor}
+    if not out["equal"]:
+        raise AssertionError(f"speculative greedy ids {spec_ids} differ from the plain "
+                             f"engine's {plain_ids}")
+    if not 0 < run["verify_graph_replays_total"] == run["spec_verify_steps_total"]:
+        raise AssertionError(f"no verify window, or one not a graph replay: {run}")
+    if window != cfg.num_layers * run["verify_graph_replays_total"]:
+        raise AssertionError(f"row 2 at W = 5 launched {window} times for "
+                             f"{run['verify_graph_replays_total']} verify replays of "
+                             f"{cfg.num_layers} layers")
+    return out
+
+
+async def family_model(torch, model: str, config: dict) -> dict:
+    """Serve ``config`` (random weights from seed 0, the tiny model's
+    tokenizer) over HTTP in this process with the default engine (decode
+    overlapped, graphs captured by warmup) and drive phase serve's traffic,
+    the counters zeroed just before and read just after; then a greedy
+    probe with overlap on and off, each on a fresh engine over the same
+    weights."""
+    import aiohttp
+
+    from dynamo_tpu_torch.serve import serve_http
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handle = await serve_http(model_dir(model, config), model_name=model, host="127.0.0.1",
+                              port=0, **FAMILIES_ENGINE)
+    up_s = time.perf_counter() - t0
+    engine, port = handle.engine, handle.service.port
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            await stream_chat(s, port, model, "warm up", 4)
+            zero_counters()
+            results, wall = await serve_traffic(s, port, model,
+                                                [f"request {i}: tell me" for i in range(4)])
+            torch.cuda.synchronize()
+            counts = read_counters()
+        stats = engine.stats()
+        await settled(engine)
+        # on fresh engines over the same weights, so that the probe takes
+        # lane 0 in both: the served engine's free lanes are a stack, and
+        # the MoE families' idle lanes before the probe's take expert
+        # capacity first
+        probe, probe_off = [
+            await probe_on(sibling_engine(engine, decode_overlap=overlap, num_blocks=64),
+                           PROBE_PROMPT, PROBE_TOKENS)
+            for overlap in (True, False)]
+        weights = tree_bytes(engine.params)
+    finally:
+        await handle.shutdown()
+    return {"results": results, "wall_s": wall, "counts": counts, "stats": stats,
+            "up_s": up_s, "probe": probe, "probe_off": probe_off,
+            "weights_gb": weights / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_families(torch, card: str) -> dict:
+    """Each family of FAMILIES served at its published widths: every request
+    a 200 with its tokens; rows 1-2 launched on the path of Mixtral,
+    Qwen3-MoE, Gemma-2B and Phi-3 (the tensor-core walk at head dim 128,
+    the CUDA-core loop at 96 and 256), no attention kernel for Gemma-2 and
+    Gemma-3, no plain attention through a kernel wrapper; the greedy probe
+    equal with overlap on and off; Mixtral's speculative check.  One
+    ``smoke_families`` line a model."""
+    from dynamo_tpu_torch.models.registry import get_family
+
+    out = {}
+    for family, model, config, cut, path, route in FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = asyncio.run(family_model(torch, model, config))
+        if family == "mixtral":  # the served engine is gone: its memory first
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["spec"] = asyncio.run(spec_check(torch, config))
+        e2e = traffic_e2e(model, res["results"], res["wall_s"])
+        counts, stats = res["counts"], res["stats"]
+        cfg = get_family(family).config_from_hf(config)
+        launched = {k: counts[k] for k in ATTENTION_COUNTERS}
+        failures = []
+        if path:
+            if any(counts[k] <= 0 for k in path):
+                failures.append(f"a kernel did not run on the path: {launched}")
+            walked = counts["ragged_attention.split_launches"]
+            want = counts["ragged_attention.launches"] if route == "walk" else 0
+            if walked != want:
+                failures.append(f"row 1 took {walked} tensor-core walks of "
+                                f"{counts['ragged_attention.launches']} (want the {route})")
+        elif any(launched.values()):
+            failures.append(f"an attention kernel ran for {family}: {launched}")
+        if counts["plain_calls"] != 0:
+            failures.append(f"plain attention ran through a kernel wrapper: {counts}")
+        if res["probe"] != res["probe_off"]:
+            failures.append(f"greedy probe {res['probe']} with overlap on, "
+                            f"{res['probe_off']} off")
+        line = {
+            "model": model, "family": family, "card": card, "depth_cut": cut,
+            "layers": cfg.num_layers, "head_dim": cfg.head_dim,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "attention": ("kernels rows 1-2, " + ("tensor-core walk" if route == "walk"
+                                                  else "CUDA-core loop"))
+            if path else "plain (as the reference's XLA path: no kernel)",
+            "launches": launched, "split_launches": counts["ragged_attention.split_launches"],
+            **{k: e2e[k] for k in ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99",
+                                   "output_tok_s", "wall_s")},
+            "load_s": res["up_s"] - stats["warmup_s"], "warmup_s": stats["warmup_s"],
+            "weights_gb": res["weights_gb"], "peak_allocated_gb": res["peak_gb"],
+            "unified_windows": stats["decode_windows_unified_total"],
+            "unified_fallbacks": stats["unified_fallbacks"],
+            "graphs_captured": {k: stats[f"{k}_graphs_captured"]
+                                for k in ("unified", "decode", "prefill")},
+            "probe_equal_overlap_off": res["probe"] == res["probe_off"],
+            "spec": res.get("spec"), "phase_s": time.perf_counter() - t0,
+        }
+        print(json.dumps({"smoke_families": line}), flush=True)
+        log(f"[families] {model}: launches={launched} "
+            + ("(no attention kernel: plain, as the reference's)" if not path else ""))
+        if failures:
+            raise AssertionError(f"{model}: " + "; ".join(failures))
+        out[family] = {"counts": counts, "line": line}
+    return out
+
+
 # configurations of ``python -m dynamo_tpu_torch.bench.headline`` at its full
 # traffic (32 requests, ISL 3000, OSL 150, 16 lanes, 512-token chunks, the
 # Llama-3-8B geometry, all 32 layers): A is the reference's headline (int8
@@ -4896,7 +5265,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = dist = mla = overlap = spec = offload = quant = None
+    kinfo = serve = dist = mla = families = overlap = spec = offload = quant = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -4935,6 +5304,8 @@ def main() -> int:
         if "mla" in phases:
             mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
                       DEEPSEEK_V2_LITE, MLA_PATH)
+        if "families" in phases:
+            families = run("families", phase_families, torch, card)
         if "overlap" in phases:
             overlap = run("overlap", phase_overlap_both, torch, card)
         if "spec" in phases:
@@ -4962,7 +5333,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, overlap, spec, offload, quant):
+    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -4991,6 +5362,21 @@ def main() -> int:
             ("paged_window_attention_decode (W=5)", "dynamo_tpu_torch/csrc/paged_attention.cu",
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_w5_b8", "paged_w5",
              spec["llama"]["counts"]["paged_attention.window_launches"]),
+            ("ragged_paged_attention (D=96, Phi-3)", "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix_d96", "ragged_d96",
+             families["phi3"]["counts"]["ragged_attention.launches"]),
+            ("ragged_paged_attention (D=256, Gemma-2B)",
+             "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix_d256", "ragged_d256",
+             families["gemma"]["counts"]["ragged_attention.launches"]),
+            ("paged_window_attention_decode (D=96, Phi-3)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "paged_decode_d96_b8", "paged_d96",
+             families["phi3"]["counts"]["paged_attention.launches"]),
+            ("paged_window_attention_decode (D=256, Gemma-2B)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "paged_decode_d256_b8",
+             "paged_d256", families["gemma"]["counts"]["paged_attention.launches"]),
             ("gather_blocks", "dynamo_tpu_torch/csrc/block_copy.cu",
              "dynamo_tpu/ops/pallas/block_copy.py:25", "gather_llama_leaf", "gather",
              offload["counts"]["block_copy.gather_launches"]),

@@ -52,9 +52,9 @@
 //     with the reference's contract: masked scores NEG_INF, their
 //     exponentials 0, the denominator clamped at 1e-20.  The warps' states
 //     merge through shared memory at the end.
-//   Float32 queries, float32 and float16 caches and head dim 16 (the test
-//   geometry) keep the CUDA-core tile loop of attention_common.cuh: one
-//   CTA per (sequence, kv head).
+//   Float32 queries, float32 and float16 caches, head dim 16 (the test
+//   geometry) and head dims 96 (Phi-3) and 256 (Gemma) keep the CUDA-core
+//   tile loop of attention_common.cuh: one CTA per (sequence, kv head).
 //   The TPU kernel's pages_per_step has no counterpart: the output does not
 //   depend on it.
 
@@ -68,8 +68,8 @@ using dyn::NEG_INF;
 namespace tc = dyn::tc;
 
 // ---------------------------------------------------------------------------
-// float32 queries or caches, float16 caches and head dim 16: the CUDA-core
-// tile loop
+// float32 queries or caches, float16 caches and head dims 16, 96 and 256:
+// the CUDA-core tile loop
 // ---------------------------------------------------------------------------
 
 struct TableKeys {
@@ -161,7 +161,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, int code,
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
     case 64: return launch<T, 64>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
+    case 96: return launch<T, 96>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
     case 128: return launch<T, 128>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
+    case 256: return launch<T, 256>(q, k, v, code, tables, lens, out, B, W, H, KVH, bs, max_blocks, sliding_window, stream);
     default: return dyn::ERR_UNSUPPORTED;
   }
 }

@@ -25,9 +25,12 @@
 //     arrive raw (16 elements a 16-byte copy, half the bytes), and each
 //     thread converts the chunks it copied to bf16 into one stage beside
 //     the ring (exact) behind a CTA barrier, before the same products;
-//   - float32 queries, float32 and float16 caches and head dim 16 (the tiny
-//     test geometry): the CUDA-core tile loop of attention_common.cuh,
-//     converting the cache on load, one CTA per (token block, kv head).
+//   - float32 queries, float32 and float16 caches, head dim 16 (the tiny
+//     test geometry) and head dims 96 (Phi-3) and 256 (Gemma): the
+//     CUDA-core tile loop of attention_common.cuh, converting the cache on
+//     load, one CTA per (token block, kv head).  At head dim 256 and 64
+//     query rows (Gemma-2B: tb 8 x 8 heads a kv head) its shared memory is
+//     about 202 KiB, under the card's 227 KiB a CTA (dyn::allow_smem).
 //   Any other shape is refused (dyn::ERR_UNSUPPORTED).
 //
 // Tensor-core walk (ragged_tc_kernel):
@@ -80,8 +83,8 @@ using dyn::NEG_INF;
 namespace tc = dyn::tc;
 
 // ---------------------------------------------------------------------------
-// float32 queries or caches, float16 caches and head dim 16: the CUDA-core
-// tile loop
+// float32 queries or caches, float16 caches and head dims 16, 96 and 256:
+// the CUDA-core tile loop
 // ---------------------------------------------------------------------------
 
 struct WorklistKeys {
@@ -162,7 +165,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, int code, con
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
     case 64: return launch<T, 64>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
+    case 96: return launch<T, 96>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
     case 128: return launch<T, 128>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
+    case 256: return launch<T, 256>(q, k, v, code, tl, tp, pp, pl, po, pc, out, T_, H, KVH, bs, tb, page_slots, sliding_window, stream);
     default: return dyn::ERR_UNSUPPORTED;
   }
 }
@@ -590,10 +595,10 @@ extern "C" int dyn_ragged_paged_attention(
     return dispatch_d<float>(D, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
                              T_, H, KVH, bs, tb, page_slots, sliding_window, st);
   if (dtype != dyn::BF16) return dyn::ERR_UNSUPPORTED;
-  if (D == 16 || !(cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype)))
+  if ((D != 64 && D != 128) || !(cache_dtype == dyn::BF16 || dyn::is_fp8(cache_dtype)))
     return dispatch_d<bf16>(D, q, k_cache, v_cache, cache_dtype, tl, tp, pp, pl, po, pc, out,
                             T_, H, KVH, bs, tb, page_slots, sliding_window, st);
-  if ((D != 64 && D != 128) || bs % SUB) return dyn::ERR_UNSUPPORTED;
+  if (bs % SUB) return dyn::ERR_UNSUPPORTED;
   const int4* plan = static_cast<const int4*>(work);
   if (plan == nullptr) {
     cap_items = T_ / tb;

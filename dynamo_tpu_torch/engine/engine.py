@@ -15,7 +15,8 @@ Architecture, as in the reference:
   dense attention), then one decode dispatch for the running lanes (the
   family's paged decode kernel).  A window the unified step cannot serve
   falls back to the split step under a reason slug (``unified_fallbacks``
-  in ``stats()``);
+  in ``stats()``), and a family with no unified forward (Gemma-2, Gemma-3)
+  keeps the split step throughout (``no_family_forward``);
 - speculative decoding (``speculative="ngram"``, prompt-lookup drafts,
   exact greedy verification) turns the unified step off, as the reference
   does: every prefill then runs the split step, and a decode iteration in
@@ -382,7 +383,11 @@ class TorchLlmEngine:
         if config.logit_bias_k < 0:
             raise ValueError("logit_bias_k must be >= 0")
         unified = config.unified_batch
-        if unified and self.spec_enabled:
+        if unified and self.family.forward_unified is None:
+            self._unified_skip("no_family_forward",
+                               f"family {config.model_family!r} has no unified forward")
+            unified = False
+        elif unified and self.spec_enabled:
             self._unified_skip("speculative", "speculative lanes keep their verify route")
             unified = False
         elif unified and config.decode_steps > 1:

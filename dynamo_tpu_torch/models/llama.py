@@ -23,6 +23,7 @@ CUDA graph (``engine/graphs.py``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 from dataclasses import dataclass
@@ -85,6 +86,12 @@ class LlamaConfig:
     rope_scaling: Any = None
     # Mistral-style sliding-window attention (None = full attention)
     sliding_window: int | None = None
+    # MLP gate activation: "silu" (llama/qwen/mistral/phi3) or "gelu_tanh"
+    # (gemma's GeGLU)
+    mlp_activation: str = "silu"
+    # input-embedding scale (gemma: sqrt(hidden_size), at the input only;
+    # the tied unembedding stays unscaled, so it cannot be baked in)
+    embed_scale: float = 1.0
     dtype: Any = torch.bfloat16
 
     @classmethod
@@ -167,24 +174,34 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
-    """Random-init parameters on ``device`` from ``generator`` (which must
-    live on the same device): N(0, 1) / sqrt(fan_in) drawn in float32, one
-    layer at a time, then cast to the model dtype."""
-    h, i, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+def param_init(dtype, generator: torch.Generator, device):
+    """``(normal, ones)`` leaf makers of the families' random init:
+    ``normal(shape, fan_in)`` draws N(0, 1) / sqrt(fan_in) in float32 one
+    layer slice (the leading axis of a stacked leaf) at a time, which bounds
+    the float32 peak, and casts to ``dtype``; ``ones(shape)``."""
 
     def normal(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        rows = out if len(shape) == 3 else out[None]
-        for r in rows:  # one float32 layer slice at a time bounds the peak
+        out = torch.empty(shape, dtype=dtype, device=device)
+        rows = out if len(shape) >= 3 else out[None]
+        for r in rows:
             tmp = torch.empty(r.shape, dtype=torch.float32, device=device)
             tmp.normal_(generator=generator)
             r.copy_(tmp / math.sqrt(fan_in))
         return out
 
     def ones(shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return normal, ones
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random-init parameters on ``device`` from ``generator`` (which must
+    live on the same device): N(0, 1) / sqrt(fan_in) drawn in float32, one
+    layer at a time, then cast to the model dtype."""
+    h, i, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    normal, ones = param_init(cfg.dtype, generator, device)
 
     params = {
         "embed": normal((cfg.vocab_size, h), 1.0),
@@ -265,11 +282,21 @@ def make_rope_tables(cfg: LlamaConfig, device="cuda", max_len: int | None = None
 
 
 def _embed(params, cfg: LlamaConfig, token_ids) -> torch.Tensor:
-    return params["embed"][token_ids].to(cfg.dtype)
+    x = params["embed"][token_ids].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:
+        # the reference multiplies by the scale cast to the model dtype
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype).item()
+    return x
 
 
-def _mlp(x, gate, up, down):
-    return mm(F.silu(mm(x, gate)) * mm(x, up), down)
+def _mlp(x, gate, up, down, activation: str = "silu"):
+    if activation == "gelu_tanh":  # gemma's GeGLU (HF gelu_pytorch_tanh)
+        act = F.gelu(mm(x, gate), approximate="tanh")
+    elif activation == "silu":
+        act = F.silu(mm(x, gate))
+    else:  # a misspelt activation must not run silu into wrong logits
+        raise ValueError(f"unknown mlp_activation {activation!r}")
+    return mm(act * mm(x, up), down)
 
 
 def _qkv(attn_in, w, cfg: LlamaConfig):
@@ -304,7 +331,7 @@ def _logits(params, cfg, x):
 def _residual_block(x, attn, w, cfg):
     x = x + mm(attn.reshape(x.shape[0], -1), w["wo"])
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"])
+    return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"], cfg.mlp_activation)
 
 
 def llama_forward_prefill(
@@ -552,12 +579,16 @@ _HF_LAYER_MAP = {
 }
 
 
-def load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda") -> dict:
+def load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda", *,
+                    tensors: dict | None = None) -> dict:
     """Load and stack HF llama safetensors into the layer-stacked dict on
-    ``device`` (HF stores projections [out, in]; ours are [in, out])."""
-    from dynamo_tpu_torch.models.hf_io import read_safetensors
+    ``device`` (HF stores projections [out, in]; ours are [in, out]).
+    ``tensors`` stands in for the read of ``model_dir`` where a loader
+    rewrites the checkpoint first (phi3 splits its fused tensors)."""
+    if tensors is None:
+        from dynamo_tpu_torch.models.hf_io import read_safetensors
 
-    tensors = read_safetensors(model_dir)
+        tensors = read_safetensors(model_dir)
 
     def get(name: str, transpose: bool = False) -> torch.Tensor:
         t = tensors[name]
@@ -591,3 +622,79 @@ def load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda") -> d
     if not cfg.tie_word_embeddings and "lm_head.weight" in tensors:
         params["lm_head"] = get("lm_head.weight", transpose=True)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint quirks of the llama-geometry variants (phi3, gemma)
+# ---------------------------------------------------------------------------
+
+
+def phi3_config_from_hf(config: dict | str | Path) -> LlamaConfig:
+    """Phi-3: llama math with fused checkpoint tensors (split by
+    ``phi3_load_hf_weights``) and an always-on sliding window.  The 128k
+    "longrope" variants are refused by name: ``ops/rope.py`` has no
+    longrope schedule."""
+    if not isinstance(config, dict):
+        config = json.loads(Path(config).read_text())
+    scaling = config.get("rope_scaling") or {}
+    kind = scaling.get("rope_type") or scaling.get("type")
+    if kind in ("longrope", "su"):
+        raise NotImplementedError(
+            "phi3 longrope scaling is not implemented; the 4k-context "
+            "variants (rope_scaling: null) are supported"
+        )
+    return LlamaConfig.from_hf_config(config)
+
+
+def phi3_load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda") -> dict:
+    """Split Phi-3's fused ``qkv_proj`` [q+k+v, h] and ``gate_up_proj``
+    [2i, h] into the per-projection names, then load as llama."""
+    from dynamo_tpu_torch.models.hf_io import read_safetensors
+
+    tensors = dict(read_safetensors(model_dir))
+    qd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    inter = cfg.intermediate_size
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        qkv = tensors.pop(f"{p}.self_attn.qkv_proj.weight")
+        tensors[f"{p}.self_attn.q_proj.weight"] = qkv[:qd]
+        tensors[f"{p}.self_attn.k_proj.weight"] = qkv[qd: qd + kvd]
+        tensors[f"{p}.self_attn.v_proj.weight"] = qkv[qd + kvd:]
+        gate_up = tensors.pop(f"{p}.mlp.gate_up_proj.weight")
+        tensors[f"{p}.mlp.gate_proj.weight"] = gate_up[:inter]
+        tensors[f"{p}.mlp.up_proj.weight"] = gate_up[inter:]
+    return load_hf_weights(cfg, model_dir, device, tensors=tensors)
+
+
+def gemma_config_from_hf(config: dict | str | Path) -> LlamaConfig:
+    """Gemma-1: the llama skeleton with a GeGLU MLP, a sqrt(hidden) input
+    embedding scale and (1 + w) RMSNorm weights (baked in by
+    ``gemma_load_hf_weights``); the embedding is always tied."""
+    if not isinstance(config, dict):
+        config = json.loads(Path(config).read_text())
+    act = config.get("hidden_activation") or config.get("hidden_act") or "gelu_pytorch_tanh"
+    if act not in ("gelu", "gelu_pytorch_tanh"):
+        raise ValueError(f"unexpected gemma activation {act!r}")
+    return dataclasses.replace(
+        LlamaConfig.from_hf_config(config),
+        tie_word_embeddings=True,
+        mlp_activation="gelu_tanh",
+        embed_scale=float(config["hidden_size"]) ** 0.5,
+    )
+
+
+def plus_one(t: torch.Tensor) -> torch.Tensor:
+    """A gemma RMSNorm weight ``w`` as the ``1 + w`` it multiplies by,
+    added in float32 and cast back."""
+    return (t.float() + 1.0).to(t.dtype)
+
+
+def gemma_load_hf_weights(cfg: LlamaConfig, model_dir: str | Path, device="cuda") -> dict:
+    """Gemma checkpoints store RMSNorm weights as w, applied as (1 + w):
+    the +1 is baked in once so every forward runs unchanged."""
+    params = load_hf_weights(cfg, model_dir, device)
+    layers = dict(params["layers"])
+    layers["attn_norm"] = plus_one(layers["attn_norm"])
+    layers["mlp_norm"] = plus_one(layers["mlp_norm"])
+    return {**params, "layers": layers, "final_norm": plus_one(params["final_norm"])}

@@ -1,11 +1,16 @@
 """Model family registry (counterpart of dynamo_tpu/models/registry.py).
 
 Binds an HF ``model_type`` to the functional pieces the engine needs: the
-llama family and the llama-geometry variants that differ from it only in
-config flags, and the DeepSeek MLA family (``deepseek_v2``,
-``deepseek_v3``), whose hooks give the engine its latent cache and its rope
-tables.  Mixtral and qwen3_moe (on ``ops/moe.py``), then gemma and phi3
-(checkpoint quirks), come with later slices.
+llama family and the llama-geometry variants that differ from it in config
+flags or checkpoint quirks (``mistral``, ``qwen2``, ``qwen3``, ``phi3``'s
+fused tensors, ``gemma``'s GeGLU, embedding scale and (1 + w) norms); the
+Mixtral-class sparse-MoE families (``mixtral``, ``qwen3_moe``) on
+``ops/moe.py``; Gemma-2 and Gemma-3 text (``gemma2``, ``gemma3``,
+``gemma3_text``), whose per-layer windows, soft-capping and query scale
+keep their attention plain, as the reference's stays in XLA, and which
+have no unified forward (the engine serves them on the split step); and
+the DeepSeek MLA family (``deepseek_v2``, ``deepseek_v3``), whose hooks
+give the engine its latent cache and its rope tables.
 """
 
 from __future__ import annotations
@@ -28,7 +33,10 @@ class ModelFamily:
     # (cfg, device, max_len) -> (cos, sin)
     make_rope_tables: Callable
     forward_decode: Callable
-    forward_unified: Callable
+    # the ragged unified step (chunked-prefill spans and decode tokens in
+    # one pass); None = the engine keeps the split prefill and decode steps
+    # (unified fallback "no_family_forward")
+    forward_unified: Callable | None = None
     # HF safetensors loader: (cfg, model_dir, device) -> params
     load_weights: Callable | None = None
     # the split prefill step: (params, cfg, tokens, cache, block_ids,
@@ -54,12 +62,15 @@ class ModelFamily:
     quant_leaves: tuple[str, ...] = ()
 
 
-def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
+def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
+                       load_weights=None) -> ModelFamily:
     """One ModelFamily construction for every llama-geometry variant;
-    ``config_tweak(dict)`` mutates the HF config before parsing."""
+    ``config_tweak(dict)`` mutates the HF config before parsing, and
+    ``config_from_hf`` / ``load_weights`` replace the parse or the load of
+    a family with checkpoint quirks (phi3, gemma)."""
     from dynamo_tpu_torch.models import llama
 
-    def config_from_hf(config):
+    def default_config_from_hf(config):
         if not isinstance(config, dict):
             config = json.loads(Path(config).read_text())
         config = dict(config)
@@ -69,18 +80,103 @@ def _llama_like_family(name: str, config_tweak=None) -> ModelFamily:
 
     return ModelFamily(
         name=name,
-        config_from_hf=config_from_hf,
+        config_from_hf=config_from_hf or default_config_from_hf,
         init_params=llama.init_params,
         init_kv_cache=llama.init_kv_cache,
         make_rope_tables=llama.make_rope_tables,
         forward_decode=llama.llama_forward_decode,
         forward_unified=llama.llama_forward_unified,
-        load_weights=llama.load_hf_weights,
+        load_weights=load_weights or llama.load_hf_weights,
         forward_prefill=llama.llama_forward_prefill,
         forward_prefill_with_prefix=llama.llama_forward_prefill_with_prefix,
         forward_verify=llama.llama_forward_verify,
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
+        quant_leaves=llama.QUANT_LEAVES,
+    )
+
+
+def _phi3_family() -> ModelFamily:
+    # Phi-3 = llama math with fused checkpoint tensors (split at load) and
+    # an always-on sliding window; longrope variants refused at parse
+    from dynamo_tpu_torch.models import llama
+
+    return _llama_like_family("phi3", config_from_hf=llama.phi3_config_from_hf,
+                              load_weights=llama.phi3_load_hf_weights)
+
+
+def _gemma_family() -> ModelFamily:
+    # Gemma-1 = llama skeleton + GeGLU, sqrt(hidden) embedding scale and
+    # (1 + w) RMSNorm baked in at load
+    from dynamo_tpu_torch.models import llama
+
+    return _llama_like_family("gemma", config_from_hf=llama.gemma_config_from_hf,
+                              load_weights=llama.gemma_load_hf_weights)
+
+
+def _moe_family(name: str) -> ModelFamily:
+    # Mixtral-class routed experts on the llama attention trunk; qwen3_moe
+    # adds per-head q/k RMSNorm (from_hf_config infers it from model_type).
+    # The cache, rope tables, verify width and unified planner are llama's
+    from dynamo_tpu_torch.models import llama, mixtral
+
+    return ModelFamily(
+        name=name,
+        config_from_hf=mixtral.MixtralConfig.from_hf_config,
+        init_params=mixtral.init_params,
+        init_kv_cache=llama.init_kv_cache,
+        make_rope_tables=llama.make_rope_tables,
+        forward_decode=mixtral.mixtral_forward_decode,
+        forward_unified=mixtral.mixtral_forward_unified,
+        load_weights=mixtral.load_hf_weights,
+        forward_prefill=mixtral.mixtral_forward_prefill,
+        forward_prefill_with_prefix=mixtral.mixtral_forward_prefill_with_prefix,
+        forward_verify=mixtral.mixtral_forward_verify,
+        check_verify_width=llama.check_verify_width,
+        unified_planner=llama.unified_planner,
+        quant_leaves=llama.QUANT_LEAVES,
+    )
+
+
+def _gemma2_family() -> ModelFamily:
+    # Gemma-2 = alternating local/global attention, attention and final
+    # logit soft-capping, sandwich norms, query_pre_attn_scalar; no unified
+    # forward (the reference registers none)
+    from dynamo_tpu_torch.models import gemma2, llama
+
+    return ModelFamily(
+        name="gemma2",
+        config_from_hf=gemma2.Gemma2Config.from_hf_config,
+        init_params=gemma2.init_params,
+        init_kv_cache=llama.init_kv_cache,
+        make_rope_tables=gemma2.make_rope_tables,
+        forward_decode=gemma2.gemma2_forward_decode,
+        load_weights=gemma2.load_hf_weights,
+        forward_prefill=gemma2.gemma2_forward_prefill,
+        forward_prefill_with_prefix=gemma2.gemma2_forward_prefill_with_prefix,
+        forward_verify=gemma2.gemma2_forward_verify,
+        quant_leaves=llama.QUANT_LEAVES,
+    )
+
+
+def _gemma3_family() -> ModelFamily:
+    # Gemma-3 text = the Gemma-2 machinery + a 5:1 local/global pattern,
+    # dual rope bases packed on the feature axis and per-head (1 + w) q/k
+    # norms, no soft-capping; a multimodal config parses its text_config
+    # (image input is refused: no embeds prefill)
+    from dynamo_tpu_torch.models import gemma3, llama
+
+    return ModelFamily(
+        name="gemma3",
+        config_from_hf=gemma3.Gemma3Config.from_hf_config,
+        init_params=gemma3.init_params,
+        init_kv_cache=llama.init_kv_cache,
+        make_rope_tables=gemma3.make_rope_tables,
+        forward_decode=gemma3.gemma3_forward_decode,
+        load_weights=gemma3.load_hf_weights,
+        forward_prefill=gemma3.gemma3_forward_prefill,
+        forward_prefill_with_prefix=gemma3.gemma3_forward_prefill_with_prefix,
+        forward_verify=gemma3.gemma3_forward_verify,
         quant_leaves=llama.QUANT_LEAVES,
     )
 
@@ -115,6 +211,13 @@ _FAMILIES: dict[str, Callable[[], ModelFamily]] = {
     ),
     # Qwen3 = llama geometry + per-head q/k RMSNorm before rope
     "qwen3": lambda: _llama_like_family("qwen3", lambda c: c.update(qk_norm=True)),
+    "phi3": _phi3_family,
+    "gemma": _gemma_family,
+    "gemma2": _gemma2_family,
+    "gemma3": _gemma3_family,
+    "gemma3_text": _gemma3_family,
+    "mixtral": lambda: _moe_family("mixtral"),
+    "qwen3_moe": lambda: _moe_family("qwen3_moe"),
     # the MLA architectures only: classic DeepSeek-MoE ("deepseek") uses
     # conventional attention and would need a family of its own
     "deepseek_v2": _deepseek_family,

@@ -226,8 +226,16 @@ def write_decode_kv(
     return k_cache, v_cache
 
 
-def _scale(head_dim: int) -> float:
-    return 1.0 / math.sqrt(head_dim)
+def _scale(head_dim: int, query_scale: float | None = None) -> float:
+    """The scores' scale: ``query_scale`` where a family sets one (Gemma's
+    ``query_pre_attn_scalar ** -0.5``), else 1 / sqrt(head_dim)."""
+    return query_scale if query_scale is not None else 1.0 / math.sqrt(head_dim)
+
+
+def _apply_softcap(logits: torch.Tensor, cap) -> torch.Tensor:
+    """Gemma-2's logit soft-capping, ``cap * tanh(logits / cap)`` in float32,
+    in place on ``logits`` (the scores of a long prompt are large)."""
+    return logits.div_(cap).tanh_().mul_(cap)
 
 
 def _window_mask(causal: torch.Tensor, pos_diff: torch.Tensor, window) -> torch.Tensor:
@@ -245,10 +253,14 @@ def dense_causal_attention(
     seq_len: torch.Tensor | None = None,  # [batch] valid lengths (padding mask)
     *,
     sliding_window=None,
+    logit_softcap: float | None = None,
+    query_scale: float | None = None,
 ) -> torch.Tensor:
     """Causal self-attention for prefill (GQA, float32 scores and softmax);
     with a sliding window each query sees only the last ``sliding_window``
-    positions.  Padded keys (past ``seq_len``) are masked."""
+    positions.  Padded keys (past ``seq_len``) are masked.  Gemma's scores
+    take ``query_scale`` in place of 1 / sqrt(head_dim) and, for Gemma-2,
+    ``logit_softcap`` (``_apply_softcap``) before the mask."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d).float()
@@ -256,7 +268,9 @@ def dense_causal_attention(
     # copy.  At a 4096-token prompt they are 2 GiB a layer, so the scale and
     # the mask go in place and the scores die before the second product:
     # two such tensors at the peak, not three
-    logits = torch.einsum("bqkgd,bskd->bkqgs", qg, k.float()).mul_(_scale(d))
+    logits = torch.einsum("bqkgd,bskd->bkqgs", qg, k.float()).mul_(_scale(d, query_scale))
+    if logit_softcap is not None:
+        logits = _apply_softcap(logits, logit_softcap)
     pos = torch.arange(s, device=q.device)
     causal = pos[None, :] <= pos[:, None]  # [q, s]
     if sliding_window is not None:
@@ -280,11 +294,14 @@ def paged_window_attention(
                                  # last token (0 ⇒ idle lane)
     *,
     sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+    query_scale: float | None = None,
 ) -> torch.Tensor:
     """Paged GQA attention for ``w`` queries per sequence: query i sits at
     absolute position ``context_lens - w + i`` and sees every cached
     position up to its own (and, with a sliding window, the last
-    ``sliding_window`` of them).  Returns [batch, w, heads, head_dim]."""
+    ``sliding_window`` of them).  ``logit_softcap`` and ``query_scale`` as
+    in ``dense_causal_attention``.  Returns [batch, w, heads, head_dim]."""
     b, w, h, d = q.shape
     _, block_size, kvh, _ = k_cache.shape
     length = block_tables.shape[1] * block_size
@@ -293,12 +310,14 @@ def paged_window_attention(
     k = cache_take(k_cache, block_tables).reshape(b, length, kvh, d).float()
     v = cache_take(v_cache, block_tables).reshape(b, length, kvh, d).float()
     qg = q.reshape(b, w, kvh, groups, d).float()
-    logits = torch.einsum("bwkgd,blkd->bkgwl", qg, k) * _scale(d)
+    logits = torch.einsum("bwkgd,blkd->bkgwl", qg, k) * _scale(d, query_scale)
+    if logit_softcap is not None:
+        logits = _apply_softcap(logits, logit_softcap)
     q_pos = context_lens[:, None] - w + torch.arange(w, device=q.device)[None, :]
     kv_pos = torch.arange(length, device=q.device)[None, None, :]
     mask = kv_pos <= q_pos[:, :, None]                               # [b, w, l]
     if sliding_window is not None:
-        mask = mask & (q_pos[:, :, None] - kv_pos < sliding_window)
+        mask = _window_mask(mask, q_pos[:, :, None] - kv_pos, sliding_window)
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgwl,blkd->bwkgd", weights, v)
@@ -313,13 +332,16 @@ def paged_decode_attention(
     context_lens: torch.Tensor,  # [batch] (0 ⇒ idle lane: junk row)
     *,
     sliding_window: int | None = None,
+    logit_softcap: float | None = None,
+    query_scale: float | None = None,
 ) -> torch.Tensor:
     """Decode-step attention: the window form at w=1 (``pos <= ctx - 1`` is
     ``pos < ctx``).  An idle lane gets uniform weights over junk; callers
     discard it."""
     return paged_window_attention(
         q[:, None], k_cache, v_cache, block_tables, context_lens,
-        sliding_window=sliding_window,
+        sliding_window=sliding_window, logit_softcap=logit_softcap,
+        query_scale=query_scale,
     )[:, 0]
 
 
@@ -509,10 +531,13 @@ def prefill_attention_with_prefix(
     seq_len,                 # valid new tokens (int or 0-d tensor)
     *,
     sliding_window=None,
+    logit_softcap: float | None = None,
+    query_scale: float | None = None,
 ) -> torch.Tensor:
     """Chunked / continued prefill: the new tokens' queries attend to the
     first ``prefix_len`` prefix positions and, causally, to themselves (fp32
-    scores and softmax)."""
+    scores and softmax; ``logit_softcap`` and ``query_scale`` as in
+    ``dense_causal_attention``)."""
     s, h, d = q.shape
     kvh = k_new.shape[1]
     p = k_prefix.shape[0]
@@ -521,7 +546,9 @@ def prefill_attention_with_prefix(
     qg = q.reshape(s, kvh, h // kvh, d).float()
     # scores [kvh, q, g, p + s], scaled and masked in place, dead before the
     # second product (as in dense_causal_attention)
-    logits = torch.einsum("qkgd,lkd->kqgl", qg, k).mul_(_scale(d))
+    logits = torch.einsum("qkgd,lkd->kqgl", qg, k).mul_(_scale(d, query_scale))
+    if logit_softcap is not None:
+        logits = _apply_softcap(logits, logit_softcap)
     dev = q.device
     q_pos = prefix_len + torch.arange(s, device=dev)
     kv_idx = torch.arange(p + s, device=dev)

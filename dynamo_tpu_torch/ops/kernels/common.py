@@ -14,7 +14,8 @@ Q_DTYPES = (torch.float32, torch.bfloat16)
 # caches the tensor-core walks read under bf16 queries (an fp8 value is
 # exact in bf16); the others take the CUDA-core loops
 WALK_CACHE_DTYPES = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
-HEAD_DIMS = (16, 64, 128)
+# head dims 96 (Phi-3) and 256 (Gemma) take the CUDA-core loops only
+HEAD_DIMS = (16, 64, 96, 128, 256)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -52,7 +53,7 @@ def check_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """Device, dtype, shape, contiguity and alignment checks for q and a
     [N, bs, KVH, D] cache pair.  The kernels take float32 or bfloat16
     queries, caches of any dtype in ``_DTYPES`` (both of one dtype, the
-    queries' or another), and head dims 16, 64 and 128."""
+    queries' or another), and head dims 16, 64, 96, 128 and 256."""
     if q.dtype not in Q_DTYPES:
         raise ValueError(f"query dtype {q.dtype} is not supported by the kernels "
                          "(float32, bfloat16)")

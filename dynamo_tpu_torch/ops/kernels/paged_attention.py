@@ -11,8 +11,8 @@ split, its combine), ``window_launches`` those of them at W > 1,
 ``plain_calls`` calls routed to the plain version.
 
 bf16 queries over a bf16 or fp8 (e4m3fn, e5m2) cache at head dims 64 and
-128 take the split walk (other dtypes, and head dim 16, the CUDA-core
-loop, converting the cache on load): ``plan_splits``
+128 take the split walk (other dtypes, and head dims 16, 96 and 256, the
+CUDA-core loop, converting the cache on load): ``plan_splits``
 cuts each sequence's block table into chunks from the shapes alone (never
 from ``context_lens``, which would cost a device-to-host read a layer).
 """

@@ -16,8 +16,9 @@ raises.  ``launches`` counts wrapper calls that launched a kernel,
 Routes on the card (``split_route``): bf16 queries over a bf16 or fp8
 (e4m3fn, e5m2) cache at head dims 64 and 128, block sizes a multiple of 16
 and ``tb * H/KVH <= 64`` query rows take the tensor-core walk; float32
-queries, float32 and float16 caches and head dim 16 the CUDA-core loop,
-which converts the cache on load.  Any other shape raises.
+queries, float32 and float16 caches and head dims 16, 96 (Phi-3) and 256
+(Gemma) the CUDA-core loop, which converts the cache on load.  Any other
+shape raises.
 
 The walk's balance comes from ``plan_ragged_work``: it cuts each token
 block's worklist into work items from the host copy of ``page_count``

@@ -39,6 +39,9 @@ def test_importing_every_module_pulls_in_no_jax():
     names = set(names.split())
     assert len(names) > 30
     assert {"dynamo_tpu_torch.models.deepseek", "dynamo_tpu_torch.ops.moe",
+            # the other model families: the MoE families, Gemma-2 and Gemma-3
+            "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.models.gemma2",
+            "dynamo_tpu_torch.models.gemma3",
             "dynamo_tpu_torch.ops.kernels.mla_attention",
             "dynamo_tpu_torch.ops.block_copy", "dynamo_tpu_torch.ops.kernels.block_copy",
             "dynamo_tpu_torch.llm.block_manager.storage",

@@ -39,15 +39,15 @@ def test_config_from_hf_matches_reference():
     ours = llama.LlamaConfig.from_hf_config(MODEL_DIR / "config.json")
     ref = jax_llama.LlamaConfig.from_hf_config(MODEL_DIR / "config.json")
     ours_fields = {f.name for f in dataclasses.fields(ours)} - {"dtype"}
-    # the reference's gemma-only fields (mlp_activation, embed_scale) come
-    # with the gemma slice of the port
-    assert {f.name for f in dataclasses.fields(ref)} - ours_fields == {
-        "dtype", "mlp_activation", "embed_scale"}
+    # every field of the reference, the gemma ones (mlp_activation,
+    # embed_scale) included; only the dtype differs in kind
+    assert {f.name for f in dataclasses.fields(ref)} - ours_fields == {"dtype"}
     for name in ours_fields:
         assert getattr(ours, name) == getattr(ref, name), name
+    assert (ours.mlp_activation, ours.embed_scale) == ("silu", 1.0)
     assert ours.dtype == torch.bfloat16
     assert llama.LlamaConfig.llama3_8b().num_kv_heads == 8
-    assert {"llama", "mistral", "qwen2", "qwen3"} <= set(known_families())
+    assert {"llama", "mistral", "qwen2", "qwen3", "gemma", "phi3"} <= set(known_families())
     assert get_family("qwen2").config_from_hf(MODEL_DIR / "config.json").attention_bias
 
 
