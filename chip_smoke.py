@@ -101,12 +101,39 @@ Phases (any failure exits non-zero, before the result line):
                warmup; then /metrics, /slo, an n = 2 request and a burst
                through a frontend whose admission gate is below it (429 and
                503 with Retry-After).
-  8. mla     — the same over the DeepSeek-V2-Lite geometry (the published
+  8. guided  — guided JSON decoding at the Llama-3-8B geometry (random bf16
+               weights from a seed, all layers; the table built from the
+               tiny model's tokenizer): the launch path installs the table;
+               an engine warmed by ``warmup()`` before its table is
+               installed serves eight lanes at once (two guided greedy, two
+               guided seeded, four unguided, 64 tokens each): every guided
+               stream a JSON prefix (a closed one parses), the guided
+               counters right, the decode graph replayed with no capture
+               after warmup and row 2 launched; the unguided lanes alone
+               give the same ids with and without a table; a decode window
+               of guided lanes in several modes by replay equals the eager
+               step (greedy and seeded), each token admissible; the table's
+               build time, and ITL p50 with and without guided lanes.
+  9. disagg  — disaggregated prefill/decode at the Llama-3-8B geometry (one
+               set of random bf16 weights): eight prompts of 2048 tokens,
+               32 out (half greedy, half seeded), every prefill remote; the
+               pair from ``launch_disagg_decode_worker`` /
+               ``launch_prefill_workers`` over the memory control plane,
+               the same-process route streamed (512-token chunks) and
+               single-shot, then the TCP route with the prefill worker in a
+               second process on the card: each route's streams
+               byte-identical to one engine's, rows 6-7 launched a cache
+               leaf an extract and an inject (no plain version), two
+               topology cards published and the prober's bandwidth in
+               ``dynctl topology``'s table; TTFT p50 local and remote, GB/s
+               a route, the headline's kv_xfer rung, rows 6-7's device ms a
+               call at the path's shapes, the streamed share hidden.
+ 10. mla     — the same over the DeepSeek-V2-Lite geometry (the published
                config.json, all 27 layers, random bf16 weights from a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
-  9. families — the other model families at their published widths, each
+ 11. families — the other model families at their published widths, each
                served as in phase serve (over HTTP in process, the default
                engine, max length 2048, random weights from seed 0, the
                tiny model's tokenizer, four chats and the long prompt, the
@@ -125,7 +152,7 @@ Phases (any failure exits non-zero, before the result line):
                verify graph; one ``smoke_families`` line a model.  Phase
                kernels holds rows 1-2 at head dims 96 and 256 (Phi-3's and
                Gemma-2B's heads, a window, W = 5, an fp8 cache).
- 10. overlap — both configurations in process, all layers: the default
+ 12. overlap — both configurations in process, all layers: the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -145,10 +172,11 @@ Phases (any failure exits non-zero, before the result line):
                the unified step skips (two admissions against one seed
                slot): its split prefill key captured once at first use,
                replayed the next time, the capture's ms and the pool.
- 11. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
+ 13. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
-               the DeepSeek-V2-Lite config, all layers, over HTTP with chats
+               the DeepSeek-V2-Lite config at half depth (16 and 14
+               layers: ``SPEC_CONFIGS``), over HTTP with chats
                that repeat a phrase plus the long prompt, warmed by
                ``warmup()`` (every split prefill key of the 4096-token
                engine and the verify window, captured): every prefill a
@@ -167,14 +195,14 @@ Phases (any failure exits non-zero, before the result line):
                512-token chunk's ms by replay and eagerly, and the window
                kernels' device ms a layer inside the graph beside their
                bound.
- 12. longctx — a speculative server of the Llama-3-8B geometry at its own
+ 14. longctx — a speculative server of the Llama-3-8B geometry at its own
                context length (8192 positions, default warmup),
                all layers: warmup's captures, seconds and pool, a
                7000-token prompt and three short ones served with no
                capture after warmup, and the warmup budget's estimate
                (``PrefillGraph.key_bytes``) held above two keys' measured
                eager peaks.
- 13. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
+ 15. offload — the engine's KV offload tiers at the Llama-3-8B geometry,
                then at the DeepSeek-V2-Lite config (all layers, random
                weights): 256 device blocks over a 192-block
                host tier (G2) and a 128-block disk tier (G3).  A prompt A is
@@ -183,12 +211,12 @@ Phases (any failure exits non-zero, before the result line):
                device prefix hit, A's blocks landed bitwise equal to their
                snapshot, every evicted block in a tier, all block copies
                through the gather/scatter kernels.
- 14. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
+ 16. kvbm    — the KV block manager: a 512-block device pool of Llama-3-8B
                blocks (2 MiB, bf16) over host, disk and a localhost block
                store (G4); three sequences of 256 blocks stored, cascaded,
                and read back bitwise through G1 after onboarding from G2, G3
                and G4, with no failed transfer.
- 15. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
+ 17. quant   — the quantized paths: rows 1-5 on fp8 e4m3fn and e5m2 caches
                at the main paths' shapes (beside the same cases on bf16
                caches), each within the bf16 tolerances of its plain
                version and bitwise the same kernel on the cache's bf16
@@ -203,7 +231,7 @@ Phases (any failure exits non-zero, before the result line):
                warmup, stats()'s MFU and bandwidth share; then each with
                n-gram speculation (the verify kernels on fp8) at phase
                spec's geometry.
- 16. bench   — the headline benchmark (``python -m
+ 18. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
                functions at its full traffic (32 requests of ISL 3000 and
                OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
@@ -249,8 +277,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "mla", "families",
-          "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench")
+PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
+          "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -3088,12 +3116,14 @@ def sibling_engine(base, **mode):
                           device=base.device)
 
 
-def replay_vs_eager(torch, engine) -> dict:
+def replay_vs_eager(torch, engine, cursors=None) -> dict:
     """One decode window on eight lanes at growing contexts, by graph replay
     and by the same step run eagerly on the same buffers: sampled tokens,
     logprobs, the K/V rows written and the generated counts bitwise equal,
-    greedy and sampled (both graphs).  Leaves the window's inputs in the
-    buffers; returns the checks and the first iteration's slots."""
+    greedy and sampled (both graphs).  ``cursors`` (a guided cursor or None
+    a lane) masks the lanes by their automaton modes (phase guided); the
+    replayed tokens are then returned too.  Leaves the window's inputs in
+    the buffers; returns the checks and the first iteration's slots."""
     import numpy as np
 
     from dynamo_tpu_torch.engine.sequence import Sequence
@@ -3138,6 +3168,8 @@ def replay_vs_eager(torch, engine) -> dict:
             seq = Sequence(seq_id=f"replay{lane}", request=PreprocessedRequest(
                 token_ids=[1], sampling=sampling, stop=StopConditions(max_tokens=1)))
             seq.lane = lane
+            if cursors is not None:
+                seq.guided = cursors[lane]
             engine._seed_lane_key(seq)
             seqs.append(seq)
         engine._device_sampling_tail(seqs)
@@ -3157,6 +3189,8 @@ def replay_vs_eager(torch, engine) -> dict:
                                                eager[2][k].view(torch.uint8)) for k in views),
             "gen_counts_equal": torch.equal(graph[3], eager[3]),
         }
+        if cursors is not None:
+            out["sampled" if noise else "greedy"]["tokens"] = graph[0][0].tolist()
     return out, torch.from_numpy(slots[:, 0].astype(np.int32)).to(dev)
 
 
@@ -3902,7 +3936,8 @@ def prefill_window(torch, engine, key: tuple, noise: bool):
     arrays.update(token_ids=token_ids, seq_len=n_tail, start_pos=start, fold=n, lane=lane,
                   gate=1, key=engine._lane_keys[[lane]].astype(np.int64),
                   prompt=np.bincount(gen.integers(0, vocab, 64), minlength=vocab).astype(np.int32),
-                  gen=np.bincount(gen.integers(0, vocab, 4), minlength=vocab).astype(np.int32))
+                  gen=np.bincount(gen.integers(0, vocab, 4), minlength=vocab).astype(np.int32),
+                  gmode=np.full((1,), -1, np.int32))
     if key[0] == "prefix":
         tail_ids = np.zeros_like(blocks)
         tail_ids[: used - start // bs] = blocks[start // bs: used]
@@ -4078,18 +4113,26 @@ def spec_traffic(torch, card: str, model: str, config: dict, path, inspect=None)
     return res
 
 
+# phase spec's (and phase quant's speculative runs') configurations: the
+# published widths at half their depth (16 of 32 and 14 of 27 layers), so
+# that the whole smoke keeps inside its time with phases guided and disagg
+SPEC_CONFIGS = {"llama": dict(LLAMA3_8B, num_hidden_layers=16),
+                "mla": dict(DEEPSEEK_V2_LITE, num_hidden_layers=14)}
+
+
 def phase_spec(torch, card: str) -> dict:
     """Speculative decoding end to end on the card: the tiny model exactly,
     then the Llama-3-8B geometry and the published DeepSeek-V2-Lite config
-    at full width and depth over HTTP (``spec_traffic``), every split
+    at full width and half depth (``SPEC_CONFIGS``) over HTTP
+    (``spec_traffic``), every split
     prefill and verify window a graph replay captured by ``warmup()``:
     no capture after it, the verify kernels launched a layer a replayed
     window, replays bitwise equal to eager (``spec_graph_checks``)."""
     tiny = phase_spec_tiny(torch)
     out = {"tiny": tiny}
     for key, model, config, path, walk in (
-        ("llama", "llama3-8b-spec", LLAMA3_8B, LLAMA_SPEC_PATH, "paged_attention.cu"),
-        ("mla", "deepseek-v2-lite-spec", DEEPSEEK_V2_LITE, MLA_SPEC_PATH, "mla_attention.cu"),
+        ("llama", "llama3-8b-spec", SPEC_CONFIGS["llama"], LLAMA_SPEC_PATH, "paged_attention.cu"),
+        ("mla", "deepseek-v2-lite-spec", SPEC_CONFIGS["mla"], MLA_SPEC_PATH, "mla_attention.cu"),
     ):
         gc.collect()  # the previous engine is shut down: free its memory first
         torch.cuda.empty_cache()
@@ -4523,7 +4566,7 @@ def phase_quant(torch, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         # the speculative engine at phase spec's geometry
-        spec = phase_serve(card, f"quant:{key}:spec", f"{model}-spec", config, spec_path,
+        spec = phase_serve(card, f"quant:{key}:spec", f"{model}-spec", SPEC_CONFIGS[key], spec_path,
                            overrides={**overrides, **SPEC},
                            short_prompts=SPEC_PROMPTS, profile=False)
         if spec["run"]["spec_verify_steps_total"] <= 0:
@@ -4758,6 +4801,511 @@ def gb_s(nbytes: int, ms: float) -> float | None:
 KVBM_SHAPE = (32, 2, 16, 8, 128)  # Llama-3-8B: layers, k/v, block, kv heads, head dim
 KVBM = dict(device_blocks=512, host_blocks=256, disk_blocks=256)
 KVBM_G4_BLOCKS, KVBM_SEQ = 64, 256
+
+
+# ---------------------------------------------------------------------------
+# phase guided: guided JSON decoding on the card
+# ---------------------------------------------------------------------------
+
+GUIDED_ENGINE = dict(num_blocks=512, max_batch_size=8, max_model_len=1024, seed=0)
+GUIDED_OSL = 64
+# the lanes of the mixed burst: (guided, seeded) each
+GUIDED_LANES = ((True, False),) * 2 + ((True, True),) * 2 + ((False, False),) * 4
+
+
+async def sampled_stream(engine, tokens: list[int], max_tokens: int, *, seed=None,
+                         output_format=None, stamps: list | None = None):
+    """One request's (ids, finish reason): greedy, or seeded at temperature
+    0.9; ``output_format`` "json" guides it."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        Annotated,
+        LLMEngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    sampling = (SamplingOptions(use_greedy=True) if seed is None
+                else SamplingOptions(temperature=0.9, seed=seed))
+    req = PreprocessedRequest(token_ids=tokens, sampling=sampling,
+                              stop=StopConditions(max_tokens=max_tokens),
+                              eos_token_ids=[1], output_format=output_format).to_wire()
+    out, finish = [], None
+    async for item in await engine.generate(Context(req)):
+        ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+        if ann.data is None:
+            continue
+        if ann.data.error:
+            raise RuntimeError(ann.data.error)
+        out.extend(ann.data.token_ids)
+        if stamps is not None and ann.data.token_ids:
+            stamps.append(time.perf_counter())
+        finish = ann.data.finish_reason or finish
+    return out, None if finish is None else finish.value
+
+
+def itl_p50_ms(stamps: list[list[float]]) -> float | None:
+    gaps = sorted(b - a for m in stamps for a, b in zip(m, m[1:]))
+    return gaps[len(gaps) // 2] * 1e3 if gaps else None
+
+
+def phase_guided(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda",
+                 engine_kw: dict = GUIDED_ENGINE, osl: int = GUIDED_OSL) -> dict:
+    """Guided JSON decoding at ``config``'s geometry (all layers, random
+    bf16 weights from seed 0), the table built from the tiny model's
+    tokenizer.  An engine built by the launch path (``build_torch_engine``:
+    the table installed) and one over its weights warmed by ``warmup()``
+    before its table is installed; on the latter, eight lanes at once (two
+    guided greedy, two guided seeded, four unguided, ``osl`` tokens each):
+    every guided stream a JSON prefix (a closed one parses), the guided
+    counters right, the decode graph replayed (no capture after warmup) and
+    row 2 launched; the unguided lanes alone give the same ids as on an
+    engine with no table; a decode window with guided lanes by graph replay
+    equals the same step eagerly (greedy and seeded), each guided lane's
+    token admissible in its mode.  Prints the table's build time and ITL p50
+    with and without guided lanes."""
+    import tempfile
+
+    from dynamo_tpu_torch.llm import guided
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    path = model_dir("llama3-8b-guided", config)
+    tok = HfTokenizer.from_model_dir(path)
+    with tempfile.TemporaryDirectory(dir=ROOT / "dynamo_tpu_torch" / "_build") as cache:
+        t0 = time.perf_counter()
+        masks, strings = guided.build_for_tokenizer(tok, cache_dir=cache)
+        build_s = time.perf_counter() - t0
+    served = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), device=device,
+                                **engine_kw)
+    if served.guided_masks is None or not holds_table(served._guided_table, masks):
+        raise AssertionError("the launch path did not install the guided table")
+    engine = sibling_engine(served)   # no table until after its warmup
+    bare = sibling_engine(served)     # never a table
+    vocab = config["vocab_size"]
+    rng = random.Random(0)
+    prompts = [[rng.randrange(3, vocab) for _ in range(24 + 8 * i)] for i in range(8)]
+    eos = tok.eos_token_ids
+
+    async def drive() -> dict:
+        out: dict = {"table_build_s": build_s}
+        engine.start()
+        bare.start()
+        try:
+            await engine.warmup()
+            t0 = time.perf_counter()
+            engine.set_guided(masks, strings, eos)  # after warmup: the graphs read it in place
+            out["table_install_ms"] = (time.perf_counter() - t0) * 1e3
+            before = engine.stats()
+            zero_counters()
+            stamps = [[] for _ in GUIDED_LANES]
+            results = await asyncio.gather(*[
+                sampled_stream(engine, p, osl, seed=(100 + i) if seeded else None,
+                               output_format="json" if g else None, stamps=stamps[i])
+                for i, (p, (g, seeded)) in enumerate(zip(prompts, GUIDED_LANES))])
+            counts = read_counters()
+            after = engine.stats()
+            await settled(engine)
+            checks = []
+            completed = 0
+            for (ids, finish), (g, _) in zip(results, GUIDED_LANES):
+                if not g:
+                    continue
+                cursor = guided.JsonCursor(masks, strings, eos_ids=eos)
+                for t in ids:
+                    cursor.advance(t)
+                    if cursor.failed:
+                        raise AssertionError(f"guided stream left JSON at {t}: {ids}")
+                completed += cursor.complete
+                text = tok.decode(ids, skip_special_tokens=True)
+                if finish == "stop" and cursor.complete:
+                    json.loads(text)
+                checks.append({"tokens": len(ids), "finish": finish,
+                               "complete": cursor.complete, "text": text[:80]})
+            out["guided"] = checks
+            out["counters"] = {k: after[k] for k in ("guided_requests_total",
+                                                     "guided_completions_total")}
+            if out["counters"] != {"guided_requests_total": 4,
+                                   "guided_completions_total": completed}:
+                raise AssertionError(f"guided counters {out['counters']}, {completed} completed")
+            replays = after["decode_graph_replays_total"] - before["decode_graph_replays_total"]
+            if after["decode_graphs_captured_after_warmup"] or (
+                    device == "cuda" and replays <= 0):
+                raise AssertionError(f"decode graph: {replays} replays, "
+                                     f"{after['decode_graphs_captured_after_warmup']} late")
+            if device == "cuda" and (counts["paged_attention.launches"] <= 0
+                                     or counts["plain_calls"]):
+                raise AssertionError(f"guided decode windows missed row 2: {counts}")
+            out["decode_graph_replays"] = replays
+            out["unified_fallbacks"] = after["unified_fallbacks"]
+            out["itl_p50_ms_mixed"] = itl_p50_ms(stamps)
+            # the unguided lanes alone, with and without a table: the same ids
+            # (the burst's prefixes flushed first: a prefix hit computes the
+            # prompt's tail alone, in bf16 other bits than a whole prompt)
+            await engine.clear_kv_blocks()
+            plain = [p for p, (g, _) in zip(prompts, GUIDED_LANES) if not g]
+            alone = []
+            for e in (engine, bare):
+                st = [[] for _ in plain]
+                alone.append(await asyncio.gather(*[
+                    sampled_stream(e, p, osl, stamps=st[i]) for i, p in enumerate(plain)]))
+                await settled(e)
+                if e is engine:
+                    out["itl_p50_ms_unguided"] = itl_p50_ms(st)
+            if alone[0] != alone[1]:
+                raise AssertionError("unguided lanes differ once a table is installed")
+            out["unguided_equal_without_table"] = True
+        finally:
+            engine.stop()
+            bare.stop()
+        return out
+
+    out = asyncio.run(drive())
+    if device == "cuda":
+        out["replay_vs_eager"] = guided_replay_vs_eager(torch, engine, masks, tok)
+    log(f"[guided] {card}: table built in {build_s:.3f} s ({masks.mask.shape}); "
+        f"ITL p50 {out['itl_p50_ms_mixed']:.2f} ms with guided lanes, "
+        f"{out['itl_p50_ms_unguided']:.2f} ms without")
+    print("smoke_guided " + json.dumps({"card": card, **out}), flush=True)
+    del engine, bare, served
+    return out
+
+
+def guided_replay_vs_eager(torch, engine, masks, tok) -> dict:
+    """A decode window of guided lanes in several automaton modes (and
+    unguided ones), replayed and run eagerly on the same buffers of the
+    idle engine: bitwise equal, each guided lane's token admissible in its
+    mode."""
+    cursors = []
+    walk = [tok.encode(x)[0] for x in ("{", '"', "a", '"', ":", " ", "[")]
+    for lane in range(engine.config.max_batch_size):
+        if lane % 4 == 3:
+            cursors.append(None)
+            continue
+        c = engine._make_guided_cursor("json")
+        for t in walk[: lane + 1]:
+            c.advance(t)
+        cursors.append(c)
+    rve, _ = replay_vs_eager(torch, engine, cursors=cursors)
+    width = masks.mask.shape[1]
+    for mode, res in rve.items():
+        if not all(v for k, v in res.items() if k != "tokens"):
+            raise AssertionError(f"guided decode window: replay != eager ({mode}): {res}")
+        for c, t in zip(cursors, res["tokens"]):
+            if c is not None and c.mode_id >= 0 and not (t < width and masks.mask[c.mode_id, t]):
+                raise AssertionError(f"guided lane sampled an inadmissible {t} ({mode})")
+    rve["modes"] = [None if c is None else c.mode_id for c in cursors]
+    return rve
+
+
+def holds_table(table, masks) -> bool:
+    """The engine's resident table holds ``masks`` (padded with False)."""
+    import numpy as np
+
+    want = np.zeros(tuple(table.shape), bool)
+    width = min(masks.mask.shape[1], table.shape[1])
+    want[:, :width] = masks.mask[:, :width]
+    return bool((table.cpu().numpy() == want).all())
+
+
+# ---------------------------------------------------------------------------
+# phase disagg: disaggregated prefill/decode over the KV transfer plane
+# ---------------------------------------------------------------------------
+
+# the decode side's engine and the one engine held against it: the split
+# prefill in 512-token chunks on both (the prefill engine's route), the
+# decode window graphed
+DISAGG_ENGINE = dict(num_blocks=1216, max_batch_size=8, max_model_len=2304, seed=0,
+                     prefill_buckets=(512,), prefill_chunk_tokens=512)
+DISAGG_PREFILL = dict(DISAGG_ENGINE, num_blocks=320, unified_batch=False)
+DISAGG_PROMPTS = 8
+DISAGG_ISL = 2048
+DISAGG_OSL = 32
+DISAGG_LAUNCH_S = 600
+
+DISAGG_WORKER = """
+import asyncio, json, sys
+from pathlib import Path
+
+async def main():
+    from dynamo_tpu_torch.engine.graphs import launch_counters
+    from dynamo_tpu_torch.llm.disagg import PrefillQueue, PrefillWorker
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.serve import build_torch_engine
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    path, address, kw = Path(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+    engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), **kw)
+    engine.start()
+    rt = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
+    worker = PrefillWorker(rt, engine, PrefillQueue(rt, "smoke", "disagg_tcp"), stream=True)
+    worker.start()
+    print("PREFILL_READY", flush=True)
+    while not await rt.plane.kv.get("smoke/disagg/done"):
+        await asyncio.sleep(0.1)
+    counts = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": v for (m, n), v in launch_counters().items()}
+    await rt.plane.kv.put("smoke/disagg/prefill", json.dumps(dict(
+        counts=counts, extract_calls=engine.extract_calls, **worker.stats())).encode())
+    await worker.stop()
+    engine.stop()
+    await rt.close()
+
+asyncio.run(main())
+"""
+
+
+def phase_disagg(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda",
+                 engine_kw: dict = DISAGG_ENGINE, prefill_kw: dict = DISAGG_PREFILL,
+                 n_prompts: int = DISAGG_PROMPTS, isl: int = DISAGG_ISL,
+                 osl: int = DISAGG_OSL, max_local: int = 512) -> dict:
+    """Disaggregated prefill/decode at ``config``'s geometry (all layers,
+    random bf16 weights from seed 0): ``n_prompts`` prompts of ``isl``
+    tokens, ``osl`` out, half greedy and half seeded, every prefill remote
+    (``max_local_prefill_length`` 512).  One engine serves them alone
+    first.  Then the pair of the launch path in this process
+    (``launch_disagg_decode_worker`` / ``launch_prefill_workers`` over one
+    set of weights and the memory control plane): the same-process
+    ``device`` route, streamed (chunks of 512) and single-shot; then the
+    ``host_tcp`` route, the prefill worker in a second process on the same
+    card over the control-plane server, streamed.  Every route's streams
+    byte-identical to the one engine's; rows 6-7 launched once a cache leaf
+    for each extract and inject, no plain version on the card; two topology
+    cards on the plane and the prober's measured bandwidth in
+    ``dynctl topology``'s table.  Prints TTFT p50 local and remote, GB/s a
+    route (the decode side's inject-active bytes, and the headline's
+    ``kv_xfer`` rung), rows 6-7's device ms a call at the path's shapes and
+    the streamed share hidden behind prefill.  Frees both engines."""
+    from dynamo_tpu_torch.bench.headline import measure_kv_xfer
+    from dynamo_tpu_torch.cli.dynctl import render_topology
+    from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggDecodeEngine, DisaggRouter
+    from dynamo_tpu_torch.llm.disagg import PrefillQueue, PrefillWorker
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.ops.kernels.block_copy import gather_blocks, scatter_blocks
+    from dynamo_tpu_torch.runtime.controlplane.server import ControlPlaneServer
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.serve import build_torch_engine, launch_disagg_decode_worker
+    from dynamo_tpu_torch.serve import launch_prefill_workers
+    from dynamo_tpu_torch.topology import CARDS_PREFIX
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    path = model_dir("llama3-8b-disagg", config)
+    mdc = ModelDeploymentCard.from_local_path(path)
+    rng = random.Random(0)
+    vocab = config["vocab_size"]
+    prompts = [[rng.randrange(3, vocab) for _ in range(isl)] for _ in range(n_prompts)]
+    seeds = [None if i % 2 == 0 else 200 + i for i in range(n_prompts)]
+    env0 = {k: os.environ.get(k) for k in ("DYN_TOPO", "DYN_TOPO_PROBE_PERIOD_S", "DYN_KV_STREAM")}
+    os.environ.update(DYN_TOPO="1", DYN_TOPO_PROBE_PERIOD_S="0.5", DYN_KV_STREAM="1")
+    log_path = ROOT / "dynamo_tpu_torch" / "_build" / "disagg_prefill_worker.log"
+
+    async def traffic(engine, ttfts: list) -> list:
+        async def one(p, seed):
+            t0 = time.perf_counter()
+            st: list = []
+            res = await sampled_stream(engine, p, osl, seed=seed, stamps=st)
+            ttfts.append((st[0] - t0) * 1e3)
+            return res
+        return list(await asyncio.gather(*[one(p, s) for p, s in zip(prompts, seeds)]))
+
+    async def drive() -> dict:
+        out: dict = {}
+        cp = ControlPlaneServer(port=0)
+        await cp.start()
+        address = f"127.0.0.1:{cp.port}"
+        log_file = open(log_path, "wb")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-c", DISAGG_WORKER, str(path), address,
+            json.dumps({**prefill_kw, "device": device}), cwd=str(ROOT), env=env,
+            stdout=asyncio.subprocess.PIPE, stderr=log_file)
+        handles: list = []
+        decode_handle = rt = rt_tcp = tcp_decode = None
+        try:
+            # the one engine: the prompts alone, local prefill
+            one = build_torch_engine(path, mdc, device=device, **{**engine_kw,
+                                                                  "unified_batch": False})
+            params = one.params
+            one.start()
+            try:
+                local_ttft: list = []
+                want = await traffic(one, local_ttft)
+            finally:
+                one.stop()
+            del one
+            out["ttft_p50_ms_local"] = sorted(local_ttft)[len(local_ttft) // 2]
+
+            # the pair of the launch path, same process: the device route
+            rt = await DistributedRuntime.create(RuntimeConfig(control_plane="memory://smoke-disagg"))
+            queue = PrefillQueue(rt, "dynamo", "backend")
+            decode_handle = await launch_disagg_decode_worker(
+                rt, path, queue, max_local_prefill_length=max_local, device=device, params=params,
+                **engine_kw)
+            disagg = decode_handle.engine
+            decode = disagg.engine
+            handles = await launch_prefill_workers(rt, path, queue, device=device, params=params,
+                                                   **prefill_kw)
+            pre, pump = handles[0].engine, handles[0].pump
+            leaves = len(decode.cache)
+            routes = {}
+            for mode, stream in (("device_streamed", True), ("device_single_shot", False)):
+                # each route prefills from scratch, as the one engine did (a
+                # prefix hit would compute the tail alone: other bf16 bits)
+                await pre.clear_kv_blocks()
+                await pump.stop()
+                pump = handles[0].pump = PrefillWorker(rt, pre, queue, stream=stream)
+                if handles[0].watcher is not None:
+                    pump.attach_topology(handles[0].watcher.map,
+                                         self_worker_id=handles[0].lease.id)
+                pump.start()
+                base = disagg.stats()
+                x0, i0 = pre.extract_calls, decode.inject_calls
+                zero_counters()
+                ttfts: list = []
+                got = await traffic(disagg, ttfts)
+                await settled(decode)
+                counts = read_counters()
+                cur = disagg.stats()
+                extracts, injects = pre.extract_calls - x0, decode.inject_calls - i0
+                routes[mode] = check_route(mode, got, want, counts, extracts, injects, leaves,
+                                           base, cur, ttfts, n_prompts, local=True,
+                                           card=device == "cuda")
+            out["routes"] = routes
+            # the topology plane: both cards published, the prober's bandwidth
+            cards = await rt.plane.kv.get_prefix(CARDS_PREFIX)
+            roles = sorted(json.loads(e.value)["role"] for e in cards)
+            topo_map = handles[0].watcher.map
+            for _ in range(100):
+                link = topo_map.link(handles[0].lease.id, decode_handle.service.instance.instance_id)
+                if link is not None and link.measured_bps > 0:
+                    break
+                await asyncio.sleep(0.1)
+            table = render_topology(topo_map.to_dict())
+            if roles != ["decode", "prefill"] or link is None or link.measured_bps <= 0:
+                raise AssertionError(f"topology: cards {roles}, link {link}\n{table}")
+            out["topology"] = {"cards": roles, "probe_gbps": link.measured_bps / 1e9,
+                               "rtt_ms": link.rtt_s * 1e3, "hop": link.hop,
+                               "probes": link.probes_total}
+            log("[disagg] dynctl topology:\n" + table)
+            # the plane's microbench at the path's engine (the headline rung)
+            out["kv_xfer"] = await measure_kv_xfer(decode)
+            # rows 6-7 a call at the path's shapes: one leaf, a prompt's blocks
+            ids = list(range(-(-isl // decode.config.block_size)))
+            leaf = decode.cache["k"]
+            blocks = gather_blocks(leaf, ids, axis=1)
+            if device == "cuda":
+                out["row6_device_ms"] = device_ms(lambda: gather_blocks(leaf, ids, axis=1))
+                out["row7_device_ms"] = device_ms(
+                    lambda: scatter_blocks(leaf, blocks, ids, axis=1))
+            else:
+                out["row6_device_ms"] = out["row7_device_ms"] = "not measured"
+            await decode.clear_kv_blocks()
+
+            # the host_tcp route: the prefill worker in the second process
+            line = await asyncio.wait_for(proc.stdout.readline(), DISAGG_LAUNCH_S)
+            if b"PREFILL_READY" not in line:
+                raise AssertionError(f"prefill process: {line!r}; see {log_path}")
+            rt_tcp = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
+            router = DisaggRouter(rt_tcp, "tcp", DisaggConfig(max_local_prefill_length=max_local))
+            tcp_decode = DisaggDecodeEngine(rt_tcp, decode, router,
+                                            PrefillQueue(rt_tcp, "smoke", "disagg_tcp"))
+            await tcp_decode.start()
+            base = tcp_decode.stats()
+            i0 = decode.inject_calls
+            zero_counters()
+            ttfts = []
+            got = await traffic(tcp_decode, ttfts)
+            await settled(decode)
+            counts = read_counters()
+            await rt_tcp.plane.kv.put("smoke/disagg/done", b"1")
+            remote = None
+            for _ in range(300):
+                remote = await rt_tcp.plane.kv.get("smoke/disagg/prefill")
+                if remote:
+                    break
+                await asyncio.sleep(0.1)
+            remote = json.loads(remote.value if hasattr(remote, "value") else remote)
+            rc = remote["counts"]
+            counts["block_copy.gather_launches"] = rc["block_copy.gather_launches"]
+            counts["plain_calls"] += sum(v for k, v in rc.items() if k.endswith("plain_calls"))
+            routes["host_tcp_streamed"] = check_route(
+                "host_tcp_streamed", got, want, counts, remote["extract_calls"],
+                decode.inject_calls - i0, leaves, base, tcp_decode.stats(), ttfts, n_prompts,
+                local=False, card=device == "cuda")
+            out["prefill_process"] = {k: remote[k] for k in ("prefills_done",
+                                                              "kv_parts_sent_total")}
+            out["launches"] = {
+                "gather_blocks": sum(r["gather_launches"] for r in routes.values()),
+                "scatter_blocks": sum(r["scatter_launches"] for r in routes.values())}
+            return out
+        finally:
+            if tcp_decode is not None:
+                await tcp_decode.stop()
+            if rt_tcp is not None:
+                await rt_tcp.close()
+            for h in handles:
+                await h.stop()
+            if decode_handle is not None:
+                await decode_handle.shutdown()
+            if rt is not None:
+                await rt.close()
+            if proc.returncode is None:
+                try:
+                    await asyncio.wait_for(proc.wait(), 30)
+                except asyncio.TimeoutError:
+                    proc.kill()
+                    await proc.wait()
+            log_file.close()
+            await cp.stop()
+
+    try:
+        out = asyncio.run(drive())
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[disagg] {card}: TTFT p50 local {out['ttft_p50_ms_local']:.1f} ms, remote "
+        + ", ".join(f"{k} {r['ttft_p50_ms']:.1f} ms ({r['inject_gbps']:.2f} GB/s inject)"
+                    for k, r in out["routes"].items())
+        + f"; kv_xfer {out['kv_xfer']}; row 6 {out['row6_device_ms']} ms, "
+        f"row 7 {out['row7_device_ms']} ms a call")
+    print("smoke_disagg " + json.dumps({"card": card, **out}), flush=True)
+    return out
+
+
+def check_route(mode: str, got, want, counts: dict, extracts: int, injects: int, leaves: int,
+                base: dict, cur: dict, ttfts: list, n: int, local: bool,
+                card: bool = True) -> dict:
+    """One route's checks: the streams byte-identical to the one engine's,
+    every prefill remote, at least one extract and one inject a prompt and,
+    on the card, rows 6-7 launched a leaf an extract and an inject (the
+    extracts' gathers counted in the prefill's process) and nothing on a
+    plain version."""
+    if got != want:
+        raise AssertionError(f"[{mode}] disaggregated streams differ from one engine's")
+    remote = cur["disagg_remote_prefills_total"] - base["disagg_remote_prefills_total"]
+    if remote != n:
+        raise AssertionError(f"[{mode}] {remote} of {n} prefills remote")
+    if extracts < n or injects < n or card and (
+            counts["block_copy.gather_launches"] != extracts * leaves
+            or counts["block_copy.scatter_launches"] != injects * leaves
+            or counts["plain_calls"]):
+        raise AssertionError(f"[{mode}] rows 6-7: {extracts} extracts, {injects} injects, "
+                             f"{leaves} leaves, counts {counts}")
+    secs = cur["disagg_kv_transfer_seconds_total"] - base["disagg_kv_transfer_seconds_total"]
+    nbytes = cur["disagg_kv_transfer_bytes_total"] - base["disagg_kv_transfer_bytes_total"]
+    hidden = (cur["disagg_kv_transfer_hidden_seconds_total"]
+              - base["disagg_kv_transfer_hidden_seconds_total"])
+    return {"ttft_p50_ms": sorted(ttfts)[len(ttfts) // 2], "extracts": extracts,
+            "injects": injects, "gather_launches": counts["block_copy.gather_launches"],
+            "scatter_launches": counts["block_copy.scatter_launches"],
+            "parts": cur["disagg_kv_transfer_parts_total"] - base["disagg_kv_transfer_parts_total"],
+            "bytes": nbytes, "inject_gbps": nbytes / secs / 1e9 if secs > 0 else 0.0,
+            "hidden_share": hidden / secs if secs > 0 else 0.0, "same_process": local}
 
 
 def phase_kvbm(torch, card: str, device: str = "cuda") -> dict:
@@ -5265,7 +5813,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kinfo = serve = dist = mla = families = overlap = spec = offload = quant = None
+    kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -5301,6 +5849,10 @@ def main() -> int:
             run("fleet", phase_fleet, card)
         if "prefetch" in phases:
             run("prefetch", phase_prefetch, card)
+        if "guided" in phases:
+            run("guided", phase_guided, torch, card)
+        if "disagg" in phases:
+            disagg = run("disagg", phase_disagg, torch, card)
         if "mla" in phases:
             mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
                       DEEPSEEK_V2_LITE, MLA_PATH)
@@ -5333,7 +5885,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant):
+    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -5383,6 +5935,13 @@ def main() -> int:
             ("scatter_blocks", "dynamo_tpu_torch/csrc/block_copy.cu",
              "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_llama_leaf", "scatter",
              offload["counts"]["block_copy.scatter_launches"]),
+            # rows 6-7 on the disaggregated path: every extract and inject
+            ("gather_blocks (disagg extract)", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:25", "gather_llama_leaf", "gather",
+             disagg["launches"]["gather_blocks"]),
+            ("scatter_blocks (disagg inject)", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_llama_leaf", "scatter",
+             disagg["launches"]["scatter_blocks"]),
         ):
             c = cases[case]
             entries.append({
@@ -5392,6 +5951,13 @@ def main() -> int:
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "device_ms": c.get("device_ms", "not measured"), "case": case,
             })
+        # rows 6-7 at the disaggregated path's shapes (a prompt's blocks of
+        # one cache leaf), beside the KVBM-leaf case's numbers above
+        for entry in entries:
+            if entry["name"].endswith("(disagg extract)"):
+                entry["path_device_ms"] = disagg["row6_device_ms"]
+            elif entry["name"].endswith("(disagg inject)"):
+                entry["path_device_ms"] = disagg["row7_device_ms"]
         # rows 2 (W = 5) and 5 run inside the verify graph: their device ms
         # a launch there and in the eager step on the same buffers
         for entry in entries:

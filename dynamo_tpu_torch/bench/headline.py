@@ -13,8 +13,10 @@ engine's seeded init), prompts random token ids from a seed.  Reports
 generated tokens/s/card, TTFT and per-request ITL percentiles, decode-phase
 tok/s against the reference's 145 tok/s/GPU H100 figure, MFU against the
 card's peak, the engine's own utilization accounting, and three more rungs:
-the prefix cache's TTFT (the same prompt again), the same burst through
-the HTTP serving stack, and (``main`` only, in ``detail["kv_routing"]``)
+the prefix cache's TTFT (the same prompt again), the KV transfer plane's
+bandwidth on both routes (bench.py's ``_measure_kv_xfer``: ``kv_xfer_gbps_*``),
+the same burst through the HTTP serving stack, and (``main`` only, in
+``detail["kv_routing"]``)
 KV-aware against random routing over a mocker fleet (bench.py's
 ``_measure_kv_routing``).  Prints exactly one JSON line on stdout.
 
@@ -52,8 +54,11 @@ Beside bench.py:
 - The KV routing rung runs the mocker fleet (no device), as bench.py's
   does, into the detail only: the port has no CPU fallback for it to
   re-headline.  A failure of the rung fails the bench.
-- Not ported: the KV transfer rung (``_measure_kv_xfer``), named in
-  ``rungs_not_ported``; bench.py's TPU bring-up machinery (relay and device
+- The KV transfer rung extracts with the block-gather kernel and injects
+  with the block-scatter kernel; its ``device`` route hands CUDA tensors
+  over, its ``host_tcp`` route stages them in pinned memory and ships them
+  over loopback TCP.  ``rungs_not_ported`` stays in the line, empty.
+- Not ported: bench.py's TPU bring-up machinery (relay and device
   probes, the retrying parent process, its watchdog, the model ladder's
   step-down and the CPU fallback's re-headline), by rule: the port fails
   where that code fell back.
@@ -107,9 +112,7 @@ GRAPH_POOL_MARGIN = 3.5e9
 # the engine's graphs, by the prefix of their stats() keys
 GRAPH_KINDS = ("unified", "decode", "prefill", "verify")
 
-RUNGS_NOT_PORTED = {
-    "kv_xfer": "the KV transfer rung waits for the transfer plane (ROADMAP Queue 1 item 8)",
-}
+RUNGS_NOT_PORTED: dict[str, str] = {}
 PIPELINE_PATH = "http -> CompletionPreprocessor -> Backend -> engine (in process, no router hop)"
 
 
@@ -440,6 +443,8 @@ async def _measure(engine: TorchLlmEngine, s: BenchSettings, t_init: float) -> d
     if s.isl >= 512:  # below it the prefix machinery's fixed cost is noise
         with profiling.annotate("bench.prefix"):
             prefix = await _measure_prefix_ttft(client, [next(draws) for _ in range(1 + PREFIX_PAIRS)])
+    with profiling.annotate("bench.kv_xfer"):
+        xfer = await measure_kv_xfer(engine)
     end_stats = engine.stats()
     # no NaN or inf written to the cache (an fp8 e4m3 cast past 448 gives NaN)
     cache_finite = all(bool(torch.isfinite(leaf[i].float()).all())
@@ -531,6 +536,7 @@ async def _measure(engine: TorchLlmEngine, s: BenchSettings, t_init: float) -> d
             "cache_finite": cache_finite,
             "outputs_ok": outputs_ok,
             **prefix,
+            **xfer,
             **pipeline,
             # serving-stack tax: the same burst direct and through HTTP/SSE
             "pipeline_overhead_pct": round(
@@ -632,6 +638,59 @@ async def _measure_pipeline(engine: TorchLlmEngine, s: BenchSettings) -> dict:
         "pipeline_tokens": total,
         "pipeline_path": PIPELINE_PATH,
     }
+
+
+async def measure_kv_xfer(engine: TorchLlmEngine, n_blocks: int = 64, iters: int = 5) -> dict:
+    """Prefill→decode KV block transfer bandwidth through the transfer plane
+    (bench.py's ``_measure_kv_xfer``), both routes: ``device`` (same
+    process, CUDA tensors end to end: the gather, the hand-over, the
+    scatter) and ``host_tcp`` (the gather staged to pinned memory, the
+    two-part codec over TCP loopback, the copy back and the scatter).  The
+    engine must be started and idle; the landing blocks' contents are
+    overwritten and the prefix registry is flushed after."""
+    from dynamo_tpu_torch.parallel.kv_transfer import (
+        LOCAL_SERVERS,
+        KvTransferClient,
+        KvTransferPayload,
+        KvTransferServer,
+    )
+
+    n_blocks = min(n_blocks, engine.config.num_blocks // 2)
+    if n_blocks < 1:
+        return {}
+    src = list(range(n_blocks))
+    dst = list(range(n_blocks, 2 * n_blocks))
+    payload_bytes = sum(leaf.numel() * leaf.element_size() // leaf.shape[1] * n_blocks
+                        for leaf in engine.cache.values())
+    server = KvTransferServer(lambda p: engine.inject_blocks(p.block_ids, p.blocks))
+    await server.start()
+    client = KvTransferClient()
+    out = {}
+    try:
+        for strategy in ("device", "host_tcp"):
+            if strategy == "host_tcp":
+                LOCAL_SERVERS.pop(server.address, None)  # force TCP
+
+            async def ship() -> None:
+                blocks = engine._extract_block_range(src, 0, n_blocks, strategy == "device")
+                await client.send(server.address, KvTransferPayload(
+                    seq_id="bench", first_token=0, block_ids=dst, blocks=blocks))
+
+            await ship()  # warm
+            _sync(engine.device)
+            t0 = time.monotonic()
+            for _ in range(iters):
+                await ship()
+            # the scatters are queued on the stream: wait before the clock
+            _sync(engine.device)
+            elapsed = time.monotonic() - t0
+            out[f"kv_xfer_gbps_{strategy}"] = round(payload_bytes * iters / elapsed / 1e9, 3)
+        out["kv_xfer_block_mb"] = round(payload_bytes / n_blocks / 1e6, 3)
+    finally:
+        await client.close()
+        await server.stop()
+        await engine.clear_kv_blocks()
+    return out
 
 
 async def _measure_prefix_ttft(client: _Client, draws: list[list[int]]) -> dict:

@@ -2,11 +2,6 @@
 registered in it (the reference's etcd+NATS deployment and llmctl admin CLI
 in one tool: launch/llmctl/src/main.rs).  A copy of dynamo_tpu/cli/dynctl.py.
 
-The port has no topology plane yet: ``topology`` is registered and refuses
-by name (ROADMAP item 8), and ``migrate`` with no destination lets the
-owning dispatcher's coordinator pick by the knob-only link model, the
-reference's choice at ``DYN_TOPO=0``.
-
 Usage:
   python -m dynamo_tpu_torch.cli.dynctl serve [--host H] [--port P]
   python -m dynamo_tpu_torch.cli.dynctl list-models   [--control-plane H:P]
@@ -25,17 +20,46 @@ import asyncio
 import json
 
 
-TOPOLOGY_REFUSAL = (
-    "dynctl topology: the port has no topology plane yet (ROADMAP Queue 1 "
-    "item 8, with the transfer plane); it runs as the reference does at "
-    "DYN_TOPO=0"
-)
+def render_topology(d: dict) -> str:
+    """``dynctl topology``'s table of a ``TopologyMap.to_dict()``: the
+    nodes, then the links with their measured and prior bandwidth, RTT and
+    probe count (a live map's measurements included)."""
+    if not d["nodes"]:
+        return "(no topology cards published)"
+    lines = [f"{'WORKER':<18} {'ROLE':<8} {'SLICE':<10} {'HOST':<16} ADDRESS"]
+    for wid, card in d["nodes"].items():
+        lines.append(
+            f"{wid:<18} {card['role'] or '-':<8} "
+            f"{card['slice_label'] or '-':<10} "
+            f"{card['host'] or '-':<16} {card['transfer_address'] or '-'}"
+        )
+    if d["links"]:
+        lines.append("")
+        lines.append(
+            f"{'A':<18} {'B':<18} {'HOP':<6} {'MEASURED':>12} "
+            f"{'PRIOR':>12} {'RTT':>9} {'PROBES':>7}"
+        )
+        for link in d["links"]:
+            measured = (
+                f"{link['measured_bps'] / 1e9:.2f}GB/s"
+                if link["measured_bps"] > 0 else "-"
+            )
+            rtt = f"{link['rtt_s'] * 1e3:.2f}ms" if link["rtt_s"] > 0 else "-"
+            lines.append(
+                f"{link['a']:<18} {link['b']:<18} "
+                f"{link['hop'] or '?':<6} {measured:>12} "
+                f"{link['prior_bps'] / 1e9:>10.1f}GB/s "
+                f"{rtt:>9} {link['probes_total']:>7}"
+            )
+    lines.append("")
+    lines.append(
+        f"informative={d['informative']} "
+        f"links={sum(1 for _ in d['links'])} age={d['age_s']:.1f}s"
+    )
+    return "\n".join(lines)
 
 
 async def _amain(args) -> int:
-    if args.cmd == "topology":
-        print(TOPOLOGY_REFUSAL)
-        return 2
     if args.cmd == "serve":
         from dynamo_tpu_torch.runtime.controlplane.server import run_server
 
@@ -67,6 +91,17 @@ async def _amain(args) -> int:
         elif args.cmd == "remove-model":
             n = await plane.kv.delete_prefix(f"{MODELS_PREFIX}{args.name}/")
             print(f"removed {n} registration(s) for {args.name}")
+        elif args.cmd == "topology":
+            from dynamo_tpu_torch.topology.card import CARDS_PREFIX, TopologyCard
+            from dynamo_tpu_torch.topology.map import TopologyMap
+
+            topo = TopologyMap()
+            for e in await plane.kv.get_prefix(CARDS_PREFIX):
+                topo.upsert(TopologyCard.from_json(e.value))
+            if args.json:
+                print(json.dumps(topo.to_dict(), indent=2))
+            else:
+                print(render_topology(topo.to_dict()))
         elif args.cmd == "drain":
             from dynamo_tpu_torch.runtime.component import ctl_subject
 

@@ -6,10 +6,10 @@ event subscription, KVHitRateEvent.)
 
 A copy of dynamo_tpu/components/metrics_service.py.  ``prometheus_client``
 is imported where the service builds its registry and renders it, so that
-importing the port leaves it out.  The port has no topology plane yet: the
-service starts no ``TopologyWatcher`` (the reference's behaviour at
-``DYN_TOPO=0``) and renders the ``dyn_topology_*`` families at zero, as the
-reference does with no map, unless a map is attached (``attach_topology``).
+importing the port leaves it out.  With ``DYN_TOPO`` on (its default) the
+service starts a ``TopologyWatcher`` and renders the ``dyn_topology_*``
+families from its live map, unless a map is attached (``attach_topology``);
+with it off, at zero, as the reference does with no map.
 
 Run: ``python -m dynamo_tpu_torch.components.metrics_service --control-plane H:P``
 """
@@ -420,8 +420,14 @@ class MetricsService:
 
     async def start(self) -> None:
         await self.aggregator.start()
-        # no TopologyWatcher: the port has no topology plane yet (the
-        # reference's behaviour at DYN_TOPO=0); the families render at zero
+        from dynamo_tpu_torch.utils import knobs
+
+        if self._topology is None and knobs.get("DYN_TOPO"):
+            from dynamo_tpu_torch.topology import TopologyWatcher
+
+            self._topology_watcher = TopologyWatcher(self.component.runtime)
+            await self._topology_watcher.start()
+            self._topology = self._topology_watcher.map
         bus = self.component.runtime.plane.bus
         self._hit_sub = await bus.subscribe(self.component.event_subject(KV_HIT_RATE_SUBJECT))
         self._hit_task = spawn_logged(self._hit_loop())

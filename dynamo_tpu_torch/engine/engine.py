@@ -66,9 +66,17 @@ step record to the engine's flight recorder (preemptions, step errors and
 unified-step fallbacks as events); a traced request gets ``engine.queue``,
 ``engine.prefill`` and ``engine.decode`` spans under its trace.
 
-Guided decoding, multimodal prompts, disaggregated prefill and
-multi-device meshes are later slices; the engine refuses configurations
-that would need them.
+Guided JSON decoding (``output_format="json"``, after
+``enable_guided_json``) masks every sampling tail with a row of the
+resident ``[modes, vocab]`` admissible-token table, chosen by each lane's
+host automaton (``llm/guided.py``); guided lanes take the split step and the
+synchronous decode window, as the reference's do.  The disaggregation API
+(``prefill_extract`` on a prefill engine; ``reserve_blocks``,
+``inject_blocks``, ``generate_prefilled`` on a decode engine) moves a
+prompt's KV blocks between engines: extraction gathers with the
+block-gather kernel, injection scatters with the block-scatter kernel, both
+queued on the stream behind the window in flight.  Multimodal prompts and
+multi-device meshes are later slices; the engine refuses them.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -104,6 +112,7 @@ from dynamo_tpu_torch.engine.graphs import (
 from dynamo_tpu_torch.engine.kv_manager import BlockAllocator, KvEvent, compute_block_hashes
 from dynamo_tpu_torch.engine.scheduler import Scheduler
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
+from dynamo_tpu_torch.llm.guided import JsonCursor, _modes_universe, build_for_tokenizer
 from dynamo_tpu_torch.llm.protocols.common import (
     Annotated,
     FinishReason,
@@ -123,6 +132,7 @@ from dynamo_tpu_torch.ops.kernels import block_copy
 from dynamo_tpu_torch.ops.kernels import build as kernel_build
 from dynamo_tpu_torch.ops.kernels import pack_page_meta
 from dynamo_tpu_torch.ops.quant import is_quantized, quantize_params
+from dynamo_tpu_torch.parallel.kv_transfer import StagedBlocks
 from dynamo_tpu_torch.robustness.faults import ENGINE_STEP, FAULTS
 from dynamo_tpu_torch.runtime.engine import Context, ResponseStream
 from dynamo_tpu_torch.utils import knobs, profiling
@@ -344,6 +354,16 @@ class TorchLlmEngine:
         self._gen_counts = torch.zeros((lanes, cfg.vocab_size), dtype=torch.int32, device=dev)
         self._prompt_counts = torch.zeros_like(self._gen_counts)
         self._lane_idx = torch.arange(lanes, device=dev)
+        # guided decoding: the admissible-token table of every automaton
+        # mode, allocated once (all true) so graphs captured before or
+        # after set_guided read it at one address; set_guided copies into it
+        self.guided_masks = None
+        self._guided_strings: list[str] | None = None
+        self._guided_eos: list[int] = []
+        self._guided_requests = 0     # guided sequences admitted
+        self._guided_completions = 0  # finished with a complete document
+        self._guided_table = torch.ones((len(_modes_universe()), cfg.vocab_size),
+                                        dtype=torch.bool, device=dev)
         self._host_rng = np.random.Generator(np.random.PCG64(config.seed))
         self._lane_keys = np.zeros((lanes, 2), np.uint32)
 
@@ -477,6 +497,13 @@ class TorchLlmEngine:
         # put into the tiers once the last event has completed
         self._queued_offloads: list[tuple[list, dict, list]] = []
         self._offload_gather_ms = 0.0  # the offloads' gathers (CUDA events)
+        # disaggregation: injects whose host-to-device copies are queued on
+        # a card, (event, sources) each, kept until the event has run; and
+        # the block ranges extracted and injected (the launch count of rows
+        # 6-7 grows by one a cache leaf for each)
+        self._queued_injects: list[tuple[Any, list]] = []
+        self.extract_calls = 0
+        self.inject_calls = 0
         self._landing = False         # _land_offloads is putting
         offload_sink = None
         if config.host_offload_blocks:
@@ -661,21 +688,8 @@ class TorchLlmEngine:
         if self._thread is None:
             self._warm_graphs(prompt_lens)
             return
-        loop = asyncio.get_running_loop()
-        fut: asyncio.Future = loop.create_future()
-
-        def done(exc: BaseException | None) -> None:
-            def resolve() -> None:
-                if fut.done():
-                    return
-                if exc is not None:
-                    fut.set_exception(exc)
-                else:
-                    fut.set_result(None)
-
-            loop.call_soon_threadsafe(resolve)
-
-        self._submit_q.put(("warmup", (prompt_lens, done)))
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._submit_q.put(("warmup", (prompt_lens, self._resolver(fut))))
         self._wake.set()
         await fut
 
@@ -730,14 +744,71 @@ class TorchLlmEngine:
                 keys.add(("prefill", self._bucket_len(n)))
         return sorted(keys)
 
+    # -- guided decoding ---------------------------------------------------
+    def enable_guided_json(self, tokenizer) -> None:
+        """Install the compiled JSON admissible-token table for guided
+        requests (``output_format="json"``).  The table lives at a fixed
+        address, so graphs captured before this call read it too.
+
+        Model vocabularies are often padded past the tokenizer's; padding
+        columns are masked False (a padded id is never a valid JSON
+        continuation)."""
+        masks, strings = build_for_tokenizer(tokenizer)
+        self.set_guided(masks, strings, tokenizer.eos_token_ids)
+
+    def set_guided(self, masks, strings: list[str], eos_ids: list[int]) -> None:
+        """Lower-level install (tests / pre-built tables): copied in place
+        into the resident table."""
+        vocab = self.config.model.vocab_size
+        table = np.zeros((masks.mask.shape[0], vocab), bool)
+        table[:, : masks.mask.shape[1]] = masks.mask[:, :vocab]
+        self.guided_masks = masks
+        self._guided_strings = strings
+        self._guided_eos = list(eos_ids)
+        self._guided_table.copy_(torch.from_numpy(table))
+
+    def _make_guided_cursor(self, output_format: str):
+        """Validate a guided request against this deployment and return a
+        fresh cursor — loud 400-class errors beat silently-unconstrained
+        output the client believes is schema-guaranteed."""
+        if output_format not in ("json", "json_object"):
+            raise ValueError(
+                f"unsupported output_format {output_format!r} (want 'json')"
+            )
+        if self.guided_masks is None:
+            raise ValueError(
+                "guided JSON decoding is not enabled on this worker "
+                "(engine.enable_guided_json(tokenizer) at serve time)"
+            )
+        if self.config.decode_steps > 1:
+            # the fused window feeds tokens back on the device; the automaton
+            # advances on the host between windows, so the mask would lag
+            # the generated text by up to decode_steps-1 tokens
+            raise ValueError(
+                "guided JSON decoding requires decode_steps=1 "
+                f"(engine runs fused decode_steps={self.config.decode_steps})"
+            )
+        if self.spec_enabled:
+            # the verify step samples the whole draft window with one mask
+            # state; drafts would need per-position automaton advances
+            raise ValueError(
+                "guided JSON decoding does not compose with speculative "
+                "decoding on this engine"
+            )
+        # count AFTER validation: rejected requests are not "admitted"
+        self._guided_requests += 1
+        return JsonCursor(self.guided_masks, self._guided_strings, eos_ids=self._guided_eos)
+
+    @staticmethod
+    def _guided_mode(seq: Sequence) -> int:
+        """The lane's mask-table row: -1 (all tokens allowed) when the
+        sequence is unguided or its cursor bailed out."""
+        return -1 if seq.guided is None else seq.guided.mode_id
+
     async def generate(self, request: Context[dict]) -> ResponseStream[dict]:
         if request.data.get("image") is not None or request.data.get("video") is not None:
             raise ValueError("this model deployment does not accept image/video input")
         pre = PreprocessedRequest.from_wire(request.data)
-        if pre.output_format is not None:
-            raise ValueError(
-                "guided decoding (output_format) is not served by this engine yet"
-            )
         ctx = request.ctx
         if len(pre.token_ids) >= self.max_len:
             raise ValueError(
@@ -745,11 +816,34 @@ class TorchLlmEngine:
             )
         seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre)
         seq.trace = getattr(ctx, "trace", None)
+        if pre.output_format is not None:
+            seq.guided = self._make_guided_cursor(pre.output_format)
         return self._start_sequence(seq, ctx)
 
-    def _start_sequence(self, seq: Sequence, ctx) -> ResponseStream[dict]:
+    @staticmethod
+    def _resolver(fut: asyncio.Future):
+        """A callback the device thread calls with a result or an exception
+        to resolve ``fut`` on its event loop (a second call is ignored)."""
+        loop = fut.get_loop()
+
+        def from_thread(result=None) -> None:
+            def resolve() -> None:
+                if fut.done():
+                    return
+                if isinstance(result, BaseException):
+                    fut.set_exception(result)
+                else:
+                    fut.set_result(result)
+
+            loop.call_soon_threadsafe(resolve)
+
+        return from_thread
+
+    def _start_sequence(self, seq: Sequence, ctx, first=None) -> ResponseStream[dict]:
         """Wire the emit callback, submit to the device thread, watch for
-        cancellation."""
+        cancellation.  ``first`` (token, logprob, top logprobs): a token the
+        prefill worker sampled, emitted as the stream's first item; a
+        sequence it finishes is freed instead of submitted."""
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue = asyncio.Queue()
 
@@ -767,8 +861,17 @@ class TorchLlmEngine:
                 loop.call_soon_threadsafe(out_q.put_nowait, None)
 
         seq.emit = emit
-        self._submit_q.put(("add", seq))
-        self._wake.set()
+        finish = None
+        if first is not None:
+            token, lp, top = first
+            finish = seq.hit_stop(token)
+            emit([token], finish, logprobs=None if lp is None else [lp],
+                 top_logprobs=None if top is None else [top])
+        if finish is None:
+            self._submit_q.put(("add", seq))
+            self._wake.set()
+        else:
+            self.allocator.free_sequence(seq.seq_id)
 
         cancel_task = spawn_logged(self._watch_cancel(ctx, seq))
 
@@ -788,6 +891,107 @@ class TorchLlmEngine:
         await ctx.stopped()
         self._submit_q.put(("abort", seq))
         self._wake.set()
+
+    # -- disaggregation API ------------------------------------------------
+    async def prefill_extract(
+        self, pre: PreprocessedRequest, *, device: bool = False, on_chunk=None,
+    ) -> tuple[int, float, list | None, dict, int]:
+        """Prefill-worker side: run prefill only, return (first_token,
+        first_token_logprob, first_token_top_logprobs, blocks, n_blocks).
+        ``blocks`` is the cache pytree restricted to the sequence's blocks,
+        e.g. llama ``{"k": [L, n, bs, kvh, d], "v": ...}``, gathered by the
+        block-gather kernel: host tensors by default (on a card a
+        ``StagedBlocks`` whose pinned copies may still be queued: its
+        ``ready`` event says when they landed), device tensors with
+        ``device=True`` (the same-process path: no host staging).
+
+        ``on_chunk`` (streamed transfer): called from the DEVICE thread as
+        ``on_chunk(start_block, leaves, count)`` for each run of
+        fully-written blocks after an intermediate prefill chunk, while
+        later chunks still compute; it must not block.  The final return
+        then carries only the TAIL blocks past the streamed watermark
+        (``n_blocks`` stays the sequence total).  Without chunked prefill
+        the call is the single-shot contract."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        seq = Sequence(
+            seq_id=uuid.uuid4().hex, request=pre, prefill_only=True,
+            extract_device=device,
+        )
+        seq.on_chunk_done = on_chunk
+        if pre.output_format is not None:
+            # constrain the FIRST sampled token on the prefill side so the
+            # decode worker's cursor (generate_prefilled) accepts it
+            seq.guided = self._make_guided_cursor(pre.output_format)
+        seq.on_prefill_done = self._resolver(fut)
+        self._submit_q.put(("add", seq))
+        self._wake.set()
+        return await fut
+
+    def reserve_blocks(self, num_tokens: int) -> list[int] | None:
+        return self.allocator.reserve_blocks(num_tokens)
+
+    def release_blocks(self, block_ids: list[int]) -> None:
+        self.allocator.release_blocks(block_ids)
+
+    async def inject_blocks(self, block_ids: list[int], blocks: dict) -> None:
+        """Decode-worker side: write transferred KV blocks (a cache pytree
+        of host or device tensors) into the cache with the block-scatter
+        kernel, on the device thread (serialized with the steps)."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._submit_q.put(("inject", (list(block_ids), blocks, self._resolver(fut))))
+        self._wake.set()
+        await fut
+
+    async def generate_prefilled(
+        self, request: Context[dict], block_ids: list[int], first_token: int,
+        first_token_logprob: float | None = None,
+        first_token_top_logprobs: list | None = None,
+    ) -> ResponseStream[dict]:
+        """Decode-worker side: start decoding a sequence whose prompt KV was
+        injected into ``block_ids`` and whose first token was already
+        sampled by the prefill worker."""
+        pre = PreprocessedRequest.from_wire(request.data)
+        ctx = request.ctx
+        loop = asyncio.get_running_loop()
+        out_q: asyncio.Queue = asyncio.Queue()
+        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre, remote_prefilled=True)
+        seq.trace = getattr(ctx, "trace", None)
+        if pre.output_format is not None:
+            # the remote prefill worker sampled first_token: advance a fresh
+            # cursor over it.  A guided-enabled prefill worker always hands
+            # over an admissible token; an unconstrained one can hand over
+            # anything, an early EOS included — refuse loudly.  On refusal
+            # the caller's reserved landing blocks must not leak: adopt and
+            # free returns them to the pool before raising.
+            cursor = None
+            try:
+                cursor = self._make_guided_cursor(pre.output_format)
+                cursor.advance(first_token)
+                if cursor.failed or (
+                    first_token in self._guided_eos and not cursor.complete
+                ):
+                    raise ValueError(
+                        "guided JSON decoding over disaggregated prefill "
+                        "needs a guided-enabled prefill worker: the "
+                        "remotely sampled first token is not a valid JSON "
+                        "start"
+                    )
+            except ValueError:
+                if cursor is not None:
+                    # the cursor was admitted-counted, then rejected
+                    self._guided_requests -= 1
+                self.allocator.adopt_sequence(seq.seq_id, block_ids)
+                self.allocator.free_sequence(seq.seq_id)
+                raise
+            seq.guided = cursor
+            if cursor.complete:
+                # a single token closed the whole document: count it here
+                # (_process_token sees only later tokens)
+                self._guided_completions += 1
+        seq.output_ids.append(first_token)
+        self.allocator.adopt_sequence(seq.seq_id, block_ids)
+        return self._start_sequence(
+            seq, ctx, first=(first_token, first_token_logprob, first_token_top_logprobs))
 
     async def clear_kv_blocks(self) -> None:
         """Admin flush: drop published prefix-cache state and the offload
@@ -849,6 +1053,8 @@ class TorchLlmEngine:
             # drafted positions whose compute bought nothing a client received
             "spec_rejected_tokens_total": max(0, self._spec_drafted - self._spec_accepted),
             "spec_verify_steps_total": self._verify_steps,
+            "guided_requests_total": self._guided_requests,
+            "guided_completions_total": self._guided_completions,
             "decode_windows_overlapped_total": self._overlap_windows,
             "decode_windows_sync_total": self._sync_windows,
             "decode_windows_unified_total": self._unified_windows,
@@ -1080,6 +1286,17 @@ class TorchLlmEngine:
             s for s in self.scheduler.running
             if s.status == SeqStatus.RUNNING and s not in prefills
         ]
+        for seq in prefills:
+            if seq.prefill_only:
+                # a disaggregated extract keeps its split route
+                self._unified_skip("disagg_or_mm")
+                return False
+            if seq.guided is not None:
+                self._unified_skip("guided")
+                return False
+        if any(seq.guided is not None for seq in decodes):
+            self._unified_skip("guided")
+            return False
         spans: list[tuple[Sequence, int, int]] = []
         for seq in prefills:
             n = len(seq.all_token_ids)
@@ -1404,8 +1621,11 @@ class TorchLlmEngine:
         )
 
     def _decode_started(self, seq: Sequence) -> None:
-        """At every decode dispatch: open the sequence's decode span at its
-        first decode step."""
+        """At every decode dispatch: seed the lane's sampling state where
+        the sequence skipped a local prefill (disaggregated decode side),
+        and open its decode span at its first decode step."""
+        if not seq.sampling_seeded:
+            self._seed_lane_state(seq)
         if seq.decode_start_ts == 0.0:
             self._maybe_record_queue_span(seq)
             seq.decode_start_ts = time.time()
@@ -1426,7 +1646,9 @@ class TorchLlmEngine:
         resources and resolve its caller with the failure."""
         self._record_decode_span(seq, status="error")
         self.scheduler.finish(seq)
-        if seq.emit:
+        if seq.on_prefill_done:
+            seq.on_prefill_done(exc)
+        elif seq.emit:
             seq.emit([], FinishReason.ERROR, f"{type(exc).__name__}: {exc}")
 
     def _drain_submissions(self) -> None:
@@ -1455,6 +1677,21 @@ class TorchLlmEngine:
                     self.host_tier.clear()
                 logger.info("cleared %d published kv block hashes", cleared)
                 seq()
+            elif op == "inject":  # seq: the landing ids, the blocks, the callback
+                # evictions queued by the reservation for THIS inject (or any
+                # other asyncio-thread mutator) offload before the inject
+                # overwrites their blocks: their gathers are queued on the
+                # stream ahead of its scatters
+                self.allocator.flush_offloads()
+                block_ids, blocks, done = seq
+                try:
+                    self._inject(block_ids, blocks)
+                except Exception as exc:  # noqa: BLE001 — fail the caller,
+                    # don't leave its future hanging
+                    logger.exception("kv inject failed")
+                    done(exc)
+                else:
+                    done()
             elif op == "add":
                 # read BEFORE add: after add the new sequence itself makes
                 # the scheduler busy
@@ -1541,6 +1778,21 @@ class TorchLlmEngine:
             np.asarray(token_ids, np.int64) % vocab, minlength=vocab
         ).astype(np.int32)
 
+    def _seed_lane_state(self, seq: Sequence) -> None:
+        """A lane's penalty counts and key for a sequence that entered
+        decode without a local prefill (its KV injected), as the reference's
+        ``_seed_lane_state``; the rows are copied behind the stream's queued
+        work (pinned, no wait)."""
+        lane = seq.lane
+        for counts, ids in ((self._prompt_counts, seq.request.token_ids),
+                            (self._gen_counts, seq.output_ids)):
+            row = torch.from_numpy(self._count_row(ids))
+            if self.device.type == "cuda":
+                row = row.pin_memory().to(self.device, non_blocking=True)
+            counts[lane].copy_(row)
+        self._seed_lane_key(seq)
+        seq.sampling_seeded = True
+
     def _seed_lane_key(self, seq: Sequence) -> np.ndarray:
         """Per-lane seed row: from the request seed when given (reproducible
         sampling; packed [hi32, lo32] like the reference's keys), else from
@@ -1586,13 +1838,16 @@ class TorchLlmEngine:
         lanes = self.config.max_batch_size
         arrays = self._sampling_arrays(seqs, [s.lane for s in seqs], lanes)
         sampled = np.zeros((lanes,), np.float32)
+        # each lane's guided mode: a row of the resident table (-1: none)
+        gmodes = np.full((lanes,), -1, np.int32)
         for seq in seqs:
             if self._sampled(seq):
                 sampled[seq.lane] = 1.0
+            gmodes[seq.lane] = self._guided_mode(seq)
         host = dict(zip(
             ("temp", "top_k", "top_p", "greedy", "pres", "freq", "rep", "bias_ids",
              "bias_vals"), arrays,
-        ), keys=self._lane_keys.astype(np.int64), sampled=sampled)
+        ), keys=self._lane_keys.astype(np.int64), sampled=sampled, gmodes=gmodes)
         cached = self._tail_cache
         if cached is not None and all(np.array_equal(cached[k], v) for k, v in host.items()):
             return
@@ -1682,12 +1937,15 @@ class TorchLlmEngine:
     # -- the overlapped decode pipeline --------------------------------------
     def _overlap_ok(self, seqs: list[Sequence]) -> bool:
         """Overlap serves a window only when no lane needs per-token host
-        state: top_logprobs lanes ship K-wide rows whose readback belongs on
-        the synchronous path.  A mixed batch falls back whole."""
+        state: guided lanes advance a host automaton that must gate the
+        NEXT sample (the reason guidance pins decode_steps=1), and
+        top_logprobs lanes ship K-wide rows whose readback belongs on the
+        synchronous path.  A mixed batch falls back whole."""
         if not self.decode_overlap:
             return False
         return not any(
-            s.status == SeqStatus.RUNNING and s.request.sampling.top_logprobs > 0
+            s.status == SeqStatus.RUNNING
+            and (s.guided is not None or s.request.sampling.top_logprobs > 0)
             for s in seqs
         )
 
@@ -1848,11 +2106,6 @@ class TorchLlmEngine:
                 "multimodal prefill comes with a later slice of the port "
                 "(ROADMAP Queue 1 item 7)"
             )
-        if seq.prefill_only:
-            raise NotImplementedError(
-                "disaggregated prefill comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 8)"
-            )
         restore = self.allocator.take_restore_plan(seq.seq_id)
         if restore:
             try:
@@ -1911,7 +2164,10 @@ class TorchLlmEngine:
         pg = self._prefill
         pg.upload(key, {**arrays, **sampling, "token_ids": padded, "lane": seq.lane,
                         "gate": 1 if final else 0, "gen": gen_row,
-                        "key": self._lane_keys[[seq.lane]].astype(np.int64)})
+                        "key": self._lane_keys[[seq.lane]].astype(np.int64),
+                        # intermediate chunks discard their sample: no mask
+                        "gmode": np.array([self._guided_mode(seq) if final else -1],
+                                          np.int32)})
         # a lane that wants top logprobs runs the step eagerly for its K-wide
         # row; any other is its key's graph replay
         want = seq.request.sampling.top_logprobs
@@ -1924,12 +2180,114 @@ class TorchLlmEngine:
         if not final:
             # an intermediate chunk: K/V written, its sample discarded
             self.allocator.publish_stored(seq.seq_id, tokens[:end])
+            if seq.prefill_only and seq.on_chunk_done is not None:
+                self._stream_prefill_chunk(seq, blocks, end)
             return
         if seq.status == SeqStatus.PREFILLING:
             seq.status = SeqStatus.RUNNING
-        self.allocator.publish_stored(seq.seq_id, tokens)
         top = None if best is None else tuple(x[0].cpu().numpy() for x in best)
+        if seq.prefill_only:
+            # disaggregated prefill: hand back the first token and the KV
+            # blocks.  Streamed chunks already shipped the blocks below the
+            # watermark: extract only the tail past it (the final chunk's
+            # last block is never complete before now, so the tail is never
+            # empty)
+            n_used = self.allocator.blocks_needed(n)
+            start_b = min(seq.streamed_blocks, n_used)
+            blocks_out = self._extract_block_range(blocks, start_b, n_used, seq.extract_device)
+            top_rows = None
+            want_top = seq.request.sampling.top_logprobs
+            if want_top > 0 and top is not None:
+                vals, ids = top
+                top_rows = [[int(ids[i]), float(vals[i])] for i in range(min(want_top, len(ids)))]
+            self.scheduler.finish(seq)
+            if seq.on_prefill_done:
+                seq.on_prefill_done((token, lp, top_rows, blocks_out, n_used))
+            return
+        self.allocator.publish_stored(seq.seq_id, tokens)
         self._process_token(seq, token, lp, top=top)
+
+    # -- disaggregation: extract and inject ----------------------------------
+    def _extract_block_range(self, blocks: list[int], start_b: int, end_b: int,
+                             device: bool) -> dict:
+        """Gather the cache leaves of ``blocks[start_b:end_b]`` with the
+        block-gather kernel (device thread, no wait).  ``device``: the
+        gathered tensors themselves.  Else host tensors: on a card copied
+        into pinned memory behind the stream's queued work, the
+        ``StagedBlocks``' ``ready`` event recorded after the copies (a
+        reader waits for it off the engine thread; the staging lives as long
+        as the dict)."""
+        ids = blocks[start_b:end_b]
+        out = {name: block_copy.gather_blocks(self.cache[name], ids, axis=1)
+               for name in sorted(self.cache)}
+        self.extract_calls += 1
+        if device:
+            return out
+        staged = StagedBlocks()
+        if self.device.type != "cuda":
+            staged.update(out)
+            return staged
+        for name, gathered in out.items():
+            host = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
+            host.copy_(gathered, non_blocking=True)
+            staged[name] = host
+        staged.ready = torch.cuda.Event()
+        staged.ready.record(torch.cuda.current_stream(self.device))
+        return staged
+
+    def _stream_prefill_chunk(self, seq: Sequence, blocks: list[int], end: int) -> None:
+        """Streamed transfer: after an intermediate chunk wrote KV up to
+        token ``end``, extract the newly COMPLETED blocks (never a partly
+        written one) and hand them to ``seq.on_chunk_done`` while later
+        chunks compute.  The watermark only moves forward, so a preemption
+        recompute re-runs chunks without re-streaming blocks the receiver
+        already injected."""
+        done_b = end // self.config.block_size
+        if done_b <= seq.streamed_blocks:
+            return
+        start_b = seq.streamed_blocks
+        out = self._extract_block_range(blocks, start_b, done_b, seq.extract_device)
+        seq.streamed_blocks = done_b
+        try:
+            seq.on_chunk_done(start_b, out, done_b - start_b)
+        except Exception:  # noqa: BLE001 — a sink bug must not kill the device loop
+            logger.exception("on_chunk_done failed for %s", seq.seq_id)
+
+    def _inject(self, block_ids: list[int], blocks: dict) -> None:
+        """Scatter transferred blocks into ``block_ids`` with the
+        block-scatter kernel, cast to the cache's dtype (device thread).  On
+        a card nothing waits: a ``StagedBlocks``' pending copies are waited
+        for on the stream, host tensors go up through pinned memory in a
+        non-blocking copy, and the sources stay alive until an event after
+        the scatters has run (``_reap_queued``)."""
+        n = len(block_ids)
+        cuda = self.device.type == "cuda"
+        for name, leaf in self.cache.items():
+            want = (leaf.shape[0], n, *leaf.shape[2:])
+            got = tuple(blocks[name].shape)
+            if got != want:
+                raise ValueError(f"inject: leaf {name!r} is {got}, {n} blocks need {want}")
+        ready = getattr(blocks, "ready", None)
+        stream = torch.cuda.current_stream(self.device) if cuda else None
+        if ready is not None:
+            stream.wait_event(ready)
+        keep = []
+        for name in sorted(self.cache):
+            src = blocks[name]
+            if cuda and src.device.type == "cpu":
+                if not src.is_pinned():
+                    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                    pinned.copy_(src)
+                    src = pinned
+                on_dev = src.to(self.device, non_blocking=True)
+                keep.append((src, on_dev))
+                src = on_dev
+            block_copy.scatter_blocks(self.cache[name], src, block_ids, axis=1)
+        self.inject_calls += 1
+        if keep:
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            self._queued_injects.append((ev, keep))
 
     # -- decode: plain or speculative verify ---------------------------------
     def _run_decode(self, seqs: list[Sequence]) -> None:
@@ -2160,9 +2518,13 @@ class TorchLlmEngine:
         self._land_offloads(wait=True)
 
     def _reap_queued(self, wait: bool = False) -> None:
-        """Land the queued offloads and release the queued restores' staging
-        buffers whose device work has run (every one with ``wait``)."""
+        """Land the queued offloads and release the queued injects' sources
+        and restores' staging buffers whose device work has run (every one
+        with ``wait``)."""
         self._land_offloads(wait)
+        injects = self._queued_injects
+        while injects and (wait or injects[0][0].query()):
+            injects.pop(0)[0].synchronize()
         queued = self._queued_restores
         while queued:
             ev, _buffers = queued[0]
@@ -2340,7 +2702,19 @@ class TorchLlmEngine:
     ) -> None:
         seq.output_ids.append(token)
         self._tokens_emitted += 1
+        if seq.guided is not None:
+            was_complete = seq.guided.complete
+            seq.guided.advance(token)
+            if seq.guided.complete and not was_complete:
+                # counted on the closing token's transition: a document that
+                # closes on the max_tokens-th token (LENGTH below) still
+                # completed
+                self._guided_completions += 1
         finish = seq.hit_stop(token)
+        if finish is None and seq.guided is not None and seq.guided.complete:
+            # the document just closed: stop rather than sample trailing
+            # whitespace until max_tokens
+            finish = FinishReason.STOP
         if finish is None and seq.context_len >= self.max_len:
             finish = FinishReason.LENGTH
         if seq.emit:

@@ -133,6 +133,17 @@ class Staged:
         return self.views[name]
 
 
+def guided_mask(logits: torch.Tensor, table: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
+    """Guided decoding's mask, as the reference's sampling tails apply it
+    after penalties and logit bias: row ``i``'s inadmissible tokens go to
+    -inf, the admissible ones being ``table[modes[i]]`` (``[modes, vocab]``
+    bool) and mode -1 allowing every token.  Rows are gathered on the
+    device (nothing read back)."""
+    rows = table.index_select(0, modes.clamp(0, table.shape[0] - 1).long())
+    allowed = rows | (modes < 0)[:, None]
+    return torch.where(allowed, logits, float("-inf"))
+
+
 def launch_counters() -> dict[tuple[Any, str], int]:
     """Every kernel wrapper's launch and plain-call counter, by (module,
     name)."""
@@ -253,6 +264,7 @@ class DecodeGraph(StepGraphs):
             "rep": ((lanes,), np.float32),
             "bias_ids": ((lanes, bias_width), np.int32),
             "bias_vals": ((lanes, bias_width), np.float32),
+            "gmodes": ((lanes,), np.int32),
         })
         self.feedback = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.out_tokens = torch.zeros((self.steps, lanes), dtype=torch.int32, device=dev)
@@ -262,7 +274,9 @@ class DecodeGraph(StepGraphs):
     # -- the window --------------------------------------------------------
     def sample(self, logits, fold_lens, gate, noise: bool, top: int = 0):
         """The sampling tail of a decode or unified window, from the
-        ``tail`` buffers: penalties, logit bias, Gumbel noise from each
+        ``tail`` buffers: penalties, logit bias, the guided mask (each
+        lane's row of the engine's table by its mode id, -1 none), Gumbel
+        noise from each
         lane's key folded with ``fold_lens`` (the reference's
         ``fold_in(key, context_len)``; greedy lanes draw zeros through the
         sampled mask, and ``noise=False`` skips the draw for a window with
@@ -274,6 +288,7 @@ class DecodeGraph(StepGraphs):
         logits = apply_penalties(logits, e._gen_counts, e._prompt_counts,
                                  t["pres"], t["freq"], t["rep"])
         logits = apply_logit_bias(logits, t["bias_ids"], t["bias_vals"])
+        logits = guided_mask(logits, e._guided_table, t["gmodes"])
         vocab = logits.shape[-1]
         if noise:
             draw = gumbel(fold_in(t["keys"], fold_lens.long()), vocab) * t["sampled"][:, None]
@@ -636,11 +651,12 @@ class PrefillGraph(StepGraphs):
     A key's inputs sit in one ``Staged`` buffer laid out per key: the
     window's token ids, its block ids, the valid length, the prefix length,
     the key fold, the lane, the sample gate, the lane's prompt and generated
-    count rows, its raw key, sampling parameters and logit-bias row.  The
-    step is the family's forward (lengths as 0-d tensors: nothing is read
-    on the host) and the sampling tail: the lane's counts reseeded, the
-    penalties, the bias, the sample with the key folded on the device, the
-    gated count add.  The step always draws the lane's noise (one row: a
+    count rows, its raw key, sampling parameters, logit-bias row and guided
+    mode (-1: none; an intermediate chunk's discarded sample is never
+    masked).  The step is the family's forward (lengths as 0-d tensors:
+    nothing is read on the host) and the sampling tail: the lane's counts
+    reseeded, the penalties, the bias, the guided mask, the sample with the
+    key folded on the device, the gated count add.  The step always draws the lane's noise (one row: a
     greedy lane's sample ignores it), so a key has one graph, not one a
     noise variant as the many-lane windows do.  Token and logprob land in
     one persistent buffer, read back once.  Replayed on a CUDA device
@@ -673,7 +689,8 @@ class PrefillGraph(StepGraphs):
                     "top_k": ((1,), np.int32), "top_p": ((1,), np.float32),
                     "greedy": ((1,), np.bool_), "pres": ((1,), np.float32),
                     "freq": ((1,), np.float32), "rep": ((1,), np.float32),
-                    "bias_ids": ((1, kb), np.int32), "bias_vals": ((1, kb), np.float32)}
+                    "bias_ids": ((1, kb), np.int32), "bias_vals": ((1, kb), np.float32),
+                    "gmode": ((1,), np.int32)}
 
         self.inputs = Staged(dev, variants={key: fields(key) for key in self.keys})
         # the sampled token and its logprob's bits: one readback
@@ -711,6 +728,7 @@ class PrefillGraph(StepGraphs):
         logits = apply_penalties(logits[None], v["gen"][None], v["prompt"][None],
                                  v["pres"], v["freq"], v["rep"])
         logits = apply_logit_bias(logits, v["bias_ids"], v["bias_vals"])
+        logits = guided_mask(logits, e._guided_table, v["gmode"])
         vocab = logits.shape[-1]
         draw = gumbel(fold_in(v["key"], v["fold"].long().reshape(1)), vocab)
         tokens = sample_tokens(logits, draw, v["temp"], v["top_k"], v["top_p"], v["greedy"])
@@ -779,6 +797,7 @@ class PrefillGraph(StepGraphs):
         arrays = {name: np.zeros(t.shape, np.dtype(_NUMPY_DTYPES[t.dtype]))
                   for name, t in self.inputs.view(key).items()}
         arrays["lane"] = np.asarray(self.lanes, np.int32)
+        arrays["gmode"] = np.full((1,), -1, np.int32)
         return arrays
 
     def _steps(self, key: tuple):

@@ -6,10 +6,10 @@ pipeline (preprocessor → backend → remote push router) as entries come and g
 (reference: lib/llm/src/discovery/{model_entry.rs,watcher.rs},
 model_manager.rs; registration lib/bindings register_llm).
 
-The port's watcher has no topology plane: it runs as the reference's does at
-``DYN_TOPO=0`` (the KV router's cost model on its knob-only link model).  A
-frontend's prefetch hinter gets each model's tokenizer as its pipeline is
-built.
+With ``DYN_TOPO`` on (its default) the watcher keeps a live TopologyMap off
+the workers' cards and hands it to every KV router and migration
+coordinator it builds.  A frontend's prefetch hinter gets each model's
+tokenizer as its pipeline is built.
 """
 
 from __future__ import annotations
@@ -119,10 +119,26 @@ class ModelWatcher:
         # its tokenizer + chat template here so arrival hints hash exactly
         # the token stream the preprocessor will produce
         self.prefetch_hinter = prefetch_hinter
+        # fleet topology plane: one card watcher shared by every KV router
+        # this frontend builds (DYN_TOPO; started alongside model discovery)
+        self._topology_watcher = None
+
+    @property
+    def topology(self):
+        """The live TopologyMap, or None when the plane is off."""
+        return (
+            self._topology_watcher.map
+            if self._topology_watcher is not None else None
+        )
 
     async def start(self) -> None:
         self._watch = self.runtime.plane.kv.watch_prefix(MODELS_PREFIX)
         self._task = spawn_logged(self._loop())
+        if knobs.get("DYN_TOPO"):
+            from dynamo_tpu_torch.topology import TopologyWatcher
+
+            self._topology_watcher = TopologyWatcher(self.runtime)
+            await self._topology_watcher.start()
 
     async def stop(self) -> None:
         if self._watch is not None:
@@ -136,6 +152,9 @@ class ModelWatcher:
             router = state.get("router")
             if router is not None and router.migrations is not None:
                 await router.migrations.stop()
+        if self._topology_watcher is not None:
+            await self._topology_watcher.stop()
+            self._topology_watcher = None
 
     async def _loop(self) -> None:
         try:
@@ -224,12 +243,18 @@ class ModelWatcher:
         endpoint = ns.component(entry.component).endpoint(entry.endpoint)
         push_router = await PushRouter.from_endpoint(endpoint, self.router_mode)
         if push_router.migrations is not None:
-            # live-migration control verb (dynctl migrate)
+            # live-migration control verb (dynctl migrate) + topology-priced
+            # destination picking; the lambda keeps reading the watcher's
+            # map as probes refine it
+            if self._topology_watcher is not None:
+                push_router.migrations.attach_topology(lambda: self.topology)
             await push_router.migrations.serve_ctl(self.runtime.plane.bus)
 
         kv_router = None
         if self.router_mode == RouterMode.KV:
             kv_router = KvRouter(endpoint.component, block_size=mdc.kv_block_size)
+            if self._topology_watcher is not None:
+                kv_router.attach_topology(self._topology_watcher.map)
             await kv_router.start()
             engine: object = KvPushRouter(push_router, kv_router)
         else:

@@ -18,9 +18,7 @@ Layered on top (one scrape surface, ``FrontendMetrics.render``):
   the ``/slo`` payload.
 
 ``prometheus_client`` is imported where the families are made and
-rendered, never when this module is imported.  The port has no topology
-plane, so the ``dyn_topology_*`` families the reference renders (zeros at
-``DYN_TOPO=0``) are left out, and so is ``attach_topology``.
+rendered, never when this module is imported.
 """
 
 from __future__ import annotations
@@ -110,6 +108,9 @@ class FrontendMetrics:
         self.registry = registry or CollectorRegistry()
         self.slo = slo or SloTracker()
         self.exemplars = ExemplarStore()
+        # fleet TopologyMap (attach_topology): rendered as dyn_topology_*
+        # families; None still declares the families with zero samples
+        self.topology = None
         self.requests_total = Counter(
             f"{PREFIX}_http_service_requests_total",
             "Total HTTP LLM requests",
@@ -173,19 +174,24 @@ class FrontendMetrics:
         status["exemplars"] = self.exemplars.snapshot()
         return status
 
+    def attach_topology(self, topo_map) -> None:
+        self.topology = topo_map
+
     def render(self) -> bytes:
         # one scrape surface: per-model serving metrics plus the process-
         # wide resilience counters (retries, sheds, control-plane
-        # reconnects), the SLO burn-rate families, flight-recorder summary,
-        # and bucket exemplars
+        # reconnects), the SLO burn-rate families, topology-map gauges,
+        # flight-recorder summary, and bucket exemplars
         from prometheus_client import generate_latest
 
         from dynamo_tpu_torch.observability import flight
+        from dynamo_tpu_torch.topology import metrics as topology_metrics
 
         return (
             generate_latest(self.registry)
             + robustness_counters.render()
             + self.slo.render()
+            + topology_metrics.render(self.topology)
             + flight.render()
             + self.exemplars.render()
         )

@@ -140,10 +140,9 @@ class Endpoint:
     ) -> "EndpointService":
         """Register an instance and start serving requests pushed to it.
 
-        ``topo_*`` would feed the instance's TopologyCard (fleet topology
-        plane: role, KV-transfer address, slice label); the port has no
-        topology plane yet, so they are kept on the service and published
-        nowhere (the reference's behaviour at DYN_TOPO=0).
+        ``topo_*`` feed the instance's TopologyCard (fleet topology plane):
+        role (``prefill``/``decode``), the KV-transfer data-plane address,
+        and an explicit slice label for emulated multi-slice fleets.
         """
         from dynamo_tpu_torch.runtime.ingress import EndpointService
 

@@ -91,8 +91,15 @@ class EndpointService:
         self.runtime.register_keepalive(self._lease)
         # register *after* subscribing so no request can race the subscription
         await plane.kv.put(instance_key(self.instance), self.instance.to_json(), self._lease.id)
-        # no TopologyCard is published: the port has no topology plane yet
-        # (the reference's behaviour at DYN_TOPO=0)
+        if knobs.get("DYN_TOPO"):
+            from dynamo_tpu_torch.topology import local_card, publish_card
+
+            await publish_card(self, local_card(
+                self.instance.instance_id,
+                transfer_address=self.topo_transfer_address,
+                role=self.topo_role,
+                slice_label=self.topo_slice,
+            ))
         logger.info("serving %s (instance %x)", self.instance.subject, self.instance.instance_id)
 
     async def shutdown(self, *, drain_timeout: float | None = None) -> None:

@@ -90,15 +90,21 @@ def install_drain_on_sigterm(handle: WorkerHandle, *, timeout_s: float | None = 
 
 
 def build_torch_engine(
-    model_dir: str | Path, mdc: ModelDeploymentCard, *, device=None, **overrides,
+    model_dir: str | Path, mdc: ModelDeploymentCard, *, device=None, params=None,
+    **overrides,
 ):
     """A TorchLlmEngine from a local model dir: ``config.json``, weights
-    from safetensors when present, random-initialized on the device from
-    the engine seed otherwise.  ``overrides`` go to EngineConfig, but for
+    from ``params`` when given (engines of one process sharing a set),
+    else from safetensors when present, else random-initialized on the
+    device from the engine seed.  ``overrides`` go to EngineConfig, but for
     ``warmup``, a launch-time behaviour that callers read back as
     ``engine.wants_warmup`` after ``start()`` (as the reference's
     ``build_jax_engine`` pops it).  Runs on the CUDA card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  Guided JSON decoding is enabled from the model
+    directory's tokenizer wherever the engine can guide (every launch path
+    then serves ``response_format: json_object``); a table that fails to
+    build is logged and the engine serves unguided, refusing guided
+    requests one by one."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
     from dynamo_tpu_torch.models.registry import get_family, known_families
 
@@ -120,8 +126,7 @@ def build_torch_engine(
     wants_warmup = bool(overrides.pop("warmup", False))
     defaults.update(overrides)
     config = EngineConfig(**defaults)
-    params = None
-    if family.load_weights is not None:
+    if params is None and family.load_weights is not None:
         try:
             params = family.load_weights(cfg, model_dir, dev)
             logger.info("loaded weights from %s", model_dir)
@@ -129,6 +134,16 @@ def build_torch_engine(
             logger.warning("no safetensors in %s — random-initializing weights", model_dir)
     engine = TorchLlmEngine(config, params=params, device=dev)
     engine.wants_warmup = wants_warmup
+    # guided JSON decoding needs the tokenizer-compiled mask table; enabled
+    # here so EVERY launch path (serve_worker, serve_http, the CLI, the
+    # disaggregated workers) supports response_format json_object.  Engines
+    # that cannot guide (fused decode, speculation) still serve and refuse
+    # guided requests one by one; a failed table build serves unguided.
+    if config.decode_steps <= 1 and not engine.spec_enabled:
+        try:
+            engine.enable_guided_json(HfTokenizer.from_model_dir(model_dir))
+        except Exception as exc:  # noqa: BLE001 — serving works unguided
+            logger.warning("guided-json table build failed: %r", exc)
     return engine
 
 
@@ -230,6 +245,132 @@ async def serve_worker(
     return WorkerHandle(service=service, engine=engine, publishers=publishers)
 
 
+@dataclass
+class DisaggWorkerHandle:
+    """A disaggregated decode worker: its endpoint service, the
+    ``DisaggDecodeEngine`` wrapper and its ``DisaggRouter``."""
+    service: object
+    engine: object
+    router: object
+
+    async def shutdown(self) -> None:
+        await self.service.shutdown()
+        await self.engine.stop()
+        await self.router.stop()
+        self.engine.engine.stop()
+
+
+@dataclass
+class PrefillHandle:
+    """One prefill engine and the pump that feeds it from the queue; with
+    the topology plane on, the lease its card lives under and the map its
+    prober measures."""
+    pump: object
+    engine: object
+    runtime: object = None
+    lease: object = None
+    watcher: object = None
+
+    async def stop(self) -> None:
+        await self.pump.stop()
+        if self.watcher is not None:
+            await self.watcher.stop()
+        if self.lease is not None:
+            await self.runtime.plane.kv.revoke_lease(self.lease)  # the card goes
+        self.engine.stop()
+
+
+async def launch_disagg_decode_worker(
+    runtime: DistributedRuntime,
+    model_dir: str | Path,
+    queue,
+    *,
+    model_name: str | None = None,
+    max_local_prefill_length: int = 512,
+    max_prefill_queue_size: int = 16,
+    device=None,
+    params=None,
+    **engine_overrides,
+) -> DisaggWorkerHandle:
+    """The decode worker of a disaggregated pair (the reference's
+    ``examples/llm/common.py`` ``launch_disagg_decode_worker``): a
+    TorchLlmEngine behind the remote-prefill decision wrapper, its KV
+    transfer server started, warmed when ``warmup=True``, served on
+    ``backend.generate`` with its topology card naming the transfer
+    address, and the model registered."""
+    from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggDecodeEngine, DisaggRouter
+
+    model_dir = Path(model_dir)
+    mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
+    engine = await asyncio.to_thread(
+        build_torch_engine, model_dir, mdc, device=device, params=params, **engine_overrides
+    )
+    disagg_router = DisaggRouter(runtime, mdc.name, DisaggConfig(
+        max_local_prefill_length=max_local_prefill_length,
+        max_prefill_queue_size=max_prefill_queue_size,
+    ))
+    await disagg_router.start()
+    decode = DisaggDecodeEngine(runtime, engine, disagg_router, queue)
+    await decode.start()
+    engine.start()
+    if engine.wants_warmup:
+        await engine.warmup()
+    ep = runtime.namespace(None).component("backend").endpoint("generate")
+    service = await ep.serve(decode, stats_handler=decode.stats, topo_role="decode",
+                             topo_transfer_address=decode.transfer_server.address)
+    await register_llm(service, mdc)
+    return DisaggWorkerHandle(service=service, engine=decode, router=disagg_router)
+
+
+async def launch_prefill_workers(
+    runtime: DistributedRuntime,
+    model_dir: str | Path,
+    queue,
+    *,
+    num_workers: int = 1,
+    model_name: str | None = None,
+    device=None,
+    params=None,
+    lease_ttl: float = 3.0,
+    **engine_overrides,
+) -> list[PrefillHandle]:
+    """The prefill side of a disaggregated pair (the reference's
+    ``launch_prefill_workers``): ``num_workers`` TorchLlmEngines, each
+    warmed when ``warmup=True`` and fed by a ``PrefillWorker`` pump.  With
+    ``DYN_TOPO`` on, each publishes a ``prefill`` topology card under a
+    lease of its own and runs the topology prober against the decode
+    workers' cards."""
+    from dynamo_tpu_torch.llm.disagg import PrefillWorker
+    from dynamo_tpu_torch.utils import knobs
+
+    model_dir = Path(model_dir)
+    mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
+    handles = []
+    for _ in range(num_workers):
+        engine = await asyncio.to_thread(
+            build_torch_engine, model_dir, mdc, device=device, params=params,
+            **engine_overrides,
+        )
+        engine.start()
+        if engine.wants_warmup:
+            await engine.warmup()
+        pump = PrefillWorker(runtime, engine, queue)
+        handle = PrefillHandle(pump=pump, engine=engine, runtime=runtime)
+        if knobs.get("DYN_TOPO"):
+            from dynamo_tpu_torch.topology import TopologyWatcher, local_card
+
+            handle.lease = await runtime.plane.kv.grant_lease(lease_ttl)
+            runtime.register_keepalive(handle.lease)
+            card = local_card(handle.lease.id, role="prefill")
+            await runtime.plane.kv.put(card.key(), card.to_json(), handle.lease.id)
+            handle.watcher = TopologyWatcher(runtime)
+            await handle.watcher.start()
+            pump.attach_topology(handle.watcher.map, self_worker_id=card.worker_id)
+        pump.start()
+        handles.append(handle)
+    return handles
+
+
 async def serve_frontend(
     runtime: DistributedRuntime,
     *,
@@ -244,7 +385,9 @@ async def serve_frontend(
     instance.  ``admission`` (an ``AdmissionConfig``; default: the
     ``DYN_ADMISSION_*`` knobs) gates the inference routes.  Under KV
     routing with ``DYN_PREFETCH`` on, every request's prefix is hinted to
-    the worker that holds it before dispatch (``FrontendHinter``)."""
+    the worker that holds it before dispatch (``FrontendHinter``).  With
+    ``DYN_TOPO`` on, the watcher's live topology map prices the KV router's
+    transfers and feeds the frontend's ``dyn_topology_*`` families."""
     from dynamo_tpu_torch.llm.request_template import RequestTemplate
 
     template = RequestTemplate.load(request_template) if request_template else None
@@ -265,6 +408,9 @@ async def serve_frontend(
         clear_kv=watcher.clear_kv_blocks, admission=admission, prefetch_hinter=hinter,
     )
     await watcher.start()
+    # the frontend's /metrics renders the live map's dyn_topology_* families
+    # (DYN_TOPO; with the plane off they render at zero, as the reference's)
+    service.metrics.attach_topology(watcher.topology)
     await service.start()
     return service, watcher
 

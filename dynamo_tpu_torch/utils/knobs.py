@@ -231,3 +231,45 @@ K_CACHE_DIR = register(
 K_DISABLE_NATIVE = register(
     "DYN_DISABLE_NATIVE", type="bool", default=False,
     doc="skip the native (C++) data-plane codec and use pure Python")
+
+# -- disaggregated prefill/decode (llm/disagg.py, parallel/kv_transfer.py) ----
+K_KV_STREAM = register(
+    "DYN_KV_STREAM", type="bool", default=True,
+    doc="streamed multi-part disagg KV transfer; `0` = single-shot")
+K_TRANSFER_HOP = register(
+    "DYN_TRANSFER_HOP", type="str", default="",
+    doc="explicit override of the worker's *discovered* hop class "
+        "(`local`|`ici`|`dcn`) published to the router's transfer-cost "
+        "model (unset: the topology plane's classification wins)")
+K_DISAGG_PREFILL_TIMEOUT_S = register(
+    "DYN_DISAGG_PREFILL_TIMEOUT_S", type="float", default=300.0,
+    doc="decode-side wait for the KV stream before falling back to local "
+        "prefill")
+K_DISAGG_CLOCK_SKEW_S = register(
+    "DYN_DISAGG_CLOCK_SKEW_S", type="float", default=30.0,
+    doc="tolerated cross-host clock skew when judging queued-prefill "
+        "staleness")
+K_KV_DIAL_TIMEOUT_S = register(
+    "DYN_KV_DIAL_TIMEOUT_S", type="float", default=5.0,
+    doc="KV-transfer pool dial timeout per connection attempt (a black-holed "
+        "peer fails the send instead of blocking forever)")
+
+# -- fleet topology plane (topology/) -----------------------------------------
+K_TOPO = register(
+    "DYN_TOPO", type="bool", default=True,
+    doc="master topology-plane gate: card publication, map watching, and "
+        "probing; `0` restores the env-knob-only link model")
+K_TOPO_SLICE = register(
+    "DYN_TOPO_SLICE", type="str", default="",
+    doc="explicit slice label for this worker's TopologyCard (on a GPU host "
+        "nothing else sets one; used to emulate multi-slice fleets)")
+K_TOPO_PROBE_PERIOD_S = register(
+    "DYN_TOPO_PROBE_PERIOD_S", type="float", default=10.0,
+    doc="seconds between topology probe ticks (0 disables active probing; "
+        "passive KvTransferClient EWMAs still feed the map)")
+K_TOPO_PROBE_BYTES = register(
+    "DYN_TOPO_PROBE_BYTES", type="int", default=65536,
+    doc="payload size of one topology bandwidth probe")
+K_TOPO_PROBE_MAX_PER_TICK = register(
+    "DYN_TOPO_PROBE_MAX_PER_TICK", type="int", default=4,
+    doc="max peers probed per tick (round-robin across the fleet)")

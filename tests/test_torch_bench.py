@@ -38,8 +38,8 @@ from dynamo_tpu_torch.planner import perf_interpolation as perf
 ROOT = Path(__file__).resolve().parent.parent
 
 # the keys of bench.py's result line (:405-474) that the port keeps: all
-# but the KV transfer rung's (rungs_not_ported) and cpu_fallback (the port
-# never falls back); the KV routing rung's are in detail["kv_routing"]
+# but cpu_fallback (the port never falls back); the KV routing rung's are
+# in detail["kv_routing"]
 REFERENCE_KEYS = {"metric", "value", "unit", "vs_baseline"}
 REFERENCE_DETAIL_KEYS = {
     "model", "quantize", "kv_cache_dtype", "n_params", "num_requests", "isl", "osl",
@@ -48,7 +48,8 @@ REFERENCE_DETAIL_KEYS = {
     "vs_baseline_decode_phase", "prefix_hits_total", "spec_accepted_tokens_total", "req_s",
     "decode_steps", "batch", "platform", "device_kind", "prefix_ttft_miss_ms",
     "prefix_ttft_hit_ms", "prefix_ttft_speedup", "pipeline_tok_s", "pipeline_wall_s",
-    "pipeline_requests", "pipeline_overhead_pct",
+    "pipeline_requests", "pipeline_overhead_pct", "kv_xfer_gbps_device",
+    "kv_xfer_gbps_host_tcp", "kv_xfer_block_mb",
 }
 
 
@@ -295,7 +296,8 @@ def test_headline_cpu_run_prints_one_json_line():
     assert detail["ttft_samples"] == detail["itl_samples"] == 2
     assert detail["prefix_tokens"] == 512 and detail["prefix_ttft_speedup"] > 0
     assert detail["graphs_captured_after_warmup"] == 0
-    assert detail["rungs_not_ported"].keys() == {"kv_xfer"}
+    assert detail["rungs_not_ported"] == {}
+    assert detail["kv_xfer_gbps_device"] > 0 and detail["kv_xfer_gbps_host_tcp"] > 0
     # bench.py's KV routing rung (a mocker fleet) in the detail
     assert detail["kv_routing"].keys() == {
         "ttft_p50_speedup", "ttft_p50_speedup_runs", "followup_ttft_p50_speedup",

@@ -1,7 +1,7 @@
 """The port's CLI against the reference's: each ``dynctl`` verb prints what
 the reference's prints on the same control-plane state (one TCP
 control-plane server, both tools its clients; per-process ids, durations and
-paths masked), ``topology`` refuses by name, and ``run`` answers
+paths masked), ``topology`` included, and ``run`` answers
 ``in=batch:FILE`` (``out=torch --device cpu`` against the reference's
 ``out=jax``, ``out=mocker`` against its mocker) and ``in=text`` through the
 whole pipeline."""
@@ -162,10 +162,32 @@ async def test_dynctl_drain_flight_and_migrate_print_as_the_reference(capsys):
         await cp.stop()
 
 
-def test_topology_refuses_by_name(capsys):
-    assert dynctl.main(["topology", "--control-plane", "127.0.0.1:1"]) == 2
-    out = capsys.readouterr().out
-    assert "topology plane" in out and "item 8" in out
+async def test_topology_refuses_by_name(capsys, monkeypatch):
+    """``topology`` no longer refuses: with the plane on, two workers'
+    published cards print as the reference's dynctl prints them, as a table
+    and as JSON."""
+    monkeypatch.setenv("DYN_TOPO", "1")
+    cp = ControlPlaneServer(port=0)
+    await cp.start()
+    addr = f"127.0.0.1:{cp.port}"
+    parts = await stack(cp.port, {"tiny": 2})
+    try:
+        for _ in range(200):
+            if len(parts[3].topology.nodes) == 2:
+                break
+            await asyncio.sleep(0.01)
+        ours, ref = await both(capsys, cmd="topology", json=False, control_plane=addr)
+        assert ours == ref and ours[0] == 0
+        assert "informative=False links=1" in ours[1]
+        assert len([line for line in ours[1].splitlines() if " local " in line]) == 1
+        ours, ref = await both(capsys, cmd="topology", json=True, control_plane=addr)
+        assert ours[0] == ref[0] == 0
+        ours_map, ref_map = json.loads(ours[1]), json.loads(ref[1])
+        ours_map.pop("age_s"), ref_map.pop("age_s")
+        assert ours_map == ref_map and len(ours_map["nodes"]) == 2
+    finally:
+        await teardown(*parts)
+        await cp.stop()
 
 
 def test_parser_takes_the_reference_verbs():

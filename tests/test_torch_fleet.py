@@ -218,7 +218,7 @@ def test_kv_routing_rung_equals_the_reference_on_the_same_fleet_results(monkeypa
                            "followup_ttft_p50_speedup", "vs_baseline", "kv_prefix_hits",
                            "random_prefix_hits"}
     assert headline.BASELINE_ROUTING_SPEEDUP == _load_bench().BASELINE_ROUTING_SPEEDUP
-    assert "kv_routing" not in headline.RUNGS_NOT_PORTED and "kv_xfer" in headline.RUNGS_NOT_PORTED
+    assert headline.RUNGS_NOT_PORTED == {}
 
 
 def test_kv_routing_rung_runs_a_mocker_fleet():

@@ -18,9 +18,10 @@ JAX stack on the CPU.
   event and a ``step_error`` after ``DYN_FAULTS`` injects ``engine.step``
   once, and a stream after the fault equal to the JAX engine's.
 
-The JAX side runs with ``DYN_TOPO=0`` and ``DYN_DISABLE_NATIVE=1`` (the port
-has neither plane); both sides' SLO thresholds are set far above any CPU
-latency so that every good / bad count is the same on both.
+Both sides run with ``DYN_TOPO=0`` (their ``dyn_topology_*`` families,
+compared with the rest, render at zero: live maps would hold per-run worker
+ids) and ``DYN_DISABLE_NATIVE=1``; both sides' SLO thresholds are set far
+above any CPU latency so that every good / bad count is the same on both.
 """
 
 import asyncio
@@ -291,8 +292,6 @@ def exposition(text: str) -> dict:
             continue
         key, value = line.rsplit(" ", 1)
         name = key.split("{")[0]
-        if name.startswith("dyn_topology_"):
-            continue  # the reference's topology plane (zeros at DYN_TOPO=0)
         out[(name, key[len(name):])] = "*" if TIMED.search(name) else float(value)
     return out
 
@@ -436,7 +435,8 @@ def test_metrics_and_slo_equal_the_jax_stack():
     for family in ("dyn_llm_http_service_requests_total",
                    "dyn_llm_http_service_time_to_first_token_seconds_count",
                    "dyn_llm_http_service_output_sequence_tokens_sum",
-                   "dyn_slo_good_total", "dyn_flight_records_total", "dyn_shed_total"):
+                   "dyn_slo_good_total", "dyn_flight_records_total", "dyn_shed_total",
+                   "dyn_topology_nodes", "dyn_topology_links", "dyn_topology_map_age_seconds"):
         assert family in families, family
     assert ours["slo"] == ref["slo"]
 

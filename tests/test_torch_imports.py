@@ -101,7 +101,14 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.observability.flight",
             "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.utils.knobs",
             "dynamo_tpu_torch.serve", "dynamo_tpu_torch.cli.run",
-            "dynamo_tpu_torch.cli.dynctl"} <= names
+            "dynamo_tpu_torch.cli.dynctl",
+            # guided JSON decoding, the KV transfer plane, disaggregated
+            # prefill/decode, its bench and the topology plane
+            "dynamo_tpu_torch.llm.guided", "dynamo_tpu_torch.parallel",
+            "dynamo_tpu_torch.parallel.kv_transfer", "dynamo_tpu_torch.llm.disagg",
+            "dynamo_tpu_torch.bench.disagg_bench", "dynamo_tpu_torch.topology",
+            "dynamo_tpu_torch.topology.card", "dynamo_tpu_torch.topology.map",
+            "dynamo_tpu_torch.topology.prober"} <= names
     assert bad == "[]"
 
 

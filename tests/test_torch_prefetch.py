@@ -592,11 +592,22 @@ async def test_hot_prefix_pinning_and_unpin_all(tmp_path, monkeypatch):
 
 
 async def scenario_queued(engine, ctx):
-    streams = [await go(engine, ctx, PROMPT_A), await go(engine, ctx, list(range(40, 68)))]
+    def idle():
+        return not engine.scheduler.has_work()
+
+    # each request is added to an idle engine (under the overlap a finished
+    # lane is released a window late, and an add that finds it still held
+    # would hint its own prompt too), so A's is the one queued hint
+    streams = [await go(engine, ctx, PROMPT_A)]
+    await wait_for(idle, "A released")
+    streams.append(await go(engine, ctx, list(range(40, 68))))
+    await wait_for(idle, "the churn released")
     # one lane: B decodes while A waits for admission, so A's add finds a
     # backlog and A hints its own offloaded prefix (source "queued")
     long_b = asyncio.ensure_future(go(engine, ctx, list(range(70, 78)), 24))
-    await asyncio.sleep(0)
+    # A is submitted only once the device thread has admitted B to the one
+    # lane: A's add then finds the backlog whatever the thread's timing
+    await wait_for(lambda: engine.scheduler.num_running >= 1, "B holding the lane")
     a = asyncio.ensure_future(go(engine, ctx, PROMPT_A))
     streams += [await long_b, await a]
     return dict(streams=streams, counts=counts(engine))

@@ -5,8 +5,10 @@ the counterpart of tests/llm/test_metrics_service.py), and the KV router
 service's choices for the same requests over the same published blocks (the
 counterpart of tests/llm/test_embeddings_and_router_service.py).
 
-The port has no topology plane: its metrics service runs as the
-reference's does at ``DYN_TOPO=0``, so the reference runs with it off."""
+The metrics text is compared with the topology plane off on both (the
+services would otherwise watch maps of different worker ids); the watcher
+itself is held apart: each service starts one at ``DYN_TOPO=1`` and renders
+its live map, none at 0."""
 
 import asyncio
 import re
@@ -28,6 +30,8 @@ from dynamo_tpu.runtime import distributed as ref_distributed
 from dynamo_tpu.runtime import engine as ref_engine
 from dynamo_tpu.runtime.controlplane.memory import MemoryControlPlane as RefMemoryPlane
 from dynamo_tpu.utils import config as ref_config
+from dynamo_tpu import topology as ref_topology
+from dynamo_tpu_torch import topology
 from dynamo_tpu_torch.components import metrics_service, router_service
 from dynamo_tpu_torch.engine.kv_manager import KvEvent
 from dynamo_tpu_torch.llm.kv_router import compute_block_hashes
@@ -148,24 +152,45 @@ async def test_metrics_text_equals_the_reference(monkeypatch, seed):
     assert 'dyn_planner_target_replicas{pool="decode"} 3.0' in ours
     assert "kv_hit_blocks_total" in ours
     assert "\ndyn_retries_total 2.0\n" in ours
-    # no topology plane: the families render, at zero
+    # the topology plane off: the families render, at zero
     assert 'dyn_topology_links{hop="dcn"} 0.0' in ours
     assert "dyn_topology_nodes 0.0" in ours
 
 
-async def test_metrics_service_starts_no_topology_watcher(monkeypatch):
-    monkeypatch.setenv("DYN_TOPO", "1")  # the reference would watch; the port cannot
-    MemoryControlPlane.reset_named()
-    rt = await distributed.DistributedRuntime.create(
-        config.RuntimeConfig(control_plane="memory://services-topo"))
-    service = metrics_service.MetricsService(rt.namespace("ns").component("backend"),
-                                             host="127.0.0.1", port=0)
-    try:
-        await service.start()
-        assert service._topology_watcher is None and service._topology is None
-    finally:
-        await service.stop()
-        await rt.close()
+@pytest.mark.parametrize("topo_on", ["1", "0"])
+async def test_metrics_service_starts_no_topology_watcher(monkeypatch, topo_on):
+    """Both stacks' services start a TopologyWatcher at DYN_TOPO=1 (and
+    render the card published on the plane) and none at 0."""
+    monkeypatch.setenv("DYN_TOPO", topo_on)
+    out = {}
+    for name, ms, dist, cfg, plane_cls in (
+            ("port", metrics_service, distributed, config, MemoryControlPlane),
+            ("ref", ref_metrics, ref_distributed, ref_config, RefMemoryPlane)):
+        plane_cls.reset_named()
+        rt = await dist.DistributedRuntime.create(
+            cfg.RuntimeConfig(control_plane=f"memory://services-topo-{name}"))
+        service = ms.MetricsService(rt.namespace("ns").component("backend"),
+                                    host="127.0.0.1", port=0)
+        try:
+            await service.start()
+            watching = service._topology_watcher is not None
+            out[name] = (watching, service._topology is not None)
+            if watching:
+                card = (topology if name == "port" else ref_topology).TopologyCard(
+                    worker_id=0xAB, host="h", pid=1, role="decode")
+                await rt.plane.kv.put(card.key(), card.to_json())
+                for _ in range(200):
+                    if service._topology.nodes:
+                        break
+                    await asyncio.sleep(0.01)
+                async with httpx.AsyncClient() as client:
+                    text = (await client.get(f"http://127.0.0.1:{service.port}/metrics")).text
+                out[name] += ("dyn_topology_nodes 1.0" in text,)
+        finally:
+            await service.stop()
+            await rt.close()
+    want = (True, True, True) if topo_on == "1" else (False, False)
+    assert out["port"] == out["ref"] == want
 
 
 class Noop:
