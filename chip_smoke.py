@@ -233,15 +233,41 @@ Phases (any failure exits non-zero, before the result line):
                spec's geometry.
  18. bench   — the headline benchmark (``python -m
                dynamo_tpu_torch.bench.headline``) through its own
-               functions at its full traffic (32 requests of ISL 3000 and
-               OSL 150, 16 lanes, the Llama-3-8B geometry, all 32 layers):
-               configuration A (int8 weights, fp8 cache, decode_steps 8,
-               512-token chunks on the split prefill graphs, warmed at the
-               ISL's keys) and C (bf16, decode_steps 1, every chunk in a
-               unified graph); each split prefill call's wall ms; each rung
+               functions (ISL 3000 and OSL 150, 16 lanes, the Llama-3-8B
+               geometry, all 32 layers): configuration A (int8 weights, fp8
+               cache, decode_steps 8, 512-token chunks on the split prefill
+               graphs, warmed at the ISL's keys; 8 requests) and C (bf16,
+               decode_steps 1, every chunk in a unified graph; the full 32
+               requests); each split prefill call's wall ms; each rung
                must stream requests x OSL tokens and the cache hold no NaN,
                no graph may be captured after warmup, MFU must lie in (0, 1], the prefix cache must
                cut TTFT, and the path's kernels must run on the card.
+ 19. mm      — multimodal serving, the embedding engine and GGUF weights:
+               LLaVA-1.5-7B (its published config.json inline: the
+               ViT-L/14-336 tower, 576 patches, and the Vicuna-7B text
+               geometry, random bf16 weights from seed 0, 1024 blocks of
+               16, 8 lanes, max length 4096) through the multimodal
+               frontend
+               (``dynamo_tpu_torch/examples/multimodal/pipeline.start_http``): four
+               image chats of data: PNG URLs (480x640, about 40 text tokens
+               and 64 out, two greedy, two seeded), a video of 8 frames at
+               temporal pool 2 (2304 patch positions) and two text-only
+               chats sent once the image lanes decode: every mm prefill a
+               graph replay, rows 1-2 launched on the path; each mm prefill
+               key by replay bitwise its eager step (greedy and seeded); a
+               repeated image caching and publishing nothing; the same four
+               images through ``RemoteEncoder`` in a second process on this
+               process's control plane, embeddings and streams bitwise the
+               in-process ones; Gemma-3-4B text at 4 layers taking an image
+               through its embeddings prefill (no attention kernel);
+               ``TorchEmbeddingEngine`` at the Llama-3-8B geometry through
+               ``/v1/embeddings`` (16 inputs, the four input shapes; graph
+               replay bitwise the eager trunk, unit norms); F16 and Q8_0
+               GGUF files of the Llama-3.2-1B geometry written, loaded onto
+               the card bitwise the host's dequant, and served.  One
+               ``smoke_mm`` line: ViT encode ms, TTFT and ITL of image,
+               video and text lanes, mm prefill replay ms, embedding ms at
+               512 tokens, GGUF load s a file.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -263,6 +289,7 @@ import argparse
 import asyncio
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -278,7 +305,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
-          "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench")
+          "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
+          "mm")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -1233,6 +1261,13 @@ def phase_kernels(torch) -> dict:
     cases["ragged_mix"] = ragged_case(torch, spans=mix, t_pad=352)
     check_ragged("ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
                  cases["ragged_mix"])
+    # LLaVA-1.5-7B's text heads, phase mm's image lanes: MHA (one query row
+    # a kv head) on the tensor-core walks, at the contexts of decode_b32 and
+    # the spans of ragged_mix
+    cases["decode_mha_b32"] = decode_case(torch, lens=lens, seed=33, **MHA_128)
+    check_case("decode_b32 MHA h 32 kvh 32 d 128", cases["decode_mha_b32"], BF16_ATOL)
+    cases["ragged_mix_mha"] = ragged_case(torch, spans=mix, t_pad=352, seed=34, **MHA_128)
+    check_ragged("ragged mix MHA h 32 kvh 32 d 128", cases["ragged_mix_mha"])
     # the engine's heavy first token block: eight decode lanes at contexts up
     # to 4096 in one block (one worklist of up to 2048 entries); and the
     # serve phase's long prompt as one 1504-token span (188 blocks)
@@ -1291,7 +1326,7 @@ def phase_kernels(torch) -> dict:
     ragged_bf16 = {k: cases[k] for k in ("ragged_mix", "ragged_decode8_one_block",
                                          "ragged_prefill_span")}
     ragged_bf16.update(window_256=win_r, head_dim_64=d64_r, rows_56=rows56_r,
-                       no_split=no_split)
+                       no_split=no_split, mha_128=cases["ragged_mix_mha"])
     if hasattr(rk, "split_launches"):  # a parent checkout has the CUDA-core loop only
         routes = {**{k: r["route"] for k, r in ragged_bf16.items()}, "fp32_d16": small_r["route"],
                   **{k: r["route"] for k, r in other.items() if k.startswith("ragged")}}
@@ -1437,8 +1472,14 @@ def phase_kernels(torch) -> dict:
            for row in ("ragged", "paged") for tag in ("d96", "d256")},
         **{row: max(cases[c][f"{row}_max_abs_err"] for c in COPY_CASES)
            for row in ("gather", "scatter")},
+        "paged_mha": cases["decode_mha_b32"]["max_abs_err"],
+        "ragged_mha": cases["ragged_mix_mha"]["max_abs_err"],
     }
     return {"cases": cases, "errs": errs}
+
+
+# LLaVA-1.5-7B's text attention (phase mm): 32 heads over as many kv heads
+MHA_128 = dict(h=32, kvh=32, d=128)
 
 
 # rows 1 and 2 at the other families' head dims, on the CUDA-core loops:
@@ -5691,14 +5732,15 @@ def phase_families(torch, card: str) -> dict:
     return out
 
 
-# configurations of ``python -m dynamo_tpu_torch.bench.headline`` at its full
-# traffic (32 requests, ISL 3000, OSL 150, 16 lanes, 512-token chunks, the
-# Llama-3-8B geometry, all 32 layers): A is the reference's headline (int8
-# weights, fp8 cache, decode_steps 8: every prompt on the eager split step,
-# the decode windows graphed); C bf16 at decode_steps 1 (every chunk in a
-# unified graph, rows 1-2)
+# configurations of ``python -m dynamo_tpu_torch.bench.headline`` (ISL 3000,
+# OSL 150, 16 lanes, 512-token chunks, the Llama-3-8B geometry, all 32
+# layers): A is the reference's headline (int8 weights, fp8 cache,
+# decode_steps 8: every prompt on the eager split step, the decode windows
+# graphed) cut to the bench's least, 8 requests (its 32 take ~170 s of the
+# smoke's limit on a slow host); C bf16 at decode_steps 1 (every chunk in a
+# unified graph, rows 1-2) at the full 32
 BENCH_CONFIGS = (
-    ("A", {}, ("paged_attention.launches",)),
+    ("A", {"DYN_BENCH_REQUESTS": "8"}, ("paged_attention.launches",)),
     ("C", {"DYN_BENCH_QUANT": "none", "DYN_BENCH_KV_DTYPE": "model",
            "DYN_BENCH_DECODE_STEPS": "1"}, LLAMA_PATH),
 )
@@ -5762,7 +5804,7 @@ def phase_bench(torch, configs=BENCH_CONFIGS) -> dict:
 # the split step's measurement (``--phases build,split``): the speculative
 # traffic of phase spec on both large configurations, and the headline's A
 # and B, both on the split prefill step
-SPLIT_BENCH = (BENCH_CONFIGS[0],
+SPLIT_BENCH = (("A", {}, ("paged_attention.launches",)),
                ("B", {"DYN_BENCH_QUANT": "none", "DYN_BENCH_KV_DTYPE": "model"},
                 ("paged_attention.launches",)))
 
@@ -5783,6 +5825,748 @@ def phase_split(torch, card: str) -> dict:
         print(json.dumps({"smoke_split": out[key]}), flush=True)
     out["bench"] = phase_bench(torch, SPLIT_BENCH)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: multimodal serving, the embedding engine, GGUF weights
+# ---------------------------------------------------------------------------
+
+# llava-hf/llava-1.5-7b-hf config.json: the published vision tower (CLIP
+# ViT-L/14 at 336: 576 patches) and projector setting; its text_config
+# (Vicuna-7B) with the Llama defaults it relies on written out, and the tiny
+# tokenizer's bos/eos, as every served config here
+LLAVA_1_5_7B = {
+    "architectures": ["LlavaForConditionalGeneration"], "model_type": "llava",
+    "ignore_index": -100, "image_token_index": 32000, "projector_hidden_act": "gelu",
+    "vision_feature_layer": -2, "vision_feature_select_strategy": "default",
+    "text_config": {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 32064,
+        "hidden_size": 4096, "intermediate_size": 11008, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "num_key_value_heads": 32,
+        "max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+        "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 1,
+        "torch_dtype": "bfloat16"},
+    "vision_config": {
+        "model_type": "clip_vision_model", "hidden_size": 1024, "image_size": 336,
+        "intermediate_size": 4096, "num_attention_heads": 16, "num_hidden_layers": 24,
+        "patch_size": 14, "projection_dim": 768, "vocab_size": 32000},
+}
+MM_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0,
+                 prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096))
+MM_PHOTO = (480, 640)   # the images' size before the encoder's resize to 336
+MM_TEXT = "please describe what this picture shows, in a few short sentences: " * 3
+MM_OSL = 64
+MM_VIDEO = (8, 2)       # frames, temporal pool: 4 x 576 = 2304 patch positions
+MM_VIDEO_TEXT = 40      # text tokens of the video request
+MM_REMOTE_OSL = 16
+MM_LAUNCH_S = 300
+MM_GEMMA = dict(GEMMA3_4B_TEXT, num_hidden_layers=4)
+EMBED_LEN = 512
+GGUF_KINDS = ("F16", "Q8_0")
+GGUF_NAMES = {
+    "attn_norm": "attn_norm.weight", "wq": "attn_q.weight", "wk": "attn_k.weight",
+    "wv": "attn_v.weight", "wo": "attn_output.weight", "mlp_norm": "ffn_norm.weight",
+    "w_gate": "ffn_gate.weight", "w_up": "ffn_up.weight", "w_down": "ffn_down.weight",
+}
+
+
+def png_data_url(seed: int, size=MM_PHOTO) -> tuple[str, bytes]:
+    """A random RGB photo of ``size`` as a PNG ``data:`` URL, and its bytes."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    arr = np.random.default_rng(seed).integers(0, 256, (*size, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    raw = buf.getvalue()
+    return "data:image/png;base64," + base64.b64encode(raw).decode(), raw
+
+
+async def mm_chat(session, port: int, model: str, content, max_tokens: int,
+                  seed: int | None = None, stamps: list | None = None) -> float:
+    """One streamed chat completion (greedy, or seeded at temperature 0.9),
+    ``content`` a string or content parts; returns its start, each chunk's
+    arrival (a token each) appended to ``stamps``."""
+    body = {"model": model, "max_tokens": max_tokens, "stream": True,
+            "stream_options": {"include_usage": True}, "ext": {"ignore_eos": True},
+            "messages": [{"role": "user", "content": content}]}
+    body.update({"temperature": 0} if seed is None else {"temperature": 0.9, "seed": seed})
+    t0 = time.perf_counter()
+    stamps = [] if stamps is None else stamps
+    usage = None
+    async with session.post(f"http://127.0.0.1:{port}/v1/chat/completions", json=body) as r:
+        if r.status != 200:
+            raise AssertionError(f"chat answered {r.status}: {await r.text()}")
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                raise RuntimeError(chunk["error"])
+            if chunk.get("usage"):
+                usage = chunk["usage"]
+            for _ in chunk.get("choices", []):
+                stamps.append(time.perf_counter())
+    if (usage or {}).get("completion_tokens") != max_tokens:
+        raise AssertionError(f"chat streamed {usage} of {max_tokens} tokens")
+    return t0
+
+
+async def mm_stream(engine, tokens: list[int], max_tokens: int, *, seed=None, extra=None,
+                    stamps: list | None = None) -> tuple[list, list]:
+    """One request through ``engine`` (a MultimodalEngine: ``extra`` adds its
+    ``image`` or ``video``): ids and logprobs, greedy or seeded at 0.9."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        Annotated,
+        LLMEngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    sampling = (SamplingOptions(use_greedy=True) if seed is None
+                else SamplingOptions(temperature=0.9, seed=seed))
+    req = PreprocessedRequest(token_ids=tokens, sampling=sampling,
+                              stop=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+                              eos_token_ids=[1]).to_wire()
+    ids, lps = [], []
+    async for item in await engine.generate(Context({**req, **(extra or {})})):
+        ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+        if ann.data is None:
+            continue
+        if ann.data.error:
+            raise RuntimeError(ann.data.error)
+        ids.extend(ann.data.token_ids)
+        lps.extend(ann.data.logprobs or [])
+        if stamps is not None and ann.data.token_ids:
+            stamps.append(time.perf_counter())
+    if len(ids) != max_tokens:
+        raise AssertionError(f"{len(ids)} of {max_tokens} tokens streamed")
+    return ids, lps
+
+
+def ttft_itl_ms(runs: list[tuple[float, list[float]]]) -> dict:
+    """TTFT and ITL p50 (ms) of (start, stamps) runs."""
+    ttft = sorted((st[0] - t0) * 1e3 for t0, st in runs if st)
+    itl = sorted((b - a) * 1e3 for _, st in runs for a, b in zip(st, st[1:]))
+    return {"ttft_ms_p50": pctile(ttft, 0.5), "itl_ms_p50": pctile(itl, 0.5),
+            "itl_ms_p90": pctile(itl, 0.9), "tokens": sum(len(st) for _, st in runs)}
+
+
+def mm_prefill_window(torch, engine, key: tuple, n_patch: int, noise: bool):
+    """Write one multimodal prefill of ``key`` (``n_patch`` random patch
+    rows, then text, a few pad tokens) into the prefill graph's buffers on
+    lane 3 and blocks of its own, sampled (``noise``) or greedy; returns the
+    cache slots its valid positions write."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import SamplingOptions
+
+    pg = engine._prefill
+    bs, vocab, lane = engine.config.block_size, engine.config.model.vocab_size, 3
+    gen = np.random.default_rng(key[1] + noise)
+    b = key[1]
+    n = min(b - 5, n_patch + 40)
+    blocks = np.zeros((engine.max_blocks_per_seq,), np.int32)
+    used = -(-n // bs)
+    blocks[:used] = 100 + np.arange(used)
+    token_ids = np.zeros((b,), np.int32)
+    token_ids[n_patch:n] = gen.integers(3, vocab, n - n_patch)
+    embeds = np.zeros((b, engine.config.model.hidden_size), np.float32)
+    embeds[:n_patch] = gen.normal(size=(n_patch, embeds.shape[1]))
+    seq = lane_seq(engine, lane, SamplingOptions(temperature=0.8, seed=5, presence_penalty=0.3)
+                   if noise else SamplingOptions(use_greedy=True))
+    arrays = dict(zip(("temp", "top_k", "top_p", "greedy", "pres", "freq", "rep", "bias_ids",
+                       "bias_vals"), engine._sampling_arrays([seq], [0], 1)))
+    arrays.update(token_ids=token_ids, block_ids=blocks, embeds=embeds, n_patch=n_patch,
+                  seq_len=n, start_pos=0, fold=n, lane=lane, gate=1,
+                  key=engine._lane_keys[[lane]].astype(np.int64),
+                  prompt=np.bincount(token_ids[n_patch:n], minlength=vocab).astype(np.int32),
+                  gen=np.zeros((vocab,), np.int32), gmode=np.full((1,), -1, np.int32))
+    pg.upload(key, arrays)
+    pos = np.arange(n)
+    return blocks[pos // bs] * bs + pos % bs
+
+
+def mm_replay_vs_eager(torch, engine, keys: dict) -> dict:
+    """At each multimodal key the traffic captured (``keys``: key ->
+    patch rows): a prefill by the key's graph replay and by the same step
+    run eagerly on the same buffers, greedy and sampled: token, logprob
+    bits, the cache rows written and the counts bitwise equal; and the
+    replay's device ms."""
+    pg = engine._prefill
+    out = {}
+    for key, n_patch in keys.items():
+        name = "_".join(map(str, key))
+        for noise in (False, True):
+            slots = mm_prefill_window(torch, engine, key, n_patch, noise)
+            out[f"{name}_{'sampled' if noise else 'greedy'}"] = replay_vs_eager_state(
+                torch, engine, pg.out, lambda: pg.run(key), lambda: pg.step(key),
+                written_rows(torch, engine, slots))
+        out[f"{name}_replay_ms"] = time_ms(lambda: pg._launch(key), 5, warmup=1)
+    return out
+
+
+@contextlib.contextmanager
+def mm_lane_windows(llm):
+    """While open, the engine's split decode step and its unified step are
+    wrapped: each window in which an image or video lane decodes adds its
+    row 1 and row 2 launches (a graph replay adds those it holds) to the
+    yielded {"decode": {...}, "unified": {...}}, beside the count of such
+    windows.  The engine loop is the only launcher of rows 1-2 meanwhile."""
+    seen = {step: {"windows": 0, **dict.fromkeys(LLAMA_PATH, 0)}
+            for step in ("decode", "unified")}
+
+    def wrap(step, run, lanes):
+        def call(*args):
+            if not any(seq.mm_embeds is not None for seq in lanes(*args)):
+                return run(*args)
+            before = read_counters()
+            try:
+                return run(*args)
+            finally:
+                after = read_counters()
+                seen[step]["windows"] += 1
+                for k in LLAMA_PATH:
+                    seen[step][k] += after[k] - before[k]
+        return call
+
+    llm._run_decode = wrap("decode", llm._run_decode, lambda seqs: seqs)
+    llm._run_unified = wrap("unified", llm._run_unified, lambda spans, decodes, *_: decodes)
+    try:
+        yield seen
+    finally:
+        del llm._run_decode, llm._run_unified  # the class's methods again
+
+
+@contextlib.asynccontextmanager
+async def encode_worker(device: str, vision_path: Path):
+    """A control-plane server in this process and the encoder as a component
+    of its own in a second process on the card (``pipeline
+    --encode-worker``); yields (address, a wait for its ready line), and
+    stops both."""
+    from dynamo_tpu_torch.runtime.controlplane.server import ControlPlaneServer
+
+    cp = ControlPlaneServer(port=0)
+    await cp.start()
+    address = f"127.0.0.1:{cp.port}"
+    log_path = ROOT / "dynamo_tpu_torch" / "_build" / "mm_encode_worker.log"
+    log_file = open(log_path, "wb")
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "dynamo_tpu_torch.examples.multimodal.pipeline",
+        "--encode-worker", "--control-plane", address, "--vision-config", str(vision_path),
+        "--seed", "0", "--device", device, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=asyncio.subprocess.PIPE,
+        stderr=log_file)
+
+    async def ready() -> float:
+        line = await asyncio.wait_for(proc.stdout.readline(), MM_LAUNCH_S)
+        if b"ENCODE_READY" not in line:
+            raise AssertionError(f"encode worker: {line!r}; see {log_path}")
+        return time.perf_counter() - t0
+
+    try:
+        yield address, ready
+    finally:
+        if proc.returncode is None:
+            proc.terminate()
+            try:
+                await asyncio.wait_for(proc.wait(), 30)
+            except asyncio.TimeoutError:
+                proc.kill()
+                await proc.wait()
+        log_file.close()
+        await cp.stop()
+
+
+async def mm_remote_check(llm, local, address: str, ready, images) -> dict:
+    """Over the encode worker at ``address``: each image's embeddings
+    through ``RemoteEncoder`` bitwise the in-process encoder's, and four
+    requests on them (two greedy, two seeded) bitwise the in-process
+    streams (ids and logprobs)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.examples.multimodal.components import RemoteEncoder
+    from dynamo_tpu_torch.examples.multimodal.pipeline import MultimodalEngine
+    from dynamo_tpu_torch.llm.multimodal import encode_image_wire
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    vocab = llm.config.model.vocab_size
+    rng = random.Random(1)
+    prompts = [[rng.randrange(3, vocab) for _ in range(40)] for _ in images]
+    seeds = [None, None, 301, 302]
+
+    async def four(engine) -> list:
+        got = await asyncio.gather(*[
+            mm_stream(engine, p, MM_REMOTE_OSL, seed=s, extra={"image": encode_image_wire(im)})
+            for p, s, im in zip(prompts, seeds, images)])
+        await settled(llm)
+        return got
+
+    out: dict = {}
+    want = await four(MultimodalEngine(llm, local))
+    out["worker_up_s"] = await ready()
+    rt = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
+    remote = None
+    try:
+        remote = await RemoteEncoder.connect(rt)
+        for i, im in enumerate(images):
+            theirs, mine = await remote.aencode(im), local.encode(im)
+            if theirs.dtype != mine.dtype or not np.array_equal(theirs, mine):
+                raise AssertionError(f"image {i}: remote embeddings differ from local "
+                                     f"(max {float(np.abs(theirs - mine).max())})")
+        out["embeds_bitwise"] = True
+        t0 = time.perf_counter()
+        got = await four(MultimodalEngine(llm, remote))
+        out["remote_four_s"] = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"streams over the remote encoder differ: {got} vs {want}")
+        out["streams_bitwise"] = True
+    finally:
+        if remote is not None:
+            await remote.close()
+        await rt.close()
+    return out
+
+
+async def mm_serving(torch, device: str, llava: dict, engine_kw: dict) -> dict:
+    """Part (a): LLaVA-1.5-7B through the multimodal frontend
+    (``pipeline.start_http``): four image chats (data: PNG URLs, two greedy,
+    two seeded), a video through the MultimodalEngine and two text-only
+    chats once the image lanes decode, the counters zeroed just before and
+    read just after; the replay checks, the repeated image, the remote
+    encoder (a second process, started first: its start-up overlaps the
+    traffic)."""
+    from dynamo_tpu_torch.models.vision import VisionConfig
+
+    vcfg = VisionConfig.from_hf_config(llava)
+    path = model_dir("llava-1.5-7b-smoke", llava["text_config"])
+    vision_path = path / "llava_config.json"
+    vision_path.write_text(json.dumps(llava))
+    async with encode_worker(device, vision_path) as (address, ready):
+        return await mm_serving_with(torch, device, engine_kw, vcfg, path, address, ready)
+
+
+async def mm_serving_with(torch, device: str, engine_kw: dict, vcfg, path, address: str,
+                          ready) -> dict:
+    import aiohttp
+    import numpy as np
+
+    from dynamo_tpu_torch.examples.multimodal.pipeline import start_http
+    from dynamo_tpu_torch.llm.multimodal import decode_image_bytes
+    from dynamo_tpu_torch.models.vision import vit_encode
+
+    t0 = time.perf_counter()
+    handle = await start_http(path, 0, device=device, name="llava-smoke", vision=vcfg,
+                              **engine_kw)
+    out: dict = {"up_s": time.perf_counter() - t0, "patches": vcfg.num_patches}
+    llm, encoder, port = handle.llm, handle.encoder, handle.service.port
+    vocab = llm.config.model.vocab_size
+    urls = [png_data_url(i) for i in range(4)]
+    images = [decode_image_bytes(raw) for _, raw in urls]
+    frames_n, pool = MM_VIDEO
+    video = np.random.default_rng(9).random((frames_n, *MM_PHOTO, 3), np.float32)
+    rng = random.Random(0)
+    video_prompt = [rng.randrange(3, vocab) for _ in range(MM_VIDEO_TEXT)]
+    try:
+        # the encoder alone: wall (host clock, synchronised) and device ms
+        for _ in range(2):
+            encoder.encode(images[0])
+        walls = []
+        for im in images:
+            t1 = time.perf_counter()
+            encoder.encode(im)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        out["vit_encode_wall_ms"] = sorted(walls)[len(walls) // 2]
+        if device == "cuda":
+            x = encoder._fit(images[0])[None].to(vcfg.dtype)
+            out["vit_encode_device_ms"] = device_ms(
+                lambda: vit_encode(encoder.params, vcfg, x), iters=5)
+            t1 = time.perf_counter()
+            encoder.encode_video(video, temporal_pool=pool)
+            out["vit_video_wall_ms"] = (time.perf_counter() - t1) * 1e3
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            # a warm pass of the traffic's shapes: the graphs it needs (the
+            # mm keys, the unified buckets, the decode windows) captured
+            # before the counted run
+            await asyncio.gather(*[
+                mm_chat(s, port, "llava-smoke", [
+                    {"type": "text", "text": MM_TEXT},
+                    {"type": "image_url", "image_url": {"url": urls[0][0]}}], 16, seed=seed)
+                for seed in (None, 1)], mm_stream(
+                    handle.engine, video_prompt, 16,
+                    extra={"video": video, "video_temporal_pool": pool}),
+                *[mm_chat(s, port, "llava-smoke", f"text-only request {i}: " + MM_TEXT, 4)
+                  for i in range(2)])
+            await settled(llm)
+            stats0 = llm.stats()
+            zero_counters()
+            image_st, text_st, video_st = [[] for _ in range(4)], [[], []], []
+
+            async def image(i):
+                content = [{"type": "text", "text": MM_TEXT},
+                           {"type": "image_url", "image_url": {"url": urls[i][0]}}]
+                return await mm_chat(s, port, "llava-smoke", content, MM_OSL,
+                                     seed=None if i < 2 else 100 + i, stamps=image_st[i])
+
+            async def text(i):
+                # sent once every image and video lane decodes: the text
+                # prefills then share unified windows with their decode
+                # tokens, and no mm prefill sends those windows to the
+                # split step
+                t1 = time.perf_counter()
+                while (not all(len(st) >= 2 for st in (*image_st, video_st))
+                       and time.perf_counter() - t1 < 120):
+                    await asyncio.sleep(0.005)
+                return await mm_chat(s, port, "llava-smoke", f"text-only request {i}: " + MM_TEXT,
+                                     MM_OSL, seed=None if i == 0 else 200, stamps=text_st[i])
+
+            async def clip():
+                t1 = time.perf_counter()
+                await mm_stream(handle.engine, video_prompt, MM_OSL, seed=7,
+                                extra={"video": video, "video_temporal_pool": pool},
+                                stamps=video_st)
+                return t1
+
+            t1 = time.perf_counter()
+            with mm_lane_windows(llm) as lanes:
+                starts = await asyncio.gather(*[image(i) for i in range(4)], clip(),
+                                              *[text(i) for i in range(2)])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts = read_counters()
+            out["traffic_s"] = time.perf_counter() - t1
+        await settled(llm)
+        stats = llm.stats()
+        out["image"] = ttft_itl_ms(list(zip(starts[:4], image_st)))
+        out["video"] = ttft_itl_ms([(starts[4], video_st)])
+        out["text"] = ttft_itl_ms(list(zip(starts[5:], text_st)))
+        out["counts"], out["mm_lane_windows"] = counts, lanes
+        mm_prefills = 5
+        replays = stats["prefill_graph_replays_total"] - stats0["prefill_graph_replays_total"]
+        out["prefill_graph_replays"] = replays
+        out["graphs_captured_in_traffic"] = {
+            k: stats[f"{k}_graphs_captured"] - stats0[f"{k}_graphs_captured"]
+            for k in ("unified", "decode", "prefill")}
+        out["unified_fallbacks"] = stats["unified_fallbacks"]
+        keys = sorted(k for k in llm._prefill._graphs if k[0] == "mm")
+        out["mm_keys"] = [list(k) for k in keys]
+        if device == "cuda":
+            if replays < mm_prefills:
+                raise AssertionError(f"{replays} prefill replays for {mm_prefills} mm prefills")
+            if any(counts[k] <= 0 for k in LLAMA_PATH) or counts["plain_calls"]:
+                raise AssertionError(f"rows 1-2 did not both run on the mm path: {counts}")
+            check_ragged_route(counts)
+            # the image and video lanes' own decode: row 2 in the decode
+            # graph, row 1 in the unified windows of the text prefills
+            if (lanes["decode"]["paged_attention.launches"] <= 0
+                    or lanes["unified"]["ragged_attention.launches"] <= 0):
+                raise AssertionError(f"the image lanes' decode did not launch rows 1-2: {lanes}")
+        # a repeated identical image: nothing cached, nothing published
+        events: list = []
+        llm._event_sink = events.append
+        cached0 = llm.stats()["prefix_cached_tokens_total"]
+        again = [await mm_stream(handle.engine, video_prompt[:8], 8,
+                                 extra={"image": images[0]}) for _ in range(2)]
+        await settled(llm)
+        llm._event_sink = None
+        stored = [e for e in events if e.kind == "stored"]
+        cached = llm.stats()["prefix_cached_tokens_total"] - cached0
+        if cached or stored or again[0] != again[1]:
+            raise AssertionError(f"repeated image: {cached} cached tokens, {len(stored)} "
+                                 f"stored events, streams equal {again[0] == again[1]}")
+        out["repeat_cached_tokens"], out["repeat_stored_events"] = cached, len(stored)
+        out["remote"] = await mm_remote_check(llm, encoder, address, ready, images)
+    finally:
+        await handle.shutdown()
+    if device == "cuda":
+        n_video = -(-frames_n // pool) * vcfg.num_patches
+        keys = {k: (n_video if k[1] >= n_video else vcfg.num_patches)
+                for k in map(tuple, out["mm_keys"])}
+        out["replay_vs_eager"] = checked = mm_replay_vs_eager(torch, llm, keys)
+        bad = [k for k, v in checked.items() if isinstance(v, dict) and not all(v.values())]
+        if bad:
+            raise AssertionError(f"mm prefill replay differs from eager: {bad}: {checked}")
+    del llm, handle
+    return out
+
+
+async def mm_gemma(torch, device: str, llava: dict, config: dict) -> dict:
+    """Gemma-3-4B text at 4 layers, one image request (the LLaVA vision
+    tower projected into its width) through ``gemma3_forward_prefill_embeds``
+    (plain attention, as the reference's: no kernel)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.examples.multimodal.pipeline import (
+        MultimodalEngine,
+        TorchVisionEncoder,
+    )
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.vision import VisionConfig
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    path = model_dir("gemma3-4b-mm-smoke", config)
+    llm = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), device=device,
+                             num_blocks=256, max_batch_size=4, max_model_len=1024, seed=0)
+    llm.start()
+    try:
+        vcfg = VisionConfig.from_hf_config(llava, llm_hidden_size=llm.config.model.hidden_size)
+        encoder = TorchVisionEncoder(vcfg, seed=0, device=llm.device)
+        image = np.random.default_rng(3).random((*MM_PHOTO, 3), np.float32)
+        zero_counters()
+        ids, lps = await mm_stream(MultimodalEngine(llm, encoder), list(range(3, 43)), 16,
+                                   extra={"image": image})
+        counts = read_counters()
+        stats = llm.stats()
+    finally:
+        llm.stop()
+    launched = {k: counts[k] for k in ATTENTION_COUNTERS}
+    if any(launched.values()) or counts["plain_calls"]:
+        raise AssertionError(f"an attention kernel ran for gemma3: {counts}")
+    if not all(math.isfinite(x) for x in lps):
+        raise AssertionError(f"gemma3 image request: logprobs {lps}")
+    if device == "cuda" and stats["prefill_graph_replays_total"] < 1:
+        raise AssertionError("gemma3's mm prefill did not replay its graph")
+    return {"tokens": len(ids), "prefill_graph_replays": stats["prefill_graph_replays_total"],
+            "launches": launched}
+
+
+async def mm_embeddings(torch, device: str, config: dict, max_len: int) -> dict:
+    """Part (b): ``TorchEmbeddingEngine`` at ``config``'s geometry (random
+    bf16 weights from seed 0), ``max_len`` padding, through ``/v1/embeddings``:
+    16 inputs across the four input shapes; graph replay bitwise the eager
+    trunk, every norm within 1e-3 of 1, the same text twice the same bits."""
+    import base64
+
+    import aiohttp
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.embedding import EmbeddingEngineConfig, TorchEmbeddingEngine
+    from dynamo_tpu_torch.llm.http import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.models.registry import get_family
+
+    cfg = get_family("llama").config_from_hf(config)
+    tok = HfTokenizer.from_model_dir(ROOT / "tests" / "data" / "tiny-chat-model")
+    t0 = time.perf_counter()
+    engine = TorchEmbeddingEngine(EmbeddingEngineConfig(model=cfg, max_length=max_len), tok,
+                                  device=device)
+    out: dict = {"init_s": time.perf_counter() - t0}
+    rng = random.Random(2)
+    ids = lambda n: [rng.randrange(3, cfg.vocab_size) for _ in range(n)]  # noqa: E731
+    text = "the quick brown fox jumps over the lazy dog. "
+    bodies = [{"input": text * 8},
+              {"input": [text * (i + 1) for i in range(5)]},
+              {"input": ids(max_len)},
+              {"input": [ids(n) for n in (1, 7, 64, 200, 333, 511, 512, 600, 48)],
+               "encoding_format": "base64"}]
+    manager = ModelManager()
+    manager.add_embedding_model("embed-smoke", engine)
+    service = HttpService(manager, host="127.0.0.1", port=0)
+    await service.start()
+    vectors = []
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            answers = []
+            for body in bodies + bodies[:1]:
+                async with s.post(f"http://127.0.0.1:{service.port}/v1/embeddings",
+                                  json={"model": "embed-smoke", **body}) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"/v1/embeddings answered {r.status}: "
+                                             f"{await r.text()}")
+                    answers.append(await r.json())
+    finally:
+        await service.stop()
+    for body, ans in zip(bodies, answers):
+        for d in ans["data"]:
+            e = d["embedding"]
+            vectors.append(np.frombuffer(base64.b64decode(e), np.float32)
+                           if isinstance(e, str) else np.asarray(e, np.float32))
+    out["inputs"] = len(vectors)
+    out["usage_tokens"] = sum(a["usage"]["total_tokens"] for a in answers[:4])
+    norms = [float(np.linalg.norm(v.astype(np.float64))) for v in vectors]
+    out["norm_max_dev"] = max(abs(n - 1.0) for n in norms)
+    if len(vectors) != 16 or out["norm_max_dev"] > 1e-3:
+        raise AssertionError(f"{len(vectors)} vectors, norms {norms}")
+    if answers[4]["data"][0]["embedding"] != answers[0]["data"][0]["embedding"]:
+        raise AssertionError("the same text twice gave other bits")
+    probe = ids(max_len)
+    for x in (probe, probe[:100], [5]):
+        if not np.array_equal(engine.embed_ids(x), engine.embed_ids(x, eager=True)):
+            raise AssertionError(f"graph replay differs from the eager trunk at {len(x)} tokens")
+    out["replay_bitwise_eager"] = True
+    out["graph"] = engine.stats()
+    if device == "cuda":
+        out["embed_wall_ms_512"] = time_ms(lambda: engine.embed_ids(probe), 5, warmup=1)
+        out["embed_replay_ms_512"] = time_ms(lambda: engine._graph._launch(None), 5, warmup=1)
+        if out["graph"]["embedding_graphs_captured"] != 1:
+            raise AssertionError(f"embedding graphs: {out['graph']}")
+    del engine
+    return out
+
+
+def gguf_layout(cfg, params: dict) -> dict:
+    """``params`` (the llama layout) under llama.cpp's tensor names, each
+    projection transposed to [out, in] as GGUF files store it (views, on
+    the params' device)."""
+    out = {"token_embd.weight": params["embed"], "output_norm.weight": params["final_norm"]}
+    for i in range(cfg.num_layers):
+        for ours, name in GGUF_NAMES.items():
+            t = params["layers"][ours][i]
+            out[f"blk.{i}.{name}"] = t.T if ours[0] == "w" else t
+    return out
+
+
+def export_gguf(path: Path, cfg, tensors: dict, kind: str) -> None:
+    """``tensors`` (``gguf_layout``) as a GGUF file of ``kind`` written by
+    the port's writer: norms in F32, every matrix in F16 (cast on the
+    device) or Q8_0 (``quantize_q8_0`` on the host, a tensor a thread); the
+    metadata ``config_from_gguf`` reads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.llm import gguf
+
+    def enc(t):
+        if t.ndim == 1:
+            return t.float().cpu().numpy()
+        if kind == "F16":
+            return t.half().contiguous().cpu().numpy()
+        t = t.float().contiguous().cpu().numpy()
+        return (gguf.GGML_Q8_0, t.shape, gguf.quantize_q8_0(t))
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        encoded = dict(zip(tensors, pool.map(enc, tensors.values())))
+    meta = {"general.architecture": "llama", "general.name": f"llama32-1b-{kind}",
+            "llama.embedding_length": cfg.hidden_size,
+            "llama.feed_forward_length": cfg.intermediate_size,
+            "llama.block_count": cfg.num_layers, "llama.attention.head_count": cfg.num_heads,
+            "llama.attention.head_count_kv": cfg.num_kv_heads,
+            "llama.attention.key_length": cfg.head_dim,
+            "llama.attention.layer_norm_rms_epsilon": cfg.rms_norm_eps,
+            "llama.context_length": 8192, "llama.rope.freq_base": cfg.rope_theta,
+            "llama.vocab_size": cfg.vocab_size}
+    gguf.write_gguf(path, meta, encoded)
+
+
+async def mm_gguf(torch, device: str, cfg) -> dict:
+    """Part (c): ``cfg``'s random weights (seed 0) written as F16 and Q8_0
+    GGUF files by the port's writer; ``load_gguf_weights`` puts each on the
+    device, each leaf bitwise the host's dequant cast to the model dtype on
+    the CPU; an engine on each serves four greedy requests."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
+    from dynamo_tpu_torch.llm import gguf
+    from dynamo_tpu_torch.models.llama import init_params
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    source = gguf_layout(cfg, init_params(cfg, gen, device))
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "dynamo_tpu_torch" / "_build") as tmp:
+        for kind in GGUF_KINDS:
+            path = Path(tmp) / f"llama32-1b-{kind}.gguf"
+            t0 = time.perf_counter()
+            export_gguf(path, cfg, source, kind)
+            write_s = time.perf_counter() - t0
+            g = gguf.GGUFFile(path)
+            lcfg = dataclasses.replace(gguf.config_from_gguf(g), dtype=cfg.dtype)
+            t0 = time.perf_counter()
+            params = gguf.load_gguf_weights(lcfg, g, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            # every leaf, in the file's layout, against the host's own
+            # dequant cast on the CPU (a tensor a thread)
+            t0 = time.perf_counter()
+            loaded = gguf_layout(lcfg, params)
+
+            def same(item) -> bool:
+                name, got = item
+                want = torch.from_numpy(g.tensor_data(name)).to(lcfg.dtype)
+                return torch.equal(_bits(torch, got.contiguous().cpu()), _bits(torch, want))
+
+            with ThreadPoolExecutor(os.cpu_count()) as pool:
+                bad = [n for n, ok in zip(loaded, pool.map(same, loaded.items())) if not ok]
+            if bad:
+                raise AssertionError(f"{kind}: {bad[:4]} on the device differ from the host")
+            check_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine = TorchLlmEngine(EngineConfig(model=lcfg, num_blocks=256, max_batch_size=4,
+                                                 max_model_len=512, seed=0),
+                                    params=params, device=device)
+            engine.start()
+            try:
+                streams = await asyncio.gather(*[
+                    mm_stream(engine, list(range(10 + i, 60 + 3 * i)), 16) for i in range(4)])
+            finally:
+                engine.stop()
+            out[kind] = {"file_gb": path.stat().st_size / 1e9, "write_s": write_s,
+                         "load_s": load_s, "check_s": check_s,
+                         "serve_s": time.perf_counter() - t0, "leaves_bitwise": len(loaded),
+                         "tied": lcfg.tie_word_embeddings,
+                         "greedy": [ids[:4] for ids, _ in streams]}
+            del engine, params, loaded
+    return out
+
+
+def _bits(torch, t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def phase_mm(torch, card: str, device: str = "cuda", llava: dict = LLAVA_1_5_7B,
+             engine_kw: dict = MM_ENGINE, gemma: dict = MM_GEMMA,
+             embed_config: dict = LLAMA3_8B, embed_len: int = EMBED_LEN,
+             gguf_cfg=None) -> dict:
+    """Multimodal serving, the embedding engine and GGUF weights on the card:
+    (a) LLaVA-1.5-7B (the published config: ViT-L/14-336 and the Vicuna-7B
+    text geometry, random bf16 weights from seed 0, 1024 blocks of 16, 8
+    lanes, max length 4096) through the multimodal frontend: four image
+    chats (data: PNG URLs of 480x640 photos, about 40 text tokens and 64
+    out, two greedy, two seeded), a video of 8 frames at temporal pool 2
+    (2304 patch positions) and two text-only chats beside them; every mm
+    prefill a graph replay, rows 1-2 launched (the image lanes' decode in
+    the decode graph and in unified windows beside the text prefills); each
+    mm prefill key by replay bitwise its eager step, greedy and seeded; a
+    repeated image caches and publishes nothing; the same four images
+    through ``RemoteEncoder`` in a second process bitwise the in-process
+    embeddings and streams; Gemma-3-4B text at 4 layers takes an image
+    through its embeddings prefill.  (b) the embedding engine at the
+    Llama-3-8B geometry through ``/v1/embeddings``.  (c) GGUF F16 and Q8_0
+    files of the Llama-3.2-1B geometry loaded onto the card and served.
+    One ``smoke_mm`` line."""
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    gguf_cfg = gguf_cfg or LlamaConfig.llama32_1b()
+    out: dict = {"card": card}
+    t0 = time.perf_counter()
+    out["llava"] = asyncio.run(mm_serving(torch, device, llava, engine_kw))
+    out["llava_s"] = time.perf_counter() - t0
+    for part, fn, args in (("gemma3", mm_gemma, (torch, device, llava, gemma)),
+                           ("embeddings", mm_embeddings, (torch, device, embed_config,
+                                                          embed_len)),
+                           ("gguf", mm_gguf, (torch, device, gguf_cfg))):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[part] = asyncio.run(fn(*args))
+        out[f"{part}_s"] = time.perf_counter() - t0
+    a = out["llava"]
+    log(f"[mm] {card}: ViT encode {a['vit_encode_wall_ms']:.1f} ms wall, "
+        f"{a.get('vit_encode_device_ms')} ms device; image TTFT p50 {a['image']['ttft_ms_p50']} "
+        f"ms, ITL p50 {a['image']['itl_ms_p50']} ms; text TTFT p50 {a['text']['ttft_ms_p50']} "
+        f"ms; gguf load s {[(k, v['load_s']) for k, v in out['gguf'].items()]}")
+    print("smoke_mm " + json.dumps(out, default=str), flush=True)
+    return {"counts": a["counts"], "line": out}
 
 
 def main() -> int:
@@ -5814,6 +6598,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
+    mm = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -5874,6 +6659,8 @@ def main() -> int:
             quant = run("quant", phase_quant, torch, card)
         if "bench" in phases:
             run("bench", phase_bench, torch)
+        if "mm" in phases:
+            mm = run("mm", phase_mm, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -5885,7 +6672,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg):
+    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -5942,6 +6729,16 @@ def main() -> int:
             ("scatter_blocks (disagg inject)", "dynamo_tpu_torch/csrc/block_copy.cu",
              "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_llama_leaf", "scatter",
              disagg["launches"]["scatter_blocks"]),
+            # rows 1-2 on the multimodal path: the image and video lanes'
+            # decode tokens in unified windows and decode graphs (LLaVA-7B)
+            ("ragged_paged_attention (image lanes, MHA)",
+             "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix_mha", "ragged_mha",
+             mm["counts"]["ragged_attention.launches"]),
+            ("paged_window_attention_decode (image lanes, MHA)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_mha_b32", "paged_mha",
+             mm["counts"]["paged_attention.launches"]),
         ):
             c = cases[case]
             entries.append({

@@ -75,8 +75,13 @@ synchronous decode window, as the reference's do.  The disaggregation API
 ``inject_blocks``, ``generate_prefilled`` on a decode engine) moves a
 prompt's KV blocks between engines: extraction gathers with the
 block-gather kernel, injection scatters with the block-scatter kernel, both
-queued on the stream behind the window in flight.  Multimodal prompts and
-multi-device meshes are later slices; the engine refuses them.
+queued on the stream behind the window in flight.  ``generate_multimodal``
+takes a prompt's vision patch embeddings: its prefill runs whole on the
+split step (``PrefillGraph`` key ``("mm", bucket)``: the embeddings spliced
+before the text's token embeddings, the family's
+``forward_prefill_embeds``), its blocks never publish, and its decode
+tokens ride the decode and unified windows as any lane's.  Multi-device
+meshes are a later slice; the engine refuses them.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -820,6 +825,37 @@ class TorchLlmEngine:
             seq.guided = self._make_guided_cursor(pre.output_format)
         return self._start_sequence(seq, ctx)
 
+    async def generate_multimodal(self, request: Context[dict], embeds) -> ResponseStream[dict]:
+        """Generate with vision patch embeddings spliced before the text
+        prompt (LLaVA-style).  ``embeds``: [n_patches, hidden] float array
+        from the vision encoder's projector.  The prefill runs whole on the
+        split step (``PrefillGraph`` key ``("mm", bucket)``); its blocks never
+        publish (text-token hashes cannot describe patch content)."""
+        if self.family.forward_prefill_embeds is None:
+            raise ValueError(
+                f"model family {self.config.model_family!r} has no multimodal prefill"
+            )
+        pre = PreprocessedRequest.from_wire(request.data)
+        ctx = request.ctx
+        embeds = np.asarray(embeds, np.float32)
+        if embeds.ndim != 2 or embeds.shape[1] != self.config.model.hidden_size:
+            raise ValueError(
+                f"embeds shape {embeds.shape} != [n, {self.config.model.hidden_size}]"
+            )
+        if len(pre.token_ids) + len(embeds) >= self.max_len:
+            raise ValueError(
+                f"prompt ({len(pre.token_ids)} text + {len(embeds)} patches) "
+                f"exceeds engine max length {self.max_len}"
+            )
+        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre, mm_embeds=embeds)
+        seq.trace = getattr(ctx, "trace", None)
+        if pre.output_format is not None:
+            # a guided multimodal request on a deployment that cannot
+            # constrain it fails as generate()'s does (the mm step applies
+            # the mask row)
+            seq.guided = self._make_guided_cursor(pre.output_format)
+        return self._start_sequence(seq, ctx)
+
     @staticmethod
     def _resolver(fut: asyncio.Future):
         """A callback the device thread calls with a result or an exception
@@ -1287,8 +1323,9 @@ class TorchLlmEngine:
             if s.status == SeqStatus.RUNNING and s not in prefills
         ]
         for seq in prefills:
-            if seq.prefill_only:
-                # a disaggregated extract keeps its split route
+            if seq.prefill_only or seq.mm_embeds is not None:
+                # a disaggregated extract and a multimodal prefill keep
+                # their split routes
                 self._unified_skip("disagg_or_mm")
                 return False
             if seq.guided is not None:
@@ -1697,7 +1734,7 @@ class TorchLlmEngine:
                 # the scheduler busy
                 backlog = self.scheduler.has_work()
                 self.scheduler.add(seq)
-                if self.prefetch_pager is not None and (
+                if self.prefetch_pager is not None and seq.mm_embeds is None and (
                     backlog or not self.allocator.can_allocate(len(seq.request.token_ids))
                 ):
                     # queue-hint: while this sequence waits for admission its
@@ -2100,12 +2137,8 @@ class TorchLlmEngine:
         """One prefill forward for ``seq``: the whole prompt, or the window
         the scheduler planned over the already-written prefix (cached blocks
         and/or completed chunks), then the first token's sample when the
-        window reaches the prompt's end."""
-        if seq.mm_embeds is not None:
-            raise NotImplementedError(
-                "multimodal prefill comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 7)"
-            )
+        window reaches the prompt's end.  A multimodal prompt prefills whole:
+        its patch embeddings fill positions [0, mm_len), its text follows."""
         restore = self.allocator.take_restore_plan(seq.seq_id)
         if restore:
             try:
@@ -2130,7 +2163,24 @@ class TorchLlmEngine:
             self.chunk_tokens is not None and seq.chunk_target
         ) else n
         final = end >= n
-        if start > 0 or not final:
+        if seq.mm_embeds is not None:
+            # the text at [mm_len, total), the patch embeddings below it,
+            # spliced in the step; the penalty rows count the text only
+            start, end, final = 0, seq.context_len, True
+            padded = np.zeros((self._bucket_len(end),), np.int32)
+            padded[seq.mm_len: end] = tokens
+            embeds = np.zeros((len(padded), cfg.hidden_size), np.float32)
+            embeds[: seq.mm_len] = seq.mm_embeds
+            block_ids = np.zeros((self.max_blocks_per_seq,), np.int32)
+            block_ids[: len(blocks)] = blocks
+            ids = np.asarray(tokens, np.int64)
+            ids = ids[(ids >= 0) & (ids < cfg.vocab_size)]
+            key = ("mm", len(padded))
+            arrays = {"block_ids": block_ids, "embeds": embeds, "n_patch": seq.mm_len,
+                      "seq_len": end, "start_pos": 0, "fold": end,
+                      "prompt": np.bincount(ids, minlength=cfg.vocab_size).astype(np.int32)
+                      - gen_row}
+        elif start > 0 or not final:
             # continued prefill over the resident prefix (none at start 0:
             # an intermediate first chunk still needs its sample gate)
             tail = tokens[start:end]
@@ -2179,7 +2229,8 @@ class TorchLlmEngine:
         self._step_weight_streams += 1
         if not final:
             # an intermediate chunk: K/V written, its sample discarded
-            self.allocator.publish_stored(seq.seq_id, tokens[:end])
+            if seq.mm_embeds is None:
+                self.allocator.publish_stored(seq.seq_id, tokens[:end])
             if seq.prefill_only and seq.on_chunk_done is not None:
                 self._stream_prefill_chunk(seq, blocks, end)
             return
@@ -2204,7 +2255,10 @@ class TorchLlmEngine:
             if seq.on_prefill_done:
                 seq.on_prefill_done((token, lp, top_rows, blocks_out, n_used))
             return
-        self.allocator.publish_stored(seq.seq_id, tokens)
+        if seq.mm_embeds is None:
+            # multimodal blocks never publish: text-token hashes cannot
+            # describe patch-embedding content
+            self.allocator.publish_stored(seq.seq_id, tokens)
         self._process_token(seq, token, lp, top=top)
 
     # -- disaggregation: extract and inject ----------------------------------
@@ -2732,7 +2786,7 @@ class TorchLlmEngine:
         if finish is not None:
             self._record_decode_span(seq)
             self._finish_decoded(seq)
-        elif seq.context_len % self.config.block_size == 0:
+        elif seq.context_len % self.config.block_size == 0 and seq.mm_embeds is None:
             self.allocator.publish_stored(seq.seq_id, seq.all_token_ids)
 
 

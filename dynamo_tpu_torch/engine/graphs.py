@@ -644,9 +644,16 @@ class PrefillGraph(StepGraphs):
     compiles one program per key (dynamo_tpu/engine/engine.py
     ``_build_prefill``, ``_build_prefill_prefix``, warmed by
     ``aot_precompile``): ``("prefill", b)``, a whole prompt padded to the
-    bucket ``b`` over a block table ``max_blocks_per_seq`` wide, and
+    bucket ``b`` over a block table ``max_blocks_per_seq`` wide,
     ``("prefix", b, table_len)``, a window of ``b`` tokens over a resident
-    prefix, its full and tail block tables ``table_len`` wide.
+    prefix, its full and tail block tables ``table_len`` wide, and
+    ``("mm", b)``, a multimodal prompt as ``("prefill", b)`` with its patch
+    embeddings (``_build_prefill_mm``): the ``embeds [b, hidden]`` float32
+    rows and their count ``n_patch``, spliced before the text's token
+    embeddings (``torch.where(pos < n_patch, embeds, embed(tokens))``) and
+    run through the family's ``forward_prefill_embeds``.  The multimodal
+    keys' inputs sit in a buffer of their own, made at the first multimodal
+    prompt (a text-only engine holds none), and are captured at first use.
 
     A key's inputs sit in one ``Staged`` buffer laid out per key: the
     window's token ids, its block ids, the valid length, the prefix length,
@@ -674,25 +681,8 @@ class PrefillGraph(StepGraphs):
         dev = self.device
         self.lanes = cfg.max_batch_size
         self.keys = list(keys)
-        vocab, kb = cfg.model.vocab_size, cfg.logit_bias_k
-
-        def fields(key: tuple) -> dict:
-            out = {"token_ids": ((key[1],), np.int32)}
-            if key[0] == "prefill":
-                out["block_ids"] = ((engine.max_blocks_per_seq,), np.int32)
-            else:
-                out["full_ids"] = out["tail_ids"] = ((key[2],), np.int32)
-            return {**out, "seq_len": ((), np.int32), "start_pos": ((), np.int32),
-                    "fold": ((), np.int32), "lane": ((), np.int32), "gate": ((), np.int32),
-                    "prompt": ((vocab,), np.int32), "gen": ((vocab,), np.int32),
-                    "key": ((1, 2), np.int64), "temp": ((1,), np.float32),
-                    "top_k": ((1,), np.int32), "top_p": ((1,), np.float32),
-                    "greedy": ((1,), np.bool_), "pres": ((1,), np.float32),
-                    "freq": ((1,), np.float32), "rep": ((1,), np.float32),
-                    "bias_ids": ((1, kb), np.int32), "bias_vals": ((1, kb), np.float32),
-                    "gmode": ((1,), np.int32)}
-
-        self.inputs = Staged(dev, variants={key: fields(key) for key in self.keys})
+        self.inputs = Staged(dev, variants={key: self._fields(key) for key in self.keys})
+        self._mm_inputs: Staged | None = None  # the ("mm", b) keys', made at first use
         # the sampled token and its logprob's bits: one readback
         self.out = torch.zeros((2,), dtype=torch.int32, device=dev)
         self.deferred: set[tuple] = set()  # keys warm() left to their first use
@@ -700,8 +690,38 @@ class PrefillGraph(StepGraphs):
         self._idle_len = torch.zeros((), dtype=torch.int32, device=dev)
         self._idle_lane = torch.full((), self.lanes, dtype=torch.int32, device=dev)
 
+    def _fields(self, key: tuple) -> dict:
+        e = self.engine
+        cfg = e.config
+        vocab, kb = cfg.model.vocab_size, cfg.logit_bias_k
+        out = {"token_ids": ((key[1],), np.int32)}
+        if key[0] == "prefix":
+            out["full_ids"] = out["tail_ids"] = ((key[2],), np.int32)
+        else:
+            out["block_ids"] = ((e.max_blocks_per_seq,), np.int32)
+        if key[0] == "mm":
+            out["embeds"] = ((key[1], cfg.model.hidden_size), np.float32)
+            out["n_patch"] = ((), np.int32)
+        return {**out, "seq_len": ((), np.int32), "start_pos": ((), np.int32),
+                "fold": ((), np.int32), "lane": ((), np.int32), "gate": ((), np.int32),
+                "prompt": ((vocab,), np.int32), "gen": ((vocab,), np.int32),
+                "key": ((1, 2), np.int64), "temp": ((1,), np.float32),
+                "top_k": ((1,), np.int32), "top_p": ((1,), np.float32),
+                "greedy": ((1,), np.bool_), "pres": ((1,), np.float32),
+                "freq": ((1,), np.float32), "rep": ((1,), np.float32),
+                "bias_ids": ((1, kb), np.int32), "bias_vals": ((1, kb), np.float32),
+                "gmode": ((1,), np.int32)}
+
+    def _staged(self, key: tuple) -> Staged:
+        if key[0] != "mm":
+            return self.inputs
+        if self._mm_inputs is None:
+            self._mm_inputs = Staged(self.device, variants={
+                ("mm", b): self._fields(("mm", b)) for b in self.engine.buckets})
+        return self._mm_inputs
+
     def upload(self, key: tuple, arrays: dict[str, np.ndarray]) -> None:
-        self.inputs.upload(arrays, key)
+        self._staged(key).upload(arrays, key)
 
     def step(self, key: tuple, top: int = 0, idle: bool = False):
         """One split prefill of ``key``, eagerly, from the buffers; ``idle``:
@@ -709,7 +729,7 @@ class PrefillGraph(StepGraphs):
         cache slot or count).  Returns the ``top`` best logprobs ([1, k]
         values and ids) or None."""
         e = self.engine
-        v = self.inputs.view(key)
+        v = self._staged(key).view(key)
         seq_len, lane, gate = v["seq_len"], v["lane"], v["gate"]
         if idle:
             seq_len, lane, gate = self._idle_len, self._idle_lane, self._idle_len
@@ -717,6 +737,13 @@ class PrefillGraph(StepGraphs):
             logits, _ = e.family.forward_prefill(
                 e.params, e.config.model, v["token_ids"], e.cache, v["block_ids"], seq_len, 0,
                 e.cos, e.sin)
+        elif key[0] == "mm":
+            cfg = e.config.model
+            pos = torch.arange(key[1], device=self.device)
+            x = torch.where((pos < v["n_patch"])[:, None], v["embeds"].to(cfg.dtype),
+                            e.family.embed(e.params, cfg, v["token_ids"]))
+            logits, _ = e.family.forward_prefill_embeds(
+                e.params, cfg, x, e.cache, v["block_ids"], seq_len, 0, e.cos, e.sin)
         else:
             logits, _ = e.family.forward_prefill_with_prefix(
                 e.params, e.config.model, v["token_ids"], e.cache, v["full_ids"],
@@ -795,7 +822,7 @@ class PrefillGraph(StepGraphs):
     def _idle_arrays(self, key: tuple) -> dict[str, np.ndarray]:
         """Every input of ``key`` zero, but the lane out of range."""
         arrays = {name: np.zeros(t.shape, np.dtype(_NUMPY_DTYPES[t.dtype]))
-                  for name, t in self.inputs.view(key).items()}
+                  for name, t in self._staged(key).view(key).items()}
         arrays["lane"] = np.asarray(self.lanes, np.int32)
         arrays["gmode"] = np.full((1,), -1, np.int32)
         return arrays

@@ -112,13 +112,6 @@ def _raise_exception(message: str):
     raise ValueError(message)
 
 
-def _has_image(request) -> bool:
-    return any(
-        isinstance(m.content, list) and any(p.type == "image_url" for p in m.content)
-        for m in request.messages
-    )
-
-
 class _PreprocessorCore:
     def __init__(self, mdc: ModelDeploymentCard, tokenizer: HfTokenizer):
         self.mdc = mdc
@@ -157,16 +150,27 @@ class ChatPreprocessor(Operator):
         self.core = _PreprocessorCore(mdc, tokenizer)
 
     async def preprocess(self, request: Context[ChatCompletionRequest]) -> Context[dict]:
+        from dynamo_tpu_torch.llm.multimodal import (
+            encode_image_wire,
+            extract_image_url,
+            resolve_image,
+        )
+
         req = request.data
         prompt = self.core.formatter.render(req)
         token_ids = self.core.tokenizer.encode(prompt)
         annotations = list(req.ext.annotations) if req.ext else []
         pre = self.core.build_preprocessed(token_ids, req, annotations)
         ctx_data = pre.to_wire()
-        # multimodal input is a later slice of the port: refuse an image
-        # rather than answer from the text alone
-        if _has_image(req):
-            raise ValueError("this model deployment does not accept image input")
+        # image_url content parts: fetch/decode here (host I/O belongs at
+        # the frontend), ship the normalized array to the engine, which
+        # encodes + splices patch embeddings (dynamo_tpu_torch/examples/
+        # multimodal/pipeline.py MultimodalEngine; reference
+        # processor.py:107-217)
+        image_url = extract_image_url(req)
+        if image_url is not None:
+            image = await resolve_image(image_url)
+            ctx_data["image"] = encode_image_wire(image)
         # guided decoding: json_object constrains sampling to valid-JSON
         # prefixes; the engine rejects when its mask table is not enabled
         # (llm/guided.py; engine/engine.py enable_guided_json)

@@ -218,8 +218,17 @@ def prefill(params, cfg, qkv, token_ids, kv_cache, block_ids, seq_len, start_pos
     (``llama_forward_prefill``), each layer masked by its own window.
     ``qkv(x, w, i, positions)`` gives layer i's roped q, k and v; ``cos``,
     the rope table, bounds the positions."""
-    s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    return prefill_embeds(params, cfg, qkv, _embed(params, cfg, token_ids), kv_cache,
+                          block_ids, seq_len, start_pos, cos)
+
+
+def prefill_embeds(params, cfg, qkv, input_embeds, kv_cache, block_ids, seq_len, start_pos,
+                   cos):
+    """``prefill`` from precomputed input embeddings [seq_pad, hidden] (a
+    multimodal prompt: the family's ``embed`` hook applies the sqrt(hidden)
+    scale to the text rows before the splice)."""
+    s = input_embeds.shape[0]
+    x = input_embeds.to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     lens = torch.as_tensor(seq_len, device=x.device).reshape(1)

@@ -16,8 +16,9 @@ Gemma-3's changes:
   attention or final capping).
 
 A multimodal Gemma-3 config (``model_type: gemma3`` with a ``text_config``)
-parses its text config; image input is not served (no embeddings
-prefill).
+parses its text config; image input goes through the embeddings prefill
+(``gemma3_forward_prefill_embeds``), the vision encoder's patch
+embeddings spliced before the text's.
 """
 
 from __future__ import annotations
@@ -168,6 +169,15 @@ def gemma3_forward_prefill(params, cfg: Gemma3Config, token_ids, kv_cache, block
     token's logits [vocab] f32, cache), the cache written in place."""
     return gemma2.prefill(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache,
                           block_ids, seq_len, start_pos, cos)
+
+
+def gemma3_forward_prefill_embeds(params, cfg: Gemma3Config, input_embeds, kv_cache,
+                                  block_ids, seq_len, start_pos, cos, sin):
+    """Prefill from precomputed input embeddings [seq_pad, hidden] (the
+    contract of ``llama_forward_prefill_embeds``; the text rows come through
+    the family's ``embed`` hook, which applies the sqrt(hidden) scale)."""
+    return gemma2.prefill_embeds(params, cfg, _roped(cfg, cos, sin), input_embeds, kv_cache,
+                                 block_ids, seq_len, start_pos, cos)
 
 
 def gemma3_forward_prefill_with_prefix(params, cfg: Gemma3Config, token_ids, kv_cache,

@@ -322,6 +322,27 @@ def _layers(params):
         yield i, {name: leaf[i] for name, leaf in layers.items()}
 
 
+def llama_forward_trunk(params: dict, cfg: LlamaConfig, token_ids: torch.Tensor, seq_len,
+                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The trunk alone (no KV cache, no LM head): the final hidden states
+    [seq_pad, hidden] of ``token_ids``, keys past ``seq_len`` (a 0-d int
+    tensor or an int) masked.  The embedding engine's forward; attention is
+    the plain dense causal form, as the reference's."""
+    s = token_ids.shape[0]
+    x = _embed(params, cfg, token_ids)
+    positions = table_positions(torch.arange(s, device=x.device), cos)
+    lens = torch.as_tensor(seq_len, device=x.device).reshape(1)
+    for _, w in _layers(params):
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        attn = dense_causal_attention(q[None], k[None], v[None], lens,
+                                      sliding_window=cfg.sliding_window)[0]
+        x = _residual_block(x, attn.reshape(s, -1), w, cfg)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
 def _logits(params, cfg, x):
     if cfg.tie_word_embeddings:
         return x @ params["embed"].to(x.dtype).T
@@ -352,8 +373,28 @@ def llama_forward_prefill(
     ``start_pos`` are 0-d int tensors on the device (or ints): no length is
     read on the host (a captured step), and the pad rows write the dump row
     past the cache leaf."""
-    s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    return llama_forward_prefill_embeds(
+        params, cfg, _embed(params, cfg, token_ids), kv_cache, block_ids, seq_len,
+        start_pos, cos, sin,
+    )
+
+
+def llama_forward_prefill_embeds(
+    params: dict,
+    cfg: LlamaConfig,
+    input_embeds: torch.Tensor,  # [seq_pad, hidden] — e.g. image patches + text
+    kv_cache: dict,
+    block_ids: torch.Tensor,
+    seq_len,
+    start_pos,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill from precomputed input embeddings (a multimodal prompt:
+    vision patch embeddings spliced before the text's token embeddings,
+    LLaVA-style); the contract of ``llama_forward_prefill``."""
+    s = input_embeds.shape[0]
+    x = input_embeds.to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     lens = torch.as_tensor(seq_len, device=x.device).reshape(1)

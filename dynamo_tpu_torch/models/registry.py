@@ -60,6 +60,15 @@ class ModelFamily:
     # parameter names (dict keys anywhere in the tree) that the engine's
     # quantize="int8" stores as int8 QuantizedMatrix weights
     quant_leaves: tuple[str, ...] = ()
+    # prefill from precomputed input embeddings (multimodal: vision patches
+    # spliced before the text): forward_prefill's contract with
+    # ``input_embeds [seq_pad, hidden]`` for the tokens; None = the family
+    # serves no multimodal request
+    forward_prefill_embeds: Callable | None = None
+    # the token-embedding lookup, (params, cfg, token_ids) -> [n, hidden],
+    # input-embedding quirks (gemma's sqrt(hidden) scale) included, so the
+    # engine's multimodal splice stays family-agnostic
+    embed: Callable | None = None
 
 
 def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
@@ -93,6 +102,8 @@ def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
         quant_leaves=llama.QUANT_LEAVES,
+        forward_prefill_embeds=llama.llama_forward_prefill_embeds,
+        embed=llama._embed,
     )
 
 
@@ -163,7 +174,7 @@ def _gemma3_family() -> ModelFamily:
     # Gemma-3 text = the Gemma-2 machinery + a 5:1 local/global pattern,
     # dual rope bases packed on the feature axis and per-head (1 + w) q/k
     # norms, no soft-capping; a multimodal config parses its text_config
-    # (image input is refused: no embeds prefill)
+    # and image input takes the embeds prefill
     from dynamo_tpu_torch.models import gemma3, llama
 
     return ModelFamily(
@@ -178,6 +189,8 @@ def _gemma3_family() -> ModelFamily:
         forward_prefill_with_prefix=gemma3.gemma3_forward_prefill_with_prefix,
         forward_verify=gemma3.gemma3_forward_verify,
         quant_leaves=llama.QUANT_LEAVES,
+        forward_prefill_embeds=gemma3.gemma3_forward_prefill_embeds,
+        embed=llama._embed,
     )
 
 

@@ -231,6 +231,9 @@ K_CACHE_DIR = register(
 K_DISABLE_NATIVE = register(
     "DYN_DISABLE_NATIVE", type="bool", default=False,
     doc="skip the native (C++) data-plane codec and use pure Python")
+K_ALLOW_PRIVATE_IMAGE_URLS = register(
+    "DYN_ALLOW_PRIVATE_IMAGE_URLS", type="bool", default=False,
+    doc="allow multimodal image fetches from private/internal addresses")
 
 # -- disaggregated prefill/decode (llm/disagg.py, parallel/kv_transfer.py) ----
 K_KV_STREAM = register(

@@ -108,7 +108,13 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.parallel.kv_transfer", "dynamo_tpu_torch.llm.disagg",
             "dynamo_tpu_torch.bench.disagg_bench", "dynamo_tpu_torch.topology",
             "dynamo_tpu_torch.topology.card", "dynamo_tpu_torch.topology.map",
-            "dynamo_tpu_torch.topology.prober"} <= names
+            "dynamo_tpu_torch.topology.prober",
+            # multimodal serving, the embedding engine and GGUF weights
+            "dynamo_tpu_torch.llm.multimodal", "dynamo_tpu_torch.models.vision",
+            "dynamo_tpu_torch.engine.embedding", "dynamo_tpu_torch.llm.gguf",
+            "dynamo_tpu_torch.examples.multimodal.pipeline",
+            "dynamo_tpu_torch.examples.multimodal.components",
+            "dynamo_tpu_torch.examples.embeddings.serve_embeddings"} <= names
     assert bad == "[]"
 
 

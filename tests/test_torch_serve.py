@@ -94,7 +94,7 @@ async def test_port_http_content_equals_jax_worker():
     assert ours[0][0].startswith('!"#$%&')  # the token-counter continuation
     assert health["models"] == ["tiny"]
     assert missing.status_code == 404
-    assert image.status_code == 400  # multimodal input is a later slice
+    assert image.status_code == 400  # the image bytes do not decode
     assert stats["decode_windows_unified_total"] > 0
 
 
