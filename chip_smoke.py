@@ -237,7 +237,7 @@ Phases (any failure exits non-zero, before the result line):
                geometry, all 32 layers): configuration A (int8 weights, fp8
                cache, decode_steps 8, 512-token chunks on the split prefill
                graphs, warmed at the ISL's keys; 8 requests) and C (bf16,
-               decode_steps 1, every chunk in a unified graph; the full 32
+               decode_steps 1, every chunk in a unified graph; 16
                requests); each split prefill call's wall ms; each rung
                must stream requests x OSL tokens and the cache hold no NaN,
                no graph may be captured after warmup, MFU must lie in (0, 1], the prefix cache must
@@ -268,6 +268,20 @@ Phases (any failure exits non-zero, before the result line):
                ``smoke_mm`` line: ViT encode ms, TTFT and ITL of image,
                video and text lanes, mm prefill replay ms, embedding ms at
                512 tokens, GGUF load s a file.
+ 20. tp      — tensor and expert parallelism: the Llama-3-8B geometry (all
+               32 layers) at tp = 2 and the published DeepSeek-V2-Lite
+               config at tp = 2 x ep = 2, each a mesh engine (rank 0 in this
+               process, its shard workers child processes) whose ranks share
+               the one card over gloo, named (NCCL refuses two ranks on one
+               GPU; the collectives stage through host memory, so no time
+               here is NVLink's), against a tp = 1 engine on the same
+               seed's weights on the same card: the first step's bf16
+               logits within TP_LOGITS_ATOL, four greedy streams of 16
+               tokens that may part only where tp = 1's top-2 margin is
+               within that bound, rows 2 and 4 launched on every rank at
+               the head shard (no plain call), TTFT and ITL of both.  One
+               ``smoke_tp`` line.  Phase kernels holds rows 2 and 4 at the
+               shard shapes (16 heads over 4 kv heads; 8 MLA heads).
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -306,7 +320,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm")
+          "mm", "tp")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -1268,6 +1282,10 @@ def phase_kernels(torch) -> dict:
     check_case("decode_b32 MHA h 32 kvh 32 d 128", cases["decode_mha_b32"], BF16_ATOL)
     cases["ragged_mix_mha"] = ragged_case(torch, spans=mix, t_pad=352, seed=34, **MHA_128)
     check_ragged("ragged mix MHA h 32 kvh 32 d 128", cases["ragged_mix_mha"])
+    # a tp = 2 rank's head shard of Llama-3-8B (phase tp): 16 of its 32
+    # query heads over 4 of its 8 kv heads, at decode_b32's contexts
+    cases["decode_tp2_b32"] = decode_case(torch, lens=lens, seed=35, h=16, kvh=4)
+    check_case("decode_b32 tp=2 shard h 16 kvh 4 d 128", cases["decode_tp2_b32"], BF16_ATOL)
     # the engine's heavy first token block: eight decode lanes at contexts up
     # to 4096 in one block (one worklist of up to 2048 entries); and the
     # serve phase's long prompt as one 1504-token span (188 blocks)
@@ -1368,6 +1386,10 @@ def phase_kernels(torch) -> dict:
         cases[f"mla_decode_b{b}"] = mla_decode_case(torch, lens=lens, seed=10 + b)
         check_case(f"mla_decode_b{b} lens<=2048 (one idle lane)", cases[f"mla_decode_b{b}"],
                    MLA_ATOL)
+    # a tp = 2 rank's 8 of DeepSeek-V2-Lite's 16 heads (phase tp): 8 query
+    # rows a lane, half a 16-row tile, so the decode takes the CUDA-core loop
+    cases["mla_decode_tp2_b32"] = mla_decode_case(torch, lens=lens, seed=45, h=8)
+    check_case("mla_decode_b32 tp=2 shard 8 heads", cases["mla_decode_tp2_b32"], MLA_ATOL)
     cases["mla_ragged_mix"] = mla_ragged_case(torch, spans=mix, t_pad=352)
     check_case("mla ragged 300+37 span tokens + 6 decode lanes, pad rows, tb=8",
                cases["mla_ragged_mix"], MLA_ATOL)
@@ -1474,6 +1496,8 @@ def phase_kernels(torch) -> dict:
            for row in ("gather", "scatter")},
         "paged_mha": cases["decode_mha_b32"]["max_abs_err"],
         "ragged_mha": cases["ragged_mix_mha"]["max_abs_err"],
+        "paged_tp2": cases["decode_tp2_b32"]["max_abs_err"],
+        "mla_decode_tp2": cases["mla_decode_tp2_b32"]["max_abs_err"],
     }
     return {"cases": cases, "errs": errs}
 
@@ -5738,11 +5762,11 @@ def phase_families(torch, card: str) -> dict:
 # decode_steps 8: every prompt on the eager split step, the decode windows
 # graphed) cut to the bench's least, 8 requests (its 32 take ~170 s of the
 # smoke's limit on a slow host); C bf16 at decode_steps 1 (every chunk in a
-# unified graph, rows 1-2) at the full 32
+# unified graph, rows 1-2) cut to 16 requests (room for phase tp)
 BENCH_CONFIGS = (
     ("A", {"DYN_BENCH_REQUESTS": "8"}, ("paged_attention.launches",)),
-    ("C", {"DYN_BENCH_QUANT": "none", "DYN_BENCH_KV_DTYPE": "model",
-           "DYN_BENCH_DECODE_STEPS": "1"}, LLAMA_PATH),
+    ("C", {"DYN_BENCH_REQUESTS": "16", "DYN_BENCH_QUANT": "none",
+           "DYN_BENCH_KV_DTYPE": "model", "DYN_BENCH_DECODE_STEPS": "1"}, LLAMA_PATH),
 )
 
 
@@ -6568,6 +6592,189 @@ def phase_mm(torch, card: str, device: str = "cuda", llava: dict = LLAVA_1_5_7B,
     print("smoke_mm " + json.dumps(out, default=str), flush=True)
     return {"counts": a["counts"], "line": out}
 
+# ---------------------------------------------------------------------------
+# phase tp: tensor and expert parallelism, the ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# The smoke's machine has one card, and NCCL refuses two ranks on one GPU:
+# phase tp names gloo, the only backend under which ranks may share a card.
+# Its collectives stage through host memory, so the phase's times are of
+# ranks sharing one card over host-staged gloo, not of NVLink.
+TP_BACKEND = "gloo"
+TP_MODELS = (("llama3-8b-tp", "llama", LLAMA3_8B, dict(tp=2)),
+             ("deepseek-v2-lite-tp", "deepseek", DEEPSEEK_V2_LITE, dict(tp=2, ep=2)))
+# tp = 1 runs the same split step (unified off, as on a mesh) on the same
+# weights, so the two differ only by the sharding
+TP_ENGINE = dict(num_blocks=512, max_batch_size=8, max_model_len=1024, seed=0,
+                 prefill_buckets=(128, 256, 512, 1024), decode_overlap=False,
+                 unified_batch=False)
+TP_PROMPT_LENS = (200, 150, 120, 90)
+TP_OSL = 16
+# bf16 logits of the mesh against tp = 1 on the same weights and card: each
+# rank rounds its row-parallel partial product (wo, w_down, the experts'
+# down projections) to bf16 before their float32 sum, where one card rounds
+# the whole product once, so every summed layer output differs by about one
+# bf16 rounding (2^-9 relative) and the difference grows through the
+# residual stream's layers.  Logits of these random weights are N(0, 1)
+# (|max| about 5 over the vocabulary): 0.25 is 5 % of that.  DeepSeek's
+# router can flip a near-tied expert choice on such a difference, which
+# moves that token's FFN output wholesale: twice the bound there.  A greedy
+# stream may part from tp = 1's only where tp = 1's top-2 margin is within
+# the same bound (a near-tie the rounding may flip).
+TP_LOGITS_ATOL = {"llama": 0.25, "deepseek": 0.5}
+TP_PATH = {"llama": "paged_attention.launches", "deepseek": "mla_attention.decode_launches"}
+
+
+async def generate_top2(engine, tokens: list[int], max_tokens: int, stamps: list):
+    """Greedy tokens and, at each position, the top-2 logprob margin."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        Annotated,
+        LLMEngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    req = PreprocessedRequest(
+        token_ids=tokens, sampling=SamplingOptions(use_greedy=True, top_logprobs=2),
+        stop=StopConditions(max_tokens=max_tokens, ignore_eos=True), eos_token_ids=[1],
+    ).to_wire()
+    out, margins = [], []
+    async for item in await engine.generate(Context(req)):
+        ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
+        if ann.data is None:
+            continue
+        if ann.data.error:
+            raise RuntimeError(ann.data.error)
+        out.extend(ann.data.token_ids)
+        for rows in ann.data.top_logprobs or []:
+            lps = sorted((lp for _, lp in rows), reverse=True)
+            margins.append(lps[0] - lps[1])
+        stamps.extend([time.perf_counter()] * len(ann.data.token_ids))
+    return out, margins
+
+
+async def tp_burst(engine, prompts, osl):
+    """Every request queued, the engine started, its streams collected and
+    every rank's launch counters read before the engine stops."""
+    marks = [[] for _ in prompts]
+    tasks = [asyncio.ensure_future(generate_top2(engine, p, osl, m))
+             for p, m in zip(prompts, marks)]
+    await asyncio.sleep(0.05)
+    t0 = time.perf_counter()
+    engine.start()
+    try:
+        outs = await asyncio.gather(*tasks)
+        counts = engine.mesh_counts()
+        steps = engine.stats().get("mesh_steps_total")
+    finally:
+        engine.stop()
+    return outs, (t0, marks), counts, steps
+
+
+def first_logits(torch, engine, prompt: list[int]):
+    """The engine's split prefill forward on ``prompt`` (every rank of a
+    mesh), before it serves: the first token's logits, float32 on the
+    host."""
+    dev = engine.device
+    n = len(prompt)
+    ids = torch.zeros(engine._bucket_len(n), dtype=torch.int32, device=dev)
+    ids[:n] = torch.tensor(prompt, dtype=torch.int32)
+    blocks = torch.arange(engine.max_blocks_per_seq, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, _ = engine.family.forward_prefill(
+            engine.params, engine.config.model, ids, engine.cache, blocks,
+            torch.tensor(n, dtype=torch.int32, device=dev), 0, engine.cos, engine.sin)
+    return logits.float().cpu()
+
+
+def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw=TP_ENGINE,
+             prompt_lens=TP_PROMPT_LENS, osl: int = TP_OSL) -> dict:
+    """Each model served at tp = 1 and on its mesh (the ranks sharing the
+    card over gloo), from the same seed's weights: the first step's logits
+    within ``TP_LOGITS_ATOL``, the greedy streams equal but where tp = 1's
+    top-2 margin is within it, rows 2 and 4 launched on every rank (no
+    plain call), TTFT and ITL of both.  One ``smoke_tp`` line."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+    from dynamo_tpu_torch.serve import build_torch_engine
+
+    cuda = device == "cuda"
+    report: dict = {"card": card, "backend": TP_BACKEND}
+    for model, fam, config, sizes in models:
+        path = model_dir(model, config)
+        vocab = config["vocab_size"]
+        prompts = [[(1000 + 37 * i + 11 * j) % vocab for j in range(n)]
+                   for i, n in enumerate(prompt_lens)]
+        runs = {}
+        for label, mesh in (("tp1", None), ("mesh", sizes)):
+            over = dict(engine_kw)
+            if mesh is not None:
+                over.update(mesh=MeshConfig(**mesh), mesh_backend=TP_BACKEND)
+            t0 = time.perf_counter()
+            engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path),
+                                        device=device, **over)
+            build_s = time.perf_counter() - t0
+            try:
+                logits = first_logits(torch, engine, prompts[0])
+                engine.zero_mesh_counts()
+            except BaseException:
+                engine.stop()
+                raise
+            outs, stamps, counts, steps = asyncio.run(tp_burst(engine, prompts, osl))
+            runs[label] = dict(logits=logits, outs=outs, e2e=ttft_itl(stamps), counts=counts,
+                               build_s=build_s, steps=steps)
+            del engine
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        bound = TP_LOGITS_ATOL[fam]
+        diff = (runs["mesh"]["logits"] - runs["tp1"]["logits"]).abs()
+        parted = []
+        for i, ((ref, margins), (got, _)) in enumerate(zip(runs["tp1"]["outs"],
+                                                           runs["mesh"]["outs"])):
+            at = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+            if at is not None:
+                parted.append({"request": i, "position": at, "tp1_top2_margin": margins[at]})
+        path_key = TP_PATH[fam]
+        ranks = [{"rank": r, path_key: c.get(path_key, 0),
+                  "plain_calls": sum(v for k, v in c.items() if k.endswith("plain_calls"))}
+                 for r, c in enumerate(runs["mesh"]["counts"])]
+        row = {
+            "mesh": sizes, "ranks": len(ranks), "logits_max_abs_diff": diff.max().item(),
+            "logits_bound": bound,
+            "logits_ref_absmax": runs["tp1"]["logits"].abs().max().item(),
+            "argmax_equal": int(runs["mesh"]["logits"].argmax()) ==
+            int(runs["tp1"]["logits"].argmax()),
+            "streams_equal": sum(1 for (a, _), (b, _) in zip(runs["tp1"]["outs"],
+                                                              runs["mesh"]["outs"]) if a == b),
+            "streams": len(prompts), "parted": parted, "rank_launches": ranks,
+            "mesh_steps": runs["mesh"]["steps"],
+            "tp1": {**{k: runs["tp1"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
+                    "build_s": runs["tp1"]["build_s"]},
+            "mesh_e2e": {**{k: runs["mesh"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
+                         "build_s": runs["mesh"]["build_s"]},
+        }
+        report[fam] = row
+        log(f"[tp] {model} {sizes}: logits max |diff| {row['logits_max_abs_diff']:.4f} "
+            f"(bound {bound}), streams equal {row['streams_equal']}/{len(prompts)}, "
+            f"parted {parted}, ranks' {path_key} {[r[path_key] for r in ranks]}")
+        if not row["logits_max_abs_diff"] <= bound:
+            raise AssertionError(f"{model}: mesh logits differ from tp = 1 by "
+                                 f"{row['logits_max_abs_diff']} > {bound}")
+        for p in parted:
+            if p["tp1_top2_margin"] > bound:
+                raise AssertionError(f"{model}: a greedy stream parts from tp = 1 where its "
+                                     f"top-2 margin is {p['tp1_top2_margin']} > {bound}: {p}")
+        if cuda:
+            for r in ranks:
+                if r[path_key] <= 0 or r["plain_calls"]:
+                    raise AssertionError(f"{model}: rank {r['rank']} launched {r}")
+    print(json.dumps({"smoke_tp": report}), flush=True)
+    return report
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6598,7 +6805,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
-    mm = None
+    mm = tp = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -6661,6 +6868,8 @@ def main() -> int:
             run("bench", phase_bench, torch)
         if "mm" in phases:
             mm = run("mm", phase_mm, torch, card)
+        if "tp" in phases:
+            tp = run("tp", phase_tp, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -6672,7 +6881,7 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm):
+    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -6739,6 +6948,17 @@ def main() -> int:
              "dynamo_tpu_torch/csrc/paged_attention.cu",
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_mha_b32", "paged_mha",
              mm["counts"]["paged_attention.launches"]),
+            # rows 2 and 4 on each rank's head shard (phase tp): every rank's
+            # launches summed
+            ("paged_window_attention_decode (tp=2 head shard)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_tp2_b32", "paged_tp2",
+             sum(r["paged_attention.launches"] for r in tp["llama"]["rank_launches"])),
+            ("mla_paged_attention_decode (tp=2 head shard)",
+             "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_tp2_b32",
+             "mla_decode_tp2",
+             sum(r["mla_attention.decode_launches"] for r in tp["deepseek"]["rank_launches"])),
         ):
             c = cases[case]
             entries.append({

@@ -83,6 +83,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     run.add_argument("--num-blocks", type=int, default=256, help="KV cache blocks")
     run.add_argument("--max-batch-size", type=int, default=8)
     run.add_argument("--context-length", type=int, default=None)
+    run.add_argument("--tensor-parallel-size", type=int, default=1,
+                     help="serve on a tp mesh of this many ranks (one process a rank; "
+                          "this process is rank 0 and starts the others; ranks share a "
+                          "card only over gloo named by DYN_MESH_BACKEND=gloo)")
     run.add_argument("--seed", type=int, default=0,
                      help="seed of random-initialized weights and sampling")
     run.add_argument("--warmup", action="store_true",
@@ -152,6 +156,10 @@ def engine_overrides(args: argparse.Namespace) -> dict:
     )
     if args.context_length:
         overrides["max_model_len"] = args.context_length
+    if args.tensor_parallel_size > 1:
+        from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+        overrides["mesh"] = MeshConfig(tp=args.tensor_parallel_size)
     if args.speculative:
         overrides.update(speculative=args.speculative, spec_tokens=args.spec_tokens,
                          spec_ngram=args.spec_ngram)

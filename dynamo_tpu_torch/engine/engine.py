@@ -80,8 +80,17 @@ takes a prompt's vision patch embeddings: its prefill runs whole on the
 split step (``PrefillGraph`` key ``("mm", bucket)``: the embeddings spliced
 before the text's token embeddings, the family's
 ``forward_prefill_embeds``), its blocks never publish, and its decode
-tokens ride the decode and unified windows as any lane's.  Multi-device
-meshes are a later slice; the engine refuses them.
+tokens ride the decode and unified windows as any lane's.
+
+On a tensor and expert mesh (``EngineConfig.mesh``: tp and ep) the engine
+is rank 0 of one process a rank (``engine/shard_worker.py``): it owns the
+only scheduler and block manager and its own shard of the weights and the
+cache, and every split prefill and decode forward is broadcast to the shard
+workers, which run the same forward on their shards.  The unified step is
+off there (slug ``mesh``, as the reference's), and the windows run
+synchronously and eagerly: no overlap, no graph.  Speculative decoding,
+the offload tiers, disaggregation, guided JSON, multimodal requests and
+the families without mesh forwards are refused on a mesh by name.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -268,6 +277,16 @@ class EngineConfig:
     # with more entries keep the largest-magnitude ones; 0 disables the
     # scatter (a request's logit_bias is then ignored), as in the reference.
     logit_bias_k: int = 64
+    # Tensor and expert parallelism (parallel/mesh.py): the engine is rank 0
+    # of a mesh of config.mesh.total() ranks, one process a rank; ranks
+    # 1..N-1 are shard workers (engine/shard_worker.py) it starts, or that
+    # joined the process group beforehand (parallel/multihost.py).  None or
+    # one rank = no mesh.  Axes tp and ep only: dp, pp and sp are refused.
+    mesh: Any = None
+    # the mesh's process-group backend ("nccl" | "gloo"; None = nccl on
+    # cards, gloo on the CPU, or DYN_MESH_BACKEND).  Ranks share a card
+    # only over gloo named here or in the knob.
+    mesh_backend: str | None = None
 
     def resolved_max_len(self) -> int:
         hard = self.num_blocks * self.block_size
@@ -341,17 +360,45 @@ class TorchLlmEngine:
             raise ValueError(f"unknown attention_impl {impl!r} (want auto|kernel|plain)")
         self.attention_impl = impl
 
-        dev = self.device
-        if params is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(config.seed)
-            params = self.family.init_params(cfg, gen, dev)
-        self.params = self._maybe_quantize(_to_device(params, dev))
         self.kv_cache_dtype = resolve_kv_cache_dtype(config.kv_cache_dtype) or cfg.dtype
-        self.cache = self.family.init_kv_cache(
-            cfg, config.num_blocks, config.block_size, self.kv_cache_dtype, dev
-        )
-        self.cos, self.sin = self.family.make_rope_tables(cfg, dev, self.max_len)
+        self.mesh = None
+        self._mesh_leader = None
+        mesh_cfg = config.mesh
+        if mesh_cfg is not None and mesh_cfg.total() > 1:
+            self._check_mesh(config)
+            from dynamo_tpu_torch.engine.shard_worker import MeshLeader
+
+            self._mesh_leader = MeshLeader.launch(mesh_cfg, device_type=self.device.type,
+                                                  backend=config.mesh_backend)
+            self.mesh = self._mesh_leader.mesh
+            self.device = self.mesh.device
+        dev = self.device
+        if self.mesh is not None:
+            from dynamo_tpu_torch.engine.shard_worker import MeshFamily, ShardSpec
+
+            spec = ShardSpec(
+                mesh=mesh_cfg, model_family=config.model_family, model=cfg,
+                num_blocks=config.num_blocks, block_size=config.block_size,
+                kv_cache_dtype=self.kv_cache_dtype, max_len=self.max_len, seed=config.seed,
+                quantize=config.quantize, attention_impl=impl)
+            try:
+                self.params, self.cache, self.cos, self.sin = self._mesh_leader.build(
+                    spec, self.family, params)
+            except BaseException:
+                self._mesh_leader.shutdown(timeout=5.0)
+                raise
+            # every split-step forward runs on all ranks through the leader
+            self.family = MeshFamily(self.family, self._mesh_leader)
+        else:
+            if params is None:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(config.seed)
+                params = self.family.init_params(cfg, gen, dev)
+            self.params = self._maybe_quantize(_to_device(params, dev))
+            self.cache = self.family.init_kv_cache(
+                cfg, config.num_blocks, config.block_size, self.kv_cache_dtype, dev
+            )
+            self.cos, self.sin = self.family.make_rope_tables(cfg, dev, self.max_len)
         lanes = config.max_batch_size
         # per-lane sampling state: generated-token counts (presence/frequency
         # penalties) and prompt-token counts (repetition penalty scope), on
@@ -419,6 +466,9 @@ class TorchLlmEngine:
             self._unified_skip("multi_step_decode",
                                "fused multi-step decode windows cannot carry chunks")
             unified = False
+        elif unified and self.mesh is not None:
+            self._unified_skip("mesh", "multi-chip meshes keep the split step")
+            unified = False
         elif unified and not self.kv_cache_dtype.is_floating_point:
             # float narrowings (fp8, f16, bf16) keep the unified step: every
             # kernel and plain version upcasts cache reads and the writes
@@ -434,6 +484,10 @@ class TorchLlmEngine:
         if self.decode_overlap and self.spec_enabled:
             logger.info("decode overlap disabled: speculative decoding drafts from "
                         "host token history")
+            self.decode_overlap = False
+        if self.decode_overlap and self.mesh is not None:
+            # a mesh step's collectives synchronise the host with every rank:
+            # its windows run synchronously and eagerly
             self.decode_overlap = False
         self._inflight: _InflightWindow | None = None
         self._overlap_windows = 0     # windows dispatched with token feedback
@@ -615,6 +669,9 @@ class TorchLlmEngine:
         # window's
         self._prefill = PrefillGraph(self, self._prefill_keys(), pool)
         self._verify = VerifyGraph(self, self._decode, pool) if self.spec_enabled else None
+        if self.mesh is not None:
+            # no CUDA graph holds a step whose collectives cross processes
+            self._decode.eager = self._prefill.eager = True
 
         # thread plumbing
         self._profiler_trace_dir: str | None = None
@@ -622,6 +679,68 @@ class TorchLlmEngine:
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
+
+    def _check_mesh(self, config: EngineConfig) -> None:
+        """The reference's construction checks of a mesh (its engine.py:
+        411-424), and this slice's refusals by name: pp and sp (ROADMAP item
+        9b); speculative decoding, the offload tiers and a family without
+        mesh forwards (item 9c)."""
+        mesh, cfg = config.mesh, config.model
+        if mesh.dp > 1:
+            raise ValueError(
+                f"dp={mesh.dp} is not an engine mesh axis: scale decode throughput by "
+                "replicating workers behind the router (components/router_service.py), "
+                "not by adding dp to one engine's mesh"
+            )
+        for axis, what in (("pp", "pipeline stages"), ("sp", "sequence-parallel ring prefill")):
+            if getattr(mesh, axis) > 1:
+                raise ValueError(
+                    f"{axis}={getattr(mesh, axis)}: {what} on an engine mesh are not ported "
+                    "yet (ROADMAP item 9b); this engine takes the tp and ep axes"
+                )
+        if not self.family.decode_accepts_tp_mesh:
+            raise ValueError(
+                f"family {config.model_family!r} serves on no mesh yet (ROADMAP item 9c): "
+                "its forwards take no mesh"
+            )
+        refused = {
+            "speculative decoding": bool(config.speculative),
+            "KV offload tiers": bool(config.host_offload_blocks or config.disk_offload_blocks
+                                     or config.remote_store_addr),
+        }
+        for what, on in refused.items():
+            if on:
+                raise ValueError(f"{what} on an engine mesh is not ported yet (ROADMAP item 9c)")
+        for name in ("num_heads", "num_kv_heads"):
+            n = getattr(cfg, name, None)
+            if n is not None and n % mesh.tp:
+                raise ValueError(f"{name}={n} is not divisible by the tp axis ({mesh.tp})")
+        # the quantize mode's refusals (an unknown mode, a family without
+        # quant leaves): the ranks quantize each leaf as it arrives
+        self._maybe_quantize({})
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on an engine mesh is not ported yet (ROADMAP item 9c)")
+
+    def mesh_counts(self) -> list[dict]:
+        """Every rank's kernel launch counters ({"module.counter": n}), in
+        rank order; rank 0's alone off a mesh."""
+        if self._mesh_leader is None:
+            from dynamo_tpu_torch.engine.shard_worker import _counts
+
+            return [_counts()]
+        return self._mesh_leader.counts()
+
+    def zero_mesh_counts(self) -> None:
+        """Every rank's kernel launch counters to 0."""
+        if self._mesh_leader is None:
+            from dynamo_tpu_torch.engine.shard_worker import _zero_counts
+
+            _zero_counts()
+            return
+        self._mesh_leader.zero_counts()
 
     def _maybe_quantize(self, params: dict) -> dict:
         """``EngineConfig.quantize`` applied to the parameter tree; a tree
@@ -665,6 +784,9 @@ class TorchLlmEngine:
             self._profiler_trace_dir = None
         if self.host_tier is not None:
             self.host_tier.close()  # release + delete the G3 memmap
+        if self._mesh_leader is not None:
+            self._mesh_leader.shutdown()  # stop and join every shard worker
+            self._mesh_leader = None
 
     # -- async engine interface -------------------------------------------
     async def warmup(self, prompt_lens=None) -> None:
@@ -700,6 +822,11 @@ class TorchLlmEngine:
 
     def _warm_graphs(self, prompt_lens=None) -> None:
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            # a mesh runs its steps eagerly: there is no graph to capture
+            self.warmup_s = 0.0
+            logger.info("warmup: nothing to capture on a mesh (eager steps)")
+            return
         self._sync_pipeline()
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -758,12 +885,14 @@ class TorchLlmEngine:
         Model vocabularies are often padded past the tokenizer's; padding
         columns are masked False (a padded id is never a valid JSON
         continuation)."""
+        self._refuse_on_mesh("guided JSON decoding")
         masks, strings = build_for_tokenizer(tokenizer)
         self.set_guided(masks, strings, tokenizer.eos_token_ids)
 
     def set_guided(self, masks, strings: list[str], eos_ids: list[int]) -> None:
         """Lower-level install (tests / pre-built tables): copied in place
         into the resident table."""
+        self._refuse_on_mesh("guided JSON decoding")
         vocab = self.config.model.vocab_size
         table = np.zeros((masks.mask.shape[0], vocab), bool)
         table[:, : masks.mask.shape[1]] = masks.mask[:, :vocab]
@@ -831,6 +960,7 @@ class TorchLlmEngine:
         from the vision encoder's projector.  The prefill runs whole on the
         split step (``PrefillGraph`` key ``("mm", bucket)``); its blocks never
         publish (text-token hashes cannot describe patch content)."""
+        self._refuse_on_mesh("multimodal prefill")
         if self.family.forward_prefill_embeds is None:
             raise ValueError(
                 f"model family {self.config.model_family!r} has no multimodal prefill"
@@ -948,6 +1078,7 @@ class TorchLlmEngine:
         then carries only the TAIL blocks past the streamed watermark
         (``n_blocks`` stays the sequence total).  Without chunked prefill
         the call is the single-shot contract."""
+        self._refuse_on_mesh("disaggregated prefill")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         seq = Sequence(
             seq_id=uuid.uuid4().hex, request=pre, prefill_only=True,
@@ -964,6 +1095,7 @@ class TorchLlmEngine:
         return await fut
 
     def reserve_blocks(self, num_tokens: int) -> list[int] | None:
+        self._refuse_on_mesh("disaggregated decode")
         return self.allocator.reserve_blocks(num_tokens)
 
     def release_blocks(self, block_ids: list[int]) -> None:
@@ -973,6 +1105,7 @@ class TorchLlmEngine:
         """Decode-worker side: write transferred KV blocks (a cache pytree
         of host or device tensors) into the cache with the block-scatter
         kernel, on the device thread (serialized with the steps)."""
+        self._refuse_on_mesh("disaggregated decode")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._submit_q.put(("inject", (list(block_ids), blocks, self._resolver(fut))))
         self._wake.set()
@@ -986,6 +1119,7 @@ class TorchLlmEngine:
         """Decode-worker side: start decoding a sequence whose prompt KV was
         injected into ``block_ids`` and whose first token was already
         sampled by the prefill worker."""
+        self._refuse_on_mesh("disaggregated decode")
         pre = PreprocessedRequest.from_wire(request.data)
         ctx = request.ctx
         loop = asyncio.get_running_loop()
@@ -1130,6 +1264,12 @@ class TorchLlmEngine:
             **(self._verify.stats() if self._verify is not None
                else StepGraphs.zero_stats("verify")),
         }
+        if self._mesh_leader is not None:
+            # the mesh this engine is rank 0 of, and its steps run on every
+            # rank (each one a step broadcast)
+            out["mesh"] = {"tp": self.mesh.config.tp, "ep": self.mesh.config.ep,
+                           "ranks": self.mesh.world_size, "backend": self.mesh.backend}
+            out["mesh_steps_total"] = self._mesh_leader.steps
         if self.host_tier is not None:
             out.update(self.host_tier.stats())
             out["offload_tiers"] = self.host_tier.tiers_snapshot()
@@ -1180,6 +1320,8 @@ class TorchLlmEngine:
                     if progress and not self.scheduler.has_work():
                         continue
                 if not self.scheduler.has_work():
+                    if self._mesh_leader is not None:
+                        self._mesh_leader.keepalive()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue

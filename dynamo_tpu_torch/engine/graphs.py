@@ -186,6 +186,9 @@ class StepGraphs:
         self.pool_mb = 0.0
         self.warmed = False      # warm() ran: a later capture is counted apart
         self.late_captures = 0
+        # run the step eagerly, no graph: the CPU, and a mesh (its steps'
+        # collectives cross processes, which no graph captures)
+        self.eager = device.type != "cuda"
 
     def _capture(self, key, idle, live) -> None:
         """Capture ``live`` under ``key`` (``capture``: ``idle`` runs first)."""
@@ -340,7 +343,7 @@ class DecodeGraph(StepGraphs):
         """The window on this window's inputs: a graph replay on a CUDA
         device (captured at first use), the eager step on the CPU.  The
         results are in ``out_tokens`` / ``out_lps``."""
-        if self.device.type != "cuda":
+        if self.eager:
             self.step(noise)
             return
         self._replay(noise, *self._steps(noise))
@@ -353,7 +356,7 @@ class DecodeGraph(StepGraphs):
         step once each with every lane idle."""
         lanes = self._idle_lens.shape[0]
         for noise in (False, True):
-            if self.device.type != "cuda":
+            if self.eager:
                 self.step(noise, lens=self._idle_lens)
                 continue
             if noise not in self._graphs:
@@ -580,7 +583,7 @@ class UnifiedGraph(StepGraphs):
         """The window on this window's inputs: a graph replay on a CUDA
         device (captured at first use), the eager step on the CPU.  The
         results are in ``out_tokens`` / ``out_lps``."""
-        if self.device.type != "cuda":
+        if self.eager:
             self.step(bucket, noise)
             return
         self._replay((bucket, noise), *self._steps(bucket, noise))
@@ -599,11 +602,11 @@ class UnifiedGraph(StepGraphs):
                         self.planner.plan(np.zeros((bucket // self.tb,), np.int32))
                         if self.planner else None)
             for noise in (False, True):
-                if self.device.type != "cuda":
+                if self.eager:
                     self.step(bucket, noise, idle=True)
                 elif (bucket, noise) not in self._graphs:
                     self._capture((bucket, noise), *self._steps(bucket, noise))
-            if self.device.type != "cuda":
+            if self.eager:
                 continue
             for noise in (False, True):
                 self._launch((bucket, noise))
@@ -776,7 +779,7 @@ class PrefillGraph(StepGraphs):
     def run(self, key: tuple) -> None:
         """The step on this key's inputs: a graph replay on a CUDA device
         (captured at first use), the eager step on the CPU."""
-        if self.device.type != "cuda":
+        if self.eager:
             self.step(key)
             return
         self._replay(key, *self._steps(key))
@@ -795,7 +798,7 @@ class PrefillGraph(StepGraphs):
                 continue
             # as UnifiedGraph.warm: the key's own idle window first
             self.upload(key, self._idle_arrays(key))
-            if self.device.type != "cuda":
+            if self.eager:
                 self.step(key, idle=True)
                 continue
             if key not in self._graphs:
@@ -936,7 +939,7 @@ class VerifyGraph(StepGraphs):
     def run(self, noise: bool) -> None:
         """The window on this window's inputs: a graph replay on a CUDA
         device (captured at first use), the eager step on the CPU."""
-        if self.device.type != "cuda":
+        if self.eager:
             self.step(noise)
             return
         self._replay(noise, *self._steps(noise))
@@ -953,7 +956,7 @@ class VerifyGraph(StepGraphs):
             "spec_ok": np.zeros((lanes,), np.bool_),
         })
         for noise in (False, True):
-            if self.device.type != "cuda":
+            if self.eager:
                 self.step(noise, idle=True)
                 continue
             if noise not in self._graphs:

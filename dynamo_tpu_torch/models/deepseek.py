@@ -57,6 +57,7 @@ from dynamo_tpu_torch.ops.kernels import (
     mla_paged_window_attention_decode,
     ragged_mla_attention,
 )
+from dynamo_tpu_torch.models.llama import leaf_sink
 from dynamo_tpu_torch.ops.kernels.common import sm_count
 from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
@@ -71,6 +72,7 @@ QUANT_LEAVES = (
     "ws_gate", "ws_up", "ws_down", "lm_head",
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions, yarn_mscale
+from dynamo_tpu_torch.parallel.mesh import all_gather, all_reduce, shard_config
 
 
 @dataclass(frozen=True)
@@ -191,11 +193,14 @@ class DeepseekConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: DeepseekConfig, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg: DeepseekConfig, generator: torch.Generator, device="cuda",
+                shard=None) -> dict:
     """Random-init parameters on ``device`` from ``generator`` (which must
     live on the same device): N(0, 1) / sqrt(fan_in) drawn in float32 one
     [in, out] slice at a time, then cast to the model dtype, so the
-    [layers, experts, in, out] expert banks never exist in float32 whole."""
+    [layers, experts, in, out] expert banks never exist in float32 whole.
+    ``shard(path, leaf)`` (optional) replaces each leaf as soon as it is
+    drawn (``llama.init_params``)."""
     h = cfg.hidden_size
     kd, km = cfg.first_k_dense, cfg.num_moe_layers
 
@@ -213,55 +218,117 @@ def init_params(cfg: DeepseekConfig, generator: torch.Generator, device="cuda") 
     def attn(n):
         hd_q = cfg.num_heads * cfg.qk_head_dim
         r = cfg.kv_lora_rank
-        out = {
-            "attn_norm": ones((n, h)),
-            "w_dkv": normal((n, h, r + cfg.qk_rope_head_dim), h),
-            "kv_norm": ones((n, r)),
-            "w_uk": normal((n, r, cfg.num_heads * cfg.qk_nope_head_dim), r),
-            "w_uv": normal((n, r, cfg.num_heads * cfg.v_head_dim), r),
-            "wo": normal((n, cfg.num_heads * cfg.v_head_dim, h),
-                         cfg.num_heads * cfg.v_head_dim),
-            "mlp_norm": ones((n, h)),
-        }
+        yield "attn_norm", lambda: ones((n, h))
+        yield "w_dkv", lambda: normal((n, h, r + cfg.qk_rope_head_dim), h)
+        yield "kv_norm", lambda: ones((n, r))
+        yield "w_uk", lambda: normal((n, r, cfg.num_heads * cfg.qk_nope_head_dim), r)
+        yield "w_uv", lambda: normal((n, r, cfg.num_heads * cfg.v_head_dim), r)
+        yield "wo", lambda: normal((n, cfg.num_heads * cfg.v_head_dim, h),
+                                   cfg.num_heads * cfg.v_head_dim)
+        yield "mlp_norm", lambda: ones((n, h))
         if cfg.q_lora_rank:
-            out["w_dq"] = normal((n, h, cfg.q_lora_rank), h)
-            out["q_norm"] = ones((n, cfg.q_lora_rank))
-            out["w_uq"] = normal((n, cfg.q_lora_rank, hd_q), cfg.q_lora_rank)
+            yield "w_dq", lambda: normal((n, h, cfg.q_lora_rank), h)
+            yield "q_norm", lambda: ones((n, cfg.q_lora_rank))
+            yield "w_uq", lambda: normal((n, cfg.q_lora_rank, hd_q), cfg.q_lora_rank)
         else:
-            out["wq"] = normal((n, h, hd_q), h)
-        return out
+            yield "wq", lambda: normal((n, h, hd_q), h)
 
-    params: dict = {"embed": normal((cfg.vocab_size, h), 1.0), "final_norm": ones((h,))}
-    if kd:
+    def dense(n):
         i = cfg.intermediate_size
-        params["dense_layers"] = {
-            **attn(kd),
-            "w_gate": normal((kd, h, i), h),
-            "w_up": normal((kd, h, i), h),
-            "w_down": normal((kd, i, h), i),
-        }
-    if km:
+        yield from attn(n)
+        yield "w_gate", lambda: normal((n, h, i), h)
+        yield "w_up", lambda: normal((n, h, i), h)
+        yield "w_down", lambda: normal((n, i, h), i)
+
+    def moe(n):
         mi, e = cfg.moe_intermediate_size, cfg.num_experts
         si = cfg.n_shared_experts * mi
-        moe = {
-            **attn(km),
-            "w_router": normal((km, h, e), h),
-            "w_gate": normal((km, e, h, mi), h),
-            "w_up": normal((km, e, h, mi), h),
-            "w_down": normal((km, e, mi, h), mi),
-        }
+        yield from attn(n)
+        yield "w_router", lambda: normal((n, h, e), h)
+        yield "w_gate", lambda: normal((n, e, h, mi), h)
+        yield "w_up", lambda: normal((n, e, h, mi), h)
+        yield "w_down", lambda: normal((n, e, mi, h), mi)
         if cfg.scoring_func == "sigmoid":
-            moe["router_bias"] = torch.zeros((km, e), dtype=torch.float32, device=device)
+            yield "router_bias", lambda: torch.zeros((n, e), dtype=torch.float32, device=device)
         if si:
-            moe.update(
-                ws_gate=normal((km, h, si), h),
-                ws_up=normal((km, h, si), h),
-                ws_down=normal((km, si, h), si),
-            )
-        params["moe_layers"] = moe
+            yield "ws_gate", lambda: normal((n, h, si), h)
+            yield "ws_up", lambda: normal((n, h, si), h)
+            yield "ws_down", lambda: normal((n, si, h), si)
+
+    params, put = leaf_sink(shard)
+    put(("embed",), normal((cfg.vocab_size, h), 1.0))
+    put(("final_norm",), ones((h,)))
+    for stack, n, leaves in (("dense_layers", kd, dense), ("moe_layers", km, moe)):
+        if n:
+            for name, make in leaves(n):
+                put((stack, name), make())
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((h, cfg.vocab_size), h)
+        put(("lm_head",), normal((h, cfg.vocab_size), h))
     return params
+
+
+def _attn_specs(cfg: DeepseekConfig) -> dict:
+    """The attention leaves' specs (the reference's deepseek.py:259): the
+    latent path (``w_dkv``, the latent cache) replicated, the query and the
+    K and V up-projections head-sharded over tp, ``wo`` row-parallel."""
+    specs = {
+        "attn_norm": (None, None),
+        "w_dkv": (None, None, None),
+        "kv_norm": (None, None),
+        "w_uk": (None, None, "tp"),
+        "w_uv": (None, None, "tp"),
+        "wo": (None, "tp", None),
+    }
+    if cfg.q_lora_rank:
+        specs["w_dq"] = (None, None, None)
+        specs["q_norm"] = (None, None)
+        specs["w_uq"] = (None, None, "tp")
+    else:
+        specs["wq"] = (None, None, "tp")
+    return specs
+
+
+def param_specs(cfg: DeepseekConfig) -> dict:
+    """The reference's (deepseek.py:276-316): dense FFNs over tp, routed
+    experts over ep with each expert's FFN width over tp, shared experts
+    over tp; the embedding, router and norms replicated."""
+    specs: dict = {"embed": (None, None), "final_norm": (None,)}
+    if cfg.first_k_dense:
+        specs["dense_layers"] = {
+            **_attn_specs(cfg), "mlp_norm": (None, None), "w_gate": (None, None, "tp"),
+            "w_up": (None, None, "tp"), "w_down": (None, "tp", None),
+        }
+    if cfg.num_moe_layers:
+        moe = {**_attn_specs(cfg), "mlp_norm": (None, None), "w_router": (None, None, None),
+               "w_gate": (None, "ep", None, "tp"), "w_up": (None, "ep", None, "tp"),
+               "w_down": (None, "ep", "tp", None)}
+        if cfg.scoring_func == "sigmoid":
+            moe["router_bias"] = (None, None)
+        if cfg.n_shared_experts:
+            moe.update(ws_gate=(None, None, "tp"), ws_up=(None, None, "tp"),
+                       ws_down=(None, "tp", None))
+        specs["moe_layers"] = moe
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def kv_cache_specs(cfg: DeepseekConfig) -> dict:
+    """The latent cache is shared by every head: replicated over tp (the
+    reference's :321-325)."""
+    return {"k": (None,) * 5, "v": (None,) * 5}
+
+
+def shard_params(params: dict, cfg: DeepseekConfig, mesh) -> dict:
+    """This rank's slice of every leaf under ``param_specs`` (int8 leaves
+    under ``quantize_specs``)."""
+    from dynamo_tpu_torch.ops.quant import is_quantized, quantize_specs
+    from dynamo_tpu_torch.parallel.mesh import shard_tree
+
+    specs = param_specs(cfg)
+    if is_quantized(params):
+        specs = quantize_specs(specs, QUANT_LEAVES)
+    return shard_tree(params, specs, mesh)
 
 
 def init_kv_cache(cfg: DeepseekConfig, num_blocks: int, block_size: int, dtype=None,
@@ -481,45 +548,53 @@ def _dense_mlp(w, x):
     return mm(F.silu(mm(x, w["w_gate"])) * mm(x, w["w_up"]), w["w_down"])
 
 
-def _moe_mlp(w, x, cfg: DeepseekConfig):
+def _moe_mlp(w, x, cfg: DeepseekConfig, mesh=None):
+    """Routed experts (on a mesh summed over ep and tp in ``moe_ffn``) times
+    the scaling factor, plus the shared experts (tp-sharded: summed over
+    tp)."""
     routed = moe_ffn(
         x, w["w_router"], w["w_gate"], w["w_up"], w["w_down"],
         top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
         router_bias=w.get("router_bias"),
         scoring="sigmoid_noaux" if cfg.scoring_func == "sigmoid" else "softmax",
         n_group=cfg.n_group, topk_group=cfg.topk_group,
-        norm_topk_prob=cfg.norm_topk_prob,
+        norm_topk_prob=cfg.norm_topk_prob, num_experts=cfg.num_experts, mesh=mesh,
     )
     out = routed * cfg.routed_scaling_factor
     if cfg.n_shared_experts:
-        out = out + mm(F.silu(mm(x, w["ws_gate"])) * mm(x, w["ws_up"]), w["ws_down"])
+        out = out + all_reduce(
+            mm(F.silu(mm(x, w["ws_gate"])) * mm(x, w["ws_up"]), w["ws_down"]), mesh)
     return out
 
 
-def _forward(params, cfg: DeepseekConfig, x, kv_cache, attn_fn):
+def _forward(params, cfg: DeepseekConfig, x, kv_cache, attn_fn, mesh=None):
     """The trunk: the dense stack, then the MoE stack, each layer reading
     and writing its own slice of the cache (``attn_fn`` gets the layer's
-    caches and its index); then the final norm."""
+    caches and its index); then the final norm.  On a tp ``mesh`` the
+    attention output (``wo`` row-parallel) and the dense FFN are summed
+    over tp."""
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     layer = 0
-    for stack, mlp in (("dense_layers", _dense_mlp),
-                       ("moe_layers", lambda w, t: _moe_mlp(w, t, cfg))):
+    for stack, mlp in (("dense_layers", lambda w, t: all_reduce(_dense_mlp(w, t), mesh)),
+                       ("moe_layers", lambda w, t: _moe_mlp(w, t, cfg, mesh))):
         leaves = params.get(stack)
         if leaves is None:
             continue
         for i in range(next(iter(leaves.values())).shape[0]):
             w = {name: leaf[i] for name, leaf in leaves.items()}
             attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
-            x = x + attn_fn(w, attn_in, k_all[layer], v_all[layer], layer)
+            x = x + all_reduce(attn_fn(w, attn_in, k_all[layer], v_all[layer], layer), mesh)
             x = x + mlp(w, rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps))
             layer += 1
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, mesh=None):
+    """The LM head's logits; a vocab-sharded head's gathered over tp."""
     if cfg.tie_word_embeddings:
         return x @ params["embed"].to(x.dtype).T
-    return mm(x, params["lm_head"])
+    out = mm(x, params["lm_head"])
+    return out if out.shape[-1] == cfg.vocab_size else all_gather(out, mesh, "tp", dim=-1)
 
 
 def deepseek_forward_decode(
@@ -532,10 +607,15 @@ def deepseek_forward_decode(
     slot_ids: torch.Tensor,      # [batch] int32 flat cache slot for this token
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Batched single-token decode through the absorbed latent path.
     Returns (logits [batch, vocab] f32, cache); the cache is written in
-    place."""
+    place.  On a tp ``mesh`` row 4 runs on this rank's ``H / tp`` heads
+    over the whole (replicated) latent cache, which every rank writes
+    alike; the parameters are this rank's ``shard_params``."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = (context_lens - 1).clamp(min=0)
     views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
@@ -547,8 +627,8 @@ def deepseek_forward_decode(
             views, rows[layer], cos, sin,
         )
 
-    x = _forward(params, cfg, x, kv_cache, attn)
-    return _logits(params, cfg, x).float(), kv_cache
+    x = _forward(params, cfg, x, kv_cache, attn, mesh)
+    return _logits(params, full_cfg, x, mesh).float(), kv_cache
 
 
 def deepseek_forward_prefill(
@@ -561,12 +641,16 @@ def deepseek_forward_prefill(
     start_pos,                # absolute position of token 0
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Single-sequence prefill (the split prefill step).  Returns (the last
     valid token's logits [vocab] f32, cache); the cache is written in
     place.  The MoE layers route every token of the padded chunk, as the
     reference does.  Lengths as in ``llama_forward_prefill``: 0-d int
-    tensors on the device (or ints), read nowhere on the host."""
+    tensors on the device (or ints), read nowhere on the host; ``mesh`` as
+    in ``deepseek_forward_decode``."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -575,8 +659,8 @@ def deepseek_forward_prefill(
         return _mla_prefill_attn(w, attn_in, cfg, positions, seq_len, k_layer, v_layer,
                                  block_ids, cos, sin)
 
-    x = _forward(params, cfg, x, kv_cache, attn)
-    return _logits(params, cfg, last_valid_row(x, seq_len))[0].float(), kv_cache
+    x = _forward(params, cfg, x, kv_cache, attn, mesh)
+    return _logits(params, full_cfg, last_valid_row(x, seq_len), mesh)[0].float(), kv_cache
 
 
 def deepseek_forward_prefill_with_prefix(
@@ -590,10 +674,13 @@ def deepseek_forward_prefill_with_prefix(
     start_pos,                     # resident prefix length (block-aligned)
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Continued prefill over a resident prefix for the MLA family (the
-    llama contract).  Returns (last tail token's logits [vocab] f32,
-    cache)."""
+    llama contract, ``mesh`` included).  Returns (last tail token's logits
+    [vocab] f32, cache)."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
     x = params["embed"][token_ids].to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -604,8 +691,8 @@ def deepseek_forward_prefill_with_prefix(
             full_block_ids, tail_block_ids, cos, sin,
         )
 
-    x = _forward(params, cfg, x, kv_cache, attn)
-    return _logits(params, cfg, last_valid_row(x, tail_len))[0].float(), kv_cache
+    x = _forward(params, cfg, x, kv_cache, attn, mesh)
+    return _logits(params, full_cfg, last_valid_row(x, tail_len), mesh)[0].float(), kv_cache
 
 
 def deepseek_forward_verify(

@@ -57,6 +57,12 @@ from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import QuantizedMatrix, mm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
+from dynamo_tpu_torch.parallel.mesh import (
+    all_gather,
+    all_reduce,
+    shard_config,
+    vocab_parallel_embed,
+)
 from dynamo_tpu_torch.utils import profiling
 
 # the projections the engine's quantize="int8" stores as int8 (the
@@ -195,40 +201,111 @@ def param_init(dtype, generator: torch.Generator, device):
     return normal, ones
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
+def leaf_sink(shard=None):
+    """``(tree, put)``: ``put(path, leaf)`` stores ``leaf`` at ``path`` of
+    ``tree``, or ``shard(path, leaf)`` where a sharding callback is given
+    (``parallel.mesh.leaf_sharder``: a tensor-parallel rank keeps its slice
+    and drops the full leaf before the next is made)."""
+    tree: dict = {}
+
+    def put(path: tuple[str, ...], leaf):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf if shard is None else shard(path, leaf)
+
+    return tree, put
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda",
+                shard=None) -> dict:
     """Random-init parameters on ``device`` from ``generator`` (which must
     live on the same device): N(0, 1) / sqrt(fan_in) drawn in float32, one
-    layer at a time, then cast to the model dtype."""
+    layer at a time, then cast to the model dtype.  ``shard(path, leaf)``
+    (optional) replaces each leaf as soon as it is drawn; the draws are the
+    same with and without it."""
     h, i, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     normal, ones = param_init(cfg.dtype, generator, device)
+    params, put = leaf_sink(shard)
+    put(("embed",), normal((cfg.vocab_size, h), 1.0))
+    put(("final_norm",), ones((h,)))
+    for name, make in (
+        ("attn_norm", lambda: ones((n_layers, h))),
+        ("wq", lambda: normal((n_layers, h, qd), h)),
+        ("wk", lambda: normal((n_layers, h, kvd), h)),
+        ("wv", lambda: normal((n_layers, h, kvd), h)),
+        ("wo", lambda: normal((n_layers, qd, h), qd)),
+        ("mlp_norm", lambda: ones((n_layers, h))),
+        ("w_gate", lambda: normal((n_layers, h, i), h)),
+        ("w_up", lambda: normal((n_layers, h, i), h)),
+        ("w_down", lambda: normal((n_layers, i, h), i)),
+    ):
+        put(("layers", name), make())
+    if cfg.attention_bias:
+        for name, width in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            put(("layers", name), torch.zeros((n_layers, width), dtype=cfg.dtype, device=device))
+    if cfg.qk_norm:
+        put(("layers", "q_norm"), ones((n_layers, cfg.head_dim)))
+        put(("layers", "k_norm"), ones((n_layers, cfg.head_dim)))
+    if not cfg.tie_word_embeddings:
+        put(("lm_head",), normal((h, cfg.vocab_size), h))
+    return params
 
-    params = {
-        "embed": normal((cfg.vocab_size, h), 1.0),
-        "final_norm": ones((h,)),
+
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The reference's PartitionSpecs (dynamo_tpu/models/llama.py:209) as
+    tuples of axis names: tp shards the heads of ``wq``/``wk``/``wv`` (and
+    Qwen2's biases) and the FFN's ``w_gate``/``w_up`` by column, ``wo`` and
+    ``w_down`` by row (their products are summed over tp), the vocabulary
+    of the embedding and the LM head; ``pp`` (the layer axis) is a later
+    slice of the port and has size 1 on every mesh it takes."""
+    specs = {
+        "embed": ("tp", None),
+        "final_norm": (None,),
         "layers": {
-            "attn_norm": ones((n_layers, h)),
-            "wq": normal((n_layers, h, qd), h),
-            "wk": normal((n_layers, h, kvd), h),
-            "wv": normal((n_layers, h, kvd), h),
-            "wo": normal((n_layers, qd, h), qd),
-            "mlp_norm": ones((n_layers, h)),
-            "w_gate": normal((n_layers, h, i), h),
-            "w_up": normal((n_layers, h, i), h),
-            "w_down": normal((n_layers, i, h), i),
+            "attn_norm": ("pp", None),
+            "wq": ("pp", None, "tp"),
+            "wk": ("pp", None, "tp"),
+            "wv": ("pp", None, "tp"),
+            "wo": ("pp", "tp", None),
+            "mlp_norm": ("pp", None),
+            "w_gate": ("pp", None, "tp"),
+            "w_up": ("pp", None, "tp"),
+            "w_down": ("pp", "tp", None),
         },
     }
     if cfg.attention_bias:
-        for name, width in (("bq", qd), ("bk", kvd), ("bv", kvd)):
-            params["layers"][name] = torch.zeros(
-                (n_layers, width), dtype=cfg.dtype, device=device
-            )
+        for name in ("bq", "bk", "bv"):
+            specs["layers"][name] = ("pp", "tp")
     if cfg.qk_norm:
-        params["layers"]["q_norm"] = ones((n_layers, cfg.head_dim))
-        params["layers"]["k_norm"] = ones((n_layers, cfg.head_dim))
+        specs["layers"]["q_norm"] = ("pp", None)
+        specs["layers"]["k_norm"] = ("pp", None)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((h, cfg.vocab_size), h)
-    return params
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def kv_cache_spec() -> tuple:
+    """The paged cache's: kv heads over tp (the reference's :242)."""
+    return ("pp", None, None, "tp", None)
+
+
+def cache_specs(cfg: LlamaConfig) -> dict:
+    return {"k": kv_cache_spec(), "v": kv_cache_spec()}
+
+
+def shard_params(params: dict, cfg: LlamaConfig, mesh, specs: dict | None = None) -> dict:
+    """This rank's slice of every leaf under ``param_specs`` (int8 leaves
+    under ``quantize_specs``), each bitwise the reference's
+    ``NamedSharding`` shard of the same leaf."""
+    from dynamo_tpu_torch.ops.quant import is_quantized, quantize_specs
+    from dynamo_tpu_torch.parallel.mesh import shard_tree
+
+    specs = specs or param_specs(cfg)
+    if is_quantized(params):
+        specs = quantize_specs(specs, QUANT_LEAVES)
+    return shard_tree(params, specs, mesh)
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
@@ -281,8 +358,12 @@ def make_rope_tables(cfg: LlamaConfig, device="cuda", max_len: int | None = None
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: LlamaConfig, token_ids) -> torch.Tensor:
-    x = params["embed"][token_ids].to(cfg.dtype)
+def _embed(params, cfg: LlamaConfig, token_ids, mesh=None) -> torch.Tensor:
+    table = params["embed"]
+    if table.shape[0] != cfg.vocab_size:  # vocab-sharded over tp
+        x = vocab_parallel_embed(table, token_ids, mesh).to(cfg.dtype)
+    else:
+        x = table[token_ids].to(cfg.dtype)
     if cfg.embed_scale != 1.0:
         # the reference multiplies by the scale cast to the model dtype
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype).item()
@@ -343,16 +424,24 @@ def llama_forward_trunk(params: dict, cfg: LlamaConfig, token_ids: torch.Tensor,
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, mesh=None):
+    """The LM head's logits; a vocab-sharded head's (tp ranks) gathered
+    from every rank."""
     if cfg.tie_word_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return mm(x, params["lm_head"])
+        table = params["embed"]
+        out, width = x @ table.to(x.dtype).T, table.shape[0]
+    else:
+        out, width = mm(x, params["lm_head"]), params["lm_head"].shape[-1]
+    return out if width == cfg.vocab_size else all_gather(out, mesh, "tp", dim=-1)
 
 
-def _residual_block(x, attn, w, cfg):
-    x = x + mm(attn.reshape(x.shape[0], -1), w["wo"])
+def _residual_block(x, attn, w, cfg, mesh=None):
+    """The layer's tail: ``wo`` then the MLP, each a residual add; on a tp
+    mesh both are row-parallel products, summed over tp."""
+    x = x + all_reduce(mm(attn.reshape(x.shape[0], -1), w["wo"]), mesh)
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"], cfg.mlp_activation)
+    return x + all_reduce(_mlp(mlp_in, w["w_gate"], w["w_up"], w["w_down"], cfg.mlp_activation),
+                          mesh)
 
 
 def llama_forward_prefill(
@@ -365,6 +454,8 @@ def llama_forward_prefill(
     start_pos,                # absolute position of token 0
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Single-sequence prefill (the split prefill step).  Returns (the last
     valid token's logits [vocab] f32, cache); the cache is written in
@@ -372,10 +463,12 @@ def llama_forward_prefill(
     reference computes it outside any Pallas kernel.  ``seq_len`` and
     ``start_pos`` are 0-d int tensors on the device (or ints): no length is
     read on the host (a captured step), and the pad rows write the dump row
-    past the cache leaf."""
+    past the cache leaf.  ``mesh``: this tp rank's shard of the parameters
+    (``shard_params``) and of the cache, its heads only; every forward
+    takes it alike."""
     return llama_forward_prefill_embeds(
-        params, cfg, _embed(params, cfg, token_ids), kv_cache, block_ids, seq_len,
-        start_pos, cos, sin,
+        params, cfg, _embed(params, cfg, token_ids, mesh), kv_cache, block_ids, seq_len,
+        start_pos, cos, sin, mesh=mesh,
     )
 
 
@@ -389,10 +482,13 @@ def llama_forward_prefill_embeds(
     start_pos,
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Prefill from precomputed input embeddings (a multimodal prompt:
     vision patch embeddings spliced before the text's token embeddings,
     LLaVA-style); the contract of ``llama_forward_prefill``."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = input_embeds.shape[0]
     x = input_embeds.to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -408,9 +504,9 @@ def llama_forward_prefill_embeds(
             attn = dense_causal_attention(
                 q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
             )[0]
-        x = _residual_block(x, attn.reshape(s, -1), w, cfg)
+        x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, last_valid_row(x, seq_len))[0].float(), kv_cache
+    return _logits(params, full_cfg, last_valid_row(x, seq_len), mesh)[0].float(), kv_cache
 
 
 def llama_forward_prefill_with_prefix(
@@ -424,14 +520,17 @@ def llama_forward_prefill_with_prefix(
     start_pos,                     # resident prefix length (block-aligned)
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Continued prefill over a resident prefix (a prefix-cache hit or a
     later chunk of a chunked prefill): the tail's queries attend to the
     prefix K/V read from the paged cache plus themselves, and only the
     tail's K/V are written.  Returns (last tail token's logits [vocab] f32,
-    cache).  Lengths as in ``llama_forward_prefill``."""
+    cache).  Lengths and ``mesh`` as in ``llama_forward_prefill``."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _embed(params, cfg, token_ids, mesh)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     for i, w in _layers(params):
@@ -447,9 +546,9 @@ def llama_forward_prefill_with_prefix(
                 q, k, v, k_prefix, v_prefix, start_pos, tail_len,
                 sliding_window=cfg.sliding_window,
             )
-        x = _residual_block(x, attn.reshape(s, -1), w, cfg)
+        x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, last_valid_row(x, tail_len))[0].float(), kv_cache
+    return _logits(params, full_cfg, last_valid_row(x, tail_len), mesh)[0].float(), kv_cache
 
 
 def check_verify_width(cfg: LlamaConfig, w: int) -> None:
@@ -509,11 +608,17 @@ def llama_forward_decode(
     slot_ids: torch.Tensor,      # [batch] int32 flat cache slot for this token
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Batched single-token decode.  Returns (logits [batch, vocab] f32,
-    cache); the cache is written in place."""
+    cache); the cache is written in place.  On a tp ``mesh`` row 2 runs on
+    this rank's ``H / tp`` query heads over its ``KVH / tp`` kv-head cache:
+    heads are kv-major, so a rank's contiguous chunk of query heads is the
+    group of its kv heads (the reference's shard_map, llama.py:506-536)."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _embed(params, cfg, token_ids, mesh)
     positions = (context_lens - 1).clamp(min=0)[:, None]  # this token's position
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
@@ -528,9 +633,9 @@ def llama_forward_decode(
             q, k_all[i], v_all[i], block_tables, context_lens,
             sliding_window=cfg.sliding_window,
         )
-        x = _residual_block(x, attn.reshape(b, -1), w, cfg)
+        x = _residual_block(x, attn.reshape(b, -1), w, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, x).float(), kv_cache
+    return _logits(params, full_cfg, x, mesh).float(), kv_cache
 
 
 def unified_planner(cfg: LlamaConfig, *, block_size: int, tb_tokens: int,

@@ -33,9 +33,11 @@ from dynamo_tpu_torch.models.llama import (
     _layers,
     _logits,
     _qkv,
+    leaf_sink,
     param_init,
     params_from_jax,  # noqa: F401 — the reference's pytree as port parameters
 )
+from dynamo_tpu_torch.models.llama import shard_params as llama_shard_params
 from dynamo_tpu_torch.ops.attention import (
     cache_rows,
     dense_causal_attention,
@@ -57,6 +59,7 @@ from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import mm
 from dynamo_tpu_torch.ops.rope import apply_rope, table_positions
+from dynamo_tpu_torch.parallel.mesh import all_reduce, shard_config
 from dynamo_tpu_torch.utils import profiling
 
 
@@ -136,36 +139,71 @@ class MixtralConfig(LlamaConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: MixtralConfig, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg: MixtralConfig, generator: torch.Generator, device="cuda",
+                shard=None) -> dict:
     """Random-init parameters on ``device`` from ``generator`` (on the same
     device): N(0, 1) / sqrt(fan_in) in float32 a layer at a time, cast to
-    the model dtype; the reference's names and layouts."""
+    the model dtype; the reference's names and layouts.  ``shard`` as in
+    ``llama.init_params``."""
     h, i, n_layers, e = (cfg.hidden_size, cfg.expert_intermediate_size, cfg.num_layers,
                          cfg.num_experts)
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     normal, ones = param_init(cfg.dtype, generator, device)
-    params = {
-        "embed": normal((cfg.vocab_size, h), 1.0),
-        "final_norm": ones((h,)),
+    params, put = leaf_sink(shard)
+    put(("embed",), normal((cfg.vocab_size, h), 1.0))
+    put(("final_norm",), ones((h,)))
+    for name, make in (
+        ("attn_norm", lambda: ones((n_layers, h))),
+        ("wq", lambda: normal((n_layers, h, qd), h)),
+        ("wk", lambda: normal((n_layers, h, kvd), h)),
+        ("wv", lambda: normal((n_layers, h, kvd), h)),
+        ("wo", lambda: normal((n_layers, qd, h), qd)),
+        ("mlp_norm", lambda: ones((n_layers, h))),
+        ("w_router", lambda: normal((n_layers, h, e), h)),
+        ("w_gate", lambda: normal((n_layers, e, h, i), h)),
+        ("w_up", lambda: normal((n_layers, e, h, i), h)),
+        ("w_down", lambda: normal((n_layers, e, i, h), i)),
+    ):
+        put(("layers", name), make())
+    if cfg.qk_norm:
+        put(("layers", "q_norm"), ones((n_layers, cfg.head_dim)))
+        put(("layers", "k_norm"), ones((n_layers, cfg.head_dim)))
+    if not cfg.tie_word_embeddings:
+        put(("lm_head",), normal((h, cfg.vocab_size), h))
+    return params
+
+
+def param_specs(cfg: MixtralConfig) -> dict:
+    """The reference's (dynamo_tpu/models/mixtral.py:154): experts over
+    ep, each expert's FFN width over tp, attention head-sharded over tp as
+    in the llama family; the embedding and the router replicated."""
+    specs = {
+        "embed": (None, None),
+        "final_norm": (None,),
         "layers": {
-            "attn_norm": ones((n_layers, h)),
-            "wq": normal((n_layers, h, qd), h),
-            "wk": normal((n_layers, h, kvd), h),
-            "wv": normal((n_layers, h, kvd), h),
-            "wo": normal((n_layers, qd, h), qd),
-            "mlp_norm": ones((n_layers, h)),
-            "w_router": normal((n_layers, h, e), h),
-            "w_gate": normal((n_layers, e, h, i), h),
-            "w_up": normal((n_layers, e, h, i), h),
-            "w_down": normal((n_layers, e, i, h), i),
+            "attn_norm": (None, None),
+            "wq": (None, None, "tp"),
+            "wk": (None, None, "tp"),
+            "wv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "mlp_norm": (None, None),
+            "w_router": (None, None, None),
+            "w_gate": (None, "ep", None, "tp"),
+            "w_up": (None, "ep", None, "tp"),
+            "w_down": (None, "ep", "tp", None),
         },
     }
     if cfg.qk_norm:
-        params["layers"]["q_norm"] = ones((n_layers, cfg.head_dim))
-        params["layers"]["k_norm"] = ones((n_layers, cfg.head_dim))
+        specs["layers"]["q_norm"] = (None, None)
+        specs["layers"]["k_norm"] = (None, None)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((h, cfg.vocab_size), h)
-    return params
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def shard_params(params: dict, cfg: MixtralConfig, mesh) -> dict:
+    """This rank's slice of every leaf under ``param_specs``."""
+    return llama_shard_params(params, cfg, mesh, param_specs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -177,15 +215,17 @@ def _embed(params, cfg: MixtralConfig, token_ids) -> torch.Tensor:
     return params["embed"][token_ids].to(cfg.dtype)
 
 
-def _block(cfg: MixtralConfig, w, x, attn):
+def _block(cfg: MixtralConfig, w, x, attn, mesh=None):
     """The layer's residual tail: the attention output ``attn`` [t, H*D]
-    through ``wo``, then the routed-expert FFN on the normed residual."""
-    x = x + mm(attn, w["wo"])
+    through ``wo`` (row-parallel on a tp mesh: summed over tp), then the
+    routed-expert FFN on the normed residual (on a mesh each rank's experts
+    and FFN slice, summed over ep and tp in ``moe_ffn``)."""
+    x = x + all_reduce(mm(attn, w["wo"]), mesh)
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
     return x + moe_ffn(
         mlp_in, w["w_router"], w["w_gate"], w["w_up"], w["w_down"],
         top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
-        norm_topk_prob=cfg.norm_topk_prob,
+        norm_topk_prob=cfg.norm_topk_prob, num_experts=cfg.num_experts, mesh=mesh,
     )
 
 
@@ -205,11 +245,14 @@ def mixtral_forward_prefill(
     start_pos,                # absolute position of token 0
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Single-sequence prefill (the split prefill step): the llama contract
-    (``llama_forward_prefill``), the experts routing every row of the
-    padded chunk.  Returns (the last valid token's logits [vocab] f32,
-    cache); the cache is written in place."""
+    (``llama_forward_prefill``, ``mesh`` included), the experts routing
+    every row of the padded chunk.  Returns (the last valid token's logits
+    [vocab] f32, cache); the cache is written in place."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -220,9 +263,9 @@ def mixtral_forward_prefill(
         write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
         with profiling.annotate("split_prefill_attention"):
             attn = dense_causal_attention(q[None], k[None], v[None], lens)[0]
-        x = _block(cfg, w, x, attn.reshape(s, -1))
+        x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, last_valid_row(x, seq_len))[0].float(), kv_cache
+    return _logits(params, full_cfg, last_valid_row(x, seq_len), mesh)[0].float(), kv_cache
 
 
 def mixtral_forward_prefill_with_prefix(
@@ -236,10 +279,13 @@ def mixtral_forward_prefill_with_prefix(
     start_pos,                     # resident prefix length (block-aligned)
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Continued prefill over a resident prefix (the llama contract): the
     tail's queries attend to the prefix read from the cache plus
     themselves; the experts see the tail's rows only."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
@@ -252,9 +298,9 @@ def mixtral_forward_prefill_with_prefix(
         with profiling.annotate("split_prefill_attention"):
             attn = prefill_attention_with_prefix(q, k, v, k_prefix, v_prefix, start_pos,
                                                  tail_len)
-        x = _block(cfg, w, x, attn.reshape(s, -1))
+        x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, last_valid_row(x, tail_len))[0].float(), kv_cache
+    return _logits(params, full_cfg, last_valid_row(x, tail_len), mesh)[0].float(), kv_cache
 
 
 def mixtral_forward_decode(
@@ -267,10 +313,13 @@ def mixtral_forward_decode(
     slot_ids: torch.Tensor,      # [batch] int32 flat cache slot for this token
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
-    """Batched single-token decode: row 2 at W = 1.  Returns (logits
-    [batch, vocab] f32, cache); idle lanes route through the experts too,
-    as the reference's do."""
+    """Batched single-token decode: row 2 at W = 1 (on a tp mesh on this
+    rank's heads).  Returns (logits [batch, vocab] f32, cache); idle lanes
+    route through the experts too, as the reference's do."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b = token_ids.shape[0]
     x = _embed(params, cfg, token_ids)
     positions = (context_lens - 1).clamp(min=0)[:, None]
@@ -284,9 +333,9 @@ def mixtral_forward_decode(
         k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
         write_rows(k_rows, v_rows, rows[i], k, v)
         attn = paged_attention_decode(q, k_all[i], v_all[i], block_tables, context_lens)
-        x = _block(cfg, w, x, attn.reshape(b, -1))
+        x = _block(cfg, w, x, attn.reshape(b, -1), mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, x).float(), kv_cache
+    return _logits(params, full_cfg, x, mesh).float(), kv_cache
 
 
 def mixtral_forward_unified(

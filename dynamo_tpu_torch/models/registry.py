@@ -10,7 +10,11 @@ Mixtral-class sparse-MoE families (``mixtral``, ``qwen3_moe``) on
 keep their attention plain, as the reference's stays in XLA, and which
 have no unified forward (the engine serves them on the split step); and
 the DeepSeek MLA family (``deepseek_v2``, ``deepseek_v3``), whose hooks
-give the engine its latent cache and its rope tables.
+give the engine its latent cache and its rope tables.  Each family but
+Gemma-2 and Gemma-3 also gives its ``param_specs`` and ``cache_specs`` (the
+reference's PartitionSpecs, as tuples of axis names) and takes ``mesh=`` in
+its split prefill and decode forwards: the engine serves it on a tensor and
+expert mesh.
 """
 
 from __future__ import annotations
@@ -69,6 +73,25 @@ class ModelFamily:
     # input-embedding quirks (gemma's sqrt(hidden) scale) included, so the
     # engine's multimodal splice stays family-agnostic
     embed: Callable | None = None
+    # the reference's PartitionSpecs as tuples of axis names: (cfg) -> a
+    # tree of specs matching the parameters; None = the family serves on
+    # no mesh (Gemma-2 and Gemma-3, refused by name)
+    param_specs: Callable | None = None
+    # (cfg) -> {"k", "v"} specs of the cache; None = the llama family's
+    # (kv heads over tp)
+    kv_cache_specs: Callable | None = None
+    # the split prefill and decode forwards take mesh=, the decode running
+    # its paged kernel on each tp rank's head shard (the reference's flag:
+    # its shard_map'd kernel); False = the engine refuses a mesh by name
+    decode_accepts_tp_mesh: bool = False
+
+    def cache_specs(self, cfg) -> dict:
+        """The cache's specs (``kv_cache_specs``, else the llama family's)."""
+        if self.kv_cache_specs is not None:
+            return self.kv_cache_specs(cfg)
+        from dynamo_tpu_torch.models import llama
+
+        return llama.cache_specs(cfg)
 
 
 def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
@@ -104,6 +127,8 @@ def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
         quant_leaves=llama.QUANT_LEAVES,
         forward_prefill_embeds=llama.llama_forward_prefill_embeds,
         embed=llama._embed,
+        param_specs=llama.param_specs,
+        decode_accepts_tp_mesh=True,
     )
 
 
@@ -146,6 +171,8 @@ def _moe_family(name: str) -> ModelFamily:
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
         quant_leaves=llama.QUANT_LEAVES,
+        param_specs=mixtral.param_specs,
+        decode_accepts_tp_mesh=True,
     )
 
 
@@ -211,6 +238,9 @@ def _deepseek_family() -> ModelFamily:
         forward_verify=deepseek.deepseek_forward_verify,
         unified_planner=deepseek.unified_planner,
         quant_leaves=deepseek.QUANT_LEAVES,
+        param_specs=deepseek.param_specs,
+        kv_cache_specs=deepseek.kv_cache_specs,
+        decode_accepts_tp_mesh=True,
     )
 
 

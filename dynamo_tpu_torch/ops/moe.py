@@ -9,7 +9,9 @@ Capacity-based top-k routing with fixed shapes, as the reference:
     combine   [E, C, H] -> [T, H]   weighted by router probabilities, f32
 
 Every expert's bank is multiplied whatever its load, so a decode step reads
-all of them.  Semantics kept exactly: capacity over the padded token count,
+all of them.  On a mesh (``moe_ffn(..., mesh=)``) a rank holds ``E / ep``
+experts, each with ``1 / tp`` of its FFN width, and the combine is summed
+over ep and tp.  Semantics kept exactly: capacity over the padded token count,
 token-major slot order, dropped (token, k) pairs contributing 0, the
 reference's top-k tie order (lower expert id first).
 """
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops.quant import qeinsum
+from dynamo_tpu_torch.parallel.mesh import all_reduce, mesh_size
 
 
 def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,26 +80,44 @@ def moe_router_sigmoid_noaux(
     return top_ids.to(torch.int32), top_scores
 
 
+def expert_slots(expert_ids: torch.Tensor, capacity: int, first_expert: int,
+                 local_experts: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(local expert id, slot, within capacity) of each (token, k) pair,
+    flat [T*k], for the experts [first_expert, first_expert +
+    local_experts): a pair's slot in its expert's buffer in token-major
+    order, -1 for a pair routed elsewhere.  An expert's slots depend on its
+    own pairs alone, so a rank holding a slice of the experts gives each of
+    them the slots the whole bank would."""
+    flat = expert_ids.reshape(-1).long() - first_expert
+    here = (flat >= 0) & (flat < local_experts)
+    onehot = F.one_hot(flat.clamp(0, local_experts - 1), local_experts) * here[:, None]
+    slots = (torch.cumsum(onehot, dim=0) * onehot).amax(dim=-1) - 1
+    return flat, slots, (slots >= 0) & (slots < capacity)
+
+
 def moe_dispatch_combine(
     x: torch.Tensor,           # [T, H]
-    expert_ids: torch.Tensor,  # [T, k]
+    expert_ids: torch.Tensor,  # [T, k] global expert ids
     probs: torch.Tensor,       # [T, k] f32
-    w_gate,                    # [E, H, I] tensor or QuantizedMatrix
-    w_up,                      # [E, H, I]
-    w_down,                    # [E, I, H]
+    w_gate,                    # [E_local, H, I] tensor or QuantizedMatrix
+    w_up,                      # [E_local, H, I]
+    w_down,                    # [E_local, I, H]
     *,
     capacity: int,
+    first_expert: int = 0,
+    partial: bool = False,
 ) -> torch.Tensor:
+    """Dispatch, the experts' FFN and the combine, for the experts whose
+    banks are given (ids ``first_expert`` on).  ``partial``: return the
+    float32 combine of these experts' pairs (an ep or tp rank's share, to
+    be summed over the mesh) instead of the sum cast to ``x``'s dtype."""
     t, h = x.shape
     e = w_gate.shape[0]
     k = expert_ids.shape[1]
-    flat_ids = expert_ids.reshape(-1).long()                   # [T*k]
-    onehot = F.one_hot(flat_ids, e)                            # [T*k, E]
-    # slot of each (token, k) in its expert's buffer: token-major order
-    slots = (torch.cumsum(onehot, dim=0) * onehot).amax(dim=-1) - 1
-    within = (slots >= 0) & (slots < capacity)
-    # pairs over capacity go to a dump row past the E*C buffer rows: the
-    # reference drops them (mode="drop"), a torch index out of range raises
+    flat_ids, slots, within = expert_slots(expert_ids, capacity, first_expert, e)
+    # pairs over capacity (and, on an ep rank, pairs of other ranks'
+    # experts) go to a dump row past the E*C buffer rows: the reference
+    # drops them (mode="drop"), a torch index out of range raises
     dump = e * capacity
     row = torch.where(within, flat_ids * capacity + slots, dump)
     token_idx = torch.arange(t, device=x.device).repeat_interleave(k)
@@ -114,7 +135,8 @@ def moe_dispatch_combine(
     # index_add_ on a card adds with atomics, whose order, so whose
     # rounding, changes from run to run)
     weighted = gathered.float() * weights[:, None]
-    return weighted.view(t, k, h).sum(dim=1).to(x.dtype)
+    combined = weighted.view(t, k, h).sum(dim=1)
+    return combined if partial else combined.to(x.dtype)
 
 
 def moe_ffn(
@@ -131,9 +153,18 @@ def moe_ffn(
     n_group: int = 1,
     topk_group: int = 1,
     norm_topk_prob: bool = True,
+    num_experts: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
+    """The routed-expert FFN.  On a ``mesh`` the banks are this rank's
+    ``E / ep`` experts (``num_experts``: the model's E), each with its
+    ``1 / tp`` of the FFN width: every rank routes every token with the
+    replicated router and sizes ``capacity`` from the global token and
+    expert counts, so slots and drops are the single device's on every
+    rank; it multiplies its own experts' banks and sums its own pairs in the
+    fixed order, then one float32 sum over ep and tp and the cast."""
     t = x.shape[0]
-    e = w_gate.shape[0]
+    e = num_experts or w_gate.shape[0]
     capacity = max(1, int(t * top_k / e * capacity_factor))
     if scoring == "sigmoid_noaux":
         if router_bias is None:
@@ -144,4 +175,9 @@ def moe_ffn(
         )
     else:
         ids, probs = moe_router(x, w_router, top_k, norm_topk_prob=norm_topk_prob)
-    return moe_dispatch_combine(x, ids, probs, w_gate, w_up, w_down, capacity=capacity)
+    if mesh_size(mesh, ("ep", "tp")) == 1:
+        return moe_dispatch_combine(x, ids, probs, w_gate, w_up, w_down, capacity=capacity)
+    first = mesh.index("ep") * w_gate.shape[0]
+    part = moe_dispatch_combine(x, ids, probs, w_gate, w_up, w_down, capacity=capacity,
+                                first_expert=first, partial=True)
+    return all_reduce(part, mesh, ("ep", "tp")).to(x.dtype)

@@ -9,6 +9,10 @@ dynamo_tpu/ops/quant.py).
   leaves.
 - ``mm(x, w)`` / ``qeinsum(spec, x, w)``: products that take a plain tensor
   or a ``QuantizedMatrix``; the model forwards call them instead of ``@``.
+- ``quantize_specs``: a parameter spec tree's twin for quantized leaves (the
+  values shard as their leaf, the scale keeps its contraction axis whole),
+  so a tensor-parallel rank quantizes nothing itself: it slices the full
+  matrix's int8 values and scales (``parallel/mesh.py``).
 
 The arithmetic order is the reference's, so the port and the JAX engine
 serve byte-identical streams from the same int8 weights: ``amax / 127``,
@@ -112,6 +116,35 @@ def quantize_params(params: dict, leaf_names: tuple[str, ...]) -> dict:
         return node
 
     return walk(params)
+
+
+def scale_spec(spec: tuple) -> tuple:
+    """The scale's sharding of a matrix sharded by ``spec``: the matrix's,
+    but for the contraction axis (second-to-last), where the scale's extent
+    is 1 and cannot be split (a row-parallel ``wo`` shards that axis over
+    tp: each rank keeps the whole per-channel scale)."""
+    entries = list(spec)
+    if len(entries) >= 2:
+        entries[-2] = None
+    return tuple(entries)
+
+
+def quantize_specs(specs: dict, leaf_names: tuple[str, ...]) -> dict:
+    """The spec-tree twin of ``quantize_params`` (the reference's
+    ``quantize_specs``): a named leaf's spec becomes a ``QuantizedMatrix``
+    of specs, the int8 values sharded as the full-precision leaf, the scale
+    by ``scale_spec``."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {
+                k: QuantizedMatrix(v, scale_spec(v)) if k in leaf_names
+                and not isinstance(v, dict) else walk(v)
+                for k, v in node.items()
+            }
+        return node
+
+    return walk(specs)
 
 
 def is_quantized(params) -> bool:

@@ -104,7 +104,11 @@ def build_torch_engine(
     directory's tokenizer wherever the engine can guide (every launch path
     then serves ``response_format: json_object``); a table that fails to
     build is logged and the engine serves unguided, refusing guided
-    requests one by one."""
+    requests one by one.  ``mesh=MeshConfig(tp=..., ep=...)`` (an override
+    like any other) serves on a tensor and expert mesh: the engine is rank 0
+    and starts its shard workers; the checkpoint is read into host memory
+    and reaches the ranks one leaf at a time, each keeping its slice, so no
+    card holds the whole model.  A mesh engine does not guide."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
     from dynamo_tpu_torch.models.registry import get_family, known_families
 
@@ -126,9 +130,10 @@ def build_torch_engine(
     wants_warmup = bool(overrides.pop("warmup", False))
     defaults.update(overrides)
     config = EngineConfig(**defaults)
+    on_mesh = config.mesh is not None and config.mesh.total() > 1
     if params is None and family.load_weights is not None:
         try:
-            params = family.load_weights(cfg, model_dir, dev)
+            params = family.load_weights(cfg, model_dir, "cpu" if on_mesh else dev)
             logger.info("loaded weights from %s", model_dir)
         except FileNotFoundError:
             logger.warning("no safetensors in %s — random-initializing weights", model_dir)
@@ -139,7 +144,7 @@ def build_torch_engine(
     # disaggregated workers) supports response_format json_object.  Engines
     # that cannot guide (fused decode, speculation) still serve and refuse
     # guided requests one by one; a failed table build serves unguided.
-    if config.decode_steps <= 1 and not engine.spec_enabled:
+    if config.decode_steps <= 1 and not engine.spec_enabled and engine.mesh is None:
         try:
             engine.enable_guided_json(HfTokenizer.from_model_dir(model_dir))
         except Exception as exc:  # noqa: BLE001 — serving works unguided

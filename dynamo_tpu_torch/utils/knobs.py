@@ -276,3 +276,15 @@ K_TOPO_PROBE_BYTES = register(
 K_TOPO_PROBE_MAX_PER_TICK = register(
     "DYN_TOPO_PROBE_MAX_PER_TICK", type="int", default=4,
     doc="max peers probed per tick (round-robin across the fleet)")
+
+# -- tensor and expert parallelism (parallel/mesh.py, engine/shard_worker.py) --
+K_MESH_BACKEND = register(
+    "DYN_MESH_BACKEND", type="str", default="",
+    doc="process-group backend of an engine mesh: `nccl` (a card a rank) or "
+        "`gloo`; empty = nccl on cards, gloo on the CPU.  Ranks share a card "
+        "only over gloo named here or by the caller")
+K_MESH_TIMEOUT_S = register(
+    "DYN_MESH_TIMEOUT_S", type="float", default=120.0,
+    doc="seconds a mesh collective waits before it raises: a dead or hung "
+        "rank ends the others' wait (an idle engine pings its shard workers "
+        "every quarter of it)")

@@ -71,6 +71,9 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.runtime.migration", "dynamo_tpu_torch.runtime.client",
             "dynamo_tpu_torch.runtime.distributed", "dynamo_tpu_torch.runtime.pipeline",
             "dynamo_tpu_torch.runtime.barrier",
+            # the tensor and expert mesh, its shard workers, bootstrap and dryrun
+            "dynamo_tpu_torch.parallel.mesh", "dynamo_tpu_torch.parallel.multihost",
+            "dynamo_tpu_torch.parallel.dryrun", "dynamo_tpu_torch.engine.shard_worker",
             "dynamo_tpu_torch.llm.kv_router.protocols",
             "dynamo_tpu_torch.llm.kv_router.indexer",
             "dynamo_tpu_torch.llm.kv_router.scheduler",

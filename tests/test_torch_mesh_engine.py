@@ -1,0 +1,100 @@
+"""The mesh engine's lifecycle on the CPU, and the mesh dryrun: a tp = 2
+engine (rank 0 here, its shard worker a child process) refuses the features
+queued for later (guided JSON, multimodal, disaggregation) by name, reads
+every rank's launch counters, and leaves no child process at ``stop()``; a
+killed shard worker makes rank 0 fail its requests within the timeout;
+``dryrun_multichip(4)`` (the counterpart of the reference's dryrun) runs its
+prefill, its sampled decode and its int8 check on four ranks."""
+
+import asyncio
+import os
+import signal
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
+from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+from dynamo_tpu_torch.parallel.dryrun import dryrun_multichip
+from dynamo_tpu_torch.parallel.mesh import MeshConfig
+from dynamo_tpu_torch.runtime.engine import Context
+from tests.test_torch_engine import collect, request
+from tests.test_torch_tp import CFG, ENGINE
+
+
+def test_dryrun_multichip_runs():
+    """The counterpart of the reference's dryrun on four ranks: dp=1 x
+    tp=4, one prefill, one sampled decode, int8 within 0.1."""
+    out = dryrun_multichip(4, device="cpu")
+    assert (out["dp"], out["tp"]) == (1, 4)
+    assert out["prefill_shape"] == [512] and len(out["tokens"]) == 4
+    assert out["int8_rel_err"] < 0.1
+
+
+def _children() -> list[str]:
+    """This process's live child processes that are shard workers."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{pid}/stat").read_text()
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()
+        if int(fields[1]) == os.getpid() and fields[0] != "Z" and "shard_worker" in cmd:
+            out.append(cmd)
+    return out
+
+
+def test_mesh_engine_refuses_later_items_and_stops_its_workers():
+    engine = TorchLlmEngine(EngineConfig(model=CFG, mesh=MeshConfig(tp=2), **ENGINE),
+                            device="cpu")
+    try:
+        assert len(_children()) == 1
+        pre = PreprocessedRequest(token_ids=[1, 2, 3]).to_wire()
+        with pytest.raises(NotImplementedError, match=r"guided JSON decoding on an engine "
+                                                      r"mesh is not ported yet \(ROADMAP item 9c\)"):
+            engine.set_guided(None, [], [])
+        with pytest.raises(NotImplementedError, match="multimodal prefill on an engine mesh"):
+            asyncio.run(engine.generate_multimodal(Context(pre), np.zeros((4, 64), np.float32)))
+        with pytest.raises(NotImplementedError, match="disaggregated decode on an engine mesh"):
+            engine.reserve_blocks(8)
+        with pytest.raises(NotImplementedError, match="disaggregated prefill on an engine mesh"):
+            asyncio.run(engine.prefill_extract(PreprocessedRequest(token_ids=[1, 2, 3])))
+        counts = engine.mesh_counts()
+        assert len(counts) == 2 and "paged_attention.plain_calls" in counts[1]
+    finally:
+        procs = list(engine._mesh_leader.procs)
+        engine.stop()
+    assert [p.returncode for p in procs] == [0]
+    assert _children() == []
+
+
+def test_killed_rank_fails_rank_zero_within_the_timeout(monkeypatch):
+    monkeypatch.setenv("DYN_MESH_TIMEOUT_S", "20")
+    engine = TorchLlmEngine(EngineConfig(model=CFG, mesh=MeshConfig(tp=2), **ENGINE),
+                            device="cpu")
+    procs = list(engine._mesh_leader.procs)
+
+    async def run():
+        engine.start()
+        tokens, finish = await collect(engine, request(range(10, 20), 4), Context)
+        assert finish == "length" and len(tokens) == 4
+        os.kill(procs[0].pid, signal.SIGKILL)
+        procs[0].wait()
+        t0 = time.monotonic()
+        tokens, finish = await asyncio.wait_for(
+            collect(engine, request(range(30, 40), 4), Context), timeout=30)
+        return finish, time.monotonic() - t0
+
+    try:
+        finish, waited = asyncio.run(run())
+        assert finish == "error" and waited < 25
+        assert engine._mesh_leader.broken is not None
+    finally:
+        engine.stop()
+    assert _children() == []
