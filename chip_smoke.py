@@ -320,7 +320,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm", "tp")
+          "mm", "tp", "pp")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -1286,6 +1286,11 @@ def phase_kernels(torch) -> dict:
     # query heads over 4 of its 8 kv heads, at decode_b32's contexts
     cases["decode_tp2_b32"] = decode_case(torch, lens=lens, seed=35, h=16, kvh=4)
     check_case("decode_b32 tp=2 shard h 16 kvh 4 d 128", cases["decode_tp2_b32"], BF16_ATOL)
+    # a pp = 2 x tp = 2 stage's microbatch (phase pp): 4 of the 8 lanes,
+    # the tp rank's 16 query heads over 4 kv heads, at decode_b32's contexts
+    cases["decode_pp2tp2_mb4"] = decode_case(torch, lens=lens[:4], seed=36, h=16, kvh=4)
+    check_case("decode pp=2 x tp=2 microbatch b 4 h 16 kvh 4 d 128", cases["decode_pp2tp2_mb4"],
+               BF16_ATOL)
     # the engine's heavy first token block: eight decode lanes at contexts up
     # to 4096 in one block (one worklist of up to 2048 entries); and the
     # serve phase's long prompt as one 1504-token span (188 blocks)
@@ -1497,6 +1502,7 @@ def phase_kernels(torch) -> dict:
         "paged_mha": cases["decode_mha_b32"]["max_abs_err"],
         "ragged_mha": cases["ragged_mix_mha"]["max_abs_err"],
         "paged_tp2": cases["decode_tp2_b32"]["max_abs_err"],
+        "paged_pp": cases["decode_pp2tp2_mb4"]["max_abs_err"],
         "mla_decode_tp2": cases["mla_decode_tp2_b32"]["max_abs_err"],
     }
     return {"cases": cases, "errs": errs}
@@ -4369,6 +4375,10 @@ def phase_longctx(torch, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 QUANT_CACHES = ("float8_e4m3fn", "float8_e5m2")
+# the served quantized configurations at phase spec's depth (half of each
+# model's layers, every width the published one's), to keep the whole
+# smoke's time for phase pp
+QUANT_CONFIGS = SPEC_CONFIGS
 QUANT_LLAMA = dict(kv_cache_dtype="fp8", quantize="int8")
 QUANT_MLA = dict(kv_cache_dtype="fp8")
 
@@ -4608,15 +4618,18 @@ def check_replays(tag: str, checked: dict) -> None:
 def phase_quant(torch, card: str) -> dict:
     """The quantized paths on the card: the kernels over fp8 caches
     (``quant_kernels``), then the Llama-3-8B geometry with int8 weights and
-    an fp8 cache and the DeepSeek-V2-Lite config with an fp8 cache, each
+    an fp8 cache and the DeepSeek-V2-Lite config with an fp8 cache (each at
+    half its depth, ``QUANT_CONFIGS``), each
     served over HTTP after ``warmup()`` (the counted traffic of phase serve,
     the decode profile, the replays against eager, MFU and bandwidth share
     from ``stats()``), then each again with n-gram speculation (the verify
     kernels on the fp8 cache)."""
     out = {"kernels": quant_kernels(torch)}
     for key, model, config, overrides, path, spec_path in (
-        ("llama", "llama3-8b-quant", LLAMA3_8B, QUANT_LLAMA, LLAMA_PATH, LLAMA_SPEC_PATH),
-        ("mla", "deepseek-v2-lite-quant", DEEPSEEK_V2_LITE, QUANT_MLA, MLA_PATH, MLA_SPEC_PATH),
+        ("llama", "llama3-8b-quant", QUANT_CONFIGS["llama"], QUANT_LLAMA, LLAMA_PATH,
+         LLAMA_SPEC_PATH),
+        ("mla", "deepseek-v2-lite-quant", QUANT_CONFIGS["mla"], QUANT_MLA, MLA_PATH,
+         MLA_SPEC_PATH),
     ):
         gc.collect()
         torch.cuda.empty_cache()
@@ -5543,13 +5556,19 @@ GEMMA3_4B_TEXT = {
 # launch, the route row 1 must take): rows 1-2 at head dim 128 on the
 # tensor-core walks, at 256 and 96 on the CUDA-core loops; Gemma-2 and
 # Gemma-3 attend plainly, as the reference's XLA path does
+# the dense families at half their depth (every width the published
+# one's), to keep the whole smoke's time for phase pp
 FAMILIES = (
     ("mixtral", "mixtral-8x7b-smoke", MIXTRAL_8X7B, "8 of 32 layers", LLAMA_PATH, "walk"),
     ("qwen3_moe", "qwen3-30b-a3b-smoke", QWEN3_30B_A3B, "8 of 48 layers", LLAMA_PATH, "walk"),
-    ("gemma", "gemma-2b-smoke", GEMMA_2B, None, LLAMA_PATH, "loop"),
-    ("phi3", "phi3-mini-4k-smoke", PHI3_MINI_4K, None, LLAMA_PATH, "loop"),
-    ("gemma2", "gemma2-2b-smoke", GEMMA2_2B, None, (), None),
-    ("gemma3", "gemma3-4b-text-smoke", GEMMA3_4B_TEXT, None, (), None),
+    ("gemma", "gemma-2b-half", dict(GEMMA_2B, num_hidden_layers=9), "9 of 18 layers",
+     LLAMA_PATH, "loop"),
+    ("phi3", "phi3-mini-4k-half", dict(PHI3_MINI_4K, num_hidden_layers=16), "16 of 32 layers",
+     LLAMA_PATH, "loop"),
+    ("gemma2", "gemma2-2b-half", dict(GEMMA2_2B, num_hidden_layers=13), "13 of 26 layers", (),
+     None),
+    ("gemma3", "gemma3-4b-text-half", dict(GEMMA3_4B_TEXT, num_hidden_layers=17),
+     "17 of 34 layers", (), None),
 )
 FAMILIES_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=2048, seed=0)
 ATTENTION_COUNTERS = ("ragged_attention.launches", "paged_attention.launches",
@@ -5762,10 +5781,11 @@ def phase_families(torch, card: str) -> dict:
 # decode_steps 8: every prompt on the eager split step, the decode windows
 # graphed) cut to the bench's least, 8 requests (its 32 take ~170 s of the
 # smoke's limit on a slow host); C bf16 at decode_steps 1 (every chunk in a
-# unified graph, rows 1-2) cut to 16 requests (room for phase tp)
+# unified graph, rows 1-2) cut to 16 requests (room for phase tp), then to
+# 8 (room for phase pp)
 BENCH_CONFIGS = (
     ("A", {"DYN_BENCH_REQUESTS": "8"}, ("paged_attention.launches",)),
-    ("C", {"DYN_BENCH_REQUESTS": "16", "DYN_BENCH_QUANT": "none",
+    ("C", {"DYN_BENCH_REQUESTS": "8", "DYN_BENCH_QUANT": "none",
            "DYN_BENCH_KV_DTYPE": "model", "DYN_BENCH_DECODE_STEPS": "1"}, LLAMA_PATH),
 )
 
@@ -6667,10 +6687,10 @@ async def tp_burst(engine, prompts, osl):
     try:
         outs = await asyncio.gather(*tasks)
         counts = engine.mesh_counts()
-        steps = engine.stats().get("mesh_steps_total")
+        stats = engine.stats()
     finally:
         engine.stop()
-    return outs, (t0, marks), counts, steps
+    return outs, (t0, marks), counts, stats
 
 
 def first_logits(torch, engine, prompt: list[int]):
@@ -6722,9 +6742,10 @@ def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw
             except BaseException:
                 engine.stop()
                 raise
-            outs, stamps, counts, steps = asyncio.run(tp_burst(engine, prompts, osl))
+            outs, stamps, counts, stats = asyncio.run(tp_burst(engine, prompts, osl))
             runs[label] = dict(logits=logits, outs=outs, e2e=ttft_itl(stamps), counts=counts,
-                               build_s=build_s, steps=steps)
+                               build_s=build_s, steps=stats.get("mesh_steps_total"),
+                               step_time=stats.get("mesh_step_time", {}))
             del engine
             gc.collect()
             if cuda:
@@ -6751,6 +6772,8 @@ def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw
                                                               runs["mesh"]["outs"]) if a == b),
             "streams": len(prompts), "parted": parted, "rank_launches": ranks,
             "mesh_steps": runs["mesh"]["steps"],
+            # rank 0's seconds a step: wall, collectives, hand-offs, ring
+            "per_step_s": per_step(runs["mesh"]["step_time"]),
             "tp1": {**{k: runs["tp1"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
                     "build_s": runs["tp1"]["build_s"]},
             "mesh_e2e": {**{k: runs["mesh"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
@@ -6759,7 +6782,8 @@ def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw
         report[fam] = row
         log(f"[tp] {model} {sizes}: logits max |diff| {row['logits_max_abs_diff']:.4f} "
             f"(bound {bound}), streams equal {row['streams_equal']}/{len(prompts)}, "
-            f"parted {parted}, ranks' {path_key} {[r[path_key] for r in ranks]}")
+            f"parted {parted}, ranks' {path_key} {[r[path_key] for r in ranks]}, "
+            f"per step {row['per_step_s']}")
         if not row["logits_max_abs_diff"] <= bound:
             raise AssertionError(f"{model}: mesh logits differ from tp = 1 by "
                                  f"{row['logits_max_abs_diff']} > {bound}")
@@ -6772,6 +6796,179 @@ def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw
                 if r[path_key] <= 0 or r["plain_calls"]:
                     raise AssertionError(f"{model}: rank {r['rank']} launched {r}")
     print(json.dumps({"smoke_tp": report}), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase pp: pipeline and sequence parallelism, the ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# As phase tp: the ranks share the one card over gloo, named, so every stage
+# hand-off, ring rotation and collective stages through host memory; the
+# times are of that arrangement, not of NVLink.  Each model runs on one
+# card first, then on each mesh, from the same seed's weights.
+PP_LLAMA_MESHES = (("pp2", dict(pp=2)), ("pp2tp2", dict(pp=2, tp=2)), ("sp2", dict(sp=2)))
+# the sp prefill's prompt: one bucket of 4096 positions, 2048 a rank
+PP_LONG = 4096
+PP_ENGINE = dict(num_blocks=1536, max_batch_size=8, max_model_len=PP_LONG + 512, seed=0,
+                 prefill_buckets=(128, 256, 512, 1024, 2048, 4096), decode_overlap=False,
+                 unified_batch=False)
+PP_SMALL_ENGINE = dict(PP_ENGINE, num_blocks=512, max_model_len=1024,
+                       prefill_buckets=(128, 256, 512, 1024))
+PP_PROMPT_LENS = (200, 150, 120, 90)
+PP_OSL = 16
+# bf16 logits of a mesh against one card on the same weights: the stages
+# alone run the same products on the same rows as one card (the hand-offs
+# are bitwise), but a tp or ep rank rounds its row-parallel partial product
+# to bf16 before the float32 sum (phase tp's reason: 0.25, 5 % of these
+# random weights' |logit| of about 5), and the ring's float32 online
+# softmax sums its chunks in another order than the dense prefill, a
+# difference the bf16 attention output can round either way.  Mixtral's
+# router can flip a near-tied expert on such a difference, which moves
+# that token's FFN output wholesale: twice the bound, as DeepSeek's in
+# phase tp.
+PP_LOGITS_ATOL = {"llama": 0.25, "mixtral": 0.5}
+# Gemma-2's random logits run up to its final soft-cap (30, against the
+# Llama logits' 5: its sqrt(hidden) embedding scale and sandwich norms), so
+# the same rounding reads larger there: 5 % of one card's |logit| max, the
+# share 0.25 is of Llama's.  (Held to an absolute 0.25, an H100 at 700 W
+# read 1.328 with every stream equal.)
+PP_LOGITS_REL = {"gemma2": 0.05}
+# the decode's kernel on every rank of these meshes (Gemma-2's attention is
+# the plain form on every device: no kernel stands behind it)
+PP_PATH = "paged_attention.launches"
+
+
+def pp_models(torch):
+    """(label, registry family, config, meshes, engine fields, prompt lengths)
+    of the phase: Llama-3-8B at full width and depth on pp, pp x tp and sp
+    (a 4096-token prompt beside the short ones), Mixtral-8x7B at full width
+    and 8 of its 32 layers on pp x ep (every routed token held: a capacity
+    factor of experts / top-k, since a microbatch routes alone), Gemma-2-2B
+    at full width and depth on pp x tp."""
+    import dataclasses
+
+    from dynamo_tpu_torch.models.registry import get_family
+
+    def parse(family, config):
+        return get_family(family).config_from_hf(config)
+
+    mix = parse("mixtral", MIXTRAL_8X7B)
+    mix = dataclasses.replace(mix, capacity_factor=mix.num_experts / mix.experts_per_token)
+    return (
+        ("llama3-8b", "llama", parse("llama", LLAMA3_8B), PP_LLAMA_MESHES, PP_ENGINE,
+         (*PP_PROMPT_LENS, PP_LONG)),
+        ("mixtral-8x7b-8l", "mixtral", mix, (("pp2ep2", dict(pp=2, ep=2)),), PP_SMALL_ENGINE,
+         PP_PROMPT_LENS),
+        ("gemma2-2b", "gemma2", parse("gemma2", GEMMA2_2B), (("pp2tp2", dict(pp=2, tp=2)),),
+         PP_SMALL_ENGINE, PP_PROMPT_LENS),
+    )
+
+
+def per_step(step_time: dict) -> dict:
+    """Rank 0's seconds a step of each program: wall, and of it in
+    collectives, stage hand-offs and ring rotations."""
+    return {prog: {"steps": r["steps"],
+                   **{k: r[k] / max(r["steps"], 1)
+                      for k in ("wall_s", "collective_s", "handoff_s", "ring_s")}}
+            for prog, r in step_time.items()}
+
+
+def phase_pp(torch, card: str, device: str = "cuda", models=None, osl: int = PP_OSL) -> dict:
+    """Each model on one card, then on each of its meshes (the ranks sharing
+    the card over gloo), from the same seed's weights: the first step's
+    logits of every prompt within ``PP_LOGITS_ATOL``, the greedy streams
+    equal but where one card's top-2 margin is within it, row 2 launched
+    on every rank of the llama and Mixtral meshes (no plain call), and the
+    seconds per step in collectives, stage hand-offs and ring rotations
+    beside the step's wall time.  One ``smoke_pp`` line."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    cuda = device == "cuda"
+    report: dict = {"card": card, "backend": TP_BACKEND}
+    for model, family, cfg, meshes, engine_kw, lens in models or pp_models(torch):
+        vocab = cfg.vocab_size
+        prompts = [[(1000 + 37 * i + 11 * j) % vocab for j in range(n)]
+                   for i, n in enumerate(lens)]
+        runs = {}
+        for label, sizes in (("one", None), *meshes):
+            # the long prompt (the sp prefill's) on one card and the sp mesh
+            mine = [p for p in prompts if len(p) < PP_LONG or label == "one"
+                    or (sizes or {}).get("sp", 1) > 1]
+            over = dict(engine_kw)
+            if sizes is not None:
+                over.update(mesh=MeshConfig(**sizes), mesh_backend=TP_BACKEND)
+            t0 = time.perf_counter()
+            engine = TorchLlmEngine(EngineConfig(model=cfg, model_family=family, **over),
+                                    device=device)
+            build_s = time.perf_counter() - t0
+            try:
+                logits = {len(p): first_logits(torch, engine, p) for p in mine}
+                engine.zero_mesh_counts()
+            except BaseException:
+                engine.stop()
+                raise
+            outs, stamps, counts, stats = asyncio.run(tp_burst(engine, mine, osl))
+            runs[label] = dict(logits=logits, outs={len(p): o for p, o in zip(mine, outs)},
+                               e2e=ttft_itl(stamps), counts=counts, build_s=build_s,
+                               stats=stats)
+            del engine
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        one = runs["one"]
+        ref_absmax = max(x.abs().max().item() for x in one["logits"].values())
+        bound = PP_LOGITS_ATOL.get(family) or PP_LOGITS_REL[family] * ref_absmax
+        rows = {}
+        for label, sizes in meshes:
+            run = runs[label]
+            diff = max((x - one["logits"][n]).abs().max().item()
+                       for n, x in run["logits"].items())
+            parted = []
+            for n, (got, _) in run["outs"].items():
+                ref, margins = one["outs"][n]
+                at = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+                if at is not None:
+                    parted.append({"prompt_len": n, "position": at,
+                                   "one_card_top2_margin": margins[at]})
+            ranks = [{"rank": r, PP_PATH: c.get(PP_PATH, 0),
+                      "plain_calls": sum(v for k, v in c.items() if k.endswith("plain_calls")),
+                      **{k: c[k] for k in ("mesh.collective_s", "mesh.handoff_s",
+                                           "mesh.ring_s")}}
+                     for r, c in enumerate(run["counts"])]
+            rows[label] = {
+                "mesh": sizes, "ranks": len(ranks), "logits_max_abs_diff": diff,
+                "logits_bound": bound, "logits_ref_absmax": ref_absmax,
+                "streams_equal": sum(1 for n, (got, _) in run["outs"].items()
+                                     if got == one["outs"][n][0]),
+                "streams": len(run["outs"]), "parted": parted, "rank_launches": ranks,
+                "mesh_steps": run["stats"].get("mesh_steps_total"),
+                "per_step_s": per_step(run["stats"].get("mesh_step_time", {})),
+                "e2e": {**{k: run["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
+                        "build_s": run["build_s"]},
+            }
+            row = rows[label]
+            log(f"[pp] {model} {sizes}: logits max |diff| {diff:.4f} (bound {bound:.4f}), "
+                f"streams equal {row['streams_equal']}/{row['streams']}, parted {parted}, ranks' "
+                f"{PP_PATH} {[r[PP_PATH] for r in ranks]}, per step {row['per_step_s']}")
+            if not diff <= bound:
+                raise AssertionError(f"{model} {label}: mesh logits differ from one card by "
+                                     f"{diff} > {bound}")
+            for p in parted:
+                if p["one_card_top2_margin"] > bound:
+                    raise AssertionError(f"{model} {label}: a greedy stream parts from one "
+                                         f"card where its top-2 margin is "
+                                         f"{p['one_card_top2_margin']} > {bound}: {p}")
+            if cuda and family != "gemma2":
+                for r in ranks:
+                    if r[PP_PATH] <= 0 or r["plain_calls"]:
+                        raise AssertionError(f"{model} {label}: rank {r['rank']} launched {r}")
+        report[model] = {"family": family, "layers": cfg.num_layers, "meshes": rows,
+                         "one_card": {**{k: one["e2e"][k] for k in ("ttft_ms_mean",
+                                                                     "itl_ms_mean")},
+                                      "build_s": one["build_s"]}}
+    print(json.dumps({"smoke_pp": report}), flush=True)
     return report
 
 
@@ -6805,7 +7002,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
-    mm = tp = None
+    mm = tp = pp = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -6870,6 +7067,8 @@ def main() -> int:
             mm = run("mm", phase_mm, torch, card)
         if "tp" in phases:
             tp = run("tp", phase_tp, torch, card)
+        if "pp" in phases:
+            pp = run("pp", phase_pp, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -6881,7 +7080,8 @@ def main() -> int:
         log(f"FAILED: {type(exc).__name__}: {exc}")
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
-    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp):
+    if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp,
+                    pp):
         cases = kinfo["cases"]
         for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
             case = cases["copy_llama_leaf"]
@@ -6959,6 +7159,14 @@ def main() -> int:
              "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_tp2_b32",
              "mla_decode_tp2",
              sum(r["mla_attention.decode_launches"] for r in tp["deepseek"]["rank_launches"])),
+            # row 2 in every pp stage on each microbatch (phase pp): the
+            # pp = 2 x tp = 2 ranks' launches summed, at that mesh's shape
+            # (4 lanes a microbatch, 16 heads over 4 kv heads)
+            ("paged_window_attention_decode (pp=2 x tp=2 stage, microbatch 4)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_pp2tp2_mb4", "paged_pp",
+             sum(r["paged_attention.launches"]
+                 for r in pp["llama3-8b"]["meshes"]["pp2tp2"]["rank_launches"])),
         ):
             c = cases[case]
             entries.append({

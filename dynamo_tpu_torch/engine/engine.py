@@ -82,11 +82,15 @@ before the text's token embeddings, the family's
 ``forward_prefill_embeds``), its blocks never publish, and its decode
 tokens ride the decode and unified windows as any lane's.
 
-On a tensor and expert mesh (``EngineConfig.mesh``: tp and ep) the engine
-is rank 0 of one process a rank (``engine/shard_worker.py``): it owns the
-only scheduler and block manager and its own shard of the weights and the
+On a mesh (``EngineConfig.mesh``: tp, ep, pp and sp) the engine is rank 0
+of one process a rank (``engine/shard_worker.py``): it owns the only
+scheduler and block manager and its own shard of the weights and the
 cache, and every split prefill and decode forward is broadcast to the shard
-workers, which run the same forward on their shards.  The unified step is
+workers, which run the same forward on their shards.  On a pp mesh the
+decode is the family's pipelined one where it has one (GPipe microbatches
+over the stages), and the prefills run the stages in turn; on an sp mesh
+the llama family's prefills ring over the bucket's chunks, and every sp
+rank runs the decode on its whole copy of the cache.  The unified step is
 off there (slug ``mesh``, as the reference's), and the windows run
 synchronously and eagerly: no overlap, no graph.  Speculative decoding,
 the offload tiers, disaggregation, guided JSON, multimodal requests and
@@ -277,11 +281,12 @@ class EngineConfig:
     # with more entries keep the largest-magnitude ones; 0 disables the
     # scatter (a request's logit_bias is then ignored), as in the reference.
     logit_bias_k: int = 64
-    # Tensor and expert parallelism (parallel/mesh.py): the engine is rank 0
-    # of a mesh of config.mesh.total() ranks, one process a rank; ranks
-    # 1..N-1 are shard workers (engine/shard_worker.py) it starts, or that
-    # joined the process group beforehand (parallel/multihost.py).  None or
-    # one rank = no mesh.  Axes tp and ep only: dp, pp and sp are refused.
+    # Tensor, expert, pipeline and sequence parallelism (parallel/mesh.py):
+    # the engine is rank 0 of a mesh of config.mesh.total() ranks, one
+    # process a rank; ranks 1..N-1 are shard workers (engine/shard_worker.py)
+    # it starts, or that joined the process group beforehand
+    # (parallel/multihost.py).  None or one rank = no mesh.  Axes tp, ep, pp
+    # and sp, checked as the reference checks them; dp is refused.
     mesh: Any = None
     # the mesh's process-group backend ("nccl" | "gloo"; None = nccl on
     # cards, gloo on the CPU, or DYN_MESH_BACKEND).  Ranks share a card
@@ -363,6 +368,9 @@ class TorchLlmEngine:
         self.kv_cache_dtype = resolve_kv_cache_dtype(config.kv_cache_dtype) or cfg.dtype
         self.mesh = None
         self._mesh_leader = None
+        # the reference's enable_prefix_caching, which the port has on
+        # always but where an sp mesh turns it off (_check_mesh)
+        self.prefix_caching = True
         mesh_cfg = config.mesh
         if mesh_cfg is not None and mesh_cfg.total() > 1:
             self._check_mesh(config)
@@ -595,7 +603,7 @@ class TorchLlmEngine:
         # prompt prefills only its uncached tail (the unified step reads the
         # resident prefix through the paged cache)
         self.allocator = BlockAllocator(
-            config.num_blocks, config.block_size, enable_prefix_caching=True,
+            config.num_blocks, config.block_size, enable_prefix_caching=self.prefix_caching,
             offload_sink=offload_sink, host_tier=self.host_tier,
             event_sink=self._sink_event,
         )
@@ -682,9 +690,11 @@ class TorchLlmEngine:
 
     def _check_mesh(self, config: EngineConfig) -> None:
         """The reference's construction checks of a mesh (its engine.py:
-        411-424), and this slice's refusals by name: pp and sp (ROADMAP item
-        9b); speculative decoding, the offload tiers and a family without
-        mesh forwards (item 9c)."""
+        411-506, word for word), and the refusals by name of ROADMAP item
+        9c: speculative decoding, the offload tiers and a family without
+        mesh forwards.  Where the reference turns prefix caching off (an sp
+        mesh, a family whose continued prefill does not ring), the port
+        turns its own off (``self.prefix_caching``) with the same warning."""
         mesh, cfg = config.mesh, config.model
         if mesh.dp > 1:
             raise ValueError(
@@ -692,17 +702,72 @@ class TorchLlmEngine:
                 "replicating workers behind the router (components/router_service.py), "
                 "not by adding dp to one engine's mesh"
             )
-        for axis, what in (("pp", "pipeline stages"), ("sp", "sequence-parallel ring prefill")):
-            if getattr(mesh, axis) > 1:
-                raise ValueError(
-                    f"{axis}={getattr(mesh, axis)}: {what} on an engine mesh are not ported "
-                    "yet (ROADMAP item 9b); this engine takes the tp and ep axes"
-                )
         if not self.family.decode_accepts_tp_mesh:
             raise ValueError(
                 f"family {config.model_family!r} serves on no mesh yet (ROADMAP item 9c): "
                 "its forwards take no mesh"
             )
+        pp = mesh.pp
+        if pp > 1:
+            ep_ok = mesh.ep == 1 or (self.family.forward_decode_pp is not None
+                                     and getattr(cfg, "num_experts", 0) > 1)
+            if mesh.sp > 1 or not ep_ok:
+                # name only the axes at fault
+                offending = {}
+                if not ep_ok:
+                    offending["ep"] = mesh.ep
+                if mesh.sp > 1:
+                    offending["sp"] = mesh.sp
+                raise ValueError(
+                    f"pp={pp} composes with tp (all families) and ep "
+                    f"(MoE families with a pipelined decode); got "
+                    f"{offending} for family {config.model_family!r}"
+                )
+            if config.max_batch_size % pp:
+                raise ValueError(
+                    f"max_batch_size={config.max_batch_size} must be divisible "
+                    f"by the pp axis ({pp}): pipeline microbatches split the "
+                    "decode batch evenly"
+                )
+            if cfg.num_layers % pp:
+                raise ValueError(
+                    f"num_layers={cfg.num_layers} must be divisible by the "
+                    f"pp axis ({pp}): layers split evenly into stages"
+                )
+        sp = mesh.sp
+        if sp > 1 and getattr(cfg, "sliding_window", None):
+            raise ValueError(
+                "sliding-window attention is incompatible with an sp "
+                "mesh: the ring path has no window mask yet"
+            )
+        if sp > 1 and not self.family.prefix_prefill_accepts_sp:
+            if config.prefill_chunk_tokens is not None:
+                raise ValueError(
+                    "prefill_chunk_tokens is incompatible with an sp "
+                    f"mesh for family {config.model_family!r}: its "
+                    "continued-prefill path has no ring attention"
+                )
+            logger.warning(
+                "sp mesh: disabling prefix caching (family %r's "
+                "continued-prefill path does not run ring attention)",
+                config.model_family,
+            )
+            self.prefix_caching = False
+        if sp > 1:
+            bad = [b for b in self.buckets if b % sp]
+            if bad:
+                raise ValueError(
+                    f"prefill buckets {bad} not divisible by the sp axis "
+                    f"({sp}): ring attention shards the sequence evenly"
+                )
+            if config.prefill_chunk_tokens is not None:
+                rounded = _round_chunk_tokens(config.prefill_chunk_tokens, config.block_size)
+                if rounded % sp:
+                    raise ValueError(
+                        f"prefill_chunk_tokens (block-rounded to {rounded}) "
+                        f"must be divisible by the sp axis ({sp}): chunk "
+                        "windows ring-shard the sequence evenly"
+                    )
         refused = {
             "speculative decoding": bool(config.speculative),
             "KV offload tiers": bool(config.host_offload_blocks or config.disk_offload_blocks
@@ -1268,8 +1333,13 @@ class TorchLlmEngine:
             # the mesh this engine is rank 0 of, and its steps run on every
             # rank (each one a step broadcast)
             out["mesh"] = {"tp": self.mesh.config.tp, "ep": self.mesh.config.ep,
+                           **{a: getattr(self.mesh.config, a) for a in ("pp", "sp")
+                              if getattr(self.mesh.config, a) > 1},
                            "ranks": self.mesh.world_size, "backend": self.mesh.backend}
             out["mesh_steps_total"] = self._mesh_leader.steps
+            # rank 0's wall seconds a program's steps took, and of those its
+            # seconds in collectives, stage hand-offs and ring rotations
+            out["mesh_step_time"] = {k: dict(v) for k, v in self._mesh_leader.step_time.items()}
         if self.host_tier is not None:
             out.update(self.host_tier.stats())
             out["offload_tiers"] = self.host_tier.tiers_snapshot()

@@ -48,10 +48,13 @@ from dynamo_tpu_torch.parallel.mesh import (
     Mesh,
     MeshConfig,
     broadcast,
+    comm_counters,
     leaf_sharder,
     make_mesh,
+    mesh_size,
     resolve_backend,
     shard_config,
+    zero_comm_counters,
 )
 from dynamo_tpu_torch.utils import knobs
 from dynamo_tpu_torch.utils.logging import get_logger
@@ -106,6 +109,27 @@ def _flat_leaves(tree, path=()):
         yield path, tree
 
 
+def forward_of(family, program: str, mesh: Mesh | None):
+    """The forward a mesh step of ``program`` runs on every rank: the
+    family's split-step forward, or on a pp mesh its pipelined decode where
+    it has one (the reference's ``_build_decode``, engine.py:1325)."""
+    if program == "decode" and mesh_size(mesh, "pp") > 1 and family.forward_decode_pp is not None:
+        return family.forward_decode_pp
+    return getattr(family, FORWARDS[program])
+
+
+def shard_cache(family, cfg, mesh: Mesh, num_blocks: int, block_size: int, dtype, device):
+    """This rank's cache: its tp heads, and its stage's layers where the
+    family's cache spec puts the layer axis on pp (the llama family's;
+    DeepSeek's latent cache is whole on every rank)."""
+    kw = {}
+    pp = mesh_size(mesh, "pp")
+    if pp > 1 and family.cache_specs(cfg)["k"][0] == "pp":
+        kw["num_layers"] = cfg.num_layers // pp
+    return family.init_kv_cache(shard_config(cfg, mesh), num_blocks, block_size, dtype, device,
+                                **kw)
+
+
 def build_shard(mesh: Mesh, spec: ShardSpec, family, params: dict | None = None):
     """This rank's ``(params, cache, cos, sin)``: the weights drawn from the
     seed or received leaf by leaf from rank 0 (``params``, rank 0's full
@@ -117,7 +141,7 @@ def build_shard(mesh: Mesh, spec: ShardSpec, family, params: dict | None = None)
 
     cfg, dev = spec.model, mesh.device
     quant = family.quant_leaves if spec.quantize == "int8" else ()
-    shard = leaf_sharder(family.param_specs(cfg), mesh, quant)
+    shard = leaf_sharder(family.mesh_param_specs(cfg, mesh), mesh, quant)
     if spec.leaves is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(spec.seed)
@@ -137,8 +161,8 @@ def build_shard(mesh: Mesh, spec: ShardSpec, family, params: dict | None = None)
                 path, full = path[:-1], QuantizedMatrix(held.pop(path[:-1]), full)
             put(path, shard(path, full))
             del full
-    cache = family.init_kv_cache(shard_config(cfg, mesh), spec.num_blocks, spec.block_size,
-                                 spec.kv_cache_dtype, dev)
+    cache = shard_cache(family, cfg, mesh, spec.num_blocks, spec.block_size,
+                        spec.kv_cache_dtype, dev)
     cos, sin = family.make_rope_tables(cfg, dev, spec.max_len)
     return out, cache, cos, sin
 
@@ -198,10 +222,14 @@ def _recv_step(mesh: Mesh) -> tuple[str, list]:
 
 
 def _counts() -> dict:
+    """This rank's kernel launch counters (``module.counter``) and its mesh
+    traffic (``mesh.<kind>_calls`` / ``mesh.<kind>_s``)."""
     from dynamo_tpu_torch.engine.graphs import launch_counters
 
-    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
-            for (mod, name), n in launch_counters().items()}
+    out = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
+           for (mod, name), n in launch_counters().items()}
+    out.update({f"mesh.{k}": v for k, v in comm_counters().items()})
+    return out
 
 
 def _zero_counts() -> None:
@@ -209,6 +237,7 @@ def _zero_counts() -> None:
 
     for mod, name in launch_counters():
         setattr(mod, name, 0)
+    zero_comm_counters()
 
 
 def _gather_counts(mesh: Mesh) -> list[dict]:
@@ -241,6 +270,9 @@ class MeshLeader:
         self.timeout_s = knobs.get("DYN_MESH_TIMEOUT_S")
         self._last_send = time.monotonic()
         self.steps = 0
+        # rank 0's wall seconds of each program's steps, and of those the
+        # seconds in its collectives, stage hand-offs and ring rotations
+        self.step_time: dict[str, dict] = {}
 
     @classmethod
     def launch(cls, config: MeshConfig, *, device_type: str, backend: str | None = None,
@@ -312,6 +344,7 @@ class MeshLeader:
         to the workers, then rank 0's own shard."""
         *mid, cos, sin = rest
         with self.lock:
+            t0, before = time.perf_counter(), comm_counters()
             self.send(program, [tokens, *mid])
             try:
                 out = forward(params, cfg, tokens, cache, *mid, cos, sin, mesh=self.mesh)
@@ -320,6 +353,13 @@ class MeshLeader:
                 self.broken = exc
                 raise
             self.steps += 1
+            after = comm_counters()
+            rec = self.step_time.setdefault(program, dict.fromkeys(
+                ("steps", "wall_s", "collective_s", "handoff_s", "ring_s"), 0))
+            rec["steps"] += 1
+            rec["wall_s"] += time.perf_counter() - t0
+            for kind in ("collective", "handoff", "ring"):
+                rec[f"{kind}_s"] += after[f"{kind}_s"] - before[f"{kind}_s"]
             return out
 
     def keepalive(self) -> None:
@@ -388,14 +428,18 @@ class MeshFamily:
     def __getattr__(self, name):
         return getattr(self._family, name)
 
+    def _run(self, program: str, *args):
+        return self._leader.run(program, forward_of(self._family, program, self._leader.mesh),
+                                *args)
+
     def forward_decode(self, *args):
-        return self._leader.run("decode", self._family.forward_decode, *args)
+        return self._run("decode", *args)
 
     def forward_prefill(self, *args):
-        return self._leader.run("prefill", self._family.forward_prefill, *args)
+        return self._run("prefill", *args)
 
     def forward_prefill_with_prefix(self, *args):
-        return self._leader.run("prefix", self._family.forward_prefill_with_prefix, *args)
+        return self._run("prefix", *args)
 
 
 # ---------------------------------------------------------------------------
@@ -429,8 +473,8 @@ def serve(mesh: Mesh) -> int:
             _gather_counts(mesh)
         else:
             tokens, *mid = args
-            getattr(family, FORWARDS[program])(params, cfg, tokens, cache, *mid, cos, sin,
-                                                mesh=mesh)
+            forward_of(family, program, mesh)(params, cfg, tokens, cache, *mid, cos, sin,
+                                              mesh=mesh)
             steps += 1
 
 

@@ -20,6 +20,14 @@ the reference's Pallas kernels have no per-layer window, soft-cap or query
 scale, so its Gemma-2 attention runs in XLA, and no kernel stands behind
 this one.  The family has no unified forward: the engine serves it on the
 split prefill and decode steps.
+
+On a mesh (``mesh=`` on the prefill and decode forwards, ``param_specs``
+the reference's): heads and the MLP width over tp, each row-parallel
+product summed over tp before its post-norm, the embedding (and so the
+tied head) whole on every rank as the reference's spec keeps it; the
+layer axis over pp, the stages run in turn (``stage_layer_stack``; the
+reference has no pipelined Gemma decode), each layer keeping its own
+window by its index in the whole model.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from dynamo_tpu_torch.models.llama import (
     _embed,
     _layers,
     _mlp,
+    _stage_input,
+    leaf_sink,
     param_init,
     params_from_jax,  # noqa: F401 — the reference's pytree as port parameters
     plus_one,
@@ -56,6 +66,8 @@ from dynamo_tpu_torch.ops.attention import (
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import mm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
+from dynamo_tpu_torch.parallel.mesh import all_reduce, mesh_size, shard_config, shard_tree
+from dynamo_tpu_torch.parallel.pipeline import first_stage, stage_layer_stack
 from dynamo_tpu_torch.utils import profiling
 
 
@@ -134,24 +146,58 @@ class Gemma2Config:
 NORM_LEAVES = ("attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm")
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg, generator: torch.Generator, device="cuda", shard=None) -> dict:
     """Random-init parameters on ``device`` from ``generator`` (on the same
-    device), the reference's names and layouts."""
+    device), the reference's names and layouts.  ``shard(path, leaf)`` as
+    in ``llama.init_params``: each leaf replaced by a rank's slice as soon
+    as it is drawn, the draws unchanged."""
     h, i, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     normal, ones = param_init(cfg.dtype, generator, device)
-    layers = {name: ones((n_layers, h)) for name in NORM_LEAVES}
-    layers.update(
-        wq=normal((n_layers, h, qd), h),
-        wk=normal((n_layers, h, kvd), h),
-        wv=normal((n_layers, h, kvd), h),
-        wo=normal((n_layers, qd, h), qd),
-        w_gate=normal((n_layers, h, i), h),
-        w_up=normal((n_layers, h, i), h),
-        w_down=normal((n_layers, i, h), i),
-    )
-    return {"embed": normal((cfg.vocab_size, h), 1.0), "final_norm": ones((h,)),
-            "layers": layers}
+    params, put = leaf_sink(shard)
+    for name in NORM_LEAVES:
+        put(("layers", name), ones((n_layers, h)))
+    for name, make in (
+        ("wq", lambda: normal((n_layers, h, qd), h)),
+        ("wk", lambda: normal((n_layers, h, kvd), h)),
+        ("wv", lambda: normal((n_layers, h, kvd), h)),
+        ("wo", lambda: normal((n_layers, qd, h), qd)),
+        ("w_gate", lambda: normal((n_layers, h, i), h)),
+        ("w_up", lambda: normal((n_layers, h, i), h)),
+        ("w_down", lambda: normal((n_layers, i, h), i)),
+    ):
+        put(("layers", name), make())
+    put(("embed",), normal((cfg.vocab_size, h), 1.0))
+    put(("final_norm",), ones((h,)))
+    return params
+
+
+def param_specs(cfg) -> dict:
+    """The reference's (dynamo_tpu/models/gemma2.py:162) as tuples of axis
+    names: the llama family's tp and pp story (heads and the MLP width over
+    tp, ``wo`` and ``w_down`` by row; the layer axis over pp), the
+    embedding replicated; Gemma-3's per-head q/k norms with the layers."""
+    norm = ("pp", None)
+    layers = {name: norm for name in NORM_LEAVES}
+    if hasattr(cfg, "global_layers"):  # Gemma-3 (dynamo_tpu/models/gemma3.py:180)
+        layers.update(q_norm=norm, k_norm=norm)
+    layers.update(wq=("pp", None, "tp"), wk=("pp", None, "tp"), wv=("pp", None, "tp"),
+                  wo=("pp", "tp", None), w_gate=("pp", None, "tp"), w_up=("pp", None, "tp"),
+                  w_down=("pp", "tp", None))
+    return {"embed": (None, None), "final_norm": (None,), "layers": layers}
+
+
+def shard_params(params: dict, cfg, mesh) -> dict:
+    """This rank's slice of every leaf under ``param_specs`` (int8 leaves
+    under ``quantize_specs``), each the reference's ``NamedSharding`` shard
+    of the same leaf."""
+    from dynamo_tpu_torch.models.llama import QUANT_LEAVES
+    from dynamo_tpu_torch.ops.quant import is_quantized, quantize_specs
+
+    specs = param_specs(cfg)
+    if is_quantized(params):
+        specs = quantize_specs(specs, QUANT_LEAVES)
+    return shard_tree(params, specs, mesh)
 
 
 def make_rope_tables(cfg: Gemma2Config, device="cuda", max_len: int | None = None):
@@ -196,91 +242,127 @@ def attn_kwargs(cfg, window: int) -> dict:
     }
 
 
-def sandwich(x, w, cfg, attn):
+def sandwich(x, w, cfg, attn, mesh=None):
     """The layer's tail: the attention output ``attn`` [t, H*D] through
     ``wo`` and its post-norm into the residual, then the GeGLU MLP between
-    its two norms."""
+    its two norms.  On a tp mesh both products are row-parallel, summed
+    over tp before their post-norms."""
     eps = cfg.rms_norm_eps
-    x = x + rms_norm(mm(attn, w["wo"]), w["post_attn_norm"], eps)
+    x = x + rms_norm(all_reduce(mm(attn, w["wo"]), mesh), w["post_attn_norm"], eps)
     mlp = _mlp(rms_norm(x, w["mlp_norm"], eps), w["w_gate"], w["w_up"], w["w_down"],
                "gelu_tanh")
-    return x + rms_norm(mlp, w["post_mlp_norm"], eps)
+    return x + rms_norm(all_reduce(mlp, mesh), w["post_mlp_norm"], eps)
 
 
-def _layer_inputs(cfg, params):
-    """(layer index, weights, window) of every layer."""
-    for (i, w), window in zip(_layers(params), cfg.layer_windows()):
-        yield i, w, window
+def _layer_inputs(cfg, params, mesh=None):
+    """(layer index in this rank's stack, weights, window, index in the
+    whole model) of every layer this rank holds: a pp stage's layers keep
+    the windows (and Gemma-3's rope tables) of their place in the model."""
+    n_local = next(iter(params["layers"].values())).shape[0]
+    first = mesh.index("pp") * n_local if mesh_size(mesh, "pp") > 1 else 0
+    windows = cfg.layer_windows()
+    for i, w in _layers(params):
+        yield i, w, windows[first + i], first + i
 
 
-def prefill(params, cfg, qkv, token_ids, kv_cache, block_ids, seq_len, start_pos, cos):
+def prefill(params, cfg, qkv, token_ids, kv_cache, block_ids, seq_len, start_pos, cos,
+            mesh=None):
     """The split prefill step of the Gemma families: the llama contract
-    (``llama_forward_prefill``), each layer masked by its own window.
-    ``qkv(x, w, i, positions)`` gives layer i's roped q, k and v; ``cos``,
-    the rope table, bounds the positions."""
-    return prefill_embeds(params, cfg, qkv, _embed(params, cfg, token_ids), kv_cache,
-                          block_ids, seq_len, start_pos, cos)
+    (``llama_forward_prefill``, ``mesh`` included), each layer masked by
+    its own window.  ``qkv(x, w, g, positions)`` gives layer g's (by its
+    index in the model) roped q, k and v; ``cos``, the rope table, bounds
+    the positions."""
+    s = token_ids.shape[0]
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), s, cfg, token_ids.device, mesh)
+    return prefill_embeds(params, cfg, qkv, x, kv_cache, block_ids, seq_len, start_pos, cos,
+                          mesh)
 
 
 def prefill_embeds(params, cfg, qkv, input_embeds, kv_cache, block_ids, seq_len, start_pos,
-                   cos):
+                   cos, mesh=None):
     """``prefill`` from precomputed input embeddings [seq_pad, hidden] (a
     multimodal prompt: the family's ``embed`` hook applies the sqrt(hidden)
     scale to the text rows before the splice)."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = input_embeds.shape[0]
     x = input_embeds.to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     lens = torch.as_tensor(seq_len, device=x.device).reshape(1)
-    for i, w, window in _layer_inputs(cfg, params):
-        q, k, v = qkv(x, w, i, positions)
-        write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = dense_causal_attention(q[None], k[None], v[None], lens,
-                                          **attn_kwargs(cfg, window))[0]
-        x = sandwich(x, w, cfg, attn.reshape(s, -1))
+
+    def run_layers(x):
+        for i, w, window, g in _layer_inputs(cfg, params, mesh):
+            q, k, v = qkv(x, w, g, positions)
+            write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
+            with profiling.annotate("split_prefill_attention"):
+                attn = dense_causal_attention(q[None], k[None], v[None], lens,
+                                              **attn_kwargs(cfg, window))[0]
+            x = sandwich(x, w, cfg, attn.reshape(s, -1), mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _final_logits(params, cfg, last_valid_row(x, seq_len))[0], kv_cache
+    return _final_logits(params, full_cfg, last_valid_row(x, seq_len))[0], kv_cache
 
 
 def prefill_with_prefix(params, cfg, qkv, token_ids, kv_cache, full_block_ids,
-                        tail_block_ids, tail_len, start_pos, cos):
+                        tail_block_ids, tail_len, start_pos, cos, mesh=None):
     """Continued prefill over a resident prefix (the llama contract), each
     layer masked by its own window."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), s, cfg, token_ids.device, mesh)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    for i, w, window in _layer_inputs(cfg, params):
-        q, k, v = qkv(x, w, i, positions)
-        # read the resident prefix BEFORE the tail is written
-        k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
-        write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = prefill_attention_with_prefix(q, k, v, k_prefix, v_prefix, start_pos,
-                                                 tail_len, **attn_kwargs(cfg, window))
-        x = sandwich(x, w, cfg, attn.reshape(s, -1))
+
+    def run_layers(x):
+        for i, w, window, g in _layer_inputs(cfg, params, mesh):
+            q, k, v = qkv(x, w, g, positions)
+            # read the resident prefix BEFORE the tail is written
+            k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
+            write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
+            with profiling.annotate("split_prefill_attention"):
+                attn = prefill_attention_with_prefix(q, k, v, k_prefix, v_prefix, start_pos,
+                                                     tail_len, **attn_kwargs(cfg, window))
+            x = sandwich(x, w, cfg, attn.reshape(s, -1), mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _final_logits(params, cfg, last_valid_row(x, tail_len))[0], kv_cache
+    return _final_logits(params, full_cfg, last_valid_row(x, tail_len))[0], kv_cache
 
 
-def decode(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, slot_ids):
+def decode(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, slot_ids,
+           mesh=None):
     """Batched single-token decode (the llama contract), plain attention
-    with each layer's window, soft-cap and query scale."""
+    with each layer's window, soft-cap and query scale; on a pp mesh the
+    stages in turn."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), b, cfg, token_ids.device, mesh)
     positions = (context_lens - 1).clamp(min=0)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
     rows = slot_rows(slot_ids, k_all)  # idle lanes write the dump row
-    for i, w, window in _layer_inputs(cfg, params):
-        q, k, v = qkv(x, w, i, positions)
-        write_rows(k_rows, v_rows, rows[i], k, v)
-        attn = paged_decode_attention(q, k_all[i], v_all[i], block_tables, context_lens,
-                                      **attn_kwargs(cfg, window))
-        x = sandwich(x, w, cfg, attn.reshape(b, -1))
+
+    def run_layers(x):
+        for i, w, window, g in _layer_inputs(cfg, params, mesh):
+            q, k, v = qkv(x, w, g, positions)
+            write_rows(k_rows, v_rows, rows[i], k, v)
+            attn = paged_decode_attention(q, k_all[i], v_all[i], block_tables, context_lens,
+                                          **attn_kwargs(cfg, window))
+            x = sandwich(x, w, cfg, attn.reshape(b, -1), mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _final_logits(params, cfg, x), kv_cache
+    return _final_logits(params, full_cfg, x), kv_cache
 
 
 def verify(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, slot_ids,
@@ -296,8 +378,8 @@ def verify(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, sl
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
     rows = last_writer_rows(slot_ids.reshape(-1), k_all)
-    for i, w, window in _layer_inputs(cfg, params):
-        q, k, v = qkv(x, w, i, positions)
+    for i, w, window, g in _layer_inputs(cfg, params):
+        q, k, v = qkv(x, w, g, positions)
         write_rows(k_rows, v_rows, rows[i], k, v)
         attn = paged_window_attention(
             q.view(b, w_len, cfg.num_heads, cfg.head_dim), k_all[i], v_all[i], block_tables,
@@ -307,8 +389,10 @@ def verify(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, sl
     return _final_logits(params, cfg, x).view(b, w_len, -1), kv_cache
 
 
-def _roped(cfg: Gemma2Config, cos, sin):
-    def qkv(x, w, i, positions):
+def _roped(cfg: Gemma2Config, cos, sin, mesh=None):
+    cfg = shard_config(cfg, mesh)
+
+    def qkv(x, w, g, positions):
         q, k, v = _qkv(rms_norm(x, w["attn_norm"], cfg.rms_norm_eps), w, cfg)
         return apply_rope(q, positions, cos, sin), apply_rope(k, positions, cos, sin), v
 
@@ -316,25 +400,25 @@ def _roped(cfg: Gemma2Config, cos, sin):
 
 
 def gemma2_forward_prefill(params, cfg: Gemma2Config, token_ids, kv_cache, block_ids,
-                           seq_len, start_pos, cos, sin):
+                           seq_len, start_pos, cos, sin, *, mesh=None):
     """Single-sequence prefill: (the last valid token's logits [vocab] f32,
-    cache), the cache written in place."""
-    return prefill(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache, block_ids,
-                   seq_len, start_pos, cos)
+    cache), the cache written in place; ``mesh`` as the llama family's."""
+    return prefill(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache, block_ids,
+                   seq_len, start_pos, cos, mesh)
 
 
 def gemma2_forward_prefill_with_prefix(params, cfg: Gemma2Config, token_ids, kv_cache,
                                        full_block_ids, tail_block_ids, tail_len, start_pos,
-                                       cos, sin):
-    return prefill_with_prefix(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache,
-                               full_block_ids, tail_block_ids, tail_len, start_pos, cos)
+                                       cos, sin, *, mesh=None):
+    return prefill_with_prefix(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache,
+                               full_block_ids, tail_block_ids, tail_len, start_pos, cos, mesh)
 
 
 def gemma2_forward_decode(params, cfg: Gemma2Config, token_ids, kv_cache, block_tables,
-                          context_lens, slot_ids, cos, sin):
+                          context_lens, slot_ids, cos, sin, *, mesh=None):
     """Batched decode: (logits [batch, vocab] f32, cache)."""
-    return decode(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache, block_tables,
-                  context_lens, slot_ids)
+    return decode(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache, block_tables,
+                  context_lens, slot_ids, mesh)
 
 
 def gemma2_forward_verify(params, cfg: Gemma2Config, token_ids, kv_cache, block_tables,

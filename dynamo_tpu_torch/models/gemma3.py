@@ -34,6 +34,7 @@ from dynamo_tpu_torch.models import gemma2
 from dynamo_tpu_torch.models.llama import params_from_jax  # noqa: F401 — re-exported
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
+from dynamo_tpu_torch.parallel.mesh import shard_config
 
 
 @dataclass(frozen=True)
@@ -120,14 +121,21 @@ class Gemma3Config:
         )
 
 
-def init_params(cfg: Gemma3Config, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg: Gemma3Config, generator: torch.Generator, device="cuda",
+                shard=None) -> dict:
     """Gemma-2's parameters (``gemma2.init_params``) and the per-head q/k
-    norms [L, head_dim]."""
-    params = gemma2.init_params(cfg, generator, device)
+    norms [L, head_dim]; ``shard`` as there."""
+    params = gemma2.init_params(cfg, generator, device, shard=shard)
     for name in ("q_norm", "k_norm"):
-        params["layers"][name] = torch.ones((cfg.num_layers, cfg.head_dim), dtype=cfg.dtype,
-                                            device=device)
+        leaf = torch.ones((cfg.num_layers, cfg.head_dim), dtype=cfg.dtype, device=device)
+        params["layers"][name] = leaf if shard is None else shard(("layers", name), leaf)
     return params
+
+
+# the reference's (dynamo_tpu/models/gemma3.py:180): Gemma-2's, with the
+# per-head q/k norms on the layer axis
+param_specs = gemma2.param_specs
+shard_params = gemma2.shard_params
 
 
 def make_rope_tables(cfg: Gemma3Config, device="cuda", max_len: int | None = None):
@@ -148,27 +156,29 @@ def _rope_halves(cos, sin, is_global: bool):
     return cos[..., part], sin[..., part]
 
 
-def _roped(cfg: Gemma3Config, cos, sin):
-    """Layer i's roped q, k and v: the per-head (1 + w) q/k norms, then the
-    rope table of the layer's kind."""
+def _roped(cfg: Gemma3Config, cos, sin, mesh=None):
+    """Layer g's (by its index in the model) roped q, k and v: the per-head
+    (1 + w) q/k norms, then the rope table of the layer's kind."""
+    cfg = shard_config(cfg, mesh)
 
-    def qkv(x, w, i, positions):
+    def qkv(x, w, g, positions):
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = gemma2._qkv(attn_in, w, cfg)
         q = rms_norm(q, w["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, w["k_norm"], cfg.rms_norm_eps)
-        c, s = _rope_halves(cos, sin, cfg.global_layers[i])
+        c, s = _rope_halves(cos, sin, cfg.global_layers[g])
         return apply_rope(q, positions, c, s), apply_rope(k, positions, c, s), v
 
     return qkv
 
 
 def gemma3_forward_prefill(params, cfg: Gemma3Config, token_ids, kv_cache, block_ids,
-                           seq_len, start_pos, cos, sin):
+                           seq_len, start_pos, cos, sin, *, mesh=None):
     """Single-sequence prefill (the split prefill step): (the last valid
-    token's logits [vocab] f32, cache), the cache written in place."""
-    return gemma2.prefill(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache,
-                          block_ids, seq_len, start_pos, cos)
+    token's logits [vocab] f32, cache), the cache written in place;
+    ``mesh`` as Gemma-2's."""
+    return gemma2.prefill(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache,
+                          block_ids, seq_len, start_pos, cos, mesh)
 
 
 def gemma3_forward_prefill_embeds(params, cfg: Gemma3Config, input_embeds, kv_cache,
@@ -182,17 +192,17 @@ def gemma3_forward_prefill_embeds(params, cfg: Gemma3Config, input_embeds, kv_ca
 
 def gemma3_forward_prefill_with_prefix(params, cfg: Gemma3Config, token_ids, kv_cache,
                                        full_block_ids, tail_block_ids, tail_len, start_pos,
-                                       cos, sin):
-    return gemma2.prefill_with_prefix(params, cfg, _roped(cfg, cos, sin), token_ids,
+                                       cos, sin, *, mesh=None):
+    return gemma2.prefill_with_prefix(params, cfg, _roped(cfg, cos, sin, mesh), token_ids,
                                       kv_cache, full_block_ids, tail_block_ids, tail_len,
-                                      start_pos, cos)
+                                      start_pos, cos, mesh)
 
 
 def gemma3_forward_decode(params, cfg: Gemma3Config, token_ids, kv_cache, block_tables,
-                          context_lens, slot_ids, cos, sin):
+                          context_lens, slot_ids, cos, sin, *, mesh=None):
     """Batched decode: (logits [batch, vocab] f32, cache)."""
-    return gemma2.decode(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache,
-                         block_tables, context_lens, slot_ids)
+    return gemma2.decode(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache,
+                         block_tables, context_lens, slot_ids, mesh)
 
 
 def gemma3_forward_verify(params, cfg: Gemma3Config, token_ids, kv_cache, block_tables,

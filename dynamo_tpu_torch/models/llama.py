@@ -57,11 +57,22 @@ from dynamo_tpu_torch.ops.kernels.paged_attention import check_window
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import QuantizedMatrix, mm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions
+from dynamo_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    ring_attention_with_prefix,
+    sequence_chunk,
+)
 from dynamo_tpu_torch.parallel.mesh import (
     all_gather,
     all_reduce,
+    mesh_size,
     shard_config,
     vocab_parallel_embed,
+)
+from dynamo_tpu_torch.parallel.pipeline import (
+    first_stage,
+    pipeline_layer_stack,
+    stage_layer_stack,
 )
 from dynamo_tpu_torch.utils import profiling
 
@@ -258,8 +269,8 @@ def param_specs(cfg: LlamaConfig) -> dict:
     tuples of axis names: tp shards the heads of ``wq``/``wk``/``wv`` (and
     Qwen2's biases) and the FFN's ``w_gate``/``w_up`` by column, ``wo`` and
     ``w_down`` by row (their products are summed over tp), the vocabulary
-    of the embedding and the LM head; ``pp`` (the layer axis) is a later
-    slice of the port and has size 1 on every mesh it takes."""
+    of the embedding and the LM head; ``pp`` the layer axis (a stage holds
+    its layers and their cache)."""
     specs = {
         "embed": ("tp", None),
         "final_norm": (None,),
@@ -287,7 +298,8 @@ def param_specs(cfg: LlamaConfig) -> dict:
 
 
 def kv_cache_spec() -> tuple:
-    """The paged cache's: kv heads over tp (the reference's :242)."""
+    """The paged cache's: the layer axis over pp, kv heads over tp,
+    replicated over sp (the reference's :242)."""
     return ("pp", None, None, "tp", None)
 
 
@@ -335,8 +347,11 @@ def params_from_jax(tree, device="cuda"):
 
 
 def init_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int, dtype=None,
-                  device="cuda") -> dict:
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+                  device="cuda", num_layers: int | None = None) -> dict:
+    """The paged cache ``{"k", "v"}: [L, N, bs, kvh, d]``; ``num_layers``
+    (default the model's) a pp stage's share of the layers."""
+    shape = (num_layers or cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
     dtype = dtype or cfg.dtype
     return {
         "k": alloc_cache_leaf(shape, dtype, device),
@@ -444,6 +459,52 @@ def _residual_block(x, attn, w, cfg, mesh=None):
                           mesh)
 
 
+def _stage_input(make, rows: int, cfg, device, mesh) -> torch.Tensor:
+    """Stage 0's activations (``make()``: the embedding), or on a later
+    pipeline stage an empty tensor of their shape: its rows come from the
+    previous stage (``parallel.pipeline``)."""
+    if first_stage(mesh):
+        return make()
+    return torch.empty((rows, cfg.hidden_size), dtype=cfg.dtype, device=device)
+
+
+def _sp_chunk(s: int, mesh) -> tuple[int, int]:
+    """(offset, length) of this sp rank's contiguous chunk of a bucket of
+    ``s`` positions: the whole bucket off an sp mesh."""
+    n = mesh_size(mesh, "sp")
+    if n == 1:
+        return 0, s
+    chunk = sequence_chunk(s, n)
+    return mesh.index("sp") * chunk, chunk
+
+
+def _check_sp_window(cfg, mesh) -> None:
+    if mesh_size(mesh, "sp") > 1 and cfg.sliding_window is not None:
+        # the ring has no window mask: a shard would compute full attention
+        raise NotImplementedError(
+            "sequence parallelism does not compose with sliding-window "
+            "attention: ring attention computes the full causal mask"
+        )
+
+
+def _sp_last_row(x: torch.Tensor, n, offset: int, mesh) -> torch.Tensor:
+    """Row ``max(n - 1, 0)`` of the whole sequence as ``[1, ...]``, on
+    every rank: on an sp mesh the rank whose chunk holds it gives it, the
+    others zeros, and the sum over sp is that row exactly."""
+    if mesh_size(mesh, "sp") == 1:
+        return last_valid_row(x, n)
+    r = (torch.as_tensor(n, device=x.device) - 1).clamp(min=0).reshape(1).long() - offset
+    mine = (r >= 0) & (r < x.shape[0])
+    row = x.index_select(0, r.clamp(0, x.shape[0] - 1))
+    return all_reduce(torch.where(mine[:, None], row, torch.zeros_like(row)), mesh, "sp")
+
+
+def _sp_kv(k: torch.Tensor, v: torch.Tensor, mesh):
+    """A chunk's K/V, all-gathered over sp into the whole sequence's: the
+    cache is replicated over sp, so every rank writes every row."""
+    return all_gather(k, mesh, "sp", dim=0), all_gather(v, mesh, "sp", dim=0)
+
+
 def llama_forward_prefill(
     params: dict,
     cfg: LlamaConfig,
@@ -463,13 +524,17 @@ def llama_forward_prefill(
     reference computes it outside any Pallas kernel.  ``seq_len`` and
     ``start_pos`` are 0-d int tensors on the device (or ints): no length is
     read on the host (a captured step), and the pad rows write the dump row
-    past the cache leaf.  ``mesh``: this tp rank's shard of the parameters
-    (``shard_params``) and of the cache, its heads only; every forward
-    takes it alike."""
-    return llama_forward_prefill_embeds(
-        params, cfg, _embed(params, cfg, token_ids, mesh), kv_cache, block_ids, seq_len,
-        start_pos, cos, sin, mesh=mesh,
-    )
+    past the cache leaf.  ``mesh``: this rank's shard of the parameters
+    (``shard_params``) and of the cache: its tp heads, its pp stage's
+    layers (the stages run in turn, ``stage_layer_stack``; a later stage
+    returns None for the logits, which reach stage 0), its sp chunk of the
+    bucket (attention over the sp ring, ``ops.ring_attention``); every
+    forward takes it alike."""
+    off, chunk = _sp_chunk(token_ids.shape[0], mesh)
+    x = _stage_input(lambda: _embed(params, shard_config(cfg, mesh),
+                                    token_ids[off:off + chunk], mesh),
+                     chunk, cfg, token_ids.device, mesh)
+    return _prefill(params, cfg, x, kv_cache, block_ids, seq_len, start_pos, cos, sin, mesh)
 
 
 def llama_forward_prefill_embeds(
@@ -488,25 +553,48 @@ def llama_forward_prefill_embeds(
     """Prefill from precomputed input embeddings (a multimodal prompt:
     vision patch embeddings spliced before the text's token embeddings,
     LLaVA-style); the contract of ``llama_forward_prefill``."""
+    off, chunk = _sp_chunk(input_embeds.shape[0], mesh)
+    x = _stage_input(lambda: input_embeds[off:off + chunk].to(cfg.dtype), chunk, cfg,
+                     input_embeds.device, mesh)
+    return _prefill(params, cfg, x, kv_cache, block_ids, seq_len, start_pos, cos, sin, mesh)
+
+
+def _prefill(params, cfg, x, kv_cache, block_ids, seq_len, start_pos, cos, sin, mesh):
+    """The prefill's layers on this rank's rows ``x`` (its sp chunk, or the
+    bucket), then the head on stage 0."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
-    s = input_embeds.shape[0]
-    x = input_embeds.to(cfg.dtype)
-    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+    _check_sp_window(cfg, mesh)
+    sp = mesh_size(mesh, "sp") > 1
+    s = x.shape[0]
+    off = mesh.index("sp") * s if sp else 0
+    positions = table_positions(start_pos + off + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     lens = torch.as_tensor(seq_len, device=x.device).reshape(1)
-    for i, w in _layers(params):
-        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(attn_in, w, cfg)
-        q = apply_rope(q, positions, cos, sin)
-        k = apply_rope(k, positions, cos, sin)
-        write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = dense_causal_attention(
-                q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
-            )[0]
-        x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
+
+    def run_layers(x):
+        for i, w in _layers(params):
+            attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = _qkv(attn_in, w, cfg)
+            q = apply_rope(q, positions, cos, sin)
+            k = apply_rope(k, positions, cos, sin)
+            write_prefill_kv(k_all[i], v_all[i], *(_sp_kv(k, v, mesh) if sp else (k, v)),
+                             block_ids, seq_len)
+            with profiling.annotate("split_prefill_attention"):
+                if sp:
+                    attn = ring_attention(q[None], k[None], v[None], seq_len, mesh)[0]
+                else:
+                    attn = dense_causal_attention(
+                        q[None], k[None], v[None], lens, sliding_window=cfg.sliding_window,
+                    )[0]
+            x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, full_cfg, last_valid_row(x, seq_len), mesh)[0].float(), kv_cache
+    return _logits(params, full_cfg, _sp_last_row(x, seq_len, off, mesh), mesh)[0].float(), \
+        kv_cache
 
 
 def llama_forward_prefill_with_prefix(
@@ -527,28 +615,47 @@ def llama_forward_prefill_with_prefix(
     later chunk of a chunked prefill): the tail's queries attend to the
     prefix K/V read from the paged cache plus themselves, and only the
     tail's K/V are written.  Returns (last tail token's logits [vocab] f32,
-    cache).  Lengths and ``mesh`` as in ``llama_forward_prefill``."""
+    cache).  Lengths and ``mesh`` as in ``llama_forward_prefill``; on an sp
+    mesh the tail rings and each rank folds in the whole resident prefix
+    (``ring_attention_with_prefix``)."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
-    s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids, mesh)
-    positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
+    _check_sp_window(cfg, mesh)
+    off, s = _sp_chunk(token_ids.shape[0], mesh)
+    sp = mesh_size(mesh, "sp") > 1
+    x = _stage_input(lambda: _embed(params, cfg, token_ids[off:off + s], mesh), s, cfg,
+                     token_ids.device, mesh)
+    positions = table_positions(start_pos + off + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    for i, w in _layers(params):
-        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(attn_in, w, cfg)
-        q = apply_rope(q, positions, cos, sin)
-        k = apply_rope(k, positions, cos, sin)
-        # read the resident prefix BEFORE the tail is written
-        k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
-        write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = prefill_attention_with_prefix(
-                q, k, v, k_prefix, v_prefix, start_pos, tail_len,
-                sliding_window=cfg.sliding_window,
-            )
-        x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
+
+    def run_layers(x):
+        for i, w in _layers(params):
+            attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = _qkv(attn_in, w, cfg)
+            q = apply_rope(q, positions, cos, sin)
+            k = apply_rope(k, positions, cos, sin)
+            # read the resident prefix BEFORE the tail is written
+            k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
+            write_prefill_kv(k_all[i], v_all[i], *(_sp_kv(k, v, mesh) if sp else (k, v)),
+                             tail_block_ids, tail_len)
+            with profiling.annotate("split_prefill_attention"):
+                if sp:
+                    attn = ring_attention_with_prefix(
+                        q[None], k[None], v[None], k_prefix[None], v_prefix[None], start_pos,
+                        tail_len, mesh)[0]
+                else:
+                    attn = prefill_attention_with_prefix(
+                        q, k, v, k_prefix, v_prefix, start_pos, tail_len,
+                        sliding_window=cfg.sliding_window,
+                    )
+            x = _residual_block(x, attn.reshape(s, -1), w, cfg, mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, full_cfg, last_valid_row(x, tail_len), mesh)[0].float(), kv_cache
+    return _logits(params, full_cfg, _sp_last_row(x, tail_len, off, mesh), mesh)[0].float(), \
+        kv_cache
 
 
 def check_verify_width(cfg: LlamaConfig, w: int) -> None:
@@ -598,6 +705,37 @@ def llama_forward_verify(
     return _logits(params, cfg, x).view(b, w_len, -1).float(), kv_cache
 
 
+def decode_layer(cfg: LlamaConfig, kv_cache: dict, cos, sin, mesh=None):
+    """The decode's layer body, ``body(x, aux, i, w) -> x``: layer ``i`` on
+    a batch of lanes ``x`` [b, hidden], ``aux`` = (positions [b, 1], cache
+    rows [b, L] (``slot_rows`` transposed), block tables, context lengths)
+    of those lanes; the K/V rows written in place, then row 2 at W = 1 over
+    the layer's cache (on a tp mesh this rank's heads), then the residual
+    tail.  ``cfg`` is the rank's (``shard_config``)."""
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
+
+    def body(x, aux, i, w):
+        positions, rows, tables, lens = aux
+        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(attn_in, w, cfg)
+        q = apply_rope(q[:, None], positions, cos, sin)[:, 0]
+        k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
+        write_rows(k_rows, v_rows, rows[:, i], k, v)
+        attn = paged_attention_decode(q, k_all[i], v_all[i], tables, lens,
+                                      sliding_window=cfg.sliding_window)
+        return _residual_block(x, attn.reshape(x.shape[0], -1), w, cfg, mesh)
+
+    return body
+
+
+def decode_aux(kv_cache: dict, block_tables, context_lens, slot_ids) -> tuple:
+    """``decode_layer``'s per-lane side inputs: each lane's position, its
+    cache row in every layer (idle lanes the dump row), table and length."""
+    rows = slot_rows(slot_ids, kv_cache["k"]).T  # [b, L]
+    return (context_lens - 1).clamp(min=0)[:, None], rows, block_tables, context_lens
+
+
 def llama_forward_decode(
     params: dict,
     cfg: LlamaConfig,
@@ -610,32 +748,41 @@ def llama_forward_decode(
     sin: torch.Tensor,
     *,
     mesh=None,
+    microbatches: int = 1,
 ) -> tuple[torch.Tensor, dict]:
     """Batched single-token decode.  Returns (logits [batch, vocab] f32,
     cache); the cache is written in place.  On a tp ``mesh`` row 2 runs on
     this rank's ``H / tp`` query heads over its ``KVH / tp`` kv-head cache:
     heads are kv-major, so a rank's contiguous chunk of query heads is the
-    group of its kv heads (the reference's shard_map, llama.py:506-536)."""
+    group of its kv heads (the reference's shard_map, llama.py:506-536).
+    On a pp mesh the batch goes through the stages in ``microbatches``
+    (``parallel.pipeline``; 1: the stages in turn), the head on stage 0 (a
+    later stage returns None for the logits)."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids, mesh)
-    positions = (context_lens - 1).clamp(min=0)[:, None]  # this token's position
-    k_all, v_all = kv_cache["k"], kv_cache["v"]
-    k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
-    rows = slot_rows(slot_ids, k_all)  # idle lanes write the dump row
-    for i, w in _layers(params):
-        attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(attn_in, w, cfg)
-        q = apply_rope(q[:, None], positions, cos, sin)[:, 0]
-        k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
-        write_rows(k_rows, v_rows, rows[i], k, v)
-        attn = paged_attention_decode(
-            q, k_all[i], v_all[i], block_tables, context_lens,
-            sliding_window=cfg.sliding_window,
-        )
-        x = _residual_block(x, attn.reshape(b, -1), w, cfg, mesh)
+    x = _stage_input(lambda: _embed(params, cfg, token_ids, mesh), b, cfg, token_ids.device,
+                     mesh)
+    x = pipeline_layer_stack(decode_layer(cfg, kv_cache, cos, sin, mesh), x,
+                             decode_aux(kv_cache, block_tables, context_lens, slot_ids),
+                             params["layers"], mesh, microbatches=microbatches)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, full_cfg, x, mesh).float(), kv_cache
+
+
+def llama_forward_decode_pp(params: dict, cfg: LlamaConfig, token_ids, kv_cache, block_tables,
+                            context_lens, slot_ids, cos, sin, *, mesh=None,
+                            microbatches: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Batched decode with the layer stack pipelined over the pp axis
+    (the reference's ``llama_forward_decode_pp``): the lanes split into
+    ``microbatches`` (default pp) that stream through the stages, each
+    stage running the decode layer (row 2 on the microbatch's lanes) over
+    its layers' cache.  Equal to ``llama_forward_decode``: the same layer
+    body on the same rows."""
+    return llama_forward_decode(params, cfg, token_ids, kv_cache, block_tables, context_lens,
+                                slot_ids, cos, sin, mesh=mesh,
+                                microbatches=microbatches or mesh_size(mesh, "pp"))
 
 
 def unified_planner(cfg: LlamaConfig, *, block_size: int, tb_tokens: int,

@@ -33,6 +33,8 @@ from dynamo_tpu_torch.models.llama import (
     _layers,
     _logits,
     _qkv,
+    _stage_input,
+    decode_aux,
     leaf_sink,
     param_init,
     params_from_jax,  # noqa: F401 — the reference's pytree as port parameters
@@ -59,7 +61,13 @@ from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import mm
 from dynamo_tpu_torch.ops.rope import apply_rope, table_positions
-from dynamo_tpu_torch.parallel.mesh import all_reduce, shard_config
+from dynamo_tpu_torch.parallel.mesh import all_reduce, mesh_size, shard_config
+from dynamo_tpu_torch.parallel.pipeline import (
+    first_stage,
+    pipeline_layer_stack,
+    stage_layer_stack,
+    stage_specs,
+)
 from dynamo_tpu_torch.utils import profiling
 
 
@@ -202,8 +210,9 @@ def param_specs(cfg: MixtralConfig) -> dict:
 
 
 def shard_params(params: dict, cfg: MixtralConfig, mesh) -> dict:
-    """This rank's slice of every leaf under ``param_specs``."""
-    return llama_shard_params(params, cfg, mesh, param_specs(cfg))
+    """This rank's slice of every leaf under ``param_specs``, a pp stage
+    keeping its own layers (``stage_specs``)."""
+    return llama_shard_params(params, cfg, mesh, stage_specs(param_specs(cfg), mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +224,19 @@ def _embed(params, cfg: MixtralConfig, token_ids) -> torch.Tensor:
     return params["embed"][token_ids].to(cfg.dtype)
 
 
-def _block(cfg: MixtralConfig, w, x, attn, mesh=None):
+def _block(cfg: MixtralConfig, w, x, attn, mesh=None, *, capacity_scale: float = 1.0):
     """The layer's residual tail: the attention output ``attn`` [t, H*D]
     through ``wo`` (row-parallel on a tp mesh: summed over tp), then the
     routed-expert FFN on the normed residual (on a mesh each rank's experts
-    and FFN slice, summed over ep and tp in ``moe_ffn``)."""
+    and FFN slice, summed over ep and tp in ``moe_ffn``).
+    ``capacity_scale``: a caller that routes a slice of the batch (the
+    pipelined decode routes each microbatch) scales the capacity factor by
+    the slices, as the reference's (mixtral.py:181)."""
     x = x + all_reduce(mm(attn, w["wo"]), mesh)
     mlp_in = rms_norm(x, w["mlp_norm"], cfg.rms_norm_eps)
     return x + moe_ffn(
         mlp_in, w["w_router"], w["w_gate"], w["w_up"], w["w_down"],
-        top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
+        top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor * capacity_scale,
         norm_topk_prob=cfg.norm_topk_prob, num_experts=cfg.num_experts, mesh=mesh,
     )
 
@@ -254,16 +266,23 @@ def mixtral_forward_prefill(
     [vocab] f32, cache); the cache is written in place."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), s, cfg, token_ids.device, mesh)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     lens = torch.as_tensor(seq_len, device=x.device).reshape(1)
-    for i, w in _layers(params):
-        q, k, v = _roped_qkv(x, w, cfg, positions, cos, sin)
-        write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = dense_causal_attention(q[None], k[None], v[None], lens)[0]
-        x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
+
+    def run_layers(x):
+        for i, w in _layers(params):
+            q, k, v = _roped_qkv(x, w, cfg, positions, cos, sin)
+            write_prefill_kv(k_all[i], v_all[i], k, v, block_ids, seq_len)
+            with profiling.annotate("split_prefill_attention"):
+                attn = dense_causal_attention(q[None], k[None], v[None], lens)[0]
+            x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, full_cfg, last_valid_row(x, seq_len), mesh)[0].float(), kv_cache
 
@@ -287,18 +306,25 @@ def mixtral_forward_prefill_with_prefix(
     themselves; the experts see the tail's rows only."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), s, cfg, token_ids.device, mesh)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
-    for i, w in _layers(params):
-        q, k, v = _roped_qkv(x, w, cfg, positions, cos, sin)
-        # read the resident prefix BEFORE the tail is written
-        k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
-        write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
-        with profiling.annotate("split_prefill_attention"):
-            attn = prefill_attention_with_prefix(q, k, v, k_prefix, v_prefix, start_pos,
-                                                 tail_len)
-        x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
+
+    def run_layers(x):
+        for i, w in _layers(params):
+            q, k, v = _roped_qkv(x, w, cfg, positions, cos, sin)
+            # read the resident prefix BEFORE the tail is written
+            k_prefix, v_prefix = gather_prefix_kv(k_all[i], v_all[i], full_block_ids)
+            write_prefill_kv(k_all[i], v_all[i], k, v, tail_block_ids, tail_len)
+            with profiling.annotate("split_prefill_attention"):
+                attn = prefill_attention_with_prefix(q, k, v, k_prefix, v_prefix, start_pos,
+                                                     tail_len)
+            x = _block(cfg, w, x, attn.reshape(s, -1), mesh)
+        return x
+
+    x = stage_layer_stack(run_layers, x, mesh)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, full_cfg, last_valid_row(x, tail_len), mesh)[0].float(), kv_cache
 
@@ -318,22 +344,49 @@ def mixtral_forward_decode(
 ) -> tuple[torch.Tensor, dict]:
     """Batched single-token decode: row 2 at W = 1 (on a tp mesh on this
     rank's heads).  Returns (logits [batch, vocab] f32, cache); idle lanes
-    route through the experts too, as the reference's do."""
+    route through the experts too, as the reference's do.  On a pp mesh
+    the stages run in turn (``mixtral_forward_decode_pp`` pipelines them),
+    the head on stage 0 (a later stage returns None for the logits)."""
+    return _decode(params, cfg, token_ids, kv_cache, block_tables, context_lens, slot_ids,
+                   cos, sin, mesh, 1)
+
+
+def mixtral_forward_decode_pp(params: dict, cfg: MixtralConfig, token_ids, kv_cache,
+                              block_tables, context_lens, slot_ids, cos, sin, *, mesh=None,
+                              microbatches: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Batched MoE decode with the layer stack pipelined over the pp axis
+    (the reference's ``mixtral_forward_decode_pp``), the experts of each
+    stage over ep.  Routing runs per microbatch with the capacity factor
+    scaled by the microbatch count, so each microbatch drops what the
+    reference's microbatch drops (equal to the plain decode wherever
+    nothing is dropped)."""
+    return _decode(params, cfg, token_ids, kv_cache, block_tables, context_lens, slot_ids,
+                   cos, sin, mesh, microbatches or mesh_size(mesh, "pp"))
+
+
+def _decode(params, cfg, token_ids, kv_cache, block_tables, context_lens, slot_ids, cos, sin,
+            mesh, microbatches: int):
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b = token_ids.shape[0]
-    x = _embed(params, cfg, token_ids)
-    positions = (context_lens - 1).clamp(min=0)[:, None]
+    x = _stage_input(lambda: _embed(params, cfg, token_ids), b, cfg, token_ids.device, mesh)
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
-    rows = slot_rows(slot_ids, k_all)  # idle lanes write the dump row
-    for i, w in _layers(params):
+
+    def body(x, aux, i, w):
+        positions, rows, tables, lens = aux
         attn_in = rms_norm(x, w["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(attn_in, w, cfg)
         q = apply_rope(q[:, None], positions, cos, sin)[:, 0]
         k = apply_rope(k[:, None], positions, cos, sin)[:, 0]
-        write_rows(k_rows, v_rows, rows[i], k, v)
-        attn = paged_attention_decode(q, k_all[i], v_all[i], block_tables, context_lens)
-        x = _block(cfg, w, x, attn.reshape(b, -1), mesh)
+        write_rows(k_rows, v_rows, rows[:, i], k, v)
+        attn = paged_attention_decode(q, k_all[i], v_all[i], tables, lens)
+        return _block(cfg, w, x, attn.reshape(x.shape[0], -1), mesh,
+                      capacity_scale=float(microbatches))
+
+    x = pipeline_layer_stack(body, x, decode_aux(kv_cache, block_tables, context_lens, slot_ids),
+                             params["layers"], mesh, microbatches=microbatches)
+    if not first_stage(mesh):
+        return None, kv_cache
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, full_cfg, x, mesh).float(), kv_cache
 

@@ -10,11 +10,14 @@ Mixtral-class sparse-MoE families (``mixtral``, ``qwen3_moe``) on
 keep their attention plain, as the reference's stays in XLA, and which
 have no unified forward (the engine serves them on the split step); and
 the DeepSeek MLA family (``deepseek_v2``, ``deepseek_v3``), whose hooks
-give the engine its latent cache and its rope tables.  Each family but
-Gemma-2 and Gemma-3 also gives its ``param_specs`` and ``cache_specs`` (the
-reference's PartitionSpecs, as tuples of axis names) and takes ``mesh=`` in
-its split prefill and decode forwards: the engine serves it on a tensor and
-expert mesh.
+give the engine its latent cache and its rope tables.  Each family also
+gives its ``param_specs`` and ``cache_specs`` (the reference's
+PartitionSpecs, as tuples of axis names) and takes ``mesh=`` in its split
+prefill and decode forwards: the engine serves it on a tensor, expert and
+pipeline mesh.  The llama family's prefill forwards ring over sp
+(``supports_sp``, ``prefix_prefill_accepts_sp``), and the llama and MoE
+families pipeline their decode over pp (``forward_decode_pp``), as the
+reference's flags say.
 """
 
 from __future__ import annotations
@@ -75,15 +78,35 @@ class ModelFamily:
     embed: Callable | None = None
     # the reference's PartitionSpecs as tuples of axis names: (cfg) -> a
     # tree of specs matching the parameters; None = the family serves on
-    # no mesh (Gemma-2 and Gemma-3, refused by name)
+    # no mesh
     param_specs: Callable | None = None
     # (cfg) -> {"k", "v"} specs of the cache; None = the llama family's
-    # (kv heads over tp)
+    # (the layer axis over pp, kv heads over tp)
     kv_cache_specs: Callable | None = None
     # the split prefill and decode forwards take mesh=, the decode running
-    # its paged kernel on each tp rank's head shard (the reference's flag:
-    # its shard_map'd kernel); False = the engine refuses a mesh by name
+    # its attention (the paged kernel; Gemma-2/3's plain form) on each tp
+    # rank's head shard; False = the engine refuses a mesh by name
     decode_accepts_tp_mesh: bool = False
+    # forward_prefill (and _embeds) take an sp mesh: the bucket split over
+    # the ranks of sp, attention around the ring (ops/ring_attention.py)
+    supports_sp: bool = False
+    # forward_prefill_with_prefix rings the tail over sp and folds in the
+    # resident prefix: chunked prefill and prefix caching compose with sp
+    prefix_prefill_accepts_sp: bool = False
+    # the decode pipelined over pp: forward_decode's contract with mesh=
+    # and microbatches= (parallel/pipeline.py); None = the stages in turn
+    forward_decode_pp: Callable | None = None
+
+    def mesh_param_specs(self, cfg, mesh) -> dict:
+        """The specs a rank of ``mesh`` slices its weights by: the family's,
+        a pp stage keeping its own layers where the family pipelines its
+        decode (``parallel.pipeline.stage_specs``)."""
+        specs = self.param_specs(cfg)
+        if self.forward_decode_pp is None:
+            return specs
+        from dynamo_tpu_torch.parallel.pipeline import stage_specs
+
+        return stage_specs(specs, mesh)
 
     def cache_specs(self, cfg) -> dict:
         """The cache's specs (``kv_cache_specs``, else the llama family's)."""
@@ -129,6 +152,9 @@ def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
         embed=llama._embed,
         param_specs=llama.param_specs,
         decode_accepts_tp_mesh=True,
+        supports_sp=True,
+        prefix_prefill_accepts_sp=True,
+        forward_decode_pp=llama.llama_forward_decode_pp,
     )
 
 
@@ -173,6 +199,7 @@ def _moe_family(name: str) -> ModelFamily:
         quant_leaves=llama.QUANT_LEAVES,
         param_specs=mixtral.param_specs,
         decode_accepts_tp_mesh=True,
+        forward_decode_pp=mixtral.mixtral_forward_decode_pp,
     )
 
 
@@ -194,6 +221,8 @@ def _gemma2_family() -> ModelFamily:
         forward_prefill_with_prefix=gemma2.gemma2_forward_prefill_with_prefix,
         forward_verify=gemma2.gemma2_forward_verify,
         quant_leaves=llama.QUANT_LEAVES,
+        param_specs=gemma2.param_specs,
+        decode_accepts_tp_mesh=True,
     )
 
 
@@ -218,6 +247,8 @@ def _gemma3_family() -> ModelFamily:
         quant_leaves=llama.QUANT_LEAVES,
         forward_prefill_embeds=gemma3.gemma3_forward_prefill_embeds,
         embed=llama._embed,
+        param_specs=gemma3.param_specs,
+        decode_accepts_tp_mesh=True,
     )
 
 

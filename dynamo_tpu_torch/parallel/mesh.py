@@ -10,7 +10,10 @@ leaf's spec is a tuple of axis names as the reference's PartitionSpec
 rank's slice of a full leaf as ``NamedSharding`` would place it, and the
 forwards call ``all_reduce`` / ``all_gather`` where GSPMD would have put
 its collectives.  Both helpers are the identity where the mesh is None or
-the axes have size 1.
+the axes have size 1.  Pipeline stages and the sequence ring move their
+tensors point to point (``exchange``, ``ring_shift``; the reference's
+``ppermute``), bit for bit.  Every collective, stage hand-off and ring
+rotation is counted with the seconds it took (``comm_counters``).
 
 Axes (any may be 1): ``dp`` data, ``pp`` pipeline stage, ``ep`` expert,
 ``tp`` tensor, ``sp`` sequence.  Ranks lay out in ``AXIS_ORDER`` with ``tp``
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any
@@ -42,9 +46,34 @@ from dynamo_tpu_torch.utils import knobs
 AXIS_ORDER = ("dp", "pp", "ep", "tp", "sp")
 
 # the axis combinations a forward reduces over: tensor-parallel products,
-# expert banks (each rank's experts, each expert's tp-sharded intermediate)
-# and data-parallel replicas
-_GROUP_AXES = (("tp",), ("ep",), ("ep", "tp"), ("dp",))
+# expert banks (each rank's experts, each expert's tp-sharded intermediate),
+# data-parallel replicas, pipeline stages and the sequence ring
+_GROUP_AXES = (("tp",), ("ep",), ("ep", "tp"), ("dp",), ("pp",), ("sp",))
+
+# calls and seconds of this process's mesh traffic by kind: "collective"
+# (all_reduce, all_gather), "handoff" (a pipeline stage's sends and
+# receives), "ring" (the sequence ring's rotations)
+_COMM = {kind: [0, 0.0] for kind in ("collective", "handoff", "ring")}
+
+
+def comm_counters() -> dict[str, float]:
+    """``{"<kind>_calls": n, "<kind>_s": seconds}`` of every kind of mesh
+    traffic since the last ``zero_comm_counters``."""
+    out: dict[str, float] = {}
+    for kind, (calls, secs) in _COMM.items():
+        out[f"{kind}_calls"], out[f"{kind}_s"] = calls, secs
+    return out
+
+
+def zero_comm_counters() -> None:
+    for entry in _COMM.values():
+        entry[:] = [0, 0.0]
+
+
+def _count(kind: str, t0: float) -> None:
+    entry = _COMM[kind]
+    entry[0] += 1
+    entry[1] += time.perf_counter() - t0
 
 
 @dataclass(frozen=True)
@@ -116,9 +145,12 @@ def all_reduce(x: torch.Tensor, mesh: Mesh | None, axes: str | tuple[str, ...] =
         return x
     import torch.distributed as dist
 
+    t0 = time.perf_counter()
     wire = x.detach().to(mesh.wire_device, torch.float32)
     dist.all_reduce(wire, group=mesh.group(axes))
-    return wire.to(x.device, x.dtype)
+    out = wire.to(x.device, x.dtype)
+    _count("collective", t0)
+    return out
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh | None, axes: str | tuple[str, ...] = "tp",
@@ -131,10 +163,13 @@ def all_gather(x: torch.Tensor, mesh: Mesh | None, axes: str | tuple[str, ...] =
         return x
     import torch.distributed as dist
 
+    t0 = time.perf_counter()
     wire = x.detach().to(mesh.wire_device, torch.float32).contiguous()
     parts = [torch.empty_like(wire) for _ in range(n)]
     dist.all_gather(parts, wire, group=mesh.group(axes))
-    return torch.cat(parts, dim=dim).to(x.device, x.dtype)
+    out = torch.cat(parts, dim=dim).to(x.device, x.dtype)
+    _count("collective", t0)
+    return out
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
@@ -146,6 +181,94 @@ def broadcast(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     wire = x.detach().contiguous().to(mesh.wire_device)
     dist.broadcast(wire.view(-1).view(torch.uint8), src=src)
     return wire.to(x.device)
+
+
+# ---------------------------------------------------------------------------
+# Point to point: pipeline hand-offs and the sequence ring
+# ---------------------------------------------------------------------------
+
+
+def stage_peer(mesh: Mesh, delta: int, axis: str = "pp") -> int:
+    """The rank at this rank's coordinates on every axis but ``axis``, which
+    moves by ``delta`` (modulo its size): on pp, the same (ep, tp, sp)
+    coordinates on stage ``pp + delta`` (a stage hands its activations to
+    the tp rank of its own index on the next stage); on sp, the ring's
+    neighbour."""
+    coords = dict(mesh.coords)
+    coords[axis] = (coords[axis] + delta) % mesh.size(axis)
+    shape = [mesh.config.axis_sizes()[a] for a in AXIS_ORDER]
+    return int(np.ravel_multi_index([coords[a] for a in AXIS_ORDER], shape))
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+def exchange(sends, recvs, mesh: Mesh, kind: str = "handoff") -> list[torch.Tensor]:
+    """Point-to-point transfers in one batch: ``sends`` [(tensor, dst)],
+    ``recvs`` [(template, src)] (a tensor of the shape, dtype and device to
+    receive); returns the received tensors in order, bit for bit what was
+    sent (through a byte view on the wire device).  Every transfer is posted
+    before any is waited on (``batch_isend_irecv``), so no order of sends
+    and receives among the ranks can deadlock."""
+    import torch.distributed as dist
+
+    if not sends and not recvs:
+        return []
+    t0 = time.perf_counter()
+    ops, outs = [], []
+    for t, dst in sends:
+        wire = t.detach().contiguous().to(mesh.wire_device)
+        ops.append(dist.P2POp(dist.isend, _bytes(wire), dst))
+    for like, src in recvs:
+        wire = torch.empty(like.shape, dtype=like.dtype, device=mesh.wire_device)
+        outs.append(wire)
+        ops.append(dist.P2POp(dist.irecv, _bytes(wire), src))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    got = [w.to(like.device) for w, (like, _) in zip(outs, recvs)]
+    _count(kind, t0)
+    return got
+
+
+class Posted:
+    """Sends posted by ``post_sends``: ``wait()`` completes them (their
+    buffers live until then)."""
+
+    def __init__(self, works, buffers, kind: str):
+        self._works, self._buffers, self._kind = works, buffers, kind
+
+    def wait(self) -> None:
+        t0 = time.perf_counter()
+        for work in self._works:
+            work.wait()
+        self._works, self._buffers = [], []
+        _count(self._kind, t0)
+
+
+def post_sends(sends, mesh: Mesh, kind: str = "handoff") -> Posted:
+    """``sends`` [(tensor, dst)] posted and not waited on: a pipeline stage
+    goes on to its next microbatch while its last output travels.  Bitwise
+    as ``exchange``."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    buffers = [_bytes(t.detach().contiguous().to(mesh.wire_device)) for t, _ in sends]
+    works = [dist.isend(b, dst) for b, (_, dst) in zip(buffers, sends)]
+    _count(kind, t0)
+    return Posted(works, buffers, kind)
+
+
+def ring_shift(tensors, mesh: Mesh | None, axis: str = "sp") -> list[torch.Tensor]:
+    """Each rank's ``tensors`` to the next rank of ``axis`` (index i to
+    i + 1, the last to the first), the previous rank's returned: the
+    counterpart of ``jax.lax.ppermute`` with ``perm = [(i, (i + 1) % n)]``.
+    Bitwise; the identity at size 1."""
+    tensors = list(tensors)
+    if mesh_size(mesh, axis) == 1:
+        return tensors
+    nxt, prev = stage_peer(mesh, 1, axis), stage_peer(mesh, -1, axis)
+    return exchange([(t, nxt) for t in tensors], [(t, prev) for t in tensors], mesh, "ring")
 
 
 # ---------------------------------------------------------------------------

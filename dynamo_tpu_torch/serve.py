@@ -104,8 +104,8 @@ def build_torch_engine(
     directory's tokenizer wherever the engine can guide (every launch path
     then serves ``response_format: json_object``); a table that fails to
     build is logged and the engine serves unguided, refusing guided
-    requests one by one.  ``mesh=MeshConfig(tp=..., ep=...)`` (an override
-    like any other) serves on a tensor and expert mesh: the engine is rank 0
+    requests one by one.  ``mesh=MeshConfig(tp=..., ep=..., pp=..., sp=...)``
+    (an override like any other) serves on a mesh: the engine is rank 0
     and starts its shard workers; the checkpoint is read into host memory
     and reaches the ranks one leaf at a time, each keeping its slice, so no
     card holds the whole model.  A mesh engine does not guide."""

@@ -74,6 +74,8 @@ def test_importing_every_module_pulls_in_no_jax():
             # the tensor and expert mesh, its shard workers, bootstrap and dryrun
             "dynamo_tpu_torch.parallel.mesh", "dynamo_tpu_torch.parallel.multihost",
             "dynamo_tpu_torch.parallel.dryrun", "dynamo_tpu_torch.engine.shard_worker",
+            # pipeline stages and the sequence ring
+            "dynamo_tpu_torch.parallel.pipeline", "dynamo_tpu_torch.ops.ring_attention",
             "dynamo_tpu_torch.llm.kv_router.protocols",
             "dynamo_tpu_torch.llm.kv_router.indexer",
             "dynamo_tpu_torch.llm.kv_router.scheduler",

@@ -235,10 +235,13 @@ def test_engine_refuses_dp_like_the_reference():
 
 
 @pytest.mark.parametrize("mesh,over,words", [
-    (MeshConfig(pp=2), {}, "pp=2: pipeline stages on an engine mesh are not ported yet "
-                           "(ROADMAP item 9b)"),
-    (MeshConfig(sp=2), {}, "sp=2: sequence-parallel ring prefill on an engine mesh are not "
-                           "ported yet (ROADMAP item 9b)"),
+    (MeshConfig(pp=2, sp=2), {}, "pp=2 composes with tp (all families) and ep (MoE families "
+                                 "with a pipelined decode); got {'sp': 2} for family 'llama'"),
+    (MeshConfig(pp=2), dict(max_batch_size=3),
+     "max_batch_size=3 must be divisible by the pp axis (2): pipeline microbatches split the "
+     "decode batch evenly"),
+    (MeshConfig(pp=4), dict(max_batch_size=4),
+     "num_layers=2 must be divisible by the pp axis (4): layers split evenly into stages"),
     (MeshConfig(tp=2), dict(speculative="ngram"),
      "speculative decoding on an engine mesh is not ported yet (ROADMAP item 9c)"),
     (MeshConfig(tp=2), dict(host_offload_blocks=8),
@@ -253,15 +256,22 @@ def test_engine_refuses_later_mesh_items_by_name(mesh, over, words):
 
 @pytest.mark.parametrize("family", ["gemma2", "gemma3"])
 def test_engine_refuses_gemma2_and_gemma3_on_a_mesh(family):
+    """Gemma-2 and Gemma-3 now serve on a mesh: their specs are the
+    reference's (dynamo_tpu/models/gemma2.py:162, gemma3.py:180), and each
+    tp rank's slice is bitwise the reference's shard."""
+    from dynamo_tpu.models import gemma2 as jg2
+    from dynamo_tpu.models import gemma3 as jg3
+    from dynamo_tpu_torch.models import gemma2, gemma3
     from dynamo_tpu_torch.models.registry import get_family
 
-    from dynamo_tpu_torch.models import gemma2, gemma3
-
-    fam = get_family(family)
+    mod, jmod = {"gemma2": (gemma2, jg2), "gemma3": (gemma3, jg3)}[family]
     model = {"gemma2": gemma2.Gemma2Config, "gemma3": gemma3.Gemma3Config}[family].tiny()
-    assert fam.param_specs is None and not fam.decode_accepts_tp_mesh
-    with pytest.raises(ValueError, match=rf"family '{family}' serves on no mesh yet "
-                                         r"\(ROADMAP item 9c\)"):
-        TorchLlmEngine(EngineConfig(model=model, model_family=family, mesh=MeshConfig(tp=2)),
-                       device="cpu")
-
+    jcfg = {"gemma2": jg2.Gemma2Config, "gemma3": jg3.Gemma3Config}[family].tiny()
+    fam = get_family(family)
+    assert fam.decode_accepts_tp_mesh and fam.param_specs(model) == mod.param_specs(model)
+    assert jax.tree.map(tuple, jmod.param_specs(jcfg)) == fam.param_specs(model)
+    tree = jax.tree.map(np.asarray, jmod.init_params(jcfg, jax.random.PRNGKey(0)))
+    ref = ref_shards(tree, jmod.param_specs(jcfg), dict(tp=2))
+    full = llama.params_from_jax(tree, "cpu")
+    for rank, mesh in enumerate(port_meshes(dict(tp=2))):
+        assert_bitwise(mod.shard_params(full, model, mesh), ref[rank])

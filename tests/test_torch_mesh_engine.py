@@ -26,11 +26,17 @@ from tests.test_torch_tp import CFG, ENGINE
 
 def test_dryrun_multichip_runs():
     """The counterpart of the reference's dryrun on four ranks: dp=1 x
-    tp=4, one prefill, one sampled decode, int8 within 0.1."""
+    tp=4, one prefill, one sampled decode, int8 within 0.1; the ring
+    prefill over sp = 4 within 2e-3 of it, the pp = 2 x tp = 2 decode within
+    a relative 2e-3 of one rank's, and the pp = 2 x ep = 2 Mixtral drive's
+    tokens equal to one rank's."""
     out = dryrun_multichip(4, device="cpu")
     assert (out["dp"], out["tp"]) == (1, 4)
     assert out["prefill_shape"] == [512] and len(out["tokens"]) == 4
     assert out["int8_rel_err"] < 0.1
+    assert out["sp"] == 4 and out["sp_prefill_max_abs_diff"] <= 2e-3
+    assert out["pp_tp"] == [2, 2] and out["pp_rel_err"] <= 2e-3
+    assert out["pp_mixtral"] == {"pp": 2, "ep": 2, "steps": 16, "tokens_equal": True}
 
 
 def _children() -> list[str]:

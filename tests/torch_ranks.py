@@ -98,38 +98,49 @@ class RankPool:
 
 
 def _family_module(name: str):
-    from dynamo_tpu_torch.models import deepseek, llama, mixtral
+    from dynamo_tpu_torch.models import deepseek, gemma2, gemma3, llama, mixtral
 
-    return {"llama": llama, "mixtral": mixtral, "deepseek": deepseek}[name]
+    return {"llama": llama, "mixtral": mixtral, "deepseek": deepseek, "gemma2": gemma2,
+            "gemma3": gemma3}[name]
 
 
-def forwards(mesh, *, family: str, cfg, params, blocks, steps):
+def forwards(mesh, *, family: str, cfg, params, blocks, steps, microbatches=None,
+             caches=False):
     """Run ``steps`` (("prefill"|"prefix"|"decode", inputs)) through the
     family's forwards with this rank's shard of ``params`` (numpy, the
     reference's tree) and a zeroed cache of ``blocks`` (num_blocks,
-    block_size) for this rank's heads; returns each step's logits (numpy
-    float32)."""
+    block_size) for this rank's heads and stage (``shard_cache``); the
+    decode is the pipelined one on a pp mesh (``forward_of``), in
+    ``microbatches`` where given.  Returns each step's logits (numpy
+    float32), and with ``caches`` every rank's cache leaves after the last
+    step, in rank order."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from dynamo_tpu_torch.engine.shard_worker import forward_of, shard_cache
     from dynamo_tpu_torch.models.llama import params_from_jax
     from dynamo_tpu_torch.models.registry import get_family
-    from dynamo_tpu_torch.parallel.mesh import shard_config
 
     mod = _family_module(family)
-    fam = get_family({"llama": "llama", "mixtral": "mixtral", "deepseek": "deepseek_v2"}[family])
+    fam = get_family({"deepseek": "deepseek_v2"}.get(family, family))
     shard = mod.shard_params(params_from_jax(params, "cpu"), cfg, mesh)
-    kv = fam.init_kv_cache(shard_config(cfg, mesh), *blocks, None, "cpu")
+    kv = shard_cache(fam, cfg, mesh, *blocks, None, "cpu")
     cos, sin = fam.make_rope_tables(cfg, "cpu", 256)
     out = []
     for kind, inputs in steps:
         args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in inputs]
-        fn = {"prefill": fam.forward_prefill, "prefix": fam.forward_prefill_with_prefix,
-              "decode": fam.forward_decode}[kind]
+        fn = forward_of(fam, kind, mesh)
+        kw = {"microbatches": microbatches} if fn is fam.forward_decode_pp and microbatches \
+            else {}
         tokens, *mid = args
-        logits, kv = fn(shard, cfg, tokens, kv, *mid, cos, sin, mesh=mesh)
-        out.append(logits.numpy())
-    return out
+        logits, kv = fn(shard, cfg, tokens, kv, *mid, cos, sin, mesh=mesh, **kw)
+        out.append(None if logits is None else logits.numpy())
+    if not caches:
+        return out
+    every: list = [None] * mesh.world_size
+    dist.all_gather_object(every, {k: v.numpy() for k, v in kv.items()})
+    return out, every
 
 
 def moe_drops(mesh, *, ids, capacity, num_experts):
@@ -145,6 +156,38 @@ def moe_drops(mesh, *, ids, capacity, num_experts):
     mine = int(((flat >= 0) & (flat < local) & ~within).sum())
     total = all_reduce(torch.tensor([float(mine)]), mesh, "ep")
     return int(mine), int(total.item())
+
+
+def ring_probe(mesh):
+    """``ring_shift`` of each rank's index (bf16) round an sp ring: every
+    rank's received value, in rank order."""
+    import torch
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel.mesh import ring_shift
+
+    got, = ring_shift([torch.full((3,), float(mesh.rank), dtype=torch.bfloat16)], mesh)
+    out: list = [None] * mesh.world_size
+    dist.all_gather_object(out, float(got[0]))
+    return {"ring": out}
+
+
+def stage_probe(mesh):
+    """Two microbatches of ones through ``pipeline_layer_stack`` at pp = 3,
+    each stage adding one: every rank's output, and the hand-offs
+    counted."""
+    import torch
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel.mesh import comm_counters
+    from dynamo_tpu_torch.parallel.pipeline import pipeline_layer_stack
+
+    x = torch.zeros((2, 1), dtype=torch.bfloat16)
+    y = pipeline_layer_stack(lambda xm, aux, i, w: xm + 1, x, (), {"w": torch.zeros(1)}, mesh,
+                             microbatches=2)
+    out: list = [None] * mesh.world_size
+    dist.all_gather_object(out, y[:, 0].float().tolist())
+    return {"stages": out, "handoff_calls": comm_counters()["handoff_calls"]}
 
 
 def card_identity(mesh):
