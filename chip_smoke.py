@@ -41,8 +41,8 @@ Phases (any failure exits non-zero, before the result line):
                --warmup`` (a worker and a frontend over the memory control
                plane in one process) and check that greedy chat content is
                the token-counter continuation its crafted weights produce.
-  4. serve   — serve the Llama-3-8B geometry (random weights from a seed, on
-               the card) over HTTP in this process with the default engine
+  4. serve   — serve the Llama-3-8B geometry (16 of its 32 layers, random
+               weights from a seed, on the card) over HTTP in this process with the default engine
                (decode overlapped, every decode window a CUDA graph replay):
                four concurrent chats and one ~1500-token prompt, so that
                unified steps with prefill and decode-only steps both run; the
@@ -129,7 +129,8 @@ Phases (any failure exits non-zero, before the result line):
                a route, the headline's kv_xfer rung, rows 6-7's device ms a
                call at the path's shapes, the streamed share hidden.
  10. mla     — the same over the DeepSeek-V2-Lite geometry (the published
-               config.json, all 27 layers, random bf16 weights from a seed):
+               config.json at 14 of its 27 layers, random bf16 weights from
+               a seed):
                the MLA ragged and decode kernels, and the MoE layers; every
                MLA decode (and, in phase spec, window) launch must take the
                split table walk.
@@ -175,8 +176,8 @@ Phases (any failure exits non-zero, before the result line):
  13. spec    — speculative decoding (prompt-lookup n-gram drafts, W = 5):
                tests/data/tiny-chat-model with and without it (equal greedy
                streams, drafts accepted), then the Llama-3-8B geometry and
-               the DeepSeek-V2-Lite config at half depth (16 and 14
-               layers: ``SPEC_CONFIGS``), over HTTP with chats
+               the DeepSeek-V2-Lite config at 8 of 32 and 14 of 27
+               layers (``SPEC_CONFIGS``), over HTTP with chats
                that repeat a phrase plus the long prompt, warmed by
                ``warmup()`` (every split prefill key of the 4096-token
                engine and the verify window, captured): every prefill a
@@ -237,7 +238,7 @@ Phases (any failure exits non-zero, before the result line):
                geometry, all 32 layers): configuration A (int8 weights, fp8
                cache, decode_steps 8, 512-token chunks on the split prefill
                graphs, warmed at the ISL's keys; 8 requests) and C (bf16,
-               decode_steps 1, every chunk in a unified graph; 16
+               decode_steps 1, every chunk in a unified graph; 8
                requests); each split prefill call's wall ms; each rung
                must stream requests x OSL tokens and the cache hold no NaN,
                no graph may be captured after warmup, MFU must lie in (0, 1], the prefix cache must
@@ -268,10 +269,11 @@ Phases (any failure exits non-zero, before the result line):
                ``smoke_mm`` line: ViT encode ms, TTFT and ITL of image,
                video and text lanes, mm prefill replay ms, embedding ms at
                512 tokens, GGUF load s a file.
- 20. tp      — tensor and expert parallelism: the Llama-3-8B geometry (all
-               32 layers) at tp = 2 and the published DeepSeek-V2-Lite
-               config at tp = 2 x ep = 2, each a mesh engine (rank 0 in this
-               process, its shard workers child processes) whose ranks share
+ 20. tp      — tensor and expert parallelism: the Llama-3-8B geometry (8
+               of its 32 layers) at
+               tp = 2 and the published DeepSeek-V2-Lite config (14 of its
+               27 layers) at tp = 2 x ep = 2, each a mesh engine (rank 0 in
+               this process, its shard workers child processes) whose ranks share
                the one card over gloo, named (NCCL refuses two ranks on one
                GPU; the collectives stage through host memory, so no time
                here is NVLink's), against a tp = 1 engine on the same
@@ -281,7 +283,29 @@ Phases (any failure exits non-zero, before the result line):
                within that bound, rows 2 and 4 launched on every rank at
                the head shard (no plain call), TTFT and ITL of both.  One
                ``smoke_tp`` line.  Phase kernels holds rows 2 and 4 at the
-               shard shapes (16 heads over 4 kv heads; 8 MLA heads).
+               shard shapes (16 heads over 4 kv heads; 8 MLA heads).  Its
+               two engine pairs serve phase meshfeat's cases (c)-(e) too,
+               so selecting meshfeat runs this phase.
+ 21. pp      — pipeline and sequence parallelism on meshes sharing the card
+               over gloo, each against one card (``phase_pp``).  One
+               ``smoke_pp`` line.
+ 22. meshfeat — speculation, the offload tiers, disaggregation, guided JSON
+               and multimodal requests on tp and ep meshes sharing the card
+               over gloo, each against one card on the same seed's weights
+               (``phase_meshfeat``): Llama-3-8B (all 32 layers) at tp 2 with
+               n-gram speculation and G1 128 blocks over G2 512 (six
+               sessions of two 1024-token turns, each restored block's shard
+               on every rank bitwise what it held at eviction); on phase
+               tp's Llama pair four 2048-token prompts disaggregated tp 2 ->
+               one card and one card -> tp 2 over the same-process route,
+               and four json_object requests at tp 2, each closed and
+               parsed; on phase tp's DeepSeek-V2-Lite pair (tp 2 x ep 2)
+               speculation; LLaVA-1.5-7B at tp 2 with two images.  The first
+               logits within phase tp's bounds, streams parting only within
+               one card's top-2 margin, rows 2 (W = 5) and 5 and rows 6-7 on
+               every rank with no plain call.  One ``smoke_meshfeat`` line.
+               Phase kernels holds rows 2 and 5 at the shard's verify shapes
+               and rows 6-7 at a tp 2 rank's shard of the Llama leaf.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -320,7 +344,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm", "tp", "pp")
+          "mm", "tp", "pp", "meshfeat")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -1036,6 +1060,9 @@ COPY_CASES = {
     "copy_kvbm_n256": dict(shape=(512, 32, 2, 16, 8, 128), n=256, axis=0),
     "copy_llama_leaf": dict(shape=(32, 1024, 16, 8, 128), n=93, axis=1),
     "copy_llama_leaf_n1": dict(shape=(32, 1024, 16, 8, 128), n=1, axis=1),
+    # a tp = 2 rank's shard of the Llama-3-8B leaf (4 of its 8 kv heads):
+    # phase meshfeat's offloads and restores on every rank
+    "copy_llama_leaf_tp2": dict(shape=(32, 1024, 16, 4, 128), n=93, axis=1),
     "copy_mla_latent": dict(shape=(27, 1024, 16, 1, 512), n=93, axis=1),
     "copy_mla_rope": dict(shape=(27, 1024, 16, 1, 64), n=93, axis=1),
     "copy_bytes": dict(shape=(512, 1000), n=64, axis=0, dtype="uint8"),
@@ -1474,6 +1501,21 @@ def phase_kernels(torch) -> dict:
     mla_window_small = mla_decode_case(torch, lens=[5, 17, 0, 64], w=3, h=4, r=32, p=8,
                                        dtype=torch.float32, seed=61, timed=False)
     check_case("mla window W=3 tiny_mla fp32", mla_window_small, F32_ATOL)
+    # phase meshfeat's verify windows on a tp = 2 rank's head shard: row 2 at
+    # W = 5 on Llama-3-8B's 16 of 32 heads over 4 of 8 kv heads, row 5 on 8 of
+    # DeepSeek-V2-Lite's 16 heads (half a 16-row tile a query: the CUDA-core
+    # loop), eight lanes on 2048-position tables, one window past its table
+    vr = random.Random(522)  # its own stream: the other cases keep their contexts
+    shard_lens = [vr.randint(5, 2048) for _ in range(8)]
+    shard_lens[0], shard_lens[1], shard_lens[2] = 2047, 2048, 2050
+    cases["verify_tp2_w5"] = decode_case(torch, lens=shard_lens, w=5, seed=37, h=16, kvh=4,
+                                         max_blocks=128)
+    check_case("paged window W=5 b8 tp=2 shard h 16 kvh 4", cases["verify_tp2_w5"], BF16_ATOL)
+    mla_shard_lens = list(shard_lens)
+    mla_shard_lens[3] = 0  # an idle lane
+    cases["mla_verify_tp2"] = mla_decode_case(torch, lens=mla_shard_lens, w=5, h=8, seed=47,
+                                              max_blocks=128)
+    check_case("mla window W=5 b8 tp=2 shard 8 heads", cases["mla_verify_tp2"], MLA_ATOL)
     for name, kw in COPY_CASES.items():
         cases[name] = block_copy_case(torch, seed=70 + len(cases), **kw)
         check_copy_case(f"{name} {kw['shape']} n={kw['n']} axis={kw['axis']}", cases[name])
@@ -1504,6 +1546,10 @@ def phase_kernels(torch) -> dict:
         "paged_tp2": cases["decode_tp2_b32"]["max_abs_err"],
         "paged_pp": cases["decode_pp2tp2_mb4"]["max_abs_err"],
         "mla_decode_tp2": cases["mla_decode_tp2_b32"]["max_abs_err"],
+        "paged_verify_tp2": cases["verify_tp2_w5"]["max_abs_err"],
+        "mla_verify_tp2": cases["mla_verify_tp2"]["max_abs_err"],
+        **{f"{row}_tp2": cases["copy_llama_leaf_tp2"][f"{row}_max_abs_err"]
+           for row in ("gather", "scatter")},
     }
     return {"cases": cases, "errs": errs}
 
@@ -1991,6 +2037,11 @@ async def stream_chat(session, port: int, model: str, content: str, max_tokens: 
 LONG_PROMPT = "".join(chr(ord("a") + i % 26) for i in range(1640))
 # the served engines' geometry (``overrides`` may change any of it)
 SERVE_ENGINE = dict(num_blocks=1024, max_batch_size=8, max_model_len=4096, seed=0)
+# phases serve and dist serve the Llama-3-8B geometry, and phase mla the
+# DeepSeek-V2-Lite config, at half their depth (16 of 32 and 14 of 27
+# layers), so that the whole smoke keeps its time with phase meshfeat
+SERVE_LLAMA = dict(LLAMA3_8B, num_hidden_layers=16)
+SERVE_MLA = dict(DEEPSEEK_V2_LITE, num_hidden_layers=14)
 
 
 def pctile(xs, q):
@@ -4185,16 +4236,18 @@ def spec_traffic(torch, card: str, model: str, config: dict, path, inspect=None)
 
 
 # phase spec's (and phase quant's speculative runs') configurations: the
-# published widths at half their depth (16 of 32 and 14 of 27 layers), so
-# that the whole smoke keeps inside its time with phases guided and disagg
-SPEC_CONFIGS = {"llama": dict(LLAMA3_8B, num_hidden_layers=16),
+# published widths, Llama-3-8B at a quarter of its depth (8 of 32 layers)
+# and DeepSeek-V2-Lite at half (14 of 27; at 7 its random
+# weights drafted nothing in phase quant), so that the whole smoke keeps
+# inside its time with phases guided, disagg and meshfeat
+SPEC_CONFIGS = {"llama": dict(LLAMA3_8B, num_hidden_layers=8),
                 "mla": dict(DEEPSEEK_V2_LITE, num_hidden_layers=14)}
 
 
 def phase_spec(torch, card: str) -> dict:
     """Speculative decoding end to end on the card: the tiny model exactly,
     then the Llama-3-8B geometry and the published DeepSeek-V2-Lite config
-    at full width and half depth (``SPEC_CONFIGS``) over HTTP
+    at full width and 8 and 14 layers (``SPEC_CONFIGS``) over HTTP
     (``spec_traffic``), every split
     prefill and verify window a graph replay captured by ``warmup()``:
     no capture after it, the verify kernels launched a layer a replayed
@@ -4618,8 +4671,8 @@ def check_replays(tag: str, checked: dict) -> None:
 def phase_quant(torch, card: str) -> dict:
     """The quantized paths on the card: the kernels over fp8 caches
     (``quant_kernels``), then the Llama-3-8B geometry with int8 weights and
-    an fp8 cache and the DeepSeek-V2-Lite config with an fp8 cache (each at
-    half its depth, ``QUANT_CONFIGS``), each
+    an fp8 cache and the DeepSeek-V2-Lite config with an fp8 cache (at 8
+    and 14 layers, ``QUANT_CONFIGS``), each
     served over HTTP after ``warmup()`` (the counted traffic of phase serve,
     the decode profile, the replays against eager, MFU and bandwidth share
     from ``stats()``), then each again with n-gram speculation (the verify
@@ -6566,13 +6619,20 @@ def _bits(torch, t):
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
-def phase_mm(torch, card: str, device: str = "cuda", llava: dict = LLAVA_1_5_7B,
+# phase mm's LLaVA at half its text model's depth (16 of 32 layers), so that
+# the whole smoke keeps its time with phase meshfeat
+MM_LLAVA = {**LLAVA_1_5_7B, "text_config": dict(LLAVA_1_5_7B["text_config"],
+                                                num_hidden_layers=16)}
+
+
+def phase_mm(torch, card: str, device: str = "cuda", llava: dict = MM_LLAVA,
              engine_kw: dict = MM_ENGINE, gemma: dict = MM_GEMMA,
-             embed_config: dict = LLAMA3_8B, embed_len: int = EMBED_LEN,
+             embed_config: dict = SERVE_LLAMA, embed_len: int = EMBED_LEN,
              gguf_cfg=None) -> dict:
     """Multimodal serving, the embedding engine and GGUF weights on the card:
     (a) LLaVA-1.5-7B (the published config: ViT-L/14-336 and the Vicuna-7B
-    text geometry, random bf16 weights from seed 0, 1024 blocks of 16, 8
+    text geometry at 16 of its 32 layers, random bf16 weights from seed 0,
+    1024 blocks of 16, 8
     lanes, max length 4096) through the multimodal frontend: four image
     chats (data: PNG URLs of 480x640 photos, about 40 text tokens and 64
     out, two greedy, two seeded), a video of 8 frames at temporal pool 2
@@ -6621,13 +6681,25 @@ def phase_mm(torch, card: str, device: str = "cuda", llava: dict = LLAVA_1_5_7B,
 # Its collectives stage through host memory, so the phase's times are of
 # ranks sharing one card over host-staged gloo, not of NVLink.
 TP_BACKEND = "gloo"
-TP_MODELS = (("llama3-8b-tp", "llama", LLAMA3_8B, dict(tp=2)),
-             ("deepseek-v2-lite-tp", "deepseek", DEEPSEEK_V2_LITE, dict(tp=2, ep=2)))
+# Llama-3-8B at a quarter of its depth (8 of 32 layers), DeepSeek-V2-Lite
+# at half (14 of 27: phase meshfeat's case (e) drafts on it), so that the
+# whole smoke keeps its time with phase meshfeat
+TP_MODELS = (("llama3-8b-tp", "llama", dict(LLAMA3_8B, num_hidden_layers=8), dict(tp=2)),
+             ("deepseek-v2-lite-tp", "deepseek", dict(DEEPSEEK_V2_LITE, num_hidden_layers=14),
+              dict(tp=2, ep=2)))
 # tp = 1 runs the same split step (unified off, as on a mesh) on the same
-# weights, so the two differ only by the sharding
-TP_ENGINE = dict(num_blocks=512, max_batch_size=8, max_model_len=1024, seed=0,
-                 prefill_buckets=(128, 256, 512, 1024), decode_overlap=False,
-                 unified_batch=False)
+# weights, so the two differ only by the sharding.  Phase meshfeat's cases
+# (c)-(e) run on these engine pairs (``MF_ON_TP``): the Llama pair holds
+# their 2048-token disaggregated prompts; the DeepSeek pair drafts n-grams
+# (a lane drafts only once its last two tokens occurred before, so phase
+# tp's prompts, whose ids never repeat, start at W = 1) and holds every
+# routed pair (a capacity factor of experts / top-k)
+TP_ENGINE = dict(max_batch_size=8, seed=0, decode_overlap=False, unified_batch=False)
+TP_ENGINES = {"llama": dict(TP_ENGINE, num_blocks=1024, max_model_len=4096,
+                            prefill_buckets=(128, 256, 512, 1024, 2048, 4096)),
+              "deepseek": dict(TP_ENGINE, num_blocks=512, max_model_len=1024,
+                               prefill_buckets=(128, 256, 512, 1024), speculative="ngram",
+                               spec_tokens=4)}
 TP_PROMPT_LENS = (200, 150, 120, 90)
 TP_OSL = 16
 # bf16 logits of the mesh against tp = 1 on the same weights and card: each
@@ -6645,8 +6717,18 @@ TP_LOGITS_ATOL = {"llama": 0.25, "deepseek": 0.5}
 TP_PATH = {"llama": "paged_attention.launches", "deepseek": "mla_attention.decode_launches"}
 
 
-async def generate_top2(engine, tokens: list[int], max_tokens: int, stamps: list):
-    """Greedy tokens and, at each position, the top-2 logprob margin."""
+def held_capacity(cfg):
+    """A MoE config whose experts hold every routed pair (a capacity
+    factor of experts / top-k), whatever the lanes route together."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+async def generate_top2(engine, tokens: list[int], max_tokens: int, stamps: list, *,
+                        output_format=None, extra=None):
+    """Greedy tokens and, at each position, the top-2 logprob margin of one
+    request through ``engine`` (a TorchLlmEngine, a DisaggDecodeEngine or a
+    MultimodalEngine: ``extra`` adds its ``image``); a guided request
+    (``output_format``) stops at its EOS."""
     from dynamo_tpu_torch.llm.protocols.common import (
         Annotated,
         LLMEngineOutput,
@@ -6658,10 +6740,11 @@ async def generate_top2(engine, tokens: list[int], max_tokens: int, stamps: list
 
     req = PreprocessedRequest(
         token_ids=tokens, sampling=SamplingOptions(use_greedy=True, top_logprobs=2),
-        stop=StopConditions(max_tokens=max_tokens, ignore_eos=True), eos_token_ids=[1],
+        stop=StopConditions(max_tokens=max_tokens, ignore_eos=output_format is None),
+        eos_token_ids=[1], output_format=output_format,
     ).to_wire()
     out, margins = [], []
-    async for item in await engine.generate(Context(req)):
+    async for item in await engine.generate(Context({**req, **(extra or {})})):
         ann = Annotated.from_wire(item, LLMEngineOutput.from_wire)
         if ann.data is None:
             continue
@@ -6675,22 +6758,32 @@ async def generate_top2(engine, tokens: list[int], max_tokens: int, stamps: list
     return out, margins
 
 
-async def tp_burst(engine, prompts, osl):
-    """Every request queued, the engine started, its streams collected and
-    every rank's launch counters read before the engine stops."""
+async def tp_burst(engine, prompts, osl, *, start=False, counted=None, sequential=False, **kw):
+    """Every request through ``engine``: all at once (with ``start``, all
+    queued before the engine starts; it keeps running) or one after
+    another.  ``counted``: the engine whose ranks' counters are zeroed just
+    before and read just after (or None).  Returns (streams, stamps,
+    counts); stamps are (t0, each request's stamps), or with
+    ``sequential`` (each request's start, its stamps)."""
     marks = [[] for _ in prompts]
-    tasks = [asyncio.ensure_future(generate_top2(engine, p, osl, m))
-             for p, m in zip(prompts, marks)]
-    await asyncio.sleep(0.05)
-    t0 = time.perf_counter()
-    engine.start()
-    try:
+    if counted is not None:
+        counted.zero_mesh_counts()
+    if sequential:
+        t0, outs = [], []
+        for p, m in zip(prompts, marks):
+            t0.append(time.perf_counter())
+            outs.append(await generate_top2(engine, p, osl, m, **kw))
+    else:
+        tasks = [asyncio.ensure_future(generate_top2(engine, p, osl, m, **kw))
+                 for p, m in zip(prompts, marks)]
+        if start:
+            await asyncio.sleep(0.05)
+        t0 = time.perf_counter()
+        if start:
+            engine.start()
         outs = await asyncio.gather(*tasks)
-        counts = engine.mesh_counts()
-        stats = engine.stats()
-    finally:
-        engine.stop()
-    return outs, (t0, marks), counts, stats
+    counts = counted.mesh_counts() if counted is not None else None
+    return outs, (t0, marks), counts
 
 
 def first_logits(torch, engine, prompt: list[int]):
@@ -6709,94 +6802,141 @@ def first_logits(torch, engine, prompt: list[int]):
     return logits.float().cpu()
 
 
-def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engine_kw=TP_ENGINE,
-             prompt_lens=TP_PROMPT_LENS, osl: int = TP_OSL) -> dict:
-    """Each model served at tp = 1 and on its mesh (the ranks sharing the
-    card over gloo), from the same seed's weights: the first step's logits
-    within ``TP_LOGITS_ATOL``, the greedy streams equal but where tp = 1's
-    top-2 margin is within it, rows 2 and 4 launched on every rank (no
-    plain call), TTFT and ITL of both.  One ``smoke_tp`` line."""
+def parted_streams(case: str, ref_outs, outs, bound) -> list[dict]:
+    """Where each stream parts from one card's, with one card's top-2 margin
+    there; raises where that margin exceeds ``bound``."""
+    parted = []
+    for i, ((ref, margins), (got, _)) in enumerate(zip(ref_outs, outs)):
+        at = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+        if at is None and len(ref) != len(got):
+            at = min(len(ref), len(got))
+        if at is not None:
+            margin = margins[at] if at < len(margins) else None
+            parted.append({"request": i, "position": at, "one_card_top2_margin": margin})
+            if margin is None or margin > bound:
+                raise AssertionError(f"{case}: a stream parts from one card's where its top-2 "
+                                     f"margin is {margin} > {bound}: {parted[-1]}")
+    return parted
+
+
+def rank_checks(case: str, counts: list[dict], keys, enforce: bool) -> list[dict]:
+    """Every rank's launches of ``keys``, its plain calls and its mesh
+    seconds; with ``enforce`` (on the card) each key launched on every
+    rank, no plain call."""
+    ranks = [{"rank": r, **{k: c.get(k, 0) for k in keys},
+              "plain_calls": sum(v for k, v in c.items() if k.endswith("plain_calls")),
+              **{k: v for k, v in c.items() if k.startswith("mesh.") and k.endswith("_s")}}
+             for r, c in enumerate(counts)]
+    if enforce:
+        for r in ranks:
+            if any(r[k] <= 0 for k in keys) or r["plain_calls"]:
+                raise AssertionError(f"{case}: rank {r['rank']} launched {r}")
+    return ranks
+
+
+def logits_check(case: str, mesh_logits, one_logits, bound: float) -> dict:
+    """The mesh's first logits against one card's, within ``bound``."""
+    diff = (mesh_logits - one_logits).abs().max().item()
+    if not diff <= bound:
+        raise AssertionError(f"{case}: mesh logits differ from one card's by {diff} > {bound}")
+    return {"logits_max_abs_diff": diff, "logits_bound": bound,
+            "logits_ref_absmax": one_logits.abs().max().item(),
+            "argmax_equal": bool((mesh_logits.argmax(-1) == one_logits.argmax(-1)).all())}
+
+
+def free_card(torch, cuda: bool) -> None:
+    """Collect the engines the caller no longer holds and return their
+    memory to the card, before the next engine is built."""
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def build_engine(path, device: str, sizes: dict | None, **kw):
+    """``build_torch_engine`` on one card or on a mesh of ``sizes`` over
+    gloo; (engine, build seconds)."""
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
     from dynamo_tpu_torch.serve import build_torch_engine
 
+    if sizes is not None:
+        kw.update(mesh=MeshConfig(**sizes), mesh_backend=TP_BACKEND)
+    t0 = time.perf_counter()
+    engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path), device=device,
+                                **kw)
+    return engine, time.perf_counter() - t0
+
+
+def phase_tp(torch, card: str, device: str = "cuda", models=TP_MODELS, engines=TP_ENGINES,
+             prompt_lens=TP_PROMPT_LENS, osl: int = TP_OSL, meshfeat: bool = False) -> dict:
+    """Each model served at tp = 1, then on its mesh (the ranks sharing the
+    card over gloo), from the same seed's weights: the first step's logits
+    within ``TP_LOGITS_ATOL``, the greedy streams equal but where tp = 1's
+    top-2 margin is within it, rows 2 and 4 launched on every rank (no
+    plain call), TTFT and ITL of both.  One ``smoke_tp`` line.  With
+    ``meshfeat``, phase meshfeat's cases on each pair (``MF_ON_TP``) follow,
+    both engines up: their reports under the result's ``"meshfeat"``."""
+    from dynamo_tpu_torch.models.registry import get_family
+
     cuda = device == "cuda"
     report: dict = {"card": card, "backend": TP_BACKEND}
+    on_tp: dict = {}
     for model, fam, config, sizes in models:
         path = model_dir(model, config)
+        kw = dict(engines[fam])
+        if fam == "deepseek":
+            kw["model"] = held_capacity(get_family(config["model_type"]).config_from_hf(config))
         vocab = config["vocab_size"]
         prompts = [[(1000 + 37 * i + 11 * j) % vocab for j in range(n)]
                    for i, n in enumerate(prompt_lens)]
-        runs = {}
-        for label, mesh in (("tp1", None), ("mesh", sizes)):
-            over = dict(engine_kw)
-            if mesh is not None:
-                over.update(mesh=MeshConfig(**mesh), mesh_backend=TP_BACKEND)
-            t0 = time.perf_counter()
-            engine = build_torch_engine(path, ModelDeploymentCard.from_local_path(path),
-                                        device=device, **over)
-            build_s = time.perf_counter() - t0
-            try:
+        up, runs, cases = {}, {}, {}
+        try:
+            for label, mesh in (("tp1", None), ("mesh", sizes)):
+                engine, build_s = build_engine(path, device, mesh, **kw)
+                up[label] = engine
                 logits = first_logits(torch, engine, prompts[0])
-                engine.zero_mesh_counts()
-            except BaseException:
+                outs, stamps, counts = asyncio.run(
+                    tp_burst(engine, prompts, osl, start=True, counted=engine))
+                runs[label] = dict(logits=logits, outs=outs, e2e=ttft_itl(stamps),
+                                   counts=counts, build_s=build_s, stats=engine.stats())
+            if meshfeat:
+                cases = MF_ON_TP[fam](torch, device, path, config, up["tp1"], up["mesh"])
+        finally:
+            for engine in up.values():
                 engine.stop()
-                raise
-            outs, stamps, counts, stats = asyncio.run(tp_burst(engine, prompts, osl))
-            runs[label] = dict(logits=logits, outs=outs, e2e=ttft_itl(stamps), counts=counts,
-                               build_s=build_s, steps=stats.get("mesh_steps_total"),
-                               step_time=stats.get("mesh_step_time", {}))
-            del engine
-            gc.collect()
-            if cuda:
-                torch.cuda.empty_cache()
+            up.clear()
+            engine = None
+            free_card(torch, cuda)
         bound = TP_LOGITS_ATOL[fam]
-        diff = (runs["mesh"]["logits"] - runs["tp1"]["logits"]).abs()
-        parted = []
-        for i, ((ref, margins), (got, _)) in enumerate(zip(runs["tp1"]["outs"],
-                                                           runs["mesh"]["outs"])):
-            at = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
-            if at is not None:
-                parted.append({"request": i, "position": at, "tp1_top2_margin": margins[at]})
+        one, mesh = runs["tp1"], runs["mesh"]
         path_key = TP_PATH[fam]
-        ranks = [{"rank": r, path_key: c.get(path_key, 0),
-                  "plain_calls": sum(v for k, v in c.items() if k.endswith("plain_calls"))}
-                 for r, c in enumerate(runs["mesh"]["counts"])]
         row = {
-            "mesh": sizes, "ranks": len(ranks), "logits_max_abs_diff": diff.max().item(),
-            "logits_bound": bound,
-            "logits_ref_absmax": runs["tp1"]["logits"].abs().max().item(),
-            "argmax_equal": int(runs["mesh"]["logits"].argmax()) ==
-            int(runs["tp1"]["logits"].argmax()),
-            "streams_equal": sum(1 for (a, _), (b, _) in zip(runs["tp1"]["outs"],
-                                                              runs["mesh"]["outs"]) if a == b),
-            "streams": len(prompts), "parted": parted, "rank_launches": ranks,
-            "mesh_steps": runs["mesh"]["steps"],
+            "mesh": sizes, **logits_check(f"tp {model}", mesh["logits"], one["logits"], bound),
+            "streams_equal": sum(1 for (a, _), (b, _) in zip(one["outs"], mesh["outs"])
+                                 if a == b),
+            "streams": len(prompts),
+            "parted": parted_streams(f"tp {model}", one["outs"], mesh["outs"], bound),
+            "rank_launches": rank_checks(f"tp {model}", mesh["counts"], (path_key,), cuda),
+            "mesh_steps": mesh["stats"].get("mesh_steps_total"),
             # rank 0's seconds a step: wall, collectives, hand-offs, ring
-            "per_step_s": per_step(runs["mesh"]["step_time"]),
-            "tp1": {**{k: runs["tp1"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
-                    "build_s": runs["tp1"]["build_s"]},
-            "mesh_e2e": {**{k: runs["mesh"]["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
-                         "build_s": runs["mesh"]["build_s"]},
+            "per_step_s": per_step(mesh["stats"].get("mesh_step_time", {})),
+            "tp1": {**{k: one["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
+                    "build_s": one["build_s"]},
+            "mesh_e2e": {**{k: mesh["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
+                         "build_s": mesh["build_s"]},
         }
+        row["ranks"] = len(row["rank_launches"])
         report[fam] = row
+        for case in cases.values():  # the pair's first logits, held above
+            case["logits"] = {k: row[k] for k in ("logits_max_abs_diff", "logits_bound",
+                                                  "argmax_equal")}
+        on_tp.update(cases)
         log(f"[tp] {model} {sizes}: logits max |diff| {row['logits_max_abs_diff']:.4f} "
             f"(bound {bound}), streams equal {row['streams_equal']}/{len(prompts)}, "
-            f"parted {parted}, ranks' {path_key} {[r[path_key] for r in ranks]}, "
-            f"per step {row['per_step_s']}")
-        if not row["logits_max_abs_diff"] <= bound:
-            raise AssertionError(f"{model}: mesh logits differ from tp = 1 by "
-                                 f"{row['logits_max_abs_diff']} > {bound}")
-        for p in parted:
-            if p["tp1_top2_margin"] > bound:
-                raise AssertionError(f"{model}: a greedy stream parts from tp = 1 where its "
-                                     f"top-2 margin is {p['tp1_top2_margin']} > {bound}: {p}")
-        if cuda:
-            for r in ranks:
-                if r[path_key] <= 0 or r["plain_calls"]:
-                    raise AssertionError(f"{model}: rank {r['rank']} launched {r}")
+            f"parted {row['parted']}, ranks' {path_key} "
+            f"{[r[path_key] for r in row['rank_launches']]}, per step {row['per_step_s']}")
     print(json.dumps({"smoke_tp": report}), flush=True)
-    return report
+    return {**report, "meshfeat": on_tp}
 
 
 # ---------------------------------------------------------------------------
@@ -6841,22 +6981,23 @@ PP_PATH = "paged_attention.launches"
 
 def pp_models(torch):
     """(label, registry family, config, meshes, engine fields, prompt lengths)
-    of the phase: Llama-3-8B at full width and depth on pp, pp x tp and sp
-    (a 4096-token prompt beside the short ones), Mixtral-8x7B at full width
+    of the phase: Llama-3-8B at full width and a quarter of its depth (8
+    of its 32 layers, so that the whole smoke keeps its time with phase
+    meshfeat) on
+    pp, pp x tp and sp (a 4096-token prompt beside the short ones),
+    Mixtral-8x7B at full width
     and 8 of its 32 layers on pp x ep (every routed token held: a capacity
     factor of experts / top-k, since a microbatch routes alone), Gemma-2-2B
     at full width and depth on pp x tp."""
-    import dataclasses
-
     from dynamo_tpu_torch.models.registry import get_family
 
     def parse(family, config):
         return get_family(family).config_from_hf(config)
 
-    mix = parse("mixtral", MIXTRAL_8X7B)
-    mix = dataclasses.replace(mix, capacity_factor=mix.num_experts / mix.experts_per_token)
+    mix = held_capacity(parse("mixtral", MIXTRAL_8X7B))
     return (
-        ("llama3-8b", "llama", parse("llama", LLAMA3_8B), PP_LLAMA_MESHES, PP_ENGINE,
+        ("llama3-8b", "llama", parse("llama", dict(LLAMA3_8B, num_hidden_layers=8)),
+         PP_LLAMA_MESHES, PP_ENGINE,
          (*PP_PROMPT_LENS, PP_LONG)),
         ("mixtral-8x7b-8l", "mixtral", mix, (("pp2ep2", dict(pp=2, ep=2)),), PP_SMALL_ENGINE,
          PP_PROMPT_LENS),
@@ -6867,10 +7008,10 @@ def pp_models(torch):
 
 def per_step(step_time: dict) -> dict:
     """Rank 0's seconds a step of each program: wall, and of it in
-    collectives, stage hand-offs and ring rotations."""
+    collectives, stage hand-offs, ring rotations and block transfers."""
     return {prog: {"steps": r["steps"],
-                   **{k: r[k] / max(r["steps"], 1)
-                      for k in ("wall_s", "collective_s", "handoff_s", "ring_s")}}
+                   **{k: r.get(k, 0.0) / max(r["steps"], 1)
+                      for k in ("wall_s", "collective_s", "handoff_s", "ring_s", "transfer_s")}}
             for prog, r in step_time.items()}
 
 
@@ -6905,65 +7046,48 @@ def phase_pp(torch, card: str, device: str = "cuda", models=None, osl: int = PP_
             build_s = time.perf_counter() - t0
             try:
                 logits = {len(p): first_logits(torch, engine, p) for p in mine}
-                engine.zero_mesh_counts()
-            except BaseException:
+                outs, stamps, counts = asyncio.run(
+                    tp_burst(engine, mine, osl, start=True, counted=engine))
+                stats = engine.stats()
+            finally:
                 engine.stop()
-                raise
-            outs, stamps, counts, stats = asyncio.run(tp_burst(engine, mine, osl))
+                engine = None
+                free_card(torch, cuda)
             runs[label] = dict(logits=logits, outs={len(p): o for p, o in zip(mine, outs)},
                                e2e=ttft_itl(stamps), counts=counts, build_s=build_s,
                                stats=stats)
-            del engine
-            gc.collect()
-            if cuda:
-                torch.cuda.empty_cache()
         one = runs["one"]
         ref_absmax = max(x.abs().max().item() for x in one["logits"].values())
         bound = PP_LOGITS_ATOL.get(family) or PP_LOGITS_REL[family] * ref_absmax
         rows = {}
         for label, sizes in meshes:
             run = runs[label]
-            diff = max((x - one["logits"][n]).abs().max().item()
-                       for n, x in run["logits"].items())
-            parted = []
-            for n, (got, _) in run["outs"].items():
-                ref, margins = one["outs"][n]
-                at = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
-                if at is not None:
-                    parted.append({"prompt_len": n, "position": at,
-                                   "one_card_top2_margin": margins[at]})
-            ranks = [{"rank": r, PP_PATH: c.get(PP_PATH, 0),
-                      "plain_calls": sum(v for k, v in c.items() if k.endswith("plain_calls")),
-                      **{k: c[k] for k in ("mesh.collective_s", "mesh.handoff_s",
-                                           "mesh.ring_s")}}
-                     for r, c in enumerate(run["counts"])]
-            rows[label] = {
-                "mesh": sizes, "ranks": len(ranks), "logits_max_abs_diff": diff,
-                "logits_bound": bound, "logits_ref_absmax": ref_absmax,
+            case = f"pp {model} {label}"
+            lens_run = list(run["outs"])
+            rows[label] = row = {
+                "mesh": sizes,
+                **logits_check(case, torch.stack([run["logits"][n] for n in lens_run]),
+                               torch.stack([one["logits"][n] for n in lens_run]), bound),
                 "streams_equal": sum(1 for n, (got, _) in run["outs"].items()
                                      if got == one["outs"][n][0]),
-                "streams": len(run["outs"]), "parted": parted, "rank_launches": ranks,
+                "streams": len(run["outs"]),
+                "parted": [{**p, "prompt_len": lens_run[p["request"]]} for p in parted_streams(
+                    case, [one["outs"][n] for n in lens_run], list(run["outs"].values()),
+                    bound)],
+                # the Gemma-2 meshes' attention is the plain form on every
+                # device: no kernel stands behind it
+                "rank_launches": rank_checks(case, run["counts"], (PP_PATH,),
+                                             cuda and family != "gemma2"),
                 "mesh_steps": run["stats"].get("mesh_steps_total"),
                 "per_step_s": per_step(run["stats"].get("mesh_step_time", {})),
                 "e2e": {**{k: run["e2e"][k] for k in ("ttft_ms_mean", "itl_ms_mean")},
                         "build_s": run["build_s"]},
             }
-            row = rows[label]
-            log(f"[pp] {model} {sizes}: logits max |diff| {diff:.4f} (bound {bound:.4f}), "
-                f"streams equal {row['streams_equal']}/{row['streams']}, parted {parted}, ranks' "
-                f"{PP_PATH} {[r[PP_PATH] for r in ranks]}, per step {row['per_step_s']}")
-            if not diff <= bound:
-                raise AssertionError(f"{model} {label}: mesh logits differ from one card by "
-                                     f"{diff} > {bound}")
-            for p in parted:
-                if p["one_card_top2_margin"] > bound:
-                    raise AssertionError(f"{model} {label}: a greedy stream parts from one "
-                                         f"card where its top-2 margin is "
-                                         f"{p['one_card_top2_margin']} > {bound}: {p}")
-            if cuda and family != "gemma2":
-                for r in ranks:
-                    if r[PP_PATH] <= 0 or r["plain_calls"]:
-                        raise AssertionError(f"{model} {label}: rank {r['rank']} launched {r}")
+            row["ranks"] = len(row["rank_launches"])
+            log(f"[pp] {model} {sizes}: logits max |diff| {row['logits_max_abs_diff']:.4f} "
+                f"(bound {bound:.4f}), streams equal {row['streams_equal']}/{row['streams']}, "
+                f"parted {row['parted']}, ranks' {PP_PATH} "
+                f"{[r[PP_PATH] for r in row['rank_launches']]}, per step {row['per_step_s']}")
         report[model] = {"family": family, "layers": cfg.num_layers, "meshes": rows,
                          "one_card": {**{k: one["e2e"][k] for k in ("ttft_ms_mean",
                                                                      "itl_ms_mean")},
@@ -6971,6 +7095,473 @@ def phase_pp(torch, card: str, device: str = "cuda", models=None, osl: int = PP_
     print(json.dumps({"smoke_pp": report}), flush=True)
     return report
 
+
+# ---------------------------------------------------------------------------
+# phase meshfeat: speculation, offload, disaggregation, guided JSON and
+# multimodal requests on an engine mesh, the ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# As phases tp and pp: the ranks share the one card over gloo, named; every
+# collective and every block transfer to and from rank 0 stages through host
+# memory.  Each case serves one card and the mesh on the same seed's
+# weights, and holds the mesh to one card with phase tp's bounds.  (a) and
+# (b) share one engine pair here (speculation with the offload tiers under
+# it), and (f) has its own; (c) + (d) and (e) run on phase tp's Llama and
+# DeepSeek pairs (``MF_ON_TP``), whose first logits phase tp holds.
+# (a) and (b) serve Llama-3-8B at all 32 layers; (f) LLaVA-1.5-7B at 16 of
+# its text model's 32, so that the whole smoke keeps its time
+MF_LLAMA = LLAMA3_8B
+MF_LLAVA = {**LLAVA_1_5_7B, "text_config": dict(LLAVA_1_5_7B["text_config"],
+                                                num_hidden_layers=16)}
+MF_SPEC_OFFLOAD = dict(num_blocks=128, host_offload_blocks=512, prefetch=True, max_batch_size=8,
+                       max_model_len=2048, seed=0, prefill_buckets=(128, 256, 512, 1024, 2048),
+                       decode_overlap=False, unified_batch=False, speculative="ngram",
+                       spec_tokens=4)
+MF_MM = dict(num_blocks=1024, max_batch_size=8, max_model_len=2048, seed=0,
+             prefill_buckets=(128, 256, 512, 1024, 2048), decode_overlap=False,
+             unified_batch=False)
+MF_SPEC_OSL = 32
+MF_SESSIONS, MF_SESSION_LEN, MF_TURN_OSL = 6, 1024, 2
+MF_DISAGG_PROMPTS, MF_DISAGG_ISL, MF_DISAGG_OSL = 4, 2048, 16
+# (d): greedy decoding of random weights seldom ends a JSON number (a run of
+# one digit is its fixed point), so the four guided prompts are those of
+# these candidates whose documents one card closes, at the widest top-2
+# margins (the mesh then has the least room to part from them); on the
+# mesh each of the four must close and parse
+MF_GUIDED_CANDIDATES, MF_GUIDED_PROMPTS, MF_GUIDED_OSL = 32, 4, 32
+MF_MM_OSL = 16
+# each case's kernel on every rank, none of them a plain call
+MF_PATHS = {"spec": ("paged_attention.window_launches",),
+            "offload": ("block_copy.gather_launches", "block_copy.scatter_launches"),
+            "disagg_tp2_to_one": ("block_copy.gather_launches",),
+            "disagg_one_to_tp2": ("block_copy.scatter_launches",),
+            "guided": ("paged_attention.launches",),
+            "deepseek_spec": ("mla_attention.window_launches",),
+            "llava": ("paged_attention.launches",)}
+MF_SPEC_KEYS = ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
+                "spec_verify_steps_total")
+
+
+def lookup_prompts(vocab: int, n: int = 4, length: int = 192) -> list[list[int]]:
+    """Prompt-lookup-friendly prompts: each a phrase of 12 ids repeated."""
+    rng = random.Random(22)
+    out = []
+    for _ in range(n):
+        phrase = [rng.randrange(3, vocab) for _ in range(12)]
+        out.append((phrase * (length // 12 + 1))[:length])
+    return out
+
+
+def own_ttft_ms(stamps) -> float:
+    """Mean TTFT of requests sent one after another, each from its own
+    start (``tp_burst(sequential=True)``'s stamps)."""
+    starts, marks = stamps
+    return sum(m[0] - s for s, m in zip(starts, marks)) / len(marks) * 1e3
+
+
+def e2e_ms(stamps) -> dict:
+    return {k: ttft_itl(stamps)[k] for k in ("ttft_ms_mean", "itl_ms_mean")}
+
+
+def mf_spec_offload(torch, device: str) -> dict:
+    """(a) n-gram speculation (row 2 at W = 5 on each rank's head shard)
+    and (b) six sessions of two 1024-token turns over G1 128 blocks on
+    G2 512 (every returning turn restores; the pager on): Llama-3-8B at all
+    32 layers, tp 2 against one card.  After (b) each block restored on the
+    mesh and still resident is gathered from every rank's shard again:
+    each rank's slice bitwise equal to what it held when the block was
+    evicted."""
+    cuda = device == "cuda"
+    path = model_dir("llama3-8b-meshfeat-spec", MF_LLAMA)
+    vocab = MF_LLAMA["vocab_size"]
+    spec_prompts = lookup_prompts(vocab)
+    rng = random.Random(6)
+    heads = [[rng.randrange(3, vocab) for _ in range(MF_SESSION_LEN)] for _ in range(MF_SESSIONS)]
+    runs = {}
+    for label, sizes in (("one", None), ("mesh", dict(tp=2))):
+        engine, build_s = build_engine(path, device, sizes, **MF_SPEC_OFFLOAD)
+        mesh = engine if sizes is not None else None
+        evicted, restored = {}, []
+        if mesh is not None:
+            put = engine._put_offloaded
+
+            def record(pairs, gathered, put=put):
+                for i, (_, h) in enumerate(pairs):
+                    evicted.setdefault(h, {k: v[:, i].cpu().clone()
+                                           for k, v in gathered.items()})
+                return put(pairs, gathered)
+
+            engine._put_offloaded = record
+            reg = engine.allocator.register_restored
+
+            def on_restore(plan, reg=reg):
+                restored.extend(plan)
+                return reg(plan)
+
+            engine.allocator.register_restored = on_restore
+        try:
+            logits = first_logits(torch, engine, spec_prompts[0])
+            engine.start()
+
+            async def drive():
+                spec = await tp_burst(engine, spec_prompts, MF_SPEC_OSL, counted=engine)
+                st_a = engine.stats()
+                await settled(engine)
+                # both turns counted: the first turn's evictions offload, the
+                # returning turns restore (and evict again)
+                engine.zero_mesh_counts()
+                first = await tp_burst(engine, [h[:] for h in heads], MF_TURN_OSL,
+                                       sequential=True)
+                turn2 = [h + out + [(7 * i + 3) % vocab for i in range(16)]
+                         for h, (out, _) in zip(heads, first[0])]
+                second = await tp_burst(engine, turn2, MF_TURN_OSL, sequential=True)
+                await settled(engine)
+                return spec, st_a, first, second, engine.mesh_counts(), engine.stats()
+
+            (spec, st_a, first, second, counts_b, st_b) = asyncio.run(drive())
+            shard_check = None
+            if mesh is not None:
+                shard_check = {"restored": len(restored), "checked": 0, "rank_slices_equal": 0}
+                # the restored blocks still resident, gathered in one step
+                live = [(h, bid) for h, bid in dict(restored).items()
+                        if engine.allocator._hash_to_block.get(h) == bid and h in evicted]
+                now = engine._gather_cache([bid for _, bid in live]) if live else {}
+                for name, whole in now.items():
+                    whole = whole.cpu()
+                    for i, (h, bid) in enumerate(live):
+                        before = evicted[h][name]
+                        for r in range(engine.mesh.world_size):
+                            sl = engine._shards.slices(name, 1, r)
+                            a = whole[(sl[0], slice(i, i + 1), *sl[2:])][:, 0]
+                            b = before[(sl[0], *sl[2:])]
+                            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                                raise AssertionError(f"meshfeat offload: rank {r}'s shard of "
+                                                     f"restored block {bid} ({name}) differs "
+                                                     f"from its shard at eviction")
+                            shard_check["rank_slices_equal"] += 1
+                shard_check["checked"] = len(live)
+                if shard_check["checked"] <= 0:
+                    raise AssertionError(f"meshfeat offload: no restored block to check: "
+                                         f"{shard_check}")
+            runs[label] = dict(logits=logits, spec=spec, st_a=st_a, first=first, second=second,
+                               counts_b=counts_b, st_b=st_b, build_s=build_s,
+                               shard_check=shard_check)
+        finally:
+            engine.stop()
+            engine = mesh = put = reg = record = on_restore = None
+            free_card(torch, cuda)
+    one, mesh_run = runs["one"], runs["mesh"]
+    bound = TP_LOGITS_ATOL["llama"]
+    out = {"logits": logits_check("meshfeat spec", mesh_run["logits"], one["logits"], bound)}
+    out["spec"] = {
+        "parted": parted_streams("meshfeat spec", one["spec"][0], mesh_run["spec"][0], bound),
+        "streams": len(spec_prompts),
+        "ranks": rank_checks("meshfeat spec", mesh_run["spec"][2], MF_PATHS["spec"], cuda),
+        "mesh": {**{k: mesh_run["st_a"].get(k) for k in MF_SPEC_KEYS},
+                 **e2e_ms(mesh_run["spec"][1])},
+        "one": {**{k: one["st_a"].get(k) for k in MF_SPEC_KEYS}, **e2e_ms(one["spec"][1])},
+        "verify_step_s": per_step(mesh_run["st_a"].get("mesh_step_time", {})).get("verify"),
+    }
+    if not mesh_run["st_a"].get("spec_verify_steps_total"):
+        raise AssertionError(f"meshfeat spec: no verify window ran: {out['spec']}")
+    st = mesh_run["st_b"]
+    restores = st.get("host_restores_total", 0)
+    out["offload"] = {
+        "parted": (parted_streams("meshfeat offload", one["first"][0], mesh_run["first"][0],
+                                  bound)
+                   + parted_streams("meshfeat offload", one["second"][0],
+                                    mesh_run["second"][0], bound)),
+        "streams": 2 * MF_SESSIONS,
+        "ranks": rank_checks("meshfeat offload", mesh_run["counts_b"], MF_PATHS["offload"],
+                             cuda),
+        "host_offloads": st.get("host_offloads_total"), "host_restores": restores,
+        "one_card_restores": one["st_b"].get("host_restores_total"),
+        "prefetch_restored": st.get("prefetch_blocks_restored_total"),
+        "shard_check": mesh_run["shard_check"],
+        "transfer_s": {p: r.get("transfer_s") for p, r in st.get("mesh_step_time", {}).items()
+                       if p in ("gather", "scatter")},
+        "gather_scatter_step_s": {p: v for p, v in per_step(st.get("mesh_step_time", {})).items()
+                                  if p in ("gather", "scatter")},
+        "turn_ttft_ms": {label: {turn: own_ttft_ms(r[turn][1]) for turn in ("first", "second")}
+                         for label, r in (("mesh", mesh_run), ("one", one))},
+    }
+    if restores <= 0:
+        raise AssertionError(f"meshfeat offload: no returning turn restored: {out['offload']}")
+    out["build_s"] = {"one": one["build_s"], "mesh": mesh_run["build_s"]}
+    return out
+
+
+def json_docs(tok, masks, strings, streams) -> list[dict]:
+    """Each guided stream walked through the JSON automaton (raises where it
+    leaves JSON); its text, and whether it closed and parses."""
+    from dynamo_tpu_torch.llm import guided
+
+    docs = []
+    for ids, margins in streams:
+        cursor = guided.JsonCursor(masks, strings, eos_ids=tok.eos_token_ids)
+        for t in ids:
+            cursor.advance(t)
+            if cursor.failed:
+                raise AssertionError(f"meshfeat guided: a stream left JSON at {t}: {ids}")
+        text = tok.decode(ids, skip_special_tokens=True)
+        parses = False
+        if cursor.complete:
+            json.loads(text)
+            parses = True
+        docs.append({"tokens": len(ids), "parses": parses, "text": text[:80],
+                     "min_top2_margin": min(margins, default=0.0)})
+    return docs
+
+
+def mf_disagg_guided(torch, device: str, path, config: dict, one, mesh) -> dict:
+    """On phase tp's Llama pair (both engines serving).  (c) Disaggregation
+    over the same-process route (the blocks stay on the card), four
+    2048-token prompts each way: the tp 2 engine prefilling for the
+    one-card engine, and the one-card engine for the tp 2 engine; each
+    stream held against the one-card engine's aggregated one.  (d) Four
+    ``json_object`` requests on the tp 2 engine (the launch path installs
+    the table), chosen on one card (``MF_GUIDED_CANDIDATES``): each must
+    close and parse, held against one card's."""
+    from dynamo_tpu_torch.llm.disagg import (
+        DisaggConfig,
+        DisaggDecodeEngine,
+        DisaggRouter,
+        PrefillQueue,
+        PrefillWorker,
+    )
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    cuda = device == "cuda"
+    tok = HfTokenizer.from_model_dir(path)
+    vocab = config["vocab_size"]
+    rng = random.Random(8)
+    prompts = [[rng.randrange(3, vocab) for _ in range(MF_DISAGG_ISL)]
+               for _ in range(MF_DISAGG_PROMPTS)]
+    candidates = [[rng.randrange(3, vocab) for _ in range(24 + 4 * i)]
+                  for i in range(MF_GUIDED_CANDIDATES)]
+    if one.guided_masks is None or mesh.guided_masks is None:
+        raise AssertionError("meshfeat guided: the launch path installed no table")
+    masks, strings = mesh.guided_masks, mesh._guided_strings
+
+    async def route(prefill, decode, n: int):
+        rt = await DistributedRuntime.create(RuntimeConfig(
+            control_plane=f"memory://smoke-meshfeat-{n}"))
+        router = DisaggRouter(rt, "meshfeat", DisaggConfig(max_local_prefill_length=64))
+        queue = PrefillQueue(rt, "smoke", "meshfeat")
+        front = DisaggDecodeEngine(rt, decode, router, queue)
+        await front.start()
+        worker = PrefillWorker(rt, prefill, queue, stream=False)
+        worker.start()
+        try:
+            res = await tp_burst(front, prompts, MF_DISAGG_OSL, counted=mesh)
+            return res, {"remote_prefills": front.remote_prefills,
+                         "kv_transfer_bytes": front.kv_transfer_bytes_total}
+        finally:
+            await worker.stop()
+            await front.stop()
+            await rt.close()
+
+    async def drive():
+        for e in (one, mesh):
+            await settled(e)
+            await e.clear_kv_blocks()
+        agg = await tp_burst(one, prompts, MF_DISAGG_OSL)
+        await settled(one)
+        routes = {}
+        for n, (name, pre, dec) in enumerate((("disagg_tp2_to_one", mesh, one),
+                                               ("disagg_one_to_tp2", one, mesh))):
+            for e in (one, mesh):
+                await e.clear_kv_blocks()
+            routes[name] = await route(pre, dec, n)
+            await settled(one)
+            await settled(mesh)
+        cands = await tp_burst(one, candidates, MF_GUIDED_OSL, output_format="json_object")
+        await settled(one)
+        closed = [(d["min_top2_margin"], i) for i, d in
+                  enumerate(json_docs(tok, masks, strings, cands[0])) if d["parses"]]
+        if len(closed) < MF_GUIDED_PROMPTS:
+            raise AssertionError(f"meshfeat guided: one card closed {len(closed)} of "
+                                 f"{len(candidates)} documents, fewer than "
+                                 f"{MF_GUIDED_PROMPTS}")
+        pick = [i for _, i in sorted(closed, reverse=True)[:MF_GUIDED_PROMPTS]]
+        chosen = [candidates[i] for i in pick]
+        g_one = await tp_burst(one, chosen, MF_GUIDED_OSL, output_format="json_object")
+        g_mesh = await tp_burst(mesh, chosen, MF_GUIDED_OSL, counted=mesh,
+                                output_format="json_object")
+        return agg, routes, (len(closed), pick), g_one, g_mesh, mesh.stats()
+
+    agg, routes, (n_closed, pick), g_one, g_mesh, st = asyncio.run(drive())
+    bound = TP_LOGITS_ATOL["llama"]
+    out = {}
+    for name, (res, info) in routes.items():
+        if info["remote_prefills"] != len(prompts):
+            raise AssertionError(f"meshfeat {name}: {info['remote_prefills']} of {len(prompts)} "
+                                 f"prompts prefilled remotely")
+        out[name] = {"parted": parted_streams(f"meshfeat {name}", agg[0], res[0], bound),
+                     "streams": len(prompts),
+                     "ranks": rank_checks(f"meshfeat {name}", res[2], MF_PATHS[name], cuda),
+                     **info, **e2e_ms(res[1])}
+    out["aggregated_one_card"] = e2e_ms(agg[1])
+    docs = json_docs(tok, masks, strings, g_mesh[0])
+    unparsed = [d for d in docs if not d["parses"]]
+    if unparsed:
+        raise AssertionError(f"meshfeat guided: {len(unparsed)} of {len(docs)} documents did "
+                             f"not close: {unparsed}")
+    out["guided"] = {"parted": parted_streams("meshfeat guided", g_one[0], g_mesh[0], bound),
+                     "docs": docs, "parse": len(docs),
+                     "one_card_closed": f"{n_closed} of {len(candidates)}", "chosen": pick,
+                     "ranks": rank_checks("meshfeat guided", g_mesh[2], MF_PATHS["guided"],
+                                          cuda),
+                     "guided_requests": st.get("guided_requests_total"), **e2e_ms(g_mesh[1])}
+    out["transfer_step_s"] = {p: v for p, v in per_step(st.get("mesh_step_time", {})).items()
+                              if p in ("gather", "scatter")}
+    return {"disagg_guided": out}
+
+
+def mf_deepseek(torch, device: str, path, config: dict, one, mesh) -> dict:
+    """(e) On phase tp's DeepSeek-V2-Lite pair (tp 2 x ep 2, every routed
+    pair held, n-gram speculation; both engines serving): four
+    prompt-lookup prompts, row 5 on each rank's 8 heads over the whole
+    latent cache, against one card."""
+    cuda = device == "cuda"
+    prompts = lookup_prompts(config["vocab_size"])
+
+    async def drive():
+        res = {}
+        for label, e in (("one", one), ("mesh", mesh)):
+            await settled(e)
+            before = e.stats()
+            burst = await tp_burst(e, prompts, MF_SPEC_OSL, counted=e)
+            after = e.stats()
+            res[label] = (burst, {k: after.get(k, 0) - before.get(k, 0) for k in MF_SPEC_KEYS},
+                          after)
+        return res
+
+    res = asyncio.run(drive())
+    (one_res, one_spec, _), (mesh_res, mesh_spec, st) = res["one"], res["mesh"]
+    bound = TP_LOGITS_ATOL["deepseek"]
+    out = {"parted": parted_streams("meshfeat deepseek", one_res[0], mesh_res[0], bound),
+           "streams": len(prompts),
+           "ranks": rank_checks("meshfeat deepseek", mesh_res[2], MF_PATHS["deepseek_spec"],
+                                cuda),
+           "mesh": {**mesh_spec, **e2e_ms(mesh_res[1])},
+           "one": {**one_spec, **e2e_ms(one_res[1])},
+           "verify_step_s": per_step(st.get("mesh_step_time", {})).get("verify")}
+    if not mesh_spec["spec_verify_steps_total"]:
+        raise AssertionError(f"meshfeat deepseek: no verify window ran: {out}")
+    return {"deepseek_spec": out}
+
+
+# phase meshfeat's cases on phase tp's engine pairs, by family
+MF_ON_TP = {"llama": mf_disagg_guided, "deepseek": mf_deepseek}
+
+
+def mf_llava(torch, device: str) -> dict:
+    """(f) LLaVA-1.5-7B at tp 2: two images through ``MultimodalEngine`` (the
+    ViT on rank 0's card, the patch embeddings spliced on every rank), the
+    first logits of the first image's prefill and the greedy streams held
+    against one card's."""
+    import numpy as np
+
+    from dynamo_tpu_torch.examples.multimodal.pipeline import start_engine
+    from dynamo_tpu_torch.llm.multimodal import decode_image_bytes
+    from dynamo_tpu_torch.models.vision import VisionConfig
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    cuda = device == "cuda"
+    vcfg = VisionConfig.from_hf_config(MF_LLAVA)
+    path = model_dir("llava-1.5-7b-meshfeat", MF_LLAVA["text_config"])
+    vocab = MF_LLAVA["text_config"]["vocab_size"]
+    images = [decode_image_bytes(png_data_url(40 + i)[1]) for i in range(2)]
+    rng = random.Random(9)
+    text = [[rng.randrange(3, vocab) for _ in range(48)] for _ in images]
+    runs = {}
+    for label, sizes in (("one", None), ("mesh", dict(tp=2))):
+        over = dict(MF_MM)
+        if sizes is not None:
+            over.update(mesh=MeshConfig(**sizes), mesh_backend=TP_BACKEND)
+
+        async def drive(over=over):
+            t0 = time.perf_counter()
+            handle = await start_engine(str(path), device=device, name=f"meshfeat-{label}",
+                                        vision=vcfg, **over)
+            build_s = time.perf_counter() - t0
+            try:
+                llm = handle.llm
+                embeds = handle.encoder.encode(images[0])
+                logits = first_logits_mm(torch, llm, text[0], np.asarray(embeds, np.float32))
+                marks = [[] for _ in images]
+                llm.zero_mesh_counts()
+                t1 = time.perf_counter()
+                outs = await asyncio.gather(*[
+                    generate_top2(handle.engine, t, MF_MM_OSL, m, extra={"image": im})
+                    for t, im, m in zip(text, images, marks)])
+                return dict(logits=logits, outs=outs, stamps=(t1, marks),
+                            counts=llm.mesh_counts(), st=llm.stats(), build_s=build_s)
+            finally:
+                await handle.shutdown()
+
+        runs[label] = asyncio.run(drive())
+        free_card(torch, cuda)
+    one, mesh_run = runs["one"], runs["mesh"]
+    bound = TP_LOGITS_ATOL["llama"]
+    return {"logits": logits_check("meshfeat llava", mesh_run["logits"], one["logits"], bound),
+            "parted": parted_streams("meshfeat llava", one["outs"], mesh_run["outs"], bound),
+            "streams": len(images), "patches": vcfg.num_patches,
+            "ranks": rank_checks("meshfeat llava", mesh_run["counts"], MF_PATHS["llava"], cuda),
+            "embeds_steps": mesh_run["st"].get("mesh_step_time", {}).get("embeds",
+                                                                          {}).get("steps"),
+            "mesh": e2e_ms(mesh_run["stamps"]), "one": e2e_ms(one["stamps"]),
+            "build_s": {"one": one["build_s"], "mesh": mesh_run["build_s"]}}
+
+
+def first_logits_mm(torch, engine, tokens: list[int], embeds) -> "torch.Tensor":
+    """The engine's multimodal prefill (``forward_prefill_spliced``, every
+    rank of a mesh) of ``embeds`` then ``tokens``, before it serves: the
+    first token's logits, float32 on the host."""
+    dev = engine.device
+    n_patch, n = len(embeds), len(embeds) + len(tokens)
+    pad = engine._bucket_len(n)
+    ids = torch.zeros(pad, dtype=torch.int32, device=dev)
+    ids[n_patch:n] = torch.tensor(tokens, dtype=torch.int32)
+    x = torch.zeros((pad, embeds.shape[1]), dtype=torch.float32, device=dev)
+    x[:n_patch] = torch.from_numpy(embeds).to(dev)
+    blocks = torch.arange(engine.max_blocks_per_seq, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, _ = engine.family.forward_prefill_spliced(
+            engine.params, engine.config.model, ids, engine.cache, x,
+            torch.tensor(n_patch, dtype=torch.int32, device=dev), blocks,
+            torch.tensor(n, dtype=torch.int32, device=dev), 0, engine.cos, engine.sin)
+    return logits.float().cpu()
+
+
+def phase_meshfeat(torch, card: str, device: str = "cuda", on_tp: dict | None = None) -> dict:
+    """Speculation, the offload tiers, disaggregation, guided JSON and
+    multimodal requests on engine meshes (the ranks sharing the card over
+    gloo), each against one card on the same seed's weights: (a) + (b)
+    ``mf_spec_offload`` and (f) ``mf_llava`` here, (c) + (d) and (e) from
+    phase tp's engine pairs (``on_tp``, phase tp's result's
+    ``"meshfeat"``).  Each: the first logits within phase tp's bound, the
+    greedy streams equal but where one card's top-2 margin is within it,
+    the case's kernels on every rank with no plain call (rows 2 at W = 5
+    and 5, rows 6-7), TTFT and ITL, rank 0's transfer seconds.  One
+    ``smoke_meshfeat`` line."""
+    report: dict = {"card": card, "backend": TP_BACKEND}
+    for name, fn in (("spec_offload", mf_spec_offload), ("llava", mf_llava)):
+        free_card(torch, device == "cuda")
+        t0 = time.perf_counter()
+        report[name] = fn(torch, device)
+        report[name]["wall_s"] = time.perf_counter() - t0
+        log(f"[meshfeat] {name} in {report[name]['wall_s']:.1f}s: "
+            + json.dumps(report[name], default=str))
+    missing = {"disagg_guided", "deepseek_spec"} - set(on_tp or {})
+    if missing:
+        raise AssertionError(f"meshfeat: phase tp ran no {sorted(missing)}")
+    report.update(on_tp)
+    print("smoke_meshfeat " + json.dumps(report, default=str), flush=True)
+    return report
 
 
 def main() -> int:
@@ -7002,7 +7593,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
-    mm = tp = pp = None
+    mm = tp = pp = meshfeat = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -7025,10 +7616,10 @@ def main() -> int:
         if "tiny" in phases:
             run("tiny", phase_tiny)
         if "serve" in phases:
-            serve = run("serve", lambda: phase_serve(card, "serve", "llama3-8b-smoke", LLAMA3_8B,
-                                                     LLAMA_PATH, probe=PROBE_PROMPT))
+            serve = run("serve", lambda: phase_serve(card, "serve", "llama3-8b-smoke",
+                                                     SERVE_LLAMA, LLAMA_PATH, probe=PROBE_PROMPT))
         if "dist" in phases:
-            dist = run("dist", phase_dist, card)
+            dist = run("dist", phase_dist, card, SERVE_LLAMA)
             if serve is not None:
                 if serve["probe_ids"] != dist["probe_ids"]:
                     raise AssertionError(f"the workers' greedy ids {dist['probe_ids']} differ "
@@ -7043,8 +7634,8 @@ def main() -> int:
         if "disagg" in phases:
             disagg = run("disagg", phase_disagg, torch, card)
         if "mla" in phases:
-            mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke",
-                      DEEPSEEK_V2_LITE, MLA_PATH)
+            mla = run("mla", phase_serve, card, "mla", "deepseek-v2-lite-smoke", SERVE_MLA,
+                      MLA_PATH)
         if "families" in phases:
             families = run("families", phase_families, torch, card)
         if "overlap" in phases:
@@ -7065,10 +7656,13 @@ def main() -> int:
             run("bench", phase_bench, torch)
         if "mm" in phases:
             mm = run("mm", phase_mm, torch, card)
-        if "tp" in phases:
-            tp = run("tp", phase_tp, torch, card)
+        if "tp" in phases or "meshfeat" in phases:
+            # phase meshfeat's cases (c)-(e) run on phase tp's engine pairs
+            tp = run("tp", lambda: phase_tp(torch, card, meshfeat="meshfeat" in phases))
         if "pp" in phases:
             pp = run("pp", phase_pp, torch, card)
+        if "meshfeat" in phases:
+            meshfeat = run("meshfeat", phase_meshfeat, torch, card, "cuda", tp["meshfeat"])
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -7081,15 +7675,20 @@ def main() -> int:
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
     if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp,
-                    pp):
+                    pp, meshfeat):
         cases = kinfo["cases"]
-        for row in ("gather", "scatter"):  # rows 6-7 at the engine's Llama leaf
-            case = cases["copy_llama_leaf"]
-            cases[f"{row}_llama_leaf"] = {
-                "ms": case[f"{row}_ms"], "device_ms": case[f"{row}_device_ms"],
-                "plain_ms": case[f"{row}_plain_ms"],
-                "library_ms": case[f"{row}_library_ms"], "bound_ms": case["bound_ms"],
-                "bound_by": case["bound_by"]}
+        # rows 6-7 at the engine's Llama leaf, and at a tp = 2 rank's shard of it
+        for row in ("gather", "scatter"):
+            for name, leaf in (("llama_leaf", "copy_llama_leaf"),
+                               ("tp2_shard", "copy_llama_leaf_tp2")):
+                case = cases[leaf]
+                cases[f"{row}_{name}"] = {
+                    "ms": case[f"{row}_ms"], "device_ms": case[f"{row}_device_ms"],
+                    "plain_ms": case[f"{row}_plain_ms"],
+                    "library_ms": case[f"{row}_library_ms"], "bound_ms": case["bound_ms"],
+                    "bound_by": case["bound_by"]}
+        mf_ranks = {key: meshfeat["spec_offload"][key]["ranks"] for key in ("spec", "offload")}
+        mf_ranks["deepseek"] = meshfeat["deepseek_spec"]["ranks"]
         entries = []
         for name, src, repl, case, err, launches in (
             ("ragged_paged_attention", "dynamo_tpu_torch/csrc/ragged_attention.cu",
@@ -7167,6 +7766,23 @@ def main() -> int:
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_pp2tp2_mb4", "paged_pp",
              sum(r["paged_attention.launches"]
                  for r in pp["llama3-8b"]["meshes"]["pp2tp2"]["rank_launches"])),
+            # phase meshfeat: row 2 at W = 5 and row 5 on each tp rank's head
+            # shard (the speculative cases), rows 6-7 on each rank's cache
+            # shard (the offload case): every rank's launches summed
+            ("paged_window_attention_decode (W=5, tp=2 head shard)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_tp2_w5", "paged_verify_tp2",
+             sum(r["paged_attention.window_launches"] for r in mf_ranks["spec"])),
+            ("mla_paged_window_attention_decode (tp=2 head shard)",
+             "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:182", "mla_verify_tp2", "mla_verify_tp2",
+             sum(r["mla_attention.window_launches"] for r in mf_ranks["deepseek"])),
+            ("gather_blocks (tp=2 cache shard)", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:25", "gather_tp2_shard", "gather_tp2",
+             sum(r["block_copy.gather_launches"] for r in mf_ranks["offload"])),
+            ("scatter_blocks (tp=2 cache shard)", "dynamo_tpu_torch/csrc/block_copy.cu",
+             "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_tp2_shard", "scatter_tp2",
+             sum(r["block_copy.scatter_launches"] for r in mf_ranks["offload"])),
         ):
             c = cases[case]
             entries.append({

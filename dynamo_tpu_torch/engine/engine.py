@@ -85,16 +85,22 @@ tokens ride the decode and unified windows as any lane's.
 On a mesh (``EngineConfig.mesh``: tp, ep, pp and sp) the engine is rank 0
 of one process a rank (``engine/shard_worker.py``): it owns the only
 scheduler and block manager and its own shard of the weights and the
-cache, and every split prefill and decode forward is broadcast to the shard
-workers, which run the same forward on their shards.  On a pp mesh the
+cache, and every split prefill, decode, verify and multimodal forward is
+broadcast to the shard workers, which run the same forward on their shards.
+On a pp mesh the
 decode is the family's pipelined one where it has one (GPipe microbatches
 over the stages), and the prefills run the stages in turn; on an sp mesh
 the llama family's prefills ring over the bucket's chunks, and every sp
 rank runs the decode on its whole copy of the cache.  The unified step is
 off there (slug ``mesh``, as the reference's), and the windows run
-synchronously and eagerly: no overlap, no graph.  Speculative decoding,
-the offload tiers, disaggregation, guided JSON, multimodal requests and
-the families without mesh forwards are refused on a mesh by name.
+synchronously and eagerly: no overlap, no graph.  The verify runs rows 2
+and 5 on each tp rank's head shard, where the reference runs XLA attention
+on a mesh.  Guided JSON masks in rank 0's sampling tail.  Every offload,
+restore, disaggregated extract and inject moves whole blocks
+``[L, n, bs, KVH, D]`` (the reference's layout) on rank 0: the ``gather``
+program assembles them from every rank's shard (row 6 on each), the
+``scatter`` program sends each rank its slice (row 7 on each).  The
+families without mesh forwards are refused on a mesh by name.
 
 There is no attention fallback: on the card attention runs through the
 hand-written kernels (``attention_impl="kernel"``) and a kernel that fails
@@ -382,7 +388,7 @@ class TorchLlmEngine:
             self.device = self.mesh.device
         dev = self.device
         if self.mesh is not None:
-            from dynamo_tpu_torch.engine.shard_worker import MeshFamily, ShardSpec
+            from dynamo_tpu_torch.engine.shard_worker import CacheShards, MeshFamily, ShardSpec
 
             spec = ShardSpec(
                 mesh=mesh_cfg, model_family=config.model_family, model=cfg,
@@ -395,8 +401,9 @@ class TorchLlmEngine:
             except BaseException:
                 self._mesh_leader.shutdown(timeout=5.0)
                 raise
-            # every split-step forward runs on all ranks through the leader
+            # every step forward runs on all ranks through the leader
             self.family = MeshFamily(self.family, self._mesh_leader)
+            self._shards = CacheShards(self.family, cfg, self.mesh, self.cache)
         else:
             if params is None:
                 gen = torch.Generator(device=dev)
@@ -407,6 +414,13 @@ class TorchLlmEngine:
                 cfg, config.num_blocks, config.block_size, self.kv_cache_dtype, dev
             )
             self.cos, self.sin = self.family.make_rope_tables(cfg, dev, self.max_len)
+            self._shards = None
+        # the whole cache's leaves {name: (shape, dtype)}, the reference's
+        # layout: what the offload tiers hold and the transfer wire carries
+        # (on a mesh rank 0 holds only its shard of them)
+        self.cache_shapes = {
+            name: (self._shards.shapes[name] if self._shards else tuple(leaf.shape), leaf.dtype)
+            for name, leaf in self.cache.items()}
         lanes = config.max_batch_size
         # per-lane sampling state: generated-token counts (presence/frequency
         # penalties) and prompt-token counts (repetition penalty scope), on
@@ -578,8 +592,8 @@ class TorchLlmEngine:
 
             self.host_tier = HostOffloadTier(
                 config.host_offload_blocks,
-                {k: (v.shape[0], *v.shape[2:]) for k, v in self.cache.items()},
-                {k: v.dtype for k, v in self.cache.items()},
+                {k: (shape[0], *shape[2:]) for k, (shape, _) in self.cache_shapes.items()},
+                {k: dtype for k, (_, dtype) in self.cache_shapes.items()},
                 disk_blocks=config.disk_offload_blocks,
                 disk_path=config.disk_offload_path,
                 remote_addr=config.remote_store_addr,
@@ -680,6 +694,8 @@ class TorchLlmEngine:
         if self.mesh is not None:
             # no CUDA graph holds a step whose collectives cross processes
             self._decode.eager = self._prefill.eager = True
+            if self._verify is not None:
+                self._verify.eager = True
 
         # thread plumbing
         self._profiler_trace_dir: str | None = None
@@ -690,8 +706,8 @@ class TorchLlmEngine:
 
     def _check_mesh(self, config: EngineConfig) -> None:
         """The reference's construction checks of a mesh (its engine.py:
-        411-506, word for word), and the refusals by name of ROADMAP item
-        9c: speculative decoding, the offload tiers and a family without
+        411-506, word for word; speculation on pp, :1026; offload without
+        prefix caching, :933), and the refusal by name of a family without
         mesh forwards.  Where the reference turns prefix caching off (an sp
         mesh, a family whose continued prefill does not ring), the port
         turns its own off (``self.prefix_caching``) with the same warning."""
@@ -704,7 +720,7 @@ class TorchLlmEngine:
             )
         if not self.family.decode_accepts_tp_mesh:
             raise ValueError(
-                f"family {config.model_family!r} serves on no mesh yet (ROADMAP item 9c): "
+                f"family {config.model_family!r} serves on no mesh: "
                 "its forwards take no mesh"
             )
         pp = mesh.pp
@@ -768,14 +784,16 @@ class TorchLlmEngine:
                         f"must be divisible by the sp axis ({sp}): chunk "
                         "windows ring-shard the sequence evenly"
                     )
-        refused = {
-            "speculative decoding": bool(config.speculative),
-            "KV offload tiers": bool(config.host_offload_blocks or config.disk_offload_blocks
-                                     or config.remote_store_addr),
-        }
-        for what, on in refused.items():
-            if on:
-                raise ValueError(f"{what} on an engine mesh is not ported yet (ROADMAP item 9c)")
+        if config.speculative and pp > 1:
+            raise ValueError("speculative decoding does not support pp meshes")
+        if config.speculative and not self.family.verify_accepts_mesh:
+            raise ValueError(
+                f"family {config.model_family!r} verifies on no mesh: its verify forward "
+                "takes no mesh")
+        if config.host_offload_blocks and not self.prefix_caching:
+            raise ValueError(
+                "KV offload tiers configured but unusable: "
+                "this model family/config has no prefix caching")
         for name in ("num_heads", "num_kv_heads"):
             n = getattr(cfg, name, None)
             if n is not None and n % mesh.tp:
@@ -783,11 +801,6 @@ class TorchLlmEngine:
         # the quantize mode's refusals (an unknown mode, a family without
         # quant leaves): the ranks quantize each leaf as it arrives
         self._maybe_quantize({})
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on an engine mesh is not ported yet (ROADMAP item 9c)")
 
     def mesh_counts(self) -> list[dict]:
         """Every rank's kernel launch counters ({"module.counter": n}), in
@@ -950,14 +963,12 @@ class TorchLlmEngine:
         Model vocabularies are often padded past the tokenizer's; padding
         columns are masked False (a padded id is never a valid JSON
         continuation)."""
-        self._refuse_on_mesh("guided JSON decoding")
         masks, strings = build_for_tokenizer(tokenizer)
         self.set_guided(masks, strings, tokenizer.eos_token_ids)
 
     def set_guided(self, masks, strings: list[str], eos_ids: list[int]) -> None:
         """Lower-level install (tests / pre-built tables): copied in place
         into the resident table."""
-        self._refuse_on_mesh("guided JSON decoding")
         vocab = self.config.model.vocab_size
         table = np.zeros((masks.mask.shape[0], vocab), bool)
         table[:, : masks.mask.shape[1]] = masks.mask[:, :vocab]
@@ -1024,8 +1035,8 @@ class TorchLlmEngine:
         prompt (LLaVA-style).  ``embeds``: [n_patches, hidden] float array
         from the vision encoder's projector.  The prefill runs whole on the
         split step (``PrefillGraph`` key ``("mm", bucket)``); its blocks never
-        publish (text-token hashes cannot describe patch content)."""
-        self._refuse_on_mesh("multimodal prefill")
+        publish (text-token hashes cannot describe patch content).  On a
+        mesh every rank splices the embeddings (``embeds`` program)."""
         if self.family.forward_prefill_embeds is None:
             raise ValueError(
                 f"model family {self.config.model_family!r} has no multimodal prefill"
@@ -1142,8 +1153,9 @@ class TorchLlmEngine:
         later chunks still compute; it must not block.  The final return
         then carries only the TAIL blocks past the streamed watermark
         (``n_blocks`` stays the sequence total).  Without chunked prefill
-        the call is the single-shot contract."""
-        self._refuse_on_mesh("disaggregated prefill")
+        the call is the single-shot contract.  On a mesh the blocks are
+        whole (every rank's shard gathered to rank 0: ``device=True`` keeps
+        them on rank 0's card)."""
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         seq = Sequence(
             seq_id=uuid.uuid4().hex, request=pre, prefill_only=True,
@@ -1160,7 +1172,6 @@ class TorchLlmEngine:
         return await fut
 
     def reserve_blocks(self, num_tokens: int) -> list[int] | None:
-        self._refuse_on_mesh("disaggregated decode")
         return self.allocator.reserve_blocks(num_tokens)
 
     def release_blocks(self, block_ids: list[int]) -> None:
@@ -1169,8 +1180,8 @@ class TorchLlmEngine:
     async def inject_blocks(self, block_ids: list[int], blocks: dict) -> None:
         """Decode-worker side: write transferred KV blocks (a cache pytree
         of host or device tensors) into the cache with the block-scatter
-        kernel, on the device thread (serialized with the steps)."""
-        self._refuse_on_mesh("disaggregated decode")
+        kernel, on the device thread (serialized with the steps); on a mesh
+        whole blocks, each rank's slice scattered into its shard."""
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._submit_q.put(("inject", (list(block_ids), blocks, self._resolver(fut))))
         self._wake.set()
@@ -1184,7 +1195,6 @@ class TorchLlmEngine:
         """Decode-worker side: start decoding a sequence whose prompt KV was
         injected into ``block_ids`` and whose first token was already
         sampled by the prefill worker."""
-        self._refuse_on_mesh("disaggregated decode")
         pre = PreprocessedRequest.from_wire(request.data)
         ctx = request.ctx
         loop = asyncio.get_running_loop()
@@ -2473,6 +2483,16 @@ class TorchLlmEngine:
             self.allocator.publish_stored(seq.seq_id, tokens)
         self._process_token(seq, token, lp, top=top)
 
+    # -- whole blocks: one card's cache, or every rank's shard ---------------
+    def _gather_cache(self, ids: list[int]) -> dict[str, torch.Tensor]:
+        """Blocks ``ids`` of every cache leaf, whole ``[L, n, ...]``, on this
+        engine's device: the block-gather kernel over the cache, or on a
+        mesh over every rank's shard, assembled on rank 0 (``gather``)."""
+        if self._shards is None:
+            return {name: block_copy.gather_blocks(self.cache[name], ids, axis=1)
+                    for name in sorted(self.cache)}
+        return self._mesh_leader.gather(self.cache, self._shards, ids)
+
     # -- disaggregation: extract and inject ----------------------------------
     def _extract_block_range(self, blocks: list[int], start_b: int, end_b: int,
                              device: bool) -> dict:
@@ -2483,9 +2503,7 @@ class TorchLlmEngine:
         ``StagedBlocks``' ``ready`` event recorded after the copies (a
         reader waits for it off the engine thread; the staging lives as long
         as the dict)."""
-        ids = blocks[start_b:end_b]
-        out = {name: block_copy.gather_blocks(self.cache[name], ids, axis=1)
-               for name in sorted(self.cache)}
+        out = self._gather_cache(blocks[start_b:end_b])
         self.extract_calls += 1
         if device:
             return out
@@ -2528,12 +2546,21 @@ class TorchLlmEngine:
         the scatters has run (``_reap_queued``)."""
         n = len(block_ids)
         cuda = self.device.type == "cuda"
-        for name, leaf in self.cache.items():
-            want = (leaf.shape[0], n, *leaf.shape[2:])
+        for name, (shape, _) in self.cache_shapes.items():
+            want = (shape[0], n, *shape[2:])
             got = tuple(blocks[name].shape)
             if got != want:
                 raise ValueError(f"inject: leaf {name!r} is {got}, {n} blocks need {want}")
         ready = getattr(blocks, "ready", None)
+        if self._shards is not None:
+            # each rank's slice of the whole blocks leaves rank 0 through the
+            # host (the scatter kernel on every rank's shard): staged copies
+            # must have landed before the host reads them
+            if ready is not None:
+                ready.synchronize()
+            self._mesh_leader.scatter(self.cache, self._shards, block_ids, blocks)
+            self.inject_calls += 1
+            return
         stream = torch.cuda.current_stream(self.device) if cuda else None
         if ready is not None:
             stream.wait_event(ready)
@@ -2714,8 +2741,7 @@ class TorchLlmEngine:
             stream = torch.cuda.current_stream(self.device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record(stream)
-        gathered = {name: block_copy.gather_blocks(self.cache[name], ids, axis=1)
-                    for name in sorted(self.cache)}
+        gathered = self._gather_cache(ids)
         if not cuda:
             return self._put_offloaded(pairs, gathered)
         ev[1].record(stream)  # the gathers' device time: ev[0] → ev[1]
@@ -2819,9 +2845,8 @@ class TorchLlmEngine:
         n = len(plan)
         pinned = self.device.type == "cuda"
         staged = {
-            name: torch.empty((leaf.shape[0], n, *leaf.shape[2:]), dtype=leaf.dtype,
-                              pin_memory=pinned)
-            for name, leaf in self.cache.items()
+            name: torch.empty((shape[0], n, *shape[2:]), dtype=dtype, pin_memory=pinned)
+            for name, (shape, dtype) in self.cache_shapes.items()
         }
         contents = self.host_tier.read_pinned_many([h for h, _ in plan])
         for i, (h, _) in enumerate(plan):
@@ -2844,6 +2869,13 @@ class TorchLlmEngine:
         t0 = time.perf_counter()
         ids, staged = self._stage_restore(plan)
         t1 = time.perf_counter()
+        if self._shards is not None:
+            # each rank's slice leaves rank 0 from the host staging
+            self._mesh_leader.scatter(self.cache, self._shards, ids, staged)
+            self._restore_ms["stage"] += (t1 - t0) * 1e3
+            self._restore_ms["scatter"] += (time.perf_counter() - t1) * 1e3
+            self.allocator.register_restored(plan)
+            return
         cuda = self.device.type == "cuda"
         if cuda:
             stream = torch.cuda.current_stream(self.device)

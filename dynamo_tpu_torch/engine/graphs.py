@@ -741,12 +741,9 @@ class PrefillGraph(StepGraphs):
                 e.params, e.config.model, v["token_ids"], e.cache, v["block_ids"], seq_len, 0,
                 e.cos, e.sin)
         elif key[0] == "mm":
-            cfg = e.config.model
-            pos = torch.arange(key[1], device=self.device)
-            x = torch.where((pos < v["n_patch"])[:, None], v["embeds"].to(cfg.dtype),
-                            e.family.embed(e.params, cfg, v["token_ids"]))
-            logits, _ = e.family.forward_prefill_embeds(
-                e.params, cfg, x, e.cache, v["block_ids"], seq_len, 0, e.cos, e.sin)
+            logits, _ = e.family.forward_prefill_spliced(
+                e.params, e.config.model, v["token_ids"], e.cache, v["embeds"], v["n_patch"],
+                v["block_ids"], seq_len, 0, e.cos, e.sin)
         else:
             logits, _ = e.family.forward_prefill_with_prefix(
                 e.params, e.config.model, v["token_ids"], e.cache, v["full_ids"],

@@ -11,12 +11,17 @@ runs the same family forward on its shard with ``mesh=``, and takes part in
 the forward's collectives.  The step broadcast is the port's counterpart of
 XLA's single program, not a feature of its own.
 
-Programs: ``prefill`` / ``prefix`` / ``decode`` (the family's split prefill,
-continued prefill and decode forwards), ``ping`` (an idle engine's
-keep-alive), ``zero_counts`` / ``counts`` (every rank's kernel launch
-counters, zeroed or gathered to rank 0) and ``stop``.  Inputs are integer
-tensors (token ids, block tables, lengths, slots) and Python ints; they
-travel as one int64 payload behind a fixed-size int64 header.
+Programs: ``prefill`` / ``prefix`` / ``decode`` / ``verify`` (the family's
+split prefill, continued prefill, decode and speculative verify forwards),
+``embeds`` (the multimodal prefill: patch embeddings spliced before the
+text's token embeddings), ``gather`` (row 6 over every rank's cache shard,
+the shards to rank 0, which assembles whole blocks in the reference's
+layout), ``scatter`` (whole blocks from rank 0, each rank's slice, row 7
+into its shard), ``ping`` (an idle engine's keep-alive), ``zero_counts`` /
+``counts`` (every rank's kernel launch counters, zeroed or gathered to rank
+0) and ``stop``.  Inputs are integer tensors (token ids, block tables,
+lengths, slots), float32 tensors (patch embeddings, bit for bit) and Python
+ints; they travel as one int64 payload behind a fixed-size int64 header.
 
 Lifetime: ``MeshLeader.launch`` starts the workers as child processes
 (``python -m dynamo_tpu_torch.engine.shard_worker``) over a ``FileStore``
@@ -42,18 +47,24 @@ import time
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from dynamo_tpu_torch.parallel.mesh import (
     Mesh,
     MeshConfig,
+    COMM_KINDS,
     broadcast,
     comm_counters,
+    gather_to_root,
     leaf_sharder,
     make_mesh,
     mesh_size,
+    rank_coords,
     resolve_backend,
+    scatter_from_root,
     shard_config,
+    shard_index,
     zero_comm_counters,
 )
 from dynamo_tpu_torch.utils import knobs
@@ -61,15 +72,18 @@ from dynamo_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("engine.shard_worker")
 
-PROGRAMS = ("stop", "ping", "decode", "prefill", "prefix", "zero_counts", "counts")
-# the split step's forwards: (family attribute, inputs broadcast after the
-# cache argument, cos and sin excepted)
+PROGRAMS = ("stop", "ping", "decode", "prefill", "prefix", "zero_counts", "counts", "verify",
+            "embeds", "gather", "scatter")
+# the step forwards by program: the family attribute each runs (inputs
+# broadcast after the cache argument, cos and sin excepted)
 FORWARDS = {"decode": "forward_decode", "prefill": "forward_prefill",
-            "prefix": "forward_prefill_with_prefix"}
+            "prefix": "forward_prefill_with_prefix", "verify": "forward_verify",
+            "embeds": "forward_prefill_spliced"}
 HEADER_LEN = 64
 MAX_DIMS = 2
-# wire codes of an input: 0 a Python int, else a tensor dtype
-_DTYPES = (None, torch.int32, torch.int64, torch.bool)
+# wire codes of an input: 0 a Python int, else a tensor dtype; a float32
+# tensor travels as its bits (int32 widened to int64)
+_DTYPES = (None, torch.int32, torch.int64, torch.bool, torch.float32)
 
 
 class MeshError(RuntimeError):
@@ -130,6 +144,128 @@ def shard_cache(family, cfg, mesh: Mesh, num_blocks: int, block_size: int, dtype
                                 **kw)
 
 
+class CacheShards:
+    """Where each rank's cache shard sits in the whole cache: the whole
+    leaves' shapes (``[L, N, bs, KVH, D]``, the reference's layout), the
+    slice of a whole block range each rank holds, and the ranks whose shard
+    a gather takes (the lowest rank holding each distinct slice: a leaf
+    whole on every rank comes from rank 0 alone).  The axes a leaf is split
+    over are the family's ``cache_specs``, as ``shard_cache`` holds them:
+    the kv-head axis over tp and the layer axis over pp for the llama
+    family's cache; none for DeepSeek's latent cache.  No leaf is split over
+    sp or ep: their ranks hold copies."""
+
+    def __init__(self, family, cfg, mesh: Mesh, cache: dict):
+        self.mesh = mesh
+        self.names = sorted(cache)
+        self.specs = family.cache_specs(cfg)
+        self.dtypes = {name: cache[name].dtype for name in self.names}
+        self.shard_shapes = {name: tuple(cache[name].shape) for name in self.names}
+        self.shapes = {}
+        for name in self.names:
+            spec = self.specs[name]
+            self.shapes[name] = tuple(
+                n * (mesh.size(spec[d]) if d < len(spec) and spec[d] else 1)
+                for d, n in enumerate(self.shard_shapes[name]))
+        seen, self.senders = set(), []
+        for r in range(mesh.world_size):
+            key = tuple(self._index(name, self.shapes[name], r) for name in self.names)
+            if key not in seen:
+                seen.add(key)
+                self.senders.append(r)
+
+    def _index(self, name: str, shape, rank: int) -> tuple:
+        index = shard_index(shape, self.specs[name], self.mesh, name,
+                            coords=rank_coords(self.mesh.config, rank))
+        return tuple((s.start, s.stop) for s in index)
+
+    def block_shape(self, name: str, n: int, shard: bool = False) -> tuple:
+        """The shape of ``n`` blocks of leaf ``name``: whole, or one rank's
+        shard."""
+        shape = list(self.shard_shapes[name] if shard else self.shapes[name])
+        shape[1] = n
+        return tuple(shape)
+
+    def slices(self, name: str, n: int, rank: int) -> tuple[slice, ...]:
+        """Rank ``rank``'s slice of ``n`` whole blocks of leaf ``name``."""
+        return tuple(slice(a, b) for a, b in
+                     self._index(name, self.block_shape(name, n), rank))
+
+    def nbytes(self, n: int) -> int:
+        """The bytes of one rank's shard of ``n`` blocks, every leaf."""
+        return sum(int(np.prod(self.block_shape(name, n, shard=True)))
+                   * self.dtypes[name].itemsize for name in self.names)
+
+
+def _pack(tensors) -> torch.Tensor:
+    """Tensors as one byte tensor, in order."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _unpack(buf: torch.Tensor, shards: CacheShards, n: int) -> dict[str, torch.Tensor]:
+    """``_pack``'s inverse for one rank's shard of ``n`` blocks."""
+    out, at = {}, 0
+    for name in shards.names:
+        shape = shards.block_shape(name, n, shard=True)
+        size = int(np.prod(shape)) * shards.dtypes[name].itemsize
+        out[name] = buf[at:at + size].view(shards.dtypes[name]).view(shape)
+        at += size
+    return out
+
+
+def gather_shards(mesh: Mesh, cache: dict, shards: CacheShards, ids: list[int]
+                  ) -> dict[str, torch.Tensor] | None:
+    """Row 6 over this rank's shard of blocks ``ids``, the shard to rank 0
+    (one transfer a rank); on rank 0 the whole blocks ``{leaf: [L, n, bs,
+    KVH, D]}`` on its device, each rank's shard in its place, bit for bit
+    (None on the other ranks)."""
+    from dynamo_tpu_torch.ops.kernels import block_copy
+
+    n = len(ids)
+    mine = None
+    if mesh.rank in shards.senders:
+        mine = {name: block_copy.gather_blocks(cache[name], ids, axis=1)
+                for name in shards.names}
+    if mesh.rank != 0:
+        if mine is not None:
+            gather_to_root(_pack(mine[name] for name in shards.names), mesh)
+        return None
+    like = torch.empty(shards.nbytes(n), dtype=torch.uint8, device=mesh.device)
+    got = gather_to_root(None, mesh, {r: like for r in shards.senders if r != 0})
+    got = {0: mine, **{r: _unpack(buf, shards, n) for r, buf in got.items()}}
+    out = {}
+    for name in shards.names:
+        whole = torch.empty(shards.block_shape(name, n), dtype=shards.dtypes[name],
+                            device=mesh.device)
+        for r, parts in got.items():
+            whole[shards.slices(name, n, r)] = parts[name]
+        out[name] = whole
+    return out
+
+
+def scatter_shards(mesh: Mesh, cache: dict, shards: CacheShards, ids: list[int],
+                   blocks: dict | None = None) -> None:
+    """Whole blocks ``{leaf: [L, n, bs, KVH, D]}`` (rank 0's, on any device)
+    into blocks ``ids`` of every rank's cache: rank 0 sends each rank its
+    slice, cast to the cache's dtype (one transfer a rank), and every rank
+    writes its own with row 7."""
+    from dynamo_tpu_torch.ops.kernels import block_copy
+
+    n = len(ids)
+    if mesh.rank == 0:
+        blocks = {name: blocks[name].to(dtype=shards.dtypes[name]) for name in shards.names}
+        scatter_from_root({r: _pack(blocks[name][shards.slices(name, n, r)]
+                                    for name in shards.names)
+                           for r in range(1, mesh.world_size)}, mesh)
+        mine = {name: blocks[name][shards.slices(name, n, 0)].to(mesh.device)
+                for name in shards.names}
+    else:
+        like = torch.empty(shards.nbytes(n), dtype=torch.uint8, device=mesh.device)
+        mine = _unpack(scatter_from_root(None, mesh, like), shards, n)
+    for name in shards.names:
+        block_copy.scatter_blocks(cache[name], mine[name], ids, axis=1)
+
+
 def build_shard(mesh: Mesh, spec: ShardSpec, family, params: dict | None = None):
     """This rank's ``(params, cache, cos, sin)``: the weights drawn from the
     seed or received leaf by leaf from rank 0 (``params``, rank 0's full
@@ -184,7 +320,10 @@ def _encode(program: str, args) -> tuple[torch.Tensor, torch.Tensor]:
             if a.dim() > MAX_DIMS or a.dtype not in _DTYPES:
                 raise ValueError(f"mesh step input of shape {tuple(a.shape)} and {a.dtype}")
             code, shape = _DTYPES.index(a.dtype), tuple(a.shape)
-            parts.append(a.reshape(-1).to("cpu", torch.int64))
+            flat = a.reshape(-1).to("cpu")
+            if a.dtype == torch.float32:
+                flat = flat.view(torch.int32)
+            parts.append(flat.to(torch.int64))
         else:
             code, shape = 0, ()
             parts.append(torch.tensor([int(a)], dtype=torch.int64))
@@ -207,8 +346,12 @@ def _decode(header: torch.Tensor, payload: torch.Tensor, device) -> tuple[str, l
             n *= d
         chunk = payload[at: at + n]
         at += n
-        args.append(int(chunk[0]) if code == 0 else
-                    chunk.view(shape).to(device=device, dtype=_DTYPES[code]))
+        if code == 0:
+            args.append(int(chunk[0]))
+        elif _DTYPES[code] == torch.float32:
+            args.append(chunk.to(torch.int32).view(torch.float32).view(shape).to(device))
+        else:
+            args.append(chunk.view(shape).to(device=device, dtype=_DTYPES[code]))
         pos += 2 + MAX_DIMS
     return PROGRAMS[h[0]], args
 
@@ -339,15 +482,15 @@ class MeshLeader:
             raise MeshError(f"mesh step broadcast failed: {exc}") from exc
         self._last_send = time.monotonic()
 
-    def run(self, program: str, forward, params, cfg, tokens, cache, *rest):
-        """One split-step forward on every rank: the program and its inputs
-        to the workers, then rank 0's own shard."""
-        *mid, cos, sin = rest
+    def _step(self, program: str, args, body):
+        """One program on every rank: its inputs to the workers, then
+        ``body()``, rank 0's part; its wall seconds and its traffic's
+        seconds by kind go to ``step_time``."""
         with self.lock:
             t0, before = time.perf_counter(), comm_counters()
-            self.send(program, [tokens, *mid])
+            self.send(program, args)
             try:
-                out = forward(params, cfg, tokens, cache, *mid, cos, sin, mesh=self.mesh)
+                out = body()
             except Exception as exc:
                 # the ranks may be out of step now: nothing later can run
                 self.broken = exc
@@ -355,12 +498,33 @@ class MeshLeader:
             self.steps += 1
             after = comm_counters()
             rec = self.step_time.setdefault(program, dict.fromkeys(
-                ("steps", "wall_s", "collective_s", "handoff_s", "ring_s"), 0))
+                ("steps", "wall_s", *(f"{kind}_s" for kind in COMM_KINDS)), 0))
             rec["steps"] += 1
             rec["wall_s"] += time.perf_counter() - t0
-            for kind in ("collective", "handoff", "ring"):
+            for kind in COMM_KINDS:
                 rec[f"{kind}_s"] += after[f"{kind}_s"] - before[f"{kind}_s"]
             return out
+
+    def run(self, program: str, forward, params, cfg, tokens, cache, *rest):
+        """One step forward on every rank: the program and its inputs to the
+        workers, then rank 0's own shard."""
+        *mid, cos, sin = rest
+        return self._step(program, [tokens, *mid], lambda: forward(
+            params, cfg, tokens, cache, *mid, cos, sin, mesh=self.mesh))
+
+    def gather(self, cache: dict, shards: CacheShards, ids) -> dict[str, torch.Tensor]:
+        """Whole blocks ``ids`` of every leaf on rank 0's device, from every
+        rank's shard (``gather_shards``)."""
+        ids = [int(i) for i in ids]
+        return self._step("gather", [torch.tensor(ids, dtype=torch.int32)],
+                          lambda: gather_shards(self.mesh, cache, shards, ids))
+
+    def scatter(self, cache: dict, shards: CacheShards, ids, blocks: dict) -> None:
+        """Whole blocks into blocks ``ids`` of every rank's shard
+        (``scatter_shards``)."""
+        ids = [int(i) for i in ids]
+        self._step("scatter", [torch.tensor(ids, dtype=torch.int32)],
+                   lambda: scatter_shards(self.mesh, cache, shards, ids, blocks))
 
     def keepalive(self) -> None:
         """A ping where nothing was sent for a quarter of the timeout, so an
@@ -416,10 +580,11 @@ def _end(procs: list, timeout: float = 0.0) -> None:
 
 
 class MeshFamily:
-    """The engine's model family on rank 0 of a mesh: each split-step
-    forward (``forward_prefill``, ``forward_prefill_with_prefix``,
-    ``forward_decode``) runs on every rank through the leader; everything
-    else is the family's."""
+    """The engine's model family on rank 0 of a mesh: each step forward
+    (``forward_prefill``, ``forward_prefill_with_prefix``,
+    ``forward_decode``, ``forward_verify``, ``forward_prefill_spliced``)
+    runs on every rank through the leader; everything else is the
+    family's."""
 
     def __init__(self, family, leader: MeshLeader):
         self._family = family
@@ -441,6 +606,12 @@ class MeshFamily:
     def forward_prefill_with_prefix(self, *args):
         return self._run("prefix", *args)
 
+    def forward_verify(self, *args):
+        return self._run("verify", *args)
+
+    def forward_prefill_spliced(self, *args):
+        return self._run("embeds", *args)
+
 
 # ---------------------------------------------------------------------------
 # Ranks >= 1
@@ -460,6 +631,7 @@ def serve(mesh: Mesh) -> int:
         build.library()
     params, cache, cos, sin = build_shard(mesh, spec, family)
     cfg, steps = spec.model, 0
+    shards = CacheShards(family, cfg, mesh, cache)
     logger.info("shard worker rank %d ready: %s", mesh.rank, mesh)
     while True:
         program, args = _recv_step(mesh)
@@ -471,6 +643,12 @@ def serve(mesh: Mesh) -> int:
             _zero_counts()
         elif program == "counts":
             _gather_counts(mesh)
+        elif program == "gather":
+            gather_shards(mesh, cache, shards, args[0].cpu().tolist())
+            steps += 1
+        elif program == "scatter":
+            scatter_shards(mesh, cache, shards, args[0].cpu().tolist())
+            steps += 1
         else:
             tokens, *mid = args
             forward_of(family, program, mesh)(params, cfg, tokens, cache, *mid, cos, sin,
@@ -539,7 +717,7 @@ def main(argv=None) -> int:
     try:
         steps = serve(mesh)
     except Exception as exc:  # noqa: BLE001 — rank 0 gone or out of step: leave
-        logger.error("shard worker rank %d stops: %r", mesh.rank, exc)
+        logger.exception("shard worker rank %d stops: %r", mesh.rank, exc)
         os._exit(1)
     logger.info("shard worker rank %d stopped after %d steps", mesh.rank, steps)
     import torch.distributed as dist

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
 import time
 import uuid
@@ -537,9 +538,11 @@ class DisaggDecodeEngine:
         if bps <= 0:
             return 0.0
         if self._bytes_per_block is None:
+            # the whole blocks the wire carries (a mesh engine's rank 0
+            # holds only its shard of them)
             self._bytes_per_block = sum(
-                leaf.numel() * leaf.element_size() // max(leaf.shape[1], 1)
-                for leaf in self.engine.cache.values()
+                math.prod(shape) * dtype.itemsize // max(shape[1], 1)
+                for shape, dtype in self.engine.cache_shapes.values()
             )
         blocks = self.engine.allocator.blocks_needed(n_tokens)
         return blocks * self._bytes_per_block / bps

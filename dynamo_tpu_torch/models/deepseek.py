@@ -705,11 +705,16 @@ def deepseek_forward_verify(
     slot_ids: torch.Tensor,      # [batch, w] int32 flat cache slot per position
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Speculative verification for the MLA family (the llama contract):
     logits [batch, w, vocab] f32.  The window runs position-major through
     the trunk, so the MoE layers give position-0 tokens expert-capacity
-    priority exactly as the reference does."""
+    priority exactly as the reference does.  On a tp ``mesh`` row 5 runs on
+    this rank's ``H / tp`` heads over the whole latent cache, which every
+    rank writes alike."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b, w_len = token_ids.shape
     x = params["embed"][token_ids.t().reshape(-1)].to(cfg.dtype)  # position-major
     positions = table_positions(
@@ -722,8 +727,8 @@ def deepseek_forward_verify(
         return _mla_window_attn(w, attn_in, cfg, positions, k_layer, v_layer, block_tables,
                                 context_lens, views, rows[layer], cos, sin, b, w_len)
 
-    x = _forward(params, cfg, x, kv_cache, attn)
-    logits = _logits(params, cfg, x).view(w_len, b, -1).transpose(0, 1)
+    x = _forward(params, cfg, x, kv_cache, attn, mesh)
+    logits = _logits(params, full_cfg, x, mesh).view(w_len, b, -1).transpose(0, 1)
     return logits.float(), kv_cache
 
 

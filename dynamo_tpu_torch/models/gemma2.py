@@ -366,10 +366,13 @@ def decode(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, sl
 
 
 def verify(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, slot_ids,
-           cos):
+           cos, mesh=None):
     """Speculative verification (the llama contract): all w window
     positions in one pass, batch-major, each layer's window masking its
-    queries.  Logits [batch, w, vocab] f32."""
+    queries.  Logits [batch, w, vocab] f32.  On a tp ``mesh`` the plain
+    attention runs on this rank's heads, the products summed as in
+    decode."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b, w_len = token_ids.shape
     x = _embed(params, cfg, token_ids.reshape(-1))  # [b*w, hidden], batch-major
     positions = table_positions(
@@ -378,15 +381,15 @@ def verify(params, cfg, qkv, token_ids, kv_cache, block_tables, context_lens, sl
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     k_rows, v_rows = cache_rows(k_all), cache_rows(v_all)
     rows = last_writer_rows(slot_ids.reshape(-1), k_all)
-    for i, w, window, g in _layer_inputs(cfg, params):
+    for i, w, window, g in _layer_inputs(cfg, params, mesh):
         q, k, v = qkv(x, w, g, positions)
         write_rows(k_rows, v_rows, rows[i], k, v)
         attn = paged_window_attention(
             q.view(b, w_len, cfg.num_heads, cfg.head_dim), k_all[i], v_all[i], block_tables,
             context_lens, **attn_kwargs(cfg, window))
-        x = sandwich(x, w, cfg, attn.reshape(b * w_len, -1))
+        x = sandwich(x, w, cfg, attn.reshape(b * w_len, -1), mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _final_logits(params, cfg, x).view(b, w_len, -1), kv_cache
+    return _final_logits(params, full_cfg, x).view(b, w_len, -1), kv_cache
 
 
 def _roped(cfg: Gemma2Config, cos, sin, mesh=None):
@@ -422,10 +425,10 @@ def gemma2_forward_decode(params, cfg: Gemma2Config, token_ids, kv_cache, block_
 
 
 def gemma2_forward_verify(params, cfg: Gemma2Config, token_ids, kv_cache, block_tables,
-                          context_lens, slot_ids, cos, sin):
+                          context_lens, slot_ids, cos, sin, *, mesh=None):
     """Speculative verification: (logits [batch, w, vocab] f32, cache)."""
-    return verify(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache, block_tables,
-                  context_lens, slot_ids, cos)
+    return verify(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache, block_tables,
+                  context_lens, slot_ids, cos, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -182,12 +182,13 @@ def gemma3_forward_prefill(params, cfg: Gemma3Config, token_ids, kv_cache, block
 
 
 def gemma3_forward_prefill_embeds(params, cfg: Gemma3Config, input_embeds, kv_cache,
-                                  block_ids, seq_len, start_pos, cos, sin):
+                                  block_ids, seq_len, start_pos, cos, sin, *, mesh=None):
     """Prefill from precomputed input embeddings [seq_pad, hidden] (the
-    contract of ``llama_forward_prefill_embeds``; the text rows come through
-    the family's ``embed`` hook, which applies the sqrt(hidden) scale)."""
-    return gemma2.prefill_embeds(params, cfg, _roped(cfg, cos, sin), input_embeds, kv_cache,
-                                 block_ids, seq_len, start_pos, cos)
+    contract of ``llama_forward_prefill_embeds``, ``mesh`` included; the
+    text rows come through the family's ``embed`` hook, which applies the
+    sqrt(hidden) scale)."""
+    return gemma2.prefill_embeds(params, cfg, _roped(cfg, cos, sin, mesh), input_embeds,
+                                 kv_cache, block_ids, seq_len, start_pos, cos, mesh)
 
 
 def gemma3_forward_prefill_with_prefix(params, cfg: Gemma3Config, token_ids, kv_cache,
@@ -206,10 +207,10 @@ def gemma3_forward_decode(params, cfg: Gemma3Config, token_ids, kv_cache, block_
 
 
 def gemma3_forward_verify(params, cfg: Gemma3Config, token_ids, kv_cache, block_tables,
-                          context_lens, slot_ids, cos, sin):
+                          context_lens, slot_ids, cos, sin, *, mesh=None):
     """Speculative verification: (logits [batch, w, vocab] f32, cache)."""
-    return gemma2.verify(params, cfg, _roped(cfg, cos, sin), token_ids, kv_cache,
-                         block_tables, context_lens, slot_ids, cos)
+    return gemma2.verify(params, cfg, _roped(cfg, cos, sin, mesh), token_ids, kv_cache,
+                         block_tables, context_lens, slot_ids, cos, mesh)
 
 
 # ---------------------------------------------------------------------------

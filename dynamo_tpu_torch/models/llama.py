@@ -674,15 +674,21 @@ def llama_forward_verify(
     slot_ids: torch.Tensor,      # [batch, w] int32 flat cache slot per position
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Speculative verification: score all w window positions in one pass
     (logits [batch, w, vocab] f32).  The whole window's K/V is written like
     decode, sync-free (a slot named twice keeps its last position, as the
     reference's scatter does; pads and idle lanes write the dump row);
     attention is the paged window kernel at W = w — on a CPU tensor its
-    plain version."""
+    plain version.  On a tp ``mesh`` the kernel runs on this rank's
+    ``H / tp`` heads over its ``KVH / tp`` cache (the rows per kv head,
+    W * H / KVH, are the model's), the residual tail as in decode; an sp
+    rank verifies the whole window over its whole cache."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b, w_len = token_ids.shape
-    x = _embed(params, cfg, token_ids.reshape(-1))  # [b*w, hidden], batch-major
+    x = _embed(params, cfg, token_ids.reshape(-1), mesh)  # [b*w, hidden], batch-major
     positions = table_positions(
         context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
     )  # [b, w]
@@ -700,9 +706,9 @@ def llama_forward_verify(
             q, k_all[i], v_all[i], block_tables, context_lens,
             sliding_window=cfg.sliding_window,
         )
-        x = _residual_block(x, attn.reshape(b * w_len, -1), w, cfg)
+        x = _residual_block(x, attn.reshape(b * w_len, -1), w, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, x).view(b, w_len, -1).float(), kv_cache
+    return _logits(params, full_cfg, x, mesh).view(b, w_len, -1).float(), kv_cache
 
 
 def decode_layer(cfg: LlamaConfig, kv_cache: dict, cos, sin, mesh=None):

@@ -449,11 +449,16 @@ def mixtral_forward_verify(
     slot_ids: torch.Tensor,      # [batch, w] int32 flat cache slot per position
     cos: torch.Tensor,
     sin: torch.Tensor,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Speculative verification (the llama contract): logits [batch, w,
     vocab] f32, attention through row 2 at W = w.  The window's b * w
     tokens run position-major through the trunk, so the experts give the
-    position-0 tokens capacity first, as the reference does."""
+    position-0 tokens capacity first, as the reference does.  On a tp
+    ``mesh`` row 2 runs on this rank's heads; on ep each rank's experts,
+    the capacity from the global token and expert counts (``moe_ffn``)."""
+    full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b, w_len = token_ids.shape
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = _embed(params, cfg, token_ids.t().reshape(-1))  # [w*b, hidden] position-major
@@ -471,9 +476,9 @@ def mixtral_forward_verify(
         write_rows(k_rows, v_rows, rows[i], k.transpose(0, 1).reshape(w_len * b, kvh, d), v)
         attn = paged_window_attention_decode(q, k_all[i], v_all[i], block_tables,
                                              context_lens)  # [b, w, H, D]
-        x = _block(cfg, w, x, attn.transpose(0, 1).reshape(w_len * b, -1))
+        x = _block(cfg, w, x, attn.transpose(0, 1).reshape(w_len * b, -1), mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _logits(params, cfg, x).view(w_len, b, -1).transpose(0, 1)
+    logits = _logits(params, full_cfg, x, mesh).view(w_len, b, -1).transpose(0, 1)
     return logits.float(), kv_cache
 
 

@@ -17,7 +17,8 @@ prefill and decode forwards: the engine serves it on a tensor, expert and
 pipeline mesh.  The llama family's prefill forwards ring over sp
 (``supports_sp``, ``prefix_prefill_accepts_sp``), and the llama and MoE
 families pipeline their decode over pp (``forward_decode_pp``), as the
-reference's flags say.
+reference's flags say.  Every family with mesh forwards also takes
+``mesh=`` in its verify and embeds prefill (``verify_accepts_mesh``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -96,6 +99,29 @@ class ModelFamily:
     # the decode pipelined over pp: forward_decode's contract with mesh=
     # and microbatches= (parallel/pipeline.py); None = the stages in turn
     forward_decode_pp: Callable | None = None
+    # forward_verify (and forward_prefill_embeds, where the family has one)
+    # take mesh=, the verify's attention on each tp rank's head shard (row 2
+    # at W > 1, row 5, or Gemma-2/3's plain form): speculation and
+    # multimodal prefill serve on a mesh
+    verify_accepts_mesh: bool = False
+
+    def forward_prefill_spliced(self, params, cfg, token_ids, kv_cache, embeds, n_patch,
+                                block_ids, seq_len, start_pos, cos, sin, *, mesh=None):
+        """The multimodal prefill: ``embeds`` [seq_pad, hidden] float32 (the
+        patch embeddings, zero past ``n_patch``) in rows [0, n_patch), the
+        text's token embeddings (``embed``) after them, through
+        ``forward_prefill_embeds``.  On a mesh every rank splices (the
+        embedding may be vocab-sharded: its lookup sums over tp)."""
+        from dynamo_tpu_torch.parallel.pipeline import first_stage
+
+        pos = torch.arange(token_ids.shape[0], device=token_ids.device)
+        x = embeds.to(cfg.dtype)
+        if first_stage(mesh):  # a later pp stage takes its rows from the previous one
+            kw = {} if mesh is None else {"mesh": mesh}
+            x = torch.where((pos < n_patch)[:, None], x, self.embed(params, cfg, token_ids, **kw))
+        kw = {} if mesh is None else {"mesh": mesh}
+        return self.forward_prefill_embeds(params, cfg, x, kv_cache, block_ids, seq_len,
+                                           start_pos, cos, sin, **kw)
 
     def mesh_param_specs(self, cfg, mesh) -> dict:
         """The specs a rank of ``mesh`` slices its weights by: the family's,
@@ -155,6 +181,7 @@ def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
         supports_sp=True,
         prefix_prefill_accepts_sp=True,
         forward_decode_pp=llama.llama_forward_decode_pp,
+        verify_accepts_mesh=True,
     )
 
 
@@ -200,6 +227,7 @@ def _moe_family(name: str) -> ModelFamily:
         param_specs=mixtral.param_specs,
         decode_accepts_tp_mesh=True,
         forward_decode_pp=mixtral.mixtral_forward_decode_pp,
+        verify_accepts_mesh=True,
     )
 
 
@@ -223,6 +251,7 @@ def _gemma2_family() -> ModelFamily:
         quant_leaves=llama.QUANT_LEAVES,
         param_specs=gemma2.param_specs,
         decode_accepts_tp_mesh=True,
+        verify_accepts_mesh=True,
     )
 
 
@@ -249,6 +278,7 @@ def _gemma3_family() -> ModelFamily:
         embed=llama._embed,
         param_specs=gemma3.param_specs,
         decode_accepts_tp_mesh=True,
+        verify_accepts_mesh=True,
     )
 
 
@@ -272,6 +302,7 @@ def _deepseek_family() -> ModelFamily:
         param_specs=deepseek.param_specs,
         kv_cache_specs=deepseek.kv_cache_specs,
         decode_accepts_tp_mesh=True,
+        verify_accepts_mesh=True,
     )
 
 

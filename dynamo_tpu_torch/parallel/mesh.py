@@ -12,8 +12,10 @@ forwards call ``all_reduce`` / ``all_gather`` where GSPMD would have put
 its collectives.  Both helpers are the identity where the mesh is None or
 the axes have size 1.  Pipeline stages and the sequence ring move their
 tensors point to point (``exchange``, ``ring_shift``; the reference's
-``ppermute``), bit for bit.  Every collective, stage hand-off and ring
-rotation is counted with the seconds it took (``comm_counters``).
+``ppermute``), bit for bit, and so do the cache blocks an engine mesh
+gathers to rank 0 and scatters from it (``gather_to_root``,
+``scatter_from_root``).  Every collective, stage hand-off, ring rotation
+and block transfer is counted with the seconds it took (``comm_counters``).
 
 Axes (any may be 1): ``dp`` data, ``pp`` pipeline stage, ``ep`` expert,
 ``tp`` tensor, ``sp`` sequence.  Ranks lay out in ``AXIS_ORDER`` with ``tp``
@@ -52,8 +54,10 @@ _GROUP_AXES = (("tp",), ("ep",), ("ep", "tp"), ("dp",), ("pp",), ("sp",))
 
 # calls and seconds of this process's mesh traffic by kind: "collective"
 # (all_reduce, all_gather), "handoff" (a pipeline stage's sends and
-# receives), "ring" (the sequence ring's rotations)
-_COMM = {kind: [0, 0.0] for kind in ("collective", "handoff", "ring")}
+# receives), "ring" (the sequence ring's rotations), "transfer" (cache
+# blocks gathered to rank 0 or scattered from it)
+COMM_KINDS = ("collective", "handoff", "ring", "transfer")
+_COMM = {kind: [0, 0.0] for kind in COMM_KINDS}
 
 
 def comm_counters() -> dict[str, float]:
@@ -111,8 +115,7 @@ class Mesh:
         self.device = device
         self.backend = backend
         self._groups = groups
-        shape = [config.axis_sizes()[a] for a in AXIS_ORDER]
-        self.coords = dict(zip(AXIS_ORDER, (int(c) for c in np.unravel_index(rank, shape))))
+        self.coords = rank_coords(config, rank)
         # protocol tensors (step headers, weights) travel on the host over
         # gloo, on the card over nccl
         self.wire_device = torch.device("cpu") if backend == "gloo" else device
@@ -259,6 +262,34 @@ def post_sends(sends, mesh: Mesh, kind: str = "handoff") -> Posted:
     return Posted(works, buffers, kind)
 
 
+def gather_to_root(x: torch.Tensor | None, mesh: Mesh, templates: dict | None = None
+                   ) -> dict[int, torch.Tensor] | None:
+    """Every sending rank's ``x`` to rank 0, bit for bit (``exchange``'s byte
+    views).  On rank 0 ``templates`` {rank: a tensor of the shape, dtype
+    and device to receive} names the ranks that send, and the received
+    tensors come back by rank; a rank >= 1 sends ``x`` (None: it sends
+    nothing) and gets None."""
+    if mesh.rank == 0:
+        got = exchange([], [(like, r) for r, like in sorted((templates or {}).items())], mesh,
+                       "transfer")
+        return dict(zip(sorted(templates or {}), got))
+    if x is not None:
+        exchange([(x, 0)], [], mesh, "transfer")
+    return None
+
+
+def scatter_from_root(parts: dict | None, mesh: Mesh, like: torch.Tensor | None = None
+                      ) -> torch.Tensor | None:
+    """Each rank's part from rank 0, bit for bit: rank 0 sends ``parts``
+    {rank: tensor} (its own part, if any, stays where it is: None comes
+    back); a rank >= 1 receives a tensor like ``like``."""
+    if mesh.rank == 0:
+        exchange([(t, r) for r, t in sorted((parts or {}).items()) if r != 0], [], mesh,
+                 "transfer")
+        return None
+    return exchange([], [(like, 0)], mesh, "transfer")[0]
+
+
 def ring_shift(tensors, mesh: Mesh | None, axis: str = "sp") -> list[torch.Tensor]:
     """Each rank's ``tensors`` to the next rank of ``axis`` (index i to
     i + 1, the last to the first), the previous rank's returned: the
@@ -382,13 +413,21 @@ def _entry_axes(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_index(shape, spec: tuple, mesh: Mesh, name: str = "leaf") -> tuple[slice, ...]:
-    """The slices of a leaf of ``shape`` that this rank holds under
-    ``spec``: dimension d split into equal contiguous parts over the spec's
-    axes (rank-major in the order named), as ``NamedSharding`` splits it.
-    A dimension the axes do not divide is refused with the reference's
-    message (``jax.device_put`` refuses uneven shards; the reference pads
-    nothing)."""
+def rank_coords(config: MeshConfig, rank: int) -> dict[str, int]:
+    """Rank ``rank``'s coordinate on every axis of a mesh of ``config``."""
+    shape = [config.axis_sizes()[a] for a in AXIS_ORDER]
+    return dict(zip(AXIS_ORDER, (int(c) for c in np.unravel_index(rank, shape))))
+
+
+def shard_index(shape, spec: tuple, mesh: Mesh, name: str = "leaf",
+                coords: dict[str, int] | None = None) -> tuple[slice, ...]:
+    """The slices of a leaf of ``shape`` that this rank (or the rank at
+    ``coords``) holds under ``spec``: dimension d split into equal
+    contiguous parts over the spec's axes (rank-major in the order named),
+    as ``NamedSharding`` splits it.  A dimension the axes do not divide is
+    refused with the reference's message (``jax.device_put`` refuses
+    uneven shards; the reference pads nothing)."""
+    coords = coords or mesh.coords
     if len(spec) > len(shape):
         raise ValueError(f"{name}: spec {spec} has more entries than the leaf's rank {len(shape)}")
     index = []
@@ -403,7 +442,7 @@ def shard_index(shape, spec: tuple, mesh: Mesh, name: str = "leaf") -> tuple[sli
             )
         part = 0
         for a in axes:  # the first named axis is the most significant
-            part = part * mesh.size(a) + mesh.index(a)
+            part = part * mesh.size(a) + coords[a]
         step = size // n
         index.append(slice(part * step, (part + 1) * step))
     return tuple(index)

@@ -108,7 +108,7 @@ def build_torch_engine(
     (an override like any other) serves on a mesh: the engine is rank 0
     and starts its shard workers; the checkpoint is read into host memory
     and reaches the ranks one leaf at a time, each keeping its slice, so no
-    card holds the whole model.  A mesh engine does not guide."""
+    card holds the whole model."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
     from dynamo_tpu_torch.models.registry import get_family, known_families
 
@@ -144,7 +144,7 @@ def build_torch_engine(
     # disaggregated workers) supports response_format json_object.  Engines
     # that cannot guide (fused decode, speculation) still serve and refuse
     # guided requests one by one; a failed table build serves unguided.
-    if config.decode_steps <= 1 and not engine.spec_enabled and engine.mesh is None:
+    if config.decode_steps <= 1 and not engine.spec_enabled:
         try:
             engine.enable_guided_json(HfTokenizer.from_model_dir(model_dir))
         except Exception as exc:  # noqa: BLE001 — serving works unguided

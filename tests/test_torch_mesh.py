@@ -242,15 +242,21 @@ def test_engine_refuses_dp_like_the_reference():
      "decode batch evenly"),
     (MeshConfig(pp=4), dict(max_batch_size=4),
      "num_layers=2 must be divisible by the pp axis (4): layers split evenly into stages"),
-    (MeshConfig(tp=2), dict(speculative="ngram"),
-     "speculative decoding on an engine mesh is not ported yet (ROADMAP item 9c)"),
-    (MeshConfig(tp=2), dict(host_offload_blocks=8),
-     "KV offload tiers on an engine mesh is not ported yet (ROADMAP item 9c)"),
+    (MeshConfig(pp=2), dict(speculative="ngram"),
+     "speculative decoding does not support pp meshes"),
+    (MeshConfig(sp=2), dict(model=mixtral.MixtralConfig(**MOE, dtype=torch.float32),
+                            model_family="mixtral", host_offload_blocks=8),
+     "KV offload tiers configured but unusable: this model family/config has no prefix "
+     "caching"),
     (MeshConfig(tp=3), {}, "num_heads=8 is not divisible by the tp axis (3)"),
 ])
 def test_engine_refuses_later_mesh_items_by_name(mesh, over, words):
+    """The reference's refusals on a mesh, word for word: speculation on a
+    pp mesh, the offload tiers where an sp mesh turns prefix caching off
+    (a family whose continued prefill does not ring), an uneven head
+    split."""
     with pytest.raises(ValueError) as exc:
-        TorchLlmEngine(EngineConfig(model=CFG, mesh=mesh, **over), device="cpu")
+        TorchLlmEngine(EngineConfig(**{"model": CFG, "mesh": mesh, **over}), device="cpu")
     assert words in str(exc.value)
 
 

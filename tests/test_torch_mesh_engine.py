@@ -1,7 +1,8 @@
 """The mesh engine's lifecycle on the CPU, and the mesh dryrun: a tp = 2
-engine (rank 0 here, its shard worker a child process) refuses the features
-queued for later (guided JSON, multimodal, disaggregation) by name, reads
-every rank's launch counters, and leaves no child process at ``stop()``; a
+engine (rank 0 here, its shard worker a child process) serves guided JSON,
+a multimodal request and disaggregation's reserve, extract and inject,
+reads every rank's launch counters, and leaves no child process at
+``stop()``; a
 killed shard worker makes rank 0 fail its requests within the timeout;
 ``dryrun_multichip(4)`` (the counterpart of the reference's dryrun) runs its
 prefill, its sampled decode and its int8 check on four ranks."""
@@ -11,12 +12,12 @@ import os
 import signal
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
-import pytest
 
 from dynamo_tpu_torch.engine import EngineConfig, TorchLlmEngine
-from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest, StopConditions
 from dynamo_tpu_torch.parallel.dryrun import dryrun_multichip
 from dynamo_tpu_torch.parallel.mesh import MeshConfig
 from dynamo_tpu_torch.runtime.engine import Context
@@ -57,22 +58,38 @@ def _children() -> list[str]:
 
 
 def test_mesh_engine_refuses_later_items_and_stops_its_workers():
+    """The calls a mesh engine once refused serve on it: the
+    guided table installs, a multimodal request streams, disaggregation
+    reserves, extracts whole blocks and injects them; every rank's counters
+    read, and ``stop()`` leaves no child process."""
     engine = TorchLlmEngine(EngineConfig(model=CFG, mesh=MeshConfig(tp=2), **ENGINE),
                             device="cpu")
     try:
         assert len(_children()) == 1
-        pre = PreprocessedRequest(token_ids=[1, 2, 3]).to_wire()
-        with pytest.raises(NotImplementedError, match=r"guided JSON decoding on an engine "
-                                                      r"mesh is not ported yet \(ROADMAP item 9c\)"):
-            engine.set_guided(None, [], [])
-        with pytest.raises(NotImplementedError, match="multimodal prefill on an engine mesh"):
-            asyncio.run(engine.generate_multimodal(Context(pre), np.zeros((4, 64), np.float32)))
-        with pytest.raises(NotImplementedError, match="disaggregated decode on an engine mesh"):
-            engine.reserve_blocks(8)
-        with pytest.raises(NotImplementedError, match="disaggregated prefill on an engine mesh"):
-            asyncio.run(engine.prefill_extract(PreprocessedRequest(token_ids=[1, 2, 3])))
+        engine.set_guided(SimpleNamespace(mask=np.ones(tuple(engine._guided_table.shape), bool)),
+                          [""] * CFG.vocab_size, [1])
+        assert engine.guided_masks is not None
+        engine.start()
+
+        async def drive():
+            pre = PreprocessedRequest(token_ids=[5, 6, 7], stop=StopConditions(max_tokens=3))
+            stream = await engine.generate_multimodal(Context(pre.to_wire()),
+                                                      np.zeros((4, 64), np.float32))
+            items = [item async for item in stream]
+            ids = engine.reserve_blocks(8)
+            first, _, _, blocks, n = await engine.prefill_extract(
+                PreprocessedRequest(token_ids=list(range(3, 11))))
+            await engine.inject_blocks(ids[:n], blocks)
+            engine.release_blocks(ids)
+            return items, first, blocks, n
+
+        items, first, blocks, n = asyncio.run(drive())
+        assert items and 0 <= first < CFG.vocab_size
+        assert blocks["k"].shape == (CFG.num_layers, n, ENGINE["block_size"], CFG.num_kv_heads,
+                                     CFG.head_dim)
         counts = engine.mesh_counts()
         assert len(counts) == 2 and "paged_attention.plain_calls" in counts[1]
+        assert all(c["block_copy.plain_calls"] >= 4 for c in counts)
     finally:
         procs = list(engine._mesh_leader.procs)
         engine.stop()
