@@ -55,7 +55,7 @@ Phases (any failure exits non-zero, before the result line):
                the frontends (``serve_frontend``) in this process.  Phase
                serve's traffic through one worker over TCP; each worker's
                greedy ids for one prompt by direct routing (equal, and
-               equal to phase serve's engine's); 24 four-turn sessions
+               equal to phase serve's engine's); 12 four-turn sessions
                (768-token system prefixes, 64 user tokens a turn, 24
                output tokens) through a KV-routed frontend, then a random
                one, the caches flushed (``POST /clear_kv_blocks``) before
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero, before the result line):
                kv/random repeats), then ``routed_fleet.compare_policies``
                on two TorchLlmEngine workers at the Llama-3-8B geometry in
                this process, on one card (one set of random weights from a
-               seed, each engine warmed before its replay), 12 sessions x 3
+               seed, each engine warmed before its replay), 8 sessions x 3
                turns of ``generate_sessions`` in real time under random and
                KV routing: TTFT p50 / p99, follow-up TTFT, prefix hits,
                every turn streamed in full, rows 1-2 launched on the card in
@@ -153,7 +153,8 @@ Phases (any failure exits non-zero, before the result line):
                verify graph; one ``smoke_families`` line a model.  Phase
                kernels holds rows 1-2 at head dims 96 and 256 (Phi-3's and
                Gemma-2B's heads, a window, W = 5, an fp8 cache).
- 12. overlap — both configurations in process, all layers: the default
+ 12. overlap — both configurations in process, at phases serve's and
+               mla's depths (16 and 14 layers): the default
                engine warmed by ``warmup()`` (every reachable token
                bucket's unified graph, greedy and sampled, and the decode
                graphs, captured: 16 + 2), then a burst of five requests
@@ -292,7 +293,7 @@ Phases (any failure exits non-zero, before the result line):
  22. meshfeat — speculation, the offload tiers, disaggregation, guided JSON
                and multimodal requests on tp and ep meshes sharing the card
                over gloo, each against one card on the same seed's weights
-               (``phase_meshfeat``): Llama-3-8B (all 32 layers) at tp 2 with
+               (``phase_meshfeat``): Llama-3-8B (16 of 32 layers) at tp 2 with
                n-gram speculation and G1 128 blocks over G2 512 (six
                sessions of two 1024-token turns, each restored block's shard
                on every rank bitwise what it held at eviction); on phase
@@ -306,6 +307,16 @@ Phases (any failure exits non-zero, before the result line):
                every rank with no plain call.  One ``smoke_meshfeat`` line.
                Phase kernels holds rows 2 and 5 at the shard's verify shapes
                and rows 6-7 at a tp 2 rank's shard of the Llama leaf.
+ 23. autotune — the kernel autotuner at phase serve's engine
+               (``phase_autotune``): row 1's layouts timed on the card, the
+               winner's width bitwise the full width, an engine on the
+               tuned table serving phase serve's traffic against the
+               default one.  One ``smoke_autotune`` line.
+ 24. plane   — the agg example graph under the SDK's supervisor on a
+               control-plane server, its worker on the allocator's card,
+               scaled 1 -> 2 -> 1 by the planner under a burst of eight
+               request streams, then phase bench's lines through the perf
+               gate (``phase_plane``).  One ``smoke_plane`` line.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -344,7 +355,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm", "tp", "pp", "meshfeat")
+          "mm", "tp", "pp", "meshfeat", "autotune", "plane")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -2339,7 +2350,9 @@ PROBE_TOKENS = 16
 # multi-turn sessions for KV-aware against random routing (the reference's
 # bench.py _measure_kv_routing traffic): sessions start at the generator's
 # rate (3 a second), their think time compressed DIST_THINK_SPEEDUP x
-DIST_SESSIONS = dict(num_sessions=24, turns_per_session=4, system_tokens=768,
+# (12 sessions, 24 before phases autotune and plane joined: the whole smoke
+# keeps its time)
+DIST_SESSIONS = dict(num_sessions=12, turns_per_session=4, system_tokens=768,
                      user_tokens_per_turn=64, osl=24, seed=0)
 DIST_THINK_SPEEDUP = 10.0
 DIST_LAUNCH_S = 600
@@ -2728,11 +2741,13 @@ def phase_dist(card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dic
 # phase fleet: the routed-fleet bench, mockers and TorchLlmEngine workers
 # ---------------------------------------------------------------------------
 
-# bench.py's _measure_kv_routing traffic for the torch fleet, cut to 12
-# sessions x 3 turns (generate_sessions' other defaults: 768-token system
-# prefixes, 64 user tokens and 24 output tokens a turn, 3 s think time, three
-# sessions a second), replayed in real time on two workers on one card
-FLEET_SESSIONS = dict(num_sessions=12, turns_per_session=3, seed=0)
+# bench.py's _measure_kv_routing traffic for the torch fleet, cut to 8
+# sessions x 3 turns (12 before phases autotune and plane joined: the whole
+# smoke keeps its time; generate_sessions' other defaults: 768-token
+# system prefixes, 64 user tokens and 24 output tokens a turn, 3 s think
+# time, three sessions a second), replayed in real time on two workers on
+# one card
+FLEET_SESSIONS = dict(num_sessions=8, turns_per_session=3, seed=0)
 FLEET_WORKERS = 2
 
 
@@ -2845,7 +2860,7 @@ def phase_fleet(card: str, device: str = "cuda", model_config=None,
     turns, the median of three kv/random repeats); (b) ``routed_fleet.
     compare_policies`` on two TorchLlmEngine workers at the Llama-3-8B
     geometry in this process (one set of random weights on the card, each
-    engine warmed), 12 sessions x 3 turns: TTFT, follow-up TTFT and prefix
+    engine warmed), 8 sessions x 3 turns: TTFT, follow-up TTFT and prefix
     hits under both policies, every turn complete, rows 1-2 launched, each
     engine's idle share.  ``device`` "cpu" (the tiny config; ``rung`` a
     smaller session and fleet config for the mocker rung) rehearses it."""
@@ -3834,13 +3849,16 @@ def unified_skip_check(torch, engine, vocab: int) -> dict:
 
 
 def phase_overlap_both(torch, card: str) -> dict:
-    llama = phase_overlap(torch, card, "llama", "llama3-8b-smoke", LLAMA3_8B,
+    """Phase overlap on both configurations at phases serve's and mla's
+    depths (16 of Llama-3-8B's 32 layers, 14 of DeepSeek-V2-Lite's 27), so
+    that the whole smoke keeps its time with phases autotune and plane."""
+    llama = phase_overlap(torch, card, "llama", "llama3-8b-smoke", SERVE_LLAMA,
                           "paged_attention.launches", "ragged_attention.launches",
                           LLAMA_PATH, True)
     gc.collect()  # the Llama engines are stopped: free them before DeepSeek's
     torch.cuda.empty_cache()
     return {"llama": llama,
-            "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", DEEPSEEK_V2_LITE,
+            "mla": phase_overlap(torch, card, "mla", "deepseek-v2-lite-smoke", SERVE_MLA,
                                  "mla_attention.decode_launches", "mla_attention.ragged_launches",
                                  MLA_PATH, False)}
 
@@ -5074,14 +5092,22 @@ def phase_guided(torch, card: str, config: dict = LLAMA3_8B, device: str = "cuda
             out["itl_p50_ms_mixed"] = itl_p50_ms(stamps)
             # the unguided lanes alone, with and without a table: the same ids
             # (the burst's prefixes flushed first: a prefix hit computes the
-            # prompt's tail alone, in bf16 other bits than a whole prompt)
+            # prompt's tail alone, in bf16 other bits than a whole prompt).
+            # Each engine's loop is stopped while the four are queued and
+            # started after, so both take them in one first window: a
+            # window's bf16 sums depend on its mates, and prompts that reach
+            # a running loop apart land in windows that differ by engine.
             await engine.clear_kv_blocks()
             plain = [p for p, (g, _) in zip(prompts, GUIDED_LANES) if not g]
             alone = []
             for e in (engine, bare):
                 st = [[] for _ in plain]
-                alone.append(await asyncio.gather(*[
-                    sampled_stream(e, p, osl, stamps=st[i]) for i, p in enumerate(plain)]))
+                e.stop()
+                tasks = [asyncio.ensure_future(sampled_stream(e, p, osl, stamps=st[i]))
+                         for i, p in enumerate(plain)]
+                await asyncio.sleep(0.05)
+                e.start()
+                alone.append(await asyncio.gather(*tasks))
                 await settled(e)
                 if e is engine:
                     out["itl_p50_ms_unguided"] = itl_p50_ms(st)
@@ -5843,6 +5869,11 @@ BENCH_CONFIGS = (
 )
 
 
+# each configuration's headline line (``run_bench``'s result) from phase
+# bench, for phase plane's perf gate
+BENCH_LINES: dict[str, dict] = {}
+
+
 def phase_bench(torch, configs=BENCH_CONFIGS) -> dict:
     """Each configuration through the headline bench's own functions
     (``settings_from_env``, ``run_bench``: warmup, the burst, the pipeline
@@ -5864,6 +5895,7 @@ def phase_bench(torch, configs=BENCH_CONFIGS) -> dict:
         with split_step_clock(TorchLlmEngine) as walls:
             result = asyncio.run(headline.run_bench(settings))
         counts = read_counters()
+        BENCH_LINES[name] = result
         d = result["detail"]
         line = {"config": name, "env": env, "seconds": round(time.perf_counter() - t0, 1),
                 "tok_s": result["value"], **clock_summary(walls),
@@ -6981,9 +7013,9 @@ PP_PATH = "paged_attention.launches"
 
 def pp_models(torch):
     """(label, registry family, config, meshes, engine fields, prompt lengths)
-    of the phase: Llama-3-8B at full width and a quarter of its depth (8
-    of its 32 layers, so that the whole smoke keeps its time with phase
-    meshfeat) on
+    of the phase: Llama-3-8B at full width and an eighth of its depth (4
+    of its 32 layers, so that the whole smoke keeps its time with phases
+    meshfeat, autotune and plane) on
     pp, pp x tp and sp (a 4096-token prompt beside the short ones),
     Mixtral-8x7B at full width
     and 8 of its 32 layers on pp x ep (every routed token held: a capacity
@@ -6996,7 +7028,7 @@ def pp_models(torch):
 
     mix = held_capacity(parse("mixtral", MIXTRAL_8X7B))
     return (
-        ("llama3-8b", "llama", parse("llama", dict(LLAMA3_8B, num_hidden_layers=8)),
+        ("llama3-8b", "llama", parse("llama", dict(LLAMA3_8B, num_hidden_layers=4)),
          PP_LLAMA_MESHES, PP_ENGINE,
          (*PP_PROMPT_LENS, PP_LONG)),
         ("mixtral-8x7b-8l", "mixtral", mix, (("pp2ep2", dict(pp=2, ep=2)),), PP_SMALL_ENGINE,
@@ -7108,9 +7140,10 @@ def phase_pp(torch, card: str, device: str = "cuda", models=None, osl: int = PP_
 # (b) share one engine pair here (speculation with the offload tiers under
 # it), and (f) has its own; (c) + (d) and (e) run on phase tp's Llama and
 # DeepSeek pairs (``MF_ON_TP``), whose first logits phase tp holds.
-# (a) and (b) serve Llama-3-8B at all 32 layers; (f) LLaVA-1.5-7B at 16 of
-# its text model's 32, so that the whole smoke keeps its time
-MF_LLAMA = LLAMA3_8B
+# (a) and (b) serve Llama-3-8B at 16 of its 32 layers (all 32 before phase
+# plane came); (f) LLaVA-1.5-7B at 16 of its text model's 32, so that the
+# whole smoke keeps its time
+MF_LLAMA = dict(LLAMA3_8B, num_hidden_layers=16)
 MF_LLAVA = {**LLAVA_1_5_7B, "text_config": dict(LLAVA_1_5_7B["text_config"],
                                                 num_hidden_layers=16)}
 MF_SPEC_OFFLOAD = dict(num_blocks=128, host_offload_blocks=512, prefetch=True, max_batch_size=8,
@@ -7166,8 +7199,8 @@ def e2e_ms(stamps) -> dict:
 def mf_spec_offload(torch, device: str) -> dict:
     """(a) n-gram speculation (row 2 at W = 5 on each rank's head shard)
     and (b) six sessions of two 1024-token turns over G1 128 blocks on
-    G2 512 (every returning turn restores; the pager on): Llama-3-8B at all
-    32 layers, tp 2 against one card.  After (b) each block restored on the
+    G2 512 (every returning turn restores; the pager on): Llama-3-8B at 16
+    of its 32 layers, tp 2 against one card.  After (b) each block restored on the
     mesh and still resident is gathered from every rank's shard again:
     each rank's slice bitwise equal to what it held when the block was
     evicted."""
@@ -7564,6 +7597,681 @@ def phase_meshfeat(torch, card: str, device: str = "cuda", on_tp: dict | None = 
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase autotune: the ragged kernel's measured layout in the unified graphs
+# ---------------------------------------------------------------------------
+
+# phase serve's engine (Llama-3-8B geometry at 16 layers, 8 lanes, 4096
+# positions, 1024 blocks of 16, bf16) and its traffic: four chats of 64
+# tokens, the long prompt (24 out) landing while they decode
+AUTOTUNE_CHATS = [f"request {i}: tell me" for i in range(4)]
+AUTOTUNE_OSL = (64, 24)   # the chats', the long prompt's
+AUTOTUNE_REPS = 50        # timed launches a candidate and workload
+AUTOTUNE_LOGITS_ATOL = TP_LOGITS_ATOL["llama"]  # the smoke's bf16 bound on Llama logits
+
+
+def autotune_geometry(config: dict, engine_kw: dict):
+    """The autotuner's key for phase serve's engine."""
+    from dynamo_tpu_torch.ops.autotune import Geometry
+
+    return Geometry(num_heads=config["num_attention_heads"],
+                    num_kv_heads=config["num_key_value_heads"], head_dim=config["head_dim"],
+                    block_size=16, lanes=engine_kw["max_batch_size"],
+                    max_blocks_per_seq=-(-engine_kw["max_model_len"] // 16))
+
+
+def width_bitwise(torch, geom, tb: int, ps: int) -> dict:
+    """Row 1 at ``tb`` on the two synthetic workloads, the worklist at
+    ``ps`` and at the full width, the same inputs and the same work plan
+    (made from ``page_count``, which the width does not change): the outputs
+    must be equal bit for bit."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops import autotune
+    from dynamo_tpu_torch.ops.kernels import ragged_attention as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    h, kvh, d, bs = geom.num_heads, geom.num_kv_heads, geom.head_dim, geom.block_size
+    pages = geom.lanes * geom.max_blocks_per_seq
+    k = torch.randn((pages, bs, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((pages, bs, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+    rows = tb * (h // kvh)
+    planner = ra.ragged_planner(kvh, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                rows, d)
+    full = tb * geom.max_blocks_per_seq
+    out = {}
+    for name, (token_lane, token_pos, bt) in zip(("decode", "mixed"),
+                                                 autotune._synthetic_workloads(geom, tb)):
+        q = torch.randn((len(token_lane), h, d), generator=gen, device=dev).to(torch.bfloat16)
+        res = []
+        for width in (ps, full):
+            meta = ra.pack_page_meta(token_lane, token_pos, bt, tb_tokens=tb, block_size=bs,
+                                     page_slots=width)
+            args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                    for a in (bt, token_lane, token_pos, *meta)]
+            res.append(ra.ragged_paged_attention(q, k, v, *args, tb_tokens=tb,
+                                                 plan=planner.plan(meta[3])))
+        torch.cuda.synchronize()
+        out[name] = {"tokens": len(token_lane), "page_count_max": int(meta[3].max()),
+                     "bitwise": bool(torch.equal(res[0], res[1]))}
+        if not out[name]["bitwise"]:
+            raise AssertionError(f"autotune: row 1 at width {ps} is not its full-width "
+                                 f"result at tb {tb} ({name}): "
+                                 f"{(res[0].float() - res[1].float()).abs().max().item()}")
+    return out
+
+
+def unified_logits(torch, engine, prompts: list[list[int]]):
+    """The family's unified forward over ``prompts`` as one window of whole
+    prefill spans (lane i, fresh blocks from the bottom of the pool; the
+    engine stopped, its cache free) at the engine's token block and
+    worklist width, balanced by its planner's plan: each lane's last-token
+    logits, float32 on the host."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.kernels import pack_page_meta
+
+    cfg, dev = engine.config, engine.device
+    bs, tb, lanes = cfg.block_size, engine._unified_tb, cfg.max_batch_size
+    total = sum(len(p) for p in prompts)
+    t = -(-total // tb) * tb
+    ids = np.zeros((t,), np.int32)
+    pos = np.full((t,), -1, np.int32)
+    slot = np.full((t,), cfg.num_blocks * bs, np.int32)
+    lane = np.full((t,), lanes, np.int32)
+    bt = np.zeros((lanes, engine.max_blocks_per_seq), np.int32)
+    ctx = np.zeros((lanes,), np.int32)
+    rows = np.zeros((lanes,), np.int32)
+    cursor = block = 0
+    for i, p in enumerate(prompts):
+        n, nb = len(p), -(-len(p) // bs)
+        bt[i, :nb] = np.arange(block, block + nb)
+        block += nb
+        ppos = np.arange(n, dtype=np.int32)
+        ids[cursor: cursor + n] = p
+        pos[cursor: cursor + n] = ppos
+        slot[cursor: cursor + n] = bt[i, ppos // bs] * bs + ppos % bs
+        lane[cursor: cursor + n] = i
+        ctx[i], rows[i] = n, cursor + n - 1
+        cursor += n
+    ug = engine._unified
+    try:
+        meta = pack_page_meta(lane, pos, bt, tb_tokens=tb, block_size=bs,
+                              page_slots=ug.page_slots)
+    except ValueError:
+        meta = pack_page_meta(lane, pos, bt, tb_tokens=tb, block_size=bs,
+                              page_slots=ug.full_slots)
+    plan = ug.planner.plan(meta[3]) if ug.planner else None
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    with torch.no_grad():
+        logits, _ = engine.family.forward_unified(
+            engine.params, cfg.model, up(ids), engine.cache, up(bt), up(ctx), up(pos),
+            up(slot), up(lane), *(up(a) for a in meta), up(rows), engine.cos, engine.sin,
+            tb_tokens=tb, pages_per_step=engine._unified_pps, plan=plan)
+    return logits[: len(prompts)].float().cpu()
+
+
+async def autotune_traffic(engine, prompts: list[list[int]]) -> tuple[list[list[int]], dict]:
+    """Phase serve's traffic on ``engine`` in process, greedy: the four
+    chats, and the long prompt landing half a second later; each stream's
+    ids, and the traffic's wall seconds, the long prompt's TTFT and the
+    chats' ITL p50 (host clock)."""
+    stamps = [[] for _ in prompts]
+    t0 = time.perf_counter()
+    chats = [asyncio.ensure_future(generate_tokens(engine, p, AUTOTUNE_OSL[0], m))
+             for p, m in zip(prompts[:-1], stamps)]
+    await asyncio.sleep(0.5)
+    t_long = time.perf_counter()
+    long = asyncio.ensure_future(generate_tokens(engine, prompts[-1], AUTOTUNE_OSL[1],
+                                                 stamps[-1]))
+    out = list(await asyncio.gather(*chats, long))
+    itl = [b - a for m in stamps[:-1] for a, b in zip(m, m[1:]) if b > a]
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "long_ttft_ms": (stamps[-1][0] - t_long) * 1e3,
+                 "chat_itl_ms_p50": pctile(itl, 0.5) * 1e3 if itl else None}
+
+
+async def traffic_twice(engine, prompts):
+    """``autotune_traffic`` twice on one engine: the first pass captures the
+    graphs its windows reach (no warmup), the second, on ``prompts[1]``
+    (other texts, so no prefix hit), is timed warm.  Both passes' streams,
+    and the second's times."""
+    first, _ = await autotune_traffic(engine, prompts[0])
+    await settled(engine)
+    second, times = await autotune_traffic(engine, prompts[1])
+    return [first, second], times
+
+
+def phase_autotune(torch, card: str, config: dict = SERVE_LLAMA,
+                   engine_kw: dict = SERVE_ENGINE) -> dict:
+    """The kernel autotuner (``ops/autotune.py``) on the card and its tuned
+    layout in the unified graphs, at phase serve's engine (the Llama-3-8B
+    geometry at 16 layers: 32 heads over 8 kv heads, head dim 128, 16-token
+    blocks, 8 lanes, 4096 positions, a bf16 cache; random weights from seed
+    0, the tiny model's tokenizer).  (a) ``tune()`` with the measured runner
+    into a table of this run: every candidate (tb, page_slots) timed on
+    row 1 (the sum of the synthetic decode and mixed workloads' CUDA-event
+    µs, ``AUTOTUNE_REPS`` launches each), the winner row, the default
+    layout's µs (tb 8, the full width).  (b) At the winner's tb, row 1 at
+    its width bitwise its full-width result on both workloads.  (c) An
+    engine on that table (``DYN_KERNEL_PERF``) reports ``source: tuned``
+    with the row's values and serves phase serve's traffic in process (the
+    four chats "request i: tell me", 64 tokens each, and the ~1640-token
+    long prompt, 24 tokens, landing 0.5 s later; greedy, token ids from the
+    tokenizer; then the same again on fresh texts, timed warm)
+    through unified graph replays, the counters zeroed just before and read
+    just after: row 1 launched, every call on the tensor-core walk, no
+    plain call.  Its streams equal the default
+    engine's where tb is the default's; where tb changed, the first
+    window's logits are held to the default's within
+    ``AUTOTUNE_LOGITS_ATOL`` and a parting stream must part where the
+    default's top-2 margin is within it.  The overflows repacked at the
+    full width and the full-width graphs captured are printed.  (d) The
+    default engine, built first with ``DYN_AUTOTUNE=0`` on the same table,
+    reports ``source: default``.  One ``smoke_autotune`` line."""
+    import tempfile
+
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.ops import autotune
+
+    model = "llama3-8b-smoke"
+    mdir = model_dir(model, config)
+    geom = autotune_geometry(config, engine_kw)
+    tok = HfTokenizer.from_model_dir(mdir)
+    # the two passes' texts: phase serve's, then as many fresh ones
+    prompts = [[tok.encode(text) for text in (*AUTOTUNE_CHATS, LONG_PROMPT)],
+               [tok.encode(text) for text in (*(f"{c} again" for c in AUTOTUNE_CHATS),
+                                              LONG_PROMPT[1:] + LONG_PROMPT[0])]]
+    table = Path(tempfile.mkdtemp(prefix="autotune_")) / "KERNEL_PERF_CUDA.json"
+    kind = torch.cuda.get_device_name(0)
+    report: dict = {"card": card, "geometry": geom.key, "table": str(table)}
+    saved = {k: os.environ.get(k) for k in ("DYN_KERNEL_PERF", "DYN_AUTOTUNE")}
+    os.environ["DYN_KERNEL_PERF"] = str(table)
+    try:
+        # (d) the default engine, autotuning off: phase serve's layout
+        os.environ["DYN_AUTOTUNE"] = "0"
+        base, build_s = build_engine(mdir, "cuda", None, **engine_kw)
+        kc0 = base.stats()["kernel_config"]
+        report["default"] = {"kernel_config": kc0, "build_s": build_s}
+        if kc0["source"] != "default" or kc0["tb_tokens"] != 8 \
+                or kc0["page_slots"] != 8 * geom.max_blocks_per_seq:
+            raise AssertionError(f"autotune: DYN_AUTOTUNE=0 gave {kc0}")
+        buckets = tuple(base.buckets)
+        base.start()
+        base_out, report["default"]["traffic"] = asyncio.run(traffic_twice(base, prompts))
+        base.stop()
+        base_logits = unified_logits(torch, base, prompts[0])
+        params = base.params
+        del base
+        free_card(torch, True)
+
+        # (a) the measured sweep, into this run's table
+        t0 = time.perf_counter()
+        runner = autotune.measured_runner(geom, device="cuda", reps=AUTOTUNE_REPS)
+        row, cached = autotune.tune(table, geom, dtype="bfloat16", buckets=buckets,
+                                    runner=runner, device_kind=kind)
+        sweep_s = time.perf_counter() - t0
+        times = {f"tb{tb}_ps{ps}": us for (tb, ps), us in sorted(runner.times.items())}
+        default_us = runner.times.get((8, 8 * geom.max_blocks_per_seq))
+        report["sweep"] = {"row": row, "cached": cached, "seconds": sweep_s,
+                           "candidates_us": times, "default_layout_us": default_us,
+                           "winner_us": row["cost"]}
+        log(f"[autotune] swept {row['swept']} candidates ({len(times)} timed) in "
+            f"{sweep_s:.1f}s: winner {row}; default layout (tb 8, width "
+            f"{8 * geom.max_blocks_per_seq}) {default_us} us; every candidate {times}")
+        if cached or row["source"] != "measured" or row["device_kind"] != kind:
+            raise AssertionError(f"autotune: the sweep's row is not this card's measure: {row}")
+        if default_us is None:
+            raise AssertionError("autotune: the default layout was not timed")
+
+        # (b) the winner's width bitwise the full width at its tb
+        report["bitwise"] = width_bitwise(torch, geom, row["tb_tokens"], row["page_slots"])
+
+        # (c) the tuned engine on phase serve's traffic
+        os.environ.pop("DYN_AUTOTUNE")
+        tuned, build_s = build_engine(mdir, "cuda", None, params=params, **engine_kw)
+        kc = tuned.stats()["kernel_config"]
+        want = {k: row[k] for k in ("tb_tokens", "page_slots", "pages_per_step")}
+        if kc["source"] != "tuned" or {k: kc[k] for k in want} != want \
+                or kc["geometry"] != geom.key:
+            raise AssertionError(f"autotune: the tuned engine resolved {kc}, the row {row}")
+        tuned.start()
+        zero_counters()
+        out, traffic = asyncio.run(traffic_twice(tuned, prompts))
+        counts = read_counters()
+        st = tuned.stats()
+        tuned.stop()
+        report["tuned"] = {
+            "kernel_config": kc, "build_s": build_s, "traffic": traffic,
+            "launches": {k: counts[k] for k in LLAMA_PATH},
+            "unified_windows": st["decode_windows_unified_total"],
+            "unified_replays": st["unified_graph_replays_total"],
+            "overflows": st["unified_ps_overflows_total"],
+            "full_width_graphs": st["unified_full_width_graphs_captured"]}
+        if counts["ragged_attention.launches"] <= 0 or st["unified_graph_replays_total"] <= 0:
+            raise AssertionError(f"autotune: no unified replay launched row 1: {report['tuned']}")
+        check_ragged_route(counts)
+        if row["tb_tokens"] == kc0["tb_tokens"]:
+            report["streams"] = "equal" if out == base_out else "differ"
+            if out != base_out:
+                raise AssertionError(f"autotune: at the default's tb the tuned engine's "
+                                     f"greedy streams differ from the default's")
+        else:
+            logits = unified_logits(torch, tuned, prompts[0])
+            report["logits"] = logits_check("autotune", logits, base_logits,
+                                            AUTOTUNE_LOGITS_ATOL)
+            # the first pass's streams (the second's prompts hit the prefix
+            # cache on both engines alike)
+            base_out, out = base_out[0], out[0]
+            parted = [i for i, (a, b) in enumerate(zip(base_out, out)) if a != b]
+            margins = []
+            if parted:  # the default's top-2 margins, eagerly, on its own weights
+                ref, _ = build_engine(mdir, "cuda", None, params=params, **engine_kw)
+                ref.start()
+                for i in parted:
+                    margins.append(asyncio.run(generate_top2(
+                        ref, prompts[0][i], AUTOTUNE_OSL[i == len(prompts[0]) - 1], []))[1])
+                ref.stop()
+                del ref
+            report["parted"] = parted_streams(
+                "autotune", [(base_out[i], m) for i, m in zip(parted, margins)],
+                [(out[i], None) for i in parted], AUTOTUNE_LOGITS_ATOL)
+        del tuned
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(table.parent, ignore_errors=True)
+        free_card(torch, True)
+    print(json.dumps({"smoke_autotune": report}, default=str), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase plane: the agg graph under the SDK's supervisor, scaled by the planner
+# ---------------------------------------------------------------------------
+
+PLANE_CONFIG = dict(LLAMA3_8B, num_hidden_layers=4)   # phase dist's geometry, 4 layers
+PLANE_ENGINE = dict(num_blocks=512, max_batch_size=8, max_model_len=2048, seed=0)
+PLANE_CLIENTS = 8        # request streams during the burst (one request each at a time)
+PLANE_OSL = 48           # tokens out a request
+PLANE_TICK_S = 1.0       # the planner's adjustment interval
+# after a scale-up the pool holds for the planner's cooldown: at least this
+# long, and past the new replica's start and the burst after its first
+# token.  That start (11.5-15.6 s at 4 layers on an H100, more on a slower
+# host) runs its warmup on the card beside the burst, and the served rate
+# dips to 0 across it; a cooldown that ends before the burst does flaps the
+# pool back to one replica while the burst still runs.  The phase sizes it
+# from the first replica's measured start (``plane_cooldown_s``).
+PLANE_COOLDOWN_S = 20.0
+PLANE_START_MARGIN = 2.0  # the second replica's start over the first's (0.96-1.26 seen)
+PLANE_AFTER_S = 5.0      # the burst after the new replica's first token
+PLANE_LAUNCH_S = 300
+
+
+def plane_cooldown_s(first_up_s: float) -> float:
+    """The planner's cooldown after a scale-up: the new replica's start
+    (``PLANE_START_MARGIN`` times the first replica's, measured), the burst
+    after its first token and two ticks, or ``PLANE_COOLDOWN_S`` if longer."""
+    return max(PLANE_COOLDOWN_S,
+               PLANE_START_MARGIN * first_up_s + PLANE_AFTER_S + 2 * PLANE_TICK_S)
+
+
+def worker_env(pid: int) -> dict:
+    """A child's environment, from /proc."""
+    raw = Path(f"/proc/{pid}/environ").read_bytes()
+    return dict(kv.split("=", 1) for kv in raw.decode(errors="replace").split("\0") if "=" in kv)
+
+
+async def plane_async(torch, card: str, bench_lines: dict, device: str = "cuda",
+                      config: dict = PLANE_CONFIG, engine: dict = PLANE_ENGINE) -> dict:
+    import aiohttp
+
+    from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvMetricsAggregator
+    from dynamo_tpu_torch.planner import (
+        PerfProfile,
+        Planner,
+        PlannerConfig,
+        ProfilePoint,
+        sample_from_endpoints,
+    )
+    from dynamo_tpu_torch.planner.connectors import LocalConnector
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.runtime.client import PushRouter
+    from dynamo_tpu_torch.runtime.controlplane.server import ControlPlaneServer
+    from dynamo_tpu_torch.sdk import ProcessSpec, ProcessSupervisor
+    from dynamo_tpu_torch.sdk.allocator import ResourceError, plan_resource_envs
+    from dynamo_tpu_torch.sdk.graph import service
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    on_card = device == "cuda"
+    model = "llama3-8b-plane"
+    mdir = model_dir(model, config)
+    report: dict = {"card": card}
+
+    # the agg graph's services as the SDK declares them: the worker asks for
+    # one card; a second card-bound replica cannot be planned on this host
+    @service(name="plane-frontend")
+    class Frontend:
+        pass
+
+    @service(name="plane-worker", workers=1, resources={"gpu": 1})
+    class Worker:
+        pass
+
+    @service(name="plane-worker", workers=2, resources={"gpu": 1})
+    class TwoWorkers:
+        pass
+
+    envs = plan_resource_envs([Frontend, Worker])
+    report["allocation"] = envs
+    if envs.get("plane-worker") != [{"CUDA_VISIBLE_DEVICES": "0", "DYN_GPUS": "0"}]:
+        raise AssertionError(f"plane: the allocator planned {envs} on this one-card host")
+    try:
+        plan_resource_envs([Frontend, TwoWorkers])
+        raise AssertionError("plane: a second GPU replica was planned on a one-card host")
+    except ResourceError as exc:
+        report["second_replica_refused"] = str(exc)
+        if "remain unassigned" not in str(exc):
+            raise
+    log(f"[plane] allocation {envs}; a second replica refused: "
+        f"{report['second_replica_refused']}")
+
+    server = ControlPlaneServer(port=0)
+    await server.start()
+    address = f"127.0.0.1:{server.port}"
+    port = free_port()
+    sup = ProcessSupervisor()
+    runtime = aggregator = None
+    worker_cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "run", "in=none",
+                  "out=torch", "--warmup", "--control-plane", address, "--model-path",
+                  str(mdir), "--model-name", model,
+                  "--num-blocks", str(engine["num_blocks"]),
+                  "--max-batch-size", str(engine["max_batch_size"]),
+                  "--context-length", str(engine["max_model_len"]),
+                  "--seed", str(engine["seed"]), "--device", device]
+    sup.add_watcher(ProcessSpec(
+        name="worker", cmd=worker_cmd, cwd=str(ROOT), stop_timeout_s=60.0,
+        # replica 0 on the allocator's card; replica 1 opts out of the
+        # allocation and time-slices the same card (one card on this host)
+        replica_env=envs["plane-worker"] + [{"DYN_DISABLE_AUTO_GPU_ALLOCATION": "1"}]),
+        replicas=1)
+    sup.add_watcher(ProcessSpec(
+        name="frontend", cwd=str(ROOT), cmd=[
+            sys.executable, "-m", "dynamo_tpu_torch.cli.run", "run", "in=http", "out=dyn",
+            "--control-plane", address, "--host", "127.0.0.1", "--port", str(port),
+            "--router-mode", "round_robin"]), replicas=1)
+    # the agg graph has no prefill pool: its watcher stays at 0
+    sup.add_watcher(ProcessSpec(name="prefill", cmd=[sys.executable, "-c", "pass"]),
+                    replicas=0)
+    results: list[dict] = []
+    lost: list[str] = []
+    decisions: list[dict] = []
+    stop_burst, stop_all = asyncio.Event(), asyncio.Event()
+    try:
+        runtime = await DistributedRuntime.create(RuntimeConfig(control_plane=address))
+        backend = runtime.namespace("dynamo").component("backend")
+        client = (await PushRouter.from_endpoint(backend.endpoint("generate"))).client
+        aggregator = KvMetricsAggregator(backend)
+        await aggregator.start()
+        t0 = time.perf_counter()
+        await sup.start()
+        await client.wait_for_instances(1, timeout=PLANE_LAUNCH_S)
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            while True:  # the frontend lists the model once its pipeline is built
+                try:
+                    async with s.get(f"http://127.0.0.1:{port}/v1/models") as r:
+                        if model in [m["id"] for m in (await r.json()).get("data", [])]:
+                            break
+                except aiohttp.ClientError:
+                    pass
+                if time.perf_counter() - t0 > PLANE_LAUNCH_S:
+                    raise TimeoutError("plane: the frontend did not list the model")
+                await asyncio.sleep(0.2)
+            report["first_worker_up_s"] = time.perf_counter() - t0
+            first = client.instances[0]
+            w0 = sup._replicas["worker"][0].process.pid
+            env0 = worker_env(w0)
+            st0 = (await worker_stats(runtime, first))["custom"]
+            report["worker0"] = {k: env0.get(k) for k in (
+                "CUDA_VISIBLE_DEVICES", "DYN_GPUS", "DYN_REPLICA_INDEX")}
+            report["worker0"].update(device=st0["device"], device_name=st0["device_name"])
+            log(f"[plane] worker 0 up in {report['first_worker_up_s']:.1f}s: "
+                f"{report['worker0']}")
+            if (env0.get("CUDA_VISIBLE_DEVICES"), env0.get("DYN_GPUS")) != ("0", "0") \
+                    or (on_card and st0["device_name"] != torch.cuda.get_device_name(0)):
+                raise AssertionError(f"plane: worker 0 is not on the allocated card: "
+                                     f"{report['worker0']}")
+
+            async def stream(k: int, burst: bool) -> None:
+                i = 0
+                while not (stop_burst if burst else stop_all).is_set():
+                    text = f"client {k} request {i}: tell me about the number {i}"
+                    try:
+                        r = await stream_chat(s, port, model, text, PLANE_OSL)
+                    except Exception as exc:  # noqa: BLE001 — a lost request is a finding
+                        lost.append(f"{k}.{i}: {exc!r}")
+                        raise
+                    results.append({**r, "client": k, "burst": burst})
+                    i += 1
+
+            # the burst, then the planner's loop over the workers' metrics
+            clients = [asyncio.ensure_future(stream(k, k > 0)) for k in range(PLANE_CLIENTS)]
+            await asyncio.sleep(3.0)
+            t_warm = time.perf_counter()
+            n_warm = len(results)
+            await asyncio.sleep(3.0)
+            done = [r for r in results[n_warm:]]
+            burst_tok_s = len(done) * PLANE_OSL / (time.perf_counter() - t_warm)
+            # the profile: one decode replica serves half of the burst's
+            # output rate, so the burst needs two and the ebb one
+            profile = PerfProfile([ProfilePoint(
+                isl=16, osl=PLANE_OSL, prefill_tok_s=1e6, decode_tok_s=0.5 * burst_tok_s,
+                ttft_s=0.1, itl_s=0.02)])
+            cooldown_s = plane_cooldown_s(report["first_worker_up_s"])
+            planner = Planner(profile, LocalConnector(sup, decode_watcher="worker"),
+                              PlannerConfig(predictor="constant", min_prefill=0,
+                                            max_prefill=0, min_decode=1, max_decode=2,
+                                            scale_down_headroom=1.0,
+                                            cooldown_s=cooldown_s,
+                                            saturation_occupancy=1.01))
+            report["profile_decode_tok_s"] = 0.5 * burst_tok_s
+            report["cooldown_s"] = cooldown_s
+
+            async def tick() -> dict:
+                now = time.perf_counter()
+                window = [r for r in results if now - (r["stamps"][-1] if r["stamps"]
+                                                       else r["t0"]) <= 2.0]
+                sample = sample_from_endpoints(aggregator.snapshot(),
+                                               request_rate=len(window) / 2.0,
+                                               avg_isl=16, avg_osl=PLANE_OSL)
+                d = await planner.step(sample)
+                rec = {"t": now - t0, "request_rate": sample.request_rate,
+                       "replicas_seen": sample.num_decode_replicas,
+                       "num_decode": d.num_decode, "reason": d.reason}
+                decisions.append(rec)
+                return rec
+
+            while (await tick())["num_decode"] < 2:
+                if time.perf_counter() - t0 > PLANE_LAUNCH_S:
+                    raise AssertionError(f"plane: the planner never scaled up: {decisions}")
+                await asyncio.sleep(PLANE_TICK_S)
+            t_dec = time.perf_counter()
+            before = [r for r in results if r["t0"] < t_dec]
+            insts = await client.wait_for_instances(2, timeout=PLANE_LAUNCH_S)
+            new = next(i for i in insts if i.instance_id != first.instance_id)
+            while (await worker_stats(runtime, new))["custom"]["tokens_emitted_total"] <= 0:
+                if time.perf_counter() - t_dec > PLANE_LAUNCH_S:
+                    raise AssertionError("plane: the new replica served no token")
+                await asyncio.sleep(0.05)
+            t_first = time.perf_counter()
+            report["decision_to_first_token_s"] = t_first - t_dec
+            w1 = sup._replicas["worker"][1].process.pid
+            env1 = worker_env(w1)
+            report["worker1"] = {k: env1.get(k) for k in (
+                "CUDA_VISIBLE_DEVICES", "DYN_DISABLE_AUTO_GPU_ALLOCATION", "DYN_REPLICA_INDEX")}
+            log(f"[plane] scaled to 2 at {t_dec - t0:.1f}s; the new replica's first token "
+                f"{report['decision_to_first_token_s']:.2f}s later: {report['worker1']}")
+            # the burst goes on after the first token, inside the cooldown
+            # (a start slower than the margin shortens it)
+            deadline = min(t_first + PLANE_AFTER_S, t_dec + cooldown_s - PLANE_TICK_S)
+            report["after_burst_s"] = max(0.0, deadline - t_first)
+            while time.perf_counter() < deadline:
+                await tick()
+                await asyncio.sleep(PLANE_TICK_S)
+            workers = {}
+            if len(client.instances) != 2:
+                raise AssertionError(f"plane: {len(client.instances)} workers in the burst "
+                                     f"after the scale-up: {decisions}")
+            for inst in client.instances:
+                c = (await worker_stats(runtime, inst))["custom"]
+                workers[f"{inst.instance_id:x}"] = {
+                    "device_name": c["device_name"],
+                    "launches": {k: c["kernel_launches"][k] for k in LLAMA_PATH},
+                    **{k: c[k] for k in ("decode_windows_unified_total",
+                                         "unified_graph_replays_total",
+                                         "unified_graphs_captured",
+                                         "decode_graph_replays_total",
+                                         "tokens_emitted_total")}}
+            report["workers"] = workers
+            for name, w in workers.items():
+                # warmup replays each captured graph once: replays past it
+                # are served windows, each launching its rows (the CPU runs
+                # the plain versions, eagerly)
+                if w["decode_windows_unified_total"] <= 0 or on_card and (
+                        min(w["launches"].values()) <= 0
+                        or w["unified_graph_replays_total"] <= w["unified_graphs_captured"]
+                        or w["decode_graph_replays_total"] <= 2):
+                    raise AssertionError(f"plane: worker {name} did not serve through rows "
+                                         f"1-2: {w}")
+            # the ebb: one stream goes on, the planner shrinks the pool once
+            # its cooldown has passed
+            stop_burst.set()
+            t_ebb = time.perf_counter()
+            while (await tick())["num_decode"] > 1:
+                if time.perf_counter() - t_dec > PLANE_LAUNCH_S:
+                    raise AssertionError(f"plane: the planner never scaled down: {decisions}")
+                await asyncio.sleep(PLANE_TICK_S)
+            t_down = time.perf_counter()
+            while len(client.instances) > 1:
+                if time.perf_counter() - t_down > 120:
+                    raise AssertionError("plane: the retired replica stayed registered")
+                await asyncio.sleep(0.1)
+            report["scale_down_s_after_up"] = t_down - t_dec
+            n_down = len(results)
+            while len(results) < n_down + 2:  # the one stream goes on on one worker
+                await asyncio.sleep(0.1)
+            stop_all.set()
+            await asyncio.gather(*clients)
+        e2e = traffic_e2e("plane", results, time.perf_counter() - t0)
+        # the requests sent on two replicas: from the new one's first token
+        # to the ebb (read once all are done, those still streaming at the
+        # ebb too)
+        after = [r for r in results if t_first <= r["t0"] < t_ebb]
+        report.update(
+            requests=len(results), lost=lost, e2e=e2e,
+            ttft_ms_p50_before=pctile([r["stamps"][0] - r["t0"] for r in before], 0.5) * 1e3,
+            ttft_ms_p50_after=pctile([r["stamps"][0] - r["t0"] for r in after], 0.5) * 1e3,
+            decisions=decisions, replicas_end=sup.replica_count("worker"))
+        if lost or sup.replica_count("worker") != 1:
+            raise AssertionError(f"plane: lost {lost}, {sup.replica_count('worker')} replicas")
+        pools = [d["num_decode"] for d in decisions]
+        runs = [n for i, n in enumerate(pools) if i == 0 or n != pools[i - 1]]
+        if runs not in ([2, 1], [1, 2, 1]):
+            raise AssertionError(f"plane: the pool did not go 1 -> 2 -> 1 once: {pools}")
+    finally:
+        stop_burst.set()
+        stop_all.set()
+        await sup.stop()
+        if aggregator is not None:
+            await aggregator.stop()
+        if runtime is not None:
+            await runtime.close()
+        await server.stop()
+    report["perfgate"] = plane_perfgate(bench_lines)
+    return report
+
+
+def plane_perfgate(bench_lines: dict) -> dict:
+    """Phase bench's headline lines through the port's perf gate in a
+    temporary directory: ``--write-baseline`` then ``check`` pass, and a
+    copy with configuration A's tok/s degraded past its band fails by that
+    metric's name.  Skipped (and said so) where phase bench did not run."""
+    import io
+    import tempfile
+
+    from dynamo_tpu_torch.bench import perfgate
+
+    if set(bench_lines) != set(perfgate.CONFIGS):
+        return {"skipped": f"phase bench gave {sorted(bench_lines)}, the gate reads "
+                           f"{list(perfgate.CONFIGS)}"}
+    root = Path(tempfile.mkdtemp(prefix="perfgate_"))
+    for config, line in bench_lines.items():
+        perfgate.write_artifact(root, config, line)
+
+    def gate(*argv) -> tuple[int, str]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = perfgate.main(["--root", str(root), *argv])
+        return rc, buf.getvalue()
+
+    try:
+        out = {"write_baseline": gate("--write-baseline"), "check": gate()}
+        degraded = json.loads((root / "HEADLINE_A.json").read_text())
+        degraded["value"] = degraded["value"] * 0.5
+        (root / "HEADLINE_A.json").write_text(json.dumps(degraded))
+        out["degraded"] = gate()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[plane] perf gate: {out}")
+    if out["write_baseline"][0] != 0 or out["check"][0] != 0:
+        raise AssertionError(f"plane: the perf gate did not pass its own baseline: {out}")
+    if out["degraded"][0] != 1 or "[regression] headline_a.tok_s" not in out["degraded"][1]:
+        raise AssertionError(f"plane: a degraded A did not fail by its name: {out}")
+    return out
+
+
+def phase_plane(torch, card: str, device: str = "cuda", **kw) -> dict:
+    """The plane above the engine on the card: the agg example graph (a
+    round-robin frontend, ``run in=http out=dyn``, and a worker, ``run
+    in=none out=torch --warmup`` at phase dist's Llama-3-8B geometry, full
+    width, 4 layers, random weights from seed 0, 512 blocks, 8 lanes, 2048
+    positions) under the SDK's ``ProcessSupervisor`` over the port's
+    control-plane server.  The worker service declares ``resources={"gpu":
+    1}``: the allocator gives it ``CUDA_VISIBLE_DEVICES=0`` (read from the
+    process) and it reports that card's name; a plan of two such replicas on
+    this one-card host raises ``ResourceError``.  Eight request streams
+    (chats of ~16 tokens, 48 out, greedy, one request a stream at a time)
+    make a burst; the planner (a ``PerfProfile`` written here: one replica
+    serves half the burst's measured output rate) observes
+    ``sample_from_endpoints`` over the workers' load metrics every second
+    and scales the worker watcher 1 -> 2 through ``LocalConnector``, the
+    second replica run with ``DYN_DISABLE_AUTO_GPU_ALLOCATION=1`` so both
+    time-slice the card; after the new replica's first token the burst runs
+    5 s more, then seven streams stop and the planner, once its cooldown
+    has passed (``plane_cooldown_s``: past the new replica's start and that
+    burst, from the first replica's measured start), scales 2 -> 1 (the
+    replica drains on SIGTERM; the pool must change exactly twice).  No request
+    may be lost and every one must stream its 48 tokens; both workers must
+    serve through rows 1-2.  Prints the seconds from the decision to the
+    new replica's first token, TTFT p50 before and after the scale-up, each
+    worker's rows 1-2 launches and the decisions.  Then phase bench's
+    headline lines through the perf gate (``plane_perfgate``).  One
+    ``smoke_plane`` line.  ``device`` "cpu" (with a small ``config`` and
+    ``engine``, and ``DYN_GPU_COUNT=1`` for the allocator) rehearses it on
+    the CPU, where the card-only checks are skipped."""
+    report = asyncio.run(plane_async(torch, card, BENCH_LINES, device, **kw))
+    print(json.dumps({"smoke_plane": report}, default=str), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7663,6 +8371,10 @@ def main() -> int:
             pp = run("pp", phase_pp, torch, card)
         if "meshfeat" in phases:
             meshfeat = run("meshfeat", phase_meshfeat, torch, card, "cuda", tp["meshfeat"])
+        if "autotune" in phases:
+            run("autotune", phase_autotune, torch, card)
+        if "plane" in phases:
+            run("plane", phase_plane, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:

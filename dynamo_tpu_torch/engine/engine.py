@@ -542,9 +542,9 @@ class TorchLlmEngine:
             mixed = -(-(self.chunk_tokens + lanes) // 8) * 8
             if unified and mixed < self.max_len:
                 self.buckets = sorted(set(self.buckets) | {mixed})
-        # ragged kernel geometry: the flat token axis pads to whole blocks of
-        # tb tokens (the page worklist's one width is UnifiedGraph's)
-        self._unified_tb = math.gcd(config.block_size, 8) or 1
+        # the ragged kernel's layout: token-block size, worklist width and
+        # pages a grid step (explicit knob > tuned row > heuristic default)
+        self._resolve_kernel_layout(cfg)
         self._unified_windows = 0
         self._sync_windows = 0
         self._decode_steps_total = 0
@@ -1311,6 +1311,11 @@ class TorchLlmEngine:
             # reason slug -> windows (or the engine init) that fell back
             # from the unified step to the split step
             "unified_fallbacks": dict(self._unified_fallbacks),
+            # the ragged kernel's resolved layout (source: knob / tuned /
+            # default), and the windows whose worklist outgrew a tuned width
+            # and were repacked at the full width
+            "kernel_config": dict(self._kernel_config),
+            "unified_ps_overflows_total": self._unified_ps_overflows,
             "decode_steps_total": self._decode_steps_total,
             "num_preemptions_total": self.scheduler.preemptions_total,
             "tokens_emitted_total": self._tokens_emitted,
@@ -1324,6 +1329,9 @@ class TorchLlmEngine:
             "quantize": self.config.quantize,
             "warmup_s": self.warmup_s,
             "device": str(self.device),
+            # the card's name (a worker process reports the card it runs on)
+            "device_name": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else self.device.type),
             # the kernel wrappers' launch and plain-call counters (process
             # wide: a worker serves one engine), so a caller in another
             # process reads what the path launched
@@ -1334,7 +1342,8 @@ class TorchLlmEngine:
             "native_codecs": native.stats(),
             **self._decode.stats(),
             **(self._unified.stats() if self._unified is not None
-               else StepGraphs.zero_stats("unified")),
+               else {**StepGraphs.zero_stats("unified"),
+                     "unified_full_width_graphs_captured": 0}),
             **self._prefill.stats(),
             **(self._verify.stats() if self._verify is not None
                else StepGraphs.zero_stats("verify")),
@@ -1521,6 +1530,107 @@ class TorchLlmEngine:
             for seq in decodes:
                 if seq.status == SeqStatus.RUNNING:
                     self._fail_sequence(seq, exc)
+
+    def _resolve_kernel_layout(self, cfg) -> None:
+        """The ragged kernel's layout, as the reference resolves it
+        (dynamo_tpu/engine/engine.py: explicit ``DYN_AUTOTUNE_*`` knob >
+        tuned kernel-perf row > heuristic default).  ``tb``: the flat token
+        axis pads to whole blocks of this many tokens; ``ps``: the page
+        worklist's one width a token bucket (``UnifiedGraph``'s), the full
+        width ``tb x max_blocks_per_seq`` always fits, and a window whose
+        worklist outgrows a tighter tuned width is repacked at the full
+        width (``_run_unified``); ``pps``: pages a grid step, which the
+        port's kernels accept and ignore.  A ``tb`` that does not divide
+        every unified bucket, or that the family's kernel refuses, falls
+        back to the default with a warning."""
+        config = self.config
+        tb_default = math.gcd(config.block_size, 8) or 1
+        tuned = self._resolve_tuned_kernel_config(cfg)
+        knob_tb = knobs.get("DYN_AUTOTUNE_TB")
+        knob_ps = knobs.get("DYN_AUTOTUNE_PAGE_SLOTS")
+        knob_pps = knobs.get("DYN_AUTOTUNE_PAGES_PER_STEP")
+        tb = int(knob_tb or (tuned or {}).get("tb_tokens") or tb_default)
+        if tb != tb_default and any(b % tb for b in self.buckets):
+            logger.warning("kernel tb_tokens=%d does not divide unified buckets %s; "
+                           "using heuristic default %d", tb, self.buckets, tb_default)
+            tb = tb_default
+        max_tb = self.family.unified_max_tb(cfg) if self.family.unified_max_tb else None
+        if tb != tb_default and max_tb is not None and tb > max_tb:
+            logger.warning("kernel tb_tokens=%d is refused by the %s family's unified "
+                           "kernel (at most %d); using heuristic default %d",
+                           tb, config.model_family, max_tb, tb_default)
+            tb = tb_default
+        tuned_fits = tuned is not None and int(tuned["tb_tokens"]) == tb
+        pps = int(knob_pps or ((tuned or {}).get("pages_per_step") if tuned_fits else 0) or 1)
+        ps_full = tb * self.max_blocks_per_seq
+        pps = max(1, min(pps, ps_full))
+        ps = int(knob_ps or ((tuned or {}).get("page_slots") if tuned_fits else 0) or ps_full)
+        # the kernel's contract: page_slots is a positive multiple of
+        # pages_per_step, the full width too
+        ps = -(-max(pps, min(ps, ps_full)) // pps) * pps
+        self._unified_tb = tb
+        self._unified_ps = ps
+        self._unified_pps = pps
+        self._unified_ps_full = -(-ps_full // pps) * pps
+        self._unified_ps_overflows = 0  # windows repacked at the full width
+        if knob_tb or knob_ps or knob_pps:
+            source = "knob"
+        elif tuned_fits:
+            source = "tuned"
+        else:
+            source = "default"
+        self._kernel_config = {"tb_tokens": tb, "page_slots": ps, "pages_per_step": pps,
+                               "source": source, "geometry": self._kernel_geometry}
+        if source != "default":
+            logger.info("unified kernel config (%s): tb_tokens=%d page_slots=%d "
+                        "pages_per_step=%d", source, tb, ps, pps)
+
+    def _resolve_tuned_kernel_config(self, cfg) -> dict | None:
+        """The autotuned ragged-kernel row for this engine's (geometry,
+        device kind, cache dtype) in the port's kernel-perf table
+        (``ops/autotune.table_path``), or None.  Advisory, as the
+        reference's: anything malformed degrades to None (the defaults),
+        never to a startup crash, and ``DYN_AUTOTUNE=0`` skips the lookup.
+        A table whose header says another platform than ``gpu``, or that it
+        was recorded in interpret mode, is refused, loudly where
+        ``DYN_KERNEL_PERF`` named it (an ignored explicit table must not
+        look like tuning at work)."""
+        self._kernel_geometry = None
+        if knobs.get("DYN_AUTOTUNE") is False:
+            return None
+        try:
+            from dynamo_tpu_torch.ops import autotune
+
+            heads = int(getattr(cfg, "num_heads", 0) or 1)
+            geom = autotune.Geometry(
+                num_heads=heads,
+                num_kv_heads=int(getattr(cfg, "num_kv_heads", 0) or heads),
+                head_dim=int(getattr(cfg, "head_dim", 0) or getattr(cfg, "kv_lora_rank", 0)
+                             or 128),
+                block_size=self.config.block_size,
+                lanes=self.config.max_batch_size,
+                max_blocks_per_seq=self.max_blocks_per_seq,
+            )
+            self._kernel_geometry = geom.key
+            table = autotune.load_table(autotune.table_path())
+            refused = None
+            if table.get("interpret"):
+                refused = "recorded in interpret mode"
+            elif table.get("platform", "gpu") != "gpu":
+                refused = f"platform {table.get('platform')!r} is not gpu"
+            if refused is not None:
+                explicit = knobs.get("DYN_KERNEL_PERF")
+                if explicit:
+                    logger.warning("DYN_KERNEL_PERF=%s ignored (%s); using the "
+                                   "heuristic kernel layout", explicit, refused)
+                return None
+            return autotune.resolve(
+                table, geometry_key=geom.key, device_kind=autotune.device_kind(self.device),
+                dtype=str(self.kv_cache_dtype).removeprefix("torch."),
+            )
+        except Exception as err:  # noqa: BLE001
+            logger.warning("autotune table resolution failed: %s", err)
+            return None
 
     def _unified_skip(self, reason: str, detail: str | None = None) -> None:
         """Count a fallback from the unified step under a reason slug, and
@@ -1732,14 +1842,26 @@ class TorchLlmEngine:
             cursor += span
 
         self._decode_tables(decodes + [s for s, _, _ in spans])
-        page_phys, page_lane, page_ord, page_count = pack_page_meta(
-            token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
-            page_slots=self._unified.page_slots,
-            sliding_window=getattr(self.config.model, "sliding_window", None),
-        )
+        ug = self._unified
+        sw = getattr(self.config.model, "sliding_window", None)
+        full = False
+        try:
+            page_phys, page_lane, page_ord, page_count = pack_page_meta(
+                token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
+                page_slots=ug.page_slots, sliding_window=sw)
+        except ValueError:
+            if ug.full_slots <= ug.page_slots:
+                raise
+            # a tuned width too tight for this window's worklist: repack at
+            # the full width (the bucket's one extra graph) instead of
+            # failing the window
+            self._unified_ps_overflows += 1
+            full = True
+            page_phys, page_lane, page_ord, page_count = pack_page_meta(
+                token_lane, token_pos, self._bt_host, tb_tokens=tb, block_size=bs,
+                page_slots=ug.full_slots, sliding_window=sw)
         # a family whose kernel balances its walk by a host plan makes it
         # here, once a step, for every layer
-        ug = self._unified
         plan = ug.planner.plan(page_count) if ug.planner else None
         self._device_sampling_tail(emit_seqs)
         noise = any(self._sampled(s) for s in emit_seqs)
@@ -1752,13 +1874,14 @@ class TorchLlmEngine:
             "context_lens": context_lens, "sample_rows": sample_rows,
             "sample_gate": sample_gate, "page_count": page_count, "page_phys": page_phys,
             "page_lane": page_lane, "page_ord": page_ord,
-        }, plan, seeds)
+        }, plan, seeds, full=full)
         if timing:
             t = self._phase("decode.upload", t)
         # a window with a top_logprobs lane runs the step eagerly for its
         # K-wide rows; any other is its bucket's graph replay
         with profiling.annotate("unified_window"):
-            top = ug.step(bucket, noise, top=want) if want else ug.run(bucket, noise)
+            wide = {"full": True} if full else {}
+            top = ug.step(bucket, noise, top=want, **wide) if want else ug.run(bucket, noise, **wide)
         tokens, lps = ug.out_tokens, ug.out_lps
         if timing:
             t = self._phase("decode.dispatch", t)

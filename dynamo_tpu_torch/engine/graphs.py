@@ -420,12 +420,19 @@ class UnifiedGraph(StepGraphs):
     / ``use_fb`` / ``token_pos`` / ``token_slot`` / ``token_lane``), the
     lane arrays (``context_lens`` / ``sample_rows`` / ``sample_gate``), the
     ``seed_slots`` lanes whose penalty counts a newly admitted prefill
-    re-seeds (out of range: none), the page worklist at the fixed width
-    ``page_slots = tb x max_blocks_per_seq`` (``page_phys`` / ``page_lane``
-    / ``page_ord`` / ``page_count``) and, where the family's kernel takes
-    one, the work plan at its fixed capacity (``plan``).  They live in one
-    ``Staged`` buffer laid out per bucket (a window copies its bucket's
-    bytes), the seed rows in another (copied only in a window that seeds).
+    re-seeds (out of range: none), the page worklist at the engine's fixed
+    width ``page_slots`` (``page_phys`` / ``page_lane`` / ``page_ord`` /
+    ``page_count``; ``tb x max_blocks_per_seq`` by default, a tuned width
+    from the kernel-perf table where one resolved) and, where the family's
+    kernel takes one, the work plan at its fixed capacity (``plan``).  They
+    live in one ``Staged`` buffer laid out per bucket (a window copies its
+    bucket's bytes), the seed rows in another (copied only in a window that
+    seeds).  Below a tuned width a bucket also has a full-width layout
+    (variant ``("full", bucket)``, worklist ``full_slots`` wide): a window
+    whose worklist outgrows the tuned width is repacked at the full width
+    and replays that layout's graph, captured at its first use (one graph
+    a bucket: it always draws the noise, which greedy lanes ignore), as the
+    reference compiles at most one extra program a bucket.
     The block tables, the sampling tail and the feedback are
     ``DecodeGraph``'s.  Tokens and logprobs go to persistent ``out_tokens``
     / ``out_lps``: the overlapped pipeline reads them back a window later.
@@ -449,14 +456,16 @@ class UnifiedGraph(StepGraphs):
         dev = self.device
         self.tb = tb = engine._unified_tb
         self.lanes = lanes = cfg.max_batch_size
-        self.page_slots = ps = tb * engine.max_blocks_per_seq
+        self.page_slots = engine._unified_ps
+        self.full_slots = engine._unified_ps_full
+        self.pps = engine._unified_pps
         self.seed_slots = seed_slots
         self.buckets = sorted(buckets)
         self.planner = planner
         vocab = cfg.model.vocab_size
         self.caps = {b: planner.caps(b // tb) for b in self.buckets} if planner else {}
 
-        def fields(b: int) -> dict:
+        def fields(b: int, ps: int) -> dict:
             ntb = b // tb
             out = {
                 "token_ids": ((b,), np.int32),
@@ -477,7 +486,11 @@ class UnifiedGraph(StepGraphs):
                 out["plan"] = ((self.caps[b].rows, 4), np.int32)
             return out
 
-        self.inputs = Staged(dev, variants={b: fields(b) for b in self.buckets})
+        variants = {b: fields(b, self.page_slots) for b in self.buckets}
+        if self.full_slots > self.page_slots:
+            variants.update({("full", b): fields(b, self.full_slots) for b in self.buckets})
+        self.inputs = Staged(dev, variants=variants)
+        self.full_captures = 0  # full-width graphs captured (at first use)
         self.seeds = Staged(dev, {"prompt": ((seed_slots, vocab), np.int32),
                                   "gen": ((seed_slots, vocab), np.int32)})
         self.out_tokens = torch.zeros((lanes,), dtype=torch.int32, device=dev)
@@ -493,7 +506,10 @@ class UnifiedGraph(StepGraphs):
             self.scratch = torch.empty((most,), dtype=torch.float32, device=dev)
             for b in self.buckets:
                 ntb, caps = b // tb, self.caps[b]
-                self.work[b] = DeviceWork(ntb, caps, self.inputs.view(b)["plan"], self.scratch)
+                for key in (b, ("full", b)):
+                    if key in variants:
+                        self.work[key] = DeviceWork(ntb, caps, self.inputs.view(key)["plan"],
+                                                    self.scratch)
                 idle = planner.plan(np.zeros((ntb,), np.int32)).pack(caps)
                 self._idle_work[b] = DeviceWork(ntb, caps, torch.from_numpy(idle).to(dev),
                                                 self.scratch)
@@ -510,12 +526,13 @@ class UnifiedGraph(StepGraphs):
 
     # -- inputs ------------------------------------------------------------
     def upload(self, bucket: int, arrays: dict[str, np.ndarray], plan=None,
-               seeds: list[tuple[int, np.ndarray, np.ndarray]] = ()) -> None:
-        """Write a window's host arrays into ``bucket``'s buffers in place:
-        the token axis, lane and worklist arrays (``arrays``), ``plan``
-        packed at the bucket's capacity (it refuses one that does not
-        fit), and each seed (lane, prompt counts, generated counts) into a
-        seed slot (the rest out of range)."""
+               seeds: list[tuple[int, np.ndarray, np.ndarray]] = (), full: bool = False) -> None:
+        """Write a window's host arrays into ``bucket``'s buffers in place
+        (``full``: its full-width layout): the token axis, lane and
+        worklist arrays (``arrays``), ``plan`` packed at the bucket's
+        capacity (it refuses one that does not fit), and each seed (lane,
+        prompt counts, generated counts) into a seed slot (the rest out of
+        range)."""
         if len(seeds) > self.seed_slots:
             raise ValueError(f"{len(seeds)} seeds for {self.seed_slots} seed slots")
         arrays = dict(arrays)
@@ -527,7 +544,7 @@ class UnifiedGraph(StepGraphs):
             arrays["plan"] = plan.pack(self.caps[bucket])
         elif plan is not None:
             raise ValueError("a work plan for a kernel that takes none")
-        self.inputs.upload(arrays, bucket)
+        self.inputs.upload(arrays, ("full", bucket) if full else bucket)
         if seeds:
             vocab = self.seeds["prompt"].shape[1]
             prompt = np.zeros((self.seed_slots, vocab), np.int32)
@@ -537,7 +554,8 @@ class UnifiedGraph(StepGraphs):
             self.seeds.upload({"prompt": prompt, "gen": gen})
 
     # -- the window --------------------------------------------------------
-    def step(self, bucket: int, noise: bool, top: int = 0, idle: bool = False):
+    def step(self, bucket: int, noise: bool, top: int = 0, idle: bool = False,
+             full: bool = False):
         """One unified window of ``bucket`` tokens, eagerly, from the
         buffers: decode lanes marked ``use_fb`` take their input token from
         the feedback, the seeded lanes' penalty counts are rewritten before
@@ -545,11 +563,12 @@ class UnifiedGraph(StepGraphs):
         of the generated counts, and the emitting lanes' tokens become the
         feedback.  ``idle``: every token a pad, no lane sampled or seeded
         (a capture's warm-up: it changes no cache slot, count or
-        feedback).  Returns the ``top`` best logprobs ([lanes, k] values
-        and ids) or None."""
+        feedback).  ``full``: from the bucket's full-width layout.  Returns
+        the ``top`` best logprobs ([lanes, k] values and ids) or None."""
         e, d = self.engine, self.decode
-        v = self.inputs.view(bucket)
-        work = self.work.get(bucket)
+        key = ("full", bucket) if full else bucket
+        v = self.inputs.view(key)
+        work = self.work.get(key)
         if idle:
             ntb = bucket // self.tb
             v = dict(v, page_count=self._idle["page_count"][:ntb],
@@ -565,7 +584,7 @@ class UnifiedGraph(StepGraphs):
             e.params, e.config.model, token_ids, e.cache, d.tables["tables"],
             v["context_lens"], v["token_pos"], v["token_slot"], token_lane,
             v["page_phys"], v["page_lane"], v["page_ord"], v["page_count"],
-            v["sample_rows"], e.cos, e.sin, tb_tokens=self.tb, **kw,
+            v["sample_rows"], e.cos, e.sin, tb_tokens=self.tb, pages_per_step=self.pps, **kw,
         )  # [lanes, vocab]
         seeds = self.seeds.views
         for i in range(self.seed_slots):
@@ -579,12 +598,22 @@ class UnifiedGraph(StepGraphs):
         self.out_lps.copy_(lps)
         return best
 
-    def run(self, bucket: int, noise: bool) -> None:
+    def run(self, bucket: int, noise: bool, full: bool = False) -> None:
         """The window on this window's inputs: a graph replay on a CUDA
         device (captured at first use), the eager step on the CPU.  The
-        results are in ``out_tokens`` / ``out_lps``."""
+        results are in ``out_tokens`` / ``out_lps``.  ``full``: the
+        bucket's full-width layout, whose one graph draws the noise."""
         if self.eager:
-            self.step(bucket, noise)
+            self.step(bucket, noise, full=full)
+            return
+        if full:
+            key = ("full", bucket)
+            if key not in self._graphs:
+                self.full_captures += 1
+                self._capture(key, lambda: self.step(bucket, True, idle=True, full=True),
+                              lambda: self.step(bucket, True, full=True))
+            self._launch(key)
+            self.replays += 1
             return
         self._replay((bucket, noise), *self._steps(bucket, noise))
 
@@ -634,10 +663,13 @@ class UnifiedGraph(StepGraphs):
     def _steps(self, bucket: int, noise: bool):
         return (lambda: self.step(bucket, noise, idle=True)), (lambda: self.step(bucket, noise))
 
+    def stats(self) -> dict:
+        return {**super().stats(), "unified_full_width_graphs_captured": self.full_captures}
+
     def _capture(self, key, idle, live) -> None:
         before = self.capture_ms
         super()._capture(key, idle, live)
-        bucket = key[0]
+        bucket = key[1] if key[0] == "full" else key[0]
         self.bucket_capture_ms[bucket] = (self.bucket_capture_ms.get(bucket, 0.0)
                                           + self.capture_ms - before)
 

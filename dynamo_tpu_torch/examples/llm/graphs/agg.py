@@ -1,0 +1,15 @@
+"""Aggregated serving: Frontend → Processor → N workers, round-robin
+(reference: examples/llm/graphs/agg.py)."""
+
+from __future__ import annotations
+
+from dynamo_tpu_torch.runtime.client import RouterMode
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+from dynamo_tpu_torch.examples.llm.common import GraphHandle, LlmGraphConfig, launch_frontend, launch_workers
+
+
+async def launch(rt: DistributedRuntime, cfg: LlmGraphConfig) -> GraphHandle:
+    workers = await launch_workers(rt, cfg)
+    frontend, watcher = await launch_frontend(rt, cfg, RouterMode.ROUND_ROBIN)
+    return GraphHandle(frontend=frontend, watcher=watcher, workers=workers)

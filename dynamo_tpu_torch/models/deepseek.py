@@ -746,6 +746,12 @@ def unified_planner(cfg: DeepseekConfig, *, block_size: int, tb_tokens: int,
                                      cfg.kv_lora_rank)
 
 
+def unified_max_tb(cfg: DeepseekConfig) -> int:
+    """The largest token block the ragged MLA kernel takes
+    (``MAX_TOKEN_BLOCK``)."""
+    return mla_attention.MAX_TOKEN_BLOCK
+
+
 def deepseek_forward_unified(
     params: dict,
     cfg: DeepseekConfig,

@@ -806,6 +806,12 @@ def unified_planner(cfg: LlamaConfig, *, block_size: int, tb_tokens: int,
                                            cfg.head_dim)
 
 
+def unified_max_tb(cfg: LlamaConfig) -> int:
+    """The largest token block the ragged GQA kernel takes: ``tb x H/KVH``
+    query rows a kv head, at most ``MAX_ROWS``."""
+    return ragged_attention.MAX_ROWS // max(1, cfg.num_heads // cfg.num_kv_heads)
+
+
 def llama_forward_unified(
     params: dict,
     cfg: LlamaConfig,

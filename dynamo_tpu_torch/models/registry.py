@@ -67,6 +67,9 @@ class ModelFamily:
     # ``plan``, ``caps(num_tb)`` the fixed capacity of a token bucket's
     # plans), or None where its kernel takes no plan
     unified_planner: Callable | None = None
+    # (cfg) -> the largest tb_tokens the unified step's kernel takes (a
+    # tuned or forced token-block size above it falls back to the default)
+    unified_max_tb: Callable | None = None
     # parameter names (dict keys anywhere in the tree) that the engine's
     # quantize="int8" stores as int8 QuantizedMatrix weights
     quant_leaves: tuple[str, ...] = ()
@@ -173,6 +176,7 @@ def _llama_like_family(name: str, config_tweak=None, *, config_from_hf=None,
         forward_verify=llama.llama_forward_verify,
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
+        unified_max_tb=llama.unified_max_tb,
         quant_leaves=llama.QUANT_LEAVES,
         forward_prefill_embeds=llama.llama_forward_prefill_embeds,
         embed=llama._embed,
@@ -223,6 +227,7 @@ def _moe_family(name: str) -> ModelFamily:
         forward_verify=mixtral.mixtral_forward_verify,
         check_verify_width=llama.check_verify_width,
         unified_planner=llama.unified_planner,
+        unified_max_tb=llama.unified_max_tb,
         quant_leaves=llama.QUANT_LEAVES,
         param_specs=mixtral.param_specs,
         decode_accepts_tp_mesh=True,
@@ -298,6 +303,7 @@ def _deepseek_family() -> ModelFamily:
         forward_prefill_with_prefix=deepseek.deepseek_forward_prefill_with_prefix,
         forward_verify=deepseek.deepseek_forward_verify,
         unified_planner=deepseek.unified_planner,
+        unified_max_tb=deepseek.unified_max_tb,
         quant_leaves=deepseek.QUANT_LEAVES,
         param_specs=deepseek.param_specs,
         kv_cache_specs=deepseek.kv_cache_specs,

@@ -288,3 +288,55 @@ K_MESH_TIMEOUT_S = register(
     doc="seconds a mesh collective waits before it raises: a dead or hung "
         "rank ends the others' wait (an idle engine pings its shard workers "
         "every quarter of it)")
+
+# -- the ragged kernel's autotuned layout (ops/autotune.py, engine/engine.py) --
+K_KERNEL_PERF = register(
+    "DYN_KERNEL_PERF", type="str", default=None,
+    doc="explicit path to the port's kernel-perf table (default: "
+        "`dynamo_tpu_torch/KERNEL_PERF_CUDA.json`, absent until a tuning run "
+        "writes it; never the repo-root TPU table)")
+K_AUTOTUNE = register(
+    "DYN_AUTOTUNE", type="bool", default=True,
+    doc="consult the kernel-perf table's autotune rows for the ragged "
+        "kernel's layout at engine init; `0` keeps the heuristic defaults")
+K_AUTOTUNE_TB = register(
+    "DYN_AUTOTUNE_TB", type="int", default=None,
+    doc="force the ragged kernel's token-block size (overrides tuned rows; "
+        "must divide every serving bucket or it falls back with a warning)")
+K_AUTOTUNE_PAGE_SLOTS = register(
+    "DYN_AUTOTUNE_PAGE_SLOTS", type="int", default=None,
+    doc="force the packed page-worklist width (overflowing windows repack "
+        "at the full width and count in "
+        "`stats()[\"unified_ps_overflows_total\"]`)")
+K_AUTOTUNE_PAGES_PER_STEP = register(
+    "DYN_AUTOTUNE_PAGES_PER_STEP", type="int", default=None,
+    doc="force KV pages fetched per ragged grid step (must divide "
+        "page_slots; the port's kernels accept it and ignore it)")
+
+# -- perf regression gate (bench/perfgate.py) ---------------------------------
+K_PERFGATE_BASELINE = register(
+    "DYN_PERFGATE_BASELINE", type="str", default=None,
+    doc="explicit baseline path for `python -m dynamo_tpu_torch.bench.perfgate` "
+        "(default: `PERF_BASELINE_CUDA.json` beside the artifacts)")
+K_PERFGATE_GIT_DESCRIBE = register(
+    "DYN_PERFGATE_GIT_DESCRIBE", type="str", default=None,
+    doc="git describe string CI stamps into artifact provenance headers")
+K_PERFGATE_HOST_CLASS = register(
+    "DYN_PERFGATE_HOST_CLASS", type="str", default=None,
+    doc="host-class label stamped into artifact provenance (default: the "
+        "card's name, `cpu` without one)")
+
+# -- the SDK's supervisor and GPU allocator (sdk/) -----------------------------
+K_GPU_COUNT = register(
+    "DYN_GPU_COUNT", type="int", default=None,
+    doc="explicit GPU inventory for the SDK allocator (overrides detection)")
+K_GPUS = register(
+    "DYN_GPUS", type="str", default=None,
+    doc="comma-separated GPU indices handed to one replica (written by the "
+        "allocator into child environments)")
+K_REPLICA_INDEX = register(
+    "DYN_REPLICA_INDEX", type="int", default=None,
+    doc="replica ordinal the SDK supervisor assigns to each child process")
+K_DISABLE_AUTO_GPU_ALLOCATION = register(
+    "DYN_DISABLE_AUTO_GPU_ALLOCATION", type="bool", default=False,
+    doc="opt a deployment out of automatic per-replica GPU partitioning")

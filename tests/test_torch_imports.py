@@ -119,7 +119,22 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.engine.embedding", "dynamo_tpu_torch.llm.gguf",
             "dynamo_tpu_torch.examples.multimodal.pipeline",
             "dynamo_tpu_torch.examples.multimodal.components",
-            "dynamo_tpu_torch.examples.embeddings.serve_embeddings"} <= names
+            "dynamo_tpu_torch.examples.embeddings.serve_embeddings",
+            # the kernel autotuner, the SDK and its GPU allocator, the
+            # planner, the KV recorder, the perf gate and the LLM examples
+            "dynamo_tpu_torch.ops.autotune", "dynamo_tpu_torch.sdk",
+            "dynamo_tpu_torch.sdk.allocator", "dynamo_tpu_torch.sdk.graph",
+            "dynamo_tpu_torch.sdk.runner", "dynamo_tpu_torch.sdk.supervisor",
+            "dynamo_tpu_torch.planner.planner", "dynamo_tpu_torch.planner.connectors",
+            "dynamo_tpu_torch.planner.defrag", "dynamo_tpu_torch.planner.load_predictor",
+            "dynamo_tpu_torch.llm.kv_router.recorder", "dynamo_tpu_torch.bench.perfgate",
+            "dynamo_tpu_torch.examples.hello_world.hello_world",
+            "dynamo_tpu_torch.examples.llm.common", "dynamo_tpu_torch.examples.llm.launch",
+            "dynamo_tpu_torch.examples.llm.disagg_router_serve",
+            "dynamo_tpu_torch.examples.llm.graphs.agg",
+            "dynamo_tpu_torch.examples.llm.graphs.agg_router",
+            "dynamo_tpu_torch.examples.llm.graphs.disagg",
+            "dynamo_tpu_torch.examples.llm.graphs.disagg_router"} <= names
     assert bad == "[]"
 
 
