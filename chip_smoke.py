@@ -69,10 +69,10 @@ Phases (any failure exits non-zero, before the result line):
                and of each worker read by NativeFrameDecoder, none by the
                Python codec).
   6. fleet   — the routed-fleet bench: the headline's kv_routing rung (a
-               mocker fleet, 24 sessions x 4 turns, the median of three
+               mocker fleet, 12 sessions x 4 turns, the median of three
                kv/random repeats), then ``routed_fleet.compare_policies``
-               on two TorchLlmEngine workers at the Llama-3-8B geometry in
-               this process, on one card (one set of random weights from a
+               on two TorchLlmEngine workers at the Llama-3-8B geometry
+               (full width, 8 of its 32 layers) in this process, on one card (one set of random weights from a
                seed, each engine warmed before its replay), 8 sessions x 3
                turns of ``generate_sessions`` in real time under random and
                KV routing: TTFT p50 / p99, follow-up TTFT, prefix hits,
@@ -317,6 +317,14 @@ Phases (any failure exits non-zero, before the result line):
                scaled 1 -> 2 -> 1 by the planner under a burst of eight
                request streams, then phase bench's lines through the perf
                gate (``phase_plane``).  One ``smoke_plane`` line.
+ 25. soak    — the scenario soak on TorchLlmEngine workers: the shipped
+               ``torch_soak`` spec (two decode workers under KV routing at
+               phase plane's geometry) and worker_kill's kill_mid_stream on
+               the same fleet, through ``run_scenario``: no request fails,
+               every stream has its tokens, the kill resumes on the peer,
+               dyn_top sees two workers then one, check_metrics finds every
+               worker family, rows 1-2 launch, the card's memory returns
+               after teardown (``phase_soak``).  One ``smoke_soak`` line.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -355,7 +363,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm", "tp", "pp", "meshfeat", "autotune", "plane")
+          "mm", "tp", "pp", "meshfeat", "autotune", "plane", "soak")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -2749,6 +2757,12 @@ def phase_dist(card: str, config: dict = LLAMA3_8B, device: str = "cuda") -> dic
 # one card
 FLEET_SESSIONS = dict(num_sessions=8, turns_per_session=3, seed=0)
 FLEET_WORKERS = 2
+# the torch fleet's model on the card: Llama-3-8B's width at 8 of its 32
+# layers (cut for time in PR 24, to pay for phase soak)
+FLEET_CONFIG = dict(LLAMA3_8B, num_hidden_layers=8)
+# the kv_routing rung's traffic on the card: 12 sessions x 4 turns (the
+# headline's default, 24, cut for time in PR 24)
+FLEET_RUNG_SESSIONS = dict(num_sessions=12, turns_per_session=4)
 
 
 async def fleet_async(card: str, device: str, model_config, sessions: dict,
@@ -2764,7 +2778,8 @@ async def fleet_async(card: str, device: str, model_config, sessions: dict,
     out: dict = {"card": card}
     # (a) the headline's KV routing rung: four mockers, no device work
     t0 = time.perf_counter()
-    out["kv_routing_rung"] = await headline.measure_kv_routing(*(rung or ()))
+    rung = rung or (SessionConfig(**FLEET_RUNG_SESSIONS),)
+    out["kv_routing_rung"] = await headline.measure_kv_routing(*rung)
     out["kv_routing_rung_s"] = time.perf_counter() - t0
     log(f"[fleet] kv_routing rung (mocker fleet): {out['kv_routing_rung']}")
     r = out["kv_routing_rung"]
@@ -2776,7 +2791,8 @@ async def fleet_async(card: str, device: str, model_config, sessions: dict,
     longest = (scfg.system_tokens
                + scfg.turns_per_session * (scfg.user_tokens_per_turn + scfg.osl) + 32)
     dev = torch.device(device)
-    mcfg = model_config or (LlamaConfig.llama3_8b() if on_card else LlamaConfig.tiny())
+    mcfg = model_config or (LlamaConfig.from_hf_config(FLEET_CONFIG) if on_card
+                            else LlamaConfig.tiny())
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_params(mcfg, gen, device=dev)
@@ -2856,14 +2872,15 @@ async def fleet_async(card: str, device: str, model_config, sessions: dict,
 def phase_fleet(card: str, device: str = "cuda", model_config=None,
                 sessions: dict = FLEET_SESSIONS, engine_kw: dict | None = None,
                 rung=None) -> dict:
-    """(a) the headline's kv_routing rung (a mocker fleet, 24 sessions x 4
-    turns, the median of three kv/random repeats); (b) ``routed_fleet.
+    """(a) the headline's kv_routing rung (a mocker fleet, 12 sessions x 4
+    turns: ``FLEET_RUNG_SESSIONS``, the median of three kv/random repeats); (b) ``routed_fleet.
     compare_policies`` on two TorchLlmEngine workers at the Llama-3-8B
-    geometry in this process (one set of random weights on the card, each
-    engine warmed), 8 sessions x 3 turns: TTFT, follow-up TTFT and prefix
-    hits under both policies, every turn complete, rows 1-2 launched, each
-    engine's idle share.  ``device`` "cpu" (the tiny config; ``rung`` a
-    smaller session and fleet config for the mocker rung) rehearses it."""
+    geometry (full width, 8 layers: ``FLEET_CONFIG``) in this process (one
+    set of random weights on the card, each engine warmed), 8 sessions x 3
+    turns: TTFT, follow-up TTFT and prefix hits under both policies, every
+    turn complete, rows 1-2 launched, each engine's idle share.  ``device``
+    "cpu" (the tiny config; ``rung`` a smaller session and fleet config for
+    the mocker rung) rehearses it."""
     out = asyncio.run(fleet_async(card, device, model_config, sessions, engine_kw or {}, rung))
     print(json.dumps({"smoke_fleet": out}, default=str), flush=True)
     return out
@@ -8272,6 +8289,263 @@ def phase_plane(torch, card: str, device: str = "cuda", **kw) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase soak: the scenario soak on TorchLlmEngine workers
+# ---------------------------------------------------------------------------
+
+SOAK_CONFIG = PLANE_CONFIG   # Llama-3-8B's width, 4 layers, random weights from seed 0
+# worker_kill.json's kill_mid_stream at speedup 1, cut to 10 s with its kill at 3 s
+SOAK_KILL = dict(duration_s=10.0, kill_at_s=3.0)
+SOAK_MEMORY_SLACK = 64 * 2**20   # bytes the card may keep after the fleet's teardown
+# the metrics service forgets a worker whose load metrics are older than this
+# (4 of the spec's 0.5 s publish periods; its default, 10 s, would still list
+# the killed worker at the kill phase's mid-phase dyn_top snapshot)
+SOAK_METRICS_TTL_S = 2.0
+# the kill waits (at most SOAK_KILL_WAIT_S past its time) for the worker it
+# takes out to hold a stream that has streamed for SOAK_MID_STREAM_S, so that
+# it lands mid-stream on any host: at 2 req/s each worker is idle most of the
+# time, and a kill of an idle worker resumes nothing
+SOAK_KILL_WAIT_S = 3.0
+SOAK_MID_STREAM_S = 0.08
+# the phase's settings: its flight dumps in the build directory, and a 5 s
+# connect-back timeout (30 s by default), so that a request the router sent
+# to the killed worker before it saw the instance go (its envelope finds no
+# subscriber) fails over within the phase's 20 s drain instead of outlasting it
+SOAK_ENV = {"DYN_FLIGHT_DIR": str(ROOT / "dynamo_tpu_torch" / "_build" / "flight"),
+            "DYN_CONNECT_TIMEOUT_S": "5.0"}
+
+
+def soak_spec():
+    """The shipped ``torch_soak`` spec with worker_kill's ``kill_mid_stream``
+    appended (the smoke's own copy; the shipped files stay as they are)."""
+    from dynamo_tpu_torch.scenarios.spec import ScenarioSpec, builtin_spec_path
+
+    spec = ScenarioSpec.load(builtin_spec_path("torch_soak"))
+    kill = ScenarioSpec.load(builtin_spec_path("worker_kill")).phases[0]
+    if kill.name != "kill_mid_stream" or kill.worker_kills[0].mode != "kill":
+        raise AssertionError(f"worker_kill.json's first phase is not kill_mid_stream: {kill}")
+    kill.duration_s = SOAK_KILL["duration_s"]
+    kill.worker_kills[0].at_s = SOAK_KILL["kill_at_s"]
+    kill.assertions.max_failed = 0
+    spec.phases.append(kill)
+    return spec.validate()
+
+
+async def soak_async(torch, card: str, device: str, model_config) -> dict:
+    import weakref
+
+    from dynamo_tpu_torch.engine import TorchLlmEngine
+    from dynamo_tpu_torch.robustness import counters
+    from dynamo_tpu_torch.robustness.faults import FAULTS
+    from dynamo_tpu_torch.scenarios import fleet as soak_fleet
+    from dynamo_tpu_torch.scenarios.runner import run_scenario
+    from dynamo_tpu_torch.scripts import check_metrics, dyn_top
+
+    on_card = device == "cuda"
+    spec = soak_spec()
+    report: dict = {"card": card, "phases": {}}
+    counters.reset()
+    FAULTS.reset()
+    # the launch counters are zeroed after each worker's warmup (every graph
+    # is captured before traffic); the fleet's metrics surface and its
+    # workers' stats are read just before its teardown
+    marks, seen, engines = {}, {}, []
+    real_warmup = TorchLlmEngine.warmup
+    real_start, real_stop = soak_fleet.SoakFleet.start, soak_fleet.SoakFleet.stop
+    real_kill = soak_fleet.SoakFleet.kill_worker
+
+    async def warmup(self, *args, **kwargs):
+        await real_warmup(self, *args, **kwargs)
+        zero_counters()
+        marks["launches"] = self.stats()["kernel_launches"]
+        engines.append(weakref.ref(self))
+
+    async def start(self):
+        await real_start(self)
+        self.metrics_service.aggregator.ttl_s = SOAK_METRICS_TTL_S
+
+    async def kill_worker(self, pool: str, *, mode: str = "kill"):
+        workers = self._pools.get(pool) or []
+        t_wait = time.perf_counter()
+        while workers and time.perf_counter() - t_wait < SOAK_KILL_WAIT_S:
+            if workers[0].service._in_flight:  # the oldest, whom kill_worker takes out
+                await asyncio.sleep(SOAK_MID_STREAM_S)
+                if workers[0].service._in_flight:
+                    break
+            else:
+                await asyncio.sleep(0.005)
+        seen["kill_wait_s"] = time.perf_counter() - t_wait
+        if workers:
+            seen["killed_stats"] = [workers[0].engine.stats()]
+        return await real_kill(self, pool, mode=mode)
+
+    async def stop(self):
+        url = f"{self.worker_url}/metrics"
+        seen["missing"], seen["duplicated"] = await asyncio.to_thread(
+            check_metrics.check_url, url, check_metrics.WORKER_FAMILIES)
+        seen["top"] = await asyncio.to_thread(dyn_top.collect_snapshot, self.frontend_url,
+                                              self.worker_url, 3.0)
+        live = [w.engine for ws in self._pools.values() for w in ws]
+        seen["stats"] = [e.stats() for e in live]
+        del live
+        await real_stop(self)
+
+    def allocated_mb() -> float:
+        # cuBLAS keeps a workspace for each stream it has run on (each
+        # worker's engine thread one) until told to clear them: process
+        # state, not a worker's cache or graphs
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated() / 2**20
+
+    if on_card:
+        gc.collect()
+        report["memory_before_mb"] = allocated_mb()
+    TorchLlmEngine.warmup = warmup
+    soak_fleet.SoakFleet.start, soak_fleet.SoakFleet.stop = start, stop
+    soak_fleet.SoakFleet.kill_worker = kill_worker
+    t0 = time.perf_counter()
+    try:
+        artifact = await run_scenario(spec, name="chip-smoke-soak", fleet_options={
+            "device": device, "model_config": model_config})
+    finally:
+        TorchLlmEngine.warmup = real_warmup
+        soak_fleet.SoakFleet.start, soak_fleet.SoakFleet.stop = real_start, real_stop
+        soak_fleet.SoakFleet.kill_worker = real_kill
+    report["soak_s"] = time.perf_counter() - t0
+    await asyncio.sleep(0.2)  # the stopped services' cancelled tasks run to their end
+    gc.collect()
+    report["engines_alive_after_teardown"] = sum(e() is not None for e in engines)
+    if on_card:
+        report["memory_after_with_cublas_workspaces_mb"] = torch.cuda.memory_allocated() / 2**20
+        report["memory_after_mb"] = allocated_mb()
+
+    end = seen["stats"][0]["kernel_launches"]
+    report["launches"] = {k: end[k] - marks["launches"].get(k, 0) for k in end}
+    report["plain_calls"] = sum(v for k, v in report["launches"].items()
+                                if k.endswith("plain_calls"))
+    report["graphs_captured_after_warmup"] = sum(
+        st[f"{k}_graphs_captured_after_warmup"]
+        for st in seen["stats"] + seen.get("killed_stats", [])
+        for k in ("unified", "decode", "prefill", "verify"))
+    report["metrics_missing"], report["metrics_duplicated"] = seen["missing"], seen["duplicated"]
+    report["resumes_succeeded"] = counters.get("dyn_resume_success_total")
+    report["kill_wait_s"] = seen.get("kill_wait_s")
+    report["flight_dumps"] = artifact["flight"]["dumps"]
+    snaps = artifact["dyn_top_snapshots"]
+    # the runner's snapshots (mid-phase) and one at the end, before teardown
+    report["dyn_top_workers"] = {**{s["phase"]: sorted(s["workers"]) for s in snaps},
+                                 "end": sorted(seen["top"]["workers"])}
+    report["fleet_mfu_perc_avg"] = snaps[-1].get("fleet", {}).get("mfu_perc_avg")
+    for phase in artifact["phases"]:
+        report["phases"][phase["name"]] = {
+            "requests": phase["requests"], "outputs": phase["outputs"],
+            "ttft_ms": phase["ttft_sim_ms"], "itl_ms": phase["itl_sim_ms"],
+            "mfu_mean": phase["mfu_mean"], "resumes": phase["resumes"],
+            "worker_kills": phase["worker_kills"], "failures": phase["assertions"]["failures"]}
+    report["passed"] = artifact["passed"]
+    report["wall_s"] = artifact["wall_s"]
+    for name, ph in report["phases"].items():
+        log(f"[soak] {name}: {ph['requests']['completed']}/{ph['requests']['submitted']} "
+            f"completed, {ph['requests']['failed']} failed; TTFT p50 / p99 "
+            f"{ph['ttft_ms']['p50']} / {ph['ttft_ms']['p99']} ms, ITL p50 / p99 "
+            f"{ph['itl_ms']['p50']} / {ph['itl_ms']['p99']} ms")
+    log(f"[soak] fleet MFU (last dyn_top snapshot) {report['fleet_mfu_perc_avg']}; resumes "
+        f"{report['resumes_succeeded']}; memory {report.get('memory_before_mb')} -> "
+        f"{report.get('memory_after_mb')} MB; launches "
+        f"{ {k: report['launches'][k] for k in LLAMA_PATH} }")
+
+    # the checks
+    if not artifact["passed"]:
+        raise AssertionError(f"phase soak: an assertion failed: {report['phases']}")
+    names = [p.name for p in spec.phases]
+    if list(report["phases"]) != names:
+        raise AssertionError(f"phase soak: phases {list(report['phases'])}, want {names}")
+    for name, ph in report["phases"].items():
+        req, out = ph["requests"], ph["outputs"]
+        if req["failed"] or req["completed"] != req["submitted"] or out["corrupt"] or \
+                out["verified"] != req["completed"]:
+            raise AssertionError(f"phase soak: {name} lost a request or a stream fell short "
+                                 f"of its tokens: {ph}")
+    kill = report["phases"]["kill_mid_stream"]
+    if len(kill["worker_kills"]) != 1 or kill["worker_kills"][0]["worker"] is None:
+        raise AssertionError(f"phase soak: the kill did not happen: {kill['worker_kills']}")
+    if report["resumes_succeeded"] < 1:
+        raise AssertionError("phase soak: no stream resumed on the peer after the kill")
+    if not report["flight_dumps"]:
+        raise AssertionError("phase soak: the soak left no flight dump")
+    workers = report["dyn_top_workers"]
+    killed = kill["worker_kills"][0]["worker"]
+    if len(workers["real_engine_serve"]) != 2 or killed not in workers["real_engine_serve"] \
+            or len(workers["end"]) != 1 or killed in workers["end"]:
+        raise AssertionError(f"phase soak: dyn_top saw {workers}, want 2 workers before the "
+                             f"kill of {killed} and one after")
+    if report["metrics_missing"] or report["metrics_duplicated"]:
+        raise AssertionError(f"phase soak: check_metrics on the fleet's metrics service: "
+                             f"missing {report['metrics_missing']}, duplicated "
+                             f"{report['metrics_duplicated']}")
+    if report["graphs_captured_after_warmup"]:
+        raise AssertionError(f"phase soak: a graph was captured after warmup: {report}")
+    if report["engines_alive_after_teardown"]:
+        raise AssertionError(f"phase soak: {report['engines_alive_after_teardown']} stopped "
+                             f"workers' engines outlived the fleet")
+    if on_card:
+        if any(report["launches"][k] <= 0 for k in LLAMA_PATH) or report["plain_calls"]:
+            raise AssertionError(f"phase soak: rows 1-2 did not launch on the card: "
+                                 f"{report['launches']}")
+        kept = (report["memory_after_mb"] - report["memory_before_mb"]) * 2**20
+        if kept > SOAK_MEMORY_SLACK:
+            raise AssertionError(f"phase soak: the card kept {kept / 2**20:.1f} MB after the "
+                                 f"fleet's teardown (limit {SOAK_MEMORY_SLACK / 2**20:.0f} MB)")
+    return report
+
+
+def phase_soak(torch, card: str, device: str = "cuda", config: dict = SOAK_CONFIG) -> dict:
+    """The scenario soak on TorchLlmEngine workers (``dynamo_tpu_torch.
+    scenarios``): the shipped ``torch_soak`` spec (two decode workers under
+    KV routing, real time, 8 requests at 2 req/s, ISL 32, OSL 8) with
+    worker_kill's ``kill_mid_stream`` appended on the same fleet (constant 2
+    req/s, ISL 64, OSL 48, 10 s, one worker killed abruptly at 3 s, once it
+    has streamed a request for ``SOAK_MID_STREAM_S``), through
+    ``run_scenario`` at ``config`` (phase plane's Llama-3-8B geometry: full
+    width, 4 layers, random weights from seed 0).  Every assertion of both
+    phases holds, every request completes (none fails, none is left to the
+    drain), every stream has its OSL tokens, a
+    stream resumes on the peer, a flight dump is written (under
+    ``dynamo_tpu_torch/_build/flight``; ``SOAK_ENV``), dyn_top's snapshots list two workers
+    before the kill (the first phase's, mid-phase) and one after (at the end,
+    before teardown), the port's check_metrics finds every
+    worker family on the fleet's metrics service (fed by the workers'
+    ``stats()``; its staleness limit ``SOAK_METRICS_TTL_S``), rows 1-2 launch (the process-wide ``kernel_launches`` of
+    ``stats()`` after the workers' warmup and before teardown), no graph is
+    captured after warmup, and after teardown no engine outlives the fleet
+    and ``torch.cuda.memory_allocated()`` is within ``SOAK_MEMORY_SLACK`` of
+    its level before (cuBLAS's per-stream workspaces cleared before each
+    reading; the reading with them is printed too).  Prints each phase's TTFT and ITL p50 / p99, the
+    fleet's MFU from the last dyn_top snapshot, the resumes and the memory
+    before and after.  One ``smoke_soak`` line.  ``device`` "cpu" (with a
+    small ``config``) rehearses it; the card-only checks are skipped there."""
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    model_config = LlamaConfig.from_hf_config(config)
+    if device == "cpu":
+        model_config = dataclasses.replace(model_config, dtype=torch.float32)
+    env0 = {k: os.environ.get(k) for k in SOAK_ENV}
+    os.environ.update(SOAK_ENV)
+    try:
+        report = asyncio.run(soak_async(torch, card, device, model_config))
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(json.dumps({"smoke_soak": report}, default=str), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8301,7 +8575,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
-    mm = tp = pp = meshfeat = None
+    mm = tp = pp = meshfeat = soak = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -8375,6 +8649,8 @@ def main() -> int:
             run("autotune", phase_autotune, torch, card)
         if "plane" in phases:
             run("plane", phase_plane, torch, card)
+        if "soak" in phases:
+            soak = run("soak", phase_soak, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -8387,7 +8663,7 @@ def main() -> int:
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
     if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp,
-                    pp, meshfeat):
+                    pp, meshfeat, soak):
         cases = kinfo["cases"]
         # rows 6-7 at the engine's Llama leaf, and at a tp = 2 rank's shard of it
         for row in ("gather", "scatter"):
@@ -8495,6 +8771,14 @@ def main() -> int:
             ("scatter_blocks (tp=2 cache shard)", "dynamo_tpu_torch/csrc/block_copy.cu",
              "dynamo_tpu/ops/pallas/block_copy.py:56", "scatter_tp2_shard", "scatter_tp2",
              sum(r["block_copy.scatter_launches"] for r in mf_ranks["offload"])),
+            # rows 1-2 in the soak workers' unified and decode graphs (phase soak)
+            ("ragged_paged_attention (soak workers)", "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix", "ragged",
+             soak["launches"]["ragged_attention.launches"]),
+            ("paged_window_attention_decode (soak workers)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged",
+             soak["launches"]["paged_attention.launches"]),
         ):
             c = cases[case]
             entries.append({

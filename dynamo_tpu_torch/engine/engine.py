@@ -700,6 +700,9 @@ class TorchLlmEngine:
         # thread plumbing
         self._profiler_trace_dir: str | None = None
         self._submit_q: thread_queue.Queue = thread_queue.Queue()
+        # the keys of the sequences whose streams have not finished
+        # (``_sequence_id``; added on the event loop, dropped at the final emit)
+        self._live_seq_ids: set[str] = set()
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -1024,7 +1027,7 @@ class TorchLlmEngine:
             raise ValueError(
                 f"prompt length {len(pre.token_ids)} exceeds engine max length {self.max_len}"
             )
-        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre)
+        seq = Sequence(seq_id=self._sequence_id(ctx), request=pre)
         seq.trace = getattr(ctx, "trace", None)
         if pre.output_format is not None:
             seq.guided = self._make_guided_cursor(pre.output_format)
@@ -1053,7 +1056,7 @@ class TorchLlmEngine:
                 f"prompt ({len(pre.token_ids)} text + {len(embeds)} patches) "
                 f"exceeds engine max length {self.max_len}"
             )
-        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre, mm_embeds=embeds)
+        seq = Sequence(seq_id=self._sequence_id(ctx), request=pre, mm_embeds=embeds)
         seq.trace = getattr(ctx, "trace", None)
         if pre.output_format is not None:
             # a guided multimodal request on a deployment that cannot
@@ -1081,6 +1084,19 @@ class TorchLlmEngine:
 
         return from_thread
 
+    def _sequence_id(self, ctx) -> str:
+        """The key of a new sequence: the request's id, or a fresh one where
+        the request has none or a live sequence of this engine holds it.  A
+        stream resumed after its worker died and a migration's pre-admitted
+        copy of the same request can both land on one engine; under one key
+        the first to end would free the other's blocks (the reference keys
+        by ``ctx.id`` alone)."""
+        seq_id = ctx.id
+        if not seq_id or seq_id in self._live_seq_ids:
+            seq_id = uuid.uuid4().hex
+        self._live_seq_ids.add(seq_id)
+        return seq_id
+
     def _start_sequence(self, seq: Sequence, ctx, first=None) -> ResponseStream[dict]:
         """Wire the emit callback, submit to the device thread, watch for
         cancellation.  ``first`` (token, logprob, top logprobs): a token the
@@ -1100,6 +1116,7 @@ class TorchLlmEngine:
             wire = Annotated.from_data(out).to_wire(LLMEngineOutput.to_wire)
             loop.call_soon_threadsafe(out_q.put_nowait, wire)
             if finish is not None:
+                self._live_seq_ids.discard(seq.seq_id)
                 loop.call_soon_threadsafe(out_q.put_nowait, None)
 
         seq.emit = emit
@@ -1199,7 +1216,7 @@ class TorchLlmEngine:
         ctx = request.ctx
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue = asyncio.Queue()
-        seq = Sequence(seq_id=ctx.id or uuid.uuid4().hex, request=pre, remote_prefilled=True)
+        seq = Sequence(seq_id=self._sequence_id(ctx), request=pre, remote_prefilled=True)
         seq.trace = getattr(ctx, "trace", None)
         if pre.output_format is not None:
             # the remote prefill worker sampled first_token: advance a fresh

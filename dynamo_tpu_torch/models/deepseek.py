@@ -72,7 +72,7 @@ QUANT_LEAVES = (
     "ws_gate", "ws_up", "ws_down", "lm_head",
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table, table_positions, yarn_mscale
-from dynamo_tpu_torch.parallel.mesh import all_gather, all_reduce, shard_config
+from dynamo_tpu_torch.parallel.mesh import all_gather, all_reduce, embed_rows, shard_config
 
 
 @dataclass(frozen=True)
@@ -616,7 +616,7 @@ def deepseek_forward_decode(
     over the whole (replicated) latent cache, which every rank writes
     alike; the parameters are this rank's ``shard_params``."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
-    x = params["embed"][token_ids].to(cfg.dtype)
+    x = embed_rows(params["embed"], token_ids).to(cfg.dtype)
     positions = (context_lens - 1).clamp(min=0)
     views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
     rows = slot_rows(slot_ids, kv_cache["k"])  # idle lanes write the dump row
@@ -652,7 +652,7 @@ def deepseek_forward_prefill(
     in ``deepseek_forward_decode``."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = params["embed"][token_ids].to(cfg.dtype)
+    x = embed_rows(params["embed"], token_ids).to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
 
     def attn(w, attn_in, k_layer, v_layer, layer):
@@ -682,7 +682,7 @@ def deepseek_forward_prefill_with_prefix(
     [vocab] f32, cache)."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     s = token_ids.shape[0]
-    x = params["embed"][token_ids].to(cfg.dtype)
+    x = embed_rows(params["embed"], token_ids).to(cfg.dtype)
     positions = table_positions(start_pos + torch.arange(s, device=x.device), cos)
 
     def attn(w, attn_in, k_layer, v_layer, layer):
@@ -716,7 +716,7 @@ def deepseek_forward_verify(
     rank writes alike."""
     full_cfg, cfg = cfg, shard_config(cfg, mesh)
     b, w_len = token_ids.shape
-    x = params["embed"][token_ids.t().reshape(-1)].to(cfg.dtype)  # position-major
+    x = embed_rows(params["embed"], token_ids.t().reshape(-1)).to(cfg.dtype)  # position-major
     positions = table_positions(
         context_lens[:, None] - w_len + torch.arange(w_len, device=x.device)[None, :], cos
     )  # [b, w]
@@ -782,7 +782,7 @@ def deepseek_forward_unified(
     layer's ragged MLA kernel on the card.  Logits are gathered at each
     lane's last span row: [lanes, vocab] f32 (junk for lanes without
     tokens; the caller gates them)."""
-    x = params["embed"][token_ids].to(cfg.dtype)
+    x = embed_rows(params["embed"], token_ids).to(cfg.dtype)
     positions = token_pos.clamp(min=0)  # pads rope at position 0
     views = (cache_rows(kv_cache["k"]), cache_rows(kv_cache["v"]))
     rows = slot_rows(token_slot, kv_cache["k"])  # pad tokens write the dump row

@@ -65,6 +65,7 @@ from dynamo_tpu_torch.ops.ring_attention import (
 from dynamo_tpu_torch.parallel.mesh import (
     all_gather,
     all_reduce,
+    embed_rows,
     mesh_size,
     shard_config,
     vocab_parallel_embed,
@@ -378,7 +379,7 @@ def _embed(params, cfg: LlamaConfig, token_ids, mesh=None) -> torch.Tensor:
     if table.shape[0] != cfg.vocab_size:  # vocab-sharded over tp
         x = vocab_parallel_embed(table, token_ids, mesh).to(cfg.dtype)
     else:
-        x = table[token_ids].to(cfg.dtype)
+        x = embed_rows(table, token_ids).to(cfg.dtype)
     if cfg.embed_scale != 1.0:
         # the reference multiplies by the scale cast to the model dtype
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype).item()

@@ -61,7 +61,7 @@ from dynamo_tpu_torch.ops.moe import moe_ffn
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import mm
 from dynamo_tpu_torch.ops.rope import apply_rope, table_positions
-from dynamo_tpu_torch.parallel.mesh import all_reduce, mesh_size, shard_config
+from dynamo_tpu_torch.parallel.mesh import all_reduce, embed_rows, mesh_size, shard_config
 from dynamo_tpu_torch.parallel.pipeline import (
     first_stage,
     pipeline_layer_stack,
@@ -221,7 +221,7 @@ def shard_params(params: dict, cfg: MixtralConfig, mesh) -> dict:
 
 
 def _embed(params, cfg: MixtralConfig, token_ids) -> torch.Tensor:
-    return params["embed"][token_ids].to(cfg.dtype)
+    return embed_rows(params["embed"], token_ids).to(cfg.dtype)
 
 
 def _block(cfg: MixtralConfig, w, x, attn, mesh=None, *, capacity_scale: float = 1.0):

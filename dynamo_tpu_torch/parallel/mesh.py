@@ -512,13 +512,32 @@ def shard_config(cfg, mesh: Mesh | None):
     return dataclasses.replace(cfg, **changes)
 
 
+def clamp_token_ids(token_ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The row of a ``vocab``-row table each id reads under the reference's
+    gather: a negative id counts from the end, and the result is clamped
+    into ``[0, vocab - 1]`` (``params["embed"][ids]`` in JAX clamps where
+    torch's indexing raises, or asserts on the device).  Elementwise on the
+    ids' device, so a captured step reads nothing back."""
+    ids = torch.where(token_ids < 0, token_ids + vocab, token_ids)
+    return ids.clamp(0, vocab - 1)
+
+
+def embed_rows(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+    """``table[token_ids]`` with the reference's gather semantics
+    (``clamp_token_ids``)."""
+    return table[clamp_token_ids(token_ids, table.shape[0])]
+
+
 def vocab_parallel_embed(table: torch.Tensor, token_ids: torch.Tensor, mesh: Mesh
                          ) -> torch.Tensor:
     """The rows of ``token_ids`` from a vocab-sharded embedding: each rank
     looks up the ids in its slice (zeros elsewhere), and the sum over tp
-    holds each row once, exactly."""
+    holds each row once, exactly.  The global id is clamped first
+    (``clamp_token_ids`` over the whole vocabulary), so an out-of-vocab id
+    reads the row the reference's gather reads, from exactly one rank."""
     n = table.shape[0]
-    local = token_ids.long() - mesh.index("tp") * n
+    ids = clamp_token_ids(token_ids.long(), n * mesh_size(mesh, "tp"))
+    local = ids - mesh.index("tp") * n
     hit = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))

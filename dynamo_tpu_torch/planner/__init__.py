@@ -5,8 +5,8 @@ prefill/decode replica counts from profiled performance, and scales through
 a connector (reference: components/planner — load-based planner_core.py and
 SLA planner_sla.py, predictors utils/load_predictor.py, interpolation
 utils/perf_interpolation.py, connectors local/kubernetes).  A copy of
-dynamo_tpu/planner; the Kubernetes connector waits for the port's
-``deploy/`` plane.
+dynamo_tpu/planner; the Kubernetes connector drives the port's ``deploy/``
+plane.
 
 SLO-native autopilot: WorkloadSample carries frontend burn rates and
 per-pool occupancy (sample_from_endpoints / burn_rates_from_slo), plan()

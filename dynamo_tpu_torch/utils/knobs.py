@@ -340,3 +340,6 @@ K_REPLICA_INDEX = register(
 K_DISABLE_AUTO_GPU_ALLOCATION = register(
     "DYN_DISABLE_AUTO_GPU_ALLOCATION", type="bool", default=False,
     doc="opt a deployment out of automatic per-replica GPU partitioning")
+K_SERVICE_CONFIG = register(
+    "DYN_SERVICE_CONFIG", type="str", default=None,
+    doc="path to the service-graph YAML the operator mounts into pods")

@@ -134,7 +134,19 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.examples.llm.graphs.agg",
             "dynamo_tpu_torch.examples.llm.graphs.agg_router",
             "dynamo_tpu_torch.examples.llm.graphs.disagg",
-            "dynamo_tpu_torch.examples.llm.graphs.disagg_router"} <= names
+            "dynamo_tpu_torch.examples.llm.graphs.disagg_router",
+            # the scenario soaks, the operator tools, the deploy plane, the
+            # deployment CLI and the standalone router
+            "dynamo_tpu_torch.scenarios", "dynamo_tpu_torch.scenarios.spec",
+            "dynamo_tpu_torch.scenarios.traffic", "dynamo_tpu_torch.scenarios.fleet",
+            "dynamo_tpu_torch.scenarios.runner", "dynamo_tpu_torch.scenarios.soak",
+            "dynamo_tpu_torch.scripts", "dynamo_tpu_torch.scripts.dyn_top",
+            "dynamo_tpu_torch.scripts.check_metrics", "dynamo_tpu_torch.scripts.chaos_smoke",
+            "dynamo_tpu_torch.scripts.migration_bench", "dynamo_tpu_torch.deploy",
+            "dynamo_tpu_torch.deploy.api_store", "dynamo_tpu_torch.deploy.crds",
+            "dynamo_tpu_torch.deploy.deployment", "dynamo_tpu_torch.deploy.operator",
+            "dynamo_tpu_torch.cli.deployctl",
+            "dynamo_tpu_torch.examples.router_standalone.router"} <= names
     assert bad == "[]"
 
 
