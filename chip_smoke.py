@@ -325,6 +325,16 @@ Phases (any failure exits non-zero, before the result line):
                dyn_top sees two workers then one, check_metrics finds every
                worker family, rows 1-2 launch, the card's memory returns
                after teardown (``phase_soak``).  One ``smoke_soak`` line.
+ 26. profile — the port's profiling scripts in this process, each with its
+               own gates at their defaults: ``profile_decode --ab`` at
+               Llama-3.2-1B's full width (sync against overlapped decode,
+               batch and OSL cut), ``profile_decode --mixed`` on llama
+               (Llama-3.2-1B) then on mla (tiny_mla: the split step
+               against the unified step under continuous arrivals), and
+               ``spec_vs_fused`` at window 4 on the repetitive and sampled
+               workloads; rows 1-4 launch (row 2 also at W = 4 in the
+               verify graph) and no unified run drains on admission
+               (``phase_profile``).  Each script's JSON line is printed.
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
 
@@ -363,7 +373,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "tiny", "serve", "dist", "fleet", "prefetch", "guided", "disagg",
           "mla", "families", "overlap", "spec", "longctx", "offload", "kvbm", "quant", "bench",
-          "mm", "tp", "pp", "meshfeat", "autotune", "plane", "soak")
+          "mm", "tp", "pp", "meshfeat", "autotune", "plane", "soak", "profile")
 BF16_ATOL = 2e-2  # bf16 output (8-bit mantissa, |out| < 4) vs plain in fp32
 F32_ATOL = 1e-4   # fp32 kernel vs fp32 plain: summation order only
 # row 1's bf16 cases are also held per element against the output's own size:
@@ -8546,6 +8556,125 @@ def phase_soak(torch, card: str, device: str = "cuda", config: dict = SOAK_CONFI
     return report
 
 
+# phase profile: each script's arguments as its CLI parses them (the gates
+# at their defaults); Llama-3.2-1B at full width, batch and OSL cut; tiny_mla
+# at the script's defaults (cut to OSL 16, each request finished inside the
+# 50 ms arrival gap: both steps idled between arrivals and the A/B timed the
+# arrival schedule, 0.999x)
+PROFILE_AB = ["--ab", "--model", "llama32_1b", "--batch", "8", "--osl", "32"]
+PROFILE_MIXED = {
+    "llama": ["--mixed", "--model", "llama32_1b", "--batch", "8", "--osl", "16",
+              "--requests", "8"],
+    "mla": ["--mixed", "--family", "mla"],
+}
+PROFILE_SPEC = dict(window=4, workloads=("repetitive", "sampled"), osl=48, num_requests=6)
+
+
+def _zero_launches() -> None:
+    from dynamo_tpu_torch.engine.graphs import launch_counters
+
+    for mod, name in launch_counters():
+        setattr(mod, name, 0)
+
+
+def _launches() -> dict:
+    from dynamo_tpu_torch.engine.graphs import launch_counters
+
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
+            for (mod, name), n in launch_counters().items() if n}
+
+
+def phase_profile(torch, card: str, device: str = "cuda", ab=PROFILE_AB,
+                  mixed=PROFILE_MIXED, spec=PROFILE_SPEC) -> dict:
+    """The port's profiling scripts (``dynamo_tpu_torch.scripts.
+    profile_decode`` and ``spec_vs_fused``) in this process, each run as its
+    CLI runs it (``amain``) with its own gates at their defaults:
+    ``profile_decode --ab`` (``ab``: synchronous against overlapped decode,
+    exit 1 if overlap's tok/s is below sync's), ``--mixed`` on each family
+    of ``mixed`` (the split step against the unified step under continuous
+    arrivals, exit 1 if unified's decode steps/s is below split's or a
+    unified run drained on admission), and ``spec_vs_fused`` at
+    ``spec["window"]`` on ``spec["workloads"]``.  The kernels' launch
+    counters are zeroed just before each script and read just after: rows
+    1-2 must launch in the llama runs, rows 3-4 in the mla run, row 2 at W
+    = window in spec_vs_fused's verify graph, and no plain version may run.
+    Each script's JSON line is printed (``smoke_profile_*``); the phase
+    fails if any script exits non-zero.  ``device`` "cpu" (with small
+    arguments) rehearses it; the launch checks are skipped there."""
+    from dynamo_tpu_torch.scripts import profile_decode, spec_vs_fused
+
+    on_card = device != "cpu"
+    report: dict = {"launches": {}, "rc": {}, "s": {}}
+
+    def check_launches(key: str, rows: tuple[str, ...]) -> None:
+        got = report["launches"][key]
+        if not on_card:
+            return
+        plain = {k: v for k, v in got.items() if k.endswith("plain_calls")}
+        missing = [r for r in rows if not got.get(r)]
+        if missing or plain:
+            raise AssertionError(f"[profile] {key}: rows {missing} never launched "
+                                 f"or plain versions ran {plain}: {got}")
+
+    def script(key: str, argv: list[str], rows: tuple[str, ...]) -> dict:
+        args = profile_decode.parser().parse_args([*argv, "--device", device, "--out", ""])
+        _zero_launches()
+        t0 = time.perf_counter()
+        rc, result = asyncio.run(profile_decode.amain(args))
+        report["s"][key] = round(time.perf_counter() - t0, 1)
+        report["launches"][key] = _launches()
+        profile_decode.stamp(result, device)
+        print(json.dumps({f"smoke_profile_{key}": result}), flush=True)
+        report["rc"][key] = rc
+        if rc:
+            raise AssertionError(f"[profile] profile_decode {' '.join(argv)} exited {rc}")
+        check_launches(key, rows)
+        return result
+
+    ab_result = script("ab", ab, LLAMA_PATH)
+    report["ab"] = {k: ab_result[k] for k in (
+        "overlap_speedup_tok_s", "overlap_speedup_steps_s", "readback_share_sync",
+        "readback_share_overlap", "retire_share_overlap")}
+    for mode in ("sync", "overlap"):
+        run = ab_result[mode]
+        report["ab"][mode] = {k: run[k] for k in (
+            "tok_s", "steps_s", "itl_mean_ms", "wall_s", "windows_overlapped",
+            "windows_sync", "decode_phase_share")}
+    for family, argv in mixed.items():
+        result = script(f"mixed_{family}", argv, MLA_PATH if family == "mla" else LLAMA_PATH)
+        if result["admission_drains_unified"] != 0 or result["windows_unified"] <= 0:
+            raise AssertionError(f"[profile] mixed {family}: unified drains "
+                                 f"{result['admission_drains_unified']}, windows "
+                                 f"{result['windows_unified']}")
+        report[f"mixed_{family}"] = {k: result[k] for k in (
+            "unified_speedup_steps_s", "unified_speedup_tok_s", "admission_drains_split",
+            "admission_drains_unified", "windows_unified")}
+        for mode in ("split", "unified"):
+            run = result[mode]
+            report[f"mixed_{family}"][mode] = {k: run[k] for k in (
+                "steps_s", "tok_s", "iterations", "wall_s", "decode_phase_share")}
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    spec_kw = dict(spec)
+    out = asyncio.run(spec_vs_fused.amain(spec_kw.pop("window"), device=device,
+                                          workloads=spec_kw.pop("workloads"), **spec_kw))
+    report["s"]["spec_vs_fused"] = round(time.perf_counter() - t0, 1)
+    report["launches"]["spec_vs_fused"] = _launches()
+    print(json.dumps({"smoke_profile_spec_vs_fused": out}), flush=True)
+    check_launches("spec_vs_fused", (*LLAMA_PATH, "paged_attention.window_launches"))
+    report["spec_vs_fused"] = {f"{r['mode']}/{r['workload']}": {
+        k: r[k] for k in ("tok_s", "tokens", "spec_drafted", "spec_accepted")}
+        for r in out["results"]}
+    drafted = [r for r in out["results"] if r["workload"] == "repetitive"
+               and r["mode"] in ("spec", "composed")]
+    if not all(r["spec_accepted"] > 0 for r in drafted):
+        raise AssertionError(f"[profile] spec_vs_fused: no draft accepted on the "
+                             f"repetitive workload: {drafted}")
+    print(json.dumps({"smoke_profile": report}), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8575,7 +8704,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kinfo = serve = dist = mla = families = overlap = spec = offload = quant = disagg = None
-    mm = tp = pp = meshfeat = soak = None
+    mm = tp = pp = meshfeat = soak = profile = None
     t_all = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -8651,6 +8780,8 @@ def main() -> int:
             run("plane", phase_plane, torch, card)
         if "soak" in phases:
             soak = run("soak", phase_soak, torch, card)
+        if "profile" in phases:
+            profile = run("profile", phase_profile, torch, card)
         if "sweep" in phases:
             run("sweep", phase_sweep, torch)
         if "split" in phases:
@@ -8663,7 +8794,7 @@ def main() -> int:
         return 1
     log(f"phases {phases} passed in {time.perf_counter() - t_all:.1f}s")
     if None not in (kinfo, serve, mla, families, overlap, spec, offload, quant, disagg, mm, tp,
-                    pp, meshfeat, soak):
+                    pp, meshfeat, soak, profile):
         cases = kinfo["cases"]
         # rows 6-7 at the engine's Llama leaf, and at a tp = 2 rank's shard of it
         for row in ("gather", "scatter"):
@@ -8779,6 +8910,29 @@ def main() -> int:
              "dynamo_tpu_torch/csrc/paged_attention.cu",
              "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged",
              soak["launches"]["paged_attention.launches"]),
+            # rows 1-4 under the profiling scripts (phase profile): the
+            # decode A/B and the mixed A/B at Llama-3.2-1B, the mixed A/B on
+            # tiny_mla, row 2 in spec_vs_fused's verify graph (W = 4)
+            ("ragged_paged_attention (profile_decode --mixed, Llama-3.2-1B)",
+             "dynamo_tpu_torch/csrc/ragged_attention.cu",
+             "dynamo_tpu/ops/pallas/ragged_attention.py:262", "ragged_mix", "ragged",
+             profile["launches"]["mixed_llama"]["ragged_attention.launches"]),
+            ("paged_window_attention_decode (profile_decode --ab, Llama-3.2-1B)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "decode_b32", "paged",
+             profile["launches"]["ab"]["paged_attention.launches"]),
+            ("ragged_mla_attention (profile_decode --mixed --family mla)",
+             "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:408", "mla_ragged_mix", "mla_ragged",
+             profile["launches"]["mixed_mla"]["mla_attention.ragged_launches"]),
+            ("mla_paged_attention_decode (profile_decode --mixed --family mla)",
+             "dynamo_tpu_torch/csrc/mla_attention.cu",
+             "dynamo_tpu/ops/pallas/mla_attention.py:237", "mla_decode_b32", "mla_decode",
+             profile["launches"]["mixed_mla"]["mla_attention.decode_launches"]),
+            ("paged_window_attention_decode (spec_vs_fused verify, W=4)",
+             "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "dynamo_tpu/ops/pallas/paged_attention.py:141", "verify_w5_b8", "paged_w5",
+             profile["launches"]["spec_vs_fused"]["paged_attention.window_launches"]),
         ):
             c = cases[case]
             entries.append({

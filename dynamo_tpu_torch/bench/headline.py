@@ -68,7 +68,6 @@ from __future__ import annotations
 
 import asyncio
 import json
-import os
 import re
 import subprocess
 import sys
@@ -94,7 +93,7 @@ from dynamo_tpu_torch.models.registry import get_family
 from dynamo_tpu_torch.observability.perf import NOMINAL_PEAKS
 from dynamo_tpu_torch.ops.quant import QuantizedMatrix, quantize_params
 from dynamo_tpu_torch.runtime.engine import Context
-from dynamo_tpu_torch.utils import profiling
+from dynamo_tpu_torch.utils import knobs, profiling
 
 # the reference's disaggregated H100 decode figure (BASELINE.md, bench.py:30)
 BASELINE_TOK_S_PER_GPU = 145.0
@@ -138,39 +137,44 @@ class BenchSettings:
 
 
 def settings_from_env(env=None) -> BenchSettings:
-    """The bench's settings from ``DYN_BENCH_*`` (bench.py's contract).
-    An unknown value raises here, before any engine is built."""
-    env = os.environ if env is None else env
-    device = env.get("DYN_BENCH_DEVICE", "cuda").strip() or "cuda"
+    """The bench's settings from ``DYN_BENCH_*`` (bench.py's contract; each
+    a registered knob, read raw).  An unknown value raises here, before any
+    engine is built."""
+
+    def raw(name: str, unset: str | None = None) -> str | None:
+        value = knobs.get(name, env=env)
+        return unset if value is None else value
+
+    device = raw("DYN_BENCH_DEVICE", "cuda").strip() or "cuda"
     if device not in ("cuda", "cpu"):
         raise ValueError(f"DYN_BENCH_DEVICE={device!r} not understood (want cuda|cpu)")
     cpu = device == "cpu"
-    quant = env.get("DYN_BENCH_QUANT")
+    quant = raw("DYN_BENCH_QUANT")
     if quant not in (None, "", "int8", "none", "0"):
         raise ValueError(f"DYN_BENCH_QUANT={quant!r} not understood (want int8|none)")
     if not quant:
         quant = None if cpu else "int8"  # bench.py: int8 on the chip, none on the CPU
     quant = None if quant in ("none", "0") else quant
-    init = env.get("DYN_BENCH_INIT", "const")
+    init = raw("DYN_BENCH_INIT", "const")
     if init not in ("const", "random"):
         raise ValueError(f"DYN_BENCH_INIT={init!r} not understood (want const|random)")
-    model = env.get("DYN_BENCH_MODEL") or ("tiny" if cpu else "llama3_8b")
+    model = raw("DYN_BENCH_MODEL") or ("tiny" if cpu else "llama3_8b")
     if model not in MODEL_PRESETS:
         raise ValueError(f"DYN_BENCH_MODEL={model!r} not understood (want one of {MODEL_PRESETS})")
 
     def num(name: str, card: int, host: int) -> int:
-        raw = env.get(name, str(host if cpu else card))
+        value = raw(name, str(host if cpu else card))
         try:
-            return int(raw)
+            return int(value)
         except ValueError:
-            raise ValueError(f"{name}={raw!r} is not an integer") from None
+            raise ValueError(f"{name}={value!r} is not an integer") from None
 
     requests = num("DYN_BENCH_REQUESTS", 32, 8)
     isl = num("DYN_BENCH_ISL", 3000, 64)
     osl = num("DYN_BENCH_OSL", 150, 32)
     batch = num("DYN_BENCH_BATCH", 16, 4)
     decode_steps = num("DYN_BENCH_DECODE_STEPS", 8, 4)
-    kv_dtype = env.get("DYN_BENCH_KV_DTYPE", "" if cpu else "fp8")
+    kv_dtype = raw("DYN_BENCH_KV_DTYPE", "" if cpu else "fp8")
     kv_dtype = None if kv_dtype in ("", "none", "model") else kv_dtype
     try:
         resolve_kv_cache_dtype(kv_dtype)
@@ -201,9 +205,10 @@ def engine_config(s: BenchSettings) -> EngineConfig:
     )
 
 
-def param_shapes(cfg: LlamaConfig, quant: str | None) -> dict:
-    """The parameter tree on the meta device: shapes and dtypes, no data."""
-    family = get_family("llama")
+def param_shapes(cfg: LlamaConfig, quant: str | None, family: str = "llama") -> dict:
+    """The parameter tree of a ``family`` on the meta device: shapes and
+    dtypes, no data."""
+    family = get_family(family)
     params = family.init_params(cfg, None, "meta")
     return quantize_params(params, family.quant_leaves) if quant else params
 
@@ -230,7 +235,7 @@ def tree_bytes(tree) -> int:
     return total
 
 
-def const_params(cfg: LlamaConfig, quant: str | None, device) -> dict:
+def const_params(cfg: LlamaConfig, quant: str | None, device, family: str = "llama") -> dict:
     """bench.py's constant fill: 0.01 for every float leaf, 1 for integer
     (int8) leaves, so a quantized tree passes the engine's quantize step
     untouched.  Throughput and MFU do not depend on the weights."""
@@ -243,7 +248,7 @@ def const_params(cfg: LlamaConfig, quant: str | None, device) -> dict:
         value = 0.01 if x.dtype.is_floating_point else 1
         return torch.full(x.shape, value, dtype=x.dtype, device=device)
 
-    return fill(param_shapes(cfg, quant))
+    return fill(param_shapes(cfg, quant, family))
 
 
 def preflight(s: BenchSettings, config: EngineConfig, device: torch.device) -> None:

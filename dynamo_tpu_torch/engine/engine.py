@@ -112,7 +112,6 @@ from __future__ import annotations
 
 import asyncio
 import math
-import os
 import queue as thread_queue
 import threading
 import time
@@ -182,10 +181,6 @@ class _InflightWindow:
     # emitted already, but their lane and blocks are released only when
     # this window retires (its lagged steps may still write into them)
     deferred: list = field(default_factory=list)
-
-
-def _env_flag(name: str) -> bool:
-    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes", "on")
 
 
 def _round_chunk_tokens(chunk_tokens: int, block_size: int) -> int:
@@ -520,7 +515,7 @@ class TorchLlmEngine:
         self._tail_cache: tuple | None = None
         # decode hot-loop phase accounting (DYN_ENGINE_PHASE_TIMING=1): wall
         # seconds and counts a phase, in stats()["phase_ms"]
-        self._phase_timing = _env_flag("DYN_ENGINE_PHASE_TIMING")
+        self._phase_timing = bool(knobs.get("DYN_ENGINE_PHASE_TIMING"))
         self.phase_stats: dict[str, list[float]] = {}
 
         if config.prefill_chunk_tokens is not None:

@@ -26,11 +26,12 @@ bf16 tensor-core FLOP/s, HBM bytes/s), else a conservative CPU row.
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+
+from dynamo_tpu_torch.utils import knobs
 
 # (bf16 dense peak FLOP/s, HBM bytes/s) per device, matched as a lowercase
 # substring of torch.cuda.get_device_name(); the first hit wins
@@ -40,23 +41,12 @@ NOMINAL_PEAKS: tuple[tuple[str, float, float], ...] = (
     ("cpu", 0.5e12, 50e9),
 )
 _FALLBACK_PEAKS = (0.5e12, 50e9)
-_DEFAULT_WINDOW_S = 10.0
 
 _DTYPE_BYTES = {
     "float8_e4m3fn": 1, "float8_e5m2": 1, "fp8": 1, "float8": 1,
     "int8": 1, "bfloat16": 2, "bf16": 2, "float16": 2, "f16": 2,
     "float32": 4, "f32": 4, "float64": 8,
 }
-
-
-def _env_float(name: str) -> float | None:
-    """A float setting from the environment: None when unset, empty or
-    unparseable (the reference's knob semantics)."""
-    raw = os.environ.get(name, "").strip()
-    try:
-        return float(raw) if raw else None
-    except ValueError:
-        return None
 
 
 def _dtype_bytes(dtype: object, default: int = 2) -> int:
@@ -171,8 +161,8 @@ def detect_peaks(device=None) -> tuple[float, float]:
     """(peak FLOP/s, peak bytes/s) of ``device`` (a CUDA device's name in the
     table, the CPU row otherwise): env override, then the table, then the
     conservative fallback."""
-    env_tflops = _env_float("DYN_PEAK_TFLOPS")
-    env_gbps = _env_float("DYN_PEAK_GBPS")
+    env_tflops = knobs.get("DYN_PEAK_TFLOPS")
+    env_gbps = knobs.get("DYN_PEAK_GBPS")
     kind = "cpu"
     if not (env_tflops and env_gbps):
         try:
@@ -231,7 +221,7 @@ class UtilizationTracker:
         self.peak_flops = max(float(peak_flops), 1.0)
         self.peak_bytes_per_s = max(float(peak_bytes_per_s), 1.0)
         if window_s is None:
-            window_s = _env_float("DYN_UTIL_WINDOW_S") or _DEFAULT_WINDOW_S
+            window_s = knobs.get("DYN_UTIL_WINDOW_S")
         self.window_s = max(window_s, 0.1)
         self._samples: deque[_Sample] = deque()
         self._lock = threading.Lock()

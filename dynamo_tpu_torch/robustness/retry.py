@@ -8,8 +8,9 @@ stampeded by every client retrying in phase.)
 from __future__ import annotations
 
 import math
-import os
 import random
+
+from dynamo_tpu_torch.utils import knobs
 
 
 class Backoff:
@@ -46,14 +47,12 @@ class Backoff:
 
     @classmethod
     def from_env(cls, prefix: str, **defaults) -> "Backoff":
-        """Read ``{prefix}_BACKOFF_S`` / ``{prefix}_BACKOFF_MAX_S`` env
-        overrides on top of ``defaults``."""
-        initial = os.environ.get(f"{prefix}_BACKOFF_S")
-        max_delay = os.environ.get(f"{prefix}_BACKOFF_MAX_S")
-        if initial is not None:
-            defaults["initial"] = float(initial)
-        if max_delay is not None:
-            defaults["max_delay"] = float(max_delay)
+        """Read the registered ``{prefix}_BACKOFF_S`` /
+        ``{prefix}_BACKOFF_MAX_S`` knobs on top of ``defaults`` (an unset knob
+        leaves its default, an unparseable one gives the registered default)."""
+        for suffix, key in (("_BACKOFF_S", "initial"), ("_BACKOFF_MAX_S", "max_delay")):
+            if knobs.is_set(prefix + suffix):
+                defaults[key] = knobs.get(prefix + suffix)
         return cls(**defaults)
 
     def _base(self) -> float:

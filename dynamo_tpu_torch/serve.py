@@ -23,6 +23,7 @@ from dynamo_tpu_torch.llm.backend import Backend
 from dynamo_tpu_torch.llm.discovery import ModelWatcher, register_llm
 from dynamo_tpu_torch.llm.engines import EchoEngineCore
 from dynamo_tpu_torch.llm.http import HttpService, ModelManager
+from dynamo_tpu_torch.llm.hub import resolve_model
 from dynamo_tpu_torch.llm.kv_router.publisher import (
     ClearKvListener,
     KvEventPublisher,
@@ -178,8 +179,12 @@ async def serve_worker(
     metrics as a torch worker does.  The KV event,
     load-metrics and cache-flush publishers are wired before the engine
     starts, so no early event is lost; the model registers last, so a
-    frontend's pipeline appears only once the engine is warm."""
-    model_dir = Path(model_dir)
+    frontend's pipeline appears only once the engine is warm.  ``model_dir``
+    is a local directory or a hub repo id (``org/name``), resolved through
+    the cache (``llm/hub.py`` ``resolve_model``) off the event loop: a
+    download takes minutes, and other endpoints of this runtime keep
+    running."""
+    model_dir = await asyncio.to_thread(resolve_model, model_dir)
     mdc = ModelDeploymentCard.from_local_path(model_dir, name=model_name)
     ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
 

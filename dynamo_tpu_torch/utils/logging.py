@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import json
 import logging
-import os
 import sys
 import time
+
+from dynamo_tpu_torch.utils import knobs
 
 _LEVELS = {
     "trace": 5,
@@ -89,9 +90,9 @@ def configure_logging(level: str | None = None, *, force: bool = False) -> None:
         return
     _configured = True
 
-    spec = level or os.environ.get("DYN_LOG") or "info"
+    spec = level or knobs.get("DYN_LOG") or "info"
     root_level, targets = _parse_filter(spec)
-    jsonl = os.environ.get("DYN_LOGGING_JSONL", "").lower() in ("1", "true", "yes")
+    jsonl = knobs.get("DYN_LOGGING_JSONL")
 
     handler = logging.StreamHandler(sys.stderr)
     handler.setFormatter(JsonlFormatter() if jsonl else TextFormatter())

@@ -28,6 +28,7 @@ import itertools
 import os
 from pathlib import Path
 
+from dynamo_tpu_torch.utils import knobs
 from dynamo_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("utils.profiling")
@@ -67,7 +68,7 @@ def maybe_start_trace_from_env() -> str | None:
     THIS call started the trace, else None: the caller that got the
     directory owns the matching ``maybe_stop_trace``."""
     global _env_profiler, _env_dir, _active
-    log_dir = os.environ.get("DYN_PROFILER_TRACE_DIR", "").strip()
+    log_dir = (knobs.get("DYN_PROFILER_TRACE_DIR") or "").strip()
     if not log_dir or _env_profiler is not None:
         return None
     try:

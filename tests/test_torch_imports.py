@@ -146,7 +146,16 @@ def test_importing_every_module_pulls_in_no_jax():
             "dynamo_tpu_torch.deploy.api_store", "dynamo_tpu_torch.deploy.crds",
             "dynamo_tpu_torch.deploy.deployment", "dynamo_tpu_torch.deploy.operator",
             "dynamo_tpu_torch.cli.deployctl",
-            "dynamo_tpu_torch.examples.router_standalone.router"} <= names
+            "dynamo_tpu_torch.examples.router_standalone.router",
+            # the decode profiler, spec-vs-fused, the hub and dynlint
+            "dynamo_tpu_torch.scripts.profile_decode",
+            "dynamo_tpu_torch.scripts.spec_vs_fused", "dynamo_tpu_torch.scripts.dynlint",
+            "dynamo_tpu_torch.analysis", "dynamo_tpu_torch.analysis.core",
+            "dynamo_tpu_torch.analysis.async_hygiene",
+            "dynamo_tpu_torch.analysis.lock_discipline",
+            "dynamo_tpu_torch.analysis.graph_purity",
+            "dynamo_tpu_torch.analysis.knob_registry",
+            "dynamo_tpu_torch.analysis.metric_names"} <= names
     assert bad == "[]"
 
 
